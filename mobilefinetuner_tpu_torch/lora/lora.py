@@ -1,0 +1,159 @@
+"""LoRA: spec, GPT-2 targets, initialization and multi-adapter stacking
+(port of mobilefinetuner_tpu/lora/lora.py, the part serving needs; merge,
+PEFT I/O and the Gemma targets come with later slices).
+
+Entry layout per target: {"A": [L, in, r], "B": [L, r, out], "scale": ()}
+with scale = alpha / rank; the unstacked "lm_head" target has A [in, r],
+B [r, out]. A tree is {"blocks": {target: entry}} of torch tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mobilefinetuner_tpu_torch.core.device import resolve_device
+
+# GPT-2 target name -> (in_dim_fn, out_dim_fn) over config
+GPT2_TARGETS = {
+    "attn_qkv": lambda c: (c.n_embd, 3 * c.n_embd),
+    # split-QKV: separate adapters on the q/k/v column ranges of the fused
+    # c_attn projection
+    "attn_q": lambda c: (c.n_embd, c.n_embd),
+    "attn_k": lambda c: (c.n_embd, c.n_embd),
+    "attn_v": lambda c: (c.n_embd, c.n_embd),
+    "attn_proj": lambda c: (c.n_embd, c.n_embd),
+    "mlp_fc_in": lambda c: (c.n_embd, 4 * c.n_embd),
+    "mlp_fc_out": lambda c: (4 * c.n_embd, c.n_embd),
+    # a single unstacked site on the tied lm_head (logits = x @ wte^T)
+    "lm_head": lambda c: (c.n_embd, c.vocab_size),
+}
+# column slot of each split target within the fused [E, 3E] c_attn weight
+GPT2_SPLIT_QKV_SLOTS = {"attn_q": 0, "attn_k": 1, "attn_v": 2}
+GPT2_DEFAULT_TARGETS = ["attn_qkv", "attn_proj"]
+# targets with ONE site instead of a per-layer stack
+UNSTACKED_TARGETS = frozenset({"lm_head"})
+
+
+@dataclasses.dataclass
+class LoRASpec:
+    rank: int = 8
+    alpha: float = 16.0
+    targets: Optional[List[str]] = None
+    init: str = "gpt2"  # the PEFT-style init comes with the Gemma slice
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+def _init_A(gen: torch.Generator, shape) -> torch.Tensor:
+    """GPT-2 style A ~ N(0, 1/sqrt(r)), shape [L, in, r], drawn on the CPU
+    so a seed gives the same factors on every device."""
+    return torch.randn(shape, generator=gen) / math.sqrt(shape[-1])
+
+
+def init_lora(target_dims: Dict[str, Tuple[int, int]], n_layers: int,
+              spec: LoRASpec, seed: int = 0, dtype=torch.float32,
+              device=None) -> dict:
+    """The stacked LoRA tree for the given targets (B = 0)."""
+    if spec.init != "gpt2":
+        raise NotImplementedError(
+            f"LoRA init {spec.init!r}: only the GPT-2 style is ported "
+            f"(the PEFT style comes with the Gemma slice, ROADMAP.md P3)")
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    tree = {}
+    for name in sorted(target_dims):
+        fan_in, fan_out = target_dims[name]
+        if name in UNSTACKED_TARGETS:
+            A = _init_A(gen, (1, fan_in, spec.rank))[0]
+            B = torch.zeros(spec.rank, fan_out)
+        else:
+            A = _init_A(gen, (n_layers, fan_in, spec.rank))
+            B = torch.zeros(n_layers, spec.rank, fan_out)
+        tree[name] = {"A": A.to(device, dtype), "B": B.to(device, dtype),
+                      "scale": torch.tensor(spec.scale, dtype=dtype,
+                                            device=device)}
+    return {"blocks": tree}
+
+
+def init_lora_gpt2(config, spec: LoRASpec, seed: int = 0,
+                   dtype=torch.float32, device=None) -> dict:
+    targets = spec.targets or GPT2_DEFAULT_TARGETS
+    dims = {t: GPT2_TARGETS[t](config) for t in targets}
+    return init_lora(dims, config.n_layer, spec, seed, dtype, device)
+
+
+def tree_leaves(tree, prefix=""):
+    """[(path, tensor)] of a nested dict, in sorted key order."""
+    out = []
+    for key in sorted(tree):
+        val = tree[key]
+        path = f"{prefix}/{key}"
+        if isinstance(val, dict):
+            out.extend(tree_leaves(val, path))
+        else:
+            out.append((path, val))
+    return out
+
+
+def stack_adapters(loras) -> dict:
+    """Stack N same-shaped adapter trees along a new leading ADAPTER axis;
+    scale stacks to [N] so per-adapter alpha/r survives."""
+    if not loras:
+        raise ValueError("stack_adapters needs at least one adapter")
+    ref = tree_leaves(loras[0])
+    for i, t in enumerate(loras[1:], 1):
+        leaves = tree_leaves(t)
+        if [p for p, _ in leaves] != [p for p, _ in ref]:
+            raise ValueError(
+                f"adapter {i} has different targets/structure than "
+                f"adapter 0: targets {sorted(t.get('blocks', {}))} vs "
+                f"{sorted(loras[0].get('blocks', {}))} (multi-adapter "
+                f"serving needs identical rank + target sets)")
+        for (path, x0), (_, xi) in zip(ref, leaves):
+            if x0.shape != xi.shape:
+                raise ValueError(
+                    f"adapter {i} leaf {path} has shape {tuple(xi.shape)} "
+                    f"but adapter 0 has {tuple(x0.shape)} (rank/dim "
+                    f"mismatch — stacked serving needs identical shapes)")
+
+    def stack(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
+        return torch.stack(list(nodes))
+
+    return stack(*loras)
+
+
+def assign_adapters(stacked: dict, adapter_ids) -> dict:
+    """Route batch rows to adapters: insert the per-row index array into
+    every site entry of a stack_adapters tree (serving only).
+
+    The ids are validated against the bank size on the host: a gather on
+    the card would index out of bounds, and a clamping one would quietly
+    serve tenant A another tenant's weights. Pass host ids (a list, numpy
+    array or CPU tensor); a CUDA tensor is checked too, at the cost of one
+    device-to-host copy."""
+    first = next(iter(stacked["blocks"].values()))
+    n = int(first["A"].shape[0])
+    if isinstance(adapter_ids, torch.Tensor):
+        host = adapter_ids.detach().cpu().numpy()
+    else:
+        host = np.asarray(adapter_ids)
+    host = host.astype(np.int64)
+    bad = host[(host < 0) | (host >= n)]
+    if bad.size:
+        raise ValueError(
+            f"adapter id(s) {sorted(set(int(b) for b in bad))} out of range "
+            f"for a stacked bank of {n} adapter(s) (valid: 0..{n - 1})")
+    ids = torch.as_tensor(host, device=first["A"].device)
+    out = dict(stacked)
+    out["blocks"] = {name: dict(entry, ids=ids)
+                     for name, entry in stacked["blocks"].items()}
+    return out

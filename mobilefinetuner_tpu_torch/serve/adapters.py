@@ -1,0 +1,102 @@
+"""Resident adapter bank with hot-swap: k LoRA tenants over one base model
+(port of mobilefinetuner_tpu/serve/adapters.py; `load_file` comes with the
+safetensors/PEFT slice).
+
+The decode step routes each slot to its adapter through the per-row
+gather (lora.stack_adapters layout: every A/B/scale leaf stacked along a
+leading adapter axis). Loading copies a tenant's factors into one slot in
+place; eviction zeroes it. Shapes never change, so nothing downstream is
+rebuilt by a swap. One hidden slot past capacity stays zero forever: the
+BASE route that base-only requests carry.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from mobilefinetuner_tpu_torch.lora.lora import stack_adapters, tree_leaves
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+class AdapterBank:
+    """`capacity` resident adapter slots plus the zero base slot, stacked
+    leaves [capacity + 1, ...]. `template` fixes the structure every load
+    must match (rank, targets, layer count), and the bank's dtype and
+    device."""
+
+    def __init__(self, template, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"bank capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        zero = _zeros_like_tree(template)
+        self.tree = stack_adapters([zero] * (capacity + 1))
+        self._template = [(p, tuple(x.shape))
+                          for p, x in tree_leaves(template)]
+        self.names: List[Optional[str]] = [None] * capacity
+
+    @property
+    def base_slot(self) -> int:
+        """The hidden all-zero slot (= base model); never loadable."""
+        return self.capacity
+
+    @property
+    def resident(self) -> Dict[str, int]:
+        return {n: i for i, n in enumerate(self.names) if n is not None}
+
+    def slot(self, name: str) -> int:
+        for i, n in enumerate(self.names):
+            if n == name:
+                return i
+        raise KeyError(
+            f"adapter {name!r} not resident (loaded: "
+            f"{sorted(self.resident)}) — engine.load_adapter first")
+
+    def _validate(self, tree) -> None:
+        leaves = tree_leaves(tree)
+        if [p for p, _ in leaves] != [p for p, _ in self._template]:
+            raise ValueError(
+                "adapter structure does not match the bank template "
+                "(residents must share rank and target set)")
+        for (_, ws), (_, x) in zip(self._template, leaves):
+            if tuple(x.shape) != ws:
+                raise ValueError(
+                    f"adapter leaf shape {tuple(x.shape)} does not match "
+                    f"bank template {ws} (rank mismatch?)")
+
+    def _write(self, tree, i: int) -> None:
+        for (_, dst), (_, src) in zip(tree_leaves(self.tree),
+                                      tree_leaves(tree)):
+            dst[i].copy_(src)
+
+    def load(self, name: str, tree) -> int:
+        """Load/replace adapter `name` into a bank slot; returns the slot.
+        Same-name load overwrites in place; otherwise the first free slot
+        is taken. OverflowError when the bank is full."""
+        self._validate(tree)
+        if name in self.resident:
+            i = self.resident[name]
+        elif None in self.names:
+            i = self.names.index(None)
+        else:
+            raise OverflowError(
+                f"bank full ({self.capacity} residents: "
+                f"{sorted(self.resident)}) — evict one first")
+        self._write(tree, i)
+        self.names[i] = name
+        return i
+
+    def evict(self, name: str) -> int:
+        """Zero `name`'s slot and free it: a stale routing id can only
+        ever reach the base model, never another tenant's weights."""
+        i = self.slot(name)
+        for _, leaf in tree_leaves(self.tree):
+            leaf[i].zero_()
+        self.names[i] = None
+        return i

@@ -17,3 +17,7 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the budgeted tier-1 run (-m 'not slow'); "
         "run explicitly for the full acceptance matrices")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the port's hand-written "
+        "kernels); skips without one")

@@ -1,0 +1,101 @@
+"""Port paged decode attention (mobilefinetuner_tpu_torch/ops/
+decode_attention.py) against the JAX package's `paged_attention` and its
+Pallas `paged_decode_attention` (interpret mode on the CPU): the same
+numpy pools, tables and masks through both. Covers trash-padded table
+rows, idle slots (pos 0 on the trash page), a sliding-window mask and
+G = 2 query groups. f32 max abs error <= 1e-5; bf16 <= 2e-2 (the
+probabilities round to bf16 at different running maxima)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobilefinetuner_tpu.ops.decode_attention import (
+    paged_attention as jax_paged_attention,
+    paged_decode_attention as jax_paged_decode_attention)
+from mobilefinetuner_tpu_torch.ops import decode_attention as port
+
+TOLS = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _case(seed, S=4, KV=2, G=2, D=64, bT=8, M=3, NB=10, L=2,
+          window=None):
+    rng = np.random.default_rng(seed)
+    pool_k = rng.standard_normal((NB, L, KV, bT, D)).astype(np.float32)
+    pool_v = rng.standard_normal((NB, L, KV, bT, D)).astype(np.float32)
+    pool_k[0] = pool_v[0] = 0.0             # the trash page holds zeros
+    q = rng.standard_normal((S, KV, G, D)).astype(np.float32)
+    tbl = np.zeros((S, M), np.int32)        # unused rows -> trash block 0
+    pos = np.zeros(S, np.int64)             # slot S-1 stays idle
+    free = list(rng.permutation(np.arange(1, NB)))
+    for s, p in enumerate([M * bT - 1, bT + 3, 2][:S - 1]):
+        pos[s] = p
+        for m in range(p // bT + 1):
+            tbl[s, m] = free.pop()
+    cols = np.arange(M * bT)
+    ok = cols[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= cols[None, :] > pos[:, None] - window
+    return q, pool_k, pool_v, tbl, ok
+
+
+def _to(dtype, *arrays):
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    return ([jnp.asarray(a, jd) for a in arrays],
+            [torch.from_numpy(a).to(td) for a in arrays])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("G", [1, 2])
+def test_paged_matches_jax(dtype, window, G):
+    q, pk, pv, tbl, ok = _case(3 + G, G=G, window=window)
+    (jq, jk, jv), (tq, tk, tv) = _to(dtype, q, pk, pv)
+    layer, scale = 1, 64 ** -0.5
+    want_x = np.asarray(jax_paged_attention(
+        jq, jk, jv, jnp.asarray(tbl), layer, jnp.asarray(ok), scale))
+    want_k = np.asarray(jax_paged_decode_attention(
+        jq, jk, jv, jnp.asarray(tbl), layer, jnp.asarray(ok), scale))
+    args = (torch.from_numpy(tbl), layer, torch.from_numpy(ok), scale)
+    got_plain = port.paged_attention(tq, tk, tv, *args)
+    port.paged_decode_attention.launches = 0
+    got_wrap = port.paged_decode_attention(tq, tk, tv, *args)
+    assert port.paged_decode_attention.launches == 0   # CPU: plain version
+    assert got_plain.dtype == torch.float32
+    assert got_plain.shape == q.shape
+    tol = TOLS[dtype]
+    for got in (got_plain, got_wrap):
+        for want in (want_x, want_k):
+            assert np.max(np.abs(got.numpy() - want)) <= tol
+
+
+def test_trash_page_contents_never_leak():
+    """Poisoning the trash page (finite garbage) must not move any live
+    slot's context: masked columns contribute exactly 0."""
+    q, pk, pv, tbl, ok = _case(11)
+    base = port.paged_attention(*(torch.from_numpy(a) for a in (q, pk, pv)),
+                                torch.from_numpy(tbl), 0,
+                                torch.from_numpy(ok), 0.125)
+    pk[0] = 1e3
+    pv[0] = -1e3
+    poisoned = port.paged_attention(
+        *(torch.from_numpy(a) for a in (q, pk, pv)), torch.from_numpy(tbl),
+        0, torch.from_numpy(ok), 0.125)
+    live = slice(0, q.shape[0] - 1)          # the idle slot reads trash
+    assert torch.equal(base[live], poisoned[live])
+
+
+def test_paged_validation_and_eligibility():
+    q, pk, pv, tbl, ok = _case(5)
+    with pytest.raises(ValueError, match="dtype"):
+        port.paged_decode_attention(
+            torch.from_numpy(q).bfloat16(), torch.from_numpy(pk),
+            torch.from_numpy(pv), torch.from_numpy(tbl), 0,
+            torch.from_numpy(ok), 0.125)
+    assert port.paged_eligible(12, 1, 16, 64, 2)     # GPT-2 small, bf16
+    assert port.paged_eligible(1, 4, 16, 256, 2)     # Gemma-shaped GQA
+    assert not port.paged_eligible(1, 4, 16, 256, 4)
+    assert not port.paged_eligible(4, 1, 16, 16, 4)   # tiny test head dim
+    assert not port.paged_eligible(4, 1, 4096, 64, 2)

@@ -1,0 +1,64 @@
+"""The port never imports jax nor the JAX package: a subprocess imports
+every module of mobilefinetuner_tpu_torch and chip_smoke.py (this test
+process cannot tell, since tests/conftest.py imports jax for every test),
+and an AST scan checks every import statement of those files."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "mobilefinetuner_tpu_torch"
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, PKG)):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "mobilefinetuner_tpu"
+            or name.startswith("mobilefinetuner_tpu."))
+
+
+def test_subprocess_imports_no_jax():
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {ROOT!r})
+import {PKG}
+mods = [m.name for m in pkgutil.walk_packages({PKG}.__path__, "{PKG}.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "mobilefinetuner_tpu"
+             or m.startswith("mobilefinetuner_tpu."))
+print(len(mods), bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, bad = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 15, res.stdout
+    assert bad == "[]", res.stdout
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_ast_imports_no_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names if _forbidden(n)], (path, names)
