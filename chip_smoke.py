@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA card.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
   2. build every kernel from mobilefinetuner_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once;
   3. hold each kernel against its plain PyTorch version on the card, at
-     the serving shapes and at a few others, with the tolerance printed;
-     then GPT-2 small prefill and one paged decode step, kernel path
-     against plain path, in f32;
+     the main paths' shapes and at a few others, with the tolerance
+     printed: the flash forward (with and without dropout), the merged
+     and the split flash backward, the LoRA epilogue, the paged decode;
+     then GPT-2 small through the kernels against the plain path in f32:
+     prefill and one paged decode step, and a LoRA train step (loss and
+     LoRA grads);
   4. serve GPT-2 small (12 layers, n_embd 768, bf16 weights and KV pool,
      8 slots, block_T 16, max_prompt 128, 64 new tokens) over 12 ragged
      requests routed to 2 rank-4 tenants and the base model, through
@@ -18,19 +22,33 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      before: every request finishes, every page comes back, and the
      flash kernel ran 12 times a prefill, the paged kernel 12 times a
      decode step;
-  5. trace ten decode steps and a 128-token prefill of that engine with
+  5. train: write a random-weight GPT-2 small directory and a synthetic
+     WikiText-shaped corpus into a temporary directory, take the base
+     model's eval perplexity, set every launch count to 0 and run the
+     port's CLI, cli.gpt2_lora_finetune.main, for 30 steps (micro-batch
+     8, accumulation 2, seq 128, bf16, LoRA r 8, alpha 16 on attn_qkv and
+     attn_proj); the loss must fall, the eval perplexity must end below
+     the base model's, the adapter and its .opt sidecar must reload, and
+     the forward, backward and epilogue kernels must have launched
+     exactly as often as the path runs them;
+  6. serve one request with the trained adapter, loaded from its file
+     through AdapterBank.load_file;
+  7. trace a decode step, a 128-token prefill and a train step with
      torch.profiler: device busy time against host wall time, and the
      kernels that take the device time;
-  6. time each kernel, its plain version and (for flash) the PyTorch
-     library call at the serving shapes, with its bound on this card:
-     "ms" is the traced device time of a call, "call_ms" the time a
-     call takes between CUDA events, host overhead included; where two
-     traces saw no device time, "ms" is the call time and the entry's
-     "timed_by" says so for that number.
+  8. time each kernel, its plain version and, where one exists, the
+     PyTorch library call at the main paths' shapes, with its bound on
+     this card: "ms" is the traced device time of a call, "call_ms" the
+     time a call takes between CUDA events, host overhead included;
+     where two traces saw no device time, "ms" is the call time and the
+     entry's "timed_by" says so for that number; then the merged
+     backward against the split pair at a few longer and wider shapes
+     (`bwd_sweep`, the measurements behind resolve_bwd_impl).
 
-Prints `serve`, `profile` and `kernels` JSON lines and, last, the device
-line `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
-repo beside it, it exits non-zero and prints no result.
+Prints `serve`, `train`, `profile`, `bwd_sweep` and `kernels` JSON lines
+and, last, the device line `{"ok": true, "device": {...}}`. Without a
+CUDA card, or without the repo beside it, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -39,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -46,8 +65,11 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 LAYERS = 12
-FLASH_SRC = "mobilefinetuner_tpu_torch/csrc/flash_attention_fwd.cu"
-PAGED_SRC = "mobilefinetuner_tpu_torch/csrc/paged_decode_attention.cu"
+CSRC = "mobilefinetuner_tpu_torch/csrc/"
+JAX_OPS = "mobilefinetuner_tpu/ops/"
+# the training main path (phase 5)
+TRAIN = dict(steps=30, batch=8, accum=2, seq=128, rank=8, alpha=16.0,
+             eval_batch=8, eval_batches=8, lr=1e-3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -119,6 +141,45 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|): outputs of a few units rounded to
+    bf16/f16 carry errors in proportion to their size."""
+    return max_err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def timed(fns: dict, call_iters: int = 200, trace_iters: int = 50):
+    """{key: (ms, call_ms, timed_by)} for each fn of `fns`."""
+    out = {}
+    for key, fn in fns.items():
+        per_call = call_ms(fn, call_iters)
+        traced = device_ms(fn, trace_iters)
+        if traced is None:              # the profiler saw no device time:
+            traced = device_ms(fn, trace_iters)      # trace once more
+        out[key] = (per_call if traced is None else traced, per_call,
+                    "cuda events" if traced is None else "torch.profiler")
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, err, times, bnd,
+                 extra=None):
+    """One entry of the kernels line from timed() results."""
+    b_ms, b_by = bnd
+    entry = {"name": name, "route": "cuda", "source": CSRC + source,
+             "replaces": JAX_OPS + replaces, "launches": launches,
+             "max_abs_err": err, "ms": times["ms"][0],
+             "plain_ms": times["plain_ms"][0], "bound_ms": b_ms,
+             "bound_by": b_by,
+             "library_ms": (times["library_ms"][0] if "library_ms" in times
+                            else None),
+             "call_ms": times["ms"][1],
+             "plain_call_ms": times["plain_ms"][1],
+             "library_call_ms": (times["library_ms"][1]
+                                 if "library_ms" in times else None),
+             "timed_by": {k: v[2] for k, v in times.items()}}
+    entry.update(extra or {})
+    return entry
+
+
 # ------------------------------------------------------------- inputs ------
 
 def flash_inputs(torch, dev, dtype, B, Hq, Hkv, S, D, n_real, seed):
@@ -156,39 +217,132 @@ def paged_inputs(torch, dev, dtype, S, KV, G, D, bT, M, L, seed,
             tbl.to(dev), ok.to(dev))
 
 
-# ------------------------------------------------------------- phases ------
+# ------------------------------------------------------- kernel checks ------
 
 def check_flash(torch, fa, dev):
-    """Kernel vs flash_attention_reference; returns the serving case's
-    max error (out) and its inputs."""
-    cases = [  # (name, dtype, B, Hq, Hkv, S, D, n_real, causal, window, tol)
+    """Forward kernel vs flash_attention_reference; returns the training
+    case's max error (out) and its inputs."""
+    cases = [  # (name, dtype, B, Hq, Hkv, S, D, n_real, causal, window,
+        #         p_drop, tol)
         ("serving", torch.bfloat16, 1, 12, 12, 128, 64, (100,), True, None,
-         1e-2),
+         0.0, 1e-2),
+        ("training", torch.bfloat16, 8, 12, 12, 128, 64, (128,) * 8, True,
+         None, 0.0, 1e-2),
         ("gqa_window_ragged", torch.float32, 2, 4, 2, 200, 64, (200, 150),
-         True, 24, 1e-4),
+         True, 24, 0.0, 1e-4),
         ("d128_noncausal", torch.bfloat16, 2, 8, 8, 96, 128, (96, 40),
-         False, None, 1e-2),
+         False, None, 0.0, 1e-2),
         ("d256_gqa", torch.float16, 1, 8, 2, 130, 256, (130,), True, None,
-         1e-2),
+         0.0, 1e-2),
+        ("dropout_0.1", torch.float32, 2, 4, 4, 128, 64, (128, 100), True,
+         None, 0.1, 1e-4),
     ]
-    serving = None
-    for name, dt, B, Hq, Hkv, S, D, n_real, causal, window, tol in cases:
+    training = None
+    for (name, dt, B, Hq, Hkv, S, D, n_real, causal, window, p_drop,
+         tol) in cases:
         q, k, v, pad = flash_inputs(torch, dev, dt, B, Hq, Hkv, S, D, n_real,
                                     seed=S + D)
-        kw = dict(is_causal=causal, sliding_window=window)
+        kw = dict(is_causal=causal, sliding_window=window, p_drop=p_drop,
+                  seed=20261016 if p_drop else None)
         out, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, pad, **kw)
         torch.cuda.synchronize()
         e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
-        print(f"flash {name}: {dt} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}: "
-              f"max |out err| {e_out:.3e}, max |lse err| {e_lse:.3e} "
-              f"(tolerance {tol:g})")
+        print(f"flash fwd {name}: {dt} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+              f"p_drop={p_drop}: max |out err| {e_out:.3e}, max |lse err| "
+              f"{e_lse:.3e} (tolerance {tol:g}, lse 1e-4)")
         check(bool(torch.isfinite(out).all()), f"flash {name} non-finite")
         check(e_out <= tol and e_lse <= 1e-4,
               f"flash {name} disagrees with its plain version")
-        if name == "serving":
-            serving = (e_out, (q, k, v, pad))
-    return serving
+        if name == "training":
+            training = (e_out, (q, k, v, pad))
+    return training
+
+
+def check_flash_bwd(torch, fa, dev):
+    """The merged and the split backward kernels against their plain
+    versions; returns {kernel: max error} at the training shape."""
+    cases = [  # (name, dtype, B, Hq, Hkv, S, D, n_real, window, p_drop,
+        #         tol of rel_err)
+        ("training", torch.bfloat16, 8, 12, 12, 128, 64, (128,) * 8, None,
+         0.0, 2e-2),
+        ("gqa_window_ragged", torch.float32, 2, 4, 2, 200, 64, (200, 150),
+         24, 0.0, 1e-5),
+        ("d128", torch.bfloat16, 2, 8, 8, 96, 128, (96, 70), None, 0.0,
+         2e-2),
+        ("d256_gqa", torch.float16, 1, 8, 2, 130, 256, (130,), None, 0.0,
+         5e-3),
+        ("dropout_0.1", torch.float32, 2, 4, 4, 128, 64, (128, 100), None,
+         0.1, 1e-5),
+    ]
+    errs = None
+    for (name, dt, B, Hq, Hkv, S, D, n_real, window, p_drop,
+         tol) in cases:
+        q, k, v, pad = flash_inputs(torch, dev, dt, B, Hq, Hkv, S, D, n_real,
+                                    seed=3 * S + D)
+        do = flash_inputs(torch, dev, dt, B, Hq, Hq, S, D, n_real,
+                          seed=S + 7)[0]
+        kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window,
+                  p_drop=p_drop, seed=77 if p_drop else None)
+        out, lse = fa.flash_attention_fwd(q, k, v, pad, **{
+            n: kw[n] for n in ("scale", "sliding_window", "p_drop",
+                               "seed")})
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        args = (q, k, v, pad, lse, delta, do)
+        merged = fa.flash_attention_bwd_merged(*args, **kw)
+        dq = fa.flash_attention_bwd_dq(*args, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(*args, **kw)
+        ref_m = fa.flash_bwd_merged_reference(*args, **kw)
+        ref_s = fa.flash_bwd_split_reference(*args, **kw)
+        torch.cuda.synchronize()
+        e = {"merged": max(rel_err(a, b) for a, b in zip(merged, ref_m)),
+             "dq": rel_err(dq, ref_s[0]),
+             "dkv": max(rel_err(dk, ref_s[1]), rel_err(dv, ref_s[2]))}
+        print(f"flash bwd {name}: {dt} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+              f"window={window} p_drop={p_drop}: max err / max(1, |ref|): "
+              f"merged {e['merged']:.3e}, split dq {e['dq']:.3e}, split "
+              f"dk/dv {e['dkv']:.3e} (tolerance {tol:g})")
+        for t in (*merged, dq, dk, dv):
+            check(bool(torch.isfinite(t).all()), f"flash bwd {name} "
+                  f"non-finite")
+        check(max(e.values()) <= tol,
+              f"flash bwd {name} disagrees with its plain versions")
+        if name == "training":
+            errs = {k_: max_err(a, b) for k_, a, b in (
+                ("merged", torch.cat([t.flatten() for t in merged]),
+                 torch.cat([t.flatten() for t in ref_m])),
+                ("dq", dq, ref_s[0]),
+                ("dkv", torch.cat([dk.flatten(), dv.flatten()]),
+                 torch.cat([ref_s[1].flatten(), ref_s[2].flatten()])))}
+            errs["args"] = (args, kw)
+    return errs
+
+
+def check_epilogue(torch, lf, dev):
+    """The LoRA epilogue kernel against its plain version at the training
+    sites (N = 8 x 128 rows, r = 8) and a ragged shape."""
+    cases = [  # (name, dtype, N, d_out, r, tol)
+        ("attn_qkv", torch.bfloat16, 1024, 2304, 8, 1e-2),
+        ("attn_proj", torch.bfloat16, 1024, 768, 8, 1e-2),
+        ("ragged_f32", torch.float32, 1000, 770, 8, 1e-5),
+        ("rank128_f16", torch.float16, 37, 300, 128, 1e-2),
+    ]
+    sites = {}
+    for name, dt, N, d_out, r, tol in cases:
+        g = torch.Generator().manual_seed(N + d_out)
+        y, xa, b = (torch.randn(s, generator=g).to(dev, dt)
+                    for s in ((N, d_out), (N, r), (r, d_out)))
+        out = lf.lora_epilogue(y, xa, b)
+        ref = lf.lora_epilogue_reference(y, xa, b)
+        torch.cuda.synchronize()
+        e = max_err(out, ref)
+        print(f"lora epilogue {name}: {dt} N={N} d_out={d_out} r={r}: max "
+              f"|err| {e:.3e} (tolerance {tol:g})")
+        check(bool(torch.isfinite(out).all()) and e <= tol,
+              f"lora epilogue {name} disagrees with its plain version")
+        if name in ("attn_qkv", "attn_proj"):
+            sites[name] = (e, (y, xa, b))
+    return sites
 
 
 def check_paged(torch, da, dev):
@@ -252,10 +406,51 @@ def check_model(torch, dev):
           f"(tolerance 1e-4)")
     check(e_pre <= 1e-4 and e_dec <= 1e-4,
           "GPT-2 small kernel path disagrees with the plain path")
+    return params
 
+
+def check_train_step(torch, dev, params):
+    """GPT-2 small in f32 with a rank-8 LoRA on attn_qkv/attn_proj: loss
+    and LoRA grads through the flash forward/backward and epilogue
+    kernels against the plain attention and the naive LoRA order."""
+    from mobilefinetuner_tpu_torch.core.config import GPT2Config
+    from mobilefinetuner_tpu_torch.lora.lora import LoRASpec, init_lora_gpt2
+    from mobilefinetuner_tpu_torch.models import gpt2
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    base = GPT2Config.gpt2_small()
+    lora = init_lora_gpt2(base, LoRASpec(rank=8, alpha=16.0), seed=3,
+                          device=dev)
+    g = torch.Generator().manual_seed(4)
+    for entry in lora["blocks"].values():   # B off zero: grads reach A
+        entry["B"] = (0.02 * torch.randn(entry["B"].shape,
+                                         generator=g)).to(dev)
+    ids = torch.randint(0, base.vocab_size, (2, 128), generator=g).to(dev)
+    mask = torch.ones(2, 128, device=dev)
+    out = {}
+    for attn_impl, lora_impl in (("auto", "auto"), ("plain", "naive")):
+        leaves = {n: {k: t.clone().requires_grad_(k != "scale")
+                      for k, t in e.items()}
+                  for n, e in lora["blocks"].items()}
+        logits = gpt2.forward(base, params, ids, mask, {"blocks": leaves},
+                              attn_impl=attn_impl, lora_impl=lora_impl)
+        s, w = lm_cross_entropy_sum(logits, ids)
+        grads = torch.autograd.grad(
+            s / w, [leaves[n][k] for n in sorted(leaves) for k in "AB"])
+        out[attn_impl] = (float((s / w).detach()), grads)
+    e_loss = abs(out["auto"][0] - out["plain"][0])
+    e_grad = max(max_err(a, b) for a, b in zip(out["auto"][1],
+                                                 out["plain"][1]))
+    print(f"gpt2s f32 LoRA train step, kernel path vs plain path: loss "
+          f"{out['auto'][0]:.6f} vs {out['plain'][0]:.6f} (err "
+          f"{e_loss:.3e}), LoRA grads max err {e_grad:.3e} (tolerance 1e-4)")
+    check(e_loss <= 1e-4 and e_grad <= 1e-4,
+          "GPT-2 small train step: kernel path disagrees with plain path")
+
+
+# ----------------------------------------------------------- main paths ----
 
 def serve(torch, fa, da):
-    """The main path: GPT-2 small served through build_engine."""
+    """The serving path: GPT-2 small served through build_engine."""
     import numpy as np
 
     from mobilefinetuner_tpu_torch.serve.bench import build_engine
@@ -311,29 +506,10 @@ def serve(torch, fa, da):
     return launches, stats, eng, names
 
 
-def profile(torch, eng, names):
-    """Where a decode step and a prefill spend their time: device busy
-    time (the traced kernels) against host wall time, and the kernels
-    that take most of the device time."""
-    import numpy as np
-
-    from mobilefinetuner_tpu_torch.models.generate import gpt2_prefill
-    rng = np.random.default_rng(1)
-    V = eng.config.vocab_size
-    for i in range(eng.cfg.num_slots):
-        eng.submit(list(rng.integers(0, V, 100)),
-                   adapter=(names + [None])[i % 3])
-    eng.step()                          # admit every slot, first decode
-    check(len(eng.active) == eng.cfg.num_slots, "slots not all admitted")
+def profile_phases(phases: dict) -> dict:
+    """{name: wall/device ms, device busy share, top kernels} of each
+    (fn, iters) phase, traced with torch.profiler."""
     out = {}
-    ids = torch.as_tensor(rng.integers(0, V, (1, 128)), device=eng.device)
-    mask = torch.ones(1, 128, dtype=torch.long, device=eng.device)
-    lora = eng._route(np.asarray([0]))
-    phases = {
-        "decode_step": (eng.step, 10),
-        "prefill_128": (lambda: gpt2_prefill(
-            eng.config, eng.params, ids, mask, compute_dtype=eng.dtype,
-            lora=lora), 5)}
     for name, (fn, iters) in phases.items():
         evs, wall_ms = device_events(fn, iters)
         by_name = {}
@@ -346,10 +522,264 @@ def profile(torch, eng, names):
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
             "device_activities": len(evs) // iters,
             "top": [[k[:60], us / 1e3 / iters] for k, us in top]}
+    return out
+
+
+def profile_serve(torch, eng, names):
+    """Where a decode step and a prefill spend their time."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.models.generate import gpt2_prefill
+    rng = np.random.default_rng(1)
+    V = eng.config.vocab_size
+    for i in range(eng.cfg.num_slots):
+        eng.submit(list(rng.integers(0, V, 100)),
+                   adapter=(names + [None])[i % 3])
+    eng.step()                          # admit every slot, first decode
+    check(len(eng.active) == eng.cfg.num_slots, "slots not all admitted")
+    ids = torch.as_tensor(rng.integers(0, V, (1, 128)), device=eng.device)
+    mask = torch.ones(1, 128, dtype=torch.long, device=eng.device)
+    lora = eng._route(np.asarray([0]))
+    out = profile_phases({
+        "decode_step": (eng.step, 10),
+        "prefill_128": (lambda: gpt2_prefill(
+            eng.config, eng.params, ids, mask, compute_dtype=eng.dtype,
+            lora=lora), 5)})
     while not eng.idle:
         eng.step()
     return out
 
+
+def read_csv(path):
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def train(torch, dev, work, kernels):
+    """The training path: the port's CLI on a synthetic full-size GPT-2
+    small and corpus, launch counts set to 0 just before it."""
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.cli import common
+    from mobilefinetuner_tpu_torch.cli import gpt2_lora_finetune as cli
+    from mobilefinetuner_tpu_torch.data.synthetic import (
+        write_synthetic_corpus, write_synthetic_gpt2)
+    from mobilefinetuner_tpu_torch.data.tokenizer_bpe import GPT2BPETokenizer
+    from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
+                                                          WT2Config)
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
+    from mobilefinetuner_tpu_torch.lora import peft_io
+    from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec,
+                                                     init_lora_gpt2,
+                                                     trainable_mask)
+    from mobilefinetuner_tpu_torch.models import gpt2
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.optim import adam
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_eval_step)
+    T = TRAIN
+    gdir, ddir = os.path.join(work, "gpt2"), os.path.join(work, "wiki")
+    out = os.path.join(work, "out")
+    t0 = time.perf_counter()
+    write_synthetic_gpt2(gdir, seed=0)
+    write_synthetic_corpus(ddir, n_train_words=60_000, seed=0)
+    config, params_np = load_gpt2(gdir)
+    params = convert.gpt2_params_from_numpy(params_np, device=dev)
+    tok = GPT2BPETokenizer.from_pretrained(gdir)
+    valid = WikiText2Dataset(ddir, "valid", WT2Config(
+        seq_len=T["seq"], batch_size=T["eval_batch"], shuffle=False),
+        tok.encode, tok.eos_id)
+    eval_nb = min(T["eval_batches"], valid.num_batches())
+    spec = LoRASpec(rank=T["rank"], alpha=T["alpha"],
+                    targets=["attn_qkv", "attn_proj"])
+
+    def nll_fn(lora_t, frozen, mb):
+        logits = gpt2.forward(config, frozen, mb["input_ids"],
+                              attention_mask=mb["attention_mask"],
+                              lora=lora_t, compute_dtype=torch.bfloat16)
+        return lm_cross_entropy_sum(logits, mb["labels"])
+
+    lora0 = init_lora_gpt2(config, spec, seed=42, device=dev)
+    base = common.evaluate(make_eval_step(nll_fn), lora0, params, valid,
+                           T["eval_batches"], dev)
+    setup_s = time.perf_counter() - t0
+    print(f"train setup: synthetic GPT-2 small + corpus written and base "
+          f"eval done in {setup_s:.1f} s; base eval ppl {base['ppl']:.3f} "
+          f"over {base['tokens']} tokens")
+
+    adapter = os.path.join(out, "adapter.safetensors")
+    argv = ["--pretrained_dir", gdir, "--data_dir", ddir,
+            "--steps", str(T["steps"]), "--batch_size", str(T["batch"]),
+            "--grad_accum_steps", str(T["accum"]),
+            "--seq_len", str(T["seq"]), "--dtype", "bfloat16",
+            "--rank", str(T["rank"]), "--alpha", str(T["alpha"]),
+            "--lr", str(T["lr"]), "--eval_interval", str(T["steps"]),
+            "--eval_batch_size", str(T["eval_batch"]),
+            "--eval_batches", str(T["eval_batches"]),
+            "--lora_out", adapter,
+            "--metrics_csv", os.path.join(out, "metrics.csv"),
+            "--eval_out", os.path.join(out, "eval.jsonl")]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(rc == 0, f"gpt2_lora_finetune.main returned {rc}")
+
+    rows = read_csv(os.path.join(out, "metrics.csv"))
+    losses = [float(r["loss"]) for r in rows]
+    step_ms = sorted(float(r["step_time_ms"]) for r in rows)
+    with open(os.path.join(out, "eval.jsonl")) as f:
+        evals = [json.loads(line) for line in f]
+    final = evals[-1]
+    check(len(losses) == T["steps"] and all(map(_finite, losses)),
+          f"losses {losses}")
+    first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last5 < first5, f"loss did not fall: first-5 mean {first5:.4f}, "
+          f"last-5 mean {last5:.4f}")
+    check(final["type"] == "final_eval" and final["ppl"] < base["ppl"],
+          f"eval ppl {final['ppl']:.3f} not below the base model's "
+          f"{base['ppl']:.3f}")
+
+    micro = T["steps"] * T["accum"]
+    fwd_passes = micro + len(evals) * eval_nb
+    impl = resolve_bwd_impl(T["seq"], config.head_dim, torch.bfloat16)
+    want = {"flash_fwd": LAYERS * fwd_passes,
+            "bwd_merged": LAYERS * micro if impl == "merged" else 0,
+            "bwd_dq": LAYERS * micro if impl == "split" else 0,
+            "bwd_dkv": LAYERS * micro if impl == "split" else 0,
+            "lora_epilogue": 2 * LAYERS * fwd_passes, "paged": 0}
+    check(launches == want, f"train launches {launches}, expected {want} "
+          f"(auto backward: {impl})")
+
+    # the adapter and its sidecar reload
+    lora, spec2 = peft_io.load_adapter(adapter, device=dev)
+    tc = TrainConfig(total_steps=T["steps"], lr=T["lr"])
+    state, _ = adam.load_state(adapter + ".opt", init_optimizer(
+        lora, tc, trainable_mask(lora)), verify=True)
+    check(spec2.rank == T["rank"] and int(state["step"]) == T["steps"]
+          and all(bool(torch.isfinite(e["B"]).all())
+                  and float(e["B"].abs().max()) > 0
+                  for e in lora["blocks"].values()),
+          "trained adapter / .opt sidecar did not reload")
+
+    tokens = T["batch"] * T["accum"] * T["seq"]
+    stats = {"model": "gpt2s", "dtype": "bfloat16", "steps": T["steps"],
+             "micro_batch": T["batch"], "grad_accum": T["accum"],
+             "seq_len": T["seq"], "lora_rank": T["rank"],
+             "tokens_per_step": tokens,
+             "step_ms_p50": step_ms[len(step_ms) // 2],
+             "tokens_per_s": tokens / (step_ms[len(step_ms) // 2] / 1e3),
+             "first_loss": losses[0], "last_loss": losses[-1],
+             "first5_mean_loss": first5, "last5_mean_loss": last5,
+             "eval_ppl_before": base["ppl"], "eval_ppl_after": final["ppl"],
+             "eval_tokens": final["tokens"], "bwd_impl": impl,
+             "wall_s": wall, "setup_s": setup_s}
+    return stats, launches, adapter, (config, params, tok, spec)
+
+
+def _finite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def serve_trained(torch, dev, adapter, model):
+    """The serving path with the trained adapter, loaded from its file."""
+    from mobilefinetuner_tpu_torch.lora import peft_io
+    from mobilefinetuner_tpu_torch.optim.adam import tree_map
+    from mobilefinetuner_tpu_torch.serve import ServeConfig, ServeEngine
+    from mobilefinetuner_tpu_torch.serve.adapters import AdapterBank
+    config, params, tok, _ = model
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    template, _ = peft_io.load_adapter(adapter, device=dev)
+    template = {"blocks": {n: {k: v.to(torch.bfloat16) for k, v in e.items()}
+                           for n, e in template["blocks"].items()}}
+    eng = ServeEngine("gpt2", config, params, ServeConfig(
+        num_slots=2, block_T=16, num_blocks=32, max_prompt=64,
+        max_new_tokens=16, dtype="bfloat16"),
+        bank=AdapterBank(template, capacity=1), device=dev)
+    slot = eng.load_adapter("trained", adapter)
+    prompt = tok.encode(" w001 w002 w003 w004")
+    r = eng.submit(prompt, adapter="trained")
+    eng.drain()
+    check(r.state == "finished" and len(r.tokens) == 16
+          and all(0 <= t < config.vocab_size for t in r.tokens),
+          f"trained-adapter request {r.state} {r.tokens}")
+    print(f"served with the trained adapter (bank slot {slot}): "
+          f"{tok.decode(r.tokens)!r}")
+    return r.tokens
+
+
+def profile_train(torch, dev, model):
+    """Where one train step (micro-batch 8 x 2, bf16) spends its time."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.cli.common import place_batch
+    from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec,
+                                                     init_lora_gpt2,
+                                                     trainable_mask)
+    from mobilefinetuner_tpu_torch.models import gpt2
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_train_step)
+    config, params, _, spec = model
+    T = TRAIN
+    lora = init_lora_gpt2(config, spec, seed=42, device=dev)
+    mask = trainable_mask(lora)
+    tc = TrainConfig(total_steps=T["steps"], lr=T["lr"],
+                     grad_accum_steps=T["accum"])
+
+    def loss_fn(lora_t, frozen, mb):
+        logits = gpt2.forward(config, frozen, mb["input_ids"],
+                              attention_mask=mb["attention_mask"],
+                              lora=lora_t, compute_dtype=torch.bfloat16)
+        return lm_cross_entropy_sum(logits, mb["labels"])
+
+    step_fn = make_train_step(loss_fn, tc, mask)
+    opt = init_optimizer(lora, tc, mask)
+    rng = np.random.default_rng(3)
+    rows = T["batch"] * T["accum"]
+    ids = rng.integers(0, config.vocab_size, (rows, T["seq"]),
+                       dtype=np.int32)
+    batch = place_batch({"input_ids": ids, "labels": ids,
+                         "attention_mask": np.ones((rows, T["seq"]),
+                                                   np.float32)}, dev)
+    return profile_phases({"train_step": (
+        lambda: step_fn(lora, params, opt, batch, 0), 5)})
+
+
+def bwd_sweep(torch, fa, dev):
+    """The merged backward against the split pair at training shapes the
+    port's models reach (bf16, causal): the time of one backward call
+    between CUDA events, kernels and the wrappers' torch passes (zeroing,
+    casts, the GQA sum) included. The data behind resolve_bwd_impl."""
+    rows = []
+    for B, Hq, Hkv, S, D in ((8, 12, 12, 128, 64), (8, 12, 12, 512, 64),
+                             (2, 12, 12, 2048, 64), (4, 16, 16, 1024, 128),
+                             (2, 8, 2, 1024, 256), (1, 4, 1, 4096, 256)):
+        q, k, v, pad = flash_inputs(torch, dev, torch.bfloat16, B, Hq, Hkv,
+                                    S, D, (S,) * B, seed=S + D)
+        do = flash_inputs(torch, dev, torch.bfloat16, B, Hq, Hq, S, D,
+                          (S,) * B, seed=S)[0]
+        out, lse = fa.flash_attention_fwd(q, k, v, pad)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        args = (q, k, v, pad, lse, delta, do)
+        kw = dict(scale=D ** -0.5)
+        m = call_ms(lambda: fa.flash_attention_bwd_merged(*args, **kw), 20)
+        sp = call_ms(lambda: fa.flash_attention_bwd_split(*args, **kw), 20)
+        rows.append({"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
+                     "merged_ms": m, "split_ms": sp,
+                     "auto": fa.resolve_bwd_impl(S, D, torch.bfloat16)})
+    return rows
+
+
+# --------------------------------------------------------------- main ------
 
 def main() -> int:
     import torch
@@ -361,6 +791,13 @@ def main() -> int:
     from mobilefinetuner_tpu_torch.kernels import build
     from mobilefinetuner_tpu_torch.ops import decode_attention as da
     from mobilefinetuner_tpu_torch.ops import flash_attention as fa
+    from mobilefinetuner_tpu_torch.ops import lora_fused as lf
+    kernels = {"flash_fwd": fa.flash_attention_fwd,
+               "bwd_merged": fa.flash_attention_bwd_merged,
+               "bwd_dq": fa.flash_attention_bwd_dq,
+               "bwd_dkv": fa.flash_attention_bwd_dkv,
+               "lora_epilogue": lf.lora_epilogue,
+               "paged": da.paged_decode_attention}
 
     # 1. the card
     card = card_line()
@@ -369,11 +806,11 @@ def main() -> int:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 2. build every kernel, in parallel
-    t0 = time.perf_counter()
     built = build.build_all(verbose=True)
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {sorted(built)} in {time.perf_counter() - t_start:.1f} s")
     for name, (path, log) in sorted(built.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -381,78 +818,142 @@ def main() -> int:
 
     # 3. each kernel against its plain version, then the model
     flash_err, flash_args = check_flash(torch, fa, dev)
+    bwd = check_flash_bwd(torch, fa, dev)
+    epi = check_epilogue(torch, lf, dev)
     paged_err, paged_args = check_paged(torch, da, dev)
-    check_model(torch, dev)
+    params32 = check_model(torch, dev)
+    check_train_step(torch, dev, params32)
+    del params32
 
-    # 4. the main path, counts set to 0 just before it
-    launches, stats, eng, names = serve(torch, fa, da)
-    print(json.dumps({"serve": stats}))
-    print(json.dumps({"profile": profile(torch, eng, names)}))
+    # 4. the serving path, counts set to 0 just before it
+    launches_serve, serve_stats, eng, names = serve(torch, fa, da)
+    print(json.dumps({"serve": serve_stats}))
+    prof = profile_serve(torch, eng, names)
+    del eng
 
-    # 5. times and bounds at the serving shapes: "ms" is the traced device
-    # time a call, "call_ms" the time a call between CUDA events (which
-    # the host's per-call overhead bounds when it outlasts the kernels)
+    # 5. the training path, counts set to 0 just before it; 6. serve with
+    # the trained adapter; 7. profile a train step
+    with tempfile.TemporaryDirectory() as work:
+        train_stats, launches_train, adapter, model = train(
+            torch, dev, work, kernels)
+        print(json.dumps({"train": train_stats,
+                          "launches": launches_train}))
+        serve_trained(torch, dev, adapter, model)
+        prof.update(profile_train(torch, dev, model))
+    print(json.dumps({"profile": prof}))
+
+    # 8. times and bounds at the main paths' shapes
     q, k, v, pad = flash_args
     B, Hq, S, D = q.shape
+    isz = q.element_size()
     allowed = torch.tril(torch.ones(S, S, dtype=torch.bool, device=q.device))
     allowed = allowed[None, None] & (pad > 0)[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    fl = {"ms": lambda: fa.flash_attention_fwd(q, k, v, pad),
-          "plain_ms": lambda: fa.flash_attention_reference(q, k, v, pad),
-          "library_ms": lambda: sdpa(q, k, v, attn_mask=allowed)}
     pairs = int(allowed.sum()) * Hq
-    fl_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + pad.numel() * 4 + q.numel() * q.element_size() + B * Hq * S * 4
-    fl_bound, fl_by = bound(fl_bytes, 4 * D * pairs)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_qkv = q.numel()                       # elements of one [B,H,S,D]
+    fl_times = timed({
+        "ms": lambda: fa.flash_attention_fwd(q, k, v, pad),
+        "plain_ms": lambda: fa.flash_attention_reference(q, k, v, pad),
+        "library_ms": lambda: sdpa(q, k, v, attn_mask=allowed)})
+    fl_bound = bound(4 * n_qkv * isz + pad.numel() * 4 + B * Hq * S * 4,
+                     4 * D * pairs)
+
+    (bq, bk, bv, bpad, lse, delta, do), kw = bwd["args"]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (bq, bk, bv)]
+    lib_out = sdpa(*leaves, is_causal=True)
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, leaves, do, retain_graph=True)
+    bargs = (bq, bk, bv, bpad, lse, delta, do)
+    bwd_in = 4 * n_qkv * isz + 2 * B * Hq * S * 4 + bpad.numel() * 4
+    merged_times = timed({
+        "ms": lambda: fa.flash_attention_bwd_merged(*bargs, **kw),
+        "plain_ms": lambda: fa.flash_bwd_merged_reference(*bargs, **kw),
+        "library_ms": lib_bwd})
+    dq_times = timed({
+        "ms": lambda: fa.flash_attention_bwd_dq(*bargs, **kw),
+        "plain_ms": lambda: fa.flash_bwd_split_reference(*bargs, **kw),
+        "library_ms": lib_bwd})
+    dkv_times = timed({
+        "ms": lambda: fa.flash_attention_bwd_dkv(*bargs, **kw),
+        "plain_ms": lambda: fa.flash_bwd_split_reference(*bargs, **kw),
+        "library_ms": lib_bwd})
+
+    epi_times, epi_bounds = {}, {}
+    for site, (_, (y, xa, b)) in epi.items():
+        N, d_out = y.shape
+        r = xa.shape[1]
+        epi_times[site] = timed({
+            "ms": lambda y=y, xa=xa, b=b: lf.lora_epilogue(y, xa, b),
+            "plain_ms": lambda y=y, xa=xa, b=b: lf.lora_epilogue_reference(
+                y, xa, b),
+            "library_ms": lambda y=y, xa=xa, b=b: torch.addmm(y, xa, b)})
+        epi_bounds[site] = bound(
+            (2 * y.numel() + xa.numel() + b.numel()) * y.element_size(),
+            2 * N * r * d_out)
 
     pq, pk, pv, tbl, layer, ok, scale = paged_args
     Sl, KV, G, Dp = pq.shape
     bT = pk.shape[3]
-    pg = {"ms": lambda: da.paged_decode_attention(pq, pk, pv, tbl, layer,
-                                                  ok, scale),
-          "plain_ms": lambda: da.paged_attention(pq, pk, pv, tbl, layer, ok,
-                                                 scale)}
+    pg_times = timed({
+        "ms": lambda: da.paged_decode_attention(pq, pk, pv, tbl, layer, ok,
+                                                scale),
+        "plain_ms": lambda: da.paged_attention(pq, pk, pv, tbl, layer, ok,
+                                               scale)})
     live_pages = int(ok.reshape(Sl, -1, bT).any(-1).sum())
-    pg_bytes = (2 * live_pages * KV * bT * Dp * pk.element_size()
-                + pq.numel() * pq.element_size() + tbl.numel() * 4
-                + ok.numel() + Sl * KV * G * Dp * 4)
-    pg_bound, pg_by = bound(pg_bytes, 4 * Dp * G * KV * int(ok.sum()))
-    times, timed_by = {}, {}
-    for kname, fns in (("flash", fl), ("paged", pg)):
-        for key, fn in fns.items():
-            per_call = call_ms(fn, 200)
-            traced = device_ms(fn, 50)
-            if traced is None:          # the profiler saw no device time:
-                traced = device_ms(fn, 50)      # trace once more
-            times[kname, key] = per_call if traced is None else traced
-            timed_by[kname, key] = ("cuda events" if traced is None
-                                    else "torch.profiler")
-            times[kname, key.replace("ms", "call_ms")] = per_call
+    pg_bound = bound(2 * live_pages * KV * bT * Dp * pk.element_size()
+                     + pq.numel() * pq.element_size() + tbl.numel() * 4
+                     + ok.numel() + Sl * KV * G * Dp * 4,
+                     4 * Dp * G * KV * int(ok.sum()))
 
-    kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
-         "replaces": "mobilefinetuner_tpu/ops/flash_attention.py:162",
-         "launches": launches["flash"], "max_abs_err": flash_err,
-         "ms": times["flash", "ms"], "plain_ms": times["flash", "plain_ms"],
-         "bound_ms": fl_bound, "bound_by": fl_by,
-         "library_ms": times["flash", "library_ms"],
-         "call_ms": times["flash", "call_ms"],
-         "plain_call_ms": times["flash", "plain_call_ms"],
-         "library_call_ms": times["flash", "library_call_ms"],
-         "timed_by": {k: timed_by["flash", k] for k in fl}},
-        {"name": "paged_decode_attention", "route": "cuda",
-         "source": PAGED_SRC,
-         "replaces": "mobilefinetuner_tpu/ops/decode_attention.py:223",
-         "launches": launches["paged"], "max_abs_err": paged_err,
-         "ms": times["paged", "ms"], "plain_ms": times["paged", "plain_ms"],
-         "bound_ms": pg_bound, "bound_by": pg_by, "library_ms": None,
-         "call_ms": times["paged", "call_ms"],
-         "plain_call_ms": times["paged", "plain_call_ms"],
-         "library_call_ms": None,
-         "timed_by": {k: timed_by["paged", k] for k in pg}},
+    serve_names = {"flash_fwd": "flash", "paged": "paged"}
+
+    def by_path(name):
+        return {"serve": launches_serve.get(serve_names.get(name), 0),
+                "train": launches_train[name]}
+
+    kernels_line = [
+        kernel_entry(
+            "flash_attention_fwd", "flash_attention_fwd.cu",
+            "flash_attention.py:162", sum(by_path("flash_fwd").values()),
+            flash_err, fl_times, fl_bound,
+            {"launches_by_path": by_path("flash_fwd"),
+             "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)"}),
+        kernel_entry(
+            "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
+            "flash_attention.py:415", launches_train["bwd_merged"],
+            bwd["merged"], merged_times,
+            bound(bwd_in + 3 * n_qkv * isz, 10 * D * pairs),
+            {"launches_by_path": by_path("bwd_merged")}),
+        kernel_entry(
+            "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
+            "flash_attention.py:269", launches_train["bwd_dq"], bwd["dq"],
+            dq_times, bound(bwd_in + n_qkv * isz, 6 * D * pairs),
+            {"launches_by_path": by_path("bwd_dq")}),
+        kernel_entry(
+            "flash_attention_bwd_dkv", "flash_attention_bwd_split.cu",
+            "flash_attention.py:362", launches_train["bwd_dkv"], bwd["dkv"],
+            dkv_times, bound(bwd_in + 2 * n_qkv * isz, 8 * D * pairs),
+            {"launches_by_path": by_path("bwd_dkv")}),
+        kernel_entry(
+            "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
+            launches_train["lora_epilogue"], epi["attn_qkv"][0],
+            epi_times["attn_qkv"], epi_bounds["attn_qkv"],
+            {"launches_by_path": by_path("lora_epilogue"),
+             "shape": "attn_qkv: y 1024x2304, r 8, bf16",
+             "attn_proj": kernel_entry(
+                 "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
+                 launches_train["lora_epilogue"], epi["attn_proj"][0],
+                 epi_times["attn_proj"], epi_bounds["attn_proj"],
+                 {"shape": "y 1024x768, r 8, bf16"})}),
+        kernel_entry(
+            "paged_decode_attention", "paged_decode_attention.cu",
+            "decode_attention.py:223", launches_serve["paged"], paged_err,
+            pg_times, pg_bound, {"launches_by_path": by_path("paged")}),
     ]
+    print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

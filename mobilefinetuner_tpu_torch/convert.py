@@ -1,10 +1,12 @@
-"""Carry parameter and adapter trees from numpy into the port.
+"""Carry parameter, adapter and optimizer-state trees between numpy and
+the port.
 
-The JAX package keeps GPT-2 weights and LoRA adapters as nested dicts of
-arrays; `jax.tree.map(np.asarray, tree)` turns one into numpy, and these
-functions turn that into the port's nested dict of torch tensors with the
-same keys and shapes, so both packages compute the same function on the
-same weights. `device=None` is the CUDA card (core/device.py).
+The JAX package keeps GPT-2 weights, LoRA adapters and Adam state as
+nested dicts of arrays; `jax.tree.map(np.asarray, tree)` turns one into
+numpy, and these functions turn that into the port's nested dict of torch
+tensors with the same keys and shapes (and back, `to_numpy`), so both
+packages compute the same function from the same state. `device=None` is
+the CUDA card (core/device.py).
 """
 
 from __future__ import annotations
@@ -36,3 +38,21 @@ def lora_from_numpy(tree, device=None, dtype=torch.float32) -> dict:
     stack_adapters-stacked) as torch tensors; integer leaves such as
     routing "ids" keep their dtype."""
     return _tree_from_numpy(tree, resolve_device(device), dtype)
+
+
+def adam_state_from_numpy(tree, device=None, dtype=torch.float32) -> dict:
+    """An Adam state {"step", "m", "v"[, "v_hat"]} (optim/adam.py layout,
+    zero-size leaves for frozen params) as torch tensors; the int32 step
+    counter keeps its dtype."""
+    return _tree_from_numpy(tree, resolve_device(device), dtype)
+
+
+def to_numpy(tree):
+    """A tree of torch tensors as numpy arrays (bf16 leaves as float32),
+    for the JAX package to load."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -9,7 +9,11 @@
 // Arithmetic follows the TPU kernel: Q/K/V are upcast to f32 and every
 // product and sum is f32; l_safe = max(l, 1e-30), out = acc / l_safe cast
 // to q's dtype, lse = m + log(l_safe). Probabilities are re-masked after
-// exp, so a key the mask refuses adds exactly 0.
+// exp, so a key the mask refuses adds exactly 0. Train-mode dropout
+// (HF probs-dropout semantics, as the TPU kernel): l sums the undropped
+// probabilities, only P.V sees the kept ones scaled by 1/(1-p); the keep
+// bit is `_keep_mask`'s hash of the global (b, h, row, col)
+// (flash_attention_common.cuh), so the backward kernels regenerate it.
 //
 // Bound on this card: for the serving prefill (S = 128, D = 64, 12 heads)
 // the work is ~24 MFLOP and ~0.8 MB a layer, which the H100 could do in
@@ -27,41 +31,24 @@
 // C interface (ctypes): mft_flash_attention_fwd returns the CUDA error
 // code of the launch (0 on success). Shapes: q [B, Hq, S, D], k/v
 // [B, Hkv, S, D] contiguous in one dtype (0 f32, 1 bf16, 2 f16);
-// pad [B, S] f32 (> 0 = real key); out like q; lse [B, Hq, S] f32.
+// pad [B, S] f32 (> 0 = real key); out like q; lse [B, Hq, S] f32;
+// dropout = 0 or 1, with seed, thresh = round((1 - p) * 2^24) and
+// inv_keep = 1 / (1 - p) from the wrapper.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "flash_attention_common.cuh"
 
 namespace {
+
+using mft::Dropout;
+using mft::floor_div;
+using mft::from_f32;
+using mft::keep_bit;
+using mft::NEG_INF;
+using mft::to_f32;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;   // four threads per query row
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch casts
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
-
-__host__ __device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 template <int D>
 __host__ __device__ constexpr size_t smem_floats() {
@@ -76,7 +63,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ pad,
                  T* __restrict__ out, float* __restrict__ lse, int Hq,
                  int Hkv, int S, float scale, int causal, int has_window,
-                 int window) {
+                 int window, Dropout drop) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
@@ -156,8 +143,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const float p = ((okbits >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-      psum += p;
-      p_s[r * PP + c4 + 4 * j] = p;
+      psum += p;   // the denominator sums the undropped probabilities
+      float pv = p;
+      if (drop.on)
+        pv = keep_bit(drop.seed, b, h, row, col0 + c4 + 4 * j, drop.thresh)
+                 ? p * drop.inv_keep
+                 : 0.f;
+      p_s[r * PP + c4 + 4 * j] = pv;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -186,7 +178,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* pad,
            void* out, void* lse, int B, int Hq, int Hkv, int S, float scale,
-           int causal, int has_window, int window, cudaStream_t stream) {
+           int causal, int has_window, int window, Dropout drop,
+           cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -197,7 +190,7 @@ int launch(const void* q, const void* k, const void* v, const void* pad,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(pad),
       static_cast<T*>(out), static_cast<float*>(lse), Hq, Hkv, S, scale,
-      causal, has_window, window);
+      causal, has_window, window, drop);
   return (int)cudaGetLastError();
 }
 
@@ -205,17 +198,17 @@ template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                const void* pad, void* out, void* lse, int B, int Hq,
                int Hkv, int S, float scale, int causal, int has_window,
-               int window, cudaStream_t st) {
+               int window, Dropout drop, cudaStream_t st) {
   switch (D) {
     case 64:
       return launch<T, 64>(q, k, v, pad, out, lse, B, Hq, Hkv, S, scale,
-                           causal, has_window, window, st);
+                           causal, has_window, window, drop, st);
     case 128:
       return launch<T, 128>(q, k, v, pad, out, lse, B, Hq, Hkv, S, scale,
-                            causal, has_window, window, st);
+                            causal, has_window, window, drop, st);
     case 256:
       return launch<T, 256>(q, k, v, pad, out, lse, B, Hq, Hkv, S, scale,
-                            causal, has_window, window, st);
+                            causal, has_window, window, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -229,21 +222,24 @@ extern "C" int mft_flash_attention_fwd(const void* q, const void* k,
                                        int Hkv, int S, int D, int dtype,
                                        float scale, int causal,
                                        int has_window, int window,
+                                       int dropout, unsigned int seed,
+                                       unsigned int thresh, float inv_keep,
                                        void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{dropout, seed, thresh, inv_keep};
   switch (dtype) {
     case 0:
       return dispatch_d<float>(D, q, k, v, pad, out, lse, B, Hq, Hkv, S,
-                               scale, causal, has_window, window, st);
+                               scale, causal, has_window, window, drop, st);
     case 1:
       return dispatch_d<__nv_bfloat16>(D, q, k, v, pad, out, lse, B, Hq, Hkv,
                                        S, scale, causal, has_window, window,
-                                       st);
+                                       drop, st);
     case 2:
       return dispatch_d<__half>(D, q, k, v, pad, out, lse, B, Hq, Hkv, S,
-                                scale, causal, has_window, window, st);
+                                scale, causal, has_window, window, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,8 +6,9 @@ on its own into `build/kernels/lib<name>-<digest>.so` at the repo root:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/lib<name>-<digest>.so <name>.cu
 
-The digest covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused within a checkout. `build_all`
+The digest covers the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused within a checkout. `build_all`
 starts one nvcc per source, all at once, and waits for them; a failed
 build raises with nvcc's output. `load(name)` builds at first use, so a
 fresh checkout needs nothing but its sources and the CUDA toolkit. Nothing
@@ -26,7 +27,9 @@ from typing import Dict, Iterable, Optional, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
-SOURCES = ("flash_attention_fwd", "paged_decode_attention")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd_merged",
+           "flash_attention_bwd_split", "lora_epilogue",
+           "paged_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -53,8 +56,11 @@ def find_nvcc() -> str:
 
 
 def lib_path(name: str, flags: Tuple[str, ...] = NVCC_FLAGS) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -63,7 +69,8 @@ def build_all(names: Iterable[str] = SOURCES, verbose: bool = False,
     """Build every named kernel library that is not built yet, one nvcc
     process per source, all started together. Returns
     {name: (path, compiler output)}; `verbose` adds `-Xptxas -v` so the
-    output lists each kernel's registers, shared memory and spills."""
+    output of a build lists each kernel's registers, shared memory and
+    spills (a library already built is reused, with no output)."""
     names = list(names)
     extra = ("-Xptxas", "-v") if verbose else ()
     flags = NVCC_FLAGS + extra
@@ -71,7 +78,7 @@ def build_all(names: Iterable[str] = SOURCES, verbose: bool = False,
     out: Dict[str, Tuple[str, str]] = {}
     procs = {}
     for name in names:
-        path = lib_path(name, flags)
+        path = lib_path(name)   # -Xptxas -v does not change the binary
         if os.path.exists(path):
             out[name] = (path, "")
             continue

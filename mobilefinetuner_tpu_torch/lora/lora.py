@@ -1,6 +1,6 @@
-"""LoRA: spec, GPT-2 targets, initialization and multi-adapter stacking
-(port of mobilefinetuner_tpu/lora/lora.py, the part serving needs; merge,
-PEFT I/O and the Gemma targets come with later slices).
+"""LoRA: spec, GPT-2 targets, initialization, multi-adapter stacking,
+the trainable mask and merging (port of mobilefinetuner_tpu/lora/lora.py;
+the Gemma targets come with the Gemma slice, ROADMAP.md port item P3).
 
 Entry layout per target: {"A": [L, in, r], "B": [L, r, out], "scale": ()}
 with scale = alpha / rank; the unstacked "lm_head" target has A [in, r],
@@ -43,12 +43,28 @@ UNSTACKED_TARGETS = frozenset({"lm_head"})
 class LoRASpec:
     rank: int = 8
     alpha: float = 16.0
+    dropout: float = 0.0
     targets: Optional[List[str]] = None
     init: str = "gpt2"  # the PEFT-style init comes with the Gemma slice
 
     @property
     def scale(self) -> float:
         return self.alpha / self.rank
+
+    def to_metadata(self) -> Dict[str, str]:
+        return {"lora_rank": str(self.rank), "lora_alpha": str(self.alpha),
+                "lora_dropout": str(self.dropout),
+                "lora_targets": ",".join(self.targets or []),
+                "lora_init": self.init}
+
+    @classmethod
+    def from_metadata(cls, md: Dict[str, str]) -> "LoRASpec":
+        return cls(rank=int(md["lora_rank"]),
+                   alpha=float(md["lora_alpha"]),
+                   dropout=float(md.get("lora_dropout", 0.0)),
+                   targets=[t for t in md.get("lora_targets", "").split(",")
+                            if t],
+                   init=md.get("lora_init", "gpt2"))
 
 
 def _init_A(gen: torch.Generator, shape) -> torch.Tensor:
@@ -157,3 +173,66 @@ def assign_adapters(stacked: dict, adapter_ids) -> dict:
     out["blocks"] = {name: dict(entry, ids=ids)
                      for name, entry in stacked["blocks"].items()}
     return out
+
+
+def trainable_mask(lora_tree) -> dict:
+    """Tree of bools: True for the trainable leaves (A, B), False for the
+    "scale" hyperparameter and for routing "ids"."""
+    return {k: (trainable_mask(v) if isinstance(v, dict)
+                else k not in ("scale", "ids"))
+            for k, v in lora_tree.items()}
+
+
+def num_trainable(lora_tree) -> int:
+    mask = dict(tree_leaves(trainable_mask(lora_tree)))
+    return sum(int(t.numel()) for path, t in tree_leaves(lora_tree)
+               if mask[path])
+
+
+def _delta_w(entry) -> torch.Tensor:
+    """[L, in, out] = scale * A @ B per layer, in f32."""
+    return entry["scale"].float() * torch.einsum(
+        "lir,lro->lio", entry["A"].float(), entry["B"].float())
+
+
+# base-weight leaf each GPT-2 target modifies; a third element is the
+# column slot within the fused c_attn weight (split-QKV)
+_GPT2_BASE = {"attn_qkv": ("attn", "qkv_w"), "attn_proj": ("attn", "proj_w"),
+              "mlp_fc_in": ("mlp", "fc_w"), "mlp_fc_out": ("mlp", "proj_w"),
+              **{name: ("attn", "qkv_w", slot)
+                 for name, slot in GPT2_SPLIT_QKV_SLOTS.items()}}
+
+
+def _merge(params, lora_tree, base_map, sign: float) -> dict:
+    """params + sign * dW on every adapted base weight, as a new tree
+    (the input is not modified); split targets add into their column
+    range of the fused weight."""
+    blocks = {g: dict(leaves) for g, leaves in params["blocks"].items()}
+    for name, entry in lora_tree["blocks"].items():
+        if name not in base_map:
+            raise ValueError(
+                f"target {name!r} cannot be merged into the base weights "
+                f"(the lm_head is tied to the embedding table: folding its "
+                f"dW in would change the input lookup too); serve it "
+                f"through the lora= argument")
+        spec = base_map[name]
+        w = blocks[spec[0]][spec[1]]
+        delta = sign * _delta_w(entry).to(w.dtype)
+        if len(spec) == 3:
+            out = delta.shape[-1]
+            col0 = spec[2] * out
+            w = w.clone()
+            w[:, :, col0:col0 + out] += delta
+        else:
+            w = w + delta
+        blocks[spec[0]][spec[1]] = w
+    return dict(params, blocks=blocks)
+
+
+def merge_gpt2(params, lora_tree) -> dict:
+    """Fold each adapter's dW into the GPT-2 base weights."""
+    return _merge(params, lora_tree, _GPT2_BASE, +1.0)
+
+
+def unmerge_gpt2(params, lora_tree) -> dict:
+    return _merge(params, lora_tree, _GPT2_BASE, -1.0)

@@ -4,11 +4,18 @@ mobilefinetuner_tpu/ops/attention.py).
 
 The dispatch rule is the port's own, not the JAX package's TPU
 thresholds. impl="auto" sends a CPU tensor to the plain version and any
-other tensor to the flash kernel's wrapper (ops/flash_attention.py), which
-launches the kernel or raises for a shape, dtype or device it does not
-take; an explicit `attn_mask` matrix on a CUDA tensor raises too.
-impl="plain" runs the plain version on any device: it is the kernel's
-reference on the card.
+other tensor to the flash kernels (ops/flash_attention.flash_attention,
+differentiable through the backward kernels), which launch or raise for
+a shape, dtype or device they do not take; an explicit `attn_mask`
+matrix on a CUDA tensor raises too. impl="plain" runs the plain version
+on any device: it is the kernels' reference on the card. impl="flash"
+runs the flash path on any device (on the CPU, the kernels' plain
+blocked versions, as the JAX package runs its Pallas kernels in
+interpret mode there).
+
+Train-mode probs dropout takes an integer `dropout_seed` (ops/dropout.py):
+the plain path draws its mask from a generator seeded with it, the flash
+kernels hash (seed, b, h, row, col) as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Optional
 import torch
 
 from mobilefinetuner_tpu_torch.ops import flash_attention as _flash
+from mobilefinetuner_tpu_torch.ops.dropout import inverted_dropout
 
 
 def causal_mask(q_len: int, kv_len: int,
@@ -39,14 +47,13 @@ def dot_product_attention(q, k, v, *, scale: Optional[float] = None,
                           is_causal: bool = True,
                           sliding_window: Optional[int] = None,
                           padding_mask=None, attn_mask=None,
-                          attn_dropout: float = 0.0):
+                          attn_dropout: float = 0.0,
+                          dropout_seed: Optional[int] = None):
     """Scaled dot-product attention with GQA: q [B,Hq,S,D], k/v
-    [B,Hkv,S,D]; scores and softmax in f32, probabilities cast to v's
-    dtype before the f32-accumulated P.V, output in v's dtype. Masked
-    scores take finfo(f32).min, as the JAX oracle does."""
-    if attn_dropout > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice (ROADMAP.md)")
+    [B,Hkv,S,D]; scores and softmax in f32, probabilities (dropped when
+    a dropout_seed is given) cast to v's dtype before the f32-accumulated
+    P.V, output in v's dtype. Masked scores take finfo(f32).min, as the
+    JAX oracle does."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     if Hq % Hkv:
@@ -67,12 +74,13 @@ def dot_product_attention(q, k, v, *, scale: Optional[float] = None,
         pm = padding_mask.bool()
         scores = scores.masked_fill(~pm[:, None, None, None, :], neg)
     probs = torch.softmax(scores, dim=-1)
+    probs = inverted_dropout(probs, attn_dropout, dropout_seed)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(),
                        v.float()).to(v.dtype)
     return out.reshape(B, Hq, S, D)
 
 
-ATTN_IMPLS = ("auto", "plain")
+ATTN_IMPLS = ("auto", "plain", "flash")
 
 
 def validate_attn_impl(impl: str) -> str:
@@ -83,10 +91,10 @@ def validate_attn_impl(impl: str) -> str:
 
 
 def attention(q, k, v, *, impl: str = "auto", attn_mask=None, **kwargs):
-    """Dispatch between the plain version and the flash kernel (module
-    docstring): impl is "auto" or "plain"."""
+    """Dispatch between the plain version and the flash kernels (module
+    docstring): impl is "auto", "plain" or "flash"."""
     validate_attn_impl(impl)
-    if impl == "plain" or q.device.type == "cpu":
+    if impl == "plain" or (impl == "auto" and q.device.type == "cpu"):
         return dot_product_attention(q, k, v, attn_mask=attn_mask, **kwargs)
     if attn_mask is not None:
         raise ValueError("the flash kernel takes masks by flags "

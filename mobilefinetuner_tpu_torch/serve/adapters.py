@@ -1,6 +1,5 @@
 """Resident adapter bank with hot-swap: k LoRA tenants over one base model
-(port of mobilefinetuner_tpu/serve/adapters.py; `load_file` comes with the
-safetensors/PEFT slice).
+(port of mobilefinetuner_tpu/serve/adapters.py).
 
 The decode step routes each slot to its adapter through the per-row
 gather (lora.stack_adapters layout: every A/B/scale leaf stacked along a
@@ -12,6 +11,7 @@ BASE route that base-only requests carry.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import torch
@@ -91,6 +91,26 @@ class AdapterBank:
         self._write(tree, i)
         self.names[i] = name
         return i
+
+    def load_file(self, name: str, path: str, verify: bool = True) -> int:
+        """Load adapter `name` from disk: a native adapter file (lora/
+        peft_io.save_adapter) or an HF-PEFT directory. A file is checked
+        against its checksum manifest first when `verify`
+        (CheckpointIntegrityError: a corrupt or unverifiable adapter never
+        reaches a resident slot). The factors are cast to the bank's dtype
+        and device, and the adapter's own alpha / rank becomes its scale."""
+        from mobilefinetuner_tpu_torch.io.safetensors_io import verify_file
+        from mobilefinetuner_tpu_torch.lora import peft_io
+        ref = tree_leaves(self.tree)[0][1]
+        if os.path.isdir(path):
+            tree, _ = peft_io.import_peft(path, "gpt2", device=ref.device)
+        else:
+            if verify:
+                verify_file(path)
+            tree, _ = peft_io.load_adapter(path, device=ref.device)
+        tree = {"blocks": {n: {k: v.to(ref.dtype) for k, v in e.items()}
+                           for n, e in tree["blocks"].items()}}
+        return self.load(name, tree)
 
     def evict(self, name: str) -> int:
         """Zero `name`'s slot and free it: a stale routing id can only

@@ -79,8 +79,8 @@ class ServeConfig:
     max_prompt: int = 64      # prompts right-padded to this (block_T mult)
     max_new_tokens: int = 64  # per-request generation cap
     dtype: str = "float32"    # weights + compute + cache dtype
-    attn_impl: str = "auto"   # auto (the kernels) | plain: prefill + decode
-    lora_impl: str = "auto"   # auto | naive (models/lora_apply)
+    attn_impl: str = "auto"   # auto (the kernels) | plain | flash
+    lora_impl: str = "auto"   # auto | naive: the multi-adapter gather
     max_queue: int = 0        # FCFS queue cap; 0 = unbounded
     shed_policy: str = "reject"   # or "deadline": shed the queued request
                                   # closest to its deadline
@@ -111,6 +111,10 @@ class ServeConfig:
         if self.mesh_dp * self.mesh_tp != 1:
             raise _not_ported("the (dp, tp) serve mesh", "P9")
         validate_lora_impl(self.lora_impl)
+        if self.lora_impl == "fused":
+            raise _not_ported("lora_impl='fused' on the multi-adapter "
+                              "serving path (the cost-model dense order)",
+                              "P7")
         validate_attn_impl(self.attn_impl)
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
@@ -313,19 +317,22 @@ class ServeEngine:
         self.counts[state] += 1
 
     # ------------------------------------------------------------ tenancy ---
-    def load_adapter(self, name: str, source) -> int:
-        """Hot-swap an adapter tree (lora/lora.py layout) into the resident
-        bank under `name`. Replacing a resident that queued or active
-        requests route to is refused."""
+    def load_adapter(self, name: str, source, verify: bool = True) -> int:
+        """Hot-swap `source` into the resident bank under `name`: an
+        adapter tree (lora/lora.py layout), or a path that
+        AdapterBank.load_file reads (a native adapter file, verified
+        against its checksum manifest, or an HF-PEFT directory).
+        Replacing a resident that queued or active requests route to is
+        refused."""
         if self.bank is None:
             raise RuntimeError("engine was built without an adapter bank")
-        if not isinstance(source, dict):
-            raise _not_ported("loading adapters from files", "P2")
         if name in self.bank.resident and self._adapter_in_use(name):
             raise RuntimeError(
                 f"adapter {name!r} is routed by in-flight requests; "
                 f"drain them before replacing it")
-        return self.bank.load(name, source)
+        if isinstance(source, dict):
+            return self.bank.load(name, source)
+        return self.bank.load_file(name, source, verify=verify)
 
     def evict_adapter(self, name: str) -> int:
         if self.bank is None:

@@ -1,0 +1,164 @@
+"""The optimizer step: gradient accumulation, clipping, LR schedule and
+Adam in one call (port of mobilefinetuner_tpu/train/trainer.py; the
+multi-tenant step comes with ROADMAP.md port item P8).
+
+Generic over what is trainable: LoRA passes the adapter tree as
+`trainable` and the frozen base params as `frozen`. The loss contract is
+loss_fn(trainable, frozen, micro_batch) -> (sum_loss, weight): the SUM
+of per-token losses and the token count. The step sums both over the
+micro-batches and divides once, so the update is the gradient of
+total_loss / total_weight over the whole batch, exact for micro-batches
+with unequal valid-token counts.
+
+Every metric stays a device tensor: the step reads nothing back to the
+host, so the loop decides when to synchronise (cli/common.run_training
+reads the buffered metrics once per log interval).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from mobilefinetuner_tpu_torch.optim.adam import (AdamConfig, adam_update,
+                                                  clip_by_global_norm,
+                                                  flatten, global_norm,
+                                                  init_state, tree_map)
+from mobilefinetuner_tpu_torch.optim.schedule import lr_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    total_steps: int = 1000
+    lr: float = 1e-4
+    warmup_ratio: float = 0.03
+    schedule: str = "cosine"  # cosine | linear | constant
+    min_lr_ratio: float = 0.1
+    clip_grad_norm: float = 1.0
+    grad_accum_steps: int = 1
+    weight_decay: float = 0.0
+    coupled_weight_decay: bool = False
+    amsgrad: bool = False
+    # guarded update: a step whose gradients hold a non-finite element
+    # (or whose grad norm is non-finite) leaves params AND optimizer
+    # state (its step counter too) as they were, selected on the device;
+    # the `skipped` metric says so
+    skip_nonfinite: bool = False
+
+    def adam(self) -> AdamConfig:
+        return AdamConfig(lr=self.lr, weight_decay=self.weight_decay,
+                          coupled_weight_decay=self.coupled_weight_decay,
+                          amsgrad=self.amsgrad)
+
+
+def reshape_for_accum(batch: dict, accum: int) -> dict:
+    """[accum * micro_b, ...] tensors -> [accum, micro_b, ...]."""
+    def r(x):
+        total = x.shape[0]
+        if total % accum:
+            raise ValueError(f"batch of {total} rows does not split into "
+                             f"{accum} micro-batches")
+        return x.reshape(accum, total // accum, *x.shape[1:])
+    return {k: r(v) for k, v in batch.items()}
+
+
+def make_train_step(loss_fn: Callable[[Any, Any, dict], tuple],
+                    train_cfg: TrainConfig, mask: Optional[Any] = None):
+    """step_fn(trainable, frozen, opt_state, batch, step) ->
+    (trainable, opt_state, metrics). batch leaves are [accum*micro_b,
+    ...]; step is the 0-based optimizer step (drives the schedule).
+    metrics: loss, grad_norm (pre-clip), lr, param_norm (pre-update),
+    update_ratio (||dw|| / ||w||), nonfinite_count (of the gradient
+    elements, before clipping) and skipped, all device scalars."""
+    accum = train_cfg.grad_accum_steps
+    adam_cfg = train_cfg.adam()
+
+    def step_fn(trainable, frozen, opt_state, batch, step):
+        m = mask if mask is not None else tree_map(lambda _: True,
+                                                   trainable)
+        leaves = tree_map(lambda t, on: t.detach().requires_grad_(bool(on)),
+                          trainable, m)
+        flat = flatten(leaves)
+        paths = [p for p, on in flatten(m).items() if on]
+        device = flat[paths[0]].device
+        g_sum = {p: torch.zeros_like(flat[p], dtype=torch.float32)
+                 for p in paths}
+        loss_sum = torch.zeros((), device=device)
+        w_sum = torch.zeros((), device=device)
+        micro = reshape_for_accum(batch, accum)
+        for i in range(accum):
+            s, w = loss_fn(leaves, frozen, {k: v[i] for k, v in micro.items()})
+            for p, g in zip(paths, torch.autograd.grad(
+                    s, [flat[p] for p in paths], allow_unused=True)):
+                if g is not None:   # a leaf the loss never reached: 0
+                    g_sum[p] += g.float()
+            loss_sum += s.detach().float()
+            w_sum += w.float()
+        with torch.no_grad():
+            inv = 1.0 / torch.clamp_min(w_sum, 1.0)
+            grads = _tree_like(trainable, {p: g * inv
+                                           for p, g in g_sum.items()})
+            # counted before clipping: a NaN norm would smear one bad
+            # element over every element
+            nonfinite = sum(torch.sum(~torch.isfinite(g))
+                            for g in g_sum.values())
+            if train_cfg.clip_grad_norm and train_cfg.clip_grad_norm > 0:
+                grads, norm = clip_by_global_norm(grads,
+                                                  train_cfg.clip_grad_norm)
+            else:
+                norm = global_norm(grads)
+            lr = lr_schedule(step, train_cfg.total_steps, train_cfg.lr,
+                             train_cfg.warmup_ratio, train_cfg.schedule,
+                             train_cfg.min_lr_ratio, device=device)
+            new_t, new_opt, (upd_norm, w_norm) = adam_update(
+                grads, opt_state, trainable, adam_cfg, lr, m,
+                with_norms=True)
+            if train_cfg.skip_nonfinite:
+                bad = (nonfinite > 0) | ~torch.isfinite(norm)
+                keep = lambda old, new: torch.where(  # noqa: E731
+                    bad, old, new)
+                new_t = tree_map(keep, trainable, new_t)
+                new_opt = tree_map(keep, opt_state, new_opt)
+                skipped = bad.to(torch.int32)
+            else:
+                skipped = torch.zeros((), dtype=torch.int32, device=device)
+            metrics = {"loss": loss_sum * inv, "grad_norm": norm, "lr": lr,
+                       "param_norm": w_norm,
+                       "update_ratio": upd_norm / torch.clamp_min(w_norm,
+                                                                  1e-20),
+                       "nonfinite_count": nonfinite.to(torch.int32),
+                       "skipped": skipped}
+        return new_t, new_opt, metrics
+
+    return step_fn
+
+
+def _tree_like(template, flat_grads):
+    """The grad tree: each trainable path's gradient, a zero-size
+    placeholder for every frozen leaf (no norm, no update)."""
+    def build(node, prefix):
+        out = {}
+        for k, v in node.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                out[k] = build(v, path)
+            else:
+                out[k] = flat_grads.get(path, v.new_zeros((0,)))
+        return out
+    return build(template, "")
+
+
+def make_eval_step(nll_fn: Callable[[Any, Any, dict], tuple]):
+    """eval_step(trainable, frozen, batch) -> nll_fn's (sum_nll,
+    token_count), without autograd."""
+    def eval_step(trainable, frozen, batch):
+        with torch.no_grad():
+            return nll_fn(trainable, frozen, batch)
+    return eval_step
+
+
+def init_optimizer(trainable, train_cfg: TrainConfig,
+                   mask: Optional[Any] = None) -> dict:
+    return init_state(trainable, train_cfg.adam(), mask)

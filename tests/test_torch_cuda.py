@@ -11,10 +11,13 @@ import torch
 
 from mobilefinetuner_tpu_torch.core.config import GPT2Config
 from mobilefinetuner_tpu_torch.kernels import build
+from mobilefinetuner_tpu_torch.lora.lora import LoRASpec, init_lora_gpt2
 from mobilefinetuner_tpu_torch.models import generate, gpt2
+from mobilefinetuner_tpu_torch.models.lora_apply import maybe_lora
 from mobilefinetuner_tpu_torch.ops import attention as attn
 from mobilefinetuner_tpu_torch.ops import decode_attention as da
 from mobilefinetuner_tpu_torch.ops import flash_attention as fa
+from mobilefinetuner_tpu_torch.ops import lora_fused as lf
 from mobilefinetuner_tpu_torch.serve import ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +152,173 @@ def test_engine_kernel_path_matches_plain_path(dev):
         assert fa.flash_attention_fwd.launches == n * eng.prefills
         assert da.paged_decode_attention.launches == n * eng.decode_steps
     assert outs[0] == outs[1]
+
+
+def _rel_err(a, b):
+    """max |a - b| over max(1, max |b|): the tolerance scale for outputs
+    of a few units rounded to bf16/f16."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(1.0,
+                                                    float(b.abs().max()))
+
+
+def _flash_case(dev, dtype, B, Hq, Hkv, S, D, n_pad, seed):
+    q = _randn(dev, dtype, B, Hq, S, D, seed=seed)
+    k = _randn(dev, dtype, B, Hkv, S, D, seed=seed + 1)
+    v = _randn(dev, dtype, B, Hkv, S, D, seed=seed + 2)
+    do = _randn(dev, dtype, B, Hq, S, D, seed=seed + 3)
+    pad = torch.ones(B, S, device=dev)
+    if n_pad:
+        pad[-1, S - n_pad:] = 0
+    return q, k, v, do, pad
+
+
+# (dtype, B, Hq, Hkv, S, D, n_pad, window, p_drop, tol): tolerance of
+# _rel_err; f32 differs only in summation order (dQ atomics), bf16/f16 by
+# the rounding of dq/dk/dv to 8/11 bits
+BWD_CASES = [
+    (torch.bfloat16, 2, 12, 12, 128, 64, 0, None, 0.0, 2e-2),
+    (torch.float32, 2, 4, 2, 200, 64, 37, 24, 0.0, 1e-5),
+    (torch.bfloat16, 1, 4, 4, 96, 128, 10, None, 0.0, 2e-2),
+    (torch.float16, 1, 8, 2, 130, 256, 0, None, 0.0, 5e-3),
+    (torch.float32, 2, 4, 4, 128, 64, 0, None, 0.1, 1e-5),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernels_match_plain(dev, case):
+    dtype, B, Hq, Hkv, S, D, n_pad, window, p_drop, tol = case
+    q, k, v, do, pad = _flash_case(dev, dtype, B, Hq, Hkv, S, D, n_pad, 11)
+    kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window,
+              p_drop=p_drop, seed=12345 if p_drop else None)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, **{
+        k_: kw[k_] for k_ in ("scale", "sliding_window", "p_drop",
+                              "seed")})
+    ref_out, _ = fa.flash_attention_reference(q, k, v, pad, **{
+        k_: kw[k_] for k_ in ("scale", "sliding_window", "p_drop",
+                              "seed")})
+    assert _rel_err(out, ref_out) <= max(tol, 1e-5)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_merged_reference(q, k, v, pad, lse, delta, do, **kw)
+    want_split = fa.flash_bwd_split_reference(q, k, v, pad, lse, delta, do,
+                                              **kw)
+    n = (fa.flash_attention_bwd_merged.launches,
+         fa.flash_attention_bwd_dq.launches,
+         fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_bwd_merged(q, k, v, pad, lse, delta, do, **kw)
+    got_split = fa.flash_attention_bwd_split(q, k, v, pad, lse, delta, do,
+                                             **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_merged.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1,
+                                                     n[2] + 1)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, got_split, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        assert _rel_err(a, c) <= tol, name
+        assert _rel_err(b, want_split[("dq", "dk", "dv").index(name)]) \
+            <= tol, name
+
+
+def test_flash_autograd_launches_the_backward_kernels(dev):
+    """torch.autograd through flash_attention on the card: the forward
+    and the backward kernels launch, and the grads equal the plain
+    versions' on the same inputs."""
+    q, k, v, do, pad = _flash_case(dev, torch.float32, 2, 4, 2, 128, 64, 9,
+                                   21)
+    for impl, counts in (("merged", (1, 0, 0)), ("split", (0, 1, 1))):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n = (fa.flash_attention_bwd_merged.launches,
+             fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches)
+        out = fa.flash_attention(*leaves, padding_mask=pad, bwd_impl=impl)
+        grads = torch.autograd.grad(out, leaves, do)
+        assert tuple(c - c0 for c, c0 in zip(
+            (fa.flash_attention_bwd_merged.launches,
+             fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches), n)) == counts
+        _, lse = fa.flash_attention_reference(q, k, v, pad)
+        delta = (do * out.detach()).sum(-1, keepdim=True)
+        want = fa.flash_bwd_merged_reference(q, k, v, pad, lse, delta, do,
+                                             scale=0.125)
+        for a, b in zip(grads, want):
+            assert _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,N,d_out,r,tol", [
+    (torch.bfloat16, 1024, 2304, 8, 1e-2),
+    (torch.bfloat16, 1024, 768, 8, 1e-2),
+    (torch.float32, 1000, 768, 8, 1e-5),
+    (torch.float16, 37, 300, 16, 1e-2),
+    (torch.float32, 64, 512, 128, 1e-5),
+])
+def test_lora_epilogue_kernel_matches_plain(dev, dtype, N, d_out, r, tol):
+    y = _randn(dev, dtype, N, d_out, seed=31)
+    xa = _randn(dev, dtype, N, r, seed=32)
+    b = _randn(dev, dtype, r, d_out, seed=33)
+    n0 = lf.lora_epilogue.launches
+    out = lf.lora_epilogue(y, xa, b)
+    assert lf.lora_epilogue.launches == n0 + 1
+    ref = lf.lora_epilogue_reference(y, xa, b)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _rel_err(out, ref) <= tol
+
+
+def test_backward_and_epilogue_wrappers_raise(dev):
+    """A CUDA tensor the new kernels do not take raises: the backward at
+    D = 32, the epilogue at rank 200, and impl="auto" at a LoRA site of
+    rank 200 (never the naive order on the card)."""
+    q = torch.zeros(1, 2, 8, 32, device=dev)
+    lse = torch.zeros(1, 2, 8, 1, device=dev)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention_bwd_merged(q, q, q, None, lse, lse, q, scale=1.0)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention_bwd_dq(q, q, q, None, lse, lse, q, scale=1.0)
+    y = torch.zeros(4, 1024, device=dev)
+    with pytest.raises(ValueError, match="rank"):
+        lf.lora_epilogue(y, torch.zeros(4, 200, device=dev),
+                         torch.zeros(200, 1024, device=dev))
+    entry = {"A": torch.zeros(1024, 200, device=dev),
+             "B": torch.zeros(200, 1024, device=dev),
+             "scale": torch.tensor(2.0, device=dev)}
+    with pytest.raises(ValueError, match="rank"):
+        maybe_lora(y, torch.zeros(4, 1024, device=dev), entry)
+    assert maybe_lora(y, torch.zeros(4, 1024, device=dev), entry,
+                      impl="naive").shape == y.shape
+
+
+def test_train_step_kernel_path_matches_plain_path(dev):
+    """A small GPT-2 (D = 64) with a rank-8 LoRA in f32 on the card: loss
+    and LoRA grads through the flash fwd/bwd and epilogue kernels against
+    the plain attention and the naive LoRA order."""
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    cfg = dataclasses.replace(GPT2Config.tiny(vocab_size=300), n_embd=128,
+                              n_head=2, n_layer=2, n_positions=128)
+    params = gpt2.init_params(cfg, seed=0, device=dev)
+    lora = init_lora_gpt2(cfg, LoRASpec(rank=8, alpha=16.0), seed=1,
+                          device=dev)
+    g = torch.Generator().manual_seed(2)
+    for entry in lora["blocks"].values():
+        entry["B"] = (0.02 * torch.randn(entry["B"].shape,
+                                         generator=g)).to(dev)
+    ids = torch.randint(0, 300, (4, 96), generator=g).to(dev)
+    mask = torch.ones(4, 96, device=dev)
+    mask[3, 80:] = 0
+    out = {}
+    for attn_impl, lora_impl in (("auto", "auto"), ("plain", "naive")):
+        leaves = {n: {k: t.clone().requires_grad_(k != "scale")
+                      for k, t in e.items()}
+                  for n, e in lora["blocks"].items()}
+        n_epi = lf.lora_epilogue.launches
+        logits = gpt2.forward(cfg, params, ids, mask, {"blocks": leaves},
+                              attn_impl=attn_impl, lora_impl=lora_impl)
+        s, w = lm_cross_entropy_sum(logits, ids)
+        grads = torch.autograd.grad(
+            s, [leaves[n][k] for n in sorted(leaves) for k in ("A", "B")])
+        out[attn_impl] = (s / w, grads)
+        launched = lf.lora_epilogue.launches - n_epi
+        assert launched == (2 * cfg.n_layer if lora_impl == "auto" else 0)
+    assert abs(float((out["auto"][0] - out["plain"][0]).detach())) <= 1e-4
+    for a, b in zip(out["auto"][1], out["plain"][1]):
+        assert float((a - b).abs().max()) <= 1e-4

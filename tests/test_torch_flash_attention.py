@@ -105,9 +105,20 @@ def test_dispatch_and_wrapper_rules():
     out, lse = port_flash.flash_attention_fwd(q, q, q)
     assert port_flash.flash_attention_fwd.launches == 0
     assert out.shape == q.shape and lse.shape == (1, 2, 8, 1)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_flash.flash_attention(q, q, q, attn_dropout=0.1)
-    for impl in ("xla", "flash"):
+    # train-mode dropout needs a seed; without one it is eval (no dropout)
+    x64 = torch.from_numpy(_inputs(4, 1, 2, 2, 64, 64, n_real=(64,))[0])
+    plain = port_flash.flash_attention(x64, x64, x64)
+    assert torch.equal(port_flash.flash_attention(x64, x64, x64,
+                                                  attn_dropout=0.1), plain)
+    dropped = port_flash.flash_attention(x64, x64, x64, attn_dropout=0.1,
+                                         dropout_seed=5)
+    assert not torch.equal(dropped, plain)
+    assert torch.equal(dropped, port_flash.flash_attention(
+        x64, x64, x64, attn_dropout=0.1, dropout_seed=5))
+    # "flash" runs the kernels' plain versions on the CPU
+    assert torch.equal(port_attention.attention(x64, x64, x64,
+                                                impl="flash"), plain)
+    for impl in ("xla", "kernel"):
         with pytest.raises(ValueError, match="impl"):
             port_attention.attention(q, q, q, impl=impl)
 
