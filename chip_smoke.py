@@ -11,10 +11,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at a few others, with the tolerance
      printed: the flash forward (with and without dropout), the merged
-     and the split flash backward, the LoRA epilogue, the paged decode;
-     then GPT-2 small through the kernels against the plain path in f32:
-     prefill and one paged decode step, and a LoRA train step (loss and
-     LoRA grads);
+     and the split flash backward, the LoRA epilogue, the paged decode,
+     the fused CE forward, dh and dW (rows 6-8); then GPT-2 small through
+     the kernels against the plain path in f32: prefill and one paged
+     decode step, and a LoRA train step (loss and LoRA grads); then
+     Gemma-3-270M the same way in f32: hidden states and the chunked loss
+     at S = 1024 (the 512-token window bites), and a LoRA train step;
   4. serve GPT-2 small (12 layers, n_embd 768, bf16 weights and KV pool,
      8 slots, block_T 16, max_prompt 128, 64 new tokens) over 12 ragged
      requests routed to 2 rank-4 tenants and the base model, through
@@ -33,22 +35,34 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      exactly as often as the path runs them;
   6. serve one request with the trained adapter, loaded from its file
      through AdapterBank.load_file;
-  7. trace a decode step, a 128-token prefill and a train step with
-     torch.profiler: device busy time against host wall time, and the
-     kernels that take the device time;
-  8. time each kernel, its plain version and, where one exists, the
+  7. Gemma: write a random-weight Gemma-3-270M directory (full width and
+     depth, a 262,144-entry tokenizer.json) and the corpus, take the base
+     model's eval perplexity, then with the counts set to 0 run
+     cli.train_lora_gemma.main (bf16, r 8, alpha 32, targets full, batch
+     4, seq 256, 8 loss chunks, 20 steps, eval) and, counts set to 0
+     again, cli.gemma_full_finetune.main (6 steps): the LoRA loss and
+     eval perplexity must fall, and every kernel of each path must have
+     launched exactly as often as the path runs it (the fused CE dW only
+     on the full fine-tuning path);
+  8. trace a decode step, a 128-token prefill, a GPT-2 train step and a
+     Gemma LoRA train step with torch.profiler: device busy time against
+     host wall time, and the kernels that take the device time; for the
+     phases that never wait on the card (prefill, train steps), the
+     device time again from CUDA events around replays of a CUDA graph
+     of the phase, and the busy share against its wall time without the
+     profiler (`events`);
+  9. time each kernel, its plain version and, where one exists, the
      PyTorch library call at the main paths' shapes, with its bound on
-     this card: "ms" is the traced device time of a call, "call_ms" the
-     time a call takes between CUDA events, host overhead included;
-     where two traces saw no device time, "ms" is the call time and the
-     entry's "timed_by" says so for that number; then the merged
+     this card: "ms" is the device time of a call between CUDA events
+     with the host queued ahead of the card, "call_ms" the time a call
+     takes between CUDA events, host overhead included; then the merged
      backward against the split pair at a few longer and wider shapes
      (`bwd_sweep`, the measurements behind resolve_bwd_impl).
 
-Prints `serve`, `train`, `profile`, `bwd_sweep` and `kernels` JSON lines
-and, last, the device line `{"ok": true, "device": {...}}`. Without a
-CUDA card, or without the repo beside it, it exits non-zero and prints no
-result.
+Prints `serve`, `train`, `gemma_train`, `gemma_full_ft`, `profile`,
+`bwd_sweep` and `kernels` JSON lines and, last, the device line
+`{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
+beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -70,6 +84,12 @@ JAX_OPS = "mobilefinetuner_tpu/ops/"
 # the training main path (phase 5)
 TRAIN = dict(steps=30, batch=8, accum=2, seq=128, rank=8, alpha=16.0,
              eval_batch=8, eval_batches=8, lr=1e-3)
+# the Gemma-3-270M training paths (phase 7): LoRA, then full fine-tuning
+GEMMA = dict(steps=20, batch=4, seq=256, rank=8, alpha=32.0, chunks=8,
+             eval_batch=4, eval_batches=4, lr=1e-3, full_steps=6,
+             full_lr=1e-4)
+GEMMA_LAYERS = 18
+GEMMA_SITES = 7          # LoRA sites a Gemma layer (targets "full")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -123,14 +143,6 @@ def device_events(fn, iters: int):
              if e.device_type == cuda], wall_ms)
 
 
-def device_ms(fn, iters: int):
-    """Mean device time of one fn() call: the sum of its kernels' traced
-    durations, or None where the profiler saw no device activity."""
-    evs, _ = device_events(fn, iters)
-    us = sum(t for _, t in evs)
-    return us / 1e3 / iters if us else None
-
-
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -147,17 +159,78 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / max(1.0, float(b.float().abs().max()))
 
 
-def timed(fns: dict, call_iters: int = 200, trace_iters: int = 50):
-    """{key: (ms, call_ms, timed_by)} for each fn of `fns`."""
-    out = {}
-    for key, fn in fns.items():
-        per_call = call_ms(fn, call_iters)
-        traced = device_ms(fn, trace_iters)
-        if traced is None:              # the profiler saw no device time:
-            traced = device_ms(fn, trace_iters)      # trace once more
-        out[key] = (per_call if traced is None else traced, per_call,
-                    "cuda events" if traced is None else "torch.profiler")
-    return out
+def scaled_err(a, b) -> float:
+    """max |a - b| over max |b|: for outputs far below 1 in size."""
+    return max_err(a, b) / float(b.float().abs().max())
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time of one fn() call between CUDA events with the host
+    queued ahead of the card: a spin kernel (torch.cuda._sleep, sized
+    from a first, timed enqueue of the calls) holds the stream while the
+    host enqueues all `iters` calls, so the events see the card's work
+    back to back and not the host's gaps between calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1 << 20)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = (1 << 20) / start.elapsed_time(end)
+    torch.cuda._sleep(int(cycles_per_ms * (2.0 * host_ms + 5.0)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one fn() call from a CUDA graph of it: the replays
+    run its kernels back to back, with no host in between (a step's
+    thousands of launches overflow the stream's launch queue, so
+    queued_ms would read the host's rate there)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def timed(fns: dict, iters: int = 200):
+    """{key: (ms, call_ms)} for each fn of `fns`: the device time of a
+    call with the host queued ahead (queued_ms) and the time a call takes
+    between CUDA events, host included (call_ms). Not the profiler's
+    trace: traces of queued back-to-back kernels lost launches on an
+    H100 (PERF.md)."""
+    return {key: (queued_ms(fn, iters), call_ms(fn, iters))
+            for key, fn in fns.items()}
 
 
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
@@ -174,8 +247,7 @@ def kernel_entry(name, source, replaces, launches, err, times, bnd,
              "call_ms": times["ms"][1],
              "plain_call_ms": times["plain_ms"][1],
              "library_call_ms": (times["library_ms"][1]
-                                 if "library_ms" in times else None),
-             "timed_by": {k: v[2] for k, v in times.items()}}
+                                 if "library_ms" in times else None)}
     entry.update(extra or {})
     return entry
 
@@ -447,6 +519,138 @@ def check_train_step(torch, dev, params):
           "GPT-2 small train step: kernel path disagrees with plain path")
 
 
+def fused_ce_inputs(torch, dev, dtype, R, V, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(R, H, generator=g, device=dev).to(dtype)
+    w = (0.05 * torch.randn(V, H, generator=g, device=dev)).to(dtype)
+    lab = torch.randint(0, V, (R,), generator=g, device=dev)
+    dlse = torch.randn(R, generator=g, device=dev)
+    dgold = torch.randn(R, generator=g, device=dev)
+    return h, w, lab, dlse, dgold
+
+
+def check_fused_ce(torch, fc, dev):
+    """The fused CE kernels (rows 6-8) against their plain versions at the
+    Gemma training shape (R = 4 x 32 rows of a loss chunk), at batch 8, at
+    a ragged shape (R 120, V 50,257, H 1,152) and in f32. lse and gold:
+    max abs error; dh and dW: max abs error over max(1, max |ref|). The
+    label rows (dgold * onehot) dominate dh and dW there, so the softmax
+    part (dlse * p, p ~ 1 / V) is held on its own too: dh and dW again
+    with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
+    measured at most 3.5e-4 on an H100: a few coefs round the other way).
+    Returns the path case's max abs errors and inputs."""
+    cases = [  # (name, dtype, R, V, H, tol, sm_tol)
+        ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
+        ("batch8", torch.bfloat16, 256, 262144, 640, 2e-3, 2e-3),
+        ("ragged", torch.bfloat16, 120, 50257, 1152, 2e-3, 2e-3),
+        ("ragged_f32", torch.float32, 120, 50257, 1152, 1e-4, 1e-4),
+    ]
+    path = None
+    for name, dt, R, V, H, tol, sm_tol in cases:
+        h, w, lab, dl, dg = fused_ce_inputs(torch, dev, dt, R, V, H,
+                                            seed=R + H)
+        lse, gold = fc.fused_ce_fwd(h, w, lab)
+        rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
+        dh = fc.fused_ce_bwd_dh(h, w, lab, rl, dl, dg)
+        rdh = fc.fused_ce_dh_reference(h, w, lab, rl, dl, dg)
+        dw = fc.fused_ce_bwd_dw(h, w, lab, rl, dl, dg)
+        rdw = fc.fused_ce_dw_reference(h, w, lab, rl, dl, dg)
+        torch.cuda.synchronize()
+        e = {"lse": max_err(lse, rl), "gold": max_err(gold, rg),
+             "dh": max_err(dh, rdh), "dw": max_err(dw, rdw)}
+        rel = {"dh": rel_err(dh, rdh), "dw": rel_err(dw, rdw)}
+        for t in (lse, gold, dh, dw):
+            check(bool(torch.isfinite(t).all()), f"fused CE {name} "
+                  f"non-finite")
+        del dw, rdw
+        z = torch.zeros_like(dg)
+        sm = {"dh": scaled_err(fc.fused_ce_bwd_dh(h, w, lab, rl, dl, z),
+                               fc.fused_ce_dh_reference(h, w, lab, rl, dl,
+                                                        z)),
+              "dw": scaled_err(fc.fused_ce_bwd_dw(h, w, lab, rl, dl, z),
+                               fc.fused_ce_dw_reference(h, w, lab, rl, dl,
+                                                        z))}
+        print(f"fused CE {name}: {dt} R={R} V={V} H={H}: max abs err lse "
+              f"{e['lse']:.3e}, gold {e['gold']:.3e}, dh {e['dh']:.3e}, dW "
+              f"{e['dw']:.3e}; dh / dW over max(1, |ref|) {rel['dh']:.3e} / "
+              f"{rel['dw']:.3e} (tolerance {tol:g}); softmax part "
+              f"(dgold = 0) dh / dW over max |ref| {sm['dh']:.3e} / "
+              f"{sm['dw']:.3e} (tolerance {sm_tol:g})")
+        check(max(e["lse"], e["gold"], rel["dh"], rel["dw"]) <= tol,
+              f"fused CE {name} disagrees with its plain versions")
+        check(max(sm.values()) <= sm_tol, f"fused CE {name}: the softmax "
+              f"part of dh / dW disagrees with its plain versions")
+        if name == "path":
+            path = (e, (h, w, lab, rl, dl, dg))
+    return path
+
+
+def check_gemma(torch, dev):
+    """Gemma-3-270M in f32, kernel path (flash, epilogue, fused CE)
+    against the plain path (plain attention, naive LoRA, plain chunked
+    loss): hidden states and the loss at S = 1024 with a padded row (the
+    512-token window bites), then a LoRA train step (targets full, r 8)
+    at S = 256: loss and LoRA grads."""
+    from mobilefinetuner_tpu_torch.core.config import Gemma3TextConfig
+    from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec,
+                                                     init_lora_gemma3)
+    from mobilefinetuner_tpu_torch.models import gemma3
+    from mobilefinetuner_tpu_torch.ops.loss import \
+        chunked_lm_cross_entropy_sum
+    cfg = Gemma3TextConfig.gemma3_270m()
+    params = gemma3.init_params(cfg, seed=1, device=dev)
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g).to(dev)
+    mask = torch.ones(2, 1024, device=dev)
+    mask[1, 900:] = 0.0
+    labels = torch.where(mask > 0, ids, -100)
+    paths = {"kernel": ("auto", "auto", "auto"),
+             "plain": ("plain", "naive", "plain")}
+    out = {}
+    for key, (attn, lora_impl, loss_impl) in paths.items():
+        with torch.no_grad():
+            h = gemma3.hidden_states(cfg, params, ids, mask,
+                                     attn_impl=attn, lora_impl=lora_impl)
+            s, n = chunked_lm_cross_entropy_sum(h, params["embed"], labels,
+                                                impl=loss_impl)
+        out[key] = (h, float(s / n))
+    torch.cuda.synchronize()
+    e_h = max_err(out["kernel"][0], out["plain"][0])
+    e_loss = abs(out["kernel"][1] - out["plain"][1])
+    print(f"gemma3-270m f32 S=1024 kernel path vs plain path: hidden states "
+          f"max err {e_h:.3e} (tolerance 1e-3), loss {out['kernel'][1]:.6f} "
+          f"vs {out['plain'][1]:.6f} (err {e_loss:.3e}, tolerance 1e-4)")
+    check(e_h <= 1e-3 and e_loss <= 1e-4,
+          "Gemma-3 kernel path disagrees with the plain path")
+    del out
+    lora = init_lora_gemma3(cfg, LoRASpec(rank=8, alpha=32.0, init="peft"),
+                            seed=3, device=dev)
+    for entry in lora["blocks"].values():   # B off zero: grads reach A
+        entry["B"] = (0.02 * torch.randn(entry["B"].shape,
+                                         generator=g)).to(dev)
+    ids, mask, labels = ids[:, :256], mask[:, :256], labels[:, :256]
+    out = {}
+    for key, (attn, lora_impl, loss_impl) in paths.items():
+        leaves = {n: {k: t.clone().requires_grad_(k != "scale")
+                      for k, t in e.items()}
+                  for n, e in lora["blocks"].items()}
+        h = gemma3.hidden_states(cfg, params, ids, mask, {"blocks": leaves},
+                                 attn_impl=attn, lora_impl=lora_impl)
+        s, n = chunked_lm_cross_entropy_sum(h, params["embed"], labels,
+                                            impl=loss_impl)
+        grads = torch.autograd.grad(
+            s / n, [leaves[k][x] for k in sorted(leaves) for x in "AB"])
+        out[key] = (float((s / n).detach()), grads)
+    e_loss = abs(out["kernel"][0] - out["plain"][0])
+    e_grad = max(max_err(a, b) for a, b in zip(out["kernel"][1],
+                                                 out["plain"][1]))
+    print(f"gemma3-270m f32 LoRA train step, kernel path vs plain path: "
+          f"loss {out['kernel'][0]:.6f} vs {out['plain'][0]:.6f} (err "
+          f"{e_loss:.3e}), LoRA grads max err {e_grad:.3e} (tolerance 1e-4)")
+    check(e_loss <= 1e-4 and e_grad <= 1e-4,
+          "Gemma-3 train step: kernel path disagrees with plain path")
+
+
 # ----------------------------------------------------------- main paths ----
 
 def serve(torch, fa, da):
@@ -508,9 +712,12 @@ def serve(torch, fa, da):
 
 def profile_phases(phases: dict) -> dict:
     """{name: wall/device ms, device busy share, top kernels} of each
-    (fn, iters) phase, traced with torch.profiler."""
+    (fn, iters, events) phase, traced with torch.profiler. Where `events`
+    (the phase never waits on the card), the same figures again from CUDA
+    events without the profiler: device ms of a CUDA graph's replay
+    (graph_ms), wall ms a call (call_ms) and their ratio."""
     out = {}
-    for name, (fn, iters) in phases.items():
+    for name, (fn, iters, events) in phases.items():
         evs, wall_ms = device_events(fn, iters)
         by_name = {}
         for k, us in evs:
@@ -522,6 +729,10 @@ def profile_phases(phases: dict) -> dict:
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
             "device_activities": len(evs) // iters,
             "top": [[k[:60], us / 1e3 / iters] for k, us in top]}
+        if events:
+            dev_ms, call = graph_ms(fn, iters), call_ms(fn, iters)
+            out[name]["events"] = {"device_ms": dev_ms, "wall_ms": call,
+                                   "device_busy_share": dev_ms / call}
     return out
 
 
@@ -541,10 +752,10 @@ def profile_serve(torch, eng, names):
     mask = torch.ones(1, 128, dtype=torch.long, device=eng.device)
     lora = eng._route(np.asarray([0]))
     out = profile_phases({
-        "decode_step": (eng.step, 10),
+        "decode_step": (eng.step, 10, False),       # reads its tokens
         "prefill_128": (lambda: gpt2_prefill(
             eng.config, eng.params, ids, mask, compute_dtype=eng.dtype,
-            lora=lora), 5)})
+            lora=lora), 5, True)})
     while not eng.idle:
         eng.step()
     return out
@@ -654,7 +865,8 @@ def train(torch, dev, work, kernels):
             "bwd_merged": LAYERS * micro if impl == "merged" else 0,
             "bwd_dq": LAYERS * micro if impl == "split" else 0,
             "bwd_dkv": LAYERS * micro if impl == "split" else 0,
-            "lora_epilogue": 2 * LAYERS * fwd_passes, "paged": 0}
+            "lora_epilogue": 2 * LAYERS * fwd_passes, "paged": 0,
+            "fused_ce_fwd": 0, "fused_ce_dh": 0, "fused_ce_dw": 0}
     check(launches == want, f"train launches {launches}, expected {want} "
           f"(auto backward: {impl})")
 
@@ -751,7 +963,248 @@ def profile_train(torch, dev, model):
                          "attention_mask": np.ones((rows, T["seq"]),
                                                    np.float32)}, dev)
     return profile_phases({"train_step": (
-        lambda: step_fn(lora, params, opt, batch, 0), 5)})
+        lambda: step_fn(lora, params, opt, batch, 0), 5, True)})
+
+
+def gemma_train(torch, dev, work, kernels):
+    """The Gemma LoRA path: the port's CLI on a synthetic full-size
+    Gemma-3-270M and corpus, launch counts set to 0 just before it."""
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.cli import common
+    from mobilefinetuner_tpu_torch.cli import train_lora_gemma as cli
+    from mobilefinetuner_tpu_torch.data.synthetic import (
+        write_synthetic_corpus, write_synthetic_gemma270m)
+    from mobilefinetuner_tpu_torch.data.tokenizer_gemma import \
+        GemmaTokenizer
+    from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
+                                                          WT2Config)
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gemma3
+    from mobilefinetuner_tpu_torch.lora import peft_io
+    from mobilefinetuner_tpu_torch.lora.lora import (GEMMA_PRESETS,
+                                                     LoRASpec,
+                                                     init_lora_gemma3,
+                                                     trainable_mask)
+    from mobilefinetuner_tpu_torch.models import gemma3
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    from mobilefinetuner_tpu_torch.ops.loss import \
+        chunked_lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.optim import adam
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_eval_step)
+    G = GEMMA
+    gdir, ddir = os.path.join(work, "gemma"), os.path.join(work, "gwiki")
+    out = os.path.join(work, "gemma_out")
+    t0 = time.perf_counter()
+    write_synthetic_gemma270m(gdir, seed=0)
+    write_synthetic_corpus(ddir, n_train_words=60_000, seed=0)
+    config, params_np = load_gemma3(gdir)
+    params = convert.gemma3_params_from_numpy(params_np, device=dev)
+    del params_np
+    tok = GemmaTokenizer.from_pretrained(gdir)
+    valid = WikiText2Dataset(ddir, "valid", WT2Config(
+        seq_len=G["seq"], batch_size=G["eval_batch"], shuffle=False),
+        lambda t: tok.encode(t, add_bos=False), tok.eos_id,
+        pad_id=tok.pad_id)
+    eval_nb = min(G["eval_batches"], valid.num_batches())
+    spec = LoRASpec(rank=G["rank"], alpha=G["alpha"], init="peft",
+                    targets=GEMMA_PRESETS["full"])
+
+    def nll_fn(lora_t, frozen, mb):
+        hidden = gemma3.hidden_states(config, frozen, mb["input_ids"],
+                                      attention_mask=mb["attention_mask"],
+                                      lora=lora_t,
+                                      compute_dtype=torch.bfloat16)
+        return chunked_lm_cross_entropy_sum(hidden, frozen["embed"],
+                                            mb["labels"],
+                                            num_chunks=G["chunks"])
+
+    lora0 = init_lora_gemma3(config, spec, seed=42, device=dev)
+    base = common.evaluate(make_eval_step(nll_fn), lora0, params, valid,
+                           G["eval_batches"], dev)
+    setup_s = time.perf_counter() - t0
+    print(f"gemma setup: synthetic Gemma-3-270M + corpus written and base "
+          f"eval done in {setup_s:.1f} s; base eval ppl {base['ppl']:.3f} "
+          f"over {base['tokens']} tokens")
+
+    argv = ["--model_dir", gdir, "--data_dir", ddir,
+            "--max_steps", str(G["steps"]), "--batch", str(G["batch"]),
+            "--seq_len", str(G["seq"]), "--dtype", "bfloat16",
+            "--rank", str(G["rank"]), "--alpha", str(G["alpha"]),
+            "--targets", "full", "--loss_chunks", str(G["chunks"]),
+            "--lr", str(G["lr"]), "--eval_interval", str(G["steps"]),
+            "--eval_batch_size", str(G["eval_batch"]),
+            "--eval_batches", str(G["eval_batches"]),
+            "--output_dir", out,
+            "--metrics_csv", os.path.join(out, "metrics.csv"),
+            "--eval_out", os.path.join(out, "eval.jsonl")]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(rc == 0, f"train_lora_gemma.main returned {rc}")
+    stats, evals = run_stats(out, G["steps"], base, check_learns=True)
+    M, E = G["steps"], len(evals) * eval_nb
+    impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
+    want = gemma_launches(M, E, impl, lora=True)
+    check(launches == want, f"gemma_train launches {launches}, expected "
+          f"{want} (M={M} micro-batches, E={E} eval batches)")
+    adapter = os.path.join(out, "gemma_lora.safetensors")
+    lora, spec2 = peft_io.load_adapter(adapter, device=dev)
+    state, _ = adam.load_state(adapter + ".opt", init_optimizer(
+        lora, TrainConfig(), trainable_mask(lora)), verify=True)
+    check(spec2.rank == G["rank"] and int(state["step"]) == G["steps"]
+          and sorted(spec2.targets) == sorted(GEMMA_PRESETS["full"])
+          and all(bool(torch.isfinite(e["B"]).all())
+                  and float(e["B"].abs().max()) > 0
+                  for e in lora["blocks"].values()),
+          "trained Gemma adapter / .opt sidecar did not reload")
+    stats.update({"model": "gemma3-270m", "mode": "lora", "dtype": "bfloat16",
+                  "lora_rank": G["rank"], "lora_alpha": G["alpha"],
+                  "targets": "full", "micro_batches": M, "eval_batches": E,
+                  "bwd_impl": impl, "wall_s": wall, "setup_s": setup_s})
+    return stats, launches, (config, params, spec, base, gdir, ddir,
+                             eval_nb)
+
+
+def gemma_launches(M: int, E: int, impl: str, lora: bool) -> dict:
+    """Kernel launches of M train micro-batches and E eval batches of the
+    Gemma paths: per forward 18 flash forwards, 8 fused CE forwards and
+    (LoRA) 126 epilogues; per backward 18 flash backwards and 8 dh; dW
+    only when the head trains (full fine-tuning)."""
+    fwd = M + E
+    return {"flash_fwd": GEMMA_LAYERS * fwd,
+            "bwd_merged": GEMMA_LAYERS * M if impl == "merged" else 0,
+            "bwd_dq": GEMMA_LAYERS * M if impl == "split" else 0,
+            "bwd_dkv": GEMMA_LAYERS * M if impl == "split" else 0,
+            "lora_epilogue": GEMMA_LAYERS * GEMMA_SITES * fwd if lora else 0,
+            "paged": 0, "fused_ce_fwd": GEMMA["chunks"] * fwd,
+            "fused_ce_dh": GEMMA["chunks"] * M,
+            "fused_ce_dw": 0 if lora else GEMMA["chunks"] * M}
+
+
+def run_stats(out, steps, base, check_learns):
+    """Metrics of a CLI run from its CSV and eval JSONL."""
+    rows = read_csv(os.path.join(out, "metrics.csv"))
+    losses = [float(r["loss"]) for r in rows]
+    step_ms = sorted(float(r["step_time_ms"]) for r in rows)
+    with open(os.path.join(out, "eval.jsonl")) as f:
+        evals = [json.loads(line) for line in f]
+    final = evals[-1]
+    check(len(losses) == steps and all(map(_finite, losses)),
+          f"losses {losses}")
+    check(final["type"] == "final_eval" and _finite(final["ppl"]),
+          f"final eval {final}")
+    k = min(5, steps)
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    if check_learns:
+        check(last < first, f"loss did not fall: first-{k} mean "
+              f"{first:.4f}, last-{k} mean {last:.4f}")
+        check(final["ppl"] < base["ppl"],
+              f"eval ppl {final['ppl']:.3f} not below the base model's "
+              f"{base['ppl']:.3f}")
+    tokens = GEMMA["batch"] * GEMMA["seq"]
+    p50 = step_ms[len(step_ms) // 2]
+    return {"steps": steps, "batch": GEMMA["batch"], "seq_len": GEMMA["seq"],
+            "loss_chunks": GEMMA["chunks"], "tokens_per_step": tokens,
+            "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            f"first{k}_mean_loss": first, f"last{k}_mean_loss": last,
+            "eval_ppl_before": base["ppl"], "eval_ppl_after": final["ppl"],
+            "eval_tokens": final["tokens"]}, evals
+
+
+def gemma_full_ft(torch, dev, work, kernels, gemma):
+    """The Gemma full fine-tuning path: the port's CLI on the same
+    directory and corpus, launch counts set to 0 just before it."""
+    from mobilefinetuner_tpu_torch.cli import gemma_full_finetune as cli
+    from mobilefinetuner_tpu_torch.io.safetensors_io import \
+        SafeTensorsReader
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    config, _, _, base, gdir, ddir, eval_nb = gemma
+    G = GEMMA
+    out = os.path.join(work, "gemma_full_out")
+    model = os.path.join(out, "full.safetensors")
+    argv = ["--model_dir", gdir, "--data_dir", ddir,
+            "--steps", str(G["full_steps"]), "--batch_size", str(G["batch"]),
+            "--seq_len", str(G["seq"]), "--dtype", "bfloat16",
+            "--loss_chunks", str(G["chunks"]), "--lr", str(G["full_lr"]),
+            "--eval_interval", str(G["full_steps"]),
+            "--eval_batch_size", str(G["eval_batch"]),
+            "--eval_batches", str(G["eval_batches"]),
+            "--output_path", model,
+            "--metrics_csv", os.path.join(out, "metrics.csv"),
+            "--eval_out", os.path.join(out, "eval.jsonl")]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(rc == 0, f"gemma_full_finetune.main returned {rc}")
+    stats, evals = run_stats(out, G["full_steps"], base, check_learns=False)
+    M, E = G["full_steps"], len(evals) * eval_nb
+    impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
+    want = gemma_launches(M, E, impl, lora=False)
+    check(launches == want, f"gemma_full_ft launches {launches}, expected "
+          f"{want} (M={M} micro-batches, E={E} eval batches)")
+    reader = SafeTensorsReader(model)
+    check(len(reader.keys()) == 2 + 13 * config.num_hidden_layers
+          and SafeTensorsReader(model + ".opt").metadata["loop_step"]
+          == str(G["full_steps"]), "full-model file / .opt incomplete")
+    stats.update({"model": "gemma3-270m", "mode": "full", "dtype":
+                  "bfloat16", "micro_batches": M, "eval_batches": E,
+                  "bwd_impl": impl, "wall_s": wall})
+    return stats, launches
+
+
+def profile_gemma_train(torch, dev, gemma):
+    """Where one Gemma-3-270M LoRA train step (batch 4 x 256, bf16,
+    targets full, 8 loss chunks) spends its time."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.cli.common import place_batch
+    from mobilefinetuner_tpu_torch.lora.lora import (init_lora_gemma3,
+                                                     trainable_mask)
+    from mobilefinetuner_tpu_torch.models import gemma3
+    from mobilefinetuner_tpu_torch.ops.loss import \
+        chunked_lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_train_step)
+    config, params, spec = gemma[:3]
+    G = GEMMA
+    lora = init_lora_gemma3(config, spec, seed=42, device=dev)
+    mask = trainable_mask(lora)
+    tc = TrainConfig(total_steps=G["steps"], lr=G["lr"])
+
+    def loss_fn(lora_t, frozen, mb):
+        hidden = gemma3.hidden_states(config, frozen, mb["input_ids"],
+                                      attention_mask=mb["attention_mask"],
+                                      lora=lora_t,
+                                      compute_dtype=torch.bfloat16)
+        return chunked_lm_cross_entropy_sum(hidden, frozen["embed"],
+                                            mb["labels"],
+                                            num_chunks=G["chunks"])
+
+    step_fn = make_train_step(loss_fn, tc, mask)
+    opt = init_optimizer(lora, tc, mask)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, config.vocab_size, (G["batch"], G["seq"]),
+                       dtype=np.int32)
+    batch = place_batch({"input_ids": ids, "labels": ids,
+                         "attention_mask": np.ones((G["batch"], G["seq"]),
+                                                   np.float32)}, dev)
+    return profile_phases({"gemma_lora_train_step": (
+        lambda: step_fn(lora, params, opt, batch, 0), 5, True)})
 
 
 def bwd_sweep(torch, fa, dev):
@@ -779,6 +1232,131 @@ def bwd_sweep(torch, fa, dev):
     return rows
 
 
+def gemma_kernel_entries(torch, fa, lf, dev):
+    """The flash forward, the merged backward and the LoRA epilogue at the
+    Gemma LoRA step's shapes (batch 4 x 256, 4 q-heads over 1 kv-head,
+    D 256, the 512 window, bf16; the gate_proj site, y 1024 x 2048, r 8):
+    each held against its plain version with the bf16 tolerances of
+    check_flash, check_flash_bwd and check_epilogue, then timed and
+    bounded, as sub-entries of the kernels line."""
+    B, Hq, Hkv, S, D, window = 4, 4, 1, 256, 256, 512
+    bf = torch.bfloat16
+    q, k, v, pad = flash_inputs(torch, dev, bf, B, Hq, Hkv, S, D, (S,) * B,
+                                seed=11)
+    do = flash_inputs(torch, dev, bf, B, Hq, Hq, S, D, (S,) * B, seed=12)[0]
+    kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, pad, **kw)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, pad, lse, delta, do)
+    merged = fa.flash_attention_bwd_merged(*args, **kw)
+    ref_m = fa.flash_bwd_merged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    fwd_err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    bwd_err = max(max_err(a, b) for a, b in zip(merged, ref_m))
+    bwd_rel = max(rel_err(a, b) for a, b in zip(merged, ref_m))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, scale=kw["scale"],
+                   enable_gqa=True)
+    pairs = B * Hq * S * (S + 1) // 2          # causal, window >= S
+    isz = q.element_size()
+    n_q, n_kv = q.numel(), k.numel()
+    fwd_times = timed({
+        "ms": lambda: fa.flash_attention_fwd(q, k, v, pad, **kw),
+        "plain_ms": lambda: fa.flash_attention_reference(q, k, v, pad,
+                                                         **kw),
+        "library_ms": lambda: sdpa(q, k, v, is_causal=True,
+                                   scale=kw["scale"], enable_gqa=True)},
+        50)
+    bwd_times = timed({
+        "ms": lambda: fa.flash_attention_bwd_merged(*args, **kw),
+        "plain_ms": lambda: fa.flash_bwd_merged_reference(*args, **kw),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True)}, 50)
+    g = torch.Generator(device=dev).manual_seed(13)
+    y, xa, bm = (torch.randn(sh, generator=g, device=dev).to(bf)
+                 for sh in ((B * S, 2048), (B * S, 8), (8, 2048)))
+    epi = lf.lora_epilogue(y, xa, bm)
+    epi_err = max_err(epi, lf.lora_epilogue_reference(y, xa, bm))
+    print(f"gemma shapes, bf16: flash fwd max |out err| {fwd_err:.3e} "
+          f"(tolerance 1e-2), max |lse err| {lse_err:.3e} (1e-4); merged "
+          f"bwd max err / max(1, |ref|) {bwd_rel:.3e} (2e-2); epilogue "
+          f"gate_proj max |err| {epi_err:.3e} (1e-2)")
+    for t in (out, *merged, epi):
+        check(bool(torch.isfinite(t).all()), "gemma-shape kernel non-finite")
+    check(fwd_err <= 1e-2 and lse_err <= 1e-4, "flash fwd at the Gemma "
+          "shape disagrees with its plain version")
+    check(bwd_rel <= 2e-2, "merged bwd at the Gemma shape disagrees with "
+          "its plain version")
+    check(epi_err <= 1e-2, "LoRA epilogue at the Gemma shape disagrees "
+          "with its plain version")
+    epi_times = timed({
+        "ms": lambda: lf.lora_epilogue(y, xa, bm),
+        "plain_ms": lambda: lf.lora_epilogue_reference(y, xa, bm),
+        "library_ms": lambda: torch.addmm(y, xa, bm)})
+    shape = (f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, bf16, causal, "
+             f"window {window} (gemma)")
+    return {
+        "flash_fwd": kernel_entry(
+            "flash_attention_fwd", "flash_attention_fwd.cu",
+            "flash_attention.py:162", None, fwd_err, fwd_times,
+            bound((2 * n_q + 2 * n_kv) * isz + pad.numel() * 4
+                  + B * Hq * S * 4, 4 * D * pairs), {"shape": shape}),
+        "bwd_merged": kernel_entry(
+            "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
+            "flash_attention.py:415", None, bwd_err, bwd_times,
+            bound((3 * n_q + 4 * n_kv) * isz + pad.numel() * 4
+                  + 2 * B * Hq * S * 4, 10 * D * pairs), {"shape": shape}),
+        "lora_epilogue": kernel_entry(
+            "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78", None,
+            epi_err, epi_times,
+            bound((2 * y.numel() + xa.numel() + bm.numel()) * isz,
+                  2 * B * S * 8 * 2048),
+            {"shape": "gate_proj: y 1024x2048, r 8, bf16 (gemma)"})}
+
+
+def fused_ce_times(torch, fc, args):
+    """Times and bounds of the fused CE kernels at the Gemma chunk shape;
+    the library yardstick is the unfused PyTorch pair: h @ W^T, then
+    logsumexp and a gather (row 6) and autograd of that for h (row 7) or
+    W (row 8), the `autograd.grad` call only."""
+    h, w, lab, lse, dl, dg = args
+    R, H = h.shape
+    V = w.shape[0]
+    hl = h.detach().clone().requires_grad_(True)
+    wl = w.detach().clone().requires_grad_(True)
+
+    def lib_fwd(hh, ww):
+        logits = (hh @ ww.T).float()
+        return torch.logsumexp(logits, -1), logits.gather(1, lab[:, None])
+
+    lse_l, gold_l = lib_fwd(hl, wl)
+    obj = (lse_l * dl).sum() + (gold_l[:, 0] * dg).sum()
+    bwd = (h, w, lab, lse, dl, dg)
+    times = {
+        "fused_ce_fwd": timed({
+            "ms": lambda: fc.fused_ce_fwd(h, w, lab),
+            "plain_ms": lambda: fc.fused_ce_fwd_reference(h, w, lab),
+            "library_ms": lambda: lib_fwd(h, w)}, 20),
+        "fused_ce_dh": timed({
+            "ms": lambda: fc.fused_ce_bwd_dh(*bwd),
+            "plain_ms": lambda: fc.fused_ce_dh_reference(*bwd),
+            "library_ms": lambda: torch.autograd.grad(
+                obj, [hl], retain_graph=True)}, 20),
+        "fused_ce_dw": timed({
+            "ms": lambda: fc.fused_ce_bwd_dw(*bwd),
+            "plain_ms": lambda: fc.fused_ce_dw_reference(*bwd),
+            "library_ms": lambda: torch.autograd.grad(
+                obj, [wl], retain_graph=True)}, 20)}
+    ins = (R * H + V * H) * h.element_size() + R * lab.element_size()
+    rows = 3 * R * 4                       # lse, dlse, dgold
+    bounds = {"fused_ce_fwd": bound(ins + 2 * R * 4, 2 * R * V * H),
+              "fused_ce_dh": bound(ins + rows + R * H * 4, 4 * R * V * H),
+              "fused_ce_dw": bound(ins + rows + V * H * 4, 4 * R * V * H)}
+    return times, bounds
+
+
 # --------------------------------------------------------------- main ------
 
 def main() -> int:
@@ -791,13 +1369,17 @@ def main() -> int:
     from mobilefinetuner_tpu_torch.kernels import build
     from mobilefinetuner_tpu_torch.ops import decode_attention as da
     from mobilefinetuner_tpu_torch.ops import flash_attention as fa
+    from mobilefinetuner_tpu_torch.ops import fused_ce as fc
     from mobilefinetuner_tpu_torch.ops import lora_fused as lf
     kernels = {"flash_fwd": fa.flash_attention_fwd,
                "bwd_merged": fa.flash_attention_bwd_merged,
                "bwd_dq": fa.flash_attention_bwd_dq,
                "bwd_dkv": fa.flash_attention_bwd_dkv,
                "lora_epilogue": lf.lora_epilogue,
-               "paged": da.paged_decode_attention}
+               "paged": da.paged_decode_attention,
+               "fused_ce_fwd": fc.fused_ce_fwd,
+               "fused_ce_dh": fc.fused_ce_bwd_dh,
+               "fused_ce_dw": fc.fused_ce_bwd_dw}
 
     # 1. the card
     card = card_line()
@@ -821,9 +1403,12 @@ def main() -> int:
     bwd = check_flash_bwd(torch, fa, dev)
     epi = check_epilogue(torch, lf, dev)
     paged_err, paged_args = check_paged(torch, da, dev)
+    ce_err, ce_args = check_fused_ce(torch, fc, dev)
     params32 = check_model(torch, dev)
     check_train_step(torch, dev, params32)
     del params32
+    check_gemma(torch, dev)
+    torch.cuda.empty_cache()
 
     # 4. the serving path, counts set to 0 just before it
     launches_serve, serve_stats, eng, names = serve(torch, fa, da)
@@ -832,7 +1417,8 @@ def main() -> int:
     del eng
 
     # 5. the training path, counts set to 0 just before it; 6. serve with
-    # the trained adapter; 7. profile a train step
+    # the trained adapter; 7. the Gemma paths, counts set to 0 just before
+    # each; 8. profile a GPT-2 and a Gemma train step
     with tempfile.TemporaryDirectory() as work:
         train_stats, launches_train, adapter, model = train(
             torch, dev, work, kernels)
@@ -840,9 +1426,21 @@ def main() -> int:
                           "launches": launches_train}))
         serve_trained(torch, dev, adapter, model)
         prof.update(profile_train(torch, dev, model))
+        del model
+        gemma_stats, launches_gemma, gemma = gemma_train(torch, dev, work,
+                                                         kernels)
+        print(json.dumps({"gemma_train": gemma_stats,
+                          "launches": launches_gemma}))
+        full_stats, launches_full = gemma_full_ft(torch, dev, work, kernels,
+                                                  gemma)
+        print(json.dumps({"gemma_full_ft": full_stats,
+                          "launches": launches_full}))
+        torch.cuda.empty_cache()
+        prof.update(profile_gemma_train(torch, dev, gemma))
+        del gemma
     print(json.dumps({"profile": prof}))
 
-    # 8. times and bounds at the main paths' shapes
+    # 9. times and bounds at the main paths' shapes
     q, k, v, pad = flash_args
     B, Hq, S, D = q.shape
     isz = q.element_size()
@@ -905,51 +1503,73 @@ def main() -> int:
                      + ok.numel() + Sl * KV * G * Dp * 4,
                      4 * Dp * G * KV * int(ok.sum()))
 
+    ce_times, ce_bounds = fused_ce_times(torch, fc, ce_args)
+    gemma_entries = gemma_kernel_entries(torch, fa, lf, dev)
     serve_names = {"flash_fwd": "flash", "paged": "paged"}
 
     def by_path(name):
         return {"serve": launches_serve.get(serve_names.get(name), 0),
-                "train": launches_train[name]}
+                "train": launches_train[name],
+                "gemma_train": launches_gemma[name],
+                "gemma_full_ft": launches_full[name]}
+
+    def total(name):
+        return sum(by_path(name).values())
 
     kernels_line = [
         kernel_entry(
             "flash_attention_fwd", "flash_attention_fwd.cu",
-            "flash_attention.py:162", sum(by_path("flash_fwd").values()),
+            "flash_attention.py:162", total("flash_fwd"),
             flash_err, fl_times, fl_bound,
             {"launches_by_path": by_path("flash_fwd"),
-             "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)"}),
+             "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
+             "gemma": gemma_entries["flash_fwd"]}),
         kernel_entry(
             "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
-            "flash_attention.py:415", launches_train["bwd_merged"],
+            "flash_attention.py:415", total("bwd_merged"),
             bwd["merged"], merged_times,
             bound(bwd_in + 3 * n_qkv * isz, 10 * D * pairs),
-            {"launches_by_path": by_path("bwd_merged")}),
+            {"launches_by_path": by_path("bwd_merged"),
+             "gemma": gemma_entries["bwd_merged"]}),
         kernel_entry(
             "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
-            "flash_attention.py:269", launches_train["bwd_dq"], bwd["dq"],
+            "flash_attention.py:269", total("bwd_dq"), bwd["dq"],
             dq_times, bound(bwd_in + n_qkv * isz, 6 * D * pairs),
             {"launches_by_path": by_path("bwd_dq")}),
         kernel_entry(
             "flash_attention_bwd_dkv", "flash_attention_bwd_split.cu",
-            "flash_attention.py:362", launches_train["bwd_dkv"], bwd["dkv"],
+            "flash_attention.py:362", total("bwd_dkv"), bwd["dkv"],
             dkv_times, bound(bwd_in + 2 * n_qkv * isz, 8 * D * pairs),
             {"launches_by_path": by_path("bwd_dkv")}),
         kernel_entry(
             "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
-            launches_train["lora_epilogue"], epi["attn_qkv"][0],
+            total("lora_epilogue"), epi["attn_qkv"][0],
             epi_times["attn_qkv"], epi_bounds["attn_qkv"],
             {"launches_by_path": by_path("lora_epilogue"),
              "shape": "attn_qkv: y 1024x2304, r 8, bf16",
+             "gemma": gemma_entries["lora_epilogue"],
              "attn_proj": kernel_entry(
                  "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
-                 launches_train["lora_epilogue"], epi["attn_proj"][0],
+                 total("lora_epilogue"), epi["attn_proj"][0],
                  epi_times["attn_proj"], epi_bounds["attn_proj"],
                  {"shape": "y 1024x768, r 8, bf16"})}),
         kernel_entry(
             "paged_decode_attention", "paged_decode_attention.cu",
-            "decode_attention.py:223", launches_serve["paged"], paged_err,
+            "decode_attention.py:223", total("paged"), paged_err,
             pg_times, pg_bound, {"launches_by_path": by_path("paged")}),
     ]
+    ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
+    for name, key, line, err in (
+            ("fused_ce_fwd", "fused_ce_fwd", "fused_ce.py:121",
+             max(ce_err["lse"], ce_err["gold"])),
+            ("fused_ce_bwd_dh", "fused_ce_dh", "fused_ce.py:196",
+             ce_err["dh"]),
+            ("fused_ce_bwd_dw", "fused_ce_dw", "fused_ce.py:224",
+             ce_err["dw"])):
+        kernels_line.append(kernel_entry(
+            name, "fused_ce.cu", line, total(key), err, ce_times[key],
+            ce_bounds[key], {"launches_by_path": by_path(key),
+                             "shape": ce_shape}))
     print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)

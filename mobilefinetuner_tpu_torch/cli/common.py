@@ -33,7 +33,8 @@ from mobilefinetuner_tpu_torch.core.device import resolve_device
 from mobilefinetuner_tpu_torch.core.logging import (JSONLWriter,
                                                     MetricsLogger,
                                                     get_logger)
-from mobilefinetuner_tpu_torch.data.wikitext2 import WikiText2Dataset
+from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
+                                                      WT2Config)
 from mobilefinetuner_tpu_torch.io.safetensors_io import (
     CheckpointIntegrityError, SafeTensorsReader, verify_report)
 from mobilefinetuner_tpu_torch.ops.dropout import fold_in
@@ -60,6 +61,15 @@ NOT_PORTED = (
      "P2 leftovers"),
     ("prefetch_rss_mb", 0, "the prefetch RSS guard (--prefetch_rss_mb)",
      "P2 leftovers"),
+    ("pretokenized_path", "",
+     "the pretokenized data mode (--pretokenized_path)", "P2 leftovers"),
+    ("pretokenized_meta", "",
+     "the pretokenized data mode (--pretokenized_meta)", "P2 leftovers"),
+    ("opt_offload", False, "optimizer-state offload (--opt_offload)", "P9"),
+    ("opt_offload_state_dtype", "float32",
+     "optimizer-state offload (--opt_offload_state_dtype)", "P9"),
+    ("opt_offload_master_dtype", "float32",
+     "optimizer-state offload (--opt_offload_master_dtype)", "P9"),
     ("telemetry_out", "", "the telemetry stream (--telemetry_out)", "P6"),
     ("run_registry", "", "the run registry (--run_registry)", "P6"),
     ("profile_dir", "", "the profiler window (--profile_dir)", "P6"),
@@ -230,6 +240,42 @@ def add_mesh_flags(p: argparse.ArgumentParser):
     g.add_argument("--dist_coordinator", default="")
     g.add_argument("--dist_num_processes", type=int, default=0)
     g.add_argument("--dist_process_id", type=int, default=-1)
+
+
+def setup_device(args) -> torch.device:
+    """--device resolved (core/device.py); on the card, f32 matmuls and
+    convolutions in full f32 (no TF32), as on the CPU."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def gemma_datasets(args):
+    """(train, valid or None) WikiText-2 datasets of the Gemma CLIs: the
+    Gemma tokenizer of --model_dir without a BOS, pad_id from it; the
+    valid split only with --eval_interval."""
+    from mobilefinetuner_tpu_torch.data.tokenizer_gemma import \
+        GemmaTokenizer
+    tok = GemmaTokenizer.from_pretrained(args.model_dir)
+
+    def encode(s):
+        return tok.encode(s, add_bos=False)
+
+    train_ds = WikiText2Dataset(
+        args.data_dir, "train",
+        WT2Config(seq_len=args.seq_len, batch_size=args.batch_size,
+                  data_fraction=args.data_fraction, seed=args.seed),
+        encode, tok.eos_id, pad_id=tok.pad_id)
+    valid_ds = None
+    if args.eval_interval and args.data_dir:
+        valid_ds = WikiText2Dataset(
+            args.data_dir, "valid",
+            WT2Config(seq_len=args.seq_len,
+                      batch_size=args.eval_batch_size, shuffle=False),
+            encode, tok.eos_id, pad_id=tok.pad_id)
+    return train_ds, valid_ds
 
 
 def add_device_flag(p: argparse.ArgumentParser):

@@ -21,11 +21,8 @@ import dataclasses
 import os
 import sys
 
-import torch
-
 from mobilefinetuner_tpu_torch import convert
 from mobilefinetuner_tpu_torch.cli import common
-from mobilefinetuner_tpu_torch.core.device import resolve_device
 from mobilefinetuner_tpu_torch.core.logging import get_logger
 from mobilefinetuner_tpu_torch.data.tokenizer_bpe import GPT2BPETokenizer
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
@@ -83,11 +80,7 @@ def main(argv=None) -> int:
         raise SystemExit("--split_qkv adapters have no PEFT "
                          "representation; drop --peft_export_dir "
                          "(the native adapter format supports them)")
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # f32 means f32 on the card (no TF32), as on the CPU
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = common.setup_device(args)
     config, params_np = load_gpt2(args.pretrained_dir)
     if args.no_model_dropout:
         config = dataclasses.replace(config, embd_pdrop=0.0,

@@ -1,7 +1,7 @@
 """Carry parameter, adapter and optimizer-state trees between numpy and
 the port.
 
-The JAX package keeps GPT-2 weights, LoRA adapters and Adam state as
+The JAX package keeps GPT-2 and Gemma-3 weights, LoRA adapters and Adam state as
 nested dicts of arrays; `jax.tree.map(np.asarray, tree)` turns one into
 numpy, and these functions turn that into the port's nested dict of torch
 tensors with the same keys and shapes (and back, `to_numpy`), so both
@@ -30,6 +30,13 @@ def _tree_from_numpy(tree, device, dtype):
 
 def gpt2_params_from_numpy(tree, device=None, dtype=torch.float32) -> dict:
     """A GPT-2 parameter tree (models/gpt2.py layout) as torch tensors."""
+    return _tree_from_numpy(tree, resolve_device(device), dtype)
+
+
+def gemma3_params_from_numpy(tree, device=None,
+                             dtype=torch.float32) -> dict:
+    """A Gemma-3 parameter tree (models/gemma3.py layout) as torch
+    tensors."""
     return _tree_from_numpy(tree, resolve_device(device), dtype)
 
 

@@ -1,13 +1,24 @@
-"""Full-size offline inputs for the training path: a random-weight HF
-GPT-2 small directory and a WikiText-shaped corpus, both from a seed (the
-port's own counterparts of tools/e2e_ppl_pipeline.py's
-`write_synthetic_gpt2` / `write_synthetic_corpus`, which import jax).
+"""Full-size offline inputs for the training paths: random-weight HF
+GPT-2 small and Gemma-3-270M directories and a WikiText-shaped corpus,
+all from a seed (the port's own counterparts of tools/e2e_ppl_pipeline.py's
+`write_synthetic_gpt2` / `write_synthetic_gemma270m` /
+`write_synthetic_corpus`, which import jax and `tokenizers`).
 
     write_synthetic_gpt2(dir, seed)    config.json, model.safetensors (HF
                                        Conv1D keys), a 50257-entry
                                        byte-level vocab.json and an empty
                                        merges.txt: every byte is one token,
                                        the full vocab head is exercised.
+    write_synthetic_gemma270m(dir, seed)
+                                       config.json (gemma3_text),
+                                       model.safetensors (HF Gemma3 keys,
+                                       [out, in] linears) and a
+                                       262,144-entry tokenizer.json written
+                                       here (`synthetic_gemma_tokenizer`):
+                                       specials, the 256 byte tokens, the
+                                       pieces and merges that make each
+                                       corpus word one token, then filler
+                                       pieces up to the real vocab size.
     write_synthetic_corpus(dir, ...)   wiki.{train,valid,test}.tokens:
                                        Zipfian words with a deterministic
                                        bigram continuation rule, so a short
@@ -22,12 +33,15 @@ import os
 
 import numpy as np
 
-from mobilefinetuner_tpu_torch.core.config import GPT2Config
+from mobilefinetuner_tpu_torch.core.config import GPT2Config, Gemma3TextConfig
 from mobilefinetuner_tpu_torch.data.tokenizer_bpe import bytes_to_unicode
-from mobilefinetuner_tpu_torch.io.checkpoints import gpt2_params_to_hf
+from mobilefinetuner_tpu_torch.io.checkpoints import (gemma3_params_to_hf,
+                                                      gpt2_params_to_hf)
 from mobilefinetuner_tpu_torch.io.safetensors_io import save_safetensors
 
 _SPLIT_SEEDS = {"train": 1, "valid": 2, "test": 3}
+CORPUS_WORDS = [f"w{i:03d}" for i in range(400)]
+SPACE = "\u2581"        # the SentencePiece space marker
 
 
 def write_synthetic_gpt2(d: str, seed: int = 0) -> GPT2Config:
@@ -54,11 +68,72 @@ def write_synthetic_gpt2(d: str, seed: int = 0) -> GPT2Config:
     return cfg
 
 
+def synthetic_gemma_tokenizer(vocab_size: int = 262144) -> dict:
+    """An HF tokenizer.json spec (BPE, byte fallback, spaces replaced by
+    the marker): <pad> <eos> <bos> <unk>, <0x00>..<0xFF>, the marker, "w"
+    and the digits, then the merges marker+w, +digit, +digit, +digit, so
+    that every corpus word with its leading space is one token, then
+    <unusedN> filler up to vocab_size."""
+    pieces = (["<pad>", "<eos>", "<bos>", "<unk>"]
+              + [f"<0x{b:02X}>" for b in range(256)]
+              + [SPACE, "w"] + [str(d) for d in range(10)])
+    merges = [[SPACE, "w"]]
+    prefixes = [SPACE + "w"]
+    for _ in range(3):          # one digit at a time: w0, w01, w012
+        longer = sorted({p + w[len(p) - 1] for p in prefixes
+                         for w in CORPUS_WORDS if w.startswith(p[1:])})
+        merges += [[p[:-1], p[-1]] for p in longer]
+        pieces += longer
+        prefixes = longer
+    if vocab_size < len(pieces) + 1:
+        raise ValueError(f"vocab_size {vocab_size} < {len(pieces) + 1}")
+    vocab = {p: i for i, p in enumerate(pieces)}
+    for i in range(len(pieces), vocab_size):
+        vocab[f"<unused{i}>"] = i
+    return {
+        "version": "1.0",
+        "added_tokens": [{"id": i, "content": t, "special": True,
+                          "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False}
+                         for i, t in enumerate(pieces[:4])],
+        "normalizer": {"type": "Replace", "pattern": {"String": " "},
+                       "content": SPACE},
+        "pre_tokenizer": None,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def write_synthetic_gemma270m(d: str, seed: int = 0) -> Gemma3TextConfig:
+    from mobilefinetuner_tpu_torch.models import gemma3
+    os.makedirs(d, exist_ok=True)
+    cfg = Gemma3TextConfig.gemma3_270m()
+    params = gemma3.init_params(cfg, seed=seed, device="cpu")
+    save_safetensors(os.path.join(d, "model.safetensors"),
+                     gemma3_params_to_hf(params), metadata={"format": "pt"})
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "gemma3_text",
+                   **{k: getattr(cfg, k) for k in (
+                       "vocab_size", "hidden_size", "intermediate_size",
+                       "num_hidden_layers", "num_attention_heads",
+                       "num_key_value_heads", "head_dim", "sliding_window",
+                       "rope_theta", "rope_local_base_freq",
+                       "query_pre_attn_scalar")}}, f)
+    with open(os.path.join(d, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(synthetic_gemma_tokenizer(cfg.vocab_size), f,
+                  ensure_ascii=False)
+    return cfg
+
+
 def write_synthetic_corpus(d: str, n_train_words: int = 120_000,
                            seed: int = 0) -> str:
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(seed)
-    vocab = [f"w{i:03d}" for i in range(400)]
+    vocab = CORPUS_WORDS
     p = 1.0 / np.arange(1, len(vocab) + 1)
     p /= p.sum()
     follow = rng.integers(0, len(vocab), len(vocab))  # the bigram rule

@@ -1,10 +1,18 @@
-"""LoRA: spec, GPT-2 targets, initialization, multi-adapter stacking,
-the trainable mask and merging (port of mobilefinetuner_tpu/lora/lora.py;
-the Gemma targets come with the Gemma slice, ROADMAP.md port item P3).
+"""LoRA: spec, GPT-2 and Gemma-3 targets, initialization, multi-adapter
+stacking, the trainable mask and merging (port of mobilefinetuner_tpu/
+lora/lora.py).
 
 Entry layout per target: {"A": [L, in, r], "B": [L, r, out], "scale": ()}
 with scale = alpha / rank; the unstacked "lm_head" target has A [in, r],
 B [r, out]. A tree is {"blocks": {target: entry}} of torch tensors.
+
+Init styles (`LoRASpec.init`), B = 0 in both:
+  gpt2  A ~ N(0, 1/sqrt(r));
+  peft  A ~ U(-1/sqrt(in), 1/sqrt(in)), torch's kaiming_uniform_(a=sqrt(5))
+        on the [r, in] weight (the Gemma CLI's init).
+Factors are drawn from a seeded CPU torch.Generator: a seed gives the same
+adapter on every device (not the JAX package's numbers; tests hand both
+packages the same numpy factors).
 """
 
 from __future__ import annotations
@@ -35,8 +43,26 @@ GPT2_TARGETS = {
 # column slot of each split target within the fused [E, 3E] c_attn weight
 GPT2_SPLIT_QKV_SLOTS = {"attn_q": 0, "attn_k": 1, "attn_v": 2}
 GPT2_DEFAULT_TARGETS = ["attn_qkv", "attn_proj"]
+
+GEMMA_TARGETS = {
+    "q_proj": lambda c: (c.hidden_size, c.num_attention_heads * c.head_dim),
+    "k_proj": lambda c: (c.hidden_size, c.num_key_value_heads * c.head_dim),
+    "v_proj": lambda c: (c.hidden_size, c.num_key_value_heads * c.head_dim),
+    "o_proj": lambda c: (c.num_attention_heads * c.head_dim, c.hidden_size),
+    "gate_proj": lambda c: (c.hidden_size, c.intermediate_size),
+    "up_proj": lambda c: (c.hidden_size, c.intermediate_size),
+    "down_proj": lambda c: (c.intermediate_size, c.hidden_size),
+    "lm_head": lambda c: (c.hidden_size, c.vocab_size),  # tied embed head
+}
 # targets with ONE site instead of a per-layer stack
 UNSTACKED_TARGETS = frozenset({"lm_head"})
+# Gemma target presets; lm_head is opt-in only
+GEMMA_PRESETS = {
+    "full": [t for t in GEMMA_TARGETS if t not in UNSTACKED_TARGETS],
+    "attn": ["q_proj", "k_proj", "v_proj", "o_proj"],
+    "light": ["q_proj", "v_proj"],
+}
+INIT_STYLES = ("gpt2", "peft")
 
 
 @dataclasses.dataclass
@@ -45,7 +71,7 @@ class LoRASpec:
     alpha: float = 16.0
     dropout: float = 0.0
     targets: Optional[List[str]] = None
-    init: str = "gpt2"  # the PEFT-style init comes with the Gemma slice
+    init: str = "gpt2"  # one of INIT_STYLES
 
     @property
     def scale(self) -> float:
@@ -67,30 +93,33 @@ class LoRASpec:
                    init=md.get("lora_init", "gpt2"))
 
 
-def _init_A(gen: torch.Generator, shape) -> torch.Tensor:
-    """GPT-2 style A ~ N(0, 1/sqrt(r)), shape [L, in, r], drawn on the CPU
-    so a seed gives the same factors on every device."""
-    return torch.randn(shape, generator=gen) / math.sqrt(shape[-1])
+def _init_A(gen: torch.Generator, shape, style: str) -> torch.Tensor:
+    """A of shape [L, in, r] in `style` (module docstring), drawn on the
+    CPU."""
+    _, fan_in, r = shape
+    if style == "peft":
+        bound = 1.0 / math.sqrt(fan_in)
+        return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
+    return torch.randn(shape, generator=gen) / math.sqrt(r)
 
 
 def init_lora(target_dims: Dict[str, Tuple[int, int]], n_layers: int,
               spec: LoRASpec, seed: int = 0, dtype=torch.float32,
               device=None) -> dict:
     """The stacked LoRA tree for the given targets (B = 0)."""
-    if spec.init != "gpt2":
-        raise NotImplementedError(
-            f"LoRA init {spec.init!r}: only the GPT-2 style is ported "
-            f"(the PEFT style comes with the Gemma slice, ROADMAP.md P3)")
+    if spec.init not in INIT_STYLES:
+        raise ValueError(f"LoRA init {spec.init!r} is not one of "
+                         f"{INIT_STYLES}")
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     tree = {}
     for name in sorted(target_dims):
         fan_in, fan_out = target_dims[name]
         if name in UNSTACKED_TARGETS:
-            A = _init_A(gen, (1, fan_in, spec.rank))[0]
+            A = _init_A(gen, (1, fan_in, spec.rank), spec.init)[0]
             B = torch.zeros(spec.rank, fan_out)
         else:
-            A = _init_A(gen, (n_layers, fan_in, spec.rank))
+            A = _init_A(gen, (n_layers, fan_in, spec.rank), spec.init)
             B = torch.zeros(n_layers, spec.rank, fan_out)
         tree[name] = {"A": A.to(device, dtype), "B": B.to(device, dtype),
                       "scale": torch.tensor(spec.scale, dtype=dtype,
@@ -103,6 +132,17 @@ def init_lora_gpt2(config, spec: LoRASpec, seed: int = 0,
     targets = spec.targets or GPT2_DEFAULT_TARGETS
     dims = {t: GPT2_TARGETS[t](config) for t in targets}
     return init_lora(dims, config.n_layer, spec, seed, dtype, device)
+
+
+def init_lora_gemma3(config, spec: LoRASpec, seed: int = 0,
+                     dtype=torch.float32, device=None) -> dict:
+    """targets: a list, a GEMMA_PRESETS name, or None for "full"."""
+    targets = spec.targets or GEMMA_PRESETS["full"]
+    if isinstance(targets, str):
+        targets = GEMMA_PRESETS[targets]
+    dims = {t: GEMMA_TARGETS[t](config) for t in targets}
+    return init_lora(dims, config.num_hidden_layers, spec, seed, dtype,
+                     device)
 
 
 def tree_leaves(tree, prefix=""):
@@ -202,12 +242,18 @@ _GPT2_BASE = {"attn_qkv": ("attn", "qkv_w"), "attn_proj": ("attn", "proj_w"),
               **{name: ("attn", "qkv_w", slot)
                  for name, slot in GPT2_SPLIT_QKV_SLOTS.items()}}
 
+_GEMMA_BASE = {"q_proj": ("attn", "q_w"), "k_proj": ("attn", "k_w"),
+               "v_proj": ("attn", "v_w"), "o_proj": ("attn", "o_w"),
+               "gate_proj": ("mlp", "gate_w"), "up_proj": ("mlp", "up_w"),
+               "down_proj": ("mlp", "down_w")}
+
 
 def _merge(params, lora_tree, base_map, sign: float) -> dict:
     """params + sign * dW on every adapted base weight, as a new tree
     (the input is not modified); split targets add into their column
     range of the fused weight."""
-    blocks = {g: dict(leaves) for g, leaves in params["blocks"].items()}
+    blocks = {g: dict(v) if isinstance(v, dict) else v
+              for g, v in params["blocks"].items()}
     for name, entry in lora_tree["blocks"].items():
         if name not in base_map:
             raise ValueError(
@@ -236,3 +282,9 @@ def merge_gpt2(params, lora_tree) -> dict:
 
 def unmerge_gpt2(params, lora_tree) -> dict:
     return _merge(params, lora_tree, _GPT2_BASE, -1.0)
+
+
+def merge_gemma3(params, lora_tree) -> dict:
+    """Fold each adapter's dW into the Gemma-3 base weights."""
+    return _merge(params, lora_tree, _GEMMA_BASE, +1.0)
+

@@ -7,7 +7,8 @@ mobilefinetuner_tpu/lora/peft_io.py; byte-compatible with it).
   PEFT    `adapter_model.safetensors` with per-layer
           `base_model.model.<module>.lora_A.weight` [r, in] and
           `lora_B.weight` [out, r] (torch nn.Linear layout), plus
-          `adapter_config.json`, loadable by HF PEFT on the base model.
+          `adapter_config.json`, loadable by HF PEFT on the base model;
+          family "gpt2" (Conv1D, fan_in_fan_out) or "gemma" (nn.Linear).
 
 Loaders put the tree on `device` (None = the CUDA card, core/device.py).
 """
@@ -35,12 +36,20 @@ GPT2_PEFT_MODULES = {
     "mlp_fc_in": "transformer.h.{}.mlp.c_fc",
     "mlp_fc_out": "transformer.h.{}.mlp.c_proj",
 }
-# adapter_config.json target_modules, path-qualified so PEFT's suffix
-# match cannot hit both attn.c_proj and mlp.c_proj
+GEMMA_PEFT_MODULES = {
+    **{t: "model.layers.{}.self_attn." + t
+       for t in ("q_proj", "k_proj", "v_proj", "o_proj")},
+    **{t: "model.layers.{}.mlp." + t
+       for t in ("gate_proj", "up_proj", "down_proj")},
+}
+# adapter_config.json target_modules of GPT-2, path-qualified so PEFT's
+# suffix match cannot hit both attn.c_proj and mlp.c_proj (the Gemma
+# target names are already unique)
 PEFT_TARGET_MODULES = {
     "attn_qkv": "attn.c_attn", "attn_proj": "attn.c_proj",
     "mlp_fc_in": "mlp.c_fc", "mlp_fc_out": "mlp.c_proj",
 }
+FAMILY_MODULES = {"gpt2": GPT2_PEFT_MODULES, "gemma": GEMMA_PEFT_MODULES}
 NATIVE_FORMAT = "mobilefinetuner_tpu.lora.v1"
 
 
@@ -89,15 +98,19 @@ def load_adapter(path: str, device=None) -> Tuple[dict, LoRASpec]:
     return _tree(blocks, spec, device), spec
 
 
+def _modules(family: str) -> Dict[str, str]:
+    if family not in FAMILY_MODULES:
+        raise ValueError(f"PEFT family {family!r} is not one of "
+                         f"{sorted(FAMILY_MODULES)}")
+    return FAMILY_MODULES[family]
+
+
 def export_peft(out_dir: str, lora_tree, spec: LoRASpec, family: str,
                 base_model_name: str = ""):
     """adapter_model.safetensors + adapter_config.json for HF PEFT
-    (GPT-2: Conv1D, so fan_in_fan_out)."""
-    if family != "gpt2":
-        raise NotImplementedError(
-            f"PEFT export for {family!r} comes with the Gemma slice "
-            f"(ROADMAP.md port item P3)")
-    unsupported = sorted(set(lora_tree["blocks"]) - set(GPT2_PEFT_MODULES))
+    (GPT-2 is Conv1D, so fan_in_fan_out; Gemma is nn.Linear)."""
+    modules = _modules(family)
+    unsupported = sorted(set(lora_tree["blocks"]) - set(modules))
     if unsupported:
         raise ValueError(
             f"targets {unsupported} have no PEFT representation (PEFT "
@@ -108,7 +121,7 @@ def export_peft(out_dir: str, lora_tree, spec: LoRASpec, family: str,
     for name, entry in lora_tree["blocks"].items():
         A, B = _f32(entry["A"]), _f32(entry["B"])
         for i in range(A.shape[0]):
-            mod = "base_model.model." + GPT2_PEFT_MODULES[name].format(i)
+            mod = "base_model.model." + modules[name].format(i)
             tensors[mod + ".lora_A.weight"] = A[i].T.copy()
             tensors[mod + ".lora_B.weight"] = B[i].T.copy()
     save_safetensors(os.path.join(out_dir, "adapter_model.safetensors"),
@@ -118,9 +131,11 @@ def export_peft(out_dir: str, lora_tree, spec: LoRASpec, family: str,
         "base_model_name_or_path": base_model_name,
         "r": spec.rank, "lora_alpha": spec.alpha,
         "lora_dropout": spec.dropout, "bias": "none",
-        "fan_in_fan_out": True,
-        "target_modules": sorted({PEFT_TARGET_MODULES[t]
-                                  for t in lora_tree["blocks"]}),
+        "fan_in_fan_out": family == "gpt2",
+        "target_modules": (sorted({PEFT_TARGET_MODULES[t]
+                                   for t in lora_tree["blocks"]})
+                           if family == "gpt2"
+                           else sorted(lora_tree["blocks"])),
         "inference_mode": False,
     }
     with atomic_publish(os.path.join(out_dir, "adapter_config.json")) as tmp:
@@ -131,10 +146,7 @@ def export_peft(out_dir: str, lora_tree, spec: LoRASpec, family: str,
 def import_peft(adapter_dir: str, family: str,
                 device=None) -> Tuple[dict, LoRASpec]:
     """An HF-PEFT adapter dir -> (stacked lora tree, spec)."""
-    if family != "gpt2":
-        raise NotImplementedError(
-            f"PEFT import for {family!r} comes with the Gemma slice "
-            f"(ROADMAP.md port item P3)")
+    modules = _modules(family)
     with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
         cfg = json.load(f)
     spec = LoRASpec(rank=cfg["r"], alpha=cfg["lora_alpha"],
@@ -143,7 +155,7 @@ def import_peft(adapter_dir: str, family: str,
         adapter_dir, "adapter_model.safetensors")).load_all(
             promote_to_f32=True)
     blocks: dict = {}
-    for name, fmt in GPT2_PEFT_MODULES.items():
+    for name, fmt in modules.items():
         As, Bs = [], []
         while True:
             mod = "base_model.model." + fmt.format(len(As))

@@ -9,14 +9,17 @@ import dataclasses
 import pytest
 import torch
 
-from mobilefinetuner_tpu_torch.core.config import GPT2Config
+from mobilefinetuner_tpu_torch.core.config import GPT2Config, Gemma3TextConfig
 from mobilefinetuner_tpu_torch.kernels import build
-from mobilefinetuner_tpu_torch.lora.lora import LoRASpec, init_lora_gpt2
-from mobilefinetuner_tpu_torch.models import generate, gpt2
+from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec, init_lora_gemma3,
+                                                 init_lora_gpt2)
+from mobilefinetuner_tpu_torch.models import gemma3, generate, gpt2
 from mobilefinetuner_tpu_torch.models.lora_apply import maybe_lora
 from mobilefinetuner_tpu_torch.ops import attention as attn
 from mobilefinetuner_tpu_torch.ops import decode_attention as da
 from mobilefinetuner_tpu_torch.ops import flash_attention as fa
+from mobilefinetuner_tpu_torch.ops import fused_ce as fc
+from mobilefinetuner_tpu_torch.ops import loss
 from mobilefinetuner_tpu_torch.ops import lora_fused as lf
 from mobilefinetuner_tpu_torch.serve import ServeConfig, ServeEngine
 
@@ -321,4 +324,116 @@ def test_train_step_kernel_path_matches_plain_path(dev):
         assert launched == (2 * cfg.n_layer if lora_impl == "auto" else 0)
     assert abs(float((out["auto"][0] - out["plain"][0]).detach())) <= 1e-4
     for a, b in zip(out["auto"][1], out["plain"][1]):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def _ce_case(dev, dtype, R, V, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(R, H, generator=g).to(dev, dtype)
+    w = (0.05 * torch.randn(V, H, generator=g)).to(dev, dtype)
+    lab = torch.randint(0, V, (R,), generator=g).to(dev)
+    dl, dg = (torch.randn(R, generator=g).to(dev) for _ in range(2))
+    return h, w, lab, dl, dg
+
+
+@pytest.mark.parametrize("dtype,R,V,H,tol,sm_tol", [
+    (torch.bfloat16, 64, 5000, 640, 2e-3, 2e-3),
+    (torch.float32, 37, 1001, 200, 1e-4, 1e-4),
+])
+def test_fused_ce_kernels_match_plain(dev, dtype, R, V, H, tol, sm_tol):
+    """Rows 6-8: lse and gold (max abs error), dh and dW (over
+    max(1, max |ref|)) against the plain versions; one launch each. The
+    label rows dominate dh and dW, so their softmax part is held alone
+    too: dgold = 0, max abs error over max |ref| (sm_tol)."""
+    h, w, lab, dl, dg = _ce_case(dev, dtype, R, V, H, seed=R + V)
+    n = [f.launches for f in (fc.fused_ce_fwd, fc.fused_ce_bwd_dh,
+                              fc.fused_ce_bwd_dw)]
+    lse, gold = fc.fused_ce_fwd(h, w, lab)
+    rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
+    dh = fc.fused_ce_bwd_dh(h, w, lab, rl, dl, dg)
+    dw = fc.fused_ce_bwd_dw(h, w, lab, rl, dl, dg)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fc.fused_ce_fwd, fc.fused_ce_bwd_dh,
+                                 fc.fused_ce_bwd_dw)] == [x + 1 for x in n]
+    assert float((lse - rl).abs().max()) <= tol
+    assert float((gold - rg).abs().max()) <= tol
+    assert _rel_err(dh, fc.fused_ce_dh_reference(h, w, lab, rl, dl,
+                                                 dg)) <= tol
+    assert _rel_err(dw, fc.fused_ce_dw_reference(h, w, lab, rl, dl,
+                                                 dg)) <= tol
+    z = torch.zeros_like(dg)
+    for kernel, plain in ((fc.fused_ce_bwd_dh, fc.fused_ce_dh_reference),
+                          (fc.fused_ce_bwd_dw, fc.fused_ce_dw_reference)):
+        ref = plain(h, w, lab, rl, dl, z)
+        err = (kernel(h, w, lab, rl, dl, z) - ref).abs().max()
+        assert float(err) <= sm_tol * float(ref.abs().max())
+
+
+def test_fused_ce_skips_dw_for_a_frozen_head_and_never_runs_plain(
+        dev, monkeypatch):
+    """A CUDA tensor goes to the kernels only: the plain versions and the
+    plain chunk body are made to raise; a frozen head launches fwd and dh
+    but no dW; a dtype the kernels do not take raises."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    for name in ("fused_ce_fwd_reference", "fused_ce_dh_reference",
+                 "fused_ce_dw_reference"):
+        monkeypatch.setattr(fc, name, boom)
+    monkeypatch.setattr(loss, "_plain_chunk", boom)
+    h, w, lab, _, _ = _ce_case(dev, torch.bfloat16, 2 * 31, 3000, 128, 1)
+    hid = h.reshape(2, 31, 128).requires_grad_(True)
+    labels = lab.reshape(2, 31)
+    n = [f.launches for f in (fc.fused_ce_fwd, fc.fused_ce_bwd_dh,
+                              fc.fused_ce_bwd_dw)]
+    s, c = loss.chunked_lm_cross_entropy_sum(hid, w, labels, num_chunks=3)
+    s.backward()
+    assert [f.launches for f in (fc.fused_ce_fwd, fc.fused_ce_bwd_dh,
+                                 fc.fused_ce_bwd_dw)] == \
+        [n[0] + 3, n[1] + 3, n[2]]
+    assert int(c) == 2 * 30 and bool(torch.isfinite(hid.grad).all())
+    wt = w.clone().requires_grad_(True)
+    s, _ = loss.chunked_lm_cross_entropy_sum(hid.detach(), wt, labels,
+                                             num_chunks=3)
+    s.backward()
+    assert fc.fused_ce_bwd_dw.launches == n[2] + 3
+    with pytest.raises(ValueError, match="dtype"):
+        fc.fused_ce_fwd(h.double(), w.double(), lab)
+
+
+def test_gemma_kernel_path_matches_plain_path(dev):
+    """A small Gemma-3 (head_dim 64, GQA 4:1, window 16 on 2 of 3 layers)
+    in f32 at S = 48: loss and LoRA grads through the flash, epilogue and
+    fused CE kernels against the plain path."""
+    cfg = Gemma3TextConfig(vocab_size=3000, hidden_size=128,
+                           intermediate_size=256, num_hidden_layers=3,
+                           num_attention_heads=4, num_key_value_heads=1,
+                           head_dim=64, sliding_window=16,
+                           sliding_window_pattern=3,
+                           query_pre_attn_scalar=64.0)
+    params = gemma3.init_params(cfg, seed=0, device=dev)
+    lora = init_lora_gemma3(cfg, LoRASpec(rank=4, alpha=8.0, init="peft"),
+                            seed=1, device=dev)
+    g = torch.Generator().manual_seed(2)
+    for e in lora["blocks"].values():
+        e["B"] = (0.05 * torch.randn(e["B"].shape, generator=g)).to(dev)
+    ids = torch.randint(0, 3000, (2, 48), generator=g).to(dev)
+    mask = torch.ones(2, 48, device=dev)
+    mask[1, 40:] = 0
+    labels = torch.where(mask > 0, ids, -100)
+    out = []
+    for attn_impl, lora_impl, loss_impl in (("auto", "auto", "auto"),
+                                            ("plain", "naive", "plain")):
+        leaves = [e[k].detach().clone().requires_grad_(True)
+                  for e in lora["blocks"].values() for k in ("A", "B")]
+        it = iter(leaves)
+        tree = {"blocks": {n: {"A": next(it), "B": next(it),
+                               "scale": e["scale"]}
+                           for n, e in lora["blocks"].items()}}
+        h = gemma3.hidden_states(cfg, params, ids, mask, tree,
+                                 attn_impl=attn_impl, lora_impl=lora_impl)
+        v = loss.chunked_lm_cross_entropy(h, params["embed"], labels,
+                                          num_chunks=4, impl=loss_impl)
+        out.append((float(v.detach()), torch.autograd.grad(v, leaves)))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    for a, b in zip(out[0][1], out[1][1]):
         assert float((a - b).abs().max()) <= 1e-4
