@@ -12,7 +12,8 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the main paths' shapes and at a few others, with the tolerance
      printed: the flash forward (with and without dropout), the merged
      and the split flash backward, the LoRA epilogue, the paged decode,
-     the fused CE forward, dh and dW (rows 6-8); then GPT-2 small through
+     the fused CE forward, dh and dW (rows 6-8) and their head-adapter
+     variants (rows 9-11, dW in both its modes); then GPT-2 small through
      the kernels against the plain path in f32: prefill and one paged
      decode step, and a LoRA train step (loss and LoRA grads); then
      Gemma-3-270M the same way in f32: hidden states and the chunked loss
@@ -43,9 +44,20 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      again, cli.gemma_full_finetune.main (6 steps): the LoRA loss and
      eval perplexity must fall, and every kernel of each path must have
      launched exactly as often as the path runs it (the fused CE dW only
-     on the full fine-tuning path);
+     on the full fine-tuning path); then, counts set to 0 again,
+     cli.train_lora_gemma.main with --lora_targets full,lm_head (the same
+     run plus a LoRA on the tied head, riding the chunked loss through
+     the head-adapter kernels: `gemma_lora_head`): the loss and eval
+     perplexity must fall, the head adapter's B must have left zero, and
+     the head-adapter kernels must have launched in place of the base
+     ones exactly as the formulas say; then cli.eval_ppl.main (`eval_ppl`,
+     counts set to 0 before each run): Gemma with the head adapter just
+     trained must reproduce the trainer's final eval perplexity (1e-3
+     relative) through the head-adapter forward kernel alone, and GPT-2
+     with the `train` adapter, dynamic and merged (f32), must agree;
   8. trace a decode step, a 128-token prefill, a GPT-2 train step and a
-     Gemma LoRA train step with torch.profiler: device busy time against
+     Gemma LoRA train step without and with the lm_head target with
+     torch.profiler: device busy time against
      host wall time, and the kernels that take the device time; for the
      phases that never wait on the card (prefill, train steps), the
      device time again from CUDA events around replays of a CUDA graph
@@ -59,8 +71,9 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      backward against the split pair at a few longer and wider shapes
      (`bwd_sweep`, the measurements behind resolve_bwd_impl).
 
-Prints `serve`, `train`, `gemma_train`, `gemma_full_ft`, `profile`,
-`bwd_sweep` and `kernels` JSON lines and, last, the device line
+Prints `serve`, `train`, `gemma_train`, `gemma_full_ft`,
+`gemma_lora_head`, `eval_ppl`, `profile`, `bwd_sweep` and `kernels` JSON
+lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result.
 """
@@ -585,6 +598,68 @@ def check_fused_ce(torch, fc, dev):
     return path
 
 
+def check_fused_ce_lora(torch, fc, dev):
+    """The head-adapter fused CE kernels (rows 9-11) against their plain
+    versions at the Gemma chunk shape (R 128, V 262,144, H 640, r 8),
+    at a ragged shape (R 120, V 50,257, H 1,000, r 4: none a multiple of
+    a tile) in bf16 and in f32. lse and gold: max abs error; dh, dxa, dW
+    and dbt (row 11 in its dW mode and its dbt-only mode): max abs error
+    over max(1, max |ref|) with random dgold, and over max |ref| with
+    dgold = 0 (the softmax part alone). Returns the path case's max abs
+    errors and inputs."""
+    cases = [  # (name, dtype, R, V, H, r, tol)
+        ("path", torch.bfloat16, 128, 262144, 640, 8, 2e-3),
+        ("ragged", torch.bfloat16, 120, 50257, 1000, 4, 2e-3),
+        ("ragged_f32", torch.float32, 120, 50257, 1000, 4, 1e-4),
+    ]
+    path = None
+    for name, dt, R, V, H, r, tol in cases:
+        h, w, lab, dl, dg = fused_ce_inputs(torch, dev, dt, R, V, H,
+                                            seed=R + H + r)
+        g = torch.Generator(device=dev).manual_seed(r)
+        xa = torch.randn(R, r, generator=g, device=dev).to(dt)
+        bt = (0.05 * torch.randn(V, r, generator=g, device=dev)).to(dt)
+        lse, gold = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+        rl, rg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
+        e = {"lse": max_err(lse, rl), "gold": max_err(gold, rg)}
+        errs = {}
+        for key, dgold, err_fn in (("rel", dg, rel_err),
+                                   ("sm", torch.zeros_like(dg), scaled_err)):
+            args = (h, w, xa, bt, lab, rl, dl, dgold)
+            got = dict(zip(("dh", "dxa"), fc.fused_ce_bwd_dh_lora(*args)))
+            ref = dict(zip(("dh", "dxa"),
+                           fc.fused_ce_dh_lora_reference(*args)))
+            got.update(zip(("dw", "dbt"), fc.fused_ce_bwd_dw_lora(*args)))
+            ref.update(zip(("dw", "dbt"),
+                           fc.fused_ce_dw_lora_reference(*args)))
+            no_dw, got["dbt_only"] = fc.fused_ce_bwd_dw_lora(*args,
+                                                             want_dw=False)
+            check(no_dw is None, "row 11 wrote dW in its dbt-only mode")
+            ref["dbt_only"] = ref["dbt"]
+            torch.cuda.synchronize()
+            for t in (lse, gold, *got.values()):
+                check(bool(torch.isfinite(t).all()), f"fused CE lora {name} "
+                      f"non-finite")
+            errs[key] = {k: err_fn(got[k], ref[k]) for k in got}
+            if key == "rel":
+                e.update({k: max_err(got[k], ref[k]) for k in got})
+            del got, ref
+        print(f"fused CE lora {name}: {dt} R={R} V={V} H={H} r={r}: max abs "
+              f"err lse {e['lse']:.3e}, gold {e['gold']:.3e}; over "
+              f"max(1, |ref|) " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs["rel"].items())
+              + "; softmax part (dgold = 0) over max |ref| " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs["sm"].items())
+              + f" (tolerance {tol:g})")
+        check(max(e["lse"], e["gold"], *errs["rel"].values()) <= tol,
+              f"fused CE lora {name} disagrees with its plain versions")
+        check(max(errs["sm"].values()) <= tol, f"fused CE lora {name}: the "
+              f"softmax part disagrees with its plain versions")
+        if name == "path":
+            path = (e, (h, w, xa, bt, lab, rl, dl, dg))
+    return path
+
+
 def check_gemma(torch, dev):
     """Gemma-3-270M in f32, kernel path (flash, epilogue, fused CE)
     against the plain path (plain attention, naive LoRA, plain chunked
@@ -866,7 +941,9 @@ def train(torch, dev, work, kernels):
             "bwd_dq": LAYERS * micro if impl == "split" else 0,
             "bwd_dkv": LAYERS * micro if impl == "split" else 0,
             "lora_epilogue": 2 * LAYERS * fwd_passes, "paged": 0,
-            "fused_ce_fwd": 0, "fused_ce_dh": 0, "fused_ce_dw": 0}
+            "fused_ce_fwd": 0, "fused_ce_dh": 0, "fused_ce_dw": 0,
+            "fused_ce_fwd_lora": 0, "fused_ce_dh_lora": 0,
+            "fused_ce_dw_lora": 0}
     check(launches == want, f"train launches {launches}, expected {want} "
           f"(auto backward: {impl})")
 
@@ -891,8 +968,8 @@ def train(torch, dev, work, kernels):
              "first_loss": losses[0], "last_loss": losses[-1],
              "first5_mean_loss": first5, "last5_mean_loss": last5,
              "eval_ppl_before": base["ppl"], "eval_ppl_after": final["ppl"],
-             "eval_tokens": final["tokens"], "bwd_impl": impl,
-             "wall_s": wall, "setup_s": setup_s}
+             "eval_tokens": final["tokens"], "eval_batches": eval_nb,
+             "bwd_impl": impl, "wall_s": wall, "setup_s": setup_s}
     return stats, launches, adapter, (config, params, tok, spec)
 
 
@@ -1051,7 +1128,7 @@ def gemma_train(torch, dev, work, kernels):
     stats, evals = run_stats(out, G["steps"], base, check_learns=True)
     M, E = G["steps"], len(evals) * eval_nb
     impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
-    want = gemma_launches(M, E, impl, lora=True)
+    want = gemma_launches(M, E, impl, "lora")
     check(launches == want, f"gemma_train launches {launches}, expected "
           f"{want} (M={M} micro-batches, E={E} eval batches)")
     adapter = os.path.join(out, "gemma_lora.safetensors")
@@ -1072,20 +1149,27 @@ def gemma_train(torch, dev, work, kernels):
                              eval_nb)
 
 
-def gemma_launches(M: int, E: int, impl: str, lora: bool) -> dict:
+def gemma_launches(M: int, E: int, impl: str, mode: str) -> dict:
     """Kernel launches of M train micro-batches and E eval batches of the
     Gemma paths: per forward 18 flash forwards, 8 fused CE forwards and
     (LoRA) 126 epilogues; per backward 18 flash backwards and 8 dh; dW
-    only when the head trains (full fine-tuning)."""
-    fwd = M + E
+    only when the head trains (mode "full", full fine-tuning). Mode
+    "head" (targets full + lm_head) runs the head-adapter kernels in place
+    of the base ones: 8 forwards, 8 dh and 8 dbt-only dW launches."""
+    fwd, C = M + E, GEMMA["chunks"]
+    head = mode == "head"
     return {"flash_fwd": GEMMA_LAYERS * fwd,
             "bwd_merged": GEMMA_LAYERS * M if impl == "merged" else 0,
             "bwd_dq": GEMMA_LAYERS * M if impl == "split" else 0,
             "bwd_dkv": GEMMA_LAYERS * M if impl == "split" else 0,
-            "lora_epilogue": GEMMA_LAYERS * GEMMA_SITES * fwd if lora else 0,
-            "paged": 0, "fused_ce_fwd": GEMMA["chunks"] * fwd,
-            "fused_ce_dh": GEMMA["chunks"] * M,
-            "fused_ce_dw": 0 if lora else GEMMA["chunks"] * M}
+            "lora_epilogue": (0 if mode == "full"
+                              else GEMMA_LAYERS * GEMMA_SITES * fwd),
+            "paged": 0, "fused_ce_fwd": 0 if head else C * fwd,
+            "fused_ce_dh": 0 if head else C * M,
+            "fused_ce_dw": C * M if mode == "full" else 0,
+            "fused_ce_fwd_lora": C * fwd if head else 0,
+            "fused_ce_dh_lora": C * M if head else 0,
+            "fused_ce_dw_lora": C * M if head else 0}
 
 
 def run_stats(out, steps, base, check_learns):
@@ -1153,7 +1237,7 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
     stats, evals = run_stats(out, G["full_steps"], base, check_learns=False)
     M, E = G["full_steps"], len(evals) * eval_nb
     impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
-    want = gemma_launches(M, E, impl, lora=False)
+    want = gemma_launches(M, E, impl, "full")
     check(launches == want, f"gemma_full_ft launches {launches}, expected "
           f"{want} (M={M} micro-batches, E={E} eval batches)")
     reader = SafeTensorsReader(model)
@@ -1166,9 +1250,149 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
     return stats, launches
 
 
-def profile_gemma_train(torch, dev, gemma):
+def gemma_lora_head(torch, dev, work, kernels, gemma):
+    """The head-adapter path: cli.train_lora_gemma with
+    --lora_targets full,lm_head on the same directory and corpus, launch
+    counts set to 0 just before it: the LoRA on the tied head rides the
+    chunked loss through rows 9-11."""
+    from mobilefinetuner_tpu_torch.cli import train_lora_gemma as cli
+    from mobilefinetuner_tpu_torch.lora import peft_io
+    from mobilefinetuner_tpu_torch.lora.lora import GEMMA_PRESETS
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    config, _, _, base, gdir, ddir, eval_nb = gemma
+    G = GEMMA
+    out = os.path.join(work, "gemma_head_out")
+    argv = ["--model_dir", gdir, "--data_dir", ddir,
+            "--max_steps", str(G["steps"]), "--batch", str(G["batch"]),
+            "--seq_len", str(G["seq"]), "--dtype", "bfloat16",
+            "--rank", str(G["rank"]), "--alpha", str(G["alpha"]),
+            "--lora_targets", "full,lm_head",
+            "--loss_chunks", str(G["chunks"]),
+            "--lr", str(G["lr"]), "--eval_interval", str(G["steps"]),
+            "--eval_batch_size", str(G["eval_batch"]),
+            "--eval_batches", str(G["eval_batches"]),
+            "--output_dir", out,
+            "--metrics_csv", os.path.join(out, "metrics.csv"),
+            "--eval_out", os.path.join(out, "eval.jsonl")]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    check(rc == 0, f"train_lora_gemma.main (lm_head) returned {rc}")
+    stats, evals = run_stats(out, G["steps"], base, check_learns=True)
+    M, E = G["steps"], len(evals) * eval_nb
+    impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
+    want = gemma_launches(M, E, impl, "head")
+    check(launches == want, f"gemma_lora_head launches {launches}, "
+          f"expected {want} (M={M} micro-batches, E={E} eval batches)")
+    adapter = os.path.join(out, "gemma_lora.safetensors")
+    lora, spec = peft_io.load_adapter(adapter, device=dev)
+    head = lora["blocks"]["lm_head"]
+    check(sorted(spec.targets) == sorted(GEMMA_PRESETS["full"]
+                                         + ["lm_head"])
+          and tuple(head["B"].shape) == (G["rank"], config.vocab_size)
+          and bool(torch.isfinite(head["B"]).all())
+          and float(head["B"].abs().max()) > 0,
+          "the head adapter's B is still zero or did not reload")
+    stats.update({"model": "gemma3-270m", "mode": "lora", "dtype":
+                  "bfloat16", "lora_rank": G["rank"],
+                  "lora_alpha": G["alpha"], "targets": "full,lm_head",
+                  "head_B_max_abs": float(head["B"].abs().max()),
+                  "micro_batches": M, "eval_batches": E, "bwd_impl": impl,
+                  "wall_s": wall})
+    return stats, launches, adapter, evals[-1]
+
+
+def run_eval_ppl(argv):
+    """cli.eval_ppl.main(argv) -> its final record (its last stdout
+    line)."""
+    import contextlib
+    import io
+
+    from mobilefinetuner_tpu_torch.cli import eval_ppl
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_ppl.main(argv)
+    check(rc == 0, f"eval_ppl.main returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def eval_ppl_phase(torch, kernels, gemma, head, gpt2):
+    """cli.eval_ppl on both families, launch counts set to 0 just before
+    each run: Gemma with the head adapter just trained (dynamic), on the
+    batches of the trainer's final eval, whose perplexity it must
+    reproduce; GPT-2 with the `train` phase's adapter, dynamic and merged
+    (f32), which must agree."""
+    _, _, _, _, gdir, ddir, eval_nb = gemma
+    head_adapter, head_final = head
+    gpt2_dir, wiki_dir, gpt2_adapter, gpt2_nb = gpt2
+    G, T = GEMMA, TRAIN
+    runs, launches = {}, {}
+    argvs = {
+        "gemma_head": ["--pretrained_dir", gdir, "--data_root", ddir,
+                       "--lora_path", head_adapter, "--batch_size",
+                       str(G["eval_batch"]), "--seq_len", str(G["seq"]),
+                       "--max_batches", str(eval_nb), "--dtype", "bfloat16",
+                       "--loss_chunks", str(G["chunks"])],
+        "gpt2_dynamic": ["--pretrained_dir", gpt2_dir, "--data_root",
+                         wiki_dir, "--lora_path", gpt2_adapter,
+                         "--batch_size", str(T["eval_batch"]), "--seq_len",
+                         str(T["seq"]), "--max_batches", str(gpt2_nb),
+                         "--dtype", "float32"]}
+    argvs["gpt2_merged"] = argvs["gpt2_dynamic"] + ["--lora_merge"]
+    wall = {}
+    for name, argv in argvs.items():
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = run_eval_ppl(argv + ["--log_every", "0"])
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in kernels.items()}
+    g = runs["gemma_head"]
+    n_b = eval_nb
+    want = {k: 0 for k in kernels}
+    want.update({"flash_fwd": GEMMA_LAYERS * n_b,
+                 "lora_epilogue": GEMMA_LAYERS * GEMMA_SITES * n_b,
+                 "fused_ce_fwd_lora": G["chunks"] * n_b})
+    check(launches["gemma_head"] == want, f"eval_ppl gemma launches "
+          f"{launches['gemma_head']}, expected {want}")
+    rel = abs(g["ppl"] - head_final["ppl"]) / head_final["ppl"]
+    check(g["tokens"] == head_final["tokens"] and rel <= 1e-3,
+          f"eval_ppl gemma ppl {g['ppl']} over {g['tokens']} tokens vs the "
+          f"trainer's final eval {head_final['ppl']} over "
+          f"{head_final['tokens']} (relative {rel:.2e}, tolerance 1e-3)")
+    d, m = runs["gpt2_dynamic"], runs["gpt2_merged"]
+    rel_g = abs(d["ppl"] - m["ppl"]) / m["ppl"]
+    check(d["tokens"] == m["tokens"] and rel_g <= 1e-3,
+          f"eval_ppl gpt2 dynamic ppl {d['ppl']} vs merged {m['ppl']} "
+          f"(relative {rel_g:.2e}, tolerance 1e-3)")
+    for name, n_epi in (("gpt2_dynamic", 2 * LAYERS), ("gpt2_merged", 0)):
+        want = {k: 0 for k in kernels}
+        want.update({"flash_fwd": LAYERS * gpt2_nb,
+                     "lora_epilogue": n_epi * gpt2_nb})
+        check(launches[name] == want, f"eval_ppl {name} launches "
+              f"{launches[name]}, expected {want}")
+    stats = {name: dict(runs[name], wall_s=wall[name]) for name in runs}
+    stats["gemma_head"]["trainer_final_eval_ppl"] = head_final["ppl"]
+    stats["gemma_head"]["relative_diff"] = rel
+    stats["gpt2_dynamic_vs_merged_relative_diff"] = rel_g
+    total = {k: sum(v[k] for v in launches.values()) for k in kernels}
+    return stats, total, launches
+
+
+def profile_gemma_train(torch, dev, gemma, head: bool = False):
     """Where one Gemma-3-270M LoRA train step (batch 4 x 256, bf16,
-    targets full, 8 loss chunks) spends its time."""
+    targets full, 8 loss chunks; with `head`, the lm_head target too)
+    spends its time."""
+    import dataclasses
+
     import numpy as np
 
     from mobilefinetuner_tpu_torch.cli.common import place_batch
@@ -1182,6 +1406,8 @@ def profile_gemma_train(torch, dev, gemma):
                                                          make_train_step)
     config, params, spec = gemma[:3]
     G = GEMMA
+    if head:
+        spec = dataclasses.replace(spec, targets=spec.targets + ["lm_head"])
     lora = init_lora_gemma3(config, spec, seed=42, device=dev)
     mask = trainable_mask(lora)
     tc = TrainConfig(total_steps=G["steps"], lr=G["lr"])
@@ -1191,9 +1417,9 @@ def profile_gemma_train(torch, dev, gemma):
                                       attention_mask=mb["attention_mask"],
                                       lora=lora_t,
                                       compute_dtype=torch.bfloat16)
-        return chunked_lm_cross_entropy_sum(hidden, frozen["embed"],
-                                            mb["labels"],
-                                            num_chunks=G["chunks"])
+        return chunked_lm_cross_entropy_sum(
+            hidden, frozen["embed"], mb["labels"], num_chunks=G["chunks"],
+            lora_head=lora_t["blocks"].get("lm_head"))
 
     step_fn = make_train_step(loss_fn, tc, mask)
     opt = init_optimizer(lora, tc, mask)
@@ -1203,7 +1429,8 @@ def profile_gemma_train(torch, dev, gemma):
     batch = place_batch({"input_ids": ids, "labels": ids,
                          "attention_mask": np.ones((G["batch"], G["seq"]),
                                                    np.float32)}, dev)
-    return profile_phases({"gemma_lora_train_step": (
+    name = "gemma_lora_head_train_step" if head else "gemma_lora_train_step"
+    return profile_phases({name: (
         lambda: step_fn(lora, params, opt, batch, 0), 5, True)})
 
 
@@ -1357,6 +1584,65 @@ def fused_ce_times(torch, fc, args):
     return times, bounds
 
 
+def fused_ce_lora_times(torch, fc, args):
+    """Times and bounds of the head-adapter kernels (rows 9-11) at the
+    Gemma chunk shape, row 11 in its dbt-only mode (the main path's: the
+    tied embedding is frozen) and in its dW mode. The library yardstick is
+    the unfused PyTorch chain: h @ W^T + xa @ bt^T, logsumexp and a
+    gather (row 9), and autograd of that for (h, xa) (row 10), for bt
+    with W frozen (row 11) or for (W, bt) (row 11, dW mode), the
+    `autograd.grad` call only."""
+    h, w, xa, bt, lab, lse, dl, dg = args
+    R, H = h.shape
+    V, r = bt.shape
+    leaves = [t.detach().clone().requires_grad_(True) for t in (h, w, xa,
+                                                                 bt)]
+
+    def lib_fwd(hh, ww, aa, bb):
+        logits = (hh @ ww.T).float() + (aa @ bb.T).float()
+        return torch.logsumexp(logits, -1), logits.gather(1, lab[:, None])
+
+    lse_l, gold_l = lib_fwd(*leaves)
+    obj = (lse_l * dl).sum() + (gold_l[:, 0] * dg).sum()
+    bwd = (h, w, xa, bt, lab, lse, dl, dg)
+    lh, lw, lxa, lbt = leaves
+    times = {
+        "fused_ce_fwd_lora": timed({
+            "ms": lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab),
+            "plain_ms": lambda: fc.fused_ce_fwd_lora_reference(h, w, xa, bt,
+                                                               lab),
+            "library_ms": lambda: lib_fwd(h, w, xa, bt)}, 20),
+        "fused_ce_dh_lora": timed({
+            "ms": lambda: fc.fused_ce_bwd_dh_lora(*bwd),
+            "plain_ms": lambda: fc.fused_ce_dh_lora_reference(*bwd),
+            "library_ms": lambda: torch.autograd.grad(
+                obj, [lh, lxa], retain_graph=True)}, 20),
+        "fused_ce_dw_lora": timed({
+            "ms": lambda: fc.fused_ce_bwd_dw_lora(*bwd, want_dw=False),
+            "plain_ms": lambda: fc.fused_ce_dw_lora_reference(
+                *bwd, want_dw=False),
+            "library_ms": lambda: torch.autograd.grad(
+                obj, [lbt], retain_graph=True)}, 20),
+        "fused_ce_dw_lora_dw_mode": timed({
+            "ms": lambda: fc.fused_ce_bwd_dw_lora(*bwd),
+            "plain_ms": lambda: fc.fused_ce_dw_lora_reference(*bwd),
+            "library_ms": lambda: torch.autograd.grad(
+                obj, [lw, lbt], retain_graph=True)}, 20)}
+    isz = h.element_size()
+    ins = (R * H + V * H + R * r + V * r) * isz + R * lab.element_size()
+    rows = 3 * R * 4                       # lse, dlse, dgold
+    logit_ops = 2 * R * V * (H + r)
+    bounds = {
+        "fused_ce_fwd_lora": bound(ins + 2 * R * 4, logit_ops),
+        "fused_ce_dh_lora": bound(ins + rows + R * (H + r) * 4,
+                                  2 * logit_ops),
+        "fused_ce_dw_lora": bound(ins + rows + V * r * 4,
+                                  logit_ops + 2 * R * V * r),
+        "fused_ce_dw_lora_dw_mode": bound(ins + rows + V * (H + r) * 4,
+                                          2 * logit_ops)}
+    return times, bounds
+
+
 # --------------------------------------------------------------- main ------
 
 def main() -> int:
@@ -1379,7 +1665,10 @@ def main() -> int:
                "paged": da.paged_decode_attention,
                "fused_ce_fwd": fc.fused_ce_fwd,
                "fused_ce_dh": fc.fused_ce_bwd_dh,
-               "fused_ce_dw": fc.fused_ce_bwd_dw}
+               "fused_ce_dw": fc.fused_ce_bwd_dw,
+               "fused_ce_fwd_lora": fc.fused_ce_fwd_lora,
+               "fused_ce_dh_lora": fc.fused_ce_bwd_dh_lora,
+               "fused_ce_dw_lora": fc.fused_ce_bwd_dw_lora}
 
     # 1. the card
     card = card_line()
@@ -1404,6 +1693,7 @@ def main() -> int:
     epi = check_epilogue(torch, lf, dev)
     paged_err, paged_args = check_paged(torch, da, dev)
     ce_err, ce_args = check_fused_ce(torch, fc, dev)
+    ce_lora_err, ce_lora_args = check_fused_ce_lora(torch, fc, dev)
     params32 = check_model(torch, dev)
     check_train_step(torch, dev, params32)
     del params32
@@ -1417,8 +1707,8 @@ def main() -> int:
     del eng
 
     # 5. the training path, counts set to 0 just before it; 6. serve with
-    # the trained adapter; 7. the Gemma paths, counts set to 0 just before
-    # each; 8. profile a GPT-2 and a Gemma train step
+    # the trained adapter; 7. the Gemma paths and eval_ppl, counts set to
+    # 0 just before each; 8. profile a GPT-2 and two Gemma train steps
     with tempfile.TemporaryDirectory() as work:
         train_stats, launches_train, adapter, model = train(
             torch, dev, work, kernels)
@@ -1436,7 +1726,18 @@ def main() -> int:
         print(json.dumps({"gemma_full_ft": full_stats,
                           "launches": launches_full}))
         torch.cuda.empty_cache()
+        head_stats, launches_head, head_adapter, head_final = \
+            gemma_lora_head(torch, dev, work, kernels, gemma)
+        print(json.dumps({"gemma_lora_head": head_stats,
+                          "launches": launches_head}))
+        eval_stats, launches_eval, eval_runs = eval_ppl_phase(
+            torch, kernels, gemma, (head_adapter, head_final),
+            (os.path.join(work, "gpt2"), os.path.join(work, "wiki"),
+             adapter, train_stats["eval_batches"]))
+        print(json.dumps({"eval_ppl": eval_stats, "launches": eval_runs}))
+        torch.cuda.empty_cache()
         prof.update(profile_gemma_train(torch, dev, gemma))
+        prof.update(profile_gemma_train(torch, dev, gemma, head=True))
         del gemma
     print(json.dumps({"profile": prof}))
 
@@ -1511,7 +1812,9 @@ def main() -> int:
         return {"serve": launches_serve.get(serve_names.get(name), 0),
                 "train": launches_train[name],
                 "gemma_train": launches_gemma[name],
-                "gemma_full_ft": launches_full[name]}
+                "gemma_full_ft": launches_full[name],
+                "gemma_lora_head": launches_head[name],
+                "eval_ppl": launches_eval[name]}
 
     def total(name):
         return sum(by_path(name).values())
@@ -1570,6 +1873,28 @@ def main() -> int:
             name, "fused_ce.cu", line, total(key), err, ce_times[key],
             ce_bounds[key], {"launches_by_path": by_path(key),
                              "shape": ce_shape}))
+    ce_lora_times, ce_lora_bounds = fused_ce_lora_times(torch, fc,
+                                                        ce_lora_args)
+    lora_shape = "R 128, V 262144, H 640, r 8, bf16 (gemma chunk)"
+    for name, key, line, err in (
+            ("fused_ce_fwd_lora", "fused_ce_fwd_lora", "fused_ce.py:350",
+             max(ce_lora_err["lse"], ce_lora_err["gold"])),
+            ("fused_ce_bwd_dh_lora", "fused_ce_dh_lora", "fused_ce.py:384",
+             max(ce_lora_err["dh"], ce_lora_err["dxa"])),
+            ("fused_ce_bwd_dw_lora", "fused_ce_dw_lora", "fused_ce.py:421",
+             ce_lora_err["dbt_only"])):
+        extra = {"launches_by_path": by_path(key), "shape": lora_shape}
+        if key == "fused_ce_dw_lora":
+            extra["shape"] += ", dbt only (frozen head)"
+            extra["dw_mode"] = kernel_entry(
+                name, "fused_ce.cu", line, None,
+                max(ce_lora_err["dw"], ce_lora_err["dbt"]),
+                ce_lora_times["fused_ce_dw_lora_dw_mode"],
+                ce_lora_bounds["fused_ce_dw_lora_dw_mode"],
+                {"shape": lora_shape + ", dW and dbt"})
+        kernels_line.append(kernel_entry(
+            name, "fused_ce.cu", line, total(key), err, ce_lora_times[key],
+            ce_lora_bounds[key], extra))
     print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -13,11 +13,14 @@ so the [B, S, V] logits never exist. On the card (the default device) a
 step runs the flash-attention forward and merged backward kernels in
 every layer (D = 256, GQA, the 512-token window on local layers), the
 LoRA epilogue kernel at every adapter site, and the fused CE forward and
-dh kernels in every loss chunk (the head is frozen, so no dW).
+dh kernels in every loss chunk (the head is frozen, so no dW). The opt-in
+`lm_head` target (`--lora_targets full,lm_head`, or a list) rides the
+chunked loss as its `lora_head`: the head-adapter kernels (forward, dh
+with dxa, dbt) in every chunk in place of the base ones, with
+`--lora_dropout` on its branch input as at every layer site.
 `--device cpu --dtype float32` runs the same loop on the host through the
-kernels' plain versions. The lm_head target raises NotImplementedError
-(its kernels are ROADMAP.md rows 9-11), as do flags of features the port
-does not have yet (cli/common.py).
+kernels' plain versions. Flags of features the port does not have yet
+raise NotImplementedError (cli/common.py).
 """
 
 from __future__ import annotations
@@ -62,8 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="target preset")
     p.add_argument("--lora_targets", default="",
                    help="comma list overriding --targets (q_proj,k_proj,"
-                        "v_proj,o_proj,gate_proj,up_proj,down_proj; lm_head "
-                        "is not ported yet)")
+                        "v_proj,o_proj,gate_proj,up_proj,down_proj,lm_head; "
+                        "a preset name expands in place, e.g. full,lm_head)")
     p.add_argument("--pretokenized_path", default="",
                    help="pretokenized .bin (not ported yet)")
     p.add_argument("--pretokenized_meta", default="",
@@ -104,8 +107,11 @@ def main(argv=None) -> int:
         lora, spec = peft_io.load_adapter(args.resume_from, device=device)
         log.info(f"resumed adapter: r={spec.rank} targets={spec.targets}")
     else:
-        targets = ([t for t in args.lora_targets.split(",") if t]
-                   or GEMMA_PRESETS[args.targets])
+        # a preset name within --lora_targets expands in place
+        # ("full,lm_head"); the JAX CLI takes target names only
+        targets = [x for t in args.lora_targets.split(",") if t
+                   for x in GEMMA_PRESETS.get(t, [t])] \
+            or GEMMA_PRESETS[args.targets]
         spec = LoRASpec(rank=args.rank, alpha=args.alpha,
                         dropout=args.lora_dropout, targets=targets,
                         init="peft")
@@ -134,10 +140,15 @@ def main(argv=None) -> int:
             lora_dropout=args.lora_dropout if train else 0.0,
             dropout_seed=seed, attn_impl=attn_impl,
             lora_impl=args.lora_impl)
+        # the tied head; an "lm_head" adapter rides the chunked loss as
+        # lora_head, its branch input dropped like every layer site's
         return chunked_lm_cross_entropy_sum(
             hidden, frozen["embed"], mb["labels"],
             num_chunks=args.loss_chunks,
-            lora_head=lora_t["blocks"].get("lm_head"))
+            lora_head=lora_t["blocks"].get("lm_head"),
+            lora_impl=args.lora_impl,
+            lora_dropout=args.lora_dropout if train else 0.0,
+            dropout_seed=seed)
 
     def save_hook(step, lora_t, opt_st, final):
         os.makedirs(args.output_dir, exist_ok=True)

@@ -8,12 +8,14 @@ from `torch.cuda.mem_get_info()` on a CUDA device; a CPU device without an
 override has no capacity to compare against, so its verdict is
 "unknown" and admission never refuses on a guess. The compiled-program
 `preflight` and the training degradation ladder come with the training
-slice.
+slice. `host_rss_mb` is the host-side signal of data/prefetch.py's shed
+guard.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -72,3 +74,15 @@ def analytic_check(est_mb: float, cap_mb: float = 0, headroom: float = 0.1,
     return MemCheck(est_mb=float(est_mb), cap_mb=cap,
                     verdict=_verdict(est_mb, cap, headroom),
                     headroom=headroom, cap_source=source)
+
+
+def host_rss_mb() -> Optional[float]:
+    """This process's resident set size in MB (Linux /proc/self/statm;
+    None where unavailable): the pressure signal the prefetch producer's
+    shed guard reads before the OS OOM-killer picks a victim."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 20
+    except (OSError, ValueError, IndexError):
+        return None

@@ -200,14 +200,19 @@ def forward(config: Gemma3TextConfig, params, input_ids,
             remat: bool = False, lora_dropout: float = 0.0,
             dropout_seed: Optional[int] = None, attn_impl: str = "auto",
             lora_impl: str = "auto"):
-    """Logits [B, S, V] through the tied lm_head. Materializes [B, S, V]:
-    training goes through ops/loss.chunked_lm_cross_entropy_sum instead.
-    An "lm_head" adapter entry raises: that target waits for the fused CE
-    head-adapter kernels (ROADMAP.md section 2)."""
-    if lora is not None and "lm_head" in lora.get("blocks", {}):
-        raise NotImplementedError("the lm_head LoRA target on Gemma-3 is "
-                                  "not ported yet (ROADMAP.md section 2)")
+    """Logits [B, S, V] through the tied lm_head, plus an "lm_head"
+    adapter entry's delta (its branch dropout seeded fold_in(seed, 2000),
+    the LoRA epilogue kernel on the card at d_out = V). Materializes
+    [B, S, V]: training goes through ops/loss.chunked_lm_cross_entropy_sum
+    (with lora_head=) instead."""
     x = hidden_states(config, params, input_ids, attention_mask, lora,
                       compute_dtype, remat, lora_dropout, dropout_seed,
                       attn_impl, lora_impl)
-    return x @ params["embed"].to(compute_dtype).T
+    logits = x @ params["embed"].to(compute_dtype).T
+    lora_b = None if lora is None else lora.get("blocks")
+    if lora_b is not None and "lm_head" in lora_b:
+        logits = maybe_lora(
+            logits, x, lora_b["lm_head"], None, lora_dropout,
+            None if dropout_seed is None else fold_in(dropout_seed, 2000),
+            lora_impl)
+    return logits

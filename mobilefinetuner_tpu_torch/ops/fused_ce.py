@@ -1,6 +1,5 @@
 """Fused cross-entropy head: the Hopper kernels, their wrappers and their
-plain versions (port of mobilefinetuner_tpu/ops/fused_ce.py, the base
-kernels; the head-adapter variants are ROADMAP.md rows 9-11).
+plain versions (port of mobilefinetuner_tpu/ops/fused_ce.py).
 
 The chunked loss (ops/loss.py) projects each sequence chunk's hidden
 states onto the [V, H] head. At Gemma's 262,144-entry vocabulary a
@@ -18,19 +17,37 @@ memory:
                     torch.autograd.Function that saves (h, W, labels,
                     lse) only and launches the dW kernel only when W needs
                     a gradient (a frozen head, as in LoRA, runs fwd + dh).
-  fused_ce_nll_sum  (sum_nll, valid_count) of one already-shifted chunk.
-  head_bottleneck   (xa, bt) of a head adapter, for the variants to come.
+  fused_ce_nll_sum  (sum_nll, valid_count) of one already-shifted chunk,
+                    with an optional head adapter.
+  head_bottleneck   (xa, bt) of a head-adapter entry {A, B, scale}.
+
+A LoRA adapter on the tied head adds xa @ bt^T to the logits, xa =
+scale * (h @ A) [R, r] and bt = B^T [V, r]; its variants fold that delta
+into the same tile loop, so the [R, V] delta never exists either:
+
+  fused_ce_fwd_lora     (lse, gold) (`_fwd_kernel_lora`, row 9).
+  fused_ce_bwd_dh_lora  (dh, dxa [R, r] = coef @ bt) (`_dh_kernel_lora`,
+                        row 10).
+  fused_ce_bwd_dw_lora  (dW or None, dbt [V, r] = coef^T @ xa)
+                        (`_dw_kernel_lora`, row 11); dW only when asked
+                        for (the tied embedding is frozen in LoRA).
+  fused_ce_rows_lora    (lse, gold), differentiable in h, W, xa and bt
+                        (FusedCERowsLora); the A / B / scale chain
+                        around it is plain autograd, as in the JAX
+                        package.
 
 Each wrapper has a `launches` count of its calls that launch the kernel
-(the forward's merge pass and the dh reduce pass are part of their
+(the forward's merge pass and the dh reduce passes are part of their
 kernel's launch). CUDA tensors launch the kernel or raise; CPU tensors
 take the plain versions (`*_reference`), which compute the same function
 tile by tile over the vocabulary in f32 with the same coef rounding, and
 run on any device as the kernels' references on the card.
 
-Bounds and design: csrc/fused_ce.cu. The kernels take any R, V and H up
-to MAX_HIDDEN (the dh and dW kernels hold a [32, H] f32 accumulator in
-shared memory), h and W in one of f32 / bf16 / f16.
+Bounds and design: csrc/fused_ce.cu. The kernels take any R, V and H,
+h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
+hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
+MAX_HIDDEN; the rank is 1..MAX_RANK, taken as it is (the TPU's padding
+of r to 128 lanes is a layout trick of that chip).
 """
 
 from __future__ import annotations
@@ -47,9 +64,11 @@ BLOCK_V = 4096          # the plain versions' vocab tile
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROW_TILE = 32           # csrc/fused_ce.cu FWD_TM: rows of a forward / dh CTA
 VOCAB_TILE = 64         # FWD_TN: vocab columns of a forward / dh tile
-# shared memory of the dh / dW kernels: 9,408 staging floats + a [32, H]
-# f32 accumulator, within the card's 232,448 bytes a block
+# shared memory of the dh / dW kernels: 9,408 staging floats + [32, H]
+# (+ [32, r] with a head adapter) f32 accumulators, within the card's
+# 232,448 bytes a block: H + r <= MAX_HIDDEN
 MAX_HIDDEN = (232448 // 4 - 9408) // 32
+MAX_RANK = 128          # csrc/fused_ce.cu MAX_RANK, the JAX LORA_R_PAD
 
 
 # ------------------------------------------------------ plain versions ------
@@ -67,9 +86,20 @@ def _tiles(V: int, block_v: int):
         yield v0, min(V, v0 + block_v)
 
 
-def fused_ce_fwd_reference(h, w, labels, block_v: int = BLOCK_V
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(lse, gold) [R] f32 by an online logsumexp over vocab tiles."""
+def _tile_logits(hf, w, xa, bt, v0: int, v1: int):
+    """f32 logits of the vocab tile [v0, v1): h @ W^T, plus xa @ bt^T with
+    a head adapter."""
+    logits = hf @ w[v0:v1].float().T
+    if xa is not None:
+        logits = logits + xa.float() @ bt[v0:v1].float().T
+    return logits
+
+
+def fused_ce_fwd_lora_reference(h, w, xa, bt, labels,
+                                block_v: int = BLOCK_V
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 9's plain version: (lse, gold) [R] f32 of h @ W^T + xa @ bt^T
+    by an online logsumexp over vocab tiles (xa = bt = None: row 6)."""
     hf = h.float()
     R = h.shape[0]
     lab = labels.long()
@@ -77,7 +107,7 @@ def fused_ce_fwd_reference(h, w, labels, block_v: int = BLOCK_V
     s = torch.zeros(R, device=h.device)
     gold = torch.zeros(R, device=h.device)
     for v0, v1 in _tiles(w.shape[0], block_v):
-        logits = hf @ w[v0:v1].float().T
+        logits = _tile_logits(hf, w, xa, bt, v0, v1)
         cols = torch.arange(v0, v1, device=h.device)
         m_new = torch.maximum(m, logits.amax(-1))
         s = s * torch.exp(m - m_new) \
@@ -88,32 +118,66 @@ def fused_ce_fwd_reference(h, w, labels, block_v: int = BLOCK_V
     return m + torch.log(s), gold
 
 
-def fused_ce_dh_reference(h, w, labels, lse, dlse, dgold,
-                          block_v: int = BLOCK_V) -> torch.Tensor:
-    """dh [R, H] f32 = sum over vocab tiles of coef @ W_tile."""
+def fused_ce_dh_lora_reference(h, w, xa, bt, labels, lse, dlse, dgold,
+                               block_v: int = BLOCK_V):
+    """Row 10's plain version: (dh [R, H], dxa [R, r]) f32, summed over
+    vocab tiles of coef @ W_tile and coef @ bt_tile, coef rounded to W's
+    dtype (xa = bt = None: row 7, dxa None)."""
     hf = h.float()
     lab = labels.long()
     dh = torch.zeros(h.shape, device=h.device)
+    dxa = None if xa is None else torch.zeros(xa.shape, device=h.device)
     for v0, v1 in _tiles(w.shape[0], block_v):
         wt = w[v0:v1].float()
-        coef = _tile_coef(hf @ wt.T, torch.arange(v0, v1, device=h.device),
-                          lab, lse, dlse, dgold, w.dtype)
+        coef = _tile_coef(_tile_logits(hf, w, xa, bt, v0, v1),
+                          torch.arange(v0, v1, device=h.device), lab, lse,
+                          dlse, dgold, w.dtype)
         dh += coef @ wt
-    return dh
+        if xa is not None:
+            dxa += coef @ bt[v0:v1].float()
+    return dh, dxa
+
+
+def fused_ce_dw_lora_reference(h, w, xa, bt, labels, lse, dlse, dgold,
+                               want_dw: bool = True,
+                               block_v: int = BLOCK_V):
+    """Row 11's plain version: (dW [V, H] or None unless want_dw,
+    dbt [V, r]) f32, one vocab tile at a time: coef_tile^T @ h and
+    coef_tile^T @ xa, coef rounded to h's dtype (xa = bt = None: row 8,
+    dbt None)."""
+    hf = h.float()
+    lab = labels.long()
+    dw = torch.empty(w.shape, device=h.device) if want_dw else None
+    dbt = None if xa is None else torch.empty(bt.shape, device=h.device)
+    for v0, v1 in _tiles(w.shape[0], block_v):
+        coef = _tile_coef(_tile_logits(hf, w, xa, bt, v0, v1),
+                          torch.arange(v0, v1, device=h.device), lab, lse,
+                          dlse, dgold, h.dtype)
+        if want_dw:
+            dw[v0:v1] = coef.T @ hf
+        if xa is not None:
+            dbt[v0:v1] = coef.T @ xa.float()
+    return dw, dbt
+
+
+def fused_ce_fwd_reference(h, w, labels, block_v: int = BLOCK_V
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lse, gold) [R] f32 by an online logsumexp over vocab tiles."""
+    return fused_ce_fwd_lora_reference(h, w, None, None, labels, block_v)
+
+
+def fused_ce_dh_reference(h, w, labels, lse, dlse, dgold,
+                          block_v: int = BLOCK_V) -> torch.Tensor:
+    """dh [R, H] f32 = sum over vocab tiles of coef @ W_tile."""
+    return fused_ce_dh_lora_reference(h, w, None, None, labels, lse, dlse,
+                                      dgold, block_v)[0]
 
 
 def fused_ce_dw_reference(h, w, labels, lse, dlse, dgold,
                           block_v: int = BLOCK_V) -> torch.Tensor:
     """dW [V, H] f32, one vocab tile at a time: coef_tile^T @ h."""
-    hf = h.float()
-    lab = labels.long()
-    dw = torch.empty(w.shape, device=h.device)
-    for v0, v1 in _tiles(w.shape[0], block_v):
-        coef = _tile_coef(hf @ w[v0:v1].float().T,
-                          torch.arange(v0, v1, device=h.device), lab, lse,
-                          dlse, dgold, h.dtype)
-        dw[v0:v1] = coef.T @ hf
-    return dw
+    return fused_ce_dw_lora_reference(h, w, None, None, labels, lse, dlse,
+                                      dgold, True, block_v)[0]
 
 
 # ------------------------------------------------------------ wrappers ------
@@ -129,32 +193,42 @@ def _fn(sym: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def _check(what: str, h, w, f32s, backward: bool):
-    """The kernels' rule for CUDA tensors: h [R, H] and W [V, H] on one
-    CUDA device in one dtype of DTYPE_CODES, contiguous; the row vectors
-    contiguous f32; H <= MAX_HIDDEN for the backward kernels."""
-    for t in (h, w, *f32s):
+def _check(what: str, ops, f32s, backward: bool):
+    """The kernels' rule for CUDA tensors: h [R, H], W [V, H] (and xa,
+    bt) on one CUDA device in one dtype of DTYPE_CODES, contiguous; the
+    row vectors contiguous f32; H + r <= MAX_HIDDEN for the backward
+    kernels."""
+    h = ops[0]
+    for t in (*ops, *f32s):
         if not t.is_cuda or t.device != h.device:
             raise ValueError(f"{what}: tensors on {t.device} and {h.device};"
                              f" the kernel takes one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{what} kernel takes contiguous tensors")
-    if h.dtype not in DTYPE_CODES or w.dtype != h.dtype:
-        raise ValueError(f"{what} kernel takes h and W in one dtype of "
-                         f"{sorted(map(str, DTYPE_CODES))}, got {h.dtype} "
-                         f"and {w.dtype}")
+    if h.dtype not in DTYPE_CODES or any(t.dtype != h.dtype for t in ops):
+        raise ValueError(f"{what} kernel takes h, W (xa, bt) in one dtype of"
+                         f" {sorted(map(str, DTYPE_CODES))}, got "
+                         f"{[str(t.dtype) for t in ops]}")
     if any(t.dtype != torch.float32 for t in f32s):
         raise ValueError(f"{what} kernel takes f32 lse, dlse and dgold")
-    if backward and h.shape[1] > MAX_HIDDEN:
-        raise ValueError(f"{what} kernel takes H <= {MAX_HIDDEN}, got "
-                         f"{h.shape[1]}")
+    cols = h.shape[1] + (ops[2].shape[1] if len(ops) == 4 else 0)
+    if backward and cols > MAX_HIDDEN:
+        raise ValueError(f"{what} kernel takes H + r <= {MAX_HIDDEN}, got "
+                         f"{cols}")
 
 
-def _check_shapes(what, h, w, labels):
+def _check_shapes(what, h, w, labels, xa=None, bt=None):
     R, H = h.shape
     if w.ndim != 2 or w.shape[1] != H or labels.shape != (R,):
         raise ValueError(f"{what}: h {tuple(h.shape)}, W {tuple(w.shape)}, "
                          f"labels {tuple(labels.shape)}")
+    if xa is not None:
+        r = xa.shape[-1]
+        if xa.shape != (R, r) or bt.shape != (w.shape[0], r) \
+                or not 0 < r <= MAX_RANK:
+            raise ValueError(f"{what}: xa {tuple(xa.shape)} and bt "
+                             f"{tuple(bt.shape)} must be [R, r] and [V, r], "
+                             f"1 <= r <= {MAX_RANK}")
 
 
 def _slabs(R: int, V: int, device, ctas_per_sm: int) -> Tuple[int, int]:
@@ -172,6 +246,33 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _labels(labels, h):
+    return labels.to(device=h.device, dtype=torch.int32).contiguous()
+
+
+def _launch_fwd(h, w, labels, lora):
+    """(lse, gold) through the forward kernel (row 6, or row 9 with
+    lora = (xa, bt))."""
+    R, H = h.shape
+    V = w.shape[0]
+    n_slabs, per_slab = _slabs(R, V, h.device, 4)
+    lab = _labels(labels, h)
+    part = torch.empty(n_slabs, R, 3, device=h.device)
+    lse = torch.empty(R, device=h.device)
+    gold = torch.empty(R, device=h.device)
+    outs = (lab.data_ptr(), part.data_ptr(), lse.data_ptr(), gold.data_ptr())
+    tail = (n_slabs, per_slab, DTYPE_CODES[h.dtype], _stream(h))
+    if lora is None:
+        code = _fn("mft_fused_ce_fwd", 6, 6)(
+            h.data_ptr(), w.data_ptr(), *outs, R, V, H, *tail)
+    else:
+        xa, bt = lora
+        code = _fn("mft_fused_ce_fwd_lora", 8, 7)(
+            h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(), *outs,
+            R, V, H, xa.shape[1], *tail)
+    return code, lse, gold
+
+
 def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse, gold) [R] f32 for h [R, H], W [V, H] and in-range labels
     [R]. CPU tensors: the plain version. CUDA tensors: the kernel, or
@@ -179,18 +280,8 @@ def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_shapes("fused_ce_fwd", h, w, labels)
     if h.device.type == "cpu":
         return fused_ce_fwd_reference(h, w, labels)
-    _check("fused_ce_fwd", h, w, (), backward=False)
-    R, H = h.shape
-    V = w.shape[0]
-    n_slabs, per_slab = _slabs(R, V, h.device, 4)
-    lab = labels.to(device=h.device, dtype=torch.int32).contiguous()
-    part = torch.empty(n_slabs, R, 3, device=h.device)
-    lse = torch.empty(R, device=h.device)
-    gold = torch.empty(R, device=h.device)
-    code = _fn("mft_fused_ce_fwd", 6, 6)(
-        h.data_ptr(), w.data_ptr(), lab.data_ptr(), part.data_ptr(),
-        lse.data_ptr(), gold.data_ptr(), R, V, H, n_slabs, per_slab,
-        DTYPE_CODES[h.dtype], _stream(h))
+    _check("fused_ce_fwd", (h, w), (), backward=False)
+    code, lse, gold = _launch_fwd(h, w, labels, None)
     build.check_launch("fused_ce_fwd", code)
     fused_ce_fwd.launches += 1
     return lse, gold
@@ -199,8 +290,26 @@ def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
 fused_ce_fwd.launches = 0
 
 
-def _bwd_args(what, h, w, labels, lse, dlse, dgold):
-    _check_shapes(what, h, w, labels)
+def fused_ce_fwd_lora(h, w, xa, bt, labels
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lse, gold) [R] f32 of h @ W^T + xa @ bt^T for h [R, H], W [V, H],
+    xa [R, r], bt [V, r] and in-range labels [R]. CPU tensors: the plain
+    version. CUDA tensors: the kernel, or ValueError."""
+    _check_shapes("fused_ce_fwd_lora", h, w, labels, xa, bt)
+    if h.device.type == "cpu":
+        return fused_ce_fwd_lora_reference(h, w, xa, bt, labels)
+    _check("fused_ce_fwd_lora", (h, w, xa, bt), (), backward=False)
+    code, lse, gold = _launch_fwd(h, w, labels, (xa, bt))
+    build.check_launch("fused_ce_fwd_lora", code)
+    fused_ce_fwd_lora.launches += 1
+    return lse, gold
+
+
+fused_ce_fwd_lora.launches = 0
+
+
+def _bwd_args(what, h, w, labels, lse, dlse, dgold, xa=None, bt=None):
+    _check_shapes(what, h, w, labels, xa, bt)
     rows = tuple(t.to(device=h.device, dtype=torch.float32).contiguous()
                  for t in (lse, dlse, dgold))
     if any(t.shape != labels.shape for t in rows):
@@ -208,24 +317,41 @@ def _bwd_args(what, h, w, labels, lse, dlse, dgold):
     return rows
 
 
-def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
-    """dh [R, H] f32 = coef @ W. CPU tensors: the plain version; CUDA
-    tensors: the kernel (with a reduce pass over its vocab slabs)."""
-    lse, dlse, dgold = _bwd_args("fused_ce_bwd_dh", h, w, labels, lse, dlse,
-                                 dgold)
-    if h.device.type == "cpu":
-        return fused_ce_dh_reference(h, w, labels, lse, dlse, dgold)
-    _check("fused_ce_bwd_dh", h, w, (lse, dlse, dgold), backward=True)
+def _launch_dh(h, w, labels, rows, lora):
+    """(code, dh, dxa or None) through the dh kernel and its reduce pass
+    (row 7, or row 10 with lora = (xa, bt))."""
     R, H = h.shape
     V = w.shape[0]
     n_slabs, per_slab = _slabs(R, V, h.device, 2)
-    lab = labels.to(device=h.device, dtype=torch.int32).contiguous()
+    lab = _labels(labels, h)
     part = torch.empty(n_slabs, R, H, device=h.device)
     dh = torch.empty(R, H, device=h.device)
-    code = _fn("mft_fused_ce_dh", 8, 6)(
-        h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
-        dlse.data_ptr(), dgold.data_ptr(), part.data_ptr(), dh.data_ptr(),
-        R, V, H, n_slabs, per_slab, DTYPE_CODES[h.dtype], _stream(h))
+    ins = (lab.data_ptr(), *(t.data_ptr() for t in rows))
+    tail = (n_slabs, per_slab, DTYPE_CODES[h.dtype], _stream(h))
+    if lora is None:
+        code = _fn("mft_fused_ce_dh", 8, 6)(
+            h.data_ptr(), w.data_ptr(), *ins, part.data_ptr(),
+            dh.data_ptr(), R, V, H, *tail)
+        return code, dh, None
+    xa, bt = lora
+    r = xa.shape[1]
+    xpart = torch.empty(n_slabs, R, r, device=h.device)
+    dxa = torch.empty(R, r, device=h.device)
+    code = _fn("mft_fused_ce_dh_lora", 12, 7)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(), *ins,
+        part.data_ptr(), dh.data_ptr(), xpart.data_ptr(), dxa.data_ptr(),
+        R, V, H, r, *tail)
+    return code, dh, dxa
+
+
+def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
+    """dh [R, H] f32 = coef @ W. CPU tensors: the plain version; CUDA
+    tensors: the kernel (with a reduce pass over its vocab slabs)."""
+    rows = _bwd_args("fused_ce_bwd_dh", h, w, labels, lse, dlse, dgold)
+    if h.device.type == "cpu":
+        return fused_ce_dh_reference(h, w, labels, *rows)
+    _check("fused_ce_bwd_dh", (h, w), rows, backward=True)
+    code, dh, _ = _launch_dh(h, w, labels, rows, None)
     build.check_launch("fused_ce_bwd_dh", code)
     fused_ce_bwd_dh.launches += 1
     return dh
@@ -234,21 +360,38 @@ def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
 fused_ce_bwd_dh.launches = 0
 
 
+def fused_ce_bwd_dh_lora(h, w, xa, bt, labels, lse, dlse, dgold
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dh [R, H], dxa [R, r]) f32 = (coef @ W, coef @ bt) of the
+    head-adapter logits. CPU tensors: the plain version; CUDA tensors:
+    the kernel (with reduce passes over its vocab slabs)."""
+    rows = _bwd_args("fused_ce_bwd_dh_lora", h, w, labels, lse, dlse, dgold,
+                     xa, bt)
+    if h.device.type == "cpu":
+        return fused_ce_dh_lora_reference(h, w, xa, bt, labels, *rows)
+    _check("fused_ce_bwd_dh_lora", (h, w, xa, bt), rows, backward=True)
+    code, dh, dxa = _launch_dh(h, w, labels, rows, (xa, bt))
+    build.check_launch("fused_ce_bwd_dh_lora", code)
+    fused_ce_bwd_dh_lora.launches += 1
+    return dh, dxa
+
+
+fused_ce_bwd_dh_lora.launches = 0
+
+
 def fused_ce_bwd_dw(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     """dW [V, H] f32 = coef^T @ h. CPU tensors: the plain version; CUDA
     tensors: the kernel."""
-    lse, dlse, dgold = _bwd_args("fused_ce_bwd_dw", h, w, labels, lse, dlse,
-                                 dgold)
+    rows = _bwd_args("fused_ce_bwd_dw", h, w, labels, lse, dlse, dgold)
     if h.device.type == "cpu":
-        return fused_ce_dw_reference(h, w, labels, lse, dlse, dgold)
-    _check("fused_ce_bwd_dw", h, w, (lse, dlse, dgold), backward=True)
+        return fused_ce_dw_reference(h, w, labels, *rows)
+    _check("fused_ce_bwd_dw", (h, w), rows, backward=True)
     R, H = h.shape
     V = w.shape[0]
-    lab = labels.to(device=h.device, dtype=torch.int32).contiguous()
     dw = torch.empty(V, H, device=h.device)
     code = _fn("mft_fused_ce_dw", 7, 4)(
-        h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
-        dlse.data_ptr(), dgold.data_ptr(), dw.data_ptr(), R, V, H,
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H,
         DTYPE_CODES[h.dtype], _stream(h))
     build.check_launch("fused_ce_bwd_dw", code)
     fused_ce_bwd_dw.launches += 1
@@ -256,6 +399,36 @@ def fused_ce_bwd_dw(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
 
 
 fused_ce_bwd_dw.launches = 0
+
+
+def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
+                         want_dw: bool = True):
+    """(dW [V, H] f32 or None, dbt [V, r] f32) = (coef^T @ h, coef^T @ xa)
+    of the head-adapter logits; dW only when `want_dw` (the kernel then
+    skips its dW product: the frozen-embedding case). CPU tensors: the
+    plain version; CUDA tensors: the kernel."""
+    rows = _bwd_args("fused_ce_bwd_dw_lora", h, w, labels, lse, dlse, dgold,
+                     xa, bt)
+    if h.device.type == "cpu":
+        return fused_ce_dw_lora_reference(h, w, xa, bt, labels, *rows,
+                                          want_dw=want_dw)
+    # dbt alone needs only a [32, r] accumulator: H is then not bounded
+    _check("fused_ce_bwd_dw_lora", (h, w, xa, bt), rows, backward=want_dw)
+    R, H = h.shape
+    V, r = bt.shape
+    dw = torch.empty(V, H, device=h.device) if want_dw else None
+    dbt = torch.empty(V, r, device=h.device)
+    code = _fn("mft_fused_ce_dw_lora", 10, 5)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+        None if dw is None else dw.data_ptr(), dbt.data_ptr(), R, V, H, r,
+        DTYPE_CODES[h.dtype], _stream(h))
+    build.check_launch("fused_ce_bwd_dw_lora", code)
+    fused_ce_bwd_dw_lora.launches += 1
+    return dw, dbt
+
+
+fused_ce_bwd_dw_lora.launches = 0
 
 
 # ---------------------------------------------------------- autograd ------
@@ -294,26 +467,79 @@ def fused_ce_rows(hidden2d, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     return FusedCERows.apply(hidden2d.contiguous(), w.contiguous(), labels)
 
 
+class FusedCERowsLora(torch.autograd.Function):
+    """(lse, gold) of h [R, H] against W [V, H] plus the head adapter's
+    xa [R, r] @ bt [V, r]^T; saves (h, W, labels, lse, xa, bt). The
+    backward launches the dh kernel (dh and dxa) when h or xa needs a
+    gradient and the dW kernel when W or bt does, its dW product only
+    when W does (the tied embedding is frozen under LoRA: dbt alone)."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, xa, bt):
+        lse, gold = fused_ce_fwd_lora(h, w, xa, bt, labels)
+        ctx.save_for_backward(h, w, labels, lse, xa, bt)
+        return lse, gold
+
+    @staticmethod
+    def backward(ctx, dlse, dgold):
+        h, w, labels, lse, xa, bt = ctx.saved_tensors
+        dlse = torch.zeros_like(lse) if dlse is None else dlse.float()
+        dgold = torch.zeros_like(lse) if dgold is None else dgold.float()
+        need_h, need_w, _, need_xa, need_bt = ctx.needs_input_grad
+        dh = dw = dxa = dbt = None
+        args = (h, w, xa, bt, labels, lse, dlse, dgold)
+        if need_h or need_xa:
+            dh, dxa = fused_ce_bwd_dh_lora(*args)
+            dh, dxa = dh.to(h.dtype), dxa.to(xa.dtype)
+        if need_w or need_bt:
+            dw, dbt = fused_ce_bwd_dw_lora(*args, want_dw=need_w)
+            dw = None if dw is None else dw.to(w.dtype)
+            dbt = dbt.to(bt.dtype)
+        return dh, dw, None, dxa, dbt
+
+
+def fused_ce_rows_lora(hidden2d, w, labels, xa, bt
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fused_ce_rows with the head-adapter delta folded into the tile
+    loop: logits_tile = h @ W_tile^T + xa @ bt_tile^T, xa [R, r] the
+    scale-folded bottleneck, bt = B^T [V, r] (head_bottleneck).
+    Differentiable in hidden2d, w, xa and bt."""
+    return FusedCERowsLora.apply(hidden2d.contiguous(), w.contiguous(),
+                                 labels, xa.contiguous(), bt.contiguous())
+
+
 def head_bottleneck(hidden2d, lora_head):
     """(xa, bt) kernel operands of a head-adapter entry {A [H, r],
     B [r, V], scale}: xa = scale * (h @ A), f32-accumulated, in h's
-    dtype, and bt = B^T; the scale carries no gradient. The operands of
-    the head-adapter kernels (ROADMAP.md rows 9-11)."""
+    dtype, and bt = B^T; the scale carries no gradient. Shared by the
+    kernel route and ops/loss.py's plain chunk body."""
     A = lora_head["A"].to(hidden2d.dtype)
     scale = lora_head["scale"].detach().float()
     xa = ((hidden2d.float() @ A.float()) * scale).to(hidden2d.dtype)
     return xa, lora_head["B"].T.to(hidden2d.dtype)
 
 
-def fused_ce_nll_sum(hidden, lm_head_w, labels, ignore_index: int
+def fused_ce_nll_sum(hidden, lm_head_w, labels, ignore_index: int,
+                     lora_head=None, branch_hidden=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_nll f32, valid_count) over one already-shifted chunk
     hidden [B, C, H] / labels [B, C]: ignored positions get label 0 in
-    the kernels and are masked after."""
+    the kernels and are masked after. lora_head: an optional {A, B,
+    scale} head adapter folded into the kernels' tile loop;
+    branch_hidden: the adapter branch's input where it differs from
+    `hidden` (train-mode LoRA dropout drops the branch copy only; the
+    base logits read the undropped hidden)."""
     B, C, H = hidden.shape
     lab = labels.reshape(B * C)
     valid = lab != ignore_index
     safe = torch.where(valid, lab, torch.zeros_like(lab))
-    lse, gold = fused_ce_rows(hidden.reshape(B * C, H), lm_head_w, safe)
+    h2 = hidden.reshape(B * C, H)
+    if lora_head is None:
+        lse, gold = fused_ce_rows(h2, lm_head_w, safe)
+    else:
+        hb2 = h2 if branch_hidden is None \
+            else branch_hidden.reshape(B * C, H)
+        xa, bt = head_bottleneck(hb2, lora_head)
+        lse, gold = fused_ce_rows_lora(h2, lm_head_w, safe, xa, bt)
     nll = torch.where(valid, lse - gold, 0.0)
     return nll.sum(), valid.sum()

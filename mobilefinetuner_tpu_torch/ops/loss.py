@@ -23,25 +23,40 @@ never exist. `impl` picks the chunk body:
          hidden dtype, f32 products), their logsumexp and gold logit,
          under torch.utils.checkpoint so the backward recomputes them,
          as the JAX scan body runs under jax.checkpoint.
+
+A LoRA adapter on the tied head (`lora_head`, {A [H, r], B [r, V],
+scale}) adds scale * (h @ A) @ B to each chunk's logits: inside the
+head-adapter kernels' tile loop on the `auto` route (ops/fused_ce.py rows
+9-11), chunk-locally in the `plain` body, so the [B, S, V] delta never
+exists either. `lora_impl` "naive" (the adapter's parity oracle, as in
+models/lora_apply.py) sends an adapted head to the plain body on any
+device; "auto" and "fused" leave the route to `impl` (the JAX package's
+rule "kernel only under fused" is a TPU threshold and is not carried
+over). Train-mode dropout on the adapter's branch input (`lora_dropout`
+with an integer `dropout_seed`) drops the full hidden state once with
+the site seed fold_in(seed, 2000), as the models' full-logits lm_head
+sites do, and is chunked alongside it; the base logits always read the
+undropped hidden state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from mobilefinetuner_tpu_torch.ops.fused_ce import fused_ce_nll_sum
+from mobilefinetuner_tpu_torch.models.lora_apply import validate_lora_impl
+from mobilefinetuner_tpu_torch.ops.dropout import fold_in, inverted_dropout
+from mobilefinetuner_tpu_torch.ops.fused_ce import (fused_ce_nll_sum,
+                                                    head_bottleneck)
 
 IGNORE_INDEX = -100
 LOSS_IMPLS = ("auto", "plain")
-LM_HEAD_NOT_PORTED = (
-    "an lm_head adapter on the chunked loss needs the fused CE head-adapter "
-    "kernels (PERF.md rows 9-11: _fwd_kernel_lora, _dh_kernel_lora, "
-    "_dw_kernel_lora), not ported yet (ROADMAP.md section 2)")
+# dropout site key of the lm_head adapter's branch (models' forward too)
+LM_HEAD_SITE = 2000
 
 
 def _token_nll(logits, labels, ignore_index: int):
@@ -122,34 +137,50 @@ def validate_loss_impl(impl: str) -> str:
     return impl
 
 
-def _plain_chunk(h, w, lab, ignore_index: int):
+def _plain_chunk(h, w, lab, ignore_index: int, hb, lora_head):
     logits = h.float() @ w.float().T           # [B, chunk, V] f32
+    if lora_head is not None:
+        # the adapter's chunk-local delta, (hb @ A) @ B f32-accumulated,
+        # its scale folded as the kernel route folds it
+        B, C, H = hb.shape
+        xa, bt = head_bottleneck(hb.reshape(B * C, H), lora_head)
+        logits = logits + (xa.float() @ bt.float().T).reshape(B, C, -1)
     nll, valid = _token_nll(logits, lab, ignore_index)
     return nll.sum(), valid.sum()
 
 
 def _chunked_nll_sum(hidden, lm_head_w, labels, ignore_index: int,
-                     num_chunks: int, impl: str, lora_head, mesh):
+                     num_chunks: int, impl: str, lora_head, mesh,
+                     lora_impl: str, lora_dropout: float,
+                     dropout_seed: Optional[int]):
     validate_loss_impl(impl)
+    validate_lora_impl(lora_impl)
     if mesh is not None:
         raise NotImplementedError(
             "the vocab-parallel chunked CE over a device mesh is not "
             "ported yet (ROADMAP.md port item P9)")
-    if lora_head is not None:
-        raise NotImplementedError(LM_HEAD_NOT_PORTED)
-    fused = impl == "auto" and hidden.device.type != "cpu"
+    fused = (impl == "auto" and hidden.device.type != "cpu"
+             and not (lora_head is not None and lora_impl == "naive"))
     # the head in the compute dtype: under bf16 the products read bf16
     # operands (f32 accumulation either way)
     w = lm_head_w.to(hidden.dtype)
     hs, ls = _shift_and_chunk(hidden, labels, ignore_index, num_chunks)
+    hbs = hs
+    if lora_head is not None and lora_dropout > 0.0 \
+            and dropout_seed is not None:
+        dropped = inverted_dropout(hidden, lora_dropout,
+                                   fold_in(dropout_seed, LM_HEAD_SITE))
+        hbs, _ = _shift_and_chunk(dropped, labels, ignore_index, num_chunks)
     total = torch.zeros((), device=hidden.device)
     count = torch.zeros((), dtype=torch.long, device=hidden.device)
-    for h, lab in zip(hs, ls):
+    for h, hb, lab in zip(hs, hbs, ls):
         if fused:
-            s, n = fused_ce_nll_sum(h, w, lab, ignore_index)
+            s, n = fused_ce_nll_sum(h, w, lab, ignore_index,
+                                    lora_head=lora_head, branch_hidden=hb)
         else:
             s, n = torch.utils.checkpoint.checkpoint(
-                _plain_chunk, h, w, lab, ignore_index, use_reentrant=False)
+                _plain_chunk, h, w, lab, ignore_index, hb, lora_head,
+                use_reentrant=False)
         total = total + s
         count = count + n
     return total, count
@@ -158,25 +189,36 @@ def _chunked_nll_sum(hidden, lm_head_w, labels, ignore_index: int,
 def chunked_lm_cross_entropy(hidden, lm_head_w, labels,
                              ignore_index: int = IGNORE_INDEX,
                              num_chunks: int = 8, impl: str = "auto",
-                             lora_head=None, mesh=None) -> torch.Tensor:
+                             lora_head=None, mesh=None,
+                             lora_impl: str = "auto",
+                             lora_dropout: float = 0.0,
+                             dropout_seed: Optional[int] = None
+                             ) -> torch.Tensor:
     """Mean causal-LM loss without the [B, S, V] logits: hidden [B, S, H]
     final hidden states, lm_head_w [V, H] (HF layout), labels [B, S]
-    unshifted. lora_head (an lm_head adapter) and mesh (the vocab-parallel
-    path) raise NotImplementedError until they are ported."""
+    unshifted. lora_head: an optional lm_head adapter entry; lora_impl,
+    lora_dropout, dropout_seed: its route and branch dropout (module
+    docstring). mesh (the vocab-parallel path) raises NotImplementedError
+    until it is ported."""
     total, count = _chunked_nll_sum(hidden, lm_head_w, labels, ignore_index,
-                                    num_chunks, impl, lora_head, mesh)
+                                    num_chunks, impl, lora_head, mesh,
+                                    lora_impl, lora_dropout, dropout_seed)
     return total / torch.clamp_min(count, 1).float()
 
 
 def chunked_lm_cross_entropy_sum(hidden, lm_head_w, labels,
                                  ignore_index: int = IGNORE_INDEX,
                                  num_chunks: int = 8, impl: str = "auto",
-                                 lora_head=None, mesh=None
+                                 lora_head=None, mesh=None,
+                                 lora_impl: str = "auto",
+                                 lora_dropout: float = 0.0,
+                                 dropout_seed: Optional[int] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_nll, valid_token_count) of the chunked loss: the train step's
     accumulation form (see chunked_lm_cross_entropy)."""
     return _chunked_nll_sum(hidden, lm_head_w, labels, ignore_index,
-                            num_chunks, impl, lora_head, mesh)
+                            num_chunks, impl, lora_head, mesh, lora_impl,
+                            lora_dropout, dropout_seed)
 
 
 def perplexity_from_loss(loss) -> float:

@@ -255,6 +255,7 @@ def test_flash_autograd_launches_the_backward_kernels(dev):
     (torch.float32, 1000, 768, 8, 1e-5),
     (torch.float16, 37, 300, 16, 1e-2),
     (torch.float32, 64, 512, 128, 1e-5),
+    (torch.bfloat16, 256, 262144, 8, 1e-2),     # Gemma's lm_head: d_out V
 ])
 def test_lora_epilogue_kernel_matches_plain(dev, dtype, N, d_out, r, tol):
     y = _randn(dev, dtype, N, d_out, seed=31)
@@ -398,6 +399,94 @@ def test_fused_ce_skips_dw_for_a_frozen_head_and_never_runs_plain(
     assert fc.fused_ce_bwd_dw.launches == n[2] + 3
     with pytest.raises(ValueError, match="dtype"):
         fc.fused_ce_fwd(h.double(), w.double(), lab)
+
+
+def _lora_case(dev, dtype, R, V, r, seed):
+    g = torch.Generator().manual_seed(seed)
+    xa = torch.randn(R, r, generator=g).to(dev, dtype)
+    bt = (0.05 * torch.randn(V, r, generator=g)).to(dev, dtype)
+    return xa, bt
+
+
+@pytest.mark.parametrize("dtype,R,V,H,r,tol,sm_tol", [
+    (torch.bfloat16, 128, 20000, 640, 8, 2e-3, 2e-3),
+    (torch.float32, 37, 1001, 200, 5, 1e-4, 1e-4),
+])
+def test_fused_ce_lora_kernels_match_plain(dev, dtype, R, V, H, r, tol,
+                                           sm_tol):
+    """Rows 9-11: lse and gold (max abs error); dh, dxa, dW and dbt (over
+    max(1, max |ref|)), row 11 in its dW mode and its dbt-only mode; one
+    launch each. The softmax part alone too: dgold = 0, max abs error
+    over max |ref| (sm_tol)."""
+    h, w, lab, dl, dg = _ce_case(dev, dtype, R, V, H, seed=R + r)
+    xa, bt = _lora_case(dev, dtype, R, V, r, seed=r)
+    kernels = (fc.fused_ce_fwd_lora, fc.fused_ce_bwd_dh_lora,
+               fc.fused_ce_bwd_dw_lora)
+    n = [f.launches for f in kernels]
+    lse, gold = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    rl, rg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [n[0] + 1, n[1], n[2]]
+    assert float((lse - rl).abs().max()) <= tol
+    assert float((gold - rg).abs().max()) <= tol
+    for dgold, err, t in ((dg, _rel_err, tol), (torch.zeros_like(dg),
+                                                 _scaled_err, sm_tol)):
+        args = (h, w, xa, bt, lab, rl, dl, dgold)
+        got = (*fc.fused_ce_bwd_dh_lora(*args),
+               *fc.fused_ce_bwd_dw_lora(*args),
+               fc.fused_ce_bwd_dw_lora(*args, want_dw=False)[1])
+        ref = (*fc.fused_ce_dh_lora_reference(*args),
+               *fc.fused_ce_dw_lora_reference(*args))
+        ref = ref + (ref[3],)
+        for a, b in zip(got, ref):
+            assert err(a, b) <= t
+    assert fc.fused_ce_bwd_dw_lora(*args, want_dw=False)[0] is None
+
+
+def _scaled_err(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def test_head_adapter_loss_launches_its_kernels_only(dev, monkeypatch):
+    """The chunked loss with an lm_head adapter on a CUDA tensor launches
+    rows 9-11 in every chunk (row 11 dbt-only: the head is frozen) and
+    none of the base kernels or plain versions; its loss and the A / B
+    gradients agree with the plain path (f32)."""
+    g = torch.Generator().manual_seed(7)
+    R2, V, H, r = 31, 3000, 128, 4
+    hid = torch.randn(2, R2, H, generator=g).to(dev)
+    w = (0.05 * torch.randn(V, H, generator=g)).to(dev)
+    labels = torch.randint(0, V, (2, R2), generator=g).to(dev)
+    A = (0.1 * torch.randn(H, r, generator=g)).to(dev)
+    B = (0.1 * torch.randn(r, V, generator=g)).to(dev)
+    out = {}
+    for impl in ("plain", "auto"):
+        leaves = [hid.clone().requires_grad_(True),
+                  A.clone().requires_grad_(True),
+                  B.clone().requires_grad_(True)]
+        head = {"A": leaves[1], "B": leaves[2],
+                "scale": torch.tensor(2.0, device=dev)}
+        if impl == "auto":
+            def boom(*a, **k):
+                raise AssertionError("a plain version ran on CUDA")
+            for name in ("fused_ce_fwd_lora_reference",
+                         "fused_ce_dh_lora_reference",
+                         "fused_ce_dw_lora_reference"):
+                monkeypatch.setattr(fc, name, boom)
+            monkeypatch.setattr(loss, "_plain_chunk", boom)
+            kernels = (fc.fused_ce_fwd_lora, fc.fused_ce_bwd_dh_lora,
+                       fc.fused_ce_bwd_dw_lora, fc.fused_ce_fwd,
+                       fc.fused_ce_bwd_dh, fc.fused_ce_bwd_dw)
+            n = [f.launches for f in kernels]
+        s, c = loss.chunked_lm_cross_entropy_sum(
+            leaves[0], w, labels, num_chunks=3, impl=impl, lora_head=head)
+        out[impl] = (float(s.detach()), torch.autograd.grad(s, leaves))
+    assert [f.launches - x for f, x in zip(kernels, n)] == [3, 3, 3, 0, 0, 0]
+    assert int(c) == 2 * 30
+    assert abs(out["auto"][0] - out["plain"][0]) <= 1e-4 * abs(
+        out["plain"][0])
+    for a, b in zip(out["auto"][1], out["plain"][1]):
+        assert _rel_err(a, b) <= 1e-4
 
 
 def test_gemma_kernel_path_matches_plain_path(dev):

@@ -2,9 +2,11 @@
 against the JAX package's, on the CPU in f32, at Gemma3TextConfig.tiny
 (GQA 4:2, head_dim 8, a 16-token window on local layers) and S = 40, so
 the window bites, with right padding: hidden states and the chunked loss
-with and without the `full` LoRA preset (<= 1e-4), the LoRA and the
-full-fine-tuning gradients (<= 1e-5), and the pieces around them (the
-config parser, RoPE, the LoRA init, merge, checkpoints)."""
+with and without the `full` LoRA preset (<= 1e-4), the logits and the
+chunked loss with an lm_head adapter (<= 1e-4) and its branch dropout,
+the LoRA and the full-fine-tuning gradients (<= 1e-5), and the pieces
+around them (the config parser, RoPE, the LoRA init with and without the
+head target, merge, checkpoints)."""
 
 import dataclasses
 import json
@@ -123,9 +125,135 @@ def test_hidden_states_and_chunked_loss_match_jax(model, with_lora,
                             torch.from_numpy(mask), lora=pl)
     close(logits, jgemma.forward(jcfg, params_np, jnp.asarray(ids),
                                  jnp.asarray(mask), lora=jl), 1e-4)
-    with pytest.raises(NotImplementedError, match="lm_head"):
-        gemma3.forward(cfg, params, torch.from_numpy(ids).long(),
-                       lora={"blocks": {"lm_head": {}}})
+
+
+def _with_head(lora_np, seed=4):
+    """lora_np plus an unstacked lm_head entry, B off zero."""
+    H, V = lora_np["blocks"]["q_proj"]["A"].shape[1], 96
+    rng = np.random.default_rng(seed)
+    out = {"blocks": dict(lora_np["blocks"])}
+    out["blocks"]["lm_head"] = {
+        "A": (rng.normal(size=(H, 4)) * 0.2).astype(np.float32),
+        "B": (rng.normal(size=(4, V)) * 0.2).astype(np.float32),
+        "scale": np.float32(2.0)}
+    return out
+
+
+@pytest.mark.parametrize("lora_impl", ["auto", "fused"])
+def test_forward_with_head_adapter_matches_jax(model, lora_impl):
+    """An lm_head adapter on the tied head: gemma3.forward's logits (the
+    delta through maybe_lora at d_out = V; "fused" is the epilogue
+    kernel's route, its plain version on the CPU) and the chunked loss
+    with lora_head, against the JAX package (<= 1e-4)."""
+    jcfg, cfg, params_np, lora_np, ids, mask, labels = model
+    head_np = _with_head(lora_np)
+    jl = jax.tree.map(jnp.asarray, head_np)
+    params = convert.gemma3_params_from_numpy(params_np, device="cpu")
+    pl = convert.lora_from_numpy(head_np, device="cpu")
+    tids, tmask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    logits = gemma3.forward(cfg, params, tids, tmask, lora=pl,
+                            lora_impl=lora_impl)
+    jlogits = jgemma.forward(jcfg, params_np, jnp.asarray(ids),
+                             jnp.asarray(mask), lora=jl)
+    close(logits, jlogits, 1e-4)
+    # the delta is there: without the head entry the logits differ
+    base = dict(pl["blocks"])
+    base.pop("lm_head")
+    assert float((gemma3.forward(cfg, params, tids, tmask,
+                                 lora={"blocks": base}) - logits).abs()
+                 .max()) > 1e-2
+    jh = jgemma.hidden_states(jcfg, params_np, jnp.asarray(ids),
+                              jnp.asarray(mask), lora=jl)
+    jv = jloss.chunked_lm_cross_entropy(
+        jh, jnp.asarray(params_np["embed"]), jnp.asarray(labels),
+        num_chunks=4, lora_head=jl["blocks"]["lm_head"])
+    h = gemma3.hidden_states(cfg, params, tids, tmask, lora=pl)
+    v = loss.chunked_lm_cross_entropy(
+        h, params["embed"], torch.from_numpy(labels).long(), num_chunks=4,
+        lora_head=pl["blocks"]["lm_head"])
+    close(v, jv, 1e-4)
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernels"])
+def test_head_adapter_branch_dropout_matches_unchunked(model, impl):
+    """lora_dropout on the head adapter's branch (the port's own dropout
+    bits, so held against the port's unchunked path, as the JAX package's
+    tests hold theirs): the chunked loss with dropout_seed equals the mean
+    NLL of gemma3.forward's logits with the same seed, which drops the
+    branch input with the same fold_in(seed, 2000) mask; the dropout is
+    live (the loss moves), and with B = 0 it changes nothing (only the
+    branch is dropped, never the base logits). "kernels": the route a
+    CUDA tensor takes, through rows 9-11's plain versions."""
+    _, cfg, params_np, lora_np, ids, mask, labels = model
+    params = convert.gemma3_params_from_numpy(params_np, device="cpu")
+    pl = convert.lora_from_numpy(_with_head(lora_np), device="cpu")
+    head = pl["blocks"]["lm_head"]
+    tids, tmask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    lab = torch.from_numpy(labels).long()
+    p, seed = 0.3, 1234
+    h = gemma3.hidden_states(cfg, params, tids, tmask,
+                             lora={"blocks": {"lm_head": head}})
+
+    def chunked(entry, rate):
+        if impl == "plain":
+            return loss.chunked_lm_cross_entropy(
+                h, params["embed"], lab, num_chunks=4, impl="plain",
+                lora_head=entry, lora_dropout=rate, dropout_seed=seed)
+        # the auto route's chunk body on a CUDA tensor, run on the CPU
+        from mobilefinetuner_tpu_torch.ops.dropout import (fold_in,
+                                                           inverted_dropout)
+        hb = inverted_dropout(h, rate, fold_in(seed, 2000))
+        hs, ls = loss._shift_and_chunk(h, lab, -100, 4)
+        hbs, _ = loss._shift_and_chunk(hb, lab, -100, 4)
+        parts = [fc.fused_ce_nll_sum(a, params["embed"], c, -100,
+                                     lora_head=entry, branch_hidden=b)
+                 for a, b, c in zip(hs, hbs, ls)]
+        return sum(x[0] for x in parts) / sum(x[1] for x in parts)
+
+    full = loss.lm_cross_entropy(
+        gemma3.forward(cfg, params, tids, tmask,
+                       lora={"blocks": {"lm_head": head}}, lora_dropout=p,
+                       dropout_seed=seed), lab)
+    close(chunked(head, p), full, 1e-5)
+    assert abs(float(chunked(head, p)) - float(chunked(head, 0.0))) > 1e-4
+    zero_b = dict(head, B=torch.zeros_like(head["B"]))
+    close(chunked(zero_b, p), chunked(zero_b, 0.0), 1e-6)
+
+
+def test_head_target_init_mask_and_merge_refusal(model):
+    """The lm_head target end to end in lora/lora.py: init (unstacked
+    A [H, r], B = 0 [r, V], the JAX package's shapes), the trainable mask
+    (A and B train, the scale does not) and merge_gemma3's refusal of a
+    tied head, as the JAX package refuses it."""
+    jcfg, cfg, params_np, *_ = model
+    targets = plora.GEMMA_PRESETS["full"] + ["lm_head"]
+    pl = plora.init_lora_gemma3(cfg, plora.LoRASpec(
+        rank=4, alpha=8.0, init="peft", targets=targets), seed=0,
+        device="cpu")
+    jl = jlora.init_lora_gemma3(jcfg, jlora.LoRASpec(
+        rank=4, alpha=8.0, init="peft", targets=targets),
+        jax.random.PRNGKey(0))
+    for name in targets:
+        for k in ("A", "B"):
+            assert tuple(pl["blocks"][name][k].shape) == \
+                jl["blocks"][name][k].shape
+    head = pl["blocks"]["lm_head"]
+    assert tuple(head["A"].shape) == (cfg.hidden_size, 4)
+    assert tuple(head["B"].shape) == (4, cfg.vocab_size)
+    assert not head["B"].any()
+    mask = plora.trainable_mask(pl)
+    assert mask["blocks"]["lm_head"] == {"A": True, "B": True,
+                                         "scale": False}
+    assert jlora.trainable_mask(jl)["blocks"]["lm_head"] == \
+        mask["blocks"]["lm_head"]
+    assert plora.num_trainable(pl) == sum(
+        int(np.prod(e[k].shape)) for e in jl["blocks"].values()
+        for k in ("A", "B"))
+    params = convert.gemma3_params_from_numpy(params_np, device="cpu")
+    with pytest.raises(ValueError, match="tied"):
+        plora.merge_gemma3(params, pl)
+    with pytest.raises(ValueError, match="TIED"):
+        jlora.merge_gemma3(params_np, jl)
 
 
 def test_lora_gradients_match_jax(model):

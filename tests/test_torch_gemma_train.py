@@ -3,8 +3,10 @@ and gemma_full_finetune.py) against the JAX package's, on the tiny
 fixture checkpoint and corpus, on the CPU in f32: three train steps of
 each CLI take the same losses (<= 1e-4); the files either package writes
 (native and PEFT `gemma` adapters, `.opt` sidecars, the HF-keyed full
-model) load in the other and are written back byte for byte; the port's
-GemmaTokenizer gives the JAX tokenizer's ids; unported flags refuse."""
+model) load in the other and are written back byte for byte; the same
+for an adapter with the lm_head target (rows 9-11 on the chunked loss),
+whose PEFT export both packages refuse; the port's GemmaTokenizer gives
+the JAX tokenizer's ids; unported flags refuse."""
 
 import csv
 import json
@@ -42,7 +44,8 @@ from mobilefinetuner_tpu_torch.data.tokenizer_gemma import \
     GemmaTokenizer  # noqa: E402
 from mobilefinetuner_tpu_torch.io import checkpoints as ckpt  # noqa: E402
 from mobilefinetuner_tpu_torch.lora import peft_io  # noqa: E402
-from mobilefinetuner_tpu_torch.lora.lora import trainable_mask  # noqa: E402
+from mobilefinetuner_tpu_torch.lora.lora import (  # noqa: E402
+    GEMMA_PRESETS, trainable_mask)
 from mobilefinetuner_tpu_torch.optim import adam  # noqa: E402
 
 JAX_ONLY = ["--prefetch", "0", "--async_save", "0"]
@@ -257,9 +260,6 @@ def test_gemma_clis_refuse_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lora_cli.main(_argv(gdir, wiki, *out))
-    with pytest.raises(NotImplementedError, match="rows 9-11"):
-        lora_cli.main(_argv(gdir, wiki, *out, "--device", "cpu",
-                            "--lora_targets", "q_proj,lm_head"))
     for flag in (["--pretokenized_path", "x.bin"], ["--mesh_fsdp", "2"],
                  ["--align_dump_dir", "d"], ["--shard_enable"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -270,3 +270,91 @@ def test_gemma_clis_refuse_what_is_not_ported(dirs):
                                                    "degrade"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             full.main(_argv(gdir, wiki, *full_out, "--device", "cpu", *flag))
+
+
+@pytest.fixture(scope="module")
+def head_runs(dirs):
+    """Both LoRA CLIs resumed from one JAX-saved adapter on q_proj and the
+    lm_head (B off zero), 3 steps each: the head adapter rides the
+    chunked loss (the port's rows 9-11 through their plain versions)."""
+    gdir, wiki, root = dirs
+    cfg = JaxConfig.from_pretrained(gdir)
+    spec = jlora.LoRASpec(rank=4, alpha=8.0, init="peft",
+                          targets=["q_proj", "lm_head"])
+    tree = jax.tree.map(np.asarray, jlora.init_lora_gemma3(
+        cfg, spec, jax.random.PRNGKey(9)))
+    rng = np.random.default_rng(9)
+    for e in tree["blocks"].values():
+        e["B"] = (rng.normal(size=e["B"].shape) * 0.05).astype(np.float32)
+    src = str(root / "head_src.safetensors")
+    jax_peft_io.save_adapter(src, tree, spec)
+    outs = {}
+    for name, main, extra in (("jax", jax_lora.main, JAX_ONLY),
+                              ("port", lora_cli.main, ["--device", "cpu"])):
+        out = str(root / f"head_{name}")
+        assert main(_argv(gdir, wiki, "--resume_from", src,
+                          "--lora_targets", "q_proj,lm_head",
+                          "--output_dir", out,
+                          "--metrics_csv", os.path.join(out, "m.csv"),
+                          *extra)) == 0
+        outs[name] = out
+    return outs
+
+
+def test_head_target_cli_losses_match_jax(head_runs):
+    jl = _losses(os.path.join(head_runs["jax"], "m.csv"))
+    pl = _losses(os.path.join(head_runs["port"], "m.csv"))
+    assert len(jl) == len(pl) == 3
+    np.testing.assert_allclose(pl, jl, atol=1e-4, rtol=0)
+    assert pl[-1] < pl[0]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_head_adapter_files_load_across_packages(head_runs, tmp_path,
+                                                 writer):
+    """The trained adapter (its unstacked lm_head A [H, r] / B [r, V]) and
+    its .opt sidecar load in the other package and are written back byte
+    for byte; PEFT export of the lm_head is refused by both."""
+    path = os.path.join(head_runs[writer], "gemma_lora.safetensors")
+    pl, pspec = peft_io.load_adapter(path, device="cpu")
+    jl, jspec = jax_peft_io.load_adapter(path)
+    assert sorted(pl["blocks"]) == ["lm_head", "q_proj"]
+    assert pspec.targets == jspec.targets
+    assert pl["blocks"]["lm_head"]["A"].ndim == 2
+    for n, e in pl["blocks"].items():
+        for k in ("A", "B"):
+            assert np.array_equal(e[k].numpy(), np.asarray(jl["blocks"][n][k]))
+    p_again, j_again = str(tmp_path / "p.st"), str(tmp_path / "j.st")
+    peft_io.save_adapter(p_again, pl, pspec)
+    jax_peft_io.save_adapter(j_again, jl, jspec)
+    assert _same_bytes(p_again, path) and _same_bytes(j_again, path)
+    jst, jcfg = jadam.load_state(path + ".opt", jadam.init_state(
+        jl, jadam.AdamConfig(), jlora.trainable_mask(jl)))
+    pst, _ = adam.load_state(path + ".opt", adam.init_state(
+        pl, adam.AdamConfig(), trainable_mask(pl)), verify=True)
+    assert int(pst["step"]) == int(jst["step"]) == 3
+    md = {"loop_step": JaxReader(path + ".opt").metadata["loop_step"]}
+    adam.save_state(str(tmp_path / "p.opt"), pst, jcfg, extra_metadata=md)
+    jadam.save_state(str(tmp_path / "j.opt"), jst, jcfg, extra_metadata=md)
+    assert _same_bytes(str(tmp_path / "p.opt"), path + ".opt")
+    assert _same_bytes(str(tmp_path / "j.opt"), path + ".opt")
+    with pytest.raises(ValueError, match="lm_head"):
+        peft_io.export_peft(str(tmp_path / "pp"), pl, pspec, "gemma")
+    with pytest.raises(ValueError, match="lm_head"):
+        jax_peft_io.export_peft(str(tmp_path / "jp"), jl, jspec, "gemma")
+
+
+def test_lora_targets_expand_a_preset(dirs):
+    """--lora_targets full,lm_head: the preset's seven targets and the
+    head, one step on the CPU."""
+    gdir, wiki, root = dirs
+    out = str(root / "expand")
+    argv = _argv(gdir, wiki, "--lora_targets", "full,lm_head",
+                 "--output_dir", out, "--device", "cpu")
+    argv[argv.index("--steps") + 1] = "1"
+    assert lora_cli.main(argv) == 0
+    lora, spec = peft_io.load_adapter(
+        os.path.join(out, "gemma_lora.safetensors"), device="cpu")
+    assert sorted(lora["blocks"]) == sorted(
+        GEMMA_PRESETS["full"] + ["lm_head"])
+    assert float(lora["blocks"]["lm_head"]["B"].abs().max()) > 0
