@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-card.
+"""Drive the PyTorch port's serving, training, evaluation and generation
+paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      printed: the flash forward (with and without dropout), the merged
      and the split flash backward, the LoRA epilogue, the paged decode,
      the fused CE forward, dh and dW (rows 6-8) and their head-adapter
-     variants (rows 9-11, dW in both its modes); then GPT-2 small through
+     variants (rows 9-11, dW in both its modes), the contiguous decode
+     (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
+     generate path's last step with the 512 window in bf16 and f32, f16 at
+     D 32, masked columns poisoned); then GPT-2 small through
      the kernels against the plain path in f32: prefill and one paged
      decode step, and a LoRA train step (loss and LoRA grads); then
      Gemma-3-270M the same way in f32: hidden states and the chunked loss
@@ -55,6 +58,19 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      trained must reproduce the trainer's final eval perplexity (1e-3
      relative) through the head-adapter forward kernel alone, and GPT-2
      with the `train` adapter, dynamic and merged (f32), must agree;
+     then cli.generate.main (`generate`, counts set to 0 before each
+     run): GPT-2 small (bf16, 8 ragged left-padded prompts of 8-128
+     tokens, 64 new tokens, greedy, the `train` adapter dynamic) and
+     Gemma-3-270M (bf16, 4 prompts of ~600 tokens so the 512 window
+     bites, the head adapter dynamic, once whole-prompt and once with
+     --prefill_chunk 256, whose ids must be identical); per family an f32
+     run of 16 new tokens whose every greedy token must be within 1e-3 of
+     the argmax of one plain f32 full forward over prompt + output
+     (teacher forcing); row 13 must launch L x (N - 1) times a run, the
+     flash forward L times a whole-prompt prefill, the epilogue at every
+     adapter site, the paged kernel never; then each family's bf16
+     decode step again, timed from CUDA events around CUDA-graph replays
+     (device) and around eager calls (host);
   8. trace a decode step, a 128-token prefill, a GPT-2 train step and a
      Gemma LoRA train step without and with the lm_head target with
      torch.profiler: device busy time against
@@ -72,7 +88,8 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      (`bwd_sweep`, the measurements behind resolve_bwd_impl).
 
 Prints `serve`, `train`, `gemma_train`, `gemma_full_ft`,
-`gemma_lora_head`, `eval_ppl`, `profile`, `bwd_sweep` and `kernels` JSON
+`gemma_lora_head`, `eval_ppl`, `generate`, `profile`, `bwd_sweep` and
+`kernels` JSON
 lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result.
@@ -103,6 +120,9 @@ GEMMA = dict(steps=20, batch=4, seq=256, rank=8, alpha=32.0, chunks=8,
              full_lr=1e-4)
 GEMMA_LAYERS = 18
 GEMMA_SITES = 7          # LoRA sites a Gemma layer (targets "full")
+# the generate paths (phase 8): prompts (tokens) and new tokens a run
+GEN = dict(gpt2_batch=8, gpt2_min=8, gpt2_max=128, new=64, tf_new=16,
+           gemma_words=(600, 590, 575, 560), chunk=256, window=512)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -455,6 +475,73 @@ def check_paged(torch, da, dev):
     return serving
 
 
+def decode_inputs(torch, dev, dtype, B, KV, G, T, D, seed, n_pad=(),
+                  window=None):
+    """q and caches whose masked columns hold +-1e6 (+-6e4 in f16, whose
+    largest finite magnitude is 65504): left padding of n_pad[b] columns
+    and the generate path's window over the last query position; the last
+    column attendable."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(B, KV, G, D, generator=g)
+    kc = torch.randn(B, KV, T, D, generator=g)
+    vc = torch.randn(B, KV, T, D, generator=g)
+    cols = torch.arange(T)
+    ok = torch.ones(B, T, dtype=torch.bool)
+    for b, n in enumerate(n_pad):
+        ok[b, :n] = False
+    if window is not None:
+        ok &= cols[None] > T - 1 - window
+    big = 6e4 if dtype == torch.float16 else 1e6
+    kc.masked_fill_(~ok[:, None, :, None], big)
+    vc.masked_fill_(~ok[:, None, :, None], -big)
+    return (q.to(dev, dtype), kc.to(dev, dtype), vc.to(dev, dtype),
+            ok.to(dev))
+
+
+def check_decode(torch, da, dev):
+    """Row 13 against xla_reference at the microbenchmark shapes (B 8,
+    T 192), a ragged T, the Gemma generate path's last step (T = P + N,
+    the 512 window in ok) in bf16 and f32, and f16 at D 32, every masked
+    column poisoned; the launch counter must count each call. Returns
+    {name: (max error, inputs)} of the GPT-2 bench and the Gemma path
+    cases."""
+    T_gemma = max(GEN["gemma_words"]) + 1 + GEN["new"]   # BOS + words + N
+    pads = [max(GEN["gemma_words"]) - n for n in GEN["gemma_words"]]
+    cases = [  # (name, dtype, B, KV, G, T, D, n_pad, window, tol)
+        ("gpt2_bench", torch.bfloat16, 8, 12, 1, 192, 64,
+         (0, 17, 40, 64, 90, 100, 120, 3), None, 2e-2),
+        ("gemma_bench", torch.bfloat16, 8, 1, 4, 192, 256, (0, 33) * 4,
+         None, 2e-2),
+        ("ragged_f32", torch.float32, 3, 2, 2, 77, 64, (0, 9, 40), None,
+         1e-5),
+        ("gemma_path", torch.bfloat16, 4, 1, 4, T_gemma, 256, pads,
+         GEN["window"], 2e-2),
+        ("gemma_path_f32", torch.float32, 4, 1, 4, T_gemma, 256, pads,
+         GEN["window"], 1e-5),
+        ("f16_d32", torch.float16, 3, 2, 2, 40, 32, (5, 0, 39), None, 2e-2),
+    ]
+    out = {}
+    n0 = da.decode_attention.launches
+    for name, dt, B, KV, G, T, D, n_pad, window, tol in cases:
+        q, kc, vc, ok = decode_inputs(torch, dev, dt, B, KV, G, T, D,
+                                      seed=T + D, n_pad=n_pad,
+                                      window=window)
+        scale = D ** -0.5
+        ctx = da.decode_attention(q, kc, vc, ok, scale)
+        ref = da.xla_reference(q, kc, vc, ok, scale)
+        torch.cuda.synchronize()
+        e = max_err(ctx, ref)
+        print(f"decode {name}: {dt} B={B} KV={KV} G={G} T={T} D={D} "
+              f"window={window}: max |ctx err| {e:.3e} (tolerance {tol:g})")
+        check(bool(torch.isfinite(ctx).all()), f"decode {name} non-finite")
+        check(e <= tol, f"decode {name} disagrees with its plain version")
+        out[name] = (e, (q, kc, vc, ok, scale))
+    check(da.decode_attention.launches == n0 + len(cases),
+          f"decode launches {da.decode_attention.launches - n0}, expected "
+          f"{len(cases)}")
+    return out
+
+
 def check_model(torch, dev):
     """GPT-2 small in f32: prefill and one paged decode step through the
     kernels against the same through the plain versions."""
@@ -748,13 +835,15 @@ def serve(torch, fa, da):
                                     eng.decode_s)
     fa.flash_attention_fwd.launches = 0
     da.paged_decode_attention.launches = 0
+    da.decode_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, adapter=a) for p, a in zip(prompts, routes)]
     done = eng.drain()
     wall = time.perf_counter() - t0
     launches = {"flash": fa.flash_attention_fwd.launches,
-                "paged": da.paged_decode_attention.launches}
+                "paged": da.paged_decode_attention.launches,
+                "decode": da.decode_attention.launches}
     prefills = eng.prefills - prefills0
     steps = eng.decode_steps - steps0
     check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} terminal")
@@ -769,6 +858,8 @@ def serve(torch, fa, da):
           f"flash launches {launches['flash']} != {prefills} x {LAYERS}")
     check(launches["paged"] == steps * LAYERS,
           f"paged launches {launches['paged']} != {steps} x {LAYERS}")
+    check(launches["decode"] == 0, f"serving launched the contiguous "
+          f"decode kernel {launches['decode']} times")
     ttft = sorted(r.ttft_ms for r in reqs)
     tpot = sorted(r.tpot_ms for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
@@ -941,6 +1032,7 @@ def train(torch, dev, work, kernels):
             "bwd_dq": LAYERS * micro if impl == "split" else 0,
             "bwd_dkv": LAYERS * micro if impl == "split" else 0,
             "lora_epilogue": 2 * LAYERS * fwd_passes, "paged": 0,
+            "decode": 0,
             "fused_ce_fwd": 0, "fused_ce_dh": 0, "fused_ce_dw": 0,
             "fused_ce_fwd_lora": 0, "fused_ce_dh_lora": 0,
             "fused_ce_dw_lora": 0}
@@ -1164,7 +1256,8 @@ def gemma_launches(M: int, E: int, impl: str, mode: str) -> dict:
             "bwd_dkv": GEMMA_LAYERS * M if impl == "split" else 0,
             "lora_epilogue": (0 if mode == "full"
                               else GEMMA_LAYERS * GEMMA_SITES * fwd),
-            "paged": 0, "fused_ce_fwd": 0 if head else C * fwd,
+            "paged": 0, "decode": 0,
+            "fused_ce_fwd": 0 if head else C * fwd,
             "fused_ce_dh": 0 if head else C * M,
             "fused_ce_dw": C * M if mode == "full" else 0,
             "fused_ce_fwd_lora": C * fwd if head else 0,
@@ -1387,6 +1480,206 @@ def eval_ppl_phase(torch, kernels, gemma, head, gpt2):
     return stats, total, launches
 
 
+def run_generate(argv, stats=None):
+    """cli.generate.main(argv + --json) -> its records (one a prompt)."""
+    import contextlib
+    import io
+
+    from mobilefinetuner_tpu_torch.cli import generate
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = generate.main(argv + ["--json"], stats=stats)
+    check(rc == 0, f"generate.main returned {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+
+
+def generate_prompts(tok, family):
+    """The generate phase's prompts as text, with their token counts:
+    GPT-2 (a byte-level vocabulary with no merges: a character a token),
+    8 prompts of 8-128 tokens; Gemma (a corpus word a token, after the
+    BOS), 4 prompts of about 600 tokens."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.data.synthetic import CORPUS_WORDS
+    rng = np.random.default_rng(7)
+    words = [CORPUS_WORDS[i] for i in rng.integers(0, len(CORPUS_WORDS),
+                                                   1000)]
+    if family == "gpt2":
+        lens = [GEN["gpt2_min"], GEN["gpt2_max"]] + [
+            int(n) for n in rng.integers(GEN["gpt2_min"], GEN["gpt2_max"],
+                                         GEN["gpt2_batch"] - 2)]
+        text = " ".join(words)
+        prompts = [text[i:i + n] for i, n in enumerate(lens)]
+        want = lens
+    else:
+        prompts = ["".join(" " + w for w in words[i:i + n])
+                   for i, n in enumerate(GEN["gemma_words"])]
+        want = [n + 1 for n in GEN["gemma_words"]]
+    got = [len(tok.encode(p)) for p in prompts]
+    check(got == want, f"{family} prompt token counts {got} != {want}")
+    return prompts, got
+
+
+def teacher_forced_check(torch, dev, family, model_dir, adapter, prompts,
+                         records):
+    """The JAX naive_rollout oracle made robust to argmax ties: prompt +
+    generated ids through one plain f32 full forward (no cache,
+    attn_impl="plain", the adapter applied naively); at each generated
+    position the chosen token's logit must lie within 1e-3 of the
+    maximum. Returns the largest gap."""
+    from mobilefinetuner_tpu_torch.cli.family import (apply_adapter,
+                                                      load_family)
+    from mobilefinetuner_tpu_torch.models.generate import (_head_lora,
+                                                           left_pad)
+    b = load_family(model_dir, family, device=dev)
+    lora = apply_adapter(b, adapter, lora_merge=False)
+    enc = [b.tok.encode(p) for p in prompts]
+    ids, mask = left_pad(enc, b.tok.pad_id)
+    P = ids.shape[1]
+    gen_ids = torch.tensor([r["ids"] for r in records], device=dev)
+    n_new = gen_ids.shape[1]
+    full = torch.cat([torch.as_tensor(ids, device=dev).long(), gen_ids],
+                     dim=1)
+    fmask = torch.cat([torch.as_tensor(mask, device=dev),
+                       torch.ones_like(gen_ids, dtype=torch.int32)], dim=1)
+    with torch.no_grad():
+        h = b.model.hidden_states(b.config, b.params, full, fmask,
+                                  lora=lora, attn_impl="plain",
+                                  lora_impl="naive")
+        h = h[:, P - 1:P - 1 + n_new]
+        logits = h @ b.params[b.head_key].T
+        logits = _head_lora(logits, h, None if lora is None
+                            else lora["blocks"], "naive")
+    chosen = logits.gather(-1, gen_ids[..., None])[..., 0]
+    gap = float((logits.max(-1).values - chosen).max())
+    del b, logits
+    return gap
+
+
+def generate_phase(torch, dev, kernels, gpt2, gemma):
+    """cli.generate.main on both families at full width and depth, launch
+    counts set to 0 just before each run: GPT-2 small, bf16, 8 ragged
+    left-padded prompts of 8-128 tokens, 64 new tokens, greedy, the
+    `train` adapter dynamic; Gemma-3-270M, bf16, 4 prompts of ~600 tokens
+    (T > the 512 window), the head adapter dynamic, whole-prompt and with
+    --prefill_chunk 256 (identical ids); then per family one f32 run of
+    16 new tokens held by teacher forcing against a plain full forward.
+    Row 13 must launch L x (N - 1) times a run, the flash forward L times
+    a whole-prompt prefill, the LoRA epilogue at every adapter site of
+    the prefill and of each decode step, nothing else."""
+    from mobilefinetuner_tpu_torch.data.tokenizer_bpe import GPT2BPETokenizer
+    from mobilefinetuner_tpu_torch.data.tokenizer_gemma import \
+        GemmaTokenizer
+    gpt2_dir, gpt2_adapter = gpt2
+    gemma_dir, head_adapter = gemma
+    N = GEN["new"]
+    runs, launches = {}, {}
+    fams = {"gpt2": (gpt2_dir, gpt2_adapter, GPT2BPETokenizer, LAYERS,
+                     2 * LAYERS),
+            "gemma": (gemma_dir, head_adapter, GemmaTokenizer, GEMMA_LAYERS,
+                      GEMMA_SITES * GEMMA_LAYERS + 1)}
+    plan = [("gpt2", "bfloat16", N, []),
+            ("gpt2_tf32", "float32", GEN["tf_new"], ["--no_eos_stop"]),
+            ("gemma", "bfloat16", N, []),
+            ("gemma_chunked", "bfloat16", N,
+             ["--prefill_chunk", str(GEN["chunk"])]),
+            ("gemma_tf32", "float32", GEN["tf_new"], ["--no_eos_stop"])]
+    prompts = {}
+    for name, dtype, n_new, extra in plan:
+        fam = name.split("_")[0]
+        mdir, adapter, tok_cls, L, sites = fams[fam]
+        if fam not in prompts:
+            prompts[fam] = generate_prompts(tok_cls.from_pretrained(mdir),
+                                            fam)
+        argv = ["--pretrained_dir", mdir, "--lora_path", adapter,
+                "--lora_dynamic", "--greedy", "--max_new_tokens",
+                str(n_new), "--dtype", dtype, *extra]
+        for p in prompts[fam][0]:
+            argv += ["--prompt", p]
+        stats = {}
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = run_generate(argv, stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in kernels.items()}
+        P = max(prompts[fam][1])
+        chunked = "--prefill_chunk" in extra
+        windows = -(-P // GEN["chunk"]) if chunked else 0
+        want = {k: 0 for k in kernels}
+        want.update({
+            "decode": L * (n_new - 1),
+            "flash_fwd": 0 if chunked else L,
+            "lora_epilogue": (sites * n_new if not chunked else
+                              (sites - (fam == "gemma")) * windows + 1
+                              + sites * (n_new - 1))})
+        check(got == want, f"generate {name} launches {got}, expected "
+              f"{want}")
+        check(len(records) == len(prompts[fam][0])
+              and all(len(r["ids"]) <= n_new for r in records),
+              f"generate {name}: records {[len(r['ids']) for r in records]}")
+        if extra == ["--no_eos_stop"]:
+            check(all(len(r["ids"]) == n_new for r in records),
+                  f"generate {name}: rows shorter than {n_new}")
+            gap = teacher_forced_check(torch, dev, fam, mdir, adapter,
+                                       prompts[fam][0], records)
+            print(f"generate {name}: teacher-forced max (max logit - chosen "
+                  f"logit) {gap:.3e} (tolerance 1e-3)")
+            check(gap <= 1e-3, f"generate {name}: a greedy token is not the "
+                  f"plain forward's argmax (gap {gap:.3e})")
+        runs[name] = {"dtype": dtype, "batch": len(records),
+                      "prompt_tokens": prompts[fam][1], "new_tokens": n_new,
+                      "tokens_per_s": stats["tokens_per_s"],
+                      "prefill_ms": stats["prefill_ms"],
+                      "first_token_ms": stats["first_token_ms"],
+                      "decode_step_ms_p50": stats.get("decode_step_ms_p50"),
+                      "wall_s": wall, "ids": [r["ids"] for r in records]}
+        launches[name] = got
+    check(runs["gemma_chunked"]["ids"] == runs["gemma"]["ids"],
+          "generate gemma: --prefill_chunk ids differ from the whole-prompt "
+          "ids")
+    for r in runs.values():
+        r["ids_head"] = [ids[:8] for ids in r.pop("ids")]
+    total = {k: sum(v[k] for v in launches.values()) for k in kernels}
+    return runs, total, launches, prompts
+
+
+def decode_step_events(torch, dev, model_dir, adapter, family, prompts):
+    """Device time of one bf16 decode step (the CLI run's shape, the
+    adapter dynamic) from CUDA events around CUDA-graph replays, and the
+    time a step takes from the host (call_ms, events around eager
+    calls)."""
+    from mobilefinetuner_tpu_torch.cli.family import (apply_adapter,
+                                                      load_family)
+    from mobilefinetuner_tpu_torch.models import generate
+    b = load_family(model_dir, family, device=dev)
+    lora = apply_adapter(b, adapter, lora_merge=False)
+    ids, mask = generate.left_pad([b.tok.encode(p) for p in prompts],
+                                  b.tok.pad_id)
+    ids = torch.as_tensor(ids, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        _, (pk, pv) = b.model.hidden_states(
+            b.config, b.params, ids, mask, lora=lora, compute_dtype=bf,
+            collect_kv=True)
+        kc, vc = generate._caches(pk, pv, GEN["new"])
+        decoder = (generate.gpt2_decoder if family == "gpt2"
+                   else generate.gemma3_decoder)
+        step = decoder(b.config, b.params, kc, vc, mask, lora, bf)
+        tok = ids[:, -1].clone()
+        t = GEN["new"] // 2
+
+        def fn():
+            step(tok, t)
+        dev_ms, wall_ms = graph_ms(fn, 20), call_ms(fn, 20)
+    del b, kc, vc
+    return dev_ms, wall_ms
+
+
 def profile_gemma_train(torch, dev, gemma, head: bool = False):
     """Where one Gemma-3-270M LoRA train step (batch 4 x 256, bf16,
     targets full, 8 loss chunks; with `head`, the lm_head target too)
@@ -1543,6 +1836,44 @@ def gemma_kernel_entries(torch, fa, lf, dev):
             {"shape": "gate_proj: y 1024x2048, r 8, bf16 (gemma)"})}
 
 
+def decode_entry(torch, da, case):
+    """Row 13's entry of the kernels line at one check_decode case: its
+    times, the plain version's and SDPA's (a bool mask, the scale and
+    enable_gqa: the same function up to its output rounding), and its
+    bound from the attendable columns' K and V, q, ok and ctx."""
+    err, (q, kc, vc, ok, scale) = case
+    B, KV, G, D = q.shape
+    T = kc.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh = q.reshape(B, KV * G, 1, D)
+    mask = ok[:, None, None, :]
+    times = timed({
+        "ms": lambda: da.decode_attention(q, kc, vc, ok, scale),
+        "plain_ms": lambda: da.xla_reference(q, kc, vc, ok, scale),
+        "library_ms": lambda: sdpa(qh, kc, vc, attn_mask=mask, scale=scale,
+                                   enable_gqa=True)})
+    lib = sdpa(qh, kc, vc, attn_mask=mask, scale=scale, enable_gqa=True)
+    # and with the masked columns zeroed instead of poisoned
+    kz, vz = (t.masked_fill(~ok[:, None, :, None], 0) for t in (kc, vc))
+    lib_clean = sdpa(qh, kz, vz, attn_mask=mask, scale=scale,
+                     enable_gqa=True)
+    live = int(ok.sum()) * KV                   # attendable (b, kv) rows
+    isz = kc.element_size()
+    bnd = bound(2 * live * D * isz + q.numel() * isz + ok.numel()
+                + q.numel() * 4, 4 * D * G * live)
+    return kernel_entry(
+        "decode_attention", "decode_attention.cu", "decode_attention.py:137",
+        None, err, times, bnd,
+        {"shape": f"q {B}x{KV}x{G}x{D}, cache T {T}, {q.dtype}, "
+                  f"{int(ok.sum())} of {B * T} columns attendable",
+         "library_max_abs_err": max_err(
+             lib.reshape(B, KV, G, D),
+             da.xla_reference(q, kc, vc, ok, scale)),
+         "library_max_abs_err_unpoisoned": max_err(
+             lib_clean.reshape(B, KV, G, D),
+             da.xla_reference(q, kz, vz, ok, scale))})
+
+
 def fused_ce_times(torch, fc, args):
     """Times and bounds of the fused CE kernels at the Gemma chunk shape;
     the library yardstick is the unfused PyTorch pair: h @ W^T, then
@@ -1663,6 +1994,7 @@ def main() -> int:
                "bwd_dkv": fa.flash_attention_bwd_dkv,
                "lora_epilogue": lf.lora_epilogue,
                "paged": da.paged_decode_attention,
+               "decode": da.decode_attention,
                "fused_ce_fwd": fc.fused_ce_fwd,
                "fused_ce_dh": fc.fused_ce_bwd_dh,
                "fused_ce_dw": fc.fused_ce_bwd_dw,
@@ -1692,6 +2024,7 @@ def main() -> int:
     bwd = check_flash_bwd(torch, fa, dev)
     epi = check_epilogue(torch, lf, dev)
     paged_err, paged_args = check_paged(torch, da, dev)
+    decode_cases = check_decode(torch, da, dev)
     ce_err, ce_args = check_fused_ce(torch, fc, dev)
     ce_lora_err, ce_lora_args = check_fused_ce_lora(torch, fc, dev)
     params32 = check_model(torch, dev)
@@ -1735,6 +2068,19 @@ def main() -> int:
             (os.path.join(work, "gpt2"), os.path.join(work, "wiki"),
              adapter, train_stats["eval_batches"]))
         print(json.dumps({"eval_ppl": eval_stats, "launches": eval_runs}))
+        torch.cuda.empty_cache()
+        gen_dirs = {"gpt2": (os.path.join(work, "gpt2"), adapter),
+                    "gemma": (gemma[4], head_adapter)}
+        gen_stats, launches_gen, gen_runs, gen_prompts = generate_phase(
+            torch, dev, kernels, gen_dirs["gpt2"], gen_dirs["gemma"])
+        for fam in ("gpt2", "gemma"):
+            dev_ms, wall_ms = decode_step_events(
+                torch, dev, *gen_dirs[fam], fam, gen_prompts[fam][0])
+            gen_stats[fam]["decode_step_events"] = {
+                "device_ms": dev_ms, "wall_ms": wall_ms,
+                "device_busy_share": dev_ms
+                / gen_stats[fam]["decode_step_ms_p50"]}
+        print(json.dumps({"generate": gen_stats, "launches": gen_runs}))
         torch.cuda.empty_cache()
         prof.update(profile_gemma_train(torch, dev, gemma))
         prof.update(profile_gemma_train(torch, dev, gemma, head=True))
@@ -1804,12 +2150,17 @@ def main() -> int:
                      + ok.numel() + Sl * KV * G * Dp * 4,
                      4 * Dp * G * KV * int(ok.sum()))
 
+    dec_entries = {name: decode_entry(torch, da, decode_cases[name])
+                   for name in ("gpt2_bench", "gemma_path")}
+
     ce_times, ce_bounds = fused_ce_times(torch, fc, ce_args)
     gemma_entries = gemma_kernel_entries(torch, fa, lf, dev)
-    serve_names = {"flash_fwd": "flash", "paged": "paged"}
+    serve_names = {"flash_fwd": "flash", "paged": "paged",
+                   "decode": "decode"}
 
     def by_path(name):
         return {"serve": launches_serve.get(serve_names.get(name), 0),
+                "generate": launches_gen[name],
                 "train": launches_train[name],
                 "gemma_train": launches_gemma[name],
                 "gemma_full_ft": launches_full[name],
@@ -1859,7 +2210,12 @@ def main() -> int:
         kernel_entry(
             "paged_decode_attention", "paged_decode_attention.cu",
             "decode_attention.py:223", total("paged"), paged_err,
-            pg_times, pg_bound, {"launches_by_path": by_path("paged")}),
+            pg_times, pg_bound, {"launches_by_path": by_path("paged"),
+                                 "library": "none: no single PyTorch call "
+                                            "reads a block table"}),
+        dict(dec_entries["gpt2_bench"], launches=total("decode"),
+             launches_by_path=by_path("decode"),
+             gemma=dec_entries["gemma_path"]),
     ]
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
     for name, key, line, err in (

@@ -1,7 +1,7 @@
 """Gemma-3 text decoder in PyTorch (port of mobilefinetuner_tpu/models/
-gemma3.py: training and inference forward; offload, sequence parallelism
-and the serving KV collection are not ported, ROADMAP.md port items P7
-and P9).
+gemma3.py: training and inference forward, and the K/V collection of the
+generate prefill; offload and sequence parallelism are not ported,
+ROADMAP.md port item P9).
 
 Parameters keep the JAX package's names and stacked [L, ...] layout,
 linear weights [in, out], as a nested dict of tensors:
@@ -114,7 +114,8 @@ def _block(c: Gemma3TextConfig, bp, x, padding_mask, rope, window,
            lora_b, i: int, seed: Optional[int], lora_dropout: float,
            lora_impl: str, attn_impl: str):
     """One Gemma-3 block on x [B, S, H]; rope = (cos, sin) of this layer's
-    theta, window = its sliding window (None on a global layer)."""
+    theta, window = its sliding window (None on a global layer). Returns
+    (x, (k, v)): k after the q/k-norm and RoPE, [B, Hkv, S, D]."""
     eps = c.rms_norm_eps
     B, S, _ = x.shape
     nq, nkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
@@ -150,7 +151,7 @@ def _block(c: Gemma3TextConfig, bp, x, padding_mask, rope, window,
     up = lora(h @ m["up_w"], h, 5)
     act = gelu_tanh(gate) * up
     down = rms_norm(lora(act @ m["down_w"], act, 6), bp["post_ffn_ln"], eps)
-    return x + down
+    return x + down, (k, v)
 
 
 def hidden_states(config: Gemma3TextConfig, params, input_ids,
@@ -158,10 +159,15 @@ def hidden_states(config: Gemma3TextConfig, params, input_ids,
                   compute_dtype=torch.float32, remat: bool = False,
                   lora_dropout: float = 0.0,
                   dropout_seed: Optional[int] = None,
-                  attn_impl: str = "auto", lora_impl: str = "auto"):
-    """Final-norm hidden states [B, S, H]. attn_impl: "auto" (the flash
-    kernels off the CPU), "plain" or "flash" (ops/attention.py);
-    lora_impl: models/lora_apply.py; dropout_seed None = eval mode."""
+                  attn_impl: str = "auto", lora_impl: str = "auto",
+                  collect_kv: bool = False):
+    """Final-norm hidden states [B, S, H]; with collect_kv also every
+    layer's K (after q/k-norm and RoPE) and V stacked to [L, B, Hkv, S, D]
+    (the generate prefill). attn_impl: "auto" (the flash kernels off the
+    CPU), "plain" or "flash" (ops/attention.py); lora_impl:
+    models/lora_apply.py; dropout_seed None = eval mode."""
+    if remat and collect_kv:
+        raise ValueError("collect_kv (generate prefill) runs without remat")
     c = config
     B, S = input_ids.shape
     x = params["embed"][input_ids].to(compute_dtype)
@@ -178,6 +184,7 @@ def hidden_states(config: Gemma3TextConfig, params, input_ids,
              False: rope_cos_sin(positions, c.head_dim,
                                  c.rope_local_base_freq)}
     lora_b = None if lora is None else lora.get("blocks")
+    ks, vs = [], []
     for i in range(c.num_hidden_layers):
         glob = c.is_global_layer(i)
         args = (attention_mask, ropes[glob],
@@ -187,12 +194,18 @@ def hidden_states(config: Gemma3TextConfig, params, input_ids,
         bp = layer_params(params, i, compute_dtype)
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                lambda x_, bp_=bp, args_=args: _block(c, bp_, x_, *args_),
+                lambda x_, bp_=bp, args_=args: _block(c, bp_, x_,
+                                                      *args_)[0],
                 x, use_reentrant=False)
-        else:
-            x = _block(c, bp, x, *args)
-    return rms_norm(x, params["final_norm"].to(compute_dtype),
-                    c.rms_norm_eps)
+            continue
+        x, (k, v) = _block(c, bp, x, *args)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = rms_norm(x, params["final_norm"].to(compute_dtype), c.rms_norm_eps)
+    if collect_kv:
+        return x, (torch.stack(ks), torch.stack(vs))
+    return x
 
 
 def forward(config: Gemma3TextConfig, params, input_ids,

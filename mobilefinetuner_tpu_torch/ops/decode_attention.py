@@ -1,8 +1,29 @@
-"""Block-paged decode attention: the Hopper kernel, its wrapper and its
-plain version (port of mobilefinetuner_tpu/ops/decode_attention.py, the
-paged part; the contiguous-cache `decode_attention` is still to port).
+"""Decode attention: the Hopper kernels, their wrappers and their plain
+versions (port of mobilefinetuner_tpu/ops/decode_attention.py): the
+contiguous-cache `decode_attention` (row 13) and the block-paged
+`paged_decode_attention` (row 12).
 
-Shapes (GPT-2 is the G = 1 case):
+Contiguous cache (the generate path, models/generate.py; GPT-2 is the
+G = 1 case):
+  q        [B, KV, G, D]       current-token queries, grouped by kv head,
+                               in the cache dtype
+  k_cache  [B, KV, T, D]       any T >= 1 (T = P + N is ragged)
+  v_cache  [B, KV, T, D]
+  ok       [B, T] bool         attendable columns (validity AND any
+                               sliding window: the caller composes)
+  -> ctx   [B, KV, G, D] float32
+
+  xla_reference           the plain version (the kernel's oracle): f32
+                          scores of the storage-dtype operands, NEG_INF
+                          masking, f32 softmax, probabilities cast to the
+                          cache dtype, f32 P.V.
+  decode_attention        CUDA tensors launch `csrc/decode_attention.cu`
+                          (or raise ValueError); CPU tensors take
+                          xla_reference. `decode_attention.launches`
+                          counts the kernel launches.
+  decode_eligible         the kernel's own shape rule.
+
+Block-paged pool (the serve engine):
   q        [S, KV, G, D]       current-token queries per slot
   pool_k   [NB, L, KV, bT, D]  shared block pools (all layers)
   pool_v   [NB, L, KV, bT, D]
@@ -34,6 +55,86 @@ from mobilefinetuner_tpu_torch.kernels import build
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BLOCK_T = 1024
+DECODE_HEAD_DIMS = (32, 64, 128, 256)
+MAX_BATCH = 65535                    # the contiguous kernel's grid rows
+
+
+def xla_reference(q, k_cache, v_cache, ok, scale):
+    """Plain contiguous decode attention (the kernel's oracle; the JAX
+    package's `xla_reference`, the models/generate.py decode-step
+    attention): scores of q against the cache in f32, NEG_INF where ok is
+    false, softmax in f32, probabilities cast to the cache dtype, f32 P.V."""
+    s = torch.einsum("bkgd,bktd->bkgt", q.float(), k_cache.float()) * scale
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgt,bktd->bkgd", p.to(v_cache.dtype).float(),
+                        v_cache.float())
+
+
+def decode_eligible(KV: int, T: int, D: int, itemsize: int,
+                    G: int = 1) -> bool:
+    """The kernel takes any T >= 1 (an online softmax over 32-row tiles:
+    no whole-T block to fit), D in DECODE_HEAD_DIMS in f32, bf16 and f16,
+    and any KV, G >= 1."""
+    return (KV >= 1 and G >= 1 and T >= 1 and D in DECODE_HEAD_DIMS
+            and itemsize in (2, 4))
+
+
+def _decode_kernel():
+    fn = build.load("decode_attention").mft_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q, k_cache, v_cache, ok, scale):
+    """Decode attention over a whole contiguous cache (shapes in the
+    module docstring): the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if q.dtype != k_cache.dtype or v_cache.dtype != k_cache.dtype:
+        # the kernel reads q in the cache dtype; a silent downcast of f32
+        # queries against a bf16 cache would diverge from xla_reference
+        raise ValueError(
+            f"decode_attention requires q.dtype == cache dtype "
+            f"(got {q.dtype} vs {k_cache.dtype}/{v_cache.dtype})")
+    if q.device.type == "cpu":
+        return xla_reference(q, k_cache, v_cache, ok, scale)
+    B, KV, G, D = q.shape
+    T = k_cache.shape[2]
+    dev = q.device
+    if not all(t.device == dev for t in (k_cache, v_cache, ok)):
+        raise ValueError(f"decode_attention: every operand must be on {dev}")
+    if k_cache.shape != (B, KV, T, D) or v_cache.shape != k_cache.shape \
+            or ok.shape != (B, T):
+        raise ValueError(
+            f"decode_attention shapes: q {tuple(q.shape)}, caches "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, ok "
+            f"{tuple(ok.shape)}")
+    if ok.dtype != torch.bool or q.dtype not in DTYPE_CODES:
+        raise ValueError(f"decode_attention dtypes: ok {ok.dtype} (bool), "
+                         f"q {q.dtype}")
+    if not decode_eligible(KV, T, D, q.element_size(), G) or B > MAX_BATCH:
+        raise ValueError(
+            f"decode_attention kernel does not take B={B}, KV={KV}, G={G}, "
+            f"T={T}, D={D}, {q.dtype} (see decode_eligible)")
+    ts = (q, k_cache, v_cache, ok)
+    if not all(t.is_contiguous() for t in ts) \
+            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention takes contiguous operands and "
+                         "16-byte aligned caches")
+    ctx = torch.empty(B, KV, G, D, device=dev, dtype=torch.float32)
+    code = _decode_kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ok.data_ptr(),
+        ctx.data_ptr(), B, KV, G, D, T, DTYPE_CODES[q.dtype], float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("decode_attention", code)
+    decode_attention.launches += 1
+    return ctx
+
+
+decode_attention.launches = 0
 
 
 def paged_attention(q, pool_k, pool_v, tbl, layer, ok, scale):

@@ -526,3 +526,83 @@ def test_gemma_kernel_path_matches_plain_path(dev):
     assert abs(out[0][0] - out[1][0]) <= 1e-4
     for a, b in zip(out[0][1], out[1][1]):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+def _decode_case(dev, dtype, B, KV, G, T, D, seed, poison=True):
+    """q, caches and a left-pad + tail mask whose masked columns hold
+    +-1e6 (+-6e4 in f16, its largest finite magnitude is 65504)."""
+    q = _randn(dev, dtype, B, KV, G, D, seed=seed)
+    kc = _randn(dev, dtype, B, KV, T, D, seed=seed + 1)
+    vc = _randn(dev, dtype, B, KV, T, D, seed=seed + 2)
+    cols = torch.arange(T, device=dev)
+    start = torch.arange(B, device=dev) * 5 % max(T // 3, 1)
+    end = torch.maximum(T - 1 - torch.arange(B, device=dev) % 3, start)
+    ok = (cols[None] >= start[:, None]) & (cols[None] <= end[:, None])
+    if poison:
+        big = 6e4 if dtype == torch.float16 else 1e6
+        kc.masked_fill_(~ok[:, None, :, None], big)
+        vc.masked_fill_(~ok[:, None, :, None], -big)
+    return q, kc, vc, ok
+
+
+@pytest.mark.parametrize("dtype,B,KV,G,T,D,tol", [
+    (torch.bfloat16, 8, 12, 1, 192, 64, 2e-2),     # GPT-2 microbench
+    (torch.bfloat16, 8, 1, 4, 192, 256, 2e-2),     # Gemma microbench
+    (torch.float32, 4, 1, 4, 663, 256, 1e-5),      # ragged T, f32 D 256
+    (torch.float16, 3, 2, 2, 37, 32, 2e-2),
+    (torch.float32, 2, 3, 1, 1, 128, 1e-5),        # T = 1
+])
+def test_decode_kernel_matches_plain(dev, dtype, B, KV, G, T, D, tol):
+    q, kc, vc, ok = _decode_case(dev, dtype, B, KV, G, T, D, seed=T + D)
+    n0 = da.decode_attention.launches
+    ctx = da.decode_attention(q, kc, vc, ok, D ** -0.5)
+    assert da.decode_attention.launches == n0 + 1
+    ref = da.xla_reference(q, kc, vc, ok, D ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ctx).all())
+    assert float((ctx - ref).abs().max()) <= tol
+
+
+def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q, kc, vc, ok = _decode_case(dev, torch.float32, 2, 2, 1, 16, 16, 0)
+    n0 = da.decode_attention.launches
+    with pytest.raises(ValueError, match="does not take"):
+        da.decode_attention(q, kc, vc, ok, 0.25)                 # D 16
+    q, kc, vc, ok = _decode_case(dev, torch.float32, 2, 2, 1, 16, 64, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        da.decode_attention(q.bfloat16(), kc, vc, ok, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, kc.transpose(2, 3).contiguous()
+                            .transpose(2, 3), vc, ok, 0.125)
+    assert da.decode_attention.launches == n0
+
+
+def _tiny_gpt2_d64(dev):
+    cfg = dataclasses.replace(GPT2Config.tiny(vocab_size=300), n_embd=128,
+                              n_head=2, n_layer=2, n_positions=128)
+    return cfg, gpt2.init_params(cfg, seed=0, device=dev)
+
+
+def test_generate_kernel_path_matches_plain_path(dev, monkeypatch):
+    """gpt2_generate (D = 64) in f32 on the card: the kernel path launches
+    row 13 L x (N - 1) times and gives the plain path's greedy ids; under
+    attn_impl="auto" no CUDA cache reaches xla_reference."""
+    cfg, params = _tiny_gpt2_d64(dev)
+    ids, mask = (torch.as_tensor(a, device=dev) for a in generate.left_pad(
+        [[5, 6, 7, 8, 9, 10, 11], [12, 13], [14, 15, 16, 17]], 0))
+    N = 12
+    scfg = generate.SampleConfig(max_new_tokens=N, greedy=True)
+    plain = generate.gpt2_generate(cfg, params, ids, mask, scfg,
+                                   attn_impl="plain")
+
+    def refuse(*a, **k):
+        raise AssertionError("xla_reference reached under attn_impl=auto")
+
+    monkeypatch.setattr(generate, "xla_reference", refuse)
+    monkeypatch.setattr(da, "xla_reference", refuse)
+    da.decode_attention.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    auto = generate.gpt2_generate(cfg, params, ids, mask, scfg)
+    assert da.decode_attention.launches == cfg.n_layer * (N - 1)
+    assert fa.flash_attention_fwd.launches == cfg.n_layer
+    assert torch.equal(auto.cpu(), plain.cpu())

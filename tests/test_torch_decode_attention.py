@@ -1,10 +1,15 @@
-"""Port paged decode attention (mobilefinetuner_tpu_torch/ops/
-decode_attention.py) against the JAX package's `paged_attention` and its
-Pallas `paged_decode_attention` (interpret mode on the CPU): the same
-numpy pools, tables and masks through both. Covers trash-padded table
-rows, idle slots (pos 0 on the trash page), a sliding-window mask and
-G = 2 query groups. f32 max abs error <= 1e-5; bf16 <= 2e-2 (the
-probabilities round to bf16 at different running maxima)."""
+"""Port decode attention (mobilefinetuner_tpu_torch/ops/
+decode_attention.py) against the JAX package's, on the CPU.
+
+Paged (row 12): `paged_attention` and the Pallas `paged_decode_attention`
+(interpret mode) on the same numpy pools, tables and masks; covers
+trash-padded table rows, idle slots (pos 0 on the trash page), a
+sliding-window mask and G = 2 query groups. Contiguous (row 13):
+`xla_reference` and the Pallas `decode_attention` (interpret mode) at the
+JAX test's four shapes, and `xla_reference` alone at ragged T (the TPU
+kernel takes T % 8 == 0 only; the port's kernel any T); masked columns
+poisoned with +-1e6 change nothing. f32 max abs error <= 1e-5; bf16 <=
+2e-2 (the probabilities round to bf16 at different places)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +17,10 @@ import pytest
 import torch
 
 from mobilefinetuner_tpu.ops.decode_attention import (
+    decode_attention as jax_decode_attention,
     paged_attention as jax_paged_attention,
-    paged_decode_attention as jax_paged_decode_attention)
+    paged_decode_attention as jax_paged_decode_attention,
+    xla_reference as jax_xla_reference)
 from mobilefinetuner_tpu_torch.ops import decode_attention as port
 
 TOLS = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -99,3 +106,80 @@ def test_paged_validation_and_eligibility():
     assert not port.paged_eligible(1, 4, 16, 256, 4)
     assert not port.paged_eligible(4, 1, 16, 16, 4)   # tiny test head dim
     assert not port.paged_eligible(4, 1, 4096, 64, 2)
+
+
+# ------------------------------------------------ contiguous cache (row 13)
+
+def _decode_case(B, KV, G, T, D, seed=0):
+    """q, caches and a left-padding-style mask with scattered holes, the
+    last column (the fed token) always attendable, as the JAX test makes
+    them."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    kc = rng.standard_normal((B, KV, T, D)).astype(np.float32)
+    vc = rng.standard_normal((B, KV, T, D)).astype(np.float32)
+    ok = rng.random((B, T)) < 0.7
+    ok[:, -1] = True
+    return q, kc, vc, ok
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 12, 1, 64, 64), "float32"),     # GPT-2 head layout
+    ((2, 12, 1, 64, 64), "bfloat16"),
+    ((2, 1, 4, 48, 256), "float32"),     # Gemma GQA layout
+    ((3, 2, 2, 40, 32), "bfloat16"),     # multi-kv-head GQA
+    ((2, 3, 2, 37, 64), "float32"),      # ragged T
+    ((2, 1, 4, 21, 256), "bfloat16"),    # ragged T, Gemma layout
+])
+def test_decode_matches_jax(shape, dtype):
+    B, KV, G, T, D = shape
+    q, kc, vc, ok = _decode_case(B, KV, G, T, D, seed=T + D)
+    (jq, jk, jv), (tq, tk, tv) = _to(dtype, q, kc, vc)
+    scale = D ** -0.5
+    wants = [np.asarray(jax_xla_reference(jq, jk, jv, jnp.asarray(ok),
+                                          scale))]
+    if T % 8 == 0:                       # the TPU kernel's shape rule
+        wants.append(np.asarray(jax_decode_attention(
+            jq, jk, jv, jnp.asarray(ok), scale)))
+    port.decode_attention.launches = 0
+    got_plain = port.xla_reference(tq, tk, tv, torch.from_numpy(ok), scale)
+    got_wrap = port.decode_attention(tq, tk, tv, torch.from_numpy(ok), scale)
+    assert port.decode_attention.launches == 0     # CPU: plain version
+    assert got_wrap.dtype == torch.float32 and got_wrap.shape == q.shape
+    assert port.decode_eligible(KV, T, D, tq.element_size(), G)
+    for got in (got_plain, got_wrap):
+        for want in wants:
+            assert np.max(np.abs(got.numpy() - want)) <= TOLS[dtype]
+
+
+def test_decode_masked_columns_contribute_nothing():
+    """Left-pad columns poisoned with +-1e6 (and not-yet-written zero
+    columns) must not move the output."""
+    B, KV, G, T, D = 2, 4, 1, 37, 64
+    q, kc, vc, _ = _decode_case(B, KV, G, T, D, seed=5)
+    ok = np.arange(T)[None, :] >= np.array([[8], [3]])
+    ok[:, 30:] = False                   # unwritten tail columns
+    kc[:, :, 30:] = vc[:, :, 30:] = 0.0
+    args = [torch.from_numpy(a) for a in (q, kc, vc)]
+    base = port.decode_attention(*args, torch.from_numpy(ok), D ** -0.5)
+    kc[0, :, :8], vc[0, :, :8] = 1e6, -1e6
+    kc[1, :, :3], vc[1, :, :3] = -1e6, 1e6
+    got = port.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)),
+                                torch.from_numpy(ok), D ** -0.5)
+    assert np.max(np.abs(got.numpy() - base.numpy())) <= 1e-6
+
+
+def test_decode_validation_and_eligibility():
+    q, kc, vc, ok = _decode_case(2, 2, 2, 16, 32)
+    with pytest.raises(ValueError, match="dtype"):
+        port.decode_attention(torch.from_numpy(q).bfloat16(),
+                              torch.from_numpy(kc), torch.from_numpy(vc),
+                              torch.from_numpy(ok), 1.0)
+    assert port.decode_eligible(12, 192, 64, 2)            # GPT-2 small
+    assert port.decode_eligible(1, 190, 64, 2)             # ragged T
+    assert port.decode_eligible(1, 32768, 256, 4, G=4)     # Gemma context
+    assert port.decode_eligible(3, 1, 32, 2, G=2)
+    assert not port.decode_eligible(12, 192, 16, 4)        # D outside
+    assert not port.decode_eligible(12, 192, 96, 2)
+    assert not port.decode_eligible(1, 0, 64, 2)
+    assert not port.decode_eligible(1, 64, 64, 8)          # f64
