@@ -10,9 +10,14 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      sm_90a, one nvcc per source, all at once;
   3. hold each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at a few others, with the tolerance
-     printed: the flash forward (with and without dropout), the merged
+     printed: the flash forward (bf16 / f16 on the tensor-core kernel,
+     f32 on the FMA kernel; with and without dropout, bf16 dropout with
+     the merged backward on its output, bf16 D 256 with GQA, a window
+     inside a key tile and a ragged S), the merged
      and the split flash backward, the LoRA epilogue, the paged decode,
-     the fused CE forward, dh and dW (rows 6-8) and their head-adapter
+     the fused CE forward, dh (bf16 on the tensor-core kernel: R 37 and a
+     ragged V too, two calls bit-identical) and dW (rows 6-8), a head dim
+     and a bf16 H the kernels do not take refused, and their head-adapter
      variants (rows 9-11, dW in both its modes), the contiguous decode
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
@@ -128,6 +133,49 @@ GEN = dict(gpt2_batch=8, gpt2_min=8, gpt2_max=128, new=64, tf_new=16,
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def refuses(fn) -> bool:
+    """Whether fn() raises the ValueError a wrapper gives for what its
+    kernel does not take (checked before any launch); any other error
+    propagates."""
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
+def ptxas_summary(log: str) -> list:
+    """[kernel, registers, spill stores, spill loads] of each kernel in an
+    nvcc -Xptxas -v build log, the kernel as `name<type, D or flags>`."""
+    import re
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
+             "Lb1E": "lora", "Lb0E": "base"}
+    rows, kernel, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)"
+                      r"(\w+)'", line)
+        if m:   # <length><name>I<template args>E... after the namespace
+            n = int(m.group(1))
+            base, rest = m.group(2)[:n], m.group(2)[n:]
+            args = re.findall(r"13__nv_bfloat16|6__half|Lb[01]E|Li\d+E",
+                              rest) if rest.startswith("I") else []
+            if rest.startswith("If"):
+                args.insert(0, "f")
+            args = [a[2:-1] if a.startswith("Li") else names.get(a, a)
+                    for a in args]
+            kernel = f"{base}<{', '.join(args)}>" if args else base
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append([kernel, int(m.group(1)), *spills])
+            kernel, spills = None, (0, 0)
+    return rows
 
 
 def card_line() -> str:
@@ -325,8 +373,13 @@ def paged_inputs(torch, dev, dtype, S, KV, G, D, bT, M, L, seed,
 # ------------------------------------------------------- kernel checks ------
 
 def check_flash(torch, fa, dev):
-    """Forward kernel vs flash_attention_reference; returns the training
-    case's max error (out) and its inputs."""
+    """The forward kernels vs flash_attention_reference (bf16 and f16: the
+    tensor-core kernel, f32: the FMA kernel): the path shapes, a bf16
+    dropout case whose output the merged backward then takes (against its
+    plain version), bf16 at D = 256 with GQA 4:1, a window that cuts
+    inside a key tile and a ragged S; and the refusal of a head dim the
+    kernels do not take. Returns the training case's max error (out) and
+    its inputs."""
     cases = [  # (name, dtype, B, Hq, Hkv, S, D, n_real, causal, window,
         #         p_drop, tol)
         ("serving", torch.bfloat16, 1, 12, 12, 128, 64, (100,), True, None,
@@ -341,6 +394,10 @@ def check_flash(torch, fa, dev):
          0.0, 1e-2),
         ("dropout_0.1", torch.float32, 2, 4, 4, 128, 64, (128, 100), True,
          None, 0.1, 1e-4),
+        ("bf16_dropout_0.1", torch.bfloat16, 2, 4, 4, 128, 64, (128, 100),
+         True, None, 0.1, 1e-2),
+        ("bf16_d256_gqa_window_ragged", torch.bfloat16, 2, 8, 2, 200, 256,
+         (200, 150), True, 40, 0.0, 1e-2),
     ]
     training = None
     for (name, dt, B, Hq, Hkv, S, D, n_real, causal, window, p_drop,
@@ -361,6 +418,23 @@ def check_flash(torch, fa, dev):
               f"flash {name} disagrees with its plain version")
         if name == "training":
             training = (e_out, (q, k, v, pad))
+        if name == "bf16_dropout_0.1":
+            do = flash_inputs(torch, dev, dt, B, Hq, Hq, S, D, n_real,
+                              seed=S + 9)[0]
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            bkw = dict(scale=D ** -0.5, **kw)
+            args = (q, k, v, pad, lse, delta, do)
+            got = fa.flash_attention_bwd_merged(*args, **bkw)
+            ref = fa.flash_bwd_merged_reference(*args, **bkw)
+            torch.cuda.synchronize()
+            e_bwd = max(rel_err(a, b) for a, b in zip(got, ref))
+            print(f"flash bwd merged on the {name} forward: max err / max(1,"
+                  f" |ref|) {e_bwd:.3e} (tolerance 2e-2)")
+            check(e_bwd <= 2e-2, "merged bwd on the bf16 dropout forward "
+                  "disagrees with its plain version")
+    q = torch.zeros(1, 2, 8, 96, device=dev, dtype=torch.bfloat16)
+    check(refuses(lambda: fa.flash_attention_fwd(q, q, q)),
+          "flash_attention_fwd took D = 96")
     return training
 
 
@@ -638,11 +712,16 @@ def check_fused_ce(torch, fc, dev):
     part (dlse * p, p ~ 1 / V) is held on its own too: dh and dW again
     with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
     measured at most 3.5e-4 on an H100: a few coefs round the other way).
-    Returns the path case's max abs errors and inputs."""
+    dh of bf16 / f16 runs on the tensor-core kernel, of f32 on fused_ce.cu:
+    R 37 (a ragged row tile) with a ragged V and H 1,152 in bf16 too; the
+    path case's dh twice must give identical bits (no atomics), and a
+    bf16 H that is not a multiple of 8 must be refused. Returns the path
+    case's max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, tol, sm_tol)
         ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
         ("batch8", torch.bfloat16, 256, 262144, 640, 2e-3, 2e-3),
         ("ragged", torch.bfloat16, 120, 50257, 1152, 2e-3, 2e-3),
+        ("r37_ragged", torch.bfloat16, 37, 50257, 1152, 2e-3, 2e-3),
         ("ragged_f32", torch.float32, 120, 50257, 1152, 1e-4, 1e-4),
     ]
     path = None
@@ -682,6 +761,14 @@ def check_fused_ce(torch, fc, dev):
               f"part of dh / dW disagrees with its plain versions")
         if name == "path":
             path = (e, (h, w, lab, rl, dl, dg))
+            again = fc.fused_ce_bwd_dh(h, w, lab, rl, dl, dg)
+            check(bool(torch.equal(dh, again)),
+                  "fused CE dh: two calls gave different bits")
+            print("fused CE path: dh twice, identical bits")
+    h, w, lab, dl, dg = fused_ce_inputs(torch, dev, torch.bfloat16, 8, 100,
+                                        1004, seed=1)
+    check(refuses(lambda: fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)),
+          "fused_ce_bwd_dh took a bf16 H = 1004 (not a multiple of 8)")
     return path
 
 
@@ -1819,7 +1906,7 @@ def gemma_kernel_entries(torch, fa, lf, dev):
              f"window {window} (gemma)")
     return {
         "flash_fwd": kernel_entry(
-            "flash_attention_fwd", "flash_attention_fwd.cu",
+            "flash_attention_fwd", "flash_attention_fwd_mma.cu",
             "flash_attention.py:162", None, fwd_err, fwd_times,
             bound((2 * n_q + 2 * n_kv) * isz + pad.numel() * 4
                   + B * Hq * S * 4, 4 * D * pairs), {"shape": shape}),
@@ -2018,6 +2105,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
 
     # 3. each kernel against its plain version, then the model
     flash_err, flash_args = check_flash(torch, fa, dev)
@@ -2172,10 +2260,12 @@ def main() -> int:
 
     kernels_line = [
         kernel_entry(
-            "flash_attention_fwd", "flash_attention_fwd.cu",
+            "flash_attention_fwd", "flash_attention_fwd_mma.cu",
             "flash_attention.py:162", total("flash_fwd"),
             flash_err, fl_times, fl_bound,
             {"launches_by_path": by_path("flash_fwd"),
+             "ptxas": ptxas["flash_attention_fwd_mma"],
+             "f32": "flash_attention_fwd.cu (FMA kernel, f32 launches)",
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
              "gemma": gemma_entries["flash_fwd"]}),
         kernel_entry(
@@ -2218,17 +2308,20 @@ def main() -> int:
              gemma=dec_entries["gemma_path"]),
     ]
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
-    for name, key, line, err in (
+    for name, key, line, err, source in (
             ("fused_ce_fwd", "fused_ce_fwd", "fused_ce.py:121",
-             max(ce_err["lse"], ce_err["gold"])),
+             max(ce_err["lse"], ce_err["gold"]), "fused_ce.cu"),
             ("fused_ce_bwd_dh", "fused_ce_dh", "fused_ce.py:196",
-             ce_err["dh"]),
+             ce_err["dh"], "fused_ce_dh_mma.cu"),
             ("fused_ce_bwd_dw", "fused_ce_dw", "fused_ce.py:224",
-             ce_err["dw"])):
+             ce_err["dw"], "fused_ce.cu")):
+        extra = {"launches_by_path": by_path(key), "shape": ce_shape}
+        if key == "fused_ce_dh":
+            extra["ptxas"] = ptxas["fused_ce_dh_mma"]
+            extra["f32"] = "fused_ce.cu (FMA kernel, f32 launches)"
         kernels_line.append(kernel_entry(
-            name, "fused_ce.cu", line, total(key), err, ce_times[key],
-            ce_bounds[key], {"launches_by_path": by_path(key),
-                             "shape": ce_shape}))
+            name, source, line, total(key), err, ce_times[key],
+            ce_bounds[key], extra))
     ce_lora_times, ce_lora_bounds = fused_ce_lora_times(torch, fc,
                                                         ce_lora_args)
     lora_shape = "R 128, V 262144, H 640, r 8, bf16 (gemma chunk)"

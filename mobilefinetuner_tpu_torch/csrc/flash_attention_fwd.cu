@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), f32 inputs: bf16 and f16
+// run on the tensor-core kernel of flash_attention_fwd_mma.cu (the
+// wrapper picks the library by dtype).
 //
 // Replaces: mobilefinetuner_tpu/ops/flash_attention.py `_fwd_kernel`
 // (launched by `_fwd`): online-softmax attention over only the key blocks
@@ -25,12 +27,12 @@
 // staged in shared memory as f32 with a padded row stride so the
 // column walks are free of bank conflicts, and the k-loop visits only
 // [lo, hi) as `_kv_block_bounds` does. The products run on the FMA
-// units in f32 (the TPU kernel's precision): moving them to the tensor
-// cores with wgmma, and the loads to TMA, is later work.
+// units in f32 (the TPU kernel's precision; the f32 tensor-core rate,
+// TF32, would round the inputs).
 //
 // C interface (ctypes): mft_flash_attention_fwd returns the CUDA error
 // code of the launch (0 on success). Shapes: q [B, Hq, S, D], k/v
-// [B, Hkv, S, D] contiguous in one dtype (0 f32, 1 bf16, 2 f16);
+// [B, Hkv, S, D] contiguous f32 (dtype 0; any other code is refused);
 // pad [B, S] f32 (> 0 = real key); out like q; lse [B, Hq, S] f32;
 // dropout = 0 or 1, with seed, thresh = round((1 - p) * 2^24) and
 // inv_keep = 1 / (1 - p) from the wrapper.
@@ -233,13 +235,6 @@ extern "C" int mft_flash_attention_fwd(const void* q, const void* k,
     case 0:
       return dispatch_d<float>(D, q, k, v, pad, out, lse, B, Hq, Hkv, S,
                                scale, causal, has_window, window, drop, st);
-    case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, pad, out, lse, B, Hq, Hkv,
-                                       S, scale, causal, has_window, window,
-                                       drop, st);
-    case 2:
-      return dispatch_d<__half>(D, q, k, v, pad, out, lse, B, Hq, Hkv, S,
-                                scale, causal, has_window, window, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,7 +5,8 @@
 // Replaces mobilefinetuner_tpu/ops/fused_ce.py
 //   row 6  `_fwd_kernel` (launched by `_fwd`):   lse, gold [R] f32 of
 //          logits = h @ W^T, h [R, H], W [V, H];
-//   row 7  `_dh_kernel` (`_bwd_dh`):  dh [R, H] f32 = coef @ W;
+//   row 7  `_dh_kernel` (`_bwd_dh`):  dh [R, H] f32 = coef @ W, for f32
+//          inputs (bf16 and f16 run on fused_ce_dh_mma.cu);
 //   row 8  `_dw_kernel` (`_bwd_dw`):  dW [V, H] f32 = coef^T @ h;
 // with coef = dlse * softmax(logits) + dgold * onehot(label), rounded to
 // the storage dtype before its products as the TPU kernels round it;
@@ -59,7 +60,8 @@
 // padded to 128 lanes as on the TPU.
 // Products are f32 FMAs from shared memory (each thread a small register
 // tile), not tensor cores: a first, simple version, far from the bound
-// (wgmma and TMA are the next step). Ragged R, V, H and r edges are
+// (row 7's 16-bit case runs on mma.sync in fused_ce_dh_mma.cu; the
+// other rows are next). Ragged R, V, H and r edges are
 // masked, so any shape is taken (the TPU kernels need R % 8 and
 // V % block == 0). The dh and dW kernels hold their f32 accumulators in
 // shared memory: H + r <= 1,522 (MAX_HIDDEN in ops/fused_ce.py).
@@ -553,15 +555,14 @@ extern "C" int mft_fused_ce_dh(const void* h, const void* w,
                                float* part, float* dh, int R, int V, int H,
                                int n_slabs, int tiles_per_slab, int dtype,
                                void* stream) {
-  if (bad_shape(R, V, H, 0, H) || n_slabs <= 0 || tiles_per_slab <= 0)
+  // f32 only: bf16 and f16 run on fused_ce_dh_mma.cu
+  if (bad_shape(R, V, H, 0, H) || n_slabs <= 0 || tiles_per_slab <= 0 ||
+      dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_dtype(dtype, [&](auto tag) {
-    return launch_dh<ELEM(tag), false>(h, w, nullptr, nullptr, labels, lse,
-                                       dlse, dgold, part, dh, nullptr,
-                                       nullptr, R, V, H, 0, n_slabs,
-                                       tiles_per_slab, st);
-  });
+  return launch_dh<float, false>(h, w, nullptr, nullptr, labels, lse, dlse,
+                                 dgold, part, dh, nullptr, nullptr, R, V, H,
+                                 0, n_slabs, tiles_per_slab,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mft_fused_ce_dw(const void* h, const void* w,

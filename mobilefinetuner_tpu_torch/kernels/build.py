@@ -27,8 +27,9 @@ from typing import Dict, Iterable, Optional, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd_merged",
-           "flash_attention_bwd_split", "fused_ce", "lora_epilogue",
+SOURCES = ("flash_attention_fwd", "flash_attention_fwd_mma",
+           "flash_attention_bwd_merged", "flash_attention_bwd_split",
+           "fused_ce", "fused_ce_dh_mma", "lora_epilogue",
            "paged_decode_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

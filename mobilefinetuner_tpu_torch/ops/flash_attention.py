@@ -1,9 +1,12 @@
 """Flash attention: the Hopper kernels, their wrappers and their plain
 versions (port of mobilefinetuner_tpu/ops/flash_attention.py).
 
-  flash_attention_fwd        (out, lse). CUDA tensors launch the kernel
-                             `csrc/flash_attention_fwd.cu` (or raise); CPU
-                             tensors take `flash_attention_reference`.
+  flash_attention_fwd        (out, lse). CUDA tensors launch a kernel
+                             (or raise), chosen by dtype (fwd_library):
+                             bf16 / f16 the tensor-core kernel
+                             `csrc/flash_attention_fwd_mma.cu`, f32 the
+                             FMA kernel `csrc/flash_attention_fwd.cu`;
+                             CPU tensors take `flash_attention_reference`.
   flash_attention_bwd_merged (dq, dk, dv) in one pass per key block:
                              `csrc/flash_attention_bwd_merged.cu`, or
                              `flash_bwd_merged_reference` on the CPU.
@@ -34,7 +37,9 @@ sees the kept ones, scaled by 1/(1-p). The keep bit is a hash of
 (seed, b, h, row, col), so every kernel regenerates the forward's mask.
 
 The kernels take D in {64, 128, 256} and any S (they mask the ragged
-edge), in f32, bf16 or f16.
+edge), in f32, bf16 or f16; the tensor-core forward also needs 16-byte
+aligned q, k and v. `fwd_plan` is the forward kernels' launch plan in
+Python, as the sources compute it.
 """
 
 from __future__ import annotations
@@ -107,11 +112,13 @@ def _dropout_args(p_drop: float, seed: Optional[int]):
 
 
 def _kv_block_bounds(row0: int, n_kv_blocks: int, causal: bool,
-                     window: Optional[int]) -> Tuple[int, int]:
-    """[lo, hi) key blocks reachable from query rows [row0, row0+BLOCK_Q)."""
-    hi = (min(n_kv_blocks, (row0 + BLOCK_Q - 1) // BLOCK_K + 1)
+                     window: Optional[int], block_q: int = BLOCK_Q,
+                     block_k: int = BLOCK_K) -> Tuple[int, int]:
+    """[lo, hi) key blocks reachable from query rows [row0, row0+block_q),
+    as every forward kernel computes them for its own tile sizes."""
+    hi = (min(n_kv_blocks, (row0 + block_q - 1) // block_k + 1)
           if causal else n_kv_blocks)
-    lo = max(0, (row0 - window + 1) // BLOCK_K) if window is not None else 0
+    lo = max(0, (row0 - window + 1) // block_k) if window is not None else 0
     return lo, hi
 
 
@@ -199,6 +206,32 @@ def flash_attention_reference(q, k, v, padding_mask=None, *,
             lse.reshape(B, Hq, S, 1))
 
 
+def fwd_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """(source, C symbol) of the forward kernel for `dtype`: bf16 and f16
+    run on the tensor-core kernel, f32 on the FMA kernel (there is no
+    fallback from one to the other)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "flash_attention_fwd_mma", "mft_flash_attention_fwd_mma"
+    if dtype == torch.float32:
+        return "flash_attention_fwd", "mft_flash_attention_fwd"
+    raise ValueError(f"flash_attention kernel takes one dtype of "
+                     f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
+
+
+def fwd_plan(B: int, Hq: int, S: int, D: int, dtype: torch.dtype) -> dict:
+    """The forward kernel's launch: query rows a CTA (`block_q`), keys a
+    tile (`block_k`) and the grid (query blocks, q-heads, batch). The
+    tensor-core kernel takes 32-row blocks of two warps (128 CTAs at
+    Gemma-3's B 4 x Hq 4 x S 256) and 32-key tiles at D = 256; the FMA
+    kernel 64 x 64."""
+    if fwd_library(dtype)[0] == "flash_attention_fwd_mma":
+        block_q, block_k = 32, (32 if D == 256 else 64)
+    else:
+        block_q, block_k = BLOCK_Q, BLOCK_K
+    return {"block_q": block_q, "block_k": block_k,
+            "grid": (-(-S // block_q), Hq, B)}
+
+
 def _fn(lib: str, sym: str, n_ptrs: int):
     """The ctypes entry `sym` of csrc/<lib>.cu: n_ptrs pointers, then the
     shape and mask ints, the scale, the dropout arguments and the stream."""
@@ -256,8 +289,8 @@ def flash_attention_fwd(q, k, v, padding_mask=None, *,
                         p_drop: float = 0.0, seed: Optional[int] = None):
     """(out, lse) for q [B,Hq,S,D], k/v [B,Hkv,S,D], padding_mask [B,S]
     (1/True = real key); dropout with probability p_drop when a seed is
-    given. CPU tensors: the plain version. CUDA tensors: the kernel, or
-    ValueError for what it does not take."""
+    given. CPU tensors: the plain version. CUDA tensors: the kernel of
+    fwd_library(q.dtype), or ValueError for what it does not take."""
     _check_qkv(q, k, v, "flash_attention")
     if q.device.type == "cpu":
         return flash_attention_reference(
@@ -266,11 +299,16 @@ def flash_attention_fwd(q, k, v, padding_mask=None, *,
     B, Hq, S, D = q.shape
     pad = _pad_f32(padding_mask, B, S, q.device)
     _check_kernel_inputs("flash_attention", q, (q, k, v), (pad,))
+    lib, sym = fwd_library(q.dtype)
+    if lib == "flash_attention_fwd_mma" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention tensor-core kernel takes 16-byte "
+                         "aligned q, k and v")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, S, 1, device=q.device, dtype=torch.float32)
-    code = _fn("flash_attention_fwd", "mft_flash_attention_fwd", 6)(
+    code = _fn(lib, sym, 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, Hq, k.shape[1], S, D,
         DTYPE_CODES[q.dtype], float(scale), int(bool(is_causal)),

@@ -9,7 +9,10 @@ memory:
 
   fused_ce_fwd      (lse, gold) [R] f32: logsumexp of each row's logits
                     and its label's logit (TPU `_fwd_kernel`, row 6).
-  fused_ce_bwd_dh   dh [R, H] f32 = coef @ W (`_dh_kernel`, row 7).
+  fused_ce_bwd_dh   dh [R, H] f32 = coef @ W (`_dh_kernel`, row 7); bf16
+                    and f16 on the tensor-core kernel of
+                    `csrc/fused_ce_dh_mma.cu` (H % 8 == 0), f32 on
+                    `csrc/fused_ce.cu` (dh_library, dh_mma_plan).
   fused_ce_bwd_dw   dW [V, H] f32 = coef^T @ h (`_dw_kernel`, row 8).
                     coef = dlse * softmax(logits) + dgold * onehot(label),
                     rounded to the storage dtype before the product.
@@ -43,7 +46,8 @@ take the plain versions (`*_reference`), which compute the same function
 tile by tile over the vocabulary in f32 with the same coef rounding, and
 run on any device as the kernels' references on the card.
 
-Bounds and design: csrc/fused_ce.cu. The kernels take any R, V and H,
+Bounds and design: csrc/fused_ce.cu and csrc/fused_ce_dh_mma.cu. The
+kernels take any R, V and H (row 7's tensor-core kernel H % 8 == 0),
 h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
 hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
 MAX_HIDDEN; the rank is 1..MAX_RANK, taken as it is (the TPU's padding
@@ -69,6 +73,9 @@ VOCAB_TILE = 64         # FWD_TN: vocab columns of a forward / dh tile
 # 232,448 bytes a block: H + r <= MAX_HIDDEN
 MAX_HIDDEN = (232448 // 4 - 9408) // 32
 MAX_RANK = 128          # csrc/fused_ce.cu MAX_RANK, the JAX LORA_R_PAD
+SMEM_MAX = 232448       # shared memory a block may use on the card
+MMA_VOCAB_TILE = 32     # csrc/fused_ce_dh_mma.cu VT: vocab of a W tile
+MMA_HP_MAX = 320        # HP_MAX: dh columns of a CTA (its accumulators)
 
 
 # ------------------------------------------------------ plain versions ------
@@ -182,10 +189,10 @@ def fused_ce_dw_reference(h, w, labels, lse, dlse, dgold,
 
 # ------------------------------------------------------------ wrappers ------
 
-def _fn(sym: str, n_ptrs: int, n_ints: int):
-    """The ctypes entry `sym` of csrc/fused_ce.cu: n_ptrs pointers, n_ints
+def _fn(sym: str, n_ptrs: int, n_ints: int, lib: str = "fused_ce"):
+    """The ctypes entry `sym` of csrc/<lib>.cu: n_ptrs pointers, n_ints
     ints (shapes, slabs, dtype), the stream."""
-    fn = getattr(build.load("fused_ce"), sym)
+    fn = getattr(build.load(lib), sym)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
@@ -240,6 +247,54 @@ def _slabs(R: int, V: int, device, ctas_per_sm: int) -> Tuple[int, int]:
     n_slabs = min(n_vt, max(1, -(-ctas_per_sm * n_sm // row_tiles)))
     per_slab = -(-n_vt // n_slabs)
     return -(-n_vt // per_slab), per_slab
+
+
+def dh_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """(source, C symbol) of row 7's kernel for `dtype`: bf16 and f16 run
+    on the tensor-core kernel, f32 on fused_ce.cu's (no fallback from one
+    to the other)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "fused_ce_dh_mma", "mft_fused_ce_dh_mma"
+    if dtype == torch.float32:
+        return "fused_ce", "mft_fused_ce_dh"
+    raise ValueError(f"fused_ce_bwd_dh kernel takes h, W in one dtype of "
+                     f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
+
+
+def dh_mma_plan(R: int, V: int, H: int, n_sm: int,
+                elem_bytes: int = 2) -> dict:
+    """The tensor-core dh kernel's launch, as csrc/fused_ce_dh_mma.cu
+    takes it: H cut into `n_parts` parts of `hp` columns (a multiple of
+    16, at most MMA_HP_MAX: the accumulators of a warp); rows in tiles of
+    16 x `row_groups`, with a ring of `stages` W tiles, the first of
+    (4, 3), (4, 2), (2, 3), (2, 2), (2, 1) whose shared memory fits; the
+    vocabulary in `n_slabs` slabs of `tiles_per_slab` 32-column tiles,
+    one CTA per (row tile, H part, slab), the slab count the most that
+    keeps the grid one wave of `n_sm` CTAs (at least one slab)."""
+    if H <= 0 or H % 8:
+        raise ValueError(f"fused_ce_bwd_dh tensor-core kernel takes H % 8 "
+                         f"== 0 (16-byte rows), got H={H}")
+    n_parts = -(-H // MMA_HP_MAX)
+    hp = -(-(-(-H // n_parts)) // 16) * 16
+    ld = -(-H // 16) * 16 + 8
+    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
+        smem = max((16 * row_groups + stages * MMA_VOCAB_TILE) * ld
+                   * elem_bytes, 16 * row_groups * hp * 4)
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"fused_ce_bwd_dh tensor-core kernel: H={H} does "
+                         f"not fit shared memory")
+    row_tiles = -(-R // (16 * row_groups))
+    per_slab_ctas = row_tiles * n_parts
+    n_vt = -(-V // MMA_VOCAB_TILE)
+    n_slabs = min(n_vt, max(1, n_sm // per_slab_ctas))
+    tiles_per_slab = -(-n_vt // n_slabs)
+    n_slabs = -(-n_vt // tiles_per_slab)
+    return {"row_groups": row_groups, "stages": stages, "hp": hp,
+            "n_parts": n_parts, "n_slabs": n_slabs,
+            "tiles_per_slab": tiles_per_slab, "smem_bytes": smem,
+            "grid": (row_tiles * n_parts, n_slabs)}
 
 
 def _stream(t):
@@ -344,14 +399,39 @@ def _launch_dh(h, w, labels, rows, lora):
     return code, dh, dxa
 
 
+def _launch_dh_mma(h, w, labels, rows):
+    """(code, dh) through the tensor-core dh kernel and its reduce pass."""
+    R, H = h.shape
+    V = w.shape[0]
+    plan = dh_mma_plan(R, V, H, torch.cuda.get_device_properties(
+        h.device).multi_processor_count, h.element_size())
+    if h.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("fused_ce_bwd_dh tensor-core kernel takes 16-byte "
+                         "aligned h and W")
+    part = torch.empty(plan["n_slabs"], R, H, device=h.device)
+    dh = torch.empty(R, H, device=h.device)
+    lib, sym = dh_library(h.dtype)
+    code = _fn(sym, 8, 10, lib)(
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        *(t.data_ptr() for t in rows), part.data_ptr(), dh.data_ptr(),
+        R, V, H, plan["row_groups"], plan["stages"], plan["hp"],
+        plan["n_parts"], plan["n_slabs"], plan["tiles_per_slab"],
+        DTYPE_CODES[h.dtype], _stream(h))
+    return code, dh
+
+
 def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     """dh [R, H] f32 = coef @ W. CPU tensors: the plain version; CUDA
-    tensors: the kernel (with a reduce pass over its vocab slabs)."""
+    tensors: the kernel of dh_library(h.dtype) (with a reduce pass over
+    its vocab slabs), or ValueError for what it does not take."""
     rows = _bwd_args("fused_ce_bwd_dh", h, w, labels, lse, dlse, dgold)
     if h.device.type == "cpu":
         return fused_ce_dh_reference(h, w, labels, *rows)
     _check("fused_ce_bwd_dh", (h, w), rows, backward=True)
-    code, dh, _ = _launch_dh(h, w, labels, rows, None)
+    if dh_library(h.dtype)[0] == "fused_ce_dh_mma":
+        code, dh = _launch_dh_mma(h, w, labels, rows)
+    else:
+        code, dh, _ = _launch_dh(h, w, labels, rows, None)
     build.check_launch("fused_ce_bwd_dh", code)
     fused_ce_bwd_dh.launches += 1
     return dh

@@ -185,6 +185,7 @@ BWD_CASES = [
     (torch.bfloat16, 1, 4, 4, 96, 128, 10, None, 0.0, 2e-2),
     (torch.float16, 1, 8, 2, 130, 256, 0, None, 0.0, 5e-3),
     (torch.float32, 2, 4, 4, 128, 64, 0, None, 0.1, 1e-5),
+    (torch.bfloat16, 2, 4, 4, 128, 64, 28, None, 0.1, 2e-2),
 ]
 
 
@@ -222,6 +223,65 @@ def test_flash_backward_kernels_match_plain(dev, case):
         assert _rel_err(a, c) <= tol, name
         assert _rel_err(b, want_split[("dq", "dk", "dv").index(name)]) \
             <= tol, name
+
+
+def test_flash_tensor_core_kernel_d256_gqa_window_ragged(dev):
+    """bf16 at D = 256 with GQA 4:1, a window that ends inside a key tile
+    (40 keys) and a ragged S (200, a padded tail too), against the plain
+    version at the bf16 tolerances (out 1e-2, lse 1e-4)."""
+    q, k, v, _, pad = _flash_case(dev, torch.bfloat16, 2, 8, 2, 200, 256,
+                                  50, 21)
+    n0 = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, sliding_window=40)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, pad,
+                                                sliding_window=40)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n0 + 1
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
+    """bf16 / f16 launch the tensor-core sources, f32 the FMA ones, for
+    the flash forward (row 1) and the fused CE dh (row 7): the libraries
+    the wrappers load are recorded."""
+    loaded = []
+    real = build.load
+
+    def record(name):
+        loaded.append(name)
+        return real(name)
+    monkeypatch.setattr(build, "load", record)
+    for dtype, fwd, dh in (
+            (torch.bfloat16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
+            (torch.float16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
+            (torch.float32, "flash_attention_fwd", "fused_ce")):
+        q, k, v, _, pad = _flash_case(dev, dtype, 1, 2, 2, 64, 64, 0, 3)
+        loaded.clear()
+        fa.flash_attention_fwd(q, k, v, pad)
+        assert loaded == [fwd]
+        h, w, lab, dl, dg = _ce_case(dev, dtype, 16, 300, 64, 4)
+        lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
+        loaded.clear()
+        fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
+        assert loaded == [dh]
+    torch.cuda.synchronize()
+
+
+def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
+    """Row 1 refuses a head dim outside {64, 128, 256} in bf16, row 7 a
+    bf16 H that is not a multiple of 8, before any launch."""
+    q = torch.zeros(1, 2, 8, 96, device=dev, dtype=torch.bfloat16)
+    n0 = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention_fwd(q, q, q)
+    assert fa.flash_attention_fwd.launches == n0
+    h, w, lab, dl, dg = _ce_case(dev, torch.bfloat16, 8, 100, 1004, 2)
+    n0 = fc.fused_ce_bwd_dh.launches
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)
+    assert fc.fused_ce_bwd_dh.launches == n0
 
 
 def test_flash_autograd_launches_the_backward_kernels(dev):
@@ -368,6 +428,27 @@ def test_fused_ce_kernels_match_plain(dev, dtype, R, V, H, tol, sm_tol):
         ref = plain(h, w, lab, rl, dl, z)
         err = (kernel(h, w, lab, rl, dl, z) - ref).abs().max()
         assert float(err) <= sm_tol * float(ref.abs().max())
+
+
+def test_fused_ce_dh_tensor_core_kernel_ragged_and_deterministic(dev):
+    """Row 7 in bf16 at R = 37 (a ragged row tile), a ragged V (50,257)
+    and H = 1,152 (four H parts) against the plain version, the softmax
+    part alone too; two calls give identical bits (no atomics)."""
+    R, V, H = 37, 50257, 1152
+    h, w, lab, dl, dg = _ce_case(dev, torch.bfloat16, R, V, H, seed=5)
+    lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
+    n0 = fc.fused_ce_bwd_dh.launches
+    dh = fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
+    again = fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
+    torch.cuda.synchronize()
+    assert fc.fused_ce_bwd_dh.launches == n0 + 2
+    assert torch.equal(dh, again)
+    assert _rel_err(dh, fc.fused_ce_dh_reference(h, w, lab, lse, dl,
+                                                 dg)) <= 2e-3
+    z = torch.zeros_like(dg)
+    ref = fc.fused_ce_dh_reference(h, w, lab, lse, dl, z)
+    err = (fc.fused_ce_bwd_dh(h, w, lab, lse, dl, z) - ref).abs().max()
+    assert float(err) <= 2e-3 * float(ref.abs().max())
 
 
 def test_fused_ce_skips_dw_for_a_frozen_head_and_never_runs_plain(

@@ -1,7 +1,8 @@
 """The port never imports jax nor the JAX package: a subprocess imports
-every module of mobilefinetuner_tpu_torch and chip_smoke.py (this test
-process cannot tell, since tests/conftest.py imports jax for every test),
-and an AST scan checks every import statement of those files."""
+every module of mobilefinetuner_tpu_torch, chip_smoke.py and
+rounding_sensitivity.py (this test process cannot tell, since
+tests/conftest.py imports jax for every test), and an AST scan checks
+every import statement of those files."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ PKG = "mobilefinetuner_tpu_torch"
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "rounding_sensitivity.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, PKG)):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -36,6 +38,7 @@ mods = [m.name for m in pkgutil.walk_packages({PKG}.__path__, "{PKG}.")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import rounding_sensitivity
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "mobilefinetuner_tpu"
              or m.startswith("mobilefinetuner_tpu."))
