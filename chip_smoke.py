@@ -15,10 +15,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the merged backward on its output, bf16 D 256 with GQA, a window
      inside a key tile and a ragged S), the merged
      and the split flash backward, the LoRA epilogue, the paged decode,
-     the fused CE forward, dh (bf16 on the tensor-core kernel: R 37 and a
-     ragged V too, two calls bit-identical) and dW (rows 6-8), a head dim
-     and a bf16 H the kernels do not take refused, and their head-adapter
-     variants (rows 9-11, dW in both its modes), the contiguous decode
+     the fused CE forward, dh and dW (rows 6-8; dh and dW in bf16 on the
+     tensor-core kernels: R 37 and a ragged V too, two calls
+     bit-identical), a head dim and a bf16 H the kernels do not take
+     refused, and their head-adapter variants (rows 9-11, dW in both its
+     modes; dh + dxa in bf16 on the tensor-core kernel, at r 4, 8 and
+     128, two calls bit-identical), the contiguous decode
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
      D 32, masked columns poisoned); then GPT-2 small through
@@ -76,9 +78,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      adapter site, the paged kernel never; then each family's bf16
      decode step again, timed from CUDA events around CUDA-graph replays
      (device) and around eager calls (host);
-  8. trace a decode step, a 128-token prefill, a GPT-2 train step and a
-     Gemma LoRA train step without and with the lm_head target with
-     torch.profiler: device busy time against
+  8. trace a decode step, a 128-token prefill, a GPT-2 train step, a
+     Gemma LoRA train step without and with the lm_head target and a
+     Gemma full fine-tuning step with torch.profiler: device busy time
+     against
      host wall time, and the kernels that take the device time; for the
      phases that never wait on the card (prefill, train steps), the
      device time again from CUDA events around replays of a CUDA graph
@@ -712,11 +715,12 @@ def check_fused_ce(torch, fc, dev):
     part (dlse * p, p ~ 1 / V) is held on its own too: dh and dW again
     with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
     measured at most 3.5e-4 on an H100: a few coefs round the other way).
-    dh of bf16 / f16 runs on the tensor-core kernel, of f32 on fused_ce.cu:
-    R 37 (a ragged row tile) with a ragged V and H 1,152 in bf16 too; the
-    path case's dh twice must give identical bits (no atomics), and a
-    bf16 H that is not a multiple of 8 must be refused. Returns the path
-    case's max abs errors and inputs."""
+    dh and dW of bf16 / f16 run on the tensor-core kernels, of f32 on
+    fused_ce.cu: R 37 (a ragged row tile) with a ragged V and H 1,152 in
+    bf16 too; the path case's dh twice and dW twice must give identical
+    bits (no atomics), and a bf16 H that is not a multiple of 8 must be
+    refused by both. Returns the path case's max abs errors and
+    inputs."""
     cases = [  # (name, dtype, R, V, H, tol, sm_tol)
         ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
         ("batch8", torch.bfloat16, 256, 262144, 640, 2e-3, 2e-3),
@@ -764,11 +768,18 @@ def check_fused_ce(torch, fc, dev):
             again = fc.fused_ce_bwd_dh(h, w, lab, rl, dl, dg)
             check(bool(torch.equal(dh, again)),
                   "fused CE dh: two calls gave different bits")
-            print("fused CE path: dh twice, identical bits")
+            dw = fc.fused_ce_bwd_dw(h, w, lab, rl, dl, dg)
+            again = fc.fused_ce_bwd_dw(h, w, lab, rl, dl, dg)
+            check(bool(torch.equal(dw, again)),
+                  "fused CE dW: two calls gave different bits")
+            del dw, again
+            print("fused CE path: dh twice and dW twice, identical bits")
     h, w, lab, dl, dg = fused_ce_inputs(torch, dev, torch.bfloat16, 8, 100,
                                         1004, seed=1)
-    check(refuses(lambda: fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)),
-          "fused_ce_bwd_dh took a bf16 H = 1004 (not a multiple of 8)")
+    for kernel in (fc.fused_ce_bwd_dh, fc.fused_ce_bwd_dw):
+        check(refuses(lambda: kernel(h, w, lab, dl, dl, dg)),
+              f"{kernel.__name__} took a bf16 H = 1004 (not a multiple "
+              f"of 8)")
     return path
 
 
@@ -776,15 +787,20 @@ def check_fused_ce_lora(torch, fc, dev):
     """The head-adapter fused CE kernels (rows 9-11) against their plain
     versions at the Gemma chunk shape (R 128, V 262,144, H 640, r 8),
     at a ragged shape (R 120, V 50,257, H 1,000, r 4: none a multiple of
-    a tile) in bf16 and in f32. lse and gold: max abs error; dh, dxa, dW
-    and dbt (row 11 in its dW mode and its dbt-only mode): max abs error
-    over max(1, max |ref|) with random dgold, and over max |ref| with
-    dgold = 0 (the softmax part alone). Returns the path case's max abs
-    errors and inputs."""
+    a tile) in bf16 and in f32, and at rank 128 in bf16 (row 10's plan
+    then takes 32-row tiles and two W buffers). lse and gold: max abs
+    error; dh, dxa, dW and dbt (row 11 in its dW mode and its dbt-only
+    mode): max abs error over max(1, max |ref|) with random dgold, and
+    over max |ref| with dgold = 0 (the softmax part alone). dh + dxa of
+    bf16 / f16 run on the tensor-core kernel, of f32 on fused_ce.cu: the
+    path case's (dh, dxa) twice must give identical bits, and a bf16 H
+    that is not a multiple of 8 must be refused. Returns the path case's
+    max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, r, tol)
         ("path", torch.bfloat16, 128, 262144, 640, 8, 2e-3),
         ("ragged", torch.bfloat16, 120, 50257, 1000, 4, 2e-3),
         ("ragged_f32", torch.float32, 120, 50257, 1000, 4, 1e-4),
+        ("rank128", torch.bfloat16, 128, 50257, 640, 128, 2e-3),
     ]
     path = None
     for name, dt, R, V, H, r, tol in cases:
@@ -831,6 +847,20 @@ def check_fused_ce_lora(torch, fc, dev):
               f"softmax part disagrees with its plain versions")
         if name == "path":
             path = (e, (h, w, xa, bt, lab, rl, dl, dg))
+            args = path[1]
+            first, again = (fc.fused_ce_bwd_dh_lora(*args) for _ in (0, 1))
+            check(all(bool(torch.equal(a, b))
+                      for a, b in zip(first, again)),
+                  "fused CE lora (dh, dxa): two calls gave different bits")
+            print("fused CE lora path: (dh, dxa) twice, identical bits")
+            del first, again
+    h, w, lab, dl, dg = fused_ce_inputs(torch, dev, torch.bfloat16, 8, 100,
+                                        1004, seed=1)
+    xa = torch.zeros(8, 8, device=dev, dtype=torch.bfloat16)
+    bt = torch.zeros(100, 8, device=dev, dtype=torch.bfloat16)
+    check(refuses(lambda: fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl,
+                                                  dg)),
+          "fused_ce_bwd_dh_lora took a bf16 H = 1004 (not a multiple of 8)")
     return path
 
 
@@ -1814,6 +1844,42 @@ def profile_gemma_train(torch, dev, gemma, head: bool = False):
         lambda: step_fn(lora, params, opt, batch, 0), 5, True)})
 
 
+def profile_gemma_full_ft(torch, dev, gemma):
+    """Where one Gemma-3-270M full fine-tuning step (batch 4 x 256, bf16,
+    8 loss chunks, every parameter trainable: rows 6-8, Adam over 268M
+    parameters) spends its time."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.cli.common import place_batch
+    from mobilefinetuner_tpu_torch.models import gemma3
+    from mobilefinetuner_tpu_torch.ops.loss import \
+        chunked_lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_train_step)
+    config, params = gemma[:2]
+    G = GEMMA
+    tc = TrainConfig(total_steps=G["full_steps"], lr=G["full_lr"])
+
+    def loss_fn(trainable, _frozen, mb):
+        hidden = gemma3.hidden_states(config, trainable, mb["input_ids"],
+                                      attention_mask=mb["attention_mask"],
+                                      compute_dtype=torch.bfloat16)
+        return chunked_lm_cross_entropy_sum(
+            hidden, trainable["embed"], mb["labels"], num_chunks=G["chunks"])
+
+    step_fn = make_train_step(loss_fn, tc, None)
+    opt = init_optimizer(params, tc, None)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, config.vocab_size, (G["batch"], G["seq"]),
+                       dtype=np.int32)
+    batch = place_batch({"input_ids": ids, "labels": ids,
+                         "attention_mask": np.ones((G["batch"], G["seq"]),
+                                                   np.float32)}, dev)
+    return profile_phases({"gemma_full_ft_train_step": (
+        lambda: step_fn(params, None, opt, batch, 0), 5, True)})
+
+
 def bwd_sweep(torch, fa, dev):
     """The merged backward against the split pair at training shapes the
     port's models reach (bf16, causal): the time of one backward call
@@ -2129,7 +2195,7 @@ def main() -> int:
 
     # 5. the training path, counts set to 0 just before it; 6. serve with
     # the trained adapter; 7. the Gemma paths and eval_ppl, counts set to
-    # 0 just before each; 8. profile a GPT-2 and two Gemma train steps
+    # 0 just before each; 8. profile a GPT-2 and three Gemma train steps
     with tempfile.TemporaryDirectory() as work:
         train_stats, launches_train, adapter, model = train(
             torch, dev, work, kernels)
@@ -2172,6 +2238,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         prof.update(profile_gemma_train(torch, dev, gemma))
         prof.update(profile_gemma_train(torch, dev, gemma, head=True))
+        torch.cuda.empty_cache()
+        prof.update(profile_gemma_full_ft(torch, dev, gemma))
         del gemma
     print(json.dumps({"profile": prof}))
 
@@ -2314,10 +2382,10 @@ def main() -> int:
             ("fused_ce_bwd_dh", "fused_ce_dh", "fused_ce.py:196",
              ce_err["dh"], "fused_ce_dh_mma.cu"),
             ("fused_ce_bwd_dw", "fused_ce_dw", "fused_ce.py:224",
-             ce_err["dw"], "fused_ce.cu")):
+             ce_err["dw"], "fused_ce_dw_mma.cu")):
         extra = {"launches_by_path": by_path(key), "shape": ce_shape}
-        if key == "fused_ce_dh":
-            extra["ptxas"] = ptxas["fused_ce_dh_mma"]
+        if source != "fused_ce.cu":
+            extra["ptxas"] = ptxas[source[:-3]]
             extra["f32"] = "fused_ce.cu (FMA kernel, f32 launches)"
         kernels_line.append(kernel_entry(
             name, source, line, total(key), err, ce_times[key],
@@ -2333,7 +2401,15 @@ def main() -> int:
             ("fused_ce_bwd_dw_lora", "fused_ce_dw_lora", "fused_ce.py:421",
              ce_lora_err["dbt_only"])):
         extra = {"launches_by_path": by_path(key), "shape": lora_shape}
+        source = "fused_ce.cu"
+        if key == "fused_ce_dh_lora":
+            source = "fused_ce_dh_lora_mma.cu"
+            extra["ptxas"] = ptxas["fused_ce_dh_lora_mma"]
+            extra["f32"] = "fused_ce.cu (FMA kernel, f32 launches)"
         if key == "fused_ce_dw_lora":
+            # rows 8 (f32) and 11 share fused_ce.cu's dw_kernel template
+            extra["ptxas"] = [row for row in ptxas["fused_ce"]
+                              if row[0].startswith("dw_kernel")]
             extra["shape"] += ", dbt only (frozen head)"
             extra["dw_mode"] = kernel_entry(
                 name, "fused_ce.cu", line, None,
@@ -2342,7 +2418,7 @@ def main() -> int:
                 ce_lora_bounds["fused_ce_dw_lora_dw_mode"],
                 {"shape": lora_shape + ", dW and dbt"})
         kernels_line.append(kernel_entry(
-            name, "fused_ce.cu", line, total(key), err, ce_lora_times[key],
+            name, source, line, total(key), err, ce_lora_times[key],
             ce_lora_bounds[key], extra))
     print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,8 @@
 //          logits = h @ W^T, h [R, H], W [V, H];
 //   row 7  `_dh_kernel` (`_bwd_dh`):  dh [R, H] f32 = coef @ W, for f32
 //          inputs (bf16 and f16 run on fused_ce_dh_mma.cu);
-//   row 8  `_dw_kernel` (`_bwd_dw`):  dW [V, H] f32 = coef^T @ h;
+//   row 8  `_dw_kernel` (`_bwd_dw`):  dW [V, H] f32 = coef^T @ h, for
+//          f32 inputs (bf16 and f16 run on fused_ce_dw_mma.cu);
 // with coef = dlse * softmax(logits) + dgold * onehot(label), rounded to
 // the storage dtype before its products as the TPU kernels round it;
 // and their head-adapter variants (a LoRA on the tied lm_head), where
@@ -15,7 +16,8 @@
 // bottleneck and bt = B^T [V, r]:
 //   row 9  `_fwd_kernel_lora` (`_fwd_lora`): lse, gold;
 //   row 10 `_dh_kernel_lora` (`_bwd_dh_lora`): dh and dxa [R, r] f32 =
-//          coef @ bt;
+//          coef @ bt, for f32 inputs (bf16 and f16 run on
+//          fused_ce_dh_lora_mma.cu);
 //   row 11 `_dw_kernel_lora` (`_bwd_dw_lora`): dbt [V, r] f32 =
 //          coef^T @ xa, and dW only when the head itself trains.
 //
@@ -60,8 +62,8 @@
 // padded to 128 lanes as on the TPU.
 // Products are f32 FMAs from shared memory (each thread a small register
 // tile), not tensor cores: a first, simple version, far from the bound
-// (row 7's 16-bit case runs on mma.sync in fused_ce_dh_mma.cu; the
-// other rows are next). Ragged R, V, H and r edges are
+// (the 16-bit cases of rows 7, 8 and 10 run on mma.sync in
+// fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and fused_ce_dh_lora_mma.cu). Ragged R, V, H and r edges are
 // masked, so any shape is taken (the TPU kernels need R % 8 and
 // V % block == 0). The dh and dW kernels hold their f32 accumulators in
 // shared memory: H + r <= 1,522 (MAX_HIDDEN in ops/fused_ce.py).
@@ -570,13 +572,12 @@ extern "C" int mft_fused_ce_dw(const void* h, const void* w,
                                const float* dlse, const float* dgold,
                                float* dw, int R, int V, int H, int dtype,
                                void* stream) {
-  if (bad_shape(R, V, H, 0, H) || dw == nullptr)
+  // f32 only: bf16 and f16 run on fused_ce_dw_mma.cu
+  if (bad_shape(R, V, H, 0, H) || dw == nullptr || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_dtype(dtype, [&](auto tag) {
-    return launch_dw<ELEM(tag)>(h, w, nullptr, nullptr, labels, lse, dlse,
-                                dgold, dw, nullptr, R, V, H, 0, st);
-  });
+  return launch_dw<float>(h, w, nullptr, nullptr, labels, lse, dlse, dgold,
+                          dw, nullptr, R, V, H, 0,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mft_fused_ce_fwd_lora(const void* h, const void* w,
@@ -605,15 +606,14 @@ extern "C" int mft_fused_ce_dh_lora(const void* h, const void* w,
                                     float* dxa, int R, int V, int H, int rk,
                                     int n_slabs, int tiles_per_slab,
                                     int dtype, void* stream) {
+  // f32 only: bf16 and f16 run on fused_ce_dh_lora_mma.cu
   if (bad_shape(R, V, H, rk, H + rk) || rk == 0 || n_slabs <= 0 ||
-      tiles_per_slab <= 0)
+      tiles_per_slab <= 0 || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_dtype(dtype, [&](auto tag) {
-    return launch_dh<ELEM(tag), true>(h, w, xa, bt, labels, lse, dlse, dgold,
-                                      part, dh, xpart, dxa, R, V, H, rk,
-                                      n_slabs, tiles_per_slab, st);
-  });
+  return launch_dh<float, true>(h, w, xa, bt, labels, lse, dlse, dgold, part,
+                                dh, xpart, dxa, R, V, H, rk, n_slabs,
+                                tiles_per_slab,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // dw may be null: dbt only (the frozen-embedding case).

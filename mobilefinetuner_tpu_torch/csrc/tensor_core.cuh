@@ -1,8 +1,8 @@
 // Warp-level tensor-core building blocks for the port's sm_90a kernels:
 // 16-byte cp.async copies (zero-filled past an edge), ldmatrix (plain and
 // transposed) and the m16n8k16 mma.sync of bf16 or f16 operands into f32
-// accumulators. Used by flash_attention_fwd_mma.cu and
-// fused_ce_dh_mma.cu.
+// accumulators. Used by flash_attention_fwd_mma.cu, fused_ce_dh_mma.cu,
+// fused_ce_dh_lora_mma.cu and fused_ce_dw_mma.cu.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 g + t, g = lane / 4,
 // t = lane % 4), as the PTX ISA gives it:
@@ -36,6 +36,16 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                "l"(src), "r"(n));
 }
 
+// 4 bytes global -> shared, asynchronously (through L1), zeros when
+// !valid: for rows whose length is not a multiple of 16 bytes.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -52,6 +62,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 16-bit matrices; lanes 0-15 give the row addresses (matrix
+// l / 8, row l % 8), the other lanes' addresses are not read.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

@@ -13,7 +13,10 @@ memory:
                     and f16 on the tensor-core kernel of
                     `csrc/fused_ce_dh_mma.cu` (H % 8 == 0), f32 on
                     `csrc/fused_ce.cu` (dh_library, dh_mma_plan).
-  fused_ce_bwd_dw   dW [V, H] f32 = coef^T @ h (`_dw_kernel`, row 8).
+  fused_ce_bwd_dw   dW [V, H] f32 = coef^T @ h (`_dw_kernel`, row 8);
+                    bf16 and f16 on the tensor-core kernel of
+                    `csrc/fused_ce_dw_mma.cu` (H % 8 == 0), f32 on
+                    `csrc/fused_ce.cu` (dw_library, dw_mma_plan).
                     coef = dlse * softmax(logits) + dgold * onehot(label),
                     rounded to the storage dtype before the product.
   fused_ce_rows     (lse, gold), differentiable in h and W: a
@@ -30,7 +33,10 @@ into the same tile loop, so the [R, V] delta never exists either:
 
   fused_ce_fwd_lora     (lse, gold) (`_fwd_kernel_lora`, row 9).
   fused_ce_bwd_dh_lora  (dh, dxa [R, r] = coef @ bt) (`_dh_kernel_lora`,
-                        row 10).
+                        row 10); bf16 and f16 on
+                        `csrc/fused_ce_dh_lora_mma.cu` (H % 8 == 0), f32
+                        on `csrc/fused_ce.cu` (dh_lora_library,
+                        dh_lora_mma_plan).
   fused_ce_bwd_dw_lora  (dW or None, dbt [V, r] = coef^T @ xa)
                         (`_dw_kernel_lora`, row 11); dW only when asked
                         for (the tied embedding is frozen in LoRA).
@@ -46,8 +52,9 @@ take the plain versions (`*_reference`), which compute the same function
 tile by tile over the vocabulary in f32 with the same coef rounding, and
 run on any device as the kernels' references on the card.
 
-Bounds and design: csrc/fused_ce.cu and csrc/fused_ce_dh_mma.cu. The
-kernels take any R, V and H (row 7's tensor-core kernel H % 8 == 0),
+Bounds and design: csrc/fused_ce.cu and the tensor-core sources
+csrc/fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and fused_ce_dh_lora_mma.cu.
+The kernels take any R, V and H (the tensor-core kernels H % 8 == 0),
 h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
 hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
 MAX_HIDDEN; the rank is 1..MAX_RANK, taken as it is (the TPU's padding
@@ -76,6 +83,10 @@ MAX_RANK = 128          # csrc/fused_ce.cu MAX_RANK, the JAX LORA_R_PAD
 SMEM_MAX = 232448       # shared memory a block may use on the card
 MMA_VOCAB_TILE = 32     # csrc/fused_ce_dh_mma.cu VT: vocab of a W tile
 MMA_HP_MAX = 320        # HP_MAX: dh columns of a CTA (its accumulators)
+DH_LORA_HP_MAX = 640    # csrc/fused_ce_dh_lora_mma.cu HP_MAX: 2 x 320
+DW_VOCAB_TILE = 32      # csrc/fused_ce_dw_mma.cu VT: vocab rows of a tile
+DW_HP_MAX = 640         # HP_MAX: dW columns of a CTA, 8 warps x WC_MAX
+DW_ROW_CHUNKS = (128, 64, 32)   # rows of h a CTA holds (its RC)
 
 
 # ------------------------------------------------------ plain versions ------
@@ -249,16 +260,57 @@ def _slabs(R: int, V: int, device, ctas_per_sm: int) -> Tuple[int, int]:
     return -(-n_vt // per_slab), per_slab
 
 
-def dh_library(dtype: torch.dtype) -> Tuple[str, str]:
-    """(source, C symbol) of row 7's kernel for `dtype`: bf16 and f16 run
-    on the tensor-core kernel, f32 on fused_ce.cu's (no fallback from one
-    to the other)."""
+def _route(what: str, mma: Tuple[str, str], fma: Tuple[str, str],
+           dtype: torch.dtype) -> Tuple[str, str]:
+    """(source, C symbol) of a kernel for `dtype`: bf16 and f16 run on the
+    tensor-core kernel `mma`, f32 on fused_ce.cu's `fma` (no fallback
+    from one to the other)."""
     if dtype in (torch.bfloat16, torch.float16):
-        return "fused_ce_dh_mma", "mft_fused_ce_dh_mma"
+        return mma
     if dtype == torch.float32:
-        return "fused_ce", "mft_fused_ce_dh"
-    raise ValueError(f"fused_ce_bwd_dh kernel takes h, W in one dtype of "
+        return fma
+    raise ValueError(f"{what} kernel takes its operands in one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
+
+
+def dh_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """Row 7's kernel for `dtype` (_route)."""
+    return _route("fused_ce_bwd_dh",
+                  ("fused_ce_dh_mma", "mft_fused_ce_dh_mma"),
+                  ("fused_ce", "mft_fused_ce_dh"), dtype)
+
+
+def dw_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """Row 8's kernel for `dtype` (_route)."""
+    return _route("fused_ce_bwd_dw",
+                  ("fused_ce_dw_mma", "mft_fused_ce_dw_mma"),
+                  ("fused_ce", "mft_fused_ce_dw"), dtype)
+
+
+def dh_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """Row 10's kernel for `dtype` (_route)."""
+    return _route("fused_ce_bwd_dh_lora",
+                  ("fused_ce_dh_lora_mma", "mft_fused_ce_dh_lora_mma"),
+                  ("fused_ce", "mft_fused_ce_dh_lora"), dtype)
+
+
+def _require_h8(what: str, H: int) -> None:
+    if H <= 0 or H % 8:
+        raise ValueError(f"{what} tensor-core kernel takes H % 8 == 0 "
+                         f"(16-byte rows), got H={H}")
+
+
+def _slab_plan(plan: dict, ctas_per_slab: int, V: int, n_sm: int) -> dict:
+    """`plan` with the vocabulary cut into `n_slabs` slabs of
+    `tiles_per_slab` 32-column tiles: the most slabs that keep the grid
+    one wave of `n_sm` CTAs (at least one), each slab `ctas_per_slab`
+    CTAs, and the grid (ctas_per_slab, n_slabs)."""
+    n_vt = -(-V // MMA_VOCAB_TILE)
+    n_slabs = min(n_vt, max(1, n_sm // ctas_per_slab))
+    tiles_per_slab = -(-n_vt // n_slabs)
+    n_slabs = -(-n_vt // tiles_per_slab)
+    return dict(plan, n_slabs=n_slabs, tiles_per_slab=tiles_per_slab,
+                grid=(ctas_per_slab, n_slabs))
 
 
 def dh_mma_plan(R: int, V: int, H: int, n_sm: int,
@@ -271,9 +323,7 @@ def dh_mma_plan(R: int, V: int, H: int, n_sm: int,
     vocabulary in `n_slabs` slabs of `tiles_per_slab` 32-column tiles,
     one CTA per (row tile, H part, slab), the slab count the most that
     keeps the grid one wave of `n_sm` CTAs (at least one slab)."""
-    if H <= 0 or H % 8:
-        raise ValueError(f"fused_ce_bwd_dh tensor-core kernel takes H % 8 "
-                         f"== 0 (16-byte rows), got H={H}")
+    _require_h8("fused_ce_bwd_dh", H)
     n_parts = -(-H // MMA_HP_MAX)
     hp = -(-(-(-H // n_parts)) // 16) * 16
     ld = -(-H // 16) * 16 + 8
@@ -286,15 +336,72 @@ def dh_mma_plan(R: int, V: int, H: int, n_sm: int,
         raise ValueError(f"fused_ce_bwd_dh tensor-core kernel: H={H} does "
                          f"not fit shared memory")
     row_tiles = -(-R // (16 * row_groups))
-    per_slab_ctas = row_tiles * n_parts
-    n_vt = -(-V // MMA_VOCAB_TILE)
-    n_slabs = min(n_vt, max(1, n_sm // per_slab_ctas))
-    tiles_per_slab = -(-n_vt // n_slabs)
-    n_slabs = -(-n_vt // tiles_per_slab)
-    return {"row_groups": row_groups, "stages": stages, "hp": hp,
-            "n_parts": n_parts, "n_slabs": n_slabs,
-            "tiles_per_slab": tiles_per_slab, "smem_bytes": smem,
-            "grid": (row_tiles * n_parts, n_slabs)}
+    return _slab_plan({"row_groups": row_groups, "stages": stages,
+                       "hp": hp, "n_parts": n_parts, "smem_bytes": smem},
+                      row_tiles * n_parts, V, n_sm)
+
+
+def dh_lora_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
+                     elem_bytes: int = 2) -> dict:
+    """Row 10's launch, as csrc/fused_ce_dh_lora_mma.cu takes it: row 7's
+    layout (dh_mma_plan) with parts of up to DH_LORA_HP_MAX columns (a
+    multiple of 32: the two warps of a row group take half each), since
+    a CTA forms each logits tile once for all of its part; the shared
+    memory also holds xa's row tile and a bt tile a W buffer ([., r16 +
+    8], the rank rounded up to 16), the coef tile [16 row_groups, 40] and
+    the dxa accumulators of the 2 x row_groups warps (r16 x 64 bytes
+    each): a large rank takes fewer buffers or row groups, never a
+    narrower H part."""
+    _require_h8("fused_ce_bwd_dh_lora", H)
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"fused_ce_bwd_dh_lora: rank {r} outside "
+                         f"[1, {MAX_RANK}]")
+    n_parts = -(-H // DH_LORA_HP_MAX)
+    hp = -(-(-(-H // n_parts)) // 32) * 32
+    ld = -(-H // 16) * 16 + 8
+    r16 = -(-r // 16) * 16
+    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
+        smem = 2 * row_groups * r16 * 64 + (
+            (16 * row_groups + stages * MMA_VOCAB_TILE) * (ld + r16 + 8)
+            + 16 * row_groups * (MMA_VOCAB_TILE + 8)) * elem_bytes
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"fused_ce_bwd_dh_lora tensor-core kernel: H={H},"
+                         f" r={r} does not fit shared memory")
+    row_tiles = -(-R // (16 * row_groups))
+    return _slab_plan({"row_groups": row_groups, "stages": stages,
+                       "hp": hp, "n_parts": n_parts, "smem_bytes": smem},
+                      row_tiles * n_parts, V, n_sm)
+
+
+def dw_mma_plan(R: int, V: int, H: int, n_sm: int,
+                elem_bytes: int = 2) -> dict:
+    """The tensor-core dW kernel's launch, as csrc/fused_ce_dw_mma.cu
+    takes it: H cut into `n_parts` parts of `hp` columns (a multiple of
+    128, at most DW_HP_MAX: eight warps' accumulators), each part of a
+    32-row vocab tile one item; h held in chunks of `row_chunk` rows (of
+    DW_ROW_CHUNKS, the smallest that holds all R rows, else the largest
+    whose shared memory fits; `n_chunks` > 1 reloads h every item);
+    `n_ctas` persistent CTAs, one an SM, walking the items with a grid
+    stride."""
+    _require_h8("fused_ce_bwd_dw", H)
+    n_parts = -(-H // DW_HP_MAX)
+    hp = -(-(-(-H // n_parts)) // 128) * 128
+    ld = -(-H // 16) * 16 + 8
+
+    def smem(rc):
+        return ((rc + DW_VOCAB_TILE) * ld + DW_VOCAB_TILE * (rc + 8)) \
+            * elem_bytes + rc * 16
+    fits = [rc for rc in DW_ROW_CHUNKS if smem(rc) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"fused_ce_bwd_dw tensor-core kernel: H={H} does "
+                         f"not fit shared memory")
+    rc = min((c for c in fits if c >= R), default=max(fits))
+    n_items = -(-V // DW_VOCAB_TILE) * n_parts
+    return {"row_chunk": rc, "n_chunks": -(-R // rc), "hp": hp,
+            "n_parts": n_parts, "n_items": n_items,
+            "n_ctas": min(n_sm, n_items), "smem_bytes": smem(rc)}
 
 
 def _stream(t):
@@ -399,15 +506,22 @@ def _launch_dh(h, w, labels, rows, lora):
     return code, dh, dxa
 
 
+def _n_sm(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _aligned16(what, *ts):
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what} tensor-core kernel takes 16-byte aligned "
+                         f"h and W")
+
+
 def _launch_dh_mma(h, w, labels, rows):
     """(code, dh) through the tensor-core dh kernel and its reduce pass."""
     R, H = h.shape
     V = w.shape[0]
-    plan = dh_mma_plan(R, V, H, torch.cuda.get_device_properties(
-        h.device).multi_processor_count, h.element_size())
-    if h.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("fused_ce_bwd_dh tensor-core kernel takes 16-byte "
-                         "aligned h and W")
+    plan = dh_mma_plan(R, V, H, _n_sm(h), h.element_size())
+    _aligned16("fused_ce_bwd_dh", h, w)
     part = torch.empty(plan["n_slabs"], R, H, device=h.device)
     dh = torch.empty(R, H, device=h.device)
     lib, sym = dh_library(h.dtype)
@@ -418,6 +532,44 @@ def _launch_dh_mma(h, w, labels, rows):
         plan["n_parts"], plan["n_slabs"], plan["tiles_per_slab"],
         DTYPE_CODES[h.dtype], _stream(h))
     return code, dh
+
+
+def _launch_dh_lora_mma(h, w, xa, bt, labels, rows):
+    """(code, dh, dxa) through row 10's tensor-core kernel and its reduce
+    passes."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = dh_lora_mma_plan(R, V, H, r, _n_sm(h), h.element_size())
+    _aligned16("fused_ce_bwd_dh_lora", h, w)
+    part = torch.empty(plan["n_slabs"], R, H, device=h.device)
+    dh = torch.empty(R, H, device=h.device)
+    xpart = torch.empty(plan["n_slabs"], R, r, device=h.device)
+    dxa = torch.empty(R, r, device=h.device)
+    lib, sym = dh_lora_library(h.dtype)
+    code = _fn(sym, 12, 11, lib)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+        part.data_ptr(), dh.data_ptr(), xpart.data_ptr(), dxa.data_ptr(),
+        R, V, H, r, plan["row_groups"], plan["stages"], plan["hp"],
+        plan["n_parts"], plan["n_slabs"], plan["tiles_per_slab"],
+        DTYPE_CODES[h.dtype], _stream(h))
+    return code, dh, dxa
+
+
+def _launch_dw_mma(h, w, labels, rows):
+    """(code, dW) through row 8's tensor-core kernel."""
+    R, H = h.shape
+    V = w.shape[0]
+    plan = dw_mma_plan(R, V, H, _n_sm(h), h.element_size())
+    _aligned16("fused_ce_bwd_dw", h, w)
+    dw = torch.empty(V, H, device=h.device)
+    lib, sym = dw_library(h.dtype)
+    code = _fn(sym, 7, 8, lib)(
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H,
+        plan["row_chunk"], plan["hp"], plan["n_parts"], plan["n_ctas"],
+        DTYPE_CODES[h.dtype], _stream(h))
+    return code, dw
 
 
 def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
@@ -444,13 +596,17 @@ def fused_ce_bwd_dh_lora(h, w, xa, bt, labels, lse, dlse, dgold
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dh [R, H], dxa [R, r]) f32 = (coef @ W, coef @ bt) of the
     head-adapter logits. CPU tensors: the plain version; CUDA tensors:
-    the kernel (with reduce passes over its vocab slabs)."""
+    the kernel of dh_lora_library(h.dtype) (with reduce passes over its
+    vocab slabs), or ValueError for what it does not take."""
     rows = _bwd_args("fused_ce_bwd_dh_lora", h, w, labels, lse, dlse, dgold,
                      xa, bt)
     if h.device.type == "cpu":
         return fused_ce_dh_lora_reference(h, w, xa, bt, labels, *rows)
     _check("fused_ce_bwd_dh_lora", (h, w, xa, bt), rows, backward=True)
-    code, dh, dxa = _launch_dh(h, w, labels, rows, (xa, bt))
+    if dh_lora_library(h.dtype)[0] == "fused_ce_dh_lora_mma":
+        code, dh, dxa = _launch_dh_lora_mma(h, w, xa, bt, labels, rows)
+    else:
+        code, dh, dxa = _launch_dh(h, w, labels, rows, (xa, bt))
     build.check_launch("fused_ce_bwd_dh_lora", code)
     fused_ce_bwd_dh_lora.launches += 1
     return dh, dxa
@@ -461,18 +617,22 @@ fused_ce_bwd_dh_lora.launches = 0
 
 def fused_ce_bwd_dw(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     """dW [V, H] f32 = coef^T @ h. CPU tensors: the plain version; CUDA
-    tensors: the kernel."""
+    tensors: the kernel of dw_library(h.dtype), or ValueError for what it
+    does not take."""
     rows = _bwd_args("fused_ce_bwd_dw", h, w, labels, lse, dlse, dgold)
     if h.device.type == "cpu":
         return fused_ce_dw_reference(h, w, labels, *rows)
     _check("fused_ce_bwd_dw", (h, w), rows, backward=True)
-    R, H = h.shape
-    V = w.shape[0]
-    dw = torch.empty(V, H, device=h.device)
-    code = _fn("mft_fused_ce_dw", 7, 4)(
-        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
-        *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H,
-        DTYPE_CODES[h.dtype], _stream(h))
+    if dw_library(h.dtype)[0] == "fused_ce_dw_mma":
+        code, dw = _launch_dw_mma(h, w, labels, rows)
+    else:
+        R, H = h.shape
+        V = w.shape[0]
+        dw = torch.empty(V, H, device=h.device)
+        code = _fn("mft_fused_ce_dw", 7, 4)(
+            h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+            *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H,
+            DTYPE_CODES[h.dtype], _stream(h))
     build.check_launch("fused_ce_bwd_dw", code)
     fused_ce_bwd_dw.launches += 1
     return dw

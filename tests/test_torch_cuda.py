@@ -244,8 +244,9 @@ def test_flash_tensor_core_kernel_d256_gqa_window_ragged(dev):
 
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the FMA ones, for
-    the flash forward (row 1) and the fused CE dh (row 7): the libraries
-    the wrappers load are recorded."""
+    the flash forward (row 1), the fused CE dh (row 7), dW (row 8) and the
+    head-adapter dh + dxa (row 10): the libraries the wrappers load are
+    recorded."""
     loaded = []
     real = build.load
 
@@ -266,12 +267,19 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
         loaded.clear()
         fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
         assert loaded == [dh]
+        loaded.clear()
+        fc.fused_ce_bwd_dw(h, w, lab, lse, dl, dg)
+        assert loaded == [dh.replace("_dh_", "_dw_")]
+        xa, bt = _lora_case(dev, dtype, 16, 300, 4, 5)
+        loaded.clear()
+        fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, lse, dl, dg)
+        assert loaded == [dh.replace("_dh_", "_dh_lora_")]
     torch.cuda.synchronize()
 
 
 def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
-    """Row 1 refuses a head dim outside {64, 128, 256} in bf16, row 7 a
-    bf16 H that is not a multiple of 8, before any launch."""
+    """Row 1 refuses a head dim outside {64, 128, 256} in bf16, rows 7, 8
+    and 10 a bf16 H that is not a multiple of 8, before any launch."""
     q = torch.zeros(1, 2, 8, 96, device=dev, dtype=torch.bfloat16)
     n0 = fa.flash_attention_fwd.launches
     with pytest.raises(ValueError, match="D in"):
@@ -282,6 +290,15 @@ def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="H % 8"):
         fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)
     assert fc.fused_ce_bwd_dh.launches == n0
+    n0 = fc.fused_ce_bwd_dw.launches
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fused_ce_bwd_dw(h, w, lab, dl, dl, dg)
+    assert fc.fused_ce_bwd_dw.launches == n0
+    xa, bt = _lora_case(dev, torch.bfloat16, 8, 100, 8, 2)
+    n0 = fc.fused_ce_bwd_dh_lora.launches
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl, dg)
+    assert fc.fused_ce_bwd_dh_lora.launches == n0
 
 
 def test_flash_autograd_launches_the_backward_kernels(dev):
@@ -451,17 +468,72 @@ def test_fused_ce_dh_tensor_core_kernel_ragged_and_deterministic(dev):
     assert float(err) <= 2e-3 * float(ref.abs().max())
 
 
+def test_fused_ce_dw_tensor_core_kernel_ragged_and_deterministic(dev):
+    """Row 8 in bf16 at R = 37 (a ragged row chunk), a ragged V (50,257)
+    and H = 1,152 (two H parts), and at R = 150 (two row chunks), against
+    the plain version, the softmax part alone too; two calls give
+    identical bits (no atomics); one launch a call."""
+    for R, V, H in ((37, 50257, 1152), (150, 20011, 640)):
+        h, w, lab, dl, dg = _ce_case(dev, torch.bfloat16, R, V, H, seed=R)
+        lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
+        n0 = fc.fused_ce_bwd_dw.launches
+        dw = fc.fused_ce_bwd_dw(h, w, lab, lse, dl, dg)
+        again = fc.fused_ce_bwd_dw(h, w, lab, lse, dl, dg)
+        torch.cuda.synchronize()
+        assert fc.fused_ce_bwd_dw.launches == n0 + 2
+        assert torch.equal(dw, again)
+        assert _rel_err(dw, fc.fused_ce_dw_reference(h, w, lab, lse, dl,
+                                                     dg)) <= 2e-3
+        z = torch.zeros_like(dg)
+        ref = fc.fused_ce_dw_reference(h, w, lab, lse, dl, z)
+        err = (fc.fused_ce_bwd_dw(h, w, lab, lse, dl, z) - ref).abs().max()
+        assert float(err) <= 2e-3 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("R,V,H,r", [
+    (37, 50257, 1000, 4),       # ragged R, V and H parts, r 4 by 4 bytes
+    (128, 20011, 640, 128),     # the largest rank
+    (37, 1001, 200, 5),         # an odd rank, copied element by element
+])
+def test_fused_ce_dh_lora_tensor_core_kernel(dev, R, V, H, r):
+    """Row 10 in bf16 against the plain version, (dh, dxa) over
+    max(1, max |ref|) and the softmax part alone (dgold = 0, over
+    max |ref|); two calls give identical bits; one launch a call."""
+    h, w, lab, dl, dg = _ce_case(dev, torch.bfloat16, R, V, H, seed=R + r)
+    xa, bt = _lora_case(dev, torch.bfloat16, R, V, r, seed=r)
+    lse = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    for dgold, err in ((dg, _rel_err), (torch.zeros_like(dg), _scaled_err)):
+        args = (h, w, xa, bt, lab, lse, dl, dgold)
+        n0 = fc.fused_ce_bwd_dh_lora.launches
+        got = fc.fused_ce_bwd_dh_lora(*args)
+        again = fc.fused_ce_bwd_dh_lora(*args)
+        torch.cuda.synchronize()
+        assert fc.fused_ce_bwd_dh_lora.launches == n0 + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got, fc.fused_ce_dh_lora_reference(*args)):
+            assert err(a, b) <= 2e-3
+
+
 def test_fused_ce_skips_dw_for_a_frozen_head_and_never_runs_plain(
         dev, monkeypatch):
     """A CUDA tensor goes to the kernels only: the plain versions and the
     plain chunk body are made to raise; a frozen head launches fwd and dh
-    but no dW; a dtype the kernels do not take raises."""
+    but no dW; a trained one launches dW on the tensor-core kernel (bf16:
+    the libraries loaded are recorded) with a finite gradient; a dtype
+    the kernels do not take raises."""
     def boom(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
     for name in ("fused_ce_fwd_reference", "fused_ce_dh_reference",
                  "fused_ce_dw_reference"):
         monkeypatch.setattr(fc, name, boom)
     monkeypatch.setattr(loss, "_plain_chunk", boom)
+    loaded = []
+    real = build.load
+
+    def record(name):
+        loaded.append(name)
+        return real(name)
+    monkeypatch.setattr(build, "load", record)
     h, w, lab, _, _ = _ce_case(dev, torch.bfloat16, 2 * 31, 3000, 128, 1)
     hid = h.reshape(2, 31, 128).requires_grad_(True)
     labels = lab.reshape(2, 31)
@@ -474,10 +546,13 @@ def test_fused_ce_skips_dw_for_a_frozen_head_and_never_runs_plain(
         [n[0] + 3, n[1] + 3, n[2]]
     assert int(c) == 2 * 30 and bool(torch.isfinite(hid.grad).all())
     wt = w.clone().requires_grad_(True)
+    loaded.clear()
     s, _ = loss.chunked_lm_cross_entropy_sum(hid.detach(), wt, labels,
                                              num_chunks=3)
     s.backward()
     assert fc.fused_ce_bwd_dw.launches == n[2] + 3
+    assert loaded.count("fused_ce_dw_mma") == 3
+    assert bool(torch.isfinite(wt.grad).all())
     with pytest.raises(ValueError, match="dtype"):
         fc.fused_ce_fwd(h.double(), w.double(), lab)
 
@@ -532,7 +607,8 @@ def test_head_adapter_loss_launches_its_kernels_only(dev, monkeypatch):
     """The chunked loss with an lm_head adapter on a CUDA tensor launches
     rows 9-11 in every chunk (row 11 dbt-only: the head is frozen) and
     none of the base kernels or plain versions; its loss and the A / B
-    gradients agree with the plain path (f32)."""
+    gradients agree with the plain path (f32). In bf16 the same launches,
+    row 10 on its tensor-core kernel, with finite gradients."""
     g = torch.Generator().manual_seed(7)
     R2, V, H, r = 31, 3000, 128, 4
     hid = torch.randn(2, R2, H, generator=g).to(dev)
@@ -568,6 +644,24 @@ def test_head_adapter_loss_launches_its_kernels_only(dev, monkeypatch):
         out["plain"][0])
     for a, b in zip(out["auto"][1], out["plain"][1]):
         assert _rel_err(a, b) <= 1e-4
+    loaded = []
+    real = build.load
+
+    def record(name):
+        loaded.append(name)
+        return real(name)
+    monkeypatch.setattr(build, "load", record)
+    leaves = [t.to(torch.bfloat16).requires_grad_(True) for t in (hid, A, B)]
+    head = {"A": leaves[1], "B": leaves[2],
+            "scale": torch.tensor(2.0, device=dev)}
+    n = [f.launches for f in kernels]
+    s, _ = loss.chunked_lm_cross_entropy_sum(
+        leaves[0], w.to(torch.bfloat16), labels, num_chunks=3, impl="auto",
+        lora_head=head)
+    grads = torch.autograd.grad(s, leaves)
+    assert [f.launches - x for f, x in zip(kernels, n)] == [3, 3, 3, 0, 0, 0]
+    assert loaded.count("fused_ce_dh_lora_mma") == 3
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_gemma_kernel_path_matches_plain_path(dev):
