@@ -14,9 +14,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      f32 on the FMA kernel; with and without dropout, bf16 dropout with
      the merged backward on its output, bf16 D 256 with GQA, a window
      inside a key tile and a ragged S), the merged
-     and the split flash backward, the LoRA epilogue, the paged decode,
-     the fused CE forward, dh and dW (rows 6-8; dh and dW in bf16 on the
-     tensor-core kernels: R 37 and a ragged V too, two calls
+     and the split flash backward (the merged one in bf16 / f16 on the
+     tensor-core kernel, f32 on the FMA kernel; bf16 D 256 with GQA, a
+     ragged S, a padded tail, a window inside a key block and dropout
+     0.1), the LoRA epilogue, the paged decode,
+     the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
+     bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
      bit-identical), a head dim and a bf16 H the kernels do not take
      refused, and their head-adapter variants (rows 9-11, dW in both its
      modes; dh + dxa in bf16 on the tensor-core kernel, at r 4, 8 and
@@ -151,10 +154,12 @@ def refuses(fn) -> bool:
 
 def ptxas_summary(log: str) -> list:
     """[kernel, registers, spill stores, spill loads] of each kernel in an
-    nvcc -Xptxas -v build log, the kernel as `name<type, D or flags>`."""
+    nvcc -Xptxas -v build log, the kernel as `name<type, D or flags>`
+    (fused_ce.cu's bool flag is LORA, fused_ce_fwd_mma.cu's whether h is
+    held in registers)."""
     import re
-    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
-             "Lb1E": "lora", "Lb0E": "base"}
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    flags = {"fwd_mma_kernel": ("h in registers", "h in smem")}
     rows, kernel, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)"
@@ -166,6 +171,8 @@ def ptxas_summary(log: str) -> list:
                               rest) if rest.startswith("I") else []
             if rest.startswith("If"):
                 args.insert(0, "f")
+            on, off = flags.get(base, ("lora", "base"))
+            names.update({"Lb1E": on, "Lb0E": off})
             args = [a[2:-1] if a.startswith("Li") else names.get(a, a)
                     for a in args]
             kernel = f"{base}<{', '.join(args)}>" if args else base
@@ -443,7 +450,8 @@ def check_flash(torch, fa, dev):
 
 def check_flash_bwd(torch, fa, dev):
     """The merged and the split backward kernels against their plain
-    versions; returns {kernel: max error} at the training shape."""
+    versions (the merged one in bf16 / f16 on the tensor-core kernel);
+    returns {kernel: max error} at the training shape."""
     cases = [  # (name, dtype, B, Hq, Hkv, S, D, n_real, window, p_drop,
         #         tol of rel_err)
         ("training", torch.bfloat16, 8, 12, 12, 128, 64, (128,) * 8, None,
@@ -456,6 +464,8 @@ def check_flash_bwd(torch, fa, dev):
          5e-3),
         ("dropout_0.1", torch.float32, 2, 4, 4, 128, 64, (128, 100), None,
          0.1, 1e-5),
+        ("bf16_d256_gqa_ragged_dropout", torch.bfloat16, 2, 8, 2, 200, 256,
+         (200, 150), 40, 0.1, 2e-2),
     ]
     errs = None
     for (name, dt, B, Hq, Hkv, S, D, n_real, window, p_drop,
@@ -715,12 +725,12 @@ def check_fused_ce(torch, fc, dev):
     part (dlse * p, p ~ 1 / V) is held on its own too: dh and dW again
     with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
     measured at most 3.5e-4 on an H100: a few coefs round the other way).
-    dh and dW of bf16 / f16 run on the tensor-core kernels, of f32 on
-    fused_ce.cu: R 37 (a ragged row tile) with a ragged V and H 1,152 in
-    bf16 too; the path case's dh twice and dW twice must give identical
-    bits (no atomics), and a bf16 H that is not a multiple of 8 must be
-    refused by both. Returns the path case's max abs errors and
-    inputs."""
+    The forward, dh and dW of bf16 / f16 run on the tensor-core kernels,
+    of f32 on fused_ce.cu: R 37 (a ragged row tile) with a ragged V and
+    H 1,152 in bf16 too; the path case's forward, dh and dW twice each
+    must give identical bits (no atomics), and a bf16 H that is not a
+    multiple of 8 must be refused by all three. Returns the path case's
+    max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, tol, sm_tol)
         ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
         ("batch8", torch.bfloat16, 256, 262144, 640, 2e-3, 2e-3),
@@ -765,6 +775,9 @@ def check_fused_ce(torch, fc, dev):
               f"part of dh / dW disagrees with its plain versions")
         if name == "path":
             path = (e, (h, w, lab, rl, dl, dg))
+            lse2, gold2 = fc.fused_ce_fwd(h, w, lab)
+            check(bool(torch.equal(lse, lse2) and torch.equal(gold, gold2)),
+                  "fused CE forward: two calls gave different bits")
             again = fc.fused_ce_bwd_dh(h, w, lab, rl, dl, dg)
             check(bool(torch.equal(dh, again)),
                   "fused CE dh: two calls gave different bits")
@@ -773,9 +786,12 @@ def check_fused_ce(torch, fc, dev):
             check(bool(torch.equal(dw, again)),
                   "fused CE dW: two calls gave different bits")
             del dw, again
-            print("fused CE path: dh twice and dW twice, identical bits")
+            print("fused CE path: forward, dh and dW twice each, identical "
+                  "bits")
     h, w, lab, dl, dg = fused_ce_inputs(torch, dev, torch.bfloat16, 8, 100,
                                         1004, seed=1)
+    check(refuses(lambda: fc.fused_ce_fwd(h, w, lab)),
+          "fused_ce_fwd took a bf16 H = 1004 (not a multiple of 8)")
     for kernel in (fc.fused_ce_bwd_dh, fc.fused_ce_bwd_dw):
         check(refuses(lambda: kernel(h, w, lab, dl, dl, dg)),
               f"{kernel.__name__} took a bf16 H = 1004 (not a multiple "
@@ -1977,7 +1993,7 @@ def gemma_kernel_entries(torch, fa, lf, dev):
             bound((2 * n_q + 2 * n_kv) * isz + pad.numel() * 4
                   + B * Hq * S * 4, 4 * D * pairs), {"shape": shape}),
         "bwd_merged": kernel_entry(
-            "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
+            "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
             "flash_attention.py:415", None, bwd_err, bwd_times,
             bound((3 * n_q + 4 * n_kv) * isz + pad.numel() * 4
                   + 2 * B * Hq * S * 4, 10 * D * pairs), {"shape": shape}),
@@ -2337,11 +2353,15 @@ def main() -> int:
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
              "gemma": gemma_entries["flash_fwd"]}),
         kernel_entry(
-            "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
+            "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
             "flash_attention.py:415", total("bwd_merged"),
             bwd["merged"], merged_times,
             bound(bwd_in + 3 * n_qkv * isz, 10 * D * pairs),
             {"launches_by_path": by_path("bwd_merged"),
+             "ptxas": ptxas["flash_attention_bwd_merged_mma"],
+             "f32": "flash_attention_bwd_merged.cu (FMA kernel, f32 "
+                    "launches)",
+             "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
              "gemma": gemma_entries["bwd_merged"]}),
         kernel_entry(
             "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
@@ -2378,7 +2398,7 @@ def main() -> int:
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
     for name, key, line, err, source in (
             ("fused_ce_fwd", "fused_ce_fwd", "fused_ce.py:121",
-             max(ce_err["lse"], ce_err["gold"]), "fused_ce.cu"),
+             max(ce_err["lse"], ce_err["gold"]), "fused_ce_fwd_mma.cu"),
             ("fused_ce_bwd_dh", "fused_ce_dh", "fused_ce.py:196",
              ce_err["dh"], "fused_ce_dh_mma.cu"),
             ("fused_ce_bwd_dw", "fused_ce_dw", "fused_ce.py:224",

@@ -32,11 +32,12 @@
 // each visited q-block's Q/dO are staged in shared memory as f32 with a
 // padded stride, dK/dV accumulate in registers, and the q-loop visits
 // only the q-blocks that can see the key block (`_q_block_bounds`).
-// wgmma on the tensor cores and TMA loads are later work.
+// bf16 and f16 run on the tensor cores in
+// flash_attention_bwd_merged_mma.cu; this kernel keeps f32.
 //
 // C interface (ctypes): mft_flash_attention_bwd_merged returns the CUDA
 // error code of the launch (0 on success). q/dO [B, Hq, S, D] and k/v
-// [B, Hkv, S, D] contiguous in one dtype (0 f32, 1 bf16, 2 f16); pad
+// [B, Hkv, S, D] contiguous f32 (dtype 0; 1 bf16 and 2 f16 refused); pad
 // [B, S] f32; lse, delta [B, Hq, S] f32; dq_acc (zeroed by the caller),
 // dk_p, dv_p [B, Hq, S, D] f32.
 
@@ -157,18 +158,8 @@ extern "C" int mft_flash_attention_bwd_merged(
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{Hq, Hkv, S, scale, causal, has_window, window,
                   Dropout{dropout, seed, thresh, inv_keep}};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_d<float>(D, q, k, v, pad, lse, delta, dout, dq_acc,
-                               dk_p, dv_p, B, a, st);
-    case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, pad, lse, delta, dout,
-                                       dq_acc, dk_p, dv_p, B, a, st);
-    case 2:
-      return dispatch_d<__half>(D, q, k, v, pad, lse, delta, dout, dq_acc,
-                                dk_p, dv_p, B, a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  // f32 only: bf16 and f16 run on flash_attention_bwd_merged_mma.cu
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return dispatch_d<float>(D, q, k, v, pad, lse, delta, dout, dq_acc, dk_p,
+                           dv_p, B, a, static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,8 @@
 //
 // Replaces mobilefinetuner_tpu/ops/fused_ce.py
 //   row 6  `_fwd_kernel` (launched by `_fwd`):   lse, gold [R] f32 of
-//          logits = h @ W^T, h [R, H], W [V, H];
+//          logits = h @ W^T, h [R, H], W [V, H], for f32 inputs (bf16
+//          and f16 run on fused_ce_fwd_mma.cu);
 //   row 7  `_dh_kernel` (`_bwd_dh`):  dh [R, H] f32 = coef @ W, for f32
 //          inputs (bf16 and f16 run on fused_ce_dh_mma.cu);
 //   row 8  `_dw_kernel` (`_bwd_dw`):  dW [V, H] f32 = coef^T @ h, for
@@ -62,8 +63,9 @@
 // padded to 128 lanes as on the TPU.
 // Products are f32 FMAs from shared memory (each thread a small register
 // tile), not tensor cores: a first, simple version, far from the bound
-// (the 16-bit cases of rows 7, 8 and 10 run on mma.sync in
-// fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and fused_ce_dh_lora_mma.cu). Ragged R, V, H and r edges are
+// (the 16-bit cases of rows 6, 7, 8 and 10 run on mma.sync in
+// fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and
+// fused_ce_dh_lora_mma.cu). Ragged R, V, H and r edges are
 // masked, so any shape is taken (the TPU kernels need R % 8 and
 // V % block == 0). The dh and dW kernels hold their f32 accumulators in
 // shared memory: H + r <= 1,522 (MAX_HIDDEN in ops/fused_ce.py).
@@ -541,14 +543,13 @@ extern "C" int mft_fused_ce_fwd(const void* h, const void* w,
                                 float* gold, int R, int V, int H,
                                 int n_slabs, int tiles_per_slab, int dtype,
                                 void* stream) {
-  if (R <= 0 || V <= 0 || H <= 0 || n_slabs <= 0 || tiles_per_slab <= 0)
+  // f32 only: bf16 and f16 run on fused_ce_fwd_mma.cu
+  if (R <= 0 || V <= 0 || H <= 0 || n_slabs <= 0 || tiles_per_slab <= 0 ||
+      dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_dtype(dtype, [&](auto tag) {
-    return launch_fwd<ELEM(tag), false>(h, w, nullptr, nullptr, labels, part,
-                                        lse, gold, R, V, H, 0, n_slabs,
-                                        tiles_per_slab, st);
-  });
+  return launch_fwd<float, false>(h, w, nullptr, nullptr, labels, part, lse,
+                                  gold, R, V, H, 0, n_slabs, tiles_per_slab,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mft_fused_ce_dh(const void* h, const void* w,

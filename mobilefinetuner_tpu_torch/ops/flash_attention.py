@@ -7,9 +7,13 @@ versions (port of mobilefinetuner_tpu/ops/flash_attention.py).
                              `csrc/flash_attention_fwd_mma.cu`, f32 the
                              FMA kernel `csrc/flash_attention_fwd.cu`;
                              CPU tensors take `flash_attention_reference`.
-  flash_attention_bwd_merged (dq, dk, dv) in one pass per key block:
-                             `csrc/flash_attention_bwd_merged.cu`, or
-                             `flash_bwd_merged_reference` on the CPU.
+  flash_attention_bwd_merged (dq, dk, dv) in one pass per key block,
+                             chosen by dtype (bwd_library): bf16 / f16
+                             the tensor-core kernel
+                             `csrc/flash_attention_bwd_merged_mma.cu`,
+                             f32 the FMA kernel
+                             `csrc/flash_attention_bwd_merged.cu`; CPU
+                             tensors take `flash_bwd_merged_reference`.
   flash_attention_bwd_dq     the split pair, `csrc/flash_attention_bwd_
   flash_attention_bwd_dkv    split.cu` (two kernels, two counters), or
                              `flash_bwd_split_reference` on the CPU.
@@ -37,9 +41,10 @@ sees the kept ones, scaled by 1/(1-p). The keep bit is a hash of
 (seed, b, h, row, col), so every kernel regenerates the forward's mask.
 
 The kernels take D in {64, 128, 256} and any S (they mask the ragged
-edge), in f32, bf16 or f16; the tensor-core forward also needs 16-byte
-aligned q, k and v. `fwd_plan` is the forward kernels' launch plan in
-Python, as the sources compute it.
+edge), in f32, bf16 or f16; the tensor-core forward and merged backward
+also need 16-byte aligned q, k and v (and dO). `fwd_plan` and `bwd_plan`
+are the forward and merged backward kernels' launch plans in Python, as
+the sources compute them.
 """
 
 from __future__ import annotations
@@ -69,11 +74,14 @@ def flash_eligible(D: int, dtype: torch.dtype) -> bool:
 def resolve_bwd_impl(S: int, D: int, dtype: torch.dtype) -> str:
     """The `auto` backward on this card: the merged one-pass kernel, at
     every shape. It does 5 tile products a tile against the split pair's
-    7 and launches once; its dQ atomics (S/64 adds an element) did not
-    cost it the lead anywhere measured: chip_smoke.py's `bwd_sweep` on an
-    H100 timed merged 1.4x faster than split at D = 64 from S = 128 to
-    2048 and at D = 128, S = 1024, and 1.9-2.5x faster at D = 256 with
-    GQA (PERF.md). "split" stays as the parity oracle and an option."""
+    7 and launches once; in bf16 / f16 it runs on the tensor cores while
+    the split pair stays on the FMA units. chip_smoke.py's `bwd_sweep`
+    on an H100 (bf16, causal) timed merged 5.2x faster than split at
+    B 8 x 12 heads x S 128 x D 64, 16-18x at S 512 and 2048 (D 64) and at
+    D 128, S 1024, and 22-25x at D 256 with GQA; with both on the FMA
+    units (before the merged kernel's tensor-core version) merged led by
+    1.4-2.5x (PERF.md). "split" stays as the parity oracle and an
+    option."""
     return "merged"
 
 
@@ -123,10 +131,12 @@ def _kv_block_bounds(row0: int, n_kv_blocks: int, causal: bool,
 
 
 def _q_block_bounds(col0: int, n_q_blocks: int, causal: bool,
-                    window: Optional[int]) -> Tuple[int, int]:
-    """[qlo, qhi) q-blocks that can see the key block at col0."""
-    qlo = col0 // BLOCK_Q if causal else 0
-    qhi = (min(n_q_blocks, (col0 + BLOCK_K + window - 2) // BLOCK_Q + 1)
+                    window: Optional[int], block_q: int = BLOCK_Q,
+                    block_k: int = BLOCK_K) -> Tuple[int, int]:
+    """[qlo, qhi) q-blocks that can see the key block at col0, as every
+    merged backward kernel computes them for its own tile sizes."""
+    qlo = col0 // block_q if causal else 0
+    qhi = (min(n_q_blocks, (col0 + block_k + window - 2) // block_q + 1)
            if window is not None else n_q_blocks)
     return qlo, qhi
 
@@ -230,6 +240,60 @@ def fwd_plan(B: int, Hq: int, S: int, D: int, dtype: torch.dtype) -> dict:
         block_q, block_k = BLOCK_Q, BLOCK_K
     return {"block_q": block_q, "block_k": block_k,
             "grid": (-(-S // block_q), Hq, B)}
+
+
+def bwd_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """(source, C symbol) of the merged backward kernel for `dtype`: bf16
+    and f16 run on the tensor-core kernel, f32 on the FMA kernel (there
+    is no fallback from one to the other)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return ("flash_attention_bwd_merged_mma",
+                "mft_flash_attention_bwd_merged_mma")
+    if dtype == torch.float32:
+        return "flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"
+    raise ValueError(f"flash_attention_bwd_merged kernel takes one dtype of "
+                     f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
+
+
+# csrc/flash_attention_bwd_merged_mma.cu Cfg<D>: D -> (keys a CTA, query
+# rows a q-block, warps sharing each 16 keys)
+BWD_MMA_TILES = {64: (32, 32, 1), 128: (64, 64, 2), 256: (32, 32, 2)}
+BWD_MMA_STAGES = 2      # its Q / dO ring
+
+
+def bwd_plan(B: int, Hq: int, Hkv: int, S: int, D: int,
+             dtype: torch.dtype) -> dict:
+    """The merged backward kernel's launch, as its source computes it:
+    keys a CTA (`block_k`), query rows a q-block (`block_q`), `warps`,
+    the Q / dO ring's `stages`, the grid (key blocks, q-heads, batch) and
+    `smem_bytes`. The tensor-core kernel (bf16 / f16): one warp per 16
+    keys and all of dK / dV's columns at D 64, half of them at D >= 128
+    (BWD_MMA_TILES: 384 CTAs at GPT-2's B 8 x 12 heads x S 128, 128 at
+    Gemma-3's B 4 x Hq 4 x S 256);
+    the FMA kernel (f32): square tiles of 64 (32 at D = 256), 8 warps,
+    everything staged in f32 (csrc/flash_attention_bwd.cuh)."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_merged kernel takes D in "
+                         f"{KERNEL_HEAD_DIMS}, got D={D}")
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention_bwd_merged: Hq {Hq} is not a "
+                         f"multiple of Hkv {Hkv}")
+    if bwd_library(dtype)[0] == "flash_attention_bwd_merged_mma":
+        block_k, block_q, d_split = BWD_MMA_TILES[D]
+        stages = BWD_MMA_STAGES
+        warps = block_k // 16 * d_split
+        ld = D + 8
+        smem = ((2 * block_k * ld + 2 * stages * block_q * ld
+                 + block_k * (block_q + 8)) * 2
+                + (2 * stages * block_q + block_k) * 4)
+    else:
+        block_k = block_q = 32 if D > 128 else 64
+        stages, warps = 1, 8
+        smem = (4 * block_k * (D + 1) + 2 * block_k * (block_k + 1)
+                + 3 * block_k) * 4
+    return {"block_k": block_k, "block_q": block_q, "warps": warps,
+            "stages": stages, "grid": (-(-S // block_k), Hq, B),
+            "smem_bytes": smem}
 
 
 def _fn(lib: str, sym: str, n_ptrs: int):
@@ -465,7 +529,7 @@ def flash_attention_bwd_merged(q, k, v, padding_mask, lse, delta, dout, *,
                                seed: Optional[int] = None):
     """(dq, dk, dv) by the merged one-pass kernel. delta = rowsum(dO*O)
     [B,Hq,S,1] f32; lse from the forward. CPU tensors: the plain version.
-    CUDA tensors: the kernel, or ValueError."""
+    CUDA tensors: the kernel of bwd_library(q.dtype), or ValueError."""
     kw = dict(scale=scale, is_causal=is_causal,
               sliding_window=sliding_window, p_drop=p_drop, seed=seed)
     if q.device.type == "cpu":
@@ -476,18 +540,36 @@ def flash_attention_bwd_merged(q, k, v, padding_mask, lse, delta, dout, *,
                       "flash_attention_bwd_merged")
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
+    G = Hq // Hkv
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dout.data_ptr())
+    scalars = _bwd_scalars(q, k, scale, is_causal, sliding_window, p_drop,
+                           seed)
+    lib, sym = bwd_library(q.dtype)
+    if lib != "flash_attention_bwd_merged":   # the tensor-core interface
+        if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+            raise ValueError("flash_attention_bwd_merged tensor-core kernel "
+                             "takes 16-byte aligned q, k, v and dout")
+        # one f32 workspace: dQ's sums (zeroed by the launcher) and, with
+        # G > 1, the per-q-head dK / dV partials its finish pass sums
+        n = q.numel()
+        ws = torch.empty((3 if G > 1 else 1) * n, device=q.device,
+                         dtype=torch.float32)
+        parts = (ws[n:].data_ptr(), ws[2 * n:].data_ptr()) if G > 1 \
+            else (None, None)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        code = _fn(lib, sym, 13)(*ins, ws.data_ptr(), *parts, dq.data_ptr(),
+                                 dk.data_ptr(), dv.data_ptr(), *scalars)
+        build.check_launch("flash_attention_bwd_merged", code)
+        flash_attention_bwd_merged.launches += 1
+        return dq, dk, dv
     dq_acc = torch.zeros(B, Hq, S, D, device=q.device, dtype=torch.float32)
     dk_p = torch.empty_like(dq_acc)
     dv_p = torch.empty_like(dq_acc)
-    code = _fn("flash_attention_bwd_merged",
-               "mft_flash_attention_bwd_merged", 10)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq_acc.data_ptr(),
-        dk_p.data_ptr(), dv_p.data_ptr(),
-        *_bwd_scalars(q, k, scale, is_causal, sliding_window, p_drop, seed))
+    code = _fn(lib, sym, 10)(*ins, dq_acc.data_ptr(), dk_p.data_ptr(),
+                             dv_p.data_ptr(), *scalars)
     build.check_launch("flash_attention_bwd_merged", code)
     flash_attention_bwd_merged.launches += 1
-    G = Hq // Hkv
     if G > 1:   # per-q-head partials, group-summed in one reduction
         dk_p = dk_p.reshape(B, Hkv, G, S, D).sum(2)
         dv_p = dv_p.reshape(B, Hkv, G, S, D).sum(2)

@@ -8,7 +8,10 @@ chunk's [R, V] logits are hundreds of MB; the kernels of
 memory:
 
   fused_ce_fwd      (lse, gold) [R] f32: logsumexp of each row's logits
-                    and its label's logit (TPU `_fwd_kernel`, row 6).
+                    and its label's logit (TPU `_fwd_kernel`, row 6);
+                    bf16 and f16 on the tensor-core kernel of
+                    `csrc/fused_ce_fwd_mma.cu` (H % 8 == 0), f32 on
+                    `csrc/fused_ce.cu` (fwd_library, fwd_mma_plan).
   fused_ce_bwd_dh   dh [R, H] f32 = coef @ W (`_dh_kernel`, row 7); bf16
                     and f16 on the tensor-core kernel of
                     `csrc/fused_ce_dh_mma.cu` (H % 8 == 0), f32 on
@@ -53,7 +56,8 @@ tile by tile over the vocabulary in f32 with the same coef rounding, and
 run on any device as the kernels' references on the card.
 
 Bounds and design: csrc/fused_ce.cu and the tensor-core sources
-csrc/fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and fused_ce_dh_lora_mma.cu.
+csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and
+fused_ce_dh_lora_mma.cu.
 The kernels take any R, V and H (the tensor-core kernels H % 8 == 0),
 h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
 hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
@@ -87,6 +91,7 @@ DH_LORA_HP_MAX = 640    # csrc/fused_ce_dh_lora_mma.cu HP_MAX: 2 x 320
 DW_VOCAB_TILE = 32      # csrc/fused_ce_dw_mma.cu VT: vocab rows of a tile
 DW_HP_MAX = 640         # HP_MAX: dW columns of a CTA, 8 warps x WC_MAX
 DW_ROW_CHUNKS = (128, 64, 32)   # rows of h a CTA holds (its RC)
+FWD_MMA_KREGS = 40      # csrc/fused_ce_fwd_mma.cu KR: h's k-steps a lane
 
 
 # ------------------------------------------------------ plain versions ------
@@ -273,6 +278,13 @@ def _route(what: str, mma: Tuple[str, str], fma: Tuple[str, str],
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
 
 
+def fwd_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """Row 6's kernel for `dtype` (_route)."""
+    return _route("fused_ce_fwd",
+                  ("fused_ce_fwd_mma", "mft_fused_ce_fwd_mma"),
+                  ("fused_ce", "mft_fused_ce_fwd"), dtype)
+
+
 def dh_library(dtype: torch.dtype) -> Tuple[str, str]:
     """Row 7's kernel for `dtype` (_route)."""
     return _route("fused_ce_bwd_dh",
@@ -311,6 +323,34 @@ def _slab_plan(plan: dict, ctas_per_slab: int, V: int, n_sm: int) -> dict:
     n_slabs = -(-n_vt // tiles_per_slab)
     return dict(plan, n_slabs=n_slabs, tiles_per_slab=tiles_per_slab,
                 grid=(ctas_per_slab, n_slabs))
+
+
+def fwd_mma_plan(R: int, V: int, H: int, n_sm: int,
+                 elem_bytes: int = 2) -> dict:
+    """The tensor-core forward's launch, as csrc/fused_ce_fwd_mma.cu takes
+    it: rows in tiles of 16 x `row_groups` with a ring of `stages` W
+    tiles, the first of (4, 3), (4, 2), (2, 3), (2, 2), (2, 1) whose
+    shared memory (h's row tile and the ring, [., H16 + 8] in the operand
+    dtype) fits; up to FWD_MMA_KREGS k-steps (H <= 640) each lane also
+    holds its rows' A fragments of h in registers (`h_in_regs`), past
+    that it reads them from shared memory for every tile. The
+    vocabulary in `n_slabs` slabs of `tiles_per_slab` 32-column tiles,
+    one CTA per (row tile, slab), the slab count the most that keeps the
+    grid one wave of `n_sm` CTAs (at least one slab)."""
+    _require_h8("fused_ce_fwd", H)
+    h16 = -(-H // 16) * 16
+    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
+        smem = (16 * row_groups + stages * MMA_VOCAB_TILE) * (h16 + 8) \
+            * elem_bytes
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"fused_ce_fwd tensor-core kernel: H={H} does not "
+                         f"fit shared memory")
+    row_tiles = -(-R // (16 * row_groups))
+    return _slab_plan({"row_groups": row_groups, "stages": stages,
+                       "h_in_regs": h16 <= 16 * FWD_MMA_KREGS,
+                       "smem_bytes": smem}, row_tiles, V, n_sm)
 
 
 def dh_mma_plan(R: int, V: int, H: int, n_sm: int,
@@ -435,15 +475,38 @@ def _launch_fwd(h, w, labels, lora):
     return code, lse, gold
 
 
+def _launch_fwd_mma(h, w, labels):
+    """(code, lse, gold) through row 6's tensor-core kernel and its merge
+    pass."""
+    R, H = h.shape
+    V = w.shape[0]
+    plan = fwd_mma_plan(R, V, H, _n_sm(h), h.element_size())
+    _aligned16("fused_ce_fwd", h, w)
+    part = torch.empty(plan["n_slabs"], R, 3, device=h.device)
+    lse = torch.empty(R, device=h.device)
+    gold = torch.empty(R, device=h.device)
+    lib, sym = fwd_library(h.dtype)
+    code = _fn(sym, 6, 8, lib)(
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        part.data_ptr(), lse.data_ptr(), gold.data_ptr(), R, V, H,
+        plan["row_groups"], plan["stages"], plan["n_slabs"],
+        plan["tiles_per_slab"], DTYPE_CODES[h.dtype], _stream(h))
+    return code, lse, gold
+
+
 def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse, gold) [R] f32 for h [R, H], W [V, H] and in-range labels
-    [R]. CPU tensors: the plain version. CUDA tensors: the kernel, or
+    [R]. CPU tensors: the plain version. CUDA tensors: the kernel of
+    fwd_library(h.dtype) (with a merge pass over its vocab slabs), or
     ValueError for what it does not take."""
     _check_shapes("fused_ce_fwd", h, w, labels)
     if h.device.type == "cpu":
         return fused_ce_fwd_reference(h, w, labels)
     _check("fused_ce_fwd", (h, w), (), backward=False)
-    code, lse, gold = _launch_fwd(h, w, labels, None)
+    if fwd_library(h.dtype)[0] == "fused_ce_fwd_mma":
+        code, lse, gold = _launch_fwd_mma(h, w, labels)
+    else:
+        code, lse, gold = _launch_fwd(h, w, labels, None)
     build.check_launch("fused_ce_fwd", code)
     fused_ce_fwd.launches += 1
     return lse, gold

@@ -242,11 +242,62 @@ def test_flash_tensor_core_kernel_d256_gqa_window_ragged(dev):
     assert float((lse - ref_lse).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,n_pad,window,p_drop", [
+    (torch.bfloat16, 4, 4, 1, 256, 256, 0, 512, 0.0),   # Gemma-3's step
+    (torch.bfloat16, 2, 8, 2, 200, 256, 50, 40, 0.1),   # ragged, dropout
+    (torch.float16, 2, 8, 2, 96, 128, 10, None, 0.1),
+])
+def test_flash_backward_tensor_core_kernel(dev, dtype, B, Hq, Hkv, S, D,
+                                           n_pad, window, p_drop):
+    """Row 2's tensor-core kernel against the plain merged version (one
+    launch a call; dq, dk, dv in the inputs' dtype) at Gemma-3's training
+    shape (GQA 4:1, the 512 window) and at D 256 with a ragged S of 200,
+    a padded tail, a window that ends inside a key block and dropout 0.1;
+    dK and dV, written once an element, repeat bit for bit (dQ's atomic
+    sums need not)."""
+    q, k, v, do, pad = _flash_case(dev, dtype, B, Hq, Hkv, S, D, n_pad, 31)
+    kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window,
+              p_drop=p_drop, seed=4242 if p_drop else None)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, pad, lse, delta, do)
+    n0 = fa.flash_attention_bwd_merged.launches
+    got = fa.flash_attention_bwd_merged(*args, **kw)
+    again = fa.flash_attention_bwd_merged(*args, **kw)
+    want = fa.flash_bwd_merged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_merged.launches == n0 + 2
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-3
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a, b) <= tol, name
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+def test_fused_ce_fwd_tensor_core_kernel(dev):
+    """Row 6 in bf16 at the Gemma-3 chunk (R 128, V 262,144, H 640) and at
+    R 37, a ragged V (50,257) and H 1,152 against the plain version (lse
+    and gold, max abs error <= 2e-3); two calls give identical bits (no
+    atomics); one launch a call."""
+    for R, V, H in ((128, 262144, 640), (37, 50257, 1152)):
+        h, w, lab, _, _ = _ce_case(dev, torch.bfloat16, R, V, H, seed=R)
+        n0 = fc.fused_ce_fwd.launches
+        lse, gold = fc.fused_ce_fwd(h, w, lab)
+        lse2, gold2 = fc.fused_ce_fwd(h, w, lab)
+        rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
+        torch.cuda.synchronize()
+        assert fc.fused_ce_fwd.launches == n0 + 2
+        assert torch.equal(lse, lse2) and torch.equal(gold, gold2)
+        assert float((lse - rl).abs().max()) <= 2e-3
+        assert float((gold - rg).abs().max()) <= 2e-3
+
+
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the FMA ones, for
-    the flash forward (row 1), the fused CE dh (row 7), dW (row 8) and the
-    head-adapter dh + dxa (row 10): the libraries the wrappers load are
-    recorded."""
+    the flash forward (row 1) and merged backward (row 2), the fused CE
+    forward (row 6), dh (row 7), dW (row 8) and the head-adapter dh + dxa
+    (row 10): the libraries the wrappers load are recorded."""
     loaded = []
     real = build.load
 
@@ -258,11 +309,19 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
             (torch.bfloat16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
             (torch.float16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
             (torch.float32, "flash_attention_fwd", "fused_ce")):
-        q, k, v, _, pad = _flash_case(dev, dtype, 1, 2, 2, 64, 64, 0, 3)
+        q, k, v, do, pad = _flash_case(dev, dtype, 1, 2, 2, 64, 64, 0, 3)
         loaded.clear()
-        fa.flash_attention_fwd(q, k, v, pad)
+        out, lse = fa.flash_attention_fwd(q, k, v, pad)
         assert loaded == [fwd]
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        loaded.clear()
+        fa.flash_attention_bwd_merged(q, k, v, pad, lse, delta, do,
+                                      scale=0.125)
+        assert loaded == [fwd.replace("_fwd", "_bwd_merged")]
         h, w, lab, dl, dg = _ce_case(dev, dtype, 16, 300, 64, 4)
+        loaded.clear()
+        fc.fused_ce_fwd(h, w, lab)
+        assert loaded == [dh.replace("_dh", "_fwd")]
         lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
         loaded.clear()
         fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
@@ -278,8 +337,9 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
 
 
 def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
-    """Row 1 refuses a head dim outside {64, 128, 256} in bf16, rows 7, 8
-    and 10 a bf16 H that is not a multiple of 8, before any launch."""
+    """Row 1 refuses a head dim outside {64, 128, 256} in bf16, rows 6,
+    7, 8 and 10 a bf16 H that is not a multiple of 8, rows 2 and 6
+    16-bit operands that are not 16-byte aligned, before any launch."""
     q = torch.zeros(1, 2, 8, 96, device=dev, dtype=torch.bfloat16)
     n0 = fa.flash_attention_fwd.launches
     with pytest.raises(ValueError, match="D in"):
@@ -299,6 +359,26 @@ def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="H % 8"):
         fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl, dg)
     assert fc.fused_ce_bwd_dh_lora.launches == n0
+    n0 = fc.fused_ce_fwd.launches
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fused_ce_fwd(h, w, lab)
+    h, w, lab, _, _ = _ce_case(dev, torch.bfloat16, 8, 100, 72, 2)
+    hm = torch.empty(8 * 72 + 1, device=dev, dtype=torch.bfloat16)[1:]
+    hm = hm.view(8, 72).copy_(h)          # 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        fc.fused_ce_fwd(hm, w, lab)
+    assert fc.fused_ce_fwd.launches == n0
+    q, k, v, do, pad = _flash_case(dev, torch.bfloat16, 1, 2, 2, 64, 64, 0,
+                                   3)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    dm = torch.empty(do.numel() + 1, device=dev, dtype=do.dtype)[1:]
+    dm = dm.view(do.shape).copy_(do)
+    n0 = fa.flash_attention_bwd_merged.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bwd_merged(q, k, v, pad, lse, delta, dm,
+                                      scale=0.125)
+    assert fa.flash_attention_bwd_merged.launches == n0
 
 
 def test_flash_autograd_launches_the_backward_kernels(dev):

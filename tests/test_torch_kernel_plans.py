@@ -1,14 +1,18 @@
 """The launch plans of the tensor-core kernels (row 1, the flash-attention
-forward; rows 7, 8 and 10, the fused CE dh, dW and head-adapter dh + dxa),
-on the CPU: the pure-Python plans the wrappers pass to the card
-(`ops/flash_attention.fwd_plan` with the key-tile bounds
-`_kv_block_bounds`; `ops/fused_ce.dh_mma_plan`, with a rank for row 10,
-and `dw_mma_plan`) cover every (query block, head, batch), every (row
-tile, vocab slab, H part) and every (vocab tile, H part) exactly once,
-visit every attendable key, fit the card's shared memory, and agree with
+forward; row 2, its merged backward; rows 6, 7, 8 and 10, the fused CE
+forward, dh, dW and head-adapter dh + dxa), on the CPU: the pure-Python
+plans the wrappers pass to the card (`ops/flash_attention.fwd_plan` with
+the key-tile bounds `_kv_block_bounds`, `bwd_plan` with the q-block
+bounds `_q_block_bounds`; `ops/fused_ce.fwd_mma_plan`, `dh_mma_plan`,
+with a rank for row 10, and `dw_mma_plan`) cover every (query block,
+head, batch), every (key block, head, batch), every (row tile, vocab
+slab, H part) and every (vocab tile, H part) exactly once, visit every
+attendable (row, key) pair, fit the card's shared memory, and agree with
 the constants of the CUDA sources; row 8's stores write each dW element
-once, from the fragment that holds it; and the dtype picks the library:
-bf16 / f16 the `_mma` sources, f32 the FMA ones. No card needed."""
+once, from the fragment that holds it; row 2's transposed fragment map,
+replayed with ldmatrix and mma.sync emulated in numpy, computes the
+plain version's dq, dk and dv; and the dtype picks the library: bf16 /
+f16 the `_mma` sources, f32 the FMA ones. No card needed."""
 
 import itertools
 import os
@@ -39,16 +43,22 @@ def _constexpr(text, name):
 
 MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "fwd": ("flash_attention_fwd_mma", "mft_flash_attention_fwd_mma"),
+    "bwd": ("flash_attention_bwd_merged_mma",
+            "mft_flash_attention_bwd_merged_mma"),
+    "ce_fwd": ("fused_ce_fwd_mma", "mft_fused_ce_fwd_mma"),
     "dh": ("fused_ce_dh_mma", "mft_fused_ce_dh_mma"),
     "dw": ("fused_ce_dw_mma", "mft_fused_ce_dw_mma"),
     "dh_lora": ("fused_ce_dh_lora_mma", "mft_fused_ce_dh_lora_mma")}
 FMA_LIBS = {  # the FMA kernels' for f32
     "fwd": ("flash_attention_fwd", "mft_flash_attention_fwd"),
+    "bwd": ("flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"),
+    "ce_fwd": ("fused_ce", "mft_fused_ce_fwd"),
     "dh": ("fused_ce", "mft_fused_ce_dh"),
     "dw": ("fused_ce", "mft_fused_ce_dw"),
     "dh_lora": ("fused_ce", "mft_fused_ce_dh_lora")}
 ROUTES = {"fwd": fa.fwd_library, "dh": fc.dh_library, "dw": fc.dw_library,
-          "dh_lora": fc.dh_lora_library}
+          "dh_lora": fc.dh_lora_library, "bwd": fa.bwd_library,
+          "ce_fwd": fc.fwd_library}
 
 
 @pytest.mark.parametrize("dtype,fwd,dh", [
@@ -73,7 +83,7 @@ def test_dtype_without_a_kernel_raises(dtype):
             route(dtype)
 
 
-@pytest.mark.parametrize("key", ["dw", "dh_lora"])
+@pytest.mark.parametrize("key", ["dw", "dh_lora", "bwd", "ce_fwd"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int8,
                                    torch.complex64])
 def test_new_routes_raise_for_other_dtypes(key, dtype):
@@ -89,29 +99,45 @@ def _entry(text, sym):
 
 
 def test_fma_sources_keep_only_their_f32_instantiation():
-    """The 16-bit cases left flash_attention_fwd.cu and the base dh, dW
-    and head-adapter dh entries of fused_ce.cu; row 11's dW kernel keeps
-    its 16-bit instantiations there, its template untouched."""
-    fwd = _source("flash_attention_fwd.cu")
-    entry = fwd[fwd.index('extern "C" int mft_flash_attention_fwd('):]
-    assert "dispatch_d<float>" in entry
-    assert "__nv_bfloat16" not in entry and "__half" not in entry
+    """The 16-bit cases left flash_attention_fwd.cu, the merged backward
+    of flash_attention_bwd_merged.cu and the base forward, dh, dW and
+    head-adapter dh entries of fused_ce.cu; row 11's dW kernel and row
+    9's forward keep their 16-bit instantiations there, their templates
+    untouched, and the split backward keeps every dtype."""
+    for name, sym in (("flash_attention_fwd.cu", "mft_flash_attention_fwd"),
+                      ("flash_attention_bwd_merged.cu",
+                       "mft_flash_attention_bwd_merged")):
+        entry = _entry(_source(name), sym)
+        assert "dispatch_d<float>" in entry
+        assert "__nv_bfloat16" not in entry and "__half" not in entry
+    assert "dtype != 0" in _entry(_source("flash_attention_bwd_merged.cu"),
+                                  "mft_flash_attention_bwd_merged")
+    split = _source("flash_attention_bwd_split.cu")
+    for dt in ("float", "__nv_bfloat16", "__half"):
+        assert f"dispatch_d<DQ, {dt}>" in split
     ce = _source("fused_ce.cu")
-    for sym, launch in (("mft_fused_ce_dh", "launch_dh<float, false>"),
+    for sym, launch in (("mft_fused_ce_fwd", "launch_fwd<float, false>"),
+                        ("mft_fused_ce_dh", "launch_dh<float, false>"),
                         ("mft_fused_ce_dw", "launch_dw<float>"),
                         ("mft_fused_ce_dh_lora", "launch_dh<float, true>")):
         entry = _entry(ce, sym)
         assert launch in entry and "dtype != 0" in entry
         assert "by_dtype" not in entry
-    assert "by_dtype" in _entry(ce, "mft_fused_ce_dw_lora")
+    for sym in ("mft_fused_ce_dw_lora", "mft_fused_ce_fwd_lora"):
+        assert "by_dtype" in _entry(ce, sym)
+    assert "launch_fwd<ELEM(tag), true>" in _entry(ce,
+                                                   "mft_fused_ce_fwd_lora")
 
 
 def test_tensor_core_sources_use_mma_sync():
     for name in ("flash_attention_fwd_mma.cu", "fused_ce_dh_mma.cu",
-                 "fused_ce_dw_mma.cu", "fused_ce_dh_lora_mma.cu"):
+                 "fused_ce_dw_mma.cu", "fused_ce_dh_lora_mma.cu",
+                 "flash_attention_bwd_merged_mma.cu",
+                 "fused_ce_fwd_mma.cu"):
         text = _source(name)
         assert "mma_16816<T>" in text and "ldmatrix_x4" in text
-        assert "ldmatrix_x4_trans" in text or name.startswith("flash")
+        assert "ldmatrix_x4_trans" in text or name.startswith("flash") \
+            or name == "fused_ce_fwd_mma.cu"   # one product, no .trans
         assert "cp_async_16" in text
         assert '#include "tensor_core.cuh"' in text
     assert "mma.sync.aligned.m16n8k16" in _source("tensor_core.cuh")
@@ -119,7 +145,8 @@ def test_tensor_core_sources_use_mma_sync():
 
 def test_new_sources_are_built_and_call_no_library():
     from mobilefinetuner_tpu_torch.kernels import build
-    for name in ("fused_ce_dw_mma", "fused_ce_dh_lora_mma"):
+    for name in ("fused_ce_dw_mma", "fused_ce_dh_lora_mma",
+                 "flash_attention_bwd_merged_mma", "fused_ce_fwd_mma"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -558,3 +585,464 @@ def test_dh_lora_plan_refuses_h_not_a_multiple_of_8(H):
 def test_dh_lora_plan_refuses_a_rank_out_of_range(r):
     with pytest.raises(ValueError, match="rank"):
         fc.dh_lora_mma_plan(16, 100, 64, r, N_SM)
+
+
+# ------------------------------------------------------------- row 2 -------
+
+BWD_SHAPES = [  # (B, Hq, Hkv, S, D, dtype)
+    (8, 12, 12, 128, 64, torch.bfloat16),   # the GPT-2 training step
+    (4, 4, 1, 256, 256, torch.bfloat16),    # the Gemma-3 training step
+    (8, 4, 1, 256, 256, torch.bfloat16),    # batch 8
+    (1, 12, 12, 100, 64, torch.bfloat16),
+    (2, 8, 2, 200, 256, torch.float16),     # ragged S at D 256
+    (1, 8, 2, 130, 256, torch.float16),
+    (2, 8, 8, 96, 128, torch.bfloat16),
+    (2, 4, 2, 200, 64, torch.float32),      # the FMA kernel
+]
+
+
+def test_bwd_plan_constants_match_the_source():
+    text = _source("flash_attention_bwd_merged_mma.cu")
+    assert "static constexpr int BK = D == 128 ? 64 : 32;" in text
+    assert "static constexpr int BQ = D == 128 ? 64 : 32;" in text
+    assert "static constexpr int DS = D == 64 ? 1 : 2;" in text
+    assert "static constexpr int WARPS = KG * DS;" in text
+    assert "static constexpr int STAGES = 2;" in text
+    assert "(2 * BK * LD + 2 * STAGES * BQ * LD + BK * LDS) * elem +" in text
+    assert "(2 * STAGES * BQ + BK) * sizeof(float)" in text
+    assert "const int qlo = causal ? col0 / BQ : 0;" in text
+    assert "floor_div(col0 + BK + window - 2, BQ) + 1" in text
+    assert "dim3 grid((S + C::BK - 1) / C::BK, Hq, B);" in text
+    # the lane addresses and the fragment map _bwd_mma_replay mirrors
+    for line in (
+            "const int a_off = (kb0 + lr + (lm % 2) * 8) * LD + (lm / 2) * 8;",
+            "const int b_off = (lr + (lm / 2) * 8) * LD + (lm % 2) * 8;",
+            "const int bt_off = (lr + (lm % 2) * 8) * LD + d0 + (lm / 2) * 8;",
+            "const int mq = warp % MT, dq0 = (warp / MT) * DQC;",
+            "ds_s + (lr + (lm / 2) * 8) * LDS + mq * 16 + (lm % 2) * 8;",
+            "k_s + (lr + (lm % 2) * 8) * LD + dq0 + (lm / 2) * 8;",
+            "const int kl = kb0 + g + 8 * (e >> 1), key = col0 + kl;",
+            "const int ql = j * 8 + 2 * t + (e & 1), row = row0 + ql;",
+            "keep_bit(drop.seed, b, h, row, key, drop.thresh);",
+            "const float* cp = &s[2 * kk + (i >> 1)][(i & 1) * 2];",
+            "*reinterpret_cast<uint32_t*>(ds_s + (kb0 + g + 8 * i) * LDS +",
+            "const int row = row0 + mq * 16 + g + 8 * i;",
+            "float* dst = dq_acc + (qh + row) * D + dq0 + c0 + 2 * t;",
+            "const int key = col0 + kb0 + g + 8 * i;"):
+        assert line in text, line
+    for D, (bk, bq, ds) in fa.BWD_MMA_TILES.items():
+        plan = fa.bwd_plan(1, 1, 1, 64, D, torch.bfloat16)
+        assert (plan["block_k"], plan["block_q"]) == (bk, bq)
+        assert ds == (1 if D == 64 else 2)
+        assert plan["warps"] == bk // 16 * ds
+        assert plan["stages"] == fa.BWD_MMA_STAGES
+    old = _source("flash_attention_bwd.cuh")
+    assert "static constexpr int BLK = D > 128 ? 32 : 64;" in old
+    assert _constexpr(old, "BWD_THREADS") == 32 * fa.bwd_plan(
+        1, 1, 1, 64, 64, torch.float32)["warps"]
+    for D in fa.KERNEL_HEAD_DIMS:
+        plan = fa.bwd_plan(1, 1, 1, 64, D, torch.float32)
+        assert plan["block_k"] == plan["block_q"] == (32 if D > 128 else 64)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype", BWD_SHAPES)
+def test_bwd_plan_covers_each_key_block_once(B, Hq, Hkv, S, D, dtype):
+    plan = fa.bwd_plan(B, Hq, Hkv, S, D, dtype)
+    nx, ny, nz = plan["grid"]
+    assert (ny, nz) == (Hq, B)
+    seen = np.zeros((B, Hq, S), dtype=np.int64)
+    for b, h, x in itertools.product(range(nz), range(ny), range(nx)):
+        c0 = x * plan["block_k"]
+        assert c0 < S                      # no CTA without a key
+        seen[b, h, c0:c0 + plan["block_k"]] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype", BWD_SHAPES)
+def test_bwd_plan_fits_the_card(B, Hq, Hkv, S, D, dtype):
+    plan = fa.bwd_plan(B, Hq, Hkv, S, D, dtype)
+    assert plan["smem_bytes"] <= fc.SMEM_MAX
+    assert 32 * plan["warps"] <= 1024
+    if dtype != torch.float32:
+        bk, bq = plan["block_k"], plan["block_q"]
+        # one warp a 16 keys and 64 or 128 dK/dV columns (64 or 128
+        # registers of f32 accumulators); the dQ m-tiles split evenly
+        # over the warps, a multiple of 64 columns a warp
+        ds = 1 if D == 64 else 2
+        assert plan["warps"] == bk // 16 * ds and D // ds in (64, 128)
+        assert plan["warps"] % (bq // 16) == 0
+        assert D * (bq // 16) // plan["warps"] % 64 == 0
+
+
+def test_bwd_plan_at_the_path_shapes():
+    """384 CTAs of 2 warps at GPT-2's step, 128 of 4 at Gemma-3's."""
+    plan = fa.bwd_plan(8, 12, 12, 128, 64, torch.bfloat16)
+    assert plan["grid"] == (4, 12, 8) and plan["warps"] == 2
+    plan = fa.bwd_plan(4, 4, 1, 256, 256, torch.bfloat16)
+    assert plan["grid"] == (8, 4, 4) and plan["warps"] == 4
+    assert plan["smem_bytes"] == 104576
+
+
+@pytest.mark.parametrize("S,D,causal,window", [
+    (256, 256, True, 512), (256, 256, True, 40), (200, 256, True, 24),
+    (130, 256, True, None), (96, 128, True, None), (96, 128, False, 20),
+    (128, 64, True, None), (100, 64, False, None), (200, 64, True, 24),
+    (200, 64, False, 24), (1000, 128, True, 512), (33, 64, True, 1),
+])
+def test_bwd_q_blocks_reach_every_attendable_pair(S, D, causal, window):
+    """[qlo, qhi) of each key block holds every query row that attends to
+    one of its keys, and its first and last q-blocks are needed."""
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = fa.bwd_plan(1, 1, 1, S, D, dtype)
+        bq, bk = plan["block_q"], plan["block_k"]
+        rows = np.arange(S)[:, None]
+        cols = np.arange(S)[None, :]
+        ok = np.ones((S, S), dtype=bool)
+        if causal:
+            ok &= cols <= rows
+        if window is not None:
+            ok &= cols > rows - window
+        for x in range(plan["grid"][0]):
+            c0 = x * bk
+            qlo, qhi = fa._q_block_bounds(c0, -(-S // bq), causal, window,
+                                          bq, bk)
+            hit = np.nonzero(ok[:, c0:c0 + bk].any(1))[0]
+            assert hit.min() >= qlo * bq and hit.max() < qhi * bq
+            assert hit.max() >= (qhi - 1) * bq and hit.min() < (qlo + 1) * bq
+
+
+@pytest.mark.parametrize("D", [96, 32, 0])
+def test_bwd_plan_refuses_head_dims_the_kernels_do_not_take(D):
+    with pytest.raises(ValueError, match="D in"):
+        fa.bwd_plan(1, 2, 2, 64, D, torch.bfloat16)
+
+
+# The m16n8k16 fragment layouts (csrc/tensor_core.cuh), emulated in numpy:
+# lane = 4 g + t; each fragment register holds two consecutive values.
+
+def _ldsm(mem, addrs, trans):
+    """ldmatrix .x4 (.trans): mem a flat array, addrs [32] element offsets
+    (lane l gives row l % 8 of matrix l // 8). Returns [32, 4, 2]."""
+    rows = mem[np.asarray(addrs)[:, None] + np.arange(8)].reshape(4, 8, 8)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    out = np.empty((32, 4, 2), dtype=mem.dtype)
+    for i in range(4):
+        m = rows[i].T if trans else rows[i]
+        out[:, i, 0] = m[g, 2 * t]
+        out[:, i, 1] = m[g, 2 * t + 1]
+    return out
+
+
+def _mma(c, a, b0, b1):
+    """c [32, 4] += A B for A fragments a [32, 4, 2], B fragments b0, b1
+    [32, 2]: A 16x16, B 16x8, C 16x8 in the PTX ISA's layouts."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    A = np.zeros((16, 16))
+    Bm = np.zeros((16, 8))
+    for i, (r, k) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+        A[g + r, 2 * t + k] = a[:, i, 0]
+        A[g + r, 2 * t + k + 1] = a[:, i, 1]
+    for bb, k in ((b0, 0), (b1, 8)):
+        Bm[2 * t + k, g] = bb[:, 0]
+        Bm[2 * t + k + 1, g] = bb[:, 1]
+    C = A @ Bm
+    c[:, 0] += C[g, 2 * t]
+    c[:, 1] += C[g, 2 * t + 1]
+    c[:, 2] += C[g + 8, 2 * t]
+    c[:, 3] += C[g + 8, 2 * t + 1]
+
+
+def _repack(frags, kk):
+    """A fragments [32, 4, 2] of k-step kk from C fragments [n, 32, 4]."""
+    return np.stack([frags[2 * kk + (i >> 1)][:, (i & 1) * 2:(i & 1) * 2 + 2]
+                     for i in range(4)], axis=1)
+
+
+def _bwd_mma_replay(q, k, v, pad, lse, delta, do, scale, causal, window,
+                    seed, p_drop):
+    """csrc/flash_attention_bwd_merged_mma.cu replayed in f64: its grid,
+    q-loop, lane addresses, fragment map, masks, keep bits, stores and dQ
+    adds, with ldmatrix and mma.sync emulated. Returns (dq, dk, dv) and
+    the count of dQ adds each (b, h, row, d) received."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    plan = fa.bwd_plan(B, Hq, Hkv, S, D, torch.bfloat16)
+    BK, BQ, W = plan["block_k"], plan["block_q"], plan["warps"]
+    KG, MT = BK // 16, BQ // 16
+    DS = W // KG                        # warps sharing each 16 keys
+    DQC = D * MT // W
+    LD, LDS = D + 8, BQ + 8
+    lane = np.arange(32)
+    g, t, lr, lm = lane >> 2, lane & 3, lane % 8, lane // 8
+    dq = np.zeros((B, Hq, S, D))
+    adds = np.zeros((B, Hq, S, D), dtype=np.int64)
+    dk = np.zeros((B, Hq, S, D))
+    dv = np.zeros((B, Hq, S, D))
+    keep_all = (fa.keep_mask(seed, torch.arange(B)[:, None, None, None],
+                             torch.arange(Hq)[None, :, None, None],
+                             torch.arange(S)[None, None, :, None],
+                             torch.arange(S)[None, None, None, :],
+                             p_drop).numpy() if p_drop else None)
+    nx, _, _ = plan["grid"]
+
+    def rows_of(src, r0, n):   # [n][LD] flat, zero past S
+        out = np.zeros((n, LD))
+        m = min(n, S - r0)
+        out[:m, :D] = src[r0:r0 + m]
+        return out.reshape(-1)
+
+    for b, h, x in itertools.product(range(B), range(Hq), range(nx)):
+        hk = h // (Hq // Hkv)
+        col0 = x * BK
+        k_s, v_s = rows_of(k[b, hk], col0, BK), rows_of(v[b, hk], col0, BK)
+        pad_s = np.array([pad[b, c] if c < S else 0.0
+                          for c in range(col0, col0 + BK)])
+        qlo, qhi = fa._q_block_bounds(col0, -(-S // BQ), causal, window,
+                                      BQ, BK)
+        acc_k = np.zeros((W, D // DS // 8, 32, 4))
+        acc_v = np.zeros_like(acc_k)
+        for qi in range(qlo, qhi):
+            row0 = qi * BQ
+            q_s, do_s = rows_of(q[b, h], row0, BQ), rows_of(do[b, h], row0,
+                                                            BQ)
+            idx = np.minimum(np.arange(row0, row0 + BQ), S - 1)
+            live = np.arange(row0, row0 + BQ) < S
+            lq = np.where(live, lse[b, h, idx], 0.0)
+            dlq = np.where(live, delta[b, h, idx], 0.0)
+            ds_s = np.zeros(BK * LDS)
+            ds_w = {}
+            for w in range(W):
+                kg, dsi = w % KG, w // KG
+                kb0, d0 = kg * 16, dsi * (D // DS)
+                a_off = (kb0 + lr + (lm % 2) * 8) * LD + (lm // 2) * 8
+                b_off = (lr + (lm // 2) * 8) * LD + (lm % 2) * 8
+                bt_off = (lr + (lm % 2) * 8) * LD + d0 + (lm // 2) * 8
+                s = np.zeros((BQ // 8, 32, 4))
+                dp = np.zeros_like(s)
+                for kc in range(D // 16):
+                    ak = _ldsm(k_s, a_off + kc * 16, False)
+                    av = _ldsm(v_s, a_off + kc * 16, False)
+                    for j in range(0, BQ // 8, 2):
+                        bq_ = _ldsm(q_s, b_off + j * 8 * LD + kc * 16, False)
+                        bo = _ldsm(do_s, b_off + j * 8 * LD + kc * 16, False)
+                        _mma(s[j], ak, bq_[:, 0], bq_[:, 1])
+                        _mma(s[j + 1], ak, bq_[:, 2], bq_[:, 3])
+                        _mma(dp[j], av, bo[:, 0], bo[:, 1])
+                        _mma(dp[j + 1], av, bo[:, 2], bo[:, 3])
+                for j, e in itertools.product(range(BQ // 8), range(4)):
+                    kl = kb0 + g + 8 * (e >> 1)
+                    key = col0 + kl
+                    ql = j * 8 + 2 * t + (e & 1)
+                    row = row0 + ql
+                    ok = (pad_s[kl] > 0) & (row < S)
+                    if causal:
+                        ok &= key <= row
+                    if window is not None:
+                        ok &= key > row - window
+                    # the plain version's mask and keep bits at (row, key)
+                    inb = (row < S) & (key < S)
+                    rr, kk_ = np.minimum(row, S - 1), np.minimum(key, S - 1)
+                    want = fa._tile_mask(
+                        torch.as_tensor(pad), torch.as_tensor(rr)[:, None],
+                        torch.as_tensor(kk_)[None, :], causal,
+                        window)[b, 0, 0].expand(32, 32).numpy().diagonal()
+                    want = want & inb
+                    assert (ok == want).all()
+                    p = np.where(ok, np.exp(s[j][:, e] * scale - lq[ql]),
+                                 0.0)
+                    pv, dpv = p, dp[j][:, e]
+                    if p_drop:
+                        keep = keep_all[b, h, rr, kk_] & inb
+                        pv = np.where(keep, p / (1 - p_drop), 0.0)
+                        dpv = np.where(keep, dpv / (1 - p_drop), 0.0)
+                    s[j][:, e] = pv
+                    dp[j][:, e] = p * (dpv - dlq[ql]) * scale
+                for kk in range(BQ // 16):
+                    pa, da = _repack(s, kk), _repack(dp, kk)
+                    for n in range(0, D // DS // 8, 2):
+                        bo = _ldsm(do_s, bt_off + kk * 16 * LD + n * 8, True)
+                        bq_ = _ldsm(q_s, bt_off + kk * 16 * LD + n * 8, True)
+                        _mma(acc_v[w, n], pa, bo[:, 0], bo[:, 1])
+                        _mma(acc_v[w, n + 1], pa, bo[:, 2], bo[:, 3])
+                        _mma(acc_k[w, n], da, bq_[:, 0], bq_[:, 1])
+                        _mma(acc_k[w, n + 1], da, bq_[:, 2], bq_[:, 3])
+                if dsi == 0:
+                    for j, i in itertools.product(range(BQ // 8), range(2)):
+                        o = (kb0 + g + 8 * i) * LDS + j * 8 + 2 * t
+                        assert (ds_w.setdefault("o", set()).isdisjoint(
+                            set((o).tolist())))
+                        ds_w["o"].update((o).tolist())
+                        ds_s[o] = dp[j][:, 2 * i]
+                        ds_s[o + 1] = dp[j][:, 2 * i + 1]
+            assert len(ds_w["o"]) == BK * BQ // 2   # dS^T written whole
+            for w in range(W):
+                mq, dq0 = w % MT, (w // MT) * DQC
+                ds_a = (lr + (lm // 2) * 8) * LDS + mq * 16 + (lm % 2) * 8
+                k_t = (lr + (lm % 2) * 8) * LD + dq0 + (lm // 2) * 8
+                for c0 in range(0, DQC, 64):
+                    acc = np.zeros((8, 32, 4))
+                    for kc in range(BK // 16):
+                        a = _ldsm(ds_s, ds_a + kc * 16 * LDS, True)
+                        for n in range(0, 8, 2):
+                            bk = _ldsm(k_s, k_t + kc * 16 * LD + c0 + n * 8,
+                                       True)
+                            _mma(acc[n], a, bk[:, 0], bk[:, 1])
+                            _mma(acc[n + 1], a, bk[:, 2], bk[:, 3])
+                    for i, n in itertools.product(range(2), range(8)):
+                        row = row0 + mq * 16 + g + 8 * i
+                        col = dq0 + c0 + n * 8 + 2 * t
+                        m = row < S
+                        for e in range(2):
+                            dq[b, h, row[m], col[m] + e] += acc[n][m, 2 * i
+                                                                   + e]
+                            adds[b, h, row[m], col[m] + e] += 1
+        for w in range(W):
+            kb0, d0 = (w % KG) * 16, (w // KG) * (D // DS)
+            for i, n in itertools.product(range(2), range(D // DS // 8)):
+                key = col0 + kb0 + g + 8 * i
+                m = key < S
+                for e in range(2):
+                    col = d0 + n * 8 + 2 * t + e
+                    assert not dk[b, h, key[m], col[m]].any()  # written once
+                    dk[b, h, key[m], col[m]] = acc_k[w, n][m, 2 * i + e]
+                    dv[b, h, key[m], col[m]] = acc_v[w, n][m, 2 * i + e]
+    G = Hq // Hkv
+    return (dq, dk.reshape(B, Hkv, G, S, D).sum(2),
+            dv.reshape(B, Hkv, G, S, D).sum(2), adds)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,n_pad,causal,window,p_drop", [
+    (1, 4, 2, 70, 64, 9, True, 24, 0.1),      # GQA, window, dropout, ragged
+    (2, 2, 1, 100, 64, 0, True, None, 0.0),   # ragged, two key blocks
+    (1, 2, 2, 40, 128, 5, False, None, 0.1),  # non-causal, D 128, padded
+    (1, 4, 1, 45, 256, 6, True, 20, 0.1),     # D 256, GQA 4:1, window
+])
+def test_bwd_mma_fragment_map_replays_the_plain_version(
+        B, Hq, Hkv, S, D, n_pad, causal, window, p_drop):
+    """Row 2's transposed tile, replayed element by element: each S^T
+    fragment's (key, query) takes the plain version's mask and keep bit;
+    the repacked P^T / dS^T fragments, dS^T through shared memory and the
+    dQ adds give the plain version's dq, dk and dv (the replay in f64,
+    the plain version in f32: 1e-5); each (row, d) of dQ is added once
+    from each key block that sees its q-block."""
+    rng = np.random.default_rng(S + D)
+    q = rng.standard_normal((B, Hq, S, D))
+    k = rng.standard_normal((B, Hkv, S, D))
+    v = rng.standard_normal((B, Hkv, S, D))
+    do = rng.standard_normal((B, Hq, S, D))
+    pad = np.ones((B, S))
+    pad[-1, S - n_pad:] = 0.0 if n_pad else 1.0
+    scale = D ** -0.5
+    seed = 20261017 if p_drop else None
+    kw = dict(scale=scale, is_causal=causal, sliding_window=window,
+              p_drop=p_drop, seed=seed)
+    tq, tk, tv, tdo = (torch.as_tensor(a, dtype=torch.float64)
+                       for a in (q, k, v, do))
+    tpad = torch.as_tensor(pad)
+    out, lse = fa.flash_attention_reference(tq, tk, tv, tpad, **{
+        n: kw[n] for n in ("scale", "is_causal", "sliding_window", "p_drop",
+                           "seed")})
+    delta = (tdo * out).sum(-1, keepdim=True)
+    want = fa.flash_bwd_merged_reference(tq, tk, tv, tpad, lse, delta, tdo,
+                                         **kw)
+    got = _bwd_mma_replay(q, k, v, pad, lse[..., 0].numpy(),
+                          delta[..., 0].numpy(), do, scale, causal, window,
+                          seed, p_drop)
+    for a, b_ in zip(got[:3], want):   # the plain version runs in f32
+        np.testing.assert_allclose(a, b_.numpy(), rtol=1e-4, atol=1e-5)
+    plan = fa.bwd_plan(B, Hq, Hkv, S, D, torch.bfloat16)
+    bq, bk = plan["block_q"], plan["block_k"]
+    seen = np.zeros(S, dtype=np.int64)   # key blocks that see each row
+    for x in range(plan["grid"][0]):
+        qlo, qhi = fa._q_block_bounds(x * bk, -(-S // bq), causal, window,
+                                      bq, bk)
+        seen[qlo * bq:qhi * bq] += 1
+    assert (got[3] == seen[None, None, :, None]).all()
+    assert seen.min() >= 1
+
+
+# ------------------------------------------------------------- row 6 -------
+
+CE_FWD_SHAPES = [  # (R, V, H)
+    (128, 262144, 640),     # the Gemma-3 chunk
+    (256, 262144, 640),     # batch 8
+    (37, 50257, 1152),      # R 37, a ragged V, H 1,152
+    (120, 50257, 1152),
+    (37, 1001, 200),
+    (8, 100, 8),
+    (40, 3001, 1520),
+]
+
+
+def test_fwd_mma_plan_constants_match_the_source():
+    text = _source("fused_ce_fwd_mma.cu")
+    assert _constexpr(text, "VT") == fc.MMA_VOCAB_TILE
+    assert _constexpr(text, "VG") * 16 == fc.MMA_VOCAB_TILE
+    assert _constexpr(text, "SMEM_MAX") == fc.SMEM_MAX
+    assert _constexpr(text, "KR") == fc.FWD_MMA_KREGS
+    assert "return h16_of(H) <= 16 * KR;" in text
+    assert "(16 * RG + stages * VT) * (h16_of(H) + 8) * elem" in text
+    assert "const int row0 = blockIdx.x * RT;" in text
+    assert "const int t0 = slab * tiles_per_slab;" in text
+    assert "dim3 grid(row_tiles, n_slabs);" in text
+    assert re.search(r"if \(h_in_regs\(H\)\).*\s+return rg == 4 \? "
+                     r"launch<T, 4, true>", text)
+    for rg in (4, 2):
+        assert re.search(rf"case {rg}:\s+return launch<T, {rg}, false>",
+                         text)
+
+
+@pytest.mark.parametrize("R,V,H", CE_FWD_SHAPES)
+def test_fwd_mma_plan_covers_each_tile_once(R, V, H):
+    """Every (row, vocab column) pair lies in exactly one CTA: row tiles
+    partition [0, R), slabs of whole 32-column tiles partition [0, V),
+    and the x index runs over the row tiles of a slab."""
+    plan = fc.fwd_mma_plan(R, V, H, N_SM)
+    rt = 16 * plan["row_groups"]
+    span = plan["tiles_per_slab"] * fc.MMA_VOCAB_TILE
+    gx, gy = plan["grid"]
+    assert gx == -(-R // rt) and gy == plan["n_slabs"]
+    hits = np.zeros((R, -(-V // fc.MMA_VOCAB_TILE)), dtype=np.int64)
+    for slab, x in itertools.product(range(gy), range(gx)):
+        r0, v0 = x * rt, slab * span
+        assert r0 < R and v0 < V          # no empty CTA
+        hits[r0:r0 + rt, v0 // 32:(v0 + span) // 32] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("R,V,H", CE_FWD_SHAPES)
+def test_fwd_mma_plan_fits_the_card(R, V, H):
+    plan = fc.fwd_mma_plan(R, V, H, N_SM)
+    rg, st = plan["row_groups"], plan["stages"]
+    ld = -(-H // 16) * 16 + 8
+    assert plan["h_in_regs"] == (ld - 8 <= 16 * fc.FWD_MMA_KREGS)
+    assert rg == 4 or not plan["h_in_regs"]   # the source's one layout
+    assert plan["smem_bytes"] == (16 * rg + st * 32) * ld * 2
+    assert (rg, st) in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1))
+    assert plan["smem_bytes"] <= fc.SMEM_MAX
+    gx, gy = plan["grid"]
+    if -(-V // fc.MMA_VOCAB_TILE) >= N_SM:
+        assert gx * gy <= N_SM
+
+
+def test_fwd_mma_plan_at_the_gemma_chunk():
+    """R 128, V 262,144, H 640: h's 40 k-steps in registers, 64-row
+    tiles, three W buffers, 66 slabs of 125 tiles: 132 CTAs, two of them
+    a slab; H 1,152 reads h from shared memory (32-row tiles, two
+    buffers)."""
+    plan = fc.fwd_mma_plan(128, 262144, 640, N_SM)
+    assert (plan["row_groups"], plan["stages"], plan["n_slabs"],
+            plan["tiles_per_slab"], plan["h_in_regs"]) == (4, 3, 66, 125,
+                                                           True)
+    assert plan["grid"] == (2, 66) and plan["smem_bytes"] == 207360
+    plan = fc.fwd_mma_plan(37, 50257, 1152, N_SM)
+    assert (plan["row_groups"], plan["stages"], plan["h_in_regs"]) == \
+        (2, 2, False)
+
+
+@pytest.mark.parametrize("H", [1004, 642, 7, 0])
+def test_fwd_mma_plan_refuses_h_not_a_multiple_of_8(H):
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fwd_mma_plan(16, 100, H, N_SM)
