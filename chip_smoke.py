@@ -22,8 +22,9 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
      bit-identical), a head dim and a bf16 H the kernels do not take
      refused, and their head-adapter variants (rows 9-11, dW in both its
-     modes; dh + dxa in bf16 on the tensor-core kernel, at r 4, 8 and
-     128, two calls bit-identical), the contiguous decode
+     modes; the forward, dh + dxa and dbt-only mode in bf16 on the
+     tensor-core kernels, at r 4, 8 and 128, two calls bit-identical),
+     the contiguous decode
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
      D 32, masked columns poisoned); then GPT-2 small through
@@ -156,10 +157,15 @@ def ptxas_summary(log: str) -> list:
     """[kernel, registers, spill stores, spill loads] of each kernel in an
     nvcc -Xptxas -v build log, the kernel as `name<type, D or flags>`
     (fused_ce.cu's bool flag is LORA, fused_ce_fwd_mma.cu's whether h is
-    held in registers)."""
+    held in registers, fused_ce_fwd_lora_mma.cu's and fused_ce_dbt_mma.cu's
+    whether h and xa are)."""
     import re
     names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
-    flags = {"fwd_mma_kernel": ("h in registers", "h in smem")}
+    h_regs = ("h in registers", "h in smem")
+    xa_regs = ("xa in registers", "xa in smem")
+    flags = {"fwd_mma_kernel": [h_regs],
+             "fwd_lora_mma_kernel": [h_regs, xa_regs],
+             "dbt_mma_kernel": [h_regs, xa_regs]}
     rows, kernel, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)"
@@ -171,10 +177,10 @@ def ptxas_summary(log: str) -> list:
                               rest) if rest.startswith("I") else []
             if rest.startswith("If"):
                 args.insert(0, "f")
-            on, off = flags.get(base, ("lora", "base"))
-            names.update({"Lb1E": on, "Lb0E": off})
-            args = [a[2:-1] if a.startswith("Li") else names.get(a, a)
-                    for a in args]
+            pairs = iter(flags.get(base, [("lora", "base")] * 2))
+            args = [a[2:-1] if a.startswith("Li")
+                    else next(pairs)[a == "Lb0E"] if a.startswith("Lb")
+                    else names.get(a, a) for a in args]
             kernel = f"{base}<{', '.join(args)}>" if args else base
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -807,11 +813,13 @@ def check_fused_ce_lora(torch, fc, dev):
     then takes 32-row tiles and two W buffers). lse and gold: max abs
     error; dh, dxa, dW and dbt (row 11 in its dW mode and its dbt-only
     mode): max abs error over max(1, max |ref|) with random dgold, and
-    over max |ref| with dgold = 0 (the softmax part alone). dh + dxa of
-    bf16 / f16 run on the tensor-core kernel, of f32 on fused_ce.cu: the
-    path case's (dh, dxa) twice must give identical bits, and a bf16 H
-    that is not a multiple of 8 must be refused. Returns the path case's
-    max abs errors and inputs."""
+    over max |ref| with dgold = 0 (the softmax part alone). The forward,
+    dh + dxa and dbt-only mode of bf16 / f16 run on the tensor-core
+    kernels, of f32 (and row 11's dW + dbt mode of every dtype) on
+    fused_ce.cu: the path case's (lse, gold), (dh, dxa) and dbt-only
+    twice must give identical bits, and a bf16 H that is not a multiple
+    of 8 must be refused by all three. Returns the path case's max abs
+    errors and inputs."""
     cases = [  # (name, dtype, R, V, H, r, tol)
         ("path", torch.bfloat16, 128, 262144, 640, 8, 2e-3),
         ("ragged", torch.bfloat16, 120, 50257, 1000, 4, 2e-3),
@@ -864,19 +872,34 @@ def check_fused_ce_lora(torch, fc, dev):
         if name == "path":
             path = (e, (h, w, xa, bt, lab, rl, dl, dg))
             args = path[1]
-            first, again = (fc.fused_ce_bwd_dh_lora(*args) for _ in (0, 1))
-            check(all(bool(torch.equal(a, b))
-                      for a, b in zip(first, again)),
-                  "fused CE lora (dh, dxa): two calls gave different bits")
-            print("fused CE lora path: (dh, dxa) twice, identical bits")
+            twice = {
+                "(lse, gold)": lambda: fc.fused_ce_fwd_lora(*args[:5]),
+                "(dh, dxa)": lambda: fc.fused_ce_bwd_dh_lora(*args),
+                "dbt-only": lambda: fc.fused_ce_bwd_dw_lora(
+                    *args, want_dw=False)[1:]}
+            for what, fn in twice.items():
+                first, again = fn(), fn()
+                check(all(bool(torch.equal(a, b))
+                          for a, b in zip(first, again)),
+                      f"fused CE lora {what}: two calls gave different "
+                      f"bits")
+            print("fused CE lora path: (lse, gold), (dh, dxa) and dbt-only "
+                  "twice each, identical bits")
             del first, again
     h, w, lab, dl, dg = fused_ce_inputs(torch, dev, torch.bfloat16, 8, 100,
                                         1004, seed=1)
     xa = torch.zeros(8, 8, device=dev, dtype=torch.bfloat16)
     bt = torch.zeros(100, 8, device=dev, dtype=torch.bfloat16)
-    check(refuses(lambda: fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl,
-                                                  dg)),
-          "fused_ce_bwd_dh_lora took a bf16 H = 1004 (not a multiple of 8)")
+    for name, fn in (
+            ("fused_ce_fwd_lora",
+             lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab)),
+            ("fused_ce_bwd_dh_lora",
+             lambda: fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl, dg)),
+            ("fused_ce_bwd_dw_lora (dbt only)",
+             lambda: fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, dl, dl, dg,
+                                             want_dw=False))):
+        check(refuses(fn), f"{name} took a bf16 H = 1004 (not a multiple "
+                           f"of 8)")
     return path
 
 
@@ -2420,23 +2443,24 @@ def main() -> int:
              max(ce_lora_err["dh"], ce_lora_err["dxa"])),
             ("fused_ce_bwd_dw_lora", "fused_ce_dw_lora", "fused_ce.py:421",
              ce_lora_err["dbt_only"])):
-        extra = {"launches_by_path": by_path(key), "shape": lora_shape}
-        source = "fused_ce.cu"
-        if key == "fused_ce_dh_lora":
-            source = "fused_ce_dh_lora_mma.cu"
-            extra["ptxas"] = ptxas["fused_ce_dh_lora_mma"]
-            extra["f32"] = "fused_ce.cu (FMA kernel, f32 launches)"
+        source = {"fused_ce_fwd_lora": "fused_ce_fwd_lora_mma.cu",
+                  "fused_ce_dh_lora": "fused_ce_dh_lora_mma.cu",
+                  "fused_ce_dw_lora": "fused_ce_dbt_mma.cu"}[key]
+        extra = {"launches_by_path": by_path(key), "shape": lora_shape,
+                 "ptxas": ptxas[source[:-3]],
+                 "f32": "fused_ce.cu (FMA kernel, f32 launches)"}
         if key == "fused_ce_dw_lora":
-            # rows 8 (f32) and 11 share fused_ce.cu's dw_kernel template
-            extra["ptxas"] = [row for row in ptxas["fused_ce"]
-                              if row[0].startswith("dw_kernel")]
             extra["shape"] += ", dbt only (frozen head)"
+            # the dW + dbt mode, every dtype, on fused_ce.cu's dw_kernel
+            # (shared with row 8's f32 case)
             extra["dw_mode"] = kernel_entry(
                 name, "fused_ce.cu", line, None,
                 max(ce_lora_err["dw"], ce_lora_err["dbt"]),
                 ce_lora_times["fused_ce_dw_lora_dw_mode"],
                 ce_lora_bounds["fused_ce_dw_lora_dw_mode"],
-                {"shape": lora_shape + ", dW and dbt"})
+                {"shape": lora_shape + ", dW and dbt",
+                 "ptxas": [row for row in ptxas["fused_ce"]
+                           if row[0].startswith("dw_kernel")]})
         kernels_line.append(kernel_entry(
             name, source, line, total(key), err, ce_lora_times[key],
             ce_lora_bounds[key], extra))

@@ -1,0 +1,217 @@
+"""Time variants of the head-adapter fused CE kernels against the sources.
+
+    python3 kernel_variants.py [--fwd NAME=PATH.cu ...]
+                               [--dbt NAME=PATH.cu ...] [--profile]
+                               [--iters N]
+
+Card only. Builds each variant source by hand (nvcc with the port's flags
+and the csrc headers, into build/variants/) beside the repo's own
+`csrc/fused_ce_fwd_lora_mma.cu` (row 9, `--fwd`) and
+`csrc/fused_ce_dbt_mma.cu` (row 11's dbt-only mode, `--dbt`); a variant
+exports the same C entry as the source it replaces and takes the same
+launch plan (`ops/fused_ce.fwd_lora_mma_plan`, `dbt_mma_plan`). At the
+Gemma-3-270M chunk (R 128, V 262,144, H 640, r 8, bf16) and at rank 128
+(R 128, V 50,257, H 640), on chip_smoke.py's inputs for those cases, it
+prints each variant's largest difference from the source's output; the
+error of row 9's lse and gold (source and variants) against an f64
+computation, and of row 11's dbt against its plain version, over
+max(1, max |ref|) and, with dgold = 0 (the softmax part),
+over max |ref| as chip_smoke.py holds it; then the device time of one
+call with the host queued ahead, source and variants called in turns
+(s, v.., v.., s), and with `--profile` torch.profiler's per-kernel
+device time of the two sources at the Gemma chunk. Each build's ptxas
+registers and spills are printed too. The last line is one JSON object
+of the times and errors.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SHAPES = {"gemma_chunk": (128, 262144, 640, 8), "rank128": (128, 50257, 640,
+                                                            128)}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from mobilefinetuner_tpu_torch.kernels import build
+    from mobilefinetuner_tpu_torch.ops import fused_ce as fc
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fwd", action="append", default=[])
+    ap.add_argument("--dbt", action="append", default=[])
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--iters", type=int, default=30)
+    args = ap.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    out_dir = os.path.join(ROOT, "build", "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    variants = [("fwd", *v.split("=", 1)) for v in args.fwd] + \
+        [("dbt", *v.split("=", 1)) for v in args.dbt]
+    procs = {}
+    for kind, name, path in variants:
+        so = os.path.join(out_dir, f"lib{kind}_{name}.so")
+        procs[name] = (kind, so, subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             build.CSRC_DIR, "-o", so, path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    built = build.build_all(["fused_ce_fwd_lora_mma", "fused_ce_dbt_mma"],
+                            verbose=True)
+    logs = {name: log for name, (_, log) in built.items()}
+    libs = {}
+    for name, (kind, so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        logs[name] = log
+        libs[name] = (kind, ctypes.CDLL(so))
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Used" in line and "registers" in line or \
+                    "spill" in line and " 0 bytes spill stores" not in line:
+                print(f"  {name}: {line.strip()}")
+
+    dev = torch.device("cuda", 0)
+
+    def inputs(R, V, H, r):
+        """chip_smoke.check_fused_ce_lora's inputs for this case."""
+        import chip_smoke
+        h, w, lab, dl, dg = chip_smoke.fused_ce_inputs(
+            torch, dev, torch.bfloat16, R, V, H, seed=R + H + r)
+        g = torch.Generator(device=dev).manual_seed(r)
+        xa = torch.randn(R, r, generator=g, device=dev).to(torch.bfloat16)
+        bt = (0.05 * torch.randn(V, r, generator=g, device=dev)).to(
+            torch.bfloat16)
+        return h, w, xa, bt, lab, dl, dg
+
+    def errors(kind, fn, h, w, xa, bt, lab, lse, dl, dg):
+        """Row 9: max |lse - f64|, max |gold - f64|; row 11: dbt's error
+        over max(1, max |ref|), and over max |ref| with dgold = 0."""
+        if kind == "fwd":
+            logits = (h.double() @ w.double().T
+                      + xa.double() @ bt.double().T)
+            want = (torch.logsumexp(logits, -1),
+                    logits.gather(1, lab[:, None])[:, 0])
+            del logits
+            return [float((a.double() - b).abs().max())
+                    for a, b in zip(fn(dg), want)]
+        out = []
+        for d in (dg, torch.zeros_like(dg)):
+            ref = fc.fused_ce_dw_lora_reference(h, w, xa, bt, lab, lse, dl,
+                                                d, want_dw=False)[1]
+            scale = max(1.0, float(ref.abs().max())) if d is dg \
+                else float(ref.abs().max())
+            out.append(float((fn(d)[0] - ref).abs().max()) / scale)
+        return out
+
+    def queued(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e8))   # the host enqueues ahead of the card
+        start.record()
+        for _ in range(args.iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.iters * 1e3
+
+    def variant_call(kind, lib, h, w, xa, bt, lab, lse, dl, dg):
+        """The variant's C entry with the source's plan and arguments."""
+        R, H = h.shape
+        V, r = bt.shape
+        lab32 = lab.to(torch.int32)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "fwd":
+            plan = fc.fwd_lora_mma_plan(R, V, H, r, fc._n_sm(h), 2)
+            part = torch.empty(plan["n_slabs"], R, 3, device=dev)
+            outs = (torch.empty(R, device=dev), torch.empty(R, device=dev))
+            fn = lib.mft_fused_ce_fwd_lora_mma
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+                [ctypes.c_void_p]
+            ptrs = (h, w, xa, bt, lab32, part, *outs)
+        else:
+            plan = fc.dbt_mma_plan(R, V, H, r, fc._n_sm(h), 2)
+            part = torch.empty(plan["row_tiles"], V, r, device=dev)
+            outs = (torch.empty(V, r, device=dev),)
+            fn = lib.mft_fused_ce_dbt_mma
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
+                [ctypes.c_void_p]
+            ptrs = (h, w, xa, bt, lab32, lse, dl, dg, part, *outs)
+        fn.restype = ctypes.c_int
+
+        def call(dgold=dg):
+            args = ptrs if kind == "fwd" else (*ptrs[:7], dgold, *ptrs[8:])
+            code = fn(*(t.data_ptr() for t in args), R, V, H, r,
+                      plan["row_groups"], plan["stages"], plan["n_slabs"],
+                      plan["tiles_per_slab"], 1, stream)
+            build.check_launch(f"variant {kind}", code)
+            return outs
+        return call
+
+    result = {}
+    for shape, (R, V, H, r) in SHAPES.items():
+        h, w, xa, bt, lab, dl, dg = inputs(R, V, H, r)
+        lse = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+        fns = {"fwd": lambda dgold=dg: fc.fused_ce_fwd_lora(h, w, xa, bt,
+                                                            lab),
+               "dbt": lambda dgold=dg: fc.fused_ce_bwd_dw_lora(
+                   h, w, xa, bt, lab, lse, dl, dgold, want_dw=False)[1:]}
+        kinds = {"fwd": "fwd", "dbt": "dbt"}
+        for name, (kind, lib) in libs.items():
+            kinds[name] = kind
+            fns[name] = variant_call(kind, lib, h, w, xa, bt, lab, lse, dl,
+                                     dg)
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(fns[name](), fns[kind]()))
+            print(f"{shape}: {name} ({kind}) max |variant - source| "
+                  f"{diff:.3e}")
+        errs = {name: errors(kinds[name], fn, h, w, xa, bt, lab, lse, dl,
+                             dg) for name, fn in fns.items()}
+        for name, e in errs.items():
+            what = ("lse, gold vs f64" if kinds[name] == "fwd" else
+                    "dbt over max(1, |ref|), softmax part over max |ref|")
+            print(f"{shape}: {name} error ({what}) "
+                  f"{', '.join(f'{x:.3e}' for x in e)}")
+        order = list(fns) + list(fns)[::-1]
+        times = {k: [] for k in fns}
+        for k in order:
+            times[k].append(queued(fns[k]))
+        result[shape] = {"us": times, "errors": errs}
+        print(f"{shape}: device us, in turns: " + ", ".join(
+            f"{k} {' / '.join(f'{x:.2f}' for x in v)}"
+            for k, v in times.items()), flush=True)
+        if args.profile and shape == "gemma_chunk":
+            from torch.profiler import ProfilerActivity, profile
+            for kind in ("fwd", "dbt"):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        fns[kind]()
+                        torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    if e.device_time_total > 0:
+                        print(f"{shape}: profile {kind}: {e.key[:60]} "
+                              f"{e.device_time_total / e.count:.2f} us "
+                              f"x {e.count}")
+    print(json.dumps({"kernel_variants": result}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

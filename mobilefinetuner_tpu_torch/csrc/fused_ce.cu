@@ -15,12 +15,15 @@
 // and their head-adapter variants (a LoRA on the tied lm_head), where
 // logits = h @ W^T + xa @ bt^T with xa [R, r] the scale-folded rank-r
 // bottleneck and bt = B^T [V, r]:
-//   row 9  `_fwd_kernel_lora` (`_fwd_lora`): lse, gold;
+//   row 9  `_fwd_kernel_lora` (`_fwd_lora`): lse, gold, for f32 inputs
+//          (bf16 and f16 run on fused_ce_fwd_lora_mma.cu);
 //   row 10 `_dh_kernel_lora` (`_bwd_dh_lora`): dh and dxa [R, r] f32 =
 //          coef @ bt, for f32 inputs (bf16 and f16 run on
 //          fused_ce_dh_lora_mma.cu);
 //   row 11 `_dw_kernel_lora` (`_bwd_dw_lora`): dbt [V, r] f32 =
-//          coef^T @ xa, and dW only when the head itself trains.
+//          coef^T @ xa, and dW only when the head itself trains; dbt
+//          alone for f32 inputs (bf16 and f16 run on fused_ce_dbt_mma.cu),
+//          dW + dbt for every dtype.
 //
 // Bound on this card, at the Gemma-3-270M training shape (R = 128 rows of
 // one loss chunk, V = 262,144, H = 640, bf16): each kernel must read W
@@ -63,9 +66,10 @@
 // padded to 128 lanes as on the TPU.
 // Products are f32 FMAs from shared memory (each thread a small register
 // tile), not tensor cores: a first, simple version, far from the bound
-// (the 16-bit cases of rows 6, 7, 8 and 10 run on mma.sync in
-// fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and
-// fused_ce_dh_lora_mma.cu). Ragged R, V, H and r edges are
+// (the 16-bit cases of rows 6, 7, 8, 9 and 10 and of row 11's dbt-only
+// mode run on mma.sync in fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu,
+// fused_ce_dw_mma.cu, fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu
+// and fused_ce_dbt_mma.cu). Ragged R, V, H and r edges are
 // masked, so any shape is taken (the TPU kernels need R % 8 and
 // V % block == 0). The dh and dW kernels hold their f32 accumulators in
 // shared memory: H + r <= 1,522 (MAX_HIDDEN in ops/fused_ce.py).
@@ -588,15 +592,13 @@ extern "C" int mft_fused_ce_fwd_lora(const void* h, const void* w,
                                      int H, int rk, int n_slabs,
                                      int tiles_per_slab, int dtype,
                                      void* stream) {
+  // f32 only: bf16 and f16 run on fused_ce_fwd_lora_mma.cu
   if (bad_shape(R, V, H, rk, 0) || rk == 0 || n_slabs <= 0 ||
-      tiles_per_slab <= 0)
+      tiles_per_slab <= 0 || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_dtype(dtype, [&](auto tag) {
-    return launch_fwd<ELEM(tag), true>(h, w, xa, bt, labels, part, lse, gold,
-                                       R, V, H, rk, n_slabs, tiles_per_slab,
-                                       st);
-  });
+  return launch_fwd<float, true>(h, w, xa, bt, labels, part, lse, gold, R,
+                                 V, H, rk, n_slabs, tiles_per_slab,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mft_fused_ce_dh_lora(const void* h, const void* w,
@@ -617,14 +619,17 @@ extern "C" int mft_fused_ce_dh_lora(const void* h, const void* w,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// dw may be null: dbt only (the frozen-embedding case).
+// dw may be null: dbt only (the frozen-embedding case), f32 only there
+// (bf16 and f16 dbt-only run on fused_ce_dbt_mma.cu); dW + dbt takes every
+// dtype.
 extern "C" int mft_fused_ce_dw_lora(const void* h, const void* w,
                                     const void* xa, const void* bt,
                                     const int* labels, const float* lse,
                                     const float* dlse, const float* dgold,
                                     float* dw, float* dbt, int R, int V,
                                     int H, int rk, int dtype, void* stream) {
-  if (bad_shape(R, V, H, rk, (dw != nullptr ? H : 0) + rk) || rk == 0)
+  if (bad_shape(R, V, H, rk, (dw != nullptr ? H : 0) + rk) || rk == 0 ||
+      (dw == nullptr && dtype != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_dtype(dtype, [&](auto tag) {

@@ -34,7 +34,10 @@ A LoRA adapter on the tied head adds xa @ bt^T to the logits, xa =
 scale * (h @ A) [R, r] and bt = B^T [V, r]; its variants fold that delta
 into the same tile loop, so the [R, V] delta never exists either:
 
-  fused_ce_fwd_lora     (lse, gold) (`_fwd_kernel_lora`, row 9).
+  fused_ce_fwd_lora     (lse, gold) (`_fwd_kernel_lora`, row 9); bf16
+                        and f16 on `csrc/fused_ce_fwd_lora_mma.cu`
+                        (H % 8 == 0), f32 on `csrc/fused_ce.cu`
+                        (fwd_lora_library, fwd_lora_mma_plan).
   fused_ce_bwd_dh_lora  (dh, dxa [R, r] = coef @ bt) (`_dh_kernel_lora`,
                         row 10); bf16 and f16 on
                         `csrc/fused_ce_dh_lora_mma.cu` (H % 8 == 0), f32
@@ -42,22 +45,27 @@ into the same tile loop, so the [R, V] delta never exists either:
                         dh_lora_mma_plan).
   fused_ce_bwd_dw_lora  (dW or None, dbt [V, r] = coef^T @ xa)
                         (`_dw_kernel_lora`, row 11); dW only when asked
-                        for (the tied embedding is frozen in LoRA).
+                        for (the tied embedding is frozen in LoRA). dbt
+                        alone in bf16 and f16 on
+                        `csrc/fused_ce_dbt_mma.cu` (H % 8 == 0); f32,
+                        and dW + dbt in every dtype, on `csrc/fused_ce.cu`
+                        (dbt_library, dbt_mma_plan).
   fused_ce_rows_lora    (lse, gold), differentiable in h, W, xa and bt
                         (FusedCERowsLora); the A / B / scale chain
                         around it is plain autograd, as in the JAX
                         package.
 
 Each wrapper has a `launches` count of its calls that launch the kernel
-(the forward's merge pass and the dh reduce passes are part of their
-kernel's launch). CUDA tensors launch the kernel or raise; CPU tensors
+(the forwards' merge passes and the dh and dbt reduce passes are part
+of their kernel's launch). CUDA tensors launch the kernel or raise; CPU tensors
 take the plain versions (`*_reference`), which compute the same function
 tile by tile over the vocabulary in f32 with the same coef rounding, and
 run on any device as the kernels' references on the card.
 
 Bounds and design: csrc/fused_ce.cu and the tensor-core sources
-csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu and
-fused_ce_dh_lora_mma.cu.
+csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu,
+fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu and
+fused_ce_dbt_mma.cu.
 The kernels take any R, V and H (the tensor-core kernels H % 8 == 0),
 h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
 hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
@@ -92,6 +100,7 @@ DW_VOCAB_TILE = 32      # csrc/fused_ce_dw_mma.cu VT: vocab rows of a tile
 DW_HP_MAX = 640         # HP_MAX: dW columns of a CTA, 8 warps x WC_MAX
 DW_ROW_CHUNKS = (128, 64, 32)   # rows of h a CTA holds (its RC)
 FWD_MMA_KREGS = 40      # csrc/fused_ce_fwd_mma.cu KR: h's k-steps a lane
+DBT_GROUP = 4           # csrc/fused_ce_dbt_mma.cu GT: W tiles a coef group
 
 
 # ------------------------------------------------------ plain versions ------
@@ -306,6 +315,21 @@ def dh_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
                   ("fused_ce", "mft_fused_ce_dh_lora"), dtype)
 
 
+def fwd_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """Row 9's kernel for `dtype` (_route)."""
+    return _route("fused_ce_fwd_lora",
+                  ("fused_ce_fwd_lora_mma", "mft_fused_ce_fwd_lora_mma"),
+                  ("fused_ce", "mft_fused_ce_fwd_lora"), dtype)
+
+
+def dbt_library(dtype: torch.dtype) -> Tuple[str, str]:
+    """Row 11's dbt-only kernel for `dtype` (_route); its dW + dbt mode
+    is fused_ce.cu's mft_fused_ce_dw_lora in every dtype."""
+    return _route("fused_ce_bwd_dw_lora",
+                  ("fused_ce_dbt_mma", "mft_fused_ce_dbt_mma"),
+                  ("fused_ce", "mft_fused_ce_dw_lora"), dtype)
+
+
 def _require_h8(what: str, H: int) -> None:
     if H <= 0 or H % 8:
         raise ValueError(f"{what} tensor-core kernel takes H % 8 == 0 "
@@ -393,9 +417,7 @@ def dh_lora_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
     each): a large rank takes fewer buffers or row groups, never a
     narrower H part."""
     _require_h8("fused_ce_bwd_dh_lora", H)
-    if not 0 < r <= MAX_RANK:
-        raise ValueError(f"fused_ce_bwd_dh_lora: rank {r} outside "
-                         f"[1, {MAX_RANK}]")
+    _require_rank("fused_ce_bwd_dh_lora", r)
     n_parts = -(-H // DH_LORA_HP_MAX)
     hp = -(-(-(-H // n_parts)) // 32) * 32
     ld = -(-H // 16) * 16 + 8
@@ -413,6 +435,62 @@ def dh_lora_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
     return _slab_plan({"row_groups": row_groups, "stages": stages,
                        "hp": hp, "n_parts": n_parts, "smem_bytes": smem},
                       row_tiles * n_parts, V, n_sm)
+
+
+def _require_rank(what: str, r: int) -> None:
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"{what}: rank {r} outside [1, {MAX_RANK}]")
+
+
+def _lora_logits_plan(what: str, R: int, V: int, H: int, r: int,
+                      n_sm: int, elem_bytes: int, coef_tile: bool) -> dict:
+    """Rows 9 and 11's (dbt-only) launch: row 6's layout (fwd_mma_plan)
+    with xa's row tile and a bt tile a W buffer in shared memory ([.,
+    r16 + 8], the rank rounded up to 16) and, for row 11, the coef tile
+    of DBT_GROUP W tiles [16 row_groups, 136]: a large rank takes fewer
+    buffers or row groups, never a narrower tile. Up to H 640 each lane
+    holds h's A fragments (`h_in_regs`) and, at r16 = 16, xa's
+    (`xa_in_regs`)."""
+    _require_h8(what, H)
+    _require_rank(what, r)
+    ld = -(-H // 16) * 16 + 8
+    r16 = -(-r // 16) * 16
+    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
+        smem = ((16 * row_groups + stages * MMA_VOCAB_TILE) * (ld + r16 + 8)
+                + coef_tile * 16 * row_groups
+                * (DBT_GROUP * MMA_VOCAB_TILE + 8)) \
+            * elem_bytes
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"{what} tensor-core kernel: H={H}, r={r} does "
+                         f"not fit shared memory")
+    h_in_regs = ld - 8 <= 16 * FWD_MMA_KREGS
+    row_tiles = -(-R // (16 * row_groups))
+    return _slab_plan({"row_groups": row_groups, "stages": stages,
+                       "h_in_regs": h_in_regs,
+                       "xa_in_regs": h_in_regs and r16 == 16,
+                       "row_tiles": row_tiles, "smem_bytes": smem},
+                      row_tiles, V, n_sm)
+
+
+def fwd_lora_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
+                      elem_bytes: int = 2) -> dict:
+    """Row 9's launch, as csrc/fused_ce_fwd_lora_mma.cu takes it
+    (_lora_logits_plan): one CTA per (row tile, vocab slab), a (m, s,
+    gold) partial per (slab, row) merged in slab order."""
+    return _lora_logits_plan("fused_ce_fwd_lora", R, V, H, r, n_sm,
+                             elem_bytes, coef_tile=False)
+
+
+def dbt_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
+                 elem_bytes: int = 2) -> dict:
+    """Row 11's dbt-only launch, as csrc/fused_ce_dbt_mma.cu takes it
+    (_lora_logits_plan with the coef tile): one CTA per (row tile, vocab
+    slab), a [V, r] f32 partial per row tile (`row_tiles`) summed in order
+    by a reduce pass when there is more than one."""
+    return _lora_logits_plan("fused_ce_bwd_dw_lora", R, V, H, r, n_sm,
+                             elem_bytes, coef_tile=True)
 
 
 def dw_mma_plan(R: int, V: int, H: int, n_sm: int,
@@ -494,6 +572,26 @@ def _launch_fwd_mma(h, w, labels):
     return code, lse, gold
 
 
+def _launch_fwd_lora_mma(h, w, xa, bt, labels):
+    """(code, lse, gold) through row 9's tensor-core kernel and its merge
+    pass."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = fwd_lora_mma_plan(R, V, H, r, _n_sm(h), h.element_size())
+    _aligned16("fused_ce_fwd_lora", h, w)
+    part = torch.empty(plan["n_slabs"], R, 3, device=h.device)
+    lse = torch.empty(R, device=h.device)
+    gold = torch.empty(R, device=h.device)
+    lib, sym = fwd_lora_library(h.dtype)
+    code = _fn(sym, 8, 9, lib)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), part.data_ptr(), lse.data_ptr(),
+        gold.data_ptr(), R, V, H, r, plan["row_groups"], plan["stages"],
+        plan["n_slabs"], plan["tiles_per_slab"], DTYPE_CODES[h.dtype],
+        _stream(h))
+    return code, lse, gold
+
+
 def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse, gold) [R] f32 for h [R, H], W [V, H] and in-range labels
     [R]. CPU tensors: the plain version. CUDA tensors: the kernel of
@@ -519,12 +617,17 @@ def fused_ce_fwd_lora(h, w, xa, bt, labels
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse, gold) [R] f32 of h @ W^T + xa @ bt^T for h [R, H], W [V, H],
     xa [R, r], bt [V, r] and in-range labels [R]. CPU tensors: the plain
-    version. CUDA tensors: the kernel, or ValueError."""
+    version. CUDA tensors: the kernel of fwd_lora_library(h.dtype) (with
+    a merge pass over its vocab slabs), or ValueError for what it does
+    not take."""
     _check_shapes("fused_ce_fwd_lora", h, w, labels, xa, bt)
     if h.device.type == "cpu":
         return fused_ce_fwd_lora_reference(h, w, xa, bt, labels)
     _check("fused_ce_fwd_lora", (h, w, xa, bt), (), backward=False)
-    code, lse, gold = _launch_fwd(h, w, labels, (xa, bt))
+    if fwd_lora_library(h.dtype)[0] == "fused_ce_fwd_lora_mma":
+        code, lse, gold = _launch_fwd_lora_mma(h, w, xa, bt, labels)
+    else:
+        code, lse, gold = _launch_fwd(h, w, labels, (xa, bt))
     build.check_launch("fused_ce_fwd_lora", code)
     fused_ce_fwd_lora.launches += 1
     return lse, gold
@@ -635,6 +738,26 @@ def _launch_dw_mma(h, w, labels, rows):
     return code, dw
 
 
+def _launch_dbt_mma(h, w, xa, bt, labels, rows):
+    """(code, dbt) through row 11's dbt-only tensor-core kernel and its
+    reduce pass over row tiles."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = dbt_mma_plan(R, V, H, r, _n_sm(h), h.element_size())
+    _aligned16("fused_ce_bwd_dw_lora", h, w)
+    part = (torch.empty(plan["row_tiles"], V, r, device=h.device)
+            if plan["row_tiles"] > 1 else None)
+    dbt = torch.empty(V, r, device=h.device)
+    lib, sym = dbt_library(h.dtype)
+    code = _fn(sym, 10, 9, lib)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+        None if part is None else part.data_ptr(), dbt.data_ptr(), R, V, H,
+        r, plan["row_groups"], plan["stages"], plan["n_slabs"],
+        plan["tiles_per_slab"], DTYPE_CODES[h.dtype], _stream(h))
+    return code, dbt
+
+
 def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     """dh [R, H] f32 = coef @ W. CPU tensors: the plain version; CUDA
     tensors: the kernel of dh_library(h.dtype) (with a reduce pass over
@@ -707,9 +830,10 @@ fused_ce_bwd_dw.launches = 0
 def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
                          want_dw: bool = True):
     """(dW [V, H] f32 or None, dbt [V, r] f32) = (coef^T @ h, coef^T @ xa)
-    of the head-adapter logits; dW only when `want_dw` (the kernel then
-    skips its dW product: the frozen-embedding case). CPU tensors: the
-    plain version; CUDA tensors: the kernel."""
+    of the head-adapter logits; dW only when `want_dw` (the frozen-
+    embedding case skips it). CPU tensors: the plain version; CUDA
+    tensors: dbt alone on the kernel of dbt_library(h.dtype), dW + dbt on
+    fused_ce.cu's, or ValueError for what the kernel does not take."""
     rows = _bwd_args("fused_ce_bwd_dw_lora", h, w, labels, lse, dlse, dgold,
                      xa, bt)
     if h.device.type == "cpu":
@@ -717,15 +841,19 @@ def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
                                           want_dw=want_dw)
     # dbt alone needs only a [32, r] accumulator: H is then not bounded
     _check("fused_ce_bwd_dw_lora", (h, w, xa, bt), rows, backward=want_dw)
-    R, H = h.shape
-    V, r = bt.shape
-    dw = torch.empty(V, H, device=h.device) if want_dw else None
-    dbt = torch.empty(V, r, device=h.device)
-    code = _fn("mft_fused_ce_dw_lora", 10, 5)(
-        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
-        _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
-        None if dw is None else dw.data_ptr(), dbt.data_ptr(), R, V, H, r,
-        DTYPE_CODES[h.dtype], _stream(h))
+    dw = None
+    if not want_dw and dbt_library(h.dtype)[0] == "fused_ce_dbt_mma":
+        code, dbt = _launch_dbt_mma(h, w, xa, bt, labels, rows)
+    else:
+        R, H = h.shape
+        V, r = bt.shape
+        dw = torch.empty(V, H, device=h.device) if want_dw else None
+        dbt = torch.empty(V, r, device=h.device)
+        code = _fn("mft_fused_ce_dw_lora", 10, 5)(
+            h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+            _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+            None if dw is None else dw.data_ptr(), dbt.data_ptr(), R, V, H,
+            r, DTYPE_CODES[h.dtype], _stream(h))
     build.check_launch("fused_ce_bwd_dw_lora", code)
     fused_ce_bwd_dw_lora.launches += 1
     return dw, dbt

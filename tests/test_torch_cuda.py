@@ -296,8 +296,10 @@ def test_fused_ce_fwd_tensor_core_kernel(dev):
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the FMA ones, for
     the flash forward (row 1) and merged backward (row 2), the fused CE
-    forward (row 6), dh (row 7), dW (row 8) and the head-adapter dh + dxa
-    (row 10): the libraries the wrappers load are recorded."""
+    forward (row 6), dh (row 7), dW (row 8), the head-adapter forward (row
+    9), dh + dxa (row 10) and dbt-only mode of row 11, whose dW + dbt mode
+    loads fused_ce.cu in every dtype: the libraries the wrappers load are
+    recorded."""
     loaded = []
     real = build.load
 
@@ -333,13 +335,25 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
         loaded.clear()
         fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, lse, dl, dg)
         assert loaded == [dh.replace("_dh_", "_dh_lora_")]
+        mma = dtype != torch.float32
+        loaded.clear()
+        fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+        assert loaded == ["fused_ce_fwd_lora_mma" if mma else "fused_ce"]
+        loaded.clear()
+        fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg,
+                                want_dw=False)
+        assert loaded == ["fused_ce_dbt_mma" if mma else "fused_ce"]
+        loaded.clear()
+        fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg)
+        assert loaded == ["fused_ce"]
     torch.cuda.synchronize()
 
 
 def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
     """Row 1 refuses a head dim outside {64, 128, 256} in bf16, rows 6,
-    7, 8 and 10 a bf16 H that is not a multiple of 8, rows 2 and 6
-    16-bit operands that are not 16-byte aligned, before any launch."""
+    7, 8, 9, 10 and 11 (dbt-only) a bf16 H that is not a multiple of 8,
+    rows 2 and 6 16-bit operands that are not 16-byte aligned, before any
+    launch."""
     q = torch.zeros(1, 2, 8, 96, device=dev, dtype=torch.bfloat16)
     n0 = fa.flash_attention_fwd.launches
     with pytest.raises(ValueError, match="D in"):
@@ -359,6 +373,15 @@ def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="H % 8"):
         fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl, dg)
     assert fc.fused_ce_bwd_dh_lora.launches == n0
+    n0 = fc.fused_ce_fwd_lora.launches
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    assert fc.fused_ce_fwd_lora.launches == n0
+    n0 = fc.fused_ce_bwd_dw_lora.launches
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, dl, dl, dg,
+                                want_dw=False)
+    assert fc.fused_ce_bwd_dw_lora.launches == n0
     n0 = fc.fused_ce_fwd.launches
     with pytest.raises(ValueError, match="H % 8"):
         fc.fused_ce_fwd(h, w, lab)
@@ -594,6 +617,54 @@ def test_fused_ce_dh_lora_tensor_core_kernel(dev, R, V, H, r):
             assert err(a, b) <= 2e-3
 
 
+@pytest.mark.parametrize("R,V,H,r", [
+    (128, 20011, 640, 8),       # the path's width and rank, ragged V
+    (37, 50257, 1000, 1),       # ragged R and V, rank 1 element by element
+    (37, 1001, 200, 3),         # an odd rank
+    (100, 5003, 640, 128),      # the largest rank: two W buffers
+])
+def test_fused_ce_fwd_lora_tensor_core_kernel(dev, R, V, H, r):
+    """Row 9 in bf16 against the plain version (lse and gold, max abs
+    error <= 2e-3); two calls give identical bits; one launch a call."""
+    h, w, lab, _, _ = _ce_case(dev, torch.bfloat16, R, V, H, seed=R + r)
+    xa, bt = _lora_case(dev, torch.bfloat16, R, V, r, seed=r)
+    n0 = fc.fused_ce_fwd_lora.launches
+    lse, gold = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    lse2, gold2 = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    rl, rg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
+    torch.cuda.synchronize()
+    assert fc.fused_ce_fwd_lora.launches == n0 + 2
+    assert torch.equal(lse, lse2) and torch.equal(gold, gold2)
+    assert float((lse - rl).abs().max()) <= 2e-3
+    assert float((gold - rg).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("R,V,H,r", [
+    (128, 20011, 640, 8),       # two row-tile partials, ragged V
+    (37, 50257, 1000, 1),       # one row tile (no reduce pass), rank 1
+    (37, 1001, 200, 3),         # an odd rank, copied element by element
+    (100, 5003, 640, 128),      # the largest rank: every warp's pairs
+])
+def test_fused_ce_dbt_tensor_core_kernel(dev, R, V, H, r):
+    """Row 11's dbt-only mode in bf16 against the plain version, dbt over
+    max(1, max |ref|) and the softmax part alone (dgold = 0, over
+    max |ref|), tolerance 2e-3; no dW; two calls give identical bits; one
+    launch a call."""
+    h, w, lab, dl, dg = _ce_case(dev, torch.bfloat16, R, V, H, seed=R + r)
+    xa, bt = _lora_case(dev, torch.bfloat16, R, V, r, seed=r)
+    lse = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    for dgold, err in ((dg, _rel_err), (torch.zeros_like(dg), _scaled_err)):
+        args = (h, w, xa, bt, lab, lse, dl, dgold)
+        n0 = fc.fused_ce_bwd_dw_lora.launches
+        no_dw, dbt = fc.fused_ce_bwd_dw_lora(*args, want_dw=False)
+        _, again = fc.fused_ce_bwd_dw_lora(*args, want_dw=False)
+        torch.cuda.synchronize()
+        assert fc.fused_ce_bwd_dw_lora.launches == n0 + 2
+        assert no_dw is None and torch.equal(dbt, again)
+        ref = fc.fused_ce_dw_lora_reference(*args, want_dw=False)[1]
+        assert err(dbt, ref) <= 2e-3
+
+
 def test_fused_ce_skips_dw_for_a_frozen_head_and_never_runs_plain(
         dev, monkeypatch):
     """A CUDA tensor goes to the kernels only: the plain versions and the
@@ -688,7 +759,8 @@ def test_head_adapter_loss_launches_its_kernels_only(dev, monkeypatch):
     rows 9-11 in every chunk (row 11 dbt-only: the head is frozen) and
     none of the base kernels or plain versions; its loss and the A / B
     gradients agree with the plain path (f32). In bf16 the same launches,
-    row 10 on its tensor-core kernel, with finite gradients."""
+    rows 9, 10 and 11 on their tensor-core kernels, with finite
+    gradients."""
     g = torch.Generator().manual_seed(7)
     R2, V, H, r = 31, 3000, 128, 4
     hid = torch.randn(2, R2, H, generator=g).to(dev)
@@ -740,7 +812,10 @@ def test_head_adapter_loss_launches_its_kernels_only(dev, monkeypatch):
         lora_head=head)
     grads = torch.autograd.grad(s, leaves)
     assert [f.launches - x for f, x in zip(kernels, n)] == [3, 3, 3, 0, 0, 0]
-    assert loaded.count("fused_ce_dh_lora_mma") == 3
+    for lib in ("fused_ce_fwd_lora_mma", "fused_ce_dh_lora_mma",
+                "fused_ce_dbt_mma"):
+        assert loaded.count(lib) == 3
+    assert "fused_ce" not in loaded
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 

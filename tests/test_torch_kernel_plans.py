@@ -1,18 +1,21 @@
 """The launch plans of the tensor-core kernels (row 1, the flash-attention
-forward; row 2, its merged backward; rows 6, 7, 8 and 10, the fused CE
-forward, dh, dW and head-adapter dh + dxa), on the CPU: the pure-Python
-plans the wrappers pass to the card (`ops/flash_attention.fwd_plan` with
-the key-tile bounds `_kv_block_bounds`, `bwd_plan` with the q-block
-bounds `_q_block_bounds`; `ops/fused_ce.fwd_mma_plan`, `dh_mma_plan`,
-with a rank for row 10, and `dw_mma_plan`) cover every (query block,
-head, batch), every (key block, head, batch), every (row tile, vocab
-slab, H part) and every (vocab tile, H part) exactly once, visit every
-attendable (row, key) pair, fit the card's shared memory, and agree with
+forward; row 2, its merged backward; rows 6, 7, 8, 9, 10 and 11, the fused
+CE forward, dh, dW, head-adapter forward, dh + dxa and dbt), on the CPU:
+the pure-Python plans the wrappers pass to the card
+(`ops/flash_attention.fwd_plan` with the key-tile bounds
+`_kv_block_bounds`, `bwd_plan` with the q-block bounds `_q_block_bounds`;
+`ops/fused_ce.fwd_mma_plan`, `dh_mma_plan`, with a rank for row 10,
+`dw_mma_plan`, `fwd_lora_mma_plan` and `dbt_mma_plan`) cover every
+(query block, head, batch), every (key block, head, batch), every (row
+tile, vocab slab, H part) and every (vocab tile, H part) exactly once,
+visit every attendable (row, key) pair, fit the card's shared memory,
+and agree with
 the constants of the CUDA sources; row 8's stores write each dW element
 once, from the fragment that holds it; row 2's transposed fragment map,
 replayed with ldmatrix and mma.sync emulated in numpy, computes the
-plain version's dq, dk and dv; and the dtype picks the library: bf16 /
-f16 the `_mma` sources, f32 the FMA ones. No card needed."""
+plain version's dq, dk and dv, and rows 9 and 11's fragment maps their
+plain versions' (lse, gold) and dbt; and the dtype picks the library:
+bf16 / f16 the `_mma` sources, f32 the FMA ones. No card needed."""
 
 import itertools
 import os
@@ -48,17 +51,22 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "ce_fwd": ("fused_ce_fwd_mma", "mft_fused_ce_fwd_mma"),
     "dh": ("fused_ce_dh_mma", "mft_fused_ce_dh_mma"),
     "dw": ("fused_ce_dw_mma", "mft_fused_ce_dw_mma"),
-    "dh_lora": ("fused_ce_dh_lora_mma", "mft_fused_ce_dh_lora_mma")}
+    "dh_lora": ("fused_ce_dh_lora_mma", "mft_fused_ce_dh_lora_mma"),
+    "ce_fwd_lora": ("fused_ce_fwd_lora_mma", "mft_fused_ce_fwd_lora_mma"),
+    "dbt": ("fused_ce_dbt_mma", "mft_fused_ce_dbt_mma")}
 FMA_LIBS = {  # the FMA kernels' for f32
     "fwd": ("flash_attention_fwd", "mft_flash_attention_fwd"),
     "bwd": ("flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"),
     "ce_fwd": ("fused_ce", "mft_fused_ce_fwd"),
     "dh": ("fused_ce", "mft_fused_ce_dh"),
     "dw": ("fused_ce", "mft_fused_ce_dw"),
-    "dh_lora": ("fused_ce", "mft_fused_ce_dh_lora")}
+    "dh_lora": ("fused_ce", "mft_fused_ce_dh_lora"),
+    "ce_fwd_lora": ("fused_ce", "mft_fused_ce_fwd_lora"),
+    "dbt": ("fused_ce", "mft_fused_ce_dw_lora")}
 ROUTES = {"fwd": fa.fwd_library, "dh": fc.dh_library, "dw": fc.dw_library,
           "dh_lora": fc.dh_lora_library, "bwd": fa.bwd_library,
-          "ce_fwd": fc.fwd_library}
+          "ce_fwd": fc.fwd_library, "ce_fwd_lora": fc.fwd_lora_library,
+          "dbt": fc.dbt_library}
 
 
 @pytest.mark.parametrize("dtype,fwd,dh", [
@@ -83,7 +91,8 @@ def test_dtype_without_a_kernel_raises(dtype):
             route(dtype)
 
 
-@pytest.mark.parametrize("key", ["dw", "dh_lora", "bwd", "ce_fwd"])
+@pytest.mark.parametrize("key", ["dw", "dh_lora", "bwd", "ce_fwd",
+                                 "ce_fwd_lora", "dbt"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int8,
                                    torch.complex64])
 def test_new_routes_raise_for_other_dtypes(key, dtype):
@@ -101,9 +110,10 @@ def _entry(text, sym):
 def test_fma_sources_keep_only_their_f32_instantiation():
     """The 16-bit cases left flash_attention_fwd.cu, the merged backward
     of flash_attention_bwd_merged.cu and the base forward, dh, dW and
-    head-adapter dh entries of fused_ce.cu; row 11's dW kernel and row
-    9's forward keep their 16-bit instantiations there, their templates
-    untouched, and the split backward keeps every dtype."""
+    head-adapter forward and dh entries of fused_ce.cu; row 11's entry
+    keeps every dtype for its dW + dbt mode and refuses 16-bit operands in
+    its dbt-only mode (dw null), its template untouched, and the split
+    backward keeps every dtype."""
     for name, sym in (("flash_attention_fwd.cu", "mft_flash_attention_fwd"),
                       ("flash_attention_bwd_merged.cu",
                        "mft_flash_attention_bwd_merged")):
@@ -119,25 +129,27 @@ def test_fma_sources_keep_only_their_f32_instantiation():
     for sym, launch in (("mft_fused_ce_fwd", "launch_fwd<float, false>"),
                         ("mft_fused_ce_dh", "launch_dh<float, false>"),
                         ("mft_fused_ce_dw", "launch_dw<float>"),
-                        ("mft_fused_ce_dh_lora", "launch_dh<float, true>")):
+                        ("mft_fused_ce_dh_lora", "launch_dh<float, true>"),
+                        ("mft_fused_ce_fwd_lora", "launch_fwd<float, true>")):
         entry = _entry(ce, sym)
         assert launch in entry and "dtype != 0" in entry
         assert "by_dtype" not in entry
-    for sym in ("mft_fused_ce_dw_lora", "mft_fused_ce_fwd_lora"):
-        assert "by_dtype" in _entry(ce, sym)
-    assert "launch_fwd<ELEM(tag), true>" in _entry(ce,
-                                                   "mft_fused_ce_fwd_lora")
+    dw_lora = _entry(ce, "mft_fused_ce_dw_lora")
+    assert "by_dtype" in dw_lora and "launch_dw<ELEM(tag)>" in dw_lora
+    assert "(dw == nullptr && dtype != 0)" in dw_lora
+    assert "launch_fwd<ELEM(tag)" not in ce
 
 
 def test_tensor_core_sources_use_mma_sync():
     for name in ("flash_attention_fwd_mma.cu", "fused_ce_dh_mma.cu",
                  "fused_ce_dw_mma.cu", "fused_ce_dh_lora_mma.cu",
                  "flash_attention_bwd_merged_mma.cu",
-                 "fused_ce_fwd_mma.cu"):
+                 "fused_ce_fwd_mma.cu", "fused_ce_fwd_lora_mma.cu",
+                 "fused_ce_dbt_mma.cu"):
         text = _source(name)
         assert "mma_16816<T>" in text and "ldmatrix_x4" in text
         assert "ldmatrix_x4_trans" in text or name.startswith("flash") \
-            or name == "fused_ce_fwd_mma.cu"   # one product, no .trans
+            or name.startswith("fused_ce_fwd")   # no .trans product
         assert "cp_async_16" in text
         assert '#include "tensor_core.cuh"' in text
     assert "mma.sync.aligned.m16n8k16" in _source("tensor_core.cuh")
@@ -146,7 +158,8 @@ def test_tensor_core_sources_use_mma_sync():
 def test_new_sources_are_built_and_call_no_library():
     from mobilefinetuner_tpu_torch.kernels import build
     for name in ("fused_ce_dw_mma", "fused_ce_dh_lora_mma",
-                 "flash_attention_bwd_merged_mma", "fused_ce_fwd_mma"):
+                 "flash_attention_bwd_merged_mma", "fused_ce_fwd_mma",
+                 "fused_ce_fwd_lora_mma", "fused_ce_dbt_mma"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -1046,3 +1059,376 @@ def test_fwd_mma_plan_at_the_gemma_chunk():
 def test_fwd_mma_plan_refuses_h_not_a_multiple_of_8(H):
     with pytest.raises(ValueError, match="H % 8"):
         fc.fwd_mma_plan(16, 100, H, N_SM)
+
+
+# -------------------------------------------------------- rows 9 and 11 ----
+
+LORA_LOGITS_SHAPES = [  # (R, V, H, r)
+    (128, 262144, 640, 8),      # the Gemma-3 chunk with the head adapter
+    (128, 262144, 640, 1),
+    (128, 262144, 640, 4),
+    (128, 262144, 640, 16),
+    (128, 262144, 640, 128),    # the largest rank
+    (256, 262144, 640, 8),      # batch 8
+    (120, 50257, 1000, 4),      # ragged
+    (37, 50257, 1152, 3),       # R 37, H 1,152, an odd rank
+    (37, 50257, 1152, 128),
+    (40, 3001, 1520, 128),      # the widest H a multiple of 8 here
+    (8, 100, 8, 5),
+]
+LORA_PLANS = {"fused_ce_fwd_lora_mma.cu": fc.fwd_lora_mma_plan,
+              "fused_ce_dbt_mma.cu": fc.dbt_mma_plan}
+
+
+@pytest.mark.parametrize("name", sorted(LORA_PLANS))
+def test_lora_logits_plan_constants_match_the_source(name):
+    text = _source(name)
+    assert _constexpr(text, "VT") == fc.MMA_VOCAB_TILE
+    assert _constexpr(text, "VG") * 16 == fc.MMA_VOCAB_TILE
+    assert _constexpr(text, "KR") == fc.FWD_MMA_KREGS
+    assert _constexpr(text, "MAX_RANK") == fc.MAX_RANK
+    assert _constexpr(text, "SMEM_MAX") == fc.SMEM_MAX
+    assert "return h16_of(H) <= 16 * KR;" in text
+    assert "return h_in_regs(H) && h16_of(rk) == 16;" in text
+    if "dbt" in name:
+        assert _constexpr(text, "GT") == fc.DBT_GROUP
+        assert "((16 * RG + stages * VT) * (ld + ldr) + 16 * RG * " \
+               "(GT * VT + 8)) *" in text
+        assert "constexpr int LDC = GT * VT + 8;" in text
+        assert "if (gi != GT - 1 && tile + 1 != t_end) continue;" in text
+        # the logits' MMA chains are cut and folded into f32 sums
+        assert _constexpr(text, "KP") == 8
+        assert "if (kc % KP == KP - 1) fold();" in text
+    else:
+        assert "(16 * RG + stages * VT) * (ld + ldr) * elem" in text
+    assert "const int row0 = blockIdx.x * RT;" in text
+    assert "const int t0 = slab * tiles_per_slab;" in text
+    assert "dim3 grid(row_tiles, n_slabs);" in text
+    assert re.search(r"if \(h_in_regs\(H\)\) \{.*\s+if \(rg != 4\) return",
+                     text)
+    assert re.search(r"if \(xa_in_regs\(H, rk\)\)\s+return launch<T, 4, "
+                     r"true, true>", text)
+    for rg in (4, 2):
+        assert re.search(rf"case {rg}:\s+return launch<T, {rg}, false, "
+                         rf"false>", text)
+
+
+@pytest.mark.parametrize("name", sorted(LORA_PLANS))
+@pytest.mark.parametrize("R,V,H,r", LORA_LOGITS_SHAPES)
+def test_lora_logits_plan_covers_each_tile_once(name, R, V, H, r):
+    """Every (row, vocab tile) lies in exactly one CTA: row tiles
+    partition [0, R), slabs of whole 32-column tiles partition [0, V),
+    the x index runs over the row tiles of a slab (row 11: each CTA's
+    partial is the row tile's, `row_tiles` of them)."""
+    plan = LORA_PLANS[name](R, V, H, r, N_SM)
+    rt = 16 * plan["row_groups"]
+    span = plan["tiles_per_slab"] * fc.MMA_VOCAB_TILE
+    gx, gy = plan["grid"]
+    assert gx == plan["row_tiles"] == -(-R // rt) and gy == plan["n_slabs"]
+    hits = np.zeros((R, -(-V // fc.MMA_VOCAB_TILE)), dtype=np.int64)
+    for slab, x in itertools.product(range(gy), range(gx)):
+        r0, v0 = x * rt, slab * span
+        assert r0 < R and v0 < V          # no empty CTA
+        hits[r0:r0 + rt, v0 // 32:(v0 + span) // 32] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("name", sorted(LORA_PLANS))
+@pytest.mark.parametrize("R,V,H,r", LORA_LOGITS_SHAPES)
+def test_lora_logits_plan_fits_the_card(name, R, V, H, r):
+    """Shared memory with xa's row tile, the bt tiles (and row 11's coef
+    tile of four W tiles) within a block's 227 KB at every rank, the
+    64-row tile wherever h's fragments sit in registers, xa's too only at
+    r16 = 16, and one
+    wave of CTAs."""
+    plan = LORA_PLANS[name](R, V, H, r, N_SM)
+    rg, st = plan["row_groups"], plan["stages"]
+    ld = -(-H // 16) * 16 + 8
+    r16 = -(-r // 16) * 16
+    coef = 16 * rg * (fc.DBT_GROUP * 32 + 8) if "dbt" in name else 0
+    assert plan["smem_bytes"] == ((16 * rg + st * 32) * (ld + r16 + 8)
+                                  + coef) * 2
+    assert plan["smem_bytes"] <= fc.SMEM_MAX
+    assert (rg, st) in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1))
+    assert plan["h_in_regs"] == (ld - 8 <= 16 * fc.FWD_MMA_KREGS)
+    assert rg == 4 or not plan["h_in_regs"]   # the source's one layout
+    assert plan["xa_in_regs"] == (plan["h_in_regs"] and r16 == 16)
+    gx, gy = plan["grid"]
+    if -(-V // fc.MMA_VOCAB_TILE) >= N_SM:
+        assert gx * gy <= N_SM
+
+
+@pytest.mark.parametrize("r", [1, 4, 8, 16, 128])
+def test_lora_logits_plans_fit_every_rank_at_the_gemma_width(r):
+    for plan_fn in LORA_PLANS.values():
+        plan = plan_fn(128, 262144, 640, r, N_SM)
+        assert plan["smem_bytes"] <= fc.SMEM_MAX
+        assert plan["row_groups"] == 4 and plan["h_in_regs"]
+
+
+def test_lora_logits_plans_at_the_gemma_chunk():
+    """R 128, V 262,144, H 640, r 8: row 6's launch (64-row tiles, three
+    buffers, 66 slabs of 125 tiles: 132 CTAs) with h's and xa's fragments
+    in registers; row 11 two row-tile partials, its coef tile filling
+    the block's 227 KB to the byte; rank 128 takes two buffers, never a
+    narrower tile."""
+    fwd = fc.fwd_lora_mma_plan(128, 262144, 640, 8, N_SM)
+    dbt = fc.dbt_mma_plan(128, 262144, 640, 8, N_SM)
+    for plan in (fwd, dbt):
+        assert (plan["row_groups"], plan["stages"], plan["n_slabs"],
+                plan["tiles_per_slab"], plan["h_in_regs"],
+                plan["xa_in_regs"], plan["row_tiles"]) == \
+            (4, 3, 66, 125, True, True, 2)
+        assert plan["grid"] == (2, 66)
+    assert (fwd["smem_bytes"], dbt["smem_bytes"]) == (215040, 232448)
+    for plan_fn in LORA_PLANS.values():
+        big = plan_fn(128, 262144, 640, 128, N_SM)
+        assert (big["row_groups"], big["stages"], big["xa_in_regs"]) == \
+            (4, 2, False)
+
+
+@pytest.mark.parametrize("name", sorted(LORA_PLANS))
+@pytest.mark.parametrize("H", [1004, 642, 7, 0])
+def test_lora_logits_plan_refuses_h_not_a_multiple_of_8(name, H):
+    with pytest.raises(ValueError, match="H % 8"):
+        LORA_PLANS[name](16, 100, H, 8, N_SM)
+
+
+@pytest.mark.parametrize("name", sorted(LORA_PLANS))
+@pytest.mark.parametrize("r", [0, -1, 129])
+def test_lora_logits_plan_refuses_a_rank_out_of_range(name, r):
+    with pytest.raises(ValueError, match="rank"):
+        LORA_PLANS[name](16, 100, 64, r, N_SM)
+
+
+def _lora_logits_replay(h, w, xa, bt, plan):
+    """The logits loop of csrc/fused_ce_fwd_lora_mma.cu and
+    fused_ce_dbt_mma.cu replayed in f64: the staged row tiles and W / bt
+    tiles (zero past R, V, H and r), the lane addresses and the m16n8k16
+    k-steps over H and then over r16, ldmatrix and mma.sync emulated.
+    Yields (x, slab, tile, rg, vg, x_s, row0) with x the warp's two C
+    fragments [2, 32, 4] and x_s its CTA's xa tile [RT * LDR]."""
+    R, H = h.shape
+    V, rk = bt.shape
+    RG = plan["row_groups"]
+    RT = 16 * RG
+    H16, R16 = -(-H // 16) * 16, -(-rk // 16) * 16
+    LD, LDR = H16 + 8, R16 + 8
+    lane = np.arange(32)
+    lr, lm = lane % 8, lane // 8
+
+    def staged(src, first, n, ld):
+        out = np.zeros((n, ld))
+        m = max(0, min(n, src.shape[0] - first))
+        out[:m, :src.shape[1]] = src[first:first + m]
+        return out.reshape(-1)
+
+    n_vt = -(-V // 32)
+    for slab in range(plan["n_slabs"]):
+        t0 = slab * plan["tiles_per_slab"]
+        for x in range(plan["grid"][0]):
+            row0 = x * RT
+            h_s, x_s = staged(h, row0, RT, LD), staged(xa, row0, RT, LDR)
+            for tile in range(t0, min(n_vt, t0 + plan["tiles_per_slab"])):
+                w_s = staged(w, tile * 32, 32, LD)
+                b_s = staged(bt, tile * 32, 32, LDR)
+                for rg, vg in itertools.product(range(RG), range(2)):
+                    a_row = rg * 16 + lr + (lm % 2) * 8
+                    b_row = vg * 16 + lr + (lm // 2) * 8
+                    frag = np.zeros((2, 32, 4))
+                    for src_a, src_b, ld, k16 in ((h_s, w_s, LD, H16),
+                                                  (x_s, b_s, LDR, R16)):
+                        for kc in range(0, k16, 16):
+                            a = _ldsm(src_a, a_row * ld + (lm // 2) * 8 + kc,
+                                      False)
+                            b = _ldsm(src_b, b_row * ld + (lm % 2) * 8 + kc,
+                                      False)
+                            _mma(frag[0], a, b[:, 0], b[:, 1])
+                            _mma(frag[1], a, b[:, 2], b[:, 3])
+                    yield frag, slab, tile, rg, vg, x_s, row0
+
+
+def _fwd_lora_replay(h, w, xa, bt, labels, plan):
+    """Row 9 replayed: the online (m, s, gold) of each lane over its
+    columns, the quads' xor-shuffle merge, the vg = 1 warps' rows merged
+    into the vg = 0 warps', a partial per (slab, row) and the merge pass
+    in slab order. Returns (lse, gold) [R]."""
+    R, V = h.shape[0], w.shape[0]
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    state = {}
+    for frag, slab, tile, rg, vg, _, row0 in _lora_logits_replay(
+            h, w, xa, bt, plan):
+        key = (slab, row0, rg, vg)
+        m, s, gl = state.setdefault(key, (np.full((2, 32), -1e30),
+                                          np.zeros((2, 32)),
+                                          np.zeros((2, 32))))
+        v0 = tile * 32 + vg * 16
+        for i in range(2):
+            rows = row0 + rg * 16 + g + 8 * i
+            lab = np.where(rows < R, labels[np.minimum(rows, R - 1)], -1)
+            cols = [(v0 + j * 8 + 2 * t + e, frag[j][:, 2 * i + e])
+                    for j in range(2) for e in range(2)]
+            mx = m[i].copy()
+            for v, xv in cols:
+                mx = np.where(v < V, np.maximum(mx, xv), mx)
+                gl[i] += np.where((v < V) & (v == lab), xv, 0.0)
+            se = sum(np.exp(np.where(v < V, xv - mx, -np.inf))
+                     for v, xv in cols)
+            s[i] = s[i] * np.exp(m[i] - mx) + se
+            m[i] = mx
+
+    def merge(m, s, mo, so):
+        mx = np.maximum(m, mo)
+        return mx, s * np.exp(m - mx) + so * np.exp(mo - mx)
+
+    part = np.zeros((plan["n_slabs"], R, 3))
+    written = np.zeros((plan["n_slabs"], R), dtype=np.int64)
+    for (slab, row0, rg, vg), (m, s, gl) in state.items():
+        for off in (1, 2):                 # the quads' xor shuffles
+            mo, so, go = m[:, lane ^ off], s[:, lane ^ off], gl[:, lane ^ off]
+            m, s = merge(m, s, mo, so)
+            gl = gl + go
+        state[(slab, row0, rg, vg)] = (m, s, gl)
+    for (slab, row0, rg, vg), (m, s, gl) in state.items():
+        if vg:
+            continue
+        mo, so, go = state[(slab, row0, rg, 1)]
+        for i in range(2):
+            for ln in range(0, 32, 4):     # t == 0 lanes
+                r = row0 + rg * 16 + ln // 4 + 8 * i
+                if r < R:
+                    mm, ss = merge(m[i, ln], s[i, ln], mo[i, ln], so[i, ln])
+                    part[slab, r] = (mm, ss, gl[i, ln] + go[i, ln])
+                    written[slab, r] += 1
+    assert (written == 1).all()
+    mx = part[:, :, 0].max(0)
+    return mx + np.log((part[:, :, 1] * np.exp(part[:, :, 0] - mx)).sum(0)), \
+        part[:, :, 2].sum(0)
+
+
+def _dbt_replay(h, w, xa, bt, labels, lse, dlse, dgold, plan):
+    """Row 11's dbt-only kernel replayed: coef on the C fragments (f32
+    rounding, the storage dtype of an f32 case), written to the coef tile
+    [RT, GT x 32 + 8] from the fragment map, GT = 4 W tiles a group; at a
+    group's end (or the slab's) its (16-column m-tile, rank pair) items
+    dealt to the warps in turn, coef^T read back by ldmatrix.trans and
+    multiplied with xa's staged rows (ldmatrix.trans); each row tile's
+    [V, r] partial written once an element, summed over row tiles in
+    order. Returns dbt [V, r]."""
+    R, V = h.shape[0], w.shape[0]
+    rk = bt.shape[1]
+    RG = plan["row_groups"]
+    RT, W = 16 * RG, 2 * RG
+    R16 = -(-rk // 16) * 16
+    GT = 4
+    LDR, LDC = R16 + 8, GT * 32 + 8
+    n_vt = -(-V // 32)
+    lane = np.arange(32)
+    g, t, lr, lm = lane >> 2, lane & 3, lane % 8, lane // 8
+    part = np.zeros((plan["row_tiles"], V, rk))
+    hits = np.zeros((plan["row_tiles"], V, rk), dtype=np.int64)
+    c_s = {}                               # each CTA's coef tile
+
+    def product(gi, tile, x_s, c_s, row0):
+        n_m, gv0 = (gi + 1) * 2, (tile - gi) * 32
+        ct = (lr + (lm // 2) * 8) * LDC + (lm % 2) * 8
+        xt = (lr + (lm % 2) * 8) * LDR + (lm // 2) * 8
+        for warp in range(W):
+            for item in range(warp, n_m * (R16 // 16), W):
+                mt, p = item % n_m, item // n_m
+                d = np.zeros((2, 32, 4))
+                for kk in range(RG):
+                    a = _ldsm(c_s, ct + kk * 16 * LDC + mt * 16, True)
+                    b = _ldsm(x_s, xt + kk * 16 * LDR + p * 16, True)
+                    _mma(d[0], a, b[:, 0], b[:, 1])
+                    _mma(d[1], a, b[:, 2], b[:, 3])
+                for e, j in itertools.product(range(4), range(2)):
+                    v = gv0 + mt * 16 + g + 8 * (e >> 1)
+                    col = p * 16 + j * 8 + 2 * t + (e & 1)
+                    ok = (v < V) & (col < rk)
+                    part[row0 // RT, v[ok], col[ok]] = d[j][ok, e]
+                    hits[row0 // RT, v[ok], col[ok]] += 1
+
+    n_warps = 0
+    for frag, slab, tile, rg, vg, x_s, row0 in _lora_logits_replay(
+            h, w, xa, bt, plan):
+        t0 = slab * plan["tiles_per_slab"]
+        t_end = min(n_vt, t0 + plan["tiles_per_slab"])
+        gi = (tile - t0) % GT
+        cs = c_s.setdefault((slab, row0), np.zeros(RT * LDC))
+        v0 = tile * 32 + vg * 16
+        for i in range(4):
+            j, rr = i >> 1, i & 1
+            rows = row0 + rg * 16 + g + 8 * rr
+            ok_r = rows < R
+            rc = np.minimum(rows, R - 1)
+            for e in range(2):
+                v = v0 + j * 8 + 2 * t + e
+                c = dlse[rc] * np.exp(frag[j][:, rr * 2 + e] - lse[rc]) \
+                    + np.where(v == labels[rc], dgold[rc], 0.0)
+                c = np.where(ok_r & (v < V), c, 0.0).astype(np.float32)
+                cs[(rg * 16 + g + 8 * rr) * LDC + gi * 32 + vg * 16 + j * 8
+                   + 2 * t + e] = c
+        n_warps += 1
+        if n_warps % W == 0 and (gi == GT - 1 or tile + 1 == t_end):
+            product(gi, tile, x_s, cs, row0)   # after the group's sync
+    assert (hits == 1).all()
+    out = np.zeros((V, rk))
+    for k in range(plan["row_tiles"]):     # the reduce pass, in order
+        out += part[k]
+    return out
+
+
+def _lora_case(R, V, H, r, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((R, H)).astype(np.float32),
+            (0.3 * rng.standard_normal((V, H))).astype(np.float32),
+            rng.standard_normal((R, r)).astype(np.float32),
+            (0.3 * rng.standard_normal((V, r))).astype(np.float32),
+            rng.integers(0, V, R), rng.standard_normal(R),
+            rng.standard_normal(R))
+
+
+@pytest.mark.parametrize("R,V,H,r,row_groups", [
+    (37, 301, 40, 3, None),      # ragged R, V and H, r < 16, one row tile
+    (37, 301, 40, 8, None),
+    (37, 301, 40, 8, 2),         # two 32-row tiles
+    (20, 70, 16, 16, 2),         # r16 = 16 exactly
+    (37, 130, 24, 20, 2),        # two rank k-steps, a ragged pair
+])
+def test_lora_fragment_maps_replay_the_plain_versions(R, V, H, r,
+                                                      row_groups):
+    """Rows 9 and 11's fragment maps, replayed with ldmatrix and mma.sync
+    emulated in numpy (f64; the plain versions in f32: 1e-5): the rank
+    k-steps over r16 with the columns past r zero give the plain
+    version's (lse, gold); coef through the coef tile, ldmatrix.trans
+    and the per-row-tile partials summed in order give its dbt
+    (fused_ce_dw_lora_reference, want_dw=False)."""
+    h, w, xa, bt, lab, dlse, dgold = _lora_case(R, V, H, r, R + V + r)
+    T = {n: torch.as_tensor(a) for n, a in zip(
+        ("h", "w", "xa", "bt", "lab"), (h, w, xa, bt, lab))}
+    plans = {}
+    for name, plan_fn in LORA_PLANS.items():
+        plan = plan_fn(R, V, H, r, N_SM)
+        if row_groups:                     # the kernel's other tile
+            rt = 16 * row_groups
+            plan = fc._slab_plan(dict(plan, row_groups=row_groups,
+                                      row_tiles=-(-R // rt)),
+                                 -(-R // rt), V, N_SM)
+        plans[name] = plan
+    lse, gold = _fwd_lora_replay(h, w, xa, bt, lab,
+                                 plans["fused_ce_fwd_lora_mma.cu"])
+    rl, rg = fc.fused_ce_fwd_lora_reference(T["h"], T["w"], T["xa"],
+                                            T["bt"], T["lab"])
+    np.testing.assert_allclose(lse, rl.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gold, rg.numpy(), rtol=1e-5, atol=1e-5)
+    lse64 = rl.numpy().astype(np.float64)
+    got = _dbt_replay(h, w, xa, bt, lab, lse64, dlse, dgold,
+                      plans["fused_ce_dbt_mma.cu"])
+    no_dw, want = fc.fused_ce_dw_lora_reference(
+        T["h"], T["w"], T["xa"], T["bt"], T["lab"], rl,
+        torch.as_tensor(dlse, dtype=torch.float32),
+        torch.as_tensor(dgold, dtype=torch.float32), want_dw=False)
+    assert no_dw is None
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
