@@ -17,7 +17,11 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      and the split flash backward (the merged one in bf16 / f16 on the
      tensor-core kernel, f32 on the FMA kernel; bf16 D 256 with GQA, a
      ragged S, a padded tail, a window inside a key block and dropout
-     0.1), the LoRA epilogue, the paged decode,
+     0.1), the LoRA epilogue (bf16 / f16 on the vector kernel, which folds
+     the scale read from the device into xa: its xs bit for bit the
+     composition's, two calls bit-identical; f32 on the first version; at
+     the training sites, generate's decode shapes and the head adapter's
+     lm_head), the paged decode,
      the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
      bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
      bit-identical), a head dim and a bf16 H the kernels do not take
@@ -27,7 +31,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the contiguous decode
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
-     D 32, masked columns poisoned); then GPT-2 small through
+     D 32, masked columns poisoned; bf16 / f16 on the tensor-core
+     flash-decoding kernel, whose masked columns holding Inf and NaN must
+     change nothing and whose two calls must be bit-identical, f32 on the
+     first version); then GPT-2 small through
      the kernels against the plain path in f32: prefill and one paged
      decode step, and a LoRA train step (loss and LoRA grads); then
      Gemma-3-270M the same way in f32: hidden states and the chunked loss
@@ -97,7 +104,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      with the host queued ahead of the card, "call_ms" the time a call
      takes between CUDA events, host overhead included; then the merged
      backward against the split pair at a few longer and wider shapes
-     (`bwd_sweep`, the measurements behind resolve_bwd_impl).
+     (`bwd_sweep`, the measurements behind resolve_bwd_impl). The
+     epilogue's entries at each timed shape give the launches the main
+     paths' runs made at that shape (the wrapper's `by_shape`, which must
+     add up to the paths' launches of the kernel).
 
 Prints `serve`, `train`, `gemma_train`, `gemma_full_ft`,
 `gemma_lora_head`, `eval_ppl`, `generate`, `profile`, `bwd_sweep` and
@@ -109,6 +119,7 @@ beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -133,6 +144,7 @@ GEMMA = dict(steps=20, batch=4, seq=256, rank=8, alpha=32.0, chunks=8,
 GEMMA_LAYERS = 18
 GEMMA_SITES = 7          # LoRA sites a Gemma layer (targets "full")
 # the generate paths (phase 8): prompts (tokens) and new tokens a run
+EPI_SCALE = 0.37         # the LoRA scale of the epilogue checks (not 2^k)
 GEN = dict(gpt2_batch=8, gpt2_min=8, gpt2_max=128, new=64, tf_new=16,
            gemma_words=(600, 590, 575, 560), chunk=256, window=512)
 
@@ -330,6 +342,25 @@ def timed(fns: dict, iters: int = 200):
             for key, fn in fns.items()}
 
 
+# the LoRA epilogue's launches by (dtype, N, d_out), summed over the main
+# paths' runs: each run counts from zero_counts to read_counts
+EPI_BY_SHAPE = collections.Counter()
+
+
+def zero_counts(kernels: dict) -> None:
+    """Every kernel's launch count set to 0, just before a path's run."""
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["lora_epilogue"].by_shape.clear()
+
+
+def read_counts(kernels: dict) -> dict:
+    """{kernel: launches} since zero_counts, just after a path's run; the
+    epilogue's launches by shape go into EPI_BY_SHAPE."""
+    EPI_BY_SHAPE.update(kernels["lora_epilogue"].by_shape)
+    return {k: fn.launches for k, fn in kernels.items()}
+
+
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
                  extra=None):
     """One entry of the kernels line from timed() results."""
@@ -517,29 +548,45 @@ def check_flash_bwd(torch, fa, dev):
 
 
 def check_epilogue(torch, lf, dev):
-    """The LoRA epilogue kernel against its plain version at the training
-    sites (N = 8 x 128 rows, r = 8) and a ragged shape."""
+    """The LoRA epilogue kernels against their plain version, the scale
+    on the device: the training sites (N = 8 x 128 rows, r = 8), a ragged
+    f32 shape, rank 128 with 8-byte vectors, and generate's decode shapes
+    (GPT-2's attn_qkv at 8 rows, Gemma's gate_proj at 4 and the head
+    adapter's lm_head, 4 x 262,144). bf16 / f16 run lora_epilogue_vec.cu:
+    its xs must be round(f32(xa) * scale) bit for bit and two calls
+    bit-identical. Returns {site: (max error, inputs)} of the timed
+    sites."""
     cases = [  # (name, dtype, N, d_out, r, tol)
         ("attn_qkv", torch.bfloat16, 1024, 2304, 8, 1e-2),
         ("attn_proj", torch.bfloat16, 1024, 768, 8, 1e-2),
         ("ragged_f32", torch.float32, 1000, 770, 8, 1e-5),
         ("rank128_f16", torch.float16, 37, 300, 128, 1e-2),
+        ("decode_attn_qkv", torch.bfloat16, 8, 2304, 8, 1e-2),
+        ("decode_gate_proj", torch.bfloat16, 4, 2048, 8, 1e-2),
+        ("decode_lm_head", torch.bfloat16, 4, 262144, 8, 1e-2),
     ]
     sites = {}
     for name, dt, N, d_out, r, tol in cases:
         g = torch.Generator().manual_seed(N + d_out)
         y, xa, b = (torch.randn(s, generator=g).to(dev, dt)
                     for s in ((N, d_out), (N, r), (r, d_out)))
-        out = lf.lora_epilogue(y, xa, b)
-        ref = lf.lora_epilogue_reference(y, xa, b)
+        scale = torch.tensor(EPI_SCALE, device=dev)
+        out, xs = lf.lora_epilogue(y, xa, b, scale)
+        again, _ = lf.lora_epilogue(y, xa, b, scale)
+        ref = lf.lora_epilogue_reference(y, xa, b, scale)
         torch.cuda.synchronize()
         e = max_err(out, ref)
-        print(f"lora epilogue {name}: {dt} N={N} d_out={d_out} r={r}: max "
-              f"|err| {e:.3e} (tolerance {tol:g})")
+        print(f"lora epilogue {name}: {dt} N={N} d_out={d_out} r={r} "
+              f"({lf.epilogue_library(dt)[0]}.cu): max |err| {e:.3e} "
+              f"(tolerance {tol:g})")
         check(bool(torch.isfinite(out).all()) and e <= tol,
               f"lora epilogue {name} disagrees with its plain version")
-        if name in ("attn_qkv", "attn_proj"):
-            sites[name] = (e, (y, xa, b))
+        check(torch.equal(xs, (xa.float() * scale).to(dt)),
+              f"lora epilogue {name}: xs is not round(f32(xa) * scale)")
+        check(torch.equal(out, again),
+              f"lora epilogue {name}: two calls differ")
+        if dt == torch.bfloat16:
+            sites[name] = (e, (y, xa, b, scale))
     return sites
 
 
@@ -595,9 +642,11 @@ def check_decode(torch, da, dev):
     """Row 13 against xla_reference at the microbenchmark shapes (B 8,
     T 192), a ragged T, the Gemma generate path's last step (T = P + N,
     the 512 window in ok) in bf16 and f32, and f16 at D 32, every masked
-    column poisoned; the launch counter must count each call. Returns
-    {name: (max error, inputs)} of the GPT-2 bench and the Gemma path
-    cases."""
+    column poisoned (+-1e6); on the 16-bit tensor-core kernel the masked
+    columns again holding Inf in K and NaN in V must leave ctx bit for
+    bit as it was, and two calls must be bit-identical; the launch
+    counter must count each call. Returns {name: (max error, inputs)} of
+    the GPT-2 bench and the Gemma path cases."""
     T_gemma = max(GEN["gemma_words"]) + 1 + GEN["new"]   # BOS + words + N
     pads = [max(GEN["gemma_words"]) - n for n in GEN["gemma_words"]]
     cases = [  # (name, dtype, B, KV, G, T, D, n_pad, window, tol)
@@ -615,6 +664,7 @@ def check_decode(torch, da, dev):
     ]
     out = {}
     n0 = da.decode_attention.launches
+    calls = 0
     for name, dt, B, KV, G, T, D, n_pad, window, tol in cases:
         q, kc, vc, ok = decode_inputs(torch, dev, dt, B, KV, G, T, D,
                                       seed=T + D, n_pad=n_pad,
@@ -622,16 +672,31 @@ def check_decode(torch, da, dev):
         scale = D ** -0.5
         ctx = da.decode_attention(q, kc, vc, ok, scale)
         ref = da.xla_reference(q, kc, vc, ok, scale)
+        calls += 1
         torch.cuda.synchronize()
         e = max_err(ctx, ref)
+        lib = da.decode_library(dt)[0]
         print(f"decode {name}: {dt} B={B} KV={KV} G={G} T={T} D={D} "
-              f"window={window}: max |ctx err| {e:.3e} (tolerance {tol:g})")
+              f"window={window} ({lib}.cu): max |ctx err| {e:.3e} "
+              f"(tolerance {tol:g})")
         check(bool(torch.isfinite(ctx).all()), f"decode {name} non-finite")
         check(e <= tol, f"decode {name} disagrees with its plain version")
+        if lib == "decode_attention_mma":
+            masked = ~ok[:, None, :, None]
+            kp = kc.masked_fill(masked, float("inf"))
+            vp = vc.masked_fill(masked, float("nan"))
+            poisoned = da.decode_attention(q, kp, vp, ok, scale)
+            again = da.decode_attention(q, kc, vc, ok, scale)
+            calls += 2
+            torch.cuda.synchronize()
+            check(torch.equal(poisoned, ctx), f"decode {name}: masked "
+                  f"columns holding Inf / NaN moved ctx")
+            check(torch.equal(again, ctx), f"decode {name}: two calls "
+                  f"differ")
         out[name] = (e, (q, kc, vc, ok, scale))
-    check(da.decode_attention.launches == n0 + len(cases),
+    check(da.decode_attention.launches == n0 + calls,
           f"decode launches {da.decode_attention.launches - n0}, expected "
-          f"{len(cases)}")
+          f"{calls}")
     return out
 
 
@@ -1155,14 +1220,13 @@ def train(torch, dev, work, kernels):
             "--lora_out", adapter,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
             "--eval_out", os.path.join(out, "eval.jsonl")]
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = read_counts(kernels)
     check(rc == 0, f"gpt2_lora_finetune.main returned {rc}")
 
     rows = read_csv(os.path.join(out, "metrics.csv"))
@@ -1364,14 +1428,13 @@ def gemma_train(torch, dev, work, kernels):
             "--output_dir", out,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
             "--eval_out", os.path.join(out, "eval.jsonl")]
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = read_counts(kernels)
     check(rc == 0, f"train_lora_gemma.main returned {rc}")
     stats, evals = run_stats(out, G["steps"], base, check_learns=True)
     M, E = G["steps"], len(evals) * eval_nb
@@ -1474,14 +1537,13 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
             "--output_path", model,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
             "--eval_out", os.path.join(out, "eval.jsonl")]
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = read_counts(kernels)
     check(rc == 0, f"gemma_full_finetune.main returned {rc}")
     stats, evals = run_stats(out, G["full_steps"], base, check_learns=False)
     M, E = G["full_steps"], len(evals) * eval_nb
@@ -1524,14 +1586,13 @@ def gemma_lora_head(torch, dev, work, kernels, gemma):
             "--output_dir", out,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
             "--eval_out", os.path.join(out, "eval.jsonl")]
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = read_counts(kernels)
     check(rc == 0, f"train_lora_gemma.main (lm_head) returned {rc}")
     stats, evals = run_stats(out, G["steps"], base, check_learns=True)
     M, E = G["steps"], len(evals) * eval_nb
@@ -1596,14 +1657,13 @@ def eval_ppl_phase(torch, kernels, gemma, head, gpt2):
     argvs["gpt2_merged"] = argvs["gpt2_dynamic"] + ["--lora_merge"]
     wall = {}
     for name, argv in argvs.items():
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runs[name] = run_eval_ppl(argv + ["--log_every", "0"])
         torch.cuda.synchronize()
         wall[name] = time.perf_counter() - t0
-        launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        launches[name] = read_counts(kernels)
     g = runs["gemma_head"]
     n_b = eval_nb
     want = {k: 0 for k in kernels}
@@ -1754,14 +1814,13 @@ def generate_phase(torch, dev, kernels, gpt2, gemma):
         for p in prompts[fam][0]:
             argv += ["--prompt", p]
         stats = {}
-        for fn in kernels.values():
-            fn.launches = 0
+        zero_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         records = run_generate(argv, stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: fn.launches for k, fn in kernels.items()}
+        got = read_counts(kernels)
         P = max(prompts[fam][1])
         chunked = "--prefill_chunk" in extra
         windows = -(-P // GEN["chunk"]) if chunked else 0
@@ -1944,6 +2003,24 @@ def bwd_sweep(torch, fa, dev):
     return rows
 
 
+def epi_fns(torch, lf, y, xa, b, scale):
+    """The epilogue kernel, its plain version and torch.addmm (alpha the
+    scale: the same function up to where it rounds) on one site's
+    inputs, for timed()."""
+    return {"ms": lambda: lf.lora_epilogue(y, xa, b, scale),
+            "plain_ms": lambda: lf.lora_epilogue_reference(y, xa, b, scale),
+            "library_ms": lambda: torch.addmm(y, xa, b, alpha=EPI_SCALE)}
+
+
+def epi_bound(y, xa, b):
+    """Read y, xa, B and the scale once, write out once; 2 N r d_out
+    flops."""
+    N, d_out = y.shape
+    r = xa.shape[1]
+    return bound((2 * y.numel() + xa.numel() + b.numel()) * y.element_size()
+                 + 4, 2 * N * r * d_out)
+
+
 def gemma_kernel_entries(torch, fa, lf, dev):
     """The flash forward, the merged backward and the LoRA epilogue at the
     Gemma LoRA step's shapes (batch 4 x 256, 4 q-heads over 1 kv-head,
@@ -1989,8 +2066,9 @@ def gemma_kernel_entries(torch, fa, lf, dev):
     g = torch.Generator(device=dev).manual_seed(13)
     y, xa, bm = (torch.randn(sh, generator=g, device=dev).to(bf)
                  for sh in ((B * S, 2048), (B * S, 8), (8, 2048)))
-    epi = lf.lora_epilogue(y, xa, bm)
-    epi_err = max_err(epi, lf.lora_epilogue_reference(y, xa, bm))
+    es = torch.tensor(EPI_SCALE, device=dev)
+    epi, _ = lf.lora_epilogue(y, xa, bm, es)
+    epi_err = max_err(epi, lf.lora_epilogue_reference(y, xa, bm, es))
     print(f"gemma shapes, bf16: flash fwd max |out err| {fwd_err:.3e} "
           f"(tolerance 1e-2), max |lse err| {lse_err:.3e} (1e-4); merged "
           f"bwd max err / max(1, |ref|) {bwd_rel:.3e} (2e-2); epilogue "
@@ -2003,10 +2081,7 @@ def gemma_kernel_entries(torch, fa, lf, dev):
           "its plain version")
     check(epi_err <= 1e-2, "LoRA epilogue at the Gemma shape disagrees "
           "with its plain version")
-    epi_times = timed({
-        "ms": lambda: lf.lora_epilogue(y, xa, bm),
-        "plain_ms": lambda: lf.lora_epilogue_reference(y, xa, bm),
-        "library_ms": lambda: torch.addmm(y, xa, bm)})
+    epi_times = timed(epi_fns(torch, lf, y, xa, bm, es))
     shape = (f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, bf16, causal, "
              f"window {window} (gemma)")
     return {
@@ -2021,10 +2096,9 @@ def gemma_kernel_entries(torch, fa, lf, dev):
             bound((3 * n_q + 4 * n_kv) * isz + pad.numel() * 4
                   + 2 * B * Hq * S * 4, 10 * D * pairs), {"shape": shape}),
         "lora_epilogue": kernel_entry(
-            "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78", None,
-            epi_err, epi_times,
-            bound((2 * y.numel() + xa.numel() + bm.numel()) * isz,
-                  2 * B * S * 8 * 2048),
+            "lora_epilogue", "lora_epilogue_vec.cu", "lora_fused.py:78",
+            EPI_BY_SHAPE[(bf, *y.shape)], epi_err, epi_times,
+            epi_bound(y, xa, bm),
             {"shape": "gate_proj: y 1024x2048, r 8, bf16 (gemma)"})}
 
 
@@ -2053,11 +2127,16 @@ def decode_entry(torch, da, case):
     isz = kc.element_size()
     bnd = bound(2 * live * D * isz + q.numel() * isz + ok.numel()
                 + q.numel() * 4, 4 * D * G * live)
+    plan = da.decode_mma_plan(B, KV, G, T, D, q.dtype,
+                              torch.cuda.get_device_properties(q.device)
+                              .multi_processor_count)
     return kernel_entry(
-        "decode_attention", "decode_attention.cu", "decode_attention.py:137",
-        None, err, times, bnd,
+        "decode_attention", "decode_attention_mma.cu",
+        "decode_attention.py:137", None, err, times, bnd,
         {"shape": f"q {B}x{KV}x{G}x{D}, cache T {T}, {q.dtype}, "
                   f"{int(ok.sum())} of {B * T} columns attendable",
+         "plan": {k: plan[k] for k in ("n_chunks", "tiles_per_chunk",
+                                       "grid")},
          "library_max_abs_err": max_err(
              lib.reshape(B, KV, G, D),
              da.xla_reference(q, kc, vc, ok, scale)),
@@ -2318,18 +2397,14 @@ def main() -> int:
         "plain_ms": lambda: fa.flash_bwd_split_reference(*bargs, **kw),
         "library_ms": lib_bwd})
 
-    epi_times, epi_bounds = {}, {}
-    for site, (_, (y, xa, b)) in epi.items():
-        N, d_out = y.shape
-        r = xa.shape[1]
-        epi_times[site] = timed({
-            "ms": lambda y=y, xa=xa, b=b: lf.lora_epilogue(y, xa, b),
-            "plain_ms": lambda y=y, xa=xa, b=b: lf.lora_epilogue_reference(
-                y, xa, b),
-            "library_ms": lambda y=y, xa=xa, b=b: torch.addmm(y, xa, b)})
-        epi_bounds[site] = bound(
-            (2 * y.numel() + xa.numel() + b.numel()) * y.element_size(),
-            2 * N * r * d_out)
+    epi_entries = {}   # launches: the main paths' runs at that shape
+    for site, (err, (y, xa, b, es)) in epi.items():
+        epi_entries[site] = kernel_entry(
+            "lora_epilogue", "lora_epilogue_vec.cu", "lora_fused.py:78",
+            EPI_BY_SHAPE[(y.dtype, *y.shape)], err,
+            timed(epi_fns(torch, lf, y, xa, b, es)), epi_bound(y, xa, b),
+            {"shape": f"y {y.shape[0]}x{y.shape[1]}, r {xa.shape[1]}, "
+                      f"bf16"})
 
     pq, pk, pv, tbl, layer, ok, scale = paged_args
     Sl, KV, G, Dp = pq.shape
@@ -2365,6 +2440,10 @@ def main() -> int:
     def total(name):
         return sum(by_path(name).values())
 
+    check(sum(EPI_BY_SHAPE.values()) == total("lora_epilogue"),
+          f"epilogue launches by shape {sum(EPI_BY_SHAPE.values())} != "
+          f"{total('lora_epilogue')}")
+
     kernels_line = [
         kernel_entry(
             "flash_attention_fwd", "flash_attention_fwd_mma.cu",
@@ -2396,18 +2475,15 @@ def main() -> int:
             "flash_attention.py:362", total("bwd_dkv"), bwd["dkv"],
             dkv_times, bound(bwd_in + 2 * n_qkv * isz, 8 * D * pairs),
             {"launches_by_path": by_path("bwd_dkv")}),
-        kernel_entry(
-            "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
-            total("lora_epilogue"), epi["attn_qkv"][0],
-            epi_times["attn_qkv"], epi_bounds["attn_qkv"],
-            {"launches_by_path": by_path("lora_epilogue"),
-             "shape": "attn_qkv: y 1024x2304, r 8, bf16",
-             "gemma": gemma_entries["lora_epilogue"],
-             "attn_proj": kernel_entry(
-                 "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
-                 total("lora_epilogue"), epi["attn_proj"][0],
-                 epi_times["attn_proj"], epi_bounds["attn_proj"],
-                 {"shape": "y 1024x768, r 8, bf16"})}),
+        dict(epi_entries["attn_qkv"], launches=total("lora_epilogue"),
+             launches_by_path=by_path("lora_epilogue"),
+             shape="attn_qkv: y 1024x2304, r 8, bf16",
+             ptxas=ptxas["lora_epilogue_vec"],
+             f32="lora_epilogue.cu (first version, f32 launches)",
+             gemma=gemma_entries["lora_epilogue"],
+             attn_proj=epi_entries["attn_proj"],
+             decode={site: epi_entries[site] for site in (
+                 "decode_attn_qkv", "decode_gate_proj", "decode_lm_head")}),
         kernel_entry(
             "paged_decode_attention", "paged_decode_attention.cu",
             "decode_attention.py:223", total("paged"), paged_err,
@@ -2416,6 +2492,8 @@ def main() -> int:
                                             "reads a block table"}),
         dict(dec_entries["gpt2_bench"], launches=total("decode"),
              launches_by_path=by_path("decode"),
+             ptxas=ptxas["decode_attention_mma"],
+             f32="decode_attention.cu (first version, f32 launches)",
              gemma=dec_entries["gemma_path"]),
     ]
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"

@@ -1,8 +1,10 @@
-"""Time variants of the head-adapter fused CE kernels against the sources.
+"""Time variants of the port's kernels against the sources.
 
     python3 kernel_variants.py [--fwd NAME=PATH.cu ...]
                                [--dbt NAME=PATH.cu ...] [--profile]
                                [--iters N]
+    python3 kernel_variants.py --rows5_13 [--epi NAME=PATH.cu ...]
+                               [--decode NAME=PATH.cu ...]
 
 Card only. Builds each variant source by hand (nvcc with the port's flags
 and the csrc headers, into build/variants/) beside the repo's own
@@ -22,6 +24,19 @@ call with the host queued ahead, source and variants called in turns
 device time of the two sources at the Gemma chunk. Each build's ptxas
 registers and spills are printed too. The last line is one JSON object
 of the times and errors.
+
+With --rows5_13 it times rows 5 and 13 instead (bf16, chip_smoke.py's
+inputs): `csrc/lora_epilogue_vec.cu` at the training sites, generate's
+decode shapes and the head adapter's lm_head with one row a thread and
+with four (a runtime argument of the source), beside torch.addmm and the
+`--epi` variants; `csrc/decode_attention_mma.cu` at GPT-2's and Gemma's
+generate shapes, at its plan's chunk split and at 1, 2 and 3 tiles a
+chunk, beside SDPA and the `--decode` variants. A variant exports the
+source's C entry, or the first version's (`mft_lora_epilogue`, which
+takes xa already scaled: it is timed with and without the three
+elementwise passes that fold the scale; `mft_decode_attention`). Each
+variant's output is held against the source's (bit for bit for the
+epilogue, within 2e-2 for the decode), and times are taken in turns.
 """
 
 from __future__ import annotations
@@ -36,6 +51,195 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = {"gemma_chunk": (128, 262144, 640, 8), "rank128": (128, 50257, 640,
                                                             128)}
+
+
+def build_variants(build, variants, out_dir, sources):
+    """Build each (kind, name, path) variant by hand, all at once, beside
+    the named sources (ptxas -v); print every build's registers and
+    spills. Returns {name: (kind, CDLL)}."""
+    procs = {}
+    for kind, name, path in variants:
+        so = os.path.join(out_dir, f"lib{kind}_{name}.so")
+        procs[name] = (kind, so, subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             build.CSRC_DIR, "-o", so, path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    built = build.build_all(sources, verbose=True)
+    logs = {name: log for name, (_, log) in built.items()}
+    libs = {}
+    for name, (kind, so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        logs[name] = log
+        libs[name] = (kind, ctypes.CDLL(so))
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Used" in line and "registers" in line or \
+                    "spill" in line and " 0 bytes spill stores" not in line:
+                print(f"  {name}: {line.strip()}")
+    return libs
+
+
+def in_turns(fns, queued):
+    """{name: [us, us]}: each fn timed in the order given, then in the
+    reverse order."""
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        times[k].append(round(queued(fns[k]), 2))
+    return times
+
+
+def rows_5_13(args, torch, build, out_dir) -> int:
+    """Rows 5 and 13: the sources at their runtime alternatives, beside
+    the library call and the --epi / --decode variants (module
+    docstring)."""
+    import chip_smoke as cs
+    from mobilefinetuner_tpu_torch.ops import decode_attention as da
+    from mobilefinetuner_tpu_torch.ops import lora_fused as lf
+    variants = [(kind, f"{kind}_{name}", path)
+                for kind, specs in (("epi", args.epi),
+                                    ("decode", args.decode))
+                for name, path in (v.split("=", 1) for v in specs)]
+    libs = build_variants(build, variants, out_dir,
+                          ["lora_epilogue_vec", "decode_attention_mma"])
+    dev = torch.device("cuda", 0)
+    torch.cuda._sleep(int(2e9))          # the card's clocks up
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def queued(fn):
+        return cs.queued_ms(fn, args.iters) * 1e3
+
+    def entry(lib, sym, n_ptrs, n_ints):
+        fn = getattr(lib, sym)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+
+    src = build.load("lora_epilogue_vec").mft_lora_epilogue_vec
+    result = {"epilogue": {}, "decode": {}}
+    for site, N, d_out in (("attn_qkv", 1024, 2304), ("attn_proj", 1024, 768),
+                           ("gate_proj", 1024, 2048), ("k_proj", 1024, 256),
+                           ("decode_attn_qkv", 8, 2304),
+                           ("decode_gate_proj", 4, 2048),
+                           ("decode_lm_head", 4, 262144)):
+        g = torch.Generator().manual_seed(N + d_out)
+        y, xa, b = (torch.randn(s, generator=g).to(dev, torch.bfloat16)
+                    for s in ((N, d_out), (N, 8), (8, d_out)))
+        scale = torch.tensor(cs.EPI_SCALE, device=dev)
+        want, _ = lf.lora_epilogue(y, xa, b, scale)
+        out, xs_out = torch.empty_like(y), torch.empty_like(xa)
+
+        def run(fn, rows):
+            def call():
+                build.check_launch("epilogue", fn(
+                    y.data_ptr(), xa.data_ptr(), b.data_ptr(),
+                    scale.data_ptr(), out.data_ptr(), xs_out.data_ptr(), N,
+                    d_out, 8, 8, rows, 1, stream))
+                return out
+            return call
+        fns = {"source": lambda: lf.lora_epilogue(y, xa, b, scale)[0],
+               "rows1": run(src, 1)}
+        if N > 4:
+            fns["rows4"] = run(src, 4)
+        for name, (kind, lib) in libs.items():
+            if kind != "epi":
+                continue
+            if hasattr(lib, "mft_lora_epilogue_vec"):
+                fns[name] = run(entry(lib, "mft_lora_epilogue_vec", 6, 6), 1)
+                continue
+            first = entry(lib, "mft_lora_epilogue", 4, 4)
+            xs = (xa.float() * scale).to(torch.bfloat16)
+
+            def first_call(fn=first, fold=False):
+                x = (xa.float() * scale).to(torch.bfloat16) if fold else xs
+                build.check_launch("epilogue", fn(
+                    y.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    N, d_out, 8, 1, stream))
+                return out
+            fns[name] = first_call
+            fns[f"{name}+fold"] = lambda f=first_call: f(fold=True)
+        for name, fn in fns.items():
+            check = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(check, want):
+                raise RuntimeError(f"epilogue {site}: {name} differs from "
+                                   f"the source")
+        fns["addmm"] = lambda: torch.addmm(y, xa, b, alpha=cs.EPI_SCALE)
+        result["epilogue"][site] = in_turns(fns, queued)
+        print(f"epilogue {site} (y {N}x{d_out}, r 8, bf16): device us, in "
+              f"turns: {result['epilogue'][site]}", flush=True)
+
+    src = entry(build.load("decode_attention_mma"),
+                "mft_decode_attention_mma", 6, 8)
+    src.argtypes = src.argtypes[:-1] + [ctypes.c_float, ctypes.c_void_p]
+    T_gemma = max(cs.GEN["gemma_words"]) + 1 + cs.GEN["new"]
+    pads = [max(cs.GEN["gemma_words"]) - n for n in cs.GEN["gemma_words"]]
+    for case, (B, KV, G, T, D, n_pad, window) in {
+            "gpt2_bench": (8, 12, 1, 192, 64,
+                           (0, 17, 40, 64, 90, 100, 120, 3), None),
+            "gemma_path": (4, 1, 4, T_gemma, 256, pads,
+                           cs.GEN["window"])}.items():
+        q, kc, vc, ok = cs.decode_inputs(torch, dev, torch.bfloat16, B, KV,
+                                         G, T, D, seed=T + D, n_pad=n_pad,
+                                         window=window)
+        scale = D ** -0.5
+        want = da.decode_attention(q, kc, vc, ok, scale)
+        plan = da.decode_mma_plan(B, KV, G, T, D, torch.bfloat16)
+        n_tiles = -(-T // 32)
+        ctx = torch.empty_like(want)
+        ptrs = (q, kc, vc, ok, ctx)
+
+        def split(fn, tpc):
+            nc = -(-n_tiles // tpc)
+            ws = torch.empty(nc * B * KV * G * (D + 2), device=dev)
+
+            def call():
+                build.check_launch("decode", fn(
+                    *(t.data_ptr() for t in ptrs), ws.data_ptr(), B, KV, G,
+                    D, T, tpc, nc, 1, scale, stream))
+                return ctx
+            return call
+        fns = {f"source (plan: {plan['n_chunks']} chunks of "
+               f"{plan['tiles_per_chunk']})":
+               lambda: da.decode_attention(q, kc, vc, ok, scale)}
+        for tpc in (1, 2, 3):
+            fns[f"tiles_per_chunk {tpc}"] = split(src, tpc)
+        for name, (kind, lib) in libs.items():
+            if kind != "decode":
+                continue
+            if hasattr(lib, "mft_decode_attention_mma"):
+                fn = entry(lib, "mft_decode_attention_mma", 6, 8)
+                fn.argtypes = fn.argtypes[:-1] + [ctypes.c_float,
+                                                  ctypes.c_void_p]
+                fns[name] = split(fn, plan["tiles_per_chunk"])
+                continue
+            first = entry(lib, "mft_decode_attention", 5, 6)
+            first.argtypes = first.argtypes[:-1] + [ctypes.c_float,
+                                                    ctypes.c_void_p]
+
+            def first_call(fn=first):
+                build.check_launch("decode", fn(
+                    *(t.data_ptr() for t in ptrs), B, KV, G, D, T, 1, scale,
+                    stream))
+                return ctx
+            fns[name] = first_call
+        for name, fn in fns.items():
+            err = cs.max_err(fn(), want)
+            torch.cuda.synchronize()
+            if not err <= 2e-2:
+                raise RuntimeError(f"decode {case}: {name} is {err} from "
+                                   f"the source")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qh, mask = q.reshape(B, KV * G, 1, D), ok[:, None, None, :]
+        fns["sdpa"] = lambda: sdpa(qh, kc, vc, attn_mask=mask, scale=scale,
+                                   enable_gqa=True)
+        result["decode"][case] = in_turns(fns, queued)
+        print(f"decode {case} (q {B}x{KV}x{G}x{D}, T {T}, bf16): device "
+              f"us, in turns: {result['decode'][case]}", flush=True)
+    print(json.dumps({"kernel_variants": result}))
+    return 0
 
 
 def main() -> int:
@@ -53,36 +257,22 @@ def main() -> int:
     ap.add_argument("--dbt", action="append", default=[])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--rows5_13", action="store_true")
+    ap.add_argument("--epi", action="append", default=[])
+    ap.add_argument("--decode", action="append", default=[])
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     out_dir = os.path.join(ROOT, "build", "variants")
     os.makedirs(out_dir, exist_ok=True)
+    if args.rows5_13:
+        return rows_5_13(args, torch, build, out_dir)
     variants = [("fwd", *v.split("=", 1)) for v in args.fwd] + \
         [("dbt", *v.split("=", 1)) for v in args.dbt]
     procs = {}
-    for kind, name, path in variants:
-        so = os.path.join(out_dir, f"lib{kind}_{name}.so")
-        procs[name] = (kind, so, subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-             build.CSRC_DIR, "-o", so, path], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    built = build.build_all(["fused_ce_fwd_lora_mma", "fused_ce_dbt_mma"],
-                            verbose=True)
-    logs = {name: log for name, (_, log) in built.items()}
-    libs = {}
-    for name, (kind, so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {name} failed to build:\n{log}")
-        logs[name] = log
-        libs[name] = (kind, ctypes.CDLL(so))
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line and "registers" in line or \
-                    "spill" in line and " 0 bytes spill stores" not in line:
-                print(f"  {name}: {line.strip()}")
+    libs = build_variants(build, variants, out_dir,
+                          ["fused_ce_fwd_lora_mma", "fused_ce_dbt_mma"])
 
     dev = torch.device("cuda", 0)
 

@@ -37,18 +37,17 @@
 // attendable column gets ctx 0 (the generate path never makes one: the
 // fed token's own column is always attendable).
 //
-// What holds it back today: parallelism. The grid has B * KV * G CTAs:
-// 96 at GPT-2 small's B 8 x 12 heads, 16 at Gemma-3-270M's B 4 x 1 kv
-// head x 4 query heads, on 132 SMs, each CTA walking its T alone; and the
-// G query heads of one kv head each read the same K/V (from L2 after the
-// first). Splitting T across CTAs with a second merge pass (flash-
-// decoding) and one CTA per kv head for all G are the fixes, for a later
-// redesign; scalar f32 FMAs are no limit at 4 G D flops a key.
+// What holds it back: parallelism. The grid has B * KV * G CTAs: 96 at
+// GPT-2 small's B 8 x 12 heads, 16 at Gemma-3-270M's B 4 x 1 kv head x 4
+// query heads, on 132 SMs, each CTA walking its T alone, and the G query
+// heads of one kv head each read the same K/V. bf16 and f16 caches run
+// csrc/decode_attention_mma.cu (flash-decoding on the tensor cores); this
+// source keeps f32.
 //
 // C interface (ctypes): mft_decode_attention returns the CUDA error code
 // of the launch (0 on success). Shapes: q [B, KV, G, D] and the caches
-// [B, KV, T, D] contiguous in one dtype (0 f32, 1 bf16, 2 f16), the caches
-// 16-byte aligned; ok [B, T] bool; ctx [B, KV, G, D] f32.
+// [B, KV, T, D] contiguous in f32 (dtype 0; any other is refused), the
+// caches 16-byte aligned; ok [B, T] bool; ctx [B, KV, G, D] f32.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -255,18 +254,7 @@ extern "C" int mft_decode_attention(const void* q, const void* k_cache,
                                     void* stream) {
   if (B <= 0 || B > 65535 || KV <= 0 || G <= 0 || Tn <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_d<float>(D, q, k_cache, v_cache, ok, ctx, B, KV, G,
-                               Tn, scale, st);
-    case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k_cache, v_cache, ok, ctx, B,
-                                       KV, G, Tn, scale, st);
-    case 2:
-      return dispatch_d<__half>(D, q, k_cache, v_cache, ok, ctx, B, KV, G,
-                                Tn, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;   // 16-bit: _mma.cu
+  return dispatch_d<float>(D, q, k_cache, v_cache, ok, ctx, B, KV, G, Tn,
+                           scale, static_cast<cudaStream_t>(stream));
 }

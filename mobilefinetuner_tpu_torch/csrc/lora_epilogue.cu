@@ -24,9 +24,12 @@
 // 128 lanes and needs N % 8 and d_out % 128; here the ragged row and
 // column edges are masked, so any N and d_out are taken.
 //
+// bf16 and f16 run csrc/lora_epilogue_vec.cu, which folds the scale in
+// and keeps 16-byte vectors in flight; this source keeps f32.
+//
 // C interface (ctypes): mft_lora_epilogue returns the CUDA error code of
-// the launch. y/out [N, d_out], xa [N, r], B [r, d_out], contiguous, one
-// dtype (0 f32, 1 bf16, 2 f16); out may not alias y.
+// the launch. y/out [N, d_out], xa [N, r], B [r, d_out], contiguous, f32
+// (dtype 0; any other is refused); out may not alias y.
 
 #include "flash_attention_common.cuh"
 
@@ -94,15 +97,7 @@ extern "C" int mft_lora_epilogue(const void* y, const void* xa,
                                  int r, int dtype, void* stream) {
   if (N <= 0 || d_out <= 0 || r <= 0 || r > MAX_RANK)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(y, xa, bm, out, N, d_out, r, st);
-    case 1:
-      return launch<__nv_bfloat16>(y, xa, bm, out, N, d_out, r, st);
-    case 2:
-      return launch<__half>(y, xa, bm, out, N, d_out, r, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;   // 16-bit: _vec.cu
+  return launch<float>(y, xa, bm, out, N, d_out, r,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -17,11 +17,17 @@ G = 1 case):
                           scores of the storage-dtype operands, NEG_INF
                           masking, f32 softmax, probabilities cast to the
                           cache dtype, f32 P.V.
-  decode_attention        CUDA tensors launch `csrc/decode_attention.cu`
-                          (or raise ValueError); CPU tensors take
-                          xla_reference. `decode_attention.launches`
-                          counts the kernel launches.
-  decode_eligible         the kernel's own shape rule.
+  decode_attention        CUDA tensors launch the kernel of
+                          decode_library(dtype) (or raise ValueError):
+                          bf16 / f16 `csrc/decode_attention_mma.cu`
+                          (flash-decoding on the tensor cores, with its
+                          merge pass), f32 `csrc/decode_attention.cu`;
+                          CPU tensors take xla_reference.
+                          `decode_attention.launches` counts the calls
+                          that launched a kernel.
+  decode_eligible         the kernels' own shape rule.
+  decode_mma_plan         the tensor-core kernel's split of T into chunks
+                          (from shapes only), its grid and workspace.
 
 Block-paged pool (the serve engine):
   q        [S, KV, G, D]       current-token queries per slot
@@ -56,7 +62,15 @@ NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BLOCK_T = 1024
 DECODE_HEAD_DIMS = (32, 64, 128, 256)
-MAX_BATCH = 65535                    # the contiguous kernel's grid rows
+MAX_BATCH = 65535                    # the contiguous kernels' grid rows
+N_SM = 132                           # an H100 SXM's multiprocessors
+DECODE_MMA_TILE = 32                 # csrc/decode_attention_mma.cu TILE
+DECODE_MMA_QROWS = 16                # its QR: query heads a CTA
+DECODE_MMA_STAGES = 2                # its STAGES
+DECODE_MMA_MAX_CHUNKS = 128          # its MERGE_MAX_CHUNKS
+# CTAs an SM the chunk split aims at: at GPT-2's generate step 6 chunks of
+# one tile took 8.96 us against 9.65 for 3 of two on an H100 (PERF.md)
+DECODE_MMA_CTAS_PER_SM = 4
 
 
 def xla_reference(q, k_cache, v_cache, ok, scale):
@@ -73,17 +87,72 @@ def xla_reference(q, k_cache, v_cache, ok, scale):
 
 def decode_eligible(KV: int, T: int, D: int, itemsize: int,
                     G: int = 1) -> bool:
-    """The kernel takes any T >= 1 (an online softmax over 32-row tiles:
+    """The kernels take any T >= 1 (an online softmax over 32-row tiles:
     no whole-T block to fit), D in DECODE_HEAD_DIMS in f32, bf16 and f16,
-    and any KV, G >= 1."""
+    and any KV, G >= 1 (the tensor-core kernel: KV * ceil(G / 16) up to
+    MAX_BATCH, its grid's second dimension)."""
     return (KV >= 1 and G >= 1 and T >= 1 and D in DECODE_HEAD_DIMS
-            and itemsize in (2, 4))
+            and itemsize in (2, 4)
+            and (itemsize == 4
+                 or KV * -(-G // DECODE_MMA_QROWS) <= MAX_BATCH))
 
 
-def _decode_kernel():
-    fn = build.load("decode_attention").mft_decode_attention
+def decode_library(dtype: torch.dtype):
+    """(source, C symbol) of the contiguous decode kernel for `dtype`:
+    bf16 and f16 the tensor-core flash-decoding kernel, f32 the first
+    version."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "decode_attention_mma", "mft_decode_attention_mma"
+    if dtype == torch.float32:
+        return "decode_attention", "mft_decode_attention"
+    raise ValueError(f"decode_attention kernel takes one dtype of "
+                     f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
+
+
+def decode_mma_plan(B: int, KV: int, G: int, T: int, D: int,
+                    dtype: torch.dtype, n_sm: int = N_SM) -> dict:
+    """The tensor-core kernel's launch, from shapes only (never from the
+    mask, so a CUDA graph can capture it): one CTA per (chunk of
+    `tiles_per_chunk` 32-key tiles, kv head, group of up to 16 query
+    heads, b), grid (n_chunks, KV * n_qg, B). The chunk count aims at
+    DECODE_MMA_CTAS_PER_SM CTAs an SM (a CTA holds 64 or 128 threads):
+    the fewest tiles a chunk that keep the CTAs at least that many n_sm
+    where T has the tiles, and at most DECODE_MMA_MAX_CHUNKS chunks (the
+    merge walks them in order).
+    `ws_floats`: the partials' workspace (m, l and acc [G, D] a chunk),
+    none for one chunk."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"decode_attention tensor-core kernel takes bf16 "
+                         f"or f16, got {dtype}")
+    if D not in DECODE_HEAD_DIMS or min(B, KV, G, T) < 1 or B > MAX_BATCH:
+        raise ValueError(f"decode_attention tensor-core kernel does not "
+                         f"take B={B}, KV={KV}, G={G}, T={T}, D={D}")
+    n_qg = -(-G // DECODE_MMA_QROWS)
+    units = B * KV * n_qg
+    n_tiles = -(-T // DECODE_MMA_TILE)
+    want = min(n_tiles, DECODE_MMA_MAX_CHUNKS,
+               max(1, -(-DECODE_MMA_CTAS_PER_SM * n_sm // units)))
+    tpc = -(-n_tiles // want)
+    n_chunks = -(-n_tiles // tpc)
+    warps = 4 if D >= 64 else 2
+    ld = D // warps + 8
+    elem = torch.finfo(dtype).bits // 8
+    smem = (warps * 2 * DECODE_MMA_STAGES * DECODE_MMA_TILE * ld * elem
+            + 2 * warps * DECODE_MMA_QROWS * (DECODE_MMA_TILE + 8) * 4)
+    return {"tiles_per_chunk": tpc, "n_chunks": n_chunks, "n_qg": n_qg,
+            "grid": (n_chunks, KV * n_qg, B), "warps": warps,
+            "smem_bytes": smem,
+            "ws_floats": n_chunks * B * KV * G * (D + 2)
+            if n_chunks > 1 else 0}
+
+
+def _decode_kernel(dtype):
+    lib, sym = decode_library(dtype)
+    fn = getattr(build.load(lib), sym)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        mma = lib == "decode_attention_mma"
+        fn.argtypes = ([ctypes.c_void_p] * (6 if mma else 5)
+                       + [ctypes.c_int] * (8 if mma else 6)
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -121,14 +190,28 @@ def decode_attention(q, k_cache, v_cache, ok, scale):
             f"T={T}, D={D}, {q.dtype} (see decode_eligible)")
     ts = (q, k_cache, v_cache, ok)
     if not all(t.is_contiguous() for t in ts) \
-            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode_attention takes contiguous operands and "
-                         "16-byte aligned caches")
+            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16 \
+            or q.data_ptr() % 4:
+        raise ValueError("decode_attention takes contiguous operands, "
+                         "16-byte aligned caches and a 4-byte aligned q")
     ctx = torch.empty(B, KV, G, D, device=dev, dtype=torch.float32)
-    code = _decode_kernel()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ok.data_ptr(),
-        ctx.data_ptr(), B, KV, G, D, T, DTYPE_CODES[q.dtype], float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            ok.data_ptr(), ctx.data_ptr())
+    if decode_library(q.dtype)[0] == "decode_attention_mma":
+        plan = decode_mma_plan(B, KV, G, T, D, q.dtype,
+                               torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+        ws = (torch.empty(plan["ws_floats"], device=dev)
+              if plan["ws_floats"] else None)
+        code = _decode_kernel(q.dtype)(
+            *ptrs, None if ws is None else ws.data_ptr(), B, KV, G, D, T,
+            plan["tiles_per_chunk"], plan["n_chunks"],
+            DTYPE_CODES[q.dtype], float(scale), stream)
+    else:
+        code = _decode_kernel(q.dtype)(*ptrs, B, KV, G, D, T,
+                                       DTYPE_CODES[q.dtype], float(scale),
+                                       stream)
     build.check_launch("decode_attention", code)
     decode_attention.launches += 1
     return ctx

@@ -441,12 +441,96 @@ def test_lora_epilogue_kernel_matches_plain(dev, dtype, N, d_out, r, tol):
     y = _randn(dev, dtype, N, d_out, seed=31)
     xa = _randn(dev, dtype, N, r, seed=32)
     b = _randn(dev, dtype, r, d_out, seed=33)
+    one = torch.tensor(1.0, device=dev)
     n0 = lf.lora_epilogue.launches
-    out = lf.lora_epilogue(y, xa, b)
+    m0 = lf.lora_epilogue.by_shape[(dtype, N, d_out)]
+    out, _ = lf.lora_epilogue(y, xa, b, one)
     assert lf.lora_epilogue.launches == n0 + 1
-    ref = lf.lora_epilogue_reference(y, xa, b)
+    assert lf.lora_epilogue.by_shape[(dtype, N, d_out)] == m0 + 1
+    ref = lf.lora_epilogue_reference(y, xa, b, one)
     torch.cuda.synchronize()
     assert out.dtype == dtype and _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,N,d_out,r", [
+    (torch.bfloat16, 1024, 2304, 8),       # GPT-2 attn_qkv
+    (torch.bfloat16, 1024, 256, 8),        # Gemma k/v: one row a thread
+    (torch.bfloat16, 8, 2304, 8),          # generate's decode shapes
+    (torch.bfloat16, 4, 262144, 8),        # the head adapter's lm_head
+    (torch.float16, 37, 300, 128),         # 8-byte vectors, rank 128
+    (torch.bfloat16, 33, 1000, 20),        # a rank past one slab of 8
+    (torch.float16, 5, 301, 3),            # 2-byte vectors
+])
+def test_lora_epilogue_vec_kernel_folds_the_scale(dev, dtype, N, d_out, r):
+    """The 16-bit kernel (csrc/lora_epilogue_vec.cu) with the scale read
+    from the device: within 1e-2 of the plain version, its xs bit for bit
+    the composition's round(f32(xa) * scale), two calls bit-identical."""
+    y = _randn(dev, dtype, N, d_out, seed=41)
+    xa = _randn(dev, dtype, N, r, seed=42)
+    b = _randn(dev, dtype, r, d_out, seed=43)
+    s = torch.tensor(0.37, device=dev)
+    n0 = lf.lora_epilogue.launches
+    out, xs = lf.lora_epilogue(y, xa, b, s)
+    out2, _ = lf.lora_epilogue(y, xa, b, s)
+    assert lf.lora_epilogue.launches == n0 + 2
+    ref = lf.lora_epilogue_reference(y, xa, b, s)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-2
+    assert torch.equal(xs, (xa.float() * s).to(dtype))
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lora_epilogue_add_grads_match_the_composition(dev, dtype):
+    """lora_epilogue_add on the card: the output within the kernel's
+    tolerance of the unfolded composition (scale folded by torch, then the
+    plain epilogue), dy = g bit for bit and dxa, dB within 1e-5."""
+    y = _randn(dev, dtype, 2, 64, 768, seed=44)
+    xa = _randn(dev, dtype, 2, 64, 8, seed=45)
+    b = _randn(dev, dtype, 8, 768, seed=46)
+    g = _randn(dev, dtype, 2, 64, 768, seed=47)
+    s = torch.tensor(2.0, device=dev)
+    res = []
+    for fold in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (y, xa, b)]
+        if fold:
+            out = lf.lora_epilogue_add(*leaves, s)
+        else:
+            xs = (leaves[1].float() * s).to(dtype)
+            out = (leaves[0].float() + xs.float() @ leaves[2].float()) \
+                .to(dtype)
+        res.append([out.detach(), *torch.autograd.grad(out, leaves, g)])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel_err(res[0][0], res[1][0]) <= tol
+    assert torch.equal(res[0][1], res[1][1])                  # dy = g
+    for a, w in zip(res[0][2:], res[1][2:]):                  # dxa, dB
+        assert _rel_err(a, w) <= 1e-5
+
+
+def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
+    """bf16 / f16 load lora_epilogue_vec.cu and decode_attention_mma.cu,
+    f32 the first versions."""
+    loaded = []
+    real = build.load
+
+    def record(name):
+        loaded.append(name)
+        return real(name)
+    monkeypatch.setattr(build, "load", record)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        mma = dtype != torch.float32
+        y = _randn(dev, dtype, 16, 64, seed=1)
+        xa = _randn(dev, dtype, 16, 4, seed=2)
+        b = _randn(dev, dtype, 4, 64, seed=3)
+        loaded.clear()
+        lf.lora_epilogue(y, xa, b, torch.tensor(2.0, device=dev))
+        assert loaded == ["lora_epilogue_vec" if mma else "lora_epilogue"]
+        q, kc, vc, ok = _decode_case(dev, dtype, 2, 1, 4, 70, 64, 5)
+        loaded.clear()
+        da.decode_attention(q, kc, vc, ok, 0.125)
+        assert loaded == ["decode_attention_mma" if mma
+                          else "decode_attention"]
+    torch.cuda.synchronize()
 
 
 def test_backward_and_epilogue_wrappers_raise(dev):
@@ -462,7 +546,8 @@ def test_backward_and_epilogue_wrappers_raise(dev):
     y = torch.zeros(4, 1024, device=dev)
     with pytest.raises(ValueError, match="rank"):
         lf.lora_epilogue(y, torch.zeros(4, 200, device=dev),
-                         torch.zeros(200, 1024, device=dev))
+                         torch.zeros(200, 1024, device=dev),
+                         torch.tensor(1.0, device=dev))
     entry = {"A": torch.zeros(1024, 200, device=dev),
              "B": torch.zeros(200, 1024, device=dev),
              "scale": torch.tensor(2.0, device=dev)}
@@ -891,6 +976,41 @@ def test_decode_kernel_matches_plain(dev, dtype, B, KV, G, T, D, tol):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(ctx).all())
     assert float((ctx - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,B,KV,G,T,D", [
+    (torch.bfloat16, 8, 12, 1, 192, 64),     # GPT-2: 2 chunks and a merge
+    (torch.bfloat16, 4, 1, 4, 665, 256),     # Gemma's last step: 21 chunks
+    (torch.float16, 3, 2, 2, 37, 32),        # two warps a CTA
+    (torch.bfloat16, 2, 2, 18, 100, 128),    # two groups of query heads
+    (torch.bfloat16, 3, 1, 4, 1, 256),       # T 1: one chunk, no merge
+    (torch.bfloat16, 1, 1, 4, 4096, 256),    # long T: chunks of tiles
+])
+def test_decode_tensor_core_kernel_poisoned_and_deterministic(
+        dev, dtype, B, KV, G, T, D):
+    """Row 13 on the tensor cores (csrc/decode_attention_mma.cu): masked
+    columns holding Inf in K and NaN in V get exactly 0 weight (the ctx
+    equals the unpoisoned call's bit for bit, and the plain version's on
+    the unpoisoned cache within 2e-2), and two calls are bit-identical."""
+    q, kc, vc, ok = _decode_case(dev, dtype, B, KV, G, T, D, seed=T + G,
+                                 poison=False)
+    if T > 1:
+        ok[:, : T // 3] = False              # whole chunks masked too
+        ok[:, -1] = True
+    scale = D ** -0.5
+    n0 = da.decode_attention.launches
+    clean = da.decode_attention(q, kc, vc, ok, scale)
+    masked = ~ok[:, None, :, None]
+    kp = kc.masked_fill(masked, float("inf"))
+    vp = vc.masked_fill(masked, float("nan"))
+    got = da.decode_attention(q, kp, vp, ok, scale)
+    again = da.decode_attention(q, kp, vp, ok, scale)
+    assert da.decode_attention.launches == n0 + 3
+    ref = da.xla_reference(q, kc, vc, ok, scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean) and torch.equal(got, again)
+    assert float((clean - ref).abs().max()) <= 2e-2
 
 
 def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):

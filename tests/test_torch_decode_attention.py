@@ -9,7 +9,11 @@ sliding-window mask and G = 2 query groups. Contiguous (row 13):
 JAX test's four shapes, and `xla_reference` alone at ragged T (the TPU
 kernel takes T % 8 == 0 only; the port's kernel any T); masked columns
 poisoned with +-1e6 change nothing. f32 max abs error <= 1e-5; bf16 <=
-2e-2 (the probabilities round to bf16 at different places)."""
+2e-2 (the probabilities round to bf16 at different places). The
+tensor-core kernel's flash-decoding split (chunks of 32-key tiles, partials
+merged in chunk order), in plain torch, equals xla_reference within 1e-6
+in f32 for decode_mma_plan's split and others, whole chunks masked, and
+the JAX decode_attention on the same inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -183,3 +187,106 @@ def test_decode_validation_and_eligibility():
     assert not port.decode_eligible(12, 192, 96, 2)
     assert not port.decode_eligible(1, 0, 64, 2)
     assert not port.decode_eligible(1, 64, 64, 8)          # f64
+
+
+# ------------------- row 13's flash-decoding split (the tensor-core kernel)
+
+def _chunked_reference(q, kc, vc, ok, scale, tpc, p_dtype=None):
+    """The tensor-core kernel's algorithm in plain torch (f64): T cut into
+    chunks of `tpc` 32-key tiles, each chunk an online softmax over its
+    tiles (p rounded to `p_dtype` before P.V where given, l from the
+    unrounded p) giving partials (m, l, acc), merged in chunk order with
+    chunks of l = 0 selected out."""
+    q, kc, vc = (t.double() for t in (q, kc, vc))
+    B, KV, G, D = q.shape
+    T = kc.shape[2]
+    n_tiles = -(-T // 32)
+    parts = []
+    for c0 in range(0, n_tiles, tpc):
+        m = torch.full((B, KV, G), port.NEG_INF, dtype=torch.float64)
+        l = torch.zeros(B, KV, G, dtype=torch.float64)
+        acc = torch.zeros(B, KV, G, D, dtype=torch.float64)
+        for tile in range(c0, min(c0 + tpc, n_tiles)):
+            sl = slice(32 * tile, min(32 * tile + 32, T))
+            okt = ok[:, None, None, sl]
+            s = torch.einsum("bkgd,bktd->bkgt", q, kc[:, :, sl]) * scale
+            s = torch.where(okt, s, port.NEG_INF)
+            m_new = torch.maximum(m, s.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.where(okt, torch.exp(s - m_new[..., None]), 0.0)
+            pr = p if p_dtype is None else p.to(p_dtype).double()
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + torch.einsum(
+                "bkgt,bktd->bkgd", pr, vc[:, :, sl])
+            m = m_new
+        parts.append((m, l, acc))
+    mmax = torch.full((B, KV, G), port.NEG_INF, dtype=torch.float64)
+    for m, l, _ in parts:
+        mmax = torch.where(l > 0, torch.maximum(mmax, m), mmax)
+    num = torch.zeros(B, KV, G, D, dtype=torch.float64)
+    den = torch.zeros(B, KV, G, dtype=torch.float64)
+    for m, l, acc in parts:
+        f = torch.where(l > 0, torch.exp(m - mmax), 0.0)
+        num = num + f[..., None] * torch.where(l[..., None] > 0, acc, 0.0)
+        den = den + f * l
+    return torch.where(den[..., None] > 0, num / den.clamp_min(1e-300)
+                       [..., None], 0.0)
+
+
+def _windowed_case(B, KV, G, T, D, pads, window, seed):
+    """Left padding of pads[b] columns and the generate path's window over
+    the last query position: the last column always attendable."""
+    q, kc, vc, _ = _decode_case(B, KV, G, T, D, seed=seed)
+    cols = np.arange(T)
+    ok = cols[None, :] >= np.asarray(pads)[:, None]
+    if window is not None:
+        ok &= cols[None, :] > T - 1 - window
+    return q, kc, vc, ok
+
+
+@pytest.mark.parametrize("case", [
+    # (B, KV, G, T, D, pads, window, plan shapes (B, KV, G) for the split)
+    (2, 12, 1, 192, 64, (0, 70), None, None),          # GPT-2: 2 chunks
+    (4, 1, 4, 160, 256, (0, 40, 100, 7), 48, None),     # Gemma: 5 chunks
+    (2, 2, 2, 96, 32, (70, 0), None, (1, 1, 1)),        # 3 chunks, pads
+    (1, 1, 4, 256, 64, (0,), 40, (1, 1, 1)),            # masked chunks
+    (3, 1, 2, 40, 64, (5, 0, 33), None, (64, 4, 16)),   # one chunk
+])
+def test_chunked_split_matches_xla_reference_and_jax(case):
+    """Per-chunk partials merged in chunk order, for decode_mma_plan's own
+    split and for others (one chunk a tile, whole T), equal xla_reference
+    within 1e-6 in f32, with whole chunks masked by padding or Gemma's
+    window; and the JAX decode_attention on the same numpy inputs."""
+    B, KV, G, T, D, pads, window, plan_shape = case
+    q, kc, vc, ok = _windowed_case(B, KV, G, T, D, pads, window, seed=T)
+    tq, tk, tv, tok = (torch.from_numpy(a) for a in (q, kc, vc, ok))
+    scale = D ** -0.5
+    want = port.xla_reference(tq, tk, tv, tok, scale)
+    jax_want = np.asarray(jax_decode_attention(
+        *(jnp.asarray(a) for a in (q, kc, vc, ok)), scale))
+    pb, pk, pg = plan_shape or (B, KV, G)
+    plan = port.decode_mma_plan(pb, pk, pg, T, D, torch.bfloat16)
+    n_tiles = -(-T // 32)
+    for tpc in sorted({plan["tiles_per_chunk"], 1, n_tiles}):
+        got = _chunked_reference(tq, tk, tv, tok, scale, tpc)
+        assert float((got - want.double()).abs().max()) <= 1e-6, tpc
+        assert np.max(np.abs(got.numpy() - jax_want)) <= 1e-5, tpc
+    # a whole chunk with no attendable column exists in the masked cases
+    if window is not None or max(pads) >= 32 * plan["tiles_per_chunk"]:
+        chunk_keys = 32 * plan["tiles_per_chunk"]
+        assert any(not ok[b, c:c + chunk_keys].any()
+                   for b in range(B) for c in range(0, T, chunk_keys))
+
+
+def test_chunked_split_rounds_p_like_one_pass_within_bf16():
+    """With p rounded to bf16 before P.V, the chunked split stays within
+    the bf16 tolerance of xla_reference on bf16 operands."""
+    q, kc, vc, ok = _windowed_case(4, 1, 4, 200, 256, (0, 9, 60, 3), 96,
+                                   seed=3)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, kc, vc))
+    tok = torch.from_numpy(ok)
+    want = port.xla_reference(tq, tk, tv, tok, 0.0625)
+    for tpc in (1, 2, 7):
+        got = _chunked_reference(tq, tk, tv, tok, 0.0625, tpc,
+                                 p_dtype=torch.bfloat16)
+        assert float((got - want.double()).abs().max()) <= TOLS["bfloat16"]

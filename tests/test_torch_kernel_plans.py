@@ -14,8 +14,13 @@ the constants of the CUDA sources; row 8's stores write each dW element
 once, from the fragment that holds it; row 2's transposed fragment map,
 replayed with ldmatrix and mma.sync emulated in numpy, computes the
 plain version's dq, dk and dv, and rows 9 and 11's fragment maps their
-plain versions' (lse, gold) and dbt; and the dtype picks the library:
-bf16 / f16 the `_mma` sources, f32 the FMA ones. No card needed."""
+plain versions' (lse, gold) and dbt; row 5's vector kernel
+(`ops/lora_fused.epilogue_vec_plan`) covers every (row, column vector)
+once with each warp on neighbouring vectors and fills the card; row 13's
+flash-decoding split (`ops/decode_attention.decode_mma_plan`) covers
+every key tile once, and its fragment map, replayed, computes the plain
+version's ctx; and the dtype picks the library: bf16 / f16 the `_mma` (and
+`_vec`) sources, f32 the FMA ones. No card needed."""
 
 import itertools
 import os
@@ -25,8 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+from mobilefinetuner_tpu_torch.ops import decode_attention as da
 from mobilefinetuner_tpu_torch.ops import flash_attention as fa
 from mobilefinetuner_tpu_torch.ops import fused_ce as fc
+from mobilefinetuner_tpu_torch.ops import lora_fused as lf
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "mobilefinetuner_tpu_torch", "csrc")
@@ -53,7 +60,9 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "dw": ("fused_ce_dw_mma", "mft_fused_ce_dw_mma"),
     "dh_lora": ("fused_ce_dh_lora_mma", "mft_fused_ce_dh_lora_mma"),
     "ce_fwd_lora": ("fused_ce_fwd_lora_mma", "mft_fused_ce_fwd_lora_mma"),
-    "dbt": ("fused_ce_dbt_mma", "mft_fused_ce_dbt_mma")}
+    "dbt": ("fused_ce_dbt_mma", "mft_fused_ce_dbt_mma"),
+    "epi": ("lora_epilogue_vec", "mft_lora_epilogue_vec"),
+    "decode": ("decode_attention_mma", "mft_decode_attention_mma")}
 FMA_LIBS = {  # the FMA kernels' for f32
     "fwd": ("flash_attention_fwd", "mft_flash_attention_fwd"),
     "bwd": ("flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"),
@@ -62,11 +71,14 @@ FMA_LIBS = {  # the FMA kernels' for f32
     "dw": ("fused_ce", "mft_fused_ce_dw"),
     "dh_lora": ("fused_ce", "mft_fused_ce_dh_lora"),
     "ce_fwd_lora": ("fused_ce", "mft_fused_ce_fwd_lora"),
-    "dbt": ("fused_ce", "mft_fused_ce_dw_lora")}
+    "dbt": ("fused_ce", "mft_fused_ce_dw_lora"),
+    "epi": ("lora_epilogue", "mft_lora_epilogue"),
+    "decode": ("decode_attention", "mft_decode_attention")}
 ROUTES = {"fwd": fa.fwd_library, "dh": fc.dh_library, "dw": fc.dw_library,
           "dh_lora": fc.dh_lora_library, "bwd": fa.bwd_library,
           "ce_fwd": fc.fwd_library, "ce_fwd_lora": fc.fwd_lora_library,
-          "dbt": fc.dbt_library}
+          "dbt": fc.dbt_library, "epi": lf.epilogue_library,
+          "decode": da.decode_library}
 
 
 @pytest.mark.parametrize("dtype,fwd,dh", [
@@ -92,7 +104,7 @@ def test_dtype_without_a_kernel_raises(dtype):
 
 
 @pytest.mark.parametrize("key", ["dw", "dh_lora", "bwd", "ce_fwd",
-                                 "ce_fwd_lora", "dbt"])
+                                 "ce_fwd_lora", "dbt", "epi", "decode"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int8,
                                    torch.complex64])
 def test_new_routes_raise_for_other_dtypes(key, dtype):
@@ -1432,3 +1444,376 @@ def test_lora_fragment_maps_replay_the_plain_versions(R, V, H, r,
         torch.as_tensor(dgold, dtype=torch.float32), want_dw=False)
     assert no_dw is None
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- rows 5 and 13: sources --
+
+def test_first_versions_of_rows_5_and_13_keep_only_f32():
+    """The 16-bit cases left csrc/lora_epilogue.cu and
+    csrc/decode_attention.cu for the new sources; their f32 kernels stay."""
+    epi = _entry(_source("lora_epilogue.cu"), "mft_lora_epilogue")
+    assert "dtype != 0" in epi and "launch<float>" in epi
+    dec = _entry(_source("decode_attention.cu"), "mft_decode_attention")
+    assert "dtype != 0" in dec and "dispatch_d<float>" in dec
+    for entry in (epi, dec):
+        assert "__nv_bfloat16" not in entry and "__half" not in entry
+
+
+def test_row_5_and_13_sources_are_built_and_call_no_library():
+    from mobilefinetuner_tpu_torch.kernels import build
+    for name in ("lora_epilogue_vec", "decode_attention_mma"):
+        assert name in build.SOURCES
+        text = _source(f"{name}.cu")
+        for lib in ("cublas", "cutlass", "torch/", "<aten"):
+            assert lib not in text.lower()
+    dec = _source("decode_attention_mma.cu")
+    assert "mma_16816<T>" in dec and "ldmatrix_x4(" in dec
+    assert "ldmatrix_x4_trans" in dec and "cp_async_16" in dec
+    assert '#include "tensor_core.cuh"' in dec
+    epi = _source("lora_epilogue_vec.cu")
+    # no shared memory and no barrier: y's loads come first
+    assert "__shared__" not in epi and "__syncthreads" not in epi
+
+
+# ------------------------------------------------------------- row 5 -------
+
+EPI_SHAPES = [  # (N, d_out): the paths' sites and the decode shapes
+    (1024, 2304), (1024, 768),                 # GPT-2 attn_qkv, attn_proj
+    (1024, 2048), (1024, 1024), (1024, 640),   # Gemma gate/up, q, o/down
+    (1024, 256),                               # Gemma k/v
+    (8, 2304), (8, 768), (4, 2048), (4, 256),  # generate's decode steps
+    (4, 262144),                               # the head adapter's lm_head
+    (37, 300), (1000, 770), (5, 301), (3, 2),  # narrower vectors
+]
+
+
+def test_epilogue_vec_plan_constants_match_the_source():
+    text = _source("lora_epilogue_vec.cu")
+    assert _constexpr(text, "THREADS") == lf.VEC_THREADS
+    assert _constexpr(text, "MAX_RANK") == lf.MAX_RANK
+    assert f"if (rows == {lf.VEC_ROWS} && vec == 8)\n    return " \
+        f"launch<T, 8, {lf.VEC_ROWS}>" in text
+    for vec in (8, 4, 2, 1):
+        assert f"case {vec}:\n      return launch<T, {vec}, 1>" in text
+
+
+@pytest.mark.parametrize("N,d_out", EPI_SHAPES)
+def test_epilogue_vec_plan_covers_each_vector_once(N, d_out):
+    """The kernel's slot map (slot -> column vector slot % ncv, rows
+    slot / ncv + i rs), replayed: every (row, column vector) once, and the
+    32 slots of a warp on 32 neighbouring vectors of the flat [N, d_out]
+    array for each of a thread's rows."""
+    plan = lf.epilogue_vec_plan(N, d_out, N_SM)
+    vec, rows, rs, ncv = (plan[k] for k in ("vec", "rows", "rs", "ncv"))
+    assert ncv * vec == d_out and rs * rows >= N > rs * (rows - 1) - 1
+    slots = np.arange(plan["ctas"] * lf.VEC_THREADS)
+    slots = slots[slots < ncv * rs]
+    cv, n0 = slots % ncv, slots // ncv
+    hits = np.zeros((N, ncv), np.int64)
+    for i in range(rows):
+        n = n0 + i * rs
+        keep = n < N
+        np.add.at(hits, (n[keep], cv[keep]), 1)
+        flat = n * ncv + cv                      # vector index in the array
+        for w in range(0, len(slots), 32):       # a warp's vectors
+            f = flat[w:w + 32][keep[w:w + 32]]
+            assert (np.diff(f) == 1).all()
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("N,d_out", [s for s in EPI_SHAPES if s[0] >= 1024]
+                         + [(4, 262144)])
+def test_epilogue_vec_plan_fills_the_card(N, d_out):
+    """At every training site and the head adapter's decode site the grid
+    has at least one CTA an SM (attn_proj: 768, where the first version
+    had 96), with 16-byte vectors."""
+    plan = lf.epilogue_vec_plan(N, d_out, N_SM)
+    assert plan["ctas"] >= N_SM and plan["vec"] == 8
+
+
+def test_epilogue_vec_plan_widths_and_rows():
+    """16-byte vectors where d_out and the addresses allow, narrower ones
+    where not (rank128_f16's d_out 300: 8 bytes); four rows a thread only
+    where they are all the rows (N <= 4), the vectors 16 bytes and the
+    CTAs still a wave (the head adapter's lm_head)."""
+    def plan(N, d_out, **kw):
+        return lf.epilogue_vec_plan(N, d_out, N_SM, **kw)
+    assert [plan(37, d)["vec"] for d in (300, 770, 301)] == [4, 2, 1]
+    assert plan(1024, 2304, addr_align=8)["vec"] == 4
+    assert plan(1024, 2304, addr_align=2)["vec"] == 1
+    assert [plan(N, 262144)["rows"] for N in (1024, 8, 5, 4, 1)] == \
+        [1, 1, 1, 4, 4]
+    assert plan(4, 2048)["rows"] == 1 and plan(4, 300)["rows"] == 1
+    assert plan(1024, 768)["ctas"] == 768
+    assert plan(4, 262144)["ctas"] == 256
+
+
+# ------------------------------------------------------------ row 13 -------
+
+DECODE_SHAPES = [  # (B, KV, G, T, D)
+    (4, 1, 4, 665, 256),       # Gemma's last generate step
+    (8, 12, 1, 192, 64),       # GPT-2's
+    (1, 1, 4, 32768, 256),     # a whole Gemma-3 context
+    (4, 1, 4, 1, 256),         # T 1
+    (3, 2, 2, 20, 32),         # T under one tile
+    (3, 2, 2, 40, 32),
+    (2, 3, 40, 77, 128),       # G past one CTA's 16 heads
+    (65535, 1, 1, 64, 64),     # the most batch rows
+]
+
+
+def test_decode_mma_plan_constants_match_the_source():
+    text = _source("decode_attention_mma.cu")
+    assert _constexpr(text, "TILE") == da.DECODE_MMA_TILE
+    assert _constexpr(text, "QR") == da.DECODE_MMA_QROWS
+    assert _constexpr(text, "STAGES") == da.DECODE_MMA_STAGES
+    assert _constexpr(text, "MERGE_MAX_CHUNKS") == da.DECODE_MMA_MAX_CHUNKS
+    assert "constexpr int SP = TILE + 8;" in text
+    assert _constexpr(text, "MERGE_BATCH") == 32
+    assert "static constexpr int WARPS = D >= 64 ? 4 : 2;" in text
+    assert "static constexpr int LD = DW + 8;" in text
+
+
+@pytest.mark.parametrize("B,KV,G,T,D", DECODE_SHAPES)
+def test_decode_mma_plan_covers_each_tile_once(B, KV, G, T, D):
+    """Every 32-key tile in exactly one chunk, every query head in one
+    group of 16, a workspace for each chunk's (m, l, acc) when there is
+    more than one."""
+    plan = da.decode_mma_plan(B, KV, G, T, D, torch.bfloat16, N_SM)
+    tpc, n_chunks = plan["tiles_per_chunk"], plan["n_chunks"]
+    n_tiles = -(-T // 32)
+    seen = np.zeros(n_tiles, np.int64)
+    for c in range(n_chunks):
+        seen[c * tpc:min((c + 1) * tpc, n_tiles)] += 1
+    assert (seen == 1).all() and (n_chunks - 1) * tpc < n_tiles
+    heads = np.zeros(G, np.int64)
+    for qg in range(plan["n_qg"]):
+        heads[16 * qg:16 * qg + 16] += 1
+    assert (heads == 1).all()
+    assert plan["grid"] == (n_chunks, KV * plan["n_qg"], B)
+    assert plan["ws_floats"] == (n_chunks * B * KV * G * (D + 2)
+                                 if n_chunks > 1 else 0)
+
+
+@pytest.mark.parametrize("B,KV,G,T,D", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_mma_plan_fits_the_card(B, KV, G, T, D, dtype):
+    """Shared memory within a block's 227 KB, grid dimensions within the
+    card's limits, at most DECODE_MMA_MAX_CHUNKS chunks, and at least a
+    wave of CTAs wherever T has the tiles for it (or one chunk a tile)."""
+    plan = da.decode_mma_plan(B, KV, G, T, D, dtype, N_SM)
+    assert plan["smem_bytes"] <= fc.SMEM_MAX
+    gx, gy, gz = plan["grid"]
+    assert gy <= 65535 and gz <= 65535
+    assert gx <= da.DECODE_MMA_MAX_CHUNKS
+    units = B * KV * plan["n_qg"]
+    assert gx * units >= min(N_SM, units * -(-T // 32)) * 31 // 32 \
+        or plan["tiles_per_chunk"] == 1
+
+
+def test_decode_mma_plan_at_the_path_shapes():
+    """Gemma's last step: 21 chunks of one tile (84 CTAs, was 16);
+    GPT-2's: 6 chunks of one tile (576 CTAs, was 96); T 1 and T < 32: one
+    chunk, no workspace, no merge; T 32,768 at B 1: 128 chunks of 8 (the
+    most the merge takes)."""
+    def split(*shape):
+        p = da.decode_mma_plan(*shape, torch.bfloat16, N_SM)
+        return p["n_chunks"], p["tiles_per_chunk"], p["ws_floats"]
+    assert split(4, 1, 4, 665, 256) == (21, 1, 21 * 16 * 258)
+    assert split(8, 12, 1, 192, 64) == (6, 1, 6 * 96 * 66)
+    assert split(4, 1, 4, 1, 256) == (1, 1, 0)
+    assert split(3, 2, 2, 20, 32) == (1, 1, 0)
+    assert split(1, 1, 4, 32768, 256)[:2] == (128, 8)
+    assert da.decode_mma_plan(4, 1, 4, 665, 256, torch.bfloat16,
+                              N_SM)["grid"] == (21, 1, 4)
+
+
+def test_decode_mma_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((4, 1, 4, 665, 96, torch.bfloat16),
+                 (4, 1, 4, 0, 256, torch.bfloat16),
+                 (4, 1, 4, 665, 256, torch.float32),
+                 (65536, 1, 1, 64, 64, torch.bfloat16)):
+        with pytest.raises(ValueError):
+            da.decode_mma_plan(*args)
+
+
+def _decode_mma_replay(q, kc, vc, ok, scale, plan, round_p):
+    """csrc/decode_attention_mma.cu replayed in f64: its grid (chunks, kv
+    heads, groups of 16 query heads, b; a chunk with no attendable column
+    skips all its tiles and stores (NEG_INF, 0)), each warp's column slice
+    of the
+    K/V tiles with masked rows zero-filled, Q's A fragments, the partial
+    S by ldmatrix and mma.sync emulated, the partials through the
+    [warp][row][key] buffer summed in warp order, the quad softmax, P
+    repacked into A fragments (rounded to bf16 when round_p), V's B
+    fragments by ldmatrix.trans, the stores of ctx or of the partials,
+    and the merge in chunk order. Returns ctx [B, KV, G, D]."""
+    import torch as _t
+    B, KV, G, D = q.shape
+    T = kc.shape[2]
+    W = plan["warps"]
+    DW = D // W
+    LD, KS, ND = DW + 8, DW // 16, DW // 8
+    NEG = da.NEG_INF
+    lane = np.arange(32)
+    g, t, lr, lm = lane >> 2, lane & 3, lane & 7, lane >> 3
+    k_off = (lr + (lm >> 1) * 8) * LD + (lm & 1) * 8
+    v_off = (lr + (lm & 1) * 8) * LD + (lm >> 1) * 8
+    tpc, n_chunks = plan["tiles_per_chunk"], plan["n_chunks"]
+    n_tiles = -(-T // 32)
+    rows_total = B * KV * G
+    ws_ml = np.full((n_chunks, rows_total, 2), np.nan)
+    ws_acc = np.full((n_chunks, rows_total, D), np.nan)
+    ctx = np.full((B * KV * G, D), np.nan)
+
+    def rnd(x):
+        return _t.from_numpy(x).to(_t.bfloat16).double().numpy() \
+            if round_p else x
+
+    def quad(x, op):                  # xor 1, xor 2 over a lane quad
+        y = op(x, x[lane ^ 1])
+        return op(y, y[lane ^ 2])
+    for b, kv, qg, chunk in itertools.product(
+            range(B), range(KV), range(plan["n_qg"]), range(n_chunks)):
+        qg0 = 16 * qg
+        nq = min(16, G - qg0)
+        row0 = (b * KV + kv) * G + qg0
+        tile0, tile1 = chunk * tpc, min(chunk * tpc + tpc, n_tiles)
+        qf = np.zeros((W, KS, 32, 4, 2))     # Q's A fragments
+        for w, ks, i in itertools.product(range(W), range(KS), range(4)):
+            row = g + (i & 1) * 8
+            col = w * DW + ks * 16 + (i >> 1) * 8 + 2 * t
+            live_l = row < nq
+            src = q[b, kv, np.minimum(qg0 + row, G - 1)]
+            qf[w, ks, :, i, 0] = np.where(live_l, src[lane, col], 0)
+            qf[w, ks, :, i, 1] = np.where(live_l, src[lane, col + 1], 0)
+        live = [g < nq, g + 8 < nq]
+        o = np.zeros((W, ND, 32, 4))
+        m = np.full((32, 2), NEG)
+        l = np.zeros((32, 2))
+        for tile in range(tile0, tile1):
+            t0 = 32 * tile
+            okt = np.zeros(32, bool)
+            okt[:min(32, T - t0)] = ok[b, t0:t0 + 32]
+            if not okt.any():
+                continue
+            s_part = np.full((W, 16, 40), np.nan)
+            k_s, v_s = [], []
+            for w in range(W):
+                kt = np.zeros((32, LD))
+                vt = np.zeros((32, LD))
+                for rr in np.nonzero(okt)[0]:
+                    kt[rr, :DW] = kc[b, kv, t0 + rr, w * DW:(w + 1) * DW]
+                    vt[rr, :DW] = vc[b, kv, t0 + rr, w * DW:(w + 1) * DW]
+                k_s.append(kt.reshape(-1))
+                v_s.append(vt.reshape(-1))
+                s = np.zeros((4, 32, 4))
+                for ks in range(KS):
+                    for j in (0, 2):
+                        bk = _ldsm(k_s[w], k_off + j * 8 * LD + ks * 16,
+                                   False)
+                        _mma(s[j], qf[w, ks], bk[:, 0], bk[:, 1])
+                        _mma(s[j + 1], qf[w, ks], bk[:, 2], bk[:, 3])
+                for j in range(4):
+                    s_part[w, g, j * 8 + 2 * t] = s[j][:, 0]
+                    s_part[w, g, j * 8 + 2 * t + 1] = s[j][:, 1]
+                    s_part[w, g + 8, j * 8 + 2 * t] = s[j][:, 2]
+                    s_part[w, g + 8, j * 8 + 2 * t + 1] = s[j][:, 3]
+            # every warp sums the partials in warp order: the same scores
+            sc = np.zeros((4, 32, 4))
+            okb = np.zeros((4, 32, 4), bool)
+            for j, e in itertools.product(range(4), range(4)):
+                key = j * 8 + 2 * t + (e & 1)
+                row = g + (e >> 1) * 8
+                tot = np.zeros(32)
+                for w in range(W):
+                    tot = tot + s_part[w, row, key]
+                okb[j, :, e] = live[e >> 1] & okt[key]
+                sc[j, :, e] = np.where(okb[j, :, e], tot * scale, NEG)
+            mx = np.stack([sc[:, :, [0, 1]].max(axis=(0, 2)),
+                           sc[:, :, [2, 3]].max(axis=(0, 2))], 1)
+            mx = np.stack([quad(mx[:, i], np.maximum) for i in range(2)], 1)
+            m_new = np.maximum(m, mx)
+            alpha = np.exp(m - m_new)
+            m = m_new
+            p = np.where(okb, np.exp(sc - m[None, :, [0, 0, 1, 1]]), 0.0)
+            psum = np.stack([p[:, :, [0, 1]].sum(axis=(0, 2)),
+                             p[:, :, [2, 3]].sum(axis=(0, 2))], 1)
+            psum = np.stack([quad(psum[:, i], np.add) for i in range(2)], 1)
+            l = l * alpha + psum
+            o *= alpha[None, None, :, [0, 0, 1, 1]]
+            pr = rnd(p)
+            for w, kk in itertools.product(range(W), range(2)):
+                a = np.stack([pr[2 * kk + (i >> 1), :, (i & 1) * 2:
+                                 (i & 1) * 2 + 2] for i in range(4)], 1)
+                for n in range(0, ND, 2):
+                    bv = _ldsm(v_s[w], v_off + kk * 16 * LD + n * 8, True)
+                    _mma(o[w, n], a, bv[:, 0], bv[:, 1])
+                    _mma(o[w, n + 1], a, bv[:, 2], bv[:, 3])
+        for i, w, n in itertools.product(range(2), range(W), range(ND)):
+            row = g + 8 * i
+            sel = row < nq
+            cols = w * DW + n * 8 + 2 * t
+            for c in (0, 1):
+                val = o[w, n, :, 2 * i + c]
+                if n_chunks == 1:
+                    val = np.where(l[:, i] > 0,
+                                   val / np.maximum(l[:, i], 1e-300), 0.0)
+                    ctx[row0 + row[sel], cols[sel] + c] = val[sel]
+                else:
+                    ws_acc[chunk, row0 + row[sel], cols[sel] + c] = val[sel]
+            if n_chunks > 1 and w == 0 and n == 0:
+                first = sel & (t == 0)
+                ws_ml[chunk, row0 + row[first]] = np.stack(
+                    [m[first, i], l[first, i]], 1)
+    if n_chunks > 1:                    # the merge kernel, chunk order
+        lc = ws_ml[:, :, 1]
+        mmax = np.where(lc > 0, ws_ml[:, :, 0], NEG).max(0)
+        num = np.zeros((rows_total, D))
+        den = np.zeros(rows_total)
+        for c in range(n_chunks):
+            f = np.where(lc[c] > 0, np.exp(ws_ml[c, :, 0] - mmax), 0.0)
+            num += np.where(lc[c][:, None] > 0,
+                            f[:, None] * np.nan_to_num(ws_acc[c]), 0.0)
+            den += np.where(lc[c] > 0, f * lc[c], 0.0)
+        ctx = np.where(den[:, None] > 0, num / np.maximum(den, 1e-300)
+                       [:, None], 0.0)
+    assert not np.isnan(ctx).any()          # every row written
+    return ctx.reshape(B, KV, G, D)
+
+
+@pytest.mark.parametrize("B,KV,G,T,D,pads,window,tpc", [
+    (2, 2, 1, 70, 64, (0, 40), None, None),     # GPT-2 layout, 2 chunks
+    (2, 1, 4, 100, 256, (0, 3), 40, None),      # Gemma layout, window
+    (2, 1, 4, 100, 128, (0, 60), None, 1),      # a masked chunk (b 1)
+    (3, 2, 2, 40, 32, (5, 0, 39), None, 2),     # one chunk, two warps
+    (1, 1, 18, 45, 64, (2,), None, 1),          # two groups of heads
+])
+def test_decode_mma_fragment_map_replays_the_plain_version(
+        B, KV, G, T, D, pads, window, tpc):
+    """Row 13's fragment map, replayed with ldmatrix and mma.sync emulated
+    in numpy (f64): with p kept in f32 it gives xla_reference's ctx
+    (1e-5), masked K/V rows holding Inf and NaN changing nothing; with p
+    rounded to bf16, within the bf16 tolerance of it."""
+    rng = np.random.default_rng(T + D)
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    kc = rng.standard_normal((B, KV, T, D)).astype(np.float32)
+    vc = rng.standard_normal((B, KV, T, D)).astype(np.float32)
+    cols = np.arange(T)
+    ok = cols[None, :] >= np.asarray(pads)[:, None]
+    if window is not None:
+        ok &= cols[None, :] > T - 1 - window
+    scale = D ** -0.5
+    want = da.xla_reference(*(torch.from_numpy(a) for a in (q, kc, vc, ok)),
+                            scale).numpy()
+    masked = np.broadcast_to(~ok[:, None, :], kc.shape[:3])
+    kc[masked] = np.inf
+    vc[masked] = np.nan
+    plan = da.decode_mma_plan(B, KV, G, T, D, torch.bfloat16, N_SM)
+    if tpc is not None:
+        n_tiles = -(-T // 32)
+        plan = dict(plan, tiles_per_chunk=tpc, n_chunks=-(-n_tiles // tpc))
+    got = _decode_mma_replay(q, kc, vc, ok, scale, plan, round_p=False)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    got = _decode_mma_replay(q, kc, vc, ok, scale, plan, round_p=True)
+    assert np.max(np.abs(got - want)) <= 2e-2
