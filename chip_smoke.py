@@ -21,7 +21,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the scale read from the device into xa: its xs bit for bit the
      composition's, two calls bit-identical; f32 on the first version; at
      the training sites, generate's decode shapes and the head adapter's
-     lm_head), the paged decode,
+     lm_head), the paged decode (row 12: the serving shape, D 128, a GQA
+     window, Gemma's D 256 GQA and Gemma-3-270M serving with its window;
+     bf16 / f16 on the kernel that loads each lane's K/V rows straight
+     into registers, f32 on the first version, D 256 too; the pool rows
+     no slot attends holding
+     Inf in K and NaN in V must change nothing, two calls bit-identical),
      the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
      bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
      bit-identical), a head dim and a bf16 H the kernels do not take
@@ -89,7 +94,9 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      adapter site, the paged kernel never; then each family's bf16
      decode step again, timed from CUDA events around CUDA-graph replays
      (device) and around eager calls (host);
-  8. trace a decode step, a 128-token prefill, a GPT-2 train step, a
+  8. trace a decode step (and time it from CUDA events around CUDA-graph
+     replays of one gpt2_decode_step_paged call with the engine's state
+     held fixed), a 128-token prefill, a GPT-2 train step, a
      Gemma LoRA train step without and with the lm_head target and a
      Gemma full fine-tuning step with torch.profiler: device busy time
      against
@@ -99,7 +106,8 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      of the phase, and the busy share against its wall time without the
      profiler (`events`);
   9. time each kernel, its plain version and, where one exists, the
-     PyTorch library call at the main paths' shapes, with its bound on
+     PyTorch library call (row 12: a two-call chain, the pages gathered
+     then SDPA) at the main paths' shapes, with its bound on
      this card: "ms" is the device time of a call between CUDA events
      with the host queued ahead of the card, "call_ms" the time a call
      takes between CUDA events, host overhead included; then the merged
@@ -590,29 +598,75 @@ def check_epilogue(torch, lf, dev):
     return sites
 
 
+def paged_poison(torch, pk, pv, tbl, ok):
+    """Copies of the pools whose rows no slot attends (masked columns of
+    live pages, unused table rows, the trash page but an idle slot's
+    column) hold Inf in K and NaN in V."""
+    S, M = tbl.shape
+    bT = pk.shape[3]
+    cols = torch.arange(M * bT, device=ok.device)
+    blk = tbl.long()[:, cols // bT]
+    attended = torch.zeros(pk.shape[0], bT, dtype=torch.bool,
+                           device=ok.device)
+    attended[blk[ok], (cols % bT).expand(S, -1)[ok]] = True
+    dead = ~attended[:, None, None, :, None]
+    return (pk.masked_fill(dead, float("inf")),
+            pv.masked_fill(dead, float("nan")))
+
+
+PAGED_CASES = [  # (name, dtype, S, KV, G, D, bT, M, L, window, tol)
+    ("serving", "bfloat16", 8, 12, 1, 64, 16, 12, 12, None, 2e-2),
+    ("gqa_window", "float32", 5, 2, 2, 64, 16, 6, 3, 20, 1e-4),
+    ("d128", "bfloat16", 4, 4, 1, 128, 8, 5, 2, None, 2e-2),
+    ("d256_gqa", "bfloat16", 3, 1, 4, 256, 16, 4, 2, None, 2e-2),
+    # Gemma-3-270M serving: 8 slots, T up to 672, its 512-token window
+    ("gemma_serve", "bfloat16", 8, 1, 4, 256, 16, 42, 18, 512, 2e-2),
+    ("gemma_serve_f16", "float16", 8, 1, 4, 256, 16, 42, 18, 512, 2e-2),
+    ("gemma_serve_f32", "float32", 8, 1, 4, 256, 16, 42, 18, 512, 1e-4),
+]
+
+
 def check_paged(torch, da, dev):
-    cases = [  # (name, dtype, S, KV, G, D, bT, M, L, window, tol)
-        ("serving", torch.bfloat16, 8, 12, 1, 64, 16, 12, 12, None, 2e-2),
-        ("gqa_window", torch.float32, 5, 2, 2, 64, 16, 6, 3, 20, 1e-4),
-        ("d128", torch.bfloat16, 4, 4, 1, 128, 8, 5, 2, None, 2e-2),
-        ("d256_gqa", torch.bfloat16, 3, 1, 4, 256, 16, 4, 2, None, 2e-2),
-    ]
-    serving = None
-    for name, dt, S, KV, G, D, bT, M, L, window, tol in cases:
+    """Row 12 against paged_attention at the serving shape, D 128, a GQA
+    window, Gemma's D 256 GQA and Gemma-3-270M serving (bf16 / f16 on
+    paged_decode_attention_vec.cu, f32 on paged_decode_attention.cu): the
+    pool rows no slot attends poisoned with Inf in K and NaN in V must
+    leave ctx bit for bit as it was, two calls must be bit-identical, and
+    the launch counter must count each call. Returns {name: (max error,
+    inputs)} of the serving and Gemma serving cases."""
+    out = {}
+    n0 = da.paged_decode_attention.launches
+    calls = 0
+    for name, dt, S, KV, G, D, bT, M, L, window, tol in PAGED_CASES:
+        dt = getattr(torch, dt)
         q, pk, pv, tbl, ok = paged_inputs(torch, dev, dt, S, KV, G, D, bT, M,
                                           L, seed=S * D, window=window)
         layer, scale = L - 1, D ** -0.5
         ctx = da.paged_decode_attention(q, pk, pv, tbl, layer, ok, scale)
         ref = da.paged_attention(q, pk, pv, tbl, layer, ok, scale)
+        kp, vp = paged_poison(torch, pk, pv, tbl, ok)
+        poisoned = da.paged_decode_attention(q, kp, vp, tbl, layer, ok,
+                                             scale)
+        again = da.paged_decode_attention(q, kp, vp, tbl, layer, ok, scale)
+        calls += 3
         torch.cuda.synchronize()
+        del kp, vp
         e = max_err(ctx, ref)
-        print(f"paged {name}: {dt} S={S} KV={KV} G={G} D={D} bT={bT} M={M}: "
-              f"max |ctx err| {e:.3e} (tolerance {tol:g})")
+        lib = da.paged_library(dt)[0]
+        print(f"paged {name}: {dt} S={S} KV={KV} G={G} D={D} bT={bT} M={M} "
+              f"window={window} ({lib}.cu): max |ctx err| {e:.3e} "
+              f"(tolerance {tol:g})")
         check(bool(torch.isfinite(ctx).all()), f"paged {name} non-finite")
         check(e <= tol, f"paged {name} disagrees with its plain version")
-        if name == "serving":
-            serving = (e, (q, pk, pv, tbl, layer, ok, scale))
-    return serving
+        check(torch.equal(poisoned, ctx), f"paged {name}: unattended rows "
+              f"holding Inf / NaN moved ctx")
+        check(torch.equal(again, ctx), f"paged {name}: two calls differ")
+        if name in ("serving", "gemma_serve"):
+            out[name] = (e, (q, pk, pv, tbl, layer, ok, scale))
+    check(da.paged_decode_attention.launches == n0 + calls,
+          f"paged launches {da.paged_decode_attention.launches - n0}, "
+          f"expected {calls}")
+    return out
 
 
 def decode_inputs(torch, dev, dtype, B, KV, G, T, D, seed, n_pad=(),
@@ -1124,10 +1178,18 @@ def profile_phases(phases: dict) -> dict:
 
 
 def profile_serve(torch, eng, names):
-    """Where a decode step and a prefill spend their time."""
+    """Where a decode step and a prefill spend their time. The engine's
+    step reads its tokens back, so no graph of it: the decode step's
+    device time comes from CUDA events around CUDA-graph replays of one
+    gpt2_decode_step_paged call with the engine's tokens, positions,
+    tables and adapter routing held fixed (`events`: graph device ms,
+    eager call ms, their ratio, and the serve run's step p50 from the
+    engine's own clock)."""
     import numpy as np
 
-    from mobilefinetuner_tpu_torch.models.generate import gpt2_prefill
+    from mobilefinetuner_tpu_torch.models.generate import (
+        gpt2_decode_step_paged, gpt2_prefill)
+    step_ms = sorted(eng._step_ms)
     rng = np.random.default_rng(1)
     V = eng.config.vocab_size
     for i in range(eng.cfg.num_slots):
@@ -1143,6 +1205,21 @@ def profile_serve(torch, eng, names):
         "prefill_128": (lambda: gpt2_prefill(
             eng.config, eng.params, ids, mask, compute_dtype=eng.dtype,
             lora=lora), 5, True)})
+    # the fed tokens' K/V land where the engine's next step writes its own
+    tok, pos, tbl = (eng._dev(a.copy()) for a in (eng._tok, eng._pos,
+                                                  eng._tbl))
+    routed = eng._route(eng._aid)
+
+    def decode_step():
+        gpt2_decode_step_paged(eng.config, eng.params, eng.pool_k,
+                               eng.pool_v, tok, pos, tbl, lora=routed,
+                               compute_dtype=eng.dtype,
+                               attn_impl=eng.cfg.attn_impl)
+    dev_ms, wall_ms = graph_ms(decode_step, 20), call_ms(decode_step, 20)
+    out["decode_step"]["events"] = {
+        "device_ms": dev_ms, "wall_ms": wall_ms,
+        "device_busy_share": dev_ms / wall_ms,
+        "serve_step_ms_p50": step_ms[len(step_ms) // 2]}
     while not eng.idle:
         eng.step()
     return out
@@ -2102,6 +2179,63 @@ def gemma_kernel_entries(torch, fa, lf, dev):
             {"shape": "gate_proj: y 1024x2048, r 8, bf16 (gemma)"})}
 
 
+def paged_library_chain(torch, q, pk, pv, tbl, layer, ok, scale):
+    """Row 12's library yardstick, a two-call chain: gather each slot's
+    pages of `layer` for every kv head (one index kernel each for K and
+    V), then SDPA with the bool mask, the scale and enable_gqa."""
+    S, KV, G, D = q.shape
+    cols = ok.shape[1]
+    kv = torch.arange(KV, device=q.device, dtype=torch.int32)[:, None]
+    idx = tbl[:, None, :]
+    qh = q.reshape(S, KV * G, 1, D)
+    mask = ok[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def chain():
+        kc = pk[idx, layer, kv].view(S, KV, cols, D)
+        vc = pv[idx, layer, kv].view(S, KV, cols, D)
+        return sdpa(qh, kc, vc, attn_mask=mask, scale=scale,
+                    enable_gqa=True)
+    return chain
+
+
+def paged_entry(torch, da, case):
+    """Row 12's entry of the kernels line at one check_paged case: its
+    times, the plain version's and the library chain's, its plan and its
+    bound from the attendable columns' K and V rows, q, tbl, ok and
+    ctx."""
+    err, (q, pk, pv, tbl, layer, ok, scale) = case
+    S, KV, G, D = q.shape
+    M, bT = tbl.shape[1], pk.shape[3]
+    chain = paged_library_chain(torch, q, pk, pv, tbl, layer, ok, scale)
+    times = timed({
+        "ms": lambda: da.paged_decode_attention(q, pk, pv, tbl, layer, ok,
+                                                scale),
+        "plain_ms": lambda: da.paged_attention(q, pk, pv, tbl, layer, ok,
+                                               scale),
+        "library_ms": chain})
+    live = int(ok.sum()) * KV                  # attendable (slot, kv) rows
+    isz = pk.element_size()
+    bnd = bound(2 * live * D * isz + q.numel() * isz + tbl.numel() * 4
+                + ok.numel() + q.numel() * 4, 4 * D * G * live)
+    plan = da.paged_plan(S, KV, G, M, bT, D, q.dtype,
+                         torch.cuda.get_device_properties(q.device)
+                         .multi_processor_count)
+    return kernel_entry(
+        "paged_decode_attention", "paged_decode_attention_vec.cu",
+        "decode_attention.py:223", None, err, times, bnd,
+        {"shape": f"q {S}x{KV}x{G}x{D}, {M} pages of {bT}, {q.dtype}, "
+                  f"{int(ok.sum())} of {S * M * bT} columns attendable, "
+                  f"{int(ok.reshape(S, M, bT).any(-1).sum())} live pages",
+         "plan": {k: plan[k] for k in ("n_chunks", "cpc", "grid")},
+         "library": "a two-call chain: the pages gathered (pool[tbl, "
+                    "layer, kv], K and V), then SDPA (bool mask, scale, "
+                    "enable_gqa)",
+         "library_max_abs_err": max_err(
+             chain().reshape(S, KV, G, D),
+             da.paged_attention(q, pk, pv, tbl, layer, ok, scale))})
+
+
 def decode_entry(torch, da, case):
     """Row 13's entry of the kernels line at one check_decode case: its
     times, the plain version's and SDPA's (a bool mask, the scale and
@@ -2295,7 +2429,7 @@ def main() -> int:
     flash_err, flash_args = check_flash(torch, fa, dev)
     bwd = check_flash_bwd(torch, fa, dev)
     epi = check_epilogue(torch, lf, dev)
-    paged_err, paged_args = check_paged(torch, da, dev)
+    paged_cases = check_paged(torch, da, dev)
     decode_cases = check_decode(torch, da, dev)
     ce_err, ce_args = check_fused_ce(torch, fc, dev)
     ce_lora_err, ce_lora_args = check_fused_ce_lora(torch, fc, dev)
@@ -2406,19 +2540,8 @@ def main() -> int:
             {"shape": f"y {y.shape[0]}x{y.shape[1]}, r {xa.shape[1]}, "
                       f"bf16"})
 
-    pq, pk, pv, tbl, layer, ok, scale = paged_args
-    Sl, KV, G, Dp = pq.shape
-    bT = pk.shape[3]
-    pg_times = timed({
-        "ms": lambda: da.paged_decode_attention(pq, pk, pv, tbl, layer, ok,
-                                                scale),
-        "plain_ms": lambda: da.paged_attention(pq, pk, pv, tbl, layer, ok,
-                                               scale)})
-    live_pages = int(ok.reshape(Sl, -1, bT).any(-1).sum())
-    pg_bound = bound(2 * live_pages * KV * bT * Dp * pk.element_size()
-                     + pq.numel() * pq.element_size() + tbl.numel() * 4
-                     + ok.numel() + Sl * KV * G * Dp * 4,
-                     4 * Dp * G * KV * int(ok.sum()))
+    pg_entries = {name: paged_entry(torch, da, paged_cases[name])
+                  for name in ("serving", "gemma_serve")}
 
     dec_entries = {name: decode_entry(torch, da, decode_cases[name])
                    for name in ("gpt2_bench", "gemma_path")}
@@ -2484,12 +2607,12 @@ def main() -> int:
              attn_proj=epi_entries["attn_proj"],
              decode={site: epi_entries[site] for site in (
                  "decode_attn_qkv", "decode_gate_proj", "decode_lm_head")}),
-        kernel_entry(
-            "paged_decode_attention", "paged_decode_attention.cu",
-            "decode_attention.py:223", total("paged"), paged_err,
-            pg_times, pg_bound, {"launches_by_path": by_path("paged"),
-                                 "library": "none: no single PyTorch call "
-                                            "reads a block table"}),
+        dict(pg_entries["serving"], launches=total("paged"),
+             launches_by_path=by_path("paged"),
+             ptxas=ptxas["paged_decode_attention_vec"],
+             f32="paged_decode_attention.cu (first version, f32 launches)",
+             f32_ptxas=ptxas["paged_decode_attention"],
+             gemma=pg_entries["gemma_serve"]),
         dict(dec_entries["gpt2_bench"], launches=total("decode"),
              launches_by_path=by_path("decode"),
              ptxas=ptxas["decode_attention_mma"],

@@ -5,6 +5,7 @@
                                [--iters N]
     python3 kernel_variants.py --rows5_13 [--epi NAME=PATH.cu ...]
                                [--decode NAME=PATH.cu ...]
+    python3 kernel_variants.py --row12 [--paged NAME=PATH.cu ...]
 
 Card only. Builds each variant source by hand (nvcc with the port's flags
 and the csrc headers, into build/variants/) beside the repo's own
@@ -21,7 +22,8 @@ max(1, max |ref|) and, with dgold = 0 (the softmax part),
 over max |ref| as chip_smoke.py holds it; then the device time of one
 call with the host queued ahead, source and variants called in turns
 (s, v.., v.., s), and with `--profile` torch.profiler's per-kernel
-device time of the two sources at the Gemma chunk. Each build's ptxas
+device time of the two sources at the Gemma chunk (with --row12, of
+each timed function at each shape). Each build's ptxas
 registers and spills are printed too. The last line is one JSON object
 of the times and errors.
 
@@ -37,6 +39,16 @@ takes xa already scaled: it is timed with and without the three
 elementwise passes that fold the scale; `mft_decode_attention`). Each
 variant's output is held against the source's (bit for bit for the
 epilogue, within 2e-2 for the decode), and times are taken in turns.
+
+With --row12 it times row 12 instead (bf16, chip_smoke.py's inputs of
+its `serving` and `gemma_serve` cases): `csrc/paged_decode_attention_vec.cu`
+at its plan's chunk split and at other columns a chunk, beside the
+library chain (the pages gathered, then SDPA) and the `--paged`
+variants. A variant exports the source's C entry (run at the plan's
+split) or the first version's, `mft_paged_decode_attention` (e.g. the
+parent commit's csrc/paged_decode_attention.cu, which took bf16: the
+first version in turns with the new source). Each output is held
+against the source's within 2e-2, and times are taken in turns.
 """
 
 from __future__ import annotations
@@ -242,6 +254,112 @@ def rows_5_13(args, torch, build, out_dir) -> int:
     return 0
 
 
+def profiled(torch, fn, calls=10):
+    """[(kernel, device us a call)] of fn from torch.profiler: each
+    kernel's own time on the card, launch gaps left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    return [(e.key[:60], e.device_time_total / calls)
+            for e in prof.key_averages() if e.device_time_total > 0]
+
+
+def row_12(args, torch, build, out_dir) -> int:
+    """Row 12: the source at its plan's split and at other chunk sizes,
+    beside the library chain and the --paged variants (module
+    docstring)."""
+    import chip_smoke as cs
+    from mobilefinetuner_tpu_torch.ops import decode_attention as da
+    variants = [("paged", f"paged_{name}", path) for name, path in
+                (v.split("=", 1) for v in args.paged)]
+    libs = build_variants(build, variants, out_dir,
+                          ["paged_decode_attention_vec"])
+    dev = torch.device("cuda", 0)
+    torch.cuda._sleep(int(2e9))          # the card's clocks up
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def entry(lib, sym, n_ptrs, n_ints):
+        fn = getattr(lib, sym)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+
+    src = entry(build.load("paged_decode_attention_vec"),
+                "mft_paged_decode_attention_vec", 7, 12)
+    cases = {c[0]: c for c in cs.PAGED_CASES}
+    result = {}
+    for case in ("serving", "gemma_serve"):
+        _, _, S, KV, G, D, bT, M, L, window, _ = cases[case]
+        q, pk, pv, tbl, ok = cs.paged_inputs(
+            torch, dev, torch.bfloat16, S, KV, G, D, bT, M, L, seed=S * D,
+            window=window)
+        layer, scale = L - 1, D ** -0.5
+        NB = pk.shape[0]
+        want = da.paged_decode_attention(q, pk, pv, tbl, layer, ok, scale)
+        plan = da.paged_plan(S, KV, G, M, bT, D, torch.bfloat16, n_sm)
+        ctx = torch.empty_like(want)
+        ptrs = (q, pk, pv, tbl, ok, ctx)
+
+        def split(fn, cpc):
+            nc = -(-M * bT // cpc)
+            ws = torch.empty(max(1, nc * S * KV * G * (D + 2)), device=dev)
+
+            def call():
+                build.check_launch("paged", fn(
+                    *(t.data_ptr() for t in ptrs), ws.data_ptr(), S, KV, G,
+                    D, NB, L, layer, bT, M, cpc, nc, 1, scale, stream))
+                return ctx
+            return call
+        fns = {f"source (plan: {plan['n_chunks']} chunks of {plan['cpc']} "
+               f"columns)": lambda: da.paged_decode_attention(
+                   q, pk, pv, tbl, layer, ok, scale)}
+        max_cpc = da.PAGED_VEC_ROW_SLOTS * 256 // D
+        for cpc in sorted({bT, 2 * bT, 4 * bT, M * bT // 2, M * bT,
+                           max_cpc - max_cpc % bT}):
+            if cpc != plan["cpc"] and cpc <= max_cpc:
+                fns[f"cpc {cpc} ({-(-M * bT // cpc)} chunks)"] = split(src,
+                                                                      cpc)
+        for name, (kind, lib) in libs.items():
+            if hasattr(lib, "mft_paged_decode_attention_vec"):
+                fns[name] = split(entry(lib, "mft_paged_decode_attention_vec",
+                                        7, 12), plan["cpc"])
+                continue
+            first = entry(lib, "mft_paged_decode_attention", 6, 10)
+
+            def first_call(fn=first):
+                build.check_launch("paged", fn(
+                    *(t.data_ptr() for t in ptrs), S, KV, G, D, NB, L, layer,
+                    bT, M, 1, scale, stream))
+                return ctx
+            fns[name] = first_call
+        for name, fn in fns.items():
+            err = cs.max_err(fn(), want)
+            torch.cuda.synchronize()
+            if not err <= 2e-2:
+                raise RuntimeError(f"paged {case}: {name} is {err} from "
+                                   f"the source")
+        fns["library chain"] = cs.paged_library_chain(
+            torch, q, pk, pv, tbl, layer, ok, scale)
+        result[case] = in_turns(
+            fns, lambda fn: cs.queued_ms(fn, args.iters) * 1e3)
+        print(f"paged {case} (q {S}x{KV}x{G}x{D}, {M} pages of {bT}, "
+              f"{int(ok.sum())} columns attendable, bf16): device us, in "
+              f"turns: {result[case]}", flush=True)
+        if args.profile:
+            for name, fn in fns.items():
+                for kernel, us in profiled(torch, fn):
+                    print(f"paged {case}: profile {name}: {kernel} "
+                          f"{us:.2f} us", flush=True)
+    print(json.dumps({"kernel_variants": {"paged": result}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -260,6 +378,8 @@ def main() -> int:
     ap.add_argument("--rows5_13", action="store_true")
     ap.add_argument("--epi", action="append", default=[])
     ap.add_argument("--decode", action="append", default=[])
+    ap.add_argument("--row12", action="store_true")
+    ap.add_argument("--paged", action="append", default=[])
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -268,6 +388,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     if args.rows5_13:
         return rows_5_13(args, torch, build, out_dir)
+    if args.row12:
+        return row_12(args, torch, build, out_dir)
     variants = [("fwd", *v.split("=", 1)) for v in args.fwd] + \
         [("dbt", *v.split("=", 1)) for v in args.dbt]
     procs = {}
@@ -387,18 +509,9 @@ def main() -> int:
             f"{k} {' / '.join(f'{x:.2f}' for x in v)}"
             for k, v in times.items()), flush=True)
         if args.profile and shape == "gemma_chunk":
-            from torch.profiler import ProfilerActivity, profile
             for kind in ("fwd", "dbt"):
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(10):
-                        fns[kind]()
-                        torch.cuda.synchronize()
-                for e in prof.key_averages():
-                    if e.device_time_total > 0:
-                        print(f"{shape}: profile {kind}: {e.key[:60]} "
-                              f"{e.device_time_total / e.count:.2f} us "
-                              f"x {e.count}")
+                for kernel, us in profiled(torch, fns[kind]):
+                    print(f"{shape}: profile {kind}: {kernel} {us:.2f} us")
     print(json.dumps({"kernel_variants": result}))
     return 0
 

@@ -1,23 +1,24 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a), f32: the first version.
 //
 // Replaces: mobilefinetuner_tpu/ops/decode_attention.py `_paged_kernel`
-// (launched by `paged_decode_attention`): one query token per slot
-// attends its pages of the shared block pool [NB, L, KV, bT, D], page
-// tbl[s, m] of `layer`, with an online softmax across pages.
+// (launched by `paged_decode_attention`) for f32 pools: one query token
+// per slot attends its pages of the shared block pool [NB, L, KV, bT, D],
+// page tbl[s, m] of `layer`, with an online softmax across pages. bf16
+// and f16 pools run csrc/paged_decode_attention_vec.cu.
 //
 // Rounding follows the TPU kernel: q is in the pool dtype (the wrapper
 // refuses anything else), scores and the running sums are f32, the
 // probabilities are re-masked after exp (a fully masked page adds
-// exactly 0) and cast to the pool dtype before P.V, which accumulates in
-// f32. ctx is f32.
+// exactly 0; a masked row of a live page is skipped in P.V, so a NaN or
+// Inf there adds 0 too). ctx is f32.
 //
 // Bound on this card: memory. Each (slot, kv-head) reads its live K and V
-// pages once, bT * D * 2 bytes each (64 KB a slot-head at 16 pages of
-// 16 x 64 bf16); the arithmetic is 4 * D flops a key. Design: the block
-// reads its own table row (there is no scalar prefetch); one CTA of four
-// warps per (kv-head x query group, slot); the warps take pages round
-// robin and walk a page as rows of 16-byte vector loads (D * size / 16
-// lanes a row), reduce each score over those lanes with shuffles, keep
+// pages once, bT * D * 4 bytes each; the arithmetic is 4 * D flops a key.
+// Design: the block reads its own table row (there is no scalar
+// prefetch); one CTA of four warps per (kv-head x query group, slot); the
+// warps take pages round robin and walk a page as rows of 16-byte vector
+// loads (D / 4 lanes a row, at most 32: at D 256 two loads a lane),
+// reduce each score over those lanes with shuffles, keep
 // their own (m, l, acc) and merge them in shared memory at the end. A
 // page with no attendable column is skipped before its K/V are read,
 // which is exact because it would add 0; the `ok` mask stays an input,
@@ -26,11 +27,9 @@
 //
 // C interface (ctypes): mft_paged_decode_attention returns the CUDA error
 // code of the launch (0 on success). Shapes: q [S, KV, G, D] and the
-// pools [NB, L, KV, bT, D] contiguous in one dtype (0 f32, 1 bf16,
-// 2 f16); tbl [S, M] int32; ok [S, M * bT] bool; ctx [S, KV, G, D] f32.
+// pools [NB, L, KV, bT, D] contiguous in f32 (dtype 0); tbl [S, M] int32;
+// ok [S, M * bT] bool; ctx [S, KV, G, D] f32.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,21 +39,6 @@ constexpr int WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-// p rounded to the pool dtype (and back to f32 for the FMA)
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ float round_to(float x, __half) {
-  return __half2float(__float2half(x));
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
@@ -63,12 +47,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     const unsigned char* __restrict__ ok,
                     float* __restrict__ ctx, int KV, int G, int NB, int L,
                     int layer, int bT, int M, float scale) {
-  constexpr int VEC = 16 / sizeof(T);   // elements of one 16-byte load
-  constexpr int LPR = D / VEC;          // lanes reading one K row
-  constexpr int RPP = 32 / LPR;         // K rows a warp reads at once
-  constexpr int DPL = D / 32;           // ctx columns a lane accumulates
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row split");
-  static_assert(DPL >= 1, "D >= 32");
+  constexpr int VEC = 16 / sizeof(T);                  // one 16-byte load
+  constexpr int LPR = D / VEC < 32 ? D / VEC : 32;     // lanes on a K row
+  constexpr int EPL = D / LPR;                         // its elements a lane
+  constexpr int LOADS = EPL / VEC;                     // its loads a lane
+  constexpr int RPP = 32 / LPR;                        // K rows a warp reads
+  constexpr int DPL = D / 32;                          // ctx columns a lane
+  static_assert(LPR >= 1 && 32 % LPR == 0, "row split");
+  static_assert(EPL % VEC == 0 && DPL >= 1, "D in {64, 128, 256}");
 
   extern __shared__ float sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -79,10 +65,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 
   const int kvg = blockIdx.x, kv = kvg / G, s = blockIdx.y;
   const size_t qrow = ((size_t)s * KV * G + kvg) * D;
-  const int d0 = (lane % LPR) * VEC;
-  float qv[VEC];
+  const int d0 = (lane % LPR) * EPL;
+  float qv[EPL];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) qv[e] = to_f32(q[qrow + d0 + e]);
+  for (int e = 0; e < EPL; ++e) qv[e] = q[qrow + d0 + e];
 
   const int* trow = tbl + (size_t)s * M;
   const unsigned char* okrow = ok + (size_t)s * M * bT;
@@ -105,11 +91,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       const int t = t0 + lane / LPR;
       float part = 0.f;
       if (t < bT) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(kpg + (size_t)t * D + d0);
-        const T* kel = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) part = fmaf(qv[e], to_f32(kel[e]), part);
+        for (int ld = 0; ld < LOADS; ++ld) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              kpg + (size_t)t * D + d0 + ld * VEC);
+          const T* kel = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            part = fmaf(qv[ld * VEC + e], kel[e], part);
+        }
       }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1)
@@ -140,10 +130,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
     for (int t = 0; t < bT; ++t) {
-      const float p = round_to(s_w[t], T());
+      if (!okp[t]) continue;   // p = 0: the row is not read
+      const float p = s_w[t];
       const T* vr = vpg + (size_t)t * D + lane * DPL;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, to_f32(vr[i]), acc[i]);
+      for (int i = 0; i < DPL; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
     }
     __syncwarp();   // s_w is rewritten by the next page
   }
@@ -197,6 +188,9 @@ int dispatch_d(int D, const void* q, const void* pk, const void* pv,
     case 128:
       return launch<T, 128>(q, pk, pv, tbl, ok, ctx, S, KV, G, NB, L, layer,
                             bT, M, scale, st);
+    case 256:
+      return launch<T, 256>(q, pk, pv, tbl, ok, ctx, S, KV, G, NB, L, layer,
+                            bT, M, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -211,28 +205,10 @@ extern "C" int mft_paged_decode_attention(const void* q, const void* pool_k,
                                           int layer, int bT, int M,
                                           int dtype, float scale,
                                           void* stream) {
-  if (S <= 0 || KV <= 0 || G <= 0 || NB <= 0 || bT <= 0 || M <= 0 ||
-      layer < 0 || layer >= L)
+  if (S <= 0 || S > 65535 || KV <= 0 || G <= 0 || NB <= 0 || bT <= 0 ||
+      M <= 0 || layer < 0 || layer >= L || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_d<float>(D, q, pool_k, pool_v, tbl, ok, ctx, S, KV, G,
-                               NB, L, layer, bT, M, scale, st);
-    case 1:
-      if (D == 256)
-        return launch<__nv_bfloat16, 256>(q, pool_k, pool_v, tbl, ok, ctx, S,
-                                          KV, G, NB, L, layer, bT, M, scale,
-                                          st);
-      return dispatch_d<__nv_bfloat16>(D, q, pool_k, pool_v, tbl, ok, ctx, S,
-                                       KV, G, NB, L, layer, bT, M, scale, st);
-    case 2:
-      if (D == 256)
-        return launch<__half, 256>(q, pool_k, pool_v, tbl, ok, ctx, S, KV, G,
-                                   NB, L, layer, bT, M, scale, st);
-      return dispatch_d<__half>(D, q, pool_k, pool_v, tbl, ok, ctx, S, KV, G,
-                                NB, L, layer, bT, M, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_d<float>(D, q, pool_k, pool_v, tbl, ok, ctx, S, KV, G, NB,
+                           L, layer, bT, M, scale,
+                           static_cast<cudaStream_t>(stream));
 }

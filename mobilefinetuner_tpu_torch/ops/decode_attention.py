@@ -42,12 +42,19 @@ Block-paged pool (the serve engine):
 
   paged_attention         the plain version: gather the slot's pages,
                           masked softmax, f32 accumulation.
-  paged_decode_attention  CUDA tensors launch `csrc/
-                          paged_decode_attention.cu` (or raise); CPU
-                          tensors take paged_attention.
+  paged_decode_attention  CUDA tensors launch the kernel of
+                          paged_library(dtype) (or raise ValueError):
+                          bf16 / f16 `csrc/paged_decode_attention_vec.cu`
+                          (each lane's K/V rows loaded straight into
+                          registers, chunks merged in order), f32
+                          `csrc/paged_decode_attention.cu`; CPU tensors
+                          take paged_attention.
                           `paged_decode_attention.launches` counts the
-                          kernel launches.
-  paged_eligible          the kernel's own shape rule.
+                          calls that launched a kernel.
+  paged_eligible          the kernels' own shape rule.
+  paged_plan              the 16-bit kernel's split of the M * bT logical
+                          columns into chunks (from shapes only), its
+                          grid, warps, shared memory and workspace.
 """
 
 from __future__ import annotations
@@ -71,6 +78,11 @@ DECODE_MMA_MAX_CHUNKS = 128          # its MERGE_MAX_CHUNKS
 # CTAs an SM the chunk split aims at: at GPT-2's generate step 6 chunks of
 # one tile took 8.96 us against 9.65 for 3 of two on an H100 (PERF.md)
 DECODE_MMA_CTAS_PER_SM = 4
+PAGED_HEAD_DIMS = (64, 128, 256)
+PAGED_VEC_ROW_SLOTS = 96      # csrc/paged_decode_attention_vec.cu ROW_SLOTS
+PAGED_VEC_MAX_QG = 4          # its MAX_QG: query heads a CTA
+PAGED_VEC_MAX_CHUNKS = 4096   # its MAX_CHUNKS
+PAGED_VEC_MIN_COLS = 32       # the fewest columns a chunk
 
 
 def xla_reference(q, k_cache, v_cache, ok, scale):
@@ -237,18 +249,86 @@ def paged_attention(q, pool_k, pool_v, tbl, layer, ok, scale):
 
 
 def paged_eligible(KV: int, G: int, bT: int, D: int, itemsize: int) -> bool:
-    """The kernel takes D in {64, 128} (and 256 for 2-byte dtypes: a K
-    row must fit one warp's 16-byte loads) and pages of at most
-    MAX_BLOCK_T tokens (their scores live in shared memory)."""
+    """The kernels take D in PAGED_HEAD_DIMS in f32, bf16 and f16, pages
+    of at most MAX_BLOCK_T tokens (the f32 kernel keeps a page's scores
+    in shared memory) and any KV, G >= 1 (the 16-bit kernel: KV * its
+    query-head groups up to MAX_BATCH, its grid's second dimension)."""
     return (KV >= 1 and G >= 1 and 1 <= bT <= MAX_BLOCK_T
-            and itemsize in (2, 4)
-            and (D in (64, 128) or (D == 256 and itemsize == 2)))
+            and D in PAGED_HEAD_DIMS and itemsize in (2, 4)
+            and (itemsize == 4 or KV * -(-G // _paged_qg(G)) <= MAX_BATCH))
 
 
-def _kernel():
-    fn = build.load("paged_decode_attention").mft_paged_decode_attention
+def paged_library(dtype: torch.dtype):
+    """(source, C symbol) of the paged decode kernel for `dtype`: bf16 and
+    f16 the kernel that loads a chunk's K/V rows into registers, f32 the
+    first version."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "paged_decode_attention_vec", "mft_paged_decode_attention_vec"
+    if dtype == torch.float32:
+        return "paged_decode_attention", "mft_paged_decode_attention"
+    raise ValueError(f"paged_decode_attention kernel takes one dtype of "
+                     f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
+
+
+def _paged_qg(G: int) -> int:
+    """Query heads a CTA of the 16-bit kernel (its QG instantiations)."""
+    return G if G <= 2 else PAGED_VEC_MAX_QG
+
+
+def paged_plan(S: int, KV: int, G: int, M: int, bT: int, D: int,
+               dtype: torch.dtype, n_sm: int = N_SM) -> dict:
+    """The 16-bit kernel's launch, from shapes only (never from the mask
+    or the table, so a CUDA graph can capture it): one CTA per (chunk of
+    `cpc` logical columns, kv head, group of up to PAGED_VEC_MAX_QG query
+    heads, slot), grid (n_chunks, KV * n_qg, S), `warps` warps a CTA.
+    The chunk count is the most that keeps the CTAs within one wave (n_sm;
+    one chunk where the units alone are more than half a wave: no merge);
+    a chunk holds at least PAGED_VEC_MIN_COLS columns (where there are
+    that many), whole pages where they fit, and at most the rows its
+    lanes hold in registers: PAGED_VEC_ROW_SLOTS passes of 256 / D rows.
+    `ws_floats`: the partials' workspace (m, l and acc [G, D] a chunk),
+    none for one chunk."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"paged_decode_attention 16-bit kernel takes bf16 "
+                         f"or f16, got {dtype}")
+    qg = _paged_qg(G)
+    n_qg = -(-G // qg) if G >= 1 else 0
+    if D not in PAGED_HEAD_DIMS or min(S, KV, G, M) < 1 \
+            or not 1 <= bT <= MAX_BLOCK_T or S > MAX_BATCH \
+            or KV * n_qg > MAX_BATCH:
+        raise ValueError(f"paged_decode_attention 16-bit kernel does not "
+                         f"take S={S}, KV={KV}, G={G}, M={M}, bT={bT}, "
+                         f"D={D}")
+    cols = M * bT
+    max_cpc = PAGED_VEC_ROW_SLOTS * 256 // D
+    if bT <= max_cpc:
+        max_cpc -= max_cpc % bT               # whole pages
+    want = max(1, n_sm // (S * KV * n_qg))    # chunks a unit
+    cpc = max(-(-cols // want), min(cols, PAGED_VEC_MIN_COLS))
+    if cpc >= bT:
+        cpc = -(-cpc // bT) * bT
+    cpc = min(cpc, max_cpc)
+    n_chunks = -(-cols // cpc)
+    if n_chunks > PAGED_VEC_MAX_CHUNKS:
+        raise ValueError(f"paged_decode_attention 16-bit kernel does not "
+                         f"take {cols} columns a slot at D={D} "
+                         f"({n_chunks} chunks)")
+    warps = 8 if qg == PAGED_VEC_MAX_QG else 16
+    smem = (2 * warps * qg + warps * qg * D) * 4
+    return {"cpc": cpc, "n_chunks": n_chunks, "qg": qg, "n_qg": n_qg,
+            "grid": (n_chunks, KV * n_qg, S), "warps": warps,
+            "smem_bytes": smem,
+            "ws_floats": n_chunks * S * KV * G * (D + 2)
+            if n_chunks > 1 else 0}
+
+
+def _paged_kernel(dtype):
+    lib, sym = paged_library(dtype)
+    fn = getattr(build.load(lib), sym)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        vec = lib == "paged_decode_attention_vec"
+        fn.argtypes = ([ctypes.c_void_p] * (7 if vec else 6)
+                       + [ctypes.c_int] * (12 if vec else 10)
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -287,16 +367,29 @@ def paged_decode_attention(q, pool_k, pool_v, tbl, layer, ok, scale):
     if not 0 <= int(layer) < L:
         raise ValueError(f"layer {layer} outside [0, {L})")
     ts = (q, pool_k, pool_v, tbl, ok)
-    if not all(t.is_contiguous() for t in ts) \
-            or pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
-        raise ValueError("paged_decode_attention takes contiguous operands "
-                         "and 16-byte aligned pools")
+    if not all(t.is_contiguous() for t in ts) or S > MAX_BATCH \
+            or any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError("paged_decode_attention takes contiguous operands, "
+                         f"16-byte aligned pools and q, and S <= "
+                         f"{MAX_BATCH}")
     ctx = torch.empty(S, KV, G, D, device=dev, dtype=torch.float32)
-    code = _kernel()(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tbl.data_ptr(),
-        ok.data_ptr(), ctx.data_ptr(), S, KV, G, D, NB, L, int(layer), bT,
-        M, DTYPE_CODES[q.dtype], float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            tbl.data_ptr(), ok.data_ptr(), ctx.data_ptr())
+    if paged_library(q.dtype)[0] == "paged_decode_attention_vec":
+        plan = paged_plan(S, KV, G, M, bT, D, q.dtype,
+                          torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+        ws = (torch.empty(plan["ws_floats"], device=dev)
+              if plan["ws_floats"] else None)
+        code = _paged_kernel(q.dtype)(
+            *ptrs, None if ws is None else ws.data_ptr(), S, KV, G, D, NB,
+            L, int(layer), bT, M, plan["cpc"], plan["n_chunks"],
+            DTYPE_CODES[q.dtype], float(scale), stream)
+    else:
+        code = _paged_kernel(q.dtype)(
+            *ptrs, S, KV, G, D, NB, L, int(layer), bT, M,
+            DTYPE_CODES[q.dtype], float(scale), stream)
     build.check_launch("paged_decode_attention", code)
     paged_decode_attention.launches += 1
     return ctx

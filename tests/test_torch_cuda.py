@@ -68,8 +68,17 @@ def test_flash_kernel_matches_plain(dev, dtype, D, Hkv, S, window, tol):
 
 @pytest.mark.parametrize("dtype,G,D,tol", [
     (torch.float32, 2, 64, 1e-4), (torch.bfloat16, 1, 64, 2e-2),
-    (torch.bfloat16, 4, 256, 2e-2)])
+    (torch.bfloat16, 4, 256, 2e-2), (torch.float16, 1, 64, 2e-2),
+    (torch.float16, 4, 256, 2e-2), (torch.float32, 4, 256, 1e-4),
+    (torch.bfloat16, 2, 128, 2e-2), (torch.bfloat16, 6, 64, 2e-2)])
 def test_paged_kernel_matches_plain(dev, dtype, G, D, tol):
+    """Row 12 against paged_attention: bf16 / f16 on
+    paged_decode_attention_vec.cu (one chunk at G 1, several with a merge
+    where the slots are few), f32 on paged_decode_attention.cu, D 256 in
+    f32 too. Every pool row no slot attends (masked columns of live
+    pages, unused table rows, the trash page but the idle slot's column)
+    poisoned with Inf in K and NaN in V leaves ctx bit for bit as it was;
+    two calls are bit-identical; a CUDA graph of the call replays it."""
     S, KV, bT, M, L = 5, 2, 16, 4, 3
     NB = S * M + 1
     pk = _randn(dev, dtype, NB, L, KV, bT, D, seed=4)
@@ -82,13 +91,38 @@ def test_paged_kernel_matches_plain(dev, dtype, G, D, tol):
         tbl[s, :int(pos[s]) // bT + 1] = torch.arange(
             1 + s * M, 1 + s * M + int(pos[s]) // bT + 1)
     ok = torch.arange(M * bT)[None] <= pos[:, None]
+    ok[0, :20] = False                       # a window: a whole page out
+    attended = torch.zeros(NB, bT, dtype=torch.bool)
+    for s in range(S):
+        cols = torch.nonzero(ok[s]).flatten()
+        attended[tbl[s, cols // bT].long(), cols % bT] = True
     tbl, ok = tbl.to(dev), ok.to(dev)
     n0 = da.paged_decode_attention.launches
     ctx = da.paged_decode_attention(q, pk, pv, tbl, 2, ok, D ** -0.5)
     assert da.paged_decode_attention.launches == n0 + 1
     ref = da.paged_attention(q, pk, pv, tbl, 2, ok, D ** -0.5)
     torch.cuda.synchronize()
+    assert bool(torch.isfinite(ctx).all())
     assert float((ctx - ref).abs().max()) <= tol
+    dead = ~attended.to(dev)[:, None, None, :, None]
+    kp = pk.masked_fill(dead, float("inf"))
+    vp = pv.masked_fill(dead, float("nan"))
+    poisoned = da.paged_decode_attention(q, kp, vp, tbl, 2, ok, D ** -0.5)
+    again = da.paged_decode_attention(q, kp, vp, tbl, 2, ok, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, ctx) and torch.equal(again, ctx)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.paged_decode_attention(q, kp, vp, tbl, 2, ok, D ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = da.paged_decode_attention(q, kp, vp, tbl, 2, ok,
+                                             D ** -0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, ctx)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -508,8 +542,8 @@ def test_lora_epilogue_add_grads_match_the_composition(dev, dtype):
 
 
 def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
-    """bf16 / f16 load lora_epilogue_vec.cu and decode_attention_mma.cu,
-    f32 the first versions."""
+    """bf16 / f16 load lora_epilogue_vec.cu, decode_attention_mma.cu and
+    paged_decode_attention_vec.cu, f32 the first versions."""
     loaded = []
     real = build.load
 
@@ -530,6 +564,14 @@ def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
         da.decode_attention(q, kc, vc, ok, 0.125)
         assert loaded == ["decode_attention_mma" if mma
                           else "decode_attention"]
+        pq = _randn(dev, dtype, 2, 1, 4, 256, seed=6)
+        pk = _randn(dev, dtype, 3, 1, 1, 16, 256, seed=7)
+        tbl = torch.ones(2, 1, dtype=torch.int32, device=dev)
+        loaded.clear()
+        da.paged_decode_attention(pq, pk, pk, tbl, 0,
+                                  ok[:, :16].contiguous(), 0.0625)
+        assert loaded == ["paged_decode_attention_vec" if mma
+                          else "paged_decode_attention"]
     torch.cuda.synchronize()
 
 

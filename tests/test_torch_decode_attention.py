@@ -4,7 +4,11 @@ decode_attention.py) against the JAX package's, on the CPU.
 Paged (row 12): `paged_attention` and the Pallas `paged_decode_attention`
 (interpret mode) on the same numpy pools, tables and masks; covers
 trash-padded table rows, idle slots (pos 0 on the trash page), a
-sliding-window mask and G = 2 query groups. Contiguous (row 13):
+sliding-window mask, G = 2 query groups and Gemma-3-270M's serve shape
+in f32 (KV 1, G 4, bT 16, D 256). The 16-bit kernel's chunked split
+(chunks of logical columns, partials merged in chunk order), in plain
+torch, equals paged_attention within 1e-6 in f32 for paged_plan's
+split and others, whole chunks masked by a window. Contiguous (row 13):
 `xla_reference` and the Pallas `decode_attention` (interpret mode) at the
 JAX test's four shapes, and `xla_reference` alone at ragged T (the TPU
 kernel takes T % 8 == 0 only; the port's kernel any T); masked columns
@@ -107,9 +111,117 @@ def test_paged_validation_and_eligibility():
             torch.from_numpy(ok), 0.125)
     assert port.paged_eligible(12, 1, 16, 64, 2)     # GPT-2 small, bf16
     assert port.paged_eligible(1, 4, 16, 256, 2)     # Gemma-shaped GQA
-    assert not port.paged_eligible(1, 4, 16, 256, 4)
+    assert port.paged_eligible(1, 4, 16, 256, 4)     # the same in f32
     assert not port.paged_eligible(4, 1, 16, 16, 4)   # tiny test head dim
     assert not port.paged_eligible(4, 1, 4096, 64, 2)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_matches_jax_at_gemma_f32_d256(window):
+    """Gemma-3-270M's serve shape in f32 (KV 1, G 4, bT 16, D 256), which
+    the JAX kernel takes and the port's f32 kernel now takes too: the
+    plain version against the Pallas kernel (interpret mode) and the JAX
+    plain version within 1e-5."""
+    q, pk, pv, tbl, ok = _case(21, S=4, KV=1, G=4, D=256, bT=16, M=4,
+                               NB=14, L=2, window=window)
+    (jq, jk, jv), (tq, tk, tv) = _to("float32", q, pk, pv)
+    layer, scale = 1, 256 ** -0.5
+    want_x = np.asarray(jax_paged_attention(
+        jq, jk, jv, jnp.asarray(tbl), layer, jnp.asarray(ok), scale))
+    want_k = np.asarray(jax_paged_decode_attention(
+        jq, jk, jv, jnp.asarray(tbl), layer, jnp.asarray(ok), scale))
+    got = port.paged_decode_attention(tq, tk, tv, torch.from_numpy(tbl),
+                                      layer, torch.from_numpy(ok), scale)
+    assert port.paged_eligible(1, 4, 16, 256, 4)
+    for want in (want_x, want_k):
+        assert np.max(np.abs(got.numpy() - want)) <= 1e-5
+
+
+# ------------- row 12's chunked split (the 16-bit kernel, plain torch) ----
+
+def _paged_chunked_reference(q, pool_k, pool_v, tbl, layer, ok, scale, cpc,
+                             p_dtype=None):
+    """The 16-bit kernel's algorithm in plain torch (f64): the M * bT
+    logical columns cut into chunks of `cpc` (a chunk may end inside a
+    page), each chunk's scores over its attendable columns, its max m,
+    p = exp(s - m) (rounded to `p_dtype` before P.V where given, l from
+    the unrounded p) giving partials (m, l, acc), merged in chunk order
+    with chunks of l = 0 selected out."""
+    S, KV, G, D = q.shape
+    bT = pool_k.shape[3]
+    kc = pool_k[tbl.long(), layer].double()       # [S, M, KV, bT, D]
+    vc = pool_v[tbl.long(), layer].double()
+    cols = tbl.shape[1] * bT
+    kc = kc.permute(0, 2, 1, 3, 4).reshape(S, KV, cols, D)
+    vc = vc.permute(0, 2, 1, 3, 4).reshape(S, KV, cols, D)
+    qd = q.double()
+    parts = []
+    for c0 in range(0, cols, cpc):
+        sl = slice(c0, min(c0 + cpc, cols))
+        okc = ok[:, None, None, sl]
+        s = torch.einsum("skgd,sktd->skgt", qd, kc[:, :, sl]) * scale
+        s = torch.where(okc, s, port.NEG_INF)
+        m = s.max(-1).values
+        p = torch.where(okc, torch.exp(s - m[..., None]), 0.0)
+        pr = p if p_dtype is None else p.to(p_dtype).double()
+        parts.append((m, p.sum(-1),
+                      torch.einsum("skgt,sktd->skgd", pr, vc[:, :, sl])))
+    mmax = torch.full((S, KV, G), port.NEG_INF, dtype=torch.float64)
+    for m, l, _ in parts:
+        mmax = torch.where(l > 0, torch.maximum(mmax, m), mmax)
+    num = torch.zeros(S, KV, G, D, dtype=torch.float64)
+    den = torch.zeros(S, KV, G, dtype=torch.float64)
+    for m, l, acc in parts:
+        f = torch.where(l > 0, torch.exp(m - mmax), 0.0)
+        num = num + f[..., None] * acc
+        den = den + f * l
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp_min(1e-300)[..., None], 0.0)
+
+
+@pytest.mark.parametrize("case", [
+    # (S, KV, G, D, bT, M, window, plan shapes (S, KV) for the split)
+    (8, 12, 1, 64, 16, 12, None, None),        # GPT-2's serve step: 1 chunk
+    (3, 1, 4, 256, 16, 12, 60, None),          # Gemma: 3-page chunks
+    (3, 1, 4, 256, 16, 12, 60, (1, 1)),        # more chunks, masked ones
+    (2, 2, 2, 128, 64, 3, 30, (1, 1)),         # chunks end inside a page
+    (4, 2, 6, 64, 8, 7, None, (2, 1)),         # two groups of query heads
+])
+def test_paged_chunked_split_matches_plain(case):
+    """Per-chunk partials merged in chunk order, for paged_plan's own
+    split and for others (one chunk, one page a chunk, 7 columns a chunk),
+    equal paged_attention within 1e-6 in f32, with whole chunks masked by
+    the window and the idle slot on the trash page."""
+    S, KV, G, D, bT, M, window, plan_shape = case
+    q, pk, pv, tbl, ok = _case(S + D, S=S, KV=KV, G=G, D=D, bT=bT, M=M,
+                               NB=S * M + 1, L=2, window=window)
+    tq, tk, tv, tt, tok = (torch.from_numpy(a) for a in (q, pk, pv, tbl, ok))
+    scale = D ** -0.5
+    want = port.paged_attention(tq, tk, tv, tt, 1, tok, scale).double()
+    ps, pkv = plan_shape or (S, KV)
+    plan = port.paged_plan(ps, pkv, G, M, bT, D, torch.bfloat16)
+    cols = M * bT
+    for cpc in sorted({plan["cpc"], cols, bT, 7}):
+        got = _paged_chunked_reference(tq, tk, tv, tt, 1, tok, scale, cpc)
+        assert float((got - want).abs().max()) <= 1e-6, cpc
+    if window is not None:   # a whole chunk with no attendable column
+        c = plan["cpc"]
+        assert any(not ok[s, c0:c0 + c].any()
+                   for s in range(S) for c0 in range(0, cols, c))
+
+
+def test_paged_chunked_split_rounds_p_within_bf16():
+    """With p rounded to bf16 before P.V, the chunked split stays within
+    the bf16 tolerance of paged_attention on bf16 pools."""
+    q, pk, pv, tbl, ok = _case(7, S=3, KV=1, G=4, D=256, bT=16, M=8, NB=25,
+                               L=1, window=70)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, pk, pv))
+    tt, tok = torch.from_numpy(tbl), torch.from_numpy(ok)
+    want = port.paged_attention(tq, tk, tv, tt, 0, tok, 0.0625).double()
+    for cpc in (16, 48, 128):
+        got = _paged_chunked_reference(tq, tk, tv, tt, 0, tok, 0.0625, cpc,
+                                       p_dtype=torch.bfloat16)
+        assert float((got - want).abs().max()) <= TOLS["bfloat16"]
 
 
 # ------------------------------------------------ contiguous cache (row 13)

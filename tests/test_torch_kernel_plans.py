@@ -19,8 +19,12 @@ plain versions' (lse, gold) and dbt; row 5's vector kernel
 once with each warp on neighbouring vectors and fills the card; row 13's
 flash-decoding split (`ops/decode_attention.decode_mma_plan`) covers
 every key tile once, and its fragment map, replayed, computes the plain
-version's ctx; and the dtype picks the library: bf16 / f16 the `_mma` (and
-`_vec`) sources, f32 the FMA ones. No card needed."""
+version's ctx; row 12's chunk split (`ops/decode_attention.paged_plan`)
+covers every logical column, so every live page's rows, once, and its
+lane map loads each K and V element of a chunk once, a row's lanes on
+contiguous bytes; and the dtype picks the library: bf16 /
+f16 the `_mma` (and `_vec`) sources, f32 the FMA ones. No card
+needed."""
 
 import itertools
 import os
@@ -62,7 +66,9 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "ce_fwd_lora": ("fused_ce_fwd_lora_mma", "mft_fused_ce_fwd_lora_mma"),
     "dbt": ("fused_ce_dbt_mma", "mft_fused_ce_dbt_mma"),
     "epi": ("lora_epilogue_vec", "mft_lora_epilogue_vec"),
-    "decode": ("decode_attention_mma", "mft_decode_attention_mma")}
+    "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
+    "paged": ("paged_decode_attention_vec",
+              "mft_paged_decode_attention_vec")}
 FMA_LIBS = {  # the FMA kernels' for f32
     "fwd": ("flash_attention_fwd", "mft_flash_attention_fwd"),
     "bwd": ("flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"),
@@ -73,12 +79,13 @@ FMA_LIBS = {  # the FMA kernels' for f32
     "ce_fwd_lora": ("fused_ce", "mft_fused_ce_fwd_lora"),
     "dbt": ("fused_ce", "mft_fused_ce_dw_lora"),
     "epi": ("lora_epilogue", "mft_lora_epilogue"),
-    "decode": ("decode_attention", "mft_decode_attention")}
+    "decode": ("decode_attention", "mft_decode_attention"),
+    "paged": ("paged_decode_attention", "mft_paged_decode_attention")}
 ROUTES = {"fwd": fa.fwd_library, "dh": fc.dh_library, "dw": fc.dw_library,
           "dh_lora": fc.dh_lora_library, "bwd": fa.bwd_library,
           "ce_fwd": fc.fwd_library, "ce_fwd_lora": fc.fwd_lora_library,
           "dbt": fc.dbt_library, "epi": lf.epilogue_library,
-          "decode": da.decode_library}
+          "decode": da.decode_library, "paged": da.paged_library}
 
 
 @pytest.mark.parametrize("dtype,fwd,dh", [
@@ -104,7 +111,8 @@ def test_dtype_without_a_kernel_raises(dtype):
 
 
 @pytest.mark.parametrize("key", ["dw", "dh_lora", "bwd", "ce_fwd",
-                                 "ce_fwd_lora", "dbt", "epi", "decode"])
+                                 "ce_fwd_lora", "dbt", "epi", "decode",
+                                 "paged"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int8,
                                    torch.complex64])
 def test_new_routes_raise_for_other_dtypes(key, dtype):
@@ -1817,3 +1825,178 @@ def test_decode_mma_fragment_map_replays_the_plain_version(
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     got = _decode_mma_replay(q, kc, vc, ok, scale, plan, round_p=True)
     assert np.max(np.abs(got - want)) <= 2e-2
+
+
+# ------------------------------------------------------------ row 12 -------
+
+PAGED_SHAPES = [  # (S, KV, G, M, bT, D)
+    (8, 12, 1, 12, 16, 64),      # GPT-2 small's serve step
+    (8, 1, 4, 42, 16, 256),      # Gemma-3-270M serving, T 672
+    (8, 1, 4, 12, 16, 256),
+    (1, 12, 1, 12, 16, 64),      # one slot
+    (4, 4, 1, 5, 8, 128),
+    (2, 2, 6, 7, 8, 64),         # two groups of query heads
+    (1, 1, 4, 2048, 16, 256),    # a 32,768-token Gemma-3 context
+    (8, 12, 1, 12, 1024, 64),    # the largest pages
+    (2, 1, 4, 3, 1024, 256),     # chunks end inside a page
+    (3, 2, 2, 1, 1, 128),        # one column a slot
+]
+
+
+def test_paged_plan_constants_match_the_source():
+    text = _source("paged_decode_attention_vec.cu")
+    assert _constexpr(text, "ROW_SLOTS") == da.PAGED_VEC_ROW_SLOTS
+    assert _constexpr(text, "MAX_QG") == da.PAGED_VEC_MAX_QG
+    assert _constexpr(text, "MAX_CHUNKS") == da.PAGED_VEC_MAX_CHUNKS
+    assert _constexpr(text, "MERGE_BATCH") == 32
+    assert "return QG == 4 ? 8 : 16;" in text
+    assert "constexpr int LPR = D / 8;" in text
+    # the shared memory the launch asks for, as the plan counts it
+    assert ("return ((size_t)2 * warps_for(QG) * QG +\n"
+            "          (size_t)warps_for(QG) * QG * D) * 4;") in text
+    assert "const int qg = G == 1 ? 1 : G == 2 ? 2 : MAX_QG;" in text
+    assert "(long long)cpc * D > (long long)ROW_SLOTS * 256" in text
+    assert "n_chunks != (M * bT + cpc - 1) / cpc" in text
+
+
+@pytest.mark.parametrize("S,KV,G,M,bT,D", PAGED_SHAPES)
+def test_paged_plan_covers_each_live_page_once(S, KV, G, M, bT, D):
+    """The chunks (chunk c: logical columns [c cpc, c cpc + cpc)) cover
+    every column once, so each row of every live page once; a chunk
+    touches at most the pages its table stage holds; every query head is
+    in one group; the workspace holds each chunk's (m, l, acc)."""
+    plan = da.paged_plan(S, KV, G, M, bT, D, torch.bfloat16, N_SM)
+    cpc, n_chunks, qg = plan["cpc"], plan["n_chunks"], plan["qg"]
+    cols = M * bT
+    rng = np.random.default_rng(cols + D)
+    live = rng.random((S, M)) < 0.6          # pages with a live column
+    hits = np.zeros((S, M, bT), np.int64)
+    for c in range(n_chunks):
+        c0, c1 = c * cpc, min(c * cpc + cpc, cols)
+        assert c0 < c1
+        assert (c1 - 1) // bT - c0 // bT + 1 <= (cpc - 1) // bT + 2
+        col = np.arange(c0, c1)
+        for s in range(S):
+            page, row = col // bT, col % bT
+            keep = live[s, page]
+            np.add.at(hits[s], (page[keep], row[keep]), 1)
+    assert (hits[live] == 1).all() and (hits[~live] == 0).all()
+    heads = np.zeros(G, np.int64)
+    for group in range(plan["n_qg"]):
+        heads[group * qg:min(group * qg + qg, G)] += 1
+    assert (heads == 1).all()
+    assert plan["grid"] == (n_chunks, KV * plan["n_qg"], S)
+    assert plan["ws_floats"] == (n_chunks * S * KV * G * (D + 2)
+                                 if n_chunks > 1 else 0)
+
+
+@pytest.mark.parametrize("S,KV,G,M,bT,D", PAGED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_plan_fits_the_card(S, KV, G, M, bT, D, dtype):
+    """Shared memory within the default 48 KB, a chunk's rows within
+    what its lanes hold in registers (ROW_SLOTS passes of 256 / D rows),
+    grid dimensions within the card's limits, the merge's chunks within
+    MAX_CHUNKS, and the CTAs within a wave unless a chunk is as small as
+    the plan makes one (or as the registers cap it)."""
+    plan = da.paged_plan(S, KV, G, M, bT, D, dtype, N_SM)
+    cpc = plan["cpc"]
+    assert plan["smem_bytes"] <= 48 * 1024
+    max_cpc = da.PAGED_VEC_ROW_SLOTS * 256 // D
+    assert cpc <= max_cpc and plan["warps"] * 32 <= 1024
+    gx, gy, gz = plan["grid"]
+    assert gx <= da.PAGED_VEC_MAX_CHUNKS and gy <= 65535 and gz <= 65535
+    assert gx * gy * gz <= max(N_SM, gy * gz) \
+        or cpc in (da.PAGED_VEC_MIN_COLS, max_cpc - max_cpc % bT, max_cpc)
+
+
+def test_paged_plan_at_the_path_shapes():
+    """GPT-2's serve step: one chunk of all 12 pages (96 CTAs: the first
+    version's count, no merge, no workspace); Gemma serving at T 672:
+    14 chunks of 3 pages (112 CTAs, where the first version ran 32 of
+    one query head); a 32,768-token context: chunks of 96 columns, the
+    most a CTA's lanes hold at D 256 (8 warps x 12 rows)."""
+    def split(*shape):
+        p = da.paged_plan(*shape, torch.bfloat16, N_SM)
+        return p["n_chunks"], p["cpc"], p["ws_floats"]
+    assert split(8, 12, 1, 12, 16, 64) == (1, 192, 0)
+    assert da.paged_plan(8, 12, 1, 12, 16, 64, torch.bfloat16,
+                         N_SM)["grid"] == (1, 12, 8)
+    assert split(8, 1, 4, 42, 16, 256) == (14, 48, 14 * 32 * 258)
+    assert split(1, 1, 4, 2048, 16, 256)[:2] == (342, 96)
+    assert split(3, 2, 2, 1, 1, 128) == (1, 1, 0)
+    assert da.paged_plan(8, 1, 4, 42, 16, 256, torch.float16,
+                         N_SM)["qg"] == 4
+
+
+def test_paged_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((8, 12, 1, 12, 16, 32, torch.bfloat16),     # D
+                 (8, 12, 1, 12, 16, 96, torch.bfloat16),
+                 (8, 12, 1, 12, 16, 64, torch.float32),      # f32: first
+                 (8, 12, 1, 12, 2048, 64, torch.bfloat16),   # bT
+                 (0, 12, 1, 12, 16, 64, torch.bfloat16),
+                 (8, 12, 1, 0, 16, 64, torch.bfloat16),
+                 (65536, 1, 1, 1, 16, 64, torch.bfloat16),   # grid z
+                 (1, 65536, 1, 1, 16, 64, torch.bfloat16),   # grid y
+                 (1, 1, 4, 4097 * 6, 16, 256, torch.bfloat16)):  # chunks
+        with pytest.raises(ValueError):
+            da.paged_plan(*args)
+    assert not da.paged_eligible(1, 4, 16, 32, 2)
+    assert not da.paged_eligible(1, 4, 2048, 64, 2)
+    assert not da.paged_eligible(65536, 1, 16, 64, 2)
+    assert da.paged_eligible(65536, 1, 16, 64, 4)   # the f32 kernel's grid
+
+
+@pytest.mark.parametrize("D,warps", [(64, 16), (128, 16), (256, 8),
+                                     (256, 16)])
+def test_paged_vec_lane_maps_read_each_element_once(D, warps):
+    """The 16-bit kernel's lane map, replayed: lane l of warp w holds the
+    16-byte piece l % (D / 8) of rows w (256 / D) + l / (D / 8) + p warps
+    (256 / D) for passes p < ROW_SLOTS / warps, so a chunk's K and V
+    elements are each loaded once, by one lane, a row's lanes on 2 D
+    contiguous bytes, and the CTA's rows cover exactly the most columns
+    a chunk takes."""
+    lpr = D // 8
+    rpp = 32 // lpr
+    passes = da.PAGED_VEC_ROW_SLOTS // warps
+    rows = passes * warps * rpp
+    assert rows == da.PAGED_VEC_ROW_SLOTS * 256 // D
+    hits = np.zeros((rows, D), np.int64)
+    lane = np.arange(32)
+    cl, rg = lane % lpr, lane // lpr
+    for w in range(warps):
+        for p in range(passes):
+            r = w * rpp + rg + p * warps * rpp
+            for e in range(8):
+                np.add.at(hits, (r, cl * 8 + e), 1)
+            for row in np.unique(r):        # a row's lanes: 2 D bytes
+                addr = np.sort(cl[r == row] * 16)
+                assert (np.diff(addr) == 16).all() and len(addr) == lpr
+    assert (hits == 1).all()
+
+
+def test_first_version_of_row_12_keeps_only_f32():
+    """The 16-bit cases left csrc/paged_decode_attention.cu for
+    paged_decode_attention_vec.cu; its f32 kernel takes D 256 now (two
+    16-byte loads a lane), and its shared memory stays within the
+    default 48 KB at the largest page (bT 1,024, D 256)."""
+    text = _source("paged_decode_attention.cu")
+    entry = _entry(text, "mft_paged_decode_attention")
+    assert "dtype != 0" in entry and "dispatch_d<float>" in entry
+    assert "__nv_bfloat16" not in text and "__half" not in text
+    assert "case 256:" in text
+    assert "constexpr int LPR = D / VEC < 32 ? D / VEC : 32;" in text
+    warps = _constexpr(text, "WARPS")
+    assert "(size_t)(WARPS * bT + 2 * WARPS + WARPS * D) *" in text
+    assert (warps * da.MAX_BLOCK_T + 2 * warps + warps * 256) * 4 <= 49152
+
+
+def test_row_12_source_is_built_and_calls_no_library():
+    from mobilefinetuner_tpu_torch.kernels import build
+    assert "paged_decode_attention_vec" in build.SOURCES
+    text = _source("paged_decode_attention_vec.cu")
+    for lib in ("cublas", "cutlass", "torch/", "<aten"):
+        assert lib not in text.lower()
+    assert "mma_16816" not in text and "cp_async" not in text
+    # every K and V load is issued before the first score
+    assert text.index("// 3. scores") > text.rindex("vr[p] = *")
+    assert "griddepcontrol.launch_dependents" in text
