@@ -51,6 +51,21 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      before: every request finishes, every page comes back, and the
      flash kernel ran 12 times a prefill, the paged kernel 12 times a
      decode step;
+     then serve Gemma-3-270M (18 layers, hidden 640, 4 query heads over
+     1 kv head of 256, window 512, vocab 262,144, bf16; 8 slots, block_T
+     16, max_prompt 128, chunked admission up to 608 tokens, 64 new
+     tokens) through build_engine("gemma270m") with 2 rank-4 tenants, the
+     prefix cache and sampling (`gemma_serve`): 16 requests, 8 over one
+     256-token prefix (4 base, one a full hit; 4 on a tenant, never on a
+     base page), 8 of 8-608 tokens (3 crossing the window), half of them
+     sampled; with every launch count set to 0 just before, every request
+     finishes with 64 tokens, every page is returned or parked as the
+     cache maps it, the flash kernel ran 18 times a one-shot prefill, the
+     paged kernel 18 times a decode step, no other kernel; then in f32
+     the paged step with the kernel against the plain one (logits 1e-4),
+     and the same tokens from the kernel engine with the cache (cold, then
+     prefix hits, a sampled request too), a plain engine without it and
+     an engine that chunks every prompt;
   5. train: write a random-weight GPT-2 small directory and a synthetic
      WikiText-shaped corpus into a temporary directory, take the base
      model's eval perplexity, set every launch count to 0 and run the
@@ -96,7 +111,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      (device) and around eager calls (host);
   8. trace a decode step (and time it from CUDA events around CUDA-graph
      replays of one gpt2_decode_step_paged call with the engine's state
-     held fixed), a 128-token prefill, a GPT-2 train step, a
+     held fixed), a 128-token prefill, the Gemma serve decode step and a
+     128-token Gemma prefill chunk (graphs of one
+     gemma3_decode_step_paged and one gemma3_prefill_chunk), a GPT-2
+     train step, a
      Gemma LoRA train step without and with the lm_head target and a
      Gemma full fine-tuning step with torch.profiler: device busy time
      against
@@ -115,9 +133,11 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      (`bwd_sweep`, the measurements behind resolve_bwd_impl). The
      epilogue's entries at each timed shape give the launches the main
      paths' runs made at that shape (the wrapper's `by_shape`, which must
-     add up to the paths' launches of the kernel).
+     add up to the paths' launches of the kernel); row 1 also at the
+     Gemma serving prefill's shape (q 1 x 4 x 128 x 256) and row 12 at
+     Gemma-3-270M serving, each with the `gemma_serve` path's launches.
 
-Prints `serve`, `train`, `gemma_train`, `gemma_full_ft`,
+Prints `serve`, `gemma_serve`, `train`, `gemma_train`, `gemma_full_ft`,
 `gemma_lora_head`, `eval_ppl`, `generate`, `profile`, `bwd_sweep` and
 `kernels` JSON
 lines, the card's name and power limit, and, last, the device line
@@ -1223,6 +1243,321 @@ def profile_serve(torch, eng, names):
     while not eng.idle:
         eng.step()
     return out
+
+
+# Gemma-3-270M serving: 8 slots, pages of 16, one-shot prompts up to 128
+# tokens and chunked ones up to 608 (42 pages with the 64 new tokens), a
+# 256-token shared prefix; the f32 cross-checks serve 4 requests of 16
+GEMMA_SERVE = dict(slots=8, block_T=16, blocks=512, max_prompt=128,
+                   chunked=608, new=64, prefix=256, f32_new=16)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def gemma_serve_traffic(rng, V, tenant):
+    """16 requests: 8 over one 256-token prefix (4 on the base, 2 of them
+    identical and the copy last, so it is a full hit; 4 on `tenant`), and
+    8 prompts of 8-608 tokens (3 over 448, so prompt + 64 new tokens
+    crosses the 512 window; 2 of at most 128, one-shot). Every other
+    request is sampled (SAMPLED, a seed each). Returns [(prompt, adapter,
+    sampling kwargs)] and the shared-prefix requests' indices by route."""
+    G = GEMMA_SERVE
+    ints = lambda n: [int(x) for x in rng.integers(0, V, n)]  # noqa: E731
+    prefix = ints(G["prefix"])
+    full = prefix + ints(32)                     # 18 whole pages
+    shared = [(full, None), (prefix + ints(17), None),
+              (prefix + ints(100), None), (prefix + ints(20), tenant),
+              (prefix + ints(45), tenant), (prefix + ints(64), tenant),
+              (prefix + ints(33), tenant)]
+    lens = ([int(n) for n in rng.integers(449, G["chunked"] + 1, 3)]
+            + [int(n) for n in rng.integers(8, G["max_prompt"] + 1, 2)]
+            + [int(n) for n in rng.integers(8, G["chunked"] + 1, 3)])
+    other = [(ints(n), None) for n in lens]
+    order = [shared[0], other[0], shared[1], other[1], shared[3], other[2],
+             shared[4], other[3], shared[2], other[4], shared[5], other[5],
+             shared[6], other[6], other[7], (list(full), None)]
+    out = []
+    for i, (prompt, adapter) in enumerate(order):
+        kw = dict(SAMPLED, seed=1000 + i) if i % 2 else {}
+        out.append((prompt, adapter, kw))
+    base = [i for i, (p, a, _) in enumerate(out)
+            if a is None and p[:G["prefix"]] == prefix]
+    ten = [i for i, (p, a, _) in enumerate(out) if a == tenant]
+    return out, base, ten
+
+
+def gemma_serve(torch, kernels, card):
+    """The Gemma-3-270M serving path: build_engine("gemma270m") in bf16
+    with 2 rank-4 tenants, the prefix cache, chunked admission and
+    sampling, serving gemma_serve_traffic with every launch count set to 0
+    just before. Every request finishes with 64 in-vocab tokens; every
+    page is returned or parked, and the parked pages are the cache's; the
+    flash forward ran 18 times a one-shot prefill, the paged kernel 18
+    times a decode step, no other kernel; the shared prefix hit, and no
+    tenant request held a base page."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.serve.bench import build_engine
+    G = GEMMA_SERVE
+    eng, names = build_engine(
+        "gemma270m", num_slots=G["slots"], block_T=G["block_T"],
+        num_blocks=G["blocks"], max_prompt=G["max_prompt"],
+        max_new=G["new"], adapters=2, dtype="bfloat16", seed=0,
+        prefix_cache=True, max_prompt_chunked=G["chunked"], sampling=True)
+    V = eng.config.vocab_size
+    warm = eng.submit([1, 2, 3], max_new_tokens=4, adapter=names[1],
+                      seed=1, **SAMPLED)
+    eng.drain()
+    check(warm.state == "finished", "warm-up request did not finish")
+    spec, base, ten = gemma_serve_traffic(np.random.default_rng(0), V,
+                                          names[0])
+    evicted = []
+    on_evict = eng.alloc.on_evict
+    eng.alloc.on_evict = lambda b, k: (evicted.append(b), on_evict(b, k))
+    n0 = dict(prefills=eng.prefills, chunks=eng.chunks,
+              full_hits=eng.full_hits, decode_steps=eng.decode_steps,
+              decode_s=eng.decode_s, hit=eng.prefix.hit_tokens,
+              looked=eng.prefix.lookup_tokens)
+    pages = {}                    # request -> its prefix pages, once live
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, adapter=a, **kw) for p, a, kw in spec]
+    while not eng.idle:
+        eng.step()
+        for r in eng.active:
+            if not r.prefilling and r.id not in pages:
+                pages[r.id] = set(r.blocks[:G["prefix"] // G["block_T"]])
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    d = {k: getattr(eng, k) - n0[k] for k in ("prefills", "chunks",
+                                              "full_hits", "decode_steps")}
+    hit_rate = ((eng.prefix.hit_tokens - n0["hit"])
+                / (eng.prefix.lookup_tokens - n0["looked"]))
+    for r in reqs:
+        check(r.state == "finished", f"request {r.id} {r.state} {r.reason}")
+        check(len(r.tokens) == G["new"]
+              and all(0 <= t < V for t in r.tokens),
+              f"request {r.id} tokens {r.tokens[:8]}...")
+    check(eng.alloc.in_use == 0 and eng.alloc.refcounts == {},
+          f"pages not returned: in_use {eng.alloc.in_use}")
+    eng.prefix.check_consistent()
+    check(sorted(eng.alloc.parked) == eng.prefix.blocks,
+          "parked pages are not the prefix cache's entries")
+    L = GEMMA_LAYERS
+    check(d["prefills"] > 0 and d["chunks"] > 0 and d["full_hits"] >= 1,
+          f"admission paths not all taken: {d}")
+    check(launches["flash_fwd"] == d["prefills"] * L,
+          f"flash launches {launches['flash_fwd']} != {d['prefills']} x {L}")
+    check(launches["paged"] == d["decode_steps"] * L,
+          f"paged launches {launches['paged']} != {d['decode_steps']} x {L}")
+    others = {k: n for k, n in launches.items()
+              if k not in ("flash_fwd", "paged") and n}
+    check(not others, f"gemma serving launched other kernels: {others}")
+    check(hit_rate > 0, "the shared prefix never hit")
+    base_pages = set().union(*(pages[reqs[i].id] for i in base))
+    ten_pages = set().union(*(pages[reqs[i].id] for i in ten))
+    check(len(base_pages) < len(base) * 16 and len(ten_pages) < len(ten) * 16,
+          "requests over one prefix did not share its pages")
+    check(not base_pages & ten_pages, "a tenant request held a base page")
+    ttft = sorted(r.ttft_ms for r in reqs)
+    tpot = sorted(r.tpot_ms for r in reqs)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    stats = {
+        "model": "gemma270m", "dtype": "bfloat16", "requests": len(reqs),
+        **{k: d[k] for k in ("prefills", "chunks", "full_hits",
+                             "decode_steps")},
+        "prefix_hit_rate": hit_rate, "evictions": len(evicted),
+        "ttft_ms_p50": ttft[len(ttft) // 2],
+        "tpot_ms_p50": tpot[len(tpot) // 2],
+        "tokens_per_s": n_tok / wall,
+        # tokens the decode steps emitted (a full hit's first one too)
+        "decode_tokens_per_s": (n_tok - len(reqs) + d["full_hits"])
+        / (eng.decode_s - n0["decode_s"]),
+        "wall_s": wall, "card": card,
+    }
+    return stats, launches, eng, names
+
+
+def profile_gemma_serve(torch, eng, names):
+    """Where a Gemma serve decode step and a 128-token prefill chunk spend
+    their time (as profile_serve): the engine's step traced with its 8
+    slots busy (it reads its tokens back, so no graph of it), and CUDA
+    events around CUDA-graph replays of one gemma3_decode_step_paged and
+    one gemma3_prefill_chunk with the engine's state held fixed."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.models.generate import (
+        gemma3_decode_step_paged, gemma3_prefill_chunk)
+    step_ms = sorted(eng._step_ms)
+    rng = np.random.default_rng(2)
+    V = eng.config.vocab_size
+    for i in range(eng.cfg.num_slots):
+        eng.submit([int(x) for x in rng.integers(0, V, 100)],
+                   adapter=(names + [None])[i % 3],
+                   **(dict(SAMPLED, seed=i) if i % 2 else {}))
+    eng.step()                          # admit every slot, first decode
+    check(len(eng.active) == eng.cfg.num_slots, "slots not all admitted")
+    out = profile_phases({"gemma_decode_step": (eng.step, 10, False)})
+    tok, pos, tbl = (eng._dev(a.copy()) for a in (eng._tok, eng._pos,
+                                                  eng._tbl))
+    routed = eng._route(eng._aid)
+    W = eng.chunk_buckets[-1]
+    ids = eng._dev(rng.integers(0, V, (1, W)))
+    # a table of trash pages: the chunk writes page 0 only, and attends
+    # all M pages masked, as a first chunk does
+    ctbl = torch.zeros(1, eng.M, dtype=torch.int32, device=eng.device)
+    chunk_lora = eng._route(np.full(W, eng._aid[0]))
+
+    def decode_step():
+        gemma3_decode_step_paged(eng.config, eng.params, eng.pool_k,
+                                 eng.pool_v, tok, pos, tbl, lora=routed,
+                                 compute_dtype=eng.dtype,
+                                 attn_impl=eng.cfg.attn_impl)
+
+    def chunk():
+        gemma3_prefill_chunk(eng.config, eng.params, eng.pool_k,
+                             eng.pool_v, ids, 0, W, ctbl, lora=chunk_lora,
+                             compute_dtype=eng.dtype)
+
+    out.update(profile_phases({"gemma_prefill_chunk_128": (chunk, 5,
+                                                           True)}))
+    dev_ms, wall_ms = graph_ms(decode_step, 20), call_ms(decode_step, 20)
+    out["gemma_decode_step"]["events"] = {
+        "device_ms": dev_ms, "wall_ms": wall_ms,
+        "device_busy_share": dev_ms / wall_ms,
+        "serve_step_ms_p50": step_ms[len(step_ms) // 2]}
+    while not eng.idle:
+        eng.step()
+    return out
+
+
+def gemma_serve_f32(torch, dev):
+    """f32 cross-checks of Gemma-3-270M serving on the card, 4 requests of
+    16 new tokens (one on a tenant, one sampled, one of 560 tokens whose
+    decode crosses the 512 window): one gemma3_decode_step_paged with the
+    kernel against attn_impl="plain" on the same pools (logits 1e-4 max
+    abs), and the same tokens from the kernel engine with the prefix cache
+    (a cold wave, then a wave of prefix hits), a plain engine without the
+    cache, and an engine that chunks every prompt (max_prompt 32)."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.core.config import Gemma3TextConfig
+    from mobilefinetuner_tpu_torch.models import gemma3
+    from mobilefinetuner_tpu_torch.models.generate import \
+        gemma3_decode_step_paged
+    from mobilefinetuner_tpu_torch.serve import ServeConfig, ServeEngine
+    from mobilefinetuner_tpu_torch.serve.adapters import AdapterBank
+    from mobilefinetuner_tpu_torch.serve.bench import rand_adapters
+    G = GEMMA_SERVE
+    config = Gemma3TextConfig.gemma3_270m()
+    params = gemma3.init_params(config, seed=0, dtype=torch.float32,
+                                device=dev)
+    tenant = rand_adapters("gemma", config, 1, seed=0, device=dev)[0]
+
+    def engine(**kw):
+        cfg = dict(num_slots=4, block_T=G["block_T"], num_blocks=G["blocks"],
+                   max_prompt=G["max_prompt"], max_prompt_chunked=G["chunked"],
+                   max_new_tokens=G["f32_new"], dtype="float32",
+                   sampling=True)
+        cfg.update(kw)
+        eng = ServeEngine("gemma", config, params, ServeConfig(**cfg),
+                          bank=AdapterBank(tenant, 1, family="gemma"),
+                          device=dev)
+        eng.load_adapter("tenant0", tenant)
+        return eng
+
+    rng = np.random.default_rng(1)
+    ints = lambda n: [int(x) for x in rng.integers(  # noqa: E731
+        0, config.vocab_size, n)]
+    shared = ints(64)
+    prompts = [shared + ints(40), shared + ints(24), ints(560),
+               shared + ints(64)]
+    routes = [None, "tenant0", None, None]
+    samp = [{}, {}, {}, dict(SAMPLED, seed=11)]
+
+    def submit(eng):
+        return [eng.submit(p, adapter=a, **kw)
+                for p, a, kw in zip(prompts, routes, samp)]
+
+    kern = engine(prefix_cache=True)
+    reqs = submit(kern)
+    while not all(len(r.tokens) >= 2 for r in reqs):
+        kern.step()
+    check(int(kern._pos.max()) > GEN["window"], "no slot past the window")
+    tok, pos, tbl = (kern._dev(a.copy()) for a in (kern._tok, kern._pos,
+                                                   kern._tbl))
+    lora = kern._route(kern._aid)
+    logits = {}
+    for impl in ("auto", "plain"):
+        pk, pv = kern.pool_k.clone(), kern.pool_v.clone()
+        logits[impl] = gemma3_decode_step_paged(
+            config, kern.params, pk, pv, tok, pos, tbl, lora=lora,
+            compute_dtype=torch.float32, attn_impl=impl)[0]
+        del pk, pv
+    err = max_err(logits["auto"], logits["plain"])
+    kern.drain()
+    tokens = {"kernel_cold": [r.tokens for r in reqs]}
+    hit0 = kern.prefix.hit_tokens
+    again = submit(kern)
+    kern.drain()
+    tokens["kernel_prefix_hits"] = [r.tokens for r in again]
+    check(kern.prefix.hit_tokens > hit0, "the second wave did not hit")
+    runs = {"plain": engine(attn_impl="plain"),
+            "chunked": engine(max_prompt=32)}
+    for name, eng in runs.items():
+        rs = submit(eng)
+        eng.drain()
+        tokens[name] = [r.tokens for r in rs]
+    check(runs["plain"].prefills == 3 and runs["chunked"].prefills == 0,
+          "the admission paths were not the ones compared")
+    print(f"gemma_serve f32: paged step kernel vs plain max |logits err| "
+          f"{err:.3e} (tolerance 1e-4)")
+    check(err <= 1e-4, "the Gemma paged step disagrees with its plain "
+          "version")
+    for name, toks in tokens.items():
+        check(toks == tokens["kernel_cold"],
+              f"gemma_serve f32: {name} tokens differ from the kernel "
+              f"engine's cold wave")
+    return {"step_logits_max_abs_err": err,
+            "compared": sorted(tokens), "requests": len(prompts)}
+
+
+def gemma_serve_flash_entry(torch, fa, dev):
+    """Row 1 at the serving prefill's shape (q 1 x 4 x 128 x 256, kv 1 x 1
+    x 128 x 256, bf16, a prompt of 100 tokens right-padded to 128, causal;
+    the 512 window is wider than the prompt): held against its plain
+    version (check_flash's bf16 tolerances), then timed and bounded."""
+    B, Hq, Hkv, S, D, n = 1, 4, 1, GEMMA_SERVE["max_prompt"], 256, 100
+    q, k, v, pad = flash_inputs(torch, dev, torch.bfloat16, B, Hq, Hkv, S, D,
+                                (n,), seed=21)
+    kw = dict(scale=D ** -0.5, is_causal=True,
+              sliding_window=GEN["window"])
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, pad, **kw)
+    torch.cuda.synchronize()
+    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    print(f"gemma serve prefill shape, bf16: flash fwd max |out err| "
+          f"{err:.3e} (tolerance 1e-2), max |lse err| {lse_err:.3e} (1e-4)")
+    check(bool(torch.isfinite(out).all()), "serve-shape flash non-finite")
+    check(err <= 1e-2 and lse_err <= 1e-4, "flash fwd at the serving "
+          "prefill shape disagrees with its plain version")
+    allowed = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+    allowed = allowed[None, None] & (pad > 0)[:, None, None, :]
+    pairs = int(allowed.sum()) * Hq
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = timed({
+        "ms": lambda: fa.flash_attention_fwd(q, k, v, pad, **kw),
+        "plain_ms": lambda: fa.flash_attention_reference(q, k, v, pad, **kw),
+        "library_ms": lambda: sdpa(q, k, v, attn_mask=allowed,
+                                   scale=kw["scale"], enable_gqa=True)})
+    isz = q.element_size()
+    return kernel_entry(
+        "flash_attention_fwd", "flash_attention_fwd_mma.cu",
+        "flash_attention.py:162", None, err, times,
+        bound((2 * q.numel() + 2 * k.numel()) * isz + pad.numel() * 4
+              + B * Hq * S * 4, 4 * D * pairs),
+        {"shape": f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, bf16, causal, "
+                  f"{n} of {S} rows real (gemma serving prefill)"})
 
 
 def read_csv(path):
@@ -2444,6 +2779,16 @@ def main() -> int:
     print(json.dumps({"serve": serve_stats}))
     prof = profile_serve(torch, eng, names)
     del eng
+    torch.cuda.empty_cache()
+    gserve_stats, launches_gserve, eng, names = gemma_serve(torch, kernels,
+                                                            card)
+    prof.update(profile_gemma_serve(torch, eng, names))
+    del eng
+    torch.cuda.empty_cache()
+    gserve_stats["f32"] = gemma_serve_f32(torch, dev)
+    print(json.dumps({"gemma_serve": gserve_stats,
+                      "launches": launches_gserve}))
+    torch.cuda.empty_cache()
 
     # 5. the training path, counts set to 0 just before it; 6. serve with
     # the trained adapter; 7. the Gemma paths and eval_ppl, counts set to
@@ -2548,11 +2893,13 @@ def main() -> int:
 
     ce_times, ce_bounds = fused_ce_times(torch, fc, ce_args)
     gemma_entries = gemma_kernel_entries(torch, fa, lf, dev)
+    gserve_flash = gemma_serve_flash_entry(torch, fa, dev)
     serve_names = {"flash_fwd": "flash", "paged": "paged",
                    "decode": "decode"}
 
     def by_path(name):
         return {"serve": launches_serve.get(serve_names.get(name), 0),
+                "gemma_serve": launches_gserve[name],
                 "generate": launches_gen[name],
                 "train": launches_train[name],
                 "gemma_train": launches_gemma[name],
@@ -2576,7 +2923,9 @@ def main() -> int:
              "ptxas": ptxas["flash_attention_fwd_mma"],
              "f32": "flash_attention_fwd.cu (FMA kernel, f32 launches)",
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
-             "gemma": gemma_entries["flash_fwd"]}),
+             "gemma": gemma_entries["flash_fwd"],
+             "gemma_serve": dict(gserve_flash,
+                                 launches=launches_gserve["flash_fwd"])}),
         kernel_entry(
             "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
             "flash_attention.py:415", total("bwd_merged"),
@@ -2612,7 +2961,8 @@ def main() -> int:
              ptxas=ptxas["paged_decode_attention_vec"],
              f32="paged_decode_attention.cu (first version, f32 launches)",
              f32_ptxas=ptxas["paged_decode_attention"],
-             gemma=pg_entries["gemma_serve"]),
+             gemma=dict(pg_entries["gemma_serve"],
+                        launches=launches_gserve["paged"])),
         dict(dec_entries["gpt2_bench"], launches=total("decode"),
              launches_by_path=by_path("decode"),
              ptxas=ptxas["decode_attention_mma"],

@@ -1,9 +1,10 @@
 """Autoregressive generation with a KV cache, for GPT-2 and Gemma-3, and
 the serving programs (port of mobilefinetuner_tpu/models/generate.py:
-`SampleConfig`, the sampling helpers, `gpt2_generate`, `gemma3_generate`
-with `_gemma_chunked_prefill`, `left_pad`, `gpt2_prefill` and
-`gpt2_decode_step_paged`; per-row sampling, chunked prefill in the engine
-and Gemma-3 serving come with later slices).
+`SampleConfig`, the sampling helpers, `sample_per_row`, `gpt2_generate`,
+`gemma3_generate` with `_gemma_chunked_prefill`, `left_pad`, and the
+serve engine's `gpt2_prefill` / `gemma3_prefill`, `gpt2_prefill_chunk` /
+`gemma3_prefill_chunk` and `gpt2_decode_step_paged` /
+`gemma3_decode_step_paged`).
 
 Contiguous generation (`*_generate`, the generate CLI):
   * prefill = one full-sequence forward of the LEFT-padded prompts that
@@ -34,14 +35,28 @@ and the decode steps (one adapter through the epilogue kernel on the
 card, or a stack routed per row); merging it first (lora.merge_gpt2 /
 merge_gemma3) and passing lora=None gives the same tokens.
 
-Serving (`gpt2_prefill`, `gpt2_decode_step_paged`): serve sequences start
-at position 0 with no padding inside (the engine right-pads only the
-prompt tail), so a slot's attendable columns are simply col <= pos. The
-pools are updated IN PLACE: the decode step scatters the fed token's K/V
-into its page before attending (write before read, on one stream), where
-the JAX engine donated the pool buffers to a functional update. Idle
-slots all write trash page 0 at offset 0; which duplicate wins is
-unspecified, and no live slot ever reads that page.
+Serving: serve sequences start at position 0 with no padding inside (the
+engine right-pads only the prompt tail), so a slot's attendable columns
+are simply col <= pos, and on Gemma's local layers also pos - col <
+sliding_window. The pools are updated IN PLACE: the decode step scatters
+the fed token's K/V into its page before attending (write before read,
+on one stream), where the JAX engine donated the pool buffers to a
+functional update. Idle slots all write trash page 0 at offset 0; which
+duplicate wins is unspecified, and no live slot ever reads that page.
+A prefill CHUNK (chunked admission, prefix-cache suffixes) attends the
+pages earlier chunks wrote and its own causal rows under one joint
+softmax, in plain torch: the JAX package computes it in XLA, not in a
+Pallas kernel. Its K/V make a round trip through the pool dtype before
+the within-chunk attention, so they are the values the pages will hold.
+
+Per-slot sampling (`sample_per_row`, the serve engine): temperature,
+top-k and top-p are per-row tensors; temperature <= 0 rows take the
+argmax bit for bit. The draw is the port's own rule, not threefry: a
+uniform u from the splitmix `fold_in_tensor(seed, position)` of the
+request's seed and the emitted token's absolute position
+(ops/dropout.py), picked by inverse CDF over the filtered row in vocab
+order. It is computed on the device from tensors, so the same seed gives
+the same tokens however the prompt entered the pool.
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ from mobilefinetuner_tpu_torch.models.lora_apply import maybe_lora
 from mobilefinetuner_tpu_torch.ops.attention import validate_attn_impl
 from mobilefinetuner_tpu_torch.ops.decode_attention import (
     decode_attention, paged_attention, paged_decode_attention, xla_reference)
+from mobilefinetuner_tpu_torch.ops.dropout import fold_in_tensor
 from mobilefinetuner_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 NEG_INF = -1e30
@@ -111,6 +127,38 @@ def _sample(logits, generator: torch.Generator, cfg: SampleConfig):
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def sample_per_row(logits, temperature, top_k, top_p, seed, pos):
+    """Per-row sampling for the serve engine's slot batch: [S, V] logits
+    with per-row temperature [S] f32, top_k [S] int, top_p [S] f32, and
+    the request seed [S] int64 and emitted token's absolute position [S]
+    that key the draw -> [S] int64 token ids. temperature <= 0 rows take
+    the argmax of the logits (idle slots and greedy requests); top_k <= 0
+    and top_p >= 1 turn each filter off per row. The filters are
+    _filter_logits' (top-k then top-p, HF order) with vector parameters;
+    the draw is the inverse CDF of the filtered softmax at the uniform of
+    fold_in_tensor(seed, pos)'s top 53 bits."""
+    S, V = logits.shape
+    logits = logits.float()
+    greedy = logits.argmax(-1)
+    scaled = logits / temperature.float().clamp_min(1e-6)[:, None]
+    k_eff = torch.where((top_k > 0) & (top_k < V), top_k, V).long()
+    kth = torch.sort(scaled, dim=-1).values.gather(1, (V - k_eff)[:, None])
+    scaled = torch.where(scaled < kth, NEG_INF, scaled)
+    sort_idx = torch.argsort(-scaled, dim=-1, stable=True)
+    probs = torch.softmax(torch.gather(scaled, -1, sort_idx), dim=-1)
+    keep_sorted = (torch.cumsum(probs, dim=-1) - probs) \
+        < top_p.float().clamp(max=1.0)[:, None]
+    keep = torch.zeros_like(keep_sorted).scatter(-1, sort_idx, keep_sorted)
+    p = torch.softmax(torch.where(keep, scaled, NEG_INF), dim=-1)
+    cdf = torch.cumsum(p.double(), dim=-1)
+    u = (fold_in_tensor(seed, pos) >> 10).double() * 2.0 ** -53
+    idx = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None],
+                             right=True)[:, 0]
+    # u * total can round up to the total: take the last kept entry then
+    last = V - 1 - (p > 0).flip(-1).float().argmax(-1)
+    return torch.where(temperature <= 0, greedy, torch.minimum(idx, last))
 
 
 def _advance(tok_raw, done, cfg: SampleConfig):
@@ -569,4 +617,236 @@ def gpt2_decode_step_paged(config: GPT2Config, params, pool_k, pool_v,
                         params["ln_f"]["b"].to(compute_dtype), eps)
     logits = x @ params["wte"].to(compute_dtype).T
     logits = _head_lora(logits, x, lora_b)
+    return logits.float(), pool_k, pool_v
+
+
+def gemma3_prefill(config: Gemma3TextConfig, params, input_ids,
+                   attention_mask, compute_dtype=torch.float32, lora=None,
+                   attn_impl: str = "auto"):
+    """Gemma-3 serving prefill (as gpt2_prefill): (next-token logits
+    [B, V] f32 at each row's last real position, (k, v) caches
+    [L, B, Hkv, P, D]); the attention is the flash forward kernel on the
+    card (ops/attention.py), windowed on the local layers."""
+    x, (pk, pv) = gemma3.hidden_states(
+        config, params, input_ids, attention_mask, lora=lora,
+        compute_dtype=compute_dtype, collect_kv=True, attn_impl=attn_impl)
+    n_real = attention_mask.sum(-1).long()
+    last = x[torch.arange(x.shape[0], device=x.device), n_real - 1]
+    logits = last @ params["embed"].to(compute_dtype).T
+    lora_b = None if lora is None else lora.get("blocks")
+    logits = _head_lora(logits, last, lora_b)
+    return logits.float(), (pk, pv)
+
+
+def _chunk_rows(tbl, start: int, W: int, n_tok: int, bT: int):
+    """(pos [W], real [W], page [W], offset [W]) of a chunk's rows: real
+    rows land in their table page, padded ones in the trash page."""
+    rows = torch.arange(W, device=tbl.device)
+    pos = start + rows
+    real = rows < n_tok
+    page = tbl[0, torch.clamp(pos // bT, max=tbl.shape[1] - 1)].long()
+    page = torch.where(real, page, torch.zeros_like(page))  # TRASH_BLOCK
+    return pos, real, page, pos % bT
+
+
+def _chunk_attention(q4, kq, vq, pool_k, pool_v, tbl, layer: int, ok_pre,
+                     ok_in, scale):
+    """One joint softmax over [the prefix pages | the chunk's own rows].
+
+    q4 [W, KV, G, D]; kq / vq [W, KV, D] the chunk's K/V in the pool dtype;
+    tbl [1, M]; ok_pre [W, M*bT] the attendable page columns, ok_in [W, W]
+    the attendable chunk rows. f32 scores of the storage-dtype operands,
+    probabilities cast to the value dtype, f32 P.V -> ctx [W, KV, G, D]
+    f32."""
+    kc = pool_k[tbl[0].long(), layer]                     # [M, KV, bT, D]
+    vc = pool_v[tbl[0].long(), layer]
+    W, KV, G, D = q4.shape
+    M, _, bT, _ = kc.shape
+    qf = q4.float()
+    s1 = torch.einsum("wkgd,mktd->wkgmt", qf, kc.float()) * scale
+    s1 = torch.where(ok_pre[:, None, None, :], s1.reshape(W, KV, G, M * bT),
+                     NEG_INF)
+    s2 = torch.einsum("wkgd,jkd->wkgj", qf, kq.float()) * scale
+    s2 = torch.where(ok_in[:, None, None, :], s2, NEG_INF)
+    p = torch.softmax(torch.cat([s1, s2], dim=-1), dim=-1)
+    pre = p[..., :M * bT].reshape(W, KV, G, M, bT).to(vc.dtype).float()
+    return (torch.einsum("wkgmt,mktd->wkgd", pre, vc.float())
+            + torch.einsum("wkgj,jkd->wkgd",
+                           p[..., M * bT:].to(vq.dtype).float(), vq.float()))
+
+
+def _scatter_chunk(pool_k, pool_v, ks, vs, page, off):
+    """Every layer's chunk K/V ([W, KV, D] each) into the pools at
+    (page, offset) per row, in place."""
+    pool_k[page, :, :, off, :] = torch.stack(ks, dim=1)    # [W, L, KV, D]
+    pool_v[page, :, :, off, :] = torch.stack(vs, dim=1)
+
+
+def gpt2_prefill_chunk(config: GPT2Config, params, pool_k, pool_v, ids,
+                       start, n_tok, tbl, lora=None,
+                       compute_dtype=torch.float32):
+    """One fixed-width prefill CHUNK against the block pools: W prompt
+    tokens from absolute position `start`, attending the pages earlier
+    chunks (or the prefix cache) wrote and the chunk's own causal rows.
+
+    ids [1, W] (pad past n_tok); start (a block_T multiple) and n_tok (the
+    real tokens, 1..W) ints; tbl [1, M] the request's block table. Returns
+    (logits [1, V] f32 at the chunk's last real row, pool_k, pool_v), the
+    chunk's K/V scattered into the pools in place after the layers (padded
+    rows into the trash page)."""
+    start, n_tok = int(start), int(n_tok)
+    W = ids.shape[1]
+    NB, L, H, bT, D = pool_k.shape
+    E, eps = config.n_embd, config.layer_norm_epsilon
+    cd = compute_dtype
+    lora_b = None if lora is None else lora.get("blocks")
+    pos, _, page, off = _chunk_rows(tbl, start, W, n_tok, bT)
+    # padded rows clip their position (their K/V go to trash, their
+    # logits are never read)
+    x = params["wte"][ids[0]].to(cd) \
+        + params["wpe"][torch.clamp(pos, max=config.n_positions - 1)].to(cd)
+    ok_pre = (torch.arange(tbl.shape[1] * bT, device=ids.device)
+              < start)[None].expand(W, -1)
+    causal = pos[:, None] >= pos[None, :]
+    ks, vs = [], []
+    for i in range(L):
+        bp = gpt2.layer_params(params, i, cd)
+        h = gpt2.layer_norm(x, bp["ln_1"]["g"], bp["ln_1"]["b"], eps)
+        q, k, v = gpt2.qkv_proj(config, bp, h, lora_b, i).split(E, dim=-1)
+        kq = k.reshape(W, H, D).to(pool_k.dtype)   # the pool-dtype round
+        vq = v.reshape(W, H, D).to(pool_v.dtype)   # trip
+        ctx = _chunk_attention(q.reshape(W, H, 1, D), kq, vq, pool_k, pool_v,
+                               tbl, i, ok_pre, causal, D ** -0.5)
+        x = gpt2.mlp_and_proj(bp, x, ctx.reshape(W, E).to(cd), lora_b, i,
+                              eps)
+        ks.append(kq)
+        vs.append(vq)
+    _scatter_chunk(pool_k, pool_v, ks, vs, page, off)
+    x = gpt2.layer_norm(x, params["ln_f"]["g"].to(cd),
+                        params["ln_f"]["b"].to(cd), eps)
+    last = x[n_tok - 1:n_tok]                              # [1, E]
+    logits = _head_lora(last @ params["wte"].to(cd).T, last, lora_b)
+    return logits.float(), pool_k, pool_v
+
+
+def gemma3_prefill_chunk(config: Gemma3TextConfig, params, pool_k, pool_v,
+                         ids, start, n_tok, tbl, lora=None,
+                         compute_dtype=torch.float32):
+    """Gemma-3 prefill chunk (as gpt2_prefill_chunk): GQA pools, per-layer
+    global / local RoPE at the chunk's absolute positions, and on local
+    layers the sliding window over both the prefix pages and the chunk's
+    own rows."""
+    c = config
+    start, n_tok = int(start), int(n_tok)
+    W = ids.shape[1]
+    NB, L, KV, bT, D = pool_k.shape
+    nq = c.num_attention_heads
+    G = nq // KV
+    eps = c.rms_norm_eps
+    scale = c.query_pre_attn_scalar ** -0.5
+    cd = compute_dtype
+    lora_b = None if lora is None else lora.get("blocks")
+    lora_site = _gemma_lora(lora_b, "auto")
+    pos, _, page, off = _chunk_rows(tbl, start, W, n_tok, bT)
+    x = params["embed"][ids[0]].to(cd) \
+        * torch.tensor(c.hidden_size ** 0.5, dtype=cd)
+    ropes = {True: rope_cos_sin(pos[:, None], D, c.rope_theta),
+             False: rope_cos_sin(pos[:, None], D, c.rope_local_base_freq)}
+    cols = torch.arange(tbl.shape[1] * bT, device=ids.device)
+    pre = (cols < start)[None].expand(W, -1)
+    causal = pos[:, None] >= pos[None, :]
+    masks = {True: (pre, causal),
+             False: (pre & ((pos[:, None] - cols[None, :])
+                            < c.sliding_window),
+                     causal & ((pos[:, None] - pos[None, :])
+                               < c.sliding_window))}
+    ks, vs = [], []
+    for i in range(L):
+        glob = c.is_global_layer(i)
+        bp = gemma3.layer_params(params, i, cd)
+        a = bp["attn"]
+        h = gemma3.rms_norm(x, bp["input_ln"], eps)
+        q = lora_site(h @ a["q_w"], h, "q_proj", i).reshape(W, nq, D)
+        k = lora_site(h @ a["k_w"], h, "k_proj", i).reshape(W, KV, D)
+        v = lora_site(h @ a["v_w"], h, "v_proj", i).reshape(W, KV, D)
+        q = gemma3.rms_norm(q, a["q_norm"], eps)
+        k = gemma3.rms_norm(k, a["k_norm"], eps)
+        q = apply_rope(q[:, :, None], *ropes[glob])[:, :, 0]
+        k = apply_rope(k[:, :, None], *ropes[glob])[:, :, 0]
+        kq, vq = k.to(pool_k.dtype), v.to(pool_v.dtype)
+        ctx = _chunk_attention(q.reshape(W, KV, G, D), kq, vq, pool_k,
+                               pool_v, tbl, i, *masks[glob], scale)
+        ctx = ctx.reshape(W, nq * D).to(cd)
+        x = x + gemma3.rms_norm(lora_site(ctx @ a["o_w"], ctx, "o_proj", i),
+                                bp["post_attn_ln"], eps)
+        x = x + _gemma_mlp(bp, x, lora_site, i, eps)
+        ks.append(kq)
+        vs.append(vq)
+    _scatter_chunk(pool_k, pool_v, ks, vs, page, off)
+    x = gemma3.rms_norm(x, params["final_norm"].to(cd), eps)
+    last = x[n_tok - 1:n_tok]
+    logits = _head_lora(last @ params["embed"].to(cd).T, last, lora_b)
+    return logits.float(), pool_k, pool_v
+
+
+def gemma3_decode_step_paged(config: Gemma3TextConfig, params, pool_k,
+                             pool_v, tok, pos, tbl, lora=None,
+                             compute_dtype=torch.float32,
+                             attn_impl: str = "auto"):
+    """One Gemma-3 continuous-batching decode step over the paged pools
+    (as gpt2_decode_step_paged): GQA pools [NB, L, Hkv, bT, D], per-layer
+    global / local RoPE, and the validity col <= pos, on local layers
+    also pos - col < sliding_window (serve sequences are unpadded, so a
+    column index is its position). attn_impl: "auto" =
+    paged_decode_attention (row 12's kernel for CUDA pools), "plain" =
+    paged_attention on any device."""
+    validate_attn_impl(attn_impl)
+    c = config
+    S, M = tbl.shape
+    NB, L, KV, bT, D = pool_k.shape
+    nq = c.num_attention_heads
+    G = nq // KV
+    eps = c.rms_norm_eps
+    scale = c.query_pre_attn_scalar ** -0.5
+    cd = compute_dtype
+    lora_b = None if lora is None else lora.get("blocks")
+    lora_site = _gemma_lora(lora_b, "auto")
+    attend = paged_attention if attn_impl == "plain" \
+        else paged_decode_attention
+
+    x = params["embed"][tok].to(cd) \
+        * torch.tensor(c.hidden_size ** 0.5, dtype=cd)          # [S, H]
+    ropes = {True: rope_cos_sin(pos[:, None], D, c.rope_theta),
+             False: rope_cos_sin(pos[:, None], D, c.rope_local_base_freq)}
+    cols = torch.arange(M * bT, device=pos.device)
+    valid = cols[None, :] <= pos[:, None]                      # [S, M*bT]
+    oks = {True: valid,
+           False: valid & ((pos[:, None] - cols[None, :])
+                           < c.sliding_window)}
+    blk = tbl[torch.arange(S, device=tbl.device), pos // bT].long()
+    off = pos % bT
+
+    for i in range(L):
+        glob = c.is_global_layer(i)
+        bp = gemma3.layer_params(params, i, cd)
+        a = bp["attn"]
+        h = gemma3.rms_norm(x, bp["input_ln"], eps)
+        q = lora_site(h @ a["q_w"], h, "q_proj", i).reshape(S, nq, D)
+        k = lora_site(h @ a["k_w"], h, "k_proj", i).reshape(S, KV, D)
+        v = lora_site(h @ a["v_w"], h, "v_proj", i).reshape(S, KV, D)
+        q = gemma3.rms_norm(q, a["q_norm"], eps)
+        k = gemma3.rms_norm(k, a["k_norm"], eps)
+        q = apply_rope(q[:, :, None], *ropes[glob])[:, :, 0]
+        k = apply_rope(k[:, :, None], *ropes[glob])[:, :, 0]
+        # write before read: the fed token's K/V land in its current page
+        pool_k[blk, i, :, off, :] = k.to(pool_k.dtype)
+        pool_v[blk, i, :, off, :] = v.to(pool_v.dtype)
+        ctx = attend(q.reshape(S, KV, G, D).to(pool_k.dtype).contiguous(),
+                     pool_k, pool_v, tbl, i, oks[glob], scale)
+        ctx = ctx.reshape(S, nq * D).to(cd)
+        x = x + gemma3.rms_norm(lora_site(ctx @ a["o_w"], ctx, "o_proj", i),
+                                bp["post_attn_ln"], eps)
+        x = x + _gemma_mlp(bp, x, lora_site, i, eps)
+    x = gemma3.rms_norm(x, params["final_norm"].to(cd), eps)
+    logits = _head_lora(x @ params["embed"].to(cd).T, x, lora_b)
     return logits.float(), pool_k, pool_v

@@ -5,7 +5,10 @@ LoRA branch): port of mobilefinetuner_tpu/ops/dropout.py.
 Randomness is an explicit integer seed per site, not a global generator:
 `fold_in(seed, data)` derives a site's seed from its parent's (as
 jax.random.fold_in derives keys), and `inverted_dropout` draws its mask
-from a torch.Generator seeded with it on the tensor's device. A seed
+from a torch.Generator seeded with it on the tensor's device.
+`fold_in_tensor` is the same function elementwise over int64 tensors, on
+any device: the serve engine's per-row sampling draws its uniforms from
+it (models/generate.sample_per_row). A seed
 regenerates its mask exactly, so a block recomputed under
 torch.utils.checkpoint (remat) sees the masks of its first forward.
 The bits are not jax.random's: parity with the JAX package is tested with
@@ -29,6 +32,27 @@ def fold_in(seed: int, data: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     return (z ^ (z >> 31)) >> 1
+
+
+def _signed(c: int) -> int:
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >> 63 else c
+
+
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's >> is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def fold_in_tensor(seed: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """fold_in elementwise: int64 tensors (broadcast) -> the int64 tensor of
+    63-bit seeds that fold_in returns for each pair. int64 products wrap
+    mod 2^64 on the CPU and the card alike, so the bits are the host
+    function's."""
+    z = seed.long() * _signed(0x9E3779B97F4A7C15) + data.long() + 1
+    z = (z ^ _shr(z, 30)) * _signed(0xBF58476D1CE4E5B9)
+    z = (z ^ _shr(z, 27)) * _signed(0x94D049BB133111EB)
+    return _shr(z ^ _shr(z, 31), 1)
 
 
 def inverted_dropout(x: torch.Tensor, rate: float,

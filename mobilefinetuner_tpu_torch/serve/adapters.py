@@ -29,12 +29,16 @@ class AdapterBank:
     """`capacity` resident adapter slots plus the zero base slot, stacked
     leaves [capacity + 1, ...]. `template` fixes the structure every load
     must match (rank, targets, layer count), and the bank's dtype and
-    device."""
+    device; `family` ("gpt2" | "gemma") names the model an HF-PEFT
+    directory is read for."""
 
-    def __init__(self, template, capacity: int):
+    def __init__(self, template, capacity: int, family: str = "gpt2"):
         if capacity < 1:
             raise ValueError(f"bank capacity must be >= 1, got {capacity}")
+        if family not in ("gpt2", "gemma"):
+            raise ValueError(f"unknown family {family!r}")
         self.capacity = int(capacity)
+        self.family = family
         zero = _zeros_like_tree(template)
         self.tree = stack_adapters([zero] * (capacity + 1))
         self._template = [(p, tuple(x.shape))
@@ -103,7 +107,8 @@ class AdapterBank:
         from mobilefinetuner_tpu_torch.lora import peft_io
         ref = tree_leaves(self.tree)[0][1]
         if os.path.isdir(path):
-            tree, _ = peft_io.import_peft(path, "gpt2", device=ref.device)
+            tree, _ = peft_io.import_peft(path, self.family,
+                                          device=ref.device)
         else:
             if verify:
                 verify_file(path)

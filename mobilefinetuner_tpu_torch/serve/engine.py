@@ -1,18 +1,42 @@
-"""Continuous-batching serve loop: static slots, paged KV, adapter routing
-(port of mobilefinetuner_tpu/serve/engine.py, greedy GPT-2 serving).
+"""Continuous-batching serve loop: static slots, paged KV, adapter routing,
+the shared-prefix cache, chunked prefill and per-slot sampling (port of
+mobilefinetuner_tpu/serve/engine.py, GPT-2 and Gemma-3).
 
 The scheduler's unit of work is one DECODE STEP over `num_slots` static
-slots. Requests are admitted into free slots (one prefill each) and
-evicted the step they finish; every tensor the step sees keeps its shape:
+slots. Requests are admitted into free slots and evicted the step they
+finish; every tensor the step sees keeps its shape:
 
     tok [S]      the token each slot feeds this step
     pos [S]      its cache position (tokens already cached)
     tbl [S, M]   per-slot block tables into the shared page pool
     aid [S]      per-slot adapter index into the resident bank
+    temp/topk/topp/seed [S]   per-slot sampling state (cfg.sampling)
 
-Idle slots are DATA, not branches: pos=0, tbl=trash, outputs ignored.
-Greedy decode is the oracle: per-request tokens equal the JAX engine's on
-the same weights (tests/test_torch_serve.py, f32 on the CPU).
+Idle slots are DATA, not branches: pos=0, tbl=trash, temperature 0,
+outputs ignored. Greedy decode (temperature 0) is the oracle: per-request
+tokens equal the JAX engine's on the same weights (tests/test_torch_serve
+*.py, f32 on the CPU), with or without the prefix cache and chunking.
+
+Admission takes one of three paths (`_admit`):
+  * one-shot prefill: a full cache miss within max_prompt (the flash
+    forward kernel on the card);
+  * full hit: every prompt block is cached, so no prefill at all; the
+    last prompt token is fed again through the decode step, whose write
+    lands in a copy of the last shared page (copy-on-write);
+  * chunked: a partial hit or a prompt beyond max_prompt (up to
+    max_prompt_chunked) prefills its uncached suffix in static bucket
+    widths, chunks of all requests spending at most one widest bucket of
+    prompt tokens a step(), between decode steps.
+With `prefix_cache`, every full prompt block is chain-hashed
+(serve/prefix_cache.py) with the KV-producing weights' identity (base,
+or adapter name and reload generation), and pages whose last reference
+drops while the cache maps them PARK instead of freeing.
+
+Sampling is data too: temperature / top-k / top-p and the request's seed
+ride the slot arrays, and the draw is keyed on (seed, the emitted token's
+absolute position) (models/generate.sample_per_row), so cache on or off
+and chunked or one-shot admission give the same stream for a seed. One
+decode step serves mixed greedy and sampled slots.
 
 Scheduling is FCFS with conservative page reservation: a request is
 admitted only when its worst case (prompt + max_new_tokens pages) fits
@@ -22,18 +46,17 @@ transition goes through `_terminal`, so a request is counted once and
 releases exactly its pages, whatever path ends it (finish, cancel,
 deadline, contained step error).
 
-Two host syncs per request and step, as in the JAX engine: `int(tok0)`
-after a prefill and the step's `nxt.cpu()`. The pools are updated in
-place (the JAX engine donated them to functional updates instead).
+Host syncs, as in the JAX engine: the first token after a prefill or a
+final chunk, and the step's `nxt.cpu()`. The pools are updated in place
+(the JAX engine donated them to functional updates instead).
 
 Precision: the engine sets `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` to False when it is built, so an f32
 engine computes in full f32 on the card (TF32 would keep ~3 digits).
 
-Not ported yet, and refused by name: prefix cache, chunked prefill and
-sampling (ROADMAP.md port item P7), telemetry, trace spans and serve
-stats (P6), preemption drain (P5), the (dp, tp) mesh (P9), Gemma-3
-serving (P7).
+Not ported yet, and refused by name: telemetry, trace spans and serve
+stats (ROADMAP.md port item P6), preemption drain (P5), the (dp, tp) mesh
+(P9), lora_impl='fused' on the multi-adapter path (P7).
 """
 
 from __future__ import annotations
@@ -49,8 +72,10 @@ import torch
 from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.device import resolve_device
 from mobilefinetuner_tpu_torch.lora.lora import assign_adapters, tree_leaves
-from mobilefinetuner_tpu_torch.models.generate import (gpt2_decode_step_paged,
-                                                       gpt2_prefill)
+from mobilefinetuner_tpu_torch.models.generate import (
+    gemma3_decode_step_paged, gemma3_prefill, gemma3_prefill_chunk,
+    gpt2_decode_step_paged, gpt2_prefill, gpt2_prefill_chunk,
+    sample_per_row)
 from mobilefinetuner_tpu_torch.models.lora_apply import validate_lora_impl
 from mobilefinetuner_tpu_torch.ops.attention import validate_attn_impl
 from mobilefinetuner_tpu_torch.serve.adapters import AdapterBank
@@ -59,8 +84,14 @@ from mobilefinetuner_tpu_torch.serve.paged_kv import (TRASH_BLOCK,
                                                       OutOfBlocks, blocks_for,
                                                       init_pools,
                                                       write_prompt_blocks)
+from mobilefinetuner_tpu_torch.serve.prefix_cache import (PrefixCache,
+                                                          chain_keys)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FAMILIES = {"gpt2": (gpt2_prefill, gpt2_decode_step_paged,
+                     gpt2_prefill_chunk),
+            "gemma": (gemma3_prefill, gemma3_decode_step_paged,
+                      gemma3_prefill_chunk)}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -76,7 +107,7 @@ class ServeConfig:
     num_slots: int = 8        # concurrent requests per decode step
     block_T: int = 16         # tokens per KV page
     num_blocks: int = 512     # pool pages incl. the reserved trash page
-    max_prompt: int = 64      # prompts right-padded to this (block_T mult)
+    max_prompt: int = 64      # one-shot prompts right-padded to this
     max_new_tokens: int = 64  # per-request generation cap
     dtype: str = "float32"    # weights + compute + cache dtype
     attn_impl: str = "auto"   # auto (the kernels) | plain | flash
@@ -87,24 +118,26 @@ class ServeConfig:
     on_step_error: str = "fail_active"  # or "raise" after containing
     hbm_cap_mb: int = 0       # capacity override MB; 0 = the device's
     hbm_headroom: float = 0.1  # admission margin
+    prefix_cache: bool = False  # shared-prefix KV reuse
+    max_prompt_chunked: int = 0  # the true prompt cap under chunked
+                              # admission (a block_T multiple above
+                              # max_prompt); 0 = no chunk-only admission
+    chunk_buckets: tuple = ()  # static chunk widths (block_T multiples);
+                              # () = doubling widths up to max_prompt
+    sampling: bool = False    # per-slot temperature / top-k / top-p / seed
     # --- JAX-engine features later port slices bring (validate refuses)
     stats_every: int = 0
     trace_spans: bool = False
     mesh_dp: int = 1
     mesh_tp: int = 1
-    prefix_cache: bool = False
-    max_prompt_chunked: int = 0
-    chunk_buckets: tuple = ()
-    sampling: bool = False
+
+    @property
+    def true_cap(self) -> int:
+        """The real prompt ceiling: max_prompt one-shot, or
+        max_prompt_chunked when chunked admission extends it."""
+        return max(self.max_prompt, self.max_prompt_chunked)
 
     def validate(self) -> None:
-        if self.prefix_cache:
-            raise _not_ported("prefix_cache", "P7")
-        if self.max_prompt_chunked or self.chunk_buckets:
-            raise _not_ported("chunked prefill (max_prompt_chunked, "
-                              "chunk_buckets)", "P7")
-        if self.sampling:
-            raise _not_ported("sampling", "P7")
         if self.stats_every or self.trace_spans:
             raise _not_ported("serve telemetry (stats_every, trace_spans)",
                               "P6")
@@ -135,14 +168,29 @@ class ServeConfig:
             raise ValueError(
                 f"on_step_error must be 'fail_active' or 'raise', got "
                 f"{self.on_step_error!r}")
+        if self.max_prompt_chunked:
+            if self.max_prompt_chunked % self.block_T:
+                raise ValueError(
+                    f"max_prompt_chunked ({self.max_prompt_chunked}) "
+                    f"must be a multiple of block_T ({self.block_T})")
+            if self.max_prompt_chunked <= self.max_prompt:
+                raise ValueError(
+                    f"max_prompt_chunked ({self.max_prompt_chunked}) "
+                    f"must exceed max_prompt ({self.max_prompt}): prompts "
+                    f"within max_prompt prefill one-shot")
+        for w in self.chunk_buckets:
+            if w < 1 or w % self.block_T:
+                raise ValueError(
+                    f"chunk_buckets entries must be positive block_T "
+                    f"({self.block_T}) multiples, got {w}")
         # the pool must hold at least one worst-case request, or FCFS
         # admission can never fire and drain() spins forever
-        worst = blocks_for(self.max_prompt + self.max_new_tokens - 1,
+        worst = blocks_for(self.true_cap + self.max_new_tokens - 1,
                            self.block_T)
         if self.num_blocks - 1 < worst:
             raise ValueError(
                 f"num_blocks={self.num_blocks} cannot hold one "
-                f"worst-case request: max_prompt ({self.max_prompt}) + "
+                f"worst-case request: true prompt cap ({self.true_cap}) + "
                 f"max_new_tokens - 1 columns need {worst} pages plus the "
                 f"reserved trash page (have {self.num_blocks - 1} "
                 f"allocatable)")
@@ -164,10 +212,23 @@ class Request:
     first_token_t: float = 0.0
     finish_t: float = 0.0
     deadline_t: float = 0.0            # absolute perf_counter; 0 = none
+    # sampling (a sampling engine only): temperature 0 = the greedy oracle
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    # engine-internal
     slot: int = -1
     aid: int = 0
     blocks: List[int] = dataclasses.field(default_factory=list)
     worst_blocks: int = 0
+    # chunked admission and prefix hits
+    prefill_pos: int = 0               # prompt tokens already cached
+    prefilling: bool = False           # suffix chunks still pending
+    awaiting_first: bool = False       # full hit: the next decode step
+                                       # emits token 1
+    cache_keys: List[bytes] = dataclasses.field(default_factory=list,
+                                                repr=False)
 
     TERMINAL = ("finished", "cancelled", "rejected", "timeout", "error")
 
@@ -190,13 +251,20 @@ class Request:
                 / (len(self.tokens) - 1) * 1000.0)
 
 
+def _seed64(seed: int) -> int:
+    """A request seed as the int64 with its low 64 bits."""
+    seed &= (1 << 64) - 1
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
 class ServeEngine:
     """The serving loop: submit() + step() (or drain()).
 
-    family: "gpt2"; params: the base tree (models/gpt2.py layout), cast to
-    cfg.dtype on `device`; bank: optional AdapterBank for per-slot
-    adapter routing. `device=None` is the CUDA card (core/device.py).
-    The engine is single-threaded: every call comes from the serve loop.
+    family: "gpt2" | "gemma"; params: the base tree (models/gpt2.py or
+    models/gemma3.py layout), cast to cfg.dtype on `device`; bank:
+    optional AdapterBank for per-slot adapter routing. `device=None` is
+    the CUDA card (core/device.py). The engine is single-threaded: every
+    call comes from the serve loop.
     """
 
     def __init__(self, family: str, config, params,
@@ -208,26 +276,30 @@ class ServeEngine:
         cfg.validate()
         if telemetry is not None or watchdog is not None:
             raise _not_ported("serve telemetry (telemetry, watchdog)", "P6")
-        if family == "gemma":
-            raise _not_ported("Gemma-3 serving", "P7")
-        if family != "gpt2":
+        if family == "gpt2":
+            L, KV, D = config.n_layer, config.n_head, config.head_dim
+            if cfg.true_cap + cfg.max_new_tokens > config.n_positions:
+                raise ValueError(
+                    f"prompt cap + max_new_tokens = "
+                    f"{cfg.true_cap + cfg.max_new_tokens} exceeds "
+                    f"n_positions={config.n_positions}")
+        elif family == "gemma":
+            L = config.num_hidden_layers
+            KV, D = config.num_key_value_heads, config.head_dim
+        else:
             raise ValueError(f"unknown family {family!r}")
-        if cfg.max_prompt + cfg.max_new_tokens > config.n_positions:
-            raise ValueError(
-                f"prompt cap + max_new_tokens = "
-                f"{cfg.max_prompt + cfg.max_new_tokens} exceeds "
-                f"n_positions={config.n_positions}")
+        self._prefill_fn, self._step_fn, self._chunk_fn = FAMILIES[family]
         self.device = resolve_device(device)
         # full-f32 matmuls and convolutions on the card (module docstring)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        L, KV, D = config.n_layer, config.n_head, config.head_dim
         self.family, self.config, self.cfg = family, config, cfg
         self.bank = bank
         self.eos_id, self.pad_id = eos_id, pad_id
         self.dtype = DTYPES[cfg.dtype]
         S = cfg.num_slots
-        self.M = blocks_for(cfg.max_prompt + cfg.max_new_tokens - 1,
+        # block tables cover the true cap
+        self.M = blocks_for(cfg.true_cap + cfg.max_new_tokens - 1,
                             cfg.block_T)
 
         # ---- memory admission before anything is allocated: params at
@@ -259,17 +331,45 @@ class ServeEngine:
 
         self.params = _tree_to(params, self.device, self.dtype)
         self.alloc = BlockAllocator(cfg.num_blocks)
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(self.alloc, cfg.block_T) if cfg.prefix_cache
+            else None)
+        self.cow_copies = 0
+        # adapter reload generations, part of the KV identity of prefix
+        # keys: a reloaded tenant's stale pages become unreachable
+        self._adapter_gen: collections.Counter = collections.Counter()
+        # static chunk widths: the smallest covering the remaining suffix,
+        # else the widest, whose tail rides later steps. The default caps
+        # at max_prompt (the one-dispatch prefill budget), so a long
+        # prompt walks several chunks with decode steps between them
+        self.chunk_buckets: tuple = tuple(sorted(set(cfg.chunk_buckets)))
+        if not self.chunk_buckets:
+            cap = blocks_for(cfg.max_prompt, cfg.block_T) * cfg.block_T
+            w, ws = cfg.block_T, []
+            while w < cap:
+                ws.append(w)
+                w *= 2
+            ws.append(cap)
+            self.chunk_buckets = tuple(sorted(set(ws)))
         self.pool_k, self.pool_v = init_pools(
             cfg.num_blocks, L, KV, cfg.block_T, D, self.dtype, self.device)
         self._tok = np.zeros(S, np.int64)
         self._pos = np.zeros(S, np.int64)
         self._tbl = np.full((S, self.M), TRASH_BLOCK, np.int32)
         self._aid = np.zeros(S, np.int64)
+        # per-slot sampling state: data, not branches (temperature 0 =
+        # the argmax, idle slots and greedy requests alike)
+        self._temp = np.zeros(S, np.float32)
+        self._topk = np.zeros(S, np.int64)
+        self._topp = np.ones(S, np.float32)
+        self._seed = np.zeros(S, np.int64)
         self._slots: List[Optional[Request]] = [None] * S
         self.queue: collections.deque = collections.deque()
         self.decode_steps = 0
         self.decode_s = 0.0     # wall time in decode steps, host sync incl.
-        self.prefills = 0
+        self.prefills = 0       # one-shot prefills
+        self.chunks = 0         # prefill chunks
+        self.full_hits = 0      # admissions with every prompt block cached
         self._next_id = 0
         self._closed = False
         # fault-injection seam: called with decode_steps right before every
@@ -277,8 +377,9 @@ class ServeEngine:
         self.step_hook: Optional[Callable[[int], None]] = None
         self._step_ms: collections.deque = collections.deque(maxlen=256)
         self.counts: collections.Counter = collections.Counter()
-        # True while the prompt-page write runs: a failure there leaves
-        # the pools suspect, so containment must rebuild them
+        # True while a pool write (prompt pages, a chunk, a page copy)
+        # runs: a failure there leaves the pools suspect, so containment
+        # must rebuild them
         self._pools_at_risk = False
 
     # ------------------------------------------------------------ helpers ---
@@ -316,6 +417,17 @@ class ServeEngine:
         req.finish_t = time.perf_counter()
         self.counts[state] += 1
 
+    def _select(self, logits, rows: np.ndarray, pos_next: np.ndarray):
+        """The emitted tokens of `logits` [R, V]: the argmax, or on a
+        sampling engine sample_per_row with the sampling state of slots
+        `rows`, keyed on the emitted tokens' absolute positions."""
+        if not self.cfg.sampling:
+            return logits.argmax(-1)
+        return sample_per_row(
+            logits, self._dev(self._temp[rows]), self._dev(self._topk[rows]),
+            self._dev(self._topp[rows]), self._dev(self._seed[rows]),
+            self._dev(np.asarray(pos_next, np.int64)))
+
     # ------------------------------------------------------------ tenancy ---
     def load_adapter(self, name: str, source, verify: bool = True) -> int:
         """Hot-swap `source` into the resident bank under `name`: an
@@ -323,7 +435,8 @@ class ServeEngine:
         AdapterBank.load_file reads (a native adapter file, verified
         against its checksum manifest, or an HF-PEFT directory).
         Replacing a resident that queued or active requests route to is
-        refused."""
+        refused. The name's generation is bumped, so prefix pages cached
+        under its old weights are never served again."""
         if self.bank is None:
             raise RuntimeError("engine was built without an adapter bank")
         if name in self.bank.resident and self._adapter_in_use(name):
@@ -331,8 +444,11 @@ class ServeEngine:
                 f"adapter {name!r} is routed by in-flight requests; "
                 f"drain them before replacing it")
         if isinstance(source, dict):
-            return self.bank.load(name, source)
-        return self.bank.load_file(name, source, verify=verify)
+            slot = self.bank.load(name, source)
+        else:
+            slot = self.bank.load_file(name, source, verify=verify)
+        self._adapter_gen[name] += 1
+        return slot
 
     def evict_adapter(self, name: str) -> int:
         if self.bank is None:
@@ -340,7 +456,16 @@ class ServeEngine:
         if self._adapter_in_use(name):
             raise RuntimeError(
                 f"adapter {name!r} is routed by in-flight requests")
-        return self.bank.evict(name)
+        slot = self.bank.evict(name)
+        self._adapter_gen[name] += 1
+        return slot
+
+    def _kv_identity(self, req: Request) -> str:
+        """The KV-producing weights hashed into prefix keys: the base, or
+        adapter name and reload generation."""
+        if req.adapter is None:
+            return "base"
+        return f"{req.adapter}:{self._adapter_gen[req.adapter]}"
 
     def _adapter_in_use(self, name: str) -> bool:
         # queued requests count: submit() resolved their slot already
@@ -350,15 +475,30 @@ class ServeEngine:
     # ------------------------------------------------------------ intake ----
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 0,
                adapter: Optional[str] = None,
-               deadline_ms: Optional[float] = None) -> Request:
-        """Enqueue one request (admission happens inside step()). A prompt
-        beyond max_prompt, or a full bounded queue, comes back already
-        terminal (state="rejected"): check `.state`."""
+               deadline_ms: Optional[float] = None,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 1.0, seed: int = 0) -> Request:
+        """Enqueue one request (admission happens inside step()).
+        temperature / top_k / top_p / seed need a sampling engine;
+        temperature 0 is the greedy oracle and a seed is deterministic. A
+        prompt beyond the true cap, or a full bounded queue, comes back
+        already terminal (state="rejected"): check `.state`."""
         if self._closed:
             raise RuntimeError("submit() on a closed ServeEngine")
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
+        if (temperature or top_k or top_p != 1.0 or seed) \
+                and not self.cfg.sampling:
+            raise ValueError(
+                "sampling parameters need a sampling-enabled engine "
+                "(ServeConfig.sampling=True)")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
         n_new = max_new_tokens or self.cfg.max_new_tokens
         if not 0 < n_new <= self.cfg.max_new_tokens:
             raise ValueError(
@@ -374,11 +514,13 @@ class ServeEngine:
             aid = self.bank.slot(adapter)   # KeyError if not resident
         req = Request(id=self._next_id, prompt=prompt, max_new_tokens=n_new,
                       adapter=adapter, aid=aid,
-                      enqueue_t=time.perf_counter())
+                      enqueue_t=time.perf_counter(),
+                      temperature=float(temperature), top_k=int(top_k),
+                      top_p=float(top_p), seed=int(seed))
         if deadline_ms is not None:
             req.deadline_t = req.enqueue_t + deadline_ms / 1000.0
         self._next_id += 1
-        if len(prompt) > self.cfg.max_prompt:
+        if len(prompt) > self.cfg.true_cap:
             self._terminal(req, "rejected", reason="prompt_too_long")
             return req
         if self.cfg.max_queue and len(self.queue) >= self.cfg.max_queue:
@@ -407,7 +549,9 @@ class ServeEngine:
 
     # ------------------------------------------------------------ the loop --
     def _admit(self, req: Request, slot: int) -> None:
-        """Slot grant + one-shot prefill + prompt-page scatter."""
+        """Slot grant + path dispatch: one-shot prefill (a full miss
+        within max_prompt), full-hit re-feed (every prompt block cached),
+        or chunked suffix prefill (a partial hit, or a long prompt)."""
         cfg, P = self.cfg, len(req.prompt)
         req.worst_blocks = blocks_for(P + req.max_new_tokens - 1,
                                       cfg.block_T)
@@ -420,17 +564,57 @@ class ServeEngine:
             req.aid = self.bank.base_slot  # zero slot: serve the base
         self._slots[slot] = req
         self._aid[slot] = req.aid
+        if cfg.sampling:
+            self._temp[slot] = req.temperature
+            self._topk[slot] = req.top_k
+            self._topp[slot] = req.top_p
+            self._seed[slot] = _seed64(req.seed)
+        cached: List[int] = []
+        if self.prefix is not None:
+            req.cache_keys = chain_keys(req.prompt, cfg.block_T,
+                                        self._kv_identity(req))
+            cached = self.prefix.lookup(req.cache_keys)
+            self.prefix.note_lookup(len(cached) * cfg.block_T, P)
+        C = len(cached) * cfg.block_T    # cached prefix, tokens
+        if C == P:                       # full hit (P a block multiple)
+            self._admit_full_hit(req, cached)
+        elif C == 0 and P <= cfg.max_prompt:
+            self._admit_prefill(req)
+        else:                            # suffix hit, or a long prompt
+            self._admit_chunked(req, cached, C)
+
+    def _first_token(self, req: Request, tok0: int) -> None:
+        """A prefill's or final chunk's first token: the slot starts
+        decoding at position P, and every full prompt block it computed
+        becomes shareable (first writer wins; decode never rewrites prompt
+        columns)."""
+        slot, P = req.slot, len(req.prompt)
+        req.first_token_t = time.perf_counter()
+        req.tokens.append(tok0)
+        self._tok[slot], self._pos[slot] = tok0, P
+        self._tbl[slot] = TRASH_BLOCK
+        self._tbl[slot, :len(req.blocks)] = req.blocks
+        if self.prefix is not None:
+            for key, b in zip(req.cache_keys, req.blocks):
+                self.prefix.register(key, b)
+        if (self.eos_id is not None and tok0 == self.eos_id) \
+                or req.max_new_tokens == 1:
+            self._finish(req)
+
+    def _admit_prefill(self, req: Request) -> None:
+        """The one-shot prefill + prompt-page scatter."""
+        cfg, slot, P = self.cfg, req.slot, len(req.prompt)
         req.blocks = self.alloc.alloc(blocks_for(P, cfg.block_T))
         ids = np.full((1, cfg.max_prompt), self.pad_id, np.int64)
         mask = np.zeros((1, cfg.max_prompt), np.int64)
         ids[0, :P], mask[0, :P] = req.prompt, 1
-        logits, (k, v) = gpt2_prefill(
+        logits, (k, v) = self._prefill_fn(
             self.config, self.params, self._dev(ids), self._dev(mask),
             compute_dtype=self.dtype,
             lora=self._route(np.asarray([req.aid], np.int64)),
             attn_impl=cfg.attn_impl)
         self.prefills += 1
-        tok0 = logits[0].argmax(-1)
+        tok0 = self._select(logits, np.asarray([slot]), np.asarray([P]))[0]
         # scatter the prompt pages; table rows past the prompt stay trash
         block_ids = np.full(cfg.max_prompt // cfg.block_T, TRASH_BLOCK,
                             np.int32)
@@ -440,24 +624,101 @@ class ServeEngine:
                             self._dev(block_ids))
         self._pools_at_risk = False
         tok0 = int(tok0)                 # host sync: the first token
-        req.admit_t = req.first_token_t = time.perf_counter()
-        req.tokens.append(tok0)
-        self._tok[slot], self._pos[slot] = tok0, P
+        req.admit_t = time.perf_counter()
+        self._first_token(req, tok0)
+
+    def _admit_full_hit(self, req: Request, cached: List[int]) -> None:
+        """Every prompt block is cached: no prefill. The last prompt token
+        is fed again through the decode step (pos = P - 1), which emits
+        the first token; that step writes column P - 1, in the last shared
+        page, so the page is copied first (copy-on-write)."""
+        slot, P = req.slot, len(req.prompt)
+        # acquire every cached page before alloc() could evict one
+        for b in cached:
+            self.alloc.acquire(b)
+        dst = self.alloc.alloc(1)[0]
+        src = cached[-1]
+        # drop our reference on the source first: req.blocks then lists
+        # exactly the pages to release if the copy fails (parking keeps
+        # the contents, and nothing allocates before the copy reads them)
+        self.alloc.free([src], park=self.prefix.park)
+        req.blocks = cached[:-1] + [dst]
+        self._pools_at_risk = True
+        self.pool_k[dst] = self.pool_k[src]
+        self.pool_v[dst] = self.pool_v[src]
+        self._pools_at_risk = False
+        self.cow_copies += 1
+        self.full_hits += 1
+        req.admit_t = time.perf_counter()
+        req.awaiting_first = True
+        self._tok[slot] = req.prompt[-1]
+        self._pos[slot] = P - 1
         self._tbl[slot] = TRASH_BLOCK
         self._tbl[slot, :len(req.blocks)] = req.blocks
-        if (self.eos_id is not None and tok0 == self.eos_id) \
-                or req.max_new_tokens == 1:
-            self._finish(req)
+
+    def _admit_chunked(self, req: Request, cached: List[int],
+                       C: int) -> None:
+        """Chunked admission: the uncached suffix prefills in bucket-width
+        chunks (_prefill_chunk), interleaved with decode. The slot holds
+        idle data (pos=0, tbl=trash) until the final chunk lands the first
+        token."""
+        slot, P = req.slot, len(req.prompt)
+        for b in cached:
+            self.alloc.acquire(b)        # pin before alloc() can evict
+        req.blocks = list(cached) + self.alloc.alloc(
+            blocks_for(P, self.cfg.block_T) - len(cached))
+        req.prefill_pos = C
+        req.prefilling = True
+        req.admit_t = time.perf_counter()
+        self._tok[slot] = self._pos[slot] = 0
+        self._tbl[slot] = TRASH_BLOCK
+
+    def _bucket(self, req: Request) -> int:
+        """The chunk width for `req`'s remaining suffix."""
+        remaining = len(req.prompt) - req.prefill_pos
+        return next((w for w in self.chunk_buckets if w >= remaining),
+                    self.chunk_buckets[-1])
+
+    def _prefill_chunk(self, req: Request) -> None:
+        """ONE chunk of `req`'s pending suffix; the final chunk's last row
+        gives the request's first token."""
+        slot, P = req.slot, len(req.prompt)
+        start = req.prefill_pos
+        W = self._bucket(req)
+        n_tok = min(P - start, W)
+        ids = np.full((1, W), self.pad_id, np.int64)
+        ids[0, :n_tok] = req.prompt[start:start + n_tok]
+        tbl = np.full((1, self.M), TRASH_BLOCK, np.int32)
+        tbl[0, :len(req.blocks)] = req.blocks
+        # one request's rows all route its adapter
+        lora = self._route(np.full(W, req.aid, np.int64))
+        self._pools_at_risk = True
+        logits, _, _ = self._chunk_fn(
+            self.config, self.params, self.pool_k, self.pool_v,
+            self._dev(ids), start, n_tok, self._dev(tbl), lora=lora,
+            compute_dtype=self.dtype)
+        self._pools_at_risk = False
+        self.chunks += 1
+        req.prefill_pos += n_tok
+        if req.prefill_pos < P:
+            return
+        tok = self._select(logits, np.asarray([slot]), np.asarray([P]))[0]
+        req.prefilling = False
+        self._first_token(req, int(tok))   # host sync: the first token
 
     def _release(self, req: Request) -> None:
-        self.alloc.free(req.blocks)
+        park = self.prefix.park if self.prefix is not None else None
+        self.alloc.free(req.blocks, park=park)
         req.blocks = []
+        req.prefilling = req.awaiting_first = False
         s = req.slot
         if s < 0:   # admission died before the slot was taken
             return
         self._slots[s] = None
         self._tok[s] = self._pos[s] = self._aid[s] = 0
         self._tbl[s] = TRASH_BLOCK
+        self._temp[s], self._topk[s], self._topp[s] = 0.0, 0, 1.0
+        self._seed[s] = 0
 
     def _finish(self, req: Request) -> None:
         self._release(req)
@@ -483,7 +744,8 @@ class ServeEngine:
     def _contain_step_error(self, e: BaseException) -> List[Request]:
         """A step exception reached the scheduler: fail each active request
         (state=error, reason=<exception type>), release exactly its pages,
-        and zero the pools so the next admission starts clean. The queue
+        and zero the pools so the next admission starts clean; the prefix
+        cache forgets every page, since the contents are gone. The queue
         is untouched."""
         name = type(e).__name__
         failed: List[Request] = []
@@ -493,16 +755,14 @@ class ServeEngine:
             failed.append(req)
         self.pool_k.zero_()
         self.pool_v.zero_()
+        if self.prefix is not None:
+            self.prefix.flush()
         self._pools_at_risk = False
         return failed
 
-    def step(self) -> List[Request]:
-        """One scheduler iteration: expire deadlines, admit what fits, then
-        one decode step for every active slot. Returns every request that
-        reached a terminal state on this iteration."""
+    def _admit_queue(self, done: List[Request]) -> None:
+        """FCFS admission under the worst-case page reservation."""
         cfg = self.cfg
-        done: List[Request] = self._expire(time.perf_counter())
-        # FCFS admission under the worst-case page reservation
         while self.queue:
             free = [i for i, r in enumerate(self._slots) if r is None]
             if not free:
@@ -530,7 +790,48 @@ class ServeEngine:
             if req.state == "finished":  # eos/cap hit on the first token
                 done.append(req)
 
-        live = self.active
+    def _run_chunks(self, done: List[Request]) -> bool:
+        """Prefill chunks, oldest request first, until this step's budget
+        of one widest bucket of prompt tokens is spent (several short
+        suffixes share a step). False when a chunk failed and containment
+        ended the step."""
+        budget = self.chunk_buckets[-1]
+        while budget > 0:
+            chunking = [r for r in self.active if r.prefilling]
+            if not chunking:
+                break
+            req = min(chunking, key=lambda r: r.id)
+            W = self._bucket(req)
+            if W > budget:
+                break                    # the next chunk outlives the budget
+            try:
+                self._prefill_chunk(req)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                # the chunk writes the pools: every resident is suspect
+                done.extend(self._contain_step_error(e))
+                if self.cfg.on_step_error == "raise":
+                    raise
+                return False
+            budget -= W
+            if req.done:                 # eos/cap on the final chunk
+                done.append(req)
+        return True
+
+    def step(self) -> List[Request]:
+        """One scheduler iteration: expire deadlines, admit what fits, run
+        this step's prefill chunks, then one decode step for every slot
+        past its prefill. Returns every request that reached a terminal
+        state on this iteration."""
+        cfg = self.cfg
+        done: List[Request] = self._expire(time.perf_counter())
+        self._admit_queue(done)
+        if not self._run_chunks(done):
+            return done
+        # mid-prefill requests hold idle slot data: the step runs over
+        # every slot, but only rows past their prefill advance
+        live = [r for r in self.active if not r.prefilling]
         if not live:
             return done
         # a slot crossing a page boundary this step takes its next page
@@ -550,13 +851,15 @@ class ServeEngine:
         try:
             if self.step_hook is not None:
                 self.step_hook(self.decode_steps)
-            logits, _, _ = gpt2_decode_step_paged(
+            logits, _, _ = self._step_fn(
                 self.config, self.params, self.pool_k, self.pool_v,
                 self._dev(self._tok), self._dev(self._pos),
                 self._dev(self._tbl), lora=self._route(self._aid),
                 compute_dtype=self.dtype, attn_impl=cfg.attn_impl)
+            nxt = self._select(logits, np.arange(cfg.num_slots),
+                               self._pos + 1)
             # the serve loop's ONE host sync per decode step
-            nxt = logits.argmax(-1).cpu().numpy()
+            nxt = nxt.cpu().numpy()
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
@@ -573,6 +876,10 @@ class ServeEngine:
             self._pos[s] += 1
             self._tok[s] = int(nxt[s])
             req.tokens.append(int(nxt[s]))
+            if req.awaiting_first:
+                # full-hit re-feed: this step emitted the first token
+                req.awaiting_first = False
+                req.first_token_t = time.perf_counter()
             if (self.eos_id is not None and req.tokens[-1] == self.eos_id) \
                     or len(req.tokens) >= req.max_new_tokens:
                 self._finish(req)
@@ -593,7 +900,8 @@ class ServeEngine:
     # ------------------------------------------------------------ health ----
     def health(self) -> dict:
         """Loop vitals: queue depth, occupancy, page headroom, rolling p95
-        step latency, device memory and the terminal-state counters."""
+        step latency, device memory, the prefix cache's hit rate, page
+        copies and parked pages, and the terminal-state counters."""
         ms = sorted(self._step_ms)
         p95 = (round(ms[min(int(0.95 * len(ms)), len(ms) - 1)], 3)
                if ms else None)
@@ -609,6 +917,10 @@ class ServeEngine:
             "decode_steps": self.decode_steps,
             "hbm_mb": round(mem, 2) if mem is not None else None,
             "pool_mb": round(self.pool_mb, 2),
+            "prefix_hit_rate": (self.prefix.hit_rate
+                                if self.prefix is not None else None),
+            "cow_copies": self.cow_copies,
+            "parked_blocks": self.alloc.parked_blocks,
             "counts": {s: int(self.counts.get(s, 0))
                        for s in Request.TERMINAL},
         }

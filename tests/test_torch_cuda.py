@@ -1098,3 +1098,88 @@ def test_generate_kernel_path_matches_plain_path(dev, monkeypatch):
     assert da.decode_attention.launches == cfg.n_layer * (N - 1)
     assert fa.flash_attention_fwd.launches == cfg.n_layer
     assert torch.equal(auto.cpu(), plain.cpu())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_gemma_paged_step_kernel_matches_plain(dev, dtype, tol):
+    """gemma3_decode_step_paged at Gemma-3-270M's attention shape (4 query
+    heads over 1 kv head of 256) in 3 layers, a window of 40 on the local
+    ones, 8 slots (one idle) over a table of 50 pages of 16: the row-12
+    kernel against paged_attention on the same pools, logits within `tol`
+    (relative to max(1, |logits|) in bf16, absolute in f32), layer 0's
+    K/V writes identical, one launch a layer."""
+    cfg = Gemma3TextConfig(vocab_size=3000, hidden_size=128,
+                           intermediate_size=256, num_hidden_layers=3,
+                           num_attention_heads=4, num_key_value_heads=1,
+                           head_dim=256, sliding_window=40,
+                           sliding_window_pattern=3)
+    params = gemma3.init_params(cfg, seed=0, dtype=dtype, device=dev)
+    S, M, bT, NB = 8, 50, 16, 8 * 50 + 1
+    g = torch.Generator().manual_seed(3)
+    pk0 = torch.randn(NB, 3, 1, bT, 256, generator=g).to(dev, dtype)
+    pv0 = torch.randn(NB, 3, 1, bT, 256, generator=g).to(dev, dtype)
+    pos = torch.tensor([799, 512, 41, 300, 7, 650, 95, 0])
+    tbl = torch.zeros(S, M, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s in range(S - 1):
+        n = int(pos[s]) // bT + 1
+        tbl[s, :n] = perm[s * M:s * M + n].int()
+    tok = torch.randint(0, 3000, (S,), generator=g)
+    out = {}
+    for impl in ("auto", "plain"):
+        pk, pv = pk0.clone(), pv0.clone()
+        n0 = da.paged_decode_attention.launches
+        logits, _, _ = generate.gemma3_decode_step_paged(
+            cfg, params, pk, pv, tok.to(dev), pos.to(dev), tbl.to(dev),
+            compute_dtype=dtype, attn_impl=impl)
+        n = da.paged_decode_attention.launches - n0
+        assert n == (3 if impl == "auto" else 0)
+        out[impl] = (logits, pk, pv)
+    (a, ak, av), (b, bk, bv) = out["auto"], out["plain"]
+    assert bool(torch.isfinite(a).all())
+    err = _rel_err(a, b) if dtype == torch.bfloat16 \
+        else float((a - b).abs().max())
+    assert err <= tol
+    # layer 0's writes precede any attention: identical on both paths
+    assert torch.equal(ak[1:, 0], bk[1:, 0])
+    assert torch.equal(av[1:, 0], bv[1:, 0])
+
+
+def test_tiny_gemma_engine_drains_on_the_card_with_launch_counts(dev):
+    """build_engine("tiny-gemma") in f32 on the card with 2 tenants, the
+    prefix cache, chunked admission and sampling: the flash kernel runs
+    once a layer a one-shot prefill, the paged kernel once a layer a
+    decode step, and the tokens are those of the same engine on the
+    CPU (the plain versions)."""
+    from mobilefinetuner_tpu_torch.serve.bench import build_engine
+    kw = dict(num_slots=3, block_T=16, num_blocks=64, max_prompt=32,
+              max_new=8, adapters=2, dtype="float32", prefix_cache=True,
+              max_prompt_chunked=96, sampling=True)
+    g = torch.Generator().manual_seed(4)
+    common = torch.randint(0, 300, (32,), generator=g).tolist()
+    prompts = [common + [5, 6], torch.randint(0, 300, (20,), generator=g)
+               .tolist(), list(common), torch.randint(0, 300, (90,),
+                                                      generator=g).tolist(),
+               list(common)]
+    routes = [None, "tenant0", None, "tenant1", None]
+    out = []
+    for device in (dev, "cpu"):
+        eng, _ = build_engine("tiny-gemma", device=device, **kw)
+        fa.flash_attention_fwd.launches = 0
+        da.paged_decode_attention.launches = 0
+        reqs = [eng.submit(p, adapter=a, temperature=0.8 * (i % 2),
+                           seed=i) for i, (p, a) in
+                enumerate(zip(prompts, routes))]
+        eng.drain()
+        assert all(r.state == "finished" for r in reqs)
+        assert eng.alloc.in_use == 0
+        eng.prefix.check_consistent()
+        out.append([r.tokens for r in reqs])
+        L = eng.config.num_hidden_layers
+        if device == dev:
+            assert eng.prefills > 0 and eng.chunks > 0
+            assert fa.flash_attention_fwd.launches == L * eng.prefills
+            assert da.paged_decode_attention.launches \
+                == L * eng.decode_steps
+    assert out[0] == out[1]

@@ -2,7 +2,8 @@
 every module of mobilefinetuner_tpu_torch, chip_smoke.py and
 rounding_sensitivity.py (this test process cannot tell, since
 tests/conftest.py imports jax for every test), and an AST scan checks
-every import statement of those files."""
+every import statement of those files, the serving modules (the prefix
+cache, the engine, the serving model functions) named among them."""
 
 import ast
 import os
@@ -51,6 +52,15 @@ print(len(mods), bad)
     n, bad = res.stdout.strip().split(" ", 1)
     assert int(n) >= 15, res.stdout
     assert bad == "[]", res.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "serve/prefix_cache.py", "serve/paged_kv.py", "serve/engine.py",
+    "serve/bench.py", "serve/adapters.py", "models/generate.py",
+    "models/lora_apply.py", "ops/dropout.py"])
+def test_serving_modules_are_scanned(module):
+    """The Gemma serving slice's modules are among the files scanned."""
+    assert os.path.join(ROOT, PKG, module) in _port_files()
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -257,14 +257,22 @@ def test_submit_and_config_validation(engine, params):
         ServeEngine("bert", CFG, params, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         ServeConfig(attn_impl="pallas").validate()
-    for kw in (dict(prefix_cache=True), dict(sampling=True),
-               dict(max_prompt_chunked=128), dict(mesh_tp=2),
-               dict(trace_spans=True), dict(stats_every=4),
-               dict(lora_impl="fused")):
+    for kw in (dict(mesh_tp=2), dict(trace_spans=True),
+               dict(stats_every=4), dict(lora_impl="fused")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeConfig(**kw).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine("gemma", CFG, params, device="cpu")
+    # the prefix cache, chunked prefill and sampling are ported: their
+    # knobs validate, with the JAX engine's rules
+    ServeConfig(prefix_cache=True, sampling=True, max_prompt_chunked=128,
+                chunk_buckets=(16, 32)).validate()
+    with pytest.raises(ValueError, match="max_prompt_chunked"):
+        ServeConfig(max_prompt=64, max_prompt_chunked=64).validate()
+    with pytest.raises(ValueError, match="max_prompt_chunked"):
+        ServeConfig(block_T=16, max_prompt_chunked=72).validate()
+    with pytest.raises(ValueError, match="chunk_buckets"):
+        ServeConfig(block_T=16, chunk_buckets=(24,)).validate()
+    with pytest.raises(ValueError, match="sampling"):
+        engine.submit([1, 2], temperature=0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine("gpt2", CFG, params, telemetry=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
