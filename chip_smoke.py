@@ -76,7 +76,16 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the forward, backward and epilogue kernels must have launched
      exactly as often as the path runs them;
   6. serve one request with the trained adapter, loaded from its file
-     through AdapterBank.load_file;
+     through AdapterBank.load_file; then, counts set to 0, fine-tune the
+     same GPT-2 small in full through cli.gpt2_full_finetune.main
+     (`gpt2_full_ft`: all 124,439,808 parameters, dropout 0.1 at every
+     model site so the attention probs take the flash kernels' hash mask,
+     batch 8, seq 128, bf16, 20 steps, a step file at step 10), and again
+     resumed from that file: the loss must fall, the eval perplexity end
+     below the base model's, the resumed run repeat the later losses
+     (1e-3; whether bit for bit is printed), the model file reload
+     through load_gpt2, and the flash forward launch 12 times a forward,
+     the merged backward 12 times a backward, nothing else;
   7. Gemma: write a random-weight Gemma-3-270M directory (full width and
      depth, a 262,144-entry tokenizer.json) and the corpus, take the base
      model's eval perplexity, then with the counts set to 0 run
@@ -108,13 +117,22 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      flash forward L times a whole-prompt prefill, the epilogue at every
      adapter site, the paged kernel never; then each family's bf16
      decode step again, timed from CUDA events around CUDA-graph replays
-     (device) and around eager calls (host);
+     (device) and around eager calls (host); then cli.eval_mmlu (`mmlu`,
+     counts set to 0 before each run) on both families over a synthetic
+     MMLU (data/synthetic.write_synthetic_mmlu: 57 subjects, 2 items
+     each, buckets of 16 prompts): in f32 the report through the kernels
+     must equal the plain attention's and the first batch's last-token
+     logits agree within 1e-4; in bf16 GPT-2 with the `train` adapter dynamic
+     and merged must predict alike on >= 95% of the items, and Gemma
+     with the head adapter dynamic runs the epilogue at [16, 262,144];
+     the flash forward launches batches x layers, the epilogue batches x
+     adapted sites; items/s of each run's scoring;
   8. trace a decode step (and time it from CUDA events around CUDA-graph
      replays of one gpt2_decode_step_paged call with the engine's state
      held fixed), a 128-token prefill, the Gemma serve decode step and a
      128-token Gemma prefill chunk (graphs of one
      gemma3_decode_step_paged and one gemma3_prefill_chunk), a GPT-2
-     train step, a
+     train step, a GPT-2 full fine-tuning step, a
      Gemma LoRA train step without and with the lm_head target and a
      Gemma full fine-tuning step with torch.profiler: device busy time
      against
@@ -135,11 +153,16 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      paths' runs made at that shape (the wrapper's `by_shape`, which must
      add up to the paths' launches of the kernel); row 1 also at the
      Gemma serving prefill's shape (q 1 x 4 x 128 x 256) and row 12 at
-     Gemma-3-270M serving, each with the `gemma_serve` path's launches.
+     Gemma-3-270M serving, each with the `gemma_serve` path's launches;
+     row 1 at every shape the MMLU runs launched it (each bucket of GPT-2
+     16 x 12 heads and Gemma 16 x 4 heads over 1, bf16 on the tensor-core
+     kernel and f32 on the FMA kernel, each held against its plain
+     version) and row 5 at the MMLU head adapter's [16, 262,144], with
+     the launches at that shape (the wrappers' `by_shape`).
 
-Prints `serve`, `gemma_serve`, `train`, `gemma_train`, `gemma_full_ft`,
-`gemma_lora_head`, `eval_ppl`, `generate`, `profile`, `bwd_sweep` and
-`kernels` JSON
+Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `gemma_train`,
+`gemma_full_ft`, `gemma_lora_head`, `eval_ppl`, `generate`, `mmlu`,
+`profile`, `bwd_sweep` and `kernels` JSON
 lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result.
@@ -156,9 +179,11 @@ import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
-# larger of its bytes over the memory rate and its flops over this rate
+# larger of its bytes over the memory rate and its flops over the rate of
+# its type (bf16 / f16 on the tensor cores; f32 outside them)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 LAYERS = 12
 CSRC = "mobilefinetuner_tpu_torch/csrc/"
 JAX_OPS = "mobilefinetuner_tpu/ops/"
@@ -280,8 +305,8 @@ def device_events(fn, iters: int):
              if e.device_type == cuda], wall_ms)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -370,9 +395,11 @@ def timed(fns: dict, iters: int = 200):
             for key, fn in fns.items()}
 
 
-# the LoRA epilogue's launches by (dtype, N, d_out), summed over the main
-# paths' runs: each run counts from zero_counts to read_counts
+# the LoRA epilogue's launches by (dtype, N, d_out) and the flash
+# forward's by (dtype, B, Hq, S, D), summed over the main paths' runs:
+# each run counts from zero_counts to read_counts
 EPI_BY_SHAPE = collections.Counter()
+FLASH_BY_SHAPE = collections.Counter()
 
 
 def zero_counts(kernels: dict) -> None:
@@ -380,12 +407,15 @@ def zero_counts(kernels: dict) -> None:
     for fn in kernels.values():
         fn.launches = 0
     kernels["lora_epilogue"].by_shape.clear()
+    kernels["flash_fwd"].by_shape.clear()
 
 
 def read_counts(kernels: dict) -> dict:
     """{kernel: launches} since zero_counts, just after a path's run; the
-    epilogue's launches by shape go into EPI_BY_SHAPE."""
+    epilogue's and the flash forward's launches by shape go into
+    EPI_BY_SHAPE and FLASH_BY_SHAPE."""
     EPI_BY_SHAPE.update(kernels["lora_epilogue"].by_shape)
+    FLASH_BY_SHAPE.update(kernels["flash_fwd"].by_shape)
     return {k: fn.launches for k, fn in kernels.items()}
 
 
@@ -2108,6 +2138,398 @@ def eval_ppl_phase(torch, kernels, gemma, head, gpt2):
     return stats, total, launches
 
 
+# --------------------------------------------- GPT-2 full fine-tuning ------
+
+GPT2_FULL = dict(steps=20, batch=8, seq=128, lr=2e-4, save_every=10,
+                 eval_batch=8, eval_batches=8, pdrop=0.1)
+
+
+def dropout_dir(src: str, d: str, pdrop: float) -> str:
+    """`src`'s checkpoint with GPT-2's published dropout rates (embd /
+    resid / attn pdrop) in its config.json; the other files linked."""
+    os.makedirs(d, exist_ok=True)
+    for name in os.listdir(src):
+        if name != "config.json":
+            os.symlink(os.path.join(src, name), os.path.join(d, name))
+    with open(os.path.join(src, "config.json")) as f:
+        raw = json.load(f)
+    raw.update(embd_pdrop=pdrop, resid_pdrop=pdrop, attn_pdrop=pdrop)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(raw, f)
+    return d
+
+
+def gpt2_full_ft(torch, work, kernels, base_ppl, eval_nb):
+    """The GPT-2 full fine-tuning path: cli.gpt2_full_finetune on the
+    `train` phase's synthetic GPT-2 small (dropout 0.1 at every model
+    site, the attention probs through the flash kernels' hash mask) and
+    corpus, then again resumed from its step-10 file; launch counts set
+    to 0 just before the first run and read just after the second."""
+    import numpy as np
+    from mobilefinetuner_tpu_torch.cli import gpt2_full_finetune as cli
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
+    from mobilefinetuner_tpu_torch.io.safetensors_io import \
+        SafeTensorsReader
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    F = GPT2_FULL
+    gdir = dropout_dir(os.path.join(work, "gpt2"),
+                       os.path.join(work, "gpt2_drop"), F["pdrop"])
+    ddir = os.path.join(work, "wiki")
+    out, out_r = (os.path.join(work, n) for n in ("full_out", "full_resume"))
+    model = os.path.join(out, "full.safetensors")
+    step_file = os.path.join(out, f"full_step{F['save_every']}.safetensors")
+
+    def argv(o, *extra):
+        return ["--pretrained_dir", gdir, "--data_dir", ddir,
+                "--steps", str(F["steps"]), "--batch_size", str(F["batch"]),
+                "--seq_len", str(F["seq"]), "--dtype", "bfloat16",
+                "--lr", str(F["lr"]), "--eval_interval", str(F["steps"]),
+                "--eval_batch_size", str(F["eval_batch"]),
+                "--eval_batches", str(F["eval_batches"]),
+                "--output_path", os.path.join(o, "full.safetensors"),
+                "--metrics_csv", os.path.join(o, "metrics.csv"),
+                "--eval_out", os.path.join(o, "eval.jsonl"), *extra]
+
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv(out, "--save_every", str(F["save_every"])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"gpt2_full_finetune.main returned {rc}")
+    t0 = time.perf_counter()
+    rc = cli.main(argv(out_r, "--resume_from", step_file))
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    check(rc == 0, f"gpt2_full_finetune.main (resumed) returned {rc}")
+
+    rows = read_csv(os.path.join(out, "metrics.csv"))
+    losses = [float(r["loss"]) for r in rows]
+    step_ms = sorted(float(r["step_time_ms"]) for r in rows)
+    resumed = [float(r["loss"]) for r in read_csv(
+        os.path.join(out_r, "metrics.csv"))]
+    evals = [json.loads(ln) for ln in open(os.path.join(out,
+                                                        "eval.jsonl"))]
+    evals_r = [json.loads(ln) for ln in open(os.path.join(out_r,
+                                                          "eval.jsonl"))]
+    final, final_r = evals[-1], evals_r[-1]
+    check(len(losses) == F["steps"] and all(map(_finite, losses)),
+          f"losses {losses}")
+    first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last5 < first5, f"loss did not fall: first-5 mean {first5:.4f}, "
+          f"last-5 mean {last5:.4f}")
+    check(final["type"] == "final_eval" and final["ppl"] < base_ppl,
+          f"eval ppl {final['ppl']:.3f} not below the base model's "
+          f"{base_ppl:.3f}")
+    # the resumed run repeats the uninterrupted one from step 11 on; the
+    # merged backward's dQ sums are atomic (csrc/flash_attention_bwd_
+    # merged_mma.cu), so "exact" is reported and 1e-3 is the check
+    tail = losses[F["save_every"]:]
+    resume_diff = max(abs(a - b) for a, b in zip(resumed, tail))
+    check(len(resumed) == len(tail) and resume_diff <= 1e-3
+          and abs(final_r["ppl"] - final["ppl"]) <= 1e-3 * final["ppl"],
+          f"resumed losses {resumed} vs {tail}, eval ppl "
+          f"{final_r['ppl']} vs {final['ppl']}")
+    fwd = F["steps"] + (F["steps"] - F["save_every"]) \
+        + (len(evals) + len(evals_r)) * eval_nb
+    bwd = F["steps"] + (F["steps"] - F["save_every"])
+    impl = resolve_bwd_impl(F["seq"], 64, torch.bfloat16)
+    want = {k: 0 for k in kernels}
+    want.update({"flash_fwd": LAYERS * fwd,
+                 "bwd_merged": LAYERS * bwd if impl == "merged" else 0,
+                 "bwd_dq": LAYERS * bwd if impl == "split" else 0,
+                 "bwd_dkv": LAYERS * bwd if impl == "split" else 0})
+    check(launches == want, f"gpt2_full_ft launches {launches}, expected "
+          f"{want} ({fwd} forwards, {bwd} backwards)")
+    # the saved file reloads through load_gpt2 (an HF dir around it)
+    rdir = os.path.join(work, "gpt2_full_reload")
+    os.makedirs(rdir)
+    for name in ("config.json", "vocab.json", "merges.txt"):
+        os.symlink(os.path.join(gdir, name), os.path.join(rdir, name))
+    os.symlink(model, os.path.join(rdir, "model.safetensors"))
+    cfg, p = load_gpt2(rdir)
+    _, p0 = load_gpt2(gdir)
+    leaves = [p["wte"], p["wpe"], p["ln_f"]["g"], p["ln_f"]["b"]] + [
+        x for g in p["blocks"].values() for x in g.values()]
+    n_params = sum(x.size for x in leaves)
+    check(n_params == 124_439_808 and cfg.attn_pdrop == F["pdrop"]
+          and all(bool(np.isfinite(x).all()) for x in leaves)
+          and float(np.abs(p["wte"] - p0["wte"]).max()) > 0
+          and SafeTensorsReader(model + ".opt").metadata["loop_step"]
+          == str(F["steps"]), "full-model file / .opt did not reload")
+    tokens = F["batch"] * F["seq"]
+    p50 = step_ms[len(step_ms) // 2]
+    return {"model": "gpt2s", "mode": "full", "dtype": "bfloat16",
+            "trainable_params": n_params, "model_pdrop": F["pdrop"],
+            "steps": F["steps"], "micro_batch": F["batch"],
+            "seq_len": F["seq"], "lr": F["lr"], "tokens_per_step": tokens,
+            "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "first5_mean_loss": first5, "last5_mean_loss": last5,
+            "eval_ppl_before": base_ppl, "eval_ppl_after": final["ppl"],
+            "resumed_from_step": F["save_every"],
+            "resumed_losses_exact": resumed == tail,
+            "resumed_max_abs_diff": resume_diff,
+            "resumed_eval_ppl": final_r["ppl"], "forwards": fwd,
+            "backwards": bwd, "bwd_impl": impl, "wall_s": wall,
+            "resumed_wall_s": wall_r}, launches
+
+
+def profile_gpt2_full_ft(torch, dev, model):
+    """Where one GPT-2 small full fine-tuning step (batch 8 x 128, bf16,
+    every parameter trainable, the tied wte's two gradients summed by
+    autograd, Adam over 124M parameters) spends its time."""
+    import numpy as np
+    from mobilefinetuner_tpu_torch.cli.common import place_batch
+    from mobilefinetuner_tpu_torch.models import gpt2
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.optim.adam import tree_map
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_train_step)
+    config, params = model[:2]
+    F = GPT2_FULL
+    params = tree_map(lambda t: t.clone(), params)
+    tc = TrainConfig(total_steps=F["steps"], lr=F["lr"])
+
+    def loss_fn(trainable, _frozen, mb):
+        logits = gpt2.forward(config, trainable, mb["input_ids"],
+                              attention_mask=mb["attention_mask"],
+                              compute_dtype=torch.bfloat16)
+        return lm_cross_entropy_sum(logits, mb["labels"])
+
+    step_fn = make_train_step(loss_fn, tc, None)
+    opt = init_optimizer(params, tc, None)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, config.vocab_size, (F["batch"], F["seq"]),
+                       dtype=np.int32)
+    batch = place_batch({"input_ids": ids, "labels": ids,
+                         "attention_mask": np.ones((F["batch"], F["seq"]),
+                                                   np.float32)}, dev)
+    return profile_phases({"gpt2_full_ft_train_step": (
+        lambda: step_fn(params, None, opt, batch, 0), 5, True)})
+
+
+# -------------------------------------------------------------- MMLU -------
+
+MMLU = dict(items=2, batch=16)   # synthetic items a subject (57 subjects)
+
+
+def mmlu_args(model_dir, root, dtype, attn="auto", lora="", merge=False):
+    argv = ["--pretrained_dir", model_dir, "--mmlu_root", root,
+            "--dtype", dtype, "--attention_impl", attn, "--synthetic",
+            "--eval_batch", str(MMLU["batch"])]
+    if lora:
+        argv += ["--lora_path", lora] + (["--lora_merge"] if merge else [])
+    return argv
+
+
+def run_eval_mmlu(argv, stats=None):
+    """cli.eval_mmlu.main(argv + --out, stats) -> its JSON report."""
+    import contextlib
+    import io
+
+    from mobilefinetuner_tpu_torch.cli import eval_mmlu
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "report.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = eval_mmlu.main(argv + ["--out", out], stats=stats)
+        check(rc == 0, f"eval_mmlu.main returned {rc}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def mmlu_last_token_logits(model_dir, root, dev, batch):
+    """max |difference| of the full last-token logits [16, V] of the
+    first batch that the CLI scored, the kernel path's against the plain
+    attention's (f32)."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.cli import eval_mmlu
+    out = {}
+    for attn in ("xla", "auto"):
+        args = eval_mmlu.build_parser().parse_args(
+            mmlu_args(model_dir, root, "float32", attn))
+        f = eval_mmlu.setup_family(args, dev)
+        out[attn] = eval_mmlu.make_batched_logits_fn(*f[:3], f[6], f[7])(
+            *batch)
+        del f
+    return float(np.abs(out["auto"] - out["xla"]).max())
+
+
+def mmlu_phase(torch, dev, kernels, gpt2, gemma):
+    """cli.eval_mmlu on both families over a synthetic MMLU (57 subjects,
+    MMLU["items"] test items each), launch counts set to 0 just before
+    each run and read just after: at f32 the kernel path's report must
+    equal the plain attention's and the first batch's last-token logits
+    agree within 1e-4; at bf16 GPT-2 with the `train` adapter dynamic and
+    merged must give the same prediction on >= 95% of the items, and
+    Gemma with the head adapter dynamic runs the epilogue at [16,
+    262,144]; the flash forward launches batches x layers, the epilogue
+    batches x adapted sites. Returns the stats, the launches summed and
+    by run, and the flash forward's launches by shape over the phase."""
+    import numpy as np
+
+    from mobilefinetuner_tpu_torch.data.synthetic import write_synthetic_mmlu
+    gpt2_dir, gpt2_adapter = gpt2
+    gemma_dir, head_adapter = gemma
+    root = write_synthetic_mmlu(
+        os.path.join(os.path.dirname(gpt2_dir), "mmlu"), MMLU["items"])
+    L = {"gpt2": LAYERS, "gemma": GEMMA_LAYERS}
+    dirs = {"gpt2": gpt2_dir, "gemma": gemma_dir}
+    stats, launches, reports, scored = {}, {}, {}, {}
+    flash_before = FLASH_BY_SHAPE.copy()
+
+    def counted(name, argv):
+        zero_counts(kernels)
+        scored[name] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports[name] = run_eval_mmlu(argv, scored[name])
+        torch.cuda.synchronize()
+        launches[name] = read_counts(kernels)
+        stats[name] = {
+            "wall_s": time.perf_counter() - t0,
+            "items_per_s": scored[name]["items_per_s"],
+            "scoring_s": scored[name]["scoring_s"],
+            "macro_accuracy": reports[name]["macro_accuracy"],
+            "micro_accuracy": reports[name]["micro_accuracy"],
+            "total_items": reports[name]["total_items"],
+            "batches_by_bucket": scored[name]["batches_by_bucket"]}
+        return sum(scored[name]["batches_by_bucket"].values())
+
+    def want(fam, batches, sites):
+        w = {k: 0 for k in kernels}
+        w.update({"flash_fwd": L[fam] * batches,
+                  "lora_epilogue": sites * batches})
+        return w
+
+    # f32: the CLI's report through the kernels and through the plain
+    # attention; the first batch's last-token logits
+    for fam in ("gpt2", "gemma"):
+        for attn in ("auto", "xla"):
+            name = f"{fam}_f32_{'kernel' if attn == 'auto' else 'plain'}"
+            n_b = counted(name, mmlu_args(dirs[fam], root, "float32", attn))
+            check(launches[name] == want(fam, n_b if attn == "auto" else 0,
+                                         0),
+                  f"mmlu {name} launches {launches[name]}, expected {n_b} "
+                  f"batches x {L[fam]} layers")
+        same = reports[f"{fam}_f32_kernel"] == reports[f"{fam}_f32_plain"]
+        check(same, f"mmlu {fam} f32: the kernel path's report differs "
+              f"from the plain attention's")
+        batch = scored[f"{fam}_f32_kernel"]["first_batch"]
+        err = mmlu_last_token_logits(dirs[fam], root, dev, batch)
+        print(f"mmlu {fam} f32: last-token logits of a "
+              f"{list(batch[0].shape)} batch, kernel vs plain max |err| "
+              f"{err:.3e} (tolerance 1e-4); reports equal")
+        check(err <= 1e-4, f"mmlu {fam} f32 logits differ by {err}")
+        stats[f"{fam}_f32_kernel"].update({"logits_max_abs_err": err,
+                                           "report_equals_plain": same})
+
+    # bf16: GPT-2's adapter dynamic and merged; Gemma's head adapter
+    runs = {"gpt2_bf16_dynamic": ("gpt2", gpt2_adapter, False, 2 * LAYERS),
+            "gpt2_bf16_merged": ("gpt2", gpt2_adapter, True, 0),
+            "gemma_bf16_head_dynamic": (
+                "gemma", head_adapter, False,
+                GEMMA_LAYERS * GEMMA_SITES + 1)}
+    for name, (fam, adapter, merge, sites) in runs.items():
+        n_b = counted(name, mmlu_args(dirs[fam], root, "bfloat16",
+                                      lora=adapter, merge=merge))
+        check(launches[name] == want(fam, n_b, sites),
+              f"mmlu {name} launches {launches[name]}, expected "
+              f"{want(fam, n_b, sites)}")
+    preds = {k: scored[k]["predictions"]
+             for k in ("gpt2_bf16_dynamic", "gpt2_bf16_merged")}
+    agree = np.mean([a == b for a, b in zip(preds["gpt2_bf16_dynamic"],
+                                            preds["gpt2_bf16_merged"])])
+    print(f"mmlu gpt2 bf16: dynamic and merged adapter predictions agree "
+          f"on {agree:.4f} of {len(preds['gpt2_bf16_merged'])} items "
+          f"(tolerance >= 0.95)")
+    check(agree >= 0.95, f"mmlu gpt2 bf16 dynamic vs merged agree on "
+          f"{agree:.4f} of the items")
+    stats["gpt2_bf16_dynamic_vs_merged_agreement"] = float(agree)
+    total = {k: sum(v[k] for v in launches.values()) for k in kernels}
+    return stats, total, launches, FLASH_BY_SHAPE - flash_before
+
+
+def mmlu_kernel_entries(torch, fa, lf, dev, flash_shapes):
+    """Row 1 at every shape the MMLU runs launched it (`flash_shapes`,
+    (dtype, B, Hq, S, D) -> launches; GPT-2 [16, 12, S, 64] causal,
+    Gemma [16, 4, S, 256] over 1 kv head, causal, with the sliding
+    layers' window 512 and the global layers' none; no padding: the pads
+    sit after every real row) and row 5 at the head adapter's [16,
+    262,144], r 8: each held against its plain version (the tolerances
+    of check_flash and check_epilogue), timed and bounded, with the
+    launches the paths made at that shape. f32 shapes run the FMA kernel
+    (flash_attention_fwd.cu)."""
+    bf = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fams = {(12, 64): ("gpt2", 12, (None,)),
+            (4, 256): ("gemma", 1, (512, None))}
+    out = {"flash": []}
+    for key in sorted(flash_shapes, key=lambda k: (str(k[0]), k[2], k[3])):
+        dt, B, Hq, S, D = key
+        check((Hq, D) in fams, f"MMLU flash launch at a shape {key} of "
+              f"neither family")
+        fam, Hkv, windows = fams[(Hq, D)]
+        tol, src, peak = ((1e-2, "flash_attention_fwd_mma.cu",
+                           PEAK_BF16_FLOPS) if dt == bf else
+                          (1e-4, "flash_attention_fwd.cu", PEAK_F32_FLOPS))
+        q, k, v, _ = flash_inputs(torch, dev, dt, B, Hq, Hkv, S, D,
+                                  (S,) * B, seed=21)
+        errs = []
+        for window in windows:
+            kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window)
+            o, lse = fa.flash_attention_fwd(q, k, v, None, **kw)
+            ref, ref_lse = fa.flash_attention_reference(q, k, v, None, **kw)
+            err, lse_err = max_err(o, ref), max_err(lse, ref_lse)
+            print(f"mmlu {fam} bucket {S}, {dt}, window {window}: flash fwd "
+                  f"max |out err| {err:.3e} (tolerance {tol:g}), max |lse "
+                  f"err| {lse_err:.3e} (1e-4)")
+            check(bool(torch.isfinite(o).all()) and err <= tol
+                  and lse_err <= 1e-4, f"flash fwd at the {fam} MMLU bucket "
+                  f"{S} ({dt}, window {window}): max |err| {err:.3e}, lse "
+                  f"{lse_err:.3e}")
+            errs.append(err)
+        kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=windows[0])
+        times = timed({
+            "ms": lambda: fa.flash_attention_fwd(q, k, v, None, **kw),
+            "plain_ms": lambda: fa.flash_attention_reference(q, k, v, None,
+                                                             **kw),
+            "library_ms": lambda: sdpa(q, k, v, is_causal=True,
+                                       scale=kw["scale"],
+                                       enable_gqa=Hq != Hkv)}, 50)
+        pairs = B * Hq * sum(min(i + 1, windows[0] or S)   # causal
+                             for i in range(S))
+        isz = q.element_size()
+        out["flash"].append(kernel_entry(
+            "flash_attention_fwd", src, "flash_attention.py:162",
+            flash_shapes[key], max(errs), times,
+            bound((2 * q.numel() + 2 * k.numel()) * isz + B * S * 4
+                  + B * Hq * S * 4, 4 * D * pairs, peak),
+            {"shape": f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, "
+                      f"{str(dt).split('.')[-1]}, causal"
+                      + (f", window {windows[0]}" if windows[0] else "")
+                      + f" (eval_mmlu {fam} bucket {S})"}))
+    g = torch.Generator(device=dev).manual_seed(22)
+    y, xa, bm = (torch.randn(sh, generator=g, device=dev).to(bf)
+                 for sh in ((MMLU["batch"], 262144), (MMLU["batch"], 8),
+                            (8, 262144)))
+    es = torch.tensor(EPI_SCALE, device=dev)
+    epi, _ = lf.lora_epilogue(y, xa, bm, es)
+    epi_err = max_err(epi, lf.lora_epilogue_reference(y, xa, bm, es))
+    check(epi_err <= 1e-2, f"LoRA epilogue at the MMLU head shape: max "
+          f"|err| {epi_err:.3e}")
+    out["lm_head"] = kernel_entry(
+        "lora_epilogue", "lora_epilogue_vec.cu", "lora_fused.py:78",
+        EPI_BY_SHAPE[(bf, *y.shape)], epi_err,
+        timed(epi_fns(torch, lf, y, xa, bm, es)), epi_bound(y, xa, bm),
+        {"shape": "eval_mmlu head adapter: y 16x262144, r 8, bf16"})
+    return out
+
+
 def run_generate(argv, stats=None):
     """cli.generate.main(argv + --json) -> its records (one a prompt)."""
     import contextlib
@@ -2800,7 +3222,15 @@ def main() -> int:
                           "launches": launches_train}))
         serve_trained(torch, dev, adapter, model)
         prof.update(profile_train(torch, dev, model))
+        prof.update(profile_gpt2_full_ft(torch, dev, model))
         del model
+        torch.cuda.empty_cache()
+        g2full_stats, launches_g2full = gpt2_full_ft(
+            torch, work, kernels, train_stats["eval_ppl_before"],
+            train_stats["eval_batches"])
+        print(json.dumps({"gpt2_full_ft": g2full_stats,
+                          "launches": launches_g2full}))
+        torch.cuda.empty_cache()
         gemma_stats, launches_gemma, gemma = gemma_train(torch, dev, work,
                                                          kernels)
         print(json.dumps({"gemma_train": gemma_stats,
@@ -2832,6 +3262,10 @@ def main() -> int:
                 "device_busy_share": dev_ms
                 / gen_stats[fam]["decode_step_ms_p50"]}
         print(json.dumps({"generate": gen_stats, "launches": gen_runs}))
+        torch.cuda.empty_cache()
+        mmlu_stats, launches_mmlu, mmlu_runs, mmlu_flash = mmlu_phase(
+            torch, dev, kernels, gen_dirs["gpt2"], gen_dirs["gemma"])
+        print(json.dumps({"mmlu": mmlu_stats, "launches": mmlu_runs}))
         torch.cuda.empty_cache()
         prof.update(profile_gemma_train(torch, dev, gemma))
         prof.update(profile_gemma_train(torch, dev, gemma, head=True))
@@ -2893,6 +3327,7 @@ def main() -> int:
 
     ce_times, ce_bounds = fused_ce_times(torch, fc, ce_args)
     gemma_entries = gemma_kernel_entries(torch, fa, lf, dev)
+    mmlu_entries = mmlu_kernel_entries(torch, fa, lf, dev, mmlu_flash)
     gserve_flash = gemma_serve_flash_entry(torch, fa, dev)
     serve_names = {"flash_fwd": "flash", "paged": "paged",
                    "decode": "decode"}
@@ -2902,10 +3337,12 @@ def main() -> int:
                 "gemma_serve": launches_gserve[name],
                 "generate": launches_gen[name],
                 "train": launches_train[name],
+                "gpt2_full_ft": launches_g2full[name],
                 "gemma_train": launches_gemma[name],
                 "gemma_full_ft": launches_full[name],
                 "gemma_lora_head": launches_head[name],
-                "eval_ppl": launches_eval[name]}
+                "eval_ppl": launches_eval[name],
+                "mmlu": launches_mmlu[name]}
 
     def total(name):
         return sum(by_path(name).values())
@@ -2925,7 +3362,8 @@ def main() -> int:
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
              "gemma": gemma_entries["flash_fwd"],
              "gemma_serve": dict(gserve_flash,
-                                 launches=launches_gserve["flash_fwd"])}),
+                                 launches=launches_gserve["flash_fwd"]),
+             "mmlu": mmlu_entries["flash"]}),
         kernel_entry(
             "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
             "flash_attention.py:415", total("bwd_merged"),
@@ -2954,6 +3392,7 @@ def main() -> int:
              f32="lora_epilogue.cu (first version, f32 launches)",
              gemma=gemma_entries["lora_epilogue"],
              attn_proj=epi_entries["attn_proj"],
+             mmlu_lm_head=mmlu_entries["lm_head"],
              decode={site: epi_entries[site] for site in (
                  "decode_attn_qkv", "decode_gate_proj", "decode_lm_head")}),
         dict(pg_entries["serving"], launches=total("paged"),

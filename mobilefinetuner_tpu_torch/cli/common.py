@@ -2,17 +2,21 @@
 training loop (port of mobilefinetuner_tpu/cli/common.py).
 
 Ported: the training hyperparameters, `micro_batches` (the byte-pinned
-step-batch stream, with `skip_steps` for resume), `evaluate`, the
-step / eval / save cadence, `--resume_from` (adapter + `.opt` sidecar,
-checksum-verified), the metrics CSV, the eval JSONL and the log lines,
-with the JAX CLIs' columns and formats.
+step-batch stream, with `skip_steps` for resume), the async input
+pipeline (`--prefetch`, `--prefetch_rss_mb`: data/prefetch.Prefetcher),
+`evaluate`, the step / eval / save cadence, `--resume_from` (adapter or
+full model + `.opt` sidecar, checksum-verified; `load_full_resume`), the
+streaming-refetch retry budget (`--data_retries`, `--data_backoff_s`),
+the pretokenized train split of the Gemma CLIs (`--pretokenized_path`),
+the metrics CSV, the eval JSONL and the log lines, with the JAX CLIs'
+columns and formats.
 
 Every other flag keeps its JAX name, and its default here is "off"; a run
 that asks for one raises NotImplementedError naming the ROADMAP.md port
 item that brings it (`check_not_ported`): telemetry and the run registry,
 the mesh, offload, the memory-admission ladder, rollback, fault
-injection, the step governor, async checkpoint writes, the prefetch
-thread. Nothing is accepted and silently ignored.
+injection, the step governor, async checkpoint writes, checkpoint
+lineage. Nothing is accepted and silently ignored.
 
 The device is the CLIs' one addition: `--device` (default: the CUDA
 card; `--device cpu` is an explicit choice, as the tests make it).
@@ -33,6 +37,7 @@ from mobilefinetuner_tpu_torch.core.device import resolve_device
 from mobilefinetuner_tpu_torch.core.logging import (JSONLWriter,
                                                     MetricsLogger,
                                                     get_logger)
+from mobilefinetuner_tpu_torch.data.prefetch import Prefetcher
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
                                                       WT2Config)
 from mobilefinetuner_tpu_torch.io.safetensors_io import (
@@ -57,15 +62,6 @@ NOT_PORTED = (
     ("on_oom_risk", "warn",
      "the memory-admission ladder (--on_oom_risk)", "P5"),
     ("hbm_cap_mb", 0, "the memory preflight (--hbm_cap_mb)", "P5"),
-    ("prefetch", 0, "the train loop's prefetch thread (--prefetch)",
-     "P2 leftovers"),
-    ("prefetch_rss_mb", 0,
-     "the train loop's prefetch RSS guard (--prefetch_rss_mb)",
-     "P2 leftovers"),
-    ("pretokenized_path", "",
-     "the pretokenized data mode (--pretokenized_path)", "P2 leftovers"),
-    ("pretokenized_meta", "",
-     "the pretokenized data mode (--pretokenized_meta)", "P2 leftovers"),
     ("opt_offload", False, "optimizer-state offload (--opt_offload)", "P9"),
     ("opt_offload_state_dtype", "float32",
      "optimizer-state offload (--opt_offload_state_dtype)", "P9"),
@@ -93,13 +89,10 @@ NOT_PORTED = (
 )
 
 
-def check_not_ported(args, ported=()) -> None:
+def check_not_ported(args) -> None:
     """NotImplementedError for the first flag set to anything but its
-    "off" value (NOT_PORTED), except the flags named in `ported` (those a
-    CLI has ported where the train loop has not: eval_ppl's prefetch)."""
+    "off" value (NOT_PORTED)."""
     for attr, off, what, item in NOT_PORTED:
-        if attr in ported:
-            continue
         if hasattr(args, attr) and getattr(args, attr) != off:
             raise NotImplementedError(
                 f"{what} is not ported to mobilefinetuner_tpu_torch yet "
@@ -169,9 +162,17 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
                    help="retry budget of the streaming refetch path (the "
                         "in-RAM data path has none to retry)")
     g.add_argument("--data_backoff_s", type=float, default=0.5)
+    g.add_argument("--prefetch", type=int, default=2,
+                   help="async input pipeline (data/prefetch.py): a "
+                        "background thread assembles host batches into a "
+                        "bounded queue of this depth, and batch k+1 is "
+                        "placed on the device (with its dropout seeds) "
+                        "while step k is launched. 0 = synchronous. The "
+                        "batch sequence is byte-identical either way "
+                        "(resume included)")
     # not ported: accepted by name, refused unless off (check_not_ported)
     for name, kind, default in (
-            ("--async_save", int, 0), ("--prefetch", int, 0),
+            ("--async_save", int, 0),
             ("--telemetry_out", str, ""), ("--run_registry", str, ""),
             ("--profile_dir", str, ""), ("--profile_start", int, 10),
             ("--profile_steps", int, 5), ("--spike_z", float, 0.0),
@@ -196,14 +197,19 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
 
 
 def add_mem_flags(p: argparse.ArgumentParser):
-    g = p.add_argument_group("memory admission (not ported yet)")
+    g = p.add_argument_group("memory admission (not ported yet, except "
+                             "--prefetch_rss_mb)")
     g.add_argument("--hbm_cap_mb", type=int, default=0)
     g.add_argument("--hbm_headroom", type=float, default=0.1)
     g.add_argument("--on_oom_risk", choices=["fail", "degrade", "warn"],
                    default="warn",
                    help="'warn' = proceed without a preflight (the port "
                         "has none yet)")
-    g.add_argument("--prefetch_rss_mb", type=int, default=0)
+    g.add_argument("--prefetch_rss_mb", type=int, default=0,
+                   help="host-RSS shed guard of the input pipeline: "
+                        "while the process RSS exceeds this many MB the "
+                        "producer stops assembling lookahead batches "
+                        "until the queue drains. 0 = off")
 
 
 def add_align_flags(p: argparse.ArgumentParser):
@@ -256,10 +262,21 @@ def setup_device(args) -> torch.device:
     return device
 
 
+def data_retry_kwargs(args) -> dict:
+    """WT2Config kwargs of the streaming refetch's bounded retry
+    (--data_retries, --data_backoff_s), for the train and eval datasets
+    of every train CLI alike."""
+    return {"retries": max(getattr(args, "data_retries", 0), 0),
+            "retry_backoff_s": getattr(args, "data_backoff_s", 0.5)}
+
+
 def gemma_datasets(args):
     """(train, valid or None) WikiText-2 datasets of the Gemma CLIs: the
     Gemma tokenizer of --model_dir without a BOS, pad_id from it; the
-    valid split only with --eval_interval."""
+    train split from --pretokenized_path when given (a memmap of the .bin
+    beside its `<bin>.meta.json` or `meta.json`; --pretokenized_meta is
+    accepted for the reference CLI's sake and not read, as in the JAX
+    CLI); the valid split only with --eval_interval."""
     from mobilefinetuner_tpu_torch.data.tokenizer_gemma import \
         GemmaTokenizer
     tok = GemmaTokenizer.from_pretrained(args.model_dir)
@@ -270,14 +287,17 @@ def gemma_datasets(args):
     train_ds = WikiText2Dataset(
         args.data_dir, "train",
         WT2Config(seq_len=args.seq_len, batch_size=args.batch_size,
-                  data_fraction=args.data_fraction, seed=args.seed),
-        encode, tok.eos_id, pad_id=tok.pad_id)
+                  data_fraction=args.data_fraction, seed=args.seed,
+                  **data_retry_kwargs(args)),
+        encode, tok.eos_id, pad_id=tok.pad_id,
+        pretokenized_bin=getattr(args, "pretokenized_path", "") or None)
     valid_ds = None
     if args.eval_interval and args.data_dir:
         valid_ds = WikiText2Dataset(
             args.data_dir, "valid",
             WT2Config(seq_len=args.seq_len,
-                      batch_size=args.eval_batch_size, shuffle=False),
+                      batch_size=args.eval_batch_size, shuffle=False,
+                      **data_retry_kwargs(args)),
             encode, tok.eos_id, pad_id=tok.pad_id)
     return train_ds, valid_ds
 
@@ -289,6 +309,15 @@ def add_device_flag(p: argparse.ArgumentParser):
 
 
 # --------------------------- loop helpers -----------------------------------
+
+def load_full_resume(path: str):
+    """The HF-keyed tensors of a full-model resume source: an HF checkpoint
+    dir or a single safetensors file (both full fine-tuning CLIs)."""
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_hf_state_dict
+    if os.path.isdir(path):
+        return load_hf_state_dict(path)
+    return SafeTensorsReader(path).load_all(promote_to_f32=True)
+
 
 def resolve_total_steps(args, steps_per_epoch: int) -> int:
     """epochs overrides steps; neither = one epoch."""
@@ -375,19 +404,24 @@ def place_batch(batch: dict, device: torch.device) -> dict:
 
 
 def evaluate(eval_step, trainable, frozen, dataset: WikiText2Dataset,
-             max_batches: int, device: torch.device) -> dict:
+             max_batches: int, device: torch.device,
+             prefetch: int = 2) -> dict:
     """Token-weighted mean NLL over the split -> {loss, ppl, tokens,
-    batches}. The sums stay on the device and are read once at the end."""
+    batches}. The sums stay on the device and are read once at the end.
+    Batches come through the same background producer and placement
+    lookahead as training (prefetch=0: synchronous)."""
     source = dataset.epoch(0)
     if max_batches:
         source = itertools.islice(source, max_batches)
     total = count = None
     n = 0
-    for b in source:
-        s, c = eval_step(trainable, frozen, place_batch(b, device))
-        total = s.float() if total is None else total + s.float()
-        count = c if count is None else count + c
-        n += 1
+    with Prefetcher(source, depth=prefetch,
+                    place_fn=lambda b: place_batch(b, device)) as batches:
+        for b in batches:
+            s, c = eval_step(trainable, frozen, b)
+            total = s.float() if total is None else total + s.float()
+            count = c if count is None else count + c
+            n += 1
     if n == 0:
         return {"loss": 0.0, "ppl": 1.0, "tokens": 0, "batches": 0}
     total, count = torch.stack([total, count.float()]).cpu().tolist()
@@ -401,8 +435,10 @@ def verify_resume(path: str, verify: bool) -> None:
     """--resume_from's integrity check (--verify_ckpt): a corrupt adapter
     or sidecar raises CheckpointIntegrityError; one written without a
     manifest loads with a warning. (The JAX CLI's fallback down the
-    checkpoint lineage is not ported: ROADMAP.md port item P5.)"""
-    if not verify:
+    checkpoint lineage is not ported: ROADMAP.md port item P5.) An HF
+    checkpoint directory (a full-model resume source) carries no
+    manifest and is loaded as it is, as in the JAX CLIs."""
+    if not verify or os.path.isdir(path):
         return
     for p in (path, path + ".opt"):
         if p != path and not os.path.exists(p):
@@ -467,7 +503,17 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
     only on the seed and the step, whatever resumed the run. Metrics stay
     on the device and are read in one transfer per log interval (the
     metrics CSV alone flushes every 50 steps). Returns (trainable,
-    opt_state, history), history one dict per logged step."""
+    opt_state, history), history one dict per logged step.
+
+    The input pipeline (--prefetch, default 2): a producer thread runs
+    micro_batches into a bounded queue, and the consumer places batch
+    k+1 (and forms its dropout seeds) before step k is launched
+    (data/prefetch.Prefetcher, lookahead 1). Placement stays on this
+    thread, on the step's stream: a copy from pinned memory is queued
+    ahead of the step's kernels, never beside them. --prefetch 0 is the
+    synchronous path with the same batches, byte for byte; a resume keeps
+    skip_steps. The time the loop waits for its next batch is the CSV's
+    host_wait_ms."""
     device = resolve_device(device)
     step_fn = make_train_step(loss_fn, tc, mask)
     eval_step = make_eval_step(nll_fn)
@@ -519,7 +565,7 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
 
     def run_eval(step, kind):
         ev = evaluate(eval_step, trainable, frozen, valid_ds,
-                      args.eval_batches, device)
+                      args.eval_batches, device, prefetch=prefetch_depth)
         if kind == "eval":
             log.info(f"eval @ step {step}: loss={ev['loss']:.4f} "
                      f"ppl={ev['ppl']:.2f} ({ev['tokens']} tokens)")
@@ -534,37 +580,54 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
             eval_jsonl.write(rec)
         return ev
 
-    stream = micro_batches(train_ds, tc.grad_accum_steps,
-                           skip_steps=start_step)
-    evals = []
-    for step in range(start_step, total_steps):
-        t_wait = time.perf_counter()
-        epoch, batch = next(stream)
+    prefetch_depth = max(getattr(args, "prefetch", 2), 0)
+
+    def place_step(item):
+        step, epoch, batch = item
         batch = place_batch(batch, device)
         if dropout_seed is not None:
             rows = batch["input_ids"].shape[0]
             step_seed = fold_in(dropout_seed, step)
             batch["dropout_seed"] = torch.tensor(
                 [fold_in(step_seed, r) for r in range(rows)])
-        clock["wait_ms"] += (time.perf_counter() - t_wait) * 1000
-        trainable, opt_state, metrics = step_fn(trainable, frozen,
-                                                opt_state, batch, step)
-        toks = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
-        buffered.append((step, epoch, toks, metrics))
-        log_boundary = bool(args.log_interval) \
-            and (step + 1) % args.log_interval == 0
-        if log_boundary or (step + 1) % flush_every == 0:
-            flush_metrics(emit_log=log_boundary)
-        if (args.eval_interval and valid_ds is not None
-                and (step + 1) % args.eval_interval == 0):
-            flush_metrics(emit_log=False)
-            evals.append(run_eval(step + 1, "eval"))
-            clock["t"] = time.perf_counter()   # eval time is not step time
-        if args.save_every and save_hook and (step + 1) % \
-                args.save_every == 0 and (step + 1) < total_steps:
-            flush_metrics(emit_log=False)
-            save_hook(step + 1, trainable, opt_state, final=False)
-            clock["t"] = time.perf_counter()
+        return step, epoch, batch
+
+    def numbered():
+        gen = micro_batches(train_ds, tc.grad_accum_steps,
+                            skip_steps=start_step)
+        for step in itertools.count(start_step):
+            epoch, batch = next(gen)
+            yield step, epoch, batch
+
+    stream = Prefetcher(
+        itertools.islice(numbered(), max(total_steps - start_step, 0)),
+        depth=prefetch_depth, place_fn=place_step, lookahead=1,
+        rss_limit_mb=getattr(args, "prefetch_rss_mb", 0))
+    evals = []
+    with stream:
+        for step in range(start_step, total_steps):
+            t_wait = time.perf_counter()
+            step_i, epoch, batch = next(stream)
+            clock["wait_ms"] += (time.perf_counter() - t_wait) * 1000
+            assert step_i == step       # strict order
+            trainable, opt_state, metrics = step_fn(trainable, frozen,
+                                                    opt_state, batch, step)
+            toks = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
+            buffered.append((step, epoch, toks, metrics))
+            log_boundary = bool(args.log_interval) \
+                and (step + 1) % args.log_interval == 0
+            if log_boundary or (step + 1) % flush_every == 0:
+                flush_metrics(emit_log=log_boundary)
+            if (args.eval_interval and valid_ds is not None
+                    and (step + 1) % args.eval_interval == 0):
+                flush_metrics(emit_log=False)
+                evals.append(run_eval(step + 1, "eval"))
+                clock["t"] = time.perf_counter()  # eval time is not step's
+            if args.save_every and save_hook and (step + 1) % \
+                    args.save_every == 0 and (step + 1) < total_steps:
+                flush_metrics(emit_log=False)
+                save_hook(step + 1, trainable, opt_state, final=False)
+                clock["t"] = time.perf_counter()
     flush_metrics()
     if valid_ds is not None and args.eval_interval:
         evals.append(run_eval(total_steps, "final_eval"))

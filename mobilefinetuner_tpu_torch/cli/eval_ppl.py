@@ -92,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    common.check_not_ported(args, ported=("prefetch", "prefetch_rss_mb"))
+    common.check_not_ported(args)
     device = common.setup_device(args)
     compute_dtype = common.compute_dtype_from_args(args)
     b = load_family(args.pretrained_dir, args.family, device=device)

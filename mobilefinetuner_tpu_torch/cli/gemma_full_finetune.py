@@ -26,9 +26,7 @@ from mobilefinetuner_tpu_torch.cli import common
 from mobilefinetuner_tpu_torch.core.logging import get_logger
 from mobilefinetuner_tpu_torch.io.checkpoints import (gemma3_params_from_hf,
                                                       load_gemma3,
-                                                      load_hf_state_dict,
                                                       save_gemma3)
-from mobilefinetuner_tpu_torch.io.safetensors_io import SafeTensorsReader
 from mobilefinetuner_tpu_torch.models import gemma3
 from mobilefinetuner_tpu_torch.ops.loss import chunked_lm_cross_entropy_sum
 from mobilefinetuner_tpu_torch.optim import adam as adam_mod
@@ -63,14 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_full_resume(path: str):
-    """The HF-keyed tensors of a full-model resume source: an HF checkpoint
-    dir or a single safetensors file."""
-    if os.path.isdir(path):
-        return load_hf_state_dict(path)
-    return SafeTensorsReader(path).load_all(promote_to_f32=True)
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     common.check_not_ported(args)
@@ -83,8 +73,8 @@ def main(argv=None) -> int:
                     "(the config has no dropout fields)")
     if args.resume_from:
         common.verify_resume(args.resume_from, bool(args.verify_ckpt))
-        params_np = gemma3_params_from_hf(load_full_resume(args.resume_from),
-                                          config)
+        params_np = gemma3_params_from_hf(
+            common.load_full_resume(args.resume_from), config)
         log.info(f"resumed full model from {args.resume_from}")
     if args.seq_len > config.max_position_embeddings:
         args.seq_len = config.max_position_embeddings

@@ -114,14 +114,16 @@ def main(argv=None) -> int:
     train_ds = WikiText2Dataset(
         args.data_dir, "train",
         WT2Config(seq_len=args.seq_len, batch_size=args.batch_size,
-                  data_fraction=args.data_fraction, seed=args.seed),
+                  data_fraction=args.data_fraction, seed=args.seed,
+                  **common.data_retry_kwargs(args)),
         tok.encode, tok.eos_id)
     valid_ds = None
     if args.eval_interval:
         valid_ds = WikiText2Dataset(
             args.data_dir, "valid",
             WT2Config(seq_len=args.seq_len,
-                      batch_size=args.eval_batch_size, shuffle=False),
+                      batch_size=args.eval_batch_size, shuffle=False,
+                      **common.data_retry_kwargs(args)),
             tok.encode, tok.eos_id)
 
     steps_per_epoch = max(train_ds.num_batches() // args.grad_accum_steps, 1)

@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_dir", required=True,
                    help="HF Gemma-3 checkpoint dir")
     p.add_argument("--data_dir", default="",
-                   help="WikiText-2 directory")
+                   help="WikiText-2 directory (or use --pretokenized_path)")
     p.add_argument("--output_dir", default="gemma_lora_out")
     p.add_argument("--resume_from", default="",
                    help="adapter safetensors to resume from (its .opt "
@@ -68,9 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "v_proj,o_proj,gate_proj,up_proj,down_proj,lm_head; "
                         "a preset name expands in place, e.g. full,lm_head)")
     p.add_argument("--pretokenized_path", default="",
-                   help="pretokenized .bin (not ported yet)")
+                   help="pretokenized .bin (train split; "
+                        "data/wikitext2.pretokenize writes one)")
     p.add_argument("--pretokenized_meta", default="",
-                   help="not ported yet")
+                   help="(accepted for reference-CLI compat; the .bin's "
+                        "sidecar meta.json is found automatically)")
     p.add_argument("--loss_chunks", type=int, default=8,
                    help="sequence chunks of the 262k-vocab chunked CE")
     p.add_argument("--peft_export_dir", default="")

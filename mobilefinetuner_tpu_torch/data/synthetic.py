@@ -24,6 +24,13 @@ all from a seed (the port's own counterparts of tools/e2e_ppl_pipeline.py's
                                        bigram continuation rule, so a short
                                        LoRA run measurably lowers held-out
                                        perplexity.
+    write_synthetic_mmlu(dir, n)       {dev,val,test}/<subject>_<split>.csv
+                                       for all 57 MMLU subjects, n test
+                                       items each, the files of
+                                       `tools/mmlu_prep.py --synthetic n`
+                                       byte for byte (its `synthesize` and
+                                       CSV writer, copied: the port does not
+                                       import tools/).
 """
 
 from __future__ import annotations
@@ -158,4 +165,54 @@ def write_synthetic_corpus(d: str, n_train_words: int = 120_000,
                      ("test", n_train_words // 10)):
         with open(os.path.join(d, f"wiki.{split}.tokens"), "w") as f:
             f.write(gen(n, np.random.default_rng(seed + _SPLIT_SEEDS[split])))
+    return d
+
+
+def _csv_field(s: str) -> str:
+    """RFC-4180 emit: quote when the field contains , " or newline."""
+    if any(c in s for c in ',"\n'):
+        return '"' + s.replace('"', '""') + '"'
+    return s
+
+
+def synthesize_mmlu(n_per_subject: int, n_dev: int = 5) -> dict:
+    """{(subject, split): [MCQItem]}: a deterministic full-taxonomy set
+    whose correct choice echoes a key token of the question and whose
+    wrong choices echo other tokens."""
+    from mobilefinetuner_tpu_torch.eval.mmlu import MCQItem
+    from mobilefinetuner_tpu_torch.eval.mmlu_categories import \
+        SUBJECT_TOPICS
+    out = {}
+    for si, subject in enumerate(sorted(SUBJECT_TOPICS)):
+        for split, n in (("dev", n_dev), ("val", max(n_per_subject // 2, 1)),
+                         ("test", n_per_subject)):
+            items = []
+            for i in range(n):
+                key = f"{subject}_token_{i:03d}"
+                wrong = [f"{subject}_alt_{(i + k) % (n + 7):03d}"
+                         for k in (1, 2, 3)]
+                gold = (si + i) % 4
+                choices = wrong[:gold] + [key] + wrong[gold:]
+                items.append(MCQItem(
+                    subject=subject,
+                    question=(f"In the study of {subject.replace('_', ' ')},"
+                              f" which term matches the key \"{key}\"?"),
+                    A=choices[0], B=choices[1], C=choices[2], D=choices[3],
+                    answer="ABCD"[gold]))
+            out[(subject, split)] = items
+    return out
+
+
+def write_synthetic_mmlu(d: str, n_per_subject: int, n_dev: int = 5) -> str:
+    """The MMLU root `d`: <d>/<split>/<subject>_<split>.csv, headerless
+    question,A,B,C,D,answer rows, for every subject and split."""
+    for (subject, split), items in sorted(
+            synthesize_mmlu(n_per_subject, n_dev).items()):
+        sd = os.path.join(d, split)
+        os.makedirs(sd, exist_ok=True)
+        with open(os.path.join(sd, f"{subject}_{split}.csv"), "w",
+                  encoding="utf-8") as f:
+            for it in items:
+                f.write(",".join(_csv_field(x) for x in (
+                    it.question, it.A, it.B, it.C, it.D, it.answer)) + "\n")
     return d

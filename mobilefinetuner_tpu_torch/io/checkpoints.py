@@ -1,7 +1,7 @@
 """HF GPT-2 and Gemma-3 checkpoints <-> the port's stacked parameter
 trees (port of mobilefinetuner_tpu/io/checkpoints.py: `load_gpt2`,
-`load_gemma3`, `save_gemma3` and their key maps; the checkpoint lineage
-comes with ROADMAP.md port item P5).
+`save_gpt2`, `load_gemma3`, `save_gemma3` and their key maps; the
+checkpoint lineage comes with ROADMAP.md port item P5).
 
 The stacked layout ([L, ...] leaves, models/gpt2.py, models/gemma3.py) is
 a gather + stack of the HF per-layer keys. HF GPT-2 linears are Conv1D
@@ -125,6 +125,13 @@ def load_gpt2(model_dir: str, config: Optional[GPT2Config] = None):
     if config is None:
         config = GPT2Config.from_pretrained(model_dir)
     return config, gpt2_params_from_hf(load_hf_state_dict(model_dir), config)
+
+
+def save_gpt2(path: str, params, metadata: Optional[dict] = None):
+    """A full-model GPT-2 file in the HF key scheme (the GPT-2 full-FT
+    CLI's checkpoint; loads back through load_gpt2's key map)."""
+    save_safetensors(path, gpt2_params_to_hf(params),
+                     metadata=metadata or {"format": "pt"})
 
 
 # (HF per-layer key, stacked path, is an nn.Linear weight), in the JAX

@@ -26,7 +26,8 @@ versions (port of mobilefinetuner_tpu/ops/flash_attention.py).
   keep_mask                  the dropout keep bits of `_keep_mask`, bit
                              for bit.
 
-Each wrapper has a `launches` count of its kernel launches. The plain
+Each wrapper has a `launches` count of its kernel launches; the forward
+also counts them `.by_shape`, by (dtype, B, Hq, S, D). The plain
 versions are the kernels' blocked algorithms written in torch (64 x 64
 tiles, the same [lo, hi) block bounds, masks and f32 arithmetic); they
 run on any device and are the kernels' references on the card.
@@ -49,6 +50,7 @@ the sources compute them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -382,10 +384,12 @@ def flash_attention_fwd(q, k, v, padding_mask=None, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("flash_attention_fwd", code)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.by_shape[(q.dtype, B, Hq, S, D)] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.by_shape = collections.Counter()
 
 
 # ------------------------------------------------------------ backward ------

@@ -133,7 +133,7 @@ def test_cli_refuses_unported_flags_and_a_corrupt_resume(dirs):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(_argv(gpt2_dir, wiki, out))
     for flag in (["--telemetry_out", "t.jsonl"], ["--async_save", "1"],
-                 ["--mesh_fsdp", "2"], ["--prefetch", "2"],
+                 ["--mesh_fsdp", "2"], ["--keep_ckpts", "2"],
                  ["--shard_enable"], ["--inject", "grad_nan:1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(_argv(gpt2_dir, wiki, out, "--device", "cpu", *flag))

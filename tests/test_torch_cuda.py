@@ -66,6 +66,34 @@ def test_flash_kernel_matches_plain(dev, dtype, D, Hkv, S, window, tol):
     assert float((lse - ref_lse).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype,Hq,Hkv,S,D,window,tol", [
+    (torch.bfloat16, 12, 12, 512, 64, None, 1e-2),
+    (torch.bfloat16, 12, 12, 1024, 64, None, 1e-2),
+    (torch.bfloat16, 4, 1, 512, 256, 512, 1e-2),
+    (torch.bfloat16, 4, 1, 1024, 256, 512, 1e-2),
+    (torch.float32, 12, 12, 512, 64, None, 1e-4),
+    (torch.float32, 4, 1, 512, 256, 512, 1e-4),
+])
+def test_flash_kernel_matches_plain_at_mmlu_buckets(dev, dtype, Hq, Hkv, S,
+                                                    D, window, tol):
+    """The forward at eval_mmlu's bucket shapes (16 prompts, causal, no
+    padding mask: GPT-2's heads; Gemma's 4 over 1 with the sliding
+    layers' window, which cuts at S 1024): out within `tol`, lse within
+    1e-4 of the plain version."""
+    B = 16
+    q = _randn(dev, dtype, B, Hq, S, D, seed=1)
+    k = _randn(dev, dtype, B, Hkv, S, D, seed=2)
+    v = _randn(dev, dtype, B, Hkv, S, D, seed=3)
+    kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window)
+    n0 = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, None, **kw)
+    assert fa.flash_attention_fwd.launches == n0 + 1
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, None, **kw)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
 @pytest.mark.parametrize("dtype,G,D,tol", [
     (torch.float32, 2, 64, 1e-4), (torch.bfloat16, 1, 64, 2e-2),
     (torch.bfloat16, 4, 256, 2e-2), (torch.float16, 1, 64, 2e-2),
@@ -1183,3 +1211,111 @@ def test_tiny_gemma_engine_drains_on_the_card_with_launch_counts(dev):
             assert da.paged_decode_attention.launches \
                 == L * eng.decode_steps
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("family", ["gpt2", "gemma"])
+def test_mmlu_logits_kernel_path_matches_plain_at_bf16(dev, family):
+    """cli/eval_mmlu.make_batched_logits_fn at bf16 on one bucket (16 x
+    64, right-padded rows, a partial batch padded with row 0): the flash
+    kernel path's last-token logits against the plain attention's within
+    2e-2 of max(1, max |ref|); GPT-2 with a dynamic attn_qkv adapter,
+    Gemma (GQA 4:1, window 16) with a dynamic lm_head adapter, whose
+    epilogue runs at [16, V]; the kernels launch once a layer and once a
+    site."""
+    from mobilefinetuner_tpu_torch.cli.eval_mmlu import \
+        make_batched_logits_fn
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(31)
+    if family == "gpt2":
+        cfg, params = _tiny_gpt2_d64(dev)
+        model, head_key, L, V = gpt2, "wte", cfg.n_layer, cfg.vocab_size
+        lora = init_lora_gpt2(cfg, LoRASpec(rank=8, alpha=16.0,
+                                            targets=["attn_qkv"]),
+                              seed=1, device=dev)
+    else:
+        cfg = Gemma3TextConfig(vocab_size=3000, hidden_size=128,
+                               intermediate_size=256, num_hidden_layers=3,
+                               num_attention_heads=4, num_key_value_heads=1,
+                               head_dim=64, sliding_window=16,
+                               sliding_window_pattern=3,
+                               query_pre_attn_scalar=64.0)
+        params = gemma3.init_params(cfg, seed=0, device=dev)
+        model, head_key, L, V = gemma3, "embed", 3, cfg.vocab_size
+        lora = init_lora_gemma3(cfg, LoRASpec(rank=8, alpha=16.0,
+                                              init="peft",
+                                              targets=["lm_head"]),
+                                seed=1, device=dev)
+    for e in lora["blocks"].values():
+        e["B"] = (0.05 * torch.randn(e["B"].shape, generator=g)).to(dev)
+    B, S, n = 16, 64, 11
+    lens = torch.randint(20, S + 1, (n,), generator=g)
+    ids = torch.zeros(B, S, dtype=torch.int32)
+    last = torch.zeros(B, dtype=torch.int32)
+    for r in range(n):
+        ids[r, :lens[r]] = torch.randint(0, V, (int(lens[r]),), generator=g)
+        last[r] = lens[r] - 1
+    ids[n:], last[n:] = ids[0], last[0]
+    out = {}
+    for impl in ("auto", "plain"):
+        n_fa, n_epi = fa.flash_attention_fwd.launches, \
+            lf.lora_epilogue.launches
+
+        def hidden_fn(p, lo, x, impl=impl):
+            return model.hidden_states(cfg, p, x, lora=lo,
+                                       compute_dtype=bf, attn_impl=impl)
+
+        fn = make_batched_logits_fn(hidden_fn, head_key, bf, params, lora)
+        out[impl] = torch.from_numpy(fn(ids.numpy(), last.numpy()))
+        assert fa.flash_attention_fwd.launches - n_fa == (
+            L if impl == "auto" else 0)
+        assert lf.lora_epilogue.launches - n_epi == (
+            L if family == "gpt2" else 1)
+    ref = out["plain"]
+    err = float((out["auto"] - ref).abs().max()) / max(
+        1.0, float(ref.abs().max()))
+    assert out["auto"].shape == (B, V) and bool(
+        torch.isfinite(out["auto"]).all())
+    assert err <= 2e-2, err
+
+
+def test_gpt2_full_ft_step_kernel_path_matches_plain_path(dev):
+    """One GPT-2 full fine-tuning step (D = 64, bf16 compute, every
+    parameter trainable, the tied wte's gradients summed by autograd)
+    through the flash forward and merged backward kernels against the
+    plain attention: loss within 1e-2 and global grad norm within 2%
+    (bf16), one forward and one backward launch a layer."""
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.optim.adam import tree_map
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_train_step)
+    cfg, params = _tiny_gpt2_d64(dev)
+    g = torch.Generator().manual_seed(41)
+    ids = torch.randint(0, cfg.vocab_size, (4, 96), generator=g).to(dev)
+    mask = torch.ones(4, 96, device=dev)
+    mask[2, 70:] = 0
+    labels = torch.where(mask > 0, ids, -100)
+    batch = {"input_ids": ids, "attention_mask": mask, "labels": labels}
+    tc = TrainConfig(total_steps=4, lr=1e-3)
+    metrics = {}
+    for impl in ("auto", "plain"):
+        def loss_fn(p, _f, mb, impl=impl):
+            logits = gpt2.forward(cfg, p, mb["input_ids"],
+                                  attention_mask=mb["attention_mask"],
+                                  compute_dtype=torch.bfloat16,
+                                  attn_impl=impl)
+            return lm_cross_entropy_sum(logits, mb["labels"])
+
+        p = tree_map(lambda t: t.clone(), params)
+        n_f, n_b = fa.flash_attention_fwd.launches, \
+            fa.flash_attention_bwd_merged.launches
+        step_fn = make_train_step(loss_fn, tc, None)
+        _, _, m = step_fn(p, None, init_optimizer(p, tc, None), batch, 0)
+        metrics[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        launched = (fa.flash_attention_fwd.launches - n_f,
+                    fa.flash_attention_bwd_merged.launches - n_b)
+        assert launched == ((cfg.n_layer, cfg.n_layer) if impl == "auto"
+                            else (0, 0))
+    (lk, gk), (lp, gp) = metrics["auto"], metrics["plain"]
+    assert abs(lk - lp) <= 1e-2, (lk, lp)
+    assert abs(gk - gp) <= 2e-2 * gp, (gk, gp)

@@ -260,7 +260,7 @@ def test_gemma_clis_refuse_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lora_cli.main(_argv(gdir, wiki, *out))
-    for flag in (["--pretokenized_path", "x.bin"], ["--mesh_fsdp", "2"],
+    for flag in (["--rollback_budget", "1"], ["--mesh_fsdp", "2"],
                  ["--align_dump_dir", "d"], ["--shard_enable"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lora_cli.main(_argv(gdir, wiki, *out, "--device", "cpu", *flag))

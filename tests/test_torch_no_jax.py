@@ -3,7 +3,8 @@ every module of mobilefinetuner_tpu_torch, chip_smoke.py and
 rounding_sensitivity.py (this test process cannot tell, since
 tests/conftest.py imports jax for every test), and an AST scan checks
 every import statement of those files, the serving modules (the prefix
-cache, the engine, the serving model functions) named among them."""
+cache, the engine, the serving model functions) and the MMLU, GPT-2 full
+fine-tuning and data-mode modules named among them."""
 
 import ast
 import os
@@ -61,6 +62,27 @@ print(len(mods), bad)
 def test_serving_modules_are_scanned(module):
     """The Gemma serving slice's modules are among the files scanned."""
     assert os.path.join(ROOT, PKG, module) in _port_files()
+
+
+@pytest.mark.parametrize("module", [
+    "eval/__init__.py", "eval/mmlu.py", "eval/mmlu_categories.py",
+    "cli/eval_mmlu.py", "cli/gpt2_full_finetune.py", "cli/common.py",
+    "data/wikitext2.py", "data/prefetch.py", "data/synthetic.py"])
+def test_evaluation_and_full_ft_modules_are_scanned(module):
+    """The MMLU, GPT-2 full fine-tuning and data-mode modules are among
+    the files scanned, and the subprocess imports them too."""
+    assert os.path.join(ROOT, PKG, module) in _port_files()
+    name = f"{PKG}." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import {name}; "
+            f"print(sorted(m for m in sys.modules if m in ('jax', "
+            f"'mobilefinetuner_tpu') or "
+            f"m.startswith(('jax.', 'mobilefinetuner_tpu.'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -198,3 +198,143 @@ def test_rss_guard_holds_the_producer_and_never_starves():
                     rss_fn=lambda: None) as stream:
         assert list(stream) == list(range(5))
         assert stream.rss_sheds == 0
+
+
+# ------------------------------------------- the train loop's pipeline ------
+
+def _cli_losses(out):
+    import csv
+    import os
+    with open(os.path.join(out, "m.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    return [r["loss"] for r in rows], [float(r["host_wait_ms"])
+                                       for r in rows]
+
+
+@pytest.fixture(scope="module")
+def cli_dirs(tmp_path_factory):
+    """Tiny GPT-2 with dropout 0.1 at every model site, tiny Gemma-3 and
+    the corpus, plus the corpus's Gemma train split pretokenized."""
+    import json
+    import os
+    import shutil
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from fixtures import (write_tiny_gemma3_dir, write_tiny_gpt2_dir,
+                          write_wikitext_dir)
+
+    from mobilefinetuner_tpu_torch.data.tokenizer_gemma import \
+        GemmaTokenizer
+    from mobilefinetuner_tpu_torch.data.wikitext2 import (pretokenize,
+                                                          resolve_split_file)
+    root = tmp_path_factory.mktemp("pf_cli")
+    g2, gm, wiki = (str(root / n) for n in ("gpt2", "gemma", "wiki"))
+    write_tiny_gpt2_dir(g2)
+    write_tiny_gemma3_dir(gm)
+    write_wikitext_dir(wiki)
+    drop = str(root / "gpt2_drop")
+    shutil.copytree(g2, drop)
+    with open(os.path.join(drop, "config.json")) as f:
+        raw = json.load(f)
+    raw.update(embd_pdrop=0.1, resid_pdrop=0.1, attn_pdrop=0.1)
+    with open(os.path.join(drop, "config.json"), "w") as f:
+        json.dump(raw, f)
+    tok = GemmaTokenizer.from_pretrained(gm)
+    bin_path = str(root / "train.bin")
+    pretokenize(resolve_split_file(wiki, "train"),
+                lambda s: tok.encode(s, add_bos=False), tok.eos_id, bin_path)
+    return {"gpt2_drop": drop, "gemma": gm, "wiki": wiki, "bin": bin_path,
+            "root": root}
+
+
+@pytest.mark.parametrize("depth", ["2", "3"])
+def test_run_training_same_losses_with_and_without_prefetch(cli_dirs,
+                                                            depth):
+    """cli.gpt2_full_finetune with the model's dropout on (the per-step
+    seeds are formed in the placement lookahead), accumulation 2, an eval
+    and a step save mid-run: --prefetch 0 and --prefetch N give the same
+    loss column, eval records and model file, byte for byte; the RSS
+    guard (--prefetch_rss_mb 1, always over) holds the producer without
+    starving the loop."""
+    import os
+
+    from mobilefinetuner_tpu_torch.cli import gpt2_full_finetune as full
+    outs = {}
+    for name, extra in (("sync", ["--prefetch", "0"]),
+                        ("async", ["--prefetch", depth]),
+                        ("rss", ["--prefetch", depth,
+                                 "--prefetch_rss_mb", "1"])):
+        out = str(cli_dirs["root"] / f"full_{depth}_{name}")
+        assert full.main([
+            "--pretrained_dir", cli_dirs["gpt2_drop"],
+            "--data_dir", cli_dirs["wiki"], "--steps", "5",
+            "--batch_size", "2", "--grad_accum_steps", "2",
+            "--seq_len", "32", "--dtype", "float32", "--lr", "1e-3",
+            "--eval_interval", "2", "--eval_batches", "2",
+            "--save_every", "3", "--device", "cpu",
+            "--output_path", os.path.join(out, "m.safetensors"),
+            "--eval_out", os.path.join(out, "e.jsonl"),
+            "--metrics_csv", os.path.join(out, "m.csv"), *extra]) == 0
+        outs[name] = out
+    losses = {k: _cli_losses(v)[0] for k, v in outs.items()}
+    assert len(losses["sync"]) == 5
+    assert losses["sync"] == losses["async"] == losses["rss"]
+    for f in ("m.safetensors", "m_step3.safetensors", "m.safetensors.opt"):
+        blobs = [open(os.path.join(o, f), "rb").read()
+                 for o in outs.values()]
+        assert blobs[0] == blobs[1] == blobs[2], f
+    evals = [[{k: v for k, v in r.items() if k != "time"} for r in
+              map(__import__("json").loads, open(os.path.join(o, "e.jsonl")))]
+             for o in outs.values()]
+    assert evals[0] == evals[1] == evals[2] and len(evals[0]) == 3
+    assert not _producer_threads() or _wait_no_producer()
+
+
+def test_pretokenized_gemma_cli_matches_jax_with_prefetch(cli_dirs):
+    """cli.train_lora_gemma on --pretokenized_path, each run resumed from
+    one adapter the JAX package saved (B off zero, no .opt): the port
+    with --prefetch 2 and 0 and the JAX CLI take the same losses (the
+    port's two identical, the JAX one within 1e-4), and the same losses
+    as the text split they were tokenized from."""
+    import os
+
+    import jax
+
+    from mobilefinetuner_tpu.cli import train_lora_gemma as jax_lora
+    from mobilefinetuner_tpu.core.config import Gemma3TextConfig
+    from mobilefinetuner_tpu.lora import lora as jlora
+    from mobilefinetuner_tpu.lora import peft_io as jax_peft_io
+    from mobilefinetuner_tpu_torch.cli import train_lora_gemma as lora
+    cfg = Gemma3TextConfig.from_pretrained(cli_dirs["gemma"])
+    spec = jlora.LoRASpec(rank=4, alpha=8.0, init="peft",
+                          targets=["q_proj", "v_proj"])
+    tree = jax.tree.map(np.asarray, jlora.init_lora_gemma3(
+        cfg, spec, jax.random.PRNGKey(5)))
+    rng = np.random.default_rng(5)
+    for e in tree["blocks"].values():
+        e["B"] = (rng.normal(size=e["B"].shape) * 0.05).astype(np.float32)
+    src = str(cli_dirs["root"] / "gemma_src.safetensors")
+    jax_peft_io.save_adapter(src, tree, spec)
+    base = ["--model_dir", cli_dirs["gemma"], "--data_dir",
+            cli_dirs["wiki"], "--steps", "3", "--batch_size", "2",
+            "--seq_len", "40", "--dtype", "float32", "--lr", "1e-3",
+            "--resume_from", src]
+    runs = {}
+    for name, main, extra in (
+            ("jax", jax_lora.main, ["--prefetch", "0", "--async_save", "0",
+                                    "--pretokenized_path", cli_dirs["bin"],
+                                    "--pretokenized_meta", "unused"]),
+            ("sync", lora.main, ["--device", "cpu", "--prefetch", "0",
+                                 "--pretokenized_path", cli_dirs["bin"]]),
+            ("async", lora.main, ["--device", "cpu",
+                                  "--pretokenized_path", cli_dirs["bin"],
+                                  "--pretokenized_meta", "unused"]),
+            ("text", lora.main, ["--device", "cpu"])):
+        out = str(cli_dirs["root"] / f"gemma_{name}")
+        assert main(base + ["--output_dir", out, "--metrics_csv",
+                            os.path.join(out, "m.csv"), *extra]) == 0
+        runs[name] = _cli_losses(out)[0]
+    assert runs["sync"] == runs["async"] == runs["text"]
+    np.testing.assert_allclose([float(x) for x in runs["async"]],
+                               [float(x) for x in runs["jax"]],
+                               atol=1e-4, rtol=0)
