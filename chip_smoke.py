@@ -85,7 +85,18 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      below the base model's, the resumed run repeat the later losses
      (1e-3; whether bit for bit is printed), the model file reload
      through load_gpt2, and the flash forward launch 12 times a forward,
-     the merged backward 12 times a backward, nothing else;
+     the merged backward 12 times a backward, nothing else; then
+     `recovery`, GPT-2 small LoRA at the `train` config in child
+     processes of the CLI (each writes its wrappers' launch counts on
+     exit): --inject grad_nan:5:3 under the skip guard with saves every 2
+     steps must skip 3 steps and roll back once (skip_streak) and end on
+     the adapter of a clean run resumed from the rollback's checkpoint
+     (1e-3; whether bit for bit is printed); that resume, SIGTERMed once
+     step 8's step_stats is in its stream, must drain (exit 75, preempt,
+     run_end{exit=preempted}) and, resumed, end on the same adapter;
+     --inject ckpt_corrupt's step-2 file must make a resume fall back
+     down the lineage (ckpt_verify false, then true); the rollback's
+     steps lost and wall time and the SIGTERM-to-exit time are printed;
   7. Gemma: write a random-weight Gemma-3-270M directory (full width and
      depth, a 262,144-entry tokenizer.json) and the corpus, take the base
      model's eval perplexity, then with the counts set to 0 run
@@ -95,6 +106,17 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      eval perplexity must fall, and every kernel of each path must have
      launched exactly as often as the path runs it (the fused CE dW only
      on the full fine-tuning path); then, counts set to 0 again,
+     `degrade`: cli.gemma_full_finetune (3 steps) at --hbm_cap_mb 1 must
+     run the ladder dry (remat, accum_x2, strictly falling estimates)
+     before any data loads; at a cap between the first two estimates it
+     must walk remat, admit, and take the losses of a run launched at
+     --remat; --on_oom_risk fail at that cap must refuse before data
+     loads; --inject hbm_pressure (a ballast of all the card leaves free
+     but 256 MB) must raise a real out-of-memory error at the first
+     dispatch that the loop survives on the remat rung; and sync and
+     async saves of the 268M-parameter model and its Adam state must be
+     byte-identical (snapshot, write and MB/s printed); then, counts set
+     to 0 again,
      cli.train_lora_gemma.main with --lora_targets full,lm_head (the same
      run plus a LoRA on the tied head, riding the chunked loss through
      the head-adapter kernels: `gemma_lora_head`): the loss and eval
@@ -160,9 +182,16 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      version) and row 5 at the MMLU head adapter's [16, 262,144], with
      the launches at that shape (the wrappers' `by_shape`).
 
-Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `gemma_train`,
-`gemma_full_ft`, `gemma_lora_head`, `eval_ppl`, `generate`, `mmlu`,
-`profile`, `bwd_sweep` and `kernels` JSON
+Every training and eval run writes its telemetry stream: each event is
+checked against the schema, every earlier path's memory admission must
+be "ok" with no degrade, and each trained run's estimate must not fall
+below the allocated-bytes peak of its first flush (the `admission`
+line).
+
+Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `recovery`,
+`gemma_train`, `gemma_full_ft`, `degrade`, `gemma_lora_head`,
+`eval_ppl`, `generate`, `mmlu`, `profile`, `bwd_sweep`, `admission` and
+`kernels` JSON
 lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result.
@@ -171,8 +200,11 @@ beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1661,7 +1693,8 @@ def train(torch, dev, work, kernels):
             "--eval_batches", str(T["eval_batches"]),
             "--lora_out", adapter,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
-            "--eval_out", os.path.join(out, "eval.jsonl")]
+            "--eval_out", os.path.join(out, "eval.jsonl"),
+            *telemetry_argv("train")]
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1670,6 +1703,7 @@ def train(torch, dev, work, kernels):
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
     check(rc == 0, f"gpt2_lora_finetune.main returned {rc}")
+    admitted("train")
 
     rows = read_csv(os.path.join(out, "metrics.csv"))
     losses = [float(r["loss"]) for r in rows]
@@ -1869,7 +1903,8 @@ def gemma_train(torch, dev, work, kernels):
             "--eval_batches", str(G["eval_batches"]),
             "--output_dir", out,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
-            "--eval_out", os.path.join(out, "eval.jsonl")]
+            "--eval_out", os.path.join(out, "eval.jsonl"),
+            *telemetry_argv("gemma_train")]
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1878,6 +1913,7 @@ def gemma_train(torch, dev, work, kernels):
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
     check(rc == 0, f"train_lora_gemma.main returned {rc}")
+    admitted("gemma_train")
     stats, evals = run_stats(out, G["steps"], base, check_learns=True)
     M, E = G["steps"], len(evals) * eval_nb
     impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
@@ -1978,7 +2014,8 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
             "--eval_batches", str(G["eval_batches"]),
             "--output_path", model,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
-            "--eval_out", os.path.join(out, "eval.jsonl")]
+            "--eval_out", os.path.join(out, "eval.jsonl"),
+            *telemetry_argv("gemma_full_ft")]
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1987,6 +2024,7 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
     check(rc == 0, f"gemma_full_finetune.main returned {rc}")
+    admitted("gemma_full_ft")
     stats, evals = run_stats(out, G["full_steps"], base, check_learns=False)
     M, E = G["full_steps"], len(evals) * eval_nb
     impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
@@ -2027,7 +2065,8 @@ def gemma_lora_head(torch, dev, work, kernels, gemma):
             "--eval_batches", str(G["eval_batches"]),
             "--output_dir", out,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
-            "--eval_out", os.path.join(out, "eval.jsonl")]
+            "--eval_out", os.path.join(out, "eval.jsonl"),
+            *telemetry_argv("gemma_lora_head")]
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2036,6 +2075,7 @@ def gemma_lora_head(torch, dev, work, kernels, gemma):
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
     check(rc == 0, f"train_lora_gemma.main (lm_head) returned {rc}")
+    admitted("gemma_lora_head")
     stats, evals = run_stats(out, G["steps"], base, check_learns=True)
     M, E = G["steps"], len(evals) * eval_nb
     impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
@@ -2102,10 +2142,12 @@ def eval_ppl_phase(torch, kernels, gemma, head, gpt2):
         zero_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runs[name] = run_eval_ppl(argv + ["--log_every", "0"])
+        runs[name] = run_eval_ppl(argv + ["--log_every", "0",
+                                          *telemetry_argv(f"eval_{name}")])
         torch.cuda.synchronize()
         wall[name] = time.perf_counter() - t0
         launches[name] = read_counts(kernels)
+        admitted(f"eval_{name}", trained=False)
     g = runs["gemma_head"]
     n_b = eval_nb
     want = {k: 0 for k in kernels}
@@ -2194,16 +2236,20 @@ def gpt2_full_ft(torch, work, kernels, base_ppl, eval_nb):
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = cli.main(argv(out, "--save_every", str(F["save_every"])))
+    rc = cli.main(argv(out, "--save_every", str(F["save_every"]),
+                       *telemetry_argv("gpt2_full_ft")))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(rc == 0, f"gpt2_full_finetune.main returned {rc}")
     t0 = time.perf_counter()
-    rc = cli.main(argv(out_r, "--resume_from", step_file))
+    rc = cli.main(argv(out_r, "--resume_from", step_file,
+                       *telemetry_argv("gpt2_full_ft_resumed")))
     torch.cuda.synchronize()
     wall_r = time.perf_counter() - t0
     launches = read_counts(kernels)
     check(rc == 0, f"gpt2_full_finetune.main (resumed) returned {rc}")
+    admitted("gpt2_full_ft")
+    admitted("gpt2_full_ft_resumed")
 
     rows = read_csv(os.path.join(out, "metrics.csv"))
     losses = [float(r["loss"]) for r in rows]
@@ -2327,16 +2373,20 @@ def mmlu_args(model_dir, root, dtype, attn="auto", lora="", merge=False):
 
 
 def run_eval_mmlu(argv, stats=None):
-    """cli.eval_mmlu.main(argv + --out, stats) -> its JSON report."""
+    """cli.eval_mmlu.main(argv + --out, stats) -> its JSON report; its
+    admission check read from its stream."""
     import contextlib
     import io
 
     from mobilefinetuner_tpu_torch.cli import eval_mmlu
+    name = f"mmlu_{sum(k.startswith('mmlu_') for k in ADMISSION)}"
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "report.json")
         with contextlib.redirect_stdout(io.StringIO()):
-            rc = eval_mmlu.main(argv + ["--out", out], stats=stats)
+            rc = eval_mmlu.main(argv + ["--out", out, *telemetry_argv(name)],
+                                stats=stats)
         check(rc == 0, f"eval_mmlu.main returned {rc}")
+        admitted(name, trained=False)
         with open(out) as f:
             return json.load(f)
 
@@ -3138,6 +3188,453 @@ def fused_ce_lora_times(torch, fc, args):
 
 # --------------------------------------------------------------- main ------
 
+# ------------------------------------------ admission and fault tolerance ---
+
+# every CLI run of the paths writes its telemetry stream here (main() sets
+# the directory); `admitted` reads each run's mem_check verdicts, and the
+# first flush's measured peak of the trained runs, into ADMISSION
+STREAMS = {"dir": None}
+ADMISSION = {}
+
+
+def telemetry_argv(name: str) -> list:
+    """--telemetry_out for run `name` (a fresh stream)."""
+    path = os.path.join(STREAMS["dir"], f"{name}.jsonl")
+    if os.path.exists(path):
+        os.unlink(path)
+    return ["--telemetry_out", path]
+
+
+def read_stream(path: str) -> list:
+    """A run's telemetry events, each checked against the schema (the
+    port's validate_event: the JAX package's rules, held equal by
+    tests/test_torch_telemetry.py) and in increasing seq."""
+    from mobilefinetuner_tpu_torch.core.telemetry import validate_event
+    with open(path) as f:
+        evs = [json.loads(line) for line in f if line.strip()]
+    for e in evs:
+        check(validate_event(e) is None,
+              f"{path}: invalid event {e}: {validate_event(e)}")
+    seqs = [e["seq"] for e in evs]
+    check(all(a < b for a, b in zip(seqs, seqs[1:])), f"{path}: seq {seqs}")
+    return evs
+
+
+def admitted(name: str, trained: bool = True) -> dict:
+    """A path's run admitted as it was before the memory guard existed:
+    every mem_check "ok" and no degrade; for a trained run the estimate
+    (its last mem_check) not below the peak the first flush measured
+    (`step_stats.peak_mb`, torch.cuda's allocated-bytes peak)."""
+    evs = read_stream(os.path.join(STREAMS["dir"], f"{name}.jsonl"))
+    mcs = [e for e in evs if e["event"] == "mem_check"]
+    check(mcs and all(m["verdict"] == "ok" for m in mcs)
+          and not [e for e in evs if e["event"] == "degrade"],
+          f"{name}: admission {[m['verdict'] for m in mcs]}, degrade "
+          f"{[e for e in evs if e['event'] == 'degrade']}")
+    rec = {"est_mb": mcs[-1]["est_mb"], "cap_mb": mcs[-1]["cap_mb"],
+           "cap_source": mcs[-1]["cap_source"]}
+    if trained:
+        peaks = [e["peak_mb"] for e in evs
+                 if e["event"] == "step_stats" and "peak_mb" in e]
+        check(peaks and rec["est_mb"] >= peaks[0],
+              f"{name}: estimate {rec['est_mb']} MB below the measured "
+              f"peak {peaks[:1]} MB")
+        rec["peak_mb"] = peaks[0] if peaks else None
+        rec["est_over_peak"] = rec["est_mb"] / peaks[0] if peaks else None
+    ADMISSION[name] = rec
+    return rec
+
+
+def kernel_wrappers() -> dict:
+    """The thirteen kernel wrappers by the kernels line's names."""
+    from mobilefinetuner_tpu_torch.ops import decode_attention as da
+    from mobilefinetuner_tpu_torch.ops import flash_attention as fa
+    from mobilefinetuner_tpu_torch.ops import fused_ce as fc
+    from mobilefinetuner_tpu_torch.ops import lora_fused as lf
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "bwd_merged": fa.flash_attention_bwd_merged,
+            "bwd_dq": fa.flash_attention_bwd_dq,
+            "bwd_dkv": fa.flash_attention_bwd_dkv,
+            "lora_epilogue": lf.lora_epilogue,
+            "paged": da.paged_decode_attention,
+            "decode": da.decode_attention,
+            "fused_ce_fwd": fc.fused_ce_fwd,
+            "fused_ce_dh": fc.fused_ce_bwd_dh,
+            "fused_ce_dw": fc.fused_ce_bwd_dw,
+            "fused_ce_fwd_lora": fc.fused_ce_fwd_lora,
+            "fused_ce_dh_lora": fc.fused_ce_bwd_dh_lora,
+            "fused_ce_dw_lora": fc.fused_ce_bwd_dw_lora}
+
+
+# the `recovery` path's child: the GPT-2 LoRA CLI, its kernels' launch
+# counts written to argv[1] on every exit (the drain's SystemExit too)
+RECOVERY_CHILD = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from mobilefinetuner_tpu_torch.cli import gpt2_lora_finetune as cli
+kernels = chip_smoke.kernel_wrappers()
+code = 1
+try:
+    code = cli.main(sys.argv[2:])
+except SystemExit as e:
+    code = e.code
+finally:
+    shapes = {k: [[str(key[0]), *key[1:], n]
+                  for key, n in kernels[k].by_shape.items()]
+              for k in ("lora_epilogue", "flash_fwd")}
+    with open(sys.argv[1], "w") as f:
+        json.dump({"launches": {k: fn.launches
+                                for k, fn in kernels.items()},
+                   "by_shape": shapes}, f)
+sys.exit(code)
+"""
+RECOVERY = dict(steps=12, save_every=2, keep=4, nan_at=5, nan_n=3,
+                drain_after=8, slow_ms=500, corrupt_steps=4)
+
+
+def recovery(torch, work, kernels):
+    """The `recovery` path: GPT-2 small LoRA (the `train` path's config)
+    through `python -m`-style child processes of the CLI on the card:
+    a grad_nan rollback, a clean run resumed from its checkpoint, a
+    SIGTERM drain of that run and its resume, and a corrupt checkpoint's
+    fallback. Launch counts come from the children's own wrappers."""
+    import numpy as np
+    from mobilefinetuner_tpu_torch.io.safetensors_io import \
+        SafeTensorsReader
+    T, R = TRAIN, RECOVERY
+    gdir, ddir = os.path.join(work, "gpt2"), os.path.join(work, "wiki")
+    rdir = os.path.join(work, "recovery")
+    os.makedirs(rdir)
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def argv(out, steps, *extra):
+        return ["--pretrained_dir", gdir, "--data_dir", ddir,
+                "--steps", str(steps), "--batch_size", str(T["batch"]),
+                "--grad_accum_steps", str(T["accum"]),
+                "--seq_len", str(T["seq"]), "--dtype", "bfloat16",
+                "--rank", str(T["rank"]), "--alpha", str(T["alpha"]),
+                "--lr", str(T["lr"]), "--log_interval", "1",
+                "--lora_out", os.path.join(rdir, out), *extra]
+
+    launches, walls = [], {}
+
+    def run(name, args, sigterm_after=None):
+        """(rc, events, seconds from SIGTERM to exit or None)."""
+        counts = os.path.join(rdir, f"{name}.counts.json")
+        stream = os.path.join(rdir, f"{name}.jsonl")
+        log = open(os.path.join(rdir, f"{name}.log"), "w")
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-c", RECOVERY_CHILD, counts, *args,
+             "--telemetry_out", stream], cwd=repo,
+            stdout=log, stderr=subprocess.STDOUT)
+        drain_s = None
+        try:
+            if sigterm_after is not None:
+                deadline = time.time() + 300
+                while child.poll() is None and time.time() < deadline:
+                    if os.path.exists(stream) and any(
+                            e.get("event") == "step_stats"
+                            and e.get("step", 0) >= sigterm_after
+                            for e in map(json.loads, open(stream))):
+                        break
+                    time.sleep(0.02)
+                sent = time.perf_counter()
+                child.send_signal(signal.SIGTERM)
+                rc = child.wait(timeout=300)
+                drain_s = time.perf_counter() - sent
+            else:
+                rc = child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=60)
+            log.close()
+        walls[name] = time.perf_counter() - t0
+        with open(counts) as f:
+            child_counts = json.load(f)
+        got = child_counts["launches"]
+        # the children's launches by shape join the paths' (EPI_BY_SHAPE
+        # and FLASH_BY_SHAPE add up to the kernels' totals)
+        for k, into in (("lora_epilogue", EPI_BY_SHAPE),
+                        ("flash_fwd", FLASH_BY_SHAPE)):
+            for dtype, *dims, n in child_counts["by_shape"][k]:
+                into[(getattr(torch, dtype.split(".")[-1]), *dims)] += n
+        check(got["flash_fwd"] > 0 and got["bwd_merged"] > 0
+              and got["lora_epilogue"] > 0,
+              f"recovery {name}: the kernels did not run ({got})")
+        launches.append(got)
+        return rc, read_stream(stream), drain_s
+
+    def adapter_diff(a, b):
+        x = SafeTensorsReader(os.path.join(rdir, a)).load_all()
+        y = SafeTensorsReader(os.path.join(rdir, b)).load_all()
+        check(set(x) == set(y), f"adapter keys {a} {b}")
+        return max(float(np.abs(x[k] - y[k]).max()) for k in x)
+
+    # 1. rollback: three NaN-grad steps skipped, then one rollback
+    rc, evs, _ = run("rollback", argv(
+        "rb.safetensors", R["steps"], "--save_every", str(R["save_every"]),
+        "--keep_ckpts", str(R["keep"]), "--skip_nonfinite", "1",
+        "--rollback_budget", "2", "--rollback_skip_streak", "3",
+        "--rollback_data_offset", "0",
+        "--inject", f"grad_nan:{R['nan_at']}:{R['nan_n']}"))
+    check(rc == 0, f"rollback run exited {rc}")
+    rbs = [e for e in evs if e["event"] == "rollback"]
+    skipped = sum(e.get("skipped") or 0 for e in evs
+                  if e["event"] == "step_stats")
+    check(len(rbs) == 1 and rbs[0]["ok"] and rbs[0]["reason"] ==
+          "skip_streak" and skipped == R["nan_n"]
+          and [e["exit"] for e in evs if e["event"] == "run_end"] == ["ok"],
+          f"rollback run: rollbacks {rbs}, skipped {skipped}")
+    rb = rbs[0]
+    trigger = [e for e in evs if e["event"] == "step_stats"
+               and e["step"] == rb["step"] and e["seq"] < rb["seq"]][-1]
+    rb_wall = rb["t"] - trigger["t"]
+    ckpt = rb["ckpt"]
+    # 2. a clean run resumed from the rollback's checkpoint ends on the
+    # same adapter
+    rc, _, _ = run("clean", argv("clean.safetensors", R["steps"],
+                                 "--skip_nonfinite", "1",
+                                 "--resume_from", ckpt))
+    check(rc == 0, f"clean resume exited {rc}")
+    rb_diff = adapter_diff("rb.safetensors", "clean.safetensors")
+    check(rb_diff <= 1e-3, f"rollback vs clean resume: max |diff| "
+          f"{rb_diff} > 1e-3")
+    # 3. the same resume, SIGTERMed once step drain_after's step_stats is
+    # in its stream (steps from there sleep slow_ms so the signal lands
+    # mid-run), then resumed from its drained file
+    rc, evs, drain_s = run("drain", argv(
+        "drain.safetensors", R["steps"], "--skip_nonfinite", "1",
+        "--resume_from", ckpt,
+        "--inject", f"slow_step:{R['drain_after'] - 1}:{R['slow_ms']}:"
+                    f"{R['steps']}"), sigterm_after=R["drain_after"])
+    pre = [e for e in evs if e["event"] == "preempt"]
+    check(rc == 75 and len(pre) == 1 and evs[-1]["event"] == "run_end"
+          and evs[-1]["exit"] == "preempted"
+          and evs[-1]["reason"] == "preempted"
+          and pre[0]["step"] < R["steps"],
+          f"drain: exit {rc}, preempt {pre}, last {evs[-1]}")
+    rc, _, _ = run("drain_resume", argv(
+        "drain_resumed.safetensors", R["steps"], "--skip_nonfinite", "1",
+        "--resume_from", os.path.join(rdir, "drain.safetensors")))
+    check(rc == 0, f"drain resume exited {rc}")
+    drain_diff = adapter_diff("drain_resumed.safetensors",
+                              "clean.safetensors")
+    check(drain_diff <= 1e-3, f"drained + resumed vs uninterrupted: max "
+          f"|diff| {drain_diff} > 1e-3")
+    # 4. a corrupt checkpoint: the resume falls back down the lineage
+    rc, _, _ = run("corrupt", argv(
+        "c.safetensors", R["corrupt_steps"], "--save_every",
+        str(R["save_every"]), "--inject", "ckpt_corrupt"))
+    check(rc == 0, f"ckpt_corrupt run exited {rc}")
+    rc, evs, _ = run("corrupt_resume", argv(
+        "c_resumed.safetensors", R["corrupt_steps"] + 1, "--resume_from",
+        os.path.join(rdir, f"c_step{R['save_every']}.safetensors")))
+    vfy = [(e["ok"], e["step"]) for e in evs if e["event"] == "ckpt_verify"]
+    check(rc == 0 and vfy == [(False, R["save_every"]),
+                              (True, R["corrupt_steps"])],
+          f"corrupt resume: exit {rc}, verdicts {vfy}")
+    total = {k: sum(n[k] for n in launches) for k in kernels}
+    stats = {"model": "gpt2s", "dtype": "bfloat16",
+             "rollback": {"at_step": rb["step"], "to_step": rb["to_step"],
+                          "steps_lost": rb["steps_lost"],
+                          "skipped": skipped, "wall_s": rb_wall,
+                          "vs_clean_resume_max_abs_diff": rb_diff,
+                          "bit_for_bit": rb_diff == 0.0},
+             "drain": {"step": pre[0]["step"], "sigterm_to_exit_s": drain_s,
+                       "resumed_vs_uninterrupted_max_abs_diff": drain_diff,
+                       "bit_for_bit": drain_diff == 0.0},
+             "corrupt": {"verdicts": vfy},
+             "runs": len(launches), "walls_s": walls}
+    return stats, total
+
+
+DEGRADE = dict(steps=3)
+
+
+def degrade(torch, dev, work, kernels, gemma):
+    """The `degrade` path: Gemma-3-270M full fine-tuning (the
+    `gemma_full_ft` config) through cli.gemma_full_finetune in process,
+    counts set to 0 just before: the exhausted ladder, the ladder walking
+    remat at a capacity between the two estimates, the same run launched
+    at --remat, fail mode at that capacity, a real out-of-memory error at
+    the first dispatch, and sync and async saves of the 268M-parameter
+    model."""
+    import filecmp
+    import math
+
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.cli import common
+    from mobilefinetuner_tpu_torch.cli import gemma_full_finetune as cli
+    from mobilefinetuner_tpu_torch.core import memory_guard as mg
+    from mobilefinetuner_tpu_torch.io.async_ckpt import (AsyncCheckpointer,
+                                                         timed_snapshot)
+    from mobilefinetuner_tpu_torch.io.checkpoints import (
+        gemma3_params_from_hf, save_gemma3)
+    from mobilefinetuner_tpu_torch.optim import adam
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer)
+    config, _, _, _, gdir, ddir, _ = gemma
+    G, D = GEMMA, DEGRADE
+    out = os.path.join(work, "degrade")
+    os.makedirs(out)
+
+    def argv(name, *extra):
+        return ["--model_dir", gdir, "--data_dir", ddir,
+                "--steps", str(D["steps"]), "--batch_size", str(G["batch"]),
+                "--seq_len", str(G["seq"]), "--dtype", "bfloat16",
+                "--loss_chunks", str(G["chunks"]), "--lr", str(G["full_lr"]),
+                "--output_path", os.path.join(out, f"{name}.safetensors"),
+                "--metrics_csv", os.path.join(out, f"{name}.csv"),
+                *telemetry_argv(f"degrade_{name}"), *extra]
+
+    def events(name):
+        return read_stream(os.path.join(STREAMS["dir"],
+                                        f"degrade_{name}.jsonl"))
+
+    def refused(name, *extra):
+        """The refusal's ladder. The error itself is dropped: its
+        traceback holds the refused run's trees, which the next run's
+        preflight would count as live bytes."""
+        try:
+            cli.main(argv(name, *extra))
+        except mg.MemoryAdmissionError as e:
+            ladder = e.ladder
+        else:
+            ladder = None
+        check(ladder is not None, f"degrade {name}: no MemoryAdmissionError")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ladder
+
+    def losses(name):
+        return [float(r["loss"]) for r in read_csv(
+            os.path.join(out, f"{name}.csv"))]
+
+    walls = {}
+    zero_counts(kernels)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # 1. every rung over: the ladder runs dry before any data loads
+    ladder = refused("exhausted", "--hbm_cap_mb", "1")
+    evs = events("exhausted")
+    ests = [e["est_mb"] for e in evs if e["event"] == "mem_check"]
+    check(ladder == ("remat", "accum_x2") and len(ests) == 3
+          and ests[0] > ests[1] > ests[2]
+          and not [e for e in evs if e["event"] == "step_stats"],
+          f"exhausted ladder {ladder}, estimates {ests}")
+    walls["exhausted"] = time.perf_counter() - t0
+    # 2. a capacity whose admitted share lies between the estimates with
+    # remat off and on: the run walks remat
+    cap = math.ceil((ests[0] + ests[1]) / 2 / 0.9)
+    t0 = time.perf_counter()
+    check(cli.main(argv("ladder", "--hbm_cap_mb", str(cap))) == 0,
+          "degrade ladder run failed")
+    walls["ladder"] = time.perf_counter() - t0
+    evs = events("ladder")
+    verdicts = [m["verdict"] for m in evs if m["event"] == "mem_check"]
+    rungs = [e["rung"] for e in evs if e["event"] == "degrade"]
+    peak = [e["peak_mb"] for e in evs
+            if e["event"] == "step_stats" and "peak_mb" in e]
+    ladder_est = [m["est_mb"] for m in evs if m["event"] == "mem_check"]
+    check(verdicts == ["over", "ok"] and rungs == ["remat"] and peak
+          and ladder_est[-1] >= peak[0]
+          and [e["exit"] for e in evs if e["event"] == "run_end"] == ["ok"],
+          f"ladder: verdicts {verdicts}, rungs {rungs}, estimates "
+          f"{ladder_est}, peak {peak}")
+    # 3. the oracle: the same run launched at --remat
+    t0 = time.perf_counter()
+    check(cli.main(argv("direct", "--remat")) == 0, "direct --remat failed")
+    walls["direct"] = time.perf_counter() - t0
+    rec_direct = admitted("degrade_direct")
+    lad, ref = losses("ladder"), losses("direct")
+    loss_diff = max(abs(a - b) for a, b in zip(lad, ref))
+    check(len(lad) == len(ref) == D["steps"] and loss_diff <= 1e-3,
+          f"ladder losses {lad} vs --remat {ref}")
+    # 4. fail mode at the same capacity: refused before data loads
+    ladder = refused("fail", "--hbm_cap_mb", str(cap),
+                     "--on_oom_risk", "fail")
+    check([e["event"] for e in events("fail")] ==
+          ["run_start", "mem_check", "run_end"] and not ladder,
+          f"fail mode stream {[e['event'] for e in events('fail')]}")
+    # 5. a real out-of-memory error at the first dispatch: the ballast
+    # leaves BALLAST_SPARE_MB free, the step runs out, the loop walks
+    # remat and runs the same batch again
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check(cli.main(argv("oom", "--inject", "hbm_pressure:1000000")) == 0,
+          "hbm_pressure run failed")
+    walls["oom"] = time.perf_counter() - t0
+    evs = events("oom")
+    dispatch = [m for m in evs if m["event"] == "mem_check"
+                and m["phase"] == "dispatch"]
+    rungs = [(e["rung"], e["step"]) for e in evs if e["event"] == "degrade"]
+    steps = [e["step"] for e in evs if e["event"] == "step_stats"]
+    check(len(dispatch) == 1 and rungs == [("remat", 0)]
+          and steps == list(range(1, D["steps"] + 1)),
+          f"oom run: dispatch {dispatch}, rungs {rungs}, steps {steps}")
+    oom_peak = [e["peak_mb"] for e in evs
+                if e["event"] == "step_stats" and "peak_mb" in e]
+    # 6. sync and async saves of the trained 268M-parameter model and its
+    # .opt, through the CLI's writers: byte-identical files
+    model = os.path.join(out, "ladder.safetensors")
+    params = convert.gemma3_params_from_numpy(gemma3_params_from_hf(
+        common.load_full_resume(model), config), device=dev)
+    opt_state, _ = adam.load_state(model + ".opt", init_optimizer(
+        params, TrainConfig(), None))
+    saves, ck_events = {}, []
+    for mode in (0, 1):
+        ck = AsyncCheckpointer(
+            enabled=bool(mode),
+            event_sink=lambda ev, **f: ck_events.append(dict(f, event=ev)))
+        t_call = time.perf_counter()
+        (p_h, o_h), snap_ms = timed_snapshot((params, opt_state))
+        path = os.path.join(out, f"save{mode}.safetensors")
+
+        def write(path=path, p_h=p_h, o_h=o_h):
+            save_gemma3(path, p_h)
+            adam.save_state(path + ".opt", o_h, adam.AdamConfig(),
+                            extra_metadata={"loop_step": str(D["steps"])})
+            return [path, path + ".opt"]
+
+        ck.save(D["steps"], write, snapshot_ms=snap_ms)
+        blocking_ms = (time.perf_counter() - t_call) * 1000
+        ck.close()
+        saves[mode] = {"loop_blocked_ms": blocking_ms, **{
+            k: ck_events[-1][k] for k in ("snapshot_ms", "write_ms",
+                                           "bytes", "mb_s", "async")}}
+        # the next snapshot finds these pinned buffers free, as the next
+        # periodic save of a run does once the write has landed
+        del p_h, o_h, write
+    for sfx in ("", ".opt"):
+        check(filecmp.cmp(os.path.join(out, "save0.safetensors" + sfx),
+                          os.path.join(out, "save1.safetensors" + sfx),
+                          shallow=False), f"sync / async save{sfx} differ")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    launches = read_counts(kernels)
+    for k in ("flash_fwd", "bwd_merged", "fused_ce_fwd", "fused_ce_dh",
+              "fused_ce_dw"):
+        check(launches[k] > 0, f"degrade: {k} never launched")
+    cli_saves = {name: [{k: e[k] for k in ("snapshot_ms", "write_ms",
+                                           "bytes", "mb_s", "async")}
+                        for e in events(name) if e["event"] == "checkpoint"]
+                 for name in ("ladder", "direct", "oom")}
+    stats = {"model": "gemma3-270m", "mode": "full", "dtype": "bfloat16",
+             "steps": D["steps"], "exhausted_estimates_mb": ests,
+             "cap_mb": cap, "ladder_estimates_mb": ladder_est,
+             "ladder_peak_mb": peak[0] if peak else None,
+             "direct_remat": rec_direct,
+             "ladder_vs_remat_max_abs_loss_diff": loss_diff,
+             "ladder_losses_exact": lad == ref,
+             "oom": {"dispatch_live_mb": dispatch[0]["live_mb"],
+                     "retried_peak_mb": oom_peak[0] if oom_peak else None},
+             "saves": saves, "cli_saves": cli_saves, "walls_s": walls}
+    return stats, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3150,19 +3647,8 @@ def main() -> int:
     from mobilefinetuner_tpu_torch.ops import flash_attention as fa
     from mobilefinetuner_tpu_torch.ops import fused_ce as fc
     from mobilefinetuner_tpu_torch.ops import lora_fused as lf
-    kernels = {"flash_fwd": fa.flash_attention_fwd,
-               "bwd_merged": fa.flash_attention_bwd_merged,
-               "bwd_dq": fa.flash_attention_bwd_dq,
-               "bwd_dkv": fa.flash_attention_bwd_dkv,
-               "lora_epilogue": lf.lora_epilogue,
-               "paged": da.paged_decode_attention,
-               "decode": da.decode_attention,
-               "fused_ce_fwd": fc.fused_ce_fwd,
-               "fused_ce_dh": fc.fused_ce_bwd_dh,
-               "fused_ce_dw": fc.fused_ce_bwd_dw,
-               "fused_ce_fwd_lora": fc.fused_ce_fwd_lora,
-               "fused_ce_dh_lora": fc.fused_ce_bwd_dh_lora,
-               "fused_ce_dw_lora": fc.fused_ce_bwd_dw_lora}
+    kernels = kernel_wrappers()
+    STREAMS["dir"] = tempfile.mkdtemp(prefix="chip_smoke_streams_")
 
     # 1. the card
     card = card_line()
@@ -3231,6 +3717,12 @@ def main() -> int:
         print(json.dumps({"gpt2_full_ft": g2full_stats,
                           "launches": launches_g2full}))
         torch.cuda.empty_cache()
+        # the recovery path: child processes, counts from their wrappers
+        t0 = time.perf_counter()
+        rec_stats, launches_rec = recovery(torch, work, kernels)
+        rec_stats["wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"recovery": rec_stats,
+                          "launches": launches_rec}))
         gemma_stats, launches_gemma, gemma = gemma_train(torch, dev, work,
                                                          kernels)
         print(json.dumps({"gemma_train": gemma_stats,
@@ -3239,6 +3731,11 @@ def main() -> int:
                                                   gemma)
         print(json.dumps({"gemma_full_ft": full_stats,
                           "launches": launches_full}))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        deg_stats, launches_deg = degrade(torch, dev, work, kernels, gemma)
+        deg_stats["wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"degrade": deg_stats, "launches": launches_deg}))
         torch.cuda.empty_cache()
         head_stats, launches_head, head_adapter, head_final = \
             gemma_lora_head(torch, dev, work, kernels, gemma)
@@ -3342,7 +3839,9 @@ def main() -> int:
                 "gemma_full_ft": launches_full[name],
                 "gemma_lora_head": launches_head[name],
                 "eval_ppl": launches_eval[name],
-                "mmlu": launches_mmlu[name]}
+                "mmlu": launches_mmlu[name],
+                "recovery": launches_rec[name],
+                "degrade": launches_deg[name]}
 
     def total(name):
         return sum(by_path(name).values())
@@ -3455,6 +3954,8 @@ def main() -> int:
             name, source, line, total(key), err, ce_lora_times[key],
             ce_lora_bounds[key], extra))
     print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
+    print(json.dumps({"admission": ADMISSION}))
+    shutil.rmtree(STREAMS["dir"], ignore_errors=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels_line}))

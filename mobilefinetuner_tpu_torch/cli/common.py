@@ -1,22 +1,31 @@
-"""Shared CLI machinery: the JAX package's flag groups and the core of its
-training loop (port of mobilefinetuner_tpu/cli/common.py).
+"""Shared CLI machinery: the JAX package's flag groups and its training
+loop (port of mobilefinetuner_tpu/cli/common.py).
 
 Ported: the training hyperparameters, `micro_batches` (the byte-pinned
 step-batch stream, with `skip_steps` for resume), the async input
 pipeline (`--prefetch`, `--prefetch_rss_mb`: data/prefetch.Prefetcher),
-`evaluate`, the step / eval / save cadence, `--resume_from` (adapter or
-full model + `.opt` sidecar, checksum-verified; `load_full_resume`), the
-streaming-refetch retry budget (`--data_retries`, `--data_backoff_s`),
-the pretokenized train split of the Gemma CLIs (`--pretokenized_path`),
-the metrics CSV, the eval JSONL and the log lines, with the JAX CLIs'
-columns and formats.
+`evaluate`, the step / eval / save cadence, the metrics CSV, the eval
+JSONL and the log lines, with the JAX CLIs' columns and formats; and the
+run's fault tolerance, with the JAX CLIs' flags and defaults:
+  - the telemetry stream (`--telemetry_out`, core/telemetry.py) and the
+    loss-spike detector (`--spike_z`, `--spike_beta`, `--spike_warmup`);
+  - snapshot-then-write checkpoints (`--async_save`, io/async_ckpt.py),
+    the checkpoint lineage with its GC (`--keep_ckpts`) and the
+    verified `--resume_from` that falls back down the lineage
+    (`resolve_resume_from`, io/checkpoints.py);
+  - the preemption drain (`--on_preempt`, core/preempt.py);
+  - in-process rollback (`--rollback_budget`, `--rollback_skip_streak`,
+    `--rollback_data_offset`) and fault injection (`--inject`);
+  - the memory-admission preflight and degradation ladder
+    (`--on_oom_risk`, `--hbm_cap_mb`, `--hbm_headroom`,
+    core/memory_guard.py), on an analytic estimate of the step.
 
 Every other flag keeps its JAX name, and its default here is "off"; a run
 that asks for one raises NotImplementedError naming the ROADMAP.md port
-item that brings it (`check_not_ported`): telemetry and the run registry,
-the mesh, offload, the memory-admission ladder, rollback, fault
-injection, the step governor, async checkpoint writes, checkpoint
-lineage. Nothing is accepted and silently ignored.
+item that brings it (`check_not_ported`): the run registry, the profiler
+and the rest of the observability plane (P6), the mesh and offload (P9),
+the step governor, the alignment harness. Nothing is accepted and
+silently ignored.
 
 The device is the CLIs' one addition: `--device` (default: the CUDA
 card; `--device cpu` is an explicit choice, as the tests make it).
@@ -25,23 +34,35 @@ card; `--device cpu` is an explicit choice, as the tests make it).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import itertools
+import math
 import os
 import time
+import traceback
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from mobilefinetuner_tpu_torch.core import cuda_stats
+from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.device import resolve_device
 from mobilefinetuner_tpu_torch.core.logging import (JSONLWriter,
                                                     MetricsLogger,
                                                     get_logger)
+from mobilefinetuner_tpu_torch.core.preempt import (EXIT_PREEMPTED,
+                                                    PreemptionGuard)
+from mobilefinetuner_tpu_torch.core.telemetry import (SpikeConfig,
+                                                      SpikeDetector,
+                                                      Telemetry,
+                                                      run_manifest)
 from mobilefinetuner_tpu_torch.data.prefetch import Prefetcher
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
                                                       WT2Config)
-from mobilefinetuner_tpu_torch.io.safetensors_io import (
-    CheckpointIntegrityError, SafeTensorsReader, verify_report)
+from mobilefinetuner_tpu_torch.io.async_ckpt import AsyncCheckpointer
+from mobilefinetuner_tpu_torch.io.safetensors_io import SafeTensorsReader
 from mobilefinetuner_tpu_torch.ops.dropout import fold_in
 from mobilefinetuner_tpu_torch.ops.loss import perplexity_from_loss
 from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
@@ -54,23 +75,13 @@ log = get_logger()
 # (args attribute, its "off" value, what it asks for, ROADMAP.md port item)
 NOT_PORTED = (
     ("align_dump_dir", "", "the alignment harness (--align_dump_dir)", "P3"),
-    ("async_save", 0, "background checkpoint writes (--async_save)", "P5"),
-    ("keep_ckpts", 0, "checkpoint lineage and GC (--keep_ckpts)", "P5"),
-    ("rollback_budget", 0, "in-process rollback (--rollback_budget)", "P5"),
-    ("inject", "", "fault injection (--inject)", "P5"),
-    ("on_preempt", "off", "the preemption drain (--on_preempt)", "P5"),
-    ("on_oom_risk", "warn",
-     "the memory-admission ladder (--on_oom_risk)", "P5"),
-    ("hbm_cap_mb", 0, "the memory preflight (--hbm_cap_mb)", "P5"),
     ("opt_offload", False, "optimizer-state offload (--opt_offload)", "P9"),
     ("opt_offload_state_dtype", "float32",
      "optimizer-state offload (--opt_offload_state_dtype)", "P9"),
     ("opt_offload_master_dtype", "float32",
      "optimizer-state offload (--opt_offload_master_dtype)", "P9"),
-    ("telemetry_out", "", "the telemetry stream (--telemetry_out)", "P6"),
     ("run_registry", "", "the run registry (--run_registry)", "P6"),
     ("profile_dir", "", "the profiler window (--profile_dir)", "P6"),
-    ("spike_z", 0.0, "the loss-spike detector (--spike_z)", "P6"),
     ("watchdog", 0, "the hang watchdog (--watchdog)", "P6"),
     ("straggler_cadence", 0, "straggler attribution", "P6"),
     ("trace_spans", 0, "trace spans (--trace_spans)", "P6"),
@@ -127,6 +138,16 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
     g.add_argument("--eval_batches", type=int, default=50)
     g.add_argument("--eval_batch_size", type=int, default=2)
     g.add_argument("--save_every", type=int, default=0)
+    g.add_argument("--async_save", type=int, default=1,
+                   help="1 = snapshot-then-write checkpoints "
+                        "(io/async_ckpt.py): a save blocks the loop only "
+                        "for one batched copy into pinned host buffers; "
+                        "the key mapping, encode and atomic write run on "
+                        "a background thread (a depth-1 queue: a save "
+                        "landing while one is pending replaces it, with "
+                        "a ckpt_dropped event; final saves drain). 0 = "
+                        "the synchronous oracle; the files are "
+                        "byte-identical either way")
     g.add_argument("--ema_beta", type=float, default=0.9)
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--coupled_weight_decay", action="store_true",
@@ -152,16 +173,6 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
                         "oracle (models/lora_apply.py)")
     g.add_argument("--no_model_dropout", action="store_true",
                    help="zero the checkpoint's embd/resid/attn pdrop")
-    g.add_argument("--skip_nonfinite", type=int, default=0,
-                   help="1 = a step with non-finite gradients leaves "
-                        "params and optimizer state unchanged")
-    g.add_argument("--verify_ckpt", type=int, default=1,
-                   help="1 = verify --resume_from against its checksum "
-                        "manifest before loading")
-    g.add_argument("--data_retries", type=int, default=3,
-                   help="retry budget of the streaming refetch path (the "
-                        "in-RAM data path has none to retry)")
-    g.add_argument("--data_backoff_s", type=float, default=0.5)
     g.add_argument("--prefetch", type=int, default=2,
                    help="async input pipeline (data/prefetch.py): a "
                         "background thread assembles host batches into a "
@@ -170,13 +181,88 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
                         "while step k is launched. 0 = synchronous. The "
                         "batch sequence is byte-identical either way "
                         "(resume included)")
+    g.add_argument("--telemetry_out", default="",
+                   help="append-only JSONL run-telemetry stream "
+                        "(core/telemetry.py, the JAX package's schema): "
+                        "run_start, mem_check, degrade, step_stats, "
+                        "eval, checkpoint, ckpt_dropped, ckpt_verify, "
+                        "anomaly, rollback, preempt, run_end. Appending "
+                        "to an existing file continues its sequence "
+                        "numbers. Render with tools/telemetry_report.py")
+    g.add_argument("--spike_z", type=float, default=8.0,
+                   help="loss-spike detector: an `anomaly` event when a "
+                        "step's loss exceeds this many EMA standard "
+                        "deviations (<= 0 disables)")
+    g.add_argument("--spike_beta", type=float, default=0.98,
+                   help="EMA decay of the spike detector")
+    g.add_argument("--spike_warmup", type=int, default=20,
+                   help="steps observed before the spike detector arms")
+    g.add_argument("--on_preempt", choices=["drain", "off"],
+                   default="drain",
+                   help="SIGTERM/SIGINT handling (core/preempt.py): "
+                        "'drain' finishes the step in flight, writes ONE "
+                        "final atomic checkpoint, ends the stream with "
+                        "run_end{reason=preempted} and exits with the "
+                        f"resumable code {EXIT_PREEMPTED} (a second "
+                        "signal aborts the drain); 'off' keeps the "
+                        "default signal behaviour")
+    g.add_argument("--data_retries", type=int, default=3,
+                   help="retry budget of the streaming refetch path (the "
+                        "in-RAM data path has none to retry)")
+    g.add_argument("--data_backoff_s", type=float, default=0.5)
+    g.add_argument("--skip_nonfinite", type=int, default=0,
+                   help="1 = a step with non-finite gradients leaves "
+                        "params and optimizer state unchanged")
+    g.add_argument("--rollback_budget", type=int, default=0,
+                   help="> 0 arms in-process rollback: on sustained "
+                        "divergence (anomaly{kind=divergence}), a streak "
+                        "of --rollback_skip_streak skipped or "
+                        "non-finite steps, or a non-finite loss with the "
+                        "skip guard off, the loop reloads the newest "
+                        "verified lineage checkpoint and its .opt "
+                        "sidecar, rebuilds the data stream and keeps "
+                        "training, at most this many times a run (a "
+                        "`rollback` event each). Needs --save_every. "
+                        "0 = off")
+    g.add_argument("--rollback_skip_streak", type=int, default=3,
+                   help="consecutive skipped / non-finite steps that "
+                        "trigger a rollback")
+    g.add_argument("--rollback_data_offset", type=int, default=1,
+                   help="extra data-stream steps skipped per rollback, so "
+                        "the replayed window sees other batches; 0 "
+                        "replays the original sequence")
+    g.add_argument("--keep_ckpts", type=int, default=0,
+                   help="keep only the K newest step-tagged checkpoints "
+                        "in the lineage (<final>.lineage.json); older "
+                        "files go AFTER the pruned lineage is published "
+                        "(a kill mid-GC leaves orphans, never a lineage "
+                        "naming deleted files); the final artifact is "
+                        "never pruned. 0 = keep all")
+    g.add_argument("--verify_ckpt", type=int, default=1,
+                   help="1 = verify each checkpoint load (--resume_from "
+                        "and rollback) against its checksum manifest; a "
+                        "corrupt file is rejected with a "
+                        "ckpt_verify{ok=false} event and the load falls "
+                        "back down the lineage. 0 = trust the newest file")
+    g.add_argument("--inject", default="",
+                   help="fault injection: grad_nan:<step>[:<n>] poisons "
+                        "n (default 1) step batches so the gradients go "
+                        "non-finite; loss_spike:<step>[:<n>] scrambles n "
+                        "batches' labels; slow_step:<step>:<ms>[:<n>] "
+                        "sleeps before n steps; ckpt_corrupt flips a byte "
+                        "in the newest lineage checkpoint after the first "
+                        "periodic save; hbm_pressure:<mb> holds up to "
+                        "<mb> MB of device ballast (on the card, at most "
+                        "what the card has free) from the first dispatch "
+                        "until the out-of-memory error it forces (the CPU "
+                        "raises a simulated one at the first dispatch), "
+                        "which the --on_oom_risk ladder takes. Each fires "
+                        "once per process")
     # not ported: accepted by name, refused unless off (check_not_ported)
     for name, kind, default in (
-            ("--async_save", int, 0),
-            ("--telemetry_out", str, ""), ("--run_registry", str, ""),
+            ("--run_registry", str, ""),
             ("--profile_dir", str, ""), ("--profile_start", int, 10),
-            ("--profile_steps", int, 5), ("--spike_z", float, 0.0),
-            ("--spike_beta", float, 0.98), ("--spike_warmup", int, 20),
+            ("--profile_steps", int, 5),
             ("--watchdog", int, 0), ("--watchdog_mult", float, 10.0),
             ("--watchdog_min_s", float, 60.0),
             ("--straggler_cadence", int, 0),
@@ -186,25 +272,39 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
             ("--auto_profile_cooldown", float, 300.0),
             ("--auto_profile_budget", int, 2),
             ("--auto_profile_slow_mult", float, 3.0),
-            ("--metrics_port", int, 0), ("--metrics_addr", str, "127.0.0.1"),
-            ("--on_preempt", str, "off"), ("--rollback_budget", int, 0),
-            ("--rollback_skip_streak", int, 3),
-            ("--rollback_data_offset", int, 1), ("--keep_ckpts", int, 0),
-            ("--inject", str, "")):
+            ("--metrics_port", int, 0), ("--metrics_addr", str, "127.0.0.1")):
         g.add_argument(name, type=kind, default=default,
-                       help="not ported yet (ROADMAP.md)")
+                       help="not ported yet (ROADMAP.md P6)")
     add_mem_flags(p)
 
 
 def add_mem_flags(p: argparse.ArgumentParser):
-    g = p.add_argument_group("memory admission (not ported yet, except "
-                             "--prefetch_rss_mb)")
-    g.add_argument("--hbm_cap_mb", type=int, default=0)
-    g.add_argument("--hbm_headroom", type=float, default=0.1)
+    """The memory-admission knobs (core/memory_guard.py): the train CLIs'
+    preflight and degradation ladder, the eval CLIs' preflight (no ladder
+    there: 'degrade' acts as 'warn')."""
+    g = p.add_argument_group("memory admission")
+    g.add_argument("--hbm_cap_mb", type=int, default=0,
+                   help="device capacity override in MB for the "
+                        "admission preflight; 0 = the card's total "
+                        "(torch.cuda.mem_get_info; a CPU run has none, "
+                        "so its verdict is 'unknown'). The override "
+                        "lets CPU tests drive the verdict")
+    g.add_argument("--hbm_headroom", type=float, default=0.1,
+                   help="admission margin: a config is OVER when its "
+                        "estimate exceeds capacity x (1 - headroom)")
     g.add_argument("--on_oom_risk", choices=["fail", "degrade", "warn"],
-                   default="warn",
-                   help="'warn' = proceed without a preflight (the port "
-                        "has none yet)")
+                   default="degrade",
+                   help="what a failed admission does: 'fail' raises "
+                        "MemoryAdmissionError before the data stream "
+                        "starts; 'degrade' walks the ladder (--remat, "
+                        "then grad-accum x2 at a constant global batch; "
+                        "offload is not ported) re-checking at each "
+                        "rung, each decision a `degrade` event, and "
+                        "raises naming the rungs tried when the last "
+                        "one does not fit; a CUDA out-of-memory error at "
+                        "a step's dispatch takes the same ladder; 'warn' "
+                        "logs and proceeds. Verdict 'unknown' always "
+                        "proceeds")
     g.add_argument("--prefetch_rss_mb", type=int, default=0,
                    help="host-RSS shed guard of the input pipeline: "
                         "while the process RSS exceeds this many MB the "
@@ -431,30 +531,43 @@ def evaluate(eval_step, trainable, frozen, dataset: WikiText2Dataset,
             "tokens": tokens, "batches": n}
 
 
-def verify_resume(path: str, verify: bool) -> None:
-    """--resume_from's integrity check (--verify_ckpt): a corrupt adapter
-    or sidecar raises CheckpointIntegrityError; one written without a
-    manifest loads with a warning. (The JAX CLI's fallback down the
-    checkpoint lineage is not ported: ROADMAP.md port item P5.) An HF
-    checkpoint directory (a full-model resume source) carries no
-    manifest and is loaded as it is, as in the JAX CLIs."""
-    if not verify or os.path.isdir(path):
+def resolve_resume_from(args) -> None:
+    """Verify --resume_from against its checksum manifest (and its .opt
+    sidecar) before anything loads it; a corrupt, truncated or stale file
+    makes the resolution fall back down `<final>.lineage.json` to the
+    newest verified entry (io/checkpoints.resolve_checkpoint) instead of
+    crashing or loading garbage. args.resume_from is rewritten to the
+    resolved path, so the adapter or model and the sidecar load from one
+    artifact, and the per-candidate `ckpt_verify` verdicts wait on args
+    for run_training to emit right after run_start. A file with no
+    manifest and no verified alternative loads with a warning; nothing
+    loadable raises CheckpointIntegrityError. An HF checkpoint directory
+    (a full-model resume source) has no manifest or lineage and loads as
+    it is."""
+    path = getattr(args, "resume_from", "")
+    if not path or os.path.isdir(path):
         return
-    for p in (path, path + ".opt"):
-        if p != path and not os.path.exists(p):
-            continue
-        status, reason = verify_report(p)
-        if status == "corrupt":
-            raise CheckpointIntegrityError(
-                f"{p}: integrity verification failed ({reason})")
-        if status == "unverified":
-            log.warning(f"{p}: no checksum manifest; loading unverified")
+    from mobilefinetuner_tpu_torch.io.checkpoints import resolve_checkpoint
+    resolved, _step, events = resolve_checkpoint(
+        path, verify=bool(getattr(args, "verify_ckpt", 1)))
+    args._ckpt_verify_events = events
+    if resolved != path:
+        log.warning(f"--resume_from {path} failed integrity "
+                    f"verification; falling back down the lineage to "
+                    f"{resolved}")
+        args.resume_from = resolved
+    elif events and not events[0]["ok"]:
+        log.warning(f"--resume_from {path}: {events[-1]['reason']} "
+                    f"(loading unverified: no verified lineage "
+                    f"alternative)")
 
 
 def maybe_resume_opt_state(args, trainable, tc: TrainConfig, mask=None):
     """(opt_state, start_step) from the `.opt` sidecar next to
     --resume_from, or (None, 0). The start step is the sidecar's
-    `loop_step` metadata, else its Adam step counter."""
+    `loop_step` metadata, else the lineage's step for the file, else its
+    Adam step counter (which lags the loop under --skip_nonfinite)."""
+    from mobilefinetuner_tpu_torch.io.checkpoints import lineage_step_for
     from mobilefinetuner_tpu_torch.optim import adam as adam_mod
     path = getattr(args, "resume_from", "")
     if not path or not os.path.exists(path + ".opt"):
@@ -462,11 +575,208 @@ def maybe_resume_opt_state(args, trainable, tc: TrainConfig, mask=None):
     template = init_optimizer(trainable, tc, mask)
     opt_state, _ = adam_mod.load_state(path + ".opt", template)
     md = SafeTensorsReader(path + ".opt").metadata
-    start_step = (int(md["loop_step"]) if "loop_step" in md
-                  else int(opt_state["step"]))
+    if "loop_step" in md:
+        start_step = int(md["loop_step"])
+    else:
+        start_step = lineage_step_for(path)
+        if start_step is None:
+            start_step = int(opt_state["step"])
     log.info(f"restored optimizer state @ step {start_step} "
              f"(adam step {int(opt_state['step'])})")
     return opt_state, start_step
+
+
+def record_ckpt_files(args, final_path: str, step: int, files) -> None:
+    """The save hooks' tail: record a completed save into
+    `<final_path>.lineage.json` and GC past --keep_ckpts (the lineage is
+    published before any file goes). Runs on the writer thread; a failure
+    is logged, not raised (the save's files are already durable)."""
+    try:
+        from mobilefinetuner_tpu_torch.io.checkpoints import \
+            record_checkpoint
+        record_checkpoint(final_path, step, list(files),
+                          keep=max(getattr(args, "keep_ckpts", 0), 0))
+    except Exception as e:
+        log.warning(f"checkpoint lineage update failed: {e}")
+
+
+def make_rollback_loader(tc: TrainConfig, mask, load_trainable):
+    """run_training's `load_hook(path) -> (trainable, opt_state)`, the
+    inverse of a CLI's save hook: `load_trainable(path)` gives the
+    trainable tree on the run's device, and the `.opt` sidecar is
+    restored against a template of the same structure on that device."""
+    from mobilefinetuner_tpu_torch.optim import adam as adam_mod
+
+    def load_hook(path):
+        tr = load_trainable(path)
+        opt, _ = adam_mod.load_state(path + ".opt",
+                                     init_optimizer(tr, tc, mask))
+        return tr, opt
+    return load_hook
+
+
+def parse_train_inject(spec: str):
+    """--inject grammar -> (kind, step, n) | ('ckpt_corrupt', None, 1) |
+    ('hbm_pressure', None, <mb>) | None, the JAX package's: a typo dies at
+    startup with SystemExit. slow_step's third field is the sleep in ms,
+    its optional fourth the repeat count."""
+    if not spec:
+        return None
+    parts = spec.split(":")
+    kind = parts[0]
+    if kind == "ckpt_corrupt":
+        return ("ckpt_corrupt", None, 1)
+    if kind == "hbm_pressure":
+        if len(parts) < 2:
+            raise SystemExit(f"--inject hbm_pressure needs a ballast "
+                             f"size in MB: {spec!r}")
+        return ("hbm_pressure", None, max(int(parts[1]), 1))
+    if kind == "slow_step":
+        if len(parts) < 3:
+            raise SystemExit(f"--inject slow_step needs a step and ms: "
+                             f"slow_step:<step>:<ms>[:<n>], got {spec!r}")
+        ms = float(parts[2])
+        if not (ms >= 0) or math.isinf(ms):  # `not >=` catches NaN too
+            raise SystemExit(f"--inject slow_step ms must be a finite "
+                             f"non-negative number, got {parts[2]!r}")
+        n = int(parts[3]) if len(parts) > 3 else 1
+        return ("slow_step", int(parts[1]), max(n, 1))
+    if kind not in ("grad_nan", "loss_spike"):
+        raise SystemExit(
+            f"--inject must be grad_nan:<step>[:<n>] | "
+            f"loss_spike:<step>[:<n>] | slow_step:<step>:<ms>[:<n>] | "
+            f"ckpt_corrupt | hbm_pressure:<mb>, got {spec!r}")
+    if len(parts) < 2:
+        raise SystemExit(f"--inject {kind} needs a step: {spec!r}")
+    step = int(parts[1])
+    n = int(parts[2]) if len(parts) > 2 else 1
+    return (kind, step, max(n, 1))
+
+
+class FaultInjector:
+    """Host-side fault injection of the train path: batches are poisoned
+    on the input side (a NaN `grad_scale` row that multiplies the
+    gradients inside the step, scrambled labels for a real loss shift), a
+    byte of a written checkpoint is flipped, a device ballast forces an
+    out-of-memory error. Each fault fires once per process (a counter
+    latches it): after a rollback replays the poisoned window the same
+    steps run clean, so the recovery repeats, not the fault."""
+
+    # MB the card keeps free beside the ballast, so that allocating it
+    # succeeds and the step's own first large allocation fails
+    BALLAST_SPARE_MB = 256
+
+    def __init__(self, spec: str):
+        parsed = parse_train_inject(spec)
+        self.kind, self.at, self.n = parsed if parsed else (None, None, 0)
+        self.fired = 0
+        self.ballast = None
+        self.slow_ms = (float(spec.split(":")[2])
+                        if self.kind == "slow_step" else 0.0)
+
+    @property
+    def active(self) -> bool:
+        return self.kind is not None
+
+    def maybe_slow(self, step: int) -> None:
+        """slow_step:<step>:<ms>[:<n>]: a host sleep before each of n
+        steps from <step>."""
+        if self.kind != "slow_step" or self.fired >= self.n \
+                or step < self.at:
+            return
+        self.fired += 1
+        log.warning(f"--inject slow_step: sleeping {self.slow_ms:.0f} ms "
+                    f"before step {step} ({self.fired}/{self.n})")
+        time.sleep(self.slow_ms / 1000.0)
+
+    def arm_ballast(self, device: torch.device) -> None:
+        """hbm_pressure:<mb>: allocate and hold up to <mb> MB on `device`
+        before the first dispatch. On the card the ballast takes at most
+        what `mem_get_info` reports free less BALLAST_SPARE_MB, so the
+        step that follows runs out of memory for real (the admission
+        preflight ran before the ballast existed, as the JAX preflight
+        never saw the TPU ballast); on the CPU it is host memory."""
+        if self.kind != "hbm_pressure" or self.fired \
+                or self.ballast is not None:
+            return
+        mb = float(self.n)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()   # free = all the card does not hold
+        free_mb, _ = cuda_stats.free_and_total_mb(device)
+        if free_mb is not None:
+            mb = max(min(mb, free_mb - self.BALLAST_SPARE_MB), 0.0)
+        self.ballast = torch.empty(int(mb * 2 ** 20), dtype=torch.uint8,
+                                   device=device)
+        log.warning(f"--inject hbm_pressure: holding {mb:.0f} MB of "
+                    f"ballast on {device}")
+
+    def maybe_oom_dispatch(self, step: int, device: torch.device) -> None:
+        """The CPU cannot run out of device memory: raise ONE simulated
+        RESOURCE_EXHAUSTED at the first dispatch there, so the ladder's
+        recovery at dispatch runs end to end. On the card the ballast
+        does it for real."""
+        if self.kind != "hbm_pressure" or self.fired \
+                or device.type == "cuda":
+            return
+        self.fired = 1
+        raise RuntimeError(
+            f"RESOURCE_EXHAUSTED: simulated OOM at dispatch of step "
+            f"{step} (--inject hbm_pressure:{self.n} on a device that "
+            f"cannot exhaust device memory)")
+
+    def release_ballast(self) -> None:
+        """The out-of-memory error the ballast was for has fired: let go
+        of the ballast (the fault fires once)."""
+        if self.kind == "hbm_pressure":
+            self.fired = 1
+            self.ballast = None
+
+    def maybe_poison(self, step: int, batch: dict) -> dict:
+        if self.kind == "grad_nan":
+            # every batch carries the [rows] grad_scale while armed; only
+            # the poison window carries NaN
+            batch = dict(batch)
+            poison = self.fired < self.n and step >= self.at
+            if poison:
+                self.fired += 1
+            batch["grad_scale"] = np.full(
+                batch["input_ids"].shape[0],
+                np.nan if poison else 1.0, np.float32)
+            if poison:
+                log.warning(f"--inject grad_nan: NaN grads for step "
+                            f"{step} ({self.fired}/{self.n})")
+            return batch
+        if self.kind == "loss_spike" and self.fired < self.n \
+                and step >= self.at:
+            self.fired += 1
+            batch = dict(batch)
+            batch["labels"] = np.roll(batch["labels"], 7, axis=-1)
+            log.warning(f"--inject loss_spike: scrambled labels for "
+                        f"step {step} ({self.fired}/{self.n})")
+        return batch
+
+    def maybe_corrupt_ckpt(self, ckpt_path: str) -> bool:
+        """ckpt_corrupt: flip one payload byte of the newest lineage
+        checkpoint (once). True when it fired."""
+        if self.kind != "ckpt_corrupt" or self.fired:
+            return False
+        from mobilefinetuner_tpu_torch.io.checkpoints import lineage_entries
+        entries = lineage_entries(ckpt_path)
+        if not entries:
+            return False
+        victim = entries[0]["files"][0]
+        try:
+            with open(victim, "r+b") as f:
+                f.seek(-1, os.SEEK_END)
+                b = f.read(1)
+                f.seek(-1, os.SEEK_END)
+                f.write(bytes([b[0] ^ 0xFF]))
+        except OSError as e:
+            log.warning(f"--inject ckpt_corrupt failed: {e}")
+            return False
+        self.fired = 1
+        log.warning(f"--inject ckpt_corrupt: flipped a byte in {victim}")
+        return True
 
 
 class EMA:
@@ -486,132 +796,463 @@ _METRIC_KEYS = ("loss", "grad_norm", "lr", "param_norm", "update_ratio",
                 "nonfinite_count", "skipped")
 
 
+def _spike_detector(args) -> SpikeDetector:
+    return SpikeDetector(SpikeConfig(
+        zscore=getattr(args, "spike_z", 8.0),
+        beta=getattr(args, "spike_beta", 0.98),
+        warmup=getattr(args, "spike_warmup", 20)))
+
+
 def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                  train_ds: WikiText2Dataset,
                  valid_ds: Optional[WikiText2Dataset], total_steps: int,
                  tc: TrainConfig, mask=None, start_step: int = 0,
                  opt_state=None,
                  save_hook: Optional[Callable] = None,
-                 dropout_seed: Optional[int] = None, device=None):
+                 dropout_seed: Optional[int] = None, device=None,
+                 load_hook: Optional[Callable] = None, ckpt_path: str = "",
+                 footprint: mg.Footprint,
+                 compute_dtype: torch.dtype):
     """The loop: steps from start_step to total_steps over
     micro_batches(skip_steps=start_step), an eval every --eval_interval
-    steps and at the end, a save every --save_every steps (save_hook(step,
-    trainable, opt_state, final=False)) and a final one.
+    steps and at the end, a save every --save_every steps and a final
+    one, all reported through the telemetry stream (--telemetry_out):
+    `run_start` first, `run_end` exactly once on every exit path. Returns
+    (trainable, opt_state, history), history {"steps": one dict per
+    logged step, "evals": [...]}.
+
+    save_hook(step, trainable, opt_state, final, ckpt) snapshots its trees
+    (io/async_ckpt.timed_snapshot) and routes the write through `ckpt`
+    (async_ckpt.submit): under --async_save the loop resumes after the
+    snapshot. The writer is drained before run_end.
 
     Each step's batch carries "dropout_seed" ([rows] int64, on the host):
     fold_in(fold_in(dropout_seed, step), row), so dropout masks depend
     only on the seed and the step, whatever resumed the run. Metrics stay
-    on the device and are read in one transfer per log interval (the
-    metrics CSV alone flushes every 50 steps). Returns (trainable,
-    opt_state, history), history one dict per logged step.
+    on the device and are read in one transfer per flush (the log
+    interval; the metrics CSV alone flushes every 50 steps), which also
+    emits one `step_stats` event and feeds the spike detector.
 
     The input pipeline (--prefetch, default 2): a producer thread runs
     micro_batches into a bounded queue, and the consumer places batch
     k+1 (and forms its dropout seeds) before step k is launched
-    (data/prefetch.Prefetcher, lookahead 1). Placement stays on this
-    thread, on the step's stream: a copy from pinned memory is queued
-    ahead of the step's kernels, never beside them. --prefetch 0 is the
-    synchronous path with the same batches, byte for byte; a resume keeps
-    skip_steps. The time the loop waits for its next batch is the CSV's
-    host_wait_ms."""
+    (data/prefetch.Prefetcher, lookahead 1), on the step's stream.
+    --prefetch 0 is the synchronous path with the same batches.
+
+    Memory admission (core/memory_guard.py): before the data stream
+    exists, the step's analytic estimate (`footprint`, at the stream's
+    micro-batch and sequence) is judged against the capacity; under
+    --on_oom_risk degrade a failed check, or a CUDA out-of-memory error
+    at a step's dispatch, walks remat -> accum_x2 (offload is ROADMAP.md
+    P9, so the ladder ends there with MemoryAdmissionError). remat flips
+    args.remat, which the CLIs' loss closures read at each call; accum_x2
+    doubles the step's micro-batch count while the stream keeps the
+    global batch. The step function is functional (the trees it was
+    given are intact after a failed dispatch), so unlike the JAX loop,
+    whose step donates its buffers, a retry needs no host copy of the
+    state: the failed step's tensors, held by the exception's frames, are
+    dropped, the cached blocks returned, and the same batch runs again.
+
+    Rollback (load_hook = the save hook's inverse, ckpt_path = the final
+    artifact whose lineage lists the checkpoints, --rollback_budget > 0):
+    on divergence, a streak of skipped / non-finite steps, or a
+    non-finite loss with the skip guard off, the newest verified lineage
+    checkpoint at or below the trigger step is reloaded, the stream
+    rebuilt with skip_steps + k * --rollback_data_offset, and training
+    goes on with the same step function. The preemption drain
+    (--on_preempt drain) is checked at every step boundary."""
     device = resolve_device(device)
-    step_fn = make_train_step(loss_fn, tc, mask)
-    eval_step = make_eval_step(nll_fn)
-    if opt_state is None:
-        opt_state = init_optimizer(trainable, tc, mask)
-    metrics_csv = MetricsLogger(args.metrics_csv) if args.metrics_csv \
-        else None
-    eval_jsonl = JSONLWriter(args.eval_out) if getattr(args, "eval_out", "") \
-        else None
-    ema = EMA(args.ema_beta)
-    history = []
-    buffered = []  # [(step, epoch, tokens, device metrics)]
-    clock = {"t": time.perf_counter(), "wait_ms": 0.0}
-    flush_every = (min(args.log_interval, 1000) if args.log_interval
-                   else (50 if metrics_csv else 1000))
+    tel = Telemetry(getattr(args, "telemetry_out", ""))
+    tel.emit("run_start", **run_manifest(vars(args), device))
+    # --resume_from's verdicts (resolve_resume_from ran in the CLI, before
+    # this stream existed): after run_start, which stays the first event
+    for ev in getattr(args, "_ckpt_verify_events", None) or []:
+        tel.emit("ckpt_verify", **ev)
     t_start = time.time()
+    state = {"done": 0}
+    ckpt = guard = stream = metrics_csv = None
 
-    def flush_metrics(emit_log=True):
-        if not buffered:
-            return
-        vals = torch.stack([torch.stack([m[k].float() for k in _METRIC_KEYS])
-                            for _, _, _, m in buffered]).cpu().tolist()
-        dt_ms = (time.perf_counter() - clock["t"]) * 1000 / len(buffered)
-        wait_ms = clock["wait_ms"] / len(buffered)
-        for (s, ep, toks, _), row in zip(buffered, vals):
-            m = dict(zip(_METRIC_KEYS, row))
-            avg = ema.update(m["loss"])
-            history.append(dict(m, step=s + 1, epoch=ep, ema=avg,
-                                step_time_ms=dt_ms, host_wait_ms=wait_ms,
-                                tok_s=toks / (dt_ms / 1000)))
-            if metrics_csv:
-                metrics_csv.log(epoch=ep, step=s + 1, loss=m["loss"],
-                                avg_loss=avg, lr=m["lr"],
-                                grad_norm=m["grad_norm"],
-                                step_time_ms=dt_ms, host_wait_ms=wait_ms,
-                                tok_s=toks / (dt_ms / 1000))
-        s, _, toks, _ = buffered[-1]
-        m = history[-1]
-        if emit_log and args.log_interval:
-            log.info(f"step {s + 1}/{total_steps} loss={m['loss']:.4f} "
-                     f"ema={ema.value:.4f} "
-                     f"ppl={perplexity_from_loss(m['loss']):.2f} "
-                     f"grad_norm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
-                     f"{toks / (dt_ms / 1000):.0f} tok/s "
-                     f"host_wait={wait_ms:.1f}ms")
-        buffered.clear()
-        clock["t"] = time.perf_counter()
-        clock["wait_ms"] = 0.0
+    def end_run(exit_name: str, steps: int, **extra):
+        """Terminate the stream once on any exit path (emit and close are
+        no-ops on a closed stream, so nested handlers compose). The
+        writer is drained first: a snapshot already taken is a recovery
+        point worth finishing, and its checkpoint event must land before
+        run_end (its errors must not mask the exception in flight)."""
+        if ckpt is not None:
+            ckpt.close(raise_errors=False)
+        tel.emit("run_end", steps=steps,
+                 wall_s=round(time.time() - t_start, 3), exit=exit_name,
+                 goodput=None, **extra)
+        tel.close()
 
-    def run_eval(step, kind):
-        ev = evaluate(eval_step, trainable, frozen, valid_ds,
-                      args.eval_batches, device, prefetch=prefetch_depth)
-        if kind == "eval":
-            log.info(f"eval @ step {step}: loss={ev['loss']:.4f} "
-                     f"ppl={ev['ppl']:.2f} ({ev['tokens']} tokens)")
-        else:
-            log.info(f"final eval: loss={ev['loss']:.4f} "
-                     f"ppl={ev['ppl']:.2f}")
-        if eval_jsonl:
-            rec = {"type": kind, "step": step, "loss": ev["loss"],
-                   "ppl": ev["ppl"], "tokens": ev["tokens"]}
+    try:
+        if getattr(args, "on_preempt", "drain") == "drain":
+            guard = PreemptionGuard().install()
+            if not guard.installed:
+                guard = None
+        ckpt = AsyncCheckpointer(enabled=bool(getattr(args, "async_save", 1)),
+                                 event_sink=tel.emit)
+        spikes = _spike_detector(args)
+        if tel.resumed and tel.trailing_step_stats and start_step > 0:
+            # a resumed run: re-seed the detector from the stream's earlier
+            # losses so it does not re-enter warmup where resume bugs bite
+            spikes.seed([r.get("loss") for r in tel.trailing_step_stats],
+                        count_hint=max(r.get("step", 0)
+                                       for r in tel.trailing_step_stats))
+        eval_step = make_eval_step(nll_fn)
+        if opt_state is None:
+            opt_state = init_optimizer(trainable, tc, mask)
+        metrics_csv = MetricsLogger(args.metrics_csv) if args.metrics_csv \
+            else None
+        eval_jsonl = JSONLWriter(args.eval_out) \
+            if getattr(args, "eval_out", "") else None
+        ema = EMA(args.ema_beta)
+        history, evals = [], []
+        buffered = []  # [(step, epoch, tokens, device metrics)]
+        clock = {"t": time.perf_counter(), "wait_ms": 0.0}
+        flush_every = (min(args.log_interval, 1000) if args.log_interval
+                       else (50 if metrics_csv else 1000))
+        prefetch_depth = max(getattr(args, "prefetch", 2), 0)
+        injector = FaultInjector(getattr(args, "inject", ""))
+        peak = {"pending": False}   # the first flush reports the step peak
+        tc_step = tc
+        step_fn = make_train_step(loss_fn, tc_step, mask)
+
+        def place_step(item):
+            step, epoch, batch = item
+            if injector.active:
+                batch = injector.maybe_poison(step, batch)
+            batch = place_batch(batch, device)
+            if dropout_seed is not None:
+                rows = batch["input_ids"].shape[0]
+                step_seed = fold_in(dropout_seed, step)
+                batch["dropout_seed"] = torch.tensor(
+                    [fold_in(step_seed, r) for r in range(rows)])
+            return step, epoch, batch
+
+        def make_stream(from_step: int, data_skip: int) -> Prefetcher:
+            """The numbered, placed step-batch stream from `from_step`;
+            `data_skip` is the fast-forward in steps (== from_step on a
+            resume; a rollback adds k * --rollback_data_offset)."""
+            def numbered():
+                gen = micro_batches(train_ds, tc.grad_accum_steps,
+                                    skip_steps=data_skip)
+                for step in itertools.count(from_step):
+                    epoch, batch = next(gen)
+                    yield step, epoch, batch
+            return Prefetcher(
+                itertools.islice(numbered(), max(total_steps - from_step, 0)),
+                depth=prefetch_depth, place_fn=place_step, lookahead=1,
+                rss_limit_mb=getattr(args, "prefetch_rss_mb", 0))
+
+        # ---- memory admission and the degradation ladder ----------------
+        oom_mode = getattr(args, "on_oom_risk", "warn")
+        adm_cap = getattr(args, "hbm_cap_mb", 0)
+        adm_headroom = getattr(args, "hbm_headroom", 0.1)
+        rows = train_ds.config.batch_size * tc.grad_accum_steps
+        rungs_applied: list = []
+
+        def check_admission() -> mg.MemCheck:
+            """The current rung's estimate judged and emitted (mem_check)."""
+            est = mg.train_step_estimate_mb(
+                footprint, trainable=trainable, frozen=frozen,
+                opt_state=opt_state,
+                micro_batch=rows // tc_step.grad_accum_steps,
+                seq_len=train_ds.config.seq_len,
+                remat=bool(getattr(args, "remat", False)),
+                compute_dtype=compute_dtype)
+            resident = (mg.tree_bytes(trainable) + mg.tree_bytes(frozen)
+                        + mg.tree_bytes(opt_state)) / 2 ** 20
+            c = mg.preflight(est, resident_mb=resident, cap_mb=adm_cap,
+                             headroom=adm_headroom, device=device)
+            tel.emit("mem_check", **c.event())
+            log.info(f"memory admission: {c.describe()}")
+            return c
+
+        def over_check() -> mg.MemCheck:
+            """A forced-over verdict for a real out-of-memory error at a
+            dispatch (the device already said no)."""
+            cap, src = mg.device_capacity_mb(adm_cap, device)
+            return mg.MemCheck(est_mb=None, cap_mb=cap, verdict="over",
+                               phase="dispatch", headroom=adm_headroom,
+                               live_mb=cuda_stats.live_hbm_mb(device),
+                               cap_source=src)
+
+        def apply_rung(est_mb, at_step=None) -> bool:
+            """Walk one rung of memory_guard.LADDER; False when no rung
+            that applies is left (offload is not ported)."""
+            nonlocal tc_step
+            for rung in mg.LADDER:
+                if rung in rungs_applied:
+                    continue
+                if rung == "remat":
+                    if getattr(args, "remat", True):
+                        continue  # already on: nothing left to give
+                    args.remat = True
+                    frm, to = "remat=off", "remat=on"
+                elif rung == "accum_x2":
+                    new_accum = tc_step.grad_accum_steps * 2
+                    if new_accum > rows or rows % new_accum:
+                        continue  # the step batch cannot split further
+                    tc_step = dataclasses.replace(
+                        tc_step, grad_accum_steps=new_accum)
+                    frm = f"accum={new_accum // 2}"
+                    to = f"accum={new_accum}"
+                else:
+                    continue  # offload: ROADMAP.md port item P9
+                rungs_applied.append(rung)
+                tel.emit("degrade", step=at_step,
+                         **{"rung": rung, "from": frm, "to": to,
+                            "est_mb": round(est_mb, 2) if est_mb else None})
+                log.warning(
+                    f"DEGRADE rung {len(rungs_applied)} ({rung}: {frm} -> "
+                    f"{to})" + (f": estimate {est_mb:.0f} MB over capacity"
+                                if est_mb else ""))
+                return True
+            return False
+
+        if start_step < total_steps:
+            check = check_admission()
+            while check.verdict == "over" and oom_mode != "warn":
+                if oom_mode == "fail":
+                    raise mg.MemoryAdmissionError(
+                        f"memory admission failed ({check.describe()}); "
+                        f"rerun with a smaller config, --on_oom_risk "
+                        f"degrade, or a larger device", check=check)
+                if not apply_rung(check.est_mb):
+                    raise mg.MemoryAdmissionError(
+                        f"memory admission failed after exhausting the "
+                        f"degradation ladder {tuple(rungs_applied)} "
+                        f"({check.describe()})", check=check,
+                        ladder=rungs_applied)
+                step_fn = make_train_step(loss_fn, tc_step, mask)
+                check = check_admission()
+            if check.verdict == "over":
+                log.warning(f"memory admission: {check.describe()} "
+                            f"(--on_oom_risk warn: proceeding)")
+            elif rungs_applied:
+                log.warning(f"admitted after the degradation ladder "
+                            f"{tuple(rungs_applied)}: {check.describe()}")
+
+        def recover_dispatch_oom(err: BaseException, step: int) -> None:
+            """An out-of-memory error escaped a step's dispatch: under
+            --on_oom_risk degrade walk the rest of the ladder (one
+            mem_check per rung) and let the loop retry the same batch;
+            otherwise re-raise."""
+            nonlocal step_fn
+            if oom_mode != "degrade":
+                raise err
+            tel.emit("mem_check", **over_check().event())
+            log.warning(f"out of memory at dispatch of step {step}: "
+                        f"walking the degradation ladder")
+            flush_metrics(emit_log=False)
+            # the failed step's tensors live on in the traceback's frames
+            traceback.clear_frames(err.__traceback__)
+            injector.release_ballast()
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            while True:
+                if not apply_rung(None, at_step=step):
+                    raise mg.MemoryAdmissionError(
+                        f"out of memory at dispatch of step {step} and the "
+                        f"degradation ladder {tuple(rungs_applied)} is "
+                        f"exhausted", ladder=rungs_applied) from err
+                step_fn = make_train_step(loss_fn, tc_step, mask)
+                if check_admission().verdict != "over":
+                    break
+            cuda_stats.reset_peak(device)
+            peak["pending"] = device.type == "cuda"
+            clock["t"] = time.perf_counter()  # recovery is not step time
+
+        stream = make_stream(start_step, start_step)
+        # in-process rollback, armed only with the inverse load hook and a
+        # lineage to roll back to
+        rb = None
+        if (load_hook is not None and ckpt_path
+                and getattr(args, "rollback_budget", 0) > 0):
+            rb = {"budget": int(args.rollback_budget), "count": 0,
+                  "streak": 0, "due": None, "suppressed": False,
+                  "skip_streak": max(
+                      getattr(args, "rollback_skip_streak", 3), 1),
+                  "offset": max(getattr(args, "rollback_data_offset", 1), 0)}
+
+        def flush_metrics(emit_log=True):
+            """One transfer for everything buffered since the last flush,
+            then the CSV rows, the spike detector and the rollback
+            triggers per step, and one step_stats event."""
+            if not buffered:
+                return
+            vals = torch.stack([torch.stack([m[k].float()
+                                             for k in _METRIC_KEYS])
+                                for _, _, _, m in buffered]).cpu().tolist()
+            dt_ms = (time.perf_counter() - clock["t"]) * 1000 / len(buffered)
+            wait_ms = clock["wait_ms"] / len(buffered)
+            extra = {}
+            if peak["pending"]:
+                extra["peak_mb"] = cuda_stats.peak_hbm_mb(device)
+                peak["pending"] = False
+            for (s, ep, toks, _), row in zip(buffered, vals):
+                m = dict(zip(_METRIC_KEYS, row))
+                loss = m["loss"]
+                avg = ema.update(loss)
+                anom = spikes.update(loss)
+                if anom is not None:
+                    tel.emit("anomaly", step=s + 1, loss=loss, ema=avg,
+                             **anom)
+                    log.warning(f"anomaly @ step {s + 1}: {anom['kind']} "
+                                f"loss={loss:.4f}" + (
+                                    f" z={anom['zscore']}"
+                                    if anom["zscore"] else ""))
+                if rb is not None:
+                    # a single skipped step or a one-off spike never
+                    # triggers; `suppressed` (a failed rollback) holds the
+                    # triggers until a clean step ends the episode
+                    bad = m["skipped"] > 0 or not math.isfinite(loss)
+                    rb["streak"] = rb["streak"] + 1 if bad else 0
+                    if not bad:
+                        rb["suppressed"] = False
+                    if rb["due"] is not None or rb["suppressed"]:
+                        pass
+                    elif anom is not None and anom["kind"] == "divergence":
+                        rb["due"] = ("divergence", s + 1)
+                    elif rb["streak"] >= rb["skip_streak"]:
+                        rb["due"] = ("skip_streak", s + 1)
+                    elif not math.isfinite(loss) and not tc.skip_nonfinite:
+                        rb["due"] = ("nonfinite_loss", s + 1)
+                history.append(dict(m, step=s + 1, epoch=ep, ema=avg,
+                                    step_time_ms=dt_ms, host_wait_ms=wait_ms,
+                                    tok_s=toks / (dt_ms / 1000)))
+                if metrics_csv:
+                    metrics_csv.log(epoch=ep, step=s + 1, loss=loss,
+                                    avg_loss=avg, lr=m["lr"],
+                                    grad_norm=m["grad_norm"],
+                                    step_time_ms=dt_ms, host_wait_ms=wait_ms,
+                                    tok_s=toks / (dt_ms / 1000))
+            s, ep, toks, _ = buffered[-1]
+            m = history[-1]
+            tel.emit("step_stats", step=s + 1, loss=m["loss"], ema=ema.value,
+                     lr=m["lr"], grad_norm=m["grad_norm"],
+                     step_time_ms=dt_ms, host_wait_ms=wait_ms, slept_ms=0.0,
+                     tok_s=toks / (dt_ms / 1000), mfu=None,
+                     param_norm=m["param_norm"],
+                     update_ratio=m["update_ratio"],
+                     nonfinite_count=int(m["nonfinite_count"]),
+                     # a COUNT over the flush interval: no skip falls
+                     # between flushes
+                     skipped=sum(int(r[-1]) for r in vals),
+                     hbm_mb=cuda_stats.live_hbm_mb(device),
+                     queue_depth=stream.queue_depth(), host_step_ms=None,
+                     **extra)
+            if emit_log and args.log_interval:
+                log.info(f"step {s + 1}/{total_steps} loss={m['loss']:.4f} "
+                         f"ema={ema.value:.4f} "
+                         f"ppl={perplexity_from_loss(m['loss']):.2f} "
+                         f"grad_norm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
+                         f"{toks / (dt_ms / 1000):.0f} tok/s "
+                         f"host_wait={wait_ms:.1f}ms")
+            buffered.clear()
+            clock["t"] = time.perf_counter()
+            clock["wait_ms"] = 0.0
+
+        def run_eval(step, kind):
+            ev = evaluate(eval_step, trainable, frozen, valid_ds,
+                          args.eval_batches, device, prefetch=prefetch_depth)
             if kind == "eval":
-                rec["time"] = time.time() - t_start
-            eval_jsonl.write(rec)
-        return ev
+                log.info(f"eval @ step {step}: loss={ev['loss']:.4f} "
+                         f"ppl={ev['ppl']:.2f} ({ev['tokens']} tokens)")
+            else:
+                log.info(f"final eval: loss={ev['loss']:.4f} "
+                         f"ppl={ev['ppl']:.2f}")
+            if eval_jsonl:
+                rec = {"type": kind, "step": step, "loss": ev["loss"],
+                       "ppl": ev["ppl"], "tokens": ev["tokens"]}
+                if kind == "eval":
+                    rec["time"] = time.time() - t_start
+                eval_jsonl.write(rec)
+            tel.emit("eval", step=step, loss=ev["loss"], ppl=ev["ppl"],
+                     tokens=ev["tokens"])
+            return ev
 
-    prefetch_depth = max(getattr(args, "prefetch", 2), 0)
+        def attempt_rollback(reason: str, at_step: int):
+            """Reload the newest verified lineage checkpoint at or below
+            the trigger step, rebuild the stream past the poisoned window
+            and return the resume step; None when no checkpoint qualifies
+            (every verdict lands in the stream)."""
+            nonlocal trainable, opt_state, stream, ema, spikes
+            try:  # the lineage must be settled: finish in-flight writes
+                ckpt.drain()
+            except Exception as e:
+                log.warning(f"rollback: checkpoint drain failed ({e}); "
+                            f"resolving against what is on disk")
+            from mobilefinetuner_tpu_torch.io.checkpoints import \
+                resolve_checkpoint
+            # max_step = at_step - 1: a checkpoint at the trigger boundary
+            # may already hold the poisoned update
+            resolved, to_step, events = resolve_checkpoint(
+                None, verify=bool(getattr(args, "verify_ckpt", 1)),
+                lineage_base=ckpt_path, max_step=at_step - 1)
+            for ev in events:
+                tel.emit("ckpt_verify", **ev)
+            if resolved is None or to_step is None:
+                tel.emit("rollback", step=at_step, reason=reason, ok=False,
+                         to_step=None, steps_lost=None, ckpt=None,
+                         data_offset=None, budget_left=rb["budget"])
+                log.warning(f"rollback wanted ({reason} @ step {at_step}) "
+                            f"but no verified checkpoint exists: "
+                            f"continuing without")
+                rb["streak"] = 0
+                rb["suppressed"] = True
+                return None
+            trainable, opt_state = load_hook(resolved)
+            rb["count"] += 1
+            rb["budget"] -= 1
+            rb["streak"] = 0
+            data_offset = rb["count"] * rb["offset"]
+            stream.close()
+            stream = make_stream(to_step, to_step + data_offset)
+            # fresh statistics for the restored trajectory; count_hint keeps
+            # the detector armed
+            ema = EMA(args.ema_beta)
+            spikes = _spike_detector(args)
+            spikes.seed([], count_hint=to_step)
+            clock["t"] = time.perf_counter()  # recovery is not step time
+            tel.emit("rollback", step=at_step, reason=reason, ok=True,
+                     to_step=to_step, steps_lost=at_step - to_step,
+                     ckpt=resolved, data_offset=data_offset,
+                     budget_left=rb["budget"])
+            log.warning(f"ROLLBACK ({reason}): step {at_step} -> {to_step} "
+                        f"from {resolved} ({at_step - to_step} step(s) "
+                        f"lost, data offset +{data_offset}, budget left "
+                        f"{rb['budget']})")
+            return to_step
 
-    def place_step(item):
-        step, epoch, batch = item
-        batch = place_batch(batch, device)
-        if dropout_seed is not None:
-            rows = batch["input_ids"].shape[0]
-            step_seed = fold_in(dropout_seed, step)
-            batch["dropout_seed"] = torch.tensor(
-                [fold_in(step_seed, r) for r in range(rows)])
-        return step, epoch, batch
-
-    def numbered():
-        gen = micro_batches(train_ds, tc.grad_accum_steps,
-                            skip_steps=start_step)
-        for step in itertools.count(start_step):
-            epoch, batch = next(gen)
-            yield step, epoch, batch
-
-    stream = Prefetcher(
-        itertools.islice(numbered(), max(total_steps - start_step, 0)),
-        depth=prefetch_depth, place_fn=place_step, lookahead=1,
-        rss_limit_mb=getattr(args, "prefetch_rss_mb", 0))
-    evals = []
-    with stream:
-        for step in range(start_step, total_steps):
+        injector.arm_ballast(device)
+        cuda_stats.reset_peak(device)
+        peak["pending"] = device.type == "cuda"
+        step = start_step
+        while step < total_steps:
             t_wait = time.perf_counter()
             step_i, epoch, batch = next(stream)
             clock["wait_ms"] += (time.perf_counter() - t_wait) * 1000
             assert step_i == step       # strict order
-            trainable, opt_state, metrics = step_fn(trainable, frozen,
-                                                    opt_state, batch, step)
+            if injector.kind == "slow_step":
+                injector.maybe_slow(step)
+            while True:
+                failure = None
+                try:
+                    if injector.kind == "hbm_pressure":
+                        injector.maybe_oom_dispatch(step, device)
+                    trainable, opt_state, metrics = step_fn(
+                        trainable, frozen, opt_state, batch, step)
+                    break
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as e:
+                    if not mg.is_resource_exhausted(e):
+                        raise
+                    failure = e
+                recover_dispatch_oom(failure, step)
             toks = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
             buffered.append((step, epoch, toks, metrics))
             log_boundary = bool(args.log_interval) \
@@ -626,13 +1267,107 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
             if args.save_every and save_hook and (step + 1) % \
                     args.save_every == 0 and (step + 1) < total_steps:
                 flush_metrics(emit_log=False)
-                save_hook(step + 1, trainable, opt_state, final=False)
+                save_hook(step + 1, trainable, opt_state, final=False,
+                          ckpt=ckpt)
                 clock["t"] = time.perf_counter()
-    flush_metrics()
-    if valid_ds is not None and args.eval_interval:
-        evals.append(run_eval(total_steps, "final_eval"))
-    if save_hook:
-        save_hook(total_steps, trainable, opt_state, final=True)
-    if metrics_csv:
-        metrics_csv.close()
-    return trainable, opt_state, {"steps": history, "evals": evals}
+                if injector.kind == "ckpt_corrupt" and ckpt_path:
+                    # flip a byte of the newest lineage entry once its
+                    # write has landed: a later load must fall back
+                    try:
+                        ckpt.drain()
+                    except Exception:
+                        pass
+                    injector.maybe_corrupt_ckpt(ckpt_path)
+            state["done"] = step + 1 - start_step
+            if guard is not None and guard.triggered:
+                # the drain: the step in flight is done; flush, ONE final
+                # atomic checkpoint (final=True waits for the write), then
+                # the resumable exit
+                log.warning(f"{guard.signal_name} received: draining at "
+                            f"step {step + 1} (final save, then exit "
+                            f"{EXIT_PREEMPTED})")
+                flush_metrics(emit_log=False)
+                tel.emit("preempt", step=step + 1,
+                         signal=guard.signal_name or "SIGTERM")
+                if save_hook is not None:
+                    save_hook(step + 1, trainable, opt_state, final=True,
+                              ckpt=ckpt)
+                end_run("preempted", state["done"], reason="preempted")
+                raise SystemExit(EXIT_PREEMPTED)
+            if rb is not None and rb["due"] is not None:
+                # a flush in this iteration raised a trigger: act at the
+                # step boundary (the metrics buffer is empty)
+                reason, at_step = rb["due"]
+                rb["due"] = None
+                if rb["budget"] <= 0:
+                    tel.emit("rollback", step=at_step, reason=reason,
+                             ok=False, to_step=None, steps_lost=None,
+                             ckpt=None, data_offset=None, budget_left=0)
+                    log.warning(f"rollback budget exhausted; training on "
+                                f"through {reason} @ step {at_step}")
+                    rb = None
+                else:
+                    resumed = attempt_rollback(reason, at_step)
+                    if resumed is not None:
+                        step = resumed
+                        continue
+            step += 1
+        stream.close()
+        flush_metrics()
+        if valid_ds is not None and args.eval_interval:
+            evals.append(run_eval(total_steps, "final_eval"))
+        if save_hook:
+            save_hook(total_steps, trainable, opt_state, final=True,
+                      ckpt=ckpt)
+        end_run("ok", total_steps - start_step)
+        return trainable, opt_state, {"steps": history, "evals": evals}
+    except BaseException as e:
+        end_run(type(e).__name__, state["done"])
+        raise
+    finally:
+        # no leaked producer or writer thread, the process's previous
+        # signal handlers back (several runs may share a process)
+        if stream is not None:
+            stream.close()
+        if ckpt is not None:
+            ckpt.close(raise_errors=False)
+        if metrics_csv is not None:
+            metrics_csv.close()
+        if guard is not None:
+            guard.uninstall()
+
+
+# --------------------------- the eval CLIs' preflight ------------------------
+
+def eval_telemetry(args, device) -> Telemetry:
+    """An eval CLI's stream, opened with its run_start."""
+    tel = Telemetry(getattr(args, "telemetry_out", ""))
+    tel.emit("run_start", **run_manifest(vars(args), device))
+    return tel
+
+
+def preflight_eval(est_mb: float, args, tel: Telemetry, device,
+                   resident_mb: float = 0.0,
+                   what: str = "eval step") -> mg.MemCheck:
+    """An eval CLI's admission check on the analytic estimate of its
+    largest batch, the train path's mem_check without the ladder (eval
+    has no rung to walk: --on_oom_risk degrade acts as warn). Under
+    'fail' an over verdict ends the stream with run_end and raises
+    MemoryAdmissionError before the data loop starts."""
+    check = mg.preflight(est_mb, resident_mb=0.0,
+                         cap_mb=getattr(args, "hbm_cap_mb", 0),
+                         headroom=getattr(args, "hbm_headroom", 0.1),
+                         device=device)
+    tel.emit("mem_check", **check.event())
+    if check.verdict != "over":
+        return check
+    if getattr(args, "on_oom_risk", "warn") == "fail":
+        tel.emit("run_end", steps=0, wall_s=0.0,
+                 exit="MemoryAdmissionError", goodput=None)
+        tel.close()
+        raise mg.MemoryAdmissionError(
+            f"{what} failed memory admission ({check.describe()})",
+            check=check)
+    log.warning(f"memory admission ({what}): {check.describe()} "
+                f"(proceeding)")
+    return check

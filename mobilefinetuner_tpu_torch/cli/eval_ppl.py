@@ -23,11 +23,14 @@ or row 9 with a head adapter) in every chunk. Batches come through
 data/prefetch.Prefetcher (`--prefetch`, 0 = synchronous), placed on the
 card from pinned memory.
 
-The JAX CLI's eval preflight (`preflight_eval_compile`, an ahead-of-time
-compile checked against device memory) has no counterpart here: eager
-PyTorch compiles nothing ahead. The telemetry stream and run registry
-(ROADMAP.md port item P6) and the memory-admission knobs (P5) raise
-NotImplementedError when set (cli/common.NOT_PORTED).
+Before the data loop the full [batch_size, seq_len] batch is admitted
+against device memory (`common.preflight_eval`, on the analytic estimate
+of core/memory_guard.py where the JAX CLI judges its ahead-of-time
+compile): `--on_oom_risk fail` raises MemoryAdmissionError there,
+`degrade` and `warn` proceed with a warning (eval has no ladder).
+`--telemetry_out` writes run_start, mem_check, one `eval` per progress
+line and at the end, and run_end. The run registry (ROADMAP.md port item
+P6) raises NotImplementedError when set (cli/common.NOT_PORTED).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from mobilefinetuner_tpu_torch.cli import common
 from mobilefinetuner_tpu_torch.cli.family import apply_adapter, load_family
+from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.logging import JSONLWriter, get_logger
 from mobilefinetuner_tpu_torch.data.prefetch import Prefetcher
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
@@ -82,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "+ placement lookahead, data/prefetch.py); 0 = "
                         "synchronous")
     p.add_argument("--telemetry_out", default="",
-                   help="not ported yet (ROADMAP.md P6)")
+                   help="run-telemetry JSONL stream (core/telemetry.py)")
     p.add_argument("--run_registry", default="",
                    help="not ported yet (ROADMAP.md P6)")
     common.add_mem_flags(p)
@@ -131,6 +135,19 @@ def main(argv=None) -> int:
     ds = WikiText2Dataset(args.data_root, args.split, wt2, encode, eos_id,
                           pad_id=pad_id)
     jsonl = JSONLWriter(args.out) if args.out else None
+    tel = common.eval_telemetry(args, device)
+    if family == "gemma":
+        fp = mg.gemma3_footprint(config, compute_dtype, args.seq_len,
+                                 args.loss_chunks, head_trains=False)
+    else:
+        fp = mg.gpt2_footprint(config, compute_dtype, args.seq_len)
+    weights = (params, lora)
+    common.preflight_eval(
+        mg.eval_estimate_mb(fp, params=weights, rows=args.batch_size,
+                            seq_len=args.seq_len,
+                            compute_dtype=compute_dtype),
+        args, tel, device, resident_mb=mg.tree_bytes(weights) / 2 ** 20,
+        what=f"eval_ppl batch [{args.batch_size}, {args.seq_len}]")
 
     # the sums stay on the device, read at log boundaries and once after
     total, count, n_done = None, None, 0
@@ -157,6 +174,8 @@ def main(argv=None) -> int:
                     jsonl.write({"type": "progress", "batch": n_done,
                                  "nll": mean,
                                  "ppl": perplexity_from_loss(mean)})
+                tel.emit("eval", step=n_done, loss=mean,
+                         ppl=perplexity_from_loss(mean), tokens=int(k))
     if n_done:
         total, count = torch.stack([total, count.float()]).cpu().tolist()
     total, count = (float(total), int(count)) if n_done else (0.0, 0)
@@ -170,6 +189,11 @@ def main(argv=None) -> int:
     log.info(f"{args.split} ppl={ppl:.3f} nll={mean:.4f} ({count} tokens)")
     if jsonl:
         jsonl.write(record)
+    tel.emit("eval", step=n_done, loss=mean, ppl=ppl, tokens=count)
+    # goodput is None: the eval CLIs have no metered phase loop
+    tel.emit("run_end", steps=n_done, wall_s=round(time.time() - t0, 3),
+             exit="ok", goodput=None)
+    tel.close()
     print(json.dumps(record))
     return 0
 

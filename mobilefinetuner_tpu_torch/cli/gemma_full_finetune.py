@@ -11,8 +11,12 @@ The parameters themselves are the trainable tree (make_train_step with
 no mask and no frozen tree). The embedding table is tied to the head, so
 its gradient sums the embedding gather's and the head's: autograd adds
 the two. On the card the chunked loss runs the fused CE forward, dh and
-dW kernels in every chunk. `--opt_offload*`, the mesh and the memory
-ladder raise NotImplementedError (cli/common.py).
+dW kernels in every chunk. Saves are snapshot-then-write
+(io/async_ckpt), recorded in `<output_path>.lineage.json` for
+`--resume_from`'s fallback and `--rollback_budget`; the memory ladder
+has the remat and accum_x2 rungs (offload targets a frozen base, and
+here every parameter trains). `--opt_offload*` and the mesh raise
+NotImplementedError (cli/common.py).
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import sys
 
 from mobilefinetuner_tpu_torch import convert
 from mobilefinetuner_tpu_torch.cli import common
+from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.logging import get_logger
+from mobilefinetuner_tpu_torch.io import async_ckpt
 from mobilefinetuner_tpu_torch.io.checkpoints import (gemma3_params_from_hf,
                                                       load_gemma3,
                                                       save_gemma3)
@@ -72,7 +78,7 @@ def main(argv=None) -> int:
         log.warning("--no_model_dropout is a no-op for Gemma-3 "
                     "(the config has no dropout fields)")
     if args.resume_from:
-        common.verify_resume(args.resume_from, bool(args.verify_ckpt))
+        common.resolve_resume_from(args)
         params_np = gemma3_params_from_hf(
             common.load_full_resume(args.resume_from), config)
         log.info(f"resumed full model from {args.resume_from}")
@@ -102,17 +108,33 @@ def main(argv=None) -> int:
             hidden, params_t["embed"], mb["labels"],
             num_chunks=args.loss_chunks)
 
-    def save_hook(step, params_t, opt_st, final):
+    def save_hook(step, params_t, opt_st, final, ckpt=None):
         path = args.output_path
         if not final:
             root, ext = os.path.splitext(path)
             path = f"{root}_step{step}{ext}"
         if os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
-        save_gemma3(path, params_t)
-        adam_mod.save_state(path + ".opt", opt_st, tc.adam(),
-                            extra_metadata={"loop_step": str(step)})
-        log.info(f"saved full model -> {path}")
+        (params_h, opt_h), snap_ms = async_ckpt.timed_snapshot(
+            (params_t, opt_st))
+
+        def write():
+            save_gemma3(path, params_h)
+            adam_mod.save_state(path + ".opt", opt_h, tc.adam(),
+                                extra_metadata={"loop_step": str(step)})
+            common.record_ckpt_files(args, args.output_path, step,
+                                     [path, path + ".opt"])
+            log.info(f"saved full model -> {path}")
+            return [path, path + ".opt"]
+
+        async_ckpt.submit(ckpt, step, write, final=final,
+                          snapshot_ms=snap_ms)
+
+    def load_trainable(path):
+        """The rollback's inverse of save_hook."""
+        return convert.gemma3_params_from_numpy(
+            gemma3_params_from_hf(common.load_full_resume(path), config),
+            device=device)
 
     common.run_training(
         args, trainable=params, frozen=None,
@@ -120,7 +142,12 @@ def main(argv=None) -> int:
         nll_fn=lambda t, f, mb: nll(t, f, mb, False),
         train_ds=train_ds, valid_ds=valid_ds, total_steps=total_steps,
         tc=tc, mask=None, start_step=start_step, opt_state=opt_state,
-        save_hook=save_hook, device=device)
+        save_hook=save_hook, device=device,
+        load_hook=common.make_rollback_loader(tc, None, load_trainable),
+        ckpt_path=args.output_path,
+        footprint=mg.gemma3_footprint(config, compute_dtype, args.seq_len,
+                                      args.loss_chunks, head_trains=True),
+        compute_dtype=compute_dtype)
     return 0
 
 

@@ -17,11 +17,15 @@ the attention-dropout hash mask when the checkpoint's attn_pdrop is on
 writes `<root>_step<N><ext>` (every --save_every steps) or
 --output_path (the last step), and its `.opt` sidecar with `loop_step`.
 
+A save snapshots the params and the optimizer state to the host and
+writes them on the checkpointer's thread (`--async_save 1`; 0 writes
+inline, the same bytes), recording each file in
+`<output_path>.lineage.json` (`--keep_ckpts`); `--resume_from` falls back
+down that lineage past a corrupt file, and `--rollback_budget` rolls back
+to it in process. The memory ladder has the remat and accum_x2 rungs.
 Not here: the JAX CLI's in-loop MFU estimate
-(core/telemetry.transformer_flops) is telemetry, ROADMAP.md port item P6.
-`--async_save`, `--keep_ckpts` and the lineage fallback of
-`--resume_from` (P5), the mesh and the memory ladder raise
-NotImplementedError (cli/common.py); the write is synchronous.
+(core/telemetry.transformer_flops, ROADMAP.md port item P6); the mesh
+raises NotImplementedError (cli/common.py).
 """
 
 from __future__ import annotations
@@ -33,10 +37,12 @@ import sys
 
 from mobilefinetuner_tpu_torch import convert
 from mobilefinetuner_tpu_torch.cli import common
+from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.logging import get_logger
 from mobilefinetuner_tpu_torch.data.tokenizer_bpe import GPT2BPETokenizer
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
                                                       WT2Config)
+from mobilefinetuner_tpu_torch.io import async_ckpt
 from mobilefinetuner_tpu_torch.io.checkpoints import (gpt2_params_from_hf,
                                                       load_gpt2, save_gpt2)
 from mobilefinetuner_tpu_torch.models import gpt2
@@ -72,7 +78,7 @@ def main(argv=None) -> int:
         config = dataclasses.replace(config, embd_pdrop=0.0,
                                      resid_pdrop=0.0, attn_pdrop=0.0)
     if args.resume_from:
-        common.verify_resume(args.resume_from, bool(args.verify_ckpt))
+        common.resolve_resume_from(args)
         params_np = gpt2_params_from_hf(
             common.load_full_resume(args.resume_from), config)
         log.info(f"resumed full model from {args.resume_from}")
@@ -126,24 +132,48 @@ def main(argv=None) -> int:
                               attn_impl=attn_impl)
         return lm_cross_entropy_sum(logits, mb["labels"])
 
-    def save_hook(step, params_t, opt_st, final):
+    def save_hook(step, params_t, opt_st, final, ckpt=None):
         path = args.output_path
         if not final:
             root, ext = os.path.splitext(path)
             path = f"{root}_step{step}{ext}"
         if os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
-        save_gpt2(path, params_t)
-        adam_mod.save_state(path + ".opt", opt_st, tc.adam(),
-                            extra_metadata={"loop_step": str(step)})
-        log.info(f"saved full model -> {path}")
+        # the loop's only stall is the batched copy to the host; the key
+        # map and the writes of the model and its 2x-params .opt run on
+        # the checkpointer's thread
+        (params_h, opt_h), snap_ms = async_ckpt.timed_snapshot(
+            (params_t, opt_st))
+
+        def write():
+            save_gpt2(path, params_h)
+            adam_mod.save_state(path + ".opt", opt_h, tc.adam(),
+                                extra_metadata={"loop_step": str(step)})
+            common.record_ckpt_files(args, args.output_path, step,
+                                     [path, path + ".opt"])
+            log.info(f"saved full model -> {path}")
+            return [path, path + ".opt"]
+
+        async_ckpt.submit(ckpt, step, write, final=final,
+                          snapshot_ms=snap_ms)
+
+    def load_trainable(path):
+        """The rollback's inverse of save_hook: the HF-keyed model file
+        -> the stacked tree on the run's device."""
+        return convert.gpt2_params_from_numpy(
+            gpt2_params_from_hf(common.load_full_resume(path), config),
+            device=device)
 
     common.run_training(
         args, trainable=params, frozen=None, loss_fn=loss_fn,
         nll_fn=nll_fn, train_ds=train_ds, valid_ds=valid_ds,
         total_steps=total_steps, tc=tc, mask=None, start_step=start_step,
         opt_state=opt_state, save_hook=save_hook, dropout_seed=dropout_seed,
-        device=device)
+        device=device,
+        load_hook=common.make_rollback_loader(tc, None, load_trainable),
+        ckpt_path=args.output_path,
+        footprint=mg.gpt2_footprint(config, compute_dtype, args.seq_len),
+        compute_dtype=compute_dtype)
     return 0
 
 

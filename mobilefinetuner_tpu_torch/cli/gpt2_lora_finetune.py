@@ -10,8 +10,13 @@ metrics CSV, adapter and `.opt` files, plus `--device`).
 On the card (the default device) the step runs the flash-attention
 forward and backward kernels at every layer and the LoRA epilogue kernel
 at every adapter site. `--device cpu --dtype float32` runs the same loop
-on the host through the kernels' plain versions. Flags of features the
-port does not have yet raise NotImplementedError (cli/common.py).
+on the host through the kernels' plain versions. Saves go through
+io/async_ckpt (snapshot, then the write on a background thread under
+`--async_save 1`) and are recorded in `<lora_out>.lineage.json`, which
+`--resume_from` falls back down and `--rollback_budget` rolls back to;
+the memory ladder and the fault injection come from cli/common.py.
+Flags of features the port does not have yet raise NotImplementedError
+(cli/common.py).
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ import sys
 
 from mobilefinetuner_tpu_torch import convert
 from mobilefinetuner_tpu_torch.cli import common
+from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.logging import get_logger
 from mobilefinetuner_tpu_torch.data.tokenizer_bpe import GPT2BPETokenizer
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
                                                       WT2Config)
+from mobilefinetuner_tpu_torch.io import async_ckpt
 from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
 from mobilefinetuner_tpu_torch.lora import peft_io
 from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec, init_lora_gpt2,
@@ -94,7 +101,8 @@ def main(argv=None) -> int:
     params = convert.gpt2_params_from_numpy(params_np, device=device)
 
     if args.resume_from:
-        common.verify_resume(args.resume_from, bool(args.verify_ckpt))
+        # verified first; a corrupt file falls back down its lineage
+        common.resolve_resume_from(args)
         lora, spec = peft_io.load_adapter(args.resume_from, device=device)
         log.info(f"resumed adapter: r={spec.rank} alpha={spec.alpha} "
                  f"targets={spec.targets}")
@@ -157,27 +165,47 @@ def main(argv=None) -> int:
                               attn_impl=attn_impl, lora_impl=args.lora_impl)
         return lm_cross_entropy_sum(logits, mb["labels"])
 
-    def save_hook(step, lora_t, opt_st, final):
+    def save_hook(step, lora_t, opt_st, final, ckpt=None):
         path = args.lora_out
         if not final:  # _stepN suffix
             root, ext = os.path.splitext(path)
             path = f"{root}_step{step}{ext}"
         if os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
-        peft_io.save_adapter(path, lora_t, spec)
-        adam_mod.save_state(path + ".opt", opt_st, tc.adam(),
-                            extra_metadata={"loop_step": str(step)})
-        log.info(f"saved adapter -> {path}")
-        if final and args.peft_export_dir:
-            peft_io.export_peft(args.peft_export_dir, lora_t, spec, "gpt2",
-                                base_model_name=args.pretrained_dir)
-            log.info(f"PEFT export -> {args.peft_export_dir}")
+        # the blocking part: one batched copy of adapter + optimizer state
+        # to the host; the write runs on the checkpointer's thread
+        (lora_h, opt_h), snap_ms = async_ckpt.timed_snapshot(
+            (lora_t, opt_st))
+
+        def write():
+            peft_io.save_adapter(path, lora_h, spec)
+            adam_mod.save_state(path + ".opt", opt_h, tc.adam(),
+                                extra_metadata={"loop_step": str(step)})
+            common.record_ckpt_files(args, args.lora_out, step,
+                                     [path, path + ".opt"])
+            log.info(f"saved adapter -> {path}")
+            if final and args.peft_export_dir:
+                peft_io.export_peft(args.peft_export_dir, lora_h, spec,
+                                    "gpt2",
+                                    base_model_name=args.pretrained_dir)
+                log.info(f"PEFT export -> {args.peft_export_dir}")
+            return [path, path + ".opt"]
+
+        async_ckpt.submit(ckpt, step, write, final=final,
+                          snapshot_ms=snap_ms)
 
     common.run_training(
         args, trainable=lora, frozen=params, loss_fn=loss_fn, nll_fn=nll_fn,
         train_ds=train_ds, valid_ds=valid_ds, total_steps=total_steps,
         tc=tc, mask=mask, start_step=start_step, opt_state=opt_state,
-        save_hook=save_hook, dropout_seed=dropout_seed, device=device)
+        save_hook=save_hook, dropout_seed=dropout_seed, device=device,
+        # the save hook's inverse: arms --rollback_budget against the
+        # lineage at --lora_out
+        load_hook=common.make_rollback_loader(
+            tc, mask, lambda p: peft_io.load_adapter(p, device=device)[0]),
+        ckpt_path=args.lora_out,
+        footprint=mg.gpt2_footprint(config, compute_dtype, args.seq_len),
+        compute_dtype=compute_dtype)
     return 0
 
 

@@ -19,8 +19,10 @@ chunked loss as its `lora_head`: the head-adapter kernels (forward, dh
 with dxa, dbt) in every chunk in place of the base ones, with
 `--lora_dropout` on its branch input as at every layer site.
 `--device cpu --dtype float32` runs the same loop on the host through the
-kernels' plain versions. Flags of features the port does not have yet
-raise NotImplementedError (cli/common.py).
+kernels' plain versions. Saves are snapshot-then-write (io/async_ckpt),
+recorded in `<output_dir>/gemma_lora.safetensors.lineage.json` for
+`--resume_from`'s fallback and `--rollback_budget`. Flags of features
+the port does not have yet raise NotImplementedError (cli/common.py).
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ import sys
 
 from mobilefinetuner_tpu_torch import convert
 from mobilefinetuner_tpu_torch.cli import common
+from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.logging import get_logger
+from mobilefinetuner_tpu_torch.io import async_ckpt
 from mobilefinetuner_tpu_torch.io.checkpoints import load_gemma3
 from mobilefinetuner_tpu_torch.lora import peft_io
 from mobilefinetuner_tpu_torch.lora.lora import (GEMMA_PRESETS, LoRASpec,
@@ -105,7 +109,7 @@ def main(argv=None) -> int:
     params = convert.gemma3_params_from_numpy(params_np, device=device)
 
     if args.resume_from:
-        common.verify_resume(args.resume_from, bool(args.verify_ckpt))
+        common.resolve_resume_from(args)
         lora, spec = peft_io.load_adapter(args.resume_from, device=device)
         log.info(f"resumed adapter: r={spec.rank} targets={spec.targets}")
     else:
@@ -152,19 +156,31 @@ def main(argv=None) -> int:
             lora_dropout=args.lora_dropout if train else 0.0,
             dropout_seed=seed)
 
-    def save_hook(step, lora_t, opt_st, final):
+    final_path = os.path.join(args.output_dir, "gemma_lora.safetensors")
+
+    def save_hook(step, lora_t, opt_st, final, ckpt=None):
         os.makedirs(args.output_dir, exist_ok=True)
         name = ("gemma_lora.safetensors" if final
                 else f"gemma_lora_step{step}.safetensors")
         path = os.path.join(args.output_dir, name)
-        peft_io.save_adapter(path, lora_t, spec)
-        adam_mod.save_state(path + ".opt", opt_st, tc.adam(),
-                            extra_metadata={"loop_step": str(step)})
-        log.info(f"saved adapter -> {path}")
-        if final and args.peft_export_dir:
-            peft_io.export_peft(args.peft_export_dir, lora_t, spec, "gemma",
-                                base_model_name=args.model_dir)
-            log.info(f"PEFT export -> {args.peft_export_dir}")
+        (lora_h, opt_h), snap_ms = async_ckpt.timed_snapshot(
+            (lora_t, opt_st))
+
+        def write():
+            peft_io.save_adapter(path, lora_h, spec)
+            adam_mod.save_state(path + ".opt", opt_h, tc.adam(),
+                                extra_metadata={"loop_step": str(step)})
+            common.record_ckpt_files(args, final_path, step,
+                                     [path, path + ".opt"])
+            log.info(f"saved adapter -> {path}")
+            if final and args.peft_export_dir:
+                peft_io.export_peft(args.peft_export_dir, lora_h, spec,
+                                    "gemma", base_model_name=args.model_dir)
+                log.info(f"PEFT export -> {args.peft_export_dir}")
+            return [path, path + ".opt"]
+
+        async_ckpt.submit(ckpt, step, write, final=final,
+                          snapshot_ms=snap_ms)
 
     common.run_training(
         args, trainable=lora, frozen=params,
@@ -172,7 +188,13 @@ def main(argv=None) -> int:
         nll_fn=lambda t, f, mb: nll(t, f, mb, False),
         train_ds=train_ds, valid_ds=valid_ds, total_steps=total_steps,
         tc=tc, mask=mask, start_step=start_step, opt_state=opt_state,
-        save_hook=save_hook, dropout_seed=dropout_seed, device=device)
+        save_hook=save_hook, dropout_seed=dropout_seed, device=device,
+        load_hook=common.make_rollback_loader(
+            tc, mask, lambda p: peft_io.load_adapter(p, device=device)[0]),
+        ckpt_path=final_path,
+        footprint=mg.gemma3_footprint(config, compute_dtype, args.seq_len,
+                                      args.loss_chunks, head_trains=False),
+        compute_dtype=compute_dtype)
     return 0
 
 

@@ -186,6 +186,13 @@ class Prefetcher:
             raise err
         raise StopIteration
 
+    def queue_depth(self) -> int:
+        """Batches buffered ahead of the consumer (the producer's queue
+        plus the placed lookahead): the `step_stats.queue_depth` gauge; 0
+        on the synchronous path."""
+        q = self._q.qsize() if self._q is not None else 0
+        return q + len(self._buf)
+
     # -- lifecycle -----------------------------------------------------------
 
     def close(self, join_timeout: float = 5.0):

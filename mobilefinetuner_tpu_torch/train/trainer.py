@@ -76,6 +76,12 @@ def make_train_step(loss_fn: Callable[[Any, Any, dict], tuple],
     adam_cfg = train_cfg.adam()
 
     def step_fn(trainable, frozen, opt_state, batch, step):
+        # the fault-injection seam (--inject grad_nan, cli/common.py): an
+        # armed run's batches carry a [rows] "grad_scale" (1.0, or NaN in
+        # the poison window) that multiplies the averaged gradients, so
+        # the non-finite values come through the real backward
+        batch = dict(batch)
+        gscale = batch.pop("grad_scale", None)
         m = mask if mask is not None else tree_map(lambda _: True,
                                                    trainable)
         leaves = tree_map(lambda t, on: t.detach().requires_grad_(bool(on)),
@@ -98,12 +104,15 @@ def make_train_step(loss_fn: Callable[[Any, Any, dict], tuple],
             w_sum += w.float()
         with torch.no_grad():
             inv = 1.0 / torch.clamp_min(w_sum, 1.0)
-            grads = _tree_like(trainable, {p: g * inv
-                                           for p, g in g_sum.items()})
+            scale = inv if gscale is None \
+                else inv * gscale.reshape(-1)[0].float()
+            scaled = {p: g * scale for p, g in g_sum.items()}
+            del g_sum
+            grads = _tree_like(trainable, scaled)
             # counted before clipping: a NaN norm would smear one bad
             # element over every element
             nonfinite = sum(torch.sum(~torch.isfinite(g))
-                            for g in g_sum.values())
+                            for g in scaled.values())
             if train_cfg.clip_grad_norm and train_cfg.clip_grad_norm > 0:
                 grads, norm = clip_by_global_norm(grads,
                                                   train_cfg.clip_grad_norm)

@@ -1319,3 +1319,40 @@ def test_gpt2_full_ft_step_kernel_path_matches_plain_path(dev):
     (lk, gk), (lp, gp) = metrics["auto"], metrics["plain"]
     assert abs(lk - lp) <= 1e-2, (lk, lp)
     assert abs(gk - gp) <= 2e-2 * gp, (gk, gp)
+
+
+def test_snapshot_of_cuda_trees_is_pinned_and_never_aliased(dev):
+    """io/async_ckpt.snapshot of a CUDA tree: every leaf lands in its own
+    pinned host buffer with its dtype (bf16 kept), two snapshots share no
+    buffer, and a later in-place change of the card's tensors reaches
+    neither."""
+    from mobilefinetuner_tpu_torch.io.async_ckpt import snapshot
+    tree = ({"w": _randn(dev, torch.float32, 64, 33, seed=3)},
+            {"b": [_randn(dev, torch.bfloat16, 1000, seed=4)],
+             "step": torch.tensor(7, dtype=torch.int32, device=dev)})
+    want = [t.cpu().clone() for t in (tree[0]["w"], tree[1]["b"][0],
+                                      tree[1]["step"])]
+    one, two = snapshot(tree), snapshot(tree)
+    tree[0]["w"].mul_(3.0)
+    tree[1]["b"][0].zero_()
+    torch.cuda.synchronize()
+    for snap in (one, two):
+        leaves = (snap[0]["w"], snap[1]["b"][0], snap[1]["step"])
+        for got, ref in zip(leaves, want):
+            assert got.device.type == "cpu" and got.is_pinned()
+            assert got.dtype == ref.dtype and torch.equal(got, ref)
+    assert one[0]["w"].data_ptr() != two[0]["w"].data_ptr()
+    assert one[1]["b"][0].data_ptr() != two[1]["b"][0].data_ptr()
+
+
+def test_a_real_cuda_oom_is_resource_exhausted(dev):
+    """The degradation ladder takes the caching allocator's own
+    out-of-memory error: an allocation of twice the card's memory."""
+    from mobilefinetuner_tpu_torch.core import memory_guard as mg
+    _, total = torch.cuda.mem_get_info(dev)
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+    assert mg.is_resource_exhausted(ei.value)
+    check = mg.preflight(1.0, device=dev)
+    assert check.cap_source == "mem_get_info" and check.verdict == "ok"
+    assert abs(check.cap_mb - total / 2 ** 20) < 1.0

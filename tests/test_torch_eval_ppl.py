@@ -129,9 +129,16 @@ def test_eval_ppl_refuses_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             eval_ppl.main(base)
-    for flag, item in ((["--telemetry_out", "t.jsonl"], "P6"),
-                       (["--run_registry", "r.jsonl"], "P6"),
-                       (["--on_oom_risk", "fail"], "P5"),
-                       (["--hbm_cap_mb", "100"], "P5")):
+    for flag, item in ((["--run_registry", "r.jsonl"], "P6"),):
         with pytest.raises(NotImplementedError, match=item):
             eval_ppl.main(base + ["--device", "cpu"] + flag)
+    # the telemetry stream and the memory preflight are ported: a run
+    # that asks for them is admitted and writes its stream
+    stream = os.path.join(os.path.dirname(dirs["wiki"]), "ported.jsonl")
+    assert eval_ppl.main(base + ["--device", "cpu", "--max_batches", "1",
+                                 "--telemetry_out", stream,
+                                 "--on_oom_risk", "fail",
+                                 "--hbm_cap_mb", "100000"]) == 0
+    events = [json.loads(line)["event"] for line in open(stream)]
+    assert events[:2] == ["run_start", "mem_check"]
+    assert events[-1] == "run_end"

@@ -220,10 +220,10 @@ def test_full_finetune_refuses_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             full.main(_argv(gdir, wiki, out))
-    for flag, item in ((["--async_save", "1"], "P5"),
-                       (["--keep_ckpts", "2"], "P5"),
+    for flag, item in ((["--run_registry", "r.jsonl"], "P6"),
+                       (["--watchdog", "1"], "P6"),
                        (["--mesh_fsdp", "2"], "P9"),
-                       (["--on_oom_risk", "degrade"], "P5"),
-                       (["--telemetry_out", "t.jsonl"], "P6")):
+                       (["--profile_dir", "prof"], "P6"),
+                       (["--auto_profile", "1"], "P6")):
         with pytest.raises(NotImplementedError, match=item):
             full.main(_argv(gdir, wiki, out, 3, "--device", "cpu", *flag))

@@ -350,9 +350,14 @@ def test_eval_mmlu_refuses_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(base)
-    for flag, item in ((["--telemetry_out", "t.jsonl"], "P6"),
-                       (["--run_registry", "r.jsonl"], "P6"),
-                       (["--on_oom_risk", "fail"], "P5"),
-                       (["--hbm_cap_mb", "100"], "P5")):
+    for flag, item in ((["--run_registry", "r.jsonl"], "P6"),):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(base + ["--device", "cpu"] + flag)
+    # the telemetry stream and the memory preflight are ported
+    stream = os.path.join(str(dirs["root"]), "mmlu_ported.jsonl")
+    assert cli.main(base + ["--device", "cpu", "--max_items", "1",
+                            "--telemetry_out", stream,
+                            "--on_oom_risk", "fail",
+                            "--hbm_cap_mb", "100000"]) == 0
+    events = [json.loads(line)["event"] for line in open(stream)]
+    assert events == ["run_start", "mem_check", "eval", "run_end"]

@@ -3,8 +3,10 @@ every module of mobilefinetuner_tpu_torch, chip_smoke.py and
 rounding_sensitivity.py (this test process cannot tell, since
 tests/conftest.py imports jax for every test), and an AST scan checks
 every import statement of those files, the serving modules (the prefix
-cache, the engine, the serving model functions) and the MMLU, GPT-2 full
-fine-tuning and data-mode modules named among them."""
+cache, the engine, the serving model functions), the MMLU, GPT-2 full
+fine-tuning and data-mode modules and the fault-tolerance modules
+(telemetry, device-memory readings, preemption, the memory guard, async
+checkpoints, the lineage) named among them."""
 
 import ast
 import os
@@ -74,6 +76,26 @@ def test_evaluation_and_full_ft_modules_are_scanned(module):
     assert os.path.join(ROOT, PKG, module) in _port_files()
     name = f"{PKG}." + module[:-3].replace("/", ".").replace(
         ".__init__", "")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import {name}; "
+            f"print(sorted(m for m in sys.modules if m in ('jax', "
+            f"'mobilefinetuner_tpu') or "
+            f"m.startswith(('jax.', 'mobilefinetuner_tpu.'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "core/telemetry.py", "core/cuda_stats.py", "core/preempt.py",
+    "core/memory_guard.py", "io/async_ckpt.py", "io/checkpoints.py",
+    "train/trainer.py"])
+def test_fault_tolerance_modules_are_scanned(module):
+    """The telemetry, memory, preemption and checkpoint modules are among
+    the files scanned, and a subprocess imports each without jax."""
+    assert os.path.join(ROOT, PKG, module) in _port_files()
+    name = f"{PKG}." + module[:-3].replace("/", ".")
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); import {name}; "
             f"print(sorted(m for m in sys.modules if m in ('jax', "
             f"'mobilefinetuner_tpu') or "
