@@ -47,8 +47,11 @@ Phases, none of whose failures is caught (any failure exits non-zero):
   4. serve GPT-2 small (12 layers, n_embd 768, bf16 weights and KV pool,
      8 slots, block_T 16, max_prompt 128, 64 new tokens) over 12 ragged
      requests routed to 2 rank-4 tenants and the base model, through
-     serve.bench.build_engine; with every launch count set to 0 just
-     before: every request finishes, every page comes back, and the
+     serve.bench.build_engine, with its telemetry stream (every request's
+     enqueue, admit, first_token and finish; serve_stats every 8 decode
+     steps; trace spans) and the metrics endpoint, /metrics and /healthz
+     scraped at the 16th decode step; with every launch count set to 0
+     just before: every request finishes, every page comes back, and the
      flash kernel ran 12 times a prefill, the paged kernel 12 times a
      decode step;
      then serve Gemma-3-270M (18 layers, hidden 640, 4 query heads over
@@ -97,6 +100,23 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      --inject ckpt_corrupt's step-2 file must make a resume fall back
      down the lineage (ckpt_verify false, then true); the rollback's
      steps lost and wall time and the SIGTERM-to-exit time are printed;
+     then `observe`, the observability plane (counts set to 0 before):
+     the `train` config for 12 steps through the CLI in process with
+     every observability flag off (--watchdog 0), then with every one on
+     (--trace_spans, --run_registry, --metrics_port, a --profile_dir
+     window over steps 0-1, --auto_profile with a slow step injected
+     before step 8 at 3x the off run's step p50, --pm_schedule 0-:1, the
+     watchdog): the losses must be identical, exactly one profile_capture
+     (slow_step) whose *.trace.json.gz names the flash forward and the
+     LoRA epilogue kernels, the phase spans must reconcile with the
+     goodput buckets through tools/trace_export.py, the registry must
+     hold one ok record; then a child engine (GPT-2 small, 4 slots, 12
+     requests) SIGTERMed after its first step must finish its 4 in-flight
+     requests, reject the other 8 with reason shutdown and end with
+     run_end{exit=preempted}, and a child trainer with --watchdog 2 and
+     a 20 s sleep before step 3 must exit 113 with a complete hang record
+     whose device probe is "ok"; step ms p50 with the instruments on and
+     off is printed (the overhead);
   7. Gemma: write a random-weight Gemma-3-270M directory (full width and
      depth, a 262,144-entry tokenizer.json) and the corpus, take the base
      model's eval perplexity, then with the counts set to 0 run
@@ -186,10 +206,12 @@ Every training and eval run writes its telemetry stream: each event is
 checked against the schema, every earlier path's memory admission must
 be "ok" with no degrade, and each trained run's estimate must not fall
 below the allocated-bytes peak of its first flush (the `admission`
-line).
+line). Each trained path's line carries `mfu` (the p50 of
+step_stats.mfu) and its run's `goodput` buckets, whose sum must equal
+their total.
 
 Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `recovery`,
-`gemma_train`, `gemma_full_ft`, `degrade`, `gemma_lora_head`,
+`observe`, `gemma_train`, `gemma_full_ft`, `degrade`, `gemma_lora_head`,
 `eval_ppl`, `generate`, `mmlu`, `profile`, `bwd_sweep`, `admission` and
 `kernels` JSON
 lines, the card's name and power limit, and, last, the device line
@@ -1173,13 +1195,18 @@ def check_gemma(torch, dev):
 # ----------------------------------------------------------- main paths ----
 
 def serve(torch, fa, da):
-    """The serving path: GPT-2 small served through build_engine."""
+    """The serving path: GPT-2 small served through build_engine, with
+    its telemetry stream (request phases, serve_stats every 8 decode
+    steps, trace spans) and the metrics endpoint, scraped mid-run."""
     import numpy as np
 
     from mobilefinetuner_tpu_torch.serve.bench import build_engine
+    stream = os.path.join(STREAMS["dir"], "serve.jsonl")
     eng, names = build_engine("gpt2s", num_slots=8, block_T=16,
                               num_blocks=128, max_prompt=128, max_new=64,
-                              adapters=2, dtype="bfloat16", seed=0)
+                              adapters=2, dtype="bfloat16", seed=0,
+                              telemetry_out=stream, stats_every=8,
+                              trace_spans=True, metrics_port=free_port())
     V = eng.config.vocab_size
     warm = eng.submit([1, 2, 3], max_new_tokens=4, adapter=names[0])
     eng.drain()
@@ -1196,7 +1223,12 @@ def serve(torch, fa, da):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, adapter=a) for p, a in zip(prompts, routes)]
-    done = eng.drain()
+    done, scraped = [], None
+    while not eng.idle:
+        done.extend(eng.step())
+        if scraped is None and eng.decode_steps - steps0 == 16:
+            url = f"http://127.0.0.1:{eng.metrics_server.port}"
+            scraped = (scrape(url + "/metrics"), scrape(url + "/healthz"))
     wall = time.perf_counter() - t0
     launches = {"flash": fa.flash_attention_fwd.launches,
                 "paged": da.paged_decode_attention.launches,
@@ -1217,6 +1249,26 @@ def serve(torch, fa, da):
           f"paged launches {launches['paged']} != {steps} x {LAYERS}")
     check(launches["decode"] == 0, f"serving launched the contiguous "
           f"decode kernel {launches['decode']} times")
+    # the telemetry: the endpoint answered mid-run, and every request's
+    # phases and spans are in the stream
+    (m_code, metrics), (h_code, health) = scraped
+    check(m_code == 200 and metrics.endswith("# EOF\n")
+          and 'mft_requests_total{phase="first_token"}' in metrics
+          and h_code == 200
+          and json.loads(health)["status"] == "ok",
+          f"metrics scrape {m_code} {metrics[-200:]!r}, healthz {h_code}")
+    eng.metrics_server.close()
+    evs = read_stream(stream)
+    phases = collections.defaultdict(list)
+    for e in evs:
+        if e["event"] == "request":
+            phases[e["id"]].append(e["phase"])
+    check(all(phases[r.id] == ["enqueue", "admit", "first_token", "finish"]
+              for r in reqs), f"request phases {dict(phases)}")
+    n_stats = sum(1 for e in evs if e["event"] == "serve_stats")
+    n_spans = sum(1 for e in evs if e["event"] == "span")
+    check(n_stats >= steps // 8 and n_spans >= 3 * len(reqs),
+          f"{n_stats} serve_stats, {n_spans} spans")
     ttft = sorted(r.ttft_ms for r in reqs)
     tpot = sorted(r.tpot_ms for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
@@ -1229,6 +1281,8 @@ def serve(torch, fa, da):
         "decode_tokens_per_s": (n_tok - len(reqs))
         / (eng.decode_s - decode_s0),
         "wall_s": wall,
+        "telemetry": {"serve_stats": n_stats, "spans": n_spans,
+                      "scraped_at_step": 16},
     }
     return launches, stats, eng, names
 
@@ -3451,6 +3505,309 @@ def recovery(torch, work, kernels):
     return stats, total
 
 
+# ------------------------------------------------------------ observe ------
+
+def observed(name: str) -> dict:
+    """A trained run's MFU and goodput from its stream: the p50 of
+    step_stats.mfu (the CLI's transformer_flops estimate over the flush
+    interval's per-step time and the card's peak) and run_end.goodput."""
+    evs = read_stream(os.path.join(STREAMS["dir"], f"{name}.jsonl"))
+    mfu = sorted(e["mfu"] for e in evs
+                 if e["event"] == "step_stats" and e["mfu"] is not None)
+    ends = [e for e in evs if e["event"] == "run_end"]
+    check(len(ends) == 1 and isinstance(ends[0]["goodput"], dict),
+          f"{name}: run_end {ends}")
+    g = ends[0]["goodput"]
+    buckets = sum(v for k, v in g.items()
+                  if k.endswith("_s") and k != "total_s")
+    check(abs(buckets - g["total_s"]) < 1e-3,
+          f"{name}: goodput buckets {buckets} != total {g['total_s']}")
+    return {"mfu": mfu[len(mfu) // 2] if mfu else None,
+            "goodput": dict(g)}
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scrape(url: str) -> tuple:
+    """(HTTP status, body) of one GET of the metrics endpoint."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+# the `observe` path's serving child: GPT-2 small on the card, drained by
+# the SIGTERM the parent sends once it has served a step; its wrappers'
+# launch counts written to argv[1]
+DRAIN_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from mobilefinetuner_tpu_torch.serve.bench import build_engine
+kernels = chip_smoke.kernel_wrappers()
+eng, _ = build_engine("gpt2s", num_slots=4, block_T=16, num_blocks=128,
+                      max_prompt=128, max_new=32, adapters=0,
+                      dtype="bfloat16", telemetry_out=sys.argv[2],
+                      stats_every=8, trace_spans=True)
+eng.install_preemption()
+reqs = [eng.submit([1 + i] * (16 + 8 * i), max_new_tokens=32)
+        for i in range(12)]
+eng.step()
+print("ready", flush=True)
+t0 = time.time()
+while not eng.guard.triggered and time.time() - t0 < 120:
+    time.sleep(0.01)
+eng.drain()
+eng.close()
+with open(sys.argv[1], "w") as f:
+    json.dump({"launches": {k: fn.launches for k, fn in kernels.items()},
+               "by_shape": {"flash_fwd": [
+                   [str(key[0]), *key[1:], n]
+                   for key, n in kernels["flash_fwd"].by_shape.items()]},
+               "states": [r.state for r in reqs],
+               "reasons": [r.reason for r in reqs],
+               "tokens": [len(r.tokens) for r in reqs]}, f)
+"""
+OBSERVE = dict(steps=12, slow_at=8, serve_stats_every=8)
+
+
+def observe(torch, work, kernels):
+    """The `observe` path (the observability plane on the card):
+    GPT-2 small LoRA at the `train` config, 12 steps through the CLI in
+    process with every observability flag off, then with every one on
+    (trace spans, the run registry, the metrics endpoint, the profiler
+    window over steps 0-1, the flight recorder armed by a slow step
+    injected at step 8, the governor, the watchdog): identical losses,
+    one capture whose trace names the flash forward and the LoRA
+    epilogue, the spans reconciled with the goodput buckets; then a child
+    engine (GPT-2 small) drained by SIGTERM and a child trainer aborted by
+    `--watchdog 2` (exit 113, device probe "ok"). Launch counts: the two
+    runs in process, the children's from their own wrappers."""
+    T, O = TRAIN, OBSERVE
+    gdir, ddir = os.path.join(work, "gpt2"), os.path.join(work, "wiki")
+    odir = os.path.join(work, "observe")
+    os.makedirs(odir)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    from mobilefinetuner_tpu_torch.cli import gpt2_lora_finetune as cli
+    from mobilefinetuner_tpu_torch.core.run_registry import RunRegistry
+
+    def argv(out, *extra):
+        return ["--pretrained_dir", gdir, "--data_dir", ddir,
+                "--steps", str(O["steps"]), "--batch_size", str(T["batch"]),
+                "--grad_accum_steps", str(T["accum"]),
+                "--seq_len", str(T["seq"]), "--dtype", "bfloat16",
+                "--rank", str(T["rank"]), "--alpha", str(T["alpha"]),
+                "--lr", str(T["lr"]), "--log_interval", "1",
+                "--lora_out", os.path.join(odir, out), *extra]
+
+    def steps_of(name):
+        evs = read_stream(os.path.join(STREAMS["dir"], f"{name}.jsonl"))
+        return evs, [e for e in evs if e["event"] == "step_stats"]
+
+    def run_off(name):
+        t0 = time.perf_counter()
+        rc = cli.main(argv(f"{name}.safetensors", "--watchdog", "0",
+                           *telemetry_argv(name)))
+        check(rc == 0, f"{name} returned {rc}")
+        return time.perf_counter() - t0, steps_of(name)[1]
+
+    def run_on(name, registry, prof_dir, slow_ms):
+        # the injected sleep makes step slow_at's interval about 4x the
+        # median, past the 3x slow-step trigger
+        t0 = time.perf_counter()
+        rc = cli.main(argv(
+            f"{name}.safetensors", "--watchdog", "1", "--trace_spans", "1",
+            "--run_registry", registry, "--metrics_port", str(free_port()),
+            "--profile_dir", prof_dir, "--profile_start", "0",
+            "--profile_steps", "2", "--auto_profile", "1",
+            "--auto_profile_steps", "2", "--pm_schedule", "0-:1",
+            "--inject", f"slow_step:{O['slow_at']}:{slow_ms:.1f}",
+            *telemetry_argv(name)))
+        check(rc == 0, f"{name} returned {rc}")
+        return time.perf_counter() - t0, steps_of(name)
+
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    # every instrument off, then every one on
+    wall_off, off = run_off("observe_off")
+    off_ms = sorted(s["step_time_ms"] for s in off)
+    p50_off = off_ms[len(off_ms) // 2]
+    registry = os.path.join(odir, "registry.jsonl")
+    prof_dir = os.path.join(odir, "window")
+    slow_ms = 3 * p50_off
+    wall_on, (evs, on) = run_on("observe_on", registry, prof_dir, slow_ms)
+    # the instruments add no device work, so the instrumented losses are
+    # an uninstrumented run's, bit for bit. The merged backward's dQ
+    # atomics (csrc/flash_attention_bwd_merged_mma.cu) now and then give
+    # an uninstrumented run other last bits too: on a mismatch one more
+    # run of each side is made, and an instrumented run must equal an
+    # uninstrumented one
+    losses = {"off": [s["loss"] for s in off], "on": [s["loss"] for s in on]}
+    if losses["on"] != losses["off"]:
+        losses["off_2"] = [s["loss"] for s in run_off("observe_off_2")[1]]
+        if losses["on"] not in (losses["off"], losses["off_2"]):
+            _, (_, on2) = run_on("observe_on_2", registry + ".2",
+                                 prof_dir + "_2", slow_ms)
+            losses["on_2"] = [s["loss"] for s in on2]
+    matched = [(a, b) for a in losses if a.startswith("on")
+               for b in losses if b.startswith("off")
+               if losses[a] == losses[b]]
+    check(matched and len(on) == O["steps"],
+          f"the instrumented losses equal no uninstrumented run's: "
+          f"{losses}")
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    # the overhead over the steady steps: not the profiler window (steps
+    # 1-2), its export (step 3), the injected slow step or the steps the
+    # capture profiled and exported (its own and the next two)
+    steady = {s["step"] for s in off} - {1, 2, 3} - {
+        O["slow_at"] + k for k in (1, 2, 3)}
+
+    def p50(stats):
+        ms = sorted(s["step_time_ms"] for s in stats if s["step"] in steady)
+        return ms[len(ms) // 2]
+    p50_on, p50_steady_off = p50(on), p50(off)
+    caps = [e for e in evs if e["event"] == "profile_capture"]
+    # armed by step slow_at + 1's flush, stopped after two more steps
+    check(len(caps) == 1 and caps[0]["trigger"] == "slow_step"
+          and caps[0]["path"].endswith(f"_step{O['slow_at'] + 1}")
+          and caps[0]["steps"] == 2,
+          f"captures {caps} (one slow_step capture from step "
+          f"{O['slow_at'] + 1} expected; none means the profiler failed)")
+    import glob
+    import gzip
+    found = glob.glob(os.path.join(caps[0]["path"], "*.trace.json.gz"))
+    check(len(found) == 1, f"capture files {found}")
+    with gzip.open(found[0], "rt") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    for k in ("flash_fwd_mma_kernel", "lora_epilogue_vec_kernel"):
+        check(any(k in n for n in names),
+              f"the capture does not name {k}")
+    window = glob.glob(os.path.join(prof_dir, "*.trace.json.gz"))
+    check(len(window) == 1, f"profiler window files {window}")
+    end = evs[-1]
+    g = end["goodput"]
+    check(end["event"] == "run_end" and end["exit"] == "ok"
+          and end["governor_slept_ms"] == float(O["steps"])
+          and g["governor_sleep_s"] > 0, f"run_end {end}")
+    sys.path.insert(0, os.path.join(repo, "tools"))
+    import trace_export
+    trace_out = os.path.join(odir, "trace.json")
+    check(trace_export.main([os.path.join(STREAMS["dir"],
+                                          "observe_on.jsonl"),
+                             "-o", trace_out]) == 0, "trace_export failed")
+    with open(trace_out) as f:
+        rec = trace_export.phase_reconcile(json.load(f), g)
+    worst = max(d for _, _, d in rec.values())
+    check(worst <= 1e-3 * g["total_s"] + 1e-3,
+          f"span sums vs goodput buckets: {rec}")
+    runs = RunRegistry(registry).records()
+    check(len(runs) == 1 and runs[0]["status"] == "ok"
+          and runs[0]["platform"] == "gpu", f"registry {runs}")
+    hangs = [e for e in evs if e["event"] == "hang"]
+    check(not hangs, f"false hang in a clean run: {hangs}")
+
+    # a serving child drained by SIGTERM
+    def child(name, script_args, sigterm_on=None, timeout=300):
+        """(exit code, the child's counts file or {}): a child aborted by
+        os._exit writes none, and its launches are not counted."""
+        counts = os.path.join(odir, f"{name}.counts.json")
+        log = open(os.path.join(odir, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", *script_args(counts)], cwd=repo,
+            stdout=subprocess.PIPE if sigterm_on else log, stderr=log,
+            text=True)
+        try:
+            if sigterm_on is not None:
+                line = proc.stdout.readline().strip()
+                check(line == sigterm_on, f"{name}: child said {line!r}")
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            if proc.stdout is not None:
+                proc.stdout.close()
+            log.close()
+        if not os.path.exists(counts):
+            return rc, {}
+        with open(counts) as f:
+            got = json.load(f)
+        for k, into in (("lora_epilogue", EPI_BY_SHAPE),
+                        ("flash_fwd", FLASH_BY_SHAPE)):
+            for dtype, *dims, n in got.get("by_shape", {}).get(k, []):
+                into[(getattr(torch, dtype.split(".")[-1]), *dims)] += n
+        for k in kernels:
+            launches[k] += got["launches"][k]
+        return rc, got
+
+    stream = os.path.join(odir, "drain.jsonl")
+    t0 = time.perf_counter()
+    rc, got = child("drain", lambda c: [DRAIN_CHILD, c, stream],
+                    sigterm_on="ready")
+    drain_s = time.perf_counter() - t0
+    devs = read_stream(stream)
+    rejects = [e["reason"] for e in devs if e["event"] == "request"
+               and e["phase"] == "reject"]
+    check(rc == 0 and got["states"] == ["finished"] * 4 + ["rejected"] * 8
+          and got["tokens"][:4] == [32] * 4
+          and rejects == ["shutdown"] * 8
+          and [e["event"] for e in devs].count("preempt") == 1
+          and devs[-1]["event"] == "run_end"
+          and devs[-1]["exit"] == "preempted",
+          f"serving drain: exit {rc}, {got['states']}, rejects {rejects}, "
+          f"last {devs[-1]}")
+    check(got["launches"]["flash_fwd"] == 4 * LAYERS
+          and got["launches"]["paged"] > 0,
+          f"drain child launches {got['launches']}")
+
+    # a training child aborted by the watchdog: step 3 sleeps 20 s
+    wd_stream = os.path.join(odir, "watchdog.jsonl")
+    t0 = time.perf_counter()
+    rc, _ = child("watchdog", lambda c: [RECOVERY_CHILD, c, *argv(
+        "wd.safetensors", "--watchdog", "2", "--watchdog_min_s", "5",
+        "--inject", "slow_step:3:20000", "--telemetry_out", wd_stream)])
+    wd_s = time.perf_counter() - t0
+    with open(wd_stream, "rb") as f:
+        raw = f.read()
+    check(raw.endswith(b"\n"), "the aborted stream is not newline-ended")
+    wevs = read_stream(wd_stream)
+    hang = wevs[-1]
+    check(rc == 113 and hang["event"] == "hang"
+          and hang["action"] == "abort" and hang["step"] == 2
+          and hang["device_probe"] == "ok",
+          f"watchdog abort: exit {rc}, last event {hang}")
+
+    stats = {"model": "gpt2s", "dtype": "bfloat16", "steps": O["steps"],
+             "losses_identical": True, "runs_compared": sorted(losses),
+             "matched": matched[0],
+             "step_ms_p50_off": p50_steady_off, "step_ms_p50_on": p50_on,
+             "overhead_frac": p50_on / p50_steady_off - 1.0,
+             "wall_s_off": wall_off, "wall_s_on": wall_on,
+             "capture": {"step": caps[0]["step"],
+                         "trace_events": len(names)},
+             "reconcile_max_abs_s": worst,
+             "mfu_off": observed("observe_off")["mfu"],
+             "mfu_on": observed("observe_on")["mfu"],
+             "goodput_on": g,
+             "drain": {"wall_s": drain_s, "finished": 4, "rejected": 8},
+             "watchdog": {"exit": rc, "stall_s": hang["stall_s"],
+                          "deadline_s": hang["deadline_s"],
+                          "wall_s": wd_s}}
+    return stats, launches
+
+
 DEGRADE = dict(steps=3)
 
 
@@ -3686,6 +4043,7 @@ def main() -> int:
     launches_serve, serve_stats, eng, names = serve(torch, fa, da)
     print(json.dumps({"serve": serve_stats}))
     prof = profile_serve(torch, eng, names)
+    eng.close()
     del eng
     torch.cuda.empty_cache()
     gserve_stats, launches_gserve, eng, names = gemma_serve(torch, kernels,
@@ -3704,6 +4062,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         train_stats, launches_train, adapter, model = train(
             torch, dev, work, kernels)
+        train_stats.update(observed("train"))
         print(json.dumps({"train": train_stats,
                           "launches": launches_train}))
         serve_trained(torch, dev, adapter, model)
@@ -3714,6 +4073,7 @@ def main() -> int:
         g2full_stats, launches_g2full = gpt2_full_ft(
             torch, work, kernels, train_stats["eval_ppl_before"],
             train_stats["eval_batches"])
+        g2full_stats.update(observed("gpt2_full_ft"))
         print(json.dumps({"gpt2_full_ft": g2full_stats,
                           "launches": launches_g2full}))
         torch.cuda.empty_cache()
@@ -3723,12 +4083,24 @@ def main() -> int:
         rec_stats["wall_s"] = time.perf_counter() - t0
         print(json.dumps({"recovery": rec_stats,
                           "launches": launches_rec}))
+        # the observability plane: instruments on vs off, a capture, a
+        # serving drain and a watchdog abort (children)
+        t0 = time.perf_counter()
+        obs_stats, launches_obs = observe(torch, work, kernels)
+        obs_stats["wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"observe": obs_stats, "launches": launches_obs}))
+        print(f"observe: step ms p50 {obs_stats['step_ms_p50_off']:.3f} "
+              f"with every instrument off, {obs_stats['step_ms_p50_on']:.3f}"
+              f" on ({100 * obs_stats['overhead_frac']:+.2f}%)")
+        torch.cuda.empty_cache()
         gemma_stats, launches_gemma, gemma = gemma_train(torch, dev, work,
                                                          kernels)
+        gemma_stats.update(observed("gemma_train"))
         print(json.dumps({"gemma_train": gemma_stats,
                           "launches": launches_gemma}))
         full_stats, launches_full = gemma_full_ft(torch, dev, work, kernels,
                                                   gemma)
+        full_stats.update(observed("gemma_full_ft"))
         print(json.dumps({"gemma_full_ft": full_stats,
                           "launches": launches_full}))
         torch.cuda.empty_cache()
@@ -3739,6 +4111,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         head_stats, launches_head, head_adapter, head_final = \
             gemma_lora_head(torch, dev, work, kernels, gemma)
+        head_stats.update(observed("gemma_lora_head"))
         print(json.dumps({"gemma_lora_head": head_stats,
                           "launches": launches_head}))
         eval_stats, launches_eval, eval_runs = eval_ppl_phase(
@@ -3841,7 +4214,8 @@ def main() -> int:
                 "eval_ppl": launches_eval[name],
                 "mmlu": launches_mmlu[name],
                 "recovery": launches_rec[name],
-                "degrade": launches_deg[name]}
+                "degrade": launches_deg[name],
+                "observe": launches_obs[name]}
 
     def total(name):
         return sum(by_path(name).values())

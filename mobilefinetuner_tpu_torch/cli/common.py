@@ -18,14 +18,24 @@ run's fault tolerance, with the JAX CLIs' flags and defaults:
     `--rollback_data_offset`) and fault injection (`--inject`);
   - the memory-admission preflight and degradation ladder
     (`--on_oom_risk`, `--hbm_cap_mb`, `--hbm_headroom`,
-    core/memory_guard.py), on an analytic estimate of the step.
+    core/memory_guard.py), on an analytic estimate of the step;
+and the observability plane, with the JAX CLIs' flags and defaults:
+  - the goodput meter (run_end.goodput) and MFU (step_stats.mfu, from
+    the CLI's `flops_per_step` estimate and the card's peak);
+  - the run registry (`--run_registry`, core/run_registry.py);
+  - trace spans (`--trace_spans`), the profiler window
+    (`--profile_dir`) and the flight recorder (`--auto_profile`,
+    core/trace.py);
+  - the hang watchdog (`--watchdog`, on by default), paused around every
+    known long pause, a kernel build at first use included;
+  - the metrics endpoint (`--metrics_port`, core/metrics_http.py) and
+    the step governor (`--pm_*`, system/governor.py).
 
 Every other flag keeps its JAX name, and its default here is "off"; a run
 that asks for one raises NotImplementedError naming the ROADMAP.md port
-item that brings it (`check_not_ported`): the run registry, the profiler
-and the rest of the observability plane (P6), the mesh and offload (P9),
-the step governor, the alignment harness. Nothing is accepted and
-silently ignored.
+item that brings it (`check_not_ported`): the mesh, offload and the
+cross-host straggler attribution (P9), the alignment harness (P3).
+Nothing is accepted and silently ignored.
 
 The device is the CLIs' one addition: `--device` (default: the CUDA
 card; `--device cpu` is an explicit choice, as the tests make it).
@@ -34,11 +44,13 @@ card; `--device cpu` is an explicit choice, as the tests make it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import itertools
 import math
 import os
+import sys
 import time
 import traceback
 from typing import Callable, Iterator, Optional
@@ -54,17 +66,29 @@ from mobilefinetuner_tpu_torch.core.logging import (JSONLWriter,
                                                     get_logger)
 from mobilefinetuner_tpu_torch.core.preempt import (EXIT_PREEMPTED,
                                                     PreemptionGuard)
-from mobilefinetuner_tpu_torch.core.telemetry import (SpikeConfig,
+from mobilefinetuner_tpu_torch.core.metrics_http import start_metrics
+from mobilefinetuner_tpu_torch.core.run_registry import RunRegistry
+from mobilefinetuner_tpu_torch.core.telemetry import (GoodputMeter,
+                                                      HangWatchdog,
+                                                      SpikeConfig,
                                                       SpikeDetector,
-                                                      Telemetry,
-                                                      run_manifest)
+                                                      StepClock, Telemetry,
+                                                      device_peak_flops,
+                                                      device_probe, mfu_from,
+                                                      run_manifest,
+                                                      transformer_flops)
+from mobilefinetuner_tpu_torch.core.trace import (AutoProfiler, Tracer,
+                                                  write_chrome_trace_gz)
 from mobilefinetuner_tpu_torch.data.prefetch import Prefetcher
 from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
                                                       WT2Config)
 from mobilefinetuner_tpu_torch.io.async_ckpt import AsyncCheckpointer
 from mobilefinetuner_tpu_torch.io.safetensors_io import SafeTensorsReader
+from mobilefinetuner_tpu_torch.kernels import build as kernel_build
 from mobilefinetuner_tpu_torch.ops.dropout import fold_in
 from mobilefinetuner_tpu_torch.ops.loss import perplexity_from_loss
+from mobilefinetuner_tpu_torch.system.governor import (GovernorConfig,
+                                                       StepGovernor)
 from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
                                                      init_optimizer,
                                                      make_eval_step,
@@ -80,15 +104,8 @@ NOT_PORTED = (
      "optimizer-state offload (--opt_offload_state_dtype)", "P9"),
     ("opt_offload_master_dtype", "float32",
      "optimizer-state offload (--opt_offload_master_dtype)", "P9"),
-    ("run_registry", "", "the run registry (--run_registry)", "P6"),
-    ("profile_dir", "", "the profiler window (--profile_dir)", "P6"),
-    ("watchdog", 0, "the hang watchdog (--watchdog)", "P6"),
-    ("straggler_cadence", 0, "straggler attribution", "P6"),
-    ("trace_spans", 0, "trace spans (--trace_spans)", "P6"),
-    ("auto_profile", 0, "the flight recorder (--auto_profile)", "P6"),
-    ("metrics_port", 0, "the metrics endpoint (--metrics_port)", "P6"),
-    ("pm_interval", 0, "the step governor (--pm_interval)", "P6"),
-    ("pm_schedule", "", "the step governor (--pm_schedule)", "P6"),
+    ("straggler_cadence", 0,
+     "cross-host straggler attribution (--straggler_cadence)", "P9"),
     ("shard_enable", False, "parameter offload (--shard_enable)", "P9"),
     ("mesh_data", 1, "a device mesh (--mesh_data)", "P9"),
     ("mesh_fsdp", 1, "a device mesh (--mesh_fsdp)", "P9"),
@@ -258,24 +275,89 @@ def add_train_flags(p: argparse.ArgumentParser, lr: float = 1e-4,
                         "raises a simulated one at the first dispatch), "
                         "which the --on_oom_risk ladder takes. Each fires "
                         "once per process")
+    add_observability_flags(g)
     # not ported: accepted by name, refused unless off (check_not_ported)
-    for name, kind, default in (
-            ("--run_registry", str, ""),
-            ("--profile_dir", str, ""), ("--profile_start", int, 10),
-            ("--profile_steps", int, 5),
-            ("--watchdog", int, 0), ("--watchdog_mult", float, 10.0),
-            ("--watchdog_min_s", float, 60.0),
-            ("--straggler_cadence", int, 0),
-            ("--straggler_mult", float, 1.5), ("--trace_spans", int, 0),
-            ("--auto_profile", int, 0), ("--auto_profile_dir", str, ""),
-            ("--auto_profile_steps", int, 2),
-            ("--auto_profile_cooldown", float, 300.0),
-            ("--auto_profile_budget", int, 2),
-            ("--auto_profile_slow_mult", float, 3.0),
-            ("--metrics_port", int, 0), ("--metrics_addr", str, "127.0.0.1")):
-        g.add_argument(name, type=kind, default=default,
-                       help="not ported yet (ROADMAP.md P6)")
+    g.add_argument("--straggler_cadence", type=int, default=0,
+                   help="not ported yet (ROADMAP.md P9): the cross-host "
+                        "straggler gather needs more than one process")
+    g.add_argument("--straggler_mult", type=float, default=1.5,
+                   help="not ported yet (ROADMAP.md P9)")
     add_mem_flags(p)
+
+
+def add_observability_flags(g) -> None:
+    """The observability plane's flags (the JAX CLIs' names, defaults and
+    meanings): the run registry, the profiler window, the hang watchdog,
+    trace spans, the flight recorder and the metrics endpoint."""
+    g.add_argument("--run_registry", default="",
+                   help="append-only run registry stream "
+                        "(core/run_registry.py): one crash-safe `run` "
+                        "record per invocation (id, git rev, config "
+                        "fingerprint, platform, artifacts, terminal "
+                        "status), finalized on any exit path; a "
+                        "SIGKILLed run is settled to 'interrupted' on "
+                        "the next registry open. Default: "
+                        "$MFT_RUN_REGISTRY; empty = off")
+    g.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activities) of a few steady-state steps to this "
+                        "directory, as a gzip Chrome trace")
+    g.add_argument("--profile_start", type=int, default=10,
+                   help="first profiled step (past the warm-up)")
+    g.add_argument("--profile_steps", type=int, default=5)
+    g.add_argument("--watchdog", type=int, default=1, choices=[0, 1, 2],
+                   help="hang watchdog: a daemon thread dumps every "
+                        "Python thread's stack (faulthandler) and emits "
+                        "a `hang` telemetry event when no step completes "
+                        "within watchdog_mult x the rolling-median step "
+                        "time. 0 = off, 1 = report and keep waiting (the "
+                        "deadline backs off 2x), 2 = report then abort "
+                        "the process (exit 113). Kernel builds, evals "
+                        "and saves pause the clock")
+    g.add_argument("--watchdog_mult", type=float, default=10.0,
+                   help="hang deadline = this many rolling-median step "
+                        "times (floored at --watchdog_min_s)")
+    g.add_argument("--watchdog_min_s", type=float, default=60.0,
+                   help="hang deadline floor in seconds; also the "
+                        "pre-first-step grace")
+    g.add_argument("--trace_spans", type=int, default=0, choices=[0, 1],
+                   help="1 = emit `span` events (core/trace.py) into the "
+                        "telemetry stream: the goodput phases on a "
+                        "'phase' track, each checkpoint write on 'ckpt', "
+                        "each prefetch-producer batch on 'prefetch'; "
+                        "tools/trace_export.py turns the stream into a "
+                        "Perfetto timeline whose per-phase span sums "
+                        "reconcile with run_end's goodput buckets. "
+                        "Requires --telemetry_out")
+    g.add_argument("--auto_profile", type=int, default=0, choices=[0, 1],
+                   help="1 = flight recorder: a one-shot torch.profiler "
+                        "capture when a sensor fires (a flush interval "
+                        "slower than auto_profile_slow_mult x the rolling "
+                        "median, a loss_spike/divergence anomaly, or the "
+                        "hang watchdog before its report); each capture "
+                        "is a `profile_capture` event and a "
+                        "*.trace.json.gz in its own directory")
+    g.add_argument("--auto_profile_dir", default="",
+                   help="capture root (default: <telemetry_out>"
+                        ".profiles); each capture lands in its own "
+                        "cap<k>_<trigger>_step<n> subdirectory")
+    g.add_argument("--auto_profile_steps", type=int, default=2,
+                   help="steps per triggered capture")
+    g.add_argument("--auto_profile_cooldown", type=float, default=300.0,
+                   help="seconds between captures")
+    g.add_argument("--auto_profile_budget", type=int, default=2,
+                   help="max captures per run")
+    g.add_argument("--auto_profile_slow_mult", type=float, default=3.0,
+                   help="slow-step trigger: capture when a flush "
+                        "interval's per-step time exceeds this multiple "
+                        "of the rolling median (<= 0 disables the "
+                        "slow-step sensor)")
+    g.add_argument("--metrics_port", type=int, default=0,
+                   help="serve a live OpenMetrics /metrics endpoint and "
+                        "/healthz on this port (core/metrics_http.py), "
+                        "fed from the telemetry emit path. 0 = off")
+    g.add_argument("--metrics_addr", default="127.0.0.1",
+                   help="bind address for --metrics_port")
 
 
 def add_mem_flags(p: argparse.ArgumentParser):
@@ -319,17 +401,49 @@ def add_align_flags(p: argparse.ArgumentParser):
 
 
 def add_pm_flags(p: argparse.ArgumentParser):
-    g = p.add_argument_group("step governor (not ported yet)")
-    g.add_argument("--pm_interval", type=int, default=0)
-    for name, default in (("--pm_batt_thresh", 20.0),
-                          ("--pm_temp_thresh", 42.0), ("--pm_fb_high", 2.0),
-                          ("--pm_fb_low", 0.5), ("--pm_ft_high", 2.0),
-                          ("--pm_ft_low", 0.5), ("--pm_manual_batt", 100.0),
-                          ("--pm_manual_temp", 30.0)):
-        g.add_argument(name, type=float, default=default)
+    """Step-governor flags (the reference CLIs' pm_* block; pm_interval 0
+    and no schedule disable it)."""
+    g = p.add_argument_group("step governor (pm_*)")
+    g.add_argument("--pm_interval", type=int, default=0,
+                   help="telemetry check every K steps; 0 disables")
+    g.add_argument("--pm_batt_thresh", type=float, default=20.0)
+    g.add_argument("--pm_temp_thresh", type=float, default=42.0)
+    g.add_argument("--pm_fb_high", type=float, default=2.0)
+    g.add_argument("--pm_fb_low", type=float, default=0.5)
+    g.add_argument("--pm_ft_high", type=float, default=2.0)
+    g.add_argument("--pm_ft_low", type=float, default=0.5)
+    g.add_argument("--pm_manual_batt", type=float, default=100.0)
+    g.add_argument("--pm_manual_temp", type=float, default=30.0)
     g.add_argument("--pm_disable_batt", action="store_true")
     g.add_argument("--pm_disable_temp", action="store_true")
-    g.add_argument("--pm_schedule", default="")
+    g.add_argument("--pm_schedule", default="",
+                   help='deterministic override, e.g. "0-99:300,100-:50"')
+
+
+def governor_from_args(args, event_sink=None) -> StepGovernor:
+    """The run's StepGovernor from the pm_* flags (a CLI without them
+    gets a disabled one)."""
+    schedule = getattr(args, "pm_schedule", "")
+    interval = getattr(args, "pm_interval", 0)
+    cfg = GovernorConfig(
+        enable=interval > 0 or bool(schedule),
+        # 0 = telemetry disabled: a schedule-only run stays full speed on
+        # uncovered steps; pm_interval > 0 makes uncovered steps fall
+        # through to the telemetry policy
+        check_interval_steps=interval,
+        battery_threshold=getattr(args, "pm_batt_thresh", 20.0),
+        temp_threshold=getattr(args, "pm_temp_thresh", 42.0),
+        freq_batt_high=getattr(args, "pm_fb_high", 2.0),
+        freq_batt_low=getattr(args, "pm_fb_low", 0.5),
+        freq_temp_high=getattr(args, "pm_ft_high", 2.0),
+        freq_temp_low=getattr(args, "pm_ft_low", 0.5),
+        schedule=schedule,
+        manual_battery=(None if getattr(args, "pm_disable_batt", False)
+                        else getattr(args, "pm_manual_batt", 100.0)),
+        manual_temp=(None if getattr(args, "pm_disable_temp", False)
+                     else getattr(args, "pm_manual_temp", 30.0)),
+    )
+    return StepGovernor(cfg, event_sink=event_sink)
 
 
 def add_shard_flags(p: argparse.ArgumentParser):
@@ -438,6 +552,27 @@ def train_config_from_args(args, total_steps: int) -> TrainConfig:
         weight_decay=args.weight_decay,
         coupled_weight_decay=args.coupled_weight_decay,
         skip_nonfinite=bool(args.skip_nonfinite))
+
+
+def param_count(tree) -> int:
+    """Elements of every tensor leaf of a nested dict (the JAX package's
+    models.gpt2.param_count over a tree)."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return int(tree.numel()) if isinstance(tree, torch.Tensor) else 0
+
+
+def step_flops(args, tc: TrainConfig, trainable, frozen, n_layer: int,
+               n_head: int, head_dim: int, full_ft: bool) -> float:
+    """The CLIs' `flops_per_step`: transformer_flops for one optimizer
+    step of the global batch (batch_size x grad_accum_steps rows of
+    seq_len), as the JAX CLIs estimate it."""
+    return transformer_flops(
+        param_count(trainable), param_count(frozen),
+        args.batch_size * tc.grad_accum_steps, args.seq_len, n_layer,
+        n_head, head_dim, full_ft=full_ft)
 
 
 def compute_dtype_from_args(args) -> torch.dtype:
@@ -803,6 +938,11 @@ def _spike_detector(args) -> SpikeDetector:
         warmup=getattr(args, "spike_warmup", 20)))
 
 
+def _tool_name() -> str:
+    """The entry point's name for the run registry (basename, no .py)."""
+    return os.path.basename(sys.argv[0] or "train").replace(".py", "")
+
+
 def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                  train_ds: WikiText2Dataset,
                  valid_ds: Optional[WikiText2Dataset], total_steps: int,
@@ -812,7 +952,8 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                  dropout_seed: Optional[int] = None, device=None,
                  load_hook: Optional[Callable] = None, ckpt_path: str = "",
                  footprint: mg.Footprint,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype,
+                 flops_per_step: Optional[float] = None):
     """The loop: steps from start_step to total_steps over
     micro_batches(skip_steps=start_step), an eval every --eval_interval
     steps and at the end, a save every --save_every steps and a final
@@ -860,38 +1001,95 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
     checkpoint at or below the trigger step is reloaded, the stream
     rebuilt with skip_steps + k * --rollback_data_offset, and training
     goes on with the same step function. The preemption drain
-    (--on_preempt drain) is checked at every step boundary."""
+    (--on_preempt drain) is checked at every step boundary.
+
+    Observability, as in the JAX loop: a GoodputMeter classifies every
+    second of the run (init, compile — here a kernel build at first use,
+    kernels/build.py —, step, input_wait, eval, checkpoint,
+    governor_sleep, shutdown) into run_end.goodput; `flops_per_step` (the
+    CLI's transformer_flops estimate for one optimizer step) over the
+    flush interval's synced per-step time and the card's peak is
+    step_stats.mfu (None on the CPU). The hang watchdog (--watchdog) is
+    paused around builds, evals and saves; --trace_spans, --profile_dir,
+    --auto_profile, --metrics_port, --run_registry and the pm_* governor
+    are the JAX CLIs' flags. None of them adds device work: a run's
+    losses are the same with every instrument on or off."""
     device = resolve_device(device)
     tel = Telemetry(getattr(args, "telemetry_out", ""))
     tel.emit("run_start", **run_manifest(vars(args), device))
+    # the run registry (core/run_registry.py): the start record lands now,
+    # so a SIGKILL mid-run is settled to "interrupted" on the next open;
+    # end_run finalizes it on every exit path
+    registry = RunRegistry.from_args(args)
+    run_rec = registry.begin(
+        "train", _tool_name(), config=vars(args), mesh=None,
+        platform="gpu" if device.type == "cuda" else device.type,
+        artifacts=[p for p in (tel.path, getattr(args, "out", "")) if p],
+        telemetry=tel) if registry else None
     # --resume_from's verdicts (resolve_resume_from ran in the CLI, before
     # this stream existed): after run_start, which stays the first event
     for ev in getattr(args, "_ckpt_verify_events", None) or []:
         tel.emit("ckpt_verify", **ev)
     t_start = time.time()
+    # one tracer for every span producer: the meter's phases, the
+    # checkpoint writer, the prefetch producer
+    tracer = (Tracer(tel.emit)
+              if getattr(args, "trace_spans", 0) and tel.enabled else None)
+    meter = GoodputMeter(tracer=tracer)
     state = {"done": 0}
     ckpt = guard = stream = metrics_csv = None
+    governor = wd = metrics_srv = auto_prof = None
+    exits = contextlib.ExitStack()
 
     def end_run(exit_name: str, steps: int, **extra):
         """Terminate the stream once on any exit path (emit and close are
         no-ops on a closed stream, so nested handlers compose). The
         writer is drained first: a snapshot already taken is a recovery
         point worth finishing, and its checkpoint event must land before
-        run_end (its errors must not mask the exception in flight)."""
+        run_end (its errors must not mask the exception in flight); an
+        open capture lands its profile_capture, and the registry record
+        its `run` end event, before run_end, which stays last."""
         if ckpt is not None:
             ckpt.close(raise_errors=False)
+        if auto_prof is not None:
+            auto_prof.close()
+        if governor is not None:
+            extra["governor_slept_ms"] = round(governor.total_slept_ms, 1)
+        if run_rec is not None:
+            run_rec.finalize(exit_name)
         tel.emit("run_end", steps=steps,
                  wall_s=round(time.time() - t_start, 3), exit=exit_name,
-                 goodput=None, **extra)
+                 goodput=meter.summary(), **extra)
         tel.close()
 
     try:
+        governor = governor_from_args(
+            args, event_sink=lambda p: tel.emit("throttle", **p))
+        # the metrics endpoint: a telemetry observer, so every number a
+        # scraper reads came through the same emit as the stream; a bind
+        # failure raises here, under the run_end contract
+        if getattr(args, "metrics_port", 0) > 0:
+            metrics_srv = start_metrics(
+                tel, args.metrics_port,
+                addr=getattr(args, "metrics_addr", "127.0.0.1"))
+            log.info(f"metrics endpoint: http://{metrics_srv.addr}:"
+                     f"{metrics_srv.port}/metrics (+ /healthz)")
+        if getattr(args, "auto_profile", 0):
+            prof_root = getattr(args, "auto_profile_dir", "") or (
+                (tel.path + ".profiles") if tel.path
+                else "auto_profile_traces")
+            auto_prof = AutoProfiler(
+                prof_root, sink=tel.emit,
+                steps=getattr(args, "auto_profile_steps", 2),
+                cooldown_s=getattr(args, "auto_profile_cooldown", 300.0),
+                budget=getattr(args, "auto_profile_budget", 2))
+        slow_mult = getattr(args, "auto_profile_slow_mult", 3.0)
         if getattr(args, "on_preempt", "drain") == "drain":
             guard = PreemptionGuard().install()
             if not guard.installed:
                 guard = None
         ckpt = AsyncCheckpointer(enabled=bool(getattr(args, "async_save", 1)),
-                                 event_sink=tel.emit)
+                                 event_sink=tel.emit, tracer=tracer)
         spikes = _spike_detector(args)
         if tel.resumed and tel.trailing_step_stats and start_step > 0:
             # a resumed run: re-seed the detector from the stream's earlier
@@ -899,6 +1097,55 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
             spikes.seed([r.get("loss") for r in tel.trailing_step_stats],
                         count_hint=max(r.get("step", 0)
                                        for r in tel.trailing_step_stats))
+        # the hang watchdog (--watchdog 0 disables): no step within
+        # watchdog_mult x the rolling-median step time dumps the stacks
+        # and emits `hang`, then waits on (1) or aborts with exit 113 (2),
+        # after flush_tail has made the stream end on a complete line
+        wd_mode = getattr(args, "watchdog", 1)
+        if wd_mode:
+            def on_hang(p):
+                if auto_prof is not None:
+                    auto_prof.capture_now("hang", p["step"])
+                tel.emit("hang", last_seq=tel.last_seq, **p)
+                log.error(f"HANG: no step for {p['stall_s']:.1f}s "
+                          f"(deadline {p['deadline_s']:.1f}s) after step "
+                          f"{p['step']}; stacks -> {p['stacks_file']}, "
+                          f"device probe: {p['device_probe']}, "
+                          f"action: {p['action']}")
+            wd = HangWatchdog(
+                mult=getattr(args, "watchdog_mult", 10.0),
+                min_deadline_s=getattr(args, "watchdog_min_s", 60.0),
+                grace_s=getattr(args, "watchdog_min_s", 60.0),
+                stacks_file=(tel.path + ".stacks") if tel.path else "",
+                abort=wd_mode == 2, flush_fn=tel.flush_tail,
+                probe_fn=device_probe(device), on_hang=on_hang)
+        # wd.paused() at every known long pause; a no-op without a watchdog
+        pause = wd.paused if wd is not None else contextlib.nullcontext
+        step_clock = StepClock()
+        # flops_per_step covers the run's global batch, so the peak is
+        # the peak of every card the run spans: one, until ROADMAP.md P9
+        peak_flops = device_peak_flops(
+            torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+        # a kernel build at first use (kernels/build.py) is the port's
+        # compile: charged to the `compile` bucket, out of the flush
+        # interval's step time, with the watchdog paused (a cold checkout
+        # must not fire a hang in its first step)
+        clock = {"t": time.perf_counter(), "wait_ms": 0.0, "slept_ms": 0.0,
+                 "build_ms": 0.0}
+
+        @contextlib.contextmanager
+        def kernel_build_phase():
+            prev = meter.phase
+            meter.enter("compile")
+            t0 = time.perf_counter()
+            try:
+                with pause():
+                    yield
+            finally:
+                clock["build_ms"] += (time.perf_counter() - t0) * 1000
+                meter.enter(prev)
+        exits.enter_context(kernel_build.watch_builds(kernel_build_phase))
         eval_step = make_eval_step(nll_fn)
         if opt_state is None:
             opt_state = init_optimizer(trainable, tc, mask)
@@ -909,7 +1156,6 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
         ema = EMA(args.ema_beta)
         history, evals = [], []
         buffered = []  # [(step, epoch, tokens, device metrics)]
-        clock = {"t": time.perf_counter(), "wait_ms": 0.0}
         flush_every = (min(args.log_interval, 1000) if args.log_interval
                        else (50 if metrics_csv else 1000))
         prefetch_depth = max(getattr(args, "prefetch", 2), 0)
@@ -943,7 +1189,8 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
             return Prefetcher(
                 itertools.islice(numbered(), max(total_steps - from_step, 0)),
                 depth=prefetch_depth, place_fn=place_step, lookahead=1,
-                rss_limit_mb=getattr(args, "prefetch_rss_mb", 0))
+                rss_limit_mb=getattr(args, "prefetch_rss_mb", 0),
+                tracer=tracer)
 
         # ---- memory admission and the degradation ladder ----------------
         oom_mode = getattr(args, "on_oom_risk", "warn")
@@ -1063,7 +1310,7 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                     break
             cuda_stats.reset_peak(device)
             peak["pending"] = device.type == "cuda"
-            clock["t"] = time.perf_counter()  # recovery is not step time
+            restart_interval()  # recovery is not step time
 
         stream = make_stream(start_step, start_step)
         # in-process rollback, armed only with the inverse load hook and a
@@ -1077,17 +1324,43 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                       getattr(args, "rollback_skip_streak", 3), 1),
                   "offset": max(getattr(args, "rollback_data_offset", 1), 0)}
 
+        def restart_interval():
+            """A pause that is not step time (eval, save, recovery) ends:
+            the flush interval starts again from now."""
+            clock["t"] = time.perf_counter()
+            clock["build_ms"] = 0.0
+
         def flush_metrics(emit_log=True):
             """One transfer for everything buffered since the last flush,
             then the CSV rows, the spike detector and the rollback
-            triggers per step, and one step_stats event."""
+            triggers per step, and one step_stats event. The interval's
+            per-step time (governor sleeps and kernel builds taken out)
+            is synced by that transfer: it feeds the step clock, the
+            watchdog's deadline, the slow-step trigger and MFU."""
             if not buffered:
                 return
             vals = torch.stack([torch.stack([m[k].float()
                                              for k in _METRIC_KEYS])
                                 for _, _, _, m in buffered]).cpu().tolist()
-            dt_ms = (time.perf_counter() - clock["t"]) * 1000 / len(buffered)
+            dt_ms = ((time.perf_counter() - clock["t"]) * 1000
+                     - clock["slept_ms"] - clock["build_ms"]) / len(buffered)
             wait_ms = clock["wait_ms"] / len(buffered)
+            prior_n, prior_med = step_clock.n, step_clock.median_ms()
+            step_clock.record(dt_ms / 1000.0)
+            if wd is not None:
+                wd.pet(buffered[-1][0], dt_ms / 1000.0)
+            # the slow-step trigger: this interval ran a multiple of the
+            # PRIOR rolling median (the slow sample does not judge itself);
+            # the --profile_dir window keeps priority
+            if (auto_prof is not None and slow_mult > 0 and prior_n >= 3
+                    and prior_med > 0 and dt_ms > slow_mult * prior_med
+                    and not prof["active"]):
+                if auto_prof.trigger("slow_step", buffered[-1][0] + 1):
+                    log.warning(f"auto_profile: step time {dt_ms:.1f} ms > "
+                                f"{slow_mult:g}x rolling median "
+                                f"{prior_med:.1f} ms: capturing "
+                                f"{auto_prof.steps} step(s)")
+            mfu = mfu_from(flops_per_step, dt_ms / 1000, peak_flops)
             extra = {}
             if peak["pending"]:
                 extra["peak_mb"] = cuda_stats.peak_hbm_mb(device)
@@ -1104,6 +1377,8 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                                 f"loss={loss:.4f}" + (
                                     f" z={anom['zscore']}"
                                     if anom["zscore"] else ""))
+                    if auto_prof is not None and not prof["active"]:
+                        auto_prof.trigger(anom["kind"], s + 1)
                 if rb is not None:
                     # a single skipped step or a one-off spike never
                     # triggers; `suppressed` (a failed rollback) holds the
@@ -1128,13 +1403,14 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                                     avg_loss=avg, lr=m["lr"],
                                     grad_norm=m["grad_norm"],
                                     step_time_ms=dt_ms, host_wait_ms=wait_ms,
-                                    tok_s=toks / (dt_ms / 1000))
+                                    tok_s=toks / (dt_ms / 1000), mfu=mfu)
             s, ep, toks, _ = buffered[-1]
             m = history[-1]
             tel.emit("step_stats", step=s + 1, loss=m["loss"], ema=ema.value,
                      lr=m["lr"], grad_norm=m["grad_norm"],
-                     step_time_ms=dt_ms, host_wait_ms=wait_ms, slept_ms=0.0,
-                     tok_s=toks / (dt_ms / 1000), mfu=None,
+                     step_time_ms=dt_ms, host_wait_ms=wait_ms,
+                     slept_ms=clock["slept_ms"],
+                     tok_s=toks / (dt_ms / 1000), mfu=mfu,
                      param_norm=m["param_norm"],
                      update_ratio=m["update_ratio"],
                      nonfinite_count=int(m["nonfinite_count"]),
@@ -1150,14 +1426,23 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                          f"ppl={perplexity_from_loss(m['loss']):.2f} "
                          f"grad_norm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
                          f"{toks / (dt_ms / 1000):.0f} tok/s "
-                         f"host_wait={wait_ms:.1f}ms")
+                         + (f"mfu={mfu:.3f} " if mfu is not None else "")
+                         + f"host_wait={wait_ms:.1f}ms")
             buffered.clear()
-            clock["t"] = time.perf_counter()
+            restart_interval()
             clock["wait_ms"] = 0.0
+            clock["slept_ms"] = 0.0
 
         def run_eval(step, kind):
-            ev = evaluate(eval_step, trainable, frozen, valid_ds,
-                          args.eval_batches, device, prefetch=prefetch_depth)
+            """One evaluation, charged to the `eval` bucket with the
+            watchdog paused (an eval may exceed any step deadline)."""
+            back = meter.phase
+            meter.enter("eval")
+            with pause():
+                ev = evaluate(eval_step, trainable, frozen, valid_ds,
+                              args.eval_batches, device,
+                              prefetch=prefetch_depth)
+            meter.enter(back)
             if kind == "eval":
                 log.info(f"eval @ step {step}: loss={ev['loss']:.4f} "
                          f"ppl={ev['ppl']:.2f} ({ev['tokens']} tokens)")
@@ -1180,31 +1465,34 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
             and return the resume step; None when no checkpoint qualifies
             (every verdict lands in the stream)."""
             nonlocal trainable, opt_state, stream, ema, spikes
-            try:  # the lineage must be settled: finish in-flight writes
-                ckpt.drain()
-            except Exception as e:
-                log.warning(f"rollback: checkpoint drain failed ({e}); "
-                            f"resolving against what is on disk")
-            from mobilefinetuner_tpu_torch.io.checkpoints import \
-                resolve_checkpoint
-            # max_step = at_step - 1: a checkpoint at the trigger boundary
-            # may already hold the poisoned update
-            resolved, to_step, events = resolve_checkpoint(
-                None, verify=bool(getattr(args, "verify_ckpt", 1)),
-                lineage_base=ckpt_path, max_step=at_step - 1)
-            for ev in events:
-                tel.emit("ckpt_verify", **ev)
-            if resolved is None or to_step is None:
-                tel.emit("rollback", step=at_step, reason=reason, ok=False,
-                         to_step=None, steps_lost=None, ckpt=None,
-                         data_offset=None, budget_left=rb["budget"])
-                log.warning(f"rollback wanted ({reason} @ step {at_step}) "
-                            f"but no verified checkpoint exists: "
-                            f"continuing without")
-                rb["streak"] = 0
-                rb["suppressed"] = True
-                return None
-            trainable, opt_state = load_hook(resolved)
+            with pause():
+                # the whole recovery is a known long pause: the drain of
+                # an in-flight write, the lineage walk and the load
+                try:  # the lineage must be settled: finish in-flight writes
+                    ckpt.drain()
+                except Exception as e:
+                    log.warning(f"rollback: checkpoint drain failed ({e}); "
+                                f"resolving against what is on disk")
+                from mobilefinetuner_tpu_torch.io.checkpoints import \
+                    resolve_checkpoint
+                # max_step = at_step - 1: a checkpoint at the trigger boundary
+                # may already hold the poisoned update
+                resolved, to_step, events = resolve_checkpoint(
+                    None, verify=bool(getattr(args, "verify_ckpt", 1)),
+                    lineage_base=ckpt_path, max_step=at_step - 1)
+                for ev in events:
+                    tel.emit("ckpt_verify", **ev)
+                if resolved is None or to_step is None:
+                    tel.emit("rollback", step=at_step, reason=reason, ok=False,
+                             to_step=None, steps_lost=None, ckpt=None,
+                             data_offset=None, budget_left=rb["budget"])
+                    log.warning(f"rollback wanted ({reason} @ step {at_step}) "
+                                f"but no verified checkpoint exists: "
+                                f"continuing without")
+                    rb["streak"] = 0
+                    rb["suppressed"] = True
+                    return None
+                trainable, opt_state = load_hook(resolved)
             rb["count"] += 1
             rb["budget"] -= 1
             rb["streak"] = 0
@@ -1216,7 +1504,7 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
             ema = EMA(args.ema_beta)
             spikes = _spike_detector(args)
             spikes.seed([], count_hint=to_step)
-            clock["t"] = time.perf_counter()  # recovery is not step time
+            restart_interval()  # recovery is not step time
             tel.emit("rollback", step=at_step, reason=reason, ok=True,
                      to_step=to_step, steps_lost=at_step - to_step,
                      ckpt=resolved, data_offset=data_offset,
@@ -1227,106 +1515,192 @@ def run_training(args, *, trainable, frozen, loss_fn, nll_fn,
                         f"{rb['budget']})")
             return to_step
 
+        # the --profile_dir window: one torch.profiler session over
+        # [profile_start, profile_start + profile_steps), written as a
+        # gzip Chrome trace when it closes; a profiler failure is logged
+        # and never ends the run
+        profile_dir = getattr(args, "profile_dir", "")
+        prof_start = start_step + getattr(args, "profile_start", 10)
+        prof_end = prof_start + getattr(args, "profile_steps", 5)
+        prof = {"active": False, "session": None}
+
+        def maybe_profile(step):
+            if not profile_dir:
+                return
+            try:
+                if step == prof_start and not prof["active"]:
+                    from torch.profiler import ProfilerActivity, profile
+                    acts = [ProfilerActivity.CPU] + (
+                        [ProfilerActivity.CUDA] if device.type == "cuda"
+                        else [])
+                    session = profile(activities=acts)
+                    session.__enter__()
+                    prof.update(active=True, session=session)
+                elif step >= prof_end and prof["active"]:
+                    session = prof["session"]
+                    prof.update(active=False, session=None)
+                    if device.type == "cuda":
+                        # the queued steps land inside the window
+                        torch.cuda.synchronize(device)
+                    session.__exit__(None, None, None)
+                    os.makedirs(profile_dir, exist_ok=True)
+                    path = write_chrome_trace_gz(session, os.path.join(
+                        profile_dir,
+                        f"steps{prof_start}-{step}.trace.json.gz"))
+                    log.info(f"profiler trace -> {path}")
+            except Exception as e:  # profiling must never kill training
+                log.warning(f"profiler: {e}")
+                prof.update(active=False, session=None)
+
+        def tick_sync(m):
+            """The flight recorder's stop: the launched step is done."""
+            return lambda: float(m["loss"])
+
         injector.arm_ballast(device)
         cuda_stats.reset_peak(device)
         peak["pending"] = device.type == "cuda"
+        if wd is not None:
+            wd.start()
         step = start_step
-        while step < total_steps:
-            t_wait = time.perf_counter()
-            step_i, epoch, batch = next(stream)
-            clock["wait_ms"] += (time.perf_counter() - t_wait) * 1000
-            assert step_i == step       # strict order
-            if injector.kind == "slow_step":
-                injector.maybe_slow(step)
-            while True:
-                failure = None
-                try:
-                    if injector.kind == "hbm_pressure":
-                        injector.maybe_oom_dispatch(step, device)
-                    trainable, opt_state, metrics = step_fn(
-                        trainable, frozen, opt_state, batch, step)
-                    break
-                except (KeyboardInterrupt, SystemExit):
-                    raise
-                except Exception as e:
-                    if not mg.is_resource_exhausted(e):
-                        raise
-                    failure = e
-                recover_dispatch_oom(failure, step)
-            toks = batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
-            buffered.append((step, epoch, toks, metrics))
-            log_boundary = bool(args.log_interval) \
-                and (step + 1) % args.log_interval == 0
-            if log_boundary or (step + 1) % flush_every == 0:
-                flush_metrics(emit_log=log_boundary)
-            if (args.eval_interval and valid_ds is not None
-                    and (step + 1) % args.eval_interval == 0):
-                flush_metrics(emit_log=False)
-                evals.append(run_eval(step + 1, "eval"))
-                clock["t"] = time.perf_counter()  # eval time is not step's
-            if args.save_every and save_hook and (step + 1) % \
-                    args.save_every == 0 and (step + 1) < total_steps:
-                flush_metrics(emit_log=False)
-                save_hook(step + 1, trainable, opt_state, final=False,
-                          ckpt=ckpt)
-                clock["t"] = time.perf_counter()
-                if injector.kind == "ckpt_corrupt" and ckpt_path:
-                    # flip a byte of the newest lineage entry once its
-                    # write has landed: a later load must fall back
+        try:
+            while step < total_steps:
+                meter.enter("input_wait")
+                t_wait = time.perf_counter()
+                step_i, epoch, batch = next(stream)
+                clock["wait_ms"] += (time.perf_counter() - t_wait) * 1000
+                meter.enter("step")
+                assert step_i == step       # strict order
+                maybe_profile(step)
+                if injector.kind == "slow_step":
+                    injector.maybe_slow(step)
+                while True:
+                    failure = None
                     try:
-                        ckpt.drain()
-                    except Exception:
-                        pass
-                    injector.maybe_corrupt_ckpt(ckpt_path)
-            state["done"] = step + 1 - start_step
-            if guard is not None and guard.triggered:
-                # the drain: the step in flight is done; flush, ONE final
-                # atomic checkpoint (final=True waits for the write), then
-                # the resumable exit
-                log.warning(f"{guard.signal_name} received: draining at "
-                            f"step {step + 1} (final save, then exit "
-                            f"{EXIT_PREEMPTED})")
-                flush_metrics(emit_log=False)
-                tel.emit("preempt", step=step + 1,
-                         signal=guard.signal_name or "SIGTERM")
-                if save_hook is not None:
-                    save_hook(step + 1, trainable, opt_state, final=True,
-                              ckpt=ckpt)
-                end_run("preempted", state["done"], reason="preempted")
-                raise SystemExit(EXIT_PREEMPTED)
-            if rb is not None and rb["due"] is not None:
-                # a flush in this iteration raised a trigger: act at the
-                # step boundary (the metrics buffer is empty)
-                reason, at_step = rb["due"]
-                rb["due"] = None
-                if rb["budget"] <= 0:
-                    tel.emit("rollback", step=at_step, reason=reason,
-                             ok=False, to_step=None, steps_lost=None,
-                             ckpt=None, data_offset=None, budget_left=0)
-                    log.warning(f"rollback budget exhausted; training on "
-                                f"through {reason} @ step {at_step}")
-                    rb = None
-                else:
-                    resumed = attempt_rollback(reason, at_step)
-                    if resumed is not None:
-                        step = resumed
-                        continue
-            step += 1
+                        if injector.kind == "hbm_pressure":
+                            injector.maybe_oom_dispatch(step, device)
+                        trainable, opt_state, metrics = step_fn(
+                            trainable, frozen, opt_state, batch, step)
+                        break
+                    except (KeyboardInterrupt, SystemExit):
+                        raise
+                    except Exception as e:
+                        if not mg.is_resource_exhausted(e):
+                            raise
+                        failure = e
+                    recover_dispatch_oom(failure, step)
+                toks = batch["input_ids"].shape[0] \
+                    * batch["input_ids"].shape[1]
+                buffered.append((step, epoch, toks, metrics))
+                if auto_prof is not None and auto_prof.active:
+                    # count down an armed capture; its stop reads the loss
+                    # first, so the launched step is inside the window
+                    auto_prof.tick(step, sync=tick_sync(metrics))
+                log_boundary = bool(args.log_interval) \
+                    and (step + 1) % args.log_interval == 0
+                if log_boundary or (step + 1) % flush_every == 0:
+                    flush_metrics(emit_log=log_boundary)
+                # idle reset only: the duration sample is the flush's
+                if wd is not None:
+                    wd.pet(step)
+                if (args.eval_interval and valid_ds is not None
+                        and (step + 1) % args.eval_interval == 0):
+                    flush_metrics(emit_log=False)
+                    evals.append(run_eval(step + 1, "eval"))
+                    restart_interval()  # eval time is not step time
+                if args.save_every and save_hook and (step + 1) % \
+                        args.save_every == 0 and (step + 1) < total_steps:
+                    flush_metrics(emit_log=False)
+                    # the checkpoint bucket spans only this blocking call:
+                    # under --async_save the snapshot; the write overlaps
+                    # `step` on the writer thread
+                    meter.enter("checkpoint")
+                    with pause():  # a slow save is not a hang
+                        save_hook(step + 1, trainable, opt_state,
+                                  final=False, ckpt=ckpt)
+                    meter.enter("step")
+                    restart_interval()
+                    if injector.kind == "ckpt_corrupt" and ckpt_path:
+                        # flip a byte of the newest lineage entry once its
+                        # write has landed: a later load must fall back
+                        try:
+                            ckpt.drain()
+                        except Exception:
+                            pass
+                        injector.maybe_corrupt_ckpt(ckpt_path)
+                meter.enter("governor_sleep")
+                clock["slept_ms"] += governor.throttle(step)
+                meter.enter("step")
+                state["done"] = step + 1 - start_step
+                if guard is not None and guard.triggered:
+                    # the drain: the step in flight is done; flush, ONE
+                    # final atomic checkpoint (final=True waits for the
+                    # write), then the resumable exit
+                    log.warning(f"{guard.signal_name} received: draining "
+                                f"at step {step + 1} (final save, then "
+                                f"exit {EXIT_PREEMPTED})")
+                    flush_metrics(emit_log=False)
+                    tel.emit("preempt", step=step + 1,
+                             signal=guard.signal_name or "SIGTERM")
+                    if save_hook is not None:
+                        meter.enter("checkpoint")
+                        with pause():  # a slow drain save is not a hang
+                            save_hook(step + 1, trainable, opt_state,
+                                      final=True, ckpt=ckpt)
+                    meter.enter("shutdown")
+                    end_run("preempted", state["done"], reason="preempted")
+                    raise SystemExit(EXIT_PREEMPTED)
+                if rb is not None and rb["due"] is not None:
+                    # a flush in this iteration raised a trigger: act at
+                    # the step boundary (the metrics buffer is empty)
+                    reason, at_step = rb["due"]
+                    rb["due"] = None
+                    if rb["budget"] <= 0:
+                        tel.emit("rollback", step=at_step, reason=reason,
+                                 ok=False, to_step=None, steps_lost=None,
+                                 ckpt=None, data_offset=None, budget_left=0)
+                        log.warning(f"rollback budget exhausted; training "
+                                    f"on through {reason} @ step {at_step}")
+                        rb = None
+                    else:
+                        resumed = attempt_rollback(reason, at_step)
+                        if resumed is not None:
+                            step = resumed
+                            continue
+                step += 1
+        finally:
+            # a profiler window still open when the loop ends (or dies)
+            # is closed here, so its trace lands on every exit path
+            if prof["active"]:
+                maybe_profile(prof_end)
         stream.close()
+        meter.enter("shutdown")
         flush_metrics()
         if valid_ds is not None and args.eval_interval:
             evals.append(run_eval(total_steps, "final_eval"))
         if save_hook:
-            save_hook(total_steps, trainable, opt_state, final=True,
-                      ckpt=ckpt)
+            # final=True drains the writer: this blocking span lands in
+            # the checkpoint bucket
+            meter.enter("checkpoint")
+            with pause():
+                save_hook(total_steps, trainable, opt_state, final=True,
+                          ckpt=ckpt)
+            meter.enter("shutdown")
         end_run("ok", total_steps - start_step)
         return trainable, opt_state, {"steps": history, "evals": evals}
     except BaseException as e:
         end_run(type(e).__name__, state["done"])
         raise
     finally:
-        # no leaked producer or writer thread, the process's previous
-        # signal handlers back (several runs may share a process)
+        # no leaked producer, writer, watchdog or server thread, no open
+        # capture, and the process's previous signal handlers back
+        # (several runs may share a process)
+        if wd is not None:
+            wd.stop()
+        if auto_prof is not None:
+            auto_prof.close()
+        if metrics_srv is not None:
+            metrics_srv.close()
+        exits.close()
         if stream is not None:
             stream.close()
         if ckpt is not None:
@@ -1344,6 +1718,23 @@ def eval_telemetry(args, device) -> Telemetry:
     tel = Telemetry(getattr(args, "telemetry_out", ""))
     tel.emit("run_start", **run_manifest(vars(args), device))
     return tel
+
+
+def eval_run_record(args, tel: Telemetry, device, tool: str):
+    """An eval CLI's run-registry record (--run_registry, else
+    $MFT_RUN_REGISTRY; None when neither is set), begun right after
+    run_start; the CLI finalizes it with "ok" before its run_end. A run
+    that dies before is settled to "interrupted" on the next registry
+    open, as in the JAX eval CLIs."""
+    registry = RunRegistry.from_args(args)
+    if registry is None:
+        return None
+    device = resolve_device(device)
+    return registry.begin(
+        "eval", tool, config=vars(args),
+        platform="gpu" if device.type == "cuda" else device.type,
+        artifacts=[p for p in (tel.path, getattr(args, "out", "")) if p],
+        telemetry=tel)
 
 
 def preflight_eval(est_mb: float, args, tel: Telemetry, device,

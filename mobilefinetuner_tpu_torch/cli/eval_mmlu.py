@@ -34,8 +34,8 @@ estimate of core/memory_guard.py where the JAX CLI judges the compiled
 worst-bucket step): `--on_oom_risk fail` raises MemoryAdmissionError,
 `degrade` and `warn` proceed with a warning. `--telemetry_out` writes
 run_start, mem_check, one `eval` (accuracy fields, loss and ppl null) and
-run_end. The run registry (ROADMAP.md port item P6) raises
-NotImplementedError (cli/common.NOT_PORTED).
+run_end (its goodput None, as in the JAX eval CLIs); `--run_registry`
+adds one registry record, finalized "ok" before run_end.
 """
 
 from __future__ import annotations
@@ -87,7 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry_out", default="",
                    help="run-telemetry JSONL stream (core/telemetry.py)")
     p.add_argument("--run_registry", default="",
-                   help="not ported yet (ROADMAP.md P6)")
+                   help="append-only run registry stream (core/"
+                        "run_registry.py): one crash-safe record per "
+                        "eval run; default $MFT_RUN_REGISTRY, empty = "
+                        "off")
     p.add_argument("--eval_batch", type=int, default=16,
                    help="items per forward (bucketed batching)")
     p.add_argument("--attention_impl", choices=["auto", "xla", "flash"],
@@ -186,6 +189,7 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
         max_items_per_subject=args.max_items, max_len=max_len)
     B = max(args.eval_batch, 1)
     tel = common.eval_telemetry(args, device)
+    run_rec = common.eval_run_record(args, tel, device, "eval_mmlu")
     worst_S = max((mmlu.bucket_for(len(w[4]), max_len=max_len)
                    for w in work), default=max_len)
     family = (detect_family(args.pretrained_dir) if args.family == "auto"
@@ -263,6 +267,10 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     tel.emit("eval", step=result.total, loss=None, ppl=None,
              tokens=result.total, macro_accuracy=report["macro_accuracy"],
              micro_accuracy=report["micro_accuracy"])
+    # the registry's `run` end event lands before run_end, which stays
+    # the stream's last event
+    if run_rec is not None:
+        run_rec.finalize("ok")
     tel.emit("run_end", steps=result.total,
              wall_s=round(time.perf_counter() - t_run, 3), exit="ok",
              goodput=None)

@@ -29,8 +29,9 @@ of core/memory_guard.py where the JAX CLI judges its ahead-of-time
 compile): `--on_oom_risk fail` raises MemoryAdmissionError there,
 `degrade` and `warn` proceed with a warning (eval has no ladder).
 `--telemetry_out` writes run_start, mem_check, one `eval` per progress
-line and at the end, and run_end. The run registry (ROADMAP.md port item
-P6) raises NotImplementedError when set (cli/common.NOT_PORTED).
+line and at the end, and run_end (its goodput None, as in the JAX eval
+CLIs); `--run_registry` adds one registry record, finalized "ok" before
+run_end.
 """
 
 from __future__ import annotations
@@ -88,7 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry_out", default="",
                    help="run-telemetry JSONL stream (core/telemetry.py)")
     p.add_argument("--run_registry", default="",
-                   help="not ported yet (ROADMAP.md P6)")
+                   help="append-only run registry stream (core/"
+                        "run_registry.py): one crash-safe record per "
+                        "eval run; default $MFT_RUN_REGISTRY, empty = "
+                        "off")
     common.add_mem_flags(p)
     common.add_device_flag(p)
     return p
@@ -136,6 +140,7 @@ def main(argv=None) -> int:
                           pad_id=pad_id)
     jsonl = JSONLWriter(args.out) if args.out else None
     tel = common.eval_telemetry(args, device)
+    run_rec = common.eval_run_record(args, tel, device, "eval_ppl")
     if family == "gemma":
         fp = mg.gemma3_footprint(config, compute_dtype, args.seq_len,
                                  args.loss_chunks, head_trains=False)
@@ -190,6 +195,10 @@ def main(argv=None) -> int:
     if jsonl:
         jsonl.write(record)
     tel.emit("eval", step=n_done, loss=mean, ppl=ppl, tokens=count)
+    # the registry's `run` end event lands before run_end, which stays
+    # the stream's last event
+    if run_rec is not None:
+        run_rec.finalize("ok")
     # goodput is None: the eval CLIs have no metered phase loop
     tel.emit("run_end", steps=n_done, wall_s=round(time.time() - t0, 3),
              exit="ok", goodput=None)

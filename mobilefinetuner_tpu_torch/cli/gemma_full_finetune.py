@@ -147,7 +147,11 @@ def main(argv=None) -> int:
         ckpt_path=args.output_path,
         footprint=mg.gemma3_footprint(config, compute_dtype, args.seq_len,
                                       args.loss_chunks, head_trains=True),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype,
+        # in-loop MFU from the JAX CLI's estimate (core/telemetry.py)
+        flops_per_step=common.step_flops(
+            args, tc, params, None, config.num_hidden_layers,
+            config.num_attention_heads, config.head_dim, full_ft=True))
     return 0
 
 

@@ -173,7 +173,11 @@ def main(argv=None) -> int:
         load_hook=common.make_rollback_loader(tc, None, load_trainable),
         ckpt_path=args.output_path,
         footprint=mg.gpt2_footprint(config, compute_dtype, args.seq_len),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype,
+        # in-loop MFU from the JAX CLI's estimate (core/telemetry.py)
+        flops_per_step=common.step_flops(
+            args, tc, params, None, config.n_layer, config.n_head,
+            config.head_dim, full_ft=True))
     return 0
 
 

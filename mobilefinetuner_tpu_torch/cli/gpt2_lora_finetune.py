@@ -205,7 +205,11 @@ def main(argv=None) -> int:
             tc, mask, lambda p: peft_io.load_adapter(p, device=device)[0]),
         ckpt_path=args.lora_out,
         footprint=mg.gpt2_footprint(config, compute_dtype, args.seq_len),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype,
+        # in-loop MFU from the JAX CLI's estimate (core/telemetry.py)
+        flops_per_step=common.step_flops(
+            args, tc, lora, params, config.n_layer, config.n_head,
+            config.head_dim, full_ft=False))
     return 0
 
 

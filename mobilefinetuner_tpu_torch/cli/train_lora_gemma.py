@@ -194,7 +194,11 @@ def main(argv=None) -> int:
         ckpt_path=final_path,
         footprint=mg.gemma3_footprint(config, compute_dtype, args.seq_len,
                                       args.loss_chunks, head_trains=False),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype,
+        # in-loop MFU from the JAX CLI's estimate (core/telemetry.py)
+        flops_per_step=common.step_flops(
+            args, tc, lora, params, config.num_hidden_layers,
+            config.num_attention_heads, config.head_dim, full_ft=False))
     return 0
 
 

@@ -1,6 +1,8 @@
-"""The run-telemetry stream and the loss-spike detector (port of
-mobilefinetuner_tpu/core/telemetry.py: the event schema and validator,
-the JSONL sink, `run_manifest`, `SpikeConfig` / `SpikeDetector`).
+"""The run-telemetry stream, the loss-spike detector and the run's
+wall-clock and FLOP accounting (port of mobilefinetuner_tpu/core/
+telemetry.py: the event schema and validator, the JSONL sink with its
+observers, `run_manifest`, `SpikeConfig` / `SpikeDetector`, the goodput
+meter, the step clock, the hang watchdog and MFU).
 
 One run-scoped, crash-durable JSONL stream that the train and eval CLIs
 write through, with the JAX package's event taxonomy (`EVENT_SCHEMA`)
@@ -12,21 +14,28 @@ the train loop formats what its one metrics transfer a flush returned.
 
 `run_manifest` fills the schema's `jax_version` with `NO_JAX` (no JAX is
 in use) and adds `torch_version` and `cuda_version` (the schema is a
-floor). Not here yet, with the rest of ROADMAP.md port item P6: the
-goodput meter, the step clock, the hang watchdog and MFU (`run_end`'s
-`goodput` is None, `step_stats.mfu` None).
+floor).
+
+MFU: `transformer_flops` is the JAX package's analytic estimate, and
+`device_peak_flops` reads a table of NVIDIA parts keyed on substrings of
+`torch.cuda.get_device_name()` (the CPU and unknown cards give 0.0, so
+MFU is None rather than a ratio against a made-up peak).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import faulthandler
 import json
 import math
 import os
+import statistics
+import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -625,20 +634,25 @@ def _json_finite(v):
 class Telemetry:
     """Append-only JSONL event stream, one record per `emit` call.
 
-    A falsy `path` (or enabled=False) makes every method a no-op, so call
-    sites never branch. Appending to an existing file continues its seq
-    numbering — the crash/resume contract: one stream per run directory,
-    ordered across process restarts. `resumed` is True exactly then, and
+    A falsy `path` (or enabled=False) writes nothing, so call sites never
+    branch. Appending to an existing file continues its seq numbering —
+    the crash/resume contract: one stream per run directory, ordered
+    across process restarts. `resumed` is True exactly then, and
     `trailing_step_stats` holds the prior run's tail of step_stats
     records (the spike-detector re-seed source).
 
     `host` stamps every record's envelope with the writing process index
     (0: the port runs one process until ROADMAP.md port item P9; the JAX
     package's multi-host shards are `shard_path`'s names). emit is
-    lock-serialized, so the checkpoint writer's thread reports through
-    the same stream as the step loop. (The JAX sink's observers, which
-    feed its metrics endpoint, and its hard-exit flush come with
-    ROADMAP.md port item P6.)
+    lock-serialized, so the checkpoint writer's thread, the prefetch
+    producer and the hang watchdog report through the same stream as the
+    step loop.
+
+    Observers (`add_observer`) see every emitted record in-process: the
+    metrics endpoint's registry (core/metrics_http.py) rides here, fed
+    by the same emit as the file. They run under the emit lock on
+    whichever thread emitted, even when the stream has no file, and an
+    observer's exception never reaches the emitter.
     """
 
     def __init__(self, path: str = "", enabled: bool = True,
@@ -650,6 +664,7 @@ class Telemetry:
         self._seq = 0
         self._lock = threading.Lock()
         self._closed = False
+        self._observers: List[Callable] = []
         self.resumed = False
         self.trailing_step_stats: List[dict] = []
         if self.enabled:
@@ -671,32 +686,71 @@ class Telemetry:
                         self._f.flush()
 
     def emit(self, event: str, **fields) -> Optional[dict]:
-        """Append one event; returns the record (None when disabled).
-        Per-event flush: the stream survives a SIGKILL mid-run.
-        Non-finite floats are serialized as null — json.dumps' default
-        NaN/Infinity literals are invalid RFC 8259 and would break strict
-        consumers (jq, JSON.parse) on exactly the divergence records the
-        stream exists to capture; the `anomaly` event's kind field
-        carries the non-finiteness."""
+        """Append one event; returns the record (None when nothing was
+        written to a file). Per-event flush: the stream survives a
+        SIGKILL mid-run. Non-finite floats are serialized as null —
+        json.dumps' default NaN/Infinity literals are invalid RFC 8259
+        and would break strict consumers (jq, JSON.parse) on exactly the
+        divergence records the stream exists to capture; the `anomaly`
+        event's kind field carries the non-finiteness."""
         with self._lock:
-            # a closed stream is a no-op: nested end-of-run handlers
-            # compose without a second run_end
-            if self._closed or not self.enabled or self._f is None:
+            # a closed stream is a no-op, observers included: nested
+            # end-of-run handlers compose without a second run_end
+            if self._closed:
+                return None
+            writable = self.enabled and self._f is not None
+            if not writable and not self._observers:
                 return None
             # envelope last: a payload field may not shadow the stream's
             # identity keys (event/seq/t/t_mono/host) — the straggler
             # event learned this the hard way (its slow-host field is
             # named slow_host for exactly this reason). t_mono is the
-            # monotonic sibling of wall `t` (round 17): span alignment
+            # monotonic sibling of wall `t`: span alignment
             # in trace_export reads the per-host (t - t_mono) offset,
             # immune to NTP steps moving wall time mid-run.
             rec = {**{k: _json_finite(v) for k, v in fields.items()},
                    "event": event, "seq": self._seq, "t": time.time(),
                    "t_mono": time.perf_counter(), "host": self.host}
             self._seq += 1
-            self._f.write(json.dumps(rec) + "\n")
-            self._f.flush()
-            return rec
+            if writable:
+                self._f.write(json.dumps(rec) + "\n")
+                self._f.flush()
+            for ob in self._observers:
+                try:
+                    ob(rec)
+                except Exception:
+                    pass  # a broken observer must not kill the emitter
+            return rec if writable else None
+
+    def add_observer(self, fn: Callable[[dict], Any]) -> None:
+        """Register an in-process consumer of every emitted record
+        (called under the emit lock, record at a time, exceptions
+        swallowed)."""
+        with self._lock:
+            self._observers.append(fn)
+
+    def flush_tail(self) -> None:
+        """Durability barrier before a hard exit (`os._exit` skips every
+        Python-level cleanup): take the emit lock, so no write is
+        mid-flight on another thread, flush and fsync, and
+        newline-terminate the file if its last byte is not a newline.
+        After this the stream's tail is a complete line."""
+        with self._lock:
+            if self._f is None or not self.enabled:
+                return
+            try:
+                self._f.flush()
+                os.fsync(self._f.fileno())
+                with open(self.path, "rb+") as rf:
+                    rf.seek(0, os.SEEK_END)
+                    if rf.tell() > 0:
+                        rf.seek(-1, os.SEEK_END)
+                        if rf.read(1) != b"\n":
+                            rf.write(b"\n")
+                            rf.flush()
+                            os.fsync(rf.fileno())
+            except OSError:
+                pass  # best effort: the abort proceeds regardless
 
     def close(self):
         with self._lock:
@@ -711,6 +765,22 @@ class Telemetry:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    @property
+    def last_seq(self) -> int:
+        """seq of the most recently emitted record (-1: none yet); the
+        hang event reports it."""
+        return self._seq - 1
+
+    @classmethod
+    def for_process(cls, path: str, process_index: int = 0) -> "Telemetry":
+        """The stream of this process: process 0 writes `path`, process k
+        its `.host<k>` shard (`shard_path`), each record host-stamped.
+        The port runs one process (scale-out is ROADMAP.md P9), so the
+        index is the caller's to give."""
+        if not path:
+            return cls("")
+        return cls(shard_path(path, process_index), host=process_index)
 
 
 def run_manifest(config: dict, device=None) -> dict:
@@ -858,3 +928,391 @@ class SpikeDetector:
             fed += 1
         self.count = max(self.count, int(count_hint))
         return fed
+
+
+# --------------------------- goodput accounting -----------------------------
+
+# Every second of a run's wall-clock lands in exactly one bucket:
+#   init           process start -> first batch requested (model load,
+#                  placement, stream construction)
+#   compile        blocked building kernels: in the port, the nvcc build
+#                  of a kernel library at its first use (kernels/build.py;
+#                  0 with a warm build/kernels/)
+#   step           dispatching/retiring optimizer steps (the productive
+#                  bucket; includes the flush transfer, which is time
+#                  spent WAITING for useful device work)
+#   input_wait     step loop blocked pulling the next batch from the
+#                  input pipeline (host-bound: tokenization/refetch)
+#   eval           in-loop + final evaluation
+#   checkpoint     save_hook wall time
+#   governor_sleep duty-cycle throttle sleeps (deliberate idleness)
+#   shutdown       post-loop teardown until run_end
+GOODPUT_BUCKETS = ("init", "compile", "step", "input_wait", "eval",
+                   "checkpoint", "governor_sleep", "shutdown")
+
+
+class GoodputMeter:
+    """Wall-clock classifier: at any instant the run is in exactly ONE
+    phase, `enter(phase)` charges the elapsed time to the previous one,
+    so the buckets sum to total wall-clock by construction. `summary()`
+    is the run_end `goodput` payload.
+
+    With a `tracer` (core/trace.py, --trace_spans) every phase segment
+    also lands as a `span` event on the "phase" track: the transition
+    that charges the bucket emits the span, so the exported timeline's
+    per-bucket span sums reconcile with run_end's buckets
+    (tools/trace_export.py prints the check)."""
+
+    def __init__(self, tracer=None):
+        self.buckets = {b: 0.0 for b in GOODPUT_BUCKETS}
+        self._phase = "init"
+        self._mark = time.perf_counter()
+        self._tracer = tracer
+
+    @property
+    def phase(self) -> str:
+        return self._phase
+
+    def enter(self, phase: str) -> None:
+        assert phase in self.buckets, phase
+        now = time.perf_counter()
+        self.buckets[self._phase] += now - self._mark
+        if self._tracer is not None:
+            self._tracer.emit_span(self._phase, "phase", self._mark,
+                                   (now - self._mark) * 1000.0)
+        self._mark = now
+        self._phase = phase
+
+    def summary(self) -> dict:
+        """Close the current phase and render {total_s, productive_frac,
+        <bucket>_s...}. productive_frac = step / total. total_s is the
+        sum of the ROUNDED buckets, so the emitted record itself
+        satisfies the sum-to-total identity."""
+        self.enter(self._phase)  # charge the open phase through `now`
+        out = {f"{b}_s": round(v, 4) for b, v in self.buckets.items()}
+        total = round(sum(out.values()), 6)
+        out["total_s"] = total
+        out["productive_frac"] = round(
+            out["step_s"] / total, 4) if total > 0 else 0.0
+        return out
+
+
+# --------------------------- step-time window -------------------------------
+
+class StepClock:
+    """Rolling host-side per-step time window (re-exported as
+    train.trainer.StepClock).
+
+    The step loop feeds it the FLUSH-INTERVAL synced per-step average
+    (the same number step_stats.step_time_ms publishes, governor sleep
+    excluded): under asynchronous launches a per-iteration wall clock
+    measures only launch latency. Consumers read the median, which one
+    build- or eval-inflated sample does not shift. `reset()` starts a
+    fresh window."""
+
+    def __init__(self, window: int = 512):
+        self._durs: collections.deque = collections.deque(maxlen=window)
+
+    def record(self, seconds: float) -> None:
+        self._durs.append(max(float(seconds), 0.0))
+
+    @property
+    def n(self) -> int:
+        return len(self._durs)
+
+    def median_s(self) -> float:
+        return statistics.median(self._durs) if self._durs else 0.0
+
+    def median_ms(self) -> float:
+        return self.median_s() * 1000.0
+
+    def reset(self) -> None:
+        self._durs.clear()
+
+
+# --------------------------- hang watchdog ----------------------------------
+
+class HangWatchdog:
+    """Daemon-thread deadline on step completion.
+
+    State machine: GRACE (armed at start(), deadline `grace_s`, covering
+    pre-first-step setup; a kernel build is wrapped in paused() by the
+    caller, as cli/common.run_training does) -> ARMED (after the first
+    pet(), deadline max(mult x rolling-median step time,
+    min_deadline_s), re-armed by every pet; SUSPENDED across known long
+    pauses — eval, checkpoint — via suspend()/resume()) -> FIRED
+    (deadline expired with no pet: dump every Python thread's stack via
+    faulthandler to `stacks_file`, probe the device with a trivial op
+    under a bounded side-thread join, report through `on_hang`, then
+    either re-arm with a doubled deadline — so a wedged run logs
+    O(log) hang events, not one per deadline — or abort the process
+    with exit code 113 after `flush_fn`). stop() ends the thread.
+
+    Everything observable is injectable (`probe_fn`, `abort_fn`,
+    `flush_fn`) so the injected-stall tests are deterministic and never
+    kill the test process.
+    """
+
+    def __init__(self, mult: float = 10.0, min_deadline_s: float = 60.0,
+                 grace_s: float = 300.0,
+                 on_hang: Optional[Callable[[dict], Any]] = None,
+                 stacks_file: str = "", abort: bool = False,
+                 probe_fn: Optional[Callable[[], Any]] = None,
+                 abort_fn: Optional[Callable[[int], Any]] = None,
+                 window: int = 31, probe_timeout_s: float = 5.0,
+                 flush_fn: Optional[Callable[[], Any]] = None):
+        self.mult = float(mult)
+        self.min_deadline_s = float(min_deadline_s)
+        self.grace_s = float(grace_s)
+        self.on_hang = on_hang
+        self.stacks_file = stacks_file or os.path.join(
+            tempfile.gettempdir(), f"hang_stacks_{os.getpid()}.txt")
+        self.abort = bool(abort)
+        self._probe_fn = probe_fn
+        self._abort_fn = abort_fn or os._exit
+        self._flush_fn = flush_fn
+        self._probe_timeout_s = float(probe_timeout_s)
+        self._clock = StepClock(window=window)
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._stop = False
+        self._suspended = False
+        self._last_pet = time.perf_counter()
+        self._last_step = -1
+        self._deadline_s = max(self.grace_s, self.min_deadline_s)
+        self._backoff = 1.0
+        self.fired = 0  # hang events raised
+        self._thread: Optional[threading.Thread] = None
+
+    # -- step-loop side -----------------------------------------------------
+    def start(self) -> "HangWatchdog":
+        # the grace clock starts here, not at construction
+        self._last_pet = time.perf_counter()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="hang-watchdog")
+        self._thread.start()
+        return self
+
+    def pet(self, step: int, step_s: Optional[float] = None) -> None:
+        """A step completed: re-arm the idle deadline; with `step_s`,
+        also feed a duration sample and recompute the deadline (the loop
+        pets every iteration and feeds samples at flush boundaries,
+        where the per-step time is synced)."""
+        with self._lock:
+            if step_s is not None:
+                self._clock.record(step_s)
+                self._deadline_s = max(self.mult * self._clock.median_s(),
+                                       self.min_deadline_s)
+            self._backoff = 1.0
+            self._last_step = step
+            self._last_pet = time.perf_counter()
+        self._wake.set()
+
+    def touch(self) -> None:
+        """Reset the idle clock without a completed step."""
+        with self._lock:
+            self._last_pet = time.perf_counter()
+        self._wake.set()
+
+    def suspend(self) -> None:
+        """Stop the deadline clock across a long pause the loop knows
+        about (eval, checkpoint save, a kernel build)."""
+        with self._lock:
+            self._suspended = True
+        self._wake.set()
+
+    def resume(self) -> None:
+        """End a suspend(): the idle clock restarts from now."""
+        with self._lock:
+            self._suspended = False
+            self._last_pet = time.perf_counter()
+        self._wake.set()
+
+    @contextlib.contextmanager
+    def paused(self):
+        """suspend()/resume() as a with-block."""
+        self.suspend()
+        try:
+            yield
+        finally:
+            self.resume()
+
+    def stop(self) -> None:
+        self._stop = True
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+
+    # -- watchdog-thread side -----------------------------------------------
+    def _probe_device(self) -> str:
+        """Run the probe in a bounded side thread: a wedged device may
+        never return, and the watchdog thread must survive to report."""
+        if self._probe_fn is None:
+            return "skipped"
+        result = {}
+
+        def go():
+            try:
+                self._probe_fn()
+                result["r"] = "ok"
+            except BaseException as e:  # noqa: BLE001 - report, not mask
+                result["r"] = f"error:{type(e).__name__}"
+
+        t = threading.Thread(target=go, daemon=True, name="hang-probe")
+        t.start()
+        t.join(timeout=self._probe_timeout_s)
+        return result.get("r", "timeout")
+
+    def _dump_stacks(self) -> None:
+        try:
+            with open(self.stacks_file, "a") as f:
+                f.write(f"=== hang at {time.strftime('%Y-%m-%d %H:%M:%S')}"
+                        f" (last step {self._last_step}) ===\n")
+                f.flush()
+                faulthandler.dump_traceback(file=f, all_threads=True)
+        except OSError:
+            pass  # the report event still fires
+
+    def _run(self) -> None:
+        while not self._stop:
+            with self._lock:
+                deadline = self._deadline_s * self._backoff
+                idle = time.perf_counter() - self._last_pet
+                suspended = self._suspended
+            if suspended:
+                self._wake.wait(timeout=0.25)
+                self._wake.clear()
+                continue
+            if idle < deadline:
+                self._wake.wait(timeout=max(deadline - idle, 0.02))
+                self._wake.clear()
+                continue
+            # deadline expired with no completed step: FIRED
+            self._dump_stacks()
+            probe = self._probe_device()
+            self.fired += 1
+            payload = {"step": self._last_step,  # last COMPLETED step
+                       "stall_s": round(idle, 3),
+                       "deadline_s": round(deadline, 3),
+                       "stacks_file": self.stacks_file,
+                       "device_probe": probe,
+                       "action": "abort" if self.abort else "continue"}
+            if self.on_hang is not None:
+                try:
+                    self.on_hang(payload)
+                except Exception:
+                    pass  # reporting failure must not kill the watchdog
+            if self.abort:
+                # a wedged device cannot be unwound by raising in another
+                # thread: hard exit, after the caller's flush barrier
+                # (Telemetry.flush_tail) so the stream ends with the
+                # complete hang record
+                if self._flush_fn is not None:
+                    try:
+                        self._flush_fn()
+                    except Exception:
+                        pass  # the abort proceeds regardless
+                self._abort_fn(113)
+                return
+            with self._lock:
+                self._last_pet = time.perf_counter()
+                self._backoff *= 2.0  # O(log) events while truly wedged
+
+
+def device_probe(device) -> Callable[[], None]:
+    """The watchdog's device probe, run on its bounded side thread, never
+    on the step thread: on the card a synchronize of `device`
+    (set_device first: the current device is per thread), which returns
+    only when the card has finished what was queued; on the CPU a
+    trivial op."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return lambda: torch.zeros(()).add_(1)
+
+    def probe():
+        torch.cuda.set_device(device)
+        torch.cuda.synchronize(device)
+    return probe
+
+
+# --------------------------- partial goodput (reader side) ------------------
+
+def partial_goodput(events: Sequence[dict]) -> dict:
+    """Best-effort goodput buckets for a TRUNCATED stream (killed run, no
+    run_end): compile and checkpoint wall times are explicit, governor
+    sleep totals ride in step_stats.slept_ms, and input-wait is the
+    flush-interval host-wait fraction applied to the observed step span.
+    Marked partial=True; the buckets do NOT sum to wall-clock."""
+    compile_s = sum(e.get("wall_s") or 0.0 for e in events
+                    if e.get("event") == "compile")
+    ckpt_s = sum(e.get("wall_s") or 0.0 for e in events
+                 if e.get("event") == "checkpoint")
+    stats = [e for e in events if e.get("event") == "step_stats"]
+    sleep_s = sum((e.get("slept_ms") or 0.0) for e in stats) / 1000.0
+    times = sum(e.get("step_time_ms") or 0.0 for e in stats)
+    waits = sum(e.get("host_wait_ms") or 0.0 for e in stats)
+    wait_frac = waits / times if times > 0 else 0.0
+    first_t = events[0]["t"] if events else 0.0
+    last_t = events[-1]["t"] if events else 0.0
+    span = max(last_t - first_t, 0.0)
+    return {
+        "partial": True,
+        "compile_s": round(compile_s, 4),
+        "checkpoint_s": round(ckpt_s, 4),
+        "governor_sleep_s": round(sleep_s, 4),
+        "input_wait_frac_of_step": round(wait_frac, 4),
+        "observed_span_s": round(span, 4),
+    }
+
+
+# --------------------------- FLOP / MFU accounting --------------------------
+
+def transformer_flops(n_params_active, n_params_frozen, B, S, n_layer,
+                      n_head, head_dim, full_ft):
+    """FLOPs per optimizer step (forward+backward), the standard
+    estimate: matmul fwd = 2*N*T; backward dx = 2*N*T always (the loss
+    gradient flows through frozen weights to reach LoRA/embedding
+    sites), dW only for trained weights; + attention 2*2*B*H*S^2*D fwd,
+    doubled in bwd."""
+    T = B * S
+    N = n_params_active + n_params_frozen
+    fwd = 2 * N * T
+    bwd = 2 * N * T + 2 * (n_params_active if not full_ft else N) * T
+    attn = 4 * B * n_layer * n_head * S * S * head_dim
+    return fwd + bwd + 3 * attn
+
+
+# Dense bf16 tensor-core peak FLOP/s per card, by lower-cased substring of
+# torch.cuda.get_device_name(); matched longest substring first. Source:
+# NVIDIA H100 Tensor Core GPU datasheet, "BF16 Tensor Core" row, whose
+# figures are with sparsity: half of them is the dense peak (H100 SXM
+# 1,979 -> 989 TFLOP/s; H100 PCIe 1,513 -> 756 TFLOP/s). The SXM part
+# names itself "NVIDIA H100 80GB HBM3".
+DEVICE_PEAK_FLOPS = {
+    "h100 80gb hbm3": 989e12,
+    "h100 pcie": 756e12,
+}
+
+
+def device_peak_flops(device_kind: Optional[str] = None) -> float:
+    """Peak dense bf16 FLOP/s of one card, whatever the run's dtype; 0.0
+    when unknown (the CPU, a card not in the table), so that MFU is
+    None rather than a ratio against a made-up peak. `device_kind`
+    None: the name of CUDA device 0 when there is one, else "cpu"."""
+    if device_kind is None:
+        device_kind = (torch.cuda.get_device_name(0)
+                       if torch.cuda.is_available() else "cpu")
+    kind = device_kind.lower()
+    for sub in sorted(DEVICE_PEAK_FLOPS, key=len, reverse=True):
+        if sub in kind:
+            return DEVICE_PEAK_FLOPS[sub]
+    return 0.0
+
+
+def mfu_from(flops_per_step: Optional[float], step_time_s: float,
+             peak_flops: float) -> Optional[float]:
+    """Model FLOP utilization for one step; None when either side of the
+    ratio is unknown (no analytic estimate, or no known peak)."""
+    if not flops_per_step or step_time_s <= 0 or peak_flops <= 0:
+        return None
+    return flops_per_step / step_time_s / peak_flops

@@ -27,9 +27,11 @@ a timeout and re-checks a stop event) and joins the thread.
 
 `rss_limit_mb` > 0 is the host-memory shed guard: while the process RSS
 (core/memory_guard.host_rss_mb) is above it and the consumer still has
-queued batches, the producer holds off assembling the next one. The JAX
-package's span tracer (`tracer=`) is telemetry, ROADMAP.md port item P6,
-and is not taken here.
+queued batches, the producer holds off assembling the next one.
+
+`tracer` (core/trace.Tracer, --trace_spans): each batch the producer
+thread assembles lands as a `span` on the "prefetch" track, so the
+exported timeline shows host batch assembly beside the device steps.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterable, Iterator, Optional
 
 from mobilefinetuner_tpu_torch.core.logging import get_logger
@@ -62,15 +65,17 @@ class Prefetcher:
     applied in order, `lookahead` items ahead of the consumer.
     rss_limit_mb, rss_fn: the shed guard (module docstring); rss_fn
     stands in for host_rss_mb in tests, and a sensor that returns None
-    turns the guard off.
+    turns the guard off. tracer: producer spans (module docstring).
     """
 
     def __init__(self, source: Iterable, depth: int = 2,
                  place_fn: Optional[Callable[[Any], Any]] = None,
                  lookahead: int = 1, rss_limit_mb: float = 0,
-                 rss_fn: Optional[Callable[[], Optional[float]]] = None):
+                 rss_fn: Optional[Callable[[], Optional[float]]] = None,
+                 tracer=None):
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
+        self._tracer = tracer
         self._place = place_fn if place_fn is not None else (lambda x: x)
         self._lookahead = max(lookahead, 0) if depth > 0 else 0
         self._buf: collections.deque = collections.deque()
@@ -132,15 +137,22 @@ class Prefetcher:
     def _produce(self, source):
         try:
             it = iter(source)
+            n = 0
             while True:
                 self._shed_on_rss()
                 if self._stop.is_set():
                     return
+                t0 = time.perf_counter()
                 try:
                     item = next(it)
                 except StopIteration:
                     self._put(_DONE)
                     return
+                if self._tracer is not None:
+                    self._tracer.emit_span(
+                        f"produce[{n}]", "prefetch", t0,
+                        (time.perf_counter() - t0) * 1000.0)
+                n += 1
                 if not self._put(item):
                     return
         except BaseException as e:  # noqa: BLE001 - carried to the consumer

@@ -25,8 +25,11 @@ A save splits in two:
 `enabled=False` is the synchronous oracle (`--async_save 0`): the same
 write function runs inline, so the files are byte-identical either way.
 The `checkpoint` event is emitted here, where the split is measured:
-`wall_s` / `snapshot_ms` the blocking part, `write_ms` / `bytes` / `mb_s`
-the write.
+`wall_s` / `snapshot_ms` the blocking part (the number the run's goodput
+`checkpoint` bucket counts), `write_ms` / `bytes` / `mb_s` the write,
+which under async overlaps the `step` bucket. With a `tracer`
+(--trace_spans) each write is also a `span` on the "ckpt" track, emitted
+from the writer thread.
 """
 
 from __future__ import annotations
@@ -142,9 +145,10 @@ class AsyncCheckpointer:
     serialises the writer thread's events with the loop's)."""
 
     def __init__(self, enabled: bool = True,
-                 event_sink: Optional[Callable] = None):
+                 event_sink: Optional[Callable] = None, tracer=None):
         self.enabled = bool(enabled)
         self._sink = event_sink
+        self._tracer = tracer
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._pending: Optional[_SaveItem] = None
@@ -246,6 +250,9 @@ class AsyncCheckpointer:
         finally:
             item.done.set()
         write_ms = (time.perf_counter() - t0) * 1000.0
+        if self._tracer is not None:
+            self._tracer.emit_span(f"ckpt_write(step {item.step})",
+                                   "ckpt", t0, write_ms, step=item.step)
         nbytes = 0
         for p in paths:
             try:

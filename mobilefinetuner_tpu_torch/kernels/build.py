@@ -13,16 +13,23 @@ starts one nvcc per source, all at once, and waits for them; a failed
 build raises with nvcc's output. `load(name)` builds at first use, so a
 fresh checkout needs nothing but its sources and the CUDA toolkit. Nothing
 here runs at import time: the CPU tests import every module.
+
+A build that starts nvcc runs inside the context managers registered with
+`watch_builds` (none when every library is built already): the training
+loop charges that wall time to its goodput `compile` bucket and pauses
+its hang watchdog there, so a cold checkout's first step is not a hang.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Optional, Tuple
+from typing import (Callable, ContextManager, Dict, Iterable, List,
+                    Optional, Tuple)
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -39,6 +46,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILD_WATCHERS: List[Callable[[], ContextManager]] = []
+
+
+@contextlib.contextmanager
+def watch_builds(watcher: Callable[[], ContextManager]):
+    """Register `watcher` (a context-manager factory) for the duration of
+    the with-block: every build that starts nvcc runs inside
+    `watcher()`."""
+    _BUILD_WATCHERS.append(watcher)
+    try:
+        yield
+    finally:
+        _BUILD_WATCHERS.remove(watcher)
+
+
+@contextlib.contextmanager
+def _building():
+    with contextlib.ExitStack() as stack:
+        for watcher in list(_BUILD_WATCHERS):
+            stack.enter_context(watcher())
+        yield
 
 
 def find_nvcc() -> str:
@@ -81,27 +109,34 @@ def build_all(names: Iterable[str] = SOURCES, verbose: bool = False,
     flags = NVCC_FLAGS + extra
     os.makedirs(BUILD_DIR, exist_ok=True)
     out: Dict[str, Tuple[str, str]] = {}
-    procs = {}
+    todo = []
     for name in names:
         path = lib_path(name)   # -Xptxas -v does not change the binary
         if os.path.exists(path):
             out[name] = (path, "")
-            continue
-        exe = nvcc or find_nvcc()
-        tmp = f"{path}.tmp{os.getpid()}"
-        cmd = [exe, *flags, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT,
-                                        text=True), tmp, path)
+        else:
+            todo.append((name, path))
+    if not todo:
+        return out
+    exe = nvcc or find_nvcc()
     failed = []
-    for name, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
-                          f"{log}")
-            continue
-        os.replace(tmp, path)
-        out[name] = (path, log)
+    with _building():
+        procs = {}
+        for name, path in todo:
+            tmp = f"{path}.tmp{os.getpid()}"
+            cmd = [exe, *flags, "-o", tmp,
+                   os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, path)
+        for name, (proc, tmp, path) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode}) "
+                              f"---\n{log}")
+                continue
+            os.replace(tmp, path)
+            out[name] = (path, log)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

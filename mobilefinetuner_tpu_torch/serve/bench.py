@@ -7,6 +7,13 @@ tools/serve_bench.py `build_engine` and `rand_adapters` in the JAX tree).
     reqs = [eng.submit(p, adapter=a) for p, a in ...]
     eng.drain()
 
+With `telemetry_out` the engine writes its stream (request phases,
+`serve_stats` every `stats_every` decode steps, spans under
+`trace_spans`), and `metrics_port` > 0 serves the OpenMetrics endpoint
+(core/metrics_http.py) over that stream with /healthz on
+`engine.health` (the server is `engine.metrics_server`; close it when
+done).
+
 Needs no download: weights come from `models.gpt2.init_params` /
 `models.gemma3.init_params` and each tenant's adapter from
 `lora.init_lora_gpt2` / `init_lora_gemma3` (every Gemma site: q/k/v/o and
@@ -22,6 +29,10 @@ import torch
 
 from mobilefinetuner_tpu_torch.core.config import GPT2Config, Gemma3TextConfig
 from mobilefinetuner_tpu_torch.core.device import resolve_device
+from mobilefinetuner_tpu_torch.core.logging import get_logger
+from mobilefinetuner_tpu_torch.core.metrics_http import (MetricsRegistry,
+                                                         MetricsServer)
+from mobilefinetuner_tpu_torch.core.telemetry import Telemetry
 from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec, init_lora_gemma3,
                                                  init_lora_gpt2)
 from mobilefinetuner_tpu_torch.models import gemma3, gpt2
@@ -70,9 +81,16 @@ def build_engine(model: str = "gpt2s", num_slots: int = 8,
                  max_prompt: int = 128, max_new: int = 64,
                  adapters: int = 2, dtype: str = "bfloat16", seed: int = 0,
                  prefix_cache: bool = False, max_prompt_chunked: int = 0,
-                 sampling: bool = False, device=None):
+                 sampling: bool = False, device=None,
+                 telemetry_out: str = "", stats_every: int = 0,
+                 watchdog=None, trace_spans: bool = False,
+                 metrics_port: int = 0, metrics_addr: str = "127.0.0.1",
+                 host: int = 0):
     """model: gpt2s | tiny-gpt2 | gemma270m | tiny-gemma. Returns (engine,
-    tenant names), the tenants already loaded into the engine's bank."""
+    tenant names), the tenants already loaded into the engine's bank.
+    `host` stamps the telemetry envelope (a replica k of a fleet writes
+    with host=k); `watchdog` is petted after each decode step (its
+    start and stop are the caller's)."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r} (one of {sorted(MODELS)})")
     device = resolve_device(device)
@@ -83,7 +101,8 @@ def build_engine(model: str = "gpt2s", num_slots: int = 8,
                       max_new_tokens=max_new, dtype=dtype,
                       prefix_cache=prefix_cache,
                       max_prompt_chunked=max_prompt_chunked,
-                      sampling=sampling)
+                      sampling=sampling, stats_every=stats_every,
+                      trace_spans=trace_spans)
     cfg.validate()
     mod = gpt2 if family == "gpt2" else gemma3
     params = mod.init_params(config, seed=seed, dtype=DTYPES[dtype],
@@ -94,7 +113,23 @@ def build_engine(model: str = "gpt2s", num_slots: int = 8,
                               DTYPES[dtype])
         bank = AdapterBank(trees[0], capacity=adapters, family=family)
         names = [f"tenant{i}" for i in range(adapters)]
-    eng = ServeEngine(family, config, params, cfg, bank=bank, device=device)
+    tel = Telemetry(telemetry_out, host=host)
+    registry = None
+    if metrics_port > 0:
+        # the observer is attached before the engine builds, so run_start
+        # and the build-time mem_check reach the registry too
+        registry = MetricsRegistry()
+        tel.add_observer(registry.observe)
+    eng = ServeEngine(family, config, params, cfg, bank=bank, telemetry=tel,
+                      watchdog=watchdog, device=device)
+    eng.metrics_server = None
+    if registry is not None:
+        eng.metrics_server = MetricsServer(
+            registry, port=metrics_port, addr=metrics_addr,
+            health_fn=eng.health)
+        get_logger().info(f"metrics endpoint: http://"
+                          f"{eng.metrics_server.addr}:"
+                          f"{eng.metrics_server.port}/metrics (+ /healthz)")
     for n, t in zip(names, trees):
         eng.load_adapter(n, t)
     return eng, names

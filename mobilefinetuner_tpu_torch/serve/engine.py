@@ -54,15 +54,33 @@ Precision: the engine sets `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` to False when it is built, so an f32
 engine computes in full f32 on the card (TF32 would keep ~3 digits).
 
-Not ported yet, and refused by name: telemetry, trace spans and serve
-stats (ROADMAP.md port item P6), preemption drain (P5), the (dp, tp) mesh
-(P9), lora_impl='fused' on the multi-adapter path (P7).
+Telemetry, as in the JAX engine: with a `telemetry` stream the engine
+writes run_start and its build-time mem_check, one `request` event per
+lifecycle phase (enqueue, admit, first_token, and exactly one terminal
+phase: finish, cancel, reject, timeout or error), `ckpt_verify` for an
+adapter file it loads, `preempt`, a `serve_stats` snapshot every
+`stats_every` decode steps and `run_end` at close(). `trace_spans` adds
+the queue, prefill (one per one-shot prefill or chunk) and decode spans
+of each request on its own `req:<id>` track. Every timestamp is taken
+after the host has the token it stands for (the first token's sync, the
+step's `.cpu()`), never at a launch. A `watchdog` (core/telemetry
+.HangWatchdog, its lifecycle the caller's) is petted after every decode
+step. `install_preemption()` arms the drain: the first SIGTERM / SIGINT,
+seen at the next step boundary, stops admissions, rejects the queue
+with reason "shutdown" and lets the in-flight requests finish; close()
+then records run_end{exit=preempted}; a second signal raises
+KeyboardInterrupt. `health()` is read from the metrics endpoint's
+threads (/healthz answers 503 while draining).
+
+Not ported yet, and refused by name: the (dp, tp) mesh (ROADMAP.md port
+item P9) and lora_impl='fused' on the multi-adapter path (P7).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -71,6 +89,9 @@ import torch
 
 from mobilefinetuner_tpu_torch.core import memory_guard as mg
 from mobilefinetuner_tpu_torch.core.device import resolve_device
+from mobilefinetuner_tpu_torch.core.preempt import PreemptionGuard
+from mobilefinetuner_tpu_torch.core.telemetry import Telemetry, run_manifest
+from mobilefinetuner_tpu_torch.core.trace import Tracer
 from mobilefinetuner_tpu_torch.lora.lora import assign_adapters, tree_leaves
 from mobilefinetuner_tpu_torch.models.generate import (
     gemma3_decode_step_paged, gemma3_prefill, gemma3_prefill_chunk,
@@ -125,9 +146,9 @@ class ServeConfig:
     chunk_buckets: tuple = ()  # static chunk widths (block_T multiples);
                               # () = doubling widths up to max_prompt
     sampling: bool = False    # per-slot temperature / top-k / top-p / seed
-    # --- JAX-engine features later port slices bring (validate refuses)
-    stats_every: int = 0
-    trace_spans: bool = False
+    stats_every: int = 0      # serve_stats cadence (decode steps); 0 = off
+    trace_spans: bool = False  # queue / prefill / decode `span` events
+    # --- the serve mesh, a later port slice (validate refuses)
     mesh_dp: int = 1
     mesh_tp: int = 1
 
@@ -138,9 +159,6 @@ class ServeConfig:
         return max(self.max_prompt, self.max_prompt_chunked)
 
     def validate(self) -> None:
-        if self.stats_every or self.trace_spans:
-            raise _not_ported("serve telemetry (stats_every, trace_spans)",
-                              "P6")
         if self.mesh_dp * self.mesh_tp != 1:
             raise _not_ported("the (dp, tp) serve mesh", "P9")
         validate_lora_impl(self.lora_impl)
@@ -158,8 +176,8 @@ class ServeConfig:
                 f"block_T ({self.block_T})")
         if self.num_slots < 1 or self.max_new_tokens < 1:
             raise ValueError("num_slots and max_new_tokens must be >= 1")
-        if self.max_queue < 0:
-            raise ValueError("max_queue must be >= 0")
+        if self.max_queue < 0 or self.stats_every < 0:
+            raise ValueError("max_queue and stats_every must be >= 0")
         if self.shed_policy not in ("reject", "deadline"):
             raise ValueError(
                 f"shed_policy must be 'reject' or 'deadline', got "
@@ -206,6 +224,8 @@ class Request:
     # queued -> active -> one of TERMINAL
     state: str = "queued"
     reason: Optional[str] = None
+    rid: Optional[int] = None          # a router's fleet-wide request id;
+                                       # rides every request event and span
     tokens: List[int] = dataclasses.field(default_factory=list)
     enqueue_t: float = 0.0
     admit_t: float = 0.0
@@ -231,6 +251,9 @@ class Request:
                                                 repr=False)
 
     TERMINAL = ("finished", "cancelled", "rejected", "timeout", "error")
+    # the terminal `request` phase each terminal state emits
+    PHASE = {"finished": "finish", "cancelled": "cancel",
+             "rejected": "reject", "timeout": "timeout", "error": "error"}
 
     @property
     def done(self) -> bool:
@@ -262,9 +285,13 @@ class ServeEngine:
 
     family: "gpt2" | "gemma"; params: the base tree (models/gpt2.py or
     models/gemma3.py layout), cast to cfg.dtype on `device`; bank:
-    optional AdapterBank for per-slot adapter routing. `device=None` is
-    the CUDA card (core/device.py). The engine is single-threaded: every
-    call comes from the serve loop.
+    optional AdapterBank for per-slot adapter routing. telemetry:
+    optional core.telemetry.Telemetry (module docstring); watchdog:
+    optional HangWatchdog, petted after each decode step. `device=None`
+    is the CUDA card (core/device.py). The engine is single-threaded:
+    every mutation comes from the serve loop; health() is also read by
+    the metrics endpoint's threads (its step-time window under
+    `_health_lock`, the rest scalar snapshots).
     """
 
     def __init__(self, family: str, config, params,
@@ -274,8 +301,6 @@ class ServeEngine:
                  watchdog=None, device=None):
         cfg = cfg or ServeConfig()
         cfg.validate()
-        if telemetry is not None or watchdog is not None:
-            raise _not_ported("serve telemetry (telemetry, watchdog)", "P6")
         if family == "gpt2":
             L, KV, D = config.n_layer, config.n_head, config.head_dim
             if cfg.true_cap + cfg.max_new_tokens > config.n_positions:
@@ -371,7 +396,13 @@ class ServeEngine:
         self.chunks = 0         # prefill chunks
         self.full_hits = 0      # admissions with every prompt block cached
         self._next_id = 0
+        self._t0 = time.perf_counter()
         self._closed = False
+        self.draining = False           # admissions stopped for good
+        self.guard: Optional[PreemptionGuard] = None
+        self.watchdog = watchdog        # pet()-only: the caller starts and
+                                        # stops it
+        self._health_lock = threading.Lock()
         # fault-injection seam: called with decode_steps right before every
         # step dispatch, inside the containment try
         self.step_hook: Optional[Callable[[int], None]] = None
@@ -381,6 +412,26 @@ class ServeEngine:
         # runs: a failure there leaves the pools suspect, so containment
         # must rebuild them
         self._pools_at_risk = False
+        self.telemetry = telemetry or Telemetry("")
+        self.tracer = Tracer(self.telemetry.emit, enabled=cfg.trace_spans)
+        self.telemetry.emit("run_start", **run_manifest({
+            "serve_family": family, "num_slots": S,
+            "block_T": cfg.block_T, "num_blocks": cfg.num_blocks,
+            "max_prompt": cfg.max_prompt,
+            "max_new_tokens": cfg.max_new_tokens, "dtype": cfg.dtype,
+            "attn_impl": cfg.attn_impl, "lora_impl": cfg.lora_impl,
+            "adapter_slots": bank.capacity if bank else 0,
+            "max_queue": cfg.max_queue, "shed_policy": cfg.shed_policy,
+            "on_step_error": cfg.on_step_error,
+            "stats_every": cfg.stats_every,
+            "mesh_dp": cfg.mesh_dp, "mesh_tp": cfg.mesh_tp,
+            "prefix_cache": cfg.prefix_cache,
+            "max_prompt_chunked": cfg.max_prompt_chunked,
+            "chunk_buckets": list(self.chunk_buckets),
+            "sampling": cfg.sampling}, self.device))
+        # the admission verdict that let this engine build (a refusal
+        # raised before the stream existed)
+        self.telemetry.emit("mem_check", **self.mem_check.event())
 
     # ------------------------------------------------------------ helpers ---
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -404,10 +455,31 @@ class ServeEngine:
         """Pages the residents may still demand (their reservations)."""
         return sum(r.worst_blocks - len(r.blocks) for r in self.active)
 
+    def _emit_request(self, req: Request, phase: str) -> None:
+        self.telemetry.emit(
+            "request", id=req.id, phase=phase,
+            prompt_tokens=len(req.prompt),
+            adapter=req.aid if req.adapter is not None else None,
+            queue_ms=((req.admit_t - req.enqueue_t) * 1000.0
+                      if req.admit_t else None),
+            new_tokens=len(req.tokens) or None,
+            ttft_ms=req.ttft_ms, tpot_ms=req.tpot_ms, reason=req.reason,
+            rid=req.rid)
+
+    def _req_span(self, name: str, req: Request, t0: float,
+                  dur_ms: float, **extra) -> None:
+        """One span on the request's own `req:<id>` track (a router's
+        `rid` rides along)."""
+        if req.rid is not None:
+            extra.setdefault("rid", req.rid)
+        self.tracer.emit_span(name, f"req:{req.id}", t0, dur_ms,
+                              id=req.id, **extra)
+
     def _terminal(self, req: Request, state: str,
                   reason: Optional[str] = None) -> None:
         """THE terminal transition: every path out of the lifecycle ends
-        here, once. The caller releases slot and pages first."""
+        here, once, with exactly one terminal `request` phase. The caller
+        releases slot and pages first."""
         if state not in Request.TERMINAL:
             raise ValueError(f"not a terminal state: {state!r}")
         if req.done:
@@ -416,6 +488,18 @@ class ServeEngine:
         req.reason = reason
         req.finish_t = time.perf_counter()
         self.counts[state] += 1
+        self._emit_request(req, phase=Request.PHASE[state])
+        if self.tracer.enabled:
+            # the request's last span: decode for an admitted request
+            # (admit -> terminal), queue for one that died waiting
+            if req.admit_t:
+                self._req_span("decode", req, req.admit_t,
+                               (req.finish_t - req.admit_t) * 1000.0,
+                               outcome=state)
+            else:
+                self._req_span("queue", req, req.enqueue_t,
+                               (req.finish_t - req.enqueue_t) * 1000.0,
+                               outcome=state)
 
     def _select(self, logits, rows: np.ndarray, pos_next: np.ndarray):
         """The emitted tokens of `logits` [R, V]: the argmax, or on a
@@ -436,7 +520,9 @@ class ServeEngine:
         against its checksum manifest, or an HF-PEFT directory).
         Replacing a resident that queued or active requests route to is
         refused. The name's generation is bumped, so prefix pages cached
-        under its old weights are never served again."""
+        under its old weights are never served again. A file's
+        verification verdict is a `ckpt_verify` event (a corrupt file
+        raises CheckpointIntegrityError after its ok=false event)."""
         if self.bank is None:
             raise RuntimeError("engine was built without an adapter bank")
         if name in self.bank.resident and self._adapter_in_use(name):
@@ -446,7 +532,19 @@ class ServeEngine:
         if isinstance(source, dict):
             slot = self.bank.load(name, source)
         else:
-            slot = self.bank.load_file(name, source, verify=verify)
+            from mobilefinetuner_tpu_torch.io.safetensors_io import \
+                CheckpointIntegrityError
+            try:
+                slot = self.bank.load_file(name, source, verify=verify)
+            except CheckpointIntegrityError as e:
+                self.telemetry.emit("ckpt_verify", path=str(source),
+                                    ok=False, reason=str(e), step=None,
+                                    action="reject")
+                raise
+            if verify:
+                self.telemetry.emit("ckpt_verify", path=str(source),
+                                    ok=True, reason=None, step=None,
+                                    action="load")
         self._adapter_gen[name] += 1
         return slot
 
@@ -477,12 +575,15 @@ class ServeEngine:
                adapter: Optional[str] = None,
                deadline_ms: Optional[float] = None,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0, seed: int = 0) -> Request:
+               top_p: float = 1.0, seed: int = 0,
+               rid: Optional[int] = None) -> Request:
         """Enqueue one request (admission happens inside step()).
         temperature / top_k / top_p / seed need a sampling engine;
         temperature 0 is the greedy oracle and a seed is deterministic. A
-        prompt beyond the true cap, or a full bounded queue, comes back
-        already terminal (state="rejected"): check `.state`."""
+        prompt beyond the true cap, a full bounded queue or a drain in
+        progress gives a request that is already terminal
+        (state="rejected"): check `.state`. `rid` is a router's request
+        id, carried by the request's events."""
         if self._closed:
             raise RuntimeError("submit() on a closed ServeEngine")
         prompt = [int(t) for t in prompt]
@@ -514,14 +615,19 @@ class ServeEngine:
             aid = self.bank.slot(adapter)   # KeyError if not resident
         req = Request(id=self._next_id, prompt=prompt, max_new_tokens=n_new,
                       adapter=adapter, aid=aid,
+                      rid=int(rid) if rid is not None else None,
                       enqueue_t=time.perf_counter(),
                       temperature=float(temperature), top_k=int(top_k),
                       top_p=float(top_p), seed=int(seed))
         if deadline_ms is not None:
             req.deadline_t = req.enqueue_t + deadline_ms / 1000.0
         self._next_id += 1
+        self._emit_request(req, phase="enqueue")
         if len(prompt) > self.cfg.true_cap:
             self._terminal(req, "rejected", reason="prompt_too_long")
+            return req
+        if self.draining:   # a drain in progress: admissions are closed
+            self._terminal(req, "rejected", reason="shutdown")
             return req
         if self.cfg.max_queue and len(self.queue) >= self.cfg.max_queue:
             victim = None
@@ -583,13 +689,14 @@ class ServeEngine:
         else:                            # suffix hit, or a long prompt
             self._admit_chunked(req, cached, C)
 
-    def _first_token(self, req: Request, tok0: int) -> None:
-        """A prefill's or final chunk's first token: the slot starts
-        decoding at position P, and every full prompt block it computed
-        becomes shareable (first writer wins; decode never rewrites prompt
-        columns)."""
+    def _first_token(self, req: Request, tok0: int,
+                     now: Optional[float] = None) -> None:
+        """A prefill's or final chunk's first token, on the host: the
+        slot starts decoding at position P, and every full prompt block it
+        computed becomes shareable (first writer wins; decode never
+        rewrites prompt columns)."""
         slot, P = req.slot, len(req.prompt)
-        req.first_token_t = time.perf_counter()
+        req.first_token_t = now or time.perf_counter()
         req.tokens.append(tok0)
         self._tok[slot], self._pos[slot] = tok0, P
         self._tbl[slot] = TRASH_BLOCK
@@ -597,6 +704,7 @@ class ServeEngine:
         if self.prefix is not None:
             for key, b in zip(req.cache_keys, req.blocks):
                 self.prefix.register(key, b)
+        self._emit_request(req, phase="first_token")
         if (self.eos_id is not None and tok0 == self.eos_id) \
                 or req.max_new_tokens == 1:
             self._finish(req)
@@ -608,6 +716,7 @@ class ServeEngine:
         ids = np.full((1, cfg.max_prompt), self.pad_id, np.int64)
         mask = np.zeros((1, cfg.max_prompt), np.int64)
         ids[0, :P], mask[0, :P] = req.prompt, 1
+        t_prefill = time.perf_counter()
         logits, (k, v) = self._prefill_fn(
             self.config, self.params, self._dev(ids), self._dev(mask),
             compute_dtype=self.dtype,
@@ -624,8 +733,16 @@ class ServeEngine:
                             self._dev(block_ids))
         self._pools_at_risk = False
         tok0 = int(tok0)                 # host sync: the first token
-        req.admit_t = time.perf_counter()
-        self._first_token(req, tok0)
+        now = req.admit_t = time.perf_counter()
+        if self.tracer.enabled:
+            # the queue span closes where the prefill begins; the prefill
+            # span runs through the first token's host sync
+            self._req_span("queue", req, req.enqueue_t,
+                           (t_prefill - req.enqueue_t) * 1000.0)
+            self._req_span("prefill", req, t_prefill,
+                           (now - t_prefill) * 1000.0)
+        self._emit_request(req, phase="admit")
+        self._first_token(req, tok0, now)
 
     def _admit_full_hit(self, req: Request, cached: List[int]) -> None:
         """Every prompt block is cached: no prefill. The last prompt token
@@ -655,6 +772,11 @@ class ServeEngine:
         self._pos[slot] = P - 1
         self._tbl[slot] = TRASH_BLOCK
         self._tbl[slot, :len(req.blocks)] = req.blocks
+        if self.tracer.enabled:
+            # no prefill span: the whole prompt came from cached pages
+            self._req_span("queue", req, req.enqueue_t,
+                           (req.admit_t - req.enqueue_t) * 1000.0)
+        self._emit_request(req, phase="admit")
 
     def _admit_chunked(self, req: Request, cached: List[int],
                        C: int) -> None:
@@ -672,6 +794,10 @@ class ServeEngine:
         req.admit_t = time.perf_counter()
         self._tok[slot] = self._pos[slot] = 0
         self._tbl[slot] = TRASH_BLOCK
+        if self.tracer.enabled:
+            self._req_span("queue", req, req.enqueue_t,
+                           (req.admit_t - req.enqueue_t) * 1000.0)
+        self._emit_request(req, phase="admit")
 
     def _bucket(self, req: Request) -> int:
         """The chunk width for `req`'s remaining suffix."""
@@ -692,6 +818,7 @@ class ServeEngine:
         tbl[0, :len(req.blocks)] = req.blocks
         # one request's rows all route its adapter
         lora = self._route(np.full(W, req.aid, np.int64))
+        t_chunk = time.perf_counter()
         self._pools_at_risk = True
         logits, _, _ = self._chunk_fn(
             self.config, self.params, self.pool_k, self.pool_v,
@@ -700,6 +827,9 @@ class ServeEngine:
         self._pools_at_risk = False
         self.chunks += 1
         req.prefill_pos += n_tok
+        if self.tracer.enabled:
+            self._req_span("prefill", req, t_chunk,
+                           (time.perf_counter() - t_chunk) * 1000.0)
         if req.prefill_pos < P:
             return
         tok = self._select(logits, np.asarray([slot]), np.asarray([P]))[0]
@@ -763,7 +893,7 @@ class ServeEngine:
     def _admit_queue(self, done: List[Request]) -> None:
         """FCFS admission under the worst-case page reservation."""
         cfg = self.cfg
-        while self.queue:
+        while self.queue and not self.draining:
             free = [i for i, r in enumerate(self._slots) if r is None]
             if not free:
                 break
@@ -820,12 +950,21 @@ class ServeEngine:
         return True
 
     def step(self) -> List[Request]:
-        """One scheduler iteration: expire deadlines, admit what fits, run
-        this step's prefill chunks, then one decode step for every slot
-        past its prefill. Returns every request that reached a terminal
-        state on this iteration."""
+        """One scheduler iteration: observe a preemption signal, expire
+        deadlines, admit what fits (unless draining), run this step's
+        prefill chunks, then one decode step for every slot past its
+        prefill. Returns every request that reached a terminal state on
+        this iteration."""
         cfg = self.cfg
-        done: List[Request] = self._expire(time.perf_counter())
+        done: List[Request] = []
+        # a signal is observed at the step boundary, never inside a
+        # launch: stop admissions, reject the queue, finish the in-flight
+        if self.guard is not None and self.guard.triggered \
+                and not self.draining:
+            self.telemetry.emit("preempt", step=self.decode_steps,
+                                signal=self.guard.signal_name or "SIGTERM")
+            done.extend(self.begin_shutdown())
+        done.extend(self._expire(time.perf_counter()))
         self._admit_queue(done)
         if not self._run_chunks(done):
             return done
@@ -870,7 +1009,10 @@ class ServeEngine:
         self.decode_steps += 1
         step_s = time.perf_counter() - t_step
         self.decode_s += step_s
-        self._step_ms.append(step_s * 1000.0)
+        with self._health_lock:
+            self._step_ms.append(step_s * 1000.0)
+        if self.watchdog is not None:
+            self.watchdog.pet(self.decode_steps, step_s)
         for req in live:
             s = req.slot
             self._pos[s] += 1
@@ -880,10 +1022,13 @@ class ServeEngine:
                 # full-hit re-feed: this step emitted the first token
                 req.awaiting_first = False
                 req.first_token_t = time.perf_counter()
+                self._emit_request(req, phase="first_token")
             if (self.eos_id is not None and req.tokens[-1] == self.eos_id) \
                     or len(req.tokens) >= req.max_new_tokens:
                 self._finish(req)
                 done.append(req)
+        if cfg.stats_every and self.decode_steps % cfg.stats_every == 0:
+            self.emit_stats()
         return done
 
     def drain(self) -> List[Request]:
@@ -894,20 +1039,50 @@ class ServeEngine:
             done.extend(self.step())
         return sorted(done, key=lambda r: r.id)
 
-    def install_preemption(self, guard=None):
-        raise _not_ported("preemption drain (install_preemption)", "P5")
+    # ------------------------------------------------------------ shutdown --
+    def install_preemption(
+            self, guard: Optional[PreemptionGuard] = None
+    ) -> PreemptionGuard:
+        """Arm the SIGTERM / SIGINT drain (the serve side of
+        run_training's --on_preempt): the first signal is observed at the
+        next step boundary — admissions stop, the queue is rejected with
+        reason "shutdown", in-flight requests decode to completion, and
+        close() records run_end{exit=preempted, reason=preempted}. A
+        second signal raises KeyboardInterrupt out of the drain. Main
+        thread only (signal semantics): elsewhere the guard stays
+        uninstalled."""
+        self.guard = guard or PreemptionGuard()
+        if not self.guard.installed:
+            self.guard.install()
+        return self.guard
+
+    def begin_shutdown(self, reason: str = "shutdown") -> List[Request]:
+        """Stop admissions for good and reject every queued request;
+        in-flight requests keep decoding (step()/drain() finish them).
+        Returns the rejected requests."""
+        self.draining = True
+        out: List[Request] = []
+        while self.queue:
+            req = self.queue.popleft()
+            self._terminal(req, "rejected", reason=reason)
+            out.append(req)
+        return out
 
     # ------------------------------------------------------------ health ----
     def health(self) -> dict:
-        """Loop vitals: queue depth, occupancy, page headroom, rolling p95
-        step latency, device memory, the prefix cache's hit rate, page
-        copies and parked pages, and the terminal-state counters."""
-        ms = sorted(self._step_ms)
+        """Loop vitals: status ("draining" once admissions closed: the
+        metrics endpoint's /healthz answers 503 then), queue depth,
+        occupancy, page headroom, rolling p95 step latency, device
+        memory, the prefix cache's hit rate, page copies and parked
+        pages, and the terminal-state counters."""
+        with self._health_lock:
+            ms = sorted(self._step_ms)
         p95 = (round(ms[min(int(0.95 * len(ms)), len(ms) - 1)], 3)
                if ms else None)
         mem = (torch.cuda.memory_allocated(self.device) / 2 ** 20
                if self.device.type == "cuda" else None)
         return {
+            "status": "draining" if self.draining else "ok",
             "queue_depth": len(self.queue),
             "active": len(self.active),
             "occupancy": round(len(self.active) / self.cfg.num_slots, 4),
@@ -915,8 +1090,10 @@ class ServeEngine:
             "blocks_in_use": self.alloc.in_use,
             "p95_step_ms": p95,
             "decode_steps": self.decode_steps,
+            "draining": self.draining,
             "hbm_mb": round(mem, 2) if mem is not None else None,
             "pool_mb": round(self.pool_mb, 2),
+            "mesh": [self.cfg.mesh_dp, self.cfg.mesh_tp],
             "prefix_hit_rate": (self.prefix.hit_rate
                                 if self.prefix is not None else None),
             "cow_copies": self.cow_copies,
@@ -925,10 +1102,48 @@ class ServeEngine:
                        for s in Request.TERMINAL},
         }
 
+    def emit_stats(self) -> None:
+        """One `serve_stats` snapshot into the stream (step() calls this
+        every `stats_every` decode steps)."""
+        h = self.health()
+        self.telemetry.emit(
+            "serve_stats", step=self.decode_steps,
+            queue_depth=h["queue_depth"], active=h["active"],
+            occupancy=h["occupancy"], free_blocks=h["free_blocks"],
+            blocks_in_use=h["blocks_in_use"],
+            p95_step_ms=h["p95_step_ms"], hbm_mb=h["hbm_mb"],
+            pool_mb=h["pool_mb"], mesh=h["mesh"],
+            prefix_hit_rate=h["prefix_hit_rate"],
+            cow_copies=h["cow_copies"], **h["counts"])
+
     # ------------------------------------------------------------ teardown --
-    def close(self) -> None:
-        """Refuse further submits (idempotent)."""
+    def close(self, exit: str = "ok", reason: Optional[str] = None) -> None:
+        """Refuse further submits and end the stream (idempotent). A drain
+        that a preemption signal started records run_end{exit=preempted,
+        reason=preempted}, as a drained training run does."""
+        if self._closed:
+            return
         self._closed = True
+        if self.guard is not None:
+            self.guard.uninstall()
+        if exit == "ok" and self.guard is not None and self.guard.triggered:
+            exit, reason = "preempted", "preempted"
+        self.telemetry.emit(
+            "run_end", steps=self.decode_steps,
+            wall_s=time.perf_counter() - self._t0, exit=exit,
+            goodput=None, reason=reason)
+        self.telemetry.close()
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, exc_type, *_) -> None:
+        # an exception unwinding is not a clean exit: exit="error" with
+        # the exception type as the reason
+        if exc_type is None:
+            self.close()
+        else:
+            self.close(exit="error", reason=exc_type.__name__)
 
 
 def _tree_to(tree, device, dtype):

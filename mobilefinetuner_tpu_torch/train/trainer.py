@@ -28,6 +28,11 @@ from mobilefinetuner_tpu_torch.optim.adam import (AdamConfig, adam_update,
                                                   init_state, tree_map)
 from mobilefinetuner_tpu_torch.optim.schedule import lr_schedule
 
+# The step loop's timing window (the flush-interval synced per-step time,
+# the hang watchdog's deadline median) lives in core/telemetry and is
+# re-exported here as the training-facing surface, as in the JAX package.
+from mobilefinetuner_tpu_torch.core.telemetry import StepClock  # noqa: F401
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

@@ -129,16 +129,19 @@ def test_eval_ppl_refuses_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             eval_ppl.main(base)
-    for flag, item in ((["--run_registry", "r.jsonl"], "P6"),):
-        with pytest.raises(NotImplementedError, match=item):
-            eval_ppl.main(base + ["--device", "cpu"] + flag)
-    # the telemetry stream and the memory preflight are ported: a run
-    # that asks for them is admitted and writes its stream
+    # the telemetry stream, the memory preflight and the run registry are
+    # ported: a run that asks for them is admitted and writes its stream
     stream = os.path.join(os.path.dirname(dirs["wiki"]), "ported.jsonl")
+    registry = os.path.join(os.path.dirname(dirs["wiki"]), "ppl_reg.jsonl")
     assert eval_ppl.main(base + ["--device", "cpu", "--max_batches", "1",
                                  "--telemetry_out", stream,
+                                 "--run_registry", registry,
                                  "--on_oom_risk", "fail",
                                  "--hbm_cap_mb", "100000"]) == 0
     events = [json.loads(line)["event"] for line in open(stream)]
-    assert events[:2] == ["run_start", "mem_check"]
-    assert events[-1] == "run_end"
+    assert events[:3] == ["run_start", "run", "mem_check"]
+    assert events[-2:] == ["run", "run_end"]
+    recs = [json.loads(line) for line in open(registry)]
+    assert [(r["phase"], r["status"], r["kind"], r["tool"])
+            for r in recs] == [("start", "running", "eval", "eval_ppl"),
+                               ("end", "ok", "eval", "eval_ppl")]

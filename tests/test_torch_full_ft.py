@@ -220,10 +220,9 @@ def test_full_finetune_refuses_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             full.main(_argv(gdir, wiki, out))
-    for flag, item in ((["--run_registry", "r.jsonl"], "P6"),
-                       (["--watchdog", "1"], "P6"),
-                       (["--mesh_fsdp", "2"], "P9"),
-                       (["--profile_dir", "prof"], "P6"),
-                       (["--auto_profile", "1"], "P6")):
+    for flag, item in ((["--mesh_fsdp", "2"], "P9"),
+                       (["--straggler_cadence", "2"], "P9"),
+                       (["--multihost"], "P9"),
+                       (["--sequence_parallel"], "P9")):
         with pytest.raises(NotImplementedError, match=item):
             full.main(_argv(gdir, wiki, out, 3, "--device", "cpu", *flag))

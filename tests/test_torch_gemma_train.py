@@ -260,14 +260,13 @@ def test_gemma_clis_refuse_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lora_cli.main(_argv(gdir, wiki, *out))
-    for flag in (["--run_registry", "r.jsonl"], ["--mesh_fsdp", "2"],
+    for flag in (["--straggler_cadence", "4"], ["--mesh_fsdp", "2"],
                  ["--align_dump_dir", "d"], ["--shard_enable"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lora_cli.main(_argv(gdir, wiki, *out, "--device", "cpu", *flag))
     full_out = ["--output_path", str(root / "refuse" / "f.safetensors")]
     for flag in (["--opt_offload"], ["--opt_offload_state_dtype",
-                                     "bfloat16"], ["--metrics_port",
-                                                   "9000"]):
+                                     "bfloat16"], ["--multihost"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             full.main(_argv(gdir, wiki, *full_out, "--device", "cpu", *flag))
 

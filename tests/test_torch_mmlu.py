@@ -350,14 +350,18 @@ def test_eval_mmlu_refuses_what_is_not_ported(dirs):
     if not torch.cuda.is_available():   # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(base)
-    for flag, item in ((["--run_registry", "r.jsonl"], "P6"),):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(base + ["--device", "cpu"] + flag)
-    # the telemetry stream and the memory preflight are ported
+    # the telemetry stream, the memory preflight and the run registry are
+    # ported
     stream = os.path.join(str(dirs["root"]), "mmlu_ported.jsonl")
+    registry = os.path.join(str(dirs["root"]), "mmlu_reg.jsonl")
     assert cli.main(base + ["--device", "cpu", "--max_items", "1",
                             "--telemetry_out", stream,
+                            "--run_registry", registry,
                             "--on_oom_risk", "fail",
                             "--hbm_cap_mb", "100000"]) == 0
     events = [json.loads(line)["event"] for line in open(stream)]
-    assert events == ["run_start", "mem_check", "eval", "run_end"]
+    assert events == ["run_start", "run", "mem_check", "eval", "run",
+                      "run_end"]
+    recs = [json.loads(line) for line in open(registry)]
+    assert [(r["phase"], r["status"], r["tool"]) for r in recs] == [
+        ("start", "running", "eval_mmlu"), ("end", "ok", "eval_mmlu")]

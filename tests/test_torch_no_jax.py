@@ -4,9 +4,11 @@ rounding_sensitivity.py (this test process cannot tell, since
 tests/conftest.py imports jax for every test), and an AST scan checks
 every import statement of those files, the serving modules (the prefix
 cache, the engine, the serving model functions), the MMLU, GPT-2 full
-fine-tuning and data-mode modules and the fault-tolerance modules
+fine-tuning and data-mode modules, the fault-tolerance modules
 (telemetry, device-memory readings, preemption, the memory guard, async
-checkpoints, the lineage) named among them."""
+checkpoints, the lineage) and the observability modules (trace spans and
+captures, the metrics endpoint, the run registry, the step governor)
+named among them."""
 
 import ast
 import os
@@ -96,6 +98,27 @@ def test_fault_tolerance_modules_are_scanned(module):
     the files scanned, and a subprocess imports each without jax."""
     assert os.path.join(ROOT, PKG, module) in _port_files()
     name = f"{PKG}." + module[:-3].replace("/", ".")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import {name}; "
+            f"print(sorted(m for m in sys.modules if m in ('jax', "
+            f"'mobilefinetuner_tpu') or "
+            f"m.startswith(('jax.', 'mobilefinetuner_tpu.'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "core/trace.py", "core/metrics_http.py", "core/run_registry.py",
+    "system/governor.py", "system/__init__.py", "kernels/build.py"])
+def test_observability_modules_are_scanned(module):
+    """The observability plane's modules are among the files scanned, and
+    a subprocess imports each without jax or the JAX package (the copied
+    pure-Python modules keep their own code)."""
+    assert os.path.join(ROOT, PKG, module) in _port_files()
+    name = f"{PKG}." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); import {name}; "
             f"print(sorted(m for m in sys.modules if m in ('jax', "
             f"'mobilefinetuner_tpu') or "

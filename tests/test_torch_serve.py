@@ -257,10 +257,13 @@ def test_submit_and_config_validation(engine, params):
         ServeEngine("bert", CFG, params, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         ServeConfig(attn_impl="pallas").validate()
-    for kw in (dict(mesh_tp=2), dict(trace_spans=True),
-               dict(stats_every=4), dict(lora_impl="fused")):
+    for kw in (dict(mesh_tp=2), dict(lora_impl="fused")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeConfig(**kw).validate()
+    # serve telemetry is ported: its knobs validate, with the JAX rules
+    ServeConfig(trace_spans=True, stats_every=4).validate()
+    with pytest.raises(ValueError, match="stats_every"):
+        ServeConfig(stats_every=-1).validate()
     # the prefix cache, chunked prefill and sampling are ported: their
     # knobs validate, with the JAX engine's rules
     ServeConfig(prefix_cache=True, sampling=True, max_prompt_chunked=128,
@@ -273,10 +276,10 @@ def test_submit_and_config_validation(engine, params):
         ServeConfig(block_T=16, chunk_buckets=(24,)).validate()
     with pytest.raises(ValueError, match="sampling"):
         engine.submit([1, 2], temperature=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine("gpt2", CFG, params, telemetry=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.install_preemption()
+    # the telemetry stream and the drain are ported
+    # (tests/test_torch_serve_telemetry.py); an engine with no stream
+    # reports healthy
+    assert engine.health()["status"] == "ok" and not engine.draining
     with pytest.raises(MemoryAdmissionError, match="num_blocks="):
         port_engine(params, hbm_cap_mb=1, num_blocks=4096)
 

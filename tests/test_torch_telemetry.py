@@ -153,12 +153,12 @@ DIFFERENCES = {
     "jax_only_events": {"compile"},
     # run_start names the port's versions beside the schema's jax_version
     "port_only_fields": {"run_start": {"torch_version", "cuda_version"}},
-    # the step governor's own sleep counter (not ported: P6)
-    "jax_only_fields": {"run_end": {"governor_slept_ms"}},
+    "jax_only_fields": {},
     # (event, field) whose values differ by design: no JAX, no mesh (P9),
-    # no goodput meter yet (P6), no live memory reading on the CPU where
-    # the JAX loop reports its compiled estimate, the analytic estimate in
-    # place of XLA's memory analysis
+    # the goodput buckets' seconds (measured, and the JAX run's compile
+    # bucket holds its XLA compile), no live memory reading on the CPU
+    # where the JAX loop reports its compiled estimate, the analytic
+    # estimate in place of XLA's memory analysis
     "values": {("run_start", "jax_version"), ("run_start", "mesh_shape"),
                ("run_end", "goodput"),
                ("step_stats", "hbm_mb"), ("mem_check", "est_mb"),
