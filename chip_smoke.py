@@ -168,7 +168,28 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      and merged must predict alike on >= 95% of the items, and Gemma
      with the head adapter dynamic runs the epilogue at [16, 262,144];
      the flash forward launches batches x layers, the epilogue batches x
-     adapted sites; items/s of each run's scoring;
+     adapted sites; items/s of each run's scoring; then `multitenant`,
+     counts set to 0 before each run: cli.train_multi_lora.main on GPT-2
+     small (bf16, 8 slots x 2 rows x seq 128, r 8) over ten jobs with
+     their own lr, alpha and budgets of 6-12 steps (two refills, one job
+     saving every 4 steps keeping 1, one exporting PEFT): every job
+     finishes and its file reloads trained, the mean tenant loss falls,
+     rows 1 and 2 launch exactly layers x steps; the same config with
+     one job in one slot (step time against k = 1); three tenants 5 steps
+     in the engine in f32 against the port's solo make_train_step on the
+     same batches and init (two held: losses within 1e-4, weights within
+     1e-3 of the trained change in L2; the third, at lr 4e-3 / scale 4,
+     and every tenant's two solo runs of another rounding order, printed
+     as the drift witness); two
+     Gemma-3-270M tenants (bf16, 2 slots x 1 row x seq 256, targets
+     full, 3 steps); two of the GPT-2 files through
+     AdapterBank.load_file into a serve engine with lora_impl fused, one
+     request each; join, leave, refill and cancel moving no bank or
+     optimizer tensor; the port's routed gather timed against the JAX
+     package's dense order (within one bf16 ulp) at the serving decode
+     and the training shape; the routed dropout's mask on the card; rows
+     1-2 on fully masked rows (idle slots) finite in bf16 and f32; rows
+     1 and 2 in f32 at the f32 run's shape timed beside SDPA;
   8. trace a decode step (and time it from CUDA events around CUDA-graph
      replays of one gpt2_decode_step_paged call with the engine's state
      held fixed), a 128-token prefill, the Gemma serve decode step and a
@@ -212,11 +233,11 @@ their total.
 
 Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `recovery`,
 `observe`, `gemma_train`, `gemma_full_ft`, `degrade`, `gemma_lora_head`,
-`eval_ppl`, `generate`, `mmlu`, `profile`, `bwd_sweep`, `admission` and
-`kernels` JSON
-lines, the card's name and power limit, and, last, the device line
+`eval_ppl`, `generate`, `mmlu`, `multitenant`, `profile`, `bwd_sweep`,
+`admission` and `kernels` JSON lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
-beside it, it exits non-zero and prints no result.
+beside it, it exits non-zero and prints no result. `--only multitenant` builds the
+kernels, writes its own synthetic models and runs that path alone.
 """
 
 from __future__ import annotations
@@ -224,6 +245,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import math
 import os
 import shutil
 import signal
@@ -3992,7 +4014,729 @@ def degrade(torch, dev, work, kernels, gemma):
     return stats, launches
 
 
-def main() -> int:
+# ------------------------------------------------------- multitenant ------
+
+MT = dict(slots=8, batch=2, seq=128, rank=8, alpha=16.0,
+          steps=(6, 7, 8, 9, 10, 11, 12, 12, 8, 6), k1_steps=12,
+          parity_steps=5, parity_tol=1e-4, parity_w_tol=1e-3,
+          gemma_slots=2, gemma_batch=1, gemma_seq=256, gemma_steps=3,
+          serve_new=16)
+
+
+# the routed sites where the JAX package's dense order is timed against
+# the port's gather: (name, rows, tokens a row, d_in, d_out, r, k): the
+# serving decode step (8 slots, a bank of 3, GPT-2 attn_qkv at the
+# `serve` path's rank 4), the multi-tenant training step (2,048 tokens,
+# k 8, rank 8) and the Gemma-3-270M serving decode's down_proj
+MT_ORDER_SHAPES = (("serve_decode", 8, 1, 768, 2304, 4, 3),
+                   ("train_k8", 16, 128, 768, 2304, 8, 8),
+                   ("gemma_serve_down_proj", 8, 1, 2048, 640, 4, 3))
+
+
+def mt_schedule(budgets, slots: int):
+    """(engine steps, refills) when jobs with these step budgets are
+    admitted in order into `slots` slots, a finished job's slot refilled
+    from the queue at the step boundary (the engine's rule)."""
+    pending = list(budgets)
+    left = [pending.pop(0) for _ in range(min(slots, len(pending)))]
+    steps = refills = 0
+    while any(n > 0 for n in left):
+        steps += 1
+        for j, n in enumerate(left):
+            if n > 0:
+                left[j] = n - 1
+                if left[j] == 0 and pending:
+                    left[j] = pending.pop(0)
+                    refills += 1
+    return steps, refills
+
+
+def write_jobs(path: str, family: str, jobs: list, defaults: dict) -> str:
+    with open(path, "w") as f:
+        json.dump({"family": family, "defaults": defaults, "jobs": jobs}, f)
+    return path
+
+
+def run_multi_lora(kernels, name: str, argv: list):
+    """One cli.train_multi_lora run with its stream, counts set to 0 just
+    before it: (launches, wall s, events)."""
+    from mobilefinetuner_tpu_torch.cli import train_multi_lora as cli
+    import torch
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + telemetry_argv(name))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    check(rc == 0, f"{name}: train_multi_lora.main returned {rc}")
+    return launches, wall, read_stream(
+        os.path.join(STREAMS["dir"], f"{name}.jsonl"))
+
+
+def attn_launches(layers: int, micro: int, seq: int, head_dim: int,
+                  dtype) -> dict:
+    """Rows 1 and 2 exactly `layers` x `micro` times, nothing else."""
+    import torch
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    impl = resolve_bwd_impl(seq, head_dim, dtype)
+    want = {k: 0 for k in kernel_wrappers()}
+    want["flash_fwd"] = layers * micro
+    if impl == "merged":
+        want["bwd_merged"] = layers * micro
+    else:
+        want["bwd_dq"] = want["bwd_dkv"] = layers * micro
+    del torch
+    return want
+
+
+def step_p50(evs, skip: int = 2) -> float:
+    """The median per-step wall ms of a --log_interval 1 stream, its first
+    `skip` steps (warm-up) left out."""
+    ms = sorted(e["step_time_ms"] for e in evs
+                if e["event"] == "step_stats")[skip:] or [float("nan")]
+    return ms[len(ms) // 2]
+
+
+def tenant_losses(evs) -> dict:
+    """{tenant: (first loss, last loss)} from the step_stats sections."""
+    out = {}
+    for e in evs:
+        for name, t in (e.get("tenants") or {}).items():
+            if e["event"] == "step_stats" and t["loss"] is not None:
+                first = out.get(name, (t["loss"], None))[0]
+                out[name] = (first, t["loss"])
+    return out
+
+
+def mt_fused(torch, kernels, work, gdir, ddir):
+    """Run 1: ten GPT-2 small jobs over 8 slots, bf16, two refills."""
+    from mobilefinetuner_tpu_torch.lora import peft_io
+    out = os.path.join(work, "mt_out")
+    jobs = [{"name": f"t{i}", "lr": (1e-3, 2e-3, 3e-3, 4e-3)[i % 4],
+             "alpha": (16.0, 8.0, 32.0)[i % 3], "steps": n, "seed": 1 + i,
+             "data_seed": 100 + i}
+            for i, n in enumerate(MT["steps"])]
+    jobs[6].update(save_every=4, keep_ckpts=1)
+    peft_dir = os.path.join(out, "t3_peft")
+    jobs[3]["peft_export_dir"] = peft_dir
+    jobs_file = write_jobs(os.path.join(work, "mt_jobs.json"), "gpt2", jobs,
+                           {"rank": MT["rank"], "warmup_ratio": 0.1})
+    argv = ["--jobs", jobs_file, "--pretrained_dir", gdir, "--data_dir",
+            ddir, "--out_dir", out, "--slots", str(MT["slots"]),
+            "--batch_size", str(MT["batch"]), "--seq_len", str(MT["seq"]),
+            "--dtype", "bfloat16", "--log_interval", "1"]
+    launches, wall, evs = run_multi_lora(kernels, "multitenant", argv)
+    steps, refills = mt_schedule(MT["steps"], MT["slots"])
+    tev = [e for e in evs if e["event"] == "tenant"]
+    phases = collections.Counter(e["phase"] for e in tev)
+    run_end = [e for e in evs if e["event"] == "run_end"][-1]
+    check(run_end["steps"] == steps and run_end["exit"] == "ok",
+          f"multitenant: run_end {run_end}, expected {steps} steps")
+    check(phases["admit"] == len(jobs) and phases["finish"] == len(jobs)
+          and phases["admit"] - MT["slots"] == refills == 2,
+          f"multitenant: tenant phases {dict(phases)}, refills expected "
+          f"{refills}")
+    want = attn_launches(LAYERS, steps, MT["seq"], 64, torch.bfloat16)
+    check(launches == want, f"multitenant launches {launches}, expected "
+          f"{want}")
+    saved = []
+    for j in jobs:
+        path = os.path.join(out, f"{j['name']}.safetensors")
+        tree, spec = peft_io.load_adapter(path, device="cpu")
+        check(spec.rank == MT["rank"] and spec.alpha == j["alpha"]
+              and all(bool(torch.isfinite(e["B"]).all())
+                      and float(e["B"].abs().max()) > 0
+                      for e in tree["blocks"].values())
+              and os.path.exists(path + ".manifest.json"),
+              f"multitenant: {path} did not reload trained")
+        saved.append(path)
+    t6 = os.path.join(out, "t6_step{}.safetensors")
+    check(os.path.exists(t6.format(8)) and not os.path.exists(t6.format(4))
+          and os.path.exists(os.path.join(peft_dir,
+                                          "adapter_model.safetensors")),
+          "multitenant: save_every / keep_ckpts / peft_export_dir files")
+    losses = tenant_losses(evs)
+    first = sum(v[0] for v in losses.values()) / len(losses)
+    last = sum(v[1] for v in losses.values()) / len(losses)
+    check(len(losses) == len(jobs) and all(
+        map(_finite, [x for v in losses.values() for x in v]))
+        and last < first, f"multitenant: tenant losses {losses}")
+    p50 = step_p50(evs)
+    tokens = MT["slots"] * MT["batch"] * MT["seq"]
+    stats = {"model": "gpt2s", "dtype": "bfloat16", "slots": MT["slots"],
+             "jobs": len(jobs), "steps": steps, "refills": refills,
+             "finished": phases["finish"], "saves": phases["save"],
+             "files": len(saved) + 1, "tokens_per_step": tokens,
+             "step_ms_p50_k8": p50, "tokens_per_s_k8": tokens / p50 * 1e3,
+             "first_mean_loss": first, "last_mean_loss": last,
+             "tenant_losses": losses, "wall_s": wall}
+    return stats, launches, saved
+
+
+def mt_k1(torch, kernels, work, gdir, ddir):
+    """Run 2: the same config with one job in one slot."""
+    out = os.path.join(work, "mt_k1_out")
+    jobs_file = write_jobs(
+        os.path.join(work, "mt_k1.json"), "gpt2",
+        [{"name": "solo", "lr": 2e-3, "steps": MT["k1_steps"], "seed": 1,
+          "data_seed": 100}], {"rank": MT["rank"]})
+    argv = ["--jobs", jobs_file, "--pretrained_dir", gdir, "--data_dir",
+            ddir, "--out_dir", out, "--slots", "1", "--batch_size",
+            str(MT["batch"]), "--seq_len", str(MT["seq"]), "--dtype",
+            "bfloat16", "--log_interval", "1"]
+    launches, wall, evs = run_multi_lora(kernels, "multitenant_k1", argv)
+    want = attn_launches(LAYERS, MT["k1_steps"], MT["seq"], 64,
+                         torch.bfloat16)
+    check(launches == want, f"multitenant k=1 launches {launches}, "
+          f"expected {want}")
+    return step_p50(evs), launches
+
+
+def mt_parity(torch, dev, kernels, gdir):
+    """Run 3: three tenants trained 5 steps in the engine, f32 at full
+    width, each against the port's solo make_train_step on the same
+    batches and init (`ref`), and against the same solo step run on the
+    engine's whole batch, every tenant's rows in their slot's place and
+    only this tenant's labels counted (`solo_engine_rows`: the base
+    model's products at the engine's shapes, so what is left is the
+    engine's own routing, clip and update). pa and pb are held: losses
+    against ref within MT's parity_tol, weights against solo_engine_rows
+    within parity_w_tol of the trained change. pc trains at lr 4e-3 /
+    scale 4. The drift witness, printed for every tenant: how far from
+    ref the engine, solo_engine_rows and a solo run with the plain
+    attention in place of the kernels (another rounding order) land.
+    Returns (stats, launches, the flash forward's launches by shape)."""
+    import numpy as np
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
+    from mobilefinetuner_tpu_torch.lora import peft_io
+    from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec,
+                                                     init_lora_gpt2,
+                                                     trainable_mask)
+    from mobilefinetuner_tpu_torch.models import gpt2
+    from mobilefinetuner_tpu_torch.multitenant import (EngineConfig,
+                                                       JobSpec,
+                                                       MultiTenantEngine)
+    from mobilefinetuner_tpu_torch.ops.loss import lm_cross_entropy_sum
+    from mobilefinetuner_tpu_torch.train.trainer import (TrainConfig,
+                                                         init_optimizer,
+                                                         make_train_step)
+    config, params_np = load_gpt2(gdir)
+    params = convert.gpt2_params_from_numpy(params_np, device=dev)
+    n, b, S = MT["parity_steps"], MT["batch"], MT["seq"]
+
+    def batches(seed):
+        rng = np.random.default_rng(seed)
+        out = []
+        for _ in range(n):
+            ids = rng.integers(1, config.vocab_size, (b, S)).astype(np.int32)
+            out.append({"input_ids": ids,
+                        "attention_mask": np.ones((b, S), np.float32),
+                        "labels": ids.copy()})
+        return out
+
+    jobs = [JobSpec(name="pa", lr=2e-3, alpha=16.0, steps=n, seed=11,
+                    data_seed=201, warmup_ratio=0.2),
+            JobSpec(name="pb", lr=1e-3, alpha=8.0, steps=n, seed=12,
+                    data_seed=202),
+            JobSpec(name="pc", lr=4e-3, alpha=32.0, steps=n, seed=13,
+                    data_seed=203)]
+    held = ("pa", "pb")
+    out = tempfile.mkdtemp(prefix="mt_parity_")
+    eng = MultiTenantEngine(
+        "gpt2", config, params, jobs, lambda j: iter(batches(j.data_seed)),
+        EngineConfig(slots=len(jobs), rows_per_tenant=b, seq_len=S,
+                     dtype="float32", flush_every=1, prefetch=0,
+                     out_dir=out), device=dev)
+    zero_counts(kernels)
+    eng.admit_pending()
+    hist = {j.name: [] for j in jobs}
+    for _ in range(n):
+        eng.step()
+        for j in jobs:
+            hist[j.name].append(eng.tenants[j.name].last_loss)
+    eng.close()
+    torch.cuda.synchronize()
+    shapes = dict(kernels["flash_fwd"].by_shape)
+    launches = read_counts(kernels)
+    want = attn_launches(LAYERS, n, S, 64, torch.float32)
+    check(launches == want, f"multitenant parity launches {launches}, "
+          f"expected {want}")
+
+    def solo(job, attn_impl="auto", engine_rows=False):
+        """(per-step losses, final adapter, initial adapter) of the solo
+        step on the job's batches, or with `engine_rows` on the engine's
+        whole batch with only this job's labels counted."""
+        spec = LoRASpec(rank=job.rank, alpha=job.alpha, init="gpt2")
+        lora = init_lora_gpt2(config, spec, job.seed, device=dev)
+        lora0 = {t: {k: v.clone() for k, v in e.items()}
+                 for t, e in lora["blocks"].items()}
+        mask = trainable_mask(lora)
+        tc = TrainConfig(total_steps=n, lr=job.lr,
+                         warmup_ratio=job.warmup_ratio)
+
+        def loss_fn(lt, p, mb):
+            logits = gpt2.forward(config, p, mb["input_ids"],
+                                  attention_mask=mb["attention_mask"],
+                                  lora=lt, lora_impl="naive",
+                                  attn_impl=attn_impl)
+            return lm_cross_entropy_sum(logits, mb["labels"])
+
+        step = make_train_step(loss_fn, tc, mask)
+        opt = init_optimizer(lora, tc, mask)
+        losses = []
+        own = batches(job.data_seed)
+        for s, bt in enumerate(own):
+            if engine_rows:
+                rows = [own[s] if o is job else batches(o.data_seed)[s]
+                        for o in jobs]
+                bt = {k: np.concatenate([r[k] if k != "labels" or r is bt
+                                         else np.full_like(r[k], -100)
+                                         for r in rows])
+                      for k in bt}
+            mb = {k: torch.from_numpy(v).to(dev) for k, v in bt.items()}
+            mb["input_ids"], mb["labels"] = (mb["input_ids"].long(),
+                                             mb["labels"].long())
+            lora, opt, m = step(lora, params, opt, mb, s)
+            losses.append(float(m["loss"]))
+        return losses, lora["blocks"], lora0
+
+    def apart(losses, tree, ref):
+        """(max |loss err|, weights' |diff| / |trained change|, max |weight
+        err|) of a run against the reference solo run `ref`."""
+        ref_losses, ref_tree, init = ref
+        diff_sq = change_sq = w_max = 0.0
+        for tgt, e in ref_tree.items():
+            for leaf in ("A", "B"):
+                d = (tree[tgt][leaf].double() - e[leaf].double())
+                diff_sq += float(d.square().sum())
+                change_sq += float((e[leaf].double()
+                                    - init[tgt][leaf].double())
+                                   .square().sum())
+                w_max = max(w_max, float(d.abs().max()))
+        return {"loss_err": max(abs(a - c) for a, c in zip(losses,
+                                                           ref_losses)),
+                "weight_rel_err": math.sqrt(diff_sq / change_sq),
+                "weight_max_err": w_max}
+
+    tenants = {}
+    for job in jobs:
+        ref = solo(job)
+        same_rows = solo(job, engine_rows=True)
+        saved, _ = peft_io.load_adapter(
+            os.path.join(out, f"{job.name}.safetensors"), device=dev)
+        row = {"lr": job.lr, "scale": job.alpha / job.rank,
+               "engine": apart(hist[job.name], saved["blocks"], ref),
+               "engine_vs_solo_engine_rows": apart(
+                   hist[job.name], saved["blocks"], same_rows),
+               "solo_engine_rows": apart(*same_rows[:2], ref),
+               "solo_plain_attention": apart(
+                   *solo(job, attn_impl="plain")[:2], ref)}
+        tenants[job.name] = row
+        print(f"multitenant f32 k-vs-solo {job.name} (lr {job.lr:g}, scale "
+              f"{row['scale']:g}, {n} steps, GPT-2 small at full width; "
+              f"{'held' if job.name in held else 'drift witness'}): "
+              + "; ".join(f"{key} max |loss err| {v['loss_err']:.3e}, "
+                          f"weights |diff| / |trained change| "
+                          f"{v['weight_rel_err']:.3e}, max |err| "
+                          f"{v['weight_max_err']:.3e}"
+                          for key, v in row.items() if isinstance(v, dict)))
+    shutil.rmtree(out, ignore_errors=True)
+    loss_err = max(tenants[t]["engine"]["loss_err"] for t in held)
+    rows = [tenants[t]["engine_vs_solo_engine_rows"] for t in held]
+    w_rel = max(r["weight_rel_err"] for r in rows)
+    w_max = max(r["weight_max_err"] for r in rows)
+    print(f"multitenant f32 k-vs-solo, held tenants: max |loss err| "
+          f"{loss_err:.3e} (tolerance {MT['parity_tol']:g}); weights "
+          f"against solo_engine_rows: |diff| / |trained change| "
+          f"{w_rel:.3e} (tolerance {MT['parity_w_tol']:g}), max |err| "
+          f"{w_max:.3e}")
+    check(loss_err <= MT["parity_tol"] and w_rel <= MT["parity_w_tol"],
+          f"multitenant k-vs-solo: loss {loss_err:.3e}, weights "
+          f"{w_rel:.3e} relative ({w_max:.3e} max)")
+    del params
+    stats = {"loss_err": loss_err, "loss_tol": MT["parity_tol"],
+             "weight_rel_err": w_rel, "weight_rel_tol": MT["parity_w_tol"],
+             "weight_max_err": w_max, "tenants": tenants}
+    return stats, launches, shapes
+
+
+def mt_gemma(torch, kernels, work, gdir, ddir):
+    """Run 4: Gemma-3-270M, two tenants, targets full, bf16, 3 steps."""
+    out = os.path.join(work, "mt_gemma_out")
+    jobs_file = write_jobs(
+        os.path.join(work, "mt_gemma.json"), "gemma",
+        [{"name": "ga", "lr": 2e-3, "seed": 1, "data_seed": 300},
+         {"name": "gb", "lr": 4e-3, "alpha": 16.0, "seed": 2,
+          "data_seed": 301}],
+        {"rank": 8, "alpha": 32.0, "steps": MT["gemma_steps"]})
+    argv = ["--jobs", jobs_file, "--pretrained_dir", gdir, "--data_dir",
+            ddir, "--out_dir", out, "--slots", str(MT["gemma_slots"]),
+            "--batch_size", str(MT["gemma_batch"]), "--seq_len",
+            str(MT["gemma_seq"]), "--dtype", "bfloat16", "--log_interval",
+            "1"]
+    launches, wall, evs = run_multi_lora(kernels, "multitenant_gemma", argv)
+    want = attn_launches(GEMMA_LAYERS, MT["gemma_steps"], MT["gemma_seq"],
+                         256, torch.bfloat16)
+    check(launches == want, f"multitenant gemma launches {launches}, "
+          f"expected {want}")
+    losses = tenant_losses(evs)
+    check(sorted(losses) == ["ga", "gb"] and all(
+        map(_finite, [x for v in losses.values() for x in v])),
+        f"multitenant gemma losses {losses}")
+    for name in ("ga", "gb"):
+        check(os.path.exists(os.path.join(out, f"{name}.safetensors")),
+              f"multitenant gemma: {name} not saved")
+    return {"tenant_losses": losses, "wall_s": wall,
+            "step_ms_p50": step_p50(evs, skip=1)}, launches
+
+
+def mt_handoff(torch, dev, kernels, gdir, files):
+    """Run 5: two engine-trained adapter files, manifest-verified, into a
+    serve engine with lora_impl="fused"; one request each."""
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.data.tokenizer_bpe import GPT2BPETokenizer
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
+    from mobilefinetuner_tpu_torch.lora.lora import LoRASpec, init_lora_gpt2
+    from mobilefinetuner_tpu_torch.serve import ServeConfig, ServeEngine
+    from mobilefinetuner_tpu_torch.serve.adapters import AdapterBank
+    config, params_np = load_gpt2(gdir)
+    params = convert.gpt2_params_from_numpy(params_np, device=dev,
+                                            dtype=torch.bfloat16)
+    tok = GPT2BPETokenizer.from_pretrained(gdir)
+    max_prompt = 64 if config.n_positions >= 64 + MT["serve_new"] else 32
+    template = init_lora_gpt2(config, LoRASpec(rank=MT["rank"]), 0,
+                              dtype=torch.bfloat16, device=dev)
+    zero_counts(kernels)
+    eng = ServeEngine("gpt2", config, params, ServeConfig(
+        num_slots=2, block_T=16, num_blocks=32, max_prompt=max_prompt,
+        max_new_tokens=MT["serve_new"], dtype="bfloat16",
+        lora_impl="fused"), bank=AdapterBank(template, capacity=2),
+        device=dev)
+    reqs = []
+    for i, path in enumerate(files):
+        eng.load_adapter(f"mt{i}", path)
+        reqs.append(eng.submit(tok.encode(f" w00{i + 1} w002 w003"),
+                               adapter=f"mt{i}"))
+    eng.drain()
+    eng.close()
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    for r in reqs:
+        check(r.state == "finished" and len(r.tokens) == MT["serve_new"]
+              and all(0 <= t < config.vocab_size for t in r.tokens),
+              f"multitenant handoff request {r.state} {r.tokens}")
+    check(launches["flash_fwd"] == LAYERS * len(files)
+          and launches["paged"] > 0, f"handoff launches {launches}")
+    print(f"multitenant handoff: served {[tok.decode(r.tokens) for r in reqs]}"
+          f" from the engine-trained files (lora_impl fused)")
+    return launches
+
+
+def mt_orders(torch, dev):
+    """The port's routed site (the per-row gather, models/lora_apply) at
+    MT_ORDER_SHAPES in bf16, timed against the JAX package's dense order
+    written here in torch (every adapter's delta for every row, routed by
+    a one-hot [rows, k]; the port has no dense order) and held to it
+    within one bf16 ulp of the largest output; then the routed dropout's
+    mask on the card (ops/dropout.row_dropout)."""
+    from mobilefinetuner_tpu_torch.models import lora_apply as la
+    from mobilefinetuner_tpu_torch.ops.dropout import row_dropout
+    bf = torch.bfloat16
+    out = {}
+    for name, rows, tpr, d_in, d_out, r, k in MT_ORDER_SHAPES:
+        g = torch.Generator(device="cpu").manual_seed(rows + k)
+        mk = lambda *s: torch.randn(s, generator=g).to(dev)  # noqa: E731
+        shape = (rows, tpr) if tpr > 1 else (rows,)
+        x, y = mk(*shape, d_in).to(bf), mk(*shape, d_out).to(bf)
+        entry = {"A": mk(k, d_in, r) * d_in ** -0.5,
+                 "B": mk(k, r, d_out) * 0.05, "scale": mk(k).abs() + 0.5,
+                 "ids": torch.arange(rows, device=dev) % k}
+        ids = entry["ids"]
+        scale = entry["scale"][ids].reshape(-1, *[1] * (y.dim() - 1))
+        A, Bm = entry["A"].to(bf), entry["B"].to(bf)
+
+        def dense():
+            route = (ids[:, None] == torch.arange(k, device=dev)).float()
+            t1 = torch.einsum("b...i,kir->kb...r", x.float(), A.float())
+            t2 = torch.einsum("kb...r,kro->kb...o",
+                              t1.to(bf).float(), Bm.float())
+            return la._finish(y, scale, torch.einsum("kb...o,bk->b...o",
+                                                     t2, route))
+
+        gather = lambda: la.maybe_lora(y, x, entry)  # noqa: E731
+        times = timed({"gather": gather, "dense": dense}, 50)
+        ref = gather().float()
+        tol = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+        err = max_err(dense(), ref)
+        out[name] = {"rows": rows, "tokens": rows * tpr, "d_in": d_in,
+                     "d_out": d_out, "r": r, "k": k,
+                     "gather_ms": times["gather"][0],
+                     "gather_call_ms": times["gather"][1],
+                     "dense_ms": times["dense"][0],
+                     "dense_call_ms": times["dense"][1],
+                     "dense_vs_gather_err": err, "tol": tol}
+        print(f"multitenant routed site {name}: the port's gather "
+              f"{times['gather'][1]:.4f} ms a call ({times['gather'][0]:.4f}"
+              f" device), the JAX package's dense order "
+              f"{times['dense'][1]:.4f} ms ({times['dense'][0]:.4f}); max "
+              f"|err| {err:.3e} (tolerance {tol:g}, one bf16 ulp of the "
+              f"largest output)")
+        check(err <= tol, f"dense vs gather at {name}: {err:.3e}")
+    xd = torch.ones(16, 128, 768, device=dev, dtype=bf)
+    a = row_dropout(xd, 0.1, 99)
+    kept = float((a != 0).float().mean())
+    check(torch.equal(a, row_dropout(xd, 0.1, 99))
+          and torch.equal(row_dropout(xd[:4], 0.1, 99), a[:4])
+          and abs(kept - 0.9) < 0.01 and not torch.equal(a[0], a[1]),
+          f"routed dropout on the card: kept {kept}")
+    out["row_dropout_kept"] = kept
+    return out
+
+
+def mt_masked_rows(torch, fa, dev):
+    """Idle slots feed all-zero attention_mask rows: rows 1-2 on fully
+    masked batch rows, bf16 and f32, stay finite and agree with their
+    plain versions (which give 0 there)."""
+    out = {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        q, k, v, pad = flash_inputs(torch, dev, dt, 4, 12, 12, 128, 64,
+                                    (128, 0, 100, 0), seed=5)
+        do = flash_inputs(torch, dev, dt, 4, 12, 12, 128, 64, (128,) * 4,
+                          seed=6)[0]
+        kw = dict(scale=0.125, is_causal=True)
+        o, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+        ref_o, _ = fa.flash_attention_reference(q, k, v, pad, **kw)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        args = (q, k, v, pad, lse, delta, do)
+        grads = fa.flash_attention_bwd_merged(*args, **kw)
+        ref = fa.flash_bwd_merged_reference(*args, **kw)
+        err = max(rel_err(o, ref_o),
+                  *(rel_err(a, b) for a, b in zip(grads, ref)))
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, *grads))
+        zero = float(o[1].float().abs().max()) == 0.0
+        print(f"fully masked rows, {dt}: finite {finite}, out 0 there "
+              f"{zero}, max err / max(1, |ref|) {err:.3e} (tolerance "
+              f"{tol:g})")
+        check(finite and zero and err <= tol,
+              f"fully masked rows ({dt}): finite {finite}, err {err:.3e}")
+        out[str(dt).split(".")[-1]] = err
+    return out
+
+
+def mt_f32_entries(torch, fa, dev, launches, shapes):
+    """Rows 1 and 2 in f32 at the shape the path launched them (`shapes`,
+    the flash forward's launches by (dtype, B, Hq, S, D) in the f32
+    k-vs-solo run: one slot's rows per tenant, causal): held against the
+    plain versions, timed beside SDPA and bounded at the f32 peak."""
+    check(len(shapes) == 1 and next(iter(shapes))[0] == torch.float32,
+          f"multitenant f32 flash launches at shapes {shapes}")
+    _, B, H, S, D = next(iter(shapes))
+    q, k, v, pad = flash_inputs(torch, dev, torch.float32, B, H, H, S, D,
+                                (S,) * B, seed=31)
+    do = flash_inputs(torch, dev, torch.float32, B, H, H, S, D, (S,) * B,
+                      seed=32)[0]
+    kw = dict(scale=D ** -0.5, is_causal=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, pad, **kw)
+    delta = (do * o).sum(-1, keepdim=True)
+    args = (q, k, v, pad, lse, delta, do)
+    grads = fa.flash_attention_bwd_merged(*args, **kw)
+    ref = fa.flash_bwd_merged_reference(*args, **kw)
+    f_err = max(max_err(o, ref_o), max_err(lse, ref_lse))
+    b_err = max(max_err(a, b) for a, b in zip(grads, ref))
+    check(f_err <= 1e-4 and b_err <= 1e-4, f"f32 rows 1-2 at the "
+          f"multitenant shape: fwd {f_err:.3e}, bwd {b_err:.3e}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    allowed = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True)
+    pairs = B * H * S * (S + 1) // 2
+    n = q.numel() * 4
+    shape = (f"q {B}x{H}x{S}x{D} f32 causal (the f32 k-vs-solo run, k "
+             f"{B // MT['batch']})")
+    fwd = kernel_entry(
+        "flash_attention_fwd", "flash_attention_fwd.cu",
+        "flash_attention.py:162", launches["flash_fwd"], f_err,
+        timed({"ms": lambda: fa.flash_attention_fwd(q, k, v, pad, **kw),
+               "plain_ms": lambda: fa.flash_attention_reference(
+                   q, k, v, pad, **kw),
+               "library_ms": lambda: sdpa(q, k, v, attn_mask=allowed)}, 50),
+        bound(4 * n + B * S * 4 + B * H * S * 4, 4 * D * pairs,
+              PEAK_F32_FLOPS), {"shape": shape})
+    bwd = kernel_entry(
+        "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
+        "flash_attention.py:415", launches["bwd_merged"], b_err,
+        timed({"ms": lambda: fa.flash_attention_bwd_merged(*args, **kw),
+               "plain_ms": lambda: fa.flash_bwd_merged_reference(*args,
+                                                                 **kw),
+               "library_ms": lambda: torch.autograd.grad(
+                   lib_out, leaves, do, retain_graph=True)}, 50),
+        bound(7 * n + 2 * B * H * S * 4 + B * S * 4, 10 * D * pairs,
+              PEAK_F32_FLOPS), {"shape": shape})
+    return {"fwd": fwd, "bwd_merged": bwd}
+
+
+def multitenant(torch, dev, work, kernels, gpt2_dirs, gemma_dirs):
+    """The multi-tenant path: runs 1-5 (module docstring), each with its
+    counts set to 0 just before it; returns (stats, the path's launches,
+    the f32 rows 1-2 entries)."""
+    from mobilefinetuner_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    stats, l_fused, files = mt_fused(torch, kernels, work, *gpt2_dirs)
+    p50_k1, l_k1 = mt_k1(torch, kernels, work, *gpt2_dirs)
+    stats["step_ms_p50_k1"] = p50_k1
+    stats["step_time_vs_k1"] = stats["step_ms_p50_k8"] / p50_k1
+    stats["f32_k_vs_solo"], l_par, par_shapes = mt_parity(
+        torch, dev, kernels, gpt2_dirs[0])
+    torch.cuda.empty_cache()
+    stats["gemma"], l_gemma = mt_gemma(torch, kernels, work, *gemma_dirs)
+    torch.cuda.empty_cache()
+    l_hand = mt_handoff(torch, dev, kernels, gpt2_dirs[0], files[:2])
+    stats["storage_stable"] = mt_storage_check(torch, dev, gpt2_dirs[0])
+    stats["step_events_k8"] = mt_step_events(torch, dev, gpt2_dirs[0])
+    stats["orders"] = mt_orders(torch, dev)
+    stats["masked_rows_err"] = mt_masked_rows(torch, fa, dev)
+    launches = {k: l_fused[k] + l_k1[k] + l_par[k] + l_gemma[k] + l_hand[k]
+                for k in l_fused}
+    f32 = mt_f32_entries(torch, fa, dev, l_par, par_shapes)
+    stats["wall_s"] = time.perf_counter() - t0
+    print(f"multitenant: k=8 step ms p50 {stats['step_ms_p50_k8']:.3f}, "
+          f"k=1 {p50_k1:.3f} (ratio {stats['step_time_vs_k1']:.3f}), "
+          f"{stats['tokens_per_s_k8']:.0f} tokens/s; {stats['refills']} "
+          f"refills, {stats['finished']} finished, {stats['files']} files; "
+          f"launches {launches}")
+    return stats, launches, f32
+
+
+def mt_step_events(torch, dev, gdir):
+    """Where the fused k = 8 step's time goes (bf16, 8 slots x 2 rows x
+    seq 128, synthetic batches, past warm-up): the device time of its
+    kernels from torch.profiler (CUPTI), the host wall time a step, and
+    the busy share."""
+    import numpy as np
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
+    from mobilefinetuner_tpu_torch.multitenant import (EngineConfig,
+                                                       JobSpec,
+                                                       MultiTenantEngine)
+    config, params_np = load_gpt2(gdir)
+    params = convert.gpt2_params_from_numpy(params_np, device=dev)
+    b, S = MT["batch"], MT["seq"]
+
+    def stream(job):
+        rng = np.random.default_rng(job.data_seed)
+        while True:
+            ids = rng.integers(1, config.vocab_size, (b, S)).astype(
+                np.int32)
+            yield {"input_ids": ids, "labels": ids.copy(),
+                   "attention_mask": np.ones((b, S), np.float32)}
+
+    jobs = [JobSpec(name=f"e{i}", steps=1000, seed=i, data_seed=i)
+            for i in range(MT["slots"])]
+    eng = MultiTenantEngine("gpt2", config, params, jobs, stream,
+                            EngineConfig(slots=MT["slots"],
+                                         rows_per_tenant=b, seq_len=S,
+                                         dtype="bfloat16", async_save=False,
+                                         flush_every=1000), device=dev)
+    eng.admit_pending()
+    iters = 6
+    evs, wall_ms = device_events(eng.step, iters)
+    eng._buffered.clear()
+    eng.mux.close()
+    dev_ms = sum(us for _, us in evs) / 1e3 / iters
+    by_name = collections.Counter()
+    for name, us in evs:
+        by_name[name] += us / 1e3 / iters
+    out = {"device_ms": dev_ms, "wall_ms": wall_ms / iters,
+           "device_busy_share": dev_ms / (wall_ms / iters),
+           "top": [[n, ms] for n, ms in by_name.most_common(6)]}
+    print(f"multitenant k=8 step: device {dev_ms:.3f} ms of "
+          f"{out['wall_ms']:.3f} ms wall (busy {out['device_busy_share']:.3f}"
+          f"); top {out['top'][:3]}")
+    return out
+
+
+def mt_storage_check(torch, dev, gdir):
+    """Join, leave, refill and cancel on the card leave every bank and
+    optimizer data_ptr() and total_traces() as they were after warm-up."""
+    import numpy as np
+    from mobilefinetuner_tpu_torch import convert
+    from mobilefinetuner_tpu_torch.io.checkpoints import load_gpt2
+    from mobilefinetuner_tpu_torch.multitenant import (EngineConfig,
+                                                       JobSpec,
+                                                       MultiTenantEngine)
+    config, params_np = load_gpt2(gdir)
+    params = convert.gpt2_params_from_numpy(params_np, device=dev,
+                                            dtype=torch.bfloat16)
+
+    def stream(job):
+        rng = np.random.default_rng(job.data_seed)
+        while True:
+            ids = rng.integers(1, config.vocab_size, (2, 64)).astype(
+                np.int32)
+            yield {"input_ids": ids, "labels": ids.copy(),
+                   "attention_mask": np.ones((2, 64), np.float32)}
+
+    jobs = [JobSpec(name=n, steps=s, seed=i, data_seed=i)
+            for i, (n, s) in enumerate((("a", 5), ("b", 2), ("c", 2),
+                                        ("d", 9)))]
+    out = tempfile.mkdtemp(prefix="mt_storage_")
+    eng = MultiTenantEngine("gpt2", config, params, jobs, stream,
+                            EngineConfig(slots=2, rows_per_tenant=2,
+                                         seq_len=64, dtype="bfloat16",
+                                         prefetch=0, out_dir=out,
+                                         flush_every=4), device=dev)
+    ptrs = eng.storage_ptrs()
+    eng.admit_pending()
+    eng.step()
+    warm = eng.total_traces()
+    eng.step()                          # b finishes, c refills
+    eng.step()
+    eng.cancel("d")                     # pending -> cancelled
+    eng.step()                          # c finishes, slot stays empty
+    while eng._has_work():
+        eng.step()
+    eng.close()
+    ok = (eng.storage_ptrs() == ptrs and eng.total_traces() == warm
+          and not os.path.exists(os.path.join(out, "d.safetensors")))
+    shutil.rmtree(out, ignore_errors=True)
+    check(ok, f"multitenant storage: ptrs equal "
+          f"{eng.storage_ptrs() == ptrs}, traces {eng.total_traces()} vs "
+          f"{warm}")
+    print(f"multitenant storage stable on the card: {len(ptrs)} leaves, "
+          f"{warm} builds")
+    return {"leaves": len(ptrs), "builds": warm}
+
+
+def multitenant_only(torch, dev, kernels) -> int:
+    """`--only multitenant`: the path on its own synthetic GPT-2 small,
+    Gemma-3-270M and corpora."""
+    from mobilefinetuner_tpu_torch.data.synthetic import (
+        write_synthetic_corpus, write_synthetic_gemma270m,
+        write_synthetic_gpt2)
+    with tempfile.TemporaryDirectory() as work:
+        dirs = {n: os.path.join(work, n)
+                for n in ("gpt2", "wiki", "gemma", "gwiki")}
+        write_synthetic_gpt2(dirs["gpt2"], seed=0)
+        write_synthetic_gemma270m(dirs["gemma"], seed=0)
+        for n in ("wiki", "gwiki"):
+            write_synthetic_corpus(dirs[n], n_train_words=60_000, seed=0)
+        stats, launches, f32 = multitenant(
+            torch, dev, work, kernels, (dirs["gpt2"], dirs["wiki"]),
+            (dirs["gemma"], dirs["gwiki"]))
+    print(json.dumps({"multitenant": stats, "launches": launches,
+                      "f32_rows": f32}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "multitenant"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4024,6 +4768,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
+    if argv:
+        rc = multitenant_only(torch, dev, kernels)
+        shutil.rmtree(STREAMS["dir"], ignore_errors=True)
+        print(card)
+        return rc
 
     # 3. each kernel against its plain version, then the model
     flash_err, flash_args = check_flash(torch, fa, dev)
@@ -4137,6 +4886,12 @@ def main() -> int:
             torch, dev, kernels, gen_dirs["gpt2"], gen_dirs["gemma"])
         print(json.dumps({"mmlu": mmlu_stats, "launches": mmlu_runs}))
         torch.cuda.empty_cache()
+        mt_stats, launches_mt, mt_f32 = multitenant(
+            torch, dev, work, kernels,
+            (os.path.join(work, "gpt2"), os.path.join(work, "wiki")),
+            (gemma[4], gemma[5]))
+        print(json.dumps({"multitenant": mt_stats, "launches": launches_mt}))
+        torch.cuda.empty_cache()
         prof.update(profile_gemma_train(torch, dev, gemma))
         prof.update(profile_gemma_train(torch, dev, gemma, head=True))
         torch.cuda.empty_cache()
@@ -4215,7 +4970,8 @@ def main() -> int:
                 "mmlu": launches_mmlu[name],
                 "recovery": launches_rec[name],
                 "degrade": launches_deg[name],
-                "observe": launches_obs[name]}
+                "observe": launches_obs[name],
+                "multitenant": launches_mt[name]}
 
     def total(name):
         return sum(by_path(name).values())
@@ -4236,7 +4992,8 @@ def main() -> int:
              "gemma": gemma_entries["flash_fwd"],
              "gemma_serve": dict(gserve_flash,
                                  launches=launches_gserve["flash_fwd"]),
-             "mmlu": mmlu_entries["flash"]}),
+             "mmlu": mmlu_entries["flash"],
+             "f32_multitenant": mt_f32["fwd"]}),
         kernel_entry(
             "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
             "flash_attention.py:415", total("bwd_merged"),
@@ -4247,7 +5004,8 @@ def main() -> int:
              "f32": "flash_attention_bwd_merged.cu (FMA kernel, f32 "
                     "launches)",
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
-             "gemma": gemma_entries["bwd_merged"]}),
+             "gemma": gemma_entries["bwd_merged"],
+             "f32_multitenant": mt_f32["bwd_merged"]}),
         kernel_entry(
             "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
             "flash_attention.py:269", total("bwd_dq"), bwd["dq"],

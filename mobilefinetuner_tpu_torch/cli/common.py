@@ -85,6 +85,7 @@ from mobilefinetuner_tpu_torch.data.wikitext2 import (WikiText2Dataset,
 from mobilefinetuner_tpu_torch.io.async_ckpt import AsyncCheckpointer
 from mobilefinetuner_tpu_torch.io.safetensors_io import SafeTensorsReader
 from mobilefinetuner_tpu_torch.kernels import build as kernel_build
+from mobilefinetuner_tpu_torch.models.gpt2 import param_count
 from mobilefinetuner_tpu_torch.ops.dropout import fold_in
 from mobilefinetuner_tpu_torch.ops.loss import perplexity_from_loss
 from mobilefinetuner_tpu_torch.system.governor import (GovernorConfig,
@@ -552,16 +553,6 @@ def train_config_from_args(args, total_steps: int) -> TrainConfig:
         weight_decay=args.weight_decay,
         coupled_weight_decay=args.coupled_weight_decay,
         skip_nonfinite=bool(args.skip_nonfinite))
-
-
-def param_count(tree) -> int:
-    """Elements of every tensor leaf of a nested dict (the JAX package's
-    models.gpt2.param_count over a tree)."""
-    if tree is None:
-        return 0
-    if isinstance(tree, dict):
-        return sum(param_count(v) for v in tree.values())
-    return int(tree.numel()) if isinstance(tree, torch.Tensor) else 0
 
 
 def step_flops(args, tc: TrainConfig, trainable, frozen, n_layer: int,

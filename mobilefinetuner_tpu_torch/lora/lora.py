@@ -187,6 +187,26 @@ def stack_adapters(loras) -> dict:
     return stack(*loras)
 
 
+def unstack_adapter(stacked: dict, index: int) -> dict:
+    """Adapter `index` of a stacked [k, ...] bank in the solo layout (A
+    [L, in, r], B [L, r, out], a scalar scale): the inverse of one
+    stack_adapters slot. Routing "ids" leaves are dropped (batch data, not
+    adapter state). The leaves are views of the bank's; the multi-tenant
+    engine's save path runs it on a host snapshot, so a bank-trained
+    adapter saves byte-identical to a solo-trained one."""
+    first = next(iter(stacked["blocks"].values()))
+    n = int(first["A"].shape[0])
+    if not (0 <= index < n):
+        raise ValueError(
+            f"adapter index {index} out of range for a stacked bank of "
+            f"{n} adapter(s) (valid: 0..{n - 1})")
+    out = dict(stacked)
+    out["blocks"] = {
+        name: {leaf: v[index] for leaf, v in entry.items() if leaf != "ids"}
+        for name, entry in stacked["blocks"].items()}
+    return out
+
+
 def assign_adapters(stacked: dict, adapter_ids) -> dict:
     """Route batch rows to adapters: insert the per-row index array into
     every site entry of a stack_adapters tree (serving only).
@@ -194,7 +214,8 @@ def assign_adapters(stacked: dict, adapter_ids) -> dict:
     The ids are validated against the bank size on the host: a gather on
     the card would index out of bounds, and a clamping one would quietly
     serve tenant A another tenant's weights. Pass host ids (a list, numpy
-    array or CPU tensor); a CUDA tensor is checked too, at the cost of one
+    array or CPU tensor): they go to the card through pinned memory without
+    waiting for it. A CUDA tensor is checked too, at the cost of one
     device-to-host copy."""
     first = next(iter(stacked["blocks"].values()))
     n = int(first["A"].shape[0])
@@ -208,7 +229,10 @@ def assign_adapters(stacked: dict, adapter_ids) -> dict:
         raise ValueError(
             f"adapter id(s) {sorted(set(int(b) for b in bad))} out of range "
             f"for a stacked bank of {n} adapter(s) (valid: 0..{n - 1})")
-    ids = torch.as_tensor(host, device=first["A"].device)
+    ids = torch.from_numpy(host)
+    device = first["A"].device
+    if device.type == "cuda":
+        ids = ids.pin_memory().to(device, non_blocking=True)
     out = dict(stacked)
     out["blocks"] = {name: dict(entry, ids=ids)
                      for name, entry in stacked["blocks"].items()}
@@ -288,3 +312,6 @@ def merge_gemma3(params, lora_tree) -> dict:
     """Fold each adapter's dW into the Gemma-3 base weights."""
     return _merge(params, lora_tree, _GEMMA_BASE, +1.0)
 
+
+def unmerge_gemma3(params, lora_tree) -> dict:
+    return _merge(params, lora_tree, _GEMMA_BASE, -1.0)

@@ -90,6 +90,16 @@ def init_params(config: GPT2Config, seed: int = 0, dtype=torch.float32,
     }
 
 
+def param_count(tree) -> int:
+    """Elements of every tensor leaf of a nested dict (the JAX package's
+    models.gpt2.param_count over a tree)."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return int(tree.numel()) if isinstance(tree, torch.Tensor) else 0
+
+
 def layer_params(params, i: int, dtype) -> Dict[str, Dict[str, Any]]:
     """Layer i's weights sliced out of the [L, ...] stacks, in `dtype`."""
     return {grp: {name: w[i].to(dtype) for name, w in leaves.items()}

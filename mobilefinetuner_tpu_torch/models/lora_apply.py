@@ -18,19 +18,23 @@ x's dtype.
          the naive order on the card; pass impl="naive" for one.
 
 An entry with an "ids" leaf is a MULTI-adapter stack (lora.stack_adapters
-+ assign_adapters, serving): row b uses adapter ids[b] through a per-row
-gather, in the naive order whatever `impl` says (the JAX package's
-cost-model dense order for it is not ported; the serve engine refuses
-lora_impl="fused"). Serving runs no dropout.
++ assign_adapters: serving, and multi-tenant training): row b uses adapter
+ids[b], by the per-row A / B gather and two batched rank-r products, both
+in f32. Every impl takes that order: the JAX package's cost-model dense
+order (every adapter's delta for every row, routed by a one-hot) lost to
+the gather at every shape measured on an H100 (PERF.md), so the port has
+none (ROADMAP.md, Differences). Dropout on this path draws one mask per
+row (ops/dropout.row_dropout), each from (site seed, row).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
-from mobilefinetuner_tpu_torch.ops.dropout import inverted_dropout
+from mobilefinetuner_tpu_torch.ops.dropout import (inverted_dropout,
+                                                   row_dropout)
 from mobilefinetuner_tpu_torch.ops.lora_fused import lora_epilogue_add
 
 LORA_IMPLS = ("auto", "naive", "fused")
@@ -55,18 +59,37 @@ def _finish(y, scale, delta):
     return y + (scale * delta).to(y.dtype)
 
 
-def _multi_lora(y, x, entry, layer_idx):
-    """Per-row adapter routing: A [N,(L,)in,r], B [N,(L,)r,out],
-    scale [N], ids [B] -> row b's delta uses adapter ids[b]."""
+def impl_summary(targets: Iterable[str], impl: str, device="cuda",
+                 routed: bool = False) -> str:
+    """'target=resolved,...' logged into the run_start manifest: a
+    single-adapter site resolves to naive / fused (resolve_lora_impl), an
+    ids-routed one (`routed`) to gather under every impl."""
+    validate_lora_impl(impl)
+    on_card = torch.device(device).type == "cuda"
+    if routed:
+        site = "gather"
+    elif impl == "auto":
+        site = "fused" if on_card else "naive"
+    else:
+        site = impl
+    return ",".join(f"{name}={site}" for name in sorted(targets))
+
+
+def _multi_lora(y, x, entry, layer_idx, dropout: float = 0.0,
+                seed: Optional[int] = None):
+    """Per-row adapter routing: A [k,(L,)in,r], B [k,(L,)r,out], scale
+    [k], ids [B] -> row b's delta is (x[b] @ A[ids[b]]) @ B[ids[b]], the
+    bottleneck rounded once to x's dtype."""
     ids = entry["ids"]
     A, B = entry["A"], entry["B"]
     if layer_idx is not None and A.ndim == 4:
         A, B = A[:, layer_idx], B[:, layer_idx]
     A = A.to(x.dtype)                              # [k, in, r]
     B = B.to(x.dtype)                              # [k, r, out]
-    scale = entry["scale"].float()[ids]
+    scale = entry["scale"].detach().float()[ids]
     scale = scale.reshape((-1,) + (1,) * (y.ndim - 1))
-    t1 = torch.einsum("b...i,bir->b...r", x.float(), A[ids].float())
+    xb = row_dropout(x, dropout, seed)
+    t1 = torch.einsum("b...i,bir->b...r", xb.float(), A[ids].float())
     delta = torch.einsum("b...r,bro->b...o", t1.to(x.dtype).float(),
                          B[ids].float())
     return _finish(y, scale, delta)
@@ -78,15 +101,11 @@ def maybe_lora(y, x, lora_entry, layer_idx=None, dropout: float = 0.0,
     or [L,in,r], "B": [r,out] or [L,r,out], "scale": scalar}, stacked
     leaves indexed by layer_idx; an "ids" leaf routes rows to a stack of
     adapters. dropout > 0 with a seed (ops/dropout.py) drops the branch
-    input in train mode."""
+    input in train mode (one mask per row on the routed path)."""
     if lora_entry is None:
         return y
     if "ids" in lora_entry:
-        if dropout > 0.0 and seed is not None:
-            raise NotImplementedError(
-                "LoRA dropout on the multi-adapter path belongs to "
-                "multi-tenant training (ROADMAP.md port item P8)")
-        return _multi_lora(y, x, lora_entry, layer_idx)
+        return _multi_lora(y, x, lora_entry, layer_idx, dropout, seed)
     A, B = lora_entry["A"], lora_entry["B"]
     if layer_idx is not None and A.ndim == 3:
         A, B = A[layer_idx], B[layer_idx]

@@ -14,6 +14,11 @@ torch.utils.checkpoint (remat) sees the masks of its first forward.
 The bits are not jax.random's: parity with the JAX package is tested with
 dropout off, except the flash kernels' hash mask (ops/flash_attention.py
 keep_mask), which is bit-exact.
+
+`row_dropout` is the ids-routed LoRA path's: row b's mask is a function
+of (seed, b) alone, hashed elementwise by fold_in_tensor on the tensor's
+device (one mask per row, so a row's mask does not depend on which other
+rows share its batch, and no host value is read).
 """
 
 from __future__ import annotations
@@ -64,4 +69,26 @@ def inverted_dropout(x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(int(seed))
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def row_dropout(x: torch.Tensor, rate: float,
+                seed: Optional[int]) -> torch.Tensor:
+    """inverted_dropout with one mask per leading-axis row: element e of
+    row b is kept when the top 24 bits of fold_in(fold_in(seed, b), e),
+    as a fraction of 2^24, are below 1 - rate. Identity when rate == 0 or
+    seed is None."""
+    if rate <= 0.0 or seed is None:
+        return x
+    keep = 1.0 - rate
+    rows = x.shape[0]
+    n = x.numel() // max(rows, 1)
+    dev = x.device
+    row_seeds = fold_in_tensor(
+        torch.full((1,), int(seed), dtype=torch.int64, device=dev),
+        torch.arange(rows, device=dev))
+    bits = fold_in_tensor(row_seeds[:, None],
+                          torch.arange(n, device=dev)[None, :])
+    u = _shr(bits, 39).to(torch.float32) * (1.0 / (1 << 24))
+    mask = (u < keep).reshape(x.shape)
     return torch.where(mask, x / keep, 0.0).to(x.dtype)

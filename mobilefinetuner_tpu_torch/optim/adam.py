@@ -1,6 +1,6 @@
 """Adam / AdamW over nested dicts of tensors, with the `.opt` state file
-(port of mobilefinetuner_tpu/optim/adam.py, the single-adapter part; the
-stacked multi-tenant Adam comes with ROADMAP.md port item P8).
+(port of mobilefinetuner_tpu/optim/adam.py), and the stacked multi-slot
+Adam of the multi-tenant engine.
 
 Weight decay: decoupled AdamW by default; `coupled_weight_decay=True`
 adds the decay into the gradient, the reference's L2 semantics. The
@@ -98,6 +98,10 @@ def adam_update(grads, state: dict, params, config: AdamConfig, lr,
     wd = config.weight_decay
     sums = {"u": [], "p": []}
 
+    def keep(sel, new, old):
+        """new where sel, else old, into old's storage."""
+        return torch.where(sel, new, old, out=old)
+
     def leaf(p, g, m, v, vh, do):
         if not do:
             return p, m, v, vh
@@ -156,6 +160,127 @@ def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
+
+
+# ------------------------- multi-adapter (stacked) Adam ---------------------
+# The multi-tenant engine (multitenant/engine.py) stacks k LoRA jobs'
+# trainables along a leading adapter axis (lora.stack_adapters). m / v
+# stack the same way and `step` is a per-slot [k] counter, so per-slot bias
+# correction, LR and the apply mask are tensors: each slot's update is
+# adam_update's formula broadcast over the leading axis.
+
+
+def init_multi_state(stacked_params, config: AdamConfig, k: int,
+                     mask: Optional[Any] = None) -> dict:
+    """Adam state for a stacked [k, ...] bank: init_state's m / v (and
+    v_hat), with `step` a per-slot [k] int32 counter."""
+    state = init_state(stacked_params, config, mask)
+    state["step"] = torch.zeros(k, dtype=torch.int32,
+                                device=state["step"].device)
+    return state
+
+
+def _bsel(vec, x):
+    """A per-slot [k] vector broadcast over a stacked [k, ...] leaf."""
+    return vec.reshape(vec.shape[:1] + (1,) * (x.dim() - 1))
+
+
+def multi_adam_update(grads, state: dict, params, config: AdamConfig,
+                      lr_k, apply_k, mask: Optional[Any] = None,
+                      with_norms: bool = False):
+    """One stacked Adam step over a [k, ...] bank -> (params, state), or
+    with with_norms (..., (update_norm [k], param_norm [k])). The step
+    writes its results into the tensors of `params` and `state` (call it
+    under torch.no_grad) and returns those trees: the multi-tenant
+    engine's storage never moves.
+
+    lr_k: per-slot f32 LRs [k]; apply_k: per-slot bools [k]. A False slot
+    passes its params, m, v, v_hat and step counter through untouched (an
+    idle slot, or one the non-finite guard skips), so a refilled slot
+    starts from a fresh state. Bias correction uses each slot's own step.
+    The norms are of the would-be update, for skipped slots too."""
+    if mask is None:
+        mask = tree_map(lambda _: True, params)
+    app = apply_k.bool()
+    step2 = state["step"] + 1
+    b1, b2 = config.beta1, config.beta2
+    bc1 = 1.0 - b1 ** step2.float()
+    bc2 = 1.0 - b2 ** step2.float()
+    wd = config.weight_decay
+    sums = {"u": [], "p": []}
+
+    def keep(sel, new, old):
+        """new where sel, else old, into old's storage."""
+        return torch.where(sel, new, old, out=old)
+
+    def leaf(p, g, m, v, vh, do):
+        if not do:
+            return p, m, v, vh
+        g = g.float()
+        pf = p.float()
+        if config.coupled_weight_decay and wd:
+            g = g + wd * pf
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * g * g
+        if config.amsgrad:
+            vh2 = torch.maximum(vh, v2)
+            denom = torch.sqrt(vh2 / _bsel(bc2, vh2)) + config.eps
+        else:
+            vh2 = vh
+            denom = torch.sqrt(v2 / _bsel(bc2, v2)) + config.eps
+        upd = (m2 / _bsel(bc1, m2)) / denom
+        if not config.coupled_weight_decay and wd:
+            upd = upd + wd * pf
+        delta = _bsel(lr_k, upd) * upd
+        if with_norms:
+            sums["u"].append(_slot_sum(delta * delta))
+            sums["p"].append(_slot_sum(pf * pf))
+        sel = _bsel(app, p)
+        new_p = keep(sel, (pf - delta).to(p.dtype), p)
+        m2 = keep(sel, m2, m)
+        v2 = keep(sel, v2, v)
+        if config.amsgrad:
+            vh2 = keep(sel, vh2, vh)
+        return new_p, m2, v2, vh2
+
+    vh_tree = state["v_hat"] if config.amsgrad \
+        else tree_map(lambda _: None, params)
+    out = tree_map(leaf, params, grads, state["m"], state["v"], vh_tree,
+                   mask)
+    pick = lambda i: _pick(out, i)  # noqa: E731
+    new_state = {"step": keep(app, step2, state["step"]),
+                 "m": pick(1), "v": pick(2)}
+    if config.amsgrad:
+        new_state["v_hat"] = pick(3)
+    if with_norms:
+        zero = torch.zeros(step2.shape, device=step2.device)
+        upd = torch.sqrt(sum(sums["u"])) if sums["u"] else zero
+        w = torch.sqrt(sum(sums["p"])) if sums["p"] else zero
+        return pick(0), new_state, (upd, w)
+    return pick(0), new_state
+
+
+def _slot_sum(x):
+    """[k, ...] -> [k]: the sum over every axis but the leading one."""
+    return x.reshape(x.shape[0], -1).sum(1) if x.dim() > 1 else x
+
+
+def slot_norms(grads) -> torch.Tensor:
+    """Per-slot L2 norms [k] over a stacked [k, ...] grad tree: slot j's
+    norm over its own adapter only, global_norm of its solo tree.
+    Zero-size placeholders (frozen leaves) are skipped."""
+    return torch.sqrt(sum(_slot_sum(torch.square(g.float()))
+                          for g in _leaves(grads) if g.numel()))
+
+
+def clip_by_slot_norm(grads, max_norm: float):
+    """Per-slot clip-by-global-norm over a stacked grad tree -> (clipped
+    grads, pre-clip norms [k]): slot j's scale is clip_by_global_norm's
+    for its solo tree."""
+    norms = slot_norms(grads)
+    scale = torch.clamp(max_norm / torch.clamp_min(norms, 1e-12), max=1.0)
+    return tree_map(lambda g: (g * _bsel(scale, g)).to(g.dtype)
+                    if g.numel() else g, grads), norms
 
 
 # ----------------------------- state I/O ------------------------------------

@@ -72,8 +72,12 @@ then records run_end{exit=preempted}; a second signal raises
 KeyboardInterrupt. `health()` is read from the metrics endpoint's
 threads (/healthz answers 503 while draining).
 
+`lora_impl` is validated and recorded: the multi-adapter path takes the
+per-row gather under every value (models/lora_apply.py), and run_start
+records that per target (`lora_impl_resolved`).
+
 Not ported yet, and refused by name: the (dp, tp) mesh (ROADMAP.md port
-item P9) and lora_impl='fused' on the multi-adapter path (P7).
+item P9).
 """
 
 from __future__ import annotations
@@ -97,7 +101,8 @@ from mobilefinetuner_tpu_torch.models.generate import (
     gemma3_decode_step_paged, gemma3_prefill, gemma3_prefill_chunk,
     gpt2_decode_step_paged, gpt2_prefill, gpt2_prefill_chunk,
     sample_per_row)
-from mobilefinetuner_tpu_torch.models.lora_apply import validate_lora_impl
+from mobilefinetuner_tpu_torch.models.lora_apply import (impl_summary,
+                                                        validate_lora_impl)
 from mobilefinetuner_tpu_torch.ops.attention import validate_attn_impl
 from mobilefinetuner_tpu_torch.serve.adapters import AdapterBank
 from mobilefinetuner_tpu_torch.serve.paged_kv import (TRASH_BLOCK,
@@ -132,7 +137,7 @@ class ServeConfig:
     max_new_tokens: int = 64  # per-request generation cap
     dtype: str = "float32"    # weights + compute + cache dtype
     attn_impl: str = "auto"   # auto (the kernels) | plain | flash
-    lora_impl: str = "auto"   # auto | naive: the multi-adapter gather
+    lora_impl: str = "auto"   # auto | naive | fused (models/lora_apply)
     max_queue: int = 0        # FCFS queue cap; 0 = unbounded
     shed_policy: str = "reject"   # or "deadline": shed the queued request
                                   # closest to its deadline
@@ -162,10 +167,6 @@ class ServeConfig:
         if self.mesh_dp * self.mesh_tp != 1:
             raise _not_ported("the (dp, tp) serve mesh", "P9")
         validate_lora_impl(self.lora_impl)
-        if self.lora_impl == "fused":
-            raise _not_ported("lora_impl='fused' on the multi-adapter "
-                              "serving path (the cost-model dense order)",
-                              "P7")
         validate_attn_impl(self.attn_impl)
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
@@ -420,6 +421,7 @@ class ServeEngine:
             "max_prompt": cfg.max_prompt,
             "max_new_tokens": cfg.max_new_tokens, "dtype": cfg.dtype,
             "attn_impl": cfg.attn_impl, "lora_impl": cfg.lora_impl,
+            "lora_impl_resolved": self._lora_impl_resolved(),
             "adapter_slots": bank.capacity if bank else 0,
             "max_queue": cfg.max_queue, "shed_policy": cfg.shed_policy,
             "on_step_error": cfg.on_step_error,
@@ -436,6 +438,14 @@ class ServeEngine:
     # ------------------------------------------------------------ helpers ---
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _lora_impl_resolved(self) -> Optional[str]:
+        """The adapters' order per target (models/lora_apply.py), or None
+        without a bank."""
+        if self.bank is None:
+            return None
+        return impl_summary(self.bank.tree["blocks"], self.cfg.lora_impl,
+                            self.device, routed=True)
 
     def _route(self, aid: np.ndarray):
         """Bank slots -> per-row lora tree (the ids-gather routing)."""

@@ -1,6 +1,7 @@
 """The optimizer step: gradient accumulation, clipping, LR schedule and
-Adam in one call (port of mobilefinetuner_tpu/train/trainer.py; the
-multi-tenant step comes with ROADMAP.md port item P8).
+Adam in one call (port of mobilefinetuner_tpu/train/trainer.py), for one
+adapter or model (make_train_step) or for k stacked adapter jobs at once
+(make_multi_train_step, the multi-tenant engine's step).
 
 Generic over what is trainable: LoRA passes the adapter tree as
 `trainable` and the frozen base params as `frozen`. The loss contract is
@@ -22,11 +23,16 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from mobilefinetuner_tpu_torch.optim.adam import (AdamConfig, adam_update,
+from mobilefinetuner_tpu_torch.optim.adam import (AdamConfig, _bsel,
+                                                  _slot_sum, adam_update,
                                                   clip_by_global_norm,
+                                                  clip_by_slot_norm,
                                                   flatten, global_norm,
-                                                  init_state, tree_map)
-from mobilefinetuner_tpu_torch.optim.schedule import lr_schedule
+                                                  init_state,
+                                                  multi_adam_update,
+                                                  slot_norms, tree_map)
+from mobilefinetuner_tpu_torch.optim.schedule import (lr_schedule,
+                                                      multi_lr_schedule)
 
 # The step loop's timing window (the flush-interval synced per-step time,
 # the hang watchdog's deadline median) lives in core/telemetry and is
@@ -144,6 +150,107 @@ def make_train_step(loss_fn: Callable[[Any, Any, dict], tuple],
                                                                   1e-20),
                        "nonfinite_count": nonfinite.to(torch.int32),
                        "skipped": skipped}
+        return new_t, new_opt, metrics
+
+    return step_fn
+
+
+def make_multi_train_step(loss_rows_fn: Callable[[Any, Any, dict], tuple],
+                          train_cfg: TrainConfig, k: int,
+                          mask: Optional[Any] = None):
+    """The multi-tenant optimizer step: k LoRA jobs, stacked [k, ...]
+    along the adapter axis, through one forward and backward per
+    micro-batch.
+
+    loss_rows_fn(stacked_trainable, frozen, micro_batch) -> (row_nll_sums
+    [R], row_token_counts [R]), every row of the micro-batch routed to its
+    adapter by micro_batch["adapter_ids"] [R] (the ids-routed
+    models/lora_apply._multi_lora: slot j's gradient is the sum of its
+    own rows' contributions).
+
+    step_fn(trainable, frozen, opt_state, batch, sched) -> (trainable,
+    opt_state, metrics): the step writes the new adapters and Adam state
+    into the tensors of `trainable` and `opt_state` (their storage never
+    moves) and returns those trees. batch: tensors [accum * R, ...] with
+    "adapter_ids", and optionally "dropout_seeds", one int per
+    micro-batch (handed to loss_rows_fn as micro_batch["dropout_seed"]).
+    sched: per-slot [k] tensors {step, total, lr, warmup_ratio, active}
+    on the bank's device, so tenants joining and leaving change data,
+    never the step. Per slot, as a solo step would: the loss and token
+    sums over the micro-batches, the gradient over the slot's own tokens,
+    the non-finite census before clipping, the clip by the slot's own
+    norm, its own LR from its own step, and Adam with its own bias
+    correction. An inactive slot's params and state pass through; with
+    skip_nonfinite so does an active slot whose gradients are not
+    finite. metrics: per-slot [k] device tensors loss, grad_norm, lr,
+    tokens, param_norm, update_ratio, nonfinite_count, skipped and
+    active; nothing is read back to the host."""
+    accum = train_cfg.grad_accum_steps
+    adam_cfg = train_cfg.adam()
+
+    def step_fn(trainable, frozen, opt_state, batch, sched):
+        batch = dict(batch)
+        seeds = batch.pop("dropout_seeds", None)
+        m = mask if mask is not None else tree_map(lambda _: True,
+                                                   trainable)
+        leaves = tree_map(lambda t, on: t.detach().requires_grad_(bool(on)),
+                          trainable, m)
+        flat = flatten(leaves)
+        paths = [p for p, on in flatten(m).items() if on]
+        device = flat[paths[0]].device
+        g_sum = {p: torch.zeros_like(flat[p], dtype=torch.float32)
+                 for p in paths}
+        loss_k = torch.zeros(k, device=device)
+        w_k = torch.zeros(k, device=device)
+        micro = reshape_for_accum(batch, accum)
+        for i in range(accum):
+            mb = {key: v[i] for key, v in micro.items()}
+            if seeds is not None:
+                mb["dropout_seed"] = seeds[i]
+            s_rows, w_rows = loss_rows_fn(leaves, frozen, mb)
+            for p, g in zip(paths, torch.autograd.grad(
+                    s_rows.sum(), [flat[p] for p in paths],
+                    allow_unused=True)):
+                if g is not None:
+                    g_sum[p] += g.float()
+            ids = mb["adapter_ids"]
+            loss_k.index_add_(0, ids, s_rows.detach().float())
+            w_k.index_add_(0, ids, w_rows.float())
+        with torch.no_grad():
+            inv = 1.0 / torch.clamp_min(w_k, 1.0)
+            scaled = {p: g * _bsel(inv, g) for p, g in g_sum.items()}
+            del g_sum
+            # per slot, before clipping: slot j's NaN must neither smear
+            # over its own tree nor gate slot i's update
+            nonfinite_k = sum(_slot_sum((~torch.isfinite(g)).to(torch.int32))
+                              for g in scaled.values())
+            if train_cfg.clip_grad_norm and train_cfg.clip_grad_norm > 0:
+                scaled, norm_k = clip_by_slot_norm(scaled,
+                                                   train_cfg.clip_grad_norm)
+            else:
+                norm_k = slot_norms(scaled)
+            grads = _tree_like(trainable, scaled)
+            lr_k = multi_lr_schedule(sched["step"], sched["total"],
+                                     sched["lr"], sched["warmup_ratio"],
+                                     train_cfg.schedule,
+                                     train_cfg.min_lr_ratio)
+            active = sched["active"].bool()
+            apply_k = active
+            if train_cfg.skip_nonfinite:
+                bad = (nonfinite_k > 0) | ~torch.isfinite(norm_k)
+                apply_k = active & ~bad
+                skipped = (active & bad).to(torch.int32)
+            else:
+                skipped = torch.zeros(k, dtype=torch.int32, device=device)
+            new_t, new_opt, (upd_k, wn_k) = multi_adam_update(
+                grads, opt_state, trainable, adam_cfg, lr_k, apply_k, m,
+                with_norms=True)
+            metrics = {"loss": loss_k * inv, "grad_norm": norm_k,
+                       "lr": lr_k, "tokens": w_k, "param_norm": wn_k,
+                       "update_ratio": upd_k / torch.clamp_min(wn_k, 1e-20),
+                       "nonfinite_count": nonfinite_k.to(torch.int32),
+                       "skipped": skipped,
+                       "active": active.to(torch.int32)}
         return new_t, new_opt, metrics
 
     return step_fn

@@ -1356,3 +1356,39 @@ def test_a_real_cuda_oom_is_resource_exhausted(dev):
     check = mg.preflight(1.0, device=dev)
     assert check.cap_source == "mem_get_info" and check.verdict == "ok"
     assert abs(check.cap_mb - total / 2 ** 20) < 1.0
+
+
+@pytest.mark.parametrize("rows,tpr,d_in,d_out,r,k", [
+    (8, 1, 768, 2304, 4, 3),        # the serving decode step
+    (16, 128, 768, 2304, 8, 8),     # the multi-tenant training step
+    (4, 16, 640, 1024, 8, 2),       # a Gemma q_proj site
+])
+def test_routed_lora_takes_the_gather_under_every_impl(dev, rows, tpr,
+                                                       d_in, d_out, r, k):
+    """The ids-routed site on the card in bf16: naive, fused and auto give
+    the same bits, and agree with the per-row products in f32 on the CPU
+    within one bf16 ulp of the largest output."""
+    from mobilefinetuner_tpu_torch.models import lora_apply as la
+    bf = torch.bfloat16
+    shape = (rows, tpr) if tpr > 1 else (rows,)
+    x = _randn(dev, bf, *shape, d_in, seed=1)
+    y = _randn(dev, bf, *shape, d_out, seed=2)
+    entry = {"A": _randn(dev, torch.float32, k, d_in, r, seed=4)
+             * d_in ** -0.5,
+             "B": _randn(dev, torch.float32, k, r, d_out, seed=5) * 0.05,
+             "scale": torch.linspace(0.5, 2.0, k, device=dev),
+             "ids": torch.arange(rows, device=dev) % k}
+    outs = [la.maybe_lora(y, x, entry, impl=impl).float()
+            for impl in la.LORA_IMPLS]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = []
+    for b in range(rows):
+        j = int(entry["ids"][b])
+        xa = (x[b].float().cpu() @ entry["A"][j].to(bf).float().cpu()
+              ).to(bf).float()
+        d = xa @ entry["B"][j].to(bf).float().cpu()
+        ref.append(y[b].float().cpu()
+                   + (float(entry["scale"][j]) * d).to(bf).float())
+    ref = torch.stack(ref)
+    ulp = 2.0 ** (int(torch.floor(torch.log2(ref.abs().max()))) - 7)
+    assert float((outs[0].cpu() - ref).abs().max()) <= ulp

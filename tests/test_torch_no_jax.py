@@ -7,7 +7,8 @@ cache, the engine, the serving model functions), the MMLU, GPT-2 full
 fine-tuning and data-mode modules, the fault-tolerance modules
 (telemetry, device-memory readings, preemption, the memory guard, async
 checkpoints, the lineage) and the observability modules (trace spans and
-captures, the metrics endpoint, the run registry, the step governor)
+captures, the metrics endpoint, the run registry, the step governor) and
+the multi-tenant training modules (the jobs file, the engine, its CLI)
 named among them."""
 
 import ast
@@ -116,6 +117,27 @@ def test_observability_modules_are_scanned(module):
     """The observability plane's modules are among the files scanned, and
     a subprocess imports each without jax or the JAX package (the copied
     pure-Python modules keep their own code)."""
+    assert os.path.join(ROOT, PKG, module) in _port_files()
+    name = f"{PKG}." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import {name}; "
+            f"print(sorted(m for m in sys.modules if m in ('jax', "
+            f"'mobilefinetuner_tpu') or "
+            f"m.startswith(('jax.', 'mobilefinetuner_tpu.'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "multitenant/__init__.py", "multitenant/jobspec.py",
+    "multitenant/engine.py", "cli/train_multi_lora.py"])
+def test_multitenant_modules_are_scanned(module):
+    """The multi-tenant training modules are among the files scanned, and
+    a subprocess imports each without jax or the JAX package (jobspec.py
+    is the port's own copy of the pure-Python jobs-file parser)."""
     assert os.path.join(ROOT, PKG, module) in _port_files()
     name = f"{PKG}." + module[:-3].replace("/", ".").replace(
         ".__init__", "")

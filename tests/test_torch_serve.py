@@ -257,9 +257,12 @@ def test_submit_and_config_validation(engine, params):
         ServeEngine("bert", CFG, params, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         ServeConfig(attn_impl="pallas").validate()
-    for kw in (dict(mesh_tp=2), dict(lora_impl="fused")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeConfig(**kw).validate()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeConfig(mesh_tp=2).validate()
+    # every lora_impl is taken; the multi-adapter path runs the gather
+    ServeConfig(lora_impl="fused").validate()
+    with pytest.raises(ValueError, match="lora_impl"):
+        ServeConfig(lora_impl="pallas").validate()
     # serve telemetry is ported: its knobs validate, with the JAX rules
     ServeConfig(trace_spans=True, stats_every=4).validate()
     with pytest.raises(ValueError, match="stats_every"):
