@@ -7,15 +7,16 @@ paths once on one NVIDIA card.
 Phases, none of whose failures is caught (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build every kernel from mobilefinetuner_tpu_torch/csrc with nvcc for
-     sm_90a, one nvcc per source, all at once;
+     sm_90a, one nvcc per source, all at once; the 3xTF32 sources of rows
+     1-2 must spill no register;
   3. hold each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at a few others, with the tolerance
      printed: the flash forward (bf16 / f16 on the tensor-core kernel,
-     f32 on the FMA kernel; with and without dropout, bf16 dropout with
+     f32 on the 3xTF32 one; with and without dropout, bf16 dropout with
      the merged backward on its output, bf16 D 256 with GQA, a window
      inside a key tile and a ragged S), the merged
      and the split flash backward (the merged one in bf16 / f16 on the
-     tensor-core kernel, f32 on the FMA kernel; bf16 D 256 with GQA, a
+     tensor-core kernel, f32 on the 3xTF32 one; bf16 D 256 with GQA, a
      ragged S, a padded tail, a window inside a key block and dropout
      0.1), the LoRA epilogue (bf16 / f16 on the vector kernel, which folds
      the scale read from the device into xa: its xs bit for bit the
@@ -64,11 +65,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      sampled; with every launch count set to 0 just before, every request
      finishes with 64 tokens, every page is returned or parked as the
      cache maps it, the flash kernel ran 18 times a one-shot prefill, the
-     paged kernel 18 times a decode step, no other kernel; then in f32
-     the paged step with the kernel against the plain one (logits 1e-4),
-     and the same tokens from the kernel engine with the cache (cold, then
-     prefix hits, a sampled request too), a plain engine without it and
-     an engine that chunks every prompt;
+     paged kernel 18 times a decode step, no other kernel; then, counts
+     set to 0 again (`gemma_serve_f32`), in f32 the paged step with the
+     kernel against the plain one (logits 1e-4), and the same tokens from
+     the kernel engine with the cache (cold, then prefix hits, a sampled
+     request too), a plain engine without it and an engine that chunks
+     every prompt;
   5. train: write a random-weight GPT-2 small directory and a synthetic
      WikiText-shaped corpus into a temporary directory, take the base
      model's eval perplexity, set every launch count to 0 and run the
@@ -189,7 +191,8 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      package's dense order (within one bf16 ulp) at the serving decode
      and the training shape; the routed dropout's mask on the card; rows
      1-2 on fully masked rows (idle slots) finite in bf16 and f32; rows
-     1 and 2 in f32 at the f32 run's shape timed beside SDPA;
+     1 and 2 in f32 at the f32 run's shape timed in turns with their FMA
+     first versions and beside SDPA;
   8. trace a decode step (and time it from CUDA events around CUDA-graph
      replays of one gpt2_decode_step_paged call with the engine's state
      held fixed), a 128-token prefill, the Gemma serve decode step and a
@@ -219,9 +222,16 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      Gemma-3-270M serving, each with the `gemma_serve` path's launches;
      row 1 at every shape the MMLU runs launched it (each bucket of GPT-2
      16 x 12 heads and Gemma 16 x 4 heads over 1, bf16 on the tensor-core
-     kernel and f32 on the FMA kernel, each held against its plain
-     version) and row 5 at the MMLU head adapter's [16, 262,144], with
-     the launches at that shape (the wrappers' `by_shape`).
+     kernel and f32 on the 3xTF32 one, timed in turns with its FMA first
+     version, each held against its plain version) and row 5 at the MMLU
+     head adapter's [16, 262,144], with the launches at that shape (the
+     wrappers' `by_shape`); rows 1 and 2 in f32 get entries of their own
+     (the 3xTF32 sources), with the f32 launches of every path (the
+     wrappers' `by_shape` and `by_dtype`), the 16-bit entries the rest;
+     the f32 first versions of rows 5, 6, 7 and 9-11 (row 5 at GPT-2's
+     attn_qkv, the rest at the Gemma chunk, r 8) are held against their
+     plain versions and timed beside their library calls in f32. f32
+     work is bounded at the 3xTF32 rate (495 / 3 TFLOP/s).
 
 Every training and eval run writes its telemetry stream: each event is
 checked against the schema, every earlier path's memory admission must
@@ -256,10 +266,12 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its flops over the rate of
-# its type (bf16 / f16 on the tensor cores; f32 outside them)
+# its type: bf16 / f16 on the tensor cores; f32 as 3xTF32 on them (three
+# TF32 products for each f32 one, f32_bound), which the f32 flash kernels
+# run and which is less time than the 67 TFLOP/s of the FMA units
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 LAYERS = 12
 CSRC = "mobilefinetuner_tpu_torch/csrc/"
 JAX_OPS = "mobilefinetuner_tpu/ops/"
@@ -387,6 +399,12 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def f32_bound(nbytes: float, flops: float):
+    """The bound of f32 work: its products in 3xTF32 on the tensor cores,
+    three TF32 products for each f32 one."""
+    return bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -471,11 +489,15 @@ def timed(fns: dict, iters: int = 200):
             for key, fn in fns.items()}
 
 
-# the LoRA epilogue's launches by (dtype, N, d_out) and the flash
-# forward's by (dtype, B, Hq, S, D), summed over the main paths' runs:
-# each run counts from zero_counts to read_counts
+# the LoRA epilogue's launches by (dtype, N, d_out), the flash forward's
+# by (dtype, B, Hq, S, D) and the merged backward's by dtype, summed over
+# the main paths' runs: each run counts from zero_counts to read_counts
 EPI_BY_SHAPE = collections.Counter()
 FLASH_BY_SHAPE = collections.Counter()
+BWD_BY_DTYPE = collections.Counter()
+# {path: (flash forward, merged backward) launches in f32}, from
+# mark_f32 after each path in main
+F32_BY_PATH = {}
 
 
 def zero_counts(kernels: dict) -> None:
@@ -484,20 +506,49 @@ def zero_counts(kernels: dict) -> None:
         fn.launches = 0
     kernels["lora_epilogue"].by_shape.clear()
     kernels["flash_fwd"].by_shape.clear()
+    kernels["bwd_merged"].by_dtype.clear()
 
 
 def read_counts(kernels: dict) -> dict:
     """{kernel: launches} since zero_counts, just after a path's run; the
     epilogue's and the flash forward's launches by shape go into
-    EPI_BY_SHAPE and FLASH_BY_SHAPE."""
+    EPI_BY_SHAPE and FLASH_BY_SHAPE, the merged backward's by dtype into
+    BWD_BY_DTYPE."""
     EPI_BY_SHAPE.update(kernels["lora_epilogue"].by_shape)
     FLASH_BY_SHAPE.update(kernels["flash_fwd"].by_shape)
+    BWD_BY_DTYPE.update(kernels["bwd_merged"].by_dtype)
     return {k: fn.launches for k, fn in kernels.items()}
+
+
+def f32_launches() -> tuple:
+    """(flash forward, merged backward) launches in f32 counted so far."""
+    import torch
+    return (sum(n for key, n in FLASH_BY_SHAPE.items()
+                if key[0] == torch.float32), BWD_BY_DTYPE[torch.float32])
+
+
+def mark_f32(path: str, since: tuple) -> tuple:
+    """F32_BY_PATH[path]: the f32 launches of rows 1-2 since `since`, the
+    counts after the path's run; returns those counts."""
+    now = f32_launches()
+    F32_BY_PATH[path] = tuple(a - b for a, b in zip(now, since))
+    return now
+
+
+def in_turns(new, old, iters: int) -> dict:
+    """{"ms", "earlier_ms"}: (device ms, call ms) of a kernel and of its
+    earlier version on the same inputs, each the mean of two timed() runs
+    taken in turns (new, old, old, new)."""
+    runs = [timed({"x": fn}, iters)["x"] for fn in (new, old, old, new)]
+    return {"ms": tuple((a + b) / 2 for a, b in zip(runs[0], runs[3])),
+            "earlier_ms": tuple((a + b) / 2 for a, b in zip(runs[1],
+                                                            runs[2]))}
 
 
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
                  extra=None):
-    """One entry of the kernels line from timed() results."""
+    """One entry of the kernels line from timed() results (and in_turns'
+    earlier version's times, where there are)."""
     b_ms, b_by = bnd
     entry = {"name": name, "route": "cuda", "source": CSRC + source,
              "replaces": JAX_OPS + replaces, "launches": launches,
@@ -510,8 +561,55 @@ def kernel_entry(name, source, replaces, launches, err, times, bnd,
              "plain_call_ms": times["plain_ms"][1],
              "library_call_ms": (times["library_ms"][1]
                                  if "library_ms" in times else None)}
+    if "earlier_ms" in times:
+        entry.update(earlier_ms=times["earlier_ms"][0],
+                     earlier_call_ms=times["earlier_ms"][1])
     entry.update(extra or {})
     return entry
+
+
+def fma_flash(torch, fa, q, k, v, pad, *, scale, is_causal=True,
+              sliding_window=None, p_drop=0.0, seed=None):
+    """(fwd, bwd): calls of rows 1-2's f32 FMA first versions
+    (flash_attention_fwd.cu, flash_attention_bwd_merged.cu), which no path
+    runs since f32 moved to the 3xTF32 kernels, on the wrappers'
+    arguments: fwd() -> (out, lse), bwd(lse, delta, dout) -> (dq, dk,
+    dv), with the workspaces and the GQA sum the wrapper gave them. Their
+    times, in turns beside the new kernels', are the f32 rows' earlier
+    times; their launches are outside the wrappers' counts."""
+    from mobilefinetuner_tpu_torch.kernels import build
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    pad = torch.ones(B, S, device=q.device) if pad is None else pad
+    tail = (B, Hq, Hkv, S, D, 0, float(scale), int(bool(is_causal)),
+            int(sliding_window is not None), int(sliding_window or 0),
+            *fa._dropout_args(p_drop, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    f_fn = fa._fn("flash_attention_fwd", "mft_flash_attention_fwd", 6)
+    b_fn = fa._fn("flash_attention_bwd_merged",
+                  "mft_flash_attention_bwd_merged", 10)
+
+    def fwd():
+        out = torch.empty_like(q)
+        lse = torch.empty(B, Hq, S, 1, device=q.device)
+        build.check_launch("flash_attention_fwd.cu", f_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *tail))
+        return out, lse
+
+    def bwd(lse, delta, dout):
+        dq = torch.zeros_like(q)
+        dk_p, dv_p = torch.empty_like(q), torch.empty_like(q)
+        build.check_launch("flash_attention_bwd_merged.cu", b_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk_p.data_ptr(), dv_p.data_ptr(), *tail))
+        if G > 1:
+            dk_p = dk_p.reshape(B, Hkv, G, S, D).sum(2)
+            dv_p = dv_p.reshape(B, Hkv, G, S, D).sum(2)
+        return dq, dk_p, dv_p
+    return fwd, bwd
 
 
 # ------------------------------------------------------------- inputs ------
@@ -555,7 +653,7 @@ def paged_inputs(torch, dev, dtype, S, KV, G, D, bT, M, L, seed,
 
 def check_flash(torch, fa, dev):
     """The forward kernels vs flash_attention_reference (bf16 and f16: the
-    tensor-core kernel, f32: the FMA kernel): the path shapes, a bf16
+    tensor-core kernel, f32: the 3xTF32 one): the path shapes, a bf16
     dropout case whose output the merged backward then takes (against its
     plain version), bf16 at D = 256 with GQA 4:1, a window that cuts
     inside a key tile and a ragged S; and the refusal of a head dim the
@@ -621,7 +719,8 @@ def check_flash(torch, fa, dev):
 
 def check_flash_bwd(torch, fa, dev):
     """The merged and the split backward kernels against their plain
-    versions (the merged one in bf16 / f16 on the tensor-core kernel);
+    versions (the merged one in bf16 / f16 on the tensor-core kernel, in
+    f32 on the 3xTF32 one);
     returns {kernel: max error} at the training shape."""
     cases = [  # (name, dtype, B, Hq, Hkv, S, D, n_real, window, p_drop,
         #         tol of rel_err)
@@ -2588,21 +2687,22 @@ def mmlu_kernel_entries(torch, fa, lf, dev, flash_shapes):
     sit after every real row) and row 5 at the head adapter's [16,
     262,144], r 8: each held against its plain version (the tolerances
     of check_flash and check_epilogue), timed and bounded, with the
-    launches the paths made at that shape. f32 shapes run the FMA kernel
-    (flash_attention_fwd.cu)."""
+    launches the paths made at that shape. f32 shapes run the 3xTF32
+    kernel (flash_attention_fwd_tf32.cu), timed in turns with its FMA
+    first version (flash_attention_fwd.cu) and bounded at the 3xTF32
+    rate."""
     bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fams = {(12, 64): ("gpt2", 12, (None,)),
             (4, 256): ("gemma", 1, (512, None))}
-    out = {"flash": []}
+    out = {"flash": [], "flash_f32": []}
     for key in sorted(flash_shapes, key=lambda k: (str(k[0]), k[2], k[3])):
         dt, B, Hq, S, D = key
         check((Hq, D) in fams, f"MMLU flash launch at a shape {key} of "
               f"neither family")
         fam, Hkv, windows = fams[(Hq, D)]
-        tol, src, peak = ((1e-2, "flash_attention_fwd_mma.cu",
-                           PEAK_BF16_FLOPS) if dt == bf else
-                          (1e-4, "flash_attention_fwd.cu", PEAK_F32_FLOPS))
+        tol, src = ((1e-2, "flash_attention_fwd_mma.cu") if dt == bf else
+                    (1e-4, "flash_attention_fwd_tf32.cu"))
         q, k, v, _ = flash_inputs(torch, dev, dt, B, Hq, Hkv, S, D,
                                   (S,) * B, seed=21)
         errs = []
@@ -2620,25 +2720,36 @@ def mmlu_kernel_entries(torch, fa, lf, dev, flash_shapes):
                   f"{lse_err:.3e}")
             errs.append(err)
         kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=windows[0])
-        times = timed({
+        fns = {
             "ms": lambda: fa.flash_attention_fwd(q, k, v, None, **kw),
             "plain_ms": lambda: fa.flash_attention_reference(q, k, v, None,
                                                              **kw),
             "library_ms": lambda: sdpa(q, k, v, is_causal=True,
                                        scale=kw["scale"],
-                                       enable_gqa=Hq != Hkv)}, 50)
+                                       enable_gqa=Hq != Hkv)}
+        extra = {}
+        if dt == bf:
+            times = timed(fns, 50)
+        else:   # the new kernel and its earlier version in turns
+            times = in_turns(fns.pop("ms"), fma_flash(
+                torch, fa, q, k, v, None, **kw)[0], 50)
+            times.update(timed(fns, 50))
+            extra["earlier_source"] = CSRC + "flash_attention_fwd.cu"
         pairs = B * Hq * sum(min(i + 1, windows[0] or S)   # causal
                              for i in range(S))
         isz = q.element_size()
-        out["flash"].append(kernel_entry(
+        nbytes = ((2 * q.numel() + 2 * k.numel()) * isz + B * S * 4
+                  + B * Hq * S * 4)
+        out["flash" if dt == bf else "flash_f32"].append(kernel_entry(
             "flash_attention_fwd", src, "flash_attention.py:162",
             flash_shapes[key], max(errs), times,
-            bound((2 * q.numel() + 2 * k.numel()) * isz + B * S * 4
-                  + B * Hq * S * 4, 4 * D * pairs, peak),
-            {"shape": f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, "
-                      f"{str(dt).split('.')[-1]}, causal"
-                      + (f", window {windows[0]}" if windows[0] else "")
-                      + f" (eval_mmlu {fam} bucket {S})"}))
+            bound(nbytes, 4 * D * pairs) if dt == bf
+            else f32_bound(nbytes, 4 * D * pairs),
+            dict(extra, family=fam, bucket=S, shape=(
+                f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, "
+                f"{str(dt).split('.')[-1]}, causal"
+                + (f", window {windows[0]}" if windows[0] else "")
+                + f" (eval_mmlu {fam} bucket {S})"))))
     g = torch.Generator(device=dev).manual_seed(22)
     y, xa, bm = (torch.randn(sh, generator=g, device=dev).to(bf)
                  for sh in ((MMLU["batch"], 262144), (MMLU["batch"], 8),
@@ -2972,13 +3083,13 @@ def epi_fns(torch, lf, y, xa, b, scale):
             "library_ms": lambda: torch.addmm(y, xa, b, alpha=EPI_SCALE)}
 
 
-def epi_bound(y, xa, b):
+def epi_bound(y, xa, b, bnd=bound):
     """Read y, xa, B and the scale once, write out once; 2 N r d_out
     flops."""
     N, d_out = y.shape
     r = xa.shape[1]
-    return bound((2 * y.numel() + xa.numel() + b.numel()) * y.element_size()
-                 + 4, 2 * N * r * d_out)
+    return bnd((2 * y.numel() + xa.numel() + b.numel()) * y.element_size()
+               + 4, 2 * N * r * d_out)
 
 
 def gemma_kernel_entries(torch, fa, lf, dev):
@@ -3162,11 +3273,17 @@ def decode_entry(torch, da, case):
              da.xla_reference(q, kz, vz, ok, scale))})
 
 
-def fused_ce_times(torch, fc, args):
-    """Times and bounds of the fused CE kernels at the Gemma chunk shape;
-    the library yardstick is the unfused PyTorch pair: h @ W^T, then
-    logsumexp and a gather (row 6) and autograd of that for h (row 7) or
-    W (row 8), the `autograd.grad` call only."""
+CE_KEYS = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
+CE_LORA_KEYS = ("fused_ce_fwd_lora", "fused_ce_dh_lora", "fused_ce_dw_lora",
+                "fused_ce_dw_lora_dw_mode")
+
+
+def fused_ce_times(torch, fc, args, keys=CE_KEYS, bnd=bound):
+    """Times (of `keys`) and bounds (`bnd`: bf16's, or f32_bound) of the
+    fused CE kernels at the Gemma chunk shape; the library yardstick is
+    the unfused PyTorch pair: h @ W^T, then logsumexp and a gather (row 6)
+    and autograd of that for h (row 7) or W (row 8), the `autograd.grad`
+    call only."""
     h, w, lab, lse, dl, dg = args
     R, H = h.shape
     V = w.shape[0]
@@ -3180,33 +3297,35 @@ def fused_ce_times(torch, fc, args):
     lse_l, gold_l = lib_fwd(hl, wl)
     obj = (lse_l * dl).sum() + (gold_l[:, 0] * dg).sum()
     bwd = (h, w, lab, lse, dl, dg)
-    times = {
-        "fused_ce_fwd": timed({
+    fns = {
+        "fused_ce_fwd": {
             "ms": lambda: fc.fused_ce_fwd(h, w, lab),
             "plain_ms": lambda: fc.fused_ce_fwd_reference(h, w, lab),
-            "library_ms": lambda: lib_fwd(h, w)}, 20),
-        "fused_ce_dh": timed({
+            "library_ms": lambda: lib_fwd(h, w)},
+        "fused_ce_dh": {
             "ms": lambda: fc.fused_ce_bwd_dh(*bwd),
             "plain_ms": lambda: fc.fused_ce_dh_reference(*bwd),
             "library_ms": lambda: torch.autograd.grad(
-                obj, [hl], retain_graph=True)}, 20),
-        "fused_ce_dw": timed({
+                obj, [hl], retain_graph=True)},
+        "fused_ce_dw": {
             "ms": lambda: fc.fused_ce_bwd_dw(*bwd),
             "plain_ms": lambda: fc.fused_ce_dw_reference(*bwd),
             "library_ms": lambda: torch.autograd.grad(
-                obj, [wl], retain_graph=True)}, 20)}
+                obj, [wl], retain_graph=True)}}
+    times = {key: timed(fns[key], 20) for key in keys}
     ins = (R * H + V * H) * h.element_size() + R * lab.element_size()
     rows = 3 * R * 4                       # lse, dlse, dgold
-    bounds = {"fused_ce_fwd": bound(ins + 2 * R * 4, 2 * R * V * H),
-              "fused_ce_dh": bound(ins + rows + R * H * 4, 4 * R * V * H),
-              "fused_ce_dw": bound(ins + rows + V * H * 4, 4 * R * V * H)}
+    bounds = {"fused_ce_fwd": bnd(ins + 2 * R * 4, 2 * R * V * H),
+              "fused_ce_dh": bnd(ins + rows + R * H * 4, 4 * R * V * H),
+              "fused_ce_dw": bnd(ins + rows + V * H * 4, 4 * R * V * H)}
     return times, bounds
 
 
-def fused_ce_lora_times(torch, fc, args):
-    """Times and bounds of the head-adapter kernels (rows 9-11) at the
-    Gemma chunk shape, row 11 in its dbt-only mode (the main path's: the
-    tied embedding is frozen) and in its dW mode. The library yardstick is
+def fused_ce_lora_times(torch, fc, args, keys=CE_LORA_KEYS, bnd=bound):
+    """Times (of `keys`) and bounds (`bnd`) of the head-adapter kernels
+    (rows 9-11) at the Gemma chunk shape, row 11 in its dbt-only mode
+    (the main path's: the tied embedding is frozen) and in its dW mode.
+    The library yardstick is
     the unfused PyTorch chain: h @ W^T + xa @ bt^T, logsumexp and a
     gather (row 9), and autograd of that for (h, xa) (row 10), for bt
     with W frozen (row 11) or for (W, bt) (row 11, dW mode), the
@@ -3225,41 +3344,115 @@ def fused_ce_lora_times(torch, fc, args):
     obj = (lse_l * dl).sum() + (gold_l[:, 0] * dg).sum()
     bwd = (h, w, xa, bt, lab, lse, dl, dg)
     lh, lw, lxa, lbt = leaves
-    times = {
-        "fused_ce_fwd_lora": timed({
+    fns = {
+        "fused_ce_fwd_lora": {
             "ms": lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab),
             "plain_ms": lambda: fc.fused_ce_fwd_lora_reference(h, w, xa, bt,
                                                                lab),
-            "library_ms": lambda: lib_fwd(h, w, xa, bt)}, 20),
-        "fused_ce_dh_lora": timed({
+            "library_ms": lambda: lib_fwd(h, w, xa, bt)},
+        "fused_ce_dh_lora": {
             "ms": lambda: fc.fused_ce_bwd_dh_lora(*bwd),
             "plain_ms": lambda: fc.fused_ce_dh_lora_reference(*bwd),
             "library_ms": lambda: torch.autograd.grad(
-                obj, [lh, lxa], retain_graph=True)}, 20),
-        "fused_ce_dw_lora": timed({
+                obj, [lh, lxa], retain_graph=True)},
+        "fused_ce_dw_lora": {
             "ms": lambda: fc.fused_ce_bwd_dw_lora(*bwd, want_dw=False),
             "plain_ms": lambda: fc.fused_ce_dw_lora_reference(
                 *bwd, want_dw=False),
             "library_ms": lambda: torch.autograd.grad(
-                obj, [lbt], retain_graph=True)}, 20),
-        "fused_ce_dw_lora_dw_mode": timed({
+                obj, [lbt], retain_graph=True)},
+        "fused_ce_dw_lora_dw_mode": {
             "ms": lambda: fc.fused_ce_bwd_dw_lora(*bwd),
             "plain_ms": lambda: fc.fused_ce_dw_lora_reference(*bwd),
             "library_ms": lambda: torch.autograd.grad(
-                obj, [lw, lbt], retain_graph=True)}, 20)}
+                obj, [lw, lbt], retain_graph=True)}}
+    times = {key: timed(fns[key], 20) for key in keys}
     isz = h.element_size()
     ins = (R * H + V * H + R * r + V * r) * isz + R * lab.element_size()
     rows = 3 * R * 4                       # lse, dlse, dgold
     logit_ops = 2 * R * V * (H + r)
     bounds = {
-        "fused_ce_fwd_lora": bound(ins + 2 * R * 4, logit_ops),
-        "fused_ce_dh_lora": bound(ins + rows + R * (H + r) * 4,
-                                  2 * logit_ops),
-        "fused_ce_dw_lora": bound(ins + rows + V * r * 4,
-                                  logit_ops + 2 * R * V * r),
-        "fused_ce_dw_lora_dw_mode": bound(ins + rows + V * (H + r) * 4,
-                                          2 * logit_ops)}
+        "fused_ce_fwd_lora": bnd(ins + 2 * R * 4, logit_ops),
+        "fused_ce_dh_lora": bnd(ins + rows + R * (H + r) * 4,
+                                2 * logit_ops),
+        "fused_ce_dw_lora": bnd(ins + rows + V * r * 4,
+                                logit_ops + 2 * R * V * r),
+        "fused_ce_dw_lora_dw_mode": bnd(ins + rows + V * (H + r) * 4,
+                                        2 * logit_ops)}
     return times, bounds
+
+
+def f32_first_version_entries(torch, fc, lf, dev):
+    """Rows 5, 6, 7 and 9-11 in f32, on the first versions an f32 run
+    (every CLI's default dtype) launches: row 5 (lora_epilogue.cu) at
+    GPT-2's attn_qkv, y 1024 x 2304, r 8; rows 6 and 7 (fused_ce.cu) at
+    the Gemma chunk, R 128, V 262,144, H 640, and rows 9-11 (row 11 in its
+    dbt-only mode) there at r 8. Each is held against its plain version
+    (check_epilogue's and check_fused_ce's f32 tolerances), timed beside
+    the bf16 entries' library call run in f32 (TF32 off) and bounded at
+    the 3xTF32 rate, with the f32 launches the paths made at that shape
+    (the epilogue's from EPI_BY_SHAPE; every path runs the Gemma loss in
+    bf16). Returns {kernels line name: entry}."""
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(41)
+    y, xa, bm = (torch.randn(sh, generator=g).to(dev)
+                 for sh in ((1024, 2304), (1024, 8), (8, 2304)))
+    es = torch.tensor(EPI_SCALE, device=dev)
+    e5 = max_err(lf.lora_epilogue(y, xa, bm, es)[0],
+                 lf.lora_epilogue_reference(y, xa, bm, es))
+    check(e5 <= 1e-5, f"f32 LoRA epilogue at attn_qkv: max |err| {e5:.3e}")
+    out = {"lora_epilogue": kernel_entry(
+        "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
+        EPI_BY_SHAPE[(f32, 1024, 2304)], e5,
+        timed(epi_fns(torch, lf, y, xa, bm, es)),
+        epi_bound(y, xa, bm, f32_bound),
+        {"shape": "attn_qkv: y 1024x2304, r 8, f32"})}
+    h, w, lab, dl, dg = fused_ce_inputs(torch, dev, f32, 128, 262144, 640,
+                                        seed=43)
+    g = torch.Generator(device=dev).manual_seed(44)
+    xa = torch.randn(128, 8, generator=g, device=dev)
+    bt = 0.05 * torch.randn(262144, 8, generator=g, device=dev)
+    rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
+    rll, rlg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
+    ce = (h, w, lab, rl, dl, dg)
+    lora = (h, w, xa, bt, lab, rll, dl, dg)
+    lse, gold = fc.fused_ce_fwd(h, w, lab)
+    lse_l, gold_l = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    dh_l = zip(fc.fused_ce_bwd_dh_lora(*lora),
+               fc.fused_ce_dh_lora_reference(*lora))
+    errs = {
+        "fused_ce_fwd": max(max_err(lse, rl), max_err(gold, rg)),
+        "fused_ce_dh": rel_err(fc.fused_ce_bwd_dh(*ce),
+                               fc.fused_ce_dh_reference(*ce)),
+        "fused_ce_fwd_lora": max(max_err(lse_l, rll), max_err(gold_l, rlg)),
+        "fused_ce_dh_lora": max(rel_err(a, b) for a, b in dh_l),
+        "fused_ce_dw_lora": rel_err(
+            fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1],
+            fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1])}
+    print("f32 first versions at the Gemma chunk (R 128, V 262144, H 640, "
+          "r 8): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (tolerance 1e-4)")
+    check(max(errs.values()) <= 1e-4, f"f32 fused CE at the Gemma chunk "
+          f"disagrees with its plain versions: {errs}")
+    times, bounds = fused_ce_times(torch, fc, ce, CE_KEYS[:2], f32_bound)
+    lora_times, lora_bounds = fused_ce_lora_times(
+        torch, fc, lora, CE_LORA_KEYS[:3], f32_bound)
+    times.update(lora_times)
+    bounds.update(lora_bounds)
+    lines = {"fused_ce_fwd": ("fused_ce_fwd", "fused_ce.py:121", ""),
+             "fused_ce_dh": ("fused_ce_bwd_dh", "fused_ce.py:196", ""),
+             "fused_ce_fwd_lora": ("fused_ce_fwd_lora", "fused_ce.py:350",
+                                   ", r 8"),
+             "fused_ce_dh_lora": ("fused_ce_bwd_dh_lora", "fused_ce.py:384",
+                                  ", r 8"),
+             "fused_ce_dw_lora": ("fused_ce_bwd_dw_lora", "fused_ce.py:421",
+                                  ", r 8, dbt only (frozen head)")}
+    for key, (name, line, tail) in lines.items():
+        out[name] = kernel_entry(
+            name, "fused_ce.cu", line, 0, errs[key], times[key],
+            bounds[key], {"shape": f"R 128, V 262144, H 640{tail}, f32 "
+                                   f"(gemma chunk)"})
+    return out
 
 
 # --------------------------------------------------------------- main ------
@@ -3359,6 +3552,8 @@ finally:
     shapes = {k: [[str(key[0]), *key[1:], n]
                   for key, n in kernels[k].by_shape.items()]
               for k in ("lora_epilogue", "flash_fwd")}
+    shapes["bwd_merged"] = [[str(key), n] for key, n in
+                            kernels["bwd_merged"].by_dtype.items()]
     with open(sys.argv[1], "w") as f:
         json.dump({"launches": {k: fn.launches
                                 for k, fn in kernels.items()},
@@ -3432,11 +3627,14 @@ def recovery(torch, work, kernels):
             child_counts = json.load(f)
         got = child_counts["launches"]
         # the children's launches by shape join the paths' (EPI_BY_SHAPE
-        # and FLASH_BY_SHAPE add up to the kernels' totals)
+        # and FLASH_BY_SHAPE add up to the kernels' totals), the merged
+        # backward's by dtype too
         for k, into in (("lora_epilogue", EPI_BY_SHAPE),
                         ("flash_fwd", FLASH_BY_SHAPE)):
             for dtype, *dims, n in child_counts["by_shape"][k]:
                 into[(getattr(torch, dtype.split(".")[-1]), *dims)] += n
+        for dtype, n in child_counts["by_shape"]["bwd_merged"]:
+            BWD_BY_DTYPE[getattr(torch, dtype.split(".")[-1])] += n
         check(got["flash_fwd"] > 0 and got["bwd_merged"] > 0
               and got["lora_epilogue"] > 0,
               f"recovery {name}: the kernels did not run ({got})")
@@ -3770,6 +3968,8 @@ def observe(torch, work, kernels):
                         ("flash_fwd", FLASH_BY_SHAPE)):
             for dtype, *dims, n in got.get("by_shape", {}).get(k, []):
                 into[(getattr(torch, dtype.split(".")[-1]), *dims)] += n
+        for dtype, n in got.get("by_shape", {}).get("bwd_merged", []):
+            BWD_BY_DTYPE[getattr(torch, dtype.split(".")[-1])] += n
         for k in kernels:
             launches[k] += got["launches"][k]
         return rc, got
@@ -4529,8 +4729,9 @@ def mt_masked_rows(torch, fa, dev):
 def mt_f32_entries(torch, fa, dev, launches, shapes):
     """Rows 1 and 2 in f32 at the shape the path launched them (`shapes`,
     the flash forward's launches by (dtype, B, Hq, S, D) in the f32
-    k-vs-solo run: one slot's rows per tenant, causal): held against the
-    plain versions, timed beside SDPA and bounded at the f32 peak."""
+    k-vs-solo run: one slot's rows per tenant, causal), on the 3xTF32
+    kernels: held against the plain versions, timed in turns with their
+    FMA first versions and beside SDPA, and bounded at the 3xTF32 rate."""
     check(len(shapes) == 1 and next(iter(shapes))[0] == torch.float32,
           f"multitenant f32 flash launches at shapes {shapes}")
     _, B, H, S, D = next(iter(shapes))
@@ -4549,6 +4750,7 @@ def mt_f32_entries(torch, fa, dev, launches, shapes):
     b_err = max(max_err(a, b) for a, b in zip(grads, ref))
     check(f_err <= 1e-4 and b_err <= 1e-4, f"f32 rows 1-2 at the "
           f"multitenant shape: fwd {f_err:.3e}, bwd {b_err:.3e}")
+    fma_fwd, fma_bwd = fma_flash(torch, fa, q, k, v, pad, **kw)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     allowed = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -4557,25 +4759,30 @@ def mt_f32_entries(torch, fa, dev, launches, shapes):
     n = q.numel() * 4
     shape = (f"q {B}x{H}x{S}x{D} f32 causal (the f32 k-vs-solo run, k "
              f"{B // MT['batch']})")
+    earlier = {"earlier_source": CSRC + "flash_attention_fwd.cu"}
+    times = in_turns(lambda: fa.flash_attention_fwd(q, k, v, pad, **kw),
+                     fma_fwd, 50)
+    times.update(timed({
+        "plain_ms": lambda: fa.flash_attention_reference(q, k, v, pad,
+                                                         **kw),
+        "library_ms": lambda: sdpa(q, k, v, attn_mask=allowed)}, 50))
     fwd = kernel_entry(
-        "flash_attention_fwd", "flash_attention_fwd.cu",
-        "flash_attention.py:162", launches["flash_fwd"], f_err,
-        timed({"ms": lambda: fa.flash_attention_fwd(q, k, v, pad, **kw),
-               "plain_ms": lambda: fa.flash_attention_reference(
-                   q, k, v, pad, **kw),
-               "library_ms": lambda: sdpa(q, k, v, attn_mask=allowed)}, 50),
-        bound(4 * n + B * S * 4 + B * H * S * 4, 4 * D * pairs,
-              PEAK_F32_FLOPS), {"shape": shape})
+        "flash_attention_fwd", "flash_attention_fwd_tf32.cu",
+        "flash_attention.py:162", launches["flash_fwd"], f_err, times,
+        f32_bound(4 * n + B * S * 4 + B * H * S * 4, 4 * D * pairs),
+        dict(earlier, shape=shape))
+    times = in_turns(lambda: fa.flash_attention_bwd_merged(*args, **kw),
+                     lambda: fma_bwd(lse, delta, do), 50)
+    times.update(timed({
+        "plain_ms": lambda: fa.flash_bwd_merged_reference(*args, **kw),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True)}, 50))
     bwd = kernel_entry(
-        "flash_attention_bwd_merged", "flash_attention_bwd_merged.cu",
-        "flash_attention.py:415", launches["bwd_merged"], b_err,
-        timed({"ms": lambda: fa.flash_attention_bwd_merged(*args, **kw),
-               "plain_ms": lambda: fa.flash_bwd_merged_reference(*args,
-                                                                 **kw),
-               "library_ms": lambda: torch.autograd.grad(
-                   lib_out, leaves, do, retain_graph=True)}, 50),
-        bound(7 * n + 2 * B * H * S * 4 + B * S * 4, 10 * D * pairs,
-              PEAK_F32_FLOPS), {"shape": shape})
+        "flash_attention_bwd_merged", "flash_attention_bwd_merged_tf32.cu",
+        "flash_attention.py:415", launches["bwd_merged"], b_err, times,
+        f32_bound(7 * n + 2 * B * H * S * 4 + B * S * 4, 10 * D * pairs),
+        {"earlier_source": CSRC + "flash_attention_bwd_merged.cu",
+         "shape": shape})
     return {"fwd": fwd, "bwd_merged": bwd}
 
 
@@ -4768,6 +4975,10 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
+    for name in ("flash_attention_fwd_tf32",
+                 "flash_attention_bwd_merged_tf32"):
+        check(all(row[2] == 0 and row[3] == 0 for row in ptxas[name]),
+              f"{name} spills registers: {ptxas[name]}")
     if argv:
         rc = multitenant_only(torch, dev, kernels)
         shutil.rmtree(STREAMS["dir"], ignore_errors=True)
@@ -4789,7 +5000,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 4. the serving path, counts set to 0 just before it
+    mark = f32_launches()
     launches_serve, serve_stats, eng, names = serve(torch, fa, da)
+    mark = mark_f32("serve", mark)
     print(json.dumps({"serve": serve_stats}))
     prof = profile_serve(torch, eng, names)
     eng.close()
@@ -4797,10 +5010,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     gserve_stats, launches_gserve, eng, names = gemma_serve(torch, kernels,
                                                             card)
+    mark = mark_f32("gemma_serve", mark)
     prof.update(profile_gemma_serve(torch, eng, names))
     del eng
     torch.cuda.empty_cache()
+    zero_counts(kernels)
     gserve_stats["f32"] = gemma_serve_f32(torch, dev)
+    launches_gserve_f32 = read_counts(kernels)
+    gserve_stats["f32"]["launches"] = launches_gserve_f32
+    mark = mark_f32("gemma_serve_f32", mark)
     print(json.dumps({"gemma_serve": gserve_stats,
                       "launches": launches_gserve}))
     torch.cuda.empty_cache()
@@ -4811,6 +5029,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         train_stats, launches_train, adapter, model = train(
             torch, dev, work, kernels)
+        mark = mark_f32("train", mark)
         train_stats.update(observed("train"))
         print(json.dumps({"train": train_stats,
                           "launches": launches_train}))
@@ -4822,6 +5041,7 @@ def main(argv=None) -> int:
         g2full_stats, launches_g2full = gpt2_full_ft(
             torch, work, kernels, train_stats["eval_ppl_before"],
             train_stats["eval_batches"])
+        mark = mark_f32("gpt2_full_ft", mark)
         g2full_stats.update(observed("gpt2_full_ft"))
         print(json.dumps({"gpt2_full_ft": g2full_stats,
                           "launches": launches_g2full}))
@@ -4829,6 +5049,7 @@ def main(argv=None) -> int:
         # the recovery path: child processes, counts from their wrappers
         t0 = time.perf_counter()
         rec_stats, launches_rec = recovery(torch, work, kernels)
+        mark = mark_f32("recovery", mark)
         rec_stats["wall_s"] = time.perf_counter() - t0
         print(json.dumps({"recovery": rec_stats,
                           "launches": launches_rec}))
@@ -4836,6 +5057,7 @@ def main(argv=None) -> int:
         # serving drain and a watchdog abort (children)
         t0 = time.perf_counter()
         obs_stats, launches_obs = observe(torch, work, kernels)
+        mark = mark_f32("observe", mark)
         obs_stats["wall_s"] = time.perf_counter() - t0
         print(json.dumps({"observe": obs_stats, "launches": launches_obs}))
         print(f"observe: step ms p50 {obs_stats['step_ms_p50_off']:.3f} "
@@ -4844,22 +5066,26 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         gemma_stats, launches_gemma, gemma = gemma_train(torch, dev, work,
                                                          kernels)
+        mark = mark_f32("gemma_train", mark)
         gemma_stats.update(observed("gemma_train"))
         print(json.dumps({"gemma_train": gemma_stats,
                           "launches": launches_gemma}))
         full_stats, launches_full = gemma_full_ft(torch, dev, work, kernels,
                                                   gemma)
+        mark = mark_f32("gemma_full_ft", mark)
         full_stats.update(observed("gemma_full_ft"))
         print(json.dumps({"gemma_full_ft": full_stats,
                           "launches": launches_full}))
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         deg_stats, launches_deg = degrade(torch, dev, work, kernels, gemma)
+        mark = mark_f32("degrade", mark)
         deg_stats["wall_s"] = time.perf_counter() - t0
         print(json.dumps({"degrade": deg_stats, "launches": launches_deg}))
         torch.cuda.empty_cache()
         head_stats, launches_head, head_adapter, head_final = \
             gemma_lora_head(torch, dev, work, kernels, gemma)
+        mark = mark_f32("gemma_lora_head", mark)
         head_stats.update(observed("gemma_lora_head"))
         print(json.dumps({"gemma_lora_head": head_stats,
                           "launches": launches_head}))
@@ -4867,12 +5093,14 @@ def main(argv=None) -> int:
             torch, kernels, gemma, (head_adapter, head_final),
             (os.path.join(work, "gpt2"), os.path.join(work, "wiki"),
              adapter, train_stats["eval_batches"]))
+        mark = mark_f32("eval_ppl", mark)
         print(json.dumps({"eval_ppl": eval_stats, "launches": eval_runs}))
         torch.cuda.empty_cache()
         gen_dirs = {"gpt2": (os.path.join(work, "gpt2"), adapter),
                     "gemma": (gemma[4], head_adapter)}
         gen_stats, launches_gen, gen_runs, gen_prompts = generate_phase(
             torch, dev, kernels, gen_dirs["gpt2"], gen_dirs["gemma"])
+        mark = mark_f32("generate", mark)
         for fam in ("gpt2", "gemma"):
             dev_ms, wall_ms = decode_step_events(
                 torch, dev, *gen_dirs[fam], fam, gen_prompts[fam][0])
@@ -4884,12 +5112,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         mmlu_stats, launches_mmlu, mmlu_runs, mmlu_flash = mmlu_phase(
             torch, dev, kernels, gen_dirs["gpt2"], gen_dirs["gemma"])
+        mark = mark_f32("mmlu", mark)
         print(json.dumps({"mmlu": mmlu_stats, "launches": mmlu_runs}))
         torch.cuda.empty_cache()
         mt_stats, launches_mt, mt_f32 = multitenant(
             torch, dev, work, kernels,
             (os.path.join(work, "gpt2"), os.path.join(work, "wiki")),
             (gemma[4], gemma[5]))
+        mark = mark_f32("multitenant", mark)
         print(json.dumps({"multitenant": mt_stats, "launches": launches_mt}))
         torch.cuda.empty_cache()
         prof.update(profile_gemma_train(torch, dev, gemma))
@@ -4953,6 +5183,7 @@ def main(argv=None) -> int:
     ce_times, ce_bounds = fused_ce_times(torch, fc, ce_args)
     gemma_entries = gemma_kernel_entries(torch, fa, lf, dev)
     mmlu_entries = mmlu_kernel_entries(torch, fa, lf, dev, mmlu_flash)
+    f32_first = f32_first_version_entries(torch, fc, lf, dev)
     gserve_flash = gemma_serve_flash_entry(torch, fa, dev)
     serve_names = {"flash_fwd": "flash", "paged": "paged",
                    "decode": "decode"}
@@ -4960,6 +5191,7 @@ def main(argv=None) -> int:
     def by_path(name):
         return {"serve": launches_serve.get(serve_names.get(name), 0),
                 "gemma_serve": launches_gserve[name],
+                "gemma_serve_f32": launches_gserve_f32[name],
                 "generate": launches_gen[name],
                 "train": launches_train[name],
                 "gpt2_full_ft": launches_g2full[name],
@@ -4976,6 +5208,26 @@ def main(argv=None) -> int:
     def total(name):
         return sum(by_path(name).values())
 
+    # rows 1 and 2 by dtype: the 16-bit launches ran the _mma sources, the
+    # f32 ones the 3xTF32 sources; each source's entry has its own
+    check(f32_launches() == tuple(map(sum, zip(*F32_BY_PATH.values()))),
+          f"f32 launches {f32_launches()} not all in {F32_BY_PATH}")
+    f32_paths = {name: {p: n[i] for p, n in F32_BY_PATH.items() if n[i]}
+                 for i, name in enumerate(("flash_fwd", "bwd_merged"))}
+
+    def by_path_16(name):
+        return {p: n - f32_paths[name].get(p, 0)
+                for p, n in by_path(name).items()}
+
+    for name in ("flash_fwd", "bwd_merged"):
+        check(sum(f32_paths[name].values()) > 0
+              and sum(by_path_16(name).values()) > 0,
+              f"{name}: a source of it ran no time on the paths (f32 "
+              f"{f32_paths[name]})")
+    f32_fwd_main = max((e for e in mmlu_entries["flash_f32"]
+                        if e["family"] == "gpt2"),
+                       key=lambda e: e["bucket"])
+
     check(sum(EPI_BY_SHAPE.values()) == total("lora_epilogue"),
           f"epilogue launches by shape {sum(EPI_BY_SHAPE.values())} != "
           f"{total('lora_epilogue')}")
@@ -4983,29 +5235,37 @@ def main(argv=None) -> int:
     kernels_line = [
         kernel_entry(
             "flash_attention_fwd", "flash_attention_fwd_mma.cu",
-            "flash_attention.py:162", total("flash_fwd"),
+            "flash_attention.py:162", sum(by_path_16("flash_fwd").values()),
             flash_err, fl_times, fl_bound,
-            {"launches_by_path": by_path("flash_fwd"),
+            {"launches_by_path": by_path_16("flash_fwd"),
              "ptxas": ptxas["flash_attention_fwd_mma"],
-             "f32": "flash_attention_fwd.cu (FMA kernel, f32 launches)",
+             "f32": "flash_attention_fwd_tf32.cu (its own entry)",
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
              "gemma": gemma_entries["flash_fwd"],
              "gemma_serve": dict(gserve_flash,
                                  launches=launches_gserve["flash_fwd"]),
-             "mmlu": mmlu_entries["flash"],
-             "f32_multitenant": mt_f32["fwd"]}),
+             "mmlu": mmlu_entries["flash"]}),
+        dict(f32_fwd_main, launches=sum(f32_paths["flash_fwd"].values()),
+             launches_at_shape=f32_fwd_main["launches"],
+             launches_by_path=f32_paths["flash_fwd"],
+             ptxas=ptxas["flash_attention_fwd_tf32"],
+             shapes=[mt_f32["fwd"], *mmlu_entries["flash_f32"]]),
         kernel_entry(
             "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
-            "flash_attention.py:415", total("bwd_merged"),
+            "flash_attention.py:415",
+            sum(by_path_16("bwd_merged").values()),
             bwd["merged"], merged_times,
             bound(bwd_in + 3 * n_qkv * isz, 10 * D * pairs),
-            {"launches_by_path": by_path("bwd_merged"),
+            {"launches_by_path": by_path_16("bwd_merged"),
              "ptxas": ptxas["flash_attention_bwd_merged_mma"],
-             "f32": "flash_attention_bwd_merged.cu (FMA kernel, f32 "
-                    "launches)",
+             "f32": "flash_attention_bwd_merged_tf32.cu (its own entry)",
              "shape": f"q {B}x{Hq}x{S}x{D} bf16 causal (training)",
-             "gemma": gemma_entries["bwd_merged"],
-             "f32_multitenant": mt_f32["bwd_merged"]}),
+             "gemma": gemma_entries["bwd_merged"]}),
+        dict(mt_f32["bwd_merged"],
+             launches=sum(f32_paths["bwd_merged"].values()),
+             launches_at_shape=mt_f32["bwd_merged"]["launches"],
+             launches_by_path=f32_paths["bwd_merged"],
+             ptxas=ptxas["flash_attention_bwd_merged_tf32"]),
         kernel_entry(
             "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
             "flash_attention.py:269", total("bwd_dq"), bwd["dq"],
@@ -5020,7 +5280,7 @@ def main(argv=None) -> int:
              launches_by_path=by_path("lora_epilogue"),
              shape="attn_qkv: y 1024x2304, r 8, bf16",
              ptxas=ptxas["lora_epilogue_vec"],
-             f32="lora_epilogue.cu (first version, f32 launches)",
+             f32=f32_first["lora_epilogue"],
              gemma=gemma_entries["lora_epilogue"],
              attn_proj=epi_entries["attn_proj"],
              mmlu_lm_head=mmlu_entries["lm_head"],
@@ -5047,10 +5307,10 @@ def main(argv=None) -> int:
              ce_err["dh"], "fused_ce_dh_mma.cu"),
             ("fused_ce_bwd_dw", "fused_ce_dw", "fused_ce.py:224",
              ce_err["dw"], "fused_ce_dw_mma.cu")):
-        extra = {"launches_by_path": by_path(key), "shape": ce_shape}
-        if source != "fused_ce.cu":
-            extra["ptxas"] = ptxas[source[:-3]]
-            extra["f32"] = "fused_ce.cu (FMA kernel, f32 launches)"
+        extra = {"launches_by_path": by_path(key), "shape": ce_shape,
+                 "ptxas": ptxas[source[:-3]],
+                 "f32": f32_first.get(name, "fused_ce.cu (FMA kernel, f32 "
+                                            "launches)")}
         kernels_line.append(kernel_entry(
             name, source, line, total(key), err, ce_times[key],
             ce_bounds[key], extra))
@@ -5068,8 +5328,7 @@ def main(argv=None) -> int:
                   "fused_ce_dh_lora": "fused_ce_dh_lora_mma.cu",
                   "fused_ce_dw_lora": "fused_ce_dbt_mma.cu"}[key]
         extra = {"launches_by_path": by_path(key), "shape": lora_shape,
-                 "ptxas": ptxas[source[:-3]],
-                 "f32": "fused_ce.cu (FMA kernel, f32 launches)"}
+                 "ptxas": ptxas[source[:-3]], "f32": f32_first[name]}
         if key == "fused_ce_dw_lora":
             extra["shape"] += ", dbt only (frozen head)"
             # the dW + dbt mode, every dtype, on fused_ce.cu's dw_kernel

@@ -35,11 +35,13 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 SOURCES = ("flash_attention_fwd", "flash_attention_fwd_mma",
-           "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma",
-           "flash_attention_bwd_split", "fused_ce", "fused_ce_fwd_mma",
-           "fused_ce_dh_mma", "fused_ce_dw_mma", "fused_ce_dh_lora_mma",
-           "fused_ce_fwd_lora_mma", "fused_ce_dbt_mma", "lora_epilogue",
-           "lora_epilogue_vec", "paged_decode_attention",
+           "flash_attention_fwd_tf32", "flash_attention_bwd_merged",
+           "flash_attention_bwd_merged_mma",
+           "flash_attention_bwd_merged_tf32", "flash_attention_bwd_split",
+           "fused_ce", "fused_ce_fwd_mma", "fused_ce_dh_mma",
+           "fused_ce_dw_mma", "fused_ce_dh_lora_mma", "fused_ce_fwd_lora_mma",
+           "fused_ce_dbt_mma", "lora_epilogue", "lora_epilogue_vec",
+           "paged_decode_attention",
            "paged_decode_attention_vec", "decode_attention",
            "decode_attention_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

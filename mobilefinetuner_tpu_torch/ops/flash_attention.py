@@ -5,15 +5,20 @@ versions (port of mobilefinetuner_tpu/ops/flash_attention.py).
                              (or raise), chosen by dtype (fwd_library):
                              bf16 / f16 the tensor-core kernel
                              `csrc/flash_attention_fwd_mma.cu`, f32 the
-                             FMA kernel `csrc/flash_attention_fwd.cu`;
-                             CPU tensors take `flash_attention_reference`.
+                             3xTF32 tensor-core kernel
+                             `csrc/flash_attention_fwd_tf32.cu`; CPU
+                             tensors take `flash_attention_reference`.
   flash_attention_bwd_merged (dq, dk, dv) in one pass per key block,
                              chosen by dtype (bwd_library): bf16 / f16
                              the tensor-core kernel
                              `csrc/flash_attention_bwd_merged_mma.cu`,
-                             f32 the FMA kernel
-                             `csrc/flash_attention_bwd_merged.cu`; CPU
-                             tensors take `flash_bwd_merged_reference`.
+                             f32 the 3xTF32 one
+                             `csrc/flash_attention_bwd_merged_tf32.cu`;
+                             CPU tensors take `flash_bwd_merged_reference`.
+                             (The f32 FMA first versions,
+                             `csrc/flash_attention_fwd.cu` and
+                             `csrc/flash_attention_bwd_merged.cu`, are
+                             built but on no path.)
   flash_attention_bwd_dq     the split pair, `csrc/flash_attention_bwd_
   flash_attention_bwd_dkv    split.cu` (two kernels, two counters), or
                              `flash_bwd_split_reference` on the CPU.
@@ -27,10 +32,11 @@ versions (port of mobilefinetuner_tpu/ops/flash_attention.py).
                              for bit.
 
 Each wrapper has a `launches` count of its kernel launches; the forward
-also counts them `.by_shape`, by (dtype, B, Hq, S, D). The plain
-versions are the kernels' blocked algorithms written in torch (64 x 64
-tiles, the same [lo, hi) block bounds, masks and f32 arithmetic); they
-run on any device and are the kernels' references on the card.
+also counts them `.by_shape`, by (dtype, B, Hq, S, D), and the merged
+backward `.by_dtype`. The plain versions are the kernels' blocked
+algorithms written in torch (64 x 64 tiles, the same [lo, hi) block
+bounds, masks and f32 arithmetic); they run on any device and are the
+kernels' references on the card.
 
 Masks (as the TPU kernel's `_block_mask`): key padding, causal, and an
 optional sliding window (col > row - window); GQA reads kv-head h // G.
@@ -42,10 +48,10 @@ sees the kept ones, scaled by 1/(1-p). The keep bit is a hash of
 (seed, b, h, row, col), so every kernel regenerates the forward's mask.
 
 The kernels take D in {64, 128, 256} and any S (they mask the ragged
-edge), in f32, bf16 or f16; the tensor-core forward and merged backward
-also need 16-byte aligned q, k and v (and dO). `fwd_plan` and `bwd_plan`
-are the forward and merged backward kernels' launch plans in Python, as
-the sources compute them.
+edge), in f32, bf16 or f16; the forward and merged backward (tensor-core
+kernels in every dtype) also need 16-byte aligned q, k and v (and dO).
+`fwd_plan` and `bwd_plan` are the forward and merged backward kernels'
+launch plans in Python, as the sources compute them.
 """
 
 from __future__ import annotations
@@ -220,39 +226,55 @@ def flash_attention_reference(q, k, v, padding_mask=None, *,
 
 def fwd_library(dtype: torch.dtype) -> Tuple[str, str]:
     """(source, C symbol) of the forward kernel for `dtype`: bf16 and f16
-    run on the tensor-core kernel, f32 on the FMA kernel (there is no
-    fallback from one to the other)."""
+    run on the tensor-core kernel, f32 on the 3xTF32 tensor-core kernel
+    (there is no fallback from one to another)."""
     if dtype in (torch.bfloat16, torch.float16):
         return "flash_attention_fwd_mma", "mft_flash_attention_fwd_mma"
     if dtype == torch.float32:
-        return "flash_attention_fwd", "mft_flash_attention_fwd"
+        return "flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"
     raise ValueError(f"flash_attention kernel takes one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
 
 
+# csrc/flash_attention_fwd_tf32.cu Cfg<D>: D -> (query rows a CTA, keys a
+# tile, warps sharing each 16 query rows); 4 warps, a K / V ring of 2
+FWD_TF32_TILES = {64: (64, 32, 1), 128: (64, 32, 1), 256: (32, 16, 2)}
+TF32_STAGES = 2         # the f32 kernels' K / V (forward), Q / dO rings
+
+
 def fwd_plan(B: int, Hq: int, S: int, D: int, dtype: torch.dtype) -> dict:
-    """The forward kernel's launch: query rows a CTA (`block_q`), keys a
-    tile (`block_k`) and the grid (query blocks, q-heads, batch). The
-    tensor-core kernel takes 32-row blocks of two warps (128 CTAs at
-    Gemma-3's B 4 x Hq 4 x S 256) and 32-key tiles at D = 256; the FMA
-    kernel 64 x 64."""
+    """The forward kernel's launch, as its source computes it: query rows
+    a CTA (`block_q`), keys a tile (`block_k`), the grid (query blocks,
+    q-heads, batch) and `smem_bytes`. The bf16 / f16 kernel takes 32-row
+    blocks of two warps (128 CTAs at Gemma-3's B 4 x Hq 4 x S 256) and
+    32-key tiles at D = 256; the f32 (3xTF32) kernel 4 warps on 64 rows
+    (32 at D = 256) with Q and a ring of two K / V tiles staged in f32 and
+    split into TF32 halves in shared memory (FWD_TF32_TILES)."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes D in "
+                         f"{KERNEL_HEAD_DIMS}, got D={D}")
     if fwd_library(dtype)[0] == "flash_attention_fwd_mma":
         block_q, block_k = 32, (32 if D == 256 else 64)
+        smem = ((block_q + 2 * 3 * block_k) * (D + 8) * 2
+                + 3 * block_k * 4)
     else:
-        block_q, block_k = BLOCK_Q, BLOCK_K
+        block_q, block_k, _ = FWD_TF32_TILES[D]
+        smem = (2 * block_q * (D + 4) + 4 * TF32_STAGES * block_k * (D + 4)
+                + TF32_STAGES * block_k) * 4
     return {"block_q": block_q, "block_k": block_k,
-            "grid": (-(-S // block_q), Hq, B)}
+            "grid": (-(-S // block_q), Hq, B), "smem_bytes": smem}
 
 
 def bwd_library(dtype: torch.dtype) -> Tuple[str, str]:
     """(source, C symbol) of the merged backward kernel for `dtype`: bf16
-    and f16 run on the tensor-core kernel, f32 on the FMA kernel (there
-    is no fallback from one to the other)."""
+    and f16 run on the tensor-core kernel, f32 on the 3xTF32 tensor-core
+    kernel (there is no fallback from one to another)."""
     if dtype in (torch.bfloat16, torch.float16):
         return ("flash_attention_bwd_merged_mma",
                 "mft_flash_attention_bwd_merged_mma")
     if dtype == torch.float32:
-        return "flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"
+        return ("flash_attention_bwd_merged_tf32",
+                "mft_flash_attention_bwd_merged_tf32")
     raise ValueError(f"flash_attention_bwd_merged kernel takes one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
 
@@ -261,6 +283,8 @@ def bwd_library(dtype: torch.dtype) -> Tuple[str, str]:
 # rows a q-block, warps sharing each 16 keys)
 BWD_MMA_TILES = {64: (32, 32, 1), 128: (64, 64, 2), 256: (32, 32, 2)}
 BWD_MMA_STAGES = 2      # its Q / dO ring
+# csrc/flash_attention_bwd_merged_tf32.cu Cfg<D>: the same for f32
+BWD_TF32_TILES = {64: (32, 32, 1), 128: (32, 32, 2), 256: (16, 16, 4)}
 
 
 def bwd_plan(B: int, Hq: int, Hkv: int, S: int, D: int,
@@ -268,12 +292,12 @@ def bwd_plan(B: int, Hq: int, Hkv: int, S: int, D: int,
     """The merged backward kernel's launch, as its source computes it:
     keys a CTA (`block_k`), query rows a q-block (`block_q`), `warps`,
     the Q / dO ring's `stages`, the grid (key blocks, q-heads, batch) and
-    `smem_bytes`. The tensor-core kernel (bf16 / f16): one warp per 16
-    keys and all of dK / dV's columns at D 64, half of them at D >= 128
+    `smem_bytes`. One warp per 16 keys and 64 or 128 of dK / dV's columns.
+    The bf16 / f16 kernel: all of them at D 64, half at D >= 128
     (BWD_MMA_TILES: 384 CTAs at GPT-2's B 8 x 12 heads x S 128, 128 at
-    Gemma-3's B 4 x Hq 4 x S 256);
-    the FMA kernel (f32): square tiles of 64 (32 at D = 256), 8 warps,
-    everything staged in f32 (csrc/flash_attention_bwd.cuh)."""
+    Gemma-3's B 4 x Hq 4 x S 256); the f32 (3xTF32) kernel: 64 columns a
+    warp, K, V, Q and dO staged in f32 and split into TF32 halves in
+    shared memory (BWD_TF32_TILES)."""
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_merged kernel takes D in "
                          f"{KERNEL_HEAD_DIMS}, got D={D}")
@@ -283,19 +307,20 @@ def bwd_plan(B: int, Hq: int, Hkv: int, S: int, D: int,
     if bwd_library(dtype)[0] == "flash_attention_bwd_merged_mma":
         block_k, block_q, d_split = BWD_MMA_TILES[D]
         stages = BWD_MMA_STAGES
-        warps = block_k // 16 * d_split
         ld = D + 8
         smem = ((2 * block_k * ld + 2 * stages * block_q * ld
                  + block_k * (block_q + 8)) * 2
                 + (2 * stages * block_q + block_k) * 4)
     else:
-        block_k = block_q = 32 if D > 128 else 64
-        stages, warps = 1, 8
-        smem = (4 * block_k * (D + 1) + 2 * block_k * (block_k + 1)
-                + 3 * block_k) * 4
-    return {"block_k": block_k, "block_q": block_q, "warps": warps,
-            "stages": stages, "grid": (-(-S // block_k), Hq, B),
-            "smem_bytes": smem}
+        block_k, block_q, d_split = BWD_TF32_TILES[D]
+        stages = TF32_STAGES
+        ld = D + 4
+        smem = (4 * block_k * ld + 4 * stages * block_q * ld
+                + 2 * block_q * (block_k + 8) + 2 * stages * block_q
+                + block_k) * 4
+    return {"block_k": block_k, "block_q": block_q,
+            "warps": block_k // 16 * d_split, "stages": stages,
+            "grid": (-(-S // block_k), Hq, B), "smem_bytes": smem}
 
 
 def _fn(lib: str, sym: str, n_ptrs: int):
@@ -366,8 +391,7 @@ def flash_attention_fwd(q, k, v, padding_mask=None, *,
     pad = _pad_f32(padding_mask, B, S, q.device)
     _check_kernel_inputs("flash_attention", q, (q, k, v), (pad,))
     lib, sym = fwd_library(q.dtype)
-    if lib == "flash_attention_fwd_mma" and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention tensor-core kernel takes 16-byte "
                          "aligned q, k and v")
     if scale is None:
@@ -550,37 +574,37 @@ def flash_attention_bwd_merged(q, k, v, padding_mask, lse, delta, dout, *,
     scalars = _bwd_scalars(q, k, scale, is_causal, sliding_window, p_drop,
                            seed)
     lib, sym = bwd_library(q.dtype)
-    if lib != "flash_attention_bwd_merged":   # the tensor-core interface
-        if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
-            raise ValueError("flash_attention_bwd_merged tensor-core kernel "
-                             "takes 16-byte aligned q, k, v and dout")
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("flash_attention_bwd_merged tensor-core kernel "
+                         "takes 16-byte aligned q, k, v and dout")
+    n = q.numel()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if lib == "flash_attention_bwd_merged_tf32":
+        # dq is zeroed by the launcher; with G > 1, one f32 workspace for
+        # the per-q-head dK / dV partials its finish pass sums
+        ws = (torch.empty(2 * n, device=q.device, dtype=torch.float32)
+              if G > 1 else None)
+        parts = ((ws.data_ptr(), ws[n:].data_ptr()) if G > 1
+                 else (None, None))
+        code = _fn(lib, sym, 12)(*ins, dq.data_ptr(), *parts, dk.data_ptr(),
+                                 dv.data_ptr(), *scalars)
+    else:
         # one f32 workspace: dQ's sums (zeroed by the launcher) and, with
         # G > 1, the per-q-head dK / dV partials its finish pass sums
-        n = q.numel()
         ws = torch.empty((3 if G > 1 else 1) * n, device=q.device,
                          dtype=torch.float32)
         parts = (ws[n:].data_ptr(), ws[2 * n:].data_ptr()) if G > 1 \
             else (None, None)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         code = _fn(lib, sym, 13)(*ins, ws.data_ptr(), *parts, dq.data_ptr(),
                                  dk.data_ptr(), dv.data_ptr(), *scalars)
-        build.check_launch("flash_attention_bwd_merged", code)
-        flash_attention_bwd_merged.launches += 1
-        return dq, dk, dv
-    dq_acc = torch.zeros(B, Hq, S, D, device=q.device, dtype=torch.float32)
-    dk_p = torch.empty_like(dq_acc)
-    dv_p = torch.empty_like(dq_acc)
-    code = _fn(lib, sym, 10)(*ins, dq_acc.data_ptr(), dk_p.data_ptr(),
-                             dv_p.data_ptr(), *scalars)
     build.check_launch("flash_attention_bwd_merged", code)
     flash_attention_bwd_merged.launches += 1
-    if G > 1:   # per-q-head partials, group-summed in one reduction
-        dk_p = dk_p.reshape(B, Hkv, G, S, D).sum(2)
-        dv_p = dv_p.reshape(B, Hkv, G, S, D).sum(2)
-    return dq_acc.to(q.dtype), dk_p.to(k.dtype), dv_p.to(v.dtype)
+    flash_attention_bwd_merged.by_dtype[q.dtype] += 1
+    return dq, dk, dv
 
 
 flash_attention_bwd_merged.launches = 0
+flash_attention_bwd_merged.by_dtype = collections.Counter()
 
 
 def flash_attention_bwd_dq(q, k, v, padding_mask, lse, delta, dout, *,

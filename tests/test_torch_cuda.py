@@ -356,12 +356,12 @@ def test_fused_ce_fwd_tensor_core_kernel(dev):
 
 
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
-    """bf16 / f16 launch the tensor-core sources, f32 the FMA ones, for
-    the flash forward (row 1) and merged backward (row 2), the fused CE
-    forward (row 6), dh (row 7), dW (row 8), the head-adapter forward (row
-    9), dh + dxa (row 10) and dbt-only mode of row 11, whose dW + dbt mode
-    loads fused_ce.cu in every dtype: the libraries the wrappers load are
-    recorded."""
+    """bf16 / f16 launch the tensor-core sources, f32 the 3xTF32 ones for
+    the flash forward (row 1) and merged backward (row 2) and the FMA ones
+    for the fused CE forward (row 6), dh (row 7), dW (row 8), the
+    head-adapter forward (row 9), dh + dxa (row 10) and dbt-only mode of
+    row 11, whose dW + dbt mode loads fused_ce.cu in every dtype: the
+    libraries the wrappers load are recorded."""
     loaded = []
     real = build.load
 
@@ -372,7 +372,7 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     for dtype, fwd, dh in (
             (torch.bfloat16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
             (torch.float16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
-            (torch.float32, "flash_attention_fwd", "fused_ce")):
+            (torch.float32, "flash_attention_fwd_tf32", "fused_ce")):
         q, k, v, do, pad = _flash_case(dev, dtype, 1, 2, 2, 64, 64, 0, 3)
         loaded.clear()
         out, lse = fa.flash_attention_fwd(q, k, v, pad)
@@ -464,6 +464,67 @@ def test_tensor_core_wrappers_refuse_what_their_kernels_do_not_take(dev):
         fa.flash_attention_bwd_merged(q, k, v, pad, lse, delta, dm,
                                       scale=0.125)
     assert fa.flash_attention_bwd_merged.launches == n0
+
+
+# (B, Hq, Hkv, S, D, n_pad, causal, window, p_drop): the f32 (3xTF32)
+# kernels at D 128 and 256, against the plain versions at the f32
+# tolerances (out and lse 1e-4, dq / dk / dv 1e-5 of max(1, |ref|))
+TF32_CASES = [
+    (2, 8, 8, 90, 128, 29, False, None, 0.0),    # non-causal, ragged S
+    (2, 8, 2, 200, 256, 50, True, 40, 0.1),      # GQA 4:1, window, dropout
+]
+
+
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_flash_tf32_kernels_match_plain(dev, case):
+    B, Hq, Hkv, S, D, n_pad, causal, window, p_drop = case
+    q, k, v, do, pad = _flash_case(dev, torch.float32, B, Hq, Hkv, S, D,
+                                   n_pad, 41)
+    kw = dict(scale=D ** -0.5, is_causal=causal, sliding_window=window,
+              p_drop=p_drop, seed=2026 if p_drop else None)
+    n = (fa.flash_attention_fwd.launches,
+         fa.flash_attention_bwd_merged.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, pad, **kw)
+    delta = (do * out).sum(-1, keepdim=True)
+    got = fa.flash_attention_bwd_merged(q, k, v, pad, lse, delta, do, **kw)
+    want = fa.flash_bwd_merged_reference(q, k, v, pad, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_merged.launches) == (n[0] + 1, n[1] + 1)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.isfinite(a).all() and _rel_err(a, b) <= 1e-5, name
+
+
+def test_f32_launches_reach_the_tf32_symbols(dev, monkeypatch):
+    """An f32 forward and merged backward call the `_tf32` C entries and
+    no FMA entry (mft_flash_attention_fwd / _bwd_merged); an f32 q that
+    is not 16-byte aligned is refused before any launch."""
+    called = []
+    real = fa._fn
+
+    def record(lib, sym, n_ptrs):
+        called.append((lib, sym))
+        return real(lib, sym, n_ptrs)
+    monkeypatch.setattr(fa, "_fn", record)
+    q, k, v, do, pad = _flash_case(dev, torch.float32, 1, 4, 2, 64, 64, 0,
+                                   5)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad)
+    delta = (do * out).sum(-1, keepdim=True)
+    fa.flash_attention_bwd_merged(q, k, v, pad, lse, delta, do, scale=0.125)
+    torch.cuda.synchronize()
+    assert called == [
+        ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
+        ("flash_attention_bwd_merged_tf32",
+         "mft_flash_attention_bwd_merged_tf32")]
+    qm = torch.empty(q.numel() + 1, device=dev)[1:].view(q.shape).copy_(q)
+    n0 = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(qm, k, v, pad)
+    assert fa.flash_attention_fwd.launches == n0 and len(called) == 2
 
 
 def test_flash_autograd_launches_the_backward_kernels(dev):

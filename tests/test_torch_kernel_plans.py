@@ -23,8 +23,9 @@ version's ctx; row 12's chunk split (`ops/decode_attention.paged_plan`)
 covers every logical column, so every live page's rows, once, and its
 lane map loads each K and V element of a chunk once, a row's lanes on
 contiguous bytes; and the dtype picks the library: bf16 /
-f16 the `_mma` (and `_vec`) sources, f32 the FMA ones. No card
-needed."""
+f16 the `_mma` (and `_vec`) sources, f32 the first versions but for rows
+1-2, whose f32 sources are the 3xTF32 `_tf32` ones (their plans, tiles
+and shared memory too). No card needed."""
 
 import itertools
 import os
@@ -69,9 +70,10 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
     "paged": ("paged_decode_attention_vec",
               "mft_paged_decode_attention_vec")}
-FMA_LIBS = {  # the FMA kernels' for f32
-    "fwd": ("flash_attention_fwd", "mft_flash_attention_fwd"),
-    "bwd": ("flash_attention_bwd_merged", "mft_flash_attention_bwd_merged"),
+FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2 in 3xTF32
+    "fwd": ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
+    "bwd": ("flash_attention_bwd_merged_tf32",
+            "mft_flash_attention_bwd_merged_tf32"),
     "ce_fwd": ("fused_ce", "mft_fused_ce_fwd"),
     "dh": ("fused_ce", "mft_fused_ce_dh"),
     "dw": ("fused_ce", "mft_fused_ce_dw"),
@@ -160,6 +162,30 @@ def test_fma_sources_keep_only_their_f32_instantiation():
     assert "launch_fwd<ELEM(tag)" not in ce
 
 
+def test_tf32_sources_use_3xtf32_mma_sync():
+    """Rows 1-2's f32 sources run m16n8k8 TF32 mma.sync through
+    tensor_core_tf32.cuh: cvt.rna splits, three products a k-step (lo.hi,
+    hi.lo, hi.hi), fragments by ldmatrix, tiles by 16-byte cp.async."""
+    hdr = _source("tensor_core_tf32.cuh")
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in hdr
+    assert "cvt.rna.tf32.f32" in hdr
+    body = hdr[hdr.index("void mma_3xtf32("):]
+    body = body[:body.index("}")]
+    assert body.count("mma_1688_tf32(") == 3
+    assert ("mma_1688_tf32(c, al, bh0, bh1);" in body
+            and "mma_1688_tf32(c, ah, bl0, bl1);" in body
+            and "mma_1688_tf32(c, ah, bh0, bh1);" in body)
+    assert "cp_async_16" in hdr
+    for name in ("flash_attention_fwd_tf32.cu",
+                 "flash_attention_bwd_merged_tf32.cu"):
+        text = _source(name)
+        assert '#include "tensor_core_tf32.cuh"' in text
+        assert "mma_3xtf32(" in text and "ldmatrix_x4(" in text
+        assert "m16n8k8" in text
+        assert "stage_rows_f32<" in text and "split_rows<" in text
+        assert "mma_16816" not in text       # no 16-bit products
+
+
 def test_tensor_core_sources_use_mma_sync():
     for name in ("flash_attention_fwd_mma.cu", "fused_ce_dh_mma.cu",
                  "fused_ce_dw_mma.cu", "fused_ce_dh_lora_mma.cu",
@@ -179,7 +205,9 @@ def test_new_sources_are_built_and_call_no_library():
     from mobilefinetuner_tpu_torch.kernels import build
     for name in ("fused_ce_dw_mma", "fused_ce_dh_lora_mma",
                  "flash_attention_bwd_merged_mma", "fused_ce_fwd_mma",
-                 "fused_ce_fwd_lora_mma", "fused_ce_dbt_mma"):
+                 "fused_ce_fwd_lora_mma", "fused_ce_dbt_mma",
+                 "flash_attention_fwd_tf32",
+                 "flash_attention_bwd_merged_tf32"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -195,7 +223,12 @@ FLASH_SHAPES = [  # (B, Hq, S, D, dtype)
     (1, 12, 100, 64, torch.bfloat16),   # a ragged serving prefill
     (2, 8, 200, 256, torch.float16),    # ragged S at D 256
     (2, 8, 96, 128, torch.bfloat16),
-    (2, 4, 200, 64, torch.float32),     # the FMA kernel
+    (2, 4, 200, 64, torch.float32),     # the 3xTF32 kernel
+    (16, 12, 512, 64, torch.float32),   # eval_mmlu's GPT-2 bucket 512
+    (6, 12, 128, 64, torch.float32),    # the multi-tenant f32 run
+    (2, 8, 90, 128, torch.float32),     # ragged S at D 128
+    (16, 4, 256, 256, torch.float32),   # eval_mmlu's Gemma bucket 256
+    (2, 8, 200, 256, torch.float32),    # ragged S at D 256
 ]
 
 
@@ -209,9 +242,27 @@ def test_flash_plan_constants_match_the_source():
     for D, bk in ((64, 64), (128, 64), (256, 32)):
         plan = fa.fwd_plan(1, 1, 64, D, torch.bfloat16)
         assert (plan["block_q"], plan["block_k"]) == (16 * warps, bk)
-    old = _source("flash_attention_fwd.cu")
-    assert _constexpr(old, "BQ") == fa.fwd_plan(1, 1, 64, 64, torch.float32)[
-        "block_q"] == _constexpr(old, "BK")
+    # the f32 (3xTF32) kernel
+    tf32 = _source("flash_attention_fwd_tf32.cu")
+    assert _constexpr(tf32, "THREADS") == 128
+    for line in (
+            "static constexpr int DS = D == 256 ? 2 : 1;",
+            "static constexpr int BQ = 16 * (4 / DS);",
+            "static constexpr int BK = D == 256 ? 16 : 32;",
+            "static constexpr int LD = D + 4;",
+            "static constexpr int STAGES = 2;",
+            "((size_t)2 * BQ * LD + (size_t)4 * STAGES * BK * LD + "
+            "STAGES * BK) *",
+            "min(nK, (row0 + BQ - 1) / BK + 1)",
+            "floor_div(row0 - window + 1, BK)",
+            "dim3 grid((S + Cfg<D>::BQ - 1) / Cfg<D>::BQ, Hq, B);"):
+        assert line in tf32, line
+    assert fa.TF32_STAGES == 2
+    for D, (bq, bk, ds) in fa.FWD_TF32_TILES.items():
+        plan = fa.fwd_plan(1, 1, 64, D, torch.float32)
+        assert (plan["block_q"], plan["block_k"]) == (bq, bk)
+        assert bq == 16 * (4 // ds) and ds == (2 if D == 256 else 1)
+        assert bk == (16 if D == 256 else 32)
 
 
 @pytest.mark.parametrize("B,Hq,S,D,dtype", FLASH_SHAPES)
@@ -231,11 +282,29 @@ def test_flash_plan_covers_each_query_block_once(B, Hq, S, D, dtype):
 
 def test_flash_plan_fills_the_card_at_gemma_shape():
     """32-row blocks give 128 CTAs at Gemma's B 4 x Hq 4 x S 256, twice the
-    64-row blocks' 64 (132 SMs)."""
+    64-row blocks' 64 (132 SMs); the f32 kernel's 32-row blocks at D 256
+    too."""
     nx, ny, nz = fa.fwd_plan(4, 4, 256, 256, torch.bfloat16)["grid"]
     assert nx * ny * nz == 128
     nx, ny, nz = fa.fwd_plan(4, 4, 256, 256, torch.float32)["grid"]
-    assert nx * ny * nz == 64
+    assert nx * ny * nz == 128
+
+
+@pytest.mark.parametrize("B,Hq,S,D,dtype", [
+    c for c in FLASH_SHAPES if c[-1] == torch.float32])
+def test_flash_tf32_plan_fits_the_card(B, Hq, S, D, dtype):
+    """The f32 entries take the 3xTF32 kernel's plan: Q split into hi / lo
+    planes and a ring of two K / V tiles of four planes each, rows D + 4
+    floats apart, within the 232,448 bytes a block may use (104,704 /
+    203,008 / 199,808 at D 64 / 128 / 256)."""
+    plan = fa.fwd_plan(B, Hq, S, D, dtype)
+    bq, bk, _ = fa.FWD_TF32_TILES[D]
+    assert (plan["block_q"], plan["block_k"]) == (bq, bk)
+    assert plan["smem_bytes"] == 4 * (2 * bq * (D + 4)
+                                      + 8 * bk * (D + 4) + 2 * bk)
+    assert plan["smem_bytes"] <= fc.SMEM_MAX == 232448
+    assert plan["smem_bytes"] == {64: 104704, 128: 203008,
+                                  256: 199808}[D]
 
 
 @pytest.mark.parametrize("S,D,causal,window", [
@@ -630,7 +699,10 @@ BWD_SHAPES = [  # (B, Hq, Hkv, S, D, dtype)
     (2, 8, 2, 200, 256, torch.float16),     # ragged S at D 256
     (1, 8, 2, 130, 256, torch.float16),
     (2, 8, 8, 96, 128, torch.bfloat16),
-    (2, 4, 2, 200, 64, torch.float32),      # the FMA kernel
+    (2, 4, 2, 200, 64, torch.float32),      # the 3xTF32 kernel
+    (6, 12, 12, 128, 64, torch.float32),    # the multi-tenant f32 run
+    (2, 8, 8, 90, 128, torch.float32),
+    (2, 8, 2, 200, 256, torch.float32),     # GQA 4:1, ragged, D 256
 ]
 
 
@@ -669,13 +741,28 @@ def test_bwd_plan_constants_match_the_source():
         assert ds == (1 if D == 64 else 2)
         assert plan["warps"] == bk // 16 * ds
         assert plan["stages"] == fa.BWD_MMA_STAGES
-    old = _source("flash_attention_bwd.cuh")
-    assert "static constexpr int BLK = D > 128 ? 32 : 64;" in old
-    assert _constexpr(old, "BWD_THREADS") == 32 * fa.bwd_plan(
-        1, 1, 1, 64, 64, torch.float32)["warps"]
-    for D in fa.KERNEL_HEAD_DIMS:
+    tf32 = _source("flash_attention_bwd_merged_tf32.cu")
+    for line in (
+            "static constexpr int BK = D == 256 ? 16 : 32;",
+            "static constexpr int BQ = D == 256 ? 16 : 32;",
+            "static constexpr int DS = D / 64;",
+            "static constexpr int WARPS = KG * DS;",
+            "static constexpr int LD = D + 4;",
+            "static constexpr int LDS = BK + 8;",
+            "static constexpr int STAGES = 2;",
+            "((size_t)4 * BK * LD + (size_t)4 * STAGES * BQ * LD + "
+            "2 * BQ * LDS +",
+            "2 * STAGES * BQ + BK) *",
+            "const int qlo = causal ? col0 / BQ : 0;",
+            "floor_div(col0 + BK + window - 2, BQ) + 1",
+            "dim3 grid((S + C::BK - 1) / C::BK, Hq, B);"):
+        assert line in tf32, line
+    for D, (bk, bq, ds) in fa.BWD_TF32_TILES.items():
         plan = fa.bwd_plan(1, 1, 1, 64, D, torch.float32)
-        assert plan["block_k"] == plan["block_q"] == (32 if D > 128 else 64)
+        assert (plan["block_k"], plan["block_q"]) == (bk, bq)
+        assert bk == bq == (16 if D == 256 else 32) and ds == D // 64
+        assert plan["warps"] == bk // 16 * ds
+        assert plan["stages"] == fa.TF32_STAGES
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype", BWD_SHAPES)
@@ -705,6 +792,15 @@ def test_bwd_plan_fits_the_card(B, Hq, Hkv, S, D, dtype):
         assert plan["warps"] == bk // 16 * ds and D // ds in (64, 128)
         assert plan["warps"] % (bq // 16) == 0
         assert D * (bq // 16) // plan["warps"] % 64 == 0
+    else:
+        # the 3xTF32 kernel: 64 dK/dV columns a warp, the same dQ split
+        bk, bq = plan["block_k"], plan["block_q"]
+        assert plan["warps"] == bk // 16 * (D // 64)
+        assert plan["warps"] % (bq // 16) == 0
+        assert D * (bq // 16) // plan["warps"] % 64 == 0
+        assert plan["smem_bytes"] == 4 * (
+            4 * bk * (D + 4) + 8 * bq * (D + 4) + 2 * bq * (bk + 8)
+            + 4 * bq + bk)
 
 
 def test_bwd_plan_at_the_path_shapes():
