@@ -8,7 +8,7 @@ Phases, none of whose failures is caught (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build every kernel from mobilefinetuner_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once; the 3xTF32 sources of rows
-     1-2 must spill no register;
+     1-2, 7 and 10 must spill no register;
   3. hold each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at a few others, with the tolerance
      printed: the flash forward (bf16 / f16 on the tensor-core kernel,
@@ -30,10 +30,12 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      Inf in K and NaN in V must change nothing, two calls bit-identical),
      the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
      bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
-     bit-identical), a head dim and a bf16 H the kernels do not take
-     refused, and their head-adapter variants (rows 9-11, dW in both its
-     modes; the forward, dh + dxa and dbt-only mode in bf16 on the
-     tensor-core kernels, at r 4, 8 and 128, two calls bit-identical),
+     bit-identical; dh in f32 on the 3xTF32 kernel at R 120, V 50,257, H
+     1,152), a head dim and a bf16 H the kernels do not take refused, and
+     their head-adapter variants (rows 9-11, dW in both its modes; the
+     forward, dh + dxa and dbt-only mode in bf16 on the tensor-core
+     kernels, at r 4, 8 and 128, two calls bit-identical; dh + dxa in f32
+     on the 3xTF32 kernel at R 120, V 50,257, H 1,000, r 4),
      the contiguous decode
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
@@ -44,7 +46,8 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the kernels against the plain path in f32: prefill and one paged
      decode step, and a LoRA train step (loss and LoRA grads); then
      Gemma-3-270M the same way in f32: hidden states and the chunked loss
-     at S = 1024 (the 512-token window bites), and a LoRA train step;
+     at S = 1024 (the 512-token window bites), a LoRA train step and a
+     LoRA + lm_head one (the head's A and B among the grads);
   4. serve GPT-2 small (12 layers, n_embd 768, bf16 weights and KV pool,
      8 slots, block_T 16, max_prompt 128, 64 new tokens) over 12 ragged
      requests routed to 2 rank-4 tenants and the base model, through
@@ -144,7 +147,14 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      the head-adapter kernels: `gemma_lora_head`): the loss and eval
      perplexity must fall, the head adapter's B must have left zero, and
      the head-adapter kernels must have launched in place of the base
-     ones exactly as the formulas say; then cli.eval_ppl.main (`eval_ppl`,
+     ones exactly as the formulas say; then, counts set to 0 before each,
+     both LoRA runs again at the default dtype, f32 (no --dtype: 4 steps
+     and a final eval of 2 batches; `gemma_train_f32` and
+     `gemma_lora_head_f32`): rows 6-7 (9-11 with the head) launch exactly
+     steps x chunks plus the eval's forwards, row 7 (10) on its 3xTF32
+     kernel, the losses finite; each prints its step ms p50 and one
+     step's device ms from CUDA events around CUDA-graph replays; then
+     cli.eval_ppl.main (`eval_ppl`,
      counts set to 0 before each run): Gemma with the head adapter just
      trained must reproduce the trainer's final eval perplexity (1e-3
      relative) through the head-adapter forward kernel alone, and GPT-2
@@ -228,10 +238,14 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      wrappers' `by_shape`); rows 1 and 2 in f32 get entries of their own
      (the 3xTF32 sources), with the f32 launches of every path (the
      wrappers' `by_shape` and `by_dtype`), the 16-bit entries the rest;
-     the f32 first versions of rows 5, 6, 7 and 9-11 (row 5 at GPT-2's
-     attn_qkv, the rest at the Gemma chunk, r 8) are held against their
-     plain versions and timed beside their library calls in f32. f32
-     work is bounded at the 3xTF32 rate (495 / 3 TFLOP/s).
+     rows 7 and 10 in f32 too (fused_ce_dh_tf32.cu and
+     fused_ce_dh_lora_tf32.cu, with the f32 paths' launches, timed in
+     turns with their fused_ce.cu first versions, the softmax part held
+     on its own), and rows 5, 6, 9 and 11 in f32 on their first versions
+     (row 5 at GPT-2's attn_qkv, the rest at the Gemma chunk, r 8, with
+     the f32 paths' launches): each held against its plain version and
+     timed beside its library call in f32. f32 work is bounded at the
+     3xTF32 rate (495 / 3 TFLOP/s).
 
 Every training and eval run writes its telemetry stream: each event is
 checked against the schema, every earlier path's memory admission must
@@ -243,7 +257,7 @@ their total.
 
 Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `recovery`,
 `observe`, `gemma_train`, `gemma_full_ft`, `degrade`, `gemma_lora_head`,
-`eval_ppl`, `generate`, `mmlu`, `multitenant`, `profile`, `bwd_sweep`,
+`gemma_train_f32`, `gemma_lora_head_f32`, `eval_ppl`, `generate`, `mmlu`, `multitenant`, `profile`, `bwd_sweep`,
 `admission` and `kernels` JSON lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result. `--only multitenant` builds the
@@ -282,6 +296,11 @@ TRAIN = dict(steps=30, batch=8, accum=2, seq=128, rank=8, alpha=16.0,
 GEMMA = dict(steps=20, batch=4, seq=256, rank=8, alpha=32.0, chunks=8,
              eval_batch=4, eval_batches=4, lr=1e-3, full_steps=6,
              full_lr=1e-4)
+# the default-dtype (f32) Gemma LoRA runs: a few steps and a final eval
+# of the `gemma_train` config, on its directory and corpus
+GEMMA_F32 = dict(steps=4, eval_batches=2)
+# the paths whose fused CE runs in f32 (rows 6-11's f32 launches)
+CE_F32_PATHS = ("gemma_train_f32", "gemma_lora_head_f32")
 GEMMA_LAYERS = 18
 GEMMA_SITES = 7          # LoRA sites a Gemma layer (targets "full")
 # the generate paths (phase 8): prompts (tokens) and new tokens a run
@@ -1076,11 +1095,12 @@ def check_fused_ce(torch, fc, dev):
     with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
     measured at most 3.5e-4 on an H100: a few coefs round the other way).
     The forward, dh and dW of bf16 / f16 run on the tensor-core kernels,
-    of f32 on fused_ce.cu: R 37 (a ragged row tile) with a ragged V and
-    H 1,152 in bf16 too; the path case's forward, dh and dW twice each
-    must give identical bits (no atomics), and a bf16 H that is not a
-    multiple of 8 must be refused by all three. Returns the path case's
-    max abs errors and inputs."""
+    of f32 on fused_ce.cu but dh, which runs on the 3xTF32 kernel: R 37
+    (a ragged row tile) with a ragged V and H 1,152 in bf16 too; the path
+    case's forward, dh and dW twice each must give identical bits (no
+    atomics), and a bf16 H that is not a multiple of 8 must be refused
+    by all three, an f32 one by dh. Returns the path case's max abs
+    errors and inputs."""
     cases = [  # (name, dtype, R, V, H, tol, sm_tol)
         ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
         ("batch8", torch.bfloat16, 256, 262144, 640, 2e-3, 2e-3),
@@ -1146,6 +1166,9 @@ def check_fused_ce(torch, fc, dev):
         check(refuses(lambda: kernel(h, w, lab, dl, dl, dg)),
               f"{kernel.__name__} took a bf16 H = 1004 (not a multiple "
               f"of 8)")
+    h, w = h.float(), w.float()
+    check(refuses(lambda: fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)),
+          "fused_ce_bwd_dh took an f32 H = 1004 (not a multiple of 8)")
     return path
 
 
@@ -1160,10 +1183,11 @@ def check_fused_ce_lora(torch, fc, dev):
     over max |ref| with dgold = 0 (the softmax part alone). The forward,
     dh + dxa and dbt-only mode of bf16 / f16 run on the tensor-core
     kernels, of f32 (and row 11's dW + dbt mode of every dtype) on
-    fused_ce.cu: the path case's (lse, gold), (dh, dxa) and dbt-only
-    twice must give identical bits, and a bf16 H that is not a multiple
-    of 8 must be refused by all three. Returns the path case's max abs
-    errors and inputs."""
+    fused_ce.cu but dh + dxa, which runs on the 3xTF32 kernel: the path
+    case's (lse, gold), (dh, dxa) and dbt-only twice must give identical
+    bits, and a bf16 H that is not a multiple of 8 must be refused by all
+    three, an f32 one by dh + dxa. Returns the path case's max abs errors
+    and inputs."""
     cases = [  # (name, dtype, R, V, H, r, tol)
         ("path", torch.bfloat16, 128, 262144, 640, 8, 2e-3),
         ("ragged", torch.bfloat16, 120, 50257, 1000, 4, 2e-3),
@@ -1244,6 +1268,10 @@ def check_fused_ce_lora(torch, fc, dev):
                                              want_dw=False))):
         check(refuses(fn), f"{name} took a bf16 H = 1004 (not a multiple "
                            f"of 8)")
+    h, w, xa, bt = h.float(), w.float(), xa.float(), bt.float()
+    check(refuses(lambda: fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl,
+                                                  dg)),
+          "fused_ce_bwd_dh_lora took an f32 H = 1004 (not a multiple of 8)")
     return path
 
 
@@ -1252,9 +1280,12 @@ def check_gemma(torch, dev):
     against the plain path (plain attention, naive LoRA, plain chunked
     loss): hidden states and the loss at S = 1024 with a padded row (the
     512-token window bites), then a LoRA train step (targets full, r 8)
-    at S = 256: loss and LoRA grads."""
+    at S = 256, and one with the lm_head target too (the head-adapter
+    rows 9-11 in f32, row 10 on its 3xTF32 kernel): loss and LoRA grads,
+    the head's A and B among them."""
     from mobilefinetuner_tpu_torch.core.config import Gemma3TextConfig
-    from mobilefinetuner_tpu_torch.lora.lora import (LoRASpec,
+    from mobilefinetuner_tpu_torch.lora.lora import (GEMMA_PRESETS,
+                                                     LoRASpec,
                                                      init_lora_gemma3)
     from mobilefinetuner_tpu_torch.models import gemma3
     from mobilefinetuner_tpu_torch.ops.loss import \
@@ -1285,32 +1316,40 @@ def check_gemma(torch, dev):
     check(e_h <= 1e-3 and e_loss <= 1e-4,
           "Gemma-3 kernel path disagrees with the plain path")
     del out
-    lora = init_lora_gemma3(cfg, LoRASpec(rank=8, alpha=32.0, init="peft"),
-                            seed=3, device=dev)
-    for entry in lora["blocks"].values():   # B off zero: grads reach A
-        entry["B"] = (0.02 * torch.randn(entry["B"].shape,
-                                         generator=g)).to(dev)
     ids, mask, labels = ids[:, :256], mask[:, :256], labels[:, :256]
-    out = {}
-    for key, (attn, lora_impl, loss_impl) in paths.items():
-        leaves = {n: {k: t.clone().requires_grad_(k != "scale")
-                      for k, t in e.items()}
-                  for n, e in lora["blocks"].items()}
-        h = gemma3.hidden_states(cfg, params, ids, mask, {"blocks": leaves},
-                                 attn_impl=attn, lora_impl=lora_impl)
-        s, n = chunked_lm_cross_entropy_sum(h, params["embed"], labels,
-                                            impl=loss_impl)
-        grads = torch.autograd.grad(
-            s / n, [leaves[k][x] for k in sorted(leaves) for x in "AB"])
-        out[key] = (float((s / n).detach()), grads)
-    e_loss = abs(out["kernel"][0] - out["plain"][0])
-    e_grad = max(max_err(a, b) for a, b in zip(out["kernel"][1],
-                                                 out["plain"][1]))
-    print(f"gemma3-270m f32 LoRA train step, kernel path vs plain path: "
-          f"loss {out['kernel'][0]:.6f} vs {out['plain'][0]:.6f} (err "
-          f"{e_loss:.3e}), LoRA grads max err {e_grad:.3e} (tolerance 1e-4)")
-    check(e_loss <= 1e-4 and e_grad <= 1e-4,
-          "Gemma-3 train step: kernel path disagrees with plain path")
+    for targets in (GEMMA_PRESETS["full"], GEMMA_PRESETS["full"]
+                    + ["lm_head"]):
+        lora = init_lora_gemma3(cfg, LoRASpec(rank=8, alpha=32.0,
+                                              init="peft", targets=targets),
+                                seed=3, device=dev)
+        for entry in lora["blocks"].values():   # B off zero: grads reach A
+            entry["B"] = (0.02 * torch.randn(entry["B"].shape,
+                                             generator=g)).to(dev)
+        out = {}
+        for key, (attn, lora_impl, loss_impl) in paths.items():
+            leaves = {n: {k: t.clone().requires_grad_(k != "scale")
+                          for k, t in e.items()}
+                      for n, e in lora["blocks"].items()}
+            h = gemma3.hidden_states(cfg, params, ids, mask,
+                                     {"blocks": leaves}, attn_impl=attn,
+                                     lora_impl=lora_impl)
+            s, n = chunked_lm_cross_entropy_sum(
+                h, params["embed"], labels, impl=loss_impl,
+                lora_head=leaves.get("lm_head"))
+            grads = torch.autograd.grad(
+                s / n, [leaves[k][x] for k in sorted(leaves) for x in "AB"])
+            out[key] = (float((s / n).detach()), grads)
+        e_loss = abs(out["kernel"][0] - out["plain"][0])
+        e_grad = max(max_err(a, b) for a, b in zip(out["kernel"][1],
+                                                     out["plain"][1]))
+        what = "LoRA + lm_head" if "lm_head" in targets else "LoRA"
+        print(f"gemma3-270m f32 {what} train step, kernel path vs plain "
+              f"path: loss {out['kernel'][0]:.6f} vs {out['plain'][0]:.6f} "
+              f"(err {e_loss:.3e}), LoRA grads max err {e_grad:.3e} over "
+              f"{len(out['kernel'][1])} (tolerance 1e-4)")
+        check(e_loss <= 1e-4 and e_grad <= 1e-4,
+              f"Gemma-3 {what} train step: kernel path disagrees with "
+              f"plain path")
 
 
 # ----------------------------------------------------------- main paths ----
@@ -2275,6 +2314,66 @@ def gemma_lora_head(torch, dev, work, kernels, gemma):
     return stats, launches, adapter, evals[-1]
 
 
+def gemma_train_f32(torch, dev, work, kernels, gemma, head: bool):
+    """The default-dtype Gemma path: cli.train_lora_gemma with no --dtype
+    (f32, every CLI's default) on the directory and corpus `gemma_train`
+    wrote, the `gemma_train` config (targets full, r 8, batch 4, seq 256,
+    8 loss chunks; with `head`, --lora_targets full,lm_head) for
+    GEMMA_F32's steps and final eval, launch counts set to 0 just before
+    it. Its chunked loss runs the fused CE in f32: rows 6 and 7 (rows 9-11
+    with the head), row 7 (10) on its 3xTF32 kernel; every launch count
+    must be exact and the losses finite. Also one such step's device ms,
+    from CUDA events around replays of a CUDA graph of it (graph_ms)."""
+    from mobilefinetuner_tpu_torch.cli import train_lora_gemma as cli
+    from mobilefinetuner_tpu_torch.ops.flash_attention import \
+        resolve_bwd_impl
+    config, _, _, base, gdir, ddir, eval_nb = gemma
+    G, F = GEMMA, GEMMA_F32
+    name = CE_F32_PATHS[int(head)]
+    out = os.path.join(work, name)
+    argv = ["--model_dir", gdir, "--data_dir", ddir,
+            "--max_steps", str(F["steps"]), "--batch", str(G["batch"]),
+            "--seq_len", str(G["seq"]),
+            "--rank", str(G["rank"]), "--alpha", str(G["alpha"]),
+            *(["--lora_targets", "full,lm_head"] if head
+              else ["--targets", "full"]),
+            "--loss_chunks", str(G["chunks"]),
+            "--lr", str(G["lr"]), "--eval_interval", str(F["steps"]),
+            "--eval_batch_size", str(G["eval_batch"]),
+            "--eval_batches", str(F["eval_batches"]),
+            "--output_dir", out,
+            "--metrics_csv", os.path.join(out, "metrics.csv"),
+            "--eval_out", os.path.join(out, "eval.jsonl"),
+            *telemetry_argv(name)]
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    check(rc == 0, f"train_lora_gemma.main ({name}) returned {rc}")
+    admitted(name)
+    stats, evals = run_stats(out, F["steps"], base, check_learns=False)
+    M, E = F["steps"], len(evals) * min(F["eval_batches"], eval_nb)
+    impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.float32)
+    want = gemma_launches(M, E, impl, "head" if head else "lora")
+    check(launches == want, f"{name} launches {launches}, expected "
+          f"{want} (M={M} micro-batches, E={E} eval batches)")
+    step_ms = graph_ms(gemma_step(torch, dev, gemma, head, torch.float32),
+                       3)
+    stats.update({"model": "gemma3-270m", "mode": "lora",
+                  "dtype": "float32", "lora_rank": G["rank"],
+                  "targets": "full,lm_head" if head else "full",
+                  "micro_batches": M, "eval_batches": E, "bwd_impl": impl,
+                  "step_device_ms": step_ms, "wall_s": wall})
+    print(f"{name}: f32 (no --dtype), {M} steps: step ms p50 "
+          f"{stats['step_ms_p50']:.1f}, one step's device ms "
+          f"{step_ms:.1f} (CUDA events around CUDA-graph replays); losses "
+          f"{stats['first_loss']:.4f} -> {stats['last_loss']:.4f}")
+    return stats, launches
+
+
 def run_eval_ppl(argv):
     """cli.eval_ppl.main(argv) -> its final record (its last stdout
     line)."""
@@ -2966,10 +3065,10 @@ def decode_step_events(torch, dev, model_dir, adapter, family, prompts):
     return dev_ms, wall_ms
 
 
-def profile_gemma_train(torch, dev, gemma, head: bool = False):
-    """Where one Gemma-3-270M LoRA train step (batch 4 x 256, bf16,
-    targets full, 8 loss chunks; with `head`, the lm_head target too)
-    spends its time."""
+def gemma_step(torch, dev, gemma, head: bool = False, dtype=None):
+    """One Gemma-3-270M LoRA train step (batch 4 x 256, targets full, 8
+    loss chunks; with `head`, the lm_head target too) in `dtype` (bf16
+    by default), on a fixed random batch: a closure that runs it."""
     import dataclasses
 
     import numpy as np
@@ -2995,7 +3094,7 @@ def profile_gemma_train(torch, dev, gemma, head: bool = False):
         hidden = gemma3.hidden_states(config, frozen, mb["input_ids"],
                                       attention_mask=mb["attention_mask"],
                                       lora=lora_t,
-                                      compute_dtype=torch.bfloat16)
+                                      compute_dtype=dtype or torch.bfloat16)
         return chunked_lm_cross_entropy_sum(
             hidden, frozen["embed"], mb["labels"], num_chunks=G["chunks"],
             lora_head=lora_t["blocks"].get("lm_head"))
@@ -3008,9 +3107,16 @@ def profile_gemma_train(torch, dev, gemma, head: bool = False):
     batch = place_batch({"input_ids": ids, "labels": ids,
                          "attention_mask": np.ones((G["batch"], G["seq"]),
                                                    np.float32)}, dev)
+    return lambda: step_fn(lora, params, opt, batch, 0)
+
+
+def profile_gemma_train(torch, dev, gemma, head: bool = False):
+    """Where one Gemma-3-270M LoRA train step (batch 4 x 256, bf16,
+    targets full, 8 loss chunks; with `head`, the lm_head target too)
+    spends its time."""
     name = "gemma_lora_head_train_step" if head else "gemma_lora_train_step"
-    return profile_phases({name: (
-        lambda: step_fn(lora, params, opt, batch, 0), 5, True)})
+    return profile_phases({name: (gemma_step(torch, dev, gemma, head), 5,
+                                  True)})
 
 
 def profile_gemma_full_ft(torch, dev, gemma):
@@ -3382,17 +3488,55 @@ def fused_ce_lora_times(torch, fc, args, keys=CE_LORA_KEYS, bnd=bound):
     return times, bounds
 
 
-def f32_first_version_entries(torch, fc, lf, dev):
-    """Rows 5, 6, 7 and 9-11 in f32, on the first versions an f32 run
-    (every CLI's default dtype) launches: row 5 (lora_epilogue.cu) at
-    GPT-2's attn_qkv, y 1024 x 2304, r 8; rows 6 and 7 (fused_ce.cu) at
-    the Gemma chunk, R 128, V 262,144, H 640, and rows 9-11 (row 11 in its
-    dbt-only mode) there at r 8. Each is held against its plain version
-    (check_epilogue's and check_fused_ce's f32 tolerances), timed beside
-    the bf16 entries' library call run in f32 (TF32 off) and bounded at
-    the 3xTF32 rate, with the f32 launches the paths made at that shape
-    (the epilogue's from EPI_BY_SHAPE; every path runs the Gemma loss in
-    bf16). Returns {kernels line name: entry}."""
+def fma_dh(torch, fc, h, w, labels, rows, lora=None):
+    """dh (and dxa with lora = (xa, bt)) through rows 7 and 10's f32 FMA
+    first versions (fused_ce.cu's mft_fused_ce_dh and
+    mft_fused_ce_dh_lora, on their own slab plan), which no path runs
+    since f32 moved to the 3xTF32 kernels. Their times, in turns beside
+    the new kernels', are the rows' earlier times; their launches are
+    outside the wrappers' counts."""
+    from mobilefinetuner_tpu_torch.kernels import build
+    R, H = h.shape
+    V = w.shape[0]
+    n_slabs, per_slab = fc._slabs(R, V, h.device, 2)
+    lab = fc._labels(labels, h)
+    part = torch.empty(n_slabs, R, H, device=h.device)
+    dh = torch.empty(R, H, device=h.device)
+    ins = (lab.data_ptr(), *(t.data_ptr() for t in rows))
+    tail = (n_slabs, per_slab, 0, fc._stream(h))
+    if lora is None:
+        build.check_launch("fused_ce.cu dh", fc._fn("mft_fused_ce_dh", 8, 6)(
+            h.data_ptr(), w.data_ptr(), *ins, part.data_ptr(),
+            dh.data_ptr(), R, V, H, *tail))
+        return dh
+    xa, bt = lora
+    r = xa.shape[1]
+    xpart = torch.empty(n_slabs, R, r, device=h.device)
+    dxa = torch.empty(R, r, device=h.device)
+    build.check_launch("fused_ce.cu dh_lora", fc._fn(
+        "mft_fused_ce_dh_lora", 12, 7)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(), *ins,
+        part.data_ptr(), dh.data_ptr(), xpart.data_ptr(), dxa.data_ptr(), R,
+        V, H, r, *tail))
+    return dh, dxa
+
+
+def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
+    """Row 5 and the fused CE rows in f32, every CLI's default dtype:
+    row 5 on its first version (lora_epilogue.cu) at GPT-2's attn_qkv, y
+    1024 x 2304, r 8; at the Gemma chunk (R 128, V 262,144, H 640; rows
+    9-11 at r 8, row 11 in its dbt-only mode) rows 6, 9 and 11 on
+    fused_ce.cu and rows 7 and 10 on their 3xTF32 kernels
+    (fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu), each of those two
+    also held against the plain version with dgold = 0 (the softmax part,
+    over max |ref|) and timed in turns with its fused_ce.cu first version
+    (fma_dh, held against the plain version too). Each is held against
+    its plain version (check_epilogue's and check_fused_ce's f32
+    tolerances), timed beside the bf16 entries' library call run in f32
+    (TF32 off) and bounded at the 3xTF32 rate, with the f32 launches the
+    paths made at that shape: row 5's from EPI_BY_SHAPE, the fused CE's
+    from `ce_f32` ({wrapper key: {path: launches}} of CE_F32_PATHS, the
+    runs whose loss is f32). Returns {kernels line name: entry}."""
     f32 = torch.float32
     g = torch.Generator().manual_seed(41)
     y, xa, bm = (torch.randn(sh, generator=g).to(dev)
@@ -3418,40 +3562,74 @@ def f32_first_version_entries(torch, fc, lf, dev):
     lora = (h, w, xa, bt, lab, rll, dl, dg)
     lse, gold = fc.fused_ce_fwd(h, w, lab)
     lse_l, gold_l = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
-    dh_l = zip(fc.fused_ce_bwd_dh_lora(*lora),
-               fc.fused_ce_dh_lora_reference(*lora))
+    ref_dh = fc.fused_ce_dh_reference(*ce)
+    ref_dhl = fc.fused_ce_dh_lora_reference(*lora)
     errs = {
         "fused_ce_fwd": max(max_err(lse, rl), max_err(gold, rg)),
-        "fused_ce_dh": rel_err(fc.fused_ce_bwd_dh(*ce),
-                               fc.fused_ce_dh_reference(*ce)),
+        "fused_ce_dh": rel_err(fc.fused_ce_bwd_dh(*ce), ref_dh),
         "fused_ce_fwd_lora": max(max_err(lse_l, rll), max_err(gold_l, rlg)),
-        "fused_ce_dh_lora": max(rel_err(a, b) for a, b in dh_l),
+        "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
+            fc.fused_ce_bwd_dh_lora(*lora), ref_dhl)),
         "fused_ce_dw_lora": rel_err(
             fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1],
             fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1])}
-    print("f32 first versions at the Gemma chunk (R 128, V 262144, H 640, "
-          "r 8): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    z = torch.zeros_like(dg)
+    ce0, lora0 = ce[:5] + (z,), lora[:7] + (z,)
+    sm = {"fused_ce_dh": scaled_err(fc.fused_ce_bwd_dh(*ce0),
+                                    fc.fused_ce_dh_reference(*ce0)),
+          "fused_ce_dh_lora": max(scaled_err(a, b) for a, b in zip(
+              fc.fused_ce_bwd_dh_lora(*lora0),
+              fc.fused_ce_dh_lora_reference(*lora0)))}
+    earlier = {"fused_ce_dh": rel_err(fma_dh(torch, fc, h, w, lab, ce[3:]),
+                                      ref_dh),
+               "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
+                   fma_dh(torch, fc, h, w, lab, lora[5:], (xa, bt)),
+                   ref_dhl))}
+    del ref_dh, ref_dhl
+    print("f32 fused CE at the Gemma chunk (R 128, V 262144, H 640, r 8): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; softmax part (dgold = 0) over max |ref| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in sm.items())
+          + "; first versions of rows 7 / 10 " + ", ".join(
+              f"{k} {v:.3e}" for k, v in earlier.items())
           + " (tolerance 1e-4)")
-    check(max(errs.values()) <= 1e-4, f"f32 fused CE at the Gemma chunk "
-          f"disagrees with its plain versions: {errs}")
+    check(max(*errs.values(), *sm.values(), *earlier.values()) <= 1e-4,
+          f"f32 fused CE at the Gemma chunk disagrees with its plain "
+          f"versions: {errs}, {sm}, first versions {earlier}")
     times, bounds = fused_ce_times(torch, fc, ce, CE_KEYS[:2], f32_bound)
     lora_times, lora_bounds = fused_ce_lora_times(
         torch, fc, lora, CE_LORA_KEYS[:3], f32_bound)
     times.update(lora_times)
     bounds.update(lora_bounds)
-    lines = {"fused_ce_fwd": ("fused_ce_fwd", "fused_ce.py:121", ""),
-             "fused_ce_dh": ("fused_ce_bwd_dh", "fused_ce.py:196", ""),
+    times["fused_ce_dh"].update(in_turns(
+        lambda: fc.fused_ce_bwd_dh(*ce),
+        lambda: fma_dh(torch, fc, h, w, lab, ce[3:]), 10))
+    times["fused_ce_dh_lora"].update(in_turns(
+        lambda: fc.fused_ce_bwd_dh_lora(*lora),
+        lambda: fma_dh(torch, fc, h, w, lab, lora[5:], (xa, bt)), 10))
+    lines = {"fused_ce_fwd": ("fused_ce_fwd", "fused_ce.py:121", "",
+                              "fused_ce.cu"),
+             "fused_ce_dh": ("fused_ce_bwd_dh", "fused_ce.py:196", "",
+                             "fused_ce_dh_tf32.cu"),
              "fused_ce_fwd_lora": ("fused_ce_fwd_lora", "fused_ce.py:350",
-                                   ", r 8"),
+                                   ", r 8", "fused_ce.cu"),
              "fused_ce_dh_lora": ("fused_ce_bwd_dh_lora", "fused_ce.py:384",
-                                  ", r 8"),
+                                  ", r 8", "fused_ce_dh_lora_tf32.cu"),
              "fused_ce_dw_lora": ("fused_ce_bwd_dw_lora", "fused_ce.py:421",
-                                  ", r 8, dbt only (frozen head)")}
-    for key, (name, line, tail) in lines.items():
-        out[name] = kernel_entry(
-            name, "fused_ce.cu", line, 0, errs[key], times[key],
-            bounds[key], {"shape": f"R 128, V 262144, H 640{tail}, f32 "
-                                   f"(gemma chunk)"})
+                                  ", r 8, dbt only (frozen head)",
+                                  "fused_ce.cu")}
+    for key, (name, line, tail, source) in lines.items():
+        extra = {"shape": f"R 128, V 262144, H 640{tail}, f32 (gemma "
+                          f"chunk)",
+                 "launches_by_path": ce_f32[key]}
+        if key in sm:
+            extra.update(softmax_part_err=sm[key],
+                         earlier="fused_ce.cu (FMA first version)",
+                         earlier_max_abs_err=earlier[key],
+                         ptxas=ptxas[source[:-3]])
+        out[name] = kernel_entry(name, source, line,
+                                 sum(ce_f32[key].values()), errs[key],
+                                 times[key], bounds[key], extra)
     return out
 
 
@@ -4976,7 +5154,8 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}")
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
     for name in ("flash_attention_fwd_tf32",
-                 "flash_attention_bwd_merged_tf32"):
+                 "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
+                 "fused_ce_dh_lora_tf32"):
         check(all(row[2] == 0 and row[3] == 0 for row in ptxas[name]),
               f"{name} spills registers: {ptxas[name]}")
     if argv:
@@ -5089,6 +5268,19 @@ def main(argv=None) -> int:
         head_stats.update(observed("gemma_lora_head"))
         print(json.dumps({"gemma_lora_head": head_stats,
                           "launches": launches_head}))
+        torch.cuda.empty_cache()
+        # the default dtype: the same LoRA runs in f32, counts set to 0
+        # just before each
+        launches_f32 = {}
+        for head in (False, True):
+            name = CE_F32_PATHS[int(head)]
+            f32_stats, launches_f32[name] = gemma_train_f32(
+                torch, dev, work, kernels, gemma, head)
+            mark = mark_f32(name, mark)
+            f32_stats.update(observed(name))
+            print(json.dumps({name: f32_stats,
+                              "launches": launches_f32[name]}))
+            torch.cuda.empty_cache()
         eval_stats, launches_eval, eval_runs = eval_ppl_phase(
             torch, kernels, gemma, (head_adapter, head_final),
             (os.path.join(work, "gpt2"), os.path.join(work, "wiki"),
@@ -5183,7 +5375,13 @@ def main(argv=None) -> int:
     ce_times, ce_bounds = fused_ce_times(torch, fc, ce_args)
     gemma_entries = gemma_kernel_entries(torch, fa, lf, dev)
     mmlu_entries = mmlu_kernel_entries(torch, fa, lf, dev, mmlu_flash)
-    f32_first = f32_first_version_entries(torch, fc, lf, dev)
+    ce_f32 = {key: {p: launches_f32[p][key] for p in CE_F32_PATHS}
+              for key in (*CE_KEYS, *CE_LORA_KEYS[:3])}
+    for key, n in ce_f32.items():   # rows 6-7 (9-11) ran on their path
+        head = key.endswith("_lora")
+        check(key == "fused_ce_dw" or n[CE_F32_PATHS[int(head)]] > 0,
+              f"{key} launched no time in f32 on {CE_F32_PATHS[int(head)]}")
+    f32_first = f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas)
     gserve_flash = gemma_serve_flash_entry(torch, fa, dev)
     serve_names = {"flash_fwd": "flash", "paged": "paged",
                    "decode": "decode"}
@@ -5198,6 +5396,7 @@ def main(argv=None) -> int:
                 "gemma_train": launches_gemma[name],
                 "gemma_full_ft": launches_full[name],
                 "gemma_lora_head": launches_head[name],
+                **{p: launches_f32[p][name] for p in CE_F32_PATHS},
                 "eval_ppl": launches_eval[name],
                 "mmlu": launches_mmlu[name],
                 "recovery": launches_rec[name],
@@ -5299,7 +5498,16 @@ def main(argv=None) -> int:
              f32="decode_attention.cu (first version, f32 launches)",
              gemma=dec_entries["gemma_path"]),
     ]
+    # the fused CE in bf16: every path but CE_F32_PATHS, whose launches
+    # are the f32 entries' (rows 7 and 10's 3xTF32 sources have their own)
+    def by_path_ce16(key):
+        return {p: n for p, n in by_path(key).items()
+                if p not in CE_F32_PATHS}
+
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
+    own = {"fused_ce_bwd_dh": "fused_ce_dh_tf32.cu (its own entry)",
+           "fused_ce_bwd_dh_lora": "fused_ce_dh_lora_tf32.cu (its own "
+                                   "entry)"}
     for name, key, line, err, source in (
             ("fused_ce_fwd", "fused_ce_fwd", "fused_ce.py:121",
              max(ce_err["lse"], ce_err["gold"]), "fused_ce_fwd_mma.cu"),
@@ -5307,13 +5515,15 @@ def main(argv=None) -> int:
              ce_err["dh"], "fused_ce_dh_mma.cu"),
             ("fused_ce_bwd_dw", "fused_ce_dw", "fused_ce.py:224",
              ce_err["dw"], "fused_ce_dw_mma.cu")):
-        extra = {"launches_by_path": by_path(key), "shape": ce_shape,
+        extra = {"launches_by_path": by_path_ce16(key), "shape": ce_shape,
                  "ptxas": ptxas[source[:-3]],
-                 "f32": f32_first.get(name, "fused_ce.cu (FMA kernel, f32 "
-                                            "launches)")}
+                 "f32": own.get(name) or f32_first.get(
+                     name, "fused_ce.cu (FMA kernel, f32 launches)")}
         kernels_line.append(kernel_entry(
-            name, source, line, total(key), err, ce_times[key],
-            ce_bounds[key], extra))
+            name, source, line, sum(by_path_ce16(key).values()), err,
+            ce_times[key], ce_bounds[key], extra))
+        if name in own:
+            kernels_line.append(f32_first[name])
     ce_lora_times, ce_lora_bounds = fused_ce_lora_times(torch, fc,
                                                         ce_lora_args)
     lora_shape = "R 128, V 262144, H 640, r 8, bf16 (gemma chunk)"
@@ -5327,8 +5537,9 @@ def main(argv=None) -> int:
         source = {"fused_ce_fwd_lora": "fused_ce_fwd_lora_mma.cu",
                   "fused_ce_dh_lora": "fused_ce_dh_lora_mma.cu",
                   "fused_ce_dw_lora": "fused_ce_dbt_mma.cu"}[key]
-        extra = {"launches_by_path": by_path(key), "shape": lora_shape,
-                 "ptxas": ptxas[source[:-3]], "f32": f32_first[name]}
+        extra = {"launches_by_path": by_path_ce16(key),
+                 "shape": lora_shape, "ptxas": ptxas[source[:-3]],
+                 "f32": own.get(name) or f32_first[name]}
         if key == "fused_ce_dw_lora":
             extra["shape"] += ", dbt only (frozen head)"
             # the dW + dbt mode, every dtype, on fused_ce.cu's dw_kernel
@@ -5342,8 +5553,10 @@ def main(argv=None) -> int:
                  "ptxas": [row for row in ptxas["fused_ce"]
                            if row[0].startswith("dw_kernel")]})
         kernels_line.append(kernel_entry(
-            name, source, line, total(key), err, ce_lora_times[key],
-            ce_lora_bounds[key], extra))
+            name, source, line, sum(by_path_ce16(key).values()), err,
+            ce_lora_times[key], ce_lora_bounds[key], extra))
+        if name in own:
+            kernels_line.append(f32_first[name])
     print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
     print(json.dumps({"admission": ADMISSION}))
     shutil.rmtree(STREAMS["dir"], ignore_errors=True)

@@ -1,7 +1,8 @@
 // 3xTF32 building blocks for the port's f32 tensor-core kernels (sm_90a):
 // f32 operands split into two TF32 halves, the m16n8k8 TF32 mma.sync, and
 // a product of split operands that keeps f32 accuracy. Used by
-// flash_attention_fwd_tf32.cu and flash_attention_bwd_merged_tf32.cu.
+// flash_attention_fwd_tf32.cu, flash_attention_bwd_merged_tf32.cu,
+// fused_ce_dh_tf32.cu and fused_ce_dh_lora_tf32.cu.
 //
 // Split: hi = tf32(x) (cvt.rna: round to nearest, ties away from zero, at
 // bit 13), lo = tf32(x - hi); x - hi is exact in f32, so x = hi + lo to
@@ -38,6 +39,23 @@ __device__ __forceinline__ uint32_t tf32_round(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// x rounded to TF32 by integer arithmetic on its bits: + 0x1000 carries
+// half an ulp of the 10-bit mantissa into the magnitude, then the low 13
+// bits are cleared. The bits of tf32_round for every finite x and for
+// Inf (a NaN may come out as another NaN or as -0, whose lo half is then
+// NaN), in two integer operations: for kernels that split operands at
+// every fragment load (fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu).
+__device__ __forceinline__ uint32_t tf32_round_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// split_tf32's hi and lo by tf32_round_bits
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = tf32_round_bits(x);
+  lo = tf32_round_bits(x - __uint_as_float(hi));
 }
 
 // x = hi + lo, both TF32

@@ -14,8 +14,9 @@ memory:
                     `csrc/fused_ce.cu` (fwd_library, fwd_mma_plan).
   fused_ce_bwd_dh   dh [R, H] f32 = coef @ W (`_dh_kernel`, row 7); bf16
                     and f16 on the tensor-core kernel of
-                    `csrc/fused_ce_dh_mma.cu` (H % 8 == 0), f32 on
-                    `csrc/fused_ce.cu` (dh_library, dh_mma_plan).
+                    `csrc/fused_ce_dh_mma.cu`, f32 on the 3xTF32 one of
+                    `csrc/fused_ce_dh_tf32.cu` (H % 8 == 0; dh_library,
+                    dh_mma_plan, dh_tf32_plan).
   fused_ce_bwd_dw   dW [V, H] f32 = coef^T @ h (`_dw_kernel`, row 8);
                     bf16 and f16 on the tensor-core kernel of
                     `csrc/fused_ce_dw_mma.cu` (H % 8 == 0), f32 on
@@ -40,9 +41,10 @@ into the same tile loop, so the [R, V] delta never exists either:
                         (fwd_lora_library, fwd_lora_mma_plan).
   fused_ce_bwd_dh_lora  (dh, dxa [R, r] = coef @ bt) (`_dh_kernel_lora`,
                         row 10); bf16 and f16 on
-                        `csrc/fused_ce_dh_lora_mma.cu` (H % 8 == 0), f32
-                        on `csrc/fused_ce.cu` (dh_lora_library,
-                        dh_lora_mma_plan).
+                        `csrc/fused_ce_dh_lora_mma.cu`, f32 on the 3xTF32
+                        kernel of `csrc/fused_ce_dh_lora_tf32.cu` (H % 8
+                        == 0; dh_lora_library, dh_lora_mma_plan,
+                        dh_lora_tf32_plan).
   fused_ce_bwd_dw_lora  (dW or None, dbt [V, r] = coef^T @ xa)
                         (`_dw_kernel_lora`, row 11); dW only when asked
                         for (the tied embedding is frozen in LoRA). dbt
@@ -64,8 +66,10 @@ run on any device as the kernels' references on the card.
 
 Bounds and design: csrc/fused_ce.cu and the tensor-core sources
 csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu,
-fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu and
-fused_ce_dbt_mma.cu.
+fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu, fused_ce_dbt_mma.cu,
+fused_ce_dh_tf32.cu and fused_ce_dh_lora_tf32.cu. fused_ce.cu's f32 dh
+kernels, which rows 7 and 10 ran in f32 before, stay built as those
+rows' earlier versions on no path (chip_smoke.py times them).
 The kernels take any R, V and H (the tensor-core kernels H % 8 == 0),
 h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
 hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
@@ -101,6 +105,11 @@ DW_HP_MAX = 640         # HP_MAX: dW columns of a CTA, 8 warps x WC_MAX
 DW_ROW_CHUNKS = (128, 64, 32)   # rows of h a CTA holds (its RC)
 FWD_MMA_KREGS = 40      # csrc/fused_ce_fwd_mma.cu KR: h's k-steps a lane
 DBT_GROUP = 4           # csrc/fused_ce_dbt_mma.cu GT: W tiles a coef group
+TF32_VOCAB_TILE = 16    # csrc/fused_ce_dh_tf32.cu VT: vocab of a W tile
+TF32_WARPS = 8          # WG: warps of a row group
+TF32_COEF_LD = 24       # LDC: coef row stride, floats
+TF32_NT = (2, 5, 6, 12, 28)     # dh n-tiles a warp, the instantiated
+                                # bounds (6 at most with 32-row tiles)
 
 
 # ------------------------------------------------------ plain versions ------
@@ -274,15 +283,15 @@ def _slabs(R: int, V: int, device, ctas_per_sm: int) -> Tuple[int, int]:
     return -(-n_vt // per_slab), per_slab
 
 
-def _route(what: str, mma: Tuple[str, str], fma: Tuple[str, str],
+def _route(what: str, mma: Tuple[str, str], f32: Tuple[str, str],
            dtype: torch.dtype) -> Tuple[str, str]:
     """(source, C symbol) of a kernel for `dtype`: bf16 and f16 run on the
-    tensor-core kernel `mma`, f32 on fused_ce.cu's `fma` (no fallback
-    from one to the other)."""
+    tensor-core kernel `mma`, f32 on `f32` (fused_ce.cu's FMA kernel, or
+    a 3xTF32 one); no fallback from one to the other."""
     if dtype in (torch.bfloat16, torch.float16):
         return mma
     if dtype == torch.float32:
-        return fma
+        return f32
     raise ValueError(f"{what} kernel takes its operands in one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
 
@@ -298,7 +307,7 @@ def dh_library(dtype: torch.dtype) -> Tuple[str, str]:
     """Row 7's kernel for `dtype` (_route)."""
     return _route("fused_ce_bwd_dh",
                   ("fused_ce_dh_mma", "mft_fused_ce_dh_mma"),
-                  ("fused_ce", "mft_fused_ce_dh"), dtype)
+                  ("fused_ce_dh_tf32", "mft_fused_ce_dh_tf32"), dtype)
 
 
 def dw_library(dtype: torch.dtype) -> Tuple[str, str]:
@@ -312,7 +321,8 @@ def dh_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
     """Row 10's kernel for `dtype` (_route)."""
     return _route("fused_ce_bwd_dh_lora",
                   ("fused_ce_dh_lora_mma", "mft_fused_ce_dh_lora_mma"),
-                  ("fused_ce", "mft_fused_ce_dh_lora"), dtype)
+                  ("fused_ce_dh_lora_tf32", "mft_fused_ce_dh_lora_tf32"),
+                  dtype)
 
 
 def fwd_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
@@ -336,12 +346,13 @@ def _require_h8(what: str, H: int) -> None:
                          f"(16-byte rows), got H={H}")
 
 
-def _slab_plan(plan: dict, ctas_per_slab: int, V: int, n_sm: int) -> dict:
+def _slab_plan(plan: dict, ctas_per_slab: int, V: int, n_sm: int,
+               vt: int = MMA_VOCAB_TILE) -> dict:
     """`plan` with the vocabulary cut into `n_slabs` slabs of
-    `tiles_per_slab` 32-column tiles: the most slabs that keep the grid
+    `tiles_per_slab` `vt`-column tiles: the most slabs that keep the grid
     one wave of `n_sm` CTAs (at least one), each slab `ctas_per_slab`
     CTAs, and the grid (ctas_per_slab, n_slabs)."""
-    n_vt = -(-V // MMA_VOCAB_TILE)
+    n_vt = -(-V // vt)
     n_slabs = min(n_vt, max(1, n_sm // ctas_per_slab))
     tiles_per_slab = -(-n_vt // n_slabs)
     n_slabs = -(-n_vt // tiles_per_slab)
@@ -435,6 +446,55 @@ def dh_lora_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
     return _slab_plan({"row_groups": row_groups, "stages": stages,
                        "hp": hp, "n_parts": n_parts, "smem_bytes": smem},
                       row_tiles * n_parts, V, n_sm)
+
+
+def _tf32_plan(what: str, R: int, V: int, H: int, r: int,
+               n_sm: int) -> dict:
+    """Rows 7 and 10's f32 launch, as csrc/fused_ce_dh_tf32.cu and
+    csrc/fused_ce_dh_lora_tf32.cu take it: the row widened to hx = H (row
+    7) or H + r rounded up to 8 (row 10: [h | xa], [W | bt]); rows in
+    tiles of 16 x `row_groups` with a ring of `stages` W tiles of
+    TF32_VOCAB_TILE rows, the first of (2, 3), (2, 2), (1, 3), (1, 2),
+    (1, 1) whose shared memory (the h tile and the ring [., hx + 4], the
+    logits partials and the split coef tile, all f32) fits and whose
+    `nt` = ceil(hx / 8 / (8 row_groups)) n-tiles of 8 output columns a
+    warp (for every row of the tile) has an instantiated bound
+    (`nt_bound` of TF32_NT, 6 at most with 32-row tiles); the vocabulary
+    in `n_slabs` slabs of `tiles_per_slab` 16-row tiles, one CTA per
+    (row tile, slab), the grid one wave of `n_sm` CTAs."""
+    _require_h8(what, H)
+    hx = H + (-(-r // 8) * 8 if r else 0)
+    for row_groups, stages in ((2, 3), (2, 2), (1, 3), (1, 2), (1, 1)):
+        nt = -(-(hx // 8) // (TF32_WARPS * row_groups))
+        bounds = [b for b in TF32_NT if b >= nt]
+        if not bounds or (row_groups == 2 and bounds[0] > 6):
+            continue
+        smem = ((16 * row_groups + stages * TF32_VOCAB_TILE) * (hx + 4)
+                + 2 * 16 * row_groups * TF32_COEF_LD) * 4 \
+            + row_groups * TF32_WARPS * 2 * 32 * 16
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"{what} 3xTF32 kernel: H={H}"
+                         + (f", r={r}" if r else "")
+                         + " does not fit shared memory")
+    row_tiles = -(-R // (16 * row_groups))
+    return _slab_plan({"row_groups": row_groups, "stages": stages,
+                       "hx": hx, "nt": nt, "nt_bound": bounds[0],
+                       "smem_bytes": smem}, row_tiles, V, n_sm,
+                      TF32_VOCAB_TILE)
+
+
+def dh_tf32_plan(R: int, V: int, H: int, n_sm: int) -> dict:
+    """Row 7's f32 launch (_tf32_plan): at the Gemma chunk (R 128, H 640)
+    32-row tiles, three W buffers, 5 n-tiles a warp."""
+    return _tf32_plan("fused_ce_bwd_dh", R, V, H, 0, n_sm)
+
+
+def dh_lora_tf32_plan(R: int, V: int, H: int, r: int, n_sm: int) -> dict:
+    """Row 10's f32 launch (_tf32_plan with the rank's columns)."""
+    _require_rank("fused_ce_bwd_dh_lora", r)
+    return _tf32_plan("fused_ce_bwd_dh_lora", R, V, H, r, n_sm)
 
 
 def _require_rank(what: str, r: int) -> None:
@@ -645,33 +705,6 @@ def _bwd_args(what, h, w, labels, lse, dlse, dgold, xa=None, bt=None):
     return rows
 
 
-def _launch_dh(h, w, labels, rows, lora):
-    """(code, dh, dxa or None) through the dh kernel and its reduce pass
-    (row 7, or row 10 with lora = (xa, bt))."""
-    R, H = h.shape
-    V = w.shape[0]
-    n_slabs, per_slab = _slabs(R, V, h.device, 2)
-    lab = _labels(labels, h)
-    part = torch.empty(n_slabs, R, H, device=h.device)
-    dh = torch.empty(R, H, device=h.device)
-    ins = (lab.data_ptr(), *(t.data_ptr() for t in rows))
-    tail = (n_slabs, per_slab, DTYPE_CODES[h.dtype], _stream(h))
-    if lora is None:
-        code = _fn("mft_fused_ce_dh", 8, 6)(
-            h.data_ptr(), w.data_ptr(), *ins, part.data_ptr(),
-            dh.data_ptr(), R, V, H, *tail)
-        return code, dh, None
-    xa, bt = lora
-    r = xa.shape[1]
-    xpart = torch.empty(n_slabs, R, r, device=h.device)
-    dxa = torch.empty(R, r, device=h.device)
-    code = _fn("mft_fused_ce_dh_lora", 12, 7)(
-        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(), *ins,
-        part.data_ptr(), dh.data_ptr(), xpart.data_ptr(), dxa.data_ptr(),
-        R, V, H, r, *tail)
-    return code, dh, dxa
-
-
 def _n_sm(t) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
@@ -698,6 +731,45 @@ def _launch_dh_mma(h, w, labels, rows):
         plan["n_parts"], plan["n_slabs"], plan["tiles_per_slab"],
         DTYPE_CODES[h.dtype], _stream(h))
     return code, dh
+
+
+def _launch_dh_tf32(h, w, labels, rows):
+    """(code, dh) through row 7's f32 (3xTF32) kernel and its reduce
+    pass."""
+    R, H = h.shape
+    V = w.shape[0]
+    plan = dh_tf32_plan(R, V, H, _n_sm(h))
+    _aligned16("fused_ce_bwd_dh", h, w)
+    part = torch.empty(plan["n_slabs"], R, H, device=h.device)
+    dh = torch.empty(R, H, device=h.device)
+    lib, sym = dh_library(h.dtype)
+    code = _fn(sym, 8, 8, lib)(
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        *(t.data_ptr() for t in rows), part.data_ptr(), dh.data_ptr(),
+        R, V, H, plan["row_groups"], plan["stages"], plan["n_slabs"],
+        plan["tiles_per_slab"], DTYPE_CODES[h.dtype], _stream(h))
+    return code, dh
+
+
+def _launch_dh_lora_tf32(h, w, xa, bt, labels, rows):
+    """(code, dh, dxa) through row 10's f32 (3xTF32) kernel and its
+    reduce passes."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = dh_lora_tf32_plan(R, V, H, r, _n_sm(h))
+    _aligned16("fused_ce_bwd_dh_lora", h, w)
+    part = torch.empty(plan["n_slabs"], R, H, device=h.device)
+    dh = torch.empty(R, H, device=h.device)
+    xpart = torch.empty(plan["n_slabs"], R, r, device=h.device)
+    dxa = torch.empty(R, r, device=h.device)
+    lib, sym = dh_lora_library(h.dtype)
+    code = _fn(sym, 12, 9, lib)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+        part.data_ptr(), dh.data_ptr(), xpart.data_ptr(), dxa.data_ptr(),
+        R, V, H, r, plan["row_groups"], plan["stages"], plan["n_slabs"],
+        plan["tiles_per_slab"], DTYPE_CODES[h.dtype], _stream(h))
+    return code, dh, dxa
 
 
 def _launch_dh_lora_mma(h, w, xa, bt, labels, rows):
@@ -769,7 +841,7 @@ def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     if dh_library(h.dtype)[0] == "fused_ce_dh_mma":
         code, dh = _launch_dh_mma(h, w, labels, rows)
     else:
-        code, dh, _ = _launch_dh(h, w, labels, rows, None)
+        code, dh = _launch_dh_tf32(h, w, labels, rows)
     build.check_launch("fused_ce_bwd_dh", code)
     fused_ce_bwd_dh.launches += 1
     return dh
@@ -792,7 +864,7 @@ def fused_ce_bwd_dh_lora(h, w, xa, bt, labels, lse, dlse, dgold
     if dh_lora_library(h.dtype)[0] == "fused_ce_dh_lora_mma":
         code, dh, dxa = _launch_dh_lora_mma(h, w, xa, bt, labels, rows)
     else:
-        code, dh, dxa = _launch_dh(h, w, labels, rows, (xa, bt))
+        code, dh, dxa = _launch_dh_lora_tf32(h, w, xa, bt, labels, rows)
     build.check_launch("fused_ce_bwd_dh_lora", code)
     fused_ce_bwd_dh_lora.launches += 1
     return dh, dxa

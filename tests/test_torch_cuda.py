@@ -357,11 +357,11 @@ def test_fused_ce_fwd_tensor_core_kernel(dev):
 
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the 3xTF32 ones for
-    the flash forward (row 1) and merged backward (row 2) and the FMA ones
-    for the fused CE forward (row 6), dh (row 7), dW (row 8), the
-    head-adapter forward (row 9), dh + dxa (row 10) and dbt-only mode of
-    row 11, whose dW + dbt mode loads fused_ce.cu in every dtype: the
-    libraries the wrappers load are recorded."""
+    the flash forward (row 1), merged backward (row 2), the fused CE dh
+    (row 7) and head-adapter dh + dxa (row 10), and the FMA ones for the
+    fused CE forward (row 6), dW (row 8), the head-adapter forward (row 9)
+    and dbt-only mode of row 11, whose dW + dbt mode loads fused_ce.cu in
+    every dtype: the libraries the wrappers load are recorded."""
     loaded = []
     real = build.load
 
@@ -372,7 +372,7 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     for dtype, fwd, dh in (
             (torch.bfloat16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
             (torch.float16, "flash_attention_fwd_mma", "fused_ce_dh_mma"),
-            (torch.float32, "flash_attention_fwd_tf32", "fused_ce")):
+            (torch.float32, "flash_attention_fwd_tf32", "fused_ce_dh_tf32")):
         q, k, v, do, pad = _flash_case(dev, dtype, 1, 2, 2, 64, 64, 0, 3)
         loaded.clear()
         out, lse = fa.flash_attention_fwd(q, k, v, pad)
@@ -383,21 +383,21 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
                                       scale=0.125)
         assert loaded == [fwd.replace("_fwd", "_bwd_merged")]
         h, w, lab, dl, dg = _ce_case(dev, dtype, 16, 300, 64, 4)
+        mma = dtype != torch.float32
         loaded.clear()
         fc.fused_ce_fwd(h, w, lab)
-        assert loaded == [dh.replace("_dh", "_fwd")]
+        assert loaded == ["fused_ce_fwd_mma" if mma else "fused_ce"]
         lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
         loaded.clear()
         fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
         assert loaded == [dh]
         loaded.clear()
         fc.fused_ce_bwd_dw(h, w, lab, lse, dl, dg)
-        assert loaded == [dh.replace("_dh_", "_dw_")]
+        assert loaded == ["fused_ce_dw_mma" if mma else "fused_ce"]
         xa, bt = _lora_case(dev, dtype, 16, 300, 4, 5)
         loaded.clear()
         fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, lse, dl, dg)
         assert loaded == [dh.replace("_dh_", "_dh_lora_")]
-        mma = dtype != torch.float32
         loaded.clear()
         fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
         assert loaded == ["fused_ce_fwd_lora_mma" if mma else "fused_ce"]
@@ -831,6 +831,58 @@ def test_fused_ce_dh_lora_tensor_core_kernel(dev, R, V, H, r):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
         for a, b in zip(got, fc.fused_ce_dh_lora_reference(*args)):
             assert err(a, b) <= 2e-3
+
+
+@pytest.mark.parametrize("R,V,H,r", [
+    (128, 262144, 640, 8),      # the Gemma chunk, the default-dtype path's
+    (128, 262144, 640, 0),
+    (37, 50257, 1152, 0),       # ragged R and V, Gemma-3-1B's width
+    (37, 50257, 1000, 4),       # ragged R and V, r 4
+    (37, 50257, 1000, 3),       # an odd rank
+    (128, 20011, 640, 128),     # the largest rank: two W tiles
+])
+def test_fused_ce_dh_tf32_kernels(dev, R, V, H, r):
+    """Rows 7 (r 0) and 10 in f32 on their 3xTF32 kernels against the
+    plain versions: dh (and dxa) within 1e-4 of max(1, max |ref|), the
+    softmax part alone (dgold = 0) within 1e-4 of max |ref|; two calls
+    give identical bits; one launch a call."""
+    h, w, lab, dl, dg = _ce_case(dev, torch.float32, R, V, H, seed=R + r)
+    xa, bt = (_lora_case(dev, torch.float32, R, V, r, seed=r) if r
+              else (None, None))
+    lse = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    for dgold, err in ((dg, _rel_err), (torch.zeros_like(dg), _scaled_err)):
+        if r:
+            args = (h, w, xa, bt, lab, lse, dl, dgold)
+            kernel, plain = fc.fused_ce_bwd_dh_lora, \
+                fc.fused_ce_dh_lora_reference
+        else:
+            args = (h, w, lab, lse, dl, dgold)
+            kernel = fc.fused_ce_bwd_dh
+            plain = fc.fused_ce_dh_reference
+        n0 = kernel.launches
+        got, again = kernel(*args), kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 2
+        if not r:
+            got, again, want = (got,), (again,), (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got, want):
+            assert err(a, b) <= 1e-4
+
+
+def test_f32_dh_kernels_refuse_h_not_a_multiple_of_8(dev):
+    """Rows 7 and 10 in f32 refuse H 1,004 before any launch, as bf16
+    does (the first versions took it; no model has such a width)."""
+    h, w, lab, dl, dg = _ce_case(dev, torch.float32, 8, 100, 1004, 2)
+    xa, bt = _lora_case(dev, torch.float32, 8, 100, 8, 2)
+    for kernel, args in ((fc.fused_ce_bwd_dh, (h, w, lab, dl, dl, dg)),
+                         (fc.fused_ce_bwd_dh_lora,
+                          (h, w, xa, bt, lab, dl, dl, dg))):
+        n0 = kernel.launches
+        with pytest.raises(ValueError, match="H % 8"):
+            kernel(*args)
+        assert kernel.launches == n0
 
 
 @pytest.mark.parametrize("R,V,H,r", [

@@ -24,8 +24,11 @@ covers every logical column, so every live page's rows, once, and its
 lane map loads each K and V element of a chunk once, a row's lanes on
 contiguous bytes; and the dtype picks the library: bf16 /
 f16 the `_mma` (and `_vec`) sources, f32 the first versions but for rows
-1-2, whose f32 sources are the 3xTF32 `_tf32` ones (their plans, tiles
-and shared memory too). No card needed."""
+1-2, 7 and 10, whose f32 sources are the 3xTF32 `_tf32` ones (their
+plans, tiles and shared memory too: rows 7 and 10's `dh_tf32_plan` and
+`dh_lora_tf32_plan` cover every (row tile, vocab slab) once and every
+output column once, fit the card at every f32 shape the card checks run
+and refuse what they do not take). No card needed."""
 
 import itertools
 import os
@@ -70,14 +73,15 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
     "paged": ("paged_decode_attention_vec",
               "mft_paged_decode_attention_vec")}
-FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2 in 3xTF32
+FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 7 and 10
+    # in 3xTF32
     "fwd": ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
     "bwd": ("flash_attention_bwd_merged_tf32",
             "mft_flash_attention_bwd_merged_tf32"),
     "ce_fwd": ("fused_ce", "mft_fused_ce_fwd"),
-    "dh": ("fused_ce", "mft_fused_ce_dh"),
+    "dh": ("fused_ce_dh_tf32", "mft_fused_ce_dh_tf32"),
     "dw": ("fused_ce", "mft_fused_ce_dw"),
-    "dh_lora": ("fused_ce", "mft_fused_ce_dh_lora"),
+    "dh_lora": ("fused_ce_dh_lora_tf32", "mft_fused_ce_dh_lora_tf32"),
     "ce_fwd_lora": ("fused_ce", "mft_fused_ce_fwd_lora"),
     "dbt": ("fused_ce", "mft_fused_ce_dw_lora"),
     "epi": ("lora_epilogue", "mft_lora_epilogue"),
@@ -165,7 +169,11 @@ def test_fma_sources_keep_only_their_f32_instantiation():
 def test_tf32_sources_use_3xtf32_mma_sync():
     """Rows 1-2's f32 sources run m16n8k8 TF32 mma.sync through
     tensor_core_tf32.cuh: cvt.rna splits, three products a k-step (lo.hi,
-    hi.lo, hi.hi), fragments by ldmatrix, tiles by 16-byte cp.async."""
+    hi.lo, hi.hi), fragments by ldmatrix, tiles by 16-byte cp.async.
+    Rows 7 and 10's split by the header's integer rounding (cvt.rna's
+    bits), load h and W fragments by ldmatrix and W's transposed B
+    fragments by 32-bit loads, and take the same three products a k-step
+    (lo.hi, hi.lo, hi.hi), by mma_3xtf32 or term by term."""
     hdr = _source("tensor_core_tf32.cuh")
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in hdr
     assert "cvt.rna.tf32.f32" in hdr
@@ -184,6 +192,22 @@ def test_tf32_sources_use_3xtf32_mma_sync():
         assert "m16n8k8" in text
         assert "stage_rows_f32<" in text and "split_rows<" in text
         assert "mma_16816" not in text       # no 16-bit products
+    body = hdr[hdr.index("uint32_t tf32_round_bits("):]
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in \
+        body[:body.index("}")]
+    for name in ("fused_ce_dh_tf32.cu", "fused_ce_dh_lora_tf32.cu"):
+        text = _source(name)
+        assert '#include "tensor_core_tf32.cuh"' in text
+        assert "m16n8k8" in text and "ldmatrix_x4(" in text
+        assert "mma_3xtf32(" in text and "cp_async_16(" in text
+        assert "split_tf32_bits(" in text and "split_tf32(" not in text
+        assert "mma_16816" not in text and "ldmatrix_x4_trans" not in text
+        # the logits' k-step issues the three terms, lo.hi and hi.lo into
+        # one accumulator, hi.hi into another
+        i = text.index("mma_1688_tf32(sm[j], al, bh[2 * j], bh[2 * j + 1]);")
+        j = text.index("mma_1688_tf32(hh[j], ah, bh[2 * j], bh[2 * j + 1]);")
+        k = text.index("mma_1688_tf32(sm[j], ah, bl[2 * j], bl[2 * j + 1]);")
+        assert i < j < k
 
 
 def test_tensor_core_sources_use_mma_sync():
@@ -207,7 +231,8 @@ def test_new_sources_are_built_and_call_no_library():
                  "flash_attention_bwd_merged_mma", "fused_ce_fwd_mma",
                  "fused_ce_fwd_lora_mma", "fused_ce_dbt_mma",
                  "flash_attention_fwd_tf32",
-                 "flash_attention_bwd_merged_tf32"):
+                 "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
+                 "fused_ce_dh_lora_tf32"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -687,6 +712,159 @@ def test_dh_lora_plan_refuses_h_not_a_multiple_of_8(H):
 def test_dh_lora_plan_refuses_a_rank_out_of_range(r):
     with pytest.raises(ValueError, match="rank"):
         fc.dh_lora_mma_plan(16, 100, 64, r, N_SM)
+
+
+# ----------------------------------------------- rows 7 and 10 in f32 ------
+
+TF32_SHAPES = [  # (R, V, H, r): r 0 is row 7
+    (128, 262144, 640, 0),      # the Gemma chunk, default dtype
+    (256, 262144, 640, 0),      # batch 8
+    (120, 50257, 1152, 0),      # chip_smoke's ragged_f32 (Gemma-3-1B width)
+    (37, 50257, 1152, 0),       # the card test's R 37
+    (37, 1001, 200, 0),
+    (8, 100, 8, 0),
+    (40, 3001, 1520, 0),        # the widest H a multiple of 8 in MAX_HIDDEN
+    (128, 262144, 640, 8),      # the Gemma chunk with the head adapter
+    (128, 262144, 640, 1),
+    (128, 262144, 640, 16),
+    (128, 262144, 640, 128),    # the largest rank
+    (120, 50257, 1000, 4),      # chip_smoke's ragged_f32
+    (37, 50257, 1000, 3),       # an odd rank
+    (37, 1001, 200, 5),
+    (40, 3001, 1392, 128),      # H + r at MAX_HIDDEN's edge
+]
+TF32_SOURCES = {"fused_ce_dh_tf32.cu": "dh_tf32_kernel",
+                "fused_ce_dh_lora_tf32.cu": "dh_lora_tf32_kernel"}
+
+
+def _tf32_plan(R, V, H, r):
+    return (fc.dh_lora_tf32_plan(R, V, H, r, N_SM) if r
+            else fc.dh_tf32_plan(R, V, H, N_SM))
+
+
+@pytest.mark.parametrize("name", sorted(TF32_SOURCES))
+def test_tf32_dh_plan_constants_match_the_source(name):
+    """VT, WG, LDC and the block limit, the shared-memory formula, the
+    grid, the n-tiles a warp and the instantiated bounds (32-row tiles up
+    to 6) are the plan's."""
+    text = _source(name)
+    assert _constexpr(text, "VT") == fc.TF32_VOCAB_TILE
+    assert _constexpr(text, "WG") == fc.TF32_WARPS
+    assert "constexpr int LDC = VT + 8;" in text
+    assert fc.TF32_COEF_LD == fc.TF32_VOCAB_TILE + 8
+    assert _constexpr(text, "SMEM_MAX") == fc.SMEM_MAX
+    x = "HX" if "lora" in name else "H"
+    assert f"(size_t)(16 * RG + stages * VT) * ({x} + 4) + 2 * 16 * RG * " \
+           f"LDC) *" in text
+    assert "(size_t)RG * WG * 2 * 32 * 16;" in text
+    assert f"return ({x} / 8 + RG * WG - 1) / (RG * WG);" in text
+    assert "dim3 grid((R + 16 * RG - 1) / (16 * RG), n_slabs);" in text
+    assert "const int t0 = slab * tiles_per_slab;" in text
+    assert f"{TF32_SOURCES[name]}<RG, NT><<<grid, RG * WG * 32" in text
+    launches = re.findall(r"if \(rg == (\d) && nt <= (\d+)\) "
+                          r"MFT_LAUNCH\(\1, \2\);", text)
+    assert {int(n) for _, n in launches} == set(fc.TF32_NT)
+    assert max(int(n) for g, n in launches if g == "2") == 6
+    assert [int(n) for g, n in launches if g == "1"] == \
+        [b for b in fc.TF32_NT if b != 5]
+    if "lora" in name:
+        assert _constexpr(text, "MAX_RANK") == fc.MAX_RANK
+        assert "return H + (r + 7) / 8 * 8;" in text
+
+
+@pytest.mark.parametrize("R,V,H,r", TF32_SHAPES)
+def test_tf32_dh_plan_covers_each_tile_once(R, V, H, r):
+    """Every (row, 16-row vocab tile) lies in exactly one CTA, no CTA is
+    empty, and the warps' n-tiles (nt each, for every row of the tile)
+    cover the widened row's hx / 8 n-tiles once: dh's columns, then
+    dxa's."""
+    plan = _tf32_plan(R, V, H, r)
+    rt, vt = 16 * plan["row_groups"], fc.TF32_VOCAB_TILE
+    span = plan["tiles_per_slab"] * vt
+    gx, gy = plan["grid"]
+    assert gx == -(-R // rt) and gy == plan["n_slabs"]
+    hits = np.zeros((R, -(-V // vt)), dtype=np.int64)
+    for slab, x in itertools.product(range(gy), range(gx)):
+        r0, v0 = x * rt, slab * span
+        assert r0 < R and v0 < V          # no empty CTA
+        hits[r0:r0 + rt, v0 // vt:(v0 + span) // vt] += 1
+    assert (hits == 1).all()
+    hx, nt = plan["hx"], plan["nt"]
+    assert hx == H + -(-r // 8) * 8 and hx % 8 == 0
+    cols = np.zeros(hx // 8, dtype=np.int64)
+    for warp in range(fc.TF32_WARPS * plan["row_groups"]):
+        n_own = min(nt, hx // 8 - warp * nt)
+        cols[warp * nt:warp * nt + max(0, n_own)] += 1
+    assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("R,V,H,r", TF32_SHAPES)
+def test_tf32_dh_plan_fits_the_card(R, V, H, r):
+    """The h (+ xa) tile, the W (+ bt) ring, the logits partials and the
+    split coef tile within the 232,448 bytes a block may use, the n-tile
+    bound of the instantiations, and one wave of CTAs."""
+    plan = _tf32_plan(R, V, H, r)
+    rg, st, hx = plan["row_groups"], plan["stages"], plan["hx"]
+    assert plan["smem_bytes"] == ((16 * rg + st * 16) * (hx + 4)
+                                  + 2 * 16 * rg * 24) * 4 + rg * 8 * 1024
+    assert plan["smem_bytes"] <= fc.SMEM_MAX == 232448
+    assert (rg, st) in ((2, 3), (2, 2), (1, 3), (1, 2), (1, 1))
+    assert plan["nt"] == -(-(hx // 8) // (8 * rg))
+    assert plan["nt_bound"] == min(b for b in fc.TF32_NT
+                                   if b >= plan["nt"])
+    assert rg == 1 or plan["nt_bound"] <= 6
+    gx, gy = plan["grid"]
+    if -(-V // fc.TF32_VOCAB_TILE) >= N_SM:
+        assert gx * gy <= N_SM
+
+
+def test_tf32_dh_plans_at_the_gemma_chunk():
+    """R 128, V 262,144, H 640: 32-row tiles, three W tiles, 33 slabs of
+    497 16-row tiles: 132 CTAs of 16 warps; row 7's warps hold 5 n-tiles
+    each, row 10's 6 at every rank (r above 8 takes two W tiles)."""
+    plan = fc.dh_tf32_plan(128, 262144, 640, N_SM)
+    assert (plan["row_groups"], plan["stages"], plan["nt"],
+            plan["nt_bound"], plan["n_slabs"], plan["tiles_per_slab"]) == \
+        (2, 3, 5, 5, 33, 497)
+    assert plan["grid"] == (4, 33) and plan["smem_bytes"] == 228608
+    lora = fc.dh_lora_tf32_plan(128, 262144, 640, 8, N_SM)
+    assert (lora["row_groups"], lora["stages"], lora["nt"], lora["hx"]) == \
+        (2, 3, 6, 648)
+    assert lora["grid"] == (4, 33) and lora["smem_bytes"] == 231168
+    for r in range(1, fc.MAX_RANK + 1):
+        p = fc.dh_lora_tf32_plan(128, 262144, 640, r, N_SM)
+        assert (p["row_groups"], p["nt_bound"]) == (2, 6)
+        assert p["stages"] == (3 if r <= 8 else 2)
+        assert p["smem_bytes"] <= fc.SMEM_MAX
+
+
+def test_tf32_dh_plans_limit_the_width():
+    """One 32-row h tile and one W tile fit up to a widened row of 1,720
+    columns (27 n-tiles a warp, under the bound 28): row 7 takes H 1,720
+    and refuses 1,728, naming H; row 10 at r 128 takes H 1,592 and
+    refuses 1,600, naming H and r. The wrappers' MAX_HIDDEN (H + r <=
+    1,522) keeps every call inside."""
+    assert fc.dh_tf32_plan(16, 100, 1720, N_SM)["nt"] == 27
+    with pytest.raises(ValueError, match="H=1728 does not fit"):
+        fc.dh_tf32_plan(16, 100, 1728, N_SM)
+    assert fc.dh_lora_tf32_plan(16, 100, 1592, 128, N_SM)["hx"] == 1720
+    with pytest.raises(ValueError, match="H=1600, r=128 does not fit"):
+        fc.dh_lora_tf32_plan(16, 100, 1600, 128, N_SM)
+    assert fc.MAX_HIDDEN + 7 <= 1720
+
+
+@pytest.mark.parametrize("H", [1004, 642, 7, 0])
+def test_tf32_dh_plans_refuse_h_not_a_multiple_of_8(H):
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.dh_tf32_plan(16, 100, H, N_SM)
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.dh_lora_tf32_plan(16, 100, H, 8, N_SM)
+
+
+@pytest.mark.parametrize("r", [0, -1, 129])
+def test_tf32_dh_lora_plan_refuses_a_rank_out_of_range(r):
+    with pytest.raises(ValueError, match="rank"):
+        fc.dh_lora_tf32_plan(16, 100, 64, r, N_SM)
 
 
 # ------------------------------------------------------------- row 2 -------
