@@ -8,7 +8,7 @@ Phases, none of whose failures is caught (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build every kernel from mobilefinetuner_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once; the 3xTF32 sources of rows
-     1-2, 7 and 10 must spill no register;
+     1-2, 6, 7, 10 and 11 must spill no register;
   3. hold each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at a few others, with the tolerance
      printed: the flash forward (bf16 / f16 on the tensor-core kernel,
@@ -30,12 +30,13 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      Inf in K and NaN in V must change nothing, two calls bit-identical),
      the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
      bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
-     bit-identical; dh in f32 on the 3xTF32 kernel at R 120, V 50,257, H
-     1,152), a head dim and a bf16 H the kernels do not take refused, and
-     their head-adapter variants (rows 9-11, dW in both its modes; the
-     forward, dh + dxa and dbt-only mode in bf16 on the tensor-core
-     kernels, at r 4, 8 and 128, two calls bit-identical; dh + dxa in f32
-     on the 3xTF32 kernel at R 120, V 50,257, H 1,000, r 4),
+     bit-identical; the forward and dh in f32 on the 3xTF32 kernels at R
+     120, V 50,257, H 1,152), a head dim and a bf16 H the kernels do not
+     take refused, an f32 one by the 3xTF32 kernels, and their
+     head-adapter variants (rows 9-11, dW in both its modes; the forward,
+     dh + dxa and dbt-only mode in bf16 on the tensor-core kernels, at r
+     4, 8 and 128, two calls bit-identical; dh + dxa and dbt-only in f32
+     on the 3xTF32 kernels at R 120, V 50,257, H 1,000, r 4),
      the contiguous decode
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
@@ -151,9 +152,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      both LoRA runs again at the default dtype, f32 (no --dtype: 4 steps
      and a final eval of 2 batches; `gemma_train_f32` and
      `gemma_lora_head_f32`): rows 6-7 (9-11 with the head) launch exactly
-     steps x chunks plus the eval's forwards, row 7 (10) on its 3xTF32
-     kernel, the losses finite; each prints its step ms p50 and one
-     step's device ms from CUDA events around CUDA-graph replays; then
+     steps x chunks plus the eval's forwards, rows 6 and 7 (10 and 11's
+     dbt-only mode) on their 3xTF32 kernels, the losses finite; each
+     prints its step ms p50 and one step's device ms from CUDA events
+     around CUDA-graph replays; then
      cli.eval_ppl.main (`eval_ppl`,
      counts set to 0 before each run): Gemma with the head adapter just
      trained must reproduce the trainer's final eval perplexity (1e-3
@@ -238,14 +240,19 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      wrappers' `by_shape`); rows 1 and 2 in f32 get entries of their own
      (the 3xTF32 sources), with the f32 launches of every path (the
      wrappers' `by_shape` and `by_dtype`), the 16-bit entries the rest;
-     rows 7 and 10 in f32 too (fused_ce_dh_tf32.cu and
-     fused_ce_dh_lora_tf32.cu, with the f32 paths' launches, timed in
-     turns with their fused_ce.cu first versions, the softmax part held
-     on its own), and rows 5, 6, 9 and 11 in f32 on their first versions
-     (row 5 at GPT-2's attn_qkv, the rest at the Gemma chunk, r 8, with
-     the f32 paths' launches): each held against its plain version and
-     timed beside its library call in f32. f32 work is bounded at the
-     3xTF32 rate (495 / 3 TFLOP/s).
+     rows 6, 7, 10 and 11 (dbt only) in f32 too (fused_ce_fwd_tf32.cu,
+     fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu and
+     fused_ce_dbt_tf32.cu, with the f32 paths' launches, timed in turns
+     with their fused_ce.cu first versions, the softmax part of dh, dxa
+     and dbt held on its own), and rows 5 and 9 in f32 on their first
+     versions (row 5 at GPT-2's attn_qkv, row 9 at the Gemma chunk, r 8,
+     with the f32 paths' launches); rows 1-2 in f32 at the
+     `gemma_train_f32` shape (q 4 x 4 x 256 x 256, kv 4 x 1, window
+     512), row 12 in f32 at `gemma_serve_f32`'s (8 x 1 x 4 x 256, 42
+     pages, window 512) and row 13 in f32 at `generate`'s f32 last steps
+     (GPT-2 and Gemma), with those paths' f32 launches: each held against
+     its plain version and timed beside its library call in f32. f32
+     work is bounded at the 3xTF32 rate (495 / 3 TFLOP/s).
 
 Every training and eval run writes its telemetry stream: each event is
 checked against the schema, every earlier path's memory admission must
@@ -261,7 +268,10 @@ Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `recovery`,
 `admission` and `kernels` JSON lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result. `--only multitenant` builds the
-kernels, writes its own synthetic models and runs that path alone.
+kernels, writes its own synthetic models and runs that path alone;
+`--only f32_ce` builds them and runs the f32 kernel entries alone
+(`f32_ce_entries` at the Gemma chunk, `f32_path_entries` on stand-in
+prompt lengths: checks and times, no path run, so no launches).
 """
 
 from __future__ import annotations
@@ -877,7 +887,7 @@ def check_paged(torch, da, dev):
     pool rows no slot attends poisoned with Inf in K and NaN in V must
     leave ctx bit for bit as it was, two calls must be bit-identical, and
     the launch counter must count each call. Returns {name: (max error,
-    inputs)} of the serving and Gemma serving cases."""
+    inputs)} of the serving and Gemma serving cases (bf16 and f32)."""
     out = {}
     n0 = da.paged_decode_attention.launches
     calls = 0
@@ -905,7 +915,7 @@ def check_paged(torch, da, dev):
         check(torch.equal(poisoned, ctx), f"paged {name}: unattended rows "
               f"holding Inf / NaN moved ctx")
         check(torch.equal(again, ctx), f"paged {name}: two calls differ")
-        if name in ("serving", "gemma_serve"):
+        if name in ("serving", "gemma_serve", "gemma_serve_f32"):
             out[name] = (e, (q, pk, pv, tbl, layer, ok, scale))
     check(da.paged_decode_attention.launches == n0 + calls,
           f"paged launches {da.paged_decode_attention.launches - n0}, "
@@ -1095,12 +1105,12 @@ def check_fused_ce(torch, fc, dev):
     with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
     measured at most 3.5e-4 on an H100: a few coefs round the other way).
     The forward, dh and dW of bf16 / f16 run on the tensor-core kernels,
-    of f32 on fused_ce.cu but dh, which runs on the 3xTF32 kernel: R 37
-    (a ragged row tile) with a ragged V and H 1,152 in bf16 too; the path
-    case's forward, dh and dW twice each must give identical bits (no
-    atomics), and a bf16 H that is not a multiple of 8 must be refused
-    by all three, an f32 one by dh. Returns the path case's max abs
-    errors and inputs."""
+    of f32 on fused_ce.cu but the forward and dh, which run on the 3xTF32
+    kernels: R 37 (a ragged row tile) with a ragged V and H 1,152 in bf16
+    too; the path case's forward, dh and dW twice each must give
+    identical bits (no atomics), and a bf16 H that is not a multiple of 8
+    must be refused by all three, an f32 one by the forward and dh.
+    Returns the path case's max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, tol, sm_tol)
         ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
         ("batch8", torch.bfloat16, 256, 262144, 640, 2e-3, 2e-3),
@@ -1169,6 +1179,8 @@ def check_fused_ce(torch, fc, dev):
     h, w = h.float(), w.float()
     check(refuses(lambda: fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)),
           "fused_ce_bwd_dh took an f32 H = 1004 (not a multiple of 8)")
+    check(refuses(lambda: fc.fused_ce_fwd(h, w, lab)),
+          "fused_ce_fwd took an f32 H = 1004 (not a multiple of 8)")
     return path
 
 
@@ -1183,11 +1195,11 @@ def check_fused_ce_lora(torch, fc, dev):
     over max |ref| with dgold = 0 (the softmax part alone). The forward,
     dh + dxa and dbt-only mode of bf16 / f16 run on the tensor-core
     kernels, of f32 (and row 11's dW + dbt mode of every dtype) on
-    fused_ce.cu but dh + dxa, which runs on the 3xTF32 kernel: the path
-    case's (lse, gold), (dh, dxa) and dbt-only twice must give identical
-    bits, and a bf16 H that is not a multiple of 8 must be refused by all
-    three, an f32 one by dh + dxa. Returns the path case's max abs errors
-    and inputs."""
+    fused_ce.cu but dh + dxa and the dbt-only mode, which run on the
+    3xTF32 kernels: the path case's (lse, gold), (dh, dxa) and dbt-only
+    twice must give identical bits, and a bf16 H that is not a multiple
+    of 8 must be refused by all three, an f32 one by dh + dxa and the
+    dbt-only mode. Returns the path case's max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, r, tol)
         ("path", torch.bfloat16, 128, 262144, 640, 8, 2e-3),
         ("ragged", torch.bfloat16, 120, 50257, 1000, 4, 2e-3),
@@ -1272,6 +1284,10 @@ def check_fused_ce_lora(torch, fc, dev):
     check(refuses(lambda: fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl,
                                                   dg)),
           "fused_ce_bwd_dh_lora took an f32 H = 1004 (not a multiple of 8)")
+    check(refuses(lambda: fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, dl, dl,
+                                                  dg, want_dw=False)),
+          "fused_ce_bwd_dw_lora (dbt only) took an f32 H = 1004 (not a "
+          "multiple of 8)")
     return path
 
 
@@ -3299,11 +3315,11 @@ def paged_library_chain(torch, q, pk, pv, tbl, layer, ok, scale):
     return chain
 
 
-def paged_entry(torch, da, case):
+def paged_entry(torch, da, case, bnd=bound):
     """Row 12's entry of the kernels line at one check_paged case: its
     times, the plain version's and the library chain's, its plan and its
-    bound from the attendable columns' K and V rows, q, tbl, ok and
-    ctx."""
+    bound (`bnd`: bf16's, or f32_bound) from the attendable columns' K
+    and V rows, q, tbl, ok and ctx; the source is the dtype's."""
     err, (q, pk, pv, tbl, layer, ok, scale) = case
     S, KV, G, D = q.shape
     M, bT = tbl.shape[1], pk.shape[3]
@@ -3316,18 +3332,19 @@ def paged_entry(torch, da, case):
         "library_ms": chain})
     live = int(ok.sum()) * KV                  # attendable (slot, kv) rows
     isz = pk.element_size()
-    bnd = bound(2 * live * D * isz + q.numel() * isz + tbl.numel() * 4
-                + ok.numel() + q.numel() * 4, 4 * D * G * live)
-    plan = da.paged_plan(S, KV, G, M, bT, D, q.dtype,
-                         torch.cuda.get_device_properties(q.device)
-                         .multi_processor_count)
+    bounds = bnd(2 * live * D * isz + q.numel() * isz + tbl.numel() * 4
+                 + ok.numel() + q.numel() * 4, 4 * D * G * live)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = (da.paged_plan(S, KV, G, M, bT, D, q.dtype, n_sm)
+            if q.dtype != torch.float32 else {})   # the vec kernel's
     return kernel_entry(
-        "paged_decode_attention", "paged_decode_attention_vec.cu",
-        "decode_attention.py:223", None, err, times, bnd,
+        "paged_decode_attention", da.paged_library(q.dtype)[0] + ".cu",
+        "decode_attention.py:223", None, err, times, bounds,
         {"shape": f"q {S}x{KV}x{G}x{D}, {M} pages of {bT}, {q.dtype}, "
                   f"{int(ok.sum())} of {S * M * bT} columns attendable, "
                   f"{int(ok.reshape(S, M, bT).any(-1).sum())} live pages",
-         "plan": {k: plan[k] for k in ("n_chunks", "cpc", "grid")},
+         "plan": {k: plan[k] for k in ("n_chunks", "cpc", "grid")
+                  if k in plan},
          "library": "a two-call chain: the pages gathered (pool[tbl, "
                     "layer, kv], K and V), then SDPA (bool mask, scale, "
                     "enable_gqa)",
@@ -3336,11 +3353,12 @@ def paged_entry(torch, da, case):
              da.paged_attention(q, pk, pv, tbl, layer, ok, scale))})
 
 
-def decode_entry(torch, da, case):
+def decode_entry(torch, da, case, bnd=bound):
     """Row 13's entry of the kernels line at one check_decode case: its
     times, the plain version's and SDPA's (a bool mask, the scale and
     enable_gqa: the same function up to its output rounding), and its
-    bound from the attendable columns' K and V, q, ok and ctx."""
+    bound (`bnd`: bf16's, or f32_bound) from the attendable columns' K
+    and V, q, ok and ctx; the source is the dtype's."""
     err, (q, kc, vc, ok, scale) = case
     B, KV, G, D = q.shape
     T = kc.shape[2]
@@ -3359,18 +3377,18 @@ def decode_entry(torch, da, case):
                      enable_gqa=True)
     live = int(ok.sum()) * KV                   # attendable (b, kv) rows
     isz = kc.element_size()
-    bnd = bound(2 * live * D * isz + q.numel() * isz + ok.numel()
-                + q.numel() * 4, 4 * D * G * live)
-    plan = da.decode_mma_plan(B, KV, G, T, D, q.dtype,
-                              torch.cuda.get_device_properties(q.device)
-                              .multi_processor_count)
+    bounds = bnd(2 * live * D * isz + q.numel() * isz + ok.numel()
+                 + q.numel() * 4, 4 * D * G * live)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = (da.decode_mma_plan(B, KV, G, T, D, q.dtype, n_sm)
+            if q.dtype != torch.float32 else {})   # the mma kernel's
     return kernel_entry(
-        "decode_attention", "decode_attention_mma.cu",
-        "decode_attention.py:137", None, err, times, bnd,
+        "decode_attention", da.decode_library(q.dtype)[0] + ".cu",
+        "decode_attention.py:137", None, err, times, bounds,
         {"shape": f"q {B}x{KV}x{G}x{D}, cache T {T}, {q.dtype}, "
                   f"{int(ok.sum())} of {B * T} columns attendable",
          "plan": {k: plan[k] for k in ("n_chunks", "tiles_per_chunk",
-                                       "grid")},
+                                       "grid") if k in plan},
          "library_max_abs_err": max_err(
              lib.reshape(B, KV, G, D),
              da.xla_reference(q, kc, vc, ok, scale)),
@@ -3521,22 +3539,150 @@ def fma_dh(torch, fc, h, w, labels, rows, lora=None):
     return dh, dxa
 
 
+def f32_path_entries(torch, fa, da, dev, paged_f32, gen_prompts,
+                     launches):
+    """Rows 1-2, 12 and 13 in f32 at the shapes the default-dtype paths
+    run them: the flash forward and merged backward (3xTF32) at
+    `gemma_train_f32`'s q 4 x 4 x 256 x 256, kv 4 x 1, window 512 (held
+    against the plain versions: out and lse 1e-4, the backward 1e-4 of
+    max(1, |ref|); beside SDPA and its autograd in f32); the paged decode
+    (paged_decode_attention.cu) at `gemma_serve_f32`'s 8 slots x 42 pages
+    (check_paged's case; beside the bf16 entry's chain, in f32); the
+    contiguous decode (decode_attention.cu) at `generate`'s f32 last
+    steps, GPT-2 (8 x 12 x 1 x 64) and Gemma (4 x 1 x 4 x 256, window
+    512), the caches P + 16 long, masked columns poisoned (held at 1e-5;
+    beside SDPA in f32). Each bounded at the 3xTF32 rate, with those
+    paths' f32 launches (`launches`: {"flash_fwd", "bwd_merged", "paged",
+    "decode_gpt2", "decode_gemma"}). Returns {name: entry}."""
+    f32 = torch.float32
+    B, Hq, Hkv, S, D, window = 4, 4, 1, 256, 256, 512
+    q, k, v, pad = flash_inputs(torch, dev, f32, B, Hq, Hkv, S, D, (S,) * B,
+                                seed=11)
+    do = flash_inputs(torch, dev, f32, B, Hq, Hq, S, D, (S,) * B,
+                      seed=12)[0]
+    kw = dict(scale=D ** -0.5, is_causal=True, sliding_window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, pad, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, pad, **kw)
+    delta = (do * out).sum(-1, keepdim=True)
+    args = (q, k, v, pad, lse, delta, do)
+    merged = fa.flash_attention_bwd_merged(*args, **kw)
+    ref_m = fa.flash_bwd_merged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    fwd_err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    bwd_err = max(max_err(a, b) for a, b in zip(merged, ref_m))
+    bwd_rel = max(rel_err(a, b) for a, b in zip(merged, ref_m))
+    check(fwd_err <= 1e-4 and lse_err <= 1e-4, f"f32 flash fwd at the "
+          f"gemma_train_f32 shape: {fwd_err:.3e}, lse {lse_err:.3e}")
+    check(bwd_rel <= 1e-4, f"f32 merged bwd at the gemma_train_f32 shape: "
+          f"{bwd_rel:.3e}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = sdpa(*leaves, is_causal=True, scale=kw["scale"],
+                   enable_gqa=True)
+    pairs = B * Hq * S * (S + 1) // 2          # causal, window >= S
+    n_q, n_kv = q.numel(), k.numel()
+    fwd_times = timed({
+        "ms": lambda: fa.flash_attention_fwd(q, k, v, pad, **kw),
+        "plain_ms": lambda: fa.flash_attention_reference(q, k, v, pad,
+                                                         **kw),
+        "library_ms": lambda: sdpa(q, k, v, is_causal=True,
+                                   scale=kw["scale"], enable_gqa=True)},
+        30)
+    bwd_times = timed({
+        "ms": lambda: fa.flash_attention_bwd_merged(*args, **kw),
+        "plain_ms": lambda: fa.flash_bwd_merged_reference(*args, **kw),
+        "library_ms": lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True)}, 30)
+    shape = (f"q {B}x{Hq}x{S}x{D}, kv {B}x{Hkv}x{S}x{D}, f32, causal, "
+             f"window {window} (gemma_train_f32)")
+    out_entries = {
+        "flash_fwd": kernel_entry(
+            "flash_attention_fwd", "flash_attention_fwd_tf32.cu",
+            "flash_attention.py:162", launches["flash_fwd"],
+            max(fwd_err, lse_err), fwd_times,
+            f32_bound((2 * n_q + 2 * n_kv) * 4 + pad.numel() * 4
+                      + B * Hq * S * 4, 4 * D * pairs), {"shape": shape}),
+        "bwd_merged": kernel_entry(
+            "flash_attention_bwd_merged", "flash_attention_bwd_merged_tf32.cu",
+            "flash_attention.py:415", launches["bwd_merged"], bwd_err,
+            bwd_times,
+            f32_bound((3 * n_q + 4 * n_kv) * 4 + pad.numel() * 4
+                      + 2 * B * Hq * S * 4, 10 * D * pairs),
+            {"shape": shape, "max_err_over_max1_ref": bwd_rel})}
+    del merged, ref_m, lib_out, leaves
+    out_entries["paged"] = dict(paged_entry(torch, da, paged_f32, f32_bound),
+                                launches=launches["paged"])
+    for fam, (KV, G, D, window) in (("gpt2", (12, 1, 64, None)),
+                                    ("gemma", (1, 4, 256, GEN["window"]))):
+        lens = gen_prompts[fam][1]
+        P = max(lens)
+        T = P + GEN["tf_new"]
+        q, kc, vc, ok = decode_inputs(torch, dev, f32, len(lens), KV, G, T,
+                                      D, seed=T + D,
+                                      n_pad=[P - n for n in lens],
+                                      window=window)
+        scale = D ** -0.5
+        err = max_err(da.decode_attention(q, kc, vc, ok, scale),
+                      da.xla_reference(q, kc, vc, ok, scale))
+        check(err <= 1e-5, f"f32 decode at generate's {fam} last step: "
+              f"max |ctx err| {err:.3e}")
+        out_entries[f"decode_{fam}"] = dict(
+            decode_entry(torch, da, (err, (q, kc, vc, ok, scale)),
+                         f32_bound),
+            launches=launches[f"decode_{fam}"],
+            path=f"generate {fam}_tf32 (f32), last step")
+    print("f32 at the default-dtype paths' shapes: " + ", ".join(
+        f"{k} {e['ms'] * 1e3:.2f} us (library {e['library_ms'] * 1e3:.2f}, "
+        f"bound {e['bound_ms'] * 1e3:.2f})" for k, e in out_entries.items()))
+    return out_entries
+
+
+def fma_fwd(torch, fc, h, w, labels):
+    """(lse, gold) through row 6's f32 FMA first version (fused_ce.cu's
+    mft_fused_ce_fwd and its merge pass, on its own slab plan), which no
+    path runs since f32 moved to fused_ce_fwd_tf32.cu; its launches are
+    outside the wrapper's count."""
+    from mobilefinetuner_tpu_torch.kernels import build
+    code, lse, gold = fc._launch_fwd(h, w, labels, None)
+    build.check_launch("fused_ce.cu fwd", code)
+    return lse, gold
+
+
+def fma_dbt(torch, fc, h, w, xa, bt, labels, rows):
+    """dbt through row 11's f32 FMA first version (fused_ce.cu's
+    mft_fused_ce_dw_lora with no dW), which no path runs since f32's
+    dbt-only mode moved to fused_ce_dbt_tf32.cu; its launches are outside
+    the wrapper's count."""
+    from mobilefinetuner_tpu_torch.kernels import build
+    R, H = h.shape
+    V, r = bt.shape
+    dbt = torch.empty(V, r, device=h.device)
+    build.check_launch("fused_ce.cu dbt", fc._fn("mft_fused_ce_dw_lora", 10,
+                                                 5)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        fc._labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+        None, dbt.data_ptr(), R, V, H, r, 0, fc._stream(h)))
+    return dbt
+
+
 def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     """Row 5 and the fused CE rows in f32, every CLI's default dtype:
     row 5 on its first version (lora_epilogue.cu) at GPT-2's attn_qkv, y
     1024 x 2304, r 8; at the Gemma chunk (R 128, V 262,144, H 640; rows
-    9-11 at r 8, row 11 in its dbt-only mode) rows 6, 9 and 11 on
-    fused_ce.cu and rows 7 and 10 on their 3xTF32 kernels
-    (fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu), each of those two
-    also held against the plain version with dgold = 0 (the softmax part,
-    over max |ref|) and timed in turns with its fused_ce.cu first version
-    (fma_dh, held against the plain version too). Each is held against
-    its plain version (check_epilogue's and check_fused_ce's f32
-    tolerances), timed beside the bf16 entries' library call run in f32
-    (TF32 off) and bounded at the 3xTF32 rate, with the f32 launches the
-    paths made at that shape: row 5's from EPI_BY_SHAPE, the fused CE's
-    from `ce_f32` ({wrapper key: {path: launches}} of CE_F32_PATHS, the
-    runs whose loss is f32). Returns {kernels line name: entry}."""
+    9-11 at r 8, row 11 in its dbt-only mode) row 9 on fused_ce.cu and
+    rows 6, 7, 10 and 11 on their 3xTF32 kernels (fused_ce_fwd_tf32.cu,
+    fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu, fused_ce_dbt_tf32.cu),
+    each of those four timed in turns with its fused_ce.cu first version
+    (fma_fwd, fma_dh, fma_dbt; held against the plain version too), its
+    two calls bit-identical, and rows 7, 10 and 11 also held against the
+    plain version with dgold = 0 (the softmax part, over max |ref|). Each
+    is held against its plain version (check_epilogue's and
+    check_fused_ce's f32 tolerances), timed beside the bf16 entries'
+    library call run in f32 (TF32 off) and bounded at the 3xTF32 rate,
+    with the f32 launches the paths made at that shape: row 5's from
+    EPI_BY_SHAPE, the fused CE's from `ce_f32` ({wrapper key: {path:
+    launches}} of CE_F32_PATHS, the runs whose loss is f32). Returns
+    {kernels line name: entry}."""
     f32 = torch.float32
     g = torch.Generator().manual_seed(41)
     y, xa, bm = (torch.randn(sh, generator=g).to(dev)
@@ -3562,53 +3708,74 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     lora = (h, w, xa, bt, lab, rll, dl, dg)
     lse, gold = fc.fused_ce_fwd(h, w, lab)
     lse_l, gold_l = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    dbt = fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]
     ref_dh = fc.fused_ce_dh_reference(*ce)
     ref_dhl = fc.fused_ce_dh_lora_reference(*lora)
+    ref_dbt = fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1]
     errs = {
         "fused_ce_fwd": max(max_err(lse, rl), max_err(gold, rg)),
         "fused_ce_dh": rel_err(fc.fused_ce_bwd_dh(*ce), ref_dh),
         "fused_ce_fwd_lora": max(max_err(lse_l, rll), max_err(gold_l, rlg)),
         "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
             fc.fused_ce_bwd_dh_lora(*lora), ref_dhl)),
-        "fused_ce_dw_lora": rel_err(
-            fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1],
-            fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1])}
+        "fused_ce_dw_lora": rel_err(dbt, ref_dbt)}
+    lse2, gold2 = fc.fused_ce_fwd(h, w, lab)
+    twice = {"fused_ce_fwd": bool(torch.equal(lse, lse2)
+                                  and torch.equal(gold, gold2)),
+             "fused_ce_dw_lora": bool(torch.equal(
+                 dbt, fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]))}
     z = torch.zeros_like(dg)
     ce0, lora0 = ce[:5] + (z,), lora[:7] + (z,)
     sm = {"fused_ce_dh": scaled_err(fc.fused_ce_bwd_dh(*ce0),
                                     fc.fused_ce_dh_reference(*ce0)),
           "fused_ce_dh_lora": max(scaled_err(a, b) for a, b in zip(
               fc.fused_ce_bwd_dh_lora(*lora0),
-              fc.fused_ce_dh_lora_reference(*lora0)))}
-    earlier = {"fused_ce_dh": rel_err(fma_dh(torch, fc, h, w, lab, ce[3:]),
+              fc.fused_ce_dh_lora_reference(*lora0))),
+          "fused_ce_dw_lora": scaled_err(
+              fc.fused_ce_bwd_dw_lora(*lora0, want_dw=False)[1],
+              fc.fused_ce_dw_lora_reference(*lora0, want_dw=False)[1])}
+    lse_f, gold_f = fma_fwd(torch, fc, h, w, lab)
+    earlier = {"fused_ce_fwd": max(max_err(lse_f, rl), max_err(gold_f, rg)),
+               "fused_ce_dh": rel_err(fma_dh(torch, fc, h, w, lab, ce[3:]),
                                       ref_dh),
                "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
                    fma_dh(torch, fc, h, w, lab, lora[5:], (xa, bt)),
-                   ref_dhl))}
-    del ref_dh, ref_dhl
+                   ref_dhl)),
+               "fused_ce_dw_lora": rel_err(
+                   fma_dbt(torch, fc, h, w, xa, bt, lab, lora[5:]),
+                   ref_dbt)}
+    del ref_dh, ref_dhl, ref_dbt, lse_f, gold_f
     print("f32 fused CE at the Gemma chunk (R 128, V 262144, H 640, r 8): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + "; softmax part (dgold = 0) over max |ref| " + ", ".join(
               f"{k} {v:.3e}" for k, v in sm.items())
-          + "; first versions of rows 7 / 10 " + ", ".join(
+          + "; first versions of rows 6 / 7 / 10 / 11 " + ", ".join(
               f"{k} {v:.3e}" for k, v in earlier.items())
-          + " (tolerance 1e-4)")
+          + f" (tolerance 1e-4); two calls identical: {twice}")
     check(max(*errs.values(), *sm.values(), *earlier.values()) <= 1e-4,
           f"f32 fused CE at the Gemma chunk disagrees with its plain "
           f"versions: {errs}, {sm}, first versions {earlier}")
+    check(all(twice.values()), f"f32 fused CE: two calls gave different "
+          f"bits: {twice}")
     times, bounds = fused_ce_times(torch, fc, ce, CE_KEYS[:2], f32_bound)
     lora_times, lora_bounds = fused_ce_lora_times(
         torch, fc, lora, CE_LORA_KEYS[:3], f32_bound)
     times.update(lora_times)
     bounds.update(lora_bounds)
+    times["fused_ce_fwd"].update(in_turns(
+        lambda: fc.fused_ce_fwd(h, w, lab),
+        lambda: fma_fwd(torch, fc, h, w, lab), 10))
     times["fused_ce_dh"].update(in_turns(
         lambda: fc.fused_ce_bwd_dh(*ce),
         lambda: fma_dh(torch, fc, h, w, lab, ce[3:]), 10))
     times["fused_ce_dh_lora"].update(in_turns(
         lambda: fc.fused_ce_bwd_dh_lora(*lora),
         lambda: fma_dh(torch, fc, h, w, lab, lora[5:], (xa, bt)), 10))
+    times["fused_ce_dw_lora"].update(in_turns(
+        lambda: fc.fused_ce_bwd_dw_lora(*lora, want_dw=False),
+        lambda: fma_dbt(torch, fc, h, w, xa, bt, lab, lora[5:]), 10))
     lines = {"fused_ce_fwd": ("fused_ce_fwd", "fused_ce.py:121", "",
-                              "fused_ce.cu"),
+                              "fused_ce_fwd_tf32.cu"),
              "fused_ce_dh": ("fused_ce_bwd_dh", "fused_ce.py:196", "",
                              "fused_ce_dh_tf32.cu"),
              "fused_ce_fwd_lora": ("fused_ce_fwd_lora", "fused_ce.py:350",
@@ -3617,16 +3784,17 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
                                   ", r 8", "fused_ce_dh_lora_tf32.cu"),
              "fused_ce_dw_lora": ("fused_ce_bwd_dw_lora", "fused_ce.py:421",
                                   ", r 8, dbt only (frozen head)",
-                                  "fused_ce.cu")}
+                                  "fused_ce_dbt_tf32.cu")}
     for key, (name, line, tail, source) in lines.items():
         extra = {"shape": f"R 128, V 262144, H 640{tail}, f32 (gemma "
                           f"chunk)",
                  "launches_by_path": ce_f32[key]}
-        if key in sm:
-            extra.update(softmax_part_err=sm[key],
-                         earlier="fused_ce.cu (FMA first version)",
+        if key in earlier:
+            extra.update(earlier="fused_ce.cu (FMA first version)",
                          earlier_max_abs_err=earlier[key],
                          ptxas=ptxas[source[:-3]])
+        if key in sm:
+            extra["softmax_part_err"] = sm[key]
         out[name] = kernel_entry(name, source, line,
                                  sum(ce_f32[key].values()), errs[key],
                                  times[key], bounds[key], extra)
@@ -5119,7 +5287,7 @@ def multitenant_only(torch, dev, kernels) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "multitenant"]):
+    if argv not in ([], ["--only", "multitenant"], ["--only", "f32_ce"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     import torch
@@ -5155,9 +5323,27 @@ def main(argv=None) -> int:
     ptxas = {name: ptxas_summary(log) for name, (_, log) in built.items()}
     for name in ("flash_attention_fwd_tf32",
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
-                 "fused_ce_dh_lora_tf32"):
+                 "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
+                 "fused_ce_dbt_tf32"):
         check(all(row[2] == 0 and row[3] == 0 for row in ptxas[name]),
               f"{name} spills registers: {ptxas[name]}")
+    if argv == ["--only", "f32_ce"]:
+        zeros = {p: 0 for p in CE_F32_PATHS}
+        entries = f32_ce_entries(
+            torch, fc, lf, dev,
+            {k: dict(zeros) for k in (*CE_KEYS, *CE_LORA_KEYS[:3])}, ptxas)
+        # rows 1-2, 12 and 13 in f32 at the paths' shapes, on stand-in
+        # prompt lengths (GPT-2's 8-128 tokens, Gemma's BOS + words)
+        lens = {"gpt2": [8, 26, 45, 64, 83, 102, 121, GEN["gpt2_max"]],
+                "gemma": [1 + n for n in GEN["gemma_words"]]}
+        entries.update(f32_path_entries(
+            torch, fa, da, dev, check_paged(torch, da, dev)["gemma_serve_f32"],
+            {k: (None, v) for k, v in lens.items()},
+            dict.fromkeys(("flash_fwd", "bwd_merged", "paged", "decode_gpt2",
+                           "decode_gemma"), 0)))
+        print(card)
+        print(json.dumps({"f32_ce": entries}))
+        return 0
     if argv:
         rc = multitenant_only(torch, dev, kernels)
         shutil.rmtree(STREAMS["dir"], ignore_errors=True)
@@ -5271,16 +5457,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         # the default dtype: the same LoRA runs in f32, counts set to 0
         # just before each
-        launches_f32 = {}
+        launches_f32, step_f32 = {}, {}
         for head in (False, True):
             name = CE_F32_PATHS[int(head)]
             f32_stats, launches_f32[name] = gemma_train_f32(
                 torch, dev, work, kernels, gemma, head)
             mark = mark_f32(name, mark)
             f32_stats.update(observed(name))
+            step_f32[name] = f32_stats["step_device_ms"]
             print(json.dumps({name: f32_stats,
                               "launches": launches_f32[name]}))
             torch.cuda.empty_cache()
+        print("f32 step device ms (CUDA-graph replays): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in step_f32.items()))
         eval_stats, launches_eval, eval_runs = eval_ppl_phase(
             torch, kernels, gemma, (head_adapter, head_final),
             (os.path.join(work, "gpt2"), os.path.join(work, "wiki"),
@@ -5382,6 +5571,13 @@ def main(argv=None) -> int:
         check(key == "fused_ce_dw" or n[CE_F32_PATHS[int(head)]] > 0,
               f"{key} launched no time in f32 on {CE_F32_PATHS[int(head)]}")
     f32_first = f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas)
+    f32p = f32_path_entries(
+        torch, fa, da, dev, paged_cases["gemma_serve_f32"], gen_prompts,
+        {"flash_fwd": FLASH_BY_SHAPE[(torch.float32, 4, 4, 256, 256)],
+         "bwd_merged": sum(F32_BY_PATH[p][1] for p in CE_F32_PATHS),
+         "paged": launches_gserve_f32["paged"],
+         "decode_gpt2": gen_runs["gpt2_tf32"]["decode"],
+         "decode_gemma": gen_runs["gemma_tf32"]["decode"]})
     gserve_flash = gemma_serve_flash_entry(torch, fa, dev)
     serve_names = {"flash_fwd": "flash", "paged": "paged",
                    "decode": "decode"}
@@ -5414,9 +5610,21 @@ def main(argv=None) -> int:
     f32_paths = {name: {p: n[i] for p, n in F32_BY_PATH.items() if n[i]}
                  for i, name in enumerate(("flash_fwd", "bwd_merged"))}
 
+    # rows 12 and 13 in f32 ran on their first versions: on
+    # gemma_serve_f32 (row 12) and generate's two f32 runs (row 13)
+    f32_decode = f32p["decode_gpt2"]["launches"] \
+        + f32p["decode_gemma"]["launches"]
+    f32_paths["paged"] = {"gemma_serve_f32": f32p["paged"]["launches"]}
+    f32_paths["decode"] = {"generate": f32_decode}
+
     def by_path_16(name):
         return {p: n - f32_paths[name].get(p, 0)
                 for p, n in by_path(name).items()}
+
+    for name in ("paged", "decode"):
+        check(min(by_path_16(name).values()) >= 0,
+              f"{name}: f32 launches {f32_paths[name]} exceed the paths' "
+              f"{by_path(name)}")
 
     for name in ("flash_fwd", "bwd_merged"):
         check(sum(f32_paths[name].values()) > 0
@@ -5448,7 +5656,8 @@ def main(argv=None) -> int:
              launches_at_shape=f32_fwd_main["launches"],
              launches_by_path=f32_paths["flash_fwd"],
              ptxas=ptxas["flash_attention_fwd_tf32"],
-             shapes=[mt_f32["fwd"], *mmlu_entries["flash_f32"]]),
+             shapes=[mt_f32["fwd"], *mmlu_entries["flash_f32"]],
+             gemma_train_f32=f32p["flash_fwd"]),
         kernel_entry(
             "flash_attention_bwd_merged", "flash_attention_bwd_merged_mma.cu",
             "flash_attention.py:415",
@@ -5464,7 +5673,8 @@ def main(argv=None) -> int:
              launches=sum(f32_paths["bwd_merged"].values()),
              launches_at_shape=mt_f32["bwd_merged"]["launches"],
              launches_by_path=f32_paths["bwd_merged"],
-             ptxas=ptxas["flash_attention_bwd_merged_tf32"]),
+             ptxas=ptxas["flash_attention_bwd_merged_tf32"],
+             gemma_train_f32=f32p["bwd_merged"]),
         kernel_entry(
             "flash_attention_bwd_dq", "flash_attention_bwd_split.cu",
             "flash_attention.py:269", total("bwd_dq"), bwd["dq"],
@@ -5485,29 +5695,39 @@ def main(argv=None) -> int:
              mmlu_lm_head=mmlu_entries["lm_head"],
              decode={site: epi_entries[site] for site in (
                  "decode_attn_qkv", "decode_gate_proj", "decode_lm_head")}),
-        dict(pg_entries["serving"], launches=total("paged"),
-             launches_by_path=by_path("paged"),
+        dict(pg_entries["serving"], launches=total("paged") - f32p["paged"][
+                 "launches"],
+             launches_by_path=by_path_16("paged"),
              ptxas=ptxas["paged_decode_attention_vec"],
-             f32="paged_decode_attention.cu (first version, f32 launches)",
-             f32_ptxas=ptxas["paged_decode_attention"],
+             f32=dict(f32p["paged"], ptxas=ptxas["paged_decode_attention"],
+                      launches_by_path={"gemma_serve_f32":
+                                        f32p["paged"]["launches"]}),
              gemma=dict(pg_entries["gemma_serve"],
                         launches=launches_gserve["paged"])),
-        dict(dec_entries["gpt2_bench"], launches=total("decode"),
-             launches_by_path=by_path("decode"),
+        dict(dec_entries["gpt2_bench"],
+             launches=total("decode") - f32_decode,
+             launches_by_path=by_path_16("decode"),
              ptxas=ptxas["decode_attention_mma"],
-             f32="decode_attention.cu (first version, f32 launches)",
+             f32=dict(f32p["decode_gpt2"], ptxas=ptxas["decode_attention"],
+                      launches=f32_decode,
+                      launches_at_shape=f32p["decode_gpt2"]["launches"],
+                      gemma=f32p["decode_gemma"]),
              gemma=dec_entries["gemma_path"]),
     ]
     # the fused CE in bf16: every path but CE_F32_PATHS, whose launches
-    # are the f32 entries' (rows 7 and 10's 3xTF32 sources have their own)
+    # are the f32 entries' (rows 6, 7, 10 and 11's 3xTF32 sources have
+    # their own)
     def by_path_ce16(key):
         return {p: n for p, n in by_path(key).items()
                 if p not in CE_F32_PATHS}
 
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
-    own = {"fused_ce_bwd_dh": "fused_ce_dh_tf32.cu (its own entry)",
+    own = {"fused_ce_fwd": "fused_ce_fwd_tf32.cu (its own entry)",
+           "fused_ce_bwd_dh": "fused_ce_dh_tf32.cu (its own entry)",
            "fused_ce_bwd_dh_lora": "fused_ce_dh_lora_tf32.cu (its own "
-                                   "entry)"}
+                                   "entry)",
+           "fused_ce_bwd_dw_lora": "fused_ce_dbt_tf32.cu (its own entry, "
+                                   "dbt only)"}
     for name, key, line, err, source in (
             ("fused_ce_fwd", "fused_ce_fwd", "fused_ce.py:121",
              max(ce_err["lse"], ce_err["gold"]), "fused_ce_fwd_mma.cu"),

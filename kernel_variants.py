@@ -6,6 +6,8 @@
     python3 kernel_variants.py --rows5_13 [--epi NAME=PATH.cu ...]
                                [--decode NAME=PATH.cu ...]
     python3 kernel_variants.py --row12 [--paged NAME=PATH.cu ...]
+    python3 kernel_variants.py --f32_ce_plans
+    python3 kernel_variants.py --mma_rate
 
 Card only. Builds each variant source by hand (nvcc with the port's flags
 and the csrc headers, into build/variants/) beside the repo's own
@@ -49,6 +51,29 @@ split) or the first version's, `mft_paged_decode_attention` (e.g. the
 parent commit's csrc/paged_decode_attention.cu, which took bf16: the
 first version in turns with the new source). Each output is held
 against the source's within 2e-2, and times are taken in turns.
+
+With --f32_ce_plans it times rows 6 and 11 (dbt only) in f32 on their
+3xTF32 sources (`csrc/fused_ce_fwd_tf32.cu`, `csrc/fused_ce_dbt_tf32.cu`)
+at the Gemma chunk (chip_smoke.py's f32 inputs: R 128, V 262,144, H 640,
+r 8) under each launch plan of `PLAN_SWEEP` (rows a CTA, columns of a W
+chunk, chunks in the ring; `ops/fused_ce.LOGITS_PLANS` set to it alone),
+in turns (the plans in order, then in reverse), with each plan's largest
+difference from the plain version (lse and gold; dbt over max(1, |ref|)).
+Then two probes of row 6 at its own plan, in turns with the source: a
+variant with the W chunks' copies after the first ones left out (its
+output is wrong; the time of the loop without them), at the Gemma chunk
+and at R 4,096, V 8,192 (the same chunks and the same L2 traffic a CTA,
+W resident in L2, so no DRAM traffic).
+
+With --mma_rate it measures the card's tensor-core rates instead: a
+kernel of independent mma.sync products (TF32 m16n8k8, bf16 m16n8k16)
+and one of wgmma m64n32k8 TF32 products (A from registers, B from shared
+memory by a descriptor, no swizzle) at 4, 8 and 16 warps a CTA, one CTA
+an SM, in TFLOP/s; and it checks the wgmma fragment and descriptor
+layout that a kernel would rely on (A as mma.sync's m16n8k8 A fragment a
+warp, B K-major in 8-row x 16-byte core matrices, D as mma.sync's C
+fragment an n-tile) against a host product of exact TF32 values, for
+both orders of the core matrices (LBO and SBO).
 """
 
 from __future__ import annotations
@@ -360,6 +385,299 @@ def row_12(args, torch, build, out_dir) -> int:
     return 0
 
 
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// independent products: kind 0 mma.sync TF32 m16n8k8, kind 1 bf16
+// m16n8k16, 8 accumulators a warp
+template <int KIND>
+__global__ void sync_rate(float* out, int iters) {
+  uint32_t a0 = 0x3f800000u ^ (threadIdx.x << 13), a1 = 0x3f800000u;
+  float c[8][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (KIND == 0)
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a0), "r"(a1), "r"(a1), "r"(a0), "r"(a1), "r"(a0));
+      else
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a0), "r"(a1), "r"(a1), "r"(a0), "r"(a1), "r"(a0));
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+// descriptor of a K-major, unswizzled operand at p: LBO between core
+// matrices adjacent in K, SBO between 8-row groups
+__device__ __forceinline__ uint64_t desc(const void* p, int lbo, int sbo) {
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+#define WG_N32(D, A, DESC, ACC)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "               \
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "          \
+      "{%16,%17,%18,%19}, %20, p, 1, 1;\n}\n"                              \
+      : "+f"(D[0]), "+f"(D[1]), "+f"(D[2]), "+f"(D[3]), "+f"(D[4]),        \
+        "+f"(D[5]), "+f"(D[6]), "+f"(D[7]), "+f"(D[8]), "+f"(D[9]),        \
+        "+f"(D[10]), "+f"(D[11]), "+f"(D[12]), "+f"(D[13]), "+f"(D[14]),   \
+        "+f"(D[15])                                                        \
+      : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "l"(DESC), "r"(ACC))
+
+// wgmma m64n32k8 TF32, A from registers, B [32 n][8 k] in shared memory,
+// two accumulator sets a warpgroup
+__global__ void wgmma_rate(float* out, int iters) {
+  __shared__ __align__(128) float b[32 * 8];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) b[i] = 1.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t d = desc(b, 128, 256);
+  uint32_t a[4] = {0x3f800000u, 0x3f800000u, 0x3f800000u, 0x3f800000u};
+  float c0[16] = {}, c1[16] = {};
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  for (int i = 0; i < iters; ++i) {
+    WG_N32(c0, a, d, 1);
+    WG_N32(c1, a, d, 1);
+    WG_N32(c0, a, d, 1);
+    WG_N32(c1, a, d, 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) sum += c0[j] + c1[j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+// one warpgroup: d [64][32] = a [64][8] b [32][8]^T, a by mma.sync's A
+// fragment a warp, b staged as core matrices in `order` 0 (K-adjacent
+// core matrices 128 bytes apart, 8-row groups 256) or 1 (8-row groups
+// 128 apart, K-adjacent 512), d read back as mma.sync's C fragment an
+// n-tile
+__global__ void wgmma_check(const float* a, const float* b, float* d,
+                            int order) {
+  __shared__ __align__(128) float bs[32 * 8];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  for (int i = tid; i < 256; i += 128) {
+    const int n = i / 8, k = i % 8;
+    const int cm = order == 0 ? (n / 8) * 2 + k / 4 : (k / 4) * 4 + n / 8;
+    bs[cm * 32 + (n % 8) * 4 + k % 4] = b[i];
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t ds = order == 0 ? desc(bs, 128, 256) : desc(bs, 512, 128);
+  const int m0 = warp * 16;
+  uint32_t af[4] = {__float_as_uint(a[(m0 + g) * 8 + t]),
+                    __float_as_uint(a[(m0 + g + 8) * 8 + t]),
+                    __float_as_uint(a[(m0 + g) * 8 + t + 4]),
+                    __float_as_uint(a[(m0 + g + 8) * 8 + t + 4])};
+  float c[16] = {};
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  WG_N32(c, af, ds, 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  for (int j = 0; j < 4; ++j)
+    for (int e = 0; e < 4; ++e)
+      d[(m0 + g + 8 * (e / 2)) * 32 + 8 * j + 2 * t + e % 2] = c[4 * j + e];
+}
+
+extern "C" int mft_rate(int kind, int warps, int blocks, int iters,
+                        float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == 0)
+    sync_rate<0><<<blocks, warps * 32, 0, st>>>(out, iters);
+  else if (kind == 1)
+    sync_rate<1><<<blocks, warps * 32, 0, st>>>(out, iters);
+  else
+    wgmma_rate<<<blocks, warps * 32, 0, st>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mft_wgmma_check(const float* a, const float* b, float* d,
+                               int order, void* stream) {
+  wgmma_check<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(a, b, d,
+                                                                order);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_rate(torch, build, out_dir) -> int:
+    """--mma_rate (module docstring)."""
+    path = os.path.join(out_dir, "mma_rate.cu")
+    with open(path, "w") as f:
+        f.write(MMA_RATE_SRC)
+    so = os.path.join(out_dir, "libmma_rate.so")
+    log = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas",
+                          "-v", "-o", so, path], capture_output=True,
+                         text=True)
+    print(log.stdout + log.stderr)
+    if log.returncode:
+        return 1
+    lib = ctypes.CDLL(so)
+    lib.mft_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    lib.mft_wgmma_check.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                            ctypes.c_void_p]
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(0)
+    # exact TF32 values: integers in [-8, 8] over 4
+    a = (torch.randint(-8, 9, (64, 8), generator=g) / 4).to(dev)
+    b = (torch.randint(-8, 9, (32, 8), generator=g) / 4).to(dev)
+    want = a.double() @ b.double().T
+    result = {"card": torch.cuda.get_device_name(0)}
+    for order in (0, 1):
+        d = torch.full((64, 32), float("nan"), device=dev)
+        code = lib.mft_wgmma_check(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                   order, stream)
+        torch.cuda.synchronize()
+        result[f"wgmma_check_order{order}"] = (
+            code, float((d.double() - want).abs().max()))
+    flops = {0: 16 * 8 * 8 * 2 * 8, 1: 16 * 8 * 16 * 2 * 8,
+             2: 64 * 32 * 8 * 2 * 4}      # a loop iteration, a warp(group)
+    names = {0: "mma.sync tf32 m16n8k8", 1: "mma.sync bf16 m16n8k16",
+             2: "wgmma tf32 m64n32k8 (A in registers)"}
+    torch.cuda._sleep(int(2e9))
+    for kind in (0, 1, 2):
+        for warps in (4, 8, 16):
+            iters = 20000
+            out = torch.empty(n_sm * warps * 32, device=dev)
+            lib.mft_rate(kind, warps, n_sm, iters, out.data_ptr(), stream)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            code = lib.mft_rate(kind, warps, n_sm, iters, out.data_ptr(),
+                                stream)
+            end.record()
+            torch.cuda.synchronize()
+            units = warps if kind < 2 else warps // 4
+            tf = flops[kind] * iters * units * n_sm / (
+                start.elapsed_time(end) * 1e-3) / 1e12
+            result[f"{names[kind]}, {warps} warps"] = (code, round(tf, 1))
+    for k, v in result.items():
+        print(f"{k}: {v}")
+    print(json.dumps(result))
+    return 0
+
+
+PLAN_SWEEP = ((64, 32, 3), (64, 32, 2), (32, 64, 4), (32, 64, 2),
+              (32, 32, 4), (32, 32, 3), (16, 64, 4), (16, 64, 2))
+
+
+def f32_ce_plans(torch, build) -> int:
+    """--f32_ce_plans (module docstring)."""
+    import chip_smoke as cs
+    from mobilefinetuner_tpu_torch.ops import fused_ce as fc
+    built = build.build_all(["fused_ce_fwd_tf32", "fused_ce_dbt_tf32"],
+                            verbose=True)
+    for name, (_, log) in built.items():
+        print(name, cs.ptxas_summary(log))
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    h, w, lab, dl, dg = cs.fused_ce_inputs(torch, dev, f32, 128, 262144,
+                                           640, seed=43)
+    g = torch.Generator(device=dev).manual_seed(44)
+    xa = torch.randn(128, 8, generator=g, device=dev)
+    bt = 0.05 * torch.randn(262144, 8, generator=g, device=dev)
+    rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
+    rll = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    lora = (h, w, xa, bt, lab, rll, dl, dg)
+    ref_dbt = fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1]
+    saved = fc.LOGITS_PLANS
+    errs, fns = {}, {}
+    for plan in PLAN_SWEEP:
+        fc.LOGITS_PLANS = (plan,)
+        lse, gold = fc.fused_ce_fwd(h, w, lab)
+        dbt = fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]
+        errs[str(plan)] = (max(cs.max_err(lse, rl), cs.max_err(gold, rg)),
+                           cs.rel_err(dbt, ref_dbt))
+
+        def run(plan=plan, fn=None):
+            fc.LOGITS_PLANS = (plan,)
+            return fn()
+        fns[f"fwd {plan}"] = lambda plan=plan: run(
+            plan, lambda: fc.fused_ce_fwd(h, w, lab))
+        fns[f"dbt {plan}"] = lambda plan=plan: run(
+            plan, lambda: fc.fused_ce_bwd_dw_lora(*lora, want_dw=False))
+    torch.cuda._sleep(int(2e9))
+    times = in_turns(fns, lambda fn: cs.queued_ms(fn, 10) * 1e3)
+    fc.LOGITS_PLANS = saved
+    for k, v in times.items():
+        plan = k.split(" ", 1)[1]
+        print(f"{k}: {v} us, max err (lse/gold, dbt) {errs[plan]}")
+    probes = fwd_copy_probes(torch, build, cs, fc, dev)
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "times_us": times, "errors": errs,
+                      "fwd_probes_us": probes}))
+    return 0
+
+
+def fwd_copy_probes(torch, build, cs, fc, dev):
+    """Row 6 at its plan, the source and a variant without the W copies
+    of the loop (output wrong), in turns, at the Gemma chunk and with W
+    resident in L2 (R 4,096, V 8,192); {case: {name: [us, us]}}."""
+    text = open(os.path.join(build.CSRC_DIR, "fused_ce_fwd_tf32.cu")).read()
+    copy = ("      if (q + stages - 1 < n_q)\n"
+            "        stage(q + stages - 1, (buf + stages - 1) % stages);")
+    assert copy in text
+    out_dir = os.path.join(ROOT, "build", "variants")
+    path = os.path.join(out_dir, "fwd_no_copies.cu")
+    with open(path, "w") as f:
+        f.write(text.replace(copy, ""))
+    libs = build_variants(build, [("fwd32", "no_copies", path)], out_dir,
+                          ["fused_ce_fwd_tf32"])
+    entries = {"source": build.load("fused_ce_fwd_tf32")
+               .mft_fused_ce_fwd_tf32,
+               "no_copies": libs["no_copies"][1].mft_fused_ce_fwd_tf32}
+    for fn in entries.values():
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
+            [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {}
+    for R, V in ((128, 262144), (4096, 8192)):
+        h, w, lab, _, _ = cs.fused_ce_inputs(torch, dev, torch.float32, R,
+                                             V, 640, seed=43)
+        lab = lab.int()
+        p = fc.fwd_tf32_plan(R, V, 640, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        part = torch.empty(p["n_slabs"], R, 3, device=dev)
+        lse, gold = torch.empty(R, device=dev), torch.empty(R, device=dev)
+
+        def call(fn):
+            return lambda: build.check_launch("fwd probe", fn(
+                h.data_ptr(), w.data_ptr(), lab.data_ptr(), part.data_ptr(),
+                lse.data_ptr(), gold.data_ptr(), R, V, 640, p["row_tile"],
+                p["chunk"], p["stages"], p["n_slabs"], p["tiles_per_slab"],
+                0, stream))
+        result[f"R {R}, V {V}"] = in_turns(
+            {k: call(fn) for k, fn in entries.items()},
+            lambda fn: cs.queued_ms(fn, 10) * 1e3)
+        print(f"row 6 at R {R}, V {V} ({p['row_tile']} rows, "
+              f"{p['chunk']} columns a chunk): {result[f'R {R}, V {V}']}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -380,6 +698,8 @@ def main() -> int:
     ap.add_argument("--decode", action="append", default=[])
     ap.add_argument("--row12", action="store_true")
     ap.add_argument("--paged", action="append", default=[])
+    ap.add_argument("--mma_rate", action="store_true")
+    ap.add_argument("--f32_ce_plans", action="store_true")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -390,6 +710,10 @@ def main() -> int:
         return rows_5_13(args, torch, build, out_dir)
     if args.row12:
         return row_12(args, torch, build, out_dir)
+    if args.mma_rate:
+        return mma_rate(torch, build, out_dir)
+    if args.f32_ce_plans:
+        return f32_ce_plans(torch, build)
     variants = [("fwd", *v.split("=", 1)) for v in args.fwd] + \
         [("dbt", *v.split("=", 1)) for v in args.dbt]
     procs = {}

@@ -2,7 +2,8 @@
 // f32 operands split into two TF32 halves, the m16n8k8 TF32 mma.sync, and
 // a product of split operands that keeps f32 accuracy. Used by
 // flash_attention_fwd_tf32.cu, flash_attention_bwd_merged_tf32.cu,
-// fused_ce_dh_tf32.cu and fused_ce_dh_lora_tf32.cu.
+// fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu, fused_ce_fwd_tf32.cu and
+// fused_ce_dbt_tf32.cu.
 //
 // Split: hi = tf32(x) (cvt.rna: round to nearest, ties away from zero, at
 // bit 13), lo = tf32(x - hi); x - hi is exact in f32, so x = hi + lo to
@@ -56,6 +57,17 @@ __device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi,
                                                 uint32_t& lo) {
   hi = tf32_round_bits(x);
   lo = tf32_round_bits(x - __uint_as_float(hi));
+}
+
+// x = hi + lo for a tensor-core operand: hi as split_tf32_bits', lo = x -
+// hi (exact in f32) passed as raw f32 bits, of which the TF32 mma.sync
+// reads the top 19 (the low 13 are dropped): lo is then off by less than
+// 2^-10 of itself, ~2^-21 of x, at one integer operation less than a
+// rounded lo (fused_ce_fwd_tf32.cu, fused_ce_dbt_tf32.cu)
+__device__ __forceinline__ void split_tf32_raw_lo(float x, uint32_t& hi,
+                                                  uint32_t& lo) {
+  hi = tf32_round_bits(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // x = hi + lo, both TF32

@@ -10,8 +10,9 @@ memory:
   fused_ce_fwd      (lse, gold) [R] f32: logsumexp of each row's logits
                     and its label's logit (TPU `_fwd_kernel`, row 6);
                     bf16 and f16 on the tensor-core kernel of
-                    `csrc/fused_ce_fwd_mma.cu` (H % 8 == 0), f32 on
-                    `csrc/fused_ce.cu` (fwd_library, fwd_mma_plan).
+                    `csrc/fused_ce_fwd_mma.cu`, f32 on the 3xTF32 one of
+                    `csrc/fused_ce_fwd_tf32.cu` (H % 8 == 0; fwd_library,
+                    fwd_mma_plan, fwd_tf32_plan).
   fused_ce_bwd_dh   dh [R, H] f32 = coef @ W (`_dh_kernel`, row 7); bf16
                     and f16 on the tensor-core kernel of
                     `csrc/fused_ce_dh_mma.cu`, f32 on the 3xTF32 one of
@@ -49,9 +50,10 @@ into the same tile loop, so the [R, V] delta never exists either:
                         (`_dw_kernel_lora`, row 11); dW only when asked
                         for (the tied embedding is frozen in LoRA). dbt
                         alone in bf16 and f16 on
-                        `csrc/fused_ce_dbt_mma.cu` (H % 8 == 0); f32,
-                        and dW + dbt in every dtype, on `csrc/fused_ce.cu`
-                        (dbt_library, dbt_mma_plan).
+                        `csrc/fused_ce_dbt_mma.cu`, in f32 on the 3xTF32
+                        kernel of `csrc/fused_ce_dbt_tf32.cu` (H % 8 ==
+                        0; dbt_library, dbt_mma_plan, dbt_tf32_plan); dW
+                        + dbt in every dtype on `csrc/fused_ce.cu`.
   fused_ce_rows_lora    (lse, gold), differentiable in h, W, xa and bt
                         (FusedCERowsLora); the A / B / scale chain
                         around it is plain autograd, as in the JAX
@@ -66,11 +68,14 @@ run on any device as the kernels' references on the card.
 
 Bounds and design: csrc/fused_ce.cu and the tensor-core sources
 csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu,
-fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu, fused_ce_dbt_mma.cu,
-fused_ce_dh_tf32.cu and fused_ce_dh_lora_tf32.cu. fused_ce.cu's f32 dh
-kernels, which rows 7 and 10 ran in f32 before, stay built as those
-rows' earlier versions on no path (chip_smoke.py times them).
-The kernels take any R, V and H (the tensor-core kernels H % 8 == 0),
+fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu, fused_ce_dbt_mma.cu
+and the 3xTF32 fused_ce_fwd_tf32.cu, fused_ce_dh_tf32.cu,
+fused_ce_dh_lora_tf32.cu and fused_ce_dbt_tf32.cu. fused_ce.cu's f32
+forward, dh kernels and dbt-only mode, which rows 6, 7, 10 and 11 ran in
+f32 before, stay built as those rows' earlier versions on no path
+(chip_smoke.py times them).
+The kernels take any R, V and H (the tensor-core and 3xTF32 kernels H %
+8 == 0, within their plans' shared memory),
 h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
 hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
 MAX_HIDDEN; the rank is 1..MAX_RANK, taken as it is (the TPU's padding
@@ -110,6 +115,14 @@ TF32_WARPS = 8          # WG: warps of a row group
 TF32_COEF_LD = 24       # LDC: coef row stride, floats
 TF32_NT = (2, 5, 6, 12, 28)     # dh n-tiles a warp, the instantiated
                                 # bounds (6 at most with 32-row tiles)
+LOGITS_VOCAB_TILE = 128  # csrc/fused_ce_fwd_tf32.cu, fused_ce_dbt_tf32.cu
+                         # VT: vocab rows of a tile, 16 a warp
+LOGITS_WARPS = 8         # WARPS
+# (rows of a CTA, columns of a W chunk, W chunks in a warp's ring) of
+# rows 6 and 11's f32 launch, in order of preference: the first whose
+# shared memory fits is taken (kernel_variants.py --f32_ce_plans times
+# others)
+LOGITS_PLANS = ((64, 32, 2), (32, 64, 2), (16, 64, 2), (16, 64, 1))
 
 
 # ------------------------------------------------------ plain versions ------
@@ -300,7 +313,7 @@ def fwd_library(dtype: torch.dtype) -> Tuple[str, str]:
     """Row 6's kernel for `dtype` (_route)."""
     return _route("fused_ce_fwd",
                   ("fused_ce_fwd_mma", "mft_fused_ce_fwd_mma"),
-                  ("fused_ce", "mft_fused_ce_fwd"), dtype)
+                  ("fused_ce_fwd_tf32", "mft_fused_ce_fwd_tf32"), dtype)
 
 
 def dh_library(dtype: torch.dtype) -> Tuple[str, str]:
@@ -337,7 +350,7 @@ def dbt_library(dtype: torch.dtype) -> Tuple[str, str]:
     is fused_ce.cu's mft_fused_ce_dw_lora in every dtype."""
     return _route("fused_ce_bwd_dw_lora",
                   ("fused_ce_dbt_mma", "mft_fused_ce_dbt_mma"),
-                  ("fused_ce", "mft_fused_ce_dw_lora"), dtype)
+                  ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32"), dtype)
 
 
 def _require_h8(what: str, H: int) -> None:
@@ -497,6 +510,47 @@ def dh_lora_tf32_plan(R: int, V: int, H: int, r: int, n_sm: int) -> dict:
     return _tf32_plan("fused_ce_bwd_dh_lora", R, V, H, r, n_sm)
 
 
+def _logits_tf32_plan(what: str, R: int, V: int, H: int, r: int,
+                      n_sm: int) -> dict:
+    """Rows 6 and 11's (dbt-only) f32 launch, as csrc/fused_ce_fwd_tf32.cu
+    and csrc/fused_ce_dbt_tf32.cu take it: the row widened to hx = H (row
+    6) or H + r rounded up to 8 (row 11: [h | xa], [W | bt]); rows in
+    tiles of `row_tile`, the h tile [row_tile, hx + 4] f32 in shared
+    memory with a ring of `stages` W chunks [LOGITS_VOCAB_TILE, `chunk` +
+    4] f32: the first of LOGITS_PLANS that fits; the vocabulary in
+    `n_slabs` slabs of `tiles_per_slab` 128-row tiles, one CTA per (row
+    tile, slab), the grid one wave of `n_sm` CTAs. `row_tiles` is the
+    count of row tiles (row 11's partials)."""
+    _require_h8(what, H)
+    hx = H + (-(-r // 8) * 8 if r else 0)
+    for row_tile, chunk, stages in LOGITS_PLANS:
+        smem = (row_tile * (hx + 4)
+                + stages * LOGITS_VOCAB_TILE * (chunk + 4)) * 4
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"{what} 3xTF32 kernel: H={H}"
+                         + (f", r={r}" if r else "")
+                         + " does not fit shared memory")
+    row_tiles = -(-R // row_tile)
+    return _slab_plan({"row_tile": row_tile, "chunk": chunk,
+                       "stages": stages, "hx": hx, "row_tiles": row_tiles,
+                       "smem_bytes": smem},
+                      row_tiles, V, n_sm, LOGITS_VOCAB_TILE)
+
+
+def fwd_tf32_plan(R: int, V: int, H: int, n_sm: int) -> dict:
+    """Row 6's f32 launch (_logits_tf32_plan)."""
+    return _logits_tf32_plan("fused_ce_fwd", R, V, H, 0, n_sm)
+
+
+def dbt_tf32_plan(R: int, V: int, H: int, r: int, n_sm: int) -> dict:
+    """Row 11's dbt-only f32 launch (_logits_tf32_plan with the rank's
+    columns)."""
+    _require_rank("fused_ce_bwd_dw_lora", r)
+    return _logits_tf32_plan("fused_ce_bwd_dw_lora", R, V, H, r, n_sm)
+
+
 def _require_rank(what: str, r: int) -> None:
     if not 0 < r <= MAX_RANK:
         raise ValueError(f"{what}: rank {r} outside [1, {MAX_RANK}]")
@@ -591,8 +645,8 @@ def _labels(labels, h):
 
 
 def _launch_fwd(h, w, labels, lora):
-    """(lse, gold) through the forward kernel (row 6, or row 9 with
-    lora = (xa, bt))."""
+    """(code, lse, gold) through fused_ce.cu's f32 forward: row 9 with
+    lora = (xa, bt); with lora None row 6's first version, on no path."""
     R, H = h.shape
     V = w.shape[0]
     n_slabs, per_slab = _slabs(R, V, h.device, 4)
@@ -632,6 +686,25 @@ def _launch_fwd_mma(h, w, labels):
     return code, lse, gold
 
 
+def _launch_fwd_tf32(h, w, labels):
+    """(code, lse, gold) through row 6's f32 (3xTF32) kernel and its merge
+    pass."""
+    R, H = h.shape
+    V = w.shape[0]
+    plan = fwd_tf32_plan(R, V, H, _n_sm(h))
+    _aligned16("fused_ce_fwd", h, w)
+    part = torch.empty(plan["n_slabs"], R, 3, device=h.device)
+    lse = torch.empty(R, device=h.device)
+    gold = torch.empty(R, device=h.device)
+    lib, sym = fwd_library(h.dtype)
+    code = _fn(sym, 6, 9, lib)(
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        part.data_ptr(), lse.data_ptr(), gold.data_ptr(), R, V, H,
+        plan["row_tile"], plan["chunk"], plan["stages"], plan["n_slabs"],
+        plan["tiles_per_slab"], DTYPE_CODES[h.dtype], _stream(h))
+    return code, lse, gold
+
+
 def _launch_fwd_lora_mma(h, w, xa, bt, labels):
     """(code, lse, gold) through row 9's tensor-core kernel and its merge
     pass."""
@@ -664,7 +737,7 @@ def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     if fwd_library(h.dtype)[0] == "fused_ce_fwd_mma":
         code, lse, gold = _launch_fwd_mma(h, w, labels)
     else:
-        code, lse, gold = _launch_fwd(h, w, labels, None)
+        code, lse, gold = _launch_fwd_tf32(h, w, labels)
     build.check_launch("fused_ce_fwd", code)
     fused_ce_fwd.launches += 1
     return lse, gold
@@ -830,6 +903,27 @@ def _launch_dbt_mma(h, w, xa, bt, labels, rows):
     return code, dbt
 
 
+def _launch_dbt_tf32(h, w, xa, bt, labels, rows):
+    """(code, dbt) through row 11's dbt-only f32 (3xTF32) kernel and its
+    reduce pass over row tiles."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = dbt_tf32_plan(R, V, H, r, _n_sm(h))
+    _aligned16("fused_ce_bwd_dw_lora", h, w)
+    part = (torch.empty(plan["row_tiles"], V, r, device=h.device)
+            if plan["row_tiles"] > 1 else None)
+    dbt = torch.empty(V, r, device=h.device)
+    lib, sym = dbt_library(h.dtype)
+    code = _fn(sym, 10, 10, lib)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), *(t.data_ptr() for t in rows),
+        None if part is None else part.data_ptr(), dbt.data_ptr(), R, V, H,
+        r, plan["row_tile"], plan["chunk"], plan["stages"],
+        plan["n_slabs"], plan["tiles_per_slab"], DTYPE_CODES[h.dtype],
+        _stream(h))
+    return code, dbt
+
+
 def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     """dh [R, H] f32 = coef @ W. CPU tensors: the plain version; CUDA
     tensors: the kernel of dh_library(h.dtype) (with a reduce pass over
@@ -904,8 +998,9 @@ def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
     """(dW [V, H] f32 or None, dbt [V, r] f32) = (coef^T @ h, coef^T @ xa)
     of the head-adapter logits; dW only when `want_dw` (the frozen-
     embedding case skips it). CPU tensors: the plain version; CUDA
-    tensors: dbt alone on the kernel of dbt_library(h.dtype), dW + dbt on
-    fused_ce.cu's, or ValueError for what the kernel does not take."""
+    tensors: dbt alone on the kernel of dbt_library(h.dtype) (with a
+    reduce pass over its row tiles), dW + dbt on fused_ce.cu's, or
+    ValueError for what the kernel does not take."""
     rows = _bwd_args("fused_ce_bwd_dw_lora", h, w, labels, lse, dlse, dgold,
                      xa, bt)
     if h.device.type == "cpu":
@@ -916,6 +1011,8 @@ def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
     dw = None
     if not want_dw and dbt_library(h.dtype)[0] == "fused_ce_dbt_mma":
         code, dbt = _launch_dbt_mma(h, w, xa, bt, labels, rows)
+    elif not want_dw:
+        code, dbt = _launch_dbt_tf32(h, w, xa, bt, labels, rows)
     else:
         R, H = h.shape
         V, r = bt.shape

@@ -357,11 +357,12 @@ def test_fused_ce_fwd_tensor_core_kernel(dev):
 
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the 3xTF32 ones for
-    the flash forward (row 1), merged backward (row 2), the fused CE dh
-    (row 7) and head-adapter dh + dxa (row 10), and the FMA ones for the
-    fused CE forward (row 6), dW (row 8), the head-adapter forward (row 9)
-    and dbt-only mode of row 11, whose dW + dbt mode loads fused_ce.cu in
-    every dtype: the libraries the wrappers load are recorded."""
+    the flash forward (row 1), merged backward (row 2), the fused CE
+    forward (row 6), dh (row 7), head-adapter dh + dxa (row 10) and the
+    dbt-only mode of row 11, and the FMA ones for the fused CE dW (row 8)
+    and the head-adapter forward (row 9); row 11's dW + dbt mode loads
+    fused_ce.cu in every dtype: the libraries the wrappers load are
+    recorded."""
     loaded = []
     real = build.load
 
@@ -386,7 +387,7 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
         mma = dtype != torch.float32
         loaded.clear()
         fc.fused_ce_fwd(h, w, lab)
-        assert loaded == ["fused_ce_fwd_mma" if mma else "fused_ce"]
+        assert loaded == ["fused_ce_fwd_mma" if mma else "fused_ce_fwd_tf32"]
         lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
         loaded.clear()
         fc.fused_ce_bwd_dh(h, w, lab, lse, dl, dg)
@@ -404,7 +405,7 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
         loaded.clear()
         fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg,
                                 want_dw=False)
-        assert loaded == ["fused_ce_dbt_mma" if mma else "fused_ce"]
+        assert loaded == ["fused_ce_dbt_mma" if mma else "fused_ce_dbt_tf32"]
         loaded.clear()
         fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg)
         assert loaded == ["fused_ce"]
@@ -502,7 +503,9 @@ def test_flash_tf32_kernels_match_plain(dev, case):
 def test_f32_launches_reach_the_tf32_symbols(dev, monkeypatch):
     """An f32 forward and merged backward call the `_tf32` C entries and
     no FMA entry (mft_flash_attention_fwd / _bwd_merged); an f32 q that
-    is not 16-byte aligned is refused before any launch."""
+    is not 16-byte aligned is refused before any launch; the f32 fused CE
+    forward and dbt-only calls reach mft_fused_ce_fwd_tf32 and
+    mft_fused_ce_dbt_tf32 and no fused_ce.cu entry."""
     called = []
     real = fa._fn
 
@@ -525,6 +528,22 @@ def test_f32_launches_reach_the_tf32_symbols(dev, monkeypatch):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_fwd(qm, k, v, pad)
     assert fa.flash_attention_fwd.launches == n0 and len(called) == 2
+    # the fused CE rows 6 and 11 (dbt only) in f32: their `_tf32` entries,
+    # no fused_ce.cu entry
+    ce_called = []
+    real_fn = fc._fn
+
+    def record_fn(sym, n_ptrs, n_ints, lib="fused_ce"):
+        ce_called.append((lib, sym))
+        return real_fn(sym, n_ptrs, n_ints, lib)
+    monkeypatch.setattr(fc, "_fn", record_fn)
+    h, w, lab, dl, dg = _ce_case(dev, torch.float32, 16, 300, 64, 4)
+    xa, bt = _lora_case(dev, torch.float32, 16, 300, 4, 5)
+    lse = fc.fused_ce_fwd(h, w, lab)[0]
+    fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg, want_dw=False)
+    torch.cuda.synchronize()
+    assert ce_called == [("fused_ce_fwd_tf32", "mft_fused_ce_fwd_tf32"),
+                         ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32")]
 
 
 def test_flash_autograd_launches_the_backward_kernels(dev):
@@ -872,17 +891,57 @@ def test_fused_ce_dh_tf32_kernels(dev, R, V, H, r):
 
 
 def test_f32_dh_kernels_refuse_h_not_a_multiple_of_8(dev):
-    """Rows 7 and 10 in f32 refuse H 1,004 before any launch, as bf16
-    does (the first versions took it; no model has such a width)."""
+    """Rows 6, 7, 10 and 11 (dbt only) in f32 refuse H 1,004 before any
+    launch, as bf16 does (the first versions took it; no model has such a
+    width)."""
     h, w, lab, dl, dg = _ce_case(dev, torch.float32, 8, 100, 1004, 2)
     xa, bt = _lora_case(dev, torch.float32, 8, 100, 8, 2)
-    for kernel, args in ((fc.fused_ce_bwd_dh, (h, w, lab, dl, dl, dg)),
-                         (fc.fused_ce_bwd_dh_lora,
-                          (h, w, xa, bt, lab, dl, dl, dg))):
+    for kernel, args, kw in (
+            (fc.fused_ce_bwd_dh, (h, w, lab, dl, dl, dg), {}),
+            (fc.fused_ce_bwd_dh_lora, (h, w, xa, bt, lab, dl, dl, dg), {}),
+            (fc.fused_ce_fwd, (h, w, lab), {}),
+            (fc.fused_ce_bwd_dw_lora, (h, w, xa, bt, lab, dl, dl, dg),
+             {"want_dw": False})):
         n0 = kernel.launches
         with pytest.raises(ValueError, match="H % 8"):
-            kernel(*args)
+            kernel(*args, **kw)
         assert kernel.launches == n0
+
+
+@pytest.mark.parametrize("R,V,H,r", [
+    (128, 262144, 640, 8),      # the Gemma chunk, the default-dtype path's
+    (37, 50257, 1152, 3),       # ragged R and V, Gemma-3-1B's width, odd r
+    (70, 20011, 640, 1),        # two row tiles, a ragged V, rank 1
+    (100, 5003, 640, 128),      # the largest rank: 32-row tiles
+    (120, 50257, 768, 5),       # GPT-2's width: 32-row tiles
+])
+def test_fused_ce_fwd_and_dbt_tf32_kernels(dev, R, V, H, r):
+    """Rows 6 and 11 (dbt only) in f32 on their 3xTF32 kernels against
+    the plain versions: lse and gold within 1e-4; dbt within 1e-4 of
+    max(1, max |ref|), its softmax part alone (dgold = 0) within 1e-4 of
+    max |ref|; two calls give identical bits; one launch a call."""
+    h, w, lab, dl, dg = _ce_case(dev, torch.float32, R, V, H, seed=R + r)
+    xa, bt = _lora_case(dev, torch.float32, R, V, r, seed=r)
+    n0 = fc.fused_ce_fwd.launches
+    lse, gold = fc.fused_ce_fwd(h, w, lab)
+    lse2, gold2 = fc.fused_ce_fwd(h, w, lab)
+    rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
+    torch.cuda.synchronize()
+    assert fc.fused_ce_fwd.launches == n0 + 2
+    assert torch.equal(lse, lse2) and torch.equal(gold, gold2)
+    assert float((lse - rl).abs().max()) <= 1e-4
+    assert float((gold - rg).abs().max()) <= 1e-4
+    lse = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    for dgold, err in ((dg, _rel_err), (torch.zeros_like(dg), _scaled_err)):
+        args = (h, w, xa, bt, lab, lse, dl, dgold)
+        n0 = fc.fused_ce_bwd_dw_lora.launches
+        no_dw, dbt = fc.fused_ce_bwd_dw_lora(*args, want_dw=False)
+        _, again = fc.fused_ce_bwd_dw_lora(*args, want_dw=False)
+        torch.cuda.synchronize()
+        assert fc.fused_ce_bwd_dw_lora.launches == n0 + 2
+        assert no_dw is None and torch.equal(dbt, again)
+        ref = fc.fused_ce_dw_lora_reference(*args, want_dw=False)[1]
+        assert err(dbt, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("R,V,H,r", [

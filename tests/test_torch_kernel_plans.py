@@ -24,11 +24,13 @@ covers every logical column, so every live page's rows, once, and its
 lane map loads each K and V element of a chunk once, a row's lanes on
 contiguous bytes; and the dtype picks the library: bf16 /
 f16 the `_mma` (and `_vec`) sources, f32 the first versions but for rows
-1-2, 7 and 10, whose f32 sources are the 3xTF32 `_tf32` ones (their
-plans, tiles and shared memory too: rows 7 and 10's `dh_tf32_plan` and
-`dh_lora_tf32_plan` cover every (row tile, vocab slab) once and every
-output column once, fit the card at every f32 shape the card checks run
-and refuse what they do not take). No card needed."""
+1-2, 6, 7, 10 and 11 (dbt only), whose f32 sources are the 3xTF32 `_tf32`
+ones (their plans, tiles and shared memory too: rows 7 and 10's
+`dh_tf32_plan` and `dh_lora_tf32_plan` cover every (row tile, vocab
+slab) once and every output column once, rows 6 and 11's `fwd_tf32_plan`
+and `dbt_tf32_plan` every (row tile, vocab slab) once; they fit the card
+at every f32 shape the card checks run and refuse what they do not
+take). No card needed."""
 
 import itertools
 import os
@@ -73,17 +75,17 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
     "paged": ("paged_decode_attention_vec",
               "mft_paged_decode_attention_vec")}
-FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 7 and 10
-    # in 3xTF32
+FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6, 7, 10
+    # and 11 (dbt only) in 3xTF32
     "fwd": ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
     "bwd": ("flash_attention_bwd_merged_tf32",
             "mft_flash_attention_bwd_merged_tf32"),
-    "ce_fwd": ("fused_ce", "mft_fused_ce_fwd"),
+    "ce_fwd": ("fused_ce_fwd_tf32", "mft_fused_ce_fwd_tf32"),
     "dh": ("fused_ce_dh_tf32", "mft_fused_ce_dh_tf32"),
     "dw": ("fused_ce", "mft_fused_ce_dw"),
     "dh_lora": ("fused_ce_dh_lora_tf32", "mft_fused_ce_dh_lora_tf32"),
     "ce_fwd_lora": ("fused_ce", "mft_fused_ce_fwd_lora"),
-    "dbt": ("fused_ce", "mft_fused_ce_dw_lora"),
+    "dbt": ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32"),
     "epi": ("lora_epilogue", "mft_lora_epilogue"),
     "decode": ("decode_attention", "mft_decode_attention"),
     "paged": ("paged_decode_attention", "mft_paged_decode_attention")}
@@ -173,7 +175,11 @@ def test_tf32_sources_use_3xtf32_mma_sync():
     Rows 7 and 10's split by the header's integer rounding (cvt.rna's
     bits), load h and W fragments by ldmatrix and W's transposed B
     fragments by 32-bit loads, and take the same three products a k-step
-    (lo.hi, hi.lo, hi.hi), by mma_3xtf32 or term by term."""
+    (lo.hi, hi.lo, hi.hi), by mma_3xtf32 or term by term. Rows 6 and 11
+    (dbt only) split with a raw lo (hi by the integer rounding, lo = x -
+    hi, whose top 19 bits the mma.sync reads), load W's A and h's B
+    fragments by ldmatrix and take the same three terms in the same
+    order, straight-line around each mma.sync."""
     hdr = _source("tensor_core_tf32.cuh")
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in hdr
     assert "cvt.rna.tf32.f32" in hdr
@@ -208,6 +214,26 @@ def test_tf32_sources_use_3xtf32_mma_sync():
         j = text.index("mma_1688_tf32(hh[j], ah, bh[2 * j], bh[2 * j + 1]);")
         k = text.index("mma_1688_tf32(sm[j], ah, bl[2 * j], bl[2 * j + 1]);")
         assert i < j < k
+    body = hdr[hdr.index("void split_tf32_raw_lo("):]
+    body = body[:body.index("}")]
+    assert "hi = tf32_round_bits(x);" in body
+    assert "lo = __float_as_uint(x - __uint_as_float(hi));" in body
+    for name in ("fused_ce_fwd_tf32.cu", "fused_ce_dbt_tf32.cu"):
+        text = _source(name)
+        assert '#include "tensor_core_tf32.cuh"' in text
+        assert "m16n8k8" in text and "ldmatrix_x4(" in text
+        assert "cp_async_16(" in text and "split_tf32_raw_lo(" in text
+        assert "split_tf32(" not in text and "split_tf32_bits(" not in text
+        assert "mma_16816" not in text and "ldmatrix_x4_trans" not in text
+        i = text.index("mma_1688_tf32(sm[j], al, bh[j / 2][2 * (j % 2)],")
+        j = text.index("mma_1688_tf32(hh[j], ah, bh[j / 2][2 * (j % 2)],")
+        k = text.index("mma_1688_tf32(sm[j], ah, bl[j / 2][2 * (j % 2)],")
+        assert i < j < k
+        # no branch between a k-step's loads and its products
+        chunk = text[text.index("void logits_chunk("):]
+        chunk = chunk[:chunk.index("\n}\n")]
+        assert chunk.count("if (") == 1 and "if (ks + 1 < NKS)" in chunk
+    assert "mma_3xtf32(" in _source("fused_ce_dbt_tf32.cu")
 
 
 def test_tensor_core_sources_use_mma_sync():
@@ -232,7 +258,8 @@ def test_new_sources_are_built_and_call_no_library():
                  "fused_ce_fwd_lora_mma", "fused_ce_dbt_mma",
                  "flash_attention_fwd_tf32",
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
-                 "fused_ce_dh_lora_tf32"):
+                 "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
+                 "fused_ce_dbt_tf32"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -865,6 +892,148 @@ def test_tf32_dh_plans_refuse_h_not_a_multiple_of_8(H):
 def test_tf32_dh_lora_plan_refuses_a_rank_out_of_range(r):
     with pytest.raises(ValueError, match="rank"):
         fc.dh_lora_tf32_plan(16, 100, 64, r, N_SM)
+
+
+# ----------------------------------------- rows 6 and 11 (dbt) in f32 ------
+
+LOGITS_SHAPES = [  # (R, V, H, r): r 0 is row 6
+    (128, 262144, 640, 0),      # the Gemma chunk, default dtype
+    (256, 262144, 640, 0),      # batch 8
+    (120, 50257, 1152, 0),      # chip_smoke's ragged_f32 (Gemma-3-1B width)
+    (37, 50257, 1152, 0),
+    (37, 1001, 200, 0),
+    (8, 100, 8, 0),
+    (300, 50257, 768, 0),       # GPT-2's width, more row tiles than slabs
+    (40, 3001, 1520, 0),
+    (128, 262144, 640, 8),      # the Gemma chunk with the head adapter
+    (128, 262144, 640, 1),
+    (128, 262144, 640, 128),    # the largest rank
+    (128, 20011, 640, 8),       # the card test's ragged V
+    (120, 50257, 1000, 4),      # chip_smoke's ragged_f32
+    (37, 50257, 1000, 1),
+    (37, 1001, 200, 3),
+    (100, 5003, 640, 128),
+]
+LOGITS_SOURCES = {"fused_ce_fwd_tf32.cu": "fwd_tf32_kernel",
+                  "fused_ce_dbt_tf32.cu": "dbt_tf32_kernel"}
+
+
+def _logits_plan(R, V, H, r, n_sm=N_SM):
+    return (fc.dbt_tf32_plan(R, V, H, r, n_sm) if r
+            else fc.fwd_tf32_plan(R, V, H, n_sm))
+
+
+@pytest.mark.parametrize("name", sorted(LOGITS_SOURCES))
+def test_logits_tf32_plan_constants_match_the_source(name):
+    """VT, WARPS, the stage bound and the block limit, the shared-memory
+    formula (the h tile and a ring of W chunks, 16 rows a warp), the grid,
+    and an instantiation for every (row tile, chunk) of LOGITS_PLANS and
+    of kernel_variants.py's PLAN_SWEEP."""
+    text = _source(name)
+    assert _constexpr(text, "VT") == fc.LOGITS_VOCAB_TILE == 128
+    assert _constexpr(text, "WARPS") == fc.LOGITS_WARPS == 8
+    assert fc.LOGITS_VOCAB_TILE == 16 * fc.LOGITS_WARPS
+    assert _constexpr(text, "SMEM_MAX") == fc.SMEM_MAX
+    assert _constexpr(text, "MAX_STAGES") >= max(p[2] for p in
+                                                 fc.LOGITS_PLANS)
+    x = "HX" if "dbt" in name else "H"
+    assert f"return ((size_t)RT * ({x} + 4) + (size_t)stages * VT * (KC + " \
+           f"4)) *" in text
+    assert "float* w_w = w_s + warp * stages * 16 * LDW;" in text
+    assert "const int t0 = slab * tiles_per_slab;" in text
+    assert f"{LOGITS_SOURCES[name]}<NJ, KC><<<grid, THREADS, smem, st>>>" \
+        in text
+    launches = set(re.findall(r"if \(row_tile == (\d+) && chunk == (\d+)\) "
+                              r"MFT_LAUNCH\((\d), (\d+)\);", text))
+    assert all(int(rt) == 8 * int(nj) and kc == kc2
+               for rt, kc, nj, kc2 in launches)
+    import kernel_variants
+    assert {(rt, kc) for rt, kc, _, kc2 in launches} >= \
+        {(str(rt), str(kc)) for rt, kc, _ in
+         fc.LOGITS_PLANS + kernel_variants.PLAN_SWEEP}
+    if "dbt" in name:
+        assert _constexpr(text, "MAX_RANK") == fc.MAX_RANK
+        assert "return H + (r + 7) / 8 * 8;" in text
+
+
+@pytest.mark.parametrize("R,V,H,r", LOGITS_SHAPES)
+def test_logits_tf32_plan_covers_each_tile_once(R, V, H, r):
+    """Every (row, 128-row vocab tile) lies in exactly one CTA and no CTA
+    is empty; the widened row is H plus r rounded up to 8."""
+    plan = _logits_plan(R, V, H, r)
+    rt, vt = plan["row_tile"], fc.LOGITS_VOCAB_TILE
+    span = plan["tiles_per_slab"] * vt
+    gx, gy = plan["grid"]
+    assert gx == plan["row_tiles"] == -(-R // rt) and gy == plan["n_slabs"]
+    hits = np.zeros((R, -(-V // vt)), dtype=np.int64)
+    for slab, x in itertools.product(range(gy), range(gx)):
+        r0, v0 = x * rt, slab * span
+        assert r0 < R and v0 < V          # no empty CTA
+        hits[r0:r0 + rt, v0 // vt:(v0 + span) // vt] += 1
+    assert (hits == 1).all()
+    assert plan["hx"] == H + -(-r // 8) * 8
+
+
+@pytest.mark.parametrize("R,V,H,r", LOGITS_SHAPES)
+def test_logits_tf32_plan_fits_the_card(R, V, H, r):
+    """The h (+ xa) tile and every warp's ring of W chunks within the
+    232,448 bytes a block may use, the first plan of LOGITS_PLANS that
+    does, and one wave of CTAs when the vocabulary has enough tiles."""
+    plan = _logits_plan(R, V, H, r)
+    rt, kc, st, hx = (plan["row_tile"], plan["chunk"], plan["stages"],
+                      plan["hx"])
+
+    def smem(rt, kc, st):
+        return (rt * (hx + 4) + st * 128 * (kc + 4)) * 4
+    assert plan["smem_bytes"] == smem(rt, kc, st) <= fc.SMEM_MAX == 232448
+    fits = [p for p in fc.LOGITS_PLANS if smem(*p) <= fc.SMEM_MAX]
+    assert (rt, kc, st) == fits[0]
+    gx, gy = plan["grid"]
+    if -(-V // fc.LOGITS_VOCAB_TILE) * gx >= N_SM and gx <= N_SM:
+        assert gx * gy <= N_SM
+
+
+def test_logits_tf32_plans_at_the_gemma_chunk():
+    """R 128, V 262,144, H 640: 64-row tiles, 32-column chunks, two
+    stages a warp, 2 x 64 CTAs of 8 warps; row 11 the same at r 8, 32-row
+    tiles and 64-column chunks at r 128."""
+    plan = fc.fwd_tf32_plan(128, 262144, 640, N_SM)
+    assert (plan["row_tile"], plan["chunk"], plan["stages"],
+            plan["n_slabs"], plan["tiles_per_slab"]) == (64, 32, 2, 64, 32)
+    assert plan["grid"] == (2, 64) and plan["smem_bytes"] == 201728
+    lora = fc.dbt_tf32_plan(128, 262144, 640, 8, N_SM)
+    assert (lora["row_tile"], lora["chunk"], lora["stages"], lora["hx"],
+            lora["row_tiles"]) == (64, 32, 2, 648, 2)
+    assert lora["grid"] == (2, 64)
+    big = fc.dbt_tf32_plan(128, 262144, 640, 128, N_SM)
+    assert (big["row_tile"], big["chunk"], big["hx"]) == (32, 64, 768)
+
+
+def test_logits_tf32_plans_limit_the_width():
+    """A 16-row h tile and one 64-column W chunk a warp fit up to a
+    widened row of 3,084 columns: row 6 takes H 3,080 and refuses 3,088,
+    naming H; row 11 at r 128 takes H 2,952 and refuses 2,960, naming H
+    and r."""
+    assert fc.fwd_tf32_plan(16, 100, 3080, N_SM)["stages"] == 1
+    with pytest.raises(ValueError, match="H=3088 does not fit"):
+        fc.fwd_tf32_plan(16, 100, 3088, N_SM)
+    assert fc.dbt_tf32_plan(16, 100, 2952, 128, N_SM)["hx"] == 3080
+    with pytest.raises(ValueError, match="H=2960, r=128 does not fit"):
+        fc.dbt_tf32_plan(16, 100, 2960, 128, N_SM)
+
+
+@pytest.mark.parametrize("H", [1004, 642, 7, 0])
+def test_logits_tf32_plans_refuse_h_not_a_multiple_of_8(H):
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fwd_tf32_plan(16, 100, H, N_SM)
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.dbt_tf32_plan(16, 100, H, 8, N_SM)
+
+
+@pytest.mark.parametrize("r", [0, -1, 129])
+def test_dbt_tf32_plan_refuses_a_rank_out_of_range(r):
+    with pytest.raises(ValueError, match="rank"):
+        fc.dbt_tf32_plan(16, 100, 64, r, N_SM)
 
 
 # ------------------------------------------------------------- row 2 -------
