@@ -1194,12 +1194,11 @@ def check_fused_ce_lora(torch, fc, dev):
     mode): max abs error over max(1, max |ref|) with random dgold, and
     over max |ref| with dgold = 0 (the softmax part alone). The forward,
     dh + dxa and dbt-only mode of bf16 / f16 run on the tensor-core
-    kernels, of f32 (and row 11's dW + dbt mode of every dtype) on
-    fused_ce.cu but dh + dxa and the dbt-only mode, which run on the
-    3xTF32 kernels: the path case's (lse, gold), (dh, dxa) and dbt-only
-    twice must give identical bits, and a bf16 H that is not a multiple
-    of 8 must be refused by all three, an f32 one by dh + dxa and the
-    dbt-only mode. Returns the path case's max abs errors and inputs."""
+    kernels, of f32 on the 3xTF32 kernels (row 11's dW + dbt mode of
+    every dtype on fused_ce.cu): the path case's (lse, gold), (dh, dxa)
+    and dbt-only twice must give identical bits, and an H that is not a
+    multiple of 8 must be refused by all three, in bf16 and in f32.
+    Returns the path case's max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, r, tol)
         ("path", torch.bfloat16, 128, 262144, 640, 8, 2e-3),
         ("ragged", torch.bfloat16, 120, 50257, 1000, 4, 2e-3),
@@ -1281,6 +1280,8 @@ def check_fused_ce_lora(torch, fc, dev):
         check(refuses(fn), f"{name} took a bf16 H = 1004 (not a multiple "
                            f"of 8)")
     h, w, xa, bt = h.float(), w.float(), xa.float(), bt.float()
+    check(refuses(lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab)),
+          "fused_ce_fwd_lora took an f32 H = 1004 (not a multiple of 8)")
     check(refuses(lambda: fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, dl, dl,
                                                   dg)),
           "fused_ce_bwd_dh_lora took an f32 H = 1004 (not a multiple of 8)")
@@ -1289,6 +1290,69 @@ def check_fused_ce_lora(torch, fc, dev):
           "fused_ce_bwd_dw_lora (dbt only) took an f32 H = 1004 (not a "
           "multiple of 8)")
     return path
+
+
+def check_wide_h(torch, fc, dev):
+    """The fused CE width rule on the card: the chunked loss at
+    Gemma-3-4B's width (B 4 x S 257, 8 chunks of 4 x 32 rows, H 2,560, V
+    262,144), which no fused CE layout takes, in bf16 and f32, with and
+    without a rank-8 head adapter: impl "auto" must launch no fused CE
+    kernel (ops/fused_ce.fused_ce_eligible is false there, so every
+    chunk takes the plain body) and give impl "plain"'s sum, count and
+    gradients (hidden states, and A, B) to 1e-6 of their size. Returns
+    {case: {"max_rel_err", "fused_launches"}}."""
+    from mobilefinetuner_tpu_torch.ops import loss
+    kernels = (fc.fused_ce_fwd, fc.fused_ce_bwd_dh, fc.fused_ce_bwd_dw,
+               fc.fused_ce_fwd_lora, fc.fused_ce_bwd_dh_lora,
+               fc.fused_ce_bwd_dw_lora)
+    B, S, H, V, r = 4, 257, 2560, 262144, 8
+    g = torch.Generator(device=dev).manual_seed(45)
+    hid32 = torch.randn(B, S, H, generator=g, device=dev)
+    w32 = 0.02 * torch.randn(V, H, generator=g, device=dev)
+    labels = torch.randint(0, V, (B, S), generator=g, device=dev)
+    a32 = 0.02 * torch.randn(H, r, generator=g, device=dev)
+    b32 = 0.1 * torch.randn(r, V, generator=g, device=dev)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        w = w32.to(dt)
+        for head_on in (False, True):
+            got = {}
+            for impl in ("plain", "auto"):
+                leaves = [t.to(dt).requires_grad_(True)
+                          for t in (hid32, a32, b32)]
+                head = ({"A": leaves[1], "B": leaves[2],
+                         "scale": torch.tensor(4.0, device=dev)}
+                        if head_on else None)
+                n = [f.launches for f in kernels]
+                s, c = loss.chunked_lm_cross_entropy_sum(
+                    leaves[0], w, labels, num_chunks=GEMMA["chunks"],
+                    impl=impl, lora_head=head)
+                grads = torch.autograd.grad(
+                    s, leaves if head_on else leaves[:1])
+                torch.cuda.synchronize()
+                fused = sum(f.launches for f in kernels) - sum(n)
+                got[impl] = (s.detach(), int(c), grads, fused)
+            name = f"{str(dt)[6:]}{'_head' if head_on else ''}"
+            err = max(rel_err(a, b) for a, b in zip(
+                (got["auto"][0], *got["auto"][2]),
+                (got["plain"][0], *got["plain"][2])))
+            out[name] = {"max_rel_err": err,
+                         "fused_launches": got["auto"][3]}
+            check(got["auto"][3] == 0, f"wide H {name}: the chunked loss "
+                  f"launched {got['auto'][3]} fused CE kernels at H {H}")
+            check(got["auto"][1] == got["plain"][1] == B * (S - 1),
+                  f"wide H {name}: counts {got['auto'][1]} / "
+                  f"{got['plain'][1]}")
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      (got["auto"][0], *got["auto"][2])),
+                  f"wide H {name}: non-finite loss or gradient")
+            check(err <= 1e-6, f"wide H {name}: auto vs plain {err:.3e}")
+            del got, leaves, grads
+        del w
+    print(f"wide H (H {H}, V {V}, {GEMMA['chunks']} chunks of {B} x 32 "
+          f"rows): impl auto = impl plain, no fused CE launch: "
+          + json.dumps(out))
+    return out
 
 
 def check_gemma(torch, dev):
@@ -3648,6 +3712,17 @@ def fma_fwd(torch, fc, h, w, labels):
     return lse, gold
 
 
+def fma_fwd_lora(torch, fc, h, w, xa, bt, labels):
+    """(lse, gold) through row 9's f32 FMA first version (fused_ce.cu's
+    mft_fused_ce_fwd_lora and its merge pass, on its own slab plan), which
+    no path runs since f32 moved to fused_ce_fwd_lora_tf32.cu; its
+    launches are outside the wrapper's count."""
+    from mobilefinetuner_tpu_torch.kernels import build
+    code, lse, gold = fc._launch_fwd(h, w, labels, (xa, bt))
+    build.check_launch("fused_ce.cu fwd_lora", code)
+    return lse, gold
+
+
 def fma_dbt(torch, fc, h, w, xa, bt, labels, rows):
     """dbt through row 11's f32 FMA first version (fused_ce.cu's
     mft_fused_ce_dw_lora with no dW), which no path runs since f32's
@@ -3669,13 +3744,16 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     """Row 5 and the fused CE rows in f32, every CLI's default dtype:
     row 5 on its first version (lora_epilogue.cu) at GPT-2's attn_qkv, y
     1024 x 2304, r 8; at the Gemma chunk (R 128, V 262,144, H 640; rows
-    9-11 at r 8, row 11 in its dbt-only mode) row 9 on fused_ce.cu and
-    rows 6, 7, 10 and 11 on their 3xTF32 kernels (fused_ce_fwd_tf32.cu,
-    fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu, fused_ce_dbt_tf32.cu),
-    each of those four timed in turns with its fused_ce.cu first version
-    (fma_fwd, fma_dh, fma_dbt; held against the plain version too), its
-    two calls bit-identical, and rows 7, 10 and 11 also held against the
-    plain version with dgold = 0 (the softmax part, over max |ref|). Each
+    9-11 at r 8, row 11 in its dbt-only mode) row 8 on fused_ce.cu (no
+    path launches it in f32: `gemma_full_finetune`'s default dtype would)
+    and rows 6, 7, 9, 10 and 11 on their 3xTF32 kernels
+    (fused_ce_fwd_tf32.cu, fused_ce_dh_tf32.cu, fused_ce_fwd_lora_tf32.cu,
+    fused_ce_dh_lora_tf32.cu, fused_ce_dbt_tf32.cu), each of those five
+    timed in turns with its fused_ce.cu first version (fma_fwd, fma_dh,
+    fma_fwd_lora, fma_dbt; held against the plain version too), rows 6,
+    9 and 11 with two calls bit-identical, and rows 7, 8, 10 and 11 also
+    held against the plain version with dgold = 0 (the softmax part,
+    over max |ref|). Each
     is held against its plain version (check_epilogue's and
     check_fused_ce's f32 tolerances), timed beside the bf16 entries'
     library call run in f32 (TF32 off) and bounded at the 3xTF32 rate,
@@ -3709,25 +3787,32 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     lse, gold = fc.fused_ce_fwd(h, w, lab)
     lse_l, gold_l = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
     dbt = fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]
+    e8 = rel_err(fc.fused_ce_bwd_dw(*ce), fc.fused_ce_dw_reference(*ce))
     ref_dh = fc.fused_ce_dh_reference(*ce)
     ref_dhl = fc.fused_ce_dh_lora_reference(*lora)
     ref_dbt = fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1]
     errs = {
         "fused_ce_fwd": max(max_err(lse, rl), max_err(gold, rg)),
         "fused_ce_dh": rel_err(fc.fused_ce_bwd_dh(*ce), ref_dh),
+        "fused_ce_dw": e8,
         "fused_ce_fwd_lora": max(max_err(lse_l, rll), max_err(gold_l, rlg)),
         "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
             fc.fused_ce_bwd_dh_lora(*lora), ref_dhl)),
         "fused_ce_dw_lora": rel_err(dbt, ref_dbt)}
     lse2, gold2 = fc.fused_ce_fwd(h, w, lab)
+    lse_l2, gold_l2 = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
     twice = {"fused_ce_fwd": bool(torch.equal(lse, lse2)
                                   and torch.equal(gold, gold2)),
+             "fused_ce_fwd_lora": bool(torch.equal(lse_l, lse_l2)
+                                       and torch.equal(gold_l, gold_l2)),
              "fused_ce_dw_lora": bool(torch.equal(
                  dbt, fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]))}
     z = torch.zeros_like(dg)
     ce0, lora0 = ce[:5] + (z,), lora[:7] + (z,)
     sm = {"fused_ce_dh": scaled_err(fc.fused_ce_bwd_dh(*ce0),
                                     fc.fused_ce_dh_reference(*ce0)),
+          "fused_ce_dw": scaled_err(fc.fused_ce_bwd_dw(*ce0),
+                                    fc.fused_ce_dw_reference(*ce0)),
           "fused_ce_dh_lora": max(scaled_err(a, b) for a, b in zip(
               fc.fused_ce_bwd_dh_lora(*lora0),
               fc.fused_ce_dh_lora_reference(*lora0))),
@@ -3735,7 +3820,10 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
               fc.fused_ce_bwd_dw_lora(*lora0, want_dw=False)[1],
               fc.fused_ce_dw_lora_reference(*lora0, want_dw=False)[1])}
     lse_f, gold_f = fma_fwd(torch, fc, h, w, lab)
+    lse_lf, gold_lf = fma_fwd_lora(torch, fc, h, w, xa, bt, lab)
     earlier = {"fused_ce_fwd": max(max_err(lse_f, rl), max_err(gold_f, rg)),
+               "fused_ce_fwd_lora": max(max_err(lse_lf, rll),
+                                        max_err(gold_lf, rlg)),
                "fused_ce_dh": rel_err(fma_dh(torch, fc, h, w, lab, ce[3:]),
                                       ref_dh),
                "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
@@ -3744,12 +3832,12 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
                "fused_ce_dw_lora": rel_err(
                    fma_dbt(torch, fc, h, w, xa, bt, lab, lora[5:]),
                    ref_dbt)}
-    del ref_dh, ref_dhl, ref_dbt, lse_f, gold_f
+    del ref_dh, ref_dhl, ref_dbt, lse_f, gold_f, lse_lf, gold_lf
     print("f32 fused CE at the Gemma chunk (R 128, V 262144, H 640, r 8): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + "; softmax part (dgold = 0) over max |ref| " + ", ".join(
               f"{k} {v:.3e}" for k, v in sm.items())
-          + "; first versions of rows 6 / 7 / 10 / 11 " + ", ".join(
+          + "; first versions of rows 6 / 9 / 7 / 10 / 11 " + ", ".join(
               f"{k} {v:.3e}" for k, v in earlier.items())
           + f" (tolerance 1e-4); two calls identical: {twice}")
     check(max(*errs.values(), *sm.values(), *earlier.values()) <= 1e-4,
@@ -3757,7 +3845,7 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
           f"versions: {errs}, {sm}, first versions {earlier}")
     check(all(twice.values()), f"f32 fused CE: two calls gave different "
           f"bits: {twice}")
-    times, bounds = fused_ce_times(torch, fc, ce, CE_KEYS[:2], f32_bound)
+    times, bounds = fused_ce_times(torch, fc, ce, CE_KEYS, f32_bound)
     lora_times, lora_bounds = fused_ce_lora_times(
         torch, fc, lora, CE_LORA_KEYS[:3], f32_bound)
     times.update(lora_times)
@@ -3768,6 +3856,9 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     times["fused_ce_dh"].update(in_turns(
         lambda: fc.fused_ce_bwd_dh(*ce),
         lambda: fma_dh(torch, fc, h, w, lab, ce[3:]), 10))
+    times["fused_ce_fwd_lora"].update(in_turns(
+        lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab),
+        lambda: fma_fwd_lora(torch, fc, h, w, xa, bt, lab), 10))
     times["fused_ce_dh_lora"].update(in_turns(
         lambda: fc.fused_ce_bwd_dh_lora(*lora),
         lambda: fma_dh(torch, fc, h, w, lab, lora[5:], (xa, bt)), 10))
@@ -3778,8 +3869,10 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
                               "fused_ce_fwd_tf32.cu"),
              "fused_ce_dh": ("fused_ce_bwd_dh", "fused_ce.py:196", "",
                              "fused_ce_dh_tf32.cu"),
+             "fused_ce_dw": ("fused_ce_bwd_dw", "fused_ce.py:224", "",
+                             "fused_ce.cu"),
              "fused_ce_fwd_lora": ("fused_ce_fwd_lora", "fused_ce.py:350",
-                                   ", r 8", "fused_ce.cu"),
+                                   ", r 8", "fused_ce_fwd_lora_tf32.cu"),
              "fused_ce_dh_lora": ("fused_ce_bwd_dh_lora", "fused_ce.py:384",
                                   ", r 8", "fused_ce_dh_lora_tf32.cu"),
              "fused_ce_dw_lora": ("fused_ce_bwd_dw_lora", "fused_ce.py:421",
@@ -3795,6 +3888,11 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
                          ptxas=ptxas[source[:-3]])
         if key in sm:
             extra["softmax_part_err"] = sm[key]
+        if key == "fused_ce_dw":     # its first version, no path's launch
+            extra.update(ptxas=[row for row in ptxas["fused_ce"]
+                                if row[0].startswith("dw_kernel<f32")],
+                         path="none: gemma_full_finetune at its default "
+                              "dtype (f32) would launch it 8 times a step")
         out[name] = kernel_entry(name, source, line,
                                  sum(ce_f32[key].values()), errs[key],
                                  times[key], bounds[key], extra)
@@ -5324,10 +5422,11 @@ def main(argv=None) -> int:
     for name in ("flash_attention_fwd_tf32",
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
                  "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
-                 "fused_ce_dbt_tf32"):
+                 "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32"):
         check(all(row[2] == 0 and row[3] == 0 for row in ptxas[name]),
               f"{name} spills registers: {ptxas[name]}")
     if argv == ["--only", "f32_ce"]:
+        check_wide_h(torch, fc, dev)
         zeros = {p: 0 for p in CE_F32_PATHS}
         entries = f32_ce_entries(
             torch, fc, lf, dev,
@@ -5358,6 +5457,7 @@ def main(argv=None) -> int:
     decode_cases = check_decode(torch, da, dev)
     ce_err, ce_args = check_fused_ce(torch, fc, dev)
     ce_lora_err, ce_lora_args = check_fused_ce_lora(torch, fc, dev)
+    check_wide_h(torch, fc, dev)
     params32 = check_model(torch, dev)
     check_train_step(torch, dev, params32)
     del params32
@@ -5724,6 +5824,7 @@ def main(argv=None) -> int:
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
     own = {"fused_ce_fwd": "fused_ce_fwd_tf32.cu (its own entry)",
            "fused_ce_bwd_dh": "fused_ce_dh_tf32.cu (its own entry)",
+           "fused_ce_fwd_lora": "fused_ce_fwd_lora_tf32.cu (its own entry)",
            "fused_ce_bwd_dh_lora": "fused_ce_dh_lora_tf32.cu (its own "
                                    "entry)",
            "fused_ce_bwd_dw_lora": "fused_ce_dbt_tf32.cu (its own entry, "

@@ -52,13 +52,14 @@ parent commit's csrc/paged_decode_attention.cu, which took bf16: the
 first version in turns with the new source). Each output is held
 against the source's within 2e-2, and times are taken in turns.
 
-With --f32_ce_plans it times rows 6 and 11 (dbt only) in f32 on their
-3xTF32 sources (`csrc/fused_ce_fwd_tf32.cu`, `csrc/fused_ce_dbt_tf32.cu`)
-at the Gemma chunk (chip_smoke.py's f32 inputs: R 128, V 262,144, H 640,
-r 8) under each launch plan of `PLAN_SWEEP` (rows a CTA, columns of a W
-chunk, chunks in the ring; `ops/fused_ce.LOGITS_PLANS` set to it alone),
-in turns (the plans in order, then in reverse), with each plan's largest
-difference from the plain version (lse and gold; dbt over max(1, |ref|)).
+With --f32_ce_plans it times rows 6, 9 and 11 (dbt only) in f32 on their
+3xTF32 sources (`csrc/fused_ce_fwd_tf32.cu`, `csrc/fused_ce_fwd_lora_tf32.cu`,
+`csrc/fused_ce_dbt_tf32.cu`) at the Gemma chunk (chip_smoke.py's f32
+inputs: R 128, V 262,144, H 640, r 8) under each launch plan of
+`PLAN_SWEEP` (rows a CTA, columns of a W chunk, chunks in the ring;
+`ops/fused_ce.LOGITS_PLANS` set to it alone), in turns (the plans in
+order, then in reverse), with each plan's largest difference from the
+plain version (lse and gold of rows 6 and 9; dbt over max(1, |ref|)).
 Then two probes of row 6 at its own plan, in turns with the source: a
 variant with the W chunks' copies after the first ones left out (its
 output is wrong; the time of the loop without them), at the Gemma chunk
@@ -589,8 +590,8 @@ def f32_ce_plans(torch, build) -> int:
     """--f32_ce_plans (module docstring)."""
     import chip_smoke as cs
     from mobilefinetuner_tpu_torch.ops import fused_ce as fc
-    built = build.build_all(["fused_ce_fwd_tf32", "fused_ce_dbt_tf32"],
-                            verbose=True)
+    built = build.build_all(["fused_ce_fwd_tf32", "fused_ce_dbt_tf32",
+                             "fused_ce_fwd_lora_tf32"], verbose=True)
     for name, (_, log) in built.items():
         print(name, cs.ptxas_summary(log))
     dev = torch.device("cuda", 0)
@@ -601,7 +602,7 @@ def f32_ce_plans(torch, build) -> int:
     xa = torch.randn(128, 8, generator=g, device=dev)
     bt = 0.05 * torch.randn(262144, 8, generator=g, device=dev)
     rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
-    rll = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    rll, rlg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
     lora = (h, w, xa, bt, lab, rll, dl, dg)
     ref_dbt = fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1]
     saved = fc.LOGITS_PLANS
@@ -610,8 +611,11 @@ def f32_ce_plans(torch, build) -> int:
         fc.LOGITS_PLANS = (plan,)
         lse, gold = fc.fused_ce_fwd(h, w, lab)
         dbt = fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]
+        lse_l, gold_l = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
         errs[str(plan)] = (max(cs.max_err(lse, rl), cs.max_err(gold, rg)),
-                           cs.rel_err(dbt, ref_dbt))
+                           cs.rel_err(dbt, ref_dbt),
+                           max(cs.max_err(lse_l, rll),
+                               cs.max_err(gold_l, rlg)))
 
         def run(plan=plan, fn=None):
             fc.LOGITS_PLANS = (plan,)
@@ -620,12 +624,15 @@ def f32_ce_plans(torch, build) -> int:
             plan, lambda: fc.fused_ce_fwd(h, w, lab))
         fns[f"dbt {plan}"] = lambda plan=plan: run(
             plan, lambda: fc.fused_ce_bwd_dw_lora(*lora, want_dw=False))
+        fns[f"fwd_lora {plan}"] = lambda plan=plan: run(
+            plan, lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab))
     torch.cuda._sleep(int(2e9))
     times = in_turns(fns, lambda fn: cs.queued_ms(fn, 10) * 1e3)
     fc.LOGITS_PLANS = saved
     for k, v in times.items():
         plan = k.split(" ", 1)[1]
-        print(f"{k}: {v} us, max err (lse/gold, dbt) {errs[plan]}")
+        print(f"{k}: {v} us, max err (lse/gold, dbt, row 9's lse/gold) "
+              f"{errs[plan]}")
     probes = fwd_copy_probes(torch, build, cs, fc, dev)
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "times_us": times, "errors": errs,

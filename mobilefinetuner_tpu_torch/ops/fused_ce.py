@@ -37,9 +37,11 @@ scale * (h @ A) [R, r] and bt = B^T [V, r]; its variants fold that delta
 into the same tile loop, so the [R, V] delta never exists either:
 
   fused_ce_fwd_lora     (lse, gold) (`_fwd_kernel_lora`, row 9); bf16
-                        and f16 on `csrc/fused_ce_fwd_lora_mma.cu`
-                        (H % 8 == 0), f32 on `csrc/fused_ce.cu`
-                        (fwd_lora_library, fwd_lora_mma_plan).
+                        and f16 on `csrc/fused_ce_fwd_lora_mma.cu`, f32
+                        on the 3xTF32 kernel of
+                        `csrc/fused_ce_fwd_lora_tf32.cu` (H % 8 == 0;
+                        fwd_lora_library, fwd_lora_mma_plan,
+                        fwd_lora_tf32_plan).
   fused_ce_bwd_dh_lora  (dh, dxa [R, r] = coef @ bt) (`_dh_kernel_lora`,
                         row 10); bf16 and f16 on
                         `csrc/fused_ce_dh_lora_mma.cu`, f32 on the 3xTF32
@@ -70,16 +72,28 @@ Bounds and design: csrc/fused_ce.cu and the tensor-core sources
 csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu,
 fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu, fused_ce_dbt_mma.cu
 and the 3xTF32 fused_ce_fwd_tf32.cu, fused_ce_dh_tf32.cu,
-fused_ce_dh_lora_tf32.cu and fused_ce_dbt_tf32.cu. fused_ce.cu's f32
-forward, dh kernels and dbt-only mode, which rows 6, 7, 10 and 11 ran in
-f32 before, stay built as those rows' earlier versions on no path
-(chip_smoke.py times them).
-The kernels take any R, V and H (the tensor-core and 3xTF32 kernels H %
-8 == 0, within their plans' shared memory),
-h and W (and xa, bt) in one of f32 / bf16 / f16; the backward kernels
-hold [32, H] (+ [32, r]) f32 accumulators in shared memory, so H + r <=
-MAX_HIDDEN; the rank is 1..MAX_RANK, taken as it is (the TPU's padding
-of r to 128 lanes is a layout trick of that chip).
+fused_ce_fwd_lora_tf32.cu, fused_ce_dh_lora_tf32.cu and
+fused_ce_dbt_tf32.cu. fused_ce.cu's f32 forward (mft_fused_ce_fwd), head-
+adapter forward (mft_fused_ce_fwd_lora), dh kernels (mft_fused_ce_dh,
+mft_fused_ce_dh_lora) and dbt-only mode (mft_fused_ce_dw_lora with no
+dW), which rows 6, 9, 7, 10 and 11 ran in f32 before, stay built as
+those rows' earlier versions on no path (chip_smoke.py times them); its
+f32 dW and every dtype's dW + dbt mode are on paths.
+The kernels take any R and V, H % 8 == 0 (fused_ce.cu's f32 dW any H)
+within their plans' shared memory, h and W (and xa, bt) in one of f32 /
+bf16 / f16; the backward wrappers refuse H + r > MAX_HIDDEN (fused_ce.cu
+holds [32, H] (+ [32, r]) f32 accumulators in shared memory) but in row
+11's dbt-only mode; the rank is 1..MAX_RANK, taken as it is (the TPU's
+padding of r to 128 lanes is a layout trick of that chip).
+
+Eligibility: `fused_ce_eligible(R, V, H, r, dtype, head_grad)` says,
+from shapes, dtype, rank and whether the head weight trains, whether
+every kernel a loss chunk's forward and backward launch takes it; the
+chunked loss (ops/loss.py) sends a chunk for which it is False to its
+plain body before any launch (a Gemma-3 hidden size of 2,304 or 2,560
+does not fit these layouts), as the JAX package's `_use_fused_ce` checks
+`fused_ce_eligible` / `fused_ce_lora_eligible`. The wrappers themselves
+keep raising on what their kernels refuse.
 """
 
 from __future__ import annotations
@@ -342,7 +356,8 @@ def fwd_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
     """Row 9's kernel for `dtype` (_route)."""
     return _route("fused_ce_fwd_lora",
                   ("fused_ce_fwd_lora_mma", "mft_fused_ce_fwd_lora_mma"),
-                  ("fused_ce", "mft_fused_ce_fwd_lora"), dtype)
+                  ("fused_ce_fwd_lora_tf32", "mft_fused_ce_fwd_lora_tf32"),
+                  dtype)
 
 
 def dbt_library(dtype: torch.dtype) -> Tuple[str, str]:
@@ -373,6 +388,96 @@ def _slab_plan(plan: dict, ctas_per_slab: int, V: int, n_sm: int,
                 grid=(ctas_per_slab, n_slabs))
 
 
+# ---- shared-memory picks: (the first layout of a kernel's list of
+# preference whose shared memory fits the card, its bytes), or None; no
+# check of H or r and no exception, so that fused_ce_eligible can ask them
+
+STAGED_LAYOUTS = ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1))  # (row groups,
+# W buffers) of the 16-bit kernels, in order of preference
+TF32_LAYOUTS = ((2, 3), (2, 2), (1, 3), (1, 2), (1, 1))     # rows 7, 10
+
+
+def _first_fit(layouts, smem):
+    for layout in layouts:
+        nbytes = smem(*layout)
+        if nbytes is not None and nbytes <= SMEM_MAX:
+            return layout, nbytes
+    return None
+
+
+def _fwd_mma_pick(H: int, elem_bytes: int):
+    """Row 6's 16-bit layout (fwd_mma_plan)."""
+    h16 = -(-H // 16) * 16
+    return _first_fit(STAGED_LAYOUTS, lambda rg, st: (
+        (16 * rg + st * MMA_VOCAB_TILE) * (h16 + 8) * elem_bytes))
+
+
+def _dh_mma_pick(H: int, elem_bytes: int):
+    """Row 7's 16-bit layout (dh_mma_plan)."""
+    n_parts = -(-H // MMA_HP_MAX)
+    hp = -(-(-(-H // n_parts)) // 16) * 16
+    ld = -(-H // 16) * 16 + 8
+    return _first_fit(STAGED_LAYOUTS, lambda rg, st: max(
+        (16 * rg + st * MMA_VOCAB_TILE) * ld * elem_bytes, 16 * rg * hp * 4))
+
+
+def _dh_lora_mma_pick(H: int, r: int, elem_bytes: int):
+    """Row 10's 16-bit layout (dh_lora_mma_plan)."""
+    ld = -(-H // 16) * 16 + 8
+    r16 = -(-r // 16) * 16
+    return _first_fit(STAGED_LAYOUTS, lambda rg, st: (
+        2 * rg * r16 * 64 + ((16 * rg + st * MMA_VOCAB_TILE) * (ld + r16 + 8)
+                             + 16 * rg * (MMA_VOCAB_TILE + 8)) * elem_bytes))
+
+
+def _lora_logits_pick(H: int, r: int, elem_bytes: int, coef_tile: bool):
+    """Rows 9 and 11's (dbt-only) 16-bit layout (_lora_logits_plan)."""
+    ld = -(-H // 16) * 16 + 8
+    r16 = -(-r // 16) * 16
+    return _first_fit(STAGED_LAYOUTS, lambda rg, st: (
+        ((16 * rg + st * MMA_VOCAB_TILE) * (ld + r16 + 8)
+         + coef_tile * 16 * rg * (DBT_GROUP * MMA_VOCAB_TILE + 8))
+        * elem_bytes))
+
+
+def _tf32_nt(hx: int, row_groups: int) -> int:
+    return -(-(hx // 8) // (TF32_WARPS * row_groups))
+
+
+def _tf32_pick(hx: int):
+    """Rows 7 and 10's f32 layout over the widened row hx (_tf32_plan):
+    a layout whose n-tiles a warp have no instantiated bound is passed
+    over."""
+    def smem(rg, st):
+        bounds = [b for b in TF32_NT if b >= _tf32_nt(hx, rg)]
+        if not bounds or (rg == 2 and bounds[0] > 6):
+            return None
+        return ((16 * rg + st * TF32_VOCAB_TILE) * (hx + 4)
+                + 2 * 16 * rg * TF32_COEF_LD) * 4 \
+            + rg * TF32_WARPS * 2 * 32 * 16
+    return _first_fit(TF32_LAYOUTS, smem)
+
+
+def _logits_tf32_pick(hx: int):
+    """Rows 6, 9 and 11's (dbt-only) f32 layout over the widened row hx
+    (_logits_tf32_plan)."""
+    return _first_fit(LOGITS_PLANS, lambda rt, kc, st: (
+        (rt * (hx + 4) + st * LOGITS_VOCAB_TILE * (kc + 4)) * 4))
+
+
+def _dw_mma_smem(H: int, rc: int, elem_bytes: int) -> int:
+    ld = -(-H // 16) * 16 + 8
+    return ((rc + DW_VOCAB_TILE) * ld + DW_VOCAB_TILE * (rc + 8)) \
+        * elem_bytes + rc * 16
+
+
+def _dw_mma_fits(H: int, elem_bytes: int) -> list:
+    """The row chunks of DW_ROW_CHUNKS whose row 8 16-bit layout fits
+    (dw_mma_plan)."""
+    return [rc for rc in DW_ROW_CHUNKS
+            if _dw_mma_smem(H, rc, elem_bytes) <= SMEM_MAX]
+
+
 def fwd_mma_plan(R: int, V: int, H: int, n_sm: int,
                  elem_bytes: int = 2) -> dict:
     """The tensor-core forward's launch, as csrc/fused_ce_fwd_mma.cu takes
@@ -387,14 +492,11 @@ def fwd_mma_plan(R: int, V: int, H: int, n_sm: int,
     grid one wave of `n_sm` CTAs (at least one slab)."""
     _require_h8("fused_ce_fwd", H)
     h16 = -(-H // 16) * 16
-    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
-        smem = (16 * row_groups + stages * MMA_VOCAB_TILE) * (h16 + 8) \
-            * elem_bytes
-        if smem <= SMEM_MAX:
-            break
-    else:
+    pick = _fwd_mma_pick(H, elem_bytes)
+    if pick is None:
         raise ValueError(f"fused_ce_fwd tensor-core kernel: H={H} does not "
                          f"fit shared memory")
+    (row_groups, stages), smem = pick
     row_tiles = -(-R // (16 * row_groups))
     return _slab_plan({"row_groups": row_groups, "stages": stages,
                        "h_in_regs": h16 <= 16 * FWD_MMA_KREGS,
@@ -414,15 +516,11 @@ def dh_mma_plan(R: int, V: int, H: int, n_sm: int,
     _require_h8("fused_ce_bwd_dh", H)
     n_parts = -(-H // MMA_HP_MAX)
     hp = -(-(-(-H // n_parts)) // 16) * 16
-    ld = -(-H // 16) * 16 + 8
-    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
-        smem = max((16 * row_groups + stages * MMA_VOCAB_TILE) * ld
-                   * elem_bytes, 16 * row_groups * hp * 4)
-        if smem <= SMEM_MAX:
-            break
-    else:
+    pick = _dh_mma_pick(H, elem_bytes)
+    if pick is None:
         raise ValueError(f"fused_ce_bwd_dh tensor-core kernel: H={H} does "
                          f"not fit shared memory")
+    (row_groups, stages), smem = pick
     row_tiles = -(-R // (16 * row_groups))
     return _slab_plan({"row_groups": row_groups, "stages": stages,
                        "hp": hp, "n_parts": n_parts, "smem_bytes": smem},
@@ -444,17 +542,11 @@ def dh_lora_mma_plan(R: int, V: int, H: int, r: int, n_sm: int,
     _require_rank("fused_ce_bwd_dh_lora", r)
     n_parts = -(-H // DH_LORA_HP_MAX)
     hp = -(-(-(-H // n_parts)) // 32) * 32
-    ld = -(-H // 16) * 16 + 8
-    r16 = -(-r // 16) * 16
-    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
-        smem = 2 * row_groups * r16 * 64 + (
-            (16 * row_groups + stages * MMA_VOCAB_TILE) * (ld + r16 + 8)
-            + 16 * row_groups * (MMA_VOCAB_TILE + 8)) * elem_bytes
-        if smem <= SMEM_MAX:
-            break
-    else:
+    pick = _dh_lora_mma_pick(H, r, elem_bytes)
+    if pick is None:
         raise ValueError(f"fused_ce_bwd_dh_lora tensor-core kernel: H={H},"
                          f" r={r} does not fit shared memory")
+    (row_groups, stages), smem = pick
     row_tiles = -(-R // (16 * row_groups))
     return _slab_plan({"row_groups": row_groups, "stages": stages,
                        "hp": hp, "n_parts": n_parts, "smem_bytes": smem},
@@ -477,20 +569,14 @@ def _tf32_plan(what: str, R: int, V: int, H: int, r: int,
     (row tile, slab), the grid one wave of `n_sm` CTAs."""
     _require_h8(what, H)
     hx = H + (-(-r // 8) * 8 if r else 0)
-    for row_groups, stages in ((2, 3), (2, 2), (1, 3), (1, 2), (1, 1)):
-        nt = -(-(hx // 8) // (TF32_WARPS * row_groups))
-        bounds = [b for b in TF32_NT if b >= nt]
-        if not bounds or (row_groups == 2 and bounds[0] > 6):
-            continue
-        smem = ((16 * row_groups + stages * TF32_VOCAB_TILE) * (hx + 4)
-                + 2 * 16 * row_groups * TF32_COEF_LD) * 4 \
-            + row_groups * TF32_WARPS * 2 * 32 * 16
-        if smem <= SMEM_MAX:
-            break
-    else:
+    pick = _tf32_pick(hx)
+    if pick is None:
         raise ValueError(f"{what} 3xTF32 kernel: H={H}"
                          + (f", r={r}" if r else "")
                          + " does not fit shared memory")
+    (row_groups, stages), smem = pick
+    nt = _tf32_nt(hx, row_groups)
+    bounds = [b for b in TF32_NT if b >= nt]
     row_tiles = -(-R // (16 * row_groups))
     return _slab_plan({"row_groups": row_groups, "stages": stages,
                        "hx": hx, "nt": nt, "nt_bound": bounds[0],
@@ -523,15 +609,12 @@ def _logits_tf32_plan(what: str, R: int, V: int, H: int, r: int,
     count of row tiles (row 11's partials)."""
     _require_h8(what, H)
     hx = H + (-(-r // 8) * 8 if r else 0)
-    for row_tile, chunk, stages in LOGITS_PLANS:
-        smem = (row_tile * (hx + 4)
-                + stages * LOGITS_VOCAB_TILE * (chunk + 4)) * 4
-        if smem <= SMEM_MAX:
-            break
-    else:
+    pick = _logits_tf32_pick(hx)
+    if pick is None:
         raise ValueError(f"{what} 3xTF32 kernel: H={H}"
                          + (f", r={r}" if r else "")
                          + " does not fit shared memory")
+    (row_tile, chunk, stages), smem = pick
     row_tiles = -(-R // row_tile)
     return _slab_plan({"row_tile": row_tile, "chunk": chunk,
                        "stages": stages, "hx": hx, "row_tiles": row_tiles,
@@ -549,6 +632,14 @@ def dbt_tf32_plan(R: int, V: int, H: int, r: int, n_sm: int) -> dict:
     columns)."""
     _require_rank("fused_ce_bwd_dw_lora", r)
     return _logits_tf32_plan("fused_ce_bwd_dw_lora", R, V, H, r, n_sm)
+
+
+def fwd_lora_tf32_plan(R: int, V: int, H: int, r: int, n_sm: int) -> dict:
+    """Row 9's f32 launch (_logits_tf32_plan with the rank's columns): at
+    the Gemma chunk (R 128, H 640, r 8) row 6's 64-row tiles and 32-column
+    chunks over the widened row of 648."""
+    _require_rank("fused_ce_fwd_lora", r)
+    return _logits_tf32_plan("fused_ce_fwd_lora", R, V, H, r, n_sm)
 
 
 def _require_rank(what: str, r: int) -> None:
@@ -569,16 +660,11 @@ def _lora_logits_plan(what: str, R: int, V: int, H: int, r: int,
     _require_rank(what, r)
     ld = -(-H // 16) * 16 + 8
     r16 = -(-r // 16) * 16
-    for row_groups, stages in ((4, 3), (4, 2), (2, 3), (2, 2), (2, 1)):
-        smem = ((16 * row_groups + stages * MMA_VOCAB_TILE) * (ld + r16 + 8)
-                + coef_tile * 16 * row_groups
-                * (DBT_GROUP * MMA_VOCAB_TILE + 8)) \
-            * elem_bytes
-        if smem <= SMEM_MAX:
-            break
-    else:
+    pick = _lora_logits_pick(H, r, elem_bytes, coef_tile)
+    if pick is None:
         raise ValueError(f"{what} tensor-core kernel: H={H}, r={r} does "
                          f"not fit shared memory")
+    (row_groups, stages), smem = pick
     h_in_regs = ld - 8 <= 16 * FWD_MMA_KREGS
     row_tiles = -(-R // (16 * row_groups))
     return _slab_plan({"row_groups": row_groups, "stages": stages,
@@ -620,12 +706,7 @@ def dw_mma_plan(R: int, V: int, H: int, n_sm: int,
     _require_h8("fused_ce_bwd_dw", H)
     n_parts = -(-H // DW_HP_MAX)
     hp = -(-(-(-H // n_parts)) // 128) * 128
-    ld = -(-H // 16) * 16 + 8
-
-    def smem(rc):
-        return ((rc + DW_VOCAB_TILE) * ld + DW_VOCAB_TILE * (rc + 8)) \
-            * elem_bytes + rc * 16
-    fits = [rc for rc in DW_ROW_CHUNKS if smem(rc) <= SMEM_MAX]
+    fits = _dw_mma_fits(H, elem_bytes)
     if not fits:
         raise ValueError(f"fused_ce_bwd_dw tensor-core kernel: H={H} does "
                          f"not fit shared memory")
@@ -633,7 +714,48 @@ def dw_mma_plan(R: int, V: int, H: int, n_sm: int,
     n_items = -(-V // DW_VOCAB_TILE) * n_parts
     return {"row_chunk": rc, "n_chunks": -(-R // rc), "hp": hp,
             "n_parts": n_parts, "n_items": n_items,
-            "n_ctas": min(n_sm, n_items), "smem_bytes": smem(rc)}
+            "n_ctas": min(n_sm, n_items),
+            "smem_bytes": _dw_mma_smem(H, rc, elem_bytes)}
+
+
+def fused_ce_eligible(R: int, V: int, H: int, r: int = 0,
+                      dtype: torch.dtype = torch.float32,
+                      head_grad: bool = False) -> bool:
+    """Whether every kernel that one loss chunk of R rows against a [V, H]
+    head launches, forward and autograd backward, takes that chunk on the
+    card: rows 6 and 7, with row 8 when the head weight needs a gradient
+    (`head_grad`); with a head adapter of rank r, rows 9 and 10 and row 11
+    (its dW + dbt mode when `head_grad`, else dbt only). Each kernel of
+    `dtype`'s route must plan (the `_mma` layouts for bf16 / f16, the
+    3xTF32 ones or fused_ce.cu for f32: the plans' shared-memory picks,
+    H % 8 == 0, 1 <= r <= MAX_RANK) and pass its wrapper's check (H + r <=
+    MAX_HIDDEN for the backward wrappers but row 11's dbt-only mode).
+    Decided from shapes, dtype, rank and head_grad alone: no kernel is
+    called and no error caught. ops/loss.py sends a chunk for which it is
+    False to its plain body, as the JAX package's `_use_fused_ce` sends
+    an ineligible chunk to the XLA one."""
+    if dtype not in DTYPE_CODES or R <= 0 or V <= 0 or H <= 0 or H % 8:
+        return False
+    if r and not 0 < r <= MAX_RANK:
+        return False
+    if H + r > MAX_HIDDEN:                 # the dh wrappers' check
+        return False
+    hx = H + -(-r // 8) * 8
+    if dtype == torch.float32:
+        # rows 6 / 9 and 11 (dbt only) on the logits layout, rows 7 / 10
+        # on theirs; rows 8 and 11's dW + dbt mode on fused_ce.cu, whose
+        # only limit is the wrappers' MAX_HIDDEN
+        return _logits_tf32_pick(hx) is not None \
+            and _tf32_pick(hx) is not None
+    eb = dtype.itemsize
+    if not r:
+        return _fwd_mma_pick(H, eb) is not None \
+            and _dh_mma_pick(H, eb) is not None \
+            and (not head_grad or bool(_dw_mma_fits(H, eb)))
+    # row 11's dW + dbt mode runs fused_ce.cu in every dtype
+    return _lora_logits_pick(H, r, eb, False) is not None \
+        and _dh_lora_mma_pick(H, r, eb) is not None \
+        and (head_grad or _lora_logits_pick(H, r, eb, True) is not None)
 
 
 def _stream(t):
@@ -645,8 +767,9 @@ def _labels(labels, h):
 
 
 def _launch_fwd(h, w, labels, lora):
-    """(code, lse, gold) through fused_ce.cu's f32 forward: row 9 with
-    lora = (xa, bt); with lora None row 6's first version, on no path."""
+    """(code, lse, gold) through fused_ce.cu's f32 forward, the first
+    version of row 9 with lora = (xa, bt) and of row 6 with lora None,
+    both on no path."""
     R, H = h.shape
     V = w.shape[0]
     n_slabs, per_slab = _slabs(R, V, h.device, 4)
@@ -725,6 +848,26 @@ def _launch_fwd_lora_mma(h, w, xa, bt, labels):
     return code, lse, gold
 
 
+def _launch_fwd_lora_tf32(h, w, xa, bt, labels):
+    """(code, lse, gold) through row 9's f32 (3xTF32) kernel and its merge
+    pass."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = fwd_lora_tf32_plan(R, V, H, r, _n_sm(h))
+    _aligned16("fused_ce_fwd_lora", h, w)
+    part = torch.empty(plan["n_slabs"], R, 3, device=h.device)
+    lse = torch.empty(R, device=h.device)
+    gold = torch.empty(R, device=h.device)
+    lib, sym = fwd_lora_library(h.dtype)
+    code = _fn(sym, 8, 10, lib)(
+        h.data_ptr(), w.data_ptr(), xa.data_ptr(), bt.data_ptr(),
+        _labels(labels, h).data_ptr(), part.data_ptr(), lse.data_ptr(),
+        gold.data_ptr(), R, V, H, r, plan["row_tile"], plan["chunk"],
+        plan["stages"], plan["n_slabs"], plan["tiles_per_slab"],
+        DTYPE_CODES[h.dtype], _stream(h))
+    return code, lse, gold
+
+
 def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lse, gold) [R] f32 for h [R, H], W [V, H] and in-range labels
     [R]. CPU tensors: the plain version. CUDA tensors: the kernel of
@@ -760,7 +903,7 @@ def fused_ce_fwd_lora(h, w, xa, bt, labels
     if fwd_lora_library(h.dtype)[0] == "fused_ce_fwd_lora_mma":
         code, lse, gold = _launch_fwd_lora_mma(h, w, xa, bt, labels)
     else:
-        code, lse, gold = _launch_fwd(h, w, labels, (xa, bt))
+        code, lse, gold = _launch_fwd_lora_tf32(h, w, xa, bt, labels)
     build.check_launch("fused_ce_fwd_lora", code)
     fused_ce_fwd_lora.launches += 1
     return lse, gold

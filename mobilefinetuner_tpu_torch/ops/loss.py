@@ -15,10 +15,12 @@ jax autodiff of its own.
 (tied) head one sequence chunk at a time, so the full [B, S, V] logits
 never exist. `impl` picks the chunk body:
   auto   on a CUDA tensor, ops/fused_ce.fused_ce_nll_sum: the fused CE
-         kernels, which save O(rows) state, so no checkpoint wraps them;
-         on the CPU, `plain`. (The JAX package's "auto" picks XLA
-         everywhere, from a TPU measurement; that rule is not carried
-         over.)
+         kernels, which save O(rows) state, so no checkpoint wraps them,
+         for every chunk shape they take (`use_fused_ce`, from
+         ops/fused_ce.fused_ce_eligible: a Gemma-3 hidden size of 2,304
+         or 2,560 is `plain`); on the CPU, `plain`. (The JAX package's
+         "auto" picks XLA everywhere, from a TPU measurement; that rule
+         is not carried over. Its eligibility check is.)
   plain  the chunk's [B, chunk, V] logits in f32 (the head cast to the
          hidden dtype, f32 products), their logsumexp and gold logit,
          under torch.utils.checkpoint so the backward recomputes them,
@@ -50,7 +52,8 @@ import torch.utils.checkpoint
 
 from mobilefinetuner_tpu_torch.models.lora_apply import validate_lora_impl
 from mobilefinetuner_tpu_torch.ops.dropout import fold_in, inverted_dropout
-from mobilefinetuner_tpu_torch.ops.fused_ce import (fused_ce_nll_sum,
+from mobilefinetuner_tpu_torch.ops.fused_ce import (fused_ce_eligible,
+                                                    fused_ce_nll_sum,
                                                     head_bottleneck)
 
 IGNORE_INDEX = -100
@@ -149,6 +152,23 @@ def _plain_chunk(h, w, lab, ignore_index: int, hb, lora_head):
     return nll.sum(), valid.sum()
 
 
+def use_fused_ce(hidden, lm_head_w, num_chunks: int, impl: str,
+                 lora_head, lora_impl: str) -> bool:
+    """Whether the chunked loss runs its chunks of hidden [B, S, H]
+    against lm_head_w [V, H] on the fused CE kernels: `impl` "auto", a
+    tensor off the CPU, the adapter not forced onto its naive oracle, and
+    a chunk shape every kernel of its forward and backward takes
+    (fused_ce_eligible, decided before any launch)."""
+    if impl != "auto" or hidden.device.type == "cpu" \
+            or (lora_head is not None and lora_impl == "naive"):
+        return False
+    B, S, H = hidden.shape
+    r = 0 if lora_head is None else lora_head["A"].shape[-1]
+    return fused_ce_eligible(B * chunk_len(S, num_chunks),
+                             lm_head_w.shape[0], H, r, hidden.dtype,
+                             head_grad=lm_head_w.requires_grad)
+
+
 def _chunked_nll_sum(hidden, lm_head_w, labels, ignore_index: int,
                      num_chunks: int, impl: str, lora_head, mesh,
                      lora_impl: str, lora_dropout: float,
@@ -159,8 +179,8 @@ def _chunked_nll_sum(hidden, lm_head_w, labels, ignore_index: int,
         raise NotImplementedError(
             "the vocab-parallel chunked CE over a device mesh is not "
             "ported yet (ROADMAP.md port item P9)")
-    fused = (impl == "auto" and hidden.device.type != "cpu"
-             and not (lora_head is not None and lora_impl == "naive"))
+    fused = use_fused_ce(hidden, lm_head_w, num_chunks, impl, lora_head,
+                         lora_impl)
     # the head in the compute dtype: under bf16 the products read bf16
     # operands (f32 accumulation either way)
     w = lm_head_w.to(hidden.dtype)

@@ -358,11 +358,10 @@ def test_fused_ce_fwd_tensor_core_kernel(dev):
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the 3xTF32 ones for
     the flash forward (row 1), merged backward (row 2), the fused CE
-    forward (row 6), dh (row 7), head-adapter dh + dxa (row 10) and the
-    dbt-only mode of row 11, and the FMA ones for the fused CE dW (row 8)
-    and the head-adapter forward (row 9); row 11's dW + dbt mode loads
-    fused_ce.cu in every dtype: the libraries the wrappers load are
-    recorded."""
+    forward (row 6), dh (row 7), head-adapter forward (row 9) and dh +
+    dxa (row 10) and the dbt-only mode of row 11, and the FMA one for the
+    fused CE dW (row 8); row 11's dW + dbt mode loads fused_ce.cu in
+    every dtype: the libraries the wrappers load are recorded."""
     loaded = []
     real = build.load
 
@@ -401,7 +400,8 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
         assert loaded == [dh.replace("_dh_", "_dh_lora_")]
         loaded.clear()
         fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
-        assert loaded == ["fused_ce_fwd_lora_mma" if mma else "fused_ce"]
+        assert loaded == ["fused_ce_fwd_lora_mma" if mma
+                          else "fused_ce_fwd_lora_tf32"]
         loaded.clear()
         fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg,
                                 want_dw=False)
@@ -504,7 +504,8 @@ def test_f32_launches_reach_the_tf32_symbols(dev, monkeypatch):
     """An f32 forward and merged backward call the `_tf32` C entries and
     no FMA entry (mft_flash_attention_fwd / _bwd_merged); an f32 q that
     is not 16-byte aligned is refused before any launch; the f32 fused CE
-    forward and dbt-only calls reach mft_fused_ce_fwd_tf32 and
+    forward, head-adapter forward and dbt-only calls reach
+    mft_fused_ce_fwd_tf32, mft_fused_ce_fwd_lora_tf32 and
     mft_fused_ce_dbt_tf32 and no fused_ce.cu entry."""
     called = []
     real = fa._fn
@@ -528,8 +529,8 @@ def test_f32_launches_reach_the_tf32_symbols(dev, monkeypatch):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_fwd(qm, k, v, pad)
     assert fa.flash_attention_fwd.launches == n0 and len(called) == 2
-    # the fused CE rows 6 and 11 (dbt only) in f32: their `_tf32` entries,
-    # no fused_ce.cu entry
+    # the fused CE rows 6, 9 and 11 (dbt only) in f32: their `_tf32`
+    # entries, no fused_ce.cu entry
     ce_called = []
     real_fn = fc._fn
 
@@ -540,9 +541,12 @@ def test_f32_launches_reach_the_tf32_symbols(dev, monkeypatch):
     h, w, lab, dl, dg = _ce_case(dev, torch.float32, 16, 300, 64, 4)
     xa, bt = _lora_case(dev, torch.float32, 16, 300, 4, 5)
     lse = fc.fused_ce_fwd(h, w, lab)[0]
+    fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
     fc.fused_ce_bwd_dw_lora(h, w, xa, bt, lab, lse, dl, dg, want_dw=False)
     torch.cuda.synchronize()
     assert ce_called == [("fused_ce_fwd_tf32", "mft_fused_ce_fwd_tf32"),
+                         ("fused_ce_fwd_lora_tf32",
+                          "mft_fused_ce_fwd_lora_tf32"),
                          ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32")]
 
 
@@ -891,15 +895,16 @@ def test_fused_ce_dh_tf32_kernels(dev, R, V, H, r):
 
 
 def test_f32_dh_kernels_refuse_h_not_a_multiple_of_8(dev):
-    """Rows 6, 7, 10 and 11 (dbt only) in f32 refuse H 1,004 before any
-    launch, as bf16 does (the first versions took it; no model has such a
-    width)."""
+    """Rows 6, 7, 9, 10 and 11 (dbt only) in f32 refuse H 1,004 before
+    any launch, as bf16 does (the first versions took it; no model has
+    such a width)."""
     h, w, lab, dl, dg = _ce_case(dev, torch.float32, 8, 100, 1004, 2)
     xa, bt = _lora_case(dev, torch.float32, 8, 100, 8, 2)
     for kernel, args, kw in (
             (fc.fused_ce_bwd_dh, (h, w, lab, dl, dl, dg), {}),
             (fc.fused_ce_bwd_dh_lora, (h, w, xa, bt, lab, dl, dl, dg), {}),
             (fc.fused_ce_fwd, (h, w, lab), {}),
+            (fc.fused_ce_fwd_lora, (h, w, xa, bt, lab), {}),
             (fc.fused_ce_bwd_dw_lora, (h, w, xa, bt, lab, dl, dl, dg),
              {"want_dw": False})):
         n0 = kernel.launches
@@ -942,6 +947,70 @@ def test_fused_ce_fwd_and_dbt_tf32_kernels(dev, R, V, H, r):
         assert no_dw is None and torch.equal(dbt, again)
         ref = fc.fused_ce_dw_lora_reference(*args, want_dw=False)[1]
         assert err(dbt, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("R,V,H,r", [
+    (128, 262144, 640, 8),      # the Gemma chunk, the default-dtype path's
+    (37, 50257, 1152, 3),       # ragged R and V, Gemma-3-1B's width, odd r
+    (70, 20011, 640, 1),        # two row tiles, a ragged V, rank 1
+    (100, 5003, 640, 128),      # the largest rank: 32-row tiles
+    (120, 50257, 1000, 5),      # ragged R and V, an odd rank, 64-row tiles
+])
+def test_fused_ce_fwd_lora_tf32_kernel(dev, R, V, H, r):
+    """Row 9 in f32 on its 3xTF32 kernel (fused_ce_fwd_lora_tf32.cu)
+    against the plain version: lse and gold within 1e-4; two calls give
+    identical bits; one launch a call."""
+    h, w, lab, _, _ = _ce_case(dev, torch.float32, R, V, H, seed=R + r)
+    xa, bt = _lora_case(dev, torch.float32, R, V, r, seed=r)
+    n0 = fc.fused_ce_fwd_lora.launches
+    lse, gold = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    lse2, gold2 = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
+    rl, rg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
+    torch.cuda.synchronize()
+    assert fc.fused_ce_fwd_lora.launches == n0 + 2
+    assert torch.equal(lse, lse2) and torch.equal(gold, gold2)
+    assert float((lse - rl).abs().max()) <= 1e-4
+    assert float((gold - rg).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r", [0, 8])
+def test_wide_h_chunked_loss_takes_the_plain_chunk(dev, dtype, r):
+    """Gemma-3-4B's width (H 2,560), which no fused CE layout takes: the
+    chunked loss under impl "auto" launches no fused CE kernel, and its
+    sum, count and gradients (hidden states, and A, B of a head adapter)
+    are the plain chunk's (impl "plain") to 1e-6 of their size, for a
+    frozen head and a trained one."""
+    g = torch.Generator().manual_seed(r + 1)
+    B, S, H, V = 2, 65, 2560, 4096
+    hid = torch.randn(B, S, H, generator=g).to(dev, dtype)
+    w = (0.02 * torch.randn(V, H, generator=g)).to(dev, dtype)
+    labels = torch.randint(0, V, (B, S), generator=g).to(dev)
+    A = (0.02 * torch.randn(H, max(r, 1), generator=g)).to(dev, dtype)
+    Bm = (0.1 * torch.randn(max(r, 1), V, generator=g)).to(dev, dtype)
+    kernels = (fc.fused_ce_fwd, fc.fused_ce_bwd_dh, fc.fused_ce_bwd_dw,
+               fc.fused_ce_fwd_lora, fc.fused_ce_bwd_dh_lora,
+               fc.fused_ce_bwd_dw_lora)
+    for head_grad in (False, True):
+        out = {}
+        for impl in ("plain", "auto"):
+            leaves = [t.clone().requires_grad_(True) for t in (hid, A, Bm)]
+            wl = w.clone().requires_grad_(head_grad)
+            head = ({"A": leaves[1], "B": leaves[2],
+                     "scale": torch.tensor(2.0, device=dev)} if r else None)
+            n = [f.launches for f in kernels]
+            s, c = loss.chunked_lm_cross_entropy_sum(
+                leaves[0], wl, labels, num_chunks=4, impl=impl,
+                lora_head=head)
+            grads = torch.autograd.grad(
+                s, (leaves if r else leaves[:1]) + [wl] * head_grad)
+            torch.cuda.synchronize()
+            assert [f.launches for f in kernels] == n
+            out[impl] = (s.detach(), int(c), grads)
+        assert out["auto"][1] == out["plain"][1] == B * (S - 1)
+        assert _rel_err(out["auto"][0], out["plain"][0]) <= 1e-6
+        for a, b in zip(out["auto"][2], out["plain"][2]):
+            assert bool(torch.isfinite(a).all()) and _rel_err(a, b) <= 1e-6
 
 
 @pytest.mark.parametrize("R,V,H,r", [

@@ -1,22 +1,25 @@
-"""The f32 fused CE forward and dbt-only kernels' 3xTF32 arithmetic on the
-CPU (csrc/fused_ce_fwd_tf32.cu, row 6, and csrc/fused_ce_dbt_tf32.cu, row
+"""The f32 fused CE forward, head-adapter forward and dbt-only kernels'
+3xTF32 arithmetic on the CPU (csrc/fused_ce_fwd_tf32.cu, row 6,
+csrc/fused_ce_fwd_lora_tf32.cu, row 9, and csrc/fused_ce_dbt_tf32.cu, row
 11 in its dbt-only mode; split and product helpers in
-csrc/tensor_core_tf32.cuh), against the JAX package's `_fwd` and
-`_bwd_dw_lora` with their Pallas kernels in interpret mode.
+csrc/tensor_core_tf32.cuh), against the JAX package's `_fwd`, `_fwd_lora`
+and `_bwd_dw_lora` with their Pallas kernels in interpret mode.
 
 The kernels split each operand as `split_tf32_raw_lo` does: hi rounded to
 TF32 (round to nearest, ties away from zero, at bit 13 of the f32
 pattern), lo = x - hi left raw, of which the tensor cores read the top 19
 bits (emulated here by clearing the low 13). Every product of the
 kernels' loop, at their own tiles and slabs (from `fwd_tf32_plan` /
-`dbt_tf32_plan`, at 8 multiprocessors so that the small vocabularies
-here take several slabs, the last shorter), sums lo.hi + hi.lo and then
-hi.hi in f32: row 6's logits of each 128-row vocab tile folded into an
-online logsumexp and gold, the slabs' partials merged in slab order; row
-11's logits over the widened row [h | xa] against [W | bt], coef from
-them, coef^T @ xa a row tile, the row tiles' partials added in order. At
-small shapes with a ragged R, H 64 and 128 and r 1, 4 and 8, lse and gold
-stay within 1e-4 of the JAX kernels, dbt within 1e-4 of max(1, |ref|) and
+`fwd_lora_tf32_plan` / `dbt_tf32_plan`, at 8 multiprocessors so that the
+small vocabularies here take several slabs, the last shorter), sums
+lo.hi + hi.lo and then hi.hi in f32: row 6's logits of each 128-row
+vocab tile folded into an online logsumexp and gold, the slabs' partials
+merged in slab order; row 9 the same over the widened row [h | xa]
+against [W | bt] (the rank's columns zero past r); row 11's logits over
+that widened row, coef from them, coef^T @ xa a row tile, the row tiles'
+partials added in order. At small shapes with a ragged R, H 64 and 128
+and r 1, 4 and 8, lse and gold (rows 6 and 9) stay within 1e-4 of the
+JAX kernels, dbt within 1e-4 of max(1, |ref|) and
 its softmax part (dgold = 0) within 1e-4 of max |ref|: the f32 tolerances
 the CUDA kernels are held to on the card. One TF32 product (each operand
 rounded once) misses them. A V that is not a multiple of a tile, which
@@ -80,12 +83,13 @@ def _slabs(V, plan):
                for v0 in range(s0, min(V, s0 + span), vt)]
 
 
-def emul_fwd(h, w, labels, mm=mm3):
-    """(lse, gold): row 6's loop at its own plan, every product through
-    `mm`; the slabs' (max, sum of exp, gold) merged in slab order."""
+def emul_fwd(h, w, labels, mm=mm3, plan=None):
+    """(lse, gold): row 6's loop at its own plan (or `plan`), every
+    product through `mm`; the slabs' (max, sum of exp, gold) merged in
+    slab order."""
     R, H = h.shape
     V = w.shape[0]
-    plan = fc.fwd_tf32_plan(R, V, H, N_SM)
+    plan = plan or fc.fwd_tf32_plan(R, V, H, N_SM)
     lab = labels.long()
     parts = []
     for tiles in _slabs(V, plan):
@@ -106,6 +110,27 @@ def emul_fwd(h, w, labels, mm=mm3):
     return M + torch.log(total), sum(p[2] for p in parts)
 
 
+def widened(h, w, xa, bt, hx):
+    """[h | xa | 0] [R, hx] and [W | bt | 0] [V, hx]: the rows rows 9 and
+    11 contract, the rank's columns zero past r."""
+    R, H = h.shape
+    V, r = bt.shape
+    hw = torch.zeros(R, hx)
+    ww = torch.zeros(V, hx)
+    hw[:, :H], ww[:, :H] = h, w
+    hw[:, H:H + r], ww[:, H:H + r] = xa, bt
+    return hw, ww
+
+
+def emul_fwd_lora(h, w, xa, bt, labels, mm=mm3):
+    """(lse, gold): row 9's loop, which is row 6's (emul_fwd) at row 9's
+    own plan over the widened row."""
+    R, H = h.shape
+    V, r = bt.shape
+    plan = fc.fwd_lora_tf32_plan(R, V, H, r, N_SM)
+    return emul_fwd(*widened(h, w, xa, bt, plan["hx"]), labels, mm, plan)
+
+
 def emul_dbt(h, w, xa, bt, labels, lse, dlse, dgold, mm=mm3):
     """dbt: row 11's dbt-only loop at its own plan over the widened row
     [h | xa | 0] against [W | bt | 0], every product through `mm`; a row
@@ -114,10 +139,7 @@ def emul_dbt(h, w, xa, bt, labels, lse, dlse, dgold, mm=mm3):
     V, r = bt.shape
     plan = fc.dbt_tf32_plan(R, V, H, r, N_SM)
     hx, rt = plan["hx"], plan["row_tile"]
-    hw = torch.zeros(R, hx)
-    ww = torch.zeros(V, hx)
-    hw[:, :H], ww[:, :H] = h, w
-    hw[:, H:H + r], ww[:, H:H + r] = xa, bt
+    hw, ww = widened(h, w, xa, bt, hx)
     lab = labels.long()
     dbt = torch.zeros(V, r)
     for r0 in range(0, R, rt):
@@ -178,6 +200,18 @@ def _fwd_errors(R, V, H, mm):
                for a, b in zip(got, want))
 
 
+def _fwd_lora_errors(R, V, H, r, mm):
+    h, w, lab, _, _, xa, bt = _inputs(R, V, H, r, R + V + H + r)
+    want = [np.asarray(x, np.float64) for x in jfc._fwd_lora(
+        *(jnp.asarray(x) for x in (h, w, xa, bt)),
+        jnp.asarray(lab).reshape(-1, 1))]
+    got = emul_fwd_lora(_t(h), _t(w), _t(xa), _t(bt), _t(lab), mm)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (R,)
+    return max(float(np.max(np.abs(a.numpy() - b)))
+               for a, b in zip(got, want))
+
+
 def _dbt_errors(R, V, H, r, mm):
     h, w, lab, dlse, dgold, xa, bt = _inputs(R, V, H, r, R + V + H + r)
     j = [jnp.asarray(x) for x in (h, w, xa, bt)]
@@ -219,12 +253,26 @@ def test_emulation_takes_the_kernels_tiles():
     q = fc.dbt_tf32_plan(70, 1280, 128, 4, N_SM)
     assert q["row_tiles"] == 2 and q["hx"] == 136
     assert q["n_slabs"] > 1 and 10 % q["tiles_per_slab"] != 0
+    for R, V, H, r in DBT_CASES:     # row 9's: the same tiles as row 11's
+        p = fc.fwd_lora_tf32_plan(R, V, H, r, N_SM)
+        assert p == fc.dbt_tf32_plan(R, V, H, r, N_SM)
+        assert p["hx"] > H + r or r % 8 == 0
+        assert R % p["row_tile"] != 0 and p["n_slabs"] > 1
+        assert (V // fc.LOGITS_VOCAB_TILE) % p["tiles_per_slab"] != 0
 
 
 @pytest.mark.parametrize("R,V,H", FWD_CASES)
 def test_3xtf32_fwd_matches_jax_kernel(R, V, H):
     """lse and gold within 1e-4 of the JAX Pallas kernel."""
     assert _fwd_errors(R, V, H, mm3) <= 1e-4
+
+
+@pytest.mark.parametrize("R,V,H,r", DBT_CASES)
+def test_3xtf32_fwd_lora_matches_jax_kernel(R, V, H, r):
+    """Row 9: lse and gold of h W^T + xa bt^T within 1e-4 of the JAX
+    Pallas kernel at a ragged R, a short last slab, H 64 and 128, r 1, 4
+    and 8."""
+    assert _fwd_lora_errors(R, V, H, r, mm3) <= 1e-4
 
 
 @pytest.mark.parametrize("R,V,H,r", DBT_CASES)
@@ -239,12 +287,13 @@ def test_3xtf32_dbt_matches_jax_kernel(R, V, H, r):
 @pytest.mark.parametrize("R,V,H,r", [(*c, 0) for c in FWD_CASES]
                          + DBT_CASES)
 def test_one_tf32_product_misses_the_f32_tolerances(R, V, H, r):
-    """Each operand rounded to TF32 once (2^-11): lse / gold, dbt over
-    max(1, |ref|) and its softmax part over max |ref| land beyond 1e-4,
-    where 3xTF32 stays near 1e-6."""
+    """Each operand rounded to TF32 once (2^-11): lse / gold (rows 6 and
+    9), dbt over max(1, |ref|) and its softmax part over max |ref| land
+    beyond 1e-4, where 3xTF32 stays near 1e-6."""
     if not r:
         assert _fwd_errors(R, V, H, mm1) > 1e-4
         return
+    assert _fwd_lora_errors(R, V, H, r, mm1) > 1e-4
     rel, sm = _dbt_errors(R, V, H, r, mm1)
     assert rel > 1e-4
     assert sm > 1e-4
@@ -253,15 +302,20 @@ def test_one_tf32_product_misses_the_f32_tolerances(R, V, H, r):
 @pytest.mark.parametrize("R,V,H,r", [(37, 1001, 64, 3), (70, 999, 72, 8)])
 def test_3xtf32_matches_the_plain_version_at_a_ragged_v(R, V, H, r):
     """A V that is no multiple of the 128-row tile (vocab rows past V
-    left out), an odd rank: the emulated kernels against the port's plain
-    versions (the card's oracle), at the same tolerances."""
+    left out), an odd rank: the emulated kernels (rows 6, 9 and 11)
+    against the port's plain versions (the card's oracle), at the same
+    tolerances."""
     h, w, lab, dlse, dgold, xa, bt = (_t(x) for x in
                                       _inputs(R, V, H, r, R + V))
     lse, gold = emul_fwd(h, w, lab)
     rl, rg = fc.fused_ce_fwd_reference(h, w, lab)
     assert float((lse - rl).abs().max()) <= 1e-4
     assert float((gold - rg).abs().max()) <= 1e-4
-    lse = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)[0]
+    lse, gold = emul_fwd_lora(h, w, xa, bt, lab)
+    rl, rg = fc.fused_ce_fwd_lora_reference(h, w, xa, bt, lab)
+    assert float((lse - rl).abs().max()) <= 1e-4
+    assert float((gold - rg).abs().max()) <= 1e-4
+    lse = rl
     for dg, err in ((dgold, _rel), (torch.zeros_like(dgold), _scaled)):
         want = fc.fused_ce_dw_lora_reference(h, w, xa, bt, lab, lse, dlse,
                                              dg, want_dw=False)[1]

@@ -24,13 +24,13 @@ covers every logical column, so every live page's rows, once, and its
 lane map loads each K and V element of a chunk once, a row's lanes on
 contiguous bytes; and the dtype picks the library: bf16 /
 f16 the `_mma` (and `_vec`) sources, f32 the first versions but for rows
-1-2, 6, 7, 10 and 11 (dbt only), whose f32 sources are the 3xTF32 `_tf32`
-ones (their plans, tiles and shared memory too: rows 7 and 10's
+1-2, 6, 7, 9, 10 and 11 (dbt only), whose f32 sources are the 3xTF32
+`_tf32` ones (their plans, tiles and shared memory too: rows 7 and 10's
 `dh_tf32_plan` and `dh_lora_tf32_plan` cover every (row tile, vocab
-slab) once and every output column once, rows 6 and 11's `fwd_tf32_plan`
-and `dbt_tf32_plan` every (row tile, vocab slab) once; they fit the card
-at every f32 shape the card checks run and refuse what they do not
-take). No card needed."""
+slab) once and every output column once, rows 6, 9 and 11's
+`fwd_tf32_plan`, `fwd_lora_tf32_plan` and `dbt_tf32_plan` every (row
+tile, vocab slab) once; they fit the card at every f32 shape the card
+checks run and refuse what they do not take). No card needed."""
 
 import itertools
 import os
@@ -75,8 +75,8 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
     "paged": ("paged_decode_attention_vec",
               "mft_paged_decode_attention_vec")}
-FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6, 7, 10
-    # and 11 (dbt only) in 3xTF32
+FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6, 7, 9,
+    # 10 and 11 (dbt only) in 3xTF32
     "fwd": ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
     "bwd": ("flash_attention_bwd_merged_tf32",
             "mft_flash_attention_bwd_merged_tf32"),
@@ -84,7 +84,7 @@ FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6, 7, 10
     "dh": ("fused_ce_dh_tf32", "mft_fused_ce_dh_tf32"),
     "dw": ("fused_ce", "mft_fused_ce_dw"),
     "dh_lora": ("fused_ce_dh_lora_tf32", "mft_fused_ce_dh_lora_tf32"),
-    "ce_fwd_lora": ("fused_ce", "mft_fused_ce_fwd_lora"),
+    "ce_fwd_lora": ("fused_ce_fwd_lora_tf32", "mft_fused_ce_fwd_lora_tf32"),
     "dbt": ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32"),
     "epi": ("lora_epilogue", "mft_lora_epilogue"),
     "decode": ("decode_attention", "mft_decode_attention"),
@@ -179,7 +179,8 @@ def test_tf32_sources_use_3xtf32_mma_sync():
     (dbt only) split with a raw lo (hi by the integer rounding, lo = x -
     hi, whose top 19 bits the mma.sync reads), load W's A and h's B
     fragments by ldmatrix and take the same three terms in the same
-    order, straight-line around each mma.sync."""
+    order, straight-line around each mma.sync; row 9's f32 source is row
+    6's loop on row 11's widened row and keeps all of that."""
     hdr = _source("tensor_core_tf32.cuh")
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in hdr
     assert "cvt.rna.tf32.f32" in hdr
@@ -218,7 +219,8 @@ def test_tf32_sources_use_3xtf32_mma_sync():
     body = body[:body.index("}")]
     assert "hi = tf32_round_bits(x);" in body
     assert "lo = __float_as_uint(x - __uint_as_float(hi));" in body
-    for name in ("fused_ce_fwd_tf32.cu", "fused_ce_dbt_tf32.cu"):
+    for name in ("fused_ce_fwd_tf32.cu", "fused_ce_dbt_tf32.cu",
+                 "fused_ce_fwd_lora_tf32.cu"):
         text = _source(name)
         assert '#include "tensor_core_tf32.cuh"' in text
         assert "m16n8k8" in text and "ldmatrix_x4(" in text
@@ -234,6 +236,10 @@ def test_tf32_sources_use_3xtf32_mma_sync():
         chunk = chunk[:chunk.index("\n}\n")]
         assert chunk.count("if (") == 1 and "if (ks + 1 < NKS)" in chunk
     assert "mma_3xtf32(" in _source("fused_ce_dbt_tf32.cu")
+    # row 9: the widened row's rank columns 4 bytes at a time, no atomics
+    text = _source("fused_ce_fwd_lora_tf32.cu")
+    assert "cp_async_4(" in text and "atomicAdd" not in text
+    assert "const int HX = hx_of(H, rk), LDH = HX + 4;" in text
 
 
 def test_tensor_core_sources_use_mma_sync():
@@ -259,7 +265,7 @@ def test_new_sources_are_built_and_call_no_library():
                  "flash_attention_fwd_tf32",
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
                  "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
-                 "fused_ce_dbt_tf32"):
+                 "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -915,7 +921,8 @@ LOGITS_SHAPES = [  # (R, V, H, r): r 0 is row 6
     (100, 5003, 640, 128),
 ]
 LOGITS_SOURCES = {"fused_ce_fwd_tf32.cu": "fwd_tf32_kernel",
-                  "fused_ce_dbt_tf32.cu": "dbt_tf32_kernel"}
+                  "fused_ce_dbt_tf32.cu": "dbt_tf32_kernel",
+                  "fused_ce_fwd_lora_tf32.cu": "fwd_lora_tf32_kernel"}
 
 
 def _logits_plan(R, V, H, r, n_sm=N_SM):
@@ -936,7 +943,8 @@ def test_logits_tf32_plan_constants_match_the_source(name):
     assert _constexpr(text, "SMEM_MAX") == fc.SMEM_MAX
     assert _constexpr(text, "MAX_STAGES") >= max(p[2] for p in
                                                  fc.LOGITS_PLANS)
-    x = "HX" if "dbt" in name else "H"
+    widened = "dbt" in name or "lora" in name    # rows 11 and 9
+    x = "HX" if widened else "H"
     assert f"return ((size_t)RT * ({x} + 4) + (size_t)stages * VT * (KC + " \
            f"4)) *" in text
     assert "float* w_w = w_s + warp * stages * 16 * LDW;" in text
@@ -951,7 +959,7 @@ def test_logits_tf32_plan_constants_match_the_source(name):
     assert {(rt, kc) for rt, kc, _, kc2 in launches} >= \
         {(str(rt), str(kc)) for rt, kc, _ in
          fc.LOGITS_PLANS + kernel_variants.PLAN_SWEEP}
-    if "dbt" in name:
+    if widened:
         assert _constexpr(text, "MAX_RANK") == fc.MAX_RANK
         assert "return H + (r + 7) / 8 * 8;" in text
 
@@ -960,7 +968,10 @@ def test_logits_tf32_plan_constants_match_the_source(name):
 def test_logits_tf32_plan_covers_each_tile_once(R, V, H, r):
     """Every (row, 128-row vocab tile) lies in exactly one CTA and no CTA
     is empty; the widened row is H plus r rounded up to 8."""
-    plan = _logits_plan(R, V, H, r)
+    _check_logits_cover(_logits_plan(R, V, H, r), R, V, H, r)
+
+
+def _check_logits_cover(plan, R, V, H, r):
     rt, vt = plan["row_tile"], fc.LOGITS_VOCAB_TILE
     span = plan["tiles_per_slab"] * vt
     gx, gy = plan["grid"]
@@ -979,7 +990,10 @@ def test_logits_tf32_plan_fits_the_card(R, V, H, r):
     """The h (+ xa) tile and every warp's ring of W chunks within the
     232,448 bytes a block may use, the first plan of LOGITS_PLANS that
     does, and one wave of CTAs when the vocabulary has enough tiles."""
-    plan = _logits_plan(R, V, H, r)
+    _check_logits_fit(_logits_plan(R, V, H, r), V)
+
+
+def _check_logits_fit(plan, V):
     rt, kc, st, hx = (plan["row_tile"], plan["chunk"], plan["stages"],
                       plan["hx"])
 
@@ -991,6 +1005,18 @@ def test_logits_tf32_plan_fits_the_card(R, V, H, r):
     gx, gy = plan["grid"]
     if -(-V // fc.LOGITS_VOCAB_TILE) * gx >= N_SM and gx <= N_SM:
         assert gx * gy <= N_SM
+
+
+@pytest.mark.parametrize("R,V,H,r", [c for c in LOGITS_SHAPES if c[3]])
+def test_fwd_lora_tf32_plan_covers_each_tile_once_and_fits(R, V, H, r):
+    """Row 9's f32 launch: every (row, 128-row vocab tile) in exactly one
+    CTA over the widened row, within the card's 232,448 bytes, the first
+    plan of LOGITS_PLANS that fits, one wave of CTAs; row 11's dbt-only
+    launch at the same shape is the same plan."""
+    plan = fc.fwd_lora_tf32_plan(R, V, H, r, N_SM)
+    _check_logits_cover(plan, R, V, H, r)
+    _check_logits_fit(plan, V)
+    assert plan == fc.dbt_tf32_plan(R, V, H, r, N_SM)
 
 
 def test_logits_tf32_plans_at_the_gemma_chunk():
@@ -1007,6 +1033,9 @@ def test_logits_tf32_plans_at_the_gemma_chunk():
     assert lora["grid"] == (2, 64)
     big = fc.dbt_tf32_plan(128, 262144, 640, 128, N_SM)
     assert (big["row_tile"], big["chunk"], big["hx"]) == (32, 64, 768)
+    fwd_lora = fc.fwd_lora_tf32_plan(128, 262144, 640, 8, N_SM)
+    assert (fwd_lora["row_tile"], fwd_lora["chunk"], fwd_lora["stages"],
+            fwd_lora["hx"], fwd_lora["grid"]) == (64, 32, 2, 648, (2, 64))
 
 
 def test_logits_tf32_plans_limit_the_width():
@@ -1028,12 +1057,16 @@ def test_logits_tf32_plans_refuse_h_not_a_multiple_of_8(H):
         fc.fwd_tf32_plan(16, 100, H, N_SM)
     with pytest.raises(ValueError, match="H % 8"):
         fc.dbt_tf32_plan(16, 100, H, 8, N_SM)
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.fwd_lora_tf32_plan(16, 100, H, 8, N_SM)
 
 
 @pytest.mark.parametrize("r", [0, -1, 129])
 def test_dbt_tf32_plan_refuses_a_rank_out_of_range(r):
     with pytest.raises(ValueError, match="rank"):
         fc.dbt_tf32_plan(16, 100, 64, r, N_SM)
+    with pytest.raises(ValueError, match="rank"):
+        fc.fwd_lora_tf32_plan(16, 100, 64, r, N_SM)
 
 
 # ------------------------------------------------------------- row 2 -------
