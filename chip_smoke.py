@@ -8,7 +8,7 @@ Phases, none of whose failures is caught (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build every kernel from mobilefinetuner_tpu_torch/csrc with nvcc for
      sm_90a, one nvcc per source, all at once; the 3xTF32 sources of rows
-     1-2, 6, 7, 10 and 11 must spill no register;
+     1-2 and 6-11 and row 5's f32 vector source must spill no register;
   3. hold each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at a few others, with the tolerance
      printed: the flash forward (bf16 / f16 on the tensor-core kernel,
@@ -20,9 +20,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      ragged S, a padded tail, a window inside a key block and dropout
      0.1), the LoRA epilogue (bf16 / f16 on the vector kernel, which folds
      the scale read from the device into xa: its xs bit for bit the
-     composition's, two calls bit-identical; f32 on the first version; at
-     the training sites, generate's decode shapes and the head adapter's
-     lm_head), the paged decode (row 12: the serving shape, D 128, a GQA
+     composition's, two calls bit-identical; f32 on its own vector kernel,
+     which folds the scale too; at the training sites, generate's decode
+     shapes and the head adapter's lm_head, in bf16 and f32), the paged
+     decode (row 12: the serving shape, D 128, a GQA
      window, Gemma's D 256 GQA and Gemma-3-270M serving with its window;
      bf16 / f16 on the kernel that loads each lane's K/V rows straight
      into registers, f32 on the first version, D 256 too; the pool rows
@@ -30,9 +31,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      Inf in K and NaN in V must change nothing, two calls bit-identical),
      the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
      bf16 on the tensor-core kernels: R 37 and a ragged V too, two calls
-     bit-identical; the forward and dh in f32 on the 3xTF32 kernels at R
-     120, V 50,257, H 1,152), a head dim and a bf16 H the kernels do not
-     take refused, an f32 one by the 3xTF32 kernels, and their
+     bit-identical; the forward, dh and dW in f32 on the 3xTF32 kernels at
+     R 120, V 50,257, H 1,152, dW over a cluster of four H parts), a head
+     dim and a bf16 H the kernels do not take refused, an f32 one by the
+     3xTF32 kernels, and their
      head-adapter variants (rows 9-11, dW in both its modes; the forward,
      dh + dxa and dbt-only mode in bf16 on the tensor-core kernels, at r
      4, 8 and 128, two calls bit-identical; dh + dxa and dbt-only in f32
@@ -155,7 +157,14 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      steps x chunks plus the eval's forwards, rows 6 and 7 (10 and 11's
      dbt-only mode) on their 3xTF32 kernels, the losses finite; each
      prints its step ms p50 and one step's device ms from CUDA events
-     around CUDA-graph replays; then
+     around CUDA-graph replays; then, counts set to 0 again,
+     cli.gemma_full_finetune.main at the default dtype too
+     (`gemma_full_ft_f32`: 3 steps, a final eval of 2 batches and its
+     save): rows 6-8 launch exactly as the formulas say, row 8 8 times a
+     step on its 3xTF32 cluster kernel, admission ok, finite losses, the
+     model file and its .opt complete; one step's device ms from CUDA
+     events around CUDA-graph replays and, from a torch.profiler trace
+     of two steps, row 8's share of the device time; then
      cli.eval_ppl.main (`eval_ppl`,
      counts set to 0 before each run): Gemma with the head adapter just
      trained must reproduce the trainer's final eval perplexity (1e-3
@@ -240,13 +249,14 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      wrappers' `by_shape`); rows 1 and 2 in f32 get entries of their own
      (the 3xTF32 sources), with the f32 launches of every path (the
      wrappers' `by_shape` and `by_dtype`), the 16-bit entries the rest;
-     rows 6, 7, 10 and 11 (dbt only) in f32 too (fused_ce_fwd_tf32.cu,
-     fused_ce_dh_tf32.cu, fused_ce_dh_lora_tf32.cu and
-     fused_ce_dbt_tf32.cu, with the f32 paths' launches, timed in turns
-     with their fused_ce.cu first versions, the softmax part of dh, dxa
-     and dbt held on its own), and rows 5 and 9 in f32 on their first
-     versions (row 5 at GPT-2's attn_qkv, row 9 at the Gemma chunk, r 8,
-     with the f32 paths' launches); rows 1-2 in f32 at the
+     rows 6-11 (11 dbt only) in f32 too (fused_ce_fwd_tf32.cu,
+     fused_ce_dh_tf32.cu, fused_ce_dw_tf32.cu, fused_ce_fwd_lora_tf32.cu,
+     fused_ce_dh_lora_tf32.cu and fused_ce_dbt_tf32.cu, with the f32
+     paths' launches, timed in turns with their fused_ce.cu first
+     versions, the softmax part of dh, dW, dxa and dbt held on its own),
+     and row 5 in f32 on lora_epilogue_vec_f32.cu at GPT-2's attn_qkv,
+     timed in turns with its first version lora_epilogue.cu after the
+     wrapper's fold that version needed; rows 1-2 in f32 at the
      `gemma_train_f32` shape (q 4 x 4 x 256 x 256, kv 4 x 1, window
      512), row 12 in f32 at `gemma_serve_f32`'s (8 x 1 x 4 x 256, 42
      pages, window 512) and row 13 in f32 at `generate`'s f32 last steps
@@ -264,7 +274,8 @@ their total.
 
 Prints `serve`, `gemma_serve`, `train`, `gpt2_full_ft`, `recovery`,
 `observe`, `gemma_train`, `gemma_full_ft`, `degrade`, `gemma_lora_head`,
-`gemma_train_f32`, `gemma_lora_head_f32`, `eval_ppl`, `generate`, `mmlu`, `multitenant`, `profile`, `bwd_sweep`,
+`gemma_train_f32`, `gemma_lora_head_f32`, `gemma_full_ft_f32`, `eval_ppl`,
+`generate`, `mmlu`, `multitenant`, `profile`, `bwd_sweep`,
 `admission` and `kernels` JSON lines, the card's name and power limit, and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the repo
 beside it, it exits non-zero and prints no result. `--only multitenant` builds the
@@ -306,11 +317,13 @@ TRAIN = dict(steps=30, batch=8, accum=2, seq=128, rank=8, alpha=16.0,
 GEMMA = dict(steps=20, batch=4, seq=256, rank=8, alpha=32.0, chunks=8,
              eval_batch=4, eval_batches=4, lr=1e-3, full_steps=6,
              full_lr=1e-4)
-# the default-dtype (f32) Gemma LoRA runs: a few steps and a final eval
-# of the `gemma_train` config, on its directory and corpus
-GEMMA_F32 = dict(steps=4, eval_batches=2)
+# the default-dtype (f32) Gemma runs: a few steps and a final eval of the
+# `gemma_train` (LoRA) and `gemma_full_ft` configs, on their directory and
+# corpus
+GEMMA_F32 = dict(steps=4, eval_batches=2, full_steps=3)
 # the paths whose fused CE runs in f32 (rows 6-11's f32 launches)
-CE_F32_PATHS = ("gemma_train_f32", "gemma_lora_head_f32")
+CE_F32_PATHS = ("gemma_train_f32", "gemma_lora_head_f32",
+                "gemma_full_ft_f32")
 GEMMA_LAYERS = 18
 GEMMA_SITES = 7          # LoRA sites a Gemma layer (targets "full")
 # the generate paths (phase 8): prompts (tokens) and new tokens a run
@@ -340,14 +353,16 @@ def ptxas_summary(log: str) -> list:
     nvcc -Xptxas -v build log, the kernel as `name<type, D or flags>`
     (fused_ce.cu's bool flag is LORA, fused_ce_fwd_mma.cu's whether h is
     held in registers, fused_ce_fwd_lora_mma.cu's and fused_ce_dbt_mma.cu's
-    whether h and xa are)."""
+    whether h and xa are, fused_ce_dw_tf32.cu's whether h comes in row
+    chunks)."""
     import re
     names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
     h_regs = ("h in registers", "h in smem")
     xa_regs = ("xa in registers", "xa in smem")
     flags = {"fwd_mma_kernel": [h_regs],
              "fwd_lora_mma_kernel": [h_regs, xa_regs],
-             "dbt_mma_kernel": [h_regs, xa_regs]}
+             "dbt_mma_kernel": [h_regs, xa_regs],
+             "dw_tf32_kernel": [("h in chunks", "h whole")]}
     rows, kernel, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)"
@@ -524,8 +539,8 @@ def timed(fns: dict, iters: int = 200):
 EPI_BY_SHAPE = collections.Counter()
 FLASH_BY_SHAPE = collections.Counter()
 BWD_BY_DTYPE = collections.Counter()
-# {path: (flash forward, merged backward) launches in f32}, from
-# mark_f32 after each path in main
+# {path: (flash forward, merged backward, epilogue) launches in f32},
+# from mark_f32 after each path in main
 F32_BY_PATH = {}
 
 
@@ -550,15 +565,18 @@ def read_counts(kernels: dict) -> dict:
 
 
 def f32_launches() -> tuple:
-    """(flash forward, merged backward) launches in f32 counted so far."""
+    """(flash forward, merged backward, LoRA epilogue) launches in f32
+    counted so far."""
     import torch
     return (sum(n for key, n in FLASH_BY_SHAPE.items()
-                if key[0] == torch.float32), BWD_BY_DTYPE[torch.float32])
+                if key[0] == torch.float32), BWD_BY_DTYPE[torch.float32],
+            sum(n for key, n in EPI_BY_SHAPE.items()
+                if key[0] == torch.float32))
 
 
 def mark_f32(path: str, since: tuple) -> tuple:
-    """F32_BY_PATH[path]: the f32 launches of rows 1-2 since `since`, the
-    counts after the path's run; returns those counts."""
+    """F32_BY_PATH[path]: the f32 launches of rows 1, 2 and 5 since
+    `since`, the counts after the path's run; returns those counts."""
     now = f32_launches()
     F32_BY_PATH[path] = tuple(a - b for a, b in zip(now, since))
     return now
@@ -814,10 +832,11 @@ def check_epilogue(torch, lf, dev):
     on the device: the training sites (N = 8 x 128 rows, r = 8), a ragged
     f32 shape, rank 128 with 8-byte vectors, and generate's decode shapes
     (GPT-2's attn_qkv at 8 rows, Gemma's gate_proj at 4 and the head
-    adapter's lm_head, 4 x 262,144). bf16 / f16 run lora_epilogue_vec.cu:
-    its xs must be round(f32(xa) * scale) bit for bit and two calls
-    bit-identical. Returns {site: (max error, inputs)} of the timed
-    sites."""
+    adapter's lm_head, 4 x 262,144, in bf16 and f32). bf16 / f16 run
+    lora_epilogue_vec.cu, f32 lora_epilogue_vec_f32.cu (8-byte vectors at
+    d_out 770, four rows a thread at the lm_head): xs must be
+    round(f32(xa) * scale) bit for bit and two calls bit-identical.
+    Returns {site: (max error, inputs)} of the timed sites."""
     cases = [  # (name, dtype, N, d_out, r, tol)
         ("attn_qkv", torch.bfloat16, 1024, 2304, 8, 1e-2),
         ("attn_proj", torch.bfloat16, 1024, 768, 8, 1e-2),
@@ -826,6 +845,7 @@ def check_epilogue(torch, lf, dev):
         ("decode_attn_qkv", torch.bfloat16, 8, 2304, 8, 1e-2),
         ("decode_gate_proj", torch.bfloat16, 4, 2048, 8, 1e-2),
         ("decode_lm_head", torch.bfloat16, 4, 262144, 8, 1e-2),
+        ("decode_lm_head_f32", torch.float32, 4, 262144, 8, 1e-5),
     ]
     sites = {}
     for name, dt, N, d_out, r, tol in cases:
@@ -1105,11 +1125,11 @@ def check_fused_ce(torch, fc, dev):
     with dgold = 0, max abs error over max |ref| (tolerance sm_tol; bf16
     measured at most 3.5e-4 on an H100: a few coefs round the other way).
     The forward, dh and dW of bf16 / f16 run on the tensor-core kernels,
-    of f32 on fused_ce.cu but the forward and dh, which run on the 3xTF32
-    kernels: R 37 (a ragged row tile) with a ragged V and H 1,152 in bf16
+    of f32 on the 3xTF32 kernels (dW over a cluster of 4 H parts at H
+    1,152): R 37 (a ragged row tile) with a ragged V and H 1,152 in bf16
     too; the path case's forward, dh and dW twice each must give
-    identical bits (no atomics), and a bf16 H that is not a multiple of 8
-    must be refused by all three, an f32 one by the forward and dh.
+    identical bits (no atomics), and an H that is not a multiple of 8
+    must be refused by all three in bf16 and in f32.
     Returns the path case's max abs errors and inputs."""
     cases = [  # (name, dtype, R, V, H, tol, sm_tol)
         ("path", torch.bfloat16, 128, 262144, 640, 2e-3, 2e-3),
@@ -1177,8 +1197,10 @@ def check_fused_ce(torch, fc, dev):
               f"{kernel.__name__} took a bf16 H = 1004 (not a multiple "
               f"of 8)")
     h, w = h.float(), w.float()
-    check(refuses(lambda: fc.fused_ce_bwd_dh(h, w, lab, dl, dl, dg)),
-          "fused_ce_bwd_dh took an f32 H = 1004 (not a multiple of 8)")
+    for kernel in (fc.fused_ce_bwd_dh, fc.fused_ce_bwd_dw):
+        check(refuses(lambda: kernel(h, w, lab, dl, dl, dg)),
+              f"{kernel.__name__} took an f32 H = 1004 (not a multiple "
+              f"of 8)")
     check(refuses(lambda: fc.fused_ce_fwd(h, w, lab)),
           "fused_ce_fwd took an f32 H = 1004 (not a multiple of 8)")
     return path
@@ -2287,9 +2309,15 @@ def run_stats(out, steps, base, check_learns):
             "eval_tokens": final["tokens"]}, evals
 
 
-def gemma_full_ft(torch, dev, work, kernels, gemma):
+def gemma_full_ft(torch, dev, work, kernels, gemma, f32: bool = False):
     """The Gemma full fine-tuning path: the port's CLI on the same
-    directory and corpus, launch counts set to 0 just before it."""
+    directory and corpus, launch counts set to 0 just before it. With
+    `f32`, at every CLI's default dtype (no --dtype; `gemma_full_ft_f32`),
+    GEMMA_F32's steps and final eval: rows 6-8 in f32 on their 3xTF32
+    kernels (row 8 8 times a micro-batch on fused_ce_dw_tf32.cu); also one
+    such step's device ms from CUDA events around replays of a CUDA graph
+    of it (graph_ms) and its trace, with row 8's share of the device
+    time."""
     from mobilefinetuner_tpu_torch.cli import gemma_full_finetune as cli
     from mobilefinetuner_tpu_torch.io.safetensors_io import \
         SafeTensorsReader
@@ -2297,19 +2325,24 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
         resolve_bwd_impl
     config, _, _, base, gdir, ddir, eval_nb = gemma
     G = GEMMA
-    out = os.path.join(work, "gemma_full_out")
+    name = "gemma_full_ft_f32" if f32 else "gemma_full_ft"
+    steps = GEMMA_F32["full_steps"] if f32 else G["full_steps"]
+    eval_batches = GEMMA_F32["eval_batches"] if f32 else G["eval_batches"]
+    dtype = torch.float32 if f32 else torch.bfloat16
+    out = os.path.join(work, f"{name}_out")
     model = os.path.join(out, "full.safetensors")
     argv = ["--model_dir", gdir, "--data_dir", ddir,
-            "--steps", str(G["full_steps"]), "--batch_size", str(G["batch"]),
-            "--seq_len", str(G["seq"]), "--dtype", "bfloat16",
+            "--steps", str(steps), "--batch_size", str(G["batch"]),
+            "--seq_len", str(G["seq"]),
+            *([] if f32 else ["--dtype", "bfloat16"]),
             "--loss_chunks", str(G["chunks"]), "--lr", str(G["full_lr"]),
-            "--eval_interval", str(G["full_steps"]),
+            "--eval_interval", str(steps),
             "--eval_batch_size", str(G["eval_batch"]),
-            "--eval_batches", str(G["eval_batches"]),
+            "--eval_batches", str(eval_batches),
             "--output_path", model,
             "--metrics_csv", os.path.join(out, "metrics.csv"),
             "--eval_out", os.path.join(out, "eval.jsonl"),
-            *telemetry_argv("gemma_full_ft")]
+            *telemetry_argv(name)]
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2317,21 +2350,37 @@ def gemma_full_ft(torch, dev, work, kernels, gemma):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(kernels)
-    check(rc == 0, f"gemma_full_finetune.main returned {rc}")
-    admitted("gemma_full_ft")
-    stats, evals = run_stats(out, G["full_steps"], base, check_learns=False)
-    M, E = G["full_steps"], len(evals) * eval_nb
-    impl = resolve_bwd_impl(G["seq"], config.head_dim, torch.bfloat16)
+    check(rc == 0, f"gemma_full_finetune.main ({name}) returned {rc}")
+    admitted(name)
+    stats, evals = run_stats(out, steps, base, check_learns=False)
+    M, E = steps, len(evals) * min(eval_batches, eval_nb)
+    impl = resolve_bwd_impl(G["seq"], config.head_dim, dtype)
     want = gemma_launches(M, E, impl, "full")
-    check(launches == want, f"gemma_full_ft launches {launches}, expected "
+    check(launches == want, f"{name} launches {launches}, expected "
           f"{want} (M={M} micro-batches, E={E} eval batches)")
     reader = SafeTensorsReader(model)
     check(len(reader.keys()) == 2 + 13 * config.num_hidden_layers
           and SafeTensorsReader(model + ".opt").metadata["loop_step"]
-          == str(G["full_steps"]), "full-model file / .opt incomplete")
-    stats.update({"model": "gemma3-270m", "mode": "full", "dtype":
-                  "bfloat16", "micro_batches": M, "eval_batches": E,
-                  "bwd_impl": impl, "wall_s": wall})
+          == str(steps), f"{name}: full-model file / .opt incomplete")
+    stats.update({"model": "gemma3-270m", "mode": "full",
+                  "dtype": str(dtype).split(".")[-1], "micro_batches": M,
+                  "eval_batches": E, "bwd_impl": impl, "wall_s": wall})
+    if f32:
+        step = gemma_full_step(torch, gemma, dtype)
+        step_ms = graph_ms(step, 3)
+        evs, wall_ms = device_events(step, 2)   # torch.profiler, 2 steps
+        del step
+        busy = sum(us for _, us in evs) / 2e3
+        dw_ms = sum(us for k, us in evs if "dw_tf32_kernel" in k) / 2e3
+        stats.update(step_device_ms=step_ms, traced_device_ms=busy,
+                     traced_wall_ms=wall_ms / 2, row8_traced_ms=dw_ms,
+                     row8_share=dw_ms / busy)
+        print(f"{name}: f32 (no --dtype), {M} steps: step ms p50 "
+              f"{stats['step_ms_p50']:.1f}, one step's device ms "
+              f"{step_ms:.2f} (CUDA events around CUDA-graph replays); "
+              f"traced {busy:.2f} device ms, row 8 (dw_tf32_kernel) "
+              f"{dw_ms:.2f} ms = {100 * stats['row8_share']:.1f}%; losses "
+              f"{stats['first_loss']:.4f} -> {stats['last_loss']:.4f}")
     return stats, launches
 
 
@@ -3195,7 +3244,7 @@ def profile_gemma_train(torch, dev, gemma, head: bool = False):
     targets full, 8 loss chunks; with `head`, the lm_head target too)
     spends its time."""
     name = "gemma_lora_head_train_step" if head else "gemma_lora_train_step"
-    return profile_phases({name: (gemma_step(torch, dev, gemma, head), 5,
+    return profile_phases({name: (gemma_step(torch, dev, gemma, head), 3,
                                   True)})
 
 
@@ -3203,6 +3252,16 @@ def profile_gemma_full_ft(torch, dev, gemma):
     """Where one Gemma-3-270M full fine-tuning step (batch 4 x 256, bf16,
     8 loss chunks, every parameter trainable: rows 6-8, Adam over 268M
     parameters) spends its time."""
+    return profile_phases({"gemma_full_ft_train_step": (
+        gemma_full_step(torch, gemma, torch.bfloat16), 3, True)})
+
+
+def gemma_full_step(torch, gemma, dtype):
+    """One Gemma-3-270M full fine-tuning step (batch 4 x 256, 8 loss
+    chunks, every parameter trainable: rows 6-8, Adam over 268M
+    parameters) computing in `dtype`, on a fixed random batch: a closure
+    that runs it (the step is functional: the parameters it is given stay
+    as they are)."""
     import numpy as np
 
     from mobilefinetuner_tpu_torch.cli.common import place_batch
@@ -3219,7 +3278,7 @@ def profile_gemma_full_ft(torch, dev, gemma):
     def loss_fn(trainable, _frozen, mb):
         hidden = gemma3.hidden_states(config, trainable, mb["input_ids"],
                                       attention_mask=mb["attention_mask"],
-                                      compute_dtype=torch.bfloat16)
+                                      compute_dtype=dtype)
         return chunked_lm_cross_entropy_sum(
             hidden, trainable["embed"], mb["labels"], num_chunks=G["chunks"])
 
@@ -3230,9 +3289,9 @@ def profile_gemma_full_ft(torch, dev, gemma):
                        dtype=np.int32)
     batch = place_batch({"input_ids": ids, "labels": ids,
                          "attention_mask": np.ones((G["batch"], G["seq"]),
-                                                   np.float32)}, dev)
-    return profile_phases({"gemma_full_ft_train_step": (
-        lambda: step_fn(params, None, opt, batch, 0), 5, True)})
+                                                   np.float32)},
+                        params["embed"].device)
+    return lambda: step_fn(params, None, opt, batch, 0)
 
 
 def bwd_sweep(torch, fa, dev):
@@ -3252,8 +3311,8 @@ def bwd_sweep(torch, fa, dev):
         delta = (do.float() * out.float()).sum(-1, keepdim=True)
         args = (q, k, v, pad, lse, delta, do)
         kw = dict(scale=D ** -0.5)
-        m = call_ms(lambda: fa.flash_attention_bwd_merged(*args, **kw), 20)
-        sp = call_ms(lambda: fa.flash_attention_bwd_split(*args, **kw), 20)
+        m = call_ms(lambda: fa.flash_attention_bwd_merged(*args, **kw), 10)
+        sp = call_ms(lambda: fa.flash_attention_bwd_split(*args, **kw), 10)
         rows.append({"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "D": D,
                      "merged_ms": m, "split_ms": sp,
                      "auto": fa.resolve_bwd_impl(S, D, torch.bfloat16)})
@@ -3701,6 +3760,43 @@ def f32_path_entries(torch, fa, da, dev, paged_f32, gen_prompts,
     return out_entries
 
 
+def fma_dw(torch, fc, h, w, labels, rows):
+    """dW through row 8's f32 FMA first version (fused_ce.cu's
+    mft_fused_ce_dw), which no path runs since f32 moved to
+    fused_ce_dw_tf32.cu; its launches are outside the wrapper's count."""
+    from mobilefinetuner_tpu_torch.kernels import build
+    R, H = h.shape
+    V = w.shape[0]
+    dw = torch.empty(V, H, device=h.device)
+    build.check_launch("fused_ce.cu dw", fc._fn("mft_fused_ce_dw", 7, 4)(
+        h.data_ptr(), w.data_ptr(), fc._labels(labels, h).data_ptr(),
+        *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H, 0,
+        fc._stream(h)))
+    return dw
+
+
+def fma_epilogue(torch, lf, y, xa, b, scale):
+    """out through row 5's f32 first version as the wrapper ran it before
+    f32 moved to lora_epilogue_vec_f32.cu: xs = scaled_bottleneck(xa,
+    scale) in launches of its own, then lora_epilogue.cu's
+    mft_lora_epilogue; its launches are outside the wrapper's count."""
+    import ctypes
+
+    from mobilefinetuner_tpu_torch.kernels import build
+    fn = build.load("lora_epilogue").mft_lora_epilogue
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    N, d_out = y.shape
+    xs = lf.scaled_bottleneck(xa, scale, y.dtype)
+    out = torch.empty_like(y)
+    build.check_launch("lora_epilogue.cu", fn(
+        y.data_ptr(), xs.data_ptr(), b.data_ptr(), out.data_ptr(), N, d_out,
+        xa.shape[1], 0, torch.cuda.current_stream(y.device).cuda_stream))
+    return out
+
+
 def fma_fwd(torch, fc, h, w, labels):
     """(lse, gold) through row 6's f32 FMA first version (fused_ce.cu's
     mft_fused_ce_fwd and its merge pass, on its own slab plan), which no
@@ -3742,18 +3838,18 @@ def fma_dbt(torch, fc, h, w, xa, bt, labels, rows):
 
 def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     """Row 5 and the fused CE rows in f32, every CLI's default dtype:
-    row 5 on its first version (lora_epilogue.cu) at GPT-2's attn_qkv, y
-    1024 x 2304, r 8; at the Gemma chunk (R 128, V 262,144, H 640; rows
-    9-11 at r 8, row 11 in its dbt-only mode) row 8 on fused_ce.cu (no
-    path launches it in f32: `gemma_full_finetune`'s default dtype would)
-    and rows 6, 7, 9, 10 and 11 on their 3xTF32 kernels
-    (fused_ce_fwd_tf32.cu, fused_ce_dh_tf32.cu, fused_ce_fwd_lora_tf32.cu,
-    fused_ce_dh_lora_tf32.cu, fused_ce_dbt_tf32.cu), each of those five
-    timed in turns with its fused_ce.cu first version (fma_fwd, fma_dh,
-    fma_fwd_lora, fma_dbt; held against the plain version too), rows 6,
-    9 and 11 with two calls bit-identical, and rows 7, 8, 10 and 11 also
-    held against the plain version with dgold = 0 (the softmax part,
-    over max |ref|). Each
+    row 5 on lora_epilogue_vec_f32.cu at GPT-2's attn_qkv, y 1024 x 2304,
+    r 8, timed in turns with its first version (lora_epilogue.cu) after
+    the wrapper's fold it needed (fma_epilogue); at the Gemma chunk (R
+    128, V 262,144, H 640; rows 9-11 at r 8, row 11 in its dbt-only mode)
+    rows 6, 7, 8, 9, 10 and 11 on their 3xTF32 kernels
+    (fused_ce_fwd_tf32.cu, fused_ce_dh_tf32.cu, fused_ce_dw_tf32.cu,
+    fused_ce_fwd_lora_tf32.cu, fused_ce_dh_lora_tf32.cu,
+    fused_ce_dbt_tf32.cu), each timed in turns with its fused_ce.cu first
+    version (fma_fwd, fma_dh, fma_dw, fma_fwd_lora, fma_dbt; held against
+    the plain version too), rows 6, 8, 9 and 11 with two calls
+    bit-identical, and rows 7, 8, 10 and 11 also held against the plain
+    version with dgold = 0 (the softmax part, over max |ref|). Each
     is held against its plain version (check_epilogue's and
     check_fused_ce's f32 tolerances), timed beside the bf16 entries'
     library call run in f32 (TF32 off) and bounded at the 3xTF32 rate,
@@ -3766,15 +3862,29 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     y, xa, bm = (torch.randn(sh, generator=g).to(dev)
                  for sh in ((1024, 2304), (1024, 8), (8, 2304)))
     es = torch.tensor(EPI_SCALE, device=dev)
-    e5 = max_err(lf.lora_epilogue(y, xa, bm, es)[0],
-                 lf.lora_epilogue_reference(y, xa, bm, es))
-    check(e5 <= 1e-5, f"f32 LoRA epilogue at attn_qkv: max |err| {e5:.3e}")
+    ref5 = lf.lora_epilogue_reference(y, xa, bm, es)
+    e5 = max_err(lf.lora_epilogue(y, xa, bm, es)[0], ref5)
+    e5_old = max_err(fma_epilogue(torch, lf, y, xa, bm, es), ref5)
+    check(max(e5, e5_old) <= 1e-5, f"f32 LoRA epilogue at attn_qkv: max "
+          f"|err| {e5:.3e}, first version {e5_old:.3e}")
+    times5 = timed(epi_fns(torch, lf, y, xa, bm, es))
+    times5.update(in_turns(lambda: lf.lora_epilogue(y, xa, bm, es),
+                           lambda: fma_epilogue(torch, lf, y, xa, bm, es),
+                           200))
+    print(f"f32 LoRA epilogue at attn_qkv: {times5['ms'][0] * 1e3:.2f} us "
+          f"(lora_epilogue_vec_f32.cu) against "
+          f"{times5['earlier_ms'][0] * 1e3:.2f} (lora_epilogue.cu with the "
+          f"fold) in turns, addmm {times5['library_ms'][0] * 1e3:.2f}; max "
+          f"|err| {e5:.3e} / {e5_old:.3e}")
     out = {"lora_epilogue": kernel_entry(
-        "lora_epilogue", "lora_epilogue.cu", "lora_fused.py:78",
-        EPI_BY_SHAPE[(f32, 1024, 2304)], e5,
-        timed(epi_fns(torch, lf, y, xa, bm, es)),
+        "lora_epilogue", "lora_epilogue_vec_f32.cu", "lora_fused.py:78",
+        EPI_BY_SHAPE[(f32, 1024, 2304)], e5, times5,
         epi_bound(y, xa, bm, f32_bound),
-        {"shape": "attn_qkv: y 1024x2304, r 8, f32"})}
+        {"shape": "attn_qkv: y 1024x2304, r 8, f32",
+         "earlier": "lora_epilogue.cu after the wrapper's fold "
+                    "(scaled_bottleneck)",
+         "earlier_max_abs_err": e5_old,
+         "ptxas": ptxas["lora_epilogue_vec_f32"]})}
     h, w, lab, dl, dg = fused_ce_inputs(torch, dev, f32, 128, 262144, 640,
                                         seed=43)
     g = torch.Generator(device=dev).manual_seed(44)
@@ -3787,7 +3897,11 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     lse, gold = fc.fused_ce_fwd(h, w, lab)
     lse_l, gold_l = fc.fused_ce_fwd_lora(h, w, xa, bt, lab)
     dbt = fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]
-    e8 = rel_err(fc.fused_ce_bwd_dw(*ce), fc.fused_ce_dw_reference(*ce))
+    dw = fc.fused_ce_bwd_dw(*ce)
+    ref_dw = fc.fused_ce_dw_reference(*ce)
+    e8 = rel_err(dw, ref_dw)
+    dw_twice = bool(torch.equal(dw, fc.fused_ce_bwd_dw(*ce)))
+    del dw
     ref_dh = fc.fused_ce_dh_reference(*ce)
     ref_dhl = fc.fused_ce_dh_lora_reference(*lora)
     ref_dbt = fc.fused_ce_dw_lora_reference(*lora, want_dw=False)[1]
@@ -3806,7 +3920,8 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
              "fused_ce_fwd_lora": bool(torch.equal(lse_l, lse_l2)
                                        and torch.equal(gold_l, gold_l2)),
              "fused_ce_dw_lora": bool(torch.equal(
-                 dbt, fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1]))}
+                 dbt, fc.fused_ce_bwd_dw_lora(*lora, want_dw=False)[1])),
+             "fused_ce_dw": dw_twice}
     z = torch.zeros_like(dg)
     ce0, lora0 = ce[:5] + (z,), lora[:7] + (z,)
     sm = {"fused_ce_dh": scaled_err(fc.fused_ce_bwd_dh(*ce0),
@@ -3826,18 +3941,20 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
                                         max_err(gold_lf, rlg)),
                "fused_ce_dh": rel_err(fma_dh(torch, fc, h, w, lab, ce[3:]),
                                       ref_dh),
+               "fused_ce_dw": rel_err(fma_dw(torch, fc, h, w, lab, ce[3:]),
+                                      ref_dw),
                "fused_ce_dh_lora": max(rel_err(a, b) for a, b in zip(
                    fma_dh(torch, fc, h, w, lab, lora[5:], (xa, bt)),
                    ref_dhl)),
                "fused_ce_dw_lora": rel_err(
                    fma_dbt(torch, fc, h, w, xa, bt, lab, lora[5:]),
                    ref_dbt)}
-    del ref_dh, ref_dhl, ref_dbt, lse_f, gold_f, lse_lf, gold_lf
+    del ref_dh, ref_dw, ref_dhl, ref_dbt, lse_f, gold_f, lse_lf, gold_lf
     print("f32 fused CE at the Gemma chunk (R 128, V 262144, H 640, r 8): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + "; softmax part (dgold = 0) over max |ref| " + ", ".join(
               f"{k} {v:.3e}" for k, v in sm.items())
-          + "; first versions of rows 6 / 9 / 7 / 10 / 11 " + ", ".join(
+          + "; first versions of rows 6 / 9 / 7 / 8 / 10 / 11 " + ", ".join(
               f"{k} {v:.3e}" for k, v in earlier.items())
           + f" (tolerance 1e-4); two calls identical: {twice}")
     check(max(*errs.values(), *sm.values(), *earlier.values()) <= 1e-4,
@@ -3856,6 +3973,9 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
     times["fused_ce_dh"].update(in_turns(
         lambda: fc.fused_ce_bwd_dh(*ce),
         lambda: fma_dh(torch, fc, h, w, lab, ce[3:]), 10))
+    times["fused_ce_dw"].update(in_turns(
+        lambda: fc.fused_ce_bwd_dw(*ce),
+        lambda: fma_dw(torch, fc, h, w, lab, ce[3:]), 10))
     times["fused_ce_fwd_lora"].update(in_turns(
         lambda: fc.fused_ce_fwd_lora(h, w, xa, bt, lab),
         lambda: fma_fwd_lora(torch, fc, h, w, xa, bt, lab), 10))
@@ -3870,7 +3990,7 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
              "fused_ce_dh": ("fused_ce_bwd_dh", "fused_ce.py:196", "",
                              "fused_ce_dh_tf32.cu"),
              "fused_ce_dw": ("fused_ce_bwd_dw", "fused_ce.py:224", "",
-                             "fused_ce.cu"),
+                             "fused_ce_dw_tf32.cu"),
              "fused_ce_fwd_lora": ("fused_ce_fwd_lora", "fused_ce.py:350",
                                    ", r 8", "fused_ce_fwd_lora_tf32.cu"),
              "fused_ce_dh_lora": ("fused_ce_bwd_dh_lora", "fused_ce.py:384",
@@ -3888,11 +4008,9 @@ def f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas):
                          ptxas=ptxas[source[:-3]])
         if key in sm:
             extra["softmax_part_err"] = sm[key]
-        if key == "fused_ce_dw":     # its first version, no path's launch
-            extra.update(ptxas=[row for row in ptxas["fused_ce"]
-                                if row[0].startswith("dw_kernel<f32")],
-                         path="none: gemma_full_finetune at its default "
-                              "dtype (f32) would launch it 8 times a step")
+        if key == "fused_ce_dw":
+            extra["earlier_ptxas"] = [row for row in ptxas["fused_ce"]
+                                      if row[0].startswith("dw_kernel<f32")]
         out[name] = kernel_entry(name, source, line,
                                  sum(ce_f32[key].values()), errs[key],
                                  times[key], bounds[key], extra)
@@ -5422,7 +5540,8 @@ def main(argv=None) -> int:
     for name in ("flash_attention_fwd_tf32",
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
                  "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
-                 "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32"):
+                 "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32",
+                 "fused_ce_dw_tf32", "lora_epilogue_vec_f32"):
         check(all(row[2] == 0 and row[3] == 0 for row in ptxas[name]),
               f"{name} spills registers: {ptxas[name]}")
     if argv == ["--only", "f32_ce"]:
@@ -5555,13 +5674,17 @@ def main(argv=None) -> int:
         print(json.dumps({"gemma_lora_head": head_stats,
                           "launches": launches_head}))
         torch.cuda.empty_cache()
-        # the default dtype: the same LoRA runs in f32, counts set to 0
-        # just before each
+        # the default dtype: the same LoRA runs and full fine-tuning in
+        # f32, counts set to 0 just before each
         launches_f32, step_f32 = {}, {}
-        for head in (False, True):
-            name = CE_F32_PATHS[int(head)]
-            f32_stats, launches_f32[name] = gemma_train_f32(
-                torch, dev, work, kernels, gemma, head)
+        for name in CE_F32_PATHS:
+            if name == "gemma_full_ft_f32":
+                f32_stats, launches_f32[name] = gemma_full_ft(
+                    torch, dev, work, kernels, gemma, f32=True)
+            else:
+                f32_stats, launches_f32[name] = gemma_train_f32(
+                    torch, dev, work, kernels, gemma,
+                    name == "gemma_lora_head_f32")
             mark = mark_f32(name, mark)
             f32_stats.update(observed(name))
             step_f32[name] = f32_stats["step_device_ms"]
@@ -5666,10 +5789,10 @@ def main(argv=None) -> int:
     mmlu_entries = mmlu_kernel_entries(torch, fa, lf, dev, mmlu_flash)
     ce_f32 = {key: {p: launches_f32[p][key] for p in CE_F32_PATHS}
               for key in (*CE_KEYS, *CE_LORA_KEYS[:3])}
-    for key, n in ce_f32.items():   # rows 6-7 (9-11) ran on their path
-        head = key.endswith("_lora")
-        check(key == "fused_ce_dw" or n[CE_F32_PATHS[int(head)]] > 0,
-              f"{key} launched no time in f32 on {CE_F32_PATHS[int(head)]}")
+    for key, n in ce_f32.items():   # rows 6-8 (9-11) ran on their paths
+        path = ("gemma_full_ft_f32" if key == "fused_ce_dw" else
+                CE_F32_PATHS[int(key.endswith("_lora"))])
+        check(n[path] > 0, f"{key} launched no time in f32 on {path}")
     f32_first = f32_ce_entries(torch, fc, lf, dev, ce_f32, ptxas)
     f32p = f32_path_entries(
         torch, fa, da, dev, paged_cases["gemma_serve_f32"], gen_prompts,
@@ -5703,12 +5826,14 @@ def main(argv=None) -> int:
     def total(name):
         return sum(by_path(name).values())
 
-    # rows 1 and 2 by dtype: the 16-bit launches ran the _mma sources, the
-    # f32 ones the 3xTF32 sources; each source's entry has its own
+    # rows 1, 2 and 5 by dtype: the 16-bit launches ran the _mma (_vec)
+    # sources, the f32 ones the 3xTF32 (_vec_f32) sources; each source's
+    # entry has its own
     check(f32_launches() == tuple(map(sum, zip(*F32_BY_PATH.values()))),
           f"f32 launches {f32_launches()} not all in {F32_BY_PATH}")
     f32_paths = {name: {p: n[i] for p, n in F32_BY_PATH.items() if n[i]}
-                 for i, name in enumerate(("flash_fwd", "bwd_merged"))}
+                 for i, name in enumerate(("flash_fwd", "bwd_merged",
+                                           "lora_epilogue"))}
 
     # rows 12 and 13 in f32 ran on their first versions: on
     # gemma_serve_f32 (row 12) and generate's two f32 runs (row 13)
@@ -5726,7 +5851,7 @@ def main(argv=None) -> int:
               f"{name}: f32 launches {f32_paths[name]} exceed the paths' "
               f"{by_path(name)}")
 
-    for name in ("flash_fwd", "bwd_merged"):
+    for name in ("flash_fwd", "bwd_merged", "lora_epilogue"):
         check(sum(f32_paths[name].values()) > 0
               and sum(by_path_16(name).values()) > 0,
               f"{name}: a source of it ran no time on the paths (f32 "
@@ -5785,16 +5910,25 @@ def main(argv=None) -> int:
             "flash_attention.py:362", total("bwd_dkv"), bwd["dkv"],
             dkv_times, bound(bwd_in + 2 * n_qkv * isz, 8 * D * pairs),
             {"launches_by_path": by_path("bwd_dkv")}),
-        dict(epi_entries["attn_qkv"], launches=total("lora_epilogue"),
-             launches_by_path=by_path("lora_epilogue"),
+        dict(epi_entries["attn_qkv"],
+             launches=sum(by_path_16("lora_epilogue").values()),
+             launches_by_path=by_path_16("lora_epilogue"),
              shape="attn_qkv: y 1024x2304, r 8, bf16",
              ptxas=ptxas["lora_epilogue_vec"],
-             f32=f32_first["lora_epilogue"],
+             f32="lora_epilogue_vec_f32.cu (its own entry)",
              gemma=gemma_entries["lora_epilogue"],
              attn_proj=epi_entries["attn_proj"],
              mmlu_lm_head=mmlu_entries["lm_head"],
              decode={site: epi_entries[site] for site in (
                  "decode_attn_qkv", "decode_gate_proj", "decode_lm_head")}),
+        dict(f32_first["lora_epilogue"],
+             launches=sum(f32_paths["lora_epilogue"].values()),
+             launches_by_path=f32_paths["lora_epilogue"],
+             launches_at_shape=f32_first["lora_epilogue"]["launches"],
+             launches_by_shape={f"{n}x{d}": c for (dt, n, d), c
+                                in sorted(EPI_BY_SHAPE.items(),
+                                          key=lambda kv: kv[0][1:])
+                                if dt == torch.float32}),
         dict(pg_entries["serving"], launches=total("paged") - f32p["paged"][
                  "launches"],
              launches_by_path=by_path_16("paged"),
@@ -5824,6 +5958,7 @@ def main(argv=None) -> int:
     ce_shape = "R 128 (4 x 32 rows), V 262144, H 640, bf16 (gemma chunk)"
     own = {"fused_ce_fwd": "fused_ce_fwd_tf32.cu (its own entry)",
            "fused_ce_bwd_dh": "fused_ce_dh_tf32.cu (its own entry)",
+           "fused_ce_bwd_dw": "fused_ce_dw_tf32.cu (its own entry)",
            "fused_ce_fwd_lora": "fused_ce_fwd_lora_tf32.cu (its own entry)",
            "fused_ce_bwd_dh_lora": "fused_ce_dh_lora_tf32.cu (its own "
                                    "entry)",
@@ -5838,13 +5973,11 @@ def main(argv=None) -> int:
              ce_err["dw"], "fused_ce_dw_mma.cu")):
         extra = {"launches_by_path": by_path_ce16(key), "shape": ce_shape,
                  "ptxas": ptxas[source[:-3]],
-                 "f32": own.get(name) or f32_first.get(
-                     name, "fused_ce.cu (FMA kernel, f32 launches)")}
+                 "f32": own[name]}
         kernels_line.append(kernel_entry(
             name, source, line, sum(by_path_ce16(key).values()), err,
             ce_times[key], ce_bounds[key], extra))
-        if name in own:
-            kernels_line.append(f32_first[name])
+        kernels_line.append(f32_first[name])
     ce_lora_times, ce_lora_bounds = fused_ce_lora_times(torch, fc,
                                                         ce_lora_args)
     lora_shape = "R 128, V 262144, H 640, r 8, bf16 (gemma chunk)"
@@ -5860,11 +5993,10 @@ def main(argv=None) -> int:
                   "fused_ce_dw_lora": "fused_ce_dbt_mma.cu"}[key]
         extra = {"launches_by_path": by_path_ce16(key),
                  "shape": lora_shape, "ptxas": ptxas[source[:-3]],
-                 "f32": own.get(name) or f32_first[name]}
+                 "f32": own[name]}
         if key == "fused_ce_dw_lora":
             extra["shape"] += ", dbt only (frozen head)"
             # the dW + dbt mode, every dtype, on fused_ce.cu's dw_kernel
-            # (shared with row 8's f32 case)
             extra["dw_mode"] = kernel_entry(
                 name, "fused_ce.cu", line, None,
                 max(ce_lora_err["dw"], ce_lora_err["dbt"]),
@@ -5876,8 +6008,7 @@ def main(argv=None) -> int:
         kernels_line.append(kernel_entry(
             name, source, line, sum(by_path_ce16(key).values()), err,
             ce_lora_times[key], ce_lora_bounds[key], extra))
-        if name in own:
-            kernels_line.append(f32_first[name])
+        kernels_line.append(f32_first[name])
     print(json.dumps({"bwd_sweep": bwd_sweep(torch, fa, dev)}))
     print(json.dumps({"admission": ADMISSION}))
     shutil.rmtree(STREAMS["dir"], ignore_errors=True)

@@ -60,7 +60,15 @@ inputs: R 128, V 262,144, H 640, r 8) under each launch plan of
 `ops/fused_ce.LOGITS_PLANS` set to it alone), in turns (the plans in
 order, then in reverse), with each plan's largest difference from the
 plain version (lse and gold of rows 6 and 9; dbt over max(1, |ref|)).
-Then two probes of row 6 at its own plan, in turns with the source: a
+Then row 8 (dW) in f32 on `csrc/fused_ce_dw_tf32.cu` under its two
+layouts that fit, in turns (in order, then in reverse) with its first
+version (`csrc/fused_ce.cu`'s FMA dw_kernel): the plan's (`DW_LAYOUTS`
+"cluster": a thread-block cluster over H's halves, h held for the CTA's
+life, the partial logits exchanged through distributed shared memory)
+and "one_cta" (one CTA, 32 vocab rows a tile,
+h's 640 columns in 64-row chunks reloaded from L2 for every tile), each
+with its dW's largest difference from the plain version over max(1,
+|ref|). Then two probes of row 6 at its own plan, in turns with the source: a
 variant with the W chunks' copies after the first ones left out (its
 output is wrong; the time of the loop without them), at the Gemma chunk
 and at R 4,096, V 8,192 (the same chunks and the same L2 traffic a CTA,
@@ -584,6 +592,10 @@ def mma_rate(torch, build, out_dir) -> int:
 
 PLAN_SWEEP = ((64, 32, 3), (64, 32, 2), (32, 64, 4), (32, 64, 2),
               (32, 32, 4), (32, 32, 3), (16, 64, 4), (16, 64, 2))
+# row 8's f32 layouts at the Gemma chunk: changes to dw_tf32_plan's
+DW_LAYOUTS = {"cluster": {},
+              "one_cta": {"vocab_groups": 2, "row_chunk": 64, "hp": 640,
+                          "n_parts": 1}}
 
 
 def f32_ce_plans(torch, build) -> int:
@@ -591,7 +603,8 @@ def f32_ce_plans(torch, build) -> int:
     import chip_smoke as cs
     from mobilefinetuner_tpu_torch.ops import fused_ce as fc
     built = build.build_all(["fused_ce_fwd_tf32", "fused_ce_dbt_tf32",
-                             "fused_ce_fwd_lora_tf32"], verbose=True)
+                             "fused_ce_fwd_lora_tf32", "fused_ce_dw_tf32",
+                             "fused_ce"], verbose=True)
     for name, (_, log) in built.items():
         print(name, cs.ptxas_summary(log))
     dev = torch.device("cuda", 0)
@@ -633,11 +646,43 @@ def f32_ce_plans(torch, build) -> int:
         plan = k.split(" ", 1)[1]
         print(f"{k}: {v} us, max err (lse/gold, dbt, row 9's lse/gold) "
               f"{errs[plan]}")
+    dw_times, dw_errs = dw_layouts(torch, cs, fc, h, w, lab, rl, dl, dg)
     probes = fwd_copy_probes(torch, build, cs, fc, dev)
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "times_us": times, "errors": errs,
+                      "dw_times_us": dw_times, "dw_errors": dw_errs,
                       "fwd_probes_us": probes}))
     return 0
+
+
+def dw_layouts(torch, cs, fc, h, w, lab, lse, dl, dg):
+    """Row 8 in f32 under each of DW_LAYOUTS and its FMA first version, in
+    turns; ({name: [us, us]}, {name: dW error over max(1, |ref|)})."""
+    R, H = h.shape
+    V = w.shape[0]
+    n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
+    rows = (lse, dl, dg)
+    ref = fc.fused_ce_dw_reference(h, w, lab, *rows)
+    fns, errs = {}, {}
+    for name, change in DW_LAYOUTS.items():
+        plan = dict(fc.dw_tf32_plan(R, V, H, n_sm), **change)
+        plan["n_clusters"] = min(n_sm // plan["n_parts"],
+                                 -(-V // (16 * plan["vocab_groups"])))
+
+        def call(plan=plan):
+            code, dw = fc._launch_dw_tf32(h, w, lab, rows, plan)
+            fc.build.check_launch(f"row 8 f32 {plan}", code)
+            return dw
+        errs[name] = cs.rel_err(call(), ref)
+        fns[name] = call
+    fns["fused_ce.cu"] = lambda: cs.fma_dw(torch, fc, h, w, lab, rows)
+    errs["fused_ce.cu"] = cs.rel_err(fns["fused_ce.cu"](), ref)
+    del ref
+    times = in_turns(fns, lambda fn: cs.queued_ms(fn, 10) * 1e3)
+    for k, v in times.items():
+        print(f"row 8 f32 {k}: {v} us, dW error over max(1, |ref|) "
+              f"{errs[k]:.3e}")
+    return times, errs
 
 
 def fwd_copy_probes(torch, build, cs, fc, dev):

@@ -42,7 +42,8 @@ SOURCES = ("flash_attention_fwd", "flash_attention_fwd_mma",
            "fused_ce_dw_mma", "fused_ce_dh_lora_mma", "fused_ce_fwd_lora_mma",
            "fused_ce_dbt_mma", "fused_ce_dh_tf32", "fused_ce_dh_lora_tf32",
            "fused_ce_fwd_tf32", "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32",
-           "lora_epilogue", "lora_epilogue_vec",
+           "fused_ce_dw_tf32", "lora_epilogue", "lora_epilogue_vec",
+           "lora_epilogue_vec_f32",
            "paged_decode_attention",
            "paged_decode_attention_vec", "decode_attention",
            "decode_attention_mma")

@@ -3,9 +3,8 @@ plain versions (port of mobilefinetuner_tpu/ops/fused_ce.py).
 
 The chunked loss (ops/loss.py) projects each sequence chunk's hidden
 states onto the [V, H] head. At Gemma's 262,144-entry vocabulary a
-chunk's [R, V] logits are hundreds of MB; the kernels of
-`csrc/fused_ce.cu` compute them tile by tile and keep them out of device
-memory:
+chunk's [R, V] logits are hundreds of MB; the kernels below compute
+them tile by tile and keep them out of device memory:
 
   fused_ce_fwd      (lse, gold) [R] f32: logsumexp of each row's logits
                     and its label's logit (TPU `_fwd_kernel`, row 6);
@@ -20,8 +19,10 @@ memory:
                     dh_mma_plan, dh_tf32_plan).
   fused_ce_bwd_dw   dW [V, H] f32 = coef^T @ h (`_dw_kernel`, row 8);
                     bf16 and f16 on the tensor-core kernel of
-                    `csrc/fused_ce_dw_mma.cu` (H % 8 == 0), f32 on
-                    `csrc/fused_ce.cu` (dw_library, dw_mma_plan).
+                    `csrc/fused_ce_dw_mma.cu`, f32 on the 3xTF32 one of
+                    `csrc/fused_ce_dw_tf32.cu`, a thread-block cluster
+                    over H parts (H % 8 == 0; dw_library, dw_mma_plan,
+                    dw_tf32_plan).
                     coef = dlse * softmax(logits) + dgold * onehot(label),
                     rounded to the storage dtype before the product.
   fused_ce_rows     (lse, gold), differentiable in h and W: a
@@ -72,14 +73,16 @@ Bounds and design: csrc/fused_ce.cu and the tensor-core sources
 csrc/fused_ce_fwd_mma.cu, fused_ce_dh_mma.cu, fused_ce_dw_mma.cu,
 fused_ce_fwd_lora_mma.cu, fused_ce_dh_lora_mma.cu, fused_ce_dbt_mma.cu
 and the 3xTF32 fused_ce_fwd_tf32.cu, fused_ce_dh_tf32.cu,
-fused_ce_fwd_lora_tf32.cu, fused_ce_dh_lora_tf32.cu and
-fused_ce_dbt_tf32.cu. fused_ce.cu's f32 forward (mft_fused_ce_fwd), head-
-adapter forward (mft_fused_ce_fwd_lora), dh kernels (mft_fused_ce_dh,
-mft_fused_ce_dh_lora) and dbt-only mode (mft_fused_ce_dw_lora with no
-dW), which rows 6, 9, 7, 10 and 11 ran in f32 before, stay built as
-those rows' earlier versions on no path (chip_smoke.py times them); its
-f32 dW and every dtype's dW + dbt mode are on paths.
-The kernels take any R and V, H % 8 == 0 (fused_ce.cu's f32 dW any H)
+fused_ce_dw_tf32.cu, fused_ce_fwd_lora_tf32.cu, fused_ce_dh_lora_tf32.cu
+and fused_ce_dbt_tf32.cu. fused_ce.cu's f32 forward (mft_fused_ce_fwd),
+head-adapter forward (mft_fused_ce_fwd_lora), dh kernels
+(mft_fused_ce_dh, mft_fused_ce_dh_lora), dW (mft_fused_ce_dw) and
+dbt-only mode (mft_fused_ce_dw_lora with no dW), which rows 6, 9, 7, 10,
+8 and 11 ran in f32 before, stay built as those rows' earlier versions
+on no path (chip_smoke.py times them); its dW + dbt mode is row 11's
+only kernel when the tied head trains beside a head adapter, in every
+dtype.
+The kernels take any R and V, H % 8 == 0
 within their plans' shared memory, h and W (and xa, bt) in one of f32 /
 bf16 / f16; the backward wrappers refuse H + r > MAX_HIDDEN (fused_ce.cu
 holds [32, H] (+ [32, r]) f32 accumulators in shared memory) but in row
@@ -122,6 +125,12 @@ DH_LORA_HP_MAX = 640    # csrc/fused_ce_dh_lora_mma.cu HP_MAX: 2 x 320
 DW_VOCAB_TILE = 32      # csrc/fused_ce_dw_mma.cu VT: vocab rows of a tile
 DW_HP_MAX = 640         # HP_MAX: dW columns of a CTA, 8 warps x WC_MAX
 DW_ROW_CHUNKS = (128, 64, 32)   # rows of h a CTA holds (its RC)
+DW_TF32_VOCAB_GROUPS = 4  # csrc/fused_ce_dw_tf32.cu VG: 16-row vocab groups
+DW_TF32_HP_MAX = 320      # HP_MAX: columns of an H part, 2 warps x 20 n-tiles
+DW_TF32_PARTS = (1, 2, 4, 8)    # H parts (CTAs of a cluster), fewest first
+DW_TF32_ROWS_WHOLE = 128  # ROWS_WHOLE: rows of h a CTA holds for its life
+                          # (64 < R <= 128); other R in 64-row chunks
+DW_TF32_STAGES = 3        # STAGES: W chunks in the ring
 FWD_MMA_KREGS = 40      # csrc/fused_ce_fwd_mma.cu KR: h's k-steps a lane
 DBT_GROUP = 4           # csrc/fused_ce_dbt_mma.cu GT: W tiles a coef group
 TF32_VOCAB_TILE = 16    # csrc/fused_ce_dh_tf32.cu VT: vocab of a W tile
@@ -129,6 +138,7 @@ TF32_WARPS = 8          # WG: warps of a row group
 TF32_COEF_LD = 24       # LDC: coef row stride, floats
 TF32_NT = (2, 5, 6, 12, 28)     # dh n-tiles a warp, the instantiated
                                 # bounds (6 at most with 32-row tiles)
+TF32_W_CHUNK = 32       # csrc/fused_ce_dw_tf32.cu KC: columns of a W chunk
 LOGITS_VOCAB_TILE = 128  # csrc/fused_ce_fwd_tf32.cu, fused_ce_dbt_tf32.cu
                          # VT: vocab rows of a tile, 16 a warp
 LOGITS_WARPS = 8         # WARPS
@@ -313,8 +323,8 @@ def _slabs(R: int, V: int, device, ctas_per_sm: int) -> Tuple[int, int]:
 def _route(what: str, mma: Tuple[str, str], f32: Tuple[str, str],
            dtype: torch.dtype) -> Tuple[str, str]:
     """(source, C symbol) of a kernel for `dtype`: bf16 and f16 run on the
-    tensor-core kernel `mma`, f32 on `f32` (fused_ce.cu's FMA kernel, or
-    a 3xTF32 one); no fallback from one to the other."""
+    tensor-core kernel `mma`, f32 on `f32` (a 3xTF32 one); no fallback
+    from one to the other."""
     if dtype in (torch.bfloat16, torch.float16):
         return mma
     if dtype == torch.float32:
@@ -341,7 +351,7 @@ def dw_library(dtype: torch.dtype) -> Tuple[str, str]:
     """Row 8's kernel for `dtype` (_route)."""
     return _route("fused_ce_bwd_dw",
                   ("fused_ce_dw_mma", "mft_fused_ce_dw_mma"),
-                  ("fused_ce", "mft_fused_ce_dw"), dtype)
+                  ("fused_ce_dw_tf32", "mft_fused_ce_dw_tf32"), dtype)
 
 
 def dh_lora_library(dtype: torch.dtype) -> Tuple[str, str]:
@@ -476,6 +486,26 @@ def _dw_mma_fits(H: int, elem_bytes: int) -> list:
     (dw_mma_plan)."""
     return [rc for rc in DW_ROW_CHUNKS
             if _dw_mma_smem(H, rc, elem_bytes) <= SMEM_MAX]
+
+
+def _dw_tf32_smem(vocab_groups: int, rc: int, hp: int) -> int:
+    return (rc * (hp + 4) + 16 * vocab_groups * rc + rc * 4
+            + DW_TF32_STAGES * 16 * vocab_groups * (TF32_W_CHUNK + 4)) * 4
+
+
+def _dw_tf32_pick(H: int):
+    """Row 8's f32 layout (dw_tf32_plan): ((n_parts, hp), bytes) of the
+    fewest H parts of DW_TF32_PARTS whose columns a part (hp, a multiple
+    of 16) are at most DW_TF32_HP_MAX and whose shared memory at
+    DW_TF32_ROWS_WHOLE rows fits."""
+    for n_parts in DW_TF32_PARTS:
+        hp = -(-(-(-H // n_parts)) // 16) * 16
+        if hp > DW_TF32_HP_MAX or hp * (n_parts - 1) >= H:
+            continue
+        nbytes = _dw_tf32_smem(DW_TF32_VOCAB_GROUPS, DW_TF32_ROWS_WHOLE, hp)
+        if nbytes <= SMEM_MAX:
+            return (n_parts, hp), nbytes
+    return None
 
 
 def fwd_mma_plan(R: int, V: int, H: int, n_sm: int,
@@ -718,6 +748,33 @@ def dw_mma_plan(R: int, V: int, H: int, n_sm: int,
             "smem_bytes": _dw_mma_smem(H, rc, elem_bytes)}
 
 
+def dw_tf32_plan(R: int, V: int, H: int, n_sm: int) -> dict:
+    """Row 8's f32 launch, as csrc/fused_ce_dw_tf32.cu takes it: H cut
+    into `n_parts` parts of `hp` columns (_dw_tf32_pick: 2 x 320 at the
+    Gemma chunk), one CTA of a thread-block cluster each, holding h's
+    part for all R rows (`row_chunk` DW_TF32_ROWS_WHOLE for 64 < R <=
+    128; else `n_chunks` chunks of 64 rows, reloaded for every tile when
+    there are more than one); the vocabulary in tiles of 16
+    `vocab_groups` rows that `n_clusters` clusters walk with a grid
+    stride (at most one a pair of multiprocessors, never more than the
+    tiles; the launch cuts them to what the card holds at once), the
+    grid (n_parts, n_clusters)."""
+    _require_h8("fused_ce_bwd_dw", H)
+    pick = _dw_tf32_pick(H)
+    if pick is None:
+        raise ValueError(f"fused_ce_bwd_dw 3xTF32 kernel: H={H} does not "
+                         f"fit {DW_TF32_PARTS[-1]} parts of "
+                         f"{DW_TF32_HP_MAX} columns")
+    (n_parts, hp), _ = pick
+    rc = DW_TF32_ROWS_WHOLE if 64 < R <= DW_TF32_ROWS_WHOLE else 64
+    vg = DW_TF32_VOCAB_GROUPS
+    n_clusters = min(-(-V // (16 * vg)), max(1, n_sm // n_parts))
+    return {"vocab_groups": vg, "row_chunk": rc, "n_chunks": -(-R // rc),
+            "hp": hp, "n_parts": n_parts, "n_clusters": n_clusters,
+            "grid": (n_parts, n_clusters),
+            "smem_bytes": _dw_tf32_smem(vg, rc, hp)}
+
+
 def fused_ce_eligible(R: int, V: int, H: int, r: int = 0,
                       dtype: torch.dtype = torch.float32,
                       head_grad: bool = False) -> bool:
@@ -727,7 +784,8 @@ def fused_ce_eligible(R: int, V: int, H: int, r: int = 0,
     (`head_grad`); with a head adapter of rank r, rows 9 and 10 and row 11
     (its dW + dbt mode when `head_grad`, else dbt only). Each kernel of
     `dtype`'s route must plan (the `_mma` layouts for bf16 / f16, the
-    3xTF32 ones or fused_ce.cu for f32: the plans' shared-memory picks,
+    3xTF32 ones for f32, fused_ce.cu for row 11's dW + dbt mode: the
+    plans' shared-memory picks,
     H % 8 == 0, 1 <= r <= MAX_RANK) and pass its wrapper's check (H + r <=
     MAX_HIDDEN for the backward wrappers but row 11's dbt-only mode).
     Decided from shapes, dtype, rank and head_grad alone: no kernel is
@@ -743,10 +801,11 @@ def fused_ce_eligible(R: int, V: int, H: int, r: int = 0,
     hx = H + -(-r // 8) * 8
     if dtype == torch.float32:
         # rows 6 / 9 and 11 (dbt only) on the logits layout, rows 7 / 10
-        # on theirs; rows 8 and 11's dW + dbt mode on fused_ce.cu, whose
-        # only limit is the wrappers' MAX_HIDDEN
+        # on theirs, row 8 on its H parts; row 11's dW + dbt mode on
+        # fused_ce.cu, whose only limit is the wrappers' MAX_HIDDEN
         return _logits_tf32_pick(hx) is not None \
-            and _tf32_pick(hx) is not None
+            and _tf32_pick(hx) is not None \
+            and (not head_grad or r > 0 or _dw_tf32_pick(H) is not None)
     eb = dtype.itemsize
     if not r:
         return _fwd_mma_pick(H, eb) is not None \
@@ -1026,6 +1085,24 @@ def _launch_dw_mma(h, w, labels, rows):
     return code, dw
 
 
+def _launch_dw_tf32(h, w, labels, rows, plan=None):
+    """(code, dW) through row 8's f32 (3xTF32) kernel, at dw_tf32_plan's
+    launch or at `plan` (kernel_variants.py's other layout)."""
+    R, H = h.shape
+    V = w.shape[0]
+    plan = plan or dw_tf32_plan(R, V, H, _n_sm(h))
+    _aligned16("fused_ce_bwd_dw", h, w)
+    dw = torch.empty(V, H, device=h.device)
+    lib, sym = dw_library(h.dtype)
+    code = _fn(sym, 7, 9, lib)(
+        h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
+        *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H,
+        plan["vocab_groups"], plan["row_chunk"], plan["hp"],
+        plan["n_parts"], plan["n_clusters"], DTYPE_CODES[h.dtype],
+        _stream(h))
+    return code, dw
+
+
 def _launch_dbt_mma(h, w, xa, bt, labels, rows):
     """(code, dbt) through row 11's dbt-only tensor-core kernel and its
     reduce pass over row tiles."""
@@ -1121,13 +1198,7 @@ def fused_ce_bwd_dw(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
     if dw_library(h.dtype)[0] == "fused_ce_dw_mma":
         code, dw = _launch_dw_mma(h, w, labels, rows)
     else:
-        R, H = h.shape
-        V = w.shape[0]
-        dw = torch.empty(V, H, device=h.device)
-        code = _fn("mft_fused_ce_dw", 7, 4)(
-            h.data_ptr(), w.data_ptr(), _labels(labels, h).data_ptr(),
-            *(t.data_ptr() for t in rows), dw.data_ptr(), R, V, H,
-            DTYPE_CODES[h.dtype], _stream(h))
+        code, dw = _launch_dw_tf32(h, w, labels, rows)
     build.check_launch("fused_ce_bwd_dw", code)
     fused_ce_bwd_dw.launches += 1
     return dw

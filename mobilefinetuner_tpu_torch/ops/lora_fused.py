@@ -5,10 +5,12 @@ A LoRA site computes y = x @ W (+ b) and then y + scale * (xa @ B) with
 xa = x @ A, the rank-r bottleneck. Written as two torch ops, the
 [N, d_out] delta is written to device memory and read back to be added;
 the epilogue kernel adds xa @ B to y in one pass over y, accumulating the
-rank-r product in f32. bf16 and f16 run `csrc/lora_epilogue_vec.cu`,
-which also folds the scale in (xs = round(f32(xa) * scale), the scale
-read from its device address), f32 runs `csrc/lora_epilogue.cu` on an xs
-the wrapper forms.
+rank-r product in f32. bf16 and f16 run `csrc/lora_epilogue_vec.cu`, f32
+`csrc/lora_epilogue_vec_f32.cu`; both fold the scale in (xs =
+f32(xa) * scale, rounded to the storage dtype, the scale read from its
+device address), in one launch. `csrc/lora_epilogue.cu`, which f32 ran
+before on an xs the wrapper formed in launches of its own, stays built
+as its first version on no path.
 
   lora_epilogue            (out, xs): out = y2 + xs @ b2 on 2-D operands,
                            xs = xa2 folded with `scale` (an f32 0-d tensor
@@ -31,8 +33,9 @@ the wrapper forms.
                            dtype of f32/bf16/f16. Any N and d_out (ragged
                            edges masked, narrower vectors where d_out or an
                            address does not allow 16 bytes).
-  epilogue_vec_plan        the 16-bit kernel's launch (vector width, rows a
-                           thread, CTAs), checked on the CPU.
+  epilogue_vec_plan        the vector kernels' launch (vector width, rows a
+                           thread, CTAs) by element size, checked on the
+                           CPU.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ from mobilefinetuner_tpu_torch.kernels import build
 
 MAX_RANK = 128           # both sources' MAX_RANK
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-VEC_THREADS = 128        # csrc/lora_epilogue_vec.cu THREADS
-VEC_ROWS = 4             # its rows a thread at N <= 4 (16-byte vectors)
+VEC_THREADS = 128        # csrc/lora_epilogue_vec.cu, _vec_f32.cu THREADS
+VEC_ROWS = 4             # their rows a thread at N <= 4 (16-byte vectors)
 
 
 def lora_epilogue_eligible(r: int, dtype: torch.dtype) -> bool:
@@ -56,31 +59,35 @@ def lora_epilogue_eligible(r: int, dtype: torch.dtype) -> bool:
 
 
 def epilogue_library(dtype: torch.dtype) -> Tuple[str, str]:
-    """(source, C symbol) of the epilogue kernel for `dtype`: bf16 and f16
-    the vector kernel with the scale fold, f32 the first version."""
+    """(source, C symbol) of the epilogue kernel for `dtype`: the vector
+    kernel with the scale fold, bf16 and f16 on one source, f32 on its
+    own."""
     if dtype in (torch.bfloat16, torch.float16):
         return "lora_epilogue_vec", "mft_lora_epilogue_vec"
     if dtype == torch.float32:
-        return "lora_epilogue", "mft_lora_epilogue"
+        return "lora_epilogue_vec_f32", "mft_lora_epilogue_vec_f32"
     raise ValueError(f"lora_epilogue kernel takes one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
 
 
 def epilogue_vec_plan(N: int, d_out: int, n_sm: int,
-                      addr_align: int = 16) -> dict:
-    """The 16-bit kernel's launch: `vec` elements a thread (8, 4, 2 or 1:
-    16 bytes where d_out and `addr_align`, the alignment in bytes common to
-    y, out and B, allow it), `rows` rows a thread strided `rs` apart
-    (VEC_ROWS where they are all N <= VEC_ROWS rows, the vectors 16 bytes
-    and the CTAs still at least n_sm: B's slab is then read once; else
-    1), `ncv` column vectors a row, `ctas` CTAs of VEC_THREADS threads."""
+                      addr_align: int = 16, elem_bytes: int = 2) -> dict:
+    """The vector kernels' launch for elements of `elem_bytes` (2: the
+    16-bit source, 4: the f32 one): `vec` elements a thread (16 bytes'
+    worth, or 8, 4, 2 or 1 fewer, where d_out and `addr_align`, the
+    alignment in bytes common to y, out and B, allow it), `rows` rows a
+    thread strided `rs` apart (VEC_ROWS where they are all N <= VEC_ROWS
+    rows, the vectors 16 bytes and the CTAs still at least n_sm: B's slab
+    is then read once; else 1), `ncv` column vectors a row, `ctas` CTAs
+    of VEC_THREADS threads."""
     vec = next(v for v in (8, 4, 2, 1)
-               if d_out % v == 0 and addr_align % (2 * v) == 0)
+               if v * elem_bytes <= 16 and d_out % v == 0
+               and addr_align % (elem_bytes * v) == 0)
     ncv = d_out // vec
 
     def ctas(rows):
         return -(-ncv * -(-N // rows) // VEC_THREADS)
-    rows = VEC_ROWS if (vec == 8 and N <= VEC_ROWS
+    rows = VEC_ROWS if (vec * elem_bytes == 16 and N <= VEC_ROWS
                         and ctas(VEC_ROWS) >= n_sm) else 1
     return {"vec": vec, "rows": rows, "rs": -(-N // rows), "ncv": ncv,
             "ctas": ctas(rows)}
@@ -102,8 +109,7 @@ def _kernel(dtype):
     lib, sym = epilogue_library(dtype)
     fn = getattr(build.load(lib), sym)
     if fn.argtypes is None:
-        n_ptrs, n_ints = (6, 6) if lib == "lora_epilogue_vec" else (4, 4)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -146,23 +152,16 @@ def lora_epilogue(y2, xa2, b2, scale):
             f"dtype of {sorted(map(str, DTYPE_CODES))}, got r={r}, "
             f"{y2.dtype}/{xa2.dtype}/{b2.dtype}")
     out = torch.empty_like(y2)
-    stream = torch.cuda.current_stream(y2.device).cuda_stream
-    dtype = DTYPE_CODES[y2.dtype]
-    if epilogue_library(y2.dtype)[0] == "lora_epilogue_vec":
-        xs = torch.empty_like(xa2)
-        plan = epilogue_vec_plan(
-            N, d_out,
-            torch.cuda.get_device_properties(y2.device).multi_processor_count,
-            _addr_align(y2, out, b2))
-        code = _kernel(y2.dtype)(
-            y2.data_ptr(), xa2.data_ptr(), b2.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), xs.data_ptr(), N, d_out, r, plan["vec"],
-            plan["rows"], dtype, stream)
-    else:
-        xs = scaled_bottleneck(xa2, scale, y2.dtype)
-        code = _kernel(y2.dtype)(y2.data_ptr(), xs.data_ptr(),
-                                 b2.data_ptr(), out.data_ptr(), N, d_out, r,
-                                 dtype, stream)
+    xs = torch.empty_like(xa2)
+    plan = epilogue_vec_plan(
+        N, d_out,
+        torch.cuda.get_device_properties(y2.device).multi_processor_count,
+        _addr_align(y2, out, b2), y2.element_size())
+    code = _kernel(y2.dtype)(
+        y2.data_ptr(), xa2.data_ptr(), b2.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), xs.data_ptr(), N, d_out, r, plan["vec"],
+        plan["rows"], DTYPE_CODES[y2.dtype],
+        torch.cuda.current_stream(y2.device).cuda_stream)
     build.check_launch("lora_epilogue", code)
     lora_epilogue.launches += 1
     lora_epilogue.by_shape[(y2.dtype, N, d_out)] += 1

@@ -358,10 +358,10 @@ def test_fused_ce_fwd_tensor_core_kernel(dev):
 def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 launch the tensor-core sources, f32 the 3xTF32 ones for
     the flash forward (row 1), merged backward (row 2), the fused CE
-    forward (row 6), dh (row 7), head-adapter forward (row 9) and dh +
-    dxa (row 10) and the dbt-only mode of row 11, and the FMA one for the
-    fused CE dW (row 8); row 11's dW + dbt mode loads fused_ce.cu in
-    every dtype: the libraries the wrappers load are recorded."""
+    forward (row 6), dh (row 7), dW (row 8), head-adapter forward (row 9)
+    and dh + dxa (row 10) and the dbt-only mode of row 11; row 11's dW +
+    dbt mode loads fused_ce.cu in every dtype: the libraries the wrappers
+    load are recorded."""
     loaded = []
     real = build.load
 
@@ -393,7 +393,7 @@ def test_kernels_are_chosen_by_dtype(dev, monkeypatch):
         assert loaded == [dh]
         loaded.clear()
         fc.fused_ce_bwd_dw(h, w, lab, lse, dl, dg)
-        assert loaded == ["fused_ce_dw_mma" if mma else "fused_ce"]
+        assert loaded == ["fused_ce_dw_mma" if mma else "fused_ce_dw_tf32"]
         xa, bt = _lora_case(dev, dtype, 16, 300, 4, 5)
         loaded.clear()
         fc.fused_ce_bwd_dh_lora(h, w, xa, bt, lab, lse, dl, dg)
@@ -655,7 +655,8 @@ def test_lora_epilogue_add_grads_match_the_composition(dev, dtype):
 
 def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 load lora_epilogue_vec.cu, decode_attention_mma.cu and
-    paged_decode_attention_vec.cu, f32 the first versions."""
+    paged_decode_attention_vec.cu, f32 lora_epilogue_vec_f32.cu and the
+    first versions of rows 12 and 13."""
     loaded = []
     real = build.load
 
@@ -670,7 +671,8 @@ def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
         b = _randn(dev, dtype, 4, 64, seed=3)
         loaded.clear()
         lf.lora_epilogue(y, xa, b, torch.tensor(2.0, device=dev))
-        assert loaded == ["lora_epilogue_vec" if mma else "lora_epilogue"]
+        assert loaded == ["lora_epilogue_vec" if mma
+                          else "lora_epilogue_vec_f32"]
         q, kc, vc, ok = _decode_case(dev, dtype, 2, 1, 4, 70, 64, 5)
         loaded.clear()
         da.decode_attention(q, kc, vc, ok, 0.125)
@@ -856,6 +858,103 @@ def test_fused_ce_dh_lora_tensor_core_kernel(dev, R, V, H, r):
             assert err(a, b) <= 2e-3
 
 
+@pytest.mark.parametrize("R,V,H", [
+    (128, 262144, 640),         # the Gemma chunk: a cluster of 2 H parts
+    (120, 50257, 1152),         # ragged R and V, Gemma-3-1B's width: 4
+    (37, 50257, 1152),          # a ragged 64-row chunk
+    (150, 20011, 640),          # three 64-row chunks reloaded a tile
+    (19, 1001, 136),            # one part, a narrow last W chunk
+    (40, 3001, 1520),           # a cluster of eight: the widest H taken
+])
+def test_fused_ce_dw_tf32_kernel(dev, R, V, H):
+    """Row 8 in f32 on its 3xTF32 kernel (csrc/fused_ce_dw_tf32.cu)
+    against the plain version: dW within 1e-4 of max(1, max |ref|), the
+    softmax part alone (dgold = 0) within 1e-4 of max |ref|; two calls
+    give identical bits; one launch a call."""
+    h, w, lab, dl, dg = _ce_case(dev, torch.float32, R, V, H, seed=R + H)
+    lse = fc.fused_ce_fwd_reference(h, w, lab)[0]
+    for dgold, err in ((dg, _rel_err), (torch.zeros_like(dg), _scaled_err)):
+        args = (h, w, lab, lse, dl, dgold)
+        n0 = fc.fused_ce_bwd_dw.launches
+        got = fc.fused_ce_bwd_dw(*args)
+        again = fc.fused_ce_bwd_dw(*args)
+        want = fc.fused_ce_dw_reference(*args)
+        torch.cuda.synchronize()
+        assert fc.fused_ce_bwd_dw.launches == n0 + 2
+        assert torch.equal(got, again)
+        assert err(got, want) <= 1e-4
+        del got, again, want
+
+
+@pytest.mark.parametrize("N,d_out,r,offset,vec,rows", [
+    (1024, 2304, 8, 0, 4, 1),   # GPT-2's attn_qkv
+    (1000, 770, 8, 0, 2, 1),    # 8-byte vectors
+    (5, 301, 3, 0, 1, 1),       # 4-byte vectors, an odd rank
+    (64, 512, 8, 1, 1, 1),      # y, out and B 4 bytes off 16
+    (4, 262144, 8, 0, 4, 4),    # the head adapter's lm_head: 4 rows a
+    (3, 2048, 20, 0, 4, 1),     # thread; N <= 4 on too few CTAs: 1
+])
+def test_lora_epilogue_vec_f32_kernel(dev, N, d_out, r, offset, vec, rows):
+    """Row 5 in f32 on its vector kernel (csrc/lora_epilogue_vec_f32.cu)
+    at the plan's vector widths and rows a thread, the scale read from
+    the device: within 1e-5 of the plain version, xs bit for bit f32(xa)
+    * scale, two calls bit-identical, one launch a call."""
+    def buf(n, seed):
+        return _randn(dev, torch.float32, n + offset, seed=seed)[offset:]
+    y = buf(N * d_out, 51).view(N, d_out)
+    xa = _randn(dev, torch.float32, N, r, seed=52)
+    b = buf(r * d_out, 53).view(r, d_out)
+    s = torch.tensor(0.37, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out0 = torch.empty(N * d_out + offset, device=dev)[offset:]
+    plan = lf.epilogue_vec_plan(N, d_out, n_sm,
+                                lf._addr_align(y, out0, b), 4)
+    assert (plan["vec"], plan["rows"]) == (vec, rows)
+    n0 = lf.lora_epilogue.launches
+    out, xs = lf.lora_epilogue(y, xa, b, s)
+    out2, _ = lf.lora_epilogue(y, xa, b, s)
+    assert lf.lora_epilogue.launches == n0 + 2
+    ref = lf.lora_epilogue_reference(y, xa, b, s)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(xs, xa * s)
+    assert torch.equal(out, out2)
+
+
+def test_f32_rows_5_and_8_reach_their_new_symbols_only(dev, monkeypatch):
+    """An f32 dW and an f32 epilogue on CUDA tensors call
+    mft_fused_ce_dw_tf32 and mft_lora_epilogue_vec_f32, load no other
+    library and never run their plain versions."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA call ran the plain version")
+    monkeypatch.setattr(fc, "fused_ce_dw_reference", refuse)
+    monkeypatch.setattr(fc, "fused_ce_dw_lora_reference", refuse)
+    monkeypatch.setattr(lf, "lora_epilogue_reference", refuse)
+    monkeypatch.setattr(lf, "scaled_bottleneck", refuse)
+    called, loaded = [], []
+    real_fn, real_load = fc._fn, build.load
+
+    def record_fn(sym, n_ptrs, n_ints, lib="fused_ce"):
+        called.append((lib, sym))
+        return real_fn(sym, n_ptrs, n_ints, lib)
+
+    def record_load(name):
+        loaded.append(name)
+        return real_load(name)
+    monkeypatch.setattr(fc, "_fn", record_fn)
+    monkeypatch.setattr(build, "load", record_load)
+    h, w, lab, dl, dg = _ce_case(dev, torch.float32, 40, 3000, 640, 6)
+    fc.fused_ce_bwd_dw(h, w, lab, dl, dl, dg)
+    y = _randn(dev, torch.float32, 64, 2304, seed=7)
+    xa = _randn(dev, torch.float32, 64, 8, seed=8)
+    b = _randn(dev, torch.float32, 8, 2304, seed=9)
+    lf.lora_epilogue(y, xa, b, torch.tensor(2.0, device=dev))
+    torch.cuda.synchronize()
+    assert called == [("fused_ce_dw_tf32", "mft_fused_ce_dw_tf32")]
+    assert loaded == ["fused_ce_dw_tf32", "lora_epilogue_vec_f32"]
+    assert lf._kernel(torch.float32).__name__ == "mft_lora_epilogue_vec_f32"
+
+
 @pytest.mark.parametrize("R,V,H,r", [
     (128, 262144, 640, 8),      # the Gemma chunk, the default-dtype path's
     (128, 262144, 640, 0),
@@ -895,13 +994,14 @@ def test_fused_ce_dh_tf32_kernels(dev, R, V, H, r):
 
 
 def test_f32_dh_kernels_refuse_h_not_a_multiple_of_8(dev):
-    """Rows 6, 7, 9, 10 and 11 (dbt only) in f32 refuse H 1,004 before
+    """Rows 6, 7, 8, 9, 10 and 11 (dbt only) in f32 refuse H 1,004 before
     any launch, as bf16 does (the first versions took it; no model has
     such a width)."""
     h, w, lab, dl, dg = _ce_case(dev, torch.float32, 8, 100, 1004, 2)
     xa, bt = _lora_case(dev, torch.float32, 8, 100, 8, 2)
     for kernel, args, kw in (
             (fc.fused_ce_bwd_dh, (h, w, lab, dl, dl, dg), {}),
+            (fc.fused_ce_bwd_dw, (h, w, lab, dl, dl, dg), {}),
             (fc.fused_ce_bwd_dh_lora, (h, w, xa, bt, lab, dl, dl, dg), {}),
             (fc.fused_ce_fwd, (h, w, lab), {}),
             (fc.fused_ce_fwd_lora, (h, w, xa, bt, lab), {}),

@@ -29,8 +29,8 @@ WIDTHS = (640, 1152, 1536, 2304, 2560, 3840)
 
 def _plans(H, r, dtype, head_grad):
     """{kernel: its plan call} of the chunk's forward and backward on
-    `dtype`'s route (fused_ce.cu's f32 dW and every dtype's dW + dbt mode
-    have no plan: MAX_HIDDEN is their limit)."""
+    `dtype`'s route (every dtype's dW + dbt mode, on fused_ce.cu, has no
+    plan: MAX_HIDDEN is its limit)."""
     f32 = dtype == torch.float32
     eb = 2
     if not r:
@@ -38,8 +38,9 @@ def _plans(H, r, dtype, head_grad):
                  else (lambda: fc.fwd_mma_plan(R, V, H, 132, eb)),
                  "dh": (lambda: fc.dh_tf32_plan(R, V, H, 132)) if f32
                  else (lambda: fc.dh_mma_plan(R, V, H, 132, eb))}
-        if head_grad and not f32:
-            plans["dw"] = lambda: fc.dw_mma_plan(R, V, H, 132, eb)
+        if head_grad:
+            plans["dw"] = (lambda: fc.dw_tf32_plan(R, V, H, 132)) if f32 \
+                else (lambda: fc.dw_mma_plan(R, V, H, 132, eb))
         return plans
     plans = {"fwd_lora": (lambda: fc.fwd_lora_tf32_plan(R, V, H, r, 132))
              if f32 else (lambda: fc.fwd_lora_mma_plan(R, V, H, r, 132, eb)),
@@ -103,6 +104,20 @@ def test_width_rule_takes_the_presets_at_ragged_shapes():
             for r in (0, 1, 3, 128):
                 assert fc.fused_ce_eligible(37, 50257, H, r, dtype)
                 assert fc.fused_ce_eligible(37, 50257, H, r, dtype, True)
+
+
+@pytest.mark.parametrize("H,want", [(640, True), (1152, True),
+                                    (2560, False)])
+def test_width_rule_keeps_row_8_in_f32(H, want):
+    """f32 full fine-tuning (the head trains, every CLI's default dtype)
+    keeps the fused path at Gemma-3-270M's and Gemma-3-1B's widths, row 8
+    on its 3xTF32 kernel's H parts (two and four); Gemma-3-4B's 2,560
+    takes the plain chunk."""
+    assert fc.fused_ce_eligible(R, V, H, 0, torch.float32,
+                                head_grad=True) is want
+    if want:
+        assert fc.dw_tf32_plan(R, V, H, 132)["n_parts"] == H // 320 + 1 \
+            - (H % 320 == 0)
 
 
 def _meta_case(H, r, head_grad):

@@ -24,13 +24,16 @@ covers every logical column, so every live page's rows, once, and its
 lane map loads each K and V element of a chunk once, a row's lanes on
 contiguous bytes; and the dtype picks the library: bf16 /
 f16 the `_mma` (and `_vec`) sources, f32 the first versions but for rows
-1-2, 6, 7, 9, 10 and 11 (dbt only), whose f32 sources are the 3xTF32
-`_tf32` ones (their plans, tiles and shared memory too: rows 7 and 10's
-`dh_tf32_plan` and `dh_lora_tf32_plan` cover every (row tile, vocab
-slab) once and every output column once, rows 6, 9 and 11's
-`fwd_tf32_plan`, `fwd_lora_tf32_plan` and `dbt_tf32_plan` every (row
-tile, vocab slab) once; they fit the card at every f32 shape the card
-checks run and refuse what they do not take). No card needed."""
+1-2 and 6-11 (row 11 dbt only), whose f32 sources are the 3xTF32 `_tf32`
+ones, and row 5, whose f32 source is `lora_epilogue_vec_f32.cu` (its
+plan at 4-byte elements too); the 3xTF32 plans, tiles and shared memory
+too: rows 7 and 10's `dh_tf32_plan` and `dh_lora_tf32_plan` cover every
+(row tile, vocab slab) once and every output column once, rows 6, 9 and
+11's `fwd_tf32_plan`, `fwd_lora_tf32_plan` and `dbt_tf32_plan` every
+(row tile, vocab slab) once, row 8's `dw_tf32_plan` every (vocab tile,
+H part) once however many clusters the card holds; they fit the card at
+every f32 shape the card checks run and refuse what they do not take.
+No card needed."""
 
 import itertools
 import os
@@ -75,18 +78,18 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
     "paged": ("paged_decode_attention_vec",
               "mft_paged_decode_attention_vec")}
-FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6, 7, 9,
-    # 10 and 11 (dbt only) in 3xTF32
+FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6-11 in
+    # 3xTF32 (row 11 dbt only), row 5 on 16-byte vectors
     "fwd": ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
     "bwd": ("flash_attention_bwd_merged_tf32",
             "mft_flash_attention_bwd_merged_tf32"),
     "ce_fwd": ("fused_ce_fwd_tf32", "mft_fused_ce_fwd_tf32"),
     "dh": ("fused_ce_dh_tf32", "mft_fused_ce_dh_tf32"),
-    "dw": ("fused_ce", "mft_fused_ce_dw"),
+    "dw": ("fused_ce_dw_tf32", "mft_fused_ce_dw_tf32"),
     "dh_lora": ("fused_ce_dh_lora_tf32", "mft_fused_ce_dh_lora_tf32"),
     "ce_fwd_lora": ("fused_ce_fwd_lora_tf32", "mft_fused_ce_fwd_lora_tf32"),
     "dbt": ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32"),
-    "epi": ("lora_epilogue", "mft_lora_epilogue"),
+    "epi": ("lora_epilogue_vec_f32", "mft_lora_epilogue_vec_f32"),
     "decode": ("decode_attention", "mft_decode_attention"),
     "paged": ("paged_decode_attention", "mft_paged_decode_attention")}
 ROUTES = {"fwd": fa.fwd_library, "dh": fc.dh_library, "dw": fc.dw_library,
@@ -265,7 +268,8 @@ def test_new_sources_are_built_and_call_no_library():
                  "flash_attention_fwd_tf32",
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
                  "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
-                 "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32"):
+                 "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32",
+                 "fused_ce_dw_tf32", "lora_epilogue_vec_f32"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -652,6 +656,120 @@ DH_LORA_SHAPES = [  # (R, V, H, r)
     (40, 3001, 1392, 128),      # H + r at MAX_HIDDEN's edge
     (8, 100, 8, 5),
 ]
+
+
+DW_TF32_SHAPES = [  # (R, V, H)
+    (128, 262144, 640),     # the Gemma chunk: two parts of 320
+    (120, 50257, 1152),     # chip_smoke's ragged_f32: four parts of 288
+    (37, 50257, 1152),      # a ragged 64-row chunk
+    (150, 20011, 640),      # three 64-row chunks
+    (19, 1001, 136),        # one part, a narrow last W chunk
+    (40, 3001, 1520),       # eight parts: the widest H within MAX_HIDDEN
+    (8, 100, 8),
+]
+
+
+def test_dw_tf32_plan_constants_match_the_source():
+    """The plan's constants and shared memory are the source's; the
+    source is a cluster kernel whose partial logits meet through
+    distributed shared memory, with no atomics, and streaming stores."""
+    text = _source("fused_ce_dw_tf32.cu")
+    assert _constexpr(text, "HP_MAX") == fc.DW_TF32_HP_MAX
+    assert _constexpr(text, "KC") == fc.TF32_W_CHUNK
+    assert _constexpr(text, "MAX_PARTS") == fc.DW_TF32_PARTS[-1]
+    assert _constexpr(text, "ROWS_WHOLE") == fc.DW_TF32_ROWS_WHOLE
+    assert _constexpr(text, "STAGES") == fc.DW_TF32_STAGES
+    assert _constexpr(text, "WARPS") == 8
+    assert _constexpr(text, "SMEM_MAX") == fc.SMEM_MAX
+    assert "((size_t)RC * (hp + 4) + (size_t)16 * VG * RC + (size_t)RC * 4" \
+        " +\n          (size_t)STAGES * 16 * VG * LDW) *" in text
+    assert "rc == ROWS_WHOLE && R <= ROWS_WHOLE) MFT_LAUNCH(4, 8);" in text
+    assert "if (vg == 4 && rc == 64) MFT_LAUNCH(4, 4);" in text
+    for s in ("cudaLaunchAttributeClusterDimension", "map_shared_rank(",
+              "barrier.cluster.arrive.release.aligned",
+              "barrier.cluster.wait.acquire.aligned",
+              "cudaOccupancyMaxActiveClusters", "__stcs(",
+              "split_tf32_raw_lo(", "ldmatrix_x4(", "m16n8k8"):
+        assert s in text
+    assert "atomicAdd" not in text and "wgmma" not in text.split("#include")[1]
+    # the dW product's three terms, issued term by term over NG n-tiles
+    i = text.index("mma_1688_tf32(acc[n0 + i], al, bh[i][0], bh[i][1]);")
+    j = text.index("mma_1688_tf32(acc[n0 + i], ah, bl[i][0], bl[i][1]);")
+    k = text.index("mma_1688_tf32(acc[n0 + i], ah, bh[i][0], bh[i][1]);")
+    assert i < j < k
+    assert fc.DW_TF32_HP_MAX // 16 % _constexpr(text, "NG") == 0
+
+
+def _dw_tf32_smem(plan):
+    vt, rc, hp = 16 * plan["vocab_groups"], plan["row_chunk"], plan["hp"]
+    return (rc * (hp + 4) + vt * rc + rc * 4
+            + fc.DW_TF32_STAGES * vt * (fc.TF32_W_CHUNK + 4)) * 4
+
+
+@pytest.mark.parametrize("R,V,H", DW_TF32_SHAPES)
+def test_dw_tf32_plan_covers_each_tile_and_part_once(R, V, H):
+    """The clusters' grid-stride walk gives every (64-row vocab tile, H
+    part) one CTA, at the plan's cluster count and at any fewer (the
+    launch cuts them to what the card holds); the parts partition [0, H)
+    in whole n-tiles of both warps' halves, the row chunks [0, R)."""
+    plan = fc.dw_tf32_plan(R, V, H, N_SM)
+    n_parts, hp = plan["n_parts"], plan["hp"]
+    n_vt = -(-V // (16 * plan["vocab_groups"]))
+    for n_clusters in sorted({plan["n_clusters"], 1,
+                              max(1, plan["n_clusters"] - 3)}):
+        seen = np.zeros((n_vt, n_parts), dtype=np.int64)
+        for c in range(n_clusters):
+            for p in range(n_parts):
+                seen[c::n_clusters, p] += 1
+        assert (seen == 1).all()
+    assert hp % 16 == 0            # whole n-tiles in both warps' halves
+    cols = np.zeros(H, dtype=np.int64)
+    for p in range(n_parts):
+        assert p * hp < H                   # no empty part
+        cols[p * hp:(p + 1) * hp] += 1
+    assert (cols == 1).all()
+    rc = plan["row_chunk"]
+    assert plan["n_chunks"] == -(-R // rc)
+    assert (plan["n_chunks"] - 1) * rc < R <= plan["n_chunks"] * rc
+    assert (rc == 128) == (64 < R <= 128)
+
+
+@pytest.mark.parametrize("R,V,H", DW_TF32_SHAPES)
+def test_dw_tf32_plan_fits_the_card(R, V, H):
+    """The fewest parts whose columns fit HP_MAX, a cluster the portable
+    size at most, shared memory within a block's 232,448 bytes, at most
+    one cluster a pair of multiprocessors and no more than the tiles."""
+    plan = fc.dw_tf32_plan(R, V, H, N_SM)
+    n_parts, hp = plan["n_parts"], plan["hp"]
+    assert n_parts in fc.DW_TF32_PARTS and hp <= fc.DW_TF32_HP_MAX
+    fewer = [p for p in fc.DW_TF32_PARTS
+             if p < n_parts and -(-(-(-H // p)) // 16) * 16
+             <= fc.DW_TF32_HP_MAX]
+    assert not fewer
+    assert plan["smem_bytes"] == _dw_tf32_smem(plan) <= fc.SMEM_MAX
+    assert plan["n_clusters"] == min(-(-V // 64), N_SM // n_parts)
+    assert plan["grid"] == (n_parts, plan["n_clusters"])
+
+
+def test_dw_tf32_plan_at_the_gemma_chunk_and_h_1152():
+    """R 128, V 262,144, H 640: clusters of two CTAs, each holding h's
+    128 rows x 320 columns, 66 clusters over 4,096 vocab tiles, 228,352
+    bytes of shared memory; chip_smoke's ragged_f32 (R 120, V 50,257, H
+    1,152): clusters of four 288-column parts."""
+    plan = fc.dw_tf32_plan(128, 262144, 640, N_SM)
+    assert (plan["n_parts"], plan["hp"], plan["row_chunk"],
+            plan["n_chunks"], plan["n_clusters"], plan["smem_bytes"]) == \
+        (2, 320, 128, 1, 66, 228352)
+    plan = fc.dw_tf32_plan(120, 50257, 1152, N_SM)
+    assert (plan["n_parts"], plan["hp"], plan["row_chunk"],
+            plan["n_chunks"], plan["n_clusters"]) == (4, 288, 128, 1, 33)
+    assert plan["smem_bytes"] <= fc.SMEM_MAX
+
+
+@pytest.mark.parametrize("H", [1004, 642, 7, 0])
+def test_dw_tf32_plan_refuses_h_not_a_multiple_of_8(H):
+    with pytest.raises(ValueError, match="H % 8"):
+        fc.dw_tf32_plan(16, 100, H, N_SM)
 
 
 def test_dh_lora_plan_constants_match_the_source():
@@ -2030,6 +2148,55 @@ def test_epilogue_vec_plan_widths_and_rows():
     assert plan(4, 2048)["rows"] == 1 and plan(4, 300)["rows"] == 1
     assert plan(1024, 768)["ctas"] == 768
     assert plan(4, 262144)["ctas"] == 256
+
+
+def test_epilogue_vec_f32_constants_match_the_source():
+    text = _source("lora_epilogue_vec_f32.cu")
+    assert _constexpr(text, "THREADS") == lf.VEC_THREADS
+    assert _constexpr(text, "MAX_RANK") == lf.MAX_RANK
+    assert f"if (rows == {lf.VEC_ROWS} && vec == 4)\n    return " \
+        f"launch<4, {lf.VEC_ROWS}>" in text
+    for vec in (4, 2, 1):
+        assert f"case {vec}:\n      return launch<{vec}, 1>" in text
+    assert "__shared__" not in text and "__syncthreads" not in text
+    assert "xv[kk] *= s;" in text          # the scale folded in, in f32
+
+
+@pytest.mark.parametrize("N,d_out", EPI_SHAPES)
+def test_epilogue_vec_f32_plan_covers_each_vector_once(N, d_out):
+    """The f32 plan (4-byte elements): every (row, column vector) once,
+    16 bytes at most a vector, a warp's slots on neighbouring vectors."""
+    plan = lf.epilogue_vec_plan(N, d_out, N_SM, elem_bytes=4)
+    vec, rows, rs, ncv = (plan[k] for k in ("vec", "rows", "rs", "ncv"))
+    assert vec in (4, 2, 1) and ncv * vec == d_out
+    slots = np.arange(plan["ctas"] * lf.VEC_THREADS)
+    slots = slots[slots < ncv * rs]
+    cv, n0 = slots % ncv, slots // ncv
+    hits = np.zeros((N, ncv), np.int64)
+    for i in range(rows):
+        n = n0 + i * rs
+        keep = n < N
+        np.add.at(hits, (n[keep], cv[keep]), 1)
+        flat = n * ncv + cv
+        for w in range(0, len(slots), 32):
+            f = flat[w:w + 32][keep[w:w + 32]]
+            assert (np.diff(f) == 1).all()
+    assert (hits == 1).all()
+
+
+def test_epilogue_vec_f32_plan_widths_and_rows():
+    """In f32 the vectors are 4 floats where d_out and the addresses
+    allow (16 bytes), 2 or 1 where not; four rows a thread at N <= 4 on
+    16-byte vectors when the CTAs still fill the card (the lm_head)."""
+    def plan(N, d_out, **kw):
+        return lf.epilogue_vec_plan(N, d_out, N_SM, elem_bytes=4, **kw)
+    assert [plan(1024, d)["vec"] for d in (2304, 770, 301)] == [4, 2, 1]
+    assert plan(1024, 2304, addr_align=8)["vec"] == 2
+    assert plan(1024, 2304, addr_align=4)["vec"] == 1
+    assert [plan(N, 262144)["rows"] for N in (1024, 5, 4, 1)] == \
+        [1, 1, 4, 4]
+    assert plan(4, 2048)["rows"] == 1 and plan(4, 770)["rows"] == 1
+    assert plan(1024, 2304)["ctas"] == 1024 * 576 // 128
 
 
 # ------------------------------------------------------------ row 13 -------

@@ -158,7 +158,7 @@ def test_epilogue_returns_the_scaled_bottleneck():
 @pytest.mark.parametrize("dtype,lib", [
     (torch.bfloat16, ("lora_epilogue_vec", "mft_lora_epilogue_vec")),
     (torch.float16, ("lora_epilogue_vec", "mft_lora_epilogue_vec")),
-    (torch.float32, ("lora_epilogue", "mft_lora_epilogue"))])
+    (torch.float32, ("lora_epilogue_vec_f32", "mft_lora_epilogue_vec_f32"))])
 def test_epilogue_library_by_dtype(dtype, lib):
     assert lora_fused.epilogue_library(dtype) == lib
     with pytest.raises(ValueError, match="dtype"):
