@@ -26,7 +26,8 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      decode (row 12: the serving shape, D 128, a GQA
      window, Gemma's D 256 GQA and Gemma-3-270M serving with its window;
      bf16 / f16 on the kernel that loads each lane's K/V rows straight
-     into registers, f32 on the first version, D 256 too; the pool rows
+     into registers, f32 on the same design on 16-byte f32 pieces, D 256
+     too; the pool rows
      no slot attends holding
      Inf in K and NaN in V must change nothing, two calls bit-identical),
      the fused CE forward, dh and dW (rows 6-8; forward, dh and dW in
@@ -43,9 +44,9 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      (row 13: the microbenchmark shapes B 8 x T 192, a ragged T, the Gemma
      generate path's last step with the 512 window in bf16 and f32, f16 at
      D 32, masked columns poisoned; bf16 / f16 on the tensor-core
-     flash-decoding kernel, whose masked columns holding Inf and NaN must
-     change nothing and whose two calls must be bit-identical, f32 on the
-     first version); then GPT-2 small through
+     flash-decoding kernel, f32 on the FMA flash-decoding split, whose
+     masked columns holding Inf and NaN must change nothing and whose two
+     calls must be bit-identical); then GPT-2 small through
      the kernels against the plain path in f32: prefill and one paged
      decode step, and a LoRA train step (loss and LoRA grads); then
      Gemma-3-270M the same way in f32: hidden states and the chunked loss
@@ -76,7 +77,10 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      kernel against the plain one (logits 1e-4), and the same tokens from
      the kernel engine with the cache (cold, then prefix hits, a sampled
      request too), a plain engine without it and an engine that chunks
-     every prompt;
+     every prompt; after the counts are read, that f32 decode step's
+     device ms from CUDA events around CUDA-graph replays, and row 12's
+     share of it (the step's own 18 paged calls replayed in a graph, and
+     again on the first version);
   5. train: write a random-weight GPT-2 small directory and a synthetic
      WikiText-shaped corpus into a temporary directory, take the base
      model's eval perplexity, set every launch count to 0 and run the
@@ -261,8 +265,11 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      512), row 12 in f32 at `gemma_serve_f32`'s (8 x 1 x 4 x 256, 42
      pages, window 512) and row 13 in f32 at `generate`'s f32 last steps
      (GPT-2 and Gemma), with those paths' f32 launches: each held against
-     its plain version and timed beside its library call in f32. f32
-     work is bounded at the 3xTF32 rate (495 / 3 TFLOP/s).
+     its plain version and timed beside its library call in f32, rows 12
+     and 13 on the flash-decoding splits (paged_decode_attention_vec_f32.cu,
+     decode_attention_split_f32.cu) in turns with their first versions
+     (paged_decode_attention.cu, decode_attention.cu). f32 work is bounded
+     at the 3xTF32 rate (495 / 3 TFLOP/s).
 
 Every training and eval run writes its telemetry stream: each event is
 checked against the schema, every earlier path's memory admission must
@@ -354,7 +361,8 @@ def ptxas_summary(log: str) -> list:
     (fused_ce.cu's bool flag is LORA, fused_ce_fwd_mma.cu's whether h is
     held in registers, fused_ce_fwd_lora_mma.cu's and fused_ce_dbt_mma.cu's
     whether h and xa are, fused_ce_dw_tf32.cu's whether h comes in row
-    chunks)."""
+    chunks); a kernel in a nested namespace (decode_split_f32.cuh's
+    split_f32) by its own name."""
     import re
     names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
     h_regs = ("h in registers", "h in smem")
@@ -370,6 +378,10 @@ def ptxas_summary(log: str) -> list:
         if m:   # <length><name>I<template args>E... after the namespace
             n = int(m.group(1))
             base, rest = m.group(2)[:n], m.group(2)[n:]
+            while rest[:1].isdigit():   # a nested namespace: its member
+                n = int(re.match(r"\d+", rest).group())
+                skip = len(str(n))
+                base, rest = rest[skip:skip + n], rest[skip + n:]
             args = re.findall(r"13__nv_bfloat16|6__half|Lb[01]E|Li\d+E",
                               rest) if rest.startswith("I") else []
             if rest.startswith("If"):
@@ -903,7 +915,7 @@ PAGED_CASES = [  # (name, dtype, S, KV, G, D, bT, M, L, window, tol)
 def check_paged(torch, da, dev):
     """Row 12 against paged_attention at the serving shape, D 128, a GQA
     window, Gemma's D 256 GQA and Gemma-3-270M serving (bf16 / f16 on
-    paged_decode_attention_vec.cu, f32 on paged_decode_attention.cu): the
+    paged_decode_attention_vec.cu, f32 on paged_decode_attention_vec_f32.cu): the
     pool rows no slot attends poisoned with Inf in K and NaN in V must
     leave ctx bit for bit as it was, two calls must be bit-identical, and
     the launch counter must count each call. Returns {name: (max error,
@@ -970,11 +982,12 @@ def check_decode(torch, da, dev):
     """Row 13 against xla_reference at the microbenchmark shapes (B 8,
     T 192), a ragged T, the Gemma generate path's last step (T = P + N,
     the 512 window in ok) in bf16 and f32, and f16 at D 32, every masked
-    column poisoned (+-1e6); on the 16-bit tensor-core kernel the masked
-    columns again holding Inf in K and NaN in V must leave ctx bit for
-    bit as it was, and two calls must be bit-identical; the launch
-    counter must count each call. Returns {name: (max error, inputs)} of
-    the GPT-2 bench and the Gemma path cases."""
+    column poisoned (+-1e6); on every source (bf16 / f16 the tensor-core
+    kernel, f32 the FMA split) the masked columns again holding Inf in K
+    and NaN in V must leave ctx bit for bit as it was, and two calls must
+    be bit-identical; the launch counter must count each call. Returns
+    {name: (max error, inputs)} of the GPT-2 bench and the Gemma path
+    cases."""
     T_gemma = max(GEN["gemma_words"]) + 1 + GEN["new"]   # BOS + words + N
     pads = [max(GEN["gemma_words"]) - n for n in GEN["gemma_words"]]
     cases = [  # (name, dtype, B, KV, G, T, D, n_pad, window, tol)
@@ -1009,18 +1022,17 @@ def check_decode(torch, da, dev):
               f"(tolerance {tol:g})")
         check(bool(torch.isfinite(ctx).all()), f"decode {name} non-finite")
         check(e <= tol, f"decode {name} disagrees with its plain version")
-        if lib == "decode_attention_mma":
-            masked = ~ok[:, None, :, None]
-            kp = kc.masked_fill(masked, float("inf"))
-            vp = vc.masked_fill(masked, float("nan"))
-            poisoned = da.decode_attention(q, kp, vp, ok, scale)
-            again = da.decode_attention(q, kc, vc, ok, scale)
-            calls += 2
-            torch.cuda.synchronize()
-            check(torch.equal(poisoned, ctx), f"decode {name}: masked "
-                  f"columns holding Inf / NaN moved ctx")
-            check(torch.equal(again, ctx), f"decode {name}: two calls "
-                  f"differ")
+        masked = ~ok[:, None, :, None]
+        kp = kc.masked_fill(masked, float("inf"))
+        vp = vc.masked_fill(masked, float("nan"))
+        poisoned = da.decode_attention(q, kp, vp, ok, scale)
+        again = da.decode_attention(q, kc, vc, ok, scale)
+        calls += 2
+        torch.cuda.synchronize()
+        del kp, vp
+        check(torch.equal(poisoned, ctx), f"decode {name}: masked "
+              f"columns holding Inf / NaN moved ctx")
+        check(torch.equal(again, ctx), f"decode {name}: two calls differ")
         out[name] = (e, (q, kc, vc, ok, scale))
     check(da.decode_attention.launches == n0 + calls,
           f"decode launches {da.decode_attention.launches - n0}, expected "
@@ -1816,7 +1828,10 @@ def gemma_serve_f32(torch, dev):
     kernel against attn_impl="plain" on the same pools (logits 1e-4 max
     abs), and the same tokens from the kernel engine with the prefix cache
     (a cold wave, then a wave of prefix hits), a plain engine without the
-    cache, and an engine that chunks every prompt (max_prompt 32)."""
+    cache, and an engine that chunks every prompt (max_prompt 32).
+    Returns (stats, step): `step` the kernel engine's decode-step inputs
+    at the cross-check (its pools copied), for gemma_f32_step_events to
+    time once the path's launches are read."""
     import numpy as np
 
     from mobilefinetuner_tpu_torch.core.config import Gemma3TextConfig
@@ -1865,6 +1880,9 @@ def gemma_serve_f32(torch, dev):
     tok, pos, tbl = (kern._dev(a.copy()) for a in (kern._tok, kern._pos,
                                                    kern._tbl))
     lora = kern._route(kern._aid)
+    step = dict(config=config, params=kern.params, pool_k=kern.pool_k.clone(),
+                pool_v=kern.pool_v.clone(), tok=tok, pos=pos, tbl=tbl,
+                lora=lora)
     logits = {}
     for impl in ("auto", "plain"):
         pk, pv = kern.pool_k.clone(), kern.pool_v.clone()
@@ -1896,8 +1914,54 @@ def gemma_serve_f32(torch, dev):
         check(toks == tokens["kernel_cold"],
               f"gemma_serve f32: {name} tokens differ from the kernel "
               f"engine's cold wave")
-    return {"step_logits_max_abs_err": err,
-            "compared": sorted(tokens), "requests": len(prompts)}
+    return ({"step_logits_max_abs_err": err,
+             "compared": sorted(tokens), "requests": len(prompts)}, step)
+
+
+def gemma_f32_step_events(torch, da, step):
+    """The device ms of one f32 gemma3_decode_step_paged at
+    `gemma_serve_f32`'s cross-check (4 slots, one past the 512 window;
+    `step` from gemma_serve_f32) from CUDA events around CUDA-graph
+    replays, and row 12's share of it: the step's own paged calls,
+    recorded from one eager step, replayed in a graph on
+    paged_decode_attention_vec_f32.cu and again on the first version
+    (fma_paged), whose step time is estimated as the step's less the
+    split's calls plus its own. Called after the path's launches are
+    read: none of these counts."""
+    from mobilefinetuner_tpu_torch.models import generate
+    cfg = step["config"]
+
+    def decode_step():
+        generate.gemma3_decode_step_paged(
+            cfg, step["params"], step["pool_k"], step["pool_v"],
+            step["tok"], step["pos"], step["tbl"], lora=step["lora"],
+            compute_dtype=torch.float32, attn_impl="auto")
+
+    calls = []
+    real = generate.paged_decode_attention
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+    generate.paged_decode_attention = record
+    try:
+        decode_step()
+    finally:
+        generate.paged_decode_attention = real
+    check(len(calls) == cfg.num_hidden_layers,
+          f"the f32 decode step made {len(calls)} paged calls")
+    step_ms = graph_ms(decode_step, 20)
+    paged_ms = graph_ms(lambda: [da.paged_decode_attention(*a)
+                                 for a in calls], 20)
+    first_ms = graph_ms(lambda: [fma_paged(*a) for a in calls], 20)
+    out = {"device_ms": step_ms, "paged_calls": len(calls),
+           "paged_device_ms": paged_ms, "paged_share": paged_ms / step_ms,
+           "first_version_paged_device_ms": first_ms,
+           "first_version_step_ms_estimate": step_ms - paged_ms + first_ms}
+    print(f"gemma_serve f32 decode step: {step_ms:.3f} device ms, row 12 "
+          f"{paged_ms:.3f} ({100 * paged_ms / step_ms:.1f}%; the first "
+          f"version's calls {first_ms:.3f})")
+    return out
 
 
 def gemma_serve_flash_entry(torch, fa, dev):
@@ -3438,36 +3502,42 @@ def paged_library_chain(torch, q, pk, pv, tbl, layer, ok, scale):
     return chain
 
 
-def paged_entry(torch, da, case, bnd=bound):
+def paged_entry(torch, da, case, bnd=bound, earlier=None):
     """Row 12's entry of the kernels line at one check_paged case: its
-    times, the plain version's and the library chain's, its plan and its
-    bound (`bnd`: bf16's, or f32_bound) from the attendable columns' K
-    and V rows, q, tbl, ok and ctx; the source is the dtype's."""
+    times (in turns with `earlier`, a call of a first version on the same
+    inputs, where given), the plain version's and the library chain's,
+    its plan and its bound (`bnd`: bf16's, or f32_bound) from the
+    attendable columns' K and V rows, q, tbl, ok and ctx; the source is
+    the dtype's."""
     err, (q, pk, pv, tbl, layer, ok, scale) = case
     S, KV, G, D = q.shape
     M, bT = tbl.shape[1], pk.shape[3]
     chain = paged_library_chain(torch, q, pk, pv, tbl, layer, ok, scale)
-    times = timed({
-        "ms": lambda: da.paged_decode_attention(q, pk, pv, tbl, layer, ok,
-                                                scale),
-        "plain_ms": lambda: da.paged_attention(q, pk, pv, tbl, layer, ok,
-                                               scale),
-        "library_ms": chain})
+    args = (q, pk, pv, tbl, layer, ok, scale)
+    times = timed({"plain_ms": lambda: da.paged_attention(*args),
+                   "library_ms": chain})
+    times.update(timed({"ms": lambda: da.paged_decode_attention(*args)})
+                 if earlier is None else
+                 in_turns(lambda: da.paged_decode_attention(*args),
+                          lambda: earlier(*args), 200))
     live = int(ok.sum()) * KV                  # attendable (slot, kv) rows
     isz = pk.element_size()
     bounds = bnd(2 * live * D * isz + q.numel() * isz + tbl.numel() * 4
                  + ok.numel() + q.numel() * 4, 4 * D * G * live)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = (da.paged_plan(S, KV, G, M, bT, D, q.dtype, n_sm)
-            if q.dtype != torch.float32 else {})   # the vec kernel's
+    plan = (da.paged_f32_plan if q.dtype == torch.float32 else
+            da.paged_plan)(S, KV, G, M, bT, D, q.dtype, n_sm)
+    extra = ({"earlier_max_abs_err": max_err(earlier(*args),
+                                             da.paged_attention(*args))}
+             if earlier is not None else {})
     return kernel_entry(
         "paged_decode_attention", da.paged_library(q.dtype)[0] + ".cu",
         "decode_attention.py:223", None, err, times, bounds,
         {"shape": f"q {S}x{KV}x{G}x{D}, {M} pages of {bT}, {q.dtype}, "
                   f"{int(ok.sum())} of {S * M * bT} columns attendable, "
                   f"{int(ok.reshape(S, M, bT).any(-1).sum())} live pages",
-         "plan": {k: plan[k] for k in ("n_chunks", "cpc", "grid")
-                  if k in plan},
+         "plan": {k: plan[k] for k in ("n_chunks", "cpc", "grid")},
+         **extra,
          "library": "a two-call chain: the pages gathered (pool[tbl, "
                     "layer, kv], K and V), then SDPA (bool mask, scale, "
                     "enable_gqa)",
@@ -3476,23 +3546,29 @@ def paged_entry(torch, da, case, bnd=bound):
              da.paged_attention(q, pk, pv, tbl, layer, ok, scale))})
 
 
-def decode_entry(torch, da, case, bnd=bound):
+def decode_entry(torch, da, case, bnd=bound, earlier=None):
     """Row 13's entry of the kernels line at one check_decode case: its
-    times, the plain version's and SDPA's (a bool mask, the scale and
-    enable_gqa: the same function up to its output rounding), and its
-    bound (`bnd`: bf16's, or f32_bound) from the attendable columns' K
-    and V, q, ok and ctx; the source is the dtype's."""
+    times (in turns with `earlier`, a call of a first version on the same
+    inputs, where given), the plain version's and SDPA's (a bool mask,
+    the scale and enable_gqa: the same function up to its output
+    rounding), its plan and its bound (`bnd`: bf16's, or f32_bound) from
+    the attendable columns' K and V, q, ok and ctx; the source is the
+    dtype's."""
     err, (q, kc, vc, ok, scale) = case
     B, KV, G, D = q.shape
     T = kc.shape[2]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh = q.reshape(B, KV * G, 1, D)
     mask = ok[:, None, None, :]
+    args = (q, kc, vc, ok, scale)
     times = timed({
-        "ms": lambda: da.decode_attention(q, kc, vc, ok, scale),
-        "plain_ms": lambda: da.xla_reference(q, kc, vc, ok, scale),
+        "plain_ms": lambda: da.xla_reference(*args),
         "library_ms": lambda: sdpa(qh, kc, vc, attn_mask=mask, scale=scale,
                                    enable_gqa=True)})
+    times.update(timed({"ms": lambda: da.decode_attention(*args)})
+                 if earlier is None else
+                 in_turns(lambda: da.decode_attention(*args),
+                          lambda: earlier(*args), 200))
     lib = sdpa(qh, kc, vc, attn_mask=mask, scale=scale, enable_gqa=True)
     # and with the masked columns zeroed instead of poisoned
     kz, vz = (t.masked_fill(~ok[:, None, :, None], 0) for t in (kc, vc))
@@ -3503,15 +3579,19 @@ def decode_entry(torch, da, case, bnd=bound):
     bounds = bnd(2 * live * D * isz + q.numel() * isz + ok.numel()
                  + q.numel() * 4, 4 * D * G * live)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = (da.decode_mma_plan(B, KV, G, T, D, q.dtype, n_sm)
-            if q.dtype != torch.float32 else {})   # the mma kernel's
+    plan = (da.decode_f32_plan if q.dtype == torch.float32 else
+            da.decode_mma_plan)(B, KV, G, T, D, q.dtype, n_sm)
+    extra = ({"earlier_max_abs_err": max_err(earlier(*args),
+                                             da.xla_reference(*args))}
+             if earlier is not None else {})
     return kernel_entry(
         "decode_attention", da.decode_library(q.dtype)[0] + ".cu",
         "decode_attention.py:137", None, err, times, bounds,
         {"shape": f"q {B}x{KV}x{G}x{D}, cache T {T}, {q.dtype}, "
                   f"{int(ok.sum())} of {B * T} columns attendable",
          "plan": {k: plan[k] for k in ("n_chunks", "tiles_per_chunk",
-                                       "grid") if k in plan},
+                                       "cpc", "grid") if k in plan},
+         **extra,
          "library_max_abs_err": max_err(
              lib.reshape(B, KV, G, D),
              da.xla_reference(q, kc, vc, ok, scale)),
@@ -3669,12 +3749,14 @@ def f32_path_entries(torch, fa, da, dev, paged_f32, gen_prompts,
     `gemma_train_f32`'s q 4 x 4 x 256 x 256, kv 4 x 1, window 512 (held
     against the plain versions: out and lse 1e-4, the backward 1e-4 of
     max(1, |ref|); beside SDPA and its autograd in f32); the paged decode
-    (paged_decode_attention.cu) at `gemma_serve_f32`'s 8 slots x 42 pages
-    (check_paged's case; beside the bf16 entry's chain, in f32); the
-    contiguous decode (decode_attention.cu) at `generate`'s f32 last
-    steps, GPT-2 (8 x 12 x 1 x 64) and Gemma (4 x 1 x 4 x 256, window
-    512), the caches P + 16 long, masked columns poisoned (held at 1e-5;
-    beside SDPA in f32). Each bounded at the 3xTF32 rate, with those
+    (paged_decode_attention_vec_f32.cu) at `gemma_serve_f32`'s 8 slots x
+    42 pages (check_paged's case; beside the bf16 entry's chain, in f32);
+    the contiguous decode (decode_attention_split_f32.cu) at `generate`'s
+    f32 last steps, GPT-2 (8 x 12 x 1 x 64) and Gemma (4 x 1 x 4 x 256,
+    window 512), the caches P + 16 long, masked columns poisoned (held at
+    1e-5; beside SDPA in f32); rows 12 and 13 timed in turns with their
+    first versions (fma_paged, fma_decode). Each bounded at the 3xTF32
+    rate, with those
     paths' f32 launches (`launches`: {"flash_fwd", "bwd_merged", "paged",
     "decode_gpt2", "decode_gemma"}). Returns {name: entry}."""
     f32 = torch.float32
@@ -3733,8 +3815,9 @@ def f32_path_entries(torch, fa, da, dev, paged_f32, gen_prompts,
                       + 2 * B * Hq * S * 4, 10 * D * pairs),
             {"shape": shape, "max_err_over_max1_ref": bwd_rel})}
     del merged, ref_m, lib_out, leaves
-    out_entries["paged"] = dict(paged_entry(torch, da, paged_f32, f32_bound),
-                                launches=launches["paged"])
+    out_entries["paged"] = dict(
+        paged_entry(torch, da, paged_f32, f32_bound, earlier=fma_paged),
+        launches=launches["paged"], earlier="paged_decode_attention.cu")
     for fam, (KV, G, D, window) in (("gpt2", (12, 1, 64, None)),
                                     ("gemma", (1, 4, 256, GEN["window"]))):
         lens = gen_prompts[fam][1]
@@ -3751,13 +3834,67 @@ def f32_path_entries(torch, fa, da, dev, paged_f32, gen_prompts,
               f"max |ctx err| {err:.3e}")
         out_entries[f"decode_{fam}"] = dict(
             decode_entry(torch, da, (err, (q, kc, vc, ok, scale)),
-                         f32_bound),
+                         f32_bound, earlier=fma_decode),
             launches=launches[f"decode_{fam}"],
-            path=f"generate {fam}_tf32 (f32), last step")
+            path=f"generate {fam}_tf32 (f32), last step",
+            earlier="decode_attention.cu")
     print("f32 at the default-dtype paths' shapes: " + ", ".join(
         f"{k} {e['ms'] * 1e3:.2f} us (library {e['library_ms'] * 1e3:.2f}, "
-        f"bound {e['bound_ms'] * 1e3:.2f})" for k, e in out_entries.items()))
+        f"bound {e['bound_ms'] * 1e3:.2f}"
+        + (f", first version {e['earlier_ms'] * 1e3:.2f}"
+           if "earlier_ms" in e else "") + ")"
+        for k, e in out_entries.items()))
     return out_entries
+
+
+def fma_paged(q, pk, pv, tbl, layer, ok, scale):
+    """ctx through row 12's f32 first version (paged_decode_attention.cu's
+    mft_paged_decode_attention: one CTA a query head and slot), which no
+    path runs since f32 moved to paged_decode_attention_vec_f32.cu; its
+    launches are outside the wrapper's count."""
+    import ctypes
+
+    import torch
+
+    from mobilefinetuner_tpu_torch.kernels import build
+    fn = build.load("paged_decode_attention").mft_paged_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    S, KV, G, D = q.shape
+    NB, L, _, bT, _ = pk.shape
+    ctx = torch.empty(S, KV, G, D, device=q.device)
+    build.check_launch("paged_decode_attention.cu", fn(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), tbl.data_ptr(),
+        ok.data_ptr(), ctx.data_ptr(), S, KV, G, D, NB, L, int(layer), bT,
+        tbl.shape[1], 0, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream))
+    return ctx
+
+
+def fma_decode(q, kc, vc, ok, scale):
+    """ctx through row 13's f32 first version (decode_attention.cu's
+    mft_decode_attention: one CTA a query head and batch row), which no
+    path runs since f32 moved to decode_attention_split_f32.cu; its
+    launches are outside the wrapper's count."""
+    import ctypes
+
+    import torch
+
+    from mobilefinetuner_tpu_torch.kernels import build
+    fn = build.load("decode_attention").mft_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    B, KV, G, D = q.shape
+    ctx = torch.empty(B, KV, G, D, device=q.device)
+    build.check_launch("decode_attention.cu", fn(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ok.data_ptr(),
+        ctx.data_ptr(), B, KV, G, D, kc.shape[2], 0, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream))
+    return ctx
 
 
 def fma_dw(torch, fc, h, w, labels, rows):
@@ -5541,7 +5678,9 @@ def main(argv=None) -> int:
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
                  "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
                  "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32",
-                 "fused_ce_dw_tf32", "lora_epilogue_vec_f32"):
+                 "fused_ce_dw_tf32", "lora_epilogue_vec_f32",
+                 "paged_decode_attention_vec_f32",
+                 "decode_attention_split_f32"):
         check(all(row[2] == 0 and row[3] == 0 for row in ptxas[name]),
               f"{name} spills registers: {ptxas[name]}")
     if argv == ["--only", "f32_ce"]:
@@ -5599,10 +5738,13 @@ def main(argv=None) -> int:
     del eng
     torch.cuda.empty_cache()
     zero_counts(kernels)
-    gserve_stats["f32"] = gemma_serve_f32(torch, dev)
+    gserve_stats["f32"], f32_step = gemma_serve_f32(torch, dev)
     launches_gserve_f32 = read_counts(kernels)
     gserve_stats["f32"]["launches"] = launches_gserve_f32
     mark = mark_f32("gemma_serve_f32", mark)
+    gserve_stats["f32"]["decode_step"] = gemma_f32_step_events(torch, da,
+                                                               f32_step)
+    del f32_step
     print(json.dumps({"gemma_serve": gserve_stats,
                       "launches": launches_gserve}))
     torch.cuda.empty_cache()
@@ -5835,7 +5977,7 @@ def main(argv=None) -> int:
                  for i, name in enumerate(("flash_fwd", "bwd_merged",
                                            "lora_epilogue"))}
 
-    # rows 12 and 13 in f32 ran on their first versions: on
+    # rows 12 and 13 in f32 ran on the flash-decoding splits: on
     # gemma_serve_f32 (row 12) and generate's two f32 runs (row 13)
     f32_decode = f32p["decode_gpt2"]["launches"] \
         + f32p["decode_gemma"]["launches"]
@@ -5933,7 +6075,9 @@ def main(argv=None) -> int:
                  "launches"],
              launches_by_path=by_path_16("paged"),
              ptxas=ptxas["paged_decode_attention_vec"],
-             f32=dict(f32p["paged"], ptxas=ptxas["paged_decode_attention"],
+             f32=dict(f32p["paged"],
+                      ptxas=ptxas["paged_decode_attention_vec_f32"],
+                      earlier_ptxas=ptxas["paged_decode_attention"],
                       launches_by_path={"gemma_serve_f32":
                                         f32p["paged"]["launches"]}),
              gemma=dict(pg_entries["gemma_serve"],
@@ -5942,7 +6086,9 @@ def main(argv=None) -> int:
              launches=total("decode") - f32_decode,
              launches_by_path=by_path_16("decode"),
              ptxas=ptxas["decode_attention_mma"],
-             f32=dict(f32p["decode_gpt2"], ptxas=ptxas["decode_attention"],
+             f32=dict(f32p["decode_gpt2"],
+                      ptxas=ptxas["decode_attention_split_f32"],
+                      earlier_ptxas=ptxas["decode_attention"],
                       launches=f32_decode,
                       launches_at_shape=f32p["decode_gpt2"]["launches"],
                       gemma=f32p["decode_gemma"]),

@@ -7,6 +7,9 @@
                                [--decode NAME=PATH.cu ...]
     python3 kernel_variants.py --row12 [--paged NAME=PATH.cu ...]
     python3 kernel_variants.py --f32_ce_plans
+    python3 kernel_variants.py --f32_decode [--paged_f32 NAME=PATH.cu ...]
+                               [--decode_f32 NAME=PATH.cu ...]
+                               [--split_variant lastcta|cpasync ...]
     python3 kernel_variants.py --mma_rate
 
 Card only. Builds each variant source by hand (nvcc with the port's flags
@@ -73,6 +76,24 @@ variant with the W chunks' copies after the first ones left out (its
 output is wrong; the time of the loop without them), at the Gemma chunk
 and at R 4,096, V 8,192 (the same chunks and the same L2 traffic a CTA,
 W resident in L2, so no DRAM traffic).
+
+With --f32_decode it times rows 12 and 13 in f32 instead, on
+chip_smoke.py's inputs at the default-dtype paths' shapes (row 12 at
+`gemma_serve_f32`'s 8 slots x 42 pages of 16, window 512; row 13 at
+`generate`'s f32 last steps, GPT-2 8 x 12 x 1 x 64 at T 144 and Gemma
+4 x 1 x 4 x 256 at T 617 with the window): the flash-decoding splits
+(`csrc/paged_decode_attention_vec_f32.cu`,
+`csrc/decode_attention_split_f32.cu`) at their plans' chunk counts
+(`ops/decode_attention.paged_f32_plan`, `decode_f32_plan`) and at others
+from one chunk to twice a wave, in turns with their first versions
+(`csrc/paged_decode_attention.cu`, `csrc/decode_attention.cu`), the
+library call (row 12: the pages gathered, then SDPA; row 13: SDPA) and
+the `--paged_f32` / `--decode_f32` variants, which export the source's C
+entry and run at its plan's split; `--split_variant` adds both sources
+rebuilt on an alternative of csrc/decode_split_f32.cuh derived from it
+(`SPLIT_VARIANT_EDITS`: "lastcta", the merge in each unit's last CTA
+behind a counter; "cpasync", each round staged in shared memory by
+cp.async). Each output is held against the plain version within 1e-5.
 
 With --mma_rate it measures the card's tensor-core rates instead: a
 kernel of independent mma.sync products (TF32 m16n8k8, bf16 m16n8k16)
@@ -531,6 +552,288 @@ extern "C" int mft_wgmma_check(const float* a, const float* b, float* d,
 """
 
 
+# Two alternatives to csrc/decode_split_f32.cuh's design, derived from it
+# by the edits below (each (anchor, replacement) must match once): "lastcta"
+# merges the chunks in the last CTA of each (kv group, slot) behind a
+# counter the kernel resets, instead of the PDL merge kernel; "cpasync"
+# copies each round's K/V rows into shared memory by cp.async (masked rows
+# zero-filled), instead of loading them into registers.
+SPLIT_VARIANT_EDITS = {
+    "lastcta": [
+        ("#pragma once",
+         "#pragma once\n__device__ unsigned split_counters[1 << 16];"),
+        ('asm volatile("griddepcontrol.launch_dependents;");', ""),
+        ("""      if (d == 0) {
+        ws[rc * 2] = mg;
+        ws[rc * 2 + 1] = den;
+      }
+    }
+  }
+}""", """      if (d == 0) {
+        ws[rc * 2] = mg;
+        ws[rc * 2 + 1] = den;
+      }
+    }
+  }
+  if (n_chunks == 1) return;
+  __shared__ unsigned last;
+  __threadfence();
+  __syncthreads();
+  const unsigned unit = blockIdx.z * gridDim.x + blockIdx.x;
+  if (tid == 0)
+    last = atomicAdd(&split_counters[unit], 1u) == (unsigned)n_chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* accw = ws + (size_t)n_chunks * rows_total * 2;
+  for (int i = tid; i < nq * D; i += THREADS) {
+    const int g = i / D, d = i % D;
+    const size_t row = qrow0 + g;
+    float mmax = NEG_INF;
+    for (int c = 0; c < n_chunks; ++c) {
+      const size_t rc = (size_t)c * rows_total + row;
+      if (__ldcg(ws + rc * 2 + 1) > 0.f)
+        mmax = fmaxf(mmax, __ldcg(ws + rc * 2));
+    }
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < n_chunks; ++c) {
+      const size_t rc = (size_t)c * rows_total + row;
+      const float lc = __ldcg(ws + rc * 2 + 1);
+      const float a = __ldcg(accw + rc * D + d);
+      if (lc > 0.f) {
+        const float f = expf(__ldcg(ws + rc * 2) - mmax);
+        num = fmaf(f, a, num);
+        den = fmaf(f, lc, den);
+      }
+    }
+    ctx[row * D + d] = den > 0.f ? num / den : 0.f;
+  }
+  if (tid == 0) split_counters[unit] = 0;
+}"""),
+        ("if (e != cudaSuccess || n_chunks == 1) return (int)e;",
+         "return (int)e;")],
+    "cpasync": [
+        ("""          (size_t)warps_for(QG) * QG * D) * 4;
+}""", """          (size_t)warps_for(QG) * QG * D) * 4 +
+         (size_t)2 * ROW_SLOTS * 256 * 4;   // the round's K and V
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(a),
+               "l"(src), "r"(valid ? 16 : 0));
+}"""),
+        ("""  float* acc_s = l_s + WARPS * QG;                    // [WARPS][QG][D]""",
+         """  float* acc_s = l_s + WARPS * QG;                    // [WARPS][QG][D]
+  float* kst = acc_s + WARPS * QG * D;                 // [RND][D]
+  float* vst = kst + RND * D;"""),
+        ("""    float4 kr[PASSES][2], vr[PASSES][2];
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      kr[p][0] = kr[p][1] = vr[p][0] = vr[p][1] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live[p]) {
+        const size_t off =
+            rows_of.row(s, kv, c0 + base + r0 + p * ROWS, ent[p]) * D +
+            cl * 4;
+        kr[p][0] = *reinterpret_cast<const float4*>(kc + off);
+        kr[p][1] = *reinterpret_cast<const float4*>(kc + off + HALF);
+        vr[p][0] = *reinterpret_cast<const float4*>(vc + off);
+        vr[p][1] = *reinterpret_cast<const float4*>(vc + off + HALF);
+      }
+    }""", """#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const size_t off = live[p] ?
+          rows_of.row(s, kv, c0 + base + r0 + p * ROWS, ent[p]) * D +
+          cl * 4 : 0;
+      const int j = (r0 + p * ROWS) * D + cl * 4;
+      cp16(kst + j, kc + off, live[p]);
+      cp16(kst + j + HALF, kc + off + HALF, live[p]);
+      cp16(vst + j, vc + off, live[p]);
+      cp16(vst + j + HALF, vc + off + HALF, live[p]);
+    }
+    asm volatile("cp.async.commit_group;\\n" ::);
+    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");"""),
+        ("""        const float kf = comp(kr[p][i >> 2], i & 3);""",
+         """        const int j = (r0 + p * ROWS) * D + cl * 4 + (i >> 2) * HALF;
+        const float kf = comp(*reinterpret_cast<const float4*>(kst + j),
+                              i & 3);"""),
+        ("""          acc[g][i] = fmaf(pv, comp(vr[p][i >> 2], i & 3), acc[g][i]);""",
+         """          acc[g][i] = fmaf(pv, comp(*reinterpret_cast<const float4*>(
+              vst + (r0 + p * ROWS) * D + cl * 4 + (i >> 2) * HALF),
+              i & 3), acc[g][i]);"""),
+        ("""  dim3 grid(KV * n_qg, n_chunks, S);""",
+         """  dim3 grid(KV * n_qg, n_chunks, S);
+  cudaFuncSetAttribute(split_kernel<D, QG, Rows>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_bytes(D, QG));""")]}
+
+
+def split_variant_sources(build, name, out_dir):
+    """[(kind, name, path)]: the two f32 split sources with
+    csrc/decode_split_f32.cuh replaced by its `name` variant
+    (SPLIT_VARIANT_EDITS), written into out_dir."""
+    with open(os.path.join(build.CSRC_DIR, "decode_split_f32.cuh")) as f:
+        header = f.read()
+    for old, new in SPLIT_VARIANT_EDITS[name]:
+        if header.count(old) != 1:
+            raise RuntimeError(f"split variant {name}: an edit's anchor is "
+                               f"not in decode_split_f32.cuh once")
+        header = header.replace(old, new)
+    with open(os.path.join(out_dir, f"split_{name}.cuh"), "w") as f:
+        f.write(header)
+    out = []
+    for kind, src in (("paged", "paged_decode_attention_vec_f32"),
+                      ("decode", "decode_attention_split_f32")):
+        with open(os.path.join(build.CSRC_DIR, f"{src}.cu")) as f:
+            text = f.read().replace('#include "decode_split_f32.cuh"',
+                                    f'#include "split_{name}.cuh"')
+        path = os.path.join(out_dir, f"{src}_{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        out.append((kind, f"{kind}_{name}", path))
+    return out
+
+
+def f32_decode(args, torch, build, out_dir) -> int:
+    """Rows 12 and 13 in f32: the splits at their plans' chunk counts and
+    at others, beside their first versions, the library call and the
+    --paged_f32 / --decode_f32 variants (module docstring)."""
+    import chip_smoke as cs
+    from mobilefinetuner_tpu_torch.ops import decode_attention as da
+    variants = [(kind, f"{kind}_{name}", path)
+                for kind, given in (("paged", args.paged_f32),
+                                    ("decode", args.decode_f32))
+                for name, path in (v.split("=", 1) for v in given)]
+    for name in args.split_variant:
+        variants += split_variant_sources(build, name, out_dir)
+    libs = build_variants(build, variants, out_dir,
+                          ["paged_decode_attention_vec_f32",
+                           "decode_attention_split_f32",
+                           "paged_decode_attention", "decode_attention"])
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    torch.cuda._sleep(int(2e9))          # the card's clocks up
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    syms = {"paged": ("paged_decode_attention_vec_f32",
+                      "mft_paged_decode_attention_vec_f32", 7, 12),
+            "decode": ("decode_attention_split_f32",
+                       "mft_decode_attention_split_f32", 6, 8)}
+
+    def entry(lib, kind):
+        _, sym, n_ptrs, n_ints = syms[kind]
+        fn = getattr(lib, sym)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+
+    def sweep(kind, cols, plan, units, split, first, library, want):
+        """The functions to time: the source at its plan, at other chunk
+        counts, the variants, the first version and the library call,
+        each output held against `want` within 1e-5."""
+        src = entry(build.load(syms[kind][0]), kind)
+        fns = {f"source (plan: {plan['n_chunks']} chunks of "
+               f"{plan['cpc']})": split(src, plan["cpc"])}
+        wave = max(1, n_sm // units)          # chunks a unit in a wave
+        rnd = plan["round_rows"]
+        cpcs = {-(-cols // max(1, n)) for n in (1, 2, 4, 8, wave // 4,
+                                               wave // 2, 3 * wave // 4,
+                                               wave, 2 * wave)}
+        cpcs |= {min(cols, c) for c in (rnd // 2, 3 * rnd // 4, rnd)}
+        for cpc in sorted(cpcs - {plan["cpc"]}, reverse=True):
+            fns[f"{-(-cols // cpc)} chunks of {cpc}"] = split(src, cpc)
+        for name, (k, lib) in libs.items():
+            if k == kind:
+                fns[name] = split(entry(lib, kind), plan["cpc"])
+        fns["first version"] = first
+        for name, fn in fns.items():
+            err = cs.max_err(fn(), want)
+            torch.cuda.synchronize()
+            if not err <= 1e-5:
+                raise RuntimeError(f"{kind}: {name} is {err} from the "
+                                   f"plain version")
+        fns["library"] = library
+        if args.profile:
+            for name in list(fns)[:1]:
+                for kernel, us in profiled(torch, fns[name]):
+                    print(f"{kind}: profile {name}: {kernel} {us:.2f} us",
+                          flush=True)
+        return in_turns(fns, lambda fn: cs.queued_ms(fn, args.iters) * 1e3)
+
+    result = {}
+    case = {c[0]: c for c in cs.PAGED_CASES}["gemma_serve_f32"]
+    _, _, S, KV, G, D, bT, M, L, window, _ = case
+    q, pk, pv, tbl, ok = cs.paged_inputs(torch, dev, f32, S, KV, G, D, bT,
+                                         M, L, seed=S * D, window=window)
+    layer, scale, NB = L - 1, D ** -0.5, pk.shape[0]
+    want = da.paged_attention(q, pk, pv, tbl, layer, ok, scale)
+    ctx = torch.empty_like(want)
+
+    def paged_split(fn, cpc):
+        nc = -(-M * bT // cpc)
+        ws = torch.empty(max(1, nc * S * KV * G * (D + 2)), device=dev)
+
+        def call():
+            build.check_launch("paged f32", fn(
+                *(t.data_ptr() for t in (q, pk, pv, tbl, ok, ctx, ws)), S,
+                KV, G, D, NB, L, layer, bT, M, cpc, nc, 0, scale, stream))
+            return ctx
+        return call
+    result["paged_gemma_serve_f32"] = sweep(
+        "paged", M * bT, da.paged_f32_plan(S, KV, G, M, bT, D, f32, n_sm),
+        S * KV, paged_split,
+        lambda: cs.fma_paged(q, pk, pv, tbl, layer, ok, scale),
+        cs.paged_library_chain(torch, q, pk, pv, tbl, layer, ok, scale),
+        want)
+    print(f"paged f32 gemma_serve_f32 (q {S}x{KV}x{G}x{D}, {M} pages of "
+          f"{bT}, {int(ok.sum())} columns attendable): device us, in "
+          f"turns: {result['paged_gemma_serve_f32']}", flush=True)
+    del pk, pv
+    lens = {"gpt2": [8, 26, 45, 64, 83, 102, 121, cs.GEN["gpt2_max"]],
+            "gemma": [1 + n for n in cs.GEN["gemma_words"]]}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for fam, (KV, G, D, window) in (("gpt2", (12, 1, 64, None)),
+                                    ("gemma", (1, 4, 256,
+                                               cs.GEN["window"]))):
+        P = max(lens[fam])
+        T, B = P + cs.GEN["tf_new"], len(lens[fam])
+        q, kc, vc, ok = cs.decode_inputs(
+            torch, dev, f32, B, KV, G, T, D, seed=T + D,
+            n_pad=[P - n for n in lens[fam]], window=window)
+        scale = D ** -0.5
+        want = da.xla_reference(q, kc, vc, ok, scale)
+        ctx = torch.empty_like(want)
+
+        def decode_split(fn, cpc, q=q, kc=kc, vc=vc, ok=ok, ctx=ctx, B=B,
+                         KV=KV, G=G, D=D, T=T, scale=scale):
+            nc = -(-T // cpc)
+            ws = torch.empty(max(1, nc * B * KV * G * (D + 2)), device=dev)
+
+            def call():
+                build.check_launch("decode f32", fn(
+                    *(t.data_ptr() for t in (q, kc, vc, ok, ctx, ws)), B,
+                    KV, G, D, T, cpc, nc, 0, scale, stream))
+                return ctx
+            return call
+        qh, mask = q.reshape(B, KV * G, 1, D), ok[:, None, None, :]
+        result[f"decode_{fam}"] = sweep(
+            "decode", T, da.decode_f32_plan(B, KV, G, T, D, f32, n_sm),
+            B * KV, decode_split,
+            lambda q=q, kc=kc, vc=vc, ok=ok, s=scale: cs.fma_decode(
+                q, kc, vc, ok, s),
+            lambda qh=qh, kc=kc, vc=vc, mask=mask, s=scale: sdpa(
+                qh, kc, vc, attn_mask=mask, scale=s, enable_gqa=True),
+            want)
+        print(f"decode f32 {fam} (q {B}x{KV}x{G}x{D}, T {T}, "
+              f"{int(ok.sum())} of {B * T} attendable): device us, in "
+              f"turns: {result[f'decode_{fam}']}", flush=True)
+    print(json.dumps({"kernel_variants": {"f32_decode": result}}))
+    return 0
+
+
 def mma_rate(torch, build, out_dir) -> int:
     """--mma_rate (module docstring)."""
     path = os.path.join(out_dir, "mma_rate.cu")
@@ -752,6 +1055,11 @@ def main() -> int:
     ap.add_argument("--paged", action="append", default=[])
     ap.add_argument("--mma_rate", action="store_true")
     ap.add_argument("--f32_ce_plans", action="store_true")
+    ap.add_argument("--f32_decode", action="store_true")
+    ap.add_argument("--paged_f32", action="append", default=[])
+    ap.add_argument("--decode_f32", action="append", default=[])
+    ap.add_argument("--split_variant", action="append", default=[],
+                    choices=sorted(SPLIT_VARIANT_EDITS))
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -766,6 +1074,8 @@ def main() -> int:
         return mma_rate(torch, build, out_dir)
     if args.f32_ce_plans:
         return f32_ce_plans(torch, build)
+    if args.f32_decode:
+        return f32_decode(args, torch, build, out_dir)
     variants = [("fwd", *v.split("=", 1)) for v in args.fwd] + \
         [("dbt", *v.split("=", 1)) for v in args.dbt]
     procs = {}

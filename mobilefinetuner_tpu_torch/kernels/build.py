@@ -45,8 +45,9 @@ SOURCES = ("flash_attention_fwd", "flash_attention_fwd_mma",
            "fused_ce_dw_tf32", "lora_epilogue", "lora_epilogue_vec",
            "lora_epilogue_vec_f32",
            "paged_decode_attention",
-           "paged_decode_attention_vec", "decode_attention",
-           "decode_attention_mma")
+           "paged_decode_attention_vec", "paged_decode_attention_vec_f32",
+           "decode_attention", "decode_attention_mma",
+           "decode_attention_split_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

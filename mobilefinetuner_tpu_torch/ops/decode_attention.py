@@ -21,13 +21,17 @@ G = 1 case):
                           decode_library(dtype) (or raise ValueError):
                           bf16 / f16 `csrc/decode_attention_mma.cu`
                           (flash-decoding on the tensor cores, with its
-                          merge pass), f32 `csrc/decode_attention.cu`;
-                          CPU tensors take xla_reference.
-                          `decode_attention.launches` counts the calls
-                          that launched a kernel.
+                          merge pass), f32
+                          `csrc/decode_attention_split_f32.cu`
+                          (flash-decoding on FMA, K/V rows in registers,
+                          with its merge pass); CPU tensors take
+                          xla_reference. `decode_attention.launches`
+                          counts the calls that launched a kernel.
   decode_eligible         the kernels' own shape rule.
   decode_mma_plan         the tensor-core kernel's split of T into chunks
                           (from shapes only), its grid and workspace.
+  decode_f32_plan         the f32 kernel's split of T into chunks (from
+                          shapes only), its grid and workspace.
 
 Block-paged pool (the serve engine):
   q        [S, KV, G, D]       current-token queries per slot
@@ -47,14 +51,21 @@ Block-paged pool (the serve engine):
                           bf16 / f16 `csrc/paged_decode_attention_vec.cu`
                           (each lane's K/V rows loaded straight into
                           registers, chunks merged in order), f32
-                          `csrc/paged_decode_attention.cu`; CPU tensors
-                          take paged_attention.
+                          `csrc/paged_decode_attention_vec_f32.cu` (the
+                          same design on 16-byte f32 pieces,
+                          `csrc/decode_split_f32.cuh`); CPU tensors take
+                          paged_attention.
                           `paged_decode_attention.launches` counts the
                           calls that launched a kernel.
   paged_eligible          the kernels' own shape rule.
   paged_plan              the 16-bit kernel's split of the M * bT logical
                           columns into chunks (from shapes only), its
                           grid, warps, shared memory and workspace.
+  paged_f32_plan          the same for the f32 kernel.
+
+The f32 first versions, `csrc/paged_decode_attention.cu` and
+`csrc/decode_attention.cu`, are built but on no path: they stay to time
+the f32 kernels against.
 """
 
 from __future__ import annotations
@@ -83,6 +94,11 @@ PAGED_VEC_ROW_SLOTS = 96      # csrc/paged_decode_attention_vec.cu ROW_SLOTS
 PAGED_VEC_MAX_QG = 4          # its MAX_QG: query heads a CTA
 PAGED_VEC_MAX_CHUNKS = 4096   # its MAX_CHUNKS
 PAGED_VEC_MIN_COLS = 32       # the fewest columns a chunk
+# the f32 kernels' csrc/decode_split_f32.cuh
+SPLIT_F32_ROW_SLOTS = 48      # its ROW_SLOTS: warps x passes a round
+SPLIT_F32_MAX_QG = 4          # its MAX_QG: query heads a CTA
+SPLIT_F32_MAX_CHUNKS = 4096   # its MAX_CHUNKS
+MAX_GRID_X = 2 ** 31 - 1      # the f32 kernels' grid x: KV x query groups
 
 
 def xla_reference(q, k_cache, v_cache, ok, scale):
@@ -99,24 +115,28 @@ def xla_reference(q, k_cache, v_cache, ok, scale):
 
 def decode_eligible(KV: int, T: int, D: int, itemsize: int,
                     G: int = 1) -> bool:
-    """The kernels take any T >= 1 (an online softmax over 32-row tiles:
-    no whole-T block to fit), D in DECODE_HEAD_DIMS in f32, bf16 and f16,
-    and any KV, G >= 1 (the tensor-core kernel: KV * ceil(G / 16) up to
-    MAX_BATCH, its grid's second dimension)."""
-    return (KV >= 1 and G >= 1 and T >= 1 and D in DECODE_HEAD_DIMS
-            and itemsize in (2, 4)
-            and (itemsize == 4
-                 or KV * -(-G // DECODE_MMA_QROWS) <= MAX_BATCH))
+    """The kernels take any T >= 1 (chunks of T merged in order, each an
+    online softmax: no whole-T block to fit), D in DECODE_HEAD_DIMS in
+    f32, bf16 and f16, and any KV, G >= 1 (the tensor-core kernel: KV *
+    ceil(G / 16) up to MAX_BATCH, its grid's second dimension; the f32
+    kernel: KV * its query-head groups up to MAX_GRID_X, its grid's
+    first)."""
+    if not (KV >= 1 and G >= 1 and T >= 1 and D in DECODE_HEAD_DIMS
+            and itemsize in (2, 4)):
+        return False
+    if itemsize == 4:
+        return KV * -(-G // _split_qg(G)) <= MAX_GRID_X
+    return KV * -(-G // DECODE_MMA_QROWS) <= MAX_BATCH
 
 
 def decode_library(dtype: torch.dtype):
     """(source, C symbol) of the contiguous decode kernel for `dtype`:
-    bf16 and f16 the tensor-core flash-decoding kernel, f32 the first
-    version."""
+    bf16 and f16 the tensor-core flash-decoding kernel, f32 the FMA
+    flash-decoding split."""
     if dtype in (torch.bfloat16, torch.float16):
         return "decode_attention_mma", "mft_decode_attention_mma"
     if dtype == torch.float32:
-        return "decode_attention", "mft_decode_attention"
+        return "decode_attention_split_f32", "mft_decode_attention_split_f32"
     raise ValueError(f"decode_attention kernel takes one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
 
@@ -158,13 +178,66 @@ def decode_mma_plan(B: int, KV: int, G: int, T: int, D: int,
             if n_chunks > 1 else 0}
 
 
+def _split_qg(G: int) -> int:
+    """Query heads a CTA of the f32 kernels (csrc/decode_split_f32.cuh's
+    qg_for) and of the 16-bit paged kernel (its QG instantiations)."""
+    return G if G <= 2 else SPLIT_F32_MAX_QG
+
+
+def _split_f32_plan(S: int, KV: int, G: int, n_cols: int, page: int, D: int,
+                    n_sm: int) -> dict:
+    """The f32 split of `n_cols` logical columns of each (slot or batch
+    row, kv head, query group) unit, from shapes only: grid (KV * n_qg,
+    n_chunks, S), the most chunks that keep the CTAs within one wave of
+    n_sm (one chunk where the units alone are more than half a wave: no
+    merge), but at least a round's rows a chunk (SPLIT_F32_ROW_SLOTS x 256 / D: 96 KB of
+    K and V a CTA, where the columns have them; at Gemma's f32 generate
+    step 13 chunks of a round took 10.88 us against 12.19 for the wave's
+    33 of 19 columns on an H100, PERF.md), whole pages of `page` columns
+    where a chunk holds one, at most SPLIT_F32_MAX_CHUNKS chunks (the
+    merge walks them in order). A chunk longer than a round loops."""
+    qg = _split_qg(G)
+    n_qg = -(-G // qg)
+    rnd = SPLIT_F32_ROW_SLOTS * 256 // D       # rows a CTA a round
+    want = max(1, n_sm // (S * KV * n_qg))    # chunks a unit
+    cpc = max(-(-n_cols // want), min(n_cols, rnd),
+              -(-n_cols // SPLIT_F32_MAX_CHUNKS))
+    if cpc >= page:
+        cpc = -(-cpc // page) * page
+    n_chunks = -(-n_cols // cpc)
+    warps = 8 if qg == SPLIT_F32_MAX_QG else 16
+    return {"cpc": cpc, "n_chunks": n_chunks, "qg": qg, "n_qg": n_qg,
+            "grid": (KV * n_qg, n_chunks, S), "warps": warps,
+            "round_rows": rnd,
+            "smem_bytes": (2 * warps * qg + warps * qg * D) * 4,
+            "ws_floats": n_chunks * S * KV * G * (D + 2)
+            if n_chunks > 1 else 0}
+
+
+def decode_f32_plan(B: int, KV: int, G: int, T: int, D: int,
+                    dtype: torch.dtype, n_sm: int = N_SM) -> dict:
+    """The f32 kernel's launch (csrc/decode_attention_split_f32.cu), from
+    shapes only (never from the mask, so a CUDA graph can capture it):
+    one CTA per (kv head x group of up to SPLIT_F32_MAX_QG query heads,
+    chunk of `cpc` columns, b), grid (KV * n_qg, n_chunks, B), `warps`
+    warps a CTA, the chunk split of _split_f32_plan with no pages.
+    `ws_floats`: the partials' workspace (m, l and acc [G, D] a chunk),
+    none for one chunk."""
+    if dtype != torch.float32:
+        raise ValueError(f"decode_attention f32 kernel takes float32, got "
+                         f"{dtype}")
+    if D not in DECODE_HEAD_DIMS or min(B, KV, G, T) < 1 or B > MAX_BATCH \
+            or KV * -(-G // _split_qg(G)) > MAX_GRID_X:
+        raise ValueError(f"decode_attention f32 kernel does not take B={B}, "
+                         f"KV={KV}, G={G}, T={T}, D={D}")
+    return _split_f32_plan(B, KV, G, T, 1, D, n_sm)
+
+
 def _decode_kernel(dtype):
     lib, sym = decode_library(dtype)
     fn = getattr(build.load(lib), sym)
     if fn.argtypes is None:
-        mma = lib == "decode_attention_mma"
-        fn.argtypes = ([ctypes.c_void_p] * (6 if mma else 5)
-                       + [ctypes.c_int] * (8 if mma else 6)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -207,23 +280,20 @@ def decode_attention(q, k_cache, v_cache, ok, scale):
         raise ValueError("decode_attention takes contiguous operands, "
                          "16-byte aligned caches and a 4-byte aligned q")
     ctx = torch.empty(B, KV, G, D, device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            ok.data_ptr(), ctx.data_ptr())
-    if decode_library(q.dtype)[0] == "decode_attention_mma":
-        plan = decode_mma_plan(B, KV, G, T, D, q.dtype,
-                               torch.cuda.get_device_properties(dev)
-                               .multi_processor_count)
-        ws = (torch.empty(plan["ws_floats"], device=dev)
-              if plan["ws_floats"] else None)
-        code = _decode_kernel(q.dtype)(
-            *ptrs, None if ws is None else ws.data_ptr(), B, KV, G, D, T,
-            plan["tiles_per_chunk"], plan["n_chunks"],
-            DTYPE_CODES[q.dtype], float(scale), stream)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if q.dtype == torch.float32:
+        plan = decode_f32_plan(B, KV, G, T, D, q.dtype, n_sm)
+        step = plan["cpc"]
     else:
-        code = _decode_kernel(q.dtype)(*ptrs, B, KV, G, D, T,
-                                       DTYPE_CODES[q.dtype], float(scale),
-                                       stream)
+        plan = decode_mma_plan(B, KV, G, T, D, q.dtype, n_sm)
+        step = plan["tiles_per_chunk"]
+    ws = (torch.empty(plan["ws_floats"], device=dev)
+          if plan["ws_floats"] else None)
+    code = _decode_kernel(q.dtype)(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ok.data_ptr(),
+        ctx.data_ptr(), None if ws is None else ws.data_ptr(), B, KV, G, D,
+        T, step, plan["n_chunks"], DTYPE_CODES[q.dtype], float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_attention", code)
     decode_attention.launches += 1
     return ctx
@@ -250,29 +320,30 @@ def paged_attention(q, pool_k, pool_v, tbl, layer, ok, scale):
 
 def paged_eligible(KV: int, G: int, bT: int, D: int, itemsize: int) -> bool:
     """The kernels take D in PAGED_HEAD_DIMS in f32, bf16 and f16, pages
-    of at most MAX_BLOCK_T tokens (the f32 kernel keeps a page's scores
-    in shared memory) and any KV, G >= 1 (the 16-bit kernel: KV * its
-    query-head groups up to MAX_BATCH, its grid's second dimension)."""
-    return (KV >= 1 and G >= 1 and 1 <= bT <= MAX_BLOCK_T
-            and D in PAGED_HEAD_DIMS and itemsize in (2, 4)
-            and (itemsize == 4 or KV * -(-G // _paged_qg(G)) <= MAX_BATCH))
+    of at most MAX_BLOCK_T tokens (the pool's page limit, the same in
+    every dtype: neither kernel stages a page, a chunk's rows sit in
+    registers and a chunk may end inside a page) and any KV, G >= 1 (KV
+    * the query-head groups up to MAX_BATCH in the 16-bit kernel, its
+    grid's second dimension, and up to MAX_GRID_X in the f32 kernel, its
+    grid's first)."""
+    if not (KV >= 1 and G >= 1 and 1 <= bT <= MAX_BLOCK_T
+            and D in PAGED_HEAD_DIMS and itemsize in (2, 4)):
+        return False
+    return KV * -(-G // _split_qg(G)) <= (MAX_GRID_X if itemsize == 4
+                                          else MAX_BATCH)
 
 
 def paged_library(dtype: torch.dtype):
     """(source, C symbol) of the paged decode kernel for `dtype`: bf16 and
     f16 the kernel that loads a chunk's K/V rows into registers, f32 the
-    first version."""
+    same design on f32 pieces."""
     if dtype in (torch.bfloat16, torch.float16):
         return "paged_decode_attention_vec", "mft_paged_decode_attention_vec"
     if dtype == torch.float32:
-        return "paged_decode_attention", "mft_paged_decode_attention"
+        return ("paged_decode_attention_vec_f32",
+                "mft_paged_decode_attention_vec_f32")
     raise ValueError(f"paged_decode_attention kernel takes one dtype of "
                      f"{sorted(map(str, DTYPE_CODES))}, got {dtype}")
-
-
-def _paged_qg(G: int) -> int:
-    """Query heads a CTA of the 16-bit kernel (its QG instantiations)."""
-    return G if G <= 2 else PAGED_VEC_MAX_QG
 
 
 def paged_plan(S: int, KV: int, G: int, M: int, bT: int, D: int,
@@ -291,7 +362,7 @@ def paged_plan(S: int, KV: int, G: int, M: int, bT: int, D: int,
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"paged_decode_attention 16-bit kernel takes bf16 "
                          f"or f16, got {dtype}")
-    qg = _paged_qg(G)
+    qg = _split_qg(G)
     n_qg = -(-G // qg) if G >= 1 else 0
     if D not in PAGED_HEAD_DIMS or min(S, KV, G, M) < 1 \
             or not 1 <= bT <= MAX_BLOCK_T or S > MAX_BATCH \
@@ -322,13 +393,33 @@ def paged_plan(S: int, KV: int, G: int, M: int, bT: int, D: int,
             if n_chunks > 1 else 0}
 
 
+def paged_f32_plan(S: int, KV: int, G: int, M: int, bT: int, D: int,
+                   dtype: torch.dtype, n_sm: int = N_SM) -> dict:
+    """The f32 kernel's launch (csrc/paged_decode_attention_vec_f32.cu),
+    from shapes only (never from the mask or the table, so a CUDA graph
+    can capture it): one CTA per (kv head x group of up to
+    SPLIT_F32_MAX_QG query heads, chunk of `cpc` logical columns, slot),
+    grid (KV * n_qg, n_chunks, S), `warps` warps a CTA, the chunk split
+    of _split_f32_plan over the M * bT columns in pages of bT.
+    `ws_floats`: the partials' workspace (m, l and acc [G, D] a chunk),
+    none for one chunk."""
+    if dtype != torch.float32:
+        raise ValueError(f"paged_decode_attention f32 kernel takes float32, "
+                         f"got {dtype}")
+    if D not in PAGED_HEAD_DIMS or min(S, KV, G, M) < 1 \
+            or not 1 <= bT <= MAX_BLOCK_T or S > MAX_BATCH \
+            or KV * -(-G // _split_qg(G)) > MAX_GRID_X \
+            or M * bT > MAX_GRID_X:
+        raise ValueError(f"paged_decode_attention f32 kernel does not take "
+                         f"S={S}, KV={KV}, G={G}, M={M}, bT={bT}, D={D}")
+    return _split_f32_plan(S, KV, G, M * bT, bT, D, n_sm)
+
+
 def _paged_kernel(dtype):
     lib, sym = paged_library(dtype)
     fn = getattr(build.load(lib), sym)
     if fn.argtypes is None:
-        vec = lib == "paged_decode_attention_vec"
-        fn.argtypes = ([ctypes.c_void_p] * (7 if vec else 6)
-                       + [ctypes.c_int] * (12 if vec else 10)
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -373,23 +464,17 @@ def paged_decode_attention(q, pool_k, pool_v, tbl, layer, ok, scale):
                          f"16-byte aligned pools and q, and S <= "
                          f"{MAX_BATCH}")
     ctx = torch.empty(S, KV, G, D, device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            tbl.data_ptr(), ok.data_ptr(), ctx.data_ptr())
-    if paged_library(q.dtype)[0] == "paged_decode_attention_vec":
-        plan = paged_plan(S, KV, G, M, bT, D, q.dtype,
-                          torch.cuda.get_device_properties(dev)
-                          .multi_processor_count)
-        ws = (torch.empty(plan["ws_floats"], device=dev)
-              if plan["ws_floats"] else None)
-        code = _paged_kernel(q.dtype)(
-            *ptrs, None if ws is None else ws.data_ptr(), S, KV, G, D, NB,
-            L, int(layer), bT, M, plan["cpc"], plan["n_chunks"],
-            DTYPE_CODES[q.dtype], float(scale), stream)
-    else:
-        code = _paged_kernel(q.dtype)(
-            *ptrs, S, KV, G, D, NB, L, int(layer), bT, M,
-            DTYPE_CODES[q.dtype], float(scale), stream)
+    plan = (paged_f32_plan if q.dtype == torch.float32 else paged_plan)(
+        S, KV, G, M, bT, D, q.dtype,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    ws = (torch.empty(plan["ws_floats"], device=dev)
+          if plan["ws_floats"] else None)
+    code = _paged_kernel(q.dtype)(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tbl.data_ptr(),
+        ok.data_ptr(), ctx.data_ptr(), None if ws is None else ws.data_ptr(),
+        S, KV, G, D, NB, L, int(layer), bT, M, plan["cpc"],
+        plan["n_chunks"], DTYPE_CODES[q.dtype], float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("paged_decode_attention", code)
     paged_decode_attention.launches += 1
     return ctx

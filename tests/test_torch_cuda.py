@@ -5,6 +5,7 @@ On a machine with a card: `python -m pytest tests/test_torch_cuda.py`.
 `chip_smoke.py` runs the same comparisons at the serving shapes."""
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -102,8 +103,8 @@ def test_flash_kernel_matches_plain_at_mmlu_buckets(dev, dtype, Hq, Hkv, S,
 def test_paged_kernel_matches_plain(dev, dtype, G, D, tol):
     """Row 12 against paged_attention: bf16 / f16 on
     paged_decode_attention_vec.cu (one chunk at G 1, several with a merge
-    where the slots are few), f32 on paged_decode_attention.cu, D 256 in
-    f32 too. Every pool row no slot attends (masked columns of live
+    where the slots are few), f32 on paged_decode_attention_vec_f32.cu,
+    D 256 in f32 too. Every pool row no slot attends (masked columns of live
     pages, unused table rows, the trash page but the idle slot's column)
     poisoned with Inf in K and NaN in V leaves ctx bit for bit as it was;
     two calls are bit-identical; a CUDA graph of the call replays it."""
@@ -655,8 +656,9 @@ def test_lora_epilogue_add_grads_match_the_composition(dev, dtype):
 
 def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
     """bf16 / f16 load lora_epilogue_vec.cu, decode_attention_mma.cu and
-    paged_decode_attention_vec.cu, f32 lora_epilogue_vec_f32.cu and the
-    first versions of rows 12 and 13."""
+    paged_decode_attention_vec.cu, f32 lora_epilogue_vec_f32.cu,
+    decode_attention_split_f32.cu and paged_decode_attention_vec_f32.cu
+    (the first versions of rows 12 and 13 on no path)."""
     loaded = []
     real = build.load
 
@@ -677,7 +679,7 @@ def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
         loaded.clear()
         da.decode_attention(q, kc, vc, ok, 0.125)
         assert loaded == ["decode_attention_mma" if mma
-                          else "decode_attention"]
+                          else "decode_attention_split_f32"]
         pq = _randn(dev, dtype, 2, 1, 4, 256, seed=6)
         pk = _randn(dev, dtype, 3, 1, 1, 16, 256, seed=7)
         tbl = torch.ones(2, 1, dtype=torch.int32, device=dev)
@@ -685,7 +687,7 @@ def test_epilogue_and_decode_are_chosen_by_dtype(dev, monkeypatch):
         da.paged_decode_attention(pq, pk, pk, tbl, 0,
                                   ok[:, :16].contiguous(), 0.0625)
         assert loaded == ["paged_decode_attention_vec" if mma
-                          else "paged_decode_attention"]
+                          else "paged_decode_attention_vec_f32"]
     torch.cuda.synchronize()
 
 
@@ -1396,13 +1398,21 @@ def test_decode_kernel_matches_plain(dev, dtype, B, KV, G, T, D, tol):
     (torch.bfloat16, 2, 2, 18, 100, 128),    # two groups of query heads
     (torch.bfloat16, 3, 1, 4, 1, 256),       # T 1: one chunk, no merge
     (torch.bfloat16, 1, 1, 4, 4096, 256),    # long T: chunks of tiles
+    (torch.float32, 8, 12, 1, 144, 64),      # GPT-2 f32: one chunk
+    (torch.float32, 4, 1, 4, 617, 256),      # Gemma f32: 13 chunks
+    (torch.float32, 2, 2, 18, 100, 128),     # five groups of query heads
+    (torch.float32, 3, 2, 2, 37, 32),
+    (torch.float32, 3, 1, 4, 1, 256),        # T 1: one chunk, no merge
+    (torch.float32, 1, 1, 4, 4096, 256),     # chunks of several rounds
 ])
 def test_decode_tensor_core_kernel_poisoned_and_deterministic(
         dev, dtype, B, KV, G, T, D):
-    """Row 13 on the tensor cores (csrc/decode_attention_mma.cu): masked
-    columns holding Inf in K and NaN in V get exactly 0 weight (the ctx
-    equals the unpoisoned call's bit for bit, and the plain version's on
-    the unpoisoned cache within 2e-2), and two calls are bit-identical."""
+    """Row 13's flash-decoding kernels (bf16 / f16 on the tensor cores,
+    csrc/decode_attention_mma.cu; f32 on csrc/decode_attention_split_f32.cu):
+    masked columns holding Inf in K and NaN in V get exactly 0 weight (the
+    ctx equals the unpoisoned call's bit for bit, and the plain version's
+    on the unpoisoned cache within 2e-2, 1e-5 in f32), and two calls are
+    bit-identical."""
     q, kc, vc, ok = _decode_case(dev, dtype, B, KV, G, T, D, seed=T + G,
                                  poison=False)
     if T > 1:
@@ -1421,7 +1431,134 @@ def test_decode_tensor_core_kernel_poisoned_and_deterministic(
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, clean) and torch.equal(got, again)
-    assert float((clean - ref).abs().max()) <= 2e-2
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((clean - ref).abs().max()) <= tol
+
+
+def _paged_f32_case(dev, S, KV, G, D, bT, M, L, window, seed):
+    """f32 pools and a table whose slots hold 1 to M pages (the last slot
+    idle on the trash page), ok the occupancy and any window over each
+    slot's last column; the rows no slot attends poisoned with Inf in K
+    and NaN in V."""
+    g = torch.Generator().manual_seed(seed)
+    NB = S * M + 1
+    pk = torch.randn(NB, L, KV, bT, D, generator=g)
+    pv = torch.randn(NB, L, KV, bT, D, generator=g)
+    q = torch.randn(S, KV, G, D, generator=g)
+    pos = torch.randint(0, M * bT, (S,), generator=g)
+    pos[0], pos[-1] = M * bT - 1, 0
+    tbl = torch.zeros(S, M, dtype=torch.int32)
+    perm = torch.randperm(NB - 1, generator=g) + 1
+    for s in range(S - 1):
+        n = int(pos[s]) // bT + 1
+        tbl[s, :n] = perm[s * M:s * M + n].int()
+    cols = torch.arange(M * bT)
+    ok = cols[None] <= pos[:, None]
+    if window is not None:
+        ok &= cols[None] > pos[:, None] - window
+    attended = torch.zeros(NB, bT, dtype=torch.bool)
+    for s in range(S):
+        c = torch.nonzero(ok[s]).flatten()
+        attended[tbl[s, c // bT].long(), c % bT] = True
+    dead = ~attended[:, None, None, :, None]
+    pk.masked_fill_(dead, float("inf"))
+    pv.masked_fill_(dead, float("nan"))
+    return (q.to(dev), pk.to(dev), pv.to(dev), tbl.to(dev), ok.to(dev))
+
+
+@pytest.mark.parametrize("S,KV,G,D,bT,M,window", [
+    (8, 1, 4, 256, 16, 42, 512),     # gemma_serve_f32's pool
+    (8, 12, 1, 64, 16, 12, None),    # GPT-2's serve step
+    (3, 2, 6, 128, 64, 3, 30),       # chunks end inside a page, 2 groups
+])
+def test_paged_f32_split_kernel_at_the_path_shapes(dev, S, KV, G, D, bT, M,
+                                                   window):
+    """Row 12 in f32 on csrc/paged_decode_attention_vec_f32.cu at the
+    serving pools: within 1e-5 of paged_attention (the rows no slot
+    attends hold Inf / NaN), one launch a call, two calls bit-identical,
+    the split of paged_f32_plan."""
+    q, pk, pv, tbl, ok = _paged_f32_case(dev, S, KV, G, D, bT, M, 2, window,
+                                         seed=S + D)
+    scale = D ** -0.5
+    n0 = da.paged_decode_attention.launches
+    ctx = da.paged_decode_attention(q, pk, pv, tbl, 1, ok, scale)
+    again = da.paged_decode_attention(q, pk, pv, tbl, 1, ok, scale)
+    assert da.paged_decode_attention.launches == n0 + 2
+    clean = [t.nan_to_num(0.0, 0.0, 0.0) for t in (pk, pv)]
+    ref = da.paged_attention(q, *clean, tbl, 1, ok, scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ctx).all()) and torch.equal(ctx, again)
+    assert float((ctx - ref).abs().max()) <= 1e-5
+    assert da.paged_library(torch.float32)[0] == \
+        "paged_decode_attention_vec_f32"
+
+
+@pytest.mark.parametrize("B,KV,G,T,D,window", [
+    (8, 12, 1, 144, 64, None),       # generate's GPT-2 f32 last step
+    (4, 1, 4, 617, 256, 512),        # generate's Gemma f32 last step
+    (4, 1, 4, 663, 256, 512),        # a ragged T
+    (5, 3, 2, 1000, 32, None),       # D 32, several rounds a chunk
+])
+def test_decode_f32_split_kernel_at_the_path_shapes(dev, B, KV, G, T, D,
+                                                    window):
+    """Row 13 in f32 on csrc/decode_attention_split_f32.cu at generate's
+    last steps and a ragged T, left padding and the window in ok, the
+    masked columns holding +-1e6: within 1e-5 of xla_reference, one
+    launch a call."""
+    q, kc, vc, ok = _decode_case(dev, torch.float32, B, KV, G, T, D,
+                                 seed=T + D)
+    if window is not None:
+        ok &= torch.arange(T, device=dev)[None] > T - 1 - window
+        ok[:, -1] = True
+    n0 = da.decode_attention.launches
+    ctx = da.decode_attention(q, kc, vc, ok, D ** -0.5)
+    assert da.decode_attention.launches == n0 + 1
+    ref = da.xla_reference(q, kc, vc, ok, D ** -0.5)
+    torch.cuda.synchronize()
+    assert float((ctx - ref).abs().max()) <= 1e-5
+
+
+def test_f32_split_wrappers_raise_on_what_the_kernels_do_not_take(
+        dev, monkeypatch):
+    """A CUDA f32 tensor the split kernels do not take raises, and a
+    launch the kernel refuses raises too: no route to the plain version or
+    the first versions."""
+    f32 = torch.float32
+    pk = torch.zeros(3, 1, 1, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="does not take"):      # D 32
+        da.paged_decode_attention(
+            torch.zeros(1, 1, 1, 32, device=dev), pk, pk,
+            torch.zeros(1, 1, dtype=torch.int32, device=dev), 0,
+            torch.ones(1, 8, dtype=torch.bool, device=dev), 1.0)
+    pk = torch.zeros(3, 1, 1, 2048, 64, device=dev)
+    with pytest.raises(ValueError, match="does not take"):      # bT
+        da.paged_decode_attention(
+            torch.zeros(1, 1, 1, 64, device=dev), pk, pk,
+            torch.zeros(1, 1, dtype=torch.int32, device=dev), 0,
+            torch.ones(1, 2048, dtype=torch.bool, device=dev), 1.0)
+    q, kc, vc, ok = _decode_case(dev, f32, 2, 2, 1, 16, 64, 0)
+    n0 = da.decode_attention.launches
+    shifted = torch.empty(kc.numel() + 1, device=dev)[1:].view_as(kc)
+    with pytest.raises(ValueError, match="aligned"):   # 4 bytes off
+        da.decode_attention(q, shifted, vc, ok, 0.125)
+
+    class Refusing:                       # a launch the card refuses
+        argtypes = ()
+
+        def __call__(self, *args):
+            return 1                      # cudaErrorInvalidValue
+    libs = types.SimpleNamespace(**{da.decode_library(f32)[1]: Refusing(),
+                                    da.paged_library(f32)[1]: Refusing()})
+    monkeypatch.setattr(build, "load", lambda name: libs)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        da.decode_attention(q, kc, vc, ok, 0.125)
+    pk = torch.zeros(3, 1, 1, 16, 64, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        da.paged_decode_attention(
+            torch.zeros(1, 1, 1, 64, device=dev), pk, pk,
+            torch.zeros(1, 1, dtype=torch.int32, device=dev), 0,
+            torch.ones(1, 16, dtype=torch.bool, device=dev), 1.0)
+    assert da.decode_attention.launches == n0
 
 
 def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):

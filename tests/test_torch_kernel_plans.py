@@ -23,10 +23,13 @@ version's ctx; row 12's chunk split (`ops/decode_attention.paged_plan`)
 covers every logical column, so every live page's rows, once, and its
 lane map loads each K and V element of a chunk once, a row's lanes on
 contiguous bytes; and the dtype picks the library: bf16 /
-f16 the `_mma` (and `_vec`) sources, f32 the first versions but for rows
-1-2 and 6-11 (row 11 dbt only), whose f32 sources are the 3xTF32 `_tf32`
-ones, and row 5, whose f32 source is `lora_epilogue_vec_f32.cu` (its
-plan at 4-byte elements too); the 3xTF32 plans, tiles and shared memory
+f16 the `_mma` (and `_vec`) sources, f32 the 3xTF32 `_tf32` ones for rows
+1-2 and 6-11 (row 11 dbt only), `lora_epilogue_vec_f32.cu` for row 5 (its
+plan at 4-byte elements too) and the FMA flash-decoding splits for rows
+12-13, whose `paged_f32_plan` and `decode_f32_plan` cover every column
+once, fit the card, split the paths' shapes as their sources' notes say,
+refuse what the kernels do not take and admit every f32 shape the first
+versions took; the 3xTF32 plans, tiles and shared memory
 too: rows 7 and 10's `dh_tf32_plan` and `dh_lora_tf32_plan` cover every
 (row tile, vocab slab) once and every output column once, rows 6, 9 and
 11's `fwd_tf32_plan`, `fwd_lora_tf32_plan` and `dbt_tf32_plan` every
@@ -78,8 +81,8 @@ MMA_LIBS = {  # the tensor-core kernels' (source, symbol) for bf16 / f16
     "decode": ("decode_attention_mma", "mft_decode_attention_mma"),
     "paged": ("paged_decode_attention_vec",
               "mft_paged_decode_attention_vec")}
-FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6-11 in
-    # 3xTF32 (row 11 dbt only), row 5 on 16-byte vectors
+FMA_LIBS = {  # the f32 kernels': rows 1-2, 6-11 in 3xTF32 (row 11 dbt
+    # only), row 5 on 16-byte vectors, rows 12-13 flash-decoding splits
     "fwd": ("flash_attention_fwd_tf32", "mft_flash_attention_fwd_tf32"),
     "bwd": ("flash_attention_bwd_merged_tf32",
             "mft_flash_attention_bwd_merged_tf32"),
@@ -90,8 +93,10 @@ FMA_LIBS = {  # the f32 kernels': FMA first versions, rows 1-2, 6-11 in
     "ce_fwd_lora": ("fused_ce_fwd_lora_tf32", "mft_fused_ce_fwd_lora_tf32"),
     "dbt": ("fused_ce_dbt_tf32", "mft_fused_ce_dbt_tf32"),
     "epi": ("lora_epilogue_vec_f32", "mft_lora_epilogue_vec_f32"),
-    "decode": ("decode_attention", "mft_decode_attention"),
-    "paged": ("paged_decode_attention", "mft_paged_decode_attention")}
+    "decode": ("decode_attention_split_f32",
+               "mft_decode_attention_split_f32"),
+    "paged": ("paged_decode_attention_vec_f32",
+              "mft_paged_decode_attention_vec_f32")}
 ROUTES = {"fwd": fa.fwd_library, "dh": fc.dh_library, "dw": fc.dw_library,
           "dh_lora": fc.dh_lora_library, "bwd": fa.bwd_library,
           "ce_fwd": fc.fwd_library, "ce_fwd_lora": fc.fwd_lora_library,
@@ -269,7 +274,9 @@ def test_new_sources_are_built_and_call_no_library():
                  "flash_attention_bwd_merged_tf32", "fused_ce_dh_tf32",
                  "fused_ce_dh_lora_tf32", "fused_ce_fwd_tf32",
                  "fused_ce_dbt_tf32", "fused_ce_fwd_lora_tf32",
-                 "fused_ce_dw_tf32", "lora_epilogue_vec_f32"):
+                 "fused_ce_dw_tf32", "lora_epilogue_vec_f32",
+                 "paged_decode_attention_vec_f32",
+                 "decode_attention_split_f32"):
         assert name in build.SOURCES
         text = _source(f"{name}.cu")
         for lib in ("cublas", "cutlass", "torch/", "<aten"):
@@ -2574,7 +2581,7 @@ def test_paged_plan_at_the_path_shapes():
 def test_paged_plan_refuses_what_the_kernel_does_not_take():
     for args in ((8, 12, 1, 12, 16, 32, torch.bfloat16),     # D
                  (8, 12, 1, 12, 16, 96, torch.bfloat16),
-                 (8, 12, 1, 12, 16, 64, torch.float32),      # f32: first
+                 (8, 12, 1, 12, 16, 64, torch.float32),      # f32: its own
                  (8, 12, 1, 12, 2048, 64, torch.bfloat16),   # bT
                  (0, 12, 1, 12, 16, 64, torch.bfloat16),
                  (8, 12, 1, 0, 16, 64, torch.bfloat16),
@@ -2643,3 +2650,208 @@ def test_row_12_source_is_built_and_calls_no_library():
     # every K and V load is issued before the first score
     assert text.index("// 3. scores") > text.rindex("vr[p] = *")
     assert "griddepcontrol.launch_dependents" in text
+
+
+# ---------------------------------- rows 12 and 13 in f32: the splits -----
+
+def test_split_f32_constants_match_the_sources():
+    text = _source("decode_split_f32.cuh")
+    assert _constexpr(text, "ROW_SLOTS") == da.SPLIT_F32_ROW_SLOTS
+    assert _constexpr(text, "MAX_QG") == da.SPLIT_F32_MAX_QG
+    assert _constexpr(text, "MAX_CHUNKS") == da.SPLIT_F32_MAX_CHUNKS
+    assert _constexpr(text, "MERGE_BATCH") == 32
+    assert "return QG == 4 ? 8 : 16;" in text
+    assert "return G == 1 ? 1 : G == 2 ? 2 : MAX_QG;" in text
+    assert "constexpr int LPR = D / 8;" in text
+    # the shared memory the launch asks for, as the plans count it
+    assert ("return ((size_t)2 * warps_for(QG) * QG +\n"
+            "          (size_t)warps_for(QG) * QG * D) * 4;") in text
+    assert "n_chunks == (cols + cpc - 1) / cpc && n_chunks <= MAX_CHUNKS" \
+        in text
+    assert "dim3 grid(KV * n_qg, n_chunks, S);" in text
+    paged = _entry(_source("paged_decode_attention_vec_f32.cu"),
+                   "mft_paged_decode_attention_vec_f32")
+    dec = _entry(_source("decode_attention_split_f32.cu"),
+                 "mft_decode_attention_split_f32")
+    for entry in (paged, dec):
+        assert "dtype != 0" in entry and "split_f32::plan_ok(" in entry
+        assert "int cpc, int n_chunks, int dtype" in " ".join(entry.split())
+    assert "D != 32 &&" in dec and "D != 32" not in paged
+    for name in ("paged_decode_attention_vec_f32",
+                 "decode_attention_split_f32"):
+        text = _source(f"{name}.cu")
+        assert '#include "decode_split_f32.cuh"' in text
+        for lib in ("cublas", "cutlass", "torch/", "<aten", "mma.sync",
+                    "mma_16816", "wgmma"):
+            assert lib not in text.lower()
+    split = _source("decode_split_f32.cuh")   # FMA only, no atomics
+    assert "mma_" not in split and "mma.sync" not in split
+    assert "atomic" not in split
+    # every K and V load of a round is issued before its first score
+    assert split.index("// 3. scores") > split.rindex("vr[p][1] = *")
+    assert "griddepcontrol.launch_dependents" in split
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in split
+
+
+SPLIT_F32_SHAPES = [  # ("paged", S, KV, G, M, bT, D) / ("decode", B, KV, G, T, D)
+    ("paged", 8, 1, 4, 42, 16, 256),     # gemma_serve_f32
+    ("paged", 8, 12, 1, 12, 16, 64),     # GPT-2's serve step
+    ("paged", 5, 2, 2, 6, 16, 64),
+    ("paged", 2, 2, 6, 3, 64, 256),      # chunks end inside a page
+    ("paged", 1, 1, 4, 2048, 16, 256),   # a 32,768-token context
+    ("paged", 3, 2, 2, 1, 1024, 256),    # the largest pages
+    ("decode", 4, 1, 4, 617, 256),       # Gemma's last f32 generate step
+    ("decode", 8, 12, 1, 144, 64),       # GPT-2's
+    ("decode", 1, 1, 4, 32768, 256),
+    ("decode", 3, 2, 3, 77, 32),
+    ("decode", 4, 1, 4, 1, 256),
+    ("decode", 65535, 1, 1, 64, 64),
+]
+
+
+def _split_plan(kind, *shape):
+    if kind == "paged":
+        S, KV, G, M, bT, D = shape
+        return (da.paged_f32_plan(S, KV, G, M, bT, D, torch.float32, N_SM),
+                S, KV, G, M * bT, bT, D)
+    B, KV, G, T, D = shape
+    return (da.decode_f32_plan(B, KV, G, T, D, torch.float32, N_SM), B, KV,
+            G, T, 1, D)
+
+
+@pytest.mark.parametrize("shape", SPLIT_F32_SHAPES)
+def test_split_f32_plans_cover_each_column_once(shape):
+    """The chunks (chunk c: columns [c cpc, c cpc + cpc)) cover every
+    column once, in as many rounds of round_rows rows as a chunk needs;
+    every query head is in one group of up to 4; whole pages a chunk where
+    a chunk holds one; the workspace holds each chunk's (m, l, acc)."""
+    plan, S, KV, G, cols, page, D = _split_plan(*shape)
+    cpc, n_chunks, qg = plan["cpc"], plan["n_chunks"], plan["qg"]
+    seen = np.zeros(cols, np.int64)
+    for c in range(n_chunks):
+        c0, c1 = c * cpc, min(c * cpc + cpc, cols)
+        assert c0 < c1
+        for base in range(c0, c1, plan["round_rows"]):
+            seen[base:min(base + plan["round_rows"], c1)] += 1
+    assert (seen == 1).all()
+    assert n_chunks == -(-cols // cpc) <= da.SPLIT_F32_MAX_CHUNKS
+    if cpc >= page:
+        assert cpc % page == 0
+    assert cpc >= min(cols, plan["round_rows"])
+    heads = np.zeros(G, np.int64)
+    for group in range(plan["n_qg"]):
+        heads[group * qg:min(group * qg + qg, G)] += 1
+    assert (heads == 1).all()
+    assert plan["grid"] == (KV * plan["n_qg"], n_chunks, S)
+    assert plan["ws_floats"] == (n_chunks * S * KV * G * (D + 2)
+                                 if n_chunks > 1 else 0)
+
+
+@pytest.mark.parametrize("shape", SPLIT_F32_SHAPES)
+def test_split_f32_plans_fit_the_card(shape):
+    """Shared memory within the default 48 KB (the launches set no
+    attribute), the merge's (m, l) too, grid dimensions within the
+    card's limits, and the CTAs within one wave of the SMs unless the
+    units alone are more."""
+    plan, S, KV, G, cols, page, D = _split_plan(*shape)
+    assert plan["smem_bytes"] <= 48 * 1024
+    assert 2 * plan["n_chunks"] * 4 <= 48 * 1024
+    assert plan["warps"] * 32 <= 1024
+    gx, gy, gz = plan["grid"]
+    assert gx <= da.MAX_GRID_X and gy <= 65535 and gz <= 65535
+    units = gx * gz
+    assert gx * gy * gz <= max(N_SM, units)
+
+
+@pytest.mark.parametrize("D,warps", [(32, 16), (64, 16), (128, 16),
+                                     (128, 8), (256, 8), (256, 16)])
+def test_split_f32_lane_map_reads_each_element_once(D, warps):
+    """The split's lane map, replayed: lane l of warp w holds floats
+    [4 c, 4 c + 4) and [D / 2 + 4 c, D / 2 + 4 c + 4) (c = l % (D / 8)) of
+    rows w (256 / D) + l / (D / 8) + p warps (256 / D) of a round, so each
+    K and V element of a round is loaded once, by one lane, each load
+    instruction of a row's lanes on 2 D contiguous bytes, and a round
+    holds round_rows rows."""
+    lpr = D // 8
+    rpp = 32 // lpr
+    passes = da.SPLIT_F32_ROW_SLOTS // warps
+    rows = passes * warps * rpp
+    assert rows == da.SPLIT_F32_ROW_SLOTS * 256 // D
+    hits = np.zeros((rows, D), np.int64)
+    lane = np.arange(32)
+    cl, rg = lane % lpr, lane // lpr
+    for w in range(warps):
+        for p in range(passes):
+            r = w * rpp + rg + p * warps * rpp
+            for half in (0, D // 2):
+                for e in range(4):
+                    np.add.at(hits, (r, half + cl * 4 + e), 1)
+                for row in np.unique(r):    # one instruction: 2 D bytes
+                    addr = np.sort((half + cl[r == row] * 4) * 4)
+                    assert (np.diff(addr) == 16).all() and len(addr) == lpr
+    assert (hits == 1).all()
+
+
+def test_split_f32_plans_at_the_path_shapes():
+    """gemma_serve_f32 (8 slots x 1 kv head, 42 pages of 16): 14 chunks of
+    3 pages (112 CTAs, where the first version ran 32 of one query
+    head); Gemma's last f32 generate step (4 rows, T 617): 13 chunks of
+    one round, 48 (52 CTAs, was 16); GPT-2's (8 x 12 heads, T 144): one
+    chunk, 96 CTAs, no workspace, no merge; a 32,768-token context: 132
+    chunks of 249 columns, each looping over 6 rounds; chunks of a round
+    where the wave would cut them shorter."""
+    def split(plan):
+        return plan["n_chunks"], plan["cpc"], plan["ws_floats"]
+    f32 = torch.float32
+    p = da.paged_f32_plan(8, 1, 4, 42, 16, 256, f32, N_SM)
+    assert split(p) == (14, 48, 14 * 32 * 258)
+    assert p["grid"] == (1, 14, 8) and p["warps"] == 8
+    p = da.decode_f32_plan(4, 1, 4, 617, 256, f32, N_SM)
+    assert split(p) == (13, 48, 13 * 16 * 258) and p["grid"] == (1, 13, 4)
+    p = da.decode_f32_plan(8, 12, 1, 144, 64, f32, N_SM)
+    assert split(p) == (1, 144, 0) and p["grid"] == (12, 1, 8)
+    assert p["warps"] == 16 and p["round_rows"] == 192
+    p = da.decode_f32_plan(1, 1, 4, 32768, 256, f32, N_SM)
+    assert split(p)[:2] == (132, 249) and -(-249 // p["round_rows"]) == 6
+    for D, rows in ((32, 384), (64, 192), (128, 96), (256, 48)):
+        p = da.decode_f32_plan(2, 1, 1, 1000, D, f32, N_SM)
+        assert p["round_rows"] == rows == p["cpc"]
+
+
+def test_split_f32_plans_refuse_what_the_kernels_do_not_take():
+    f32 = torch.float32
+    for args in ((8, 1, 4, 42, 16, 256, torch.bfloat16),
+                 (8, 1, 4, 42, 16, 32, f32),       # D 32: not paged
+                 (8, 1, 4, 42, 16, 96, f32),
+                 (8, 1, 4, 42, 2048, 256, f32),    # bT
+                 (65536, 1, 1, 1, 16, 64, f32),    # grid z
+                 (0, 1, 4, 42, 16, 256, f32),
+                 (8, 1, 4, 0, 16, 256, f32)):
+        with pytest.raises(ValueError):
+            da.paged_f32_plan(*args)
+    for args in ((4, 1, 4, 617, 256, torch.float16),
+                 (4, 1, 4, 617, 96, f32),
+                 (4, 1, 4, 0, 256, f32),
+                 (65536, 1, 1, 64, 64, f32)):
+        with pytest.raises(ValueError):
+            da.decode_f32_plan(*args)
+
+
+def test_every_f32_shape_admitted_before_is_still_admitted():
+    """The first versions took, in f32, any KV, G >= 1, any T >= 1 and D
+    in {32, 64, 128, 256} (contiguous), pages of 1 to MAX_BLOCK_T and D in
+    {64, 128, 256} (paged): every such shape is still eligible, and the
+    new plans split it within MAX_CHUNKS chunks."""
+    f32 = torch.float32
+    for KV, G, D in itertools.product((1, 2, 12, 70000), (1, 2, 3, 4, 40),
+                                      (32, 64, 128, 256)):
+        for T in (1, 7, 77, 617, 32768, 10 ** 7):
+            assert da.decode_eligible(KV, T, D, 4, G)
+            plan = da.decode_f32_plan(3, KV, G, T, D, f32, N_SM)
+            assert plan["n_chunks"] <= da.SPLIT_F32_MAX_CHUNKS
+        if D == 32:
+            continue
+        for bT, M in ((1, 1), (16, 42), (1024, 3), (16, 2048), (7, 300)):
+            assert da.paged_eligible(KV, G, bT, D, 4)
+            plan = da.paged_f32_plan(8, KV, G, M, bT, D, f32, N_SM)
+            assert plan["n_chunks"] <= da.SPLIT_F32_MAX_CHUNKS
