@@ -61,7 +61,13 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      scraped at the 16th decode step; with every launch count set to 0
      just before: every request finishes, every page comes back, and the
      flash kernel ran 12 times a prefill, the paged kernel 12 times a
-     decode step;
+     decode step; the engine's decode steps replayed one CUDA graph,
+     captured once (trace_counts["decode_step"] 1), and the same traffic
+     through an engine whose decode steps are eager (its launches counted,
+     then taken back out: they count for no path) gives the same tokens
+     and launches, each engine's step p50 printed (the same holds for
+     `gemma_serve`, `gemma_serve_f32`'s cache engine and each `generate`
+     run, whose eager twin is the CLI with its steps eager);
      then serve Gemma-3-270M (18 layers, hidden 640, 4 query heads over
      1 kv head of 256, window 512, vocab 262,144, bf16; 8 slots, block_T
      16, max_prompt 128, chunked admission up to 608 tokens, 64 new
@@ -574,6 +580,44 @@ def read_counts(kernels: dict) -> dict:
     FLASH_BY_SHAPE.update(kernels["flash_fwd"].by_shape)
     BWD_BY_DTYPE.update(kernels["bwd_merged"].by_dtype)
     return {k: fn.launches for k, fn in kernels.items()}
+
+
+def launches_since(before, kernels: dict) -> dict:
+    """{kernel: launches} counted since `before` (a kernels.graphs
+    launch_snapshot), by the kernels line's names."""
+    from mobilefinetuner_tpu_torch.kernels import graphs
+    moved = {fn: n for fn, n, _ in graphs.launch_delta(before)}
+    return {k: moved.get(fn, 0) for k, fn in kernels.items()}
+
+
+def take_back(before) -> None:
+    """Every count since `before` taken back out: the launches of a run
+    made only to compare with, which count for no path."""
+    from mobilefinetuner_tpu_torch.kernels import graphs
+    graphs.add_launches(graphs.launch_delta(before), -1)
+
+
+def p50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def eager_twin(warm, run, kernels: dict, graphed_launches: dict):
+    """A comparison run with its decode steps eager: `run(warm())`, the
+    launches of run() counted and checked equal to `graphed_launches`
+    (the graphed run's, by the kernels line's names, zeros left out),
+    then every launch of warm() and run() taken back out. Returns run()'s
+    result."""
+    from mobilefinetuner_tpu_torch.kernels import graphs
+    before = graphs.launch_snapshot()
+    state = warm()
+    counted = graphs.launch_snapshot()
+    out = run(state)
+    eager = {k: n for k, n in launches_since(counted, kernels).items() if n}
+    take_back(before)
+    want = {k: n for k, n in graphed_launches.items() if n}
+    check(eager == want, f"eager launches {eager} != graphed {want}")
+    return out
 
 
 def f32_launches() -> tuple:
@@ -1543,12 +1587,49 @@ def serve(torch, fa, da):
     n_spans = sum(1 for e in evs if e["event"] == "span")
     check(n_stats >= steps // 8 and n_spans >= 3 * len(reqs),
           f"{n_stats} serve_stats, {n_spans} spans")
+    # the decode steps replayed one graph, captured at the warm-up's
+    # second step; the same traffic through an engine that dispatches
+    # them eagerly gives the same tokens and launches
+    check(eng.trace_counts["decode_step"] == 1,
+          f"serve captured {eng.trace_counts['decode_step']} graphs")
+    graphed_ms = list(eng._step_ms)[-steps:]
+
+    def eager_warm():
+        twin, _ = build_engine("gpt2s", num_slots=8, block_T=16,
+                               num_blocks=128, max_prompt=128, max_new=64,
+                               adapters=2, dtype="bfloat16", seed=0,
+                               _eager_decode=True)
+        twin.submit([1, 2, 3], max_new_tokens=4, adapter=names[0])
+        twin.drain()
+        return twin
+
+    def eager_run(twin):
+        rs = [twin.submit(p, adapter=a) for p, a in zip(prompts, routes)]
+        twin.drain()
+        out = ([r.tokens for r in rs], list(twin._step_ms)[-steps:],
+               twin.trace_counts["decode_step"])
+        twin.close()
+        return out
+    names_of = {"flash": "flash_fwd", "paged": "paged", "decode": "decode"}
+    eager_toks, eager_ms, eager_traces = eager_twin(
+        eager_warm, eager_run, kernel_wrappers(),
+        {names_of[k]: n for k, n in launches.items()})
+    check(eager_toks == [r.tokens for r in reqs],
+          "serve: graphed tokens differ from the eager engine's")
+    graph = {"captures": eng.trace_counts["decode_step"],
+             "eager_decode_step_traces": eager_traces,
+             "step_ms_p50": p50(graphed_ms),
+             "eager_step_ms_p50": p50(eager_ms), "ids_equal_eager": True,
+             "launches_equal_eager": True}
+    print(f"serve decode graph: {graph['captures']} capture, engine step "
+          f"p50 {graph['step_ms_p50']:.3f} ms graphed, "
+          f"{graph['eager_step_ms_p50']:.3f} eager; ids and launches equal")
     ttft = sorted(r.ttft_ms for r in reqs)
     tpot = sorted(r.tpot_ms for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
     stats = {
         "model": "gpt2s", "dtype": "bfloat16", "requests": len(reqs),
-        "prefills": prefills, "decode_steps": steps,
+        "prefills": prefills, "decode_steps": steps, "decode_graph": graph,
         "ttft_ms_p50": ttft[len(ttft) // 2],
         "tpot_ms_p50": tpot[len(tpot) // 2],
         "tokens_per_s": n_tok / wall,
@@ -1585,6 +1666,16 @@ def profile_phases(phases: dict) -> dict:
             out[name]["events"] = {"device_ms": dev_ms, "wall_ms": call,
                                    "device_busy_share": dev_ms / call}
     return out
+
+
+def engine_graph_events(eng, step_ms) -> dict:
+    """The device ms of the engine's own decode-step graph (its sampling
+    and argmax included) from CUDA events around replays with the last
+    step's inputs, which rewrite the same K/V and tokens (no count
+    moves), and its share of the serve run's graphed step p50."""
+    dev_ms = call_ms(eng._decode_graph.graph.replay, 20)
+    return {"engine_graph_device_ms": dev_ms,
+            "engine_graph_busy_share": dev_ms / p50(step_ms)}
 
 
 def profile_serve(torch, eng, names):
@@ -1629,7 +1720,8 @@ def profile_serve(torch, eng, names):
     out["decode_step"]["events"] = {
         "device_ms": dev_ms, "wall_ms": wall_ms,
         "device_busy_share": dev_ms / wall_ms,
-        "serve_step_ms_p50": step_ms[len(step_ms) // 2]}
+        "serve_step_ms_p50": step_ms[len(step_ms) // 2],
+        **engine_graph_events(eng, step_ms)}
     while not eng.idle:
         eng.step()
     return out
@@ -1749,6 +1841,44 @@ def gemma_serve(torch, kernels, card):
     check(len(base_pages) < len(base) * 16 and len(ten_pages) < len(ten) * 16,
           "requests over one prefix did not share its pages")
     check(not base_pages & ten_pages, "a tenant request held a base page")
+    # one graph captured (the warm-up's second step) and replayed; the
+    # same traffic through an engine with eager decode steps gives the
+    # same tokens, sampled ones too, and the same launches
+    check(eng.trace_counts["decode_step"] == 1,
+          f"gemma_serve captured {eng.trace_counts['decode_step']} graphs")
+    graphed_ms = list(eng._step_ms)[-d["decode_steps"]:]
+
+    def eager_warm():
+        twin, _ = build_engine(
+            "gemma270m", num_slots=G["slots"], block_T=G["block_T"],
+            num_blocks=G["blocks"], max_prompt=G["max_prompt"],
+            max_new=G["new"], adapters=2, dtype="bfloat16", seed=0,
+            prefix_cache=True, max_prompt_chunked=G["chunked"],
+            sampling=True, _eager_decode=True)
+        twin.submit([1, 2, 3], max_new_tokens=4, adapter=names[1], seed=1,
+                    **SAMPLED)
+        twin.drain()
+        return twin
+
+    def eager_run(twin):
+        rs = [twin.submit(p, adapter=a, **kw) for p, a, kw in spec]
+        twin.drain()
+        out = ([r.tokens for r in rs],
+               list(twin._step_ms)[-d["decode_steps"]:])
+        twin.close()
+        return out
+    eager_toks, eager_ms = eager_twin(eager_warm, eager_run, kernels,
+                                      launches)
+    check(eager_toks == [r.tokens for r in reqs],
+          "gemma_serve: graphed tokens differ from the eager engine's")
+    graph = {"captures": eng.trace_counts["decode_step"],
+             "step_ms_p50": p50(graphed_ms),
+             "eager_step_ms_p50": p50(eager_ms), "ids_equal_eager": True,
+             "launches_equal_eager": True}
+    print(f"gemma_serve decode graph: {graph['captures']} capture, engine "
+          f"step p50 {graph['step_ms_p50']:.3f} ms graphed, "
+          f"{graph['eager_step_ms_p50']:.3f} eager; ids (half sampled) and "
+          f"launches equal")
     ttft = sorted(r.ttft_ms for r in reqs)
     tpot = sorted(r.tpot_ms for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
@@ -1763,7 +1893,7 @@ def gemma_serve(torch, kernels, card):
         # tokens the decode steps emitted (a full hit's first one too)
         "decode_tokens_per_s": (n_tok - len(reqs) + d["full_hits"])
         / (eng.decode_s - n0["decode_s"]),
-        "wall_s": wall, "card": card,
+        "wall_s": wall, "card": card, "decode_graph": graph,
     }
     return stats, launches, eng, names
 
@@ -1815,7 +1945,8 @@ def profile_gemma_serve(torch, eng, names):
     out["gemma_decode_step"]["events"] = {
         "device_ms": dev_ms, "wall_ms": wall_ms,
         "device_busy_share": dev_ms / wall_ms,
-        "serve_step_ms_p50": step_ms[len(step_ms) // 2]}
+        "serve_step_ms_p50": step_ms[len(step_ms) // 2],
+        **engine_graph_events(eng, step_ms)}
     while not eng.idle:
         eng.step()
     return out
@@ -1847,7 +1978,7 @@ def gemma_serve_f32(torch, dev):
                                 device=dev)
     tenant = rand_adapters("gemma", config, 1, seed=0, device=dev)[0]
 
-    def engine(**kw):
+    def engine(eager=False, **kw):
         cfg = dict(num_slots=4, block_T=G["block_T"], num_blocks=G["blocks"],
                    max_prompt=G["max_prompt"], max_prompt_chunked=G["chunked"],
                    max_new_tokens=G["f32_new"], dtype="float32",
@@ -1855,7 +1986,7 @@ def gemma_serve_f32(torch, dev):
         cfg.update(kw)
         eng = ServeEngine("gemma", config, params, ServeConfig(**cfg),
                           bank=AdapterBank(tenant, 1, family="gemma"),
-                          device=dev)
+                          device=dev, _eager_decode=eager)
         eng.load_adapter("tenant0", tenant)
         return eng
 
@@ -1872,10 +2003,14 @@ def gemma_serve_f32(torch, dev):
         return [eng.submit(p, adapter=a, **kw)
                 for p, a, kw in zip(prompts, routes, samp)]
 
+    from mobilefinetuner_tpu_torch.kernels import graphs
+    kernels = kernel_wrappers()
     kern = engine(prefix_cache=True)
+    before = graphs.launch_snapshot()
     reqs = submit(kern)
     while not all(len(r.tokens) >= 2 for r in reqs):
         kern.step()
+    kern_launches = launches_since(before, kernels)
     check(int(kern._pos.max()) > GEN["window"], "no slot past the window")
     tok, pos, tbl = (kern._dev(a.copy()) for a in (kern._tok, kern._pos,
                                                    kern._tbl))
@@ -1891,6 +2026,7 @@ def gemma_serve_f32(torch, dev):
             compute_dtype=torch.float32, attn_impl=impl)[0]
         del pk, pv
     err = max_err(logits["auto"], logits["plain"])
+    before = graphs.launch_snapshot()
     kern.drain()
     tokens = {"kernel_cold": [r.tokens for r in reqs]}
     hit0 = kern.prefix.hit_tokens
@@ -1898,6 +2034,34 @@ def gemma_serve_f32(torch, dev):
     kern.drain()
     tokens["kernel_prefix_hits"] = [r.tokens for r in again]
     check(kern.prefix.hit_tokens > hit0, "the second wave did not hit")
+    kern_launches = {k: n + kern_launches[k] for k, n
+                     in launches_since(before, kernels).items()}
+    # the kernel engine replayed one graph; the same two waves through an
+    # engine with eager decode steps give the same tokens and launches
+    check(kern.trace_counts["decode_step"] == 1,
+          f"gemma_serve f32 captured {kern.trace_counts['decode_step']} "
+          f"graphs")
+
+    def eager_run(twin):
+        waves = []
+        for _ in range(2):
+            rs = submit(twin)
+            twin.drain()
+            waves.append([r.tokens for r in rs])
+        return waves, list(twin._step_ms)
+    eager_waves, eager_ms = eager_twin(
+        lambda: engine(eager=True, prefix_cache=True), eager_run, kernels,
+        kern_launches)
+    check(eager_waves == [tokens["kernel_cold"],
+                          tokens["kernel_prefix_hits"]],
+          "gemma_serve f32: graphed tokens differ from the eager engine's")
+    graph = {"captures": kern.trace_counts["decode_step"],
+             "step_ms_p50": p50(kern._step_ms),
+             "eager_step_ms_p50": p50(eager_ms), "ids_equal_eager": True,
+             "launches_equal_eager": True}
+    print(f"gemma_serve f32 decode graph: {graph['captures']} capture, "
+          f"engine step p50 {graph['step_ms_p50']:.3f} ms graphed, "
+          f"{graph['eager_step_ms_p50']:.3f} eager; ids and launches equal")
     runs = {"plain": engine(attn_impl="plain"),
             "chunked": engine(max_prompt=32)}
     for name, eng in runs.items():
@@ -1914,7 +2078,7 @@ def gemma_serve_f32(torch, dev):
         check(toks == tokens["kernel_cold"],
               f"gemma_serve f32: {name} tokens differ from the kernel "
               f"engine's cold wave")
-    return ({"step_logits_max_abs_err": err,
+    return ({"step_logits_max_abs_err": err, "decode_graph": graph,
              "compared": sorted(tokens), "requests": len(prompts)}, step)
 
 
@@ -3059,15 +3223,16 @@ def mmlu_kernel_entries(torch, fa, lf, dev, flash_shapes):
     return out
 
 
-def run_generate(argv, stats=None):
-    """cli.generate.main(argv + --json) -> its records (one a prompt)."""
+def run_generate(argv, stats=None, eager=False):
+    """cli.generate.main(argv + --json) -> its records (one a prompt);
+    `eager` keeps its decode steps eager (comparisons only)."""
     import contextlib
     import io
 
     from mobilefinetuner_tpu_torch.cli import generate
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = generate.main(argv + ["--json"], stats=stats)
+        rc = generate.main(argv + ["--json"], stats=stats, _eager=eager)
     check(rc == 0, f"generate.main returned {rc}")
     return [json.loads(ln) for ln in buf.getvalue().splitlines()
             if ln.startswith("{")]
@@ -3196,6 +3361,23 @@ def generate_phase(torch, dev, kernels, gpt2, gemma):
                               + sites * (n_new - 1))})
         check(got == want, f"generate {name} launches {got}, expected "
               f"{want}")
+        # the decode steps replayed one graph; the same run with eager
+        # steps gives the same ids and launches
+        check(stats["graph_captures"] == 1,
+              f"generate {name}: {stats['graph_captures']} captures")
+        eager_stats = {}
+        eager_records = eager_twin(
+            lambda: None, lambda _: run_generate(argv, eager_stats, True),
+            kernels, got)
+        check([r["ids"] for r in eager_records]
+              == [r["ids"] for r in records],
+              f"generate {name}: graphed ids differ from the eager run's")
+        check(eager_stats["graph_captures"] == 0,
+              f"generate {name}: the eager run captured a graph")
+        print(f"generate {name} decode graph: 1 capture, CLI step p50 "
+              f"{stats['decode_step_ms_p50']:.3f} ms graphed, "
+              f"{eager_stats['decode_step_ms_p50']:.3f} eager; ids and "
+              f"launches equal")
         check(len(records) == len(prompts[fam][0])
               and all(len(r["ids"]) <= n_new for r in records),
               f"generate {name}: records {[len(r['ids']) for r in records]}")
@@ -3214,6 +3396,12 @@ def generate_phase(torch, dev, kernels, gpt2, gemma):
                       "prefill_ms": stats["prefill_ms"],
                       "first_token_ms": stats["first_token_ms"],
                       "decode_step_ms_p50": stats.get("decode_step_ms_p50"),
+                      "decode_graph": {
+                          "captures": stats["graph_captures"],
+                          "eager_decode_step_ms_p50":
+                              eager_stats["decode_step_ms_p50"],
+                          "ids_equal_eager": True,
+                          "launches_equal_eager": True},
                       "wall_s": wall, "ids": [r["ids"] for r in records]}
         launches[name] = got
     check(runs["gemma_chunked"]["ids"] == runs["gemma"]["ids"],
@@ -3249,7 +3437,7 @@ def decode_step_events(torch, dev, model_dir, adapter, family, prompts):
                    else generate.gemma3_decoder)
         step = decoder(b.config, b.params, kc, vc, mask, lora, bf)
         tok = ids[:, -1].clone()
-        t = GEN["new"] // 2
+        t = torch.tensor(GEN["new"] // 2, device=dev)
 
         def fn():
             step(tok, t)

@@ -17,8 +17,12 @@ decode step, the LoRA epilogue kernel at every site of a dynamic adapter.
 Sampling draws from a torch.Generator seeded with --seed, so sampled
 tokens differ from the JAX CLI's (greedy ones do not). The log line
 gives tokens/s; on the card also the prefill, the first token and the
-decode-step p50 from CUDA events recorded between the phases. `main(argv, stats=dict)` fills
-`stats` with the same figures.
+decode-step p50 from CUDA events recorded between the phases. The decode
+steps replay one CUDA graph on the card, captured at the second step
+(models/generate.py), so the step p50 is a replayed step's.
+`main(argv, stats=dict)` fills `stats` with the same figures and
+`graph_captures`, the captures the run made; `_eager=True` (private:
+comparisons only) keeps every step eager on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from mobilefinetuner_tpu_torch.core.logging import get_logger
 from mobilefinetuner_tpu_torch.models.generate import (SampleConfig,
                                                        gemma3_generate,
                                                        gpt2_generate,
+                                                       graph_captures,
                                                        left_pad)
 
 log = get_logger()
@@ -118,7 +123,8 @@ def _route_adapters(args, paths, n_prompts, device):
     return assign_adapters(stack_adapters(adapters), ids)
 
 
-def main(argv=None, stats: Optional[dict] = None) -> int:
+def main(argv=None, stats: Optional[dict] = None,
+         _eager: bool = False) -> int:
     args = build_parser().parse_args(argv)
     prompts = list(args.prompt)
     if args.prompt_file:
@@ -163,15 +169,17 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     generator = torch.Generator(device=device).manual_seed(args.seed)
     events = [] if device.type == "cuda" else None
 
+    captures0 = graph_captures["decode_step"]
     t0 = time.perf_counter()
     out = gen(b.config, b.params, torch.as_tensor(ids, device=device),
               torch.as_tensor(mask, device=device), cfg,
               generator=generator, compute_dtype=compute_dtype, lora=lora,
-              lora_impl=args.lora_impl, events=events).cpu()
+              lora_impl=args.lora_impl, events=events, _eager=_eager).cpu()
     dt = time.perf_counter() - t0
     n_tok = int(out.numel())
     run = {"tokens": n_tok, "seconds": dt,
-           "tokens_per_s": n_tok / max(dt, 1e-9)}
+           "tokens_per_s": n_tok / max(dt, 1e-9),
+           "graph_captures": graph_captures["decode_step"] - captures0}
     msg = f"{n_tok} tokens in {dt:.2f}s ({run['tokens_per_s']:.1f} tok/s)"
     if events:
         # events: before the prefill, after it, after the decode set-up

@@ -207,18 +207,16 @@ def unstack_adapter(stacked: dict, index: int) -> dict:
     return out
 
 
-def assign_adapters(stacked: dict, adapter_ids) -> dict:
-    """Route batch rows to adapters: insert the per-row index array into
-    every site entry of a stack_adapters tree (serving only).
+def bank_size(stacked: dict) -> int:
+    """The adapter count of a stack_adapters tree."""
+    return int(next(iter(stacked["blocks"].values()))["A"].shape[0])
 
-    The ids are validated against the bank size on the host: a gather on
-    the card would index out of bounds, and a clamping one would quietly
-    serve tenant A another tenant's weights. Pass host ids (a list, numpy
-    array or CPU tensor): they go to the card through pinned memory without
-    waiting for it. A CUDA tensor is checked too, at the cost of one
-    device-to-host copy."""
-    first = next(iter(stacked["blocks"].values()))
-    n = int(first["A"].shape[0])
+
+def check_adapter_ids(n: int, adapter_ids) -> np.ndarray:
+    """Host adapter ids (a list, numpy array or tensor: a CUDA tensor costs
+    one device-to-host copy) as int64 numpy, validated against a bank of
+    `n` adapters: a gather on the card would index out of bounds, and a
+    clamping one would quietly serve tenant A another tenant's weights."""
     if isinstance(adapter_ids, torch.Tensor):
         host = adapter_ids.detach().cpu().numpy()
     else:
@@ -229,14 +227,34 @@ def assign_adapters(stacked: dict, adapter_ids) -> dict:
         raise ValueError(
             f"adapter id(s) {sorted(set(int(b) for b in bad))} out of range "
             f"for a stacked bank of {n} adapter(s) (valid: 0..{n - 1})")
-    ids = torch.from_numpy(host)
-    device = first["A"].device
-    if device.type == "cuda":
-        ids = ids.pin_memory().to(device, non_blocking=True)
+    return host
+
+
+def route_rows(stacked: dict, ids: torch.Tensor) -> dict:
+    """A stack_adapters tree routed by the device index tensor `ids`, by
+    reference: the tree reads whatever `ids` and the bank's leaves hold
+    when it is used, so one tree built over a static buffer serves every
+    replay of a CUDA graph. The caller validates what it writes into
+    `ids` (check_adapter_ids)."""
     out = dict(stacked)
     out["blocks"] = {name: dict(entry, ids=ids)
                      for name, entry in stacked["blocks"].items()}
     return out
+
+
+def assign_adapters(stacked: dict, adapter_ids) -> dict:
+    """Route batch rows to adapters: insert the per-row index array into
+    every site entry of a stack_adapters tree (serving only).
+
+    The ids are validated on the host first (check_adapter_ids). Pass host
+    ids (a list, numpy array or CPU tensor): they go to the card through
+    pinned memory without waiting for it."""
+    host = check_adapter_ids(bank_size(stacked), adapter_ids)
+    ids = torch.from_numpy(host)
+    device = next(iter(stacked["blocks"].values()))["A"].device
+    if device.type == "cuda":
+        ids = ids.pin_memory().to(device, non_blocking=True)
+    return route_rows(stacked, ids)
 
 
 def trainable_mask(lora_tree) -> dict:

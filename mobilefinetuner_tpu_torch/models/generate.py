@@ -23,7 +23,18 @@ Contiguous generation (`*_generate`, the generate CLI):
     layers window over POSITION ids, as the padded-batch forward does.
 
 Nothing in the decode loop reads the card back: the loop enqueues every
-step and the host meets the card only at the end (or at `events`).
+step and the host meets the card only at the end (or at `events`). The
+decode step is built once and replayed (`_decode_loop`): it reads the
+fed token, the step index `t` and the finished rows from static device
+buffers, so on the card it is a CUDA graph captured at the second step
+(kernels/graphs.StepGraph) and replayed for the rest; `graph_captures`
+counts the captures. `t` is a device scalar: it sets the cache column
+(an index write at a device index) and the validity mask. Greedy steps
+run whole in the graph (argmax, eos bookkeeping, t + 1); a sampled draw
+(torch.multinomial on the generator) stays outside it, on the logits the
+graph writes, so the ids for a seed equal the eager ones. The private
+`_eager` argument of `*_generate` keeps every step eager on the card, for
+comparisons only.
 
 Sampling draws from an explicit torch.Generator (seed 0 when none is
 given). The JAX package draws from jax.random's threefry stream, which
@@ -61,6 +72,7 @@ the same tokens however the prompt entered the pool.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import List, Optional
 
@@ -68,6 +80,7 @@ import numpy as np
 import torch
 
 from mobilefinetuner_tpu_torch.core.config import GPT2Config, Gemma3TextConfig
+from mobilefinetuner_tpu_torch.kernels.graphs import StepGraph
 from mobilefinetuner_tpu_torch.models import gemma3, gpt2
 from mobilefinetuner_tpu_torch.models.lora_apply import maybe_lora
 from mobilefinetuner_tpu_torch.ops.attention import validate_attn_impl
@@ -77,6 +90,8 @@ from mobilefinetuner_tpu_torch.ops.dropout import fold_in_tensor
 from mobilefinetuner_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 NEG_INF = -1e30
+# the decode step's CUDA-graph captures in this process ("decode_step")
+graph_captures: collections.Counter = collections.Counter()
 
 
 def _head_lora(logits, h, lora_b, lora_impl: str = "auto"):
@@ -181,9 +196,10 @@ def _col_positions(attention_mask, P: int, T: int):
     return torch.cat([prompt_pos, gen_pos], dim=-1)
 
 
-def _col_valid(attention_mask, P: int, T: int, t: int):
-    """[B, T] bool: the cache columns attendable at decode step t (prompt
-    columns per the mask, generated columns up to P + t)."""
+def _col_valid(attention_mask, P: int, T: int, t):
+    """[B, T] bool: the cache columns attendable at decode step t (a
+    device scalar; prompt columns per the mask, generated columns up to
+    P + t)."""
     B = attention_mask.shape[0]
     cols = torch.arange(T, device=attention_mask.device)
     prompt = torch.cat([attention_mask.bool(),
@@ -227,18 +243,43 @@ def _caches(pk, pv, N: int):
 
 
 def _decode_loop(step, logits0, generator, cfg: SampleConfig, N: int,
-                 events: Optional[List]):
+                 events: Optional[List], graphed: bool = True):
     """Sample token 0 from the prefill logits, then N - 1 decode steps;
-    returns the emitted ids [B, N] int32."""
+    returns the emitted ids [B, N] int32. Each step runs `body` over the
+    static buffers tok [B], t (the step index, a device scalar) and done
+    [B]: a CUDA graph from the second step on the card (module
+    docstring), eager elsewhere or without `graphed`."""
     done = torch.zeros(logits0.shape[0], dtype=torch.bool,
                        device=logits0.device)
     tok, done = _advance(_sample(logits0.float(), generator, cfg), done, cfg)
     _mark(events)
     toks = [tok]
-    for t in range(N - 1):
-        nxt_raw = _sample(step(tok, t).float(), generator, cfg)
-        tok, done = _advance(nxt_raw, done, cfg)
-        toks.append(tok)
+    tok = tok.clone()
+    t = torch.zeros((), dtype=torch.long, device=logits0.device)
+    greedy = cfg.greedy or cfg.temperature <= 0.0
+    logits = torch.empty(logits0.shape, dtype=torch.float32,
+                         device=logits0.device)
+
+    def body():
+        out = step(tok, t).float()
+        if greedy:
+            nxt, fin = _advance(_sample(out, generator, cfg), done, cfg)
+            tok.copy_(nxt)
+            done.copy_(fin)
+        else:
+            logits.copy_(out)
+        t.add_(1)
+
+    graph = StepGraph(body, logits0.device, graphed=graphed,
+                      on_capture=lambda: graph_captures.update(
+                          ["decode_step"]))
+    for _ in range(N - 1):
+        graph()
+        if not greedy:
+            nxt, fin = _advance(_sample(logits, generator, cfg), done, cfg)
+            tok.copy_(nxt)
+            done.copy_(fin)
+        toks.append(tok.clone())
         _mark(events)
     return torch.stack(toks, dim=1)
 
@@ -258,9 +299,11 @@ def gpt2_decoder(config: GPT2Config, params, kc, vc, attention_mask,
     whose first P = attention_mask.shape[1] columns hold the left-padded
     prompt: step(tok [B], t) feeds token t at column P + t (position
     n_real + t), writes its K/V there in place and returns the next-token
-    logits [B, V] in the compute dtype. attn_impl: "auto" = the row-13
-    kernel for CUDA caches (ValueError for caches it does not take), the
-    plain version for CPU caches; "plain" = xla_reference anywhere."""
+    logits [B, V] in the compute dtype. t is a 0-d int64 tensor on the
+    caches' device, so one captured step serves every t. attn_impl:
+    "auto" = the row-13 kernel for CUDA caches (ValueError for caches it
+    does not take), the plain version for CPU caches; "plain" =
+    xla_reference anywhere."""
     validate_attn_impl(attn_impl)
     L, B, H, T, D = kc.shape
     P = attention_mask.shape[1]
@@ -273,8 +316,9 @@ def gpt2_decoder(config: GPT2Config, params, kc, vc, attention_mask,
     ln_f = (params["ln_f"]["g"].to(cd), params["ln_f"]["b"].to(cd))
     wte = params["wte"].to(cd)
 
-    def step(tok, t: int):
+    def step(tok, t):
         pos = n_real + t
+        col = (P + t).reshape(1)
         x = params["wte"][tok].to(cd) + params["wpe"][pos].to(cd)  # [B, E]
         valid = _col_valid(attention_mask, P, T, t)
         for i, bp in enumerate(blocks):
@@ -282,8 +326,9 @@ def gpt2_decoder(config: GPT2Config, params, kc, vc, attention_mask,
             q, k, v = gpt2.qkv_proj(config, bp, h, lora_b, i,
                                     lora_impl=lora_impl).split(E, dim=-1)
             q, k, v = (z.reshape(B, H, D) for z in (q, k, v))
-            kc[i, :, :, P + t] = k.to(kc.dtype)      # write before read
-            vc[i, :, :, P + t] = v.to(vc.dtype)
+            # write before read, at the device column P + t
+            kc[i].index_copy_(2, col, k.to(kc.dtype)[:, :, None])
+            vc[i].index_copy_(2, col, v.to(vc.dtype)[:, :, None])
             ctx = attend(q[:, :, None].contiguous(), kc[i], vc[i], valid,
                          D ** -0.5)
             x = gpt2.mlp_and_proj(bp, x, ctx.reshape(B, E).to(cd), lora_b,
@@ -299,7 +344,7 @@ def gpt2_generate(config: GPT2Config, params, input_ids, attention_mask,
                   generator: Optional[torch.Generator] = None,
                   compute_dtype=torch.float32, lora=None,
                   lora_impl: str = "auto", attn_impl: str = "auto",
-                  events: Optional[List] = None):
+                  events: Optional[List] = None, _eager: bool = False):
     """Generate [B, max_new_tokens] int32 ids from LEFT-padded prompts
     [B, P]: a full-forward prefill (collect_kv), then N - 1 decode steps
     over [L, B, H, P + N, D] caches (gpt2_decoder). lora: an adapter tree
@@ -307,7 +352,9 @@ def gpt2_generate(config: GPT2Config, params, input_ids, attention_mask,
     row-13 kernels on the card, the plain versions on the CPU) or "plain".
     events: a list to receive CUDA events before the prefill, after it,
     after the decode set-up and the first sample, and after each decode
-    step: the caller times the phases from them."""
+    step: the caller times the phases from them. The decode steps replay
+    one CUDA graph on the card (module docstring); `_eager` keeps them
+    eager (comparisons only)."""
     B, P = input_ids.shape
     N = cfg.max_new_tokens
     T = P + N
@@ -336,7 +383,8 @@ def gpt2_generate(config: GPT2Config, params, input_ids, attention_mask,
         kc, vc = _caches(pk, pv, N)
         step = gpt2_decoder(config, params, kc, vc, attention_mask, lora,
                             compute_dtype, lora_impl, attn_impl)
-        return _decode_loop(step, logits0, generator, cfg, N, events)
+        return _decode_loop(step, logits0, generator, cfg, N, events,
+                            graphed=not _eager)
 
 
 # ---------------------------------------------------------- Gemma-3 ---------
@@ -435,7 +483,8 @@ def gemma3_decoder(config: Gemma3TextConfig, params, kc, vc,
     [L, B, Hkv, T, D] whose first P = attention_mask.shape[1] columns hold
     the prompt (as gpt2_decoder). Per layer: global layers attend every
     valid column, local ones the valid columns within the sliding window
-    over position ids; RoPE uses the layer's theta."""
+    over position ids; RoPE uses the layer's theta; t a device scalar, as
+    gpt2_decoder's."""
     validate_attn_impl(attn_impl)
     c = config
     L, B, nkv, T, D = kc.shape
@@ -455,8 +504,9 @@ def gemma3_decoder(config: Gemma3TextConfig, params, kc, vc,
     final_norm = params["final_norm"].to(cd)
     embed = params["embed"].to(cd)
 
-    def step(tok, t: int):
+    def step(tok, t):
         pos = n_real + t
+        col = (P + t).reshape(1)
         x = params["embed"][tok].to(cd) * normalizer              # [B, H]
         ropes = {True: rope_cos_sin(pos[:, None], D, c.rope_theta),
                  False: rope_cos_sin(pos[:, None], D,
@@ -475,8 +525,9 @@ def gemma3_decoder(config: Gemma3TextConfig, params, kc, vc,
             k = gemma3.rms_norm(k, a["k_norm"], eps)
             q = apply_rope(q[:, :, None], *ropes[glob])[:, :, 0]
             k = apply_rope(k[:, :, None], *ropes[glob])[:, :, 0]
-            kc[i, :, :, P + t] = k.to(kc.dtype)      # write before read
-            vc[i, :, :, P + t] = v.to(vc.dtype)
+            # write before read, at the device column P + t
+            kc[i].index_copy_(2, col, k.to(kc.dtype)[:, :, None])
+            vc[i].index_copy_(2, col, v.to(vc.dtype)[:, :, None])
             ctx = attend(q.reshape(B, nkv, G, D).contiguous(), kc[i], vc[i],
                          valid if glob else local, scale)
             ctx = ctx.reshape(B, nq * D).to(cd)
@@ -495,7 +546,7 @@ def gemma3_generate(config: Gemma3TextConfig, params, input_ids,
                     compute_dtype=torch.float32, lora=None,
                     prefill_chunk: Optional[int] = None,
                     lora_impl: str = "auto", attn_impl: str = "auto",
-                    events: Optional[List] = None):
+                    events: Optional[List] = None, _eager: bool = False):
     """Gemma-3 generation (as gpt2_generate): GQA caches [L, B, Hkv, T, D],
     per-layer global/local RoPE and sliding-window validity over position
     ids. prefill_chunk: prompts longer than it are prefilled in W-sized
@@ -548,7 +599,8 @@ def gemma3_generate(config: Gemma3TextConfig, params, input_ids,
         _mark(events)
         step = gemma3_decoder(c, params, kc, vc, attention_mask, lora, cd,
                               lora_impl, attn_impl)
-        return _decode_loop(step, logits0, generator, cfg, N, events)
+        return _decode_loop(step, logits0, generator, cfg, N, events,
+                            graphed=not _eager)
 
 
 # ------------------------------------------------- serving entry points -----

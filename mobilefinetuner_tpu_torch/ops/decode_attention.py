@@ -56,7 +56,9 @@ Block-paged pool (the serve engine):
                           `csrc/decode_split_f32.cuh`); CPU tensors take
                           paged_attention.
                           `paged_decode_attention.launches` counts the
-                          calls that launched a kernel.
+                          calls that launched a kernel; both counts stay
+                          exact under CUDA-graph replay (kernels/
+                          graphs.py).
   paged_eligible          the kernels' own shape rule.
   paged_plan              the 16-bit kernel's split of the M * bT logical
                           columns into chunks (from shapes only), its
@@ -74,7 +76,7 @@ import ctypes
 
 import torch
 
-from mobilefinetuner_tpu_torch.kernels import build
+from mobilefinetuner_tpu_torch.kernels import build, graphs
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -300,6 +302,7 @@ def decode_attention(q, k_cache, v_cache, ok, scale):
 
 
 decode_attention.launches = 0
+graphs.counted(decode_attention)
 
 
 def paged_attention(q, pool_k, pool_v, tbl, layer, ok, scale):
@@ -481,3 +484,4 @@ def paged_decode_attention(q, pool_k, pool_v, tbl, layer, ok, scale):
 
 
 paged_decode_attention.launches = 0
+graphs.counted(paged_decode_attention)

@@ -33,7 +33,8 @@ versions (port of mobilefinetuner_tpu/ops/flash_attention.py).
 
 Each wrapper has a `launches` count of its kernel launches; the forward
 also counts them `.by_shape`, by (dtype, B, Hq, S, D), and the merged
-backward `.by_dtype`. The plain versions are the kernels' blocked
+backward `.by_dtype`; kernels/graphs.py keeps them exact under CUDA-graph
+replay. The plain versions are the kernels' blocked
 algorithms written in torch (64 x 64 tiles, the same [lo, hi) block
 bounds, masks and f32 arithmetic); they run on any device and are the
 kernels' references on the card.
@@ -63,7 +64,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mobilefinetuner_tpu_torch.kernels import build
+from mobilefinetuner_tpu_torch.kernels import build, graphs
 
 NEG_INF = -1e30
 BLOCK_Q = 64            # the plain versions' tile sizes (and the kernels'
@@ -414,6 +415,7 @@ def flash_attention_fwd(q, k, v, padding_mask=None, *,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.by_shape = collections.Counter()
+graphs.counted(flash_attention_fwd)
 
 
 # ------------------------------------------------------------ backward ------
@@ -605,6 +607,7 @@ def flash_attention_bwd_merged(q, k, v, padding_mask, lse, delta, dout, *,
 
 flash_attention_bwd_merged.launches = 0
 flash_attention_bwd_merged.by_dtype = collections.Counter()
+graphs.counted(flash_attention_bwd_merged)
 
 
 def flash_attention_bwd_dq(q, k, v, padding_mask, lse, delta, dout, *,
@@ -628,6 +631,7 @@ def flash_attention_bwd_dq(q, k, v, padding_mask, lse, delta, dout, *,
 
 
 flash_attention_bwd_dq.launches = 0
+graphs.counted(flash_attention_bwd_dq)
 
 
 def flash_attention_bwd_dkv(q, k, v, padding_mask, lse, delta, dout, *,
@@ -653,6 +657,7 @@ def flash_attention_bwd_dkv(q, k, v, padding_mask, lse, delta, dout, *,
 
 
 flash_attention_bwd_dkv.launches = 0
+graphs.counted(flash_attention_bwd_dkv)
 
 
 def flash_attention_bwd_split(q, k, v, padding_mask, lse, delta, dout, *,

@@ -107,7 +107,7 @@ from typing import Tuple
 
 import torch
 
-from mobilefinetuner_tpu_torch.kernels import build
+from mobilefinetuner_tpu_torch.kernels import build, graphs
 
 BLOCK_V = 4096          # the plain versions' vocab tile
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -946,6 +946,7 @@ def fused_ce_fwd(h, w, labels) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 fused_ce_fwd.launches = 0
+graphs.counted(fused_ce_fwd)
 
 
 def fused_ce_fwd_lora(h, w, xa, bt, labels
@@ -969,6 +970,7 @@ def fused_ce_fwd_lora(h, w, xa, bt, labels
 
 
 fused_ce_fwd_lora.launches = 0
+graphs.counted(fused_ce_fwd_lora)
 
 
 def _bwd_args(what, h, w, labels, lse, dlse, dgold, xa=None, bt=None):
@@ -1162,6 +1164,7 @@ def fused_ce_bwd_dh(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
 
 
 fused_ce_bwd_dh.launches = 0
+graphs.counted(fused_ce_bwd_dh)
 
 
 def fused_ce_bwd_dh_lora(h, w, xa, bt, labels, lse, dlse, dgold
@@ -1185,6 +1188,7 @@ def fused_ce_bwd_dh_lora(h, w, xa, bt, labels, lse, dlse, dgold
 
 
 fused_ce_bwd_dh_lora.launches = 0
+graphs.counted(fused_ce_bwd_dh_lora)
 
 
 def fused_ce_bwd_dw(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
@@ -1205,6 +1209,7 @@ def fused_ce_bwd_dw(h, w, labels, lse, dlse, dgold) -> torch.Tensor:
 
 
 fused_ce_bwd_dw.launches = 0
+graphs.counted(fused_ce_bwd_dw)
 
 
 def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
@@ -1243,6 +1248,7 @@ def fused_ce_bwd_dw_lora(h, w, xa, bt, labels, lse, dlse, dgold,
 
 
 fused_ce_bwd_dw_lora.launches = 0
+graphs.counted(fused_ce_bwd_dw_lora)
 
 
 # ---------------------------------------------------------- autograd ------

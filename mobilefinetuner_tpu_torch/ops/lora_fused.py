@@ -18,7 +18,9 @@ as its first version on no path.
                            of epilogue_library(dtype) (or raise), CPU
                            tensors take `lora_epilogue_reference`.
                            `.launches` counts the kernel launches,
-                           `.by_shape` them by (dtype, N, d_out).
+                           `.by_shape` them by (dtype, N, d_out), both
+                           exact under CUDA-graph replay (kernels/
+                           graphs.py).
   lora_epilogue_reference  the plain version: f32 product, one rounding.
   scaled_bottleneck        xs = (f32(xa) * scale) rounded to a dtype: the
                            JAX wrapper's fold, which the 16-bit kernel
@@ -46,7 +48,7 @@ from typing import Tuple
 
 import torch
 
-from mobilefinetuner_tpu_torch.kernels import build
+from mobilefinetuner_tpu_torch.kernels import build, graphs
 
 MAX_RANK = 128           # both sources' MAX_RANK
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -170,6 +172,7 @@ def lora_epilogue(y2, xa2, b2, scale):
 
 lora_epilogue.launches = 0
 lora_epilogue.by_shape = collections.Counter()
+graphs.counted(lora_epilogue)
 
 
 class LoRAEpilogue(torch.autograd.Function):

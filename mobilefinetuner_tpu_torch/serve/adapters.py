@@ -5,8 +5,15 @@ The decode step routes each slot to its adapter through the per-row
 gather (lora.stack_adapters layout: every A/B/scale leaf stacked along a
 leading adapter axis). Loading copies a tenant's factors into one slot in
 place; eviction zeroes it. Shapes never change, so nothing downstream is
-rebuilt by a swap. One hidden slot past capacity stays zero forever: the
-BASE route that base-only requests carry.
+rebuilt by a swap: the serve engine's captured decode step reads the
+bank's leaves where they are. One hidden slot past capacity stays zero
+forever: the BASE route that base-only requests carry.
+
+`trace_count`, as the JAX bank's: the swap program's builds, one for each
+signature (the incoming leaves' shapes and dtypes) seen first. The JAX
+bank jits one swap for loads and evictions alike (an eviction swaps in
+zeros of the template's dtypes), so the port counts an eviction under
+the template's signature.
 """
 
 from __future__ import annotations
@@ -44,6 +51,19 @@ class AdapterBank:
         self._template = [(p, tuple(x.shape))
                           for p, x in tree_leaves(template)]
         self.names: List[Optional[str]] = [None] * capacity
+        self.trace_count = 0
+        self._signatures: set = set()
+        self._template_sig = self._signature(template)
+
+    @staticmethod
+    def _signature(tree) -> tuple:
+        return tuple((tuple(x.shape), x.dtype) for _, x in tree_leaves(tree))
+
+    def _note(self, sig: tuple) -> None:
+        """Count the swap program for `sig` the first time it is seen."""
+        if sig not in self._signatures:
+            self._signatures.add(sig)
+            self.trace_count += 1
 
     @property
     def base_slot(self) -> int:
@@ -92,6 +112,7 @@ class AdapterBank:
             raise OverflowError(
                 f"bank full ({self.capacity} residents: "
                 f"{sorted(self.resident)}) — evict one first")
+        self._note(self._signature(tree))
         self._write(tree, i)
         self.names[i] = name
         return i
@@ -121,6 +142,7 @@ class AdapterBank:
         """Zero `name`'s slot and free it: a stale routing id can only
         ever reach the base model, never another tenant's weights."""
         i = self.slot(name)
+        self._note(self._template_sig)
         for _, leaf in tree_leaves(self.tree):
             leaf[i].zero_()
         self.names[i] = None

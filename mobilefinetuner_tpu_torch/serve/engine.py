@@ -50,6 +50,33 @@ Host syncs, as in the JAX engine: the first token after a prefill or a
 final chunk, and the step's `nxt.cpu()`. The pools are updated in place
 (the JAX engine donated them to functional updates instead).
 
+The decode step is built once and replayed, as the JAX engine's compiled
+step is. It reads only static device buffers allocated when the engine is
+built (tok, pos, tbl, aid and the sampling state temp, topk, topp, seed;
+pos + 1 is formed inside it) and writes only the static `nxt` [S]. Before
+each step the slot arrays go into those buffers through pinned staging
+with non-blocking `copy_`, after the adapter ids are validated on the
+host. The routed adapter tree is built once over the `aid` buffer and
+reads the bank's leaves where they are. On the card the step's body is a
+CUDA graph (kernels/graphs.StepGraph): the first decode step runs it
+eagerly (every kernel built and loaded), the second captures and replays
+it, every later one replays it. On the CPU the same body runs eagerly. A
+hot-swap writes the bank in place and containment zeroes the pools in
+place, so neither costs a capture; reassigning the pools, the params or
+the bank's tree drops the graph, and the next step captures again. A
+capture or replay that fails raises into the step's containment; nothing
+falls back to eager dispatch (the private `_eager_decode` constructor
+argument keeps eager dispatch on the card, for comparisons only).
+
+`trace_counts`, as the JAX engine's (keys prefill, decode_step,
+write_prefill, prefill_chunk, cow_copy): the programs built, one for each
+static signature (shapes, dtypes and static arguments). `decode_step`
+counts the graph's captures on the card; the other programs stay eager and
+are counted the first time each signature is seen (the one-shot prefill is
+padded to max_prompt and the chunks come in the static bucket widths, so
+the counts are finite, as in JAX). `total_traces()` adds the bank's
+`trace_count`.
+
 Precision: the engine sets `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` to False when it is built, so an f32
 engine computes in full f32 on the card (TF32 would keep ~3 digits).
@@ -96,7 +123,10 @@ from mobilefinetuner_tpu_torch.core.device import resolve_device
 from mobilefinetuner_tpu_torch.core.preempt import PreemptionGuard
 from mobilefinetuner_tpu_torch.core.telemetry import Telemetry, run_manifest
 from mobilefinetuner_tpu_torch.core.trace import Tracer
-from mobilefinetuner_tpu_torch.lora.lora import assign_adapters, tree_leaves
+from mobilefinetuner_tpu_torch.kernels.graphs import StepGraph
+from mobilefinetuner_tpu_torch.lora.lora import (assign_adapters, bank_size,
+                                                 check_adapter_ids,
+                                                 route_rows, tree_leaves)
 from mobilefinetuner_tpu_torch.models.generate import (
     gemma3_decode_step_paged, gemma3_prefill, gemma3_prefill_chunk,
     gpt2_decode_step_paged, gpt2_prefill, gpt2_prefill_chunk,
@@ -292,14 +322,16 @@ class ServeEngine:
     is the CUDA card (core/device.py). The engine is single-threaded:
     every mutation comes from the serve loop; health() is also read by
     the metrics endpoint's threads (its step-time window under
-    `_health_lock`, the rest scalar snapshots).
+    `_health_lock`, the rest scalar snapshots). `_eager_decode` (private:
+    tests and chip_smoke.py compare against it) runs the decode step
+    eagerly on the card instead of replaying its graph.
     """
 
     def __init__(self, family: str, config, params,
                  cfg: Optional[ServeConfig] = None,
                  bank: Optional[AdapterBank] = None, telemetry=None,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 watchdog=None, device=None):
+                 watchdog=None, device=None, _eager_decode: bool = False):
         cfg = cfg or ServeConfig()
         cfg.validate()
         if family == "gpt2":
@@ -390,6 +422,14 @@ class ServeEngine:
         self._topp = np.ones(S, np.float32)
         self._seed = np.zeros(S, np.int64)
         self._slots: List[Optional[Request]] = [None] * S
+        self._init_step_buffers()
+        # the programs built, by the JAX engine's names (module docstring)
+        self.trace_counts: collections.Counter = collections.Counter()
+        self._signatures: set = set()
+        self._decode_graph = StepGraph(
+            self._decode_body, self.device, graphed=not _eager_decode,
+            on_capture=lambda: self.trace_counts.update(["decode_step"]))
+        self._step_inputs: tuple = (None,) * 4
         self.queue: collections.deque = collections.deque()
         self.decode_steps = 0
         self.decode_s = 0.0     # wall time in decode steps, host sync incl.
@@ -438,6 +478,94 @@ class ServeEngine:
     # ------------------------------------------------------------ helpers ---
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def total_traces(self) -> int:
+        return sum(self.trace_counts.values()) + (
+            self.bank.trace_count if self.bank else 0)
+
+    def _note(self, program: str, *signature) -> None:
+        """Count `program` the first time `signature` is seen (an eager
+        program's build, as a jit traces once a signature)."""
+        key = (program,) + signature
+        if key not in self._signatures:
+            self._signatures.add(key)
+            self.trace_counts[program] += 1
+
+    # ------------------------------------------------------- decode step ---
+    def _init_step_buffers(self) -> None:
+        """The decode step's static buffers, by dtype: host staging
+        (pinned on the card) and its device twin, whose views are the
+        step's inputs; and the output `nxt` [S]."""
+        S, M = self.cfg.num_slots, self.M
+        pin = self.device.type == "cuda"
+
+        def pair(n, dtype):
+            return (torch.zeros(n, dtype=dtype, pin_memory=pin),
+                    torch.zeros(n, dtype=dtype, device=self.device))
+        self._staging = {"i64": pair(5 * S, torch.int64),
+                         "i32": pair(S * M, torch.int32),
+                         "f32": pair(2 * S, torch.float32)}
+        i64, i32, f32 = (self._staging[k][1] for k in ("i64", "i32", "f32"))
+        self._buf = {"tok": i64[:S], "pos": i64[S:2 * S],
+                     "aid": i64[2 * S:3 * S], "topk": i64[3 * S:4 * S],
+                     "seed": i64[4 * S:], "tbl": i32.view(S, M),
+                     "temp": f32[:S], "topp": f32[S:]}
+        self._nxt = torch.zeros(S, dtype=torch.int64, device=self.device)
+        self._staged = torch.cuda.Event() if pin else None
+        self._routed = None
+
+    def _stage(self) -> None:
+        """The slot arrays into the static buffers: numpy into the
+        staging, then one non-blocking copy_ a dtype group."""
+        if self._staged is not None:
+            self._staged.synchronize()  # the last copies read the staging
+        S = self.cfg.num_slots
+        i64 = self._staging["i64"][0].numpy()
+        for j, a in enumerate((self._tok, self._pos, self._aid, self._topk,
+                               self._seed)):
+            i64[j * S:(j + 1) * S] = a
+        self._staging["i32"][0].numpy()[:] = self._tbl.reshape(-1)
+        f32 = self._staging["f32"][0].numpy()
+        f32[:S], f32[S:] = self._temp, self._topp
+        for host, dev in self._staging.values():
+            dev.copy_(host, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def _decode_body(self) -> None:
+        """The decode step over the static buffers: the CUDA graph's body
+        on the card, the eager step elsewhere."""
+        b = self._buf
+        logits, _, _ = self._step_fn(
+            self.config, self.params, self.pool_k, self.pool_v, b["tok"],
+            b["pos"], b["tbl"], lora=self._routed, compute_dtype=self.dtype,
+            attn_impl=self.cfg.attn_impl)
+        if self.cfg.sampling:
+            nxt = sample_per_row(logits, b["temp"], b["topk"], b["topp"],
+                                 b["seed"], b["pos"] + 1)
+        else:
+            nxt = logits.argmax(-1)
+        self._nxt.copy_(nxt)
+
+    def _decode(self) -> np.ndarray:
+        """One decode step over every slot: validate the routing, stage
+        the slot arrays, run or replay the step, read `nxt` back (the
+        serve loop's one host sync a step)."""
+        bank_tree = self.bank.tree if self.bank is not None else None
+        if bank_tree is not None:
+            check_adapter_ids(bank_size(bank_tree), self._aid)
+        inputs = (self.params, self.pool_k, self.pool_v, bank_tree)
+        if any(a is not b for a, b in zip(inputs, self._step_inputs)):
+            # built, or reallocated: what a graph captured is stale
+            self._step_inputs = inputs
+            self._routed = (None if bank_tree is None
+                            else route_rows(bank_tree, self._buf["aid"]))
+            self._decode_graph.reset()
+        if not self._decode_graph.graphed:
+            self._note("decode_step")
+        self._stage()
+        self._decode_graph()
+        return self._nxt.cpu().numpy()
 
     def _lora_impl_resolved(self) -> Optional[str]:
         """The adapters' order per target (models/lora_apply.py), or None
@@ -727,6 +855,7 @@ class ServeEngine:
         mask = np.zeros((1, cfg.max_prompt), np.int64)
         ids[0, :P], mask[0, :P] = req.prompt, 1
         t_prefill = time.perf_counter()
+        self._note("prefill", cfg.max_prompt)
         logits, (k, v) = self._prefill_fn(
             self.config, self.params, self._dev(ids), self._dev(mask),
             compute_dtype=self.dtype,
@@ -739,6 +868,7 @@ class ServeEngine:
                             np.int32)
         block_ids[:len(req.blocks)] = req.blocks
         self._pools_at_risk = True
+        self._note("write_prefill", cfg.max_prompt)
         write_prompt_blocks(self.pool_k, self.pool_v, k[:, 0], v[:, 0],
                             self._dev(block_ids))
         self._pools_at_risk = False
@@ -771,6 +901,7 @@ class ServeEngine:
         self.alloc.free([src], park=self.prefix.park)
         req.blocks = cached[:-1] + [dst]
         self._pools_at_risk = True
+        self._note("cow_copy")
         self.pool_k[dst] = self.pool_k[src]
         self.pool_v[dst] = self.pool_v[src]
         self._pools_at_risk = False
@@ -830,6 +961,7 @@ class ServeEngine:
         lora = self._route(np.full(W, req.aid, np.int64))
         t_chunk = time.perf_counter()
         self._pools_at_risk = True
+        self._note("prefill_chunk", W)
         logits, _, _ = self._chunk_fn(
             self.config, self.params, self.pool_k, self.pool_v,
             self._dev(ids), start, n_tok, self._dev(tbl), lora=lora,
@@ -886,7 +1018,9 @@ class ServeEngine:
         (state=error, reason=<exception type>), release exactly its pages,
         and zero the pools so the next admission starts clean; the prefix
         cache forgets every page, since the contents are gone. The queue
-        is untouched."""
+        is untouched. The pools are zeroed in place, so the decode step's
+        graph stays valid: containment costs no capture (as the JAX
+        engine's costs no retrace)."""
         name = type(e).__name__
         failed: List[Request] = []
         for req in self.active:
@@ -1000,15 +1134,7 @@ class ServeEngine:
         try:
             if self.step_hook is not None:
                 self.step_hook(self.decode_steps)
-            logits, _, _ = self._step_fn(
-                self.config, self.params, self.pool_k, self.pool_v,
-                self._dev(self._tok), self._dev(self._pos),
-                self._dev(self._tbl), lora=self._route(self._aid),
-                compute_dtype=self.dtype, attn_impl=cfg.attn_impl)
-            nxt = self._select(logits, np.arange(cfg.num_slots),
-                               self._pos + 1)
-            # the serve loop's ONE host sync per decode step
-            nxt = nxt.cpu().numpy()
+            nxt = self._decode()
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:
