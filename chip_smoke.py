@@ -61,13 +61,18 @@ Phases, none of whose failures is caught (any failure exits non-zero):
      scraped at the 16th decode step; with every launch count set to 0
      just before: every request finishes, every page comes back, and the
      flash kernel ran 12 times a prefill, the paged kernel 12 times a
-     decode step; the engine's decode steps replayed one CUDA graph,
-     captured once (trace_counts["decode_step"] 1), and the same traffic
-     through an engine whose decode steps are eager (its launches counted,
-     then taken back out: they count for no path) gives the same tokens
-     and launches, each engine's step p50 printed (the same holds for
-     `gemma_serve`, `gemma_serve_f32`'s cache engine and each `generate`
-     run, whose eager twin is the CLI with its steps eager);
+     decode step; every engine program (decode step, one-shot prefill,
+     prompt-page write, each chunk bucket, page copy) ran twice in a
+     warm-up and replayed its CUDA graph in the traffic, each (program,
+     signature) that ran twice captured exactly once, and the same
+     traffic through an engine whose programs are eager (its launches
+     counted, then taken back out: they count for no path) gives the
+     same tokens, pools and launches; each engine's decode step,
+     prefill, chunk, TTFT and TPOT p50, the captures by trace_counts key
+     and the memory the captures reserve are printed (the same holds for
+     `gemma_serve` and `gemma_serve_f32`'s cache engine, whose warm-up's
+     launches are taken back out; each `generate` run's eager twin is the
+     CLI with its steps eager);
      then serve Gemma-3-270M (18 layers, hidden 640, 4 query heads over
      1 kv head of 256, window 512, vocab 262,144, bf16; 8 slots, block_T
      16, max_prompt 128, chunked admission up to 608 tokens, 64 new
@@ -526,8 +531,12 @@ def graph_ms(fn, iters: int) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    gc.disable()        # a collection freeing a graph fails a capture
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        gc.enable()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -618,6 +627,107 @@ def eager_twin(warm, run, kernels: dict, graphed_launches: dict):
     want = {k: n for k, n in graphed_launches.items() if n}
     check(eager == want, f"eager launches {eager} != graphed {want}")
     return out
+
+
+SERVE_KEYS = ("prefill", "decode_step", "write_prefill", "prefill_chunk",
+              "cow_copy")
+
+
+def warm_programs(eng, adapter, **kw) -> None:
+    """Every program of the engine called twice before its measured
+    traffic, so that traffic replays graphs only (on the card a program
+    captures at its second call): two one-shot prompts; with the prefix
+    cache a one-page prompt, then the same twice (two full hits, two page
+    copies); with chunked admission, for each chunk bucket W, two prompts
+    of max_prompt + W tokens (the widest bucket, then W). 4 new tokens a
+    request, on `adapter`, with the sampling kwargs `kw`."""
+    import numpy as np
+    cfg = eng.cfg
+    rng = np.random.default_rng(99)
+    ints = lambda n: [int(x) for x in  # noqa: E731
+                      rng.integers(0, eng.config.vocab_size, n)]
+    waves = [[ints(3), ints(5)]]
+    if eng.prefix is not None:
+        page = ints(cfg.block_T)
+        waves += [[page], [list(page), list(page)]]
+    if cfg.max_prompt_chunked:
+        waves.append([ints(cfg.max_prompt + W) for W in eng.chunk_buckets
+                      for _ in range(2)])
+    reqs = []
+    for wave in waves:
+        reqs += [eng.submit(p, max_new_tokens=4, adapter=adapter, **kw)
+                 for p in wave]
+        eng.drain()
+    check(all(r.state == "finished" for r in reqs),
+          "warm-up requests did not finish")
+
+
+def time_programs(eng) -> dict:
+    """{"prefill": [ms], "chunk": [ms]}, filled while the engine serves:
+    the wall time of each one-shot prefill admission (its first token's
+    host sync included) and of each prefill chunk, the card synchronized
+    after it (its device work included)."""
+    import torch
+    ms = {"prefill": [], "chunk": []}
+    for key, attr in (("prefill", "_admit_prefill"),
+                      ("chunk", "_prefill_chunk")):
+        def timed(req, fn=getattr(eng, attr), out=ms[key]):
+            t0 = time.perf_counter()
+            fn(req)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        setattr(eng, attr, timed)
+    return ms
+
+
+def graph_report(eng, label: str, replayed=()) -> dict:
+    """The engine's graphs checked and printed: each (program, signature)
+    that ran twice or more captured exactly once, none more, and each
+    program in `replayed` captured; its captures by trace_counts key, the
+    (calls, captures) of each signature, and the memory the captures
+    reserved (their private pools)."""
+    sigs = {}
+    for (program, sig), g in eng.graphs().items():
+        name = program + "".join(f"[{w}]" for w in sig)
+        check(g.captures == (g.calls >= 2),
+              f"{label}: {name} {g.calls} calls, {g.captures} captures")
+        check(program not in replayed or g.captures == 1,
+              f"{label}: {name} never captured ({g.calls} calls)")
+        sigs[name] = [g.calls, g.captures]
+    out = {"captures": {k: eng.trace_counts[k] for k in SERVE_KEYS},
+           "calls_captures": sigs,
+           "graphs_reserved_mib": sum(
+               g.reserved for g in eng.graphs().values()) / 2 ** 20}
+    print(f"{label} graphs: captures {out['captures']}; (calls, captures) "
+          f"{sigs}; the captures reserved "
+          f"{out['graphs_reserved_mib']:.1f} MiB")
+    return out
+
+
+def pools_equal(a, b) -> bool:
+    """Two engines' pools bit for bit, the trash page aside (which of
+    several idle or padded rows' writes lands there is unspecified)."""
+    import torch
+    return (torch.equal(a.pool_k[1:], b.pool_k[1:])
+            and torch.equal(a.pool_v[1:], b.pool_v[1:]))
+
+
+def latency(reqs, ms: dict) -> dict:
+    """TTFT / TPOT p50 of `reqs` and the prefill / chunk wall p50 of
+    time_programs' lists (None where a program did not run)."""
+    return {"ttft_ms_p50": p50([r.ttft_ms for r in reqs]),
+            "tpot_ms_p50": p50([r.tpot_ms for r in reqs]),
+            **{f"{k}_ms_p50": p50(v) if v else None for k, v in ms.items()},
+            **{f"{k}_calls": len(v) for k, v in ms.items()}}
+
+
+def print_latency(label: str, graphed: dict, eager: dict) -> None:
+    def fmt(x):
+        return "-" if x is None else f"{x:.3f}"
+    print(f"{label} p50 ms graphed / eager twin: " + ", ".join(
+        f"{k[:-7]} {fmt(graphed[k])} / {fmt(eager[k])}"
+        for k in ("prefill_ms_p50", "chunk_ms_p50", "ttft_ms_p50",
+                  "tpot_ms_p50")))
 
 
 def f32_launches() -> tuple:
@@ -1526,9 +1636,7 @@ def serve(torch, fa, da):
                               telemetry_out=stream, stats_every=8,
                               trace_spans=True, metrics_port=free_port())
     V = eng.config.vocab_size
-    warm = eng.submit([1, 2, 3], max_new_tokens=4, adapter=names[0])
-    eng.drain()
-    check(warm.state == "finished", "warm-up request did not finish")
+    warm_programs(eng, names[0])
     rng = np.random.default_rng(0)
     routes = [names[0], names[1], None] * 4
     prompts = [list(rng.integers(0, V, int(n)))
@@ -1538,6 +1646,7 @@ def serve(torch, fa, da):
     fa.flash_attention_fwd.launches = 0
     da.paged_decode_attention.launches = 0
     da.decode_attention.launches = 0
+    ms = time_programs(eng)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, adapter=a) for p, a in zip(prompts, routes)]
@@ -1587,49 +1696,53 @@ def serve(torch, fa, da):
     n_spans = sum(1 for e in evs if e["event"] == "span")
     check(n_stats >= steps // 8 and n_spans >= 3 * len(reqs),
           f"{n_stats} serve_stats, {n_spans} spans")
-    # the decode steps replayed one graph, captured at the warm-up's
-    # second step; the same traffic through an engine that dispatches
-    # them eagerly gives the same tokens and launches
-    check(eng.trace_counts["decode_step"] == 1,
-          f"serve captured {eng.trace_counts['decode_step']} graphs")
+    # every program replayed its graph, captured in the warm-up; the same
+    # traffic through an engine that runs them eagerly gives the same
+    # tokens, pools and launches
+    graphs = graph_report(eng, "serve", replayed=("decode_step", "prefill",
+                                                  "write_prefill"))
     graphed_ms = list(eng._step_ms)[-steps:]
 
     def eager_warm():
         twin, _ = build_engine("gpt2s", num_slots=8, block_T=16,
                                num_blocks=128, max_prompt=128, max_new=64,
                                adapters=2, dtype="bfloat16", seed=0,
-                               _eager_decode=True)
-        twin.submit([1, 2, 3], max_new_tokens=4, adapter=names[0])
-        twin.drain()
+                               _eager=True)
+        warm_programs(twin, names[0])
         return twin
 
     def eager_run(twin):
+        twin_ms = time_programs(twin)
         rs = [twin.submit(p, adapter=a) for p, a in zip(prompts, routes)]
         twin.drain()
+        pools = pools_equal(twin, eng)
         out = ([r.tokens for r in rs], list(twin._step_ms)[-steps:],
-               twin.trace_counts["decode_step"])
+               dict(twin.trace_counts), latency(rs, twin_ms), pools)
         twin.close()
         return out
     names_of = {"flash": "flash_fwd", "paged": "paged", "decode": "decode"}
-    eager_toks, eager_ms, eager_traces = eager_twin(
+    eager_toks, eager_ms, eager_traces, eager_lat, pools = eager_twin(
         eager_warm, eager_run, kernel_wrappers(),
         {names_of[k]: n for k, n in launches.items()})
     check(eager_toks == [r.tokens for r in reqs],
           "serve: graphed tokens differ from the eager engine's")
-    graph = {"captures": eng.trace_counts["decode_step"],
-             "eager_decode_step_traces": eager_traces,
+    check(pools, "serve: graphed pools differ from the eager engine's")
+    lat = latency(reqs, ms)
+    graph = {**graphs, "eager_traces": eager_traces,
              "step_ms_p50": p50(graphed_ms),
              "eager_step_ms_p50": p50(eager_ms), "ids_equal_eager": True,
-             "launches_equal_eager": True}
-    print(f"serve decode graph: {graph['captures']} capture, engine step "
-          f"p50 {graph['step_ms_p50']:.3f} ms graphed, "
-          f"{graph['eager_step_ms_p50']:.3f} eager; ids and launches equal")
+             "pools_equal_eager": True, "launches_equal_eager": True,
+             "graphed": lat, "eager": eager_lat}
+    print(f"serve decode graph: engine step p50 {graph['step_ms_p50']:.3f} "
+          f"ms graphed, {graph['eager_step_ms_p50']:.3f} eager; ids, pools "
+          f"and launches equal")
+    print_latency("serve", lat, eager_lat)
     ttft = sorted(r.ttft_ms for r in reqs)
     tpot = sorted(r.tpot_ms for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
     stats = {
         "model": "gpt2s", "dtype": "bfloat16", "requests": len(reqs),
-        "prefills": prefills, "decode_steps": steps, "decode_graph": graph,
+        "prefills": prefills, "decode_steps": steps, "graphs": graph,
         "ttft_ms_p50": ttft[len(ttft) // 2],
         "tpot_ms_p50": tpot[len(tpot) // 2],
         "tokens_per_s": n_tok / wall,
@@ -1678,6 +1791,23 @@ def engine_graph_events(eng, step_ms) -> dict:
             "engine_graph_busy_share": dev_ms / p50(step_ms)}
 
 
+def engine_program_events(eng, graph, staged, tok, inputs: dict) -> dict:
+    """One of the engine's own program graphs on `inputs` (greedy): the
+    device ms of its replay, and the wall ms of a whole call (staging,
+    replay, the token's host sync), from CUDA events. Its replays write
+    only its static outputs and the trash page (the caller's table), so
+    no request's pages move, and no count moves."""
+    staged.stage(**{"temp": 0.0, "topk": 0, "topp": 1.0, "seed": 0,
+                    **inputs})
+
+    def call():
+        staged.stage(**inputs)
+        graph.graph.replay()
+        return tok.item()
+    return {"engine_graph_device_ms": call_ms(graph.graph.replay, 20),
+            "engine_call_wall_ms": call_ms(call, 20)}
+
+
 def profile_serve(torch, eng, names):
     """Where a decode step and a prefill spend their time. The engine's
     step reads its tokens back, so no graph of it: the decode step's
@@ -1685,9 +1815,11 @@ def profile_serve(torch, eng, names):
     gpt2_decode_step_paged call with the engine's tokens, positions,
     tables and adapter routing held fixed (`events`: graph device ms,
     eager call ms, their ratio, and the serve run's step p50 from the
-    engine's own clock)."""
+    engine's own clock); the prefill's also from the engine's own prefill
+    graph (engine_program_events)."""
     import numpy as np
 
+    from mobilefinetuner_tpu_torch.lora.lora import assign_adapters
     from mobilefinetuner_tpu_torch.models.generate import (
         gpt2_decode_step_paged, gpt2_prefill)
     step_ms = sorted(eng._step_ms)
@@ -1700,16 +1832,20 @@ def profile_serve(torch, eng, names):
     check(len(eng.active) == eng.cfg.num_slots, "slots not all admitted")
     ids = torch.as_tensor(rng.integers(0, V, (1, 128)), device=eng.device)
     mask = torch.ones(1, 128, dtype=torch.long, device=eng.device)
-    lora = eng._route(np.asarray([0]))
+    lora = assign_adapters(eng.bank.tree, [0])
     out = profile_phases({
         "decode_step": (eng.step, 10, False),       # reads its tokens
         "prefill_128": (lambda: gpt2_prefill(
             eng.config, eng.params, ids, mask, compute_dtype=eng.dtype,
             lora=lora), 5, True)})
+    out["prefill_128"]["events"].update(engine_program_events(
+        eng, eng._prefill_graph, eng._prefill_in, eng._tok0, dict(
+            ids=ids.cpu().numpy(), mask=np.ones((1, 128), np.int64),
+            aid=0, block_ids=np.zeros(128 // eng.cfg.block_T, np.int32))))
     # the fed tokens' K/V land where the engine's next step writes its own
     tok, pos, tbl = (eng._dev(a.copy()) for a in (eng._tok, eng._pos,
                                                   eng._tbl))
-    routed = eng._route(eng._aid)
+    routed = assign_adapters(eng.bank.tree, eng._aid)
 
     def decode_step():
         gpt2_decode_step_paged(eng.config, eng.params, eng.pool_k,
@@ -1786,10 +1922,7 @@ def gemma_serve(torch, kernels, card):
         max_new=G["new"], adapters=2, dtype="bfloat16", seed=0,
         prefix_cache=True, max_prompt_chunked=G["chunked"], sampling=True)
     V = eng.config.vocab_size
-    warm = eng.submit([1, 2, 3], max_new_tokens=4, adapter=names[1],
-                      seed=1, **SAMPLED)
-    eng.drain()
-    check(warm.state == "finished", "warm-up request did not finish")
+    warm_programs(eng, names[1], seed=1, **SAMPLED)
     spec, base, ten = gemma_serve_traffic(np.random.default_rng(0), V,
                                           names[0])
     evicted = []
@@ -1800,6 +1933,7 @@ def gemma_serve(torch, kernels, card):
               decode_s=eng.decode_s, hit=eng.prefix.hit_tokens,
               looked=eng.prefix.lookup_tokens)
     pages = {}                    # request -> its prefix pages, once live
+    ms = time_programs(eng)
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1841,11 +1975,10 @@ def gemma_serve(torch, kernels, card):
     check(len(base_pages) < len(base) * 16 and len(ten_pages) < len(ten) * 16,
           "requests over one prefix did not share its pages")
     check(not base_pages & ten_pages, "a tenant request held a base page")
-    # one graph captured (the warm-up's second step) and replayed; the
-    # same traffic through an engine with eager decode steps gives the
-    # same tokens, sampled ones too, and the same launches
-    check(eng.trace_counts["decode_step"] == 1,
-          f"gemma_serve captured {eng.trace_counts['decode_step']} graphs")
+    # every program replayed its graphs (each chunk bucket one), captured
+    # in the warm-up; the same traffic through an engine that runs them
+    # eagerly gives the same tokens, sampled ones too, pools and launches
+    graphs = graph_report(eng, "gemma_serve", replayed=SERVE_KEYS)
     graphed_ms = list(eng._step_ms)[-d["decode_steps"]:]
 
     def eager_warm():
@@ -1854,31 +1987,34 @@ def gemma_serve(torch, kernels, card):
             num_blocks=G["blocks"], max_prompt=G["max_prompt"],
             max_new=G["new"], adapters=2, dtype="bfloat16", seed=0,
             prefix_cache=True, max_prompt_chunked=G["chunked"],
-            sampling=True, _eager_decode=True)
-        twin.submit([1, 2, 3], max_new_tokens=4, adapter=names[1], seed=1,
-                    **SAMPLED)
-        twin.drain()
+            sampling=True, _eager=True)
+        warm_programs(twin, names[1], seed=1, **SAMPLED)
         return twin
 
     def eager_run(twin):
+        twin_ms = time_programs(twin)
         rs = [twin.submit(p, adapter=a, **kw) for p, a, kw in spec]
         twin.drain()
         out = ([r.tokens for r in rs],
-               list(twin._step_ms)[-d["decode_steps"]:])
+               list(twin._step_ms)[-d["decode_steps"]:],
+               latency(rs, twin_ms), pools_equal(twin, eng))
         twin.close()
         return out
-    eager_toks, eager_ms = eager_twin(eager_warm, eager_run, kernels,
-                                      launches)
+    eager_toks, eager_ms, eager_lat, pools = eager_twin(
+        eager_warm, eager_run, kernels, launches)
     check(eager_toks == [r.tokens for r in reqs],
           "gemma_serve: graphed tokens differ from the eager engine's")
-    graph = {"captures": eng.trace_counts["decode_step"],
-             "step_ms_p50": p50(graphed_ms),
+    check(pools, "gemma_serve: graphed pools differ from the eager engine's")
+    lat = latency(reqs, ms)
+    graph = {**graphs, "step_ms_p50": p50(graphed_ms),
              "eager_step_ms_p50": p50(eager_ms), "ids_equal_eager": True,
-             "launches_equal_eager": True}
-    print(f"gemma_serve decode graph: {graph['captures']} capture, engine "
-          f"step p50 {graph['step_ms_p50']:.3f} ms graphed, "
-          f"{graph['eager_step_ms_p50']:.3f} eager; ids (half sampled) and "
-          f"launches equal")
+             "pools_equal_eager": True, "launches_equal_eager": True,
+             "graphed": lat, "eager": eager_lat}
+    print(f"gemma_serve decode graph: engine step p50 "
+          f"{graph['step_ms_p50']:.3f} ms graphed, "
+          f"{graph['eager_step_ms_p50']:.3f} eager; ids (half sampled), "
+          f"pools and launches equal")
+    print_latency("gemma_serve", lat, eager_lat)
     ttft = sorted(r.ttft_ms for r in reqs)
     tpot = sorted(r.tpot_ms for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
@@ -1893,7 +2029,7 @@ def gemma_serve(torch, kernels, card):
         # tokens the decode steps emitted (a full hit's first one too)
         "decode_tokens_per_s": (n_tok - len(reqs) + d["full_hits"])
         / (eng.decode_s - n0["decode_s"]),
-        "wall_s": wall, "card": card, "decode_graph": graph,
+        "wall_s": wall, "card": card, "graphs": graph,
     }
     return stats, launches, eng, names
 
@@ -1903,9 +2039,12 @@ def profile_gemma_serve(torch, eng, names):
     their time (as profile_serve): the engine's step traced with its 8
     slots busy (it reads its tokens back, so no graph of it), and CUDA
     events around CUDA-graph replays of one gemma3_decode_step_paged and
-    one gemma3_prefill_chunk with the engine's state held fixed."""
+    one gemma3_prefill_chunk with the engine's state held fixed; the
+    chunk's also from the engine's own widest-bucket chunk graph
+    (engine_program_events)."""
     import numpy as np
 
+    from mobilefinetuner_tpu_torch.lora.lora import assign_adapters
     from mobilefinetuner_tpu_torch.models.generate import (
         gemma3_decode_step_paged, gemma3_prefill_chunk)
     step_ms = sorted(eng._step_ms)
@@ -1920,13 +2059,13 @@ def profile_gemma_serve(torch, eng, names):
     out = profile_phases({"gemma_decode_step": (eng.step, 10, False)})
     tok, pos, tbl = (eng._dev(a.copy()) for a in (eng._tok, eng._pos,
                                                   eng._tbl))
-    routed = eng._route(eng._aid)
+    routed = assign_adapters(eng.bank.tree, eng._aid)
     W = eng.chunk_buckets[-1]
     ids = eng._dev(rng.integers(0, V, (1, W)))
     # a table of trash pages: the chunk writes page 0 only, and attends
     # all M pages masked, as a first chunk does
     ctbl = torch.zeros(1, eng.M, dtype=torch.int32, device=eng.device)
-    chunk_lora = eng._route(np.full(W, eng._aid[0]))
+    chunk_lora = assign_adapters(eng.bank.tree, np.full(W, eng._aid[0]))
 
     def decode_step():
         gemma3_decode_step_paged(eng.config, eng.params, eng.pool_k,
@@ -1941,6 +2080,10 @@ def profile_gemma_serve(torch, eng, names):
 
     out.update(profile_phases({"gemma_prefill_chunk_128": (chunk, 5,
                                                            True)}))
+    out["gemma_prefill_chunk_128"]["events"].update(engine_program_events(
+        eng, eng._chunk_graphs[W], eng._chunk_in, eng._chunk_tok, dict(
+            ids=ids[0].cpu().numpy(), aid=eng._aid[0], start_n=(0, W),
+            tbl=ctbl.cpu().numpy())))
     dev_ms, wall_ms = graph_ms(decode_step, 20), call_ms(decode_step, 20)
     out["gemma_decode_step"]["events"] = {
         "device_ms": dev_ms, "wall_ms": wall_ms,
@@ -1966,6 +2109,7 @@ def gemma_serve_f32(torch, dev):
     import numpy as np
 
     from mobilefinetuner_tpu_torch.core.config import Gemma3TextConfig
+    from mobilefinetuner_tpu_torch.lora.lora import assign_adapters
     from mobilefinetuner_tpu_torch.models import gemma3
     from mobilefinetuner_tpu_torch.models.generate import \
         gemma3_decode_step_paged
@@ -1986,7 +2130,7 @@ def gemma_serve_f32(torch, dev):
         cfg.update(kw)
         eng = ServeEngine("gemma", config, params, ServeConfig(**cfg),
                           bank=AdapterBank(tenant, 1, family="gemma"),
-                          device=dev, _eager_decode=eager)
+                          device=dev, _eager=eager)
         eng.load_adapter("tenant0", tenant)
         return eng
 
@@ -2005,7 +2149,14 @@ def gemma_serve_f32(torch, dev):
 
     from mobilefinetuner_tpu_torch.kernels import graphs
     kernels = kernel_wrappers()
+    # every program called twice first, so the waves replay graphs only;
+    # the warm-up counts for no path, as the other serve paths' warm-ups
+    # run before their counts are set to 0
     kern = engine(prefix_cache=True)
+    before = graphs.launch_snapshot()
+    warm_programs(kern, None)
+    take_back(before)
+    ms = time_programs(kern)
     before = graphs.launch_snapshot()
     reqs = submit(kern)
     while not all(len(r.tokens) >= 2 for r in reqs):
@@ -2014,7 +2165,7 @@ def gemma_serve_f32(torch, dev):
     check(int(kern._pos.max()) > GEN["window"], "no slot past the window")
     tok, pos, tbl = (kern._dev(a.copy()) for a in (kern._tok, kern._pos,
                                                    kern._tbl))
-    lora = kern._route(kern._aid)
+    lora = assign_adapters(kern.bank.tree, kern._aid)
     step = dict(config=config, params=kern.params, pool_k=kern.pool_k.clone(),
                 pool_v=kern.pool_v.clone(), tok=tok, pos=pos, tbl=tbl,
                 lora=lora)
@@ -2036,32 +2187,43 @@ def gemma_serve_f32(torch, dev):
     check(kern.prefix.hit_tokens > hit0, "the second wave did not hit")
     kern_launches = {k: n + kern_launches[k] for k, n
                      in launches_since(before, kernels).items()}
-    # the kernel engine replayed one graph; the same two waves through an
-    # engine with eager decode steps give the same tokens and launches
-    check(kern.trace_counts["decode_step"] == 1,
-          f"gemma_serve f32 captured {kern.trace_counts['decode_step']} "
-          f"graphs")
+    # the kernel engine replayed every program's graphs, captured in the
+    # warm-up; the same two waves through an engine that runs them eagerly
+    # give the same tokens, pools and launches
+    graphs_out = graph_report(kern, "gemma_serve f32", replayed=SERVE_KEYS)
 
     def eager_run(twin):
-        waves = []
+        twin_ms = time_programs(twin)
+        waves, rs = [], []
         for _ in range(2):
-            rs = submit(twin)
+            rs += submit(twin)
             twin.drain()
-            waves.append([r.tokens for r in rs])
-        return waves, list(twin._step_ms)
-    eager_waves, eager_ms = eager_twin(
-        lambda: engine(eager=True, prefix_cache=True), eager_run, kernels,
-        kern_launches)
+            waves.append([r.tokens for r in rs[-len(prompts):]])
+        return (waves, list(twin._step_ms),
+                latency(rs[-len(prompts):], twin_ms),
+                pools_equal(twin, kern))
+    def eager_warm():
+        twin = engine(eager=True, prefix_cache=True)
+        warm_programs(twin, None)
+        return twin
+    eager_waves, eager_ms, eager_lat, pools = eager_twin(
+        eager_warm, eager_run, kernels, kern_launches)
     check(eager_waves == [tokens["kernel_cold"],
                           tokens["kernel_prefix_hits"]],
           "gemma_serve f32: graphed tokens differ from the eager engine's")
-    graph = {"captures": kern.trace_counts["decode_step"],
-             "step_ms_p50": p50(kern._step_ms),
+    check(pools, "gemma_serve f32: graphed pools differ from the eager "
+          "engine's")
+    # TTFT / TPOT of the second wave: the first pauses for the cross-check
+    lat = latency(again, ms)
+    graph = {**graphs_out, "step_ms_p50": p50(kern._step_ms),
              "eager_step_ms_p50": p50(eager_ms), "ids_equal_eager": True,
-             "launches_equal_eager": True}
-    print(f"gemma_serve f32 decode graph: {graph['captures']} capture, "
-          f"engine step p50 {graph['step_ms_p50']:.3f} ms graphed, "
-          f"{graph['eager_step_ms_p50']:.3f} eager; ids and launches equal")
+             "pools_equal_eager": True, "launches_equal_eager": True,
+             "graphed": lat, "eager": eager_lat}
+    print(f"gemma_serve f32 decode graph: engine step p50 "
+          f"{graph['step_ms_p50']:.3f} ms graphed, "
+          f"{graph['eager_step_ms_p50']:.3f} eager; ids, pools and launches "
+          f"equal")
+    print_latency("gemma_serve f32", lat, eager_lat)
     runs = {"plain": engine(attn_impl="plain"),
             "chunked": engine(max_prompt=32)}
     for name, eng in runs.items():
@@ -2078,7 +2240,7 @@ def gemma_serve_f32(torch, dev):
         check(toks == tokens["kernel_cold"],
               f"gemma_serve f32: {name} tokens differ from the kernel "
               f"engine's cold wave")
-    return ({"step_logits_max_abs_err": err, "decode_graph": graph,
+    return ({"step_logits_max_abs_err": err, "graphs": graph,
              "compared": sorted(tokens), "requests": len(prompts)}, step)
 
 

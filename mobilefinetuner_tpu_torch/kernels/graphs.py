@@ -20,6 +20,7 @@ of an eager run of the same steps. Wrappers register with `counted`.
 from __future__ import annotations
 
 import collections
+import gc
 from typing import Callable, List, Optional
 
 import torch
@@ -83,10 +84,13 @@ class StepGraph:
     state made), the second captures it into a CUDA graph and replays it
     (a capture runs nothing), every later call replays it. Elsewhere, or
     without `graphed`, every call runs the body eagerly: one body on every
-    device. `captures` counts the captures and `on_capture` is called at
-    each. `reset()` drops the graph, for inputs that were reallocated: the
-    next call captures again. A capture or replay that fails raises;
-    nothing falls back to the eager body."""
+    device. `calls` counts the calls, `captures` the captures, and
+    `on_capture` is called at each; `reserved` is the device memory (bytes)
+    the caching allocator reserved during the last capture, the graph's
+    private pool. `reset()` drops the graph, for inputs that were
+    reallocated: the next call captures again. Garbage collection is off
+    while a capture runs. A capture or replay that fails raises; nothing
+    falls back to the eager body."""
 
     def __init__(self, body: Callable[[], None], device,
                  graphed: bool = True,
@@ -94,7 +98,9 @@ class StepGraph:
         self.body = body
         self.graphed = graphed and torch.device(device).type == "cuda"
         self.on_capture = on_capture
+        self.calls = 0
         self.captures = 0
+        self.reserved = 0
         self._graph: Optional["torch.cuda.CUDAGraph"] = None
         self._delta: list = []
         self._warm = False
@@ -113,17 +119,28 @@ class StepGraph:
         self.captures += 1
         if self.on_capture is not None:
             self.on_capture()
+        # no garbage collection inside the capture: a collection that
+        # frees another graph destroys it, which CUDA does not permit
+        # while a stream captures (the capture fails)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: a metrics or watchdog thread touching the card
             # meanwhile does not invalidate this thread's capture
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                # read after the capture's entry, which empties the cache
+                reserved = torch.cuda.memory_reserved()
                 self.body()
         finally:
+            if collecting:
+                gc.enable()
             delta = launch_delta(before)
             add_launches(delta, -1)     # the capture ran nothing
+        self.reserved = torch.cuda.memory_reserved() - reserved
         self._graph, self._delta = graph, delta
 
     def __call__(self) -> None:
+        self.calls += 1
         if not self.graphed:
             self.body()
             return

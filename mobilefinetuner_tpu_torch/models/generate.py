@@ -59,6 +59,9 @@ pages earlier chunks wrote and its own causal rows under one joint
 softmax, in plain torch: the JAX package computes it in XLA, not in a
 Pallas kernel. Its K/V make a round trip through the pool dtype before
 the within-chunk attention, so they are the values the pages will hold.
+Its `start` and `n_tok` may be 0-d device tensors: every shape then
+depends on the bucket width alone, so the serve engine replays one CUDA
+graph a width (serve/engine.py).
 
 Per-slot sampling (`sample_per_row`, the serve engine): temperature,
 top-k and top-p are per-row tensors; temperature <= 0 rows take the
@@ -690,9 +693,20 @@ def gemma3_prefill(config: Gemma3TextConfig, params, input_ids,
     return logits.float(), (pk, pv)
 
 
-def _chunk_rows(tbl, start: int, W: int, n_tok: int, bT: int):
-    """(pos [W], real [W], page [W], offset [W]) of a chunk's rows: real
-    rows land in their table page, padded ones in the trash page."""
+def _chunk_scalars(start, n_tok, device):
+    """`start` and `n_tok` as 0-d int64 tensors on `device`: a chunk's
+    shapes then depend on W alone, so one CUDA graph a bucket width serves
+    every start and length. Tensors pass through as they are."""
+    return tuple(v if isinstance(v, torch.Tensor)
+                 else torch.full((), int(v), dtype=torch.int64,
+                                 device=device)
+                 for v in (start, n_tok))
+
+
+def _chunk_rows(tbl, start, W: int, n_tok, bT: int):
+    """(pos [W], real [W], page [W], offset [W]) of a chunk's rows, start
+    and n_tok 0-d tensors: real rows land in their table page, padded ones
+    in the trash page."""
     rows = torch.arange(W, device=tbl.device)
     pos = start + rows
     real = rows < n_tok
@@ -742,11 +756,13 @@ def gpt2_prefill_chunk(config: GPT2Config, params, pool_k, pool_v, ids,
     chunks (or the prefix cache) wrote and the chunk's own causal rows.
 
     ids [1, W] (pad past n_tok); start (a block_T multiple) and n_tok (the
-    real tokens, 1..W) ints; tbl [1, M] the request's block table. Returns
-    (logits [1, V] f32 at the chunk's last real row, pool_k, pool_v), the
-    chunk's K/V scattered into the pools in place after the layers (padded
-    rows into the trash page)."""
-    start, n_tok = int(start), int(n_tok)
+    real tokens, 1..W) ints or 0-d int64 tensors on the pools' device (a
+    graph's static inputs: every shape depends on W alone, and nothing is
+    read back to the host); tbl [1, M] the request's block table. Returns
+    (logits [1, V] f32 at the chunk's last real row, gathered at n_tok - 1,
+    pool_k, pool_v), the chunk's K/V scattered into the pools in place
+    after the layers (padded rows into the trash page)."""
+    start, n_tok = _chunk_scalars(start, n_tok, ids.device)
     W = ids.shape[1]
     NB, L, H, bT, D = pool_k.shape
     E, eps = config.n_embd, config.layer_norm_epsilon
@@ -776,7 +792,7 @@ def gpt2_prefill_chunk(config: GPT2Config, params, pool_k, pool_v, ids,
     _scatter_chunk(pool_k, pool_v, ks, vs, page, off)
     x = gpt2.layer_norm(x, params["ln_f"]["g"].to(cd),
                         params["ln_f"]["b"].to(cd), eps)
-    last = x[n_tok - 1:n_tok]                              # [1, E]
+    last = x.index_select(0, (n_tok - 1).reshape(1))       # [1, E]
     logits = _head_lora(last @ params["wte"].to(cd).T, last, lora_b)
     return logits.float(), pool_k, pool_v
 
@@ -789,7 +805,7 @@ def gemma3_prefill_chunk(config: Gemma3TextConfig, params, pool_k, pool_v,
     layers the sliding window over both the prefix pages and the chunk's
     own rows."""
     c = config
-    start, n_tok = int(start), int(n_tok)
+    start, n_tok = _chunk_scalars(start, n_tok, ids.device)
     W = ids.shape[1]
     NB, L, KV, bT, D = pool_k.shape
     nq = c.num_attention_heads
@@ -836,7 +852,7 @@ def gemma3_prefill_chunk(config: Gemma3TextConfig, params, pool_k, pool_v,
         vs.append(vq)
     _scatter_chunk(pool_k, pool_v, ks, vs, page, off)
     x = gemma3.rms_norm(x, params["final_norm"].to(cd), eps)
-    last = x[n_tok - 1:n_tok]
+    last = x.index_select(0, (n_tok - 1).reshape(1))
     logits = _head_lora(last @ params["embed"].to(cd).T, last, lora_b)
     return logits.float(), pool_k, pool_v
 

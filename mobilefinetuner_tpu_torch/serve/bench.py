@@ -85,12 +85,12 @@ def build_engine(model: str = "gpt2s", num_slots: int = 8,
                  telemetry_out: str = "", stats_every: int = 0,
                  watchdog=None, trace_spans: bool = False,
                  metrics_port: int = 0, metrics_addr: str = "127.0.0.1",
-                 host: int = 0, _eager_decode: bool = False):
+                 host: int = 0, _eager: bool = False):
     """model: gpt2s | tiny-gpt2 | gemma270m | tiny-gemma. Returns (engine,
     tenant names), the tenants already loaded into the engine's bank.
     `host` stamps the telemetry envelope (a replica k of a fleet writes
     with host=k); `watchdog` is petted after each decode step (its
-    start and stop are the caller's). `_eager_decode` is the engine's
+    start and stop are the caller's). `_eager` is the engine's
     private argument (comparisons only)."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r} (one of {sorted(MODELS)})")
@@ -123,7 +123,7 @@ def build_engine(model: str = "gpt2s", num_slots: int = 8,
         tel.add_observer(registry.observe)
     eng = ServeEngine(family, config, params, cfg, bank=bank, telemetry=tel,
                       watchdog=watchdog, device=device,
-                      _eager_decode=_eager_decode)
+                      _eager=_eager)
     eng.metrics_server = None
     if registry is not None:
         eng.metrics_server = MetricsServer(

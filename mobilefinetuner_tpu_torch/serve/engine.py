@@ -50,32 +50,51 @@ Host syncs, as in the JAX engine: the first token after a prefill or a
 final chunk, and the step's `nxt.cpu()`. The pools are updated in place
 (the JAX engine donated them to functional updates instead).
 
-The decode step is built once and replayed, as the JAX engine's compiled
-step is. It reads only static device buffers allocated when the engine is
-built (tok, pos, tbl, aid and the sampling state temp, topk, topp, seed;
-pos + 1 is formed inside it) and writes only the static `nxt` [S]. Before
-each step the slot arrays go into those buffers through pinned staging
-with non-blocking `copy_`, after the adapter ids are validated on the
-host. The routed adapter tree is built once over the `aid` buffer and
-reads the bank's leaves where they are. On the card the step's body is a
-CUDA graph (kernels/graphs.StepGraph): the first decode step runs it
-eagerly (every kernel built and loaded), the second captures and replays
-it, every later one replays it. On the CPU the same body runs eagerly. A
+The engine runs the JAX engine's five programs, each built once for each
+static signature and replayed, as the JAX engine's compiled programs are:
+
+    program          signature        static inputs -> outputs
+    decode step      -                tok, pos, tbl [S, M], aid and the
+                                      sampling state [S] -> nxt [S]
+    one-shot prefill max_prompt       ids, mask [1, max_prompt], aid and
+                                      the sampling state [1] -> tok0 [1],
+                                      the prompt's K/V [L, KV, max_prompt, D]
+    prompt-page write max_prompt      the prefill's K/V, block_ids
+                                      [max_prompt // block_T] -> the pools
+    prefill chunk    each bucket W    ids [1, W], start, n_tok (device
+                                      scalars), tbl [1, M], aid [W] and the
+                                      sampling state [1] -> tok [1], the pools
+    page copy        -                src, dst [1] -> the pools
+
+Each program reads only static device buffers allocated when the engine
+is built and writes only such buffers and the pools. Before each call its
+host inputs go into those buffers through pinned staging, one
+non-blocking `copy_` a dtype group (`_Staged`), after the adapter ids are
+validated on the host. Each program's routed adapter tree is built once
+over its `aid` buffer and reads the bank's leaves where they are. The
+first token's choice (the argmax, or sample_per_row keyed on its absolute
+position: the prefill's from its mask, a chunk's start + n_tok, a decode
+step's pos + 1) runs inside the program. On the card each program is a
+CUDA graph (kernels/graphs.StepGraph): its first call runs it eagerly
+(every kernel built and loaded), the second captures and replays it,
+every later one replays it. On the CPU the same bodies run eagerly. A
 hot-swap writes the bank in place and containment zeroes the pools in
 place, so neither costs a capture; reassigning the pools, the params or
-the bank's tree drops the graph, and the next step captures again. A
-capture or replay that fails raises into the step's containment; nothing
-falls back to eager dispatch (the private `_eager_decode` constructor
-argument keeps eager dispatch on the card, for comparisons only).
+the bank's tree drops every graph (`_refresh`), and each program captures
+again at its next call. A capture or replay that fails raises into the
+caller's containment; nothing falls back to eager dispatch (the private
+`_eager` constructor argument keeps every program eager on the card, for
+comparisons only).
 
 `trace_counts`, as the JAX engine's (keys prefill, decode_step,
 write_prefill, prefill_chunk, cow_copy): the programs built, one for each
-static signature (shapes, dtypes and static arguments). `decode_step`
-counts the graph's captures on the card; the other programs stay eager and
-are counted the first time each signature is seen (the one-shot prefill is
-padded to max_prompt and the chunks come in the static bucket widths, so
-the counts are finite, as in JAX). `total_traces()` adds the bank's
-`trace_count`.
+static signature (shapes, dtypes and static arguments). On the card each
+key counts its program's graph captures, so after exactly one call of a
+signature the key reads 0 where the JAX engine's reads 1, and from the
+second call on they agree; elsewhere (and with `_eager`) each key counts
+a signature the first time it is seen (the one-shot prefill is padded to
+max_prompt and the chunks come in the static bucket widths, so the counts
+are finite, as in JAX). `total_traces()` adds the bank's `trace_count`.
 
 Precision: the engine sets `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` to False when it is built, so an f32
@@ -111,6 +130,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import threading
 import time
 from typing import Callable, List, Optional, Sequence
@@ -124,8 +144,7 @@ from mobilefinetuner_tpu_torch.core.preempt import PreemptionGuard
 from mobilefinetuner_tpu_torch.core.telemetry import Telemetry, run_manifest
 from mobilefinetuner_tpu_torch.core.trace import Tracer
 from mobilefinetuner_tpu_torch.kernels.graphs import StepGraph
-from mobilefinetuner_tpu_torch.lora.lora import (assign_adapters, bank_size,
-                                                 check_adapter_ids,
+from mobilefinetuner_tpu_torch.lora.lora import (bank_size, check_adapter_ids,
                                                  route_rows, tree_leaves)
 from mobilefinetuner_tpu_torch.models.generate import (
     gemma3_decode_step_paged, gemma3_prefill, gemma3_prefill_chunk,
@@ -305,6 +324,44 @@ class Request:
                 / (len(self.tokens) - 1) * 1000.0)
 
 
+class _Staged:
+    """A program's static device inputs by name, from `spec` {name:
+    (shape, dtype)}: each dtype group is one device tensor whose views are
+    the inputs, beside one host staging tensor (pinned on the card).
+    `stage(**arrays)` writes host arrays into the staging and copies each
+    group with one non-blocking `copy_`; it first waits for the last
+    stage's copies, which read the same staging."""
+
+    def __init__(self, device: torch.device, spec: dict):
+        pin = device.type == "cuda"
+        sizes: dict = {}
+        where = {}
+        for name, (shape, dtype) in spec.items():
+            n = int(np.prod(shape, dtype=np.int64))
+            where[name] = (dtype, sizes.get(dtype, 0), n, shape)
+            sizes[dtype] = sizes.get(dtype, 0) + n
+        self._pairs = {dt: (torch.zeros(n, dtype=dt, pin_memory=pin),
+                            torch.zeros(n, dtype=dt, device=device))
+                       for dt, n in sizes.items()}
+        self.buf = {}
+        self._host = {}
+        for name, (dt, o, n, shape) in where.items():
+            host, dev = self._pairs[dt]
+            self.buf[name] = dev[o:o + n].view(shape)
+            self._host[name] = host[o:o + n].numpy().reshape(shape)
+        self._copied = torch.cuda.Event() if pin else None
+
+    def stage(self, **arrays) -> None:
+        if self._copied is not None:
+            self._copied.synchronize()
+        for name, a in arrays.items():
+            self._host[name][...] = a
+        for host, dev in self._pairs.values():
+            dev.copy_(host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+
 def _seed64(seed: int) -> int:
     """A request seed as the int64 with its low 64 bits."""
     seed &= (1 << 64) - 1
@@ -322,16 +379,16 @@ class ServeEngine:
     is the CUDA card (core/device.py). The engine is single-threaded:
     every mutation comes from the serve loop; health() is also read by
     the metrics endpoint's threads (its step-time window under
-    `_health_lock`, the rest scalar snapshots). `_eager_decode` (private:
-    tests and chip_smoke.py compare against it) runs the decode step
-    eagerly on the card instead of replaying its graph.
+    `_health_lock`, the rest scalar snapshots). `_eager` (private: tests
+    and chip_smoke.py compare against it) runs every program eagerly on
+    the card instead of replaying its graph.
     """
 
     def __init__(self, family: str, config, params,
                  cfg: Optional[ServeConfig] = None,
                  bank: Optional[AdapterBank] = None, telemetry=None,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 watchdog=None, device=None, _eager_decode: bool = False):
+                 watchdog=None, device=None, _eager: bool = False):
         cfg = cfg or ServeConfig()
         cfg.validate()
         if family == "gpt2":
@@ -422,14 +479,7 @@ class ServeEngine:
         self._topp = np.ones(S, np.float32)
         self._seed = np.zeros(S, np.int64)
         self._slots: List[Optional[Request]] = [None] * S
-        self._init_step_buffers()
-        # the programs built, by the JAX engine's names (module docstring)
-        self.trace_counts: collections.Counter = collections.Counter()
-        self._signatures: set = set()
-        self._decode_graph = StepGraph(
-            self._decode_body, self.device, graphed=not _eager_decode,
-            on_capture=lambda: self.trace_counts.update(["decode_step"]))
-        self._step_inputs: tuple = (None,) * 4
+        self._init_programs(L, KV, D, graphed=not _eager)
         self.queue: collections.deque = collections.deque()
         self.decode_steps = 0
         self.decode_s = 0.0     # wall time in decode steps, host sync incl.
@@ -491,81 +541,178 @@ class ServeEngine:
             self._signatures.add(key)
             self.trace_counts[program] += 1
 
-    # ------------------------------------------------------- decode step ---
-    def _init_step_buffers(self) -> None:
-        """The decode step's static buffers, by dtype: host staging
-        (pinned on the card) and its device twin, whose views are the
-        step's inputs; and the output `nxt` [S]."""
-        S, M = self.cfg.num_slots, self.M
-        pin = self.device.type == "cuda"
+    # ---------------------------------------------------------- programs ---
+    def _init_programs(self, L: int, KV: int, D: int, graphed: bool) -> None:
+        """Every program's static inputs (`_Staged`) and outputs, and its
+        StepGraph: one for each (program, signature) (module
+        docstring)."""
+        cfg, S, M, dev = self.cfg, self.cfg.num_slots, self.M, self.device
+        i64, i32, f32 = torch.int64, torch.int32, torch.float32
 
-        def pair(n, dtype):
-            return (torch.zeros(n, dtype=dtype, pin_memory=pin),
-                    torch.zeros(n, dtype=dtype, device=self.device))
-        self._staging = {"i64": pair(5 * S, torch.int64),
-                         "i32": pair(S * M, torch.int32),
-                         "f32": pair(2 * S, torch.float32)}
-        i64, i32, f32 = (self._staging[k][1] for k in ("i64", "i32", "f32"))
-        self._buf = {"tok": i64[:S], "pos": i64[S:2 * S],
-                     "aid": i64[2 * S:3 * S], "topk": i64[3 * S:4 * S],
-                     "seed": i64[4 * S:], "tbl": i32.view(S, M),
-                     "temp": f32[:S], "topp": f32[S:]}
-        self._nxt = torch.zeros(S, dtype=torch.int64, device=self.device)
-        self._staged = torch.cuda.Event() if pin else None
-        self._routed = None
+        def sampling(n):
+            return {"temp": ((n,), f32), "topk": ((n,), i64),
+                    "topp": ((n,), f32), "seed": ((n,), i64)}
+        P, Wmax = cfg.max_prompt, self.chunk_buckets[-1]
+        self._step_in = _Staged(dev, {
+            "tok": ((S,), i64), "pos": ((S,), i64), "aid": ((S,), i64),
+            "tbl": ((S, M), i32), **sampling(S)})
+        # the prompt-page write's block ids ride the prefill's staging
+        self._prefill_in = _Staged(dev, {
+            "ids": ((1, P), i64), "mask": ((1, P), i64), "aid": ((1,), i64),
+            "block_ids": ((P // cfg.block_T,), i32), **sampling(1)})
+        # one staging for every bucket: a width-W chunk reads the first W
+        # ids and adapter ids; start_n holds (start, n_tok)
+        self._chunk_in = _Staged(dev, {
+            "ids": ((Wmax,), i64), "aid": ((Wmax,), i64),
+            "start_n": ((2,), i64), "tbl": ((1, M), i32), **sampling(1)})
+        self._cow_in = _Staged(dev, {"src": ((1,), i64), "dst": ((1,), i64)})
+        self._buf = self._step_in.buf
+        self._nxt = torch.zeros(S, dtype=i64, device=dev)
+        self._tok0 = torch.zeros(1, dtype=i64, device=dev)
+        self._chunk_tok = torch.zeros(1, dtype=i64, device=dev)
+        self._prompt_k = torch.zeros(L, KV, P, D, dtype=self.dtype,
+                                     device=dev)
+        self._prompt_v = torch.zeros_like(self._prompt_k)
 
-    def _stage(self) -> None:
-        """The slot arrays into the static buffers: numpy into the
-        staging, then one non-blocking copy_ a dtype group."""
-        if self._staged is not None:
-            self._staged.synchronize()  # the last copies read the staging
-        S = self.cfg.num_slots
-        i64 = self._staging["i64"][0].numpy()
-        for j, a in enumerate((self._tok, self._pos, self._aid, self._topk,
-                               self._seed)):
-            i64[j * S:(j + 1) * S] = a
-        self._staging["i32"][0].numpy()[:] = self._tbl.reshape(-1)
-        f32 = self._staging["f32"][0].numpy()
-        f32[:S], f32[S:] = self._temp, self._topp
-        for host, dev in self._staging.values():
-            dev.copy_(host, non_blocking=True)
-        if self._staged is not None:
-            self._staged.record()
+        # the programs built, by the JAX engine's names (module docstring)
+        self.trace_counts: collections.Counter = collections.Counter()
+        self._signatures: set = set()
+
+        def graph(body, program):
+            return StepGraph(
+                body, dev, graphed=graphed,
+                on_capture=lambda: self.trace_counts.update([program]))
+        self._decode_graph = graph(self._decode_body, "decode_step")
+        self._prefill_graph = graph(self._prefill_body, "prefill")
+        self._write_graph = graph(self._write_body, "write_prefill")
+        self._chunk_graphs = {
+            W: graph(functools.partial(self._chunk_body, W), "prefill_chunk")
+            for W in self.chunk_buckets}
+        self._cow_graph = graph(self._cow_body, "cow_copy")
+        self._inputs: tuple = (None,) * 4
+        self._routed = self._prefill_routed = None
+        self._chunk_routed: dict = {}
+
+    def graphs(self) -> dict:
+        """{(program, signature): StepGraph} of every program (module
+        docstring); the signature is () for a program with a single
+        one."""
+        P = self.cfg.max_prompt
+        return {("decode_step", ()): self._decode_graph,
+                ("prefill", (P,)): self._prefill_graph,
+                ("write_prefill", (P,)): self._write_graph,
+                **{("prefill_chunk", (W,)): g
+                   for W, g in self._chunk_graphs.items()},
+                ("cow_copy", ()): self._cow_graph}
+
+    def _refresh(self) -> None:
+        """Before any program runs: when the params, the pools or the
+        bank's tree were reassigned (or at the first call), what a graph
+        captured is stale: route the adapter trees over the static `aid`
+        buffers anew and drop every graph, so each program captures again
+        at its next call."""
+        bank_tree = self.bank.tree if self.bank is not None else None
+        inputs = (self.params, self.pool_k, self.pool_v, bank_tree)
+        if all(a is b for a, b in zip(inputs, self._inputs)):
+            return
+        self._inputs = inputs
+
+        def route(ids):
+            return None if bank_tree is None else route_rows(bank_tree, ids)
+        self._routed = route(self._step_in.buf["aid"])
+        self._prefill_routed = route(self._prefill_in.buf["aid"])
+        aid = self._chunk_in.buf["aid"]
+        self._chunk_routed = {W: route(aid[:W]) for W in self.chunk_buckets}
+        for g in self.graphs().values():
+            g.reset()
+
+    def _check_aid(self, aid) -> None:
+        """Adapter ids validated on the host before a program gathers
+        them: out of range, a gather would fault or serve another
+        tenant's weights."""
+        if self.bank is not None:
+            check_adapter_ids(bank_size(self.bank.tree), aid)
+
+    def _run(self, graph: StepGraph, program: str, *signature) -> None:
+        """Run or replay one program; an eager one counts its signature
+        the first time it is seen (a graphed one counts its captures)."""
+        self._refresh()
+        if not graph.graphed:
+            self._note(program, *signature)
+        graph()
+
+    def _pick(self, logits, b: dict, pos_next):
+        """The emitted tokens of `logits` [R, V] inside a program: the
+        argmax, or on a sampling engine sample_per_row with the program's
+        sampling buffers `b`, keyed on the emitted tokens' absolute
+        positions `pos_next` [R]."""
+        if not self.cfg.sampling:
+            return logits.argmax(-1)
+        return sample_per_row(logits, b["temp"], b["topk"], b["topp"],
+                              b["seed"], pos_next)
 
     def _decode_body(self) -> None:
-        """The decode step over the static buffers: the CUDA graph's body
-        on the card, the eager step elsewhere."""
+        """The decode step over its static buffers: a CUDA graph's body on
+        the card, the eager step elsewhere."""
         b = self._buf
         logits, _, _ = self._step_fn(
             self.config, self.params, self.pool_k, self.pool_v, b["tok"],
             b["pos"], b["tbl"], lora=self._routed, compute_dtype=self.dtype,
             attn_impl=self.cfg.attn_impl)
-        if self.cfg.sampling:
-            nxt = sample_per_row(logits, b["temp"], b["topk"], b["topp"],
-                                 b["seed"], b["pos"] + 1)
-        else:
-            nxt = logits.argmax(-1)
-        self._nxt.copy_(nxt)
+        self._nxt.copy_(self._pick(logits, b, b["pos"] + 1))
+
+    def _prefill_body(self) -> None:
+        """The one-shot prefill: the first token at the mask's length and
+        the prompt's K/V into their static buffers."""
+        b = self._prefill_in.buf
+        logits, (k, v) = self._prefill_fn(
+            self.config, self.params, b["ids"], b["mask"],
+            compute_dtype=self.dtype, lora=self._prefill_routed,
+            attn_impl=self.cfg.attn_impl)
+        self._prompt_k.copy_(k[:, 0])
+        self._prompt_v.copy_(v[:, 0])
+        self._tok0.copy_(self._pick(logits, b, b["mask"].sum(-1)))
+
+    def _write_body(self) -> None:
+        """The prefill's K/V scattered into its pages (write_prompt_blocks),
+        table rows past the prompt into the trash page."""
+        write_prompt_blocks(self.pool_k, self.pool_v, self._prompt_k,
+                            self._prompt_v,
+                            self._prefill_in.buf["block_ids"])
+
+    def _chunk_body(self, W: int) -> None:
+        """One width-W prefill chunk; its token at start + n_tok (only the
+        final chunk's is read)."""
+        b = self._chunk_in.buf
+        sn = b["start_n"]
+        logits, _, _ = self._chunk_fn(
+            self.config, self.params, self.pool_k, self.pool_v,
+            b["ids"][:W].view(1, W), sn[0], sn[1], b["tbl"],
+            lora=self._chunk_routed[W], compute_dtype=self.dtype)
+        self._chunk_tok.copy_(self._pick(logits, b, sn[:1] + sn[1:]))
+
+    def _cow_body(self) -> None:
+        """The copy-on-write page copy, pool[dst] = pool[src], by indexed
+        copies at device indices."""
+        b = self._cow_in.buf
+        for pool in (self.pool_k, self.pool_v):
+            pool.index_copy_(0, b["dst"], pool.index_select(0, b["src"]))
 
     def _decode(self) -> np.ndarray:
         """One decode step over every slot: validate the routing, stage
         the slot arrays, run or replay the step, read `nxt` back (the
         serve loop's one host sync a step)."""
-        bank_tree = self.bank.tree if self.bank is not None else None
-        if bank_tree is not None:
-            check_adapter_ids(bank_size(bank_tree), self._aid)
-        inputs = (self.params, self.pool_k, self.pool_v, bank_tree)
-        if any(a is not b for a, b in zip(inputs, self._step_inputs)):
-            # built, or reallocated: what a graph captured is stale
-            self._step_inputs = inputs
-            self._routed = (None if bank_tree is None
-                            else route_rows(bank_tree, self._buf["aid"]))
-            self._decode_graph.reset()
-        if not self._decode_graph.graphed:
-            self._note("decode_step")
-        self._stage()
-        self._decode_graph()
+        self._check_aid(self._aid)
+        self._step_in.stage(tok=self._tok, pos=self._pos, aid=self._aid,
+                            tbl=self._tbl, temp=self._temp, topk=self._topk,
+                            topp=self._topp, seed=self._seed)
+        self._run(self._decode_graph, "decode_step")
         return self._nxt.cpu().numpy()
+
+    def _slot_sampling(self, slot: int) -> dict:
+        """Slot `slot`'s sampling state, for a [1]-row program's staging."""
+        return {"temp": self._temp[slot], "topk": self._topk[slot],
+                "topp": self._topp[slot], "seed": self._seed[slot]}
 
     def _lora_impl_resolved(self) -> Optional[str]:
         """The adapters' order per target (models/lora_apply.py), or None
@@ -574,12 +721,6 @@ class ServeEngine:
             return None
         return impl_summary(self.bank.tree["blocks"], self.cfg.lora_impl,
                             self.device, routed=True)
-
-    def _route(self, aid: np.ndarray):
-        """Bank slots -> per-row lora tree (the ids-gather routing)."""
-        if self.bank is None:
-            return None
-        return assign_adapters(self.bank.tree, aid)
 
     @property
     def active(self) -> List[Request]:
@@ -638,17 +779,6 @@ class ServeEngine:
                 self._req_span("queue", req, req.enqueue_t,
                                (req.finish_t - req.enqueue_t) * 1000.0,
                                outcome=state)
-
-    def _select(self, logits, rows: np.ndarray, pos_next: np.ndarray):
-        """The emitted tokens of `logits` [R, V]: the argmax, or on a
-        sampling engine sample_per_row with the sampling state of slots
-        `rows`, keyed on the emitted tokens' absolute positions."""
-        if not self.cfg.sampling:
-            return logits.argmax(-1)
-        return sample_per_row(
-            logits, self._dev(self._temp[rows]), self._dev(self._topk[rows]),
-            self._dev(self._topp[rows]), self._dev(self._seed[rows]),
-            self._dev(np.asarray(pos_next, np.int64)))
 
     # ------------------------------------------------------------ tenancy ---
     def load_adapter(self, name: str, source, verify: bool = True) -> int:
@@ -854,25 +984,21 @@ class ServeEngine:
         ids = np.full((1, cfg.max_prompt), self.pad_id, np.int64)
         mask = np.zeros((1, cfg.max_prompt), np.int64)
         ids[0, :P], mask[0, :P] = req.prompt, 1
-        t_prefill = time.perf_counter()
-        self._note("prefill", cfg.max_prompt)
-        logits, (k, v) = self._prefill_fn(
-            self.config, self.params, self._dev(ids), self._dev(mask),
-            compute_dtype=self.dtype,
-            lora=self._route(np.asarray([req.aid], np.int64)),
-            attn_impl=cfg.attn_impl)
-        self.prefills += 1
-        tok0 = self._select(logits, np.asarray([slot]), np.asarray([P]))[0]
-        # scatter the prompt pages; table rows past the prompt stay trash
+        # the prompt pages; table rows past the prompt stay trash
         block_ids = np.full(cfg.max_prompt // cfg.block_T, TRASH_BLOCK,
                             np.int32)
         block_ids[:len(req.blocks)] = req.blocks
+        self._check_aid([req.aid])
+        t_prefill = time.perf_counter()
+        self._prefill_in.stage(ids=ids, mask=mask, aid=req.aid,
+                               block_ids=block_ids,
+                               **self._slot_sampling(slot))
+        self._run(self._prefill_graph, "prefill", cfg.max_prompt)
+        self.prefills += 1
         self._pools_at_risk = True
-        self._note("write_prefill", cfg.max_prompt)
-        write_prompt_blocks(self.pool_k, self.pool_v, k[:, 0], v[:, 0],
-                            self._dev(block_ids))
+        self._run(self._write_graph, "write_prefill", cfg.max_prompt)
         self._pools_at_risk = False
-        tok0 = int(tok0)                 # host sync: the first token
+        tok0 = int(self._tok0.item())    # host sync: the first token
         now = req.admit_t = time.perf_counter()
         if self.tracer.enabled:
             # the queue span closes where the prefill begins; the prefill
@@ -901,9 +1027,8 @@ class ServeEngine:
         self.alloc.free([src], park=self.prefix.park)
         req.blocks = cached[:-1] + [dst]
         self._pools_at_risk = True
-        self._note("cow_copy")
-        self.pool_k[dst] = self.pool_k[src]
-        self.pool_v[dst] = self.pool_v[src]
+        self._cow_in.stage(src=src, dst=dst)
+        self._run(self._cow_graph, "cow_copy")
         self._pools_at_risk = False
         self.cow_copies += 1
         self.full_hits += 1
@@ -953,19 +1078,18 @@ class ServeEngine:
         start = req.prefill_pos
         W = self._bucket(req)
         n_tok = min(P - start, W)
-        ids = np.full((1, W), self.pad_id, np.int64)
-        ids[0, :n_tok] = req.prompt[start:start + n_tok]
+        # the staging holds the widest bucket; a width-W chunk reads the
+        # first W ids, and one request's rows all route its adapter
+        ids = np.full(self.chunk_buckets[-1], self.pad_id, np.int64)
+        ids[:n_tok] = req.prompt[start:start + n_tok]
         tbl = np.full((1, self.M), TRASH_BLOCK, np.int32)
         tbl[0, :len(req.blocks)] = req.blocks
-        # one request's rows all route its adapter
-        lora = self._route(np.full(W, req.aid, np.int64))
+        self._check_aid([req.aid])
         t_chunk = time.perf_counter()
+        self._chunk_in.stage(ids=ids, aid=req.aid, start_n=(start, n_tok),
+                             tbl=tbl, **self._slot_sampling(slot))
         self._pools_at_risk = True
-        self._note("prefill_chunk", W)
-        logits, _, _ = self._chunk_fn(
-            self.config, self.params, self.pool_k, self.pool_v,
-            self._dev(ids), start, n_tok, self._dev(tbl), lora=lora,
-            compute_dtype=self.dtype)
+        self._run(self._chunk_graphs[W], "prefill_chunk", W)
         self._pools_at_risk = False
         self.chunks += 1
         req.prefill_pos += n_tok
@@ -974,9 +1098,9 @@ class ServeEngine:
                            (time.perf_counter() - t_chunk) * 1000.0)
         if req.prefill_pos < P:
             return
-        tok = self._select(logits, np.asarray([slot]), np.asarray([P]))[0]
         req.prefilling = False
-        self._first_token(req, int(tok))   # host sync: the first token
+        # host sync: the first token
+        self._first_token(req, int(self._chunk_tok.item()))
 
     def _release(self, req: Request) -> None:
         park = self.prefix.park if self.prefix is not None else None
@@ -1018,7 +1142,7 @@ class ServeEngine:
         (state=error, reason=<exception type>), release exactly its pages,
         and zero the pools so the next admission starts clean; the prefix
         cache forgets every page, since the contents are gone. The queue
-        is untouched. The pools are zeroed in place, so the decode step's
+        is untouched. The pools are zeroed in place, so every program's
         graph stays valid: containment costs no capture (as the JAX
         engine's costs no retrace)."""
         name = type(e).__name__

@@ -1,11 +1,14 @@
-"""The serve engine's and generate's decode steps as CUDA graphs on the
-card, against the same runs with every step eager (the private
-`_eager_decode` / `_eager` arguments): identical ids, greedy and sampled,
-in f32 and bf16, for GPT-2 and Gemma-3, through an adapter hot-swap and a
-contained step error; exactly one capture per engine or generate call;
-every kernel's launch count equal to the eager run's. Marked `cuda`:
-without an NVIDIA card and nvcc every test here skips. On a machine with
-a card: `python -m pytest tests/test_torch_cuda_graphs.py`."""
+"""The serve engine's five programs (decode step, one-shot prefill,
+prompt-page write, prefill chunks, page copy) and generate's decode step
+as CUDA graphs on the card, against the same runs with every program
+eager (the private `_eager` arguments): identical ids, greedy and
+sampled, in f32 and bf16, for GPT-2 and Gemma-3, through an adapter
+hot-swap and a contained step error; identical pools bit for bit;
+exactly one capture for each (program, signature) called twice or more,
+none on the hot-swap or the contained error, a new one after the pools
+are reassigned; every kernel's launch count equal to the eager run's.
+Marked `cuda`: without an NVIDIA card and nvcc every test here skips. On
+a machine with a card: `python -m pytest tests/test_torch_cuda_graphs.py`."""
 
 import dataclasses
 
@@ -25,6 +28,8 @@ from mobilefinetuner_tpu_torch.serve.engine import DTYPES
 
 pytestmark = pytest.mark.cuda
 
+KEYS = ("prefill", "decode_step", "write_prefill", "prefill_chunk",
+        "cow_copy")
 WRAPPERS = {"flash": fa.flash_attention_fwd,
             "paged": da.paged_decode_attention,
             "decode": da.decode_attention, "epilogue": lf.lora_epilogue}
@@ -73,10 +78,12 @@ def _model(family, dev, dtype):
 
 
 def _serve(family, dev, dtype, sampled, eager):
-    """Three waves through one engine (prefix cache, chunked admission,
+    """Four waves through one engine (prefix cache, chunked admission,
     sampling on): a mixed wave; a hot-swap (t1 evicted, t2 loaded) and a
-    wave with a step error injected after two steps; a last wave. Returns
-    (per-request (state, reason, tokens), launch counts, engine)."""
+    wave with a step error injected after two steps; a wave that caches a
+    32-token prefix; three full hits on it (three page copies). Returns
+    (per-request (state, reason, tokens), launch counts, engine, the
+    captures before the hot-swap)."""
     config, params, trees = _model(family, dev, dtype)
     eng = ServeEngine(
         family, config, params,
@@ -84,7 +91,7 @@ def _serve(family, dev, dtype, sampled, eager):
                     max_new_tokens=10, dtype=dtype, sampling=True,
                     prefix_cache=True, max_prompt_chunked=64),
         bank=AdapterBank(trees[0], capacity=2, family=family), device=dev,
-        _eager_decode=eager)
+        _eager=eager)
     eng.load_adapter("t0", trees[0])
     eng.load_adapter("t1", trees[1])
     g = torch.Generator().manual_seed(5)
@@ -104,6 +111,7 @@ def _serve(family, dev, dtype, sampled, eager):
     reqs = submit([common + ints(5), ints(20), list(common), ints(50),
                    ints(7)], [None, "t0", None, "t1", "t0"])
     eng.drain()
+    captured = {k: g.captures for k, g in eng.graphs().items()}
     eng.evict_adapter("t1")
     eng.load_adapter("t2", trees[2])
     wave = submit([ints(9), ints(12), ints(30), ints(4)],
@@ -118,10 +126,24 @@ def _serve(family, dev, dtype, sampled, eager):
     eng.step()
     eng.drain()
     last = submit([common + ints(3), ints(15), ints(40)],
-                  ["t2", "t0", None])
+                  [None, "t0", None])
     eng.drain()
-    out = [(r.state, r.reason, r.tokens) for r in reqs + wave + last]
-    return out, _counts(), eng
+    hits = submit([list(common)] * 3, [None] * 3)
+    eng.drain()
+    out = [(r.state, r.reason, r.tokens)
+           for r in reqs + wave + last + hits]
+    return out, _counts(), eng, captured
+
+
+def _expected_counts(eng, graphed: bool) -> dict:
+    """trace_counts from the programs' calls: on the card a graph
+    captures at its second call; an eager program counts a signature at
+    its first."""
+    least = 2 if graphed else 1
+    out = dict.fromkeys(KEYS, 0)
+    for (program, _), g in eng.graphs().items():
+        out[program] += g.calls >= least
+    return out
 
 
 @pytest.mark.parametrize("family", ["gpt2", "gemma"])
@@ -132,14 +154,31 @@ def test_graphed_engine_matches_eager(dev, family, dtype, sampled):
     states and tokens, one capture in the graphed engine across the
     hot-swap and the contained error (eager: none), equal launch counts
     by kernel and by shape."""
-    got, got_counts, eng = _serve(family, dev, dtype, sampled, eager=False)
-    want, want_counts, ref = _serve(family, dev, dtype, sampled, eager=True)
+    got, got_counts, eng, captured = _serve(family, dev, dtype, sampled,
+                                            eager=False)
+    want, want_counts, ref, _ = _serve(family, dev, dtype, sampled,
+                                       eager=True)
     assert got == want
     assert any(s == "error" for s, _, _ in got)
-    assert sum(s == "finished" for s, _, _ in got) >= 9
-    assert eng._decode_graph.captures == 1 and ref._decode_graph.captures == 0
-    assert eng.trace_counts["decode_step"] == 1
-    assert dict(eng.trace_counts) == dict(ref.trace_counts)
+    assert sum(s == "finished" for s, _, _ in got) >= 12
+    assert eng.full_hits == ref.full_hits == 3
+    # the trash page aside: which idle or padded row's write lands there
+    # is unspecified
+    assert torch.equal(eng.pool_k[1:], ref.pool_k[1:])
+    assert torch.equal(eng.pool_v[1:], ref.pool_v[1:])
+    # one capture for each (program, signature) called twice or more,
+    # none added by the hot-swap or the contained error
+    graphs = eng.graphs()
+    for key, g in graphs.items():
+        assert g.captures == (g.calls >= 2), (key, g.calls, g.captures)
+        assert ref.graphs()[key].captures == 0
+        if captured[key]:
+            assert g.captures == captured[key], key
+    assert all(eng.trace_counts[k] >= 1 for k in KEYS), eng.trace_counts
+    assert {k: eng.trace_counts[k] for k in KEYS} == _expected_counts(
+        eng, graphed=True)
+    assert {k: ref.trace_counts[k] for k in KEYS} == _expected_counts(
+        ref, graphed=False)
     assert got_counts == want_counts
     L = eng.config.n_layer if family == "gpt2" \
         else eng.config.num_hidden_layers
@@ -148,23 +187,29 @@ def test_graphed_engine_matches_eager(dev, family, dtype, sampled):
 
 
 def test_reallocated_pools_drop_the_graph(dev):
-    """Reassigning the pools (not zeroing them in place) makes the next
-    step capture again, and the tokens stay the eager engine's."""
+    """Reassigning the pools (not zeroing them in place) drops every
+    graph: the decode step captures again at its next step, the prefill
+    and the page write at the next admission, and the tokens stay the
+    eager engine's."""
     config, params, trees = _model("gpt2", dev, "float32")
     out = []
     for eager in (False, True):
         eng = ServeEngine("gpt2", config, params, ServeConfig(
             num_slots=2, block_T=16, num_blocks=32, max_prompt=32,
-            max_new_tokens=12), device=dev, _eager_decode=eager)
+            max_new_tokens=12), device=dev, _eager=eager)
         reqs = [eng.submit(list(range(3, 12))), eng.submit([5, 6, 7])]
         for _ in range(4):
             eng.step()
         eng.pool_k = eng.pool_k.clone()
         eng.pool_v = eng.pool_v.clone()
+        reqs += [eng.submit(list(range(20, 31))), eng.submit([8, 9])]
         eng.drain()
         out.append([r.tokens for r in reqs])
         if not eager:
             assert eng.trace_counts["decode_step"] == 2
+            assert eng.trace_counts["prefill"] == 2
+            assert eng.trace_counts["write_prefill"] == 2
+            assert eng._prefill_graph.calls == 4
     assert out[0] == out[1]
 
 

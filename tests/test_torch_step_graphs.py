@@ -5,7 +5,8 @@
   capture takes back out what the capture counted (nothing ran), every
   replay adds it once, so the counts equal an eager run's, tallies by
   shape included; a failed capture raises and leaves the counts as they
-  were; reset() makes the next call capture again;
+  were; reset() makes the next call capture again; the garbage collector
+  is off inside a capture only;
 - generate's decode step with the step index `t` as a device scalar (the
   form a CUDA graph replays): greedy ids equal to the JAX package's for
   GPT-2 and Gemma-3 with a dynamic adapter, the K/V written at column
@@ -18,6 +19,7 @@ The real capture and replay are held on the card
 import collections
 import contextlib
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -126,6 +128,28 @@ def test_a_failed_capture_raises_and_restores_the_counts(fake_cuda):
     assert graph.graph is None and FakeGraph.replays == 0
     graph()                              # captures again, then replays
     assert graph.captures == 2 and fake_cuda.launches == 2
+
+
+def test_no_garbage_collection_inside_a_capture(fake_cuda):
+    """A collection during a capture could free another graph, which CUDA
+    forbids while a stream captures: the collector is off in the capture
+    only, and on again after it, a failed one too."""
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        if len(seen) == 3:               # the second graph's capture
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    graph = graphs.StepGraph(body, "cuda")
+    graph()                              # warm-up
+    graph()                              # capture
+    assert seen == [True, False] and gc.isenabled()
+    graph.reset()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graph()
+    assert seen == [True, False, False] and gc.isenabled()
+    assert graph.calls == 3 and graph.captures == 2
 
 
 def test_delta_helpers_drop_tallies_that_fall_to_zero(fake_cuda):
